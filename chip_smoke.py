@@ -1,0 +1,498 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``distkeras_tpu_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and no phase is skipped:
+
+1. require a CUDA card; print its name and power limit (nvidia-smi);
+2. build the hand-written kernels from ``distkeras_tpu_torch/csrc``;
+3. the flash-attention forward kernel against its plain PyTorch
+   version at the serving path's shapes (bf16), with times;
+4. the paged decode kernel against its plain version, with times;
+5. the serving path end to end: the 218M transformer LM (d_model 1024,
+   16 heads, 12 layers, vocab 32768, bf16, random weights from a seed)
+   behind a paged ``ServingEngine`` serving six requests (a shared
+   512-token template, a 1500-token prompt, a sampled request, greedy
+   ones), with both kernels' launch counts read around that run only;
+   then one prompt's logits on the card against the plain path on the
+   CPU in float32 at the same weights.
+
+The line before the last is one JSON object with every kernel's
+numbers; the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from distkeras_tpu_torch import kernels
+from distkeras_tpu_torch.models import Model, zoo
+from distkeras_tpu_torch.models.decoding import (fuse_qkv_params,
+                                                 init_cache, prefill,
+                                                 serving_params)
+from distkeras_tpu_torch.ops.flash_attention import (flash_forward,
+                                                     flash_forward_reference)
+from distkeras_tpu_torch.ops.paged_attention import (
+    paged_decode_attention, paged_decode_attention_reference)
+from distkeras_tpu_torch.serving import ServingEngine
+
+#: the LM the JAX package benchmarks (bench.py LM_CFG), at full depth
+LM_CFG = dict(vocab=32768, d_model=1024, num_heads=16, num_layers=12,
+              mlp_ratio=4)
+#: published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+#: bf16 attention output against float32 math: output rounding (2^-8
+#: relative) of O(1) values plus the bf16-rounded probabilities
+KERNEL_BF16_TOL = 2e-2
+#: the log-sum-exp is float32 math on both sides; only the order of the
+#: row sums differs
+LSE_TOL = 1e-3
+
+SEED = 0
+NEW_TOKENS = 32
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls
+    (CUDA events around the loop, after ``warmup`` calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(flops: float, nbytes: float, peak_flops: float):
+    t_ops = flops / peak_flops
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _admitted_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    if not causal:
+        return sq * sk
+    i = np.arange(sq)
+    reach = i + 1 if window is None else np.minimum(i + 1, window)
+    return int(reach.sum())
+
+
+# --- phase 3: flash-attention forward --------------------------------------
+
+
+def flash_cases(dev):
+    """The serving path's shapes: a 1024-position causal prompt, a ragged one,
+    a sliding window, and the chunked-prefill prefix pass (GQA folded
+    into the rows: [B*Hkv, 1, G*256, 64] queries on a 1024-key prefix)."""
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
+
+    h, d = 16, 64
+    return [
+        ("causal S=1024", dict(q=rnd(1, 1024, h, d), k=rnd(1, 1024, h, d),
+                               v=rnd(1, 1024, h, d), causal=True,
+                               window=None, layout="bshd")),
+        ("causal ragged S=1000", dict(q=rnd(1, 1000, h, d),
+                                      k=rnd(1, 1000, h, d),
+                                      v=rnd(1, 1000, h, d), causal=True,
+                                      window=None, layout="bshd")),
+        ("window=256 S=1024", dict(q=rnd(1, 1024, h, d),
+                                   k=rnd(1, 1024, h, d),
+                                   v=rnd(1, 1024, h, d), causal=True,
+                                   window=256, layout="bshd")),
+        ("prefix [16,1,256,64] x 1024 keys",
+         dict(q=rnd(16, 1, 256, d), k=rnd(16, 1, 1024, d),
+              v=rnd(16, 1, 1024, d), causal=False, window=None,
+              layout="bhsd")),
+    ]
+
+
+def _sdpa(c):
+    """One PyTorch call computing the same attention (yardstick only;
+    the port never calls it)."""
+    t = (lambda x: x.transpose(1, 2)) if c["layout"] == "bshd" \
+        else (lambda x: x)
+    q, k, v = t(c["q"]), t(c["k"]), t(c["v"])
+    mask = None
+    if c["window"] is not None:
+        i = torch.arange(q.shape[2], device=q.device)
+        mask = (i[None, :] <= i[:, None]) & \
+            (i[None, :] > i[:, None] - c["window"])
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    return F.scaled_dot_product_attention(q, k, v, is_causal=c["causal"])
+
+
+def flash_phase(dev):
+    rows = []
+    for name, c in flash_cases(dev):
+        kw = dict(scale=c["q"].shape[-1] ** -0.5, causal=c["causal"],
+                  window=c["window"], layout=c["layout"])
+        qkv = (c["q"], c["k"], c["v"])
+        out, lse = flash_forward(*qkv, **kw)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_forward_reference(*qkv, **kw)
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        ms = time_ms(lambda: flash_forward(*qkv, **kw))
+        plain_ms = time_ms(lambda: flash_forward_reference(*qkv, **kw),
+                           iters=5)
+        lib_ms = time_ms(lambda: _sdpa(c))
+        heads_major = [x if c["layout"] == "bhsd" else x.transpose(1, 2)
+                       for x in qkv]
+        b, h, sq, d = heads_major[0].shape
+        sk = heads_major[1].shape[2]
+        flops = 4.0 * b * h * _admitted_pairs(sq, sk, c["causal"],
+                                              c["window"]) * d
+        nbytes = 2 * (2 * c["q"].numel() + c["k"].numel()
+                      + c["v"].numel()) + 4 * lse.numel()
+        bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        ok = err <= KERNEL_BF16_TOL and lse_err <= LSE_TOL
+        print(f"flash_fwd {name}: max_abs_err {err:.3e} (tol "
+              f"{KERNEL_BF16_TOL}), lse err {lse_err:.3e} (tol {LSE_TOL}); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+        if not ok:
+            raise AssertionError(f"flash_fwd disagrees with its plain "
+                                 f"version on {name}")
+        rows.append(dict(name=name, err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bms, bound_by=by))
+    return rows
+
+
+# --- phase 4: paged decode ----------------------------------------------------
+
+
+def paged_cases(dev):
+    """Eight slots with contexts up to 2048 (page_len 16, D 64, bf16
+    pages) in a scrambled physical order, sentinel entries past each
+    slot's last page: W=1 and W=4 over 16 kv heads, a GQA case (4 kv
+    heads x 4 queries), and a 256-position sliding window."""
+    rs = np.random.RandomState(SEED)
+    page_len, p_max, s = 16, 128, 8
+    t = np.array([2040, 1800, 1500, 1024, 777, 512, 300, 64], np.int32)
+    cases = []
+    for name, hkv, g, w, window in (("W=1 Hkv=16", 16, 1, 1, None),
+                                    ("W=4 Hkv=16", 16, 1, 4, None),
+                                    ("GQA Hkv=4 G=4", 4, 4, 1, None),
+                                    ("window=256", 16, 1, 1, 256)):
+        n_live = [-(-(int(ti) + w) // page_len) for ti in t]
+        n_pages = sum(n_live) + 16
+        perm = rs.permutation(n_pages)
+        table = np.full((s, p_max), n_pages, np.int32)
+        used = 0
+        for i, n in enumerate(n_live):
+            table[i, :n] = perm[used:used + n]
+            used += n
+        kp = torch.from_numpy(rs.randn(n_pages, hkv, page_len, 64)
+                              .astype(np.float32)).to(dev, torch.bfloat16)
+        vp = torch.from_numpy(rs.randn(n_pages, hkv, page_len, 64)
+                              .astype(np.float32)).to(dev, torch.bfloat16)
+        q = torch.from_numpy(rs.randn(s, w, hkv, g, 64)
+                             .astype(np.float32)).to(dev)
+        cases.append((name, dict(q=q, k=kp, v=vp,
+                                 t=torch.from_numpy(t).to(dev),
+                                 table=torch.from_numpy(table).to(dev),
+                                 window=window), t, w, page_len))
+    return cases
+
+
+def paged_phase(dev):
+    rows = []
+    for name, c, t, w, page_len in paged_cases(dev):
+        args = (c["q"], c["k"], c["v"], c["t"], c["table"])
+        kw = dict(scale=64 ** -0.5, window=c["window"])
+        out = paged_decode_attention(*args, **kw)
+        torch.cuda.synchronize()
+        ref = paged_decode_attention_reference(*args, **kw)
+        err = (out - ref).abs().max().item()
+        ms = time_ms(lambda: paged_decode_attention(*args, **kw))
+        plain_ms = time_ms(
+            lambda: paged_decode_attention_reference(*args, **kw), iters=5)
+        # what this run's data needs: the live pages the kernel visits
+        # and the (query row, position) pairs the masks admit
+        s, _, hkv, g, d = c["q"].shape
+        row_pos = t[:, None].astype(np.int64) + np.arange(w)[None, :]
+        lo = np.zeros_like(row_pos) if c["window"] is None else \
+            np.maximum(0, row_pos - c["window"] + 1)
+        pairs = int((row_pos - lo + 1).sum())
+        pages = int((row_pos.max(1) // page_len - lo.min(1) // page_len
+                     + 1).sum())
+        nbytes = 2 * pages * hkv * page_len * d * 2       # k and v, bf16
+        nbytes += 2 * c["q"].numel() * 4                  # q in, out
+        flops = 4.0 * hkv * g * d * pairs
+        bms, by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+        print(f"paged_decode {name}: max_abs_err {err:.3e} (tol "
+              f"{KERNEL_BF16_TOL}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+              f"{pages} live pages", flush=True)
+        if not err <= KERNEL_BF16_TOL:
+            raise AssertionError(f"paged_decode disagrees with its plain "
+                                 f"version on {name}")
+        rows.append(dict(name=name, err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bms, bound_by=by))
+    return rows
+
+
+# --- phase 5: the serving path end to end ------------------------------------
+
+
+def build_lm(device, *, num_layers=LM_CFG["num_layers"],
+             d_model=LM_CFG["d_model"], num_heads=LM_CFG["num_heads"],
+             vocab=LM_CFG["vocab"], dtype="bfloat16"):
+    return Model.build(
+        zoo.transformer_lm(vocab, d_model=d_model, num_heads=num_heads,
+                           num_layers=num_layers,
+                           mlp_ratio=LM_CFG["mlp_ratio"], dtype=dtype),
+        (16,), seed=SEED, device=device)
+
+
+def workload(vocab: int):
+    """Six requests: two on one 512-token template (the prefix cache
+    must hit), a 1500-token prompt (chunked prefill with the prefix
+    pass), one sampled request, and greedy ones of mixed length."""
+    rs = np.random.RandomState(SEED)
+    tpl = rs.randint(0, vocab, 512)
+    return [
+        (np.concatenate([tpl, rs.randint(0, vocab, 40)]), {}),
+        (np.concatenate([tpl, rs.randint(0, vocab, 70)]), {}),
+        (rs.randint(0, vocab, 1500), {}),
+        (rs.randint(0, vocab, 300),
+         dict(temperature=0.8, top_k=40, top_p=0.9, seed=11)),
+        (rs.randint(0, vocab, 100), {}),
+        (rs.randint(0, vocab, 900), {}),
+    ]
+
+
+#: pages of the pool: enough to admit the first four requests, too few
+#: for all of them to grow through their 32 new tokens (so at least one
+#: stream is preempted and resumed)
+NUM_PAGES = 160
+
+
+def serve(model, device, *, num_pages=NUM_PAGES):
+    """Run the workload through a paged engine; returns the engine, the
+    request ids with their prompts, and a count of non-finite live
+    logits seen."""
+    bad = torch.zeros((), dtype=torch.long, device=device)
+
+    def check(kind, logits, slots):
+        nonlocal bad
+        bad = bad + (~torch.isfinite(logits[slots].float())).sum()
+
+    eng = ServingEngine(model, num_slots=4, max_len=2048, page_len=16,
+                        prefill_chunk=256, num_pages=num_pages,
+                        device=device, on_logits=check)
+    reqs = []
+    for prompt, kw in workload(model.module.layers[0].vocab_size):
+        reqs.append((eng.submit(prompt, NEW_TOKENS, **kw), prompt))
+    out = eng.run(max_steps=5000)
+    return eng, reqs, out, int(bad.item())
+
+
+def warm_up(model, device):
+    """One short greedy and one short sampled request, so the measured
+    run does not pay first-call costs (library handles, allocator)."""
+    eng = ServingEngine(model, num_slots=2, max_len=2048, page_len=16,
+                        prefill_chunk=256, device=device)
+    rs = np.random.RandomState(SEED + 1)
+    vocab = model.module.layers[0].vocab_size
+    eng.submit(rs.randint(0, vocab, 300), 4)
+    eng.submit(rs.randint(0, vocab, 40), 4, temperature=0.8, top_k=40,
+               top_p=0.9)
+    eng.run(max_steps=100)
+
+
+def profile_serving(model, device):
+    """Where the time goes in steady decode: four slots decoding (their
+    256-token prompts prefilled first, outside the window), the wall
+    time of a decode step without the profiler, then
+    ``torch.profiler`` over a few steps: device time per kernel and the
+    device's busy share of the step."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = ServingEngine(model, num_slots=4, max_len=2048, page_len=16,
+                        prefill_chunk=256, device=device)
+    rs = np.random.RandomState(SEED + 2)
+    vocab = model.module.layers[0].vocab_size
+    for _ in range(4):
+        eng.submit(rs.randint(0, vocab, 256), 40)
+    for _ in range(6):            # the prefills, and two warm decode steps
+        eng.step()
+    torch.cuda.synchronize()
+    n_plain, n_prof = 16, 8
+    t0 = time.perf_counter()
+    for _ in range(n_plain):
+        eng.step()                # each step ends on the token fetch
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_plain
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            eng.step()
+        torch.cuda.synchronize()
+    kernels_ = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+    kernels_.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels_) / 1e3 / n_prof
+    print(f"profile: steady decode, 4 slots, contexts ~260-300: "
+          f"{step_ms:.2f} ms/step wall (profiler off); device busy "
+          f"{busy_ms:.2f} ms/step = {100 * busy_ms / step_ms:.1f}% of the "
+          f"step", flush=True)
+    for e in kernels_[:10]:
+        print(f"profile:   {e.self_device_time_total / 1e3 / n_prof:7.3f} "
+              f"ms/step  x{e.count // n_prof:<4d} {e.key[:72]}", flush=True)
+
+
+def check_serving(eng, reqs, out, bad):
+    for rid, prompt in reqs:
+        toks = out.get(rid)
+        if toks is None or len(toks) != len(prompt) + NEW_TOKENS:
+            raise AssertionError(f"request {rid} did not finish with its "
+                                 f"{NEW_TOKENS} tokens")
+        if not np.array_equal(toks[:len(prompt)], prompt):
+            raise AssertionError(f"request {rid} lost its prompt")
+    s = eng.metrics.summary()
+    if s["prefix_cache"]["hits"] < 1:
+        raise AssertionError("the shared template never hit the prefix "
+                             "cache")
+    if s["requests_preempted"] < 1:
+        raise AssertionError("no stream was preempted")
+    if bad:
+        raise AssertionError(f"{bad} non-finite logits on live rows")
+    return s
+
+
+def logits_vs_cpu(model, prompt):
+    """One prompt's last-position logits on the card (bf16 serving
+    weights, as the engine runs them; and float32) against the plain
+    path on the CPU in float32 at the same weights."""
+    f32 = build_lm("cpu", dtype="float32")
+    f32.module.load_state_dict(model.module.state_dict())
+    tokens = torch.as_tensor(prompt[None], dtype=torch.long)
+
+    def run(m, params, dtype, device):
+        cache = init_cache(m.module, 1, len(prompt), dtype, device)
+        logits, _ = prefill(m.module, params, cache, tokens.to(device))
+        return logits.float().cpu()
+
+    ref = run(f32, f32.params, torch.float32, "cpu")
+    card_bf16 = run(model, fuse_qkv_params(
+        model.module, serving_params(model.params, torch.bfloat16)),
+        torch.bfloat16, model.device)
+    f32_card = copy.deepcopy(f32).to(model.device)
+    card_f32 = run(f32_card, f32_card.params, torch.float32, model.device)
+    scale = ref.abs().max().item()
+    return ((card_bf16 - ref).abs().max().item() / scale,
+            (card_f32 - ref).abs().max().item() / scale, scale)
+
+
+#: relative (to the largest |logit|) agreement with the CPU in float32:
+#: bf16 weights and activations through 12 blocks; float32 on the card
+#: differs from the CPU only in summation order
+E2E_BF16_REL_TOL = 5e-2
+E2E_F32_REL_TOL = 1e-3
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}", flush=True)
+
+    t0 = time.perf_counter()
+    kernels.build()
+    for name in kernels.SOURCES:
+        kernels.library(name)
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    flash_rows = flash_phase(dev)
+    paged_rows = paged_phase(dev)
+
+    model = build_lm(dev)
+    print(f"model: transformer_lm {LM_CFG}, bf16, "
+          f"{model.num_params() / 1e6:.1f}M parameters", flush=True)
+    warm_up(model, dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng, reqs, out, bad = serve(model, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    s = check_serving(eng, reqs, out, bad)
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the serving run never launched {name}")
+    print(f"serving: {len(reqs)} requests in {wall:.2f} s; launches "
+          f"{launches}; prefix hits {s['prefix_cache']['hits']}; "
+          f"preemptions {s['requests_preempted']}; prefill chunks "
+          f"{s['prefill_chunks']}", flush=True)
+    print(f"serving on {card}: TTFT p50 {s['ttft_s']['p50'] * 1e3:.1f} ms "
+          f"p99 {s['ttft_s']['p99'] * 1e3:.1f} ms; decode "
+          f"{s['decode_tokens_per_sec']:.1f} tok/s; end to end "
+          f"{s['tokens_per_sec']:.1f} tok/s", flush=True)
+
+    profile_serving(model, dev)
+    rel_bf16, rel_f32, scale = logits_vs_cpu(model, reqs[0][1])
+    print(f"prefill logits vs CPU float32 (max |logit| {scale:.3f}): card "
+          f"bf16 rel err {rel_bf16:.3e} (tol {E2E_BF16_REL_TOL}), card "
+          f"float32 rel err {rel_f32:.3e} (tol {E2E_F32_REL_TOL})",
+          flush=True)
+    if not (rel_bf16 <= E2E_BF16_REL_TOL and rel_f32 <= E2E_F32_REL_TOL):
+        raise AssertionError("card logits disagree with the CPU plain path")
+
+    def entry(name, source, replaces, rows):
+        main_row = rows[0]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": max(r["err"] for r in rows),
+                "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                "bound_ms": main_row["bound_ms"],
+                "bound_by": main_row["bound_by"],
+                "library_ms": main_row["library_ms"]}
+
+    print(json.dumps({"kernels": [
+        entry("flash_fwd", "distkeras_tpu_torch/csrc/flash_fwd.cu",
+              "distkeras_tpu/ops/flash_attention.py:321", flash_rows),
+        entry("paged_decode", "distkeras_tpu_torch/csrc/paged_decode.cu",
+              "distkeras_tpu/ops/paged_attention.py:365", paged_rows),
+    ]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

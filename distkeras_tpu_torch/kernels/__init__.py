@@ -1,0 +1,137 @@
+"""Build and bind the hand-written CUDA kernels of ``csrc/``.
+
+Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
+of its own with a plain C interface, loaded with ``ctypes``. The first
+call of ``library`` (or an explicit ``build``) compiles every source
+whose library is missing, one ``nvcc`` process per source, all started
+together. A library's file name carries a hash of its source and flags,
+so an edited source rebuilds and an unchanged one is reused. Where the
+libraries go and which ``nvcc`` runs is set in ``compat``.
+
+Every wrapper adds one to its kernel's launch count where it launches
+the kernel, and nowhere else (``launch_counts`` / ``reset_launch_counts``),
+so a run can show that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from typing import Dict, Iterable, Optional
+
+from distkeras_tpu_torch import compat
+
+#: kernel name -> source file under csrc/
+SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu"}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+#: C signatures of the exported launchers (all return a cudaError_t)
+_SIGNATURES = {
+    "flash_fwd": ("dkt_flash_fwd",
+                  [_P] * 5 + [_I] * 7 + [_L] * 12 + [_F, _I, _I, _P]),
+    "paged_decode": ("dkt_paged_decode",
+                     [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+_launches: Dict[str, int] = {name: 0 for name in SOURCES}
+#: compiler output of the last build, per kernel (ptxas notes with
+#: ``DKT_NVCC_FLAGS="-Xptxas -v"``)
+build_log: Dict[str, str] = {}
+
+
+def source_path(name: str) -> str:
+    return os.path.join(compat.PACKAGE_DIR, "csrc", SOURCES[name])
+
+
+def _nvcc_command(name: str, out: str):
+    return [compat.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-o", out, source_path(name)] + compat.extra_nvcc_flags()
+
+
+def _library_path(name: str) -> str:
+    h = hashlib.sha256()
+    with open(source_path(name), "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(compat.extra_nvcc_flags()).encode())
+    return os.path.join(compat.build_dir(),
+                        f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile the named kernels (default: all) whose libraries are
+    missing, in parallel; returns ``{name: library path}``. Raises with
+    the compiler's output when a compile fails."""
+    names = list(SOURCES if names is None else names)
+    os.makedirs(compat.build_dir(), exist_ok=True)
+    paths = {name: _library_path(name) for name in names}
+    procs = []
+    for name in names:
+        if os.path.exists(paths[name]):
+            continue
+        tmp = f"{paths[name]}.{os.getpid()}.tmp"
+        procs.append((name, tmp, subprocess.Popen(
+            _nvcc_command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, tmp, proc in procs:
+        out, _ = proc.communicate()
+        build_log[name] = out
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc failed for {name} "
+                          f"(exit {proc.returncode}) ---\n{out}")
+            continue
+        os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel (every missing library is built
+    on first use)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            paths = build([n for n in SOURCES if n not in _libs])
+            for n, path in paths.items():
+                dll = ctypes.CDLL(path)
+                sym, argtypes = _SIGNATURES[n]
+                fn = getattr(dll, sym)
+                fn.argtypes = argtypes
+                fn.restype = _I
+                dll.dkt_error_string.argtypes = [_I]
+                dll.dkt_error_string.restype = ctypes.c_char_p
+                _libs[n] = dll
+        return _libs[name]
+
+
+def check(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise when a launcher reported a CUDA error (a refused launch
+    never runs, and a later synchronize would not say so)."""
+    if err != 0:
+        msg = lib.dkt_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def count_launch(name: str) -> None:
+    _launches[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0

@@ -1,0 +1,212 @@
+"""Transformer layers: norms, positional embeddings, multi-head attention
+(grouped queries, RoPE, sliding window), the MLP and the pre-norm block.
+
+Mirrors ``distkeras_tpu/models/attention.py`` (:37-476) with the same
+parameter names and layouts: ``wq [d, H, Dh]``, ``wk``/``wv [d, Hkv,
+Dh]``, ``wo [H, Dh, d]``, MLP ``w1 [d, r*d]``/``w2 [r*d, d]``. Norms
+compute in float32 and cast back to the input dtype; projections run
+in the layer's compute dtype. The full-sequence attention goes through
+``ops.flash_attention.flash_forward`` (the CUDA kernel on the card, its
+plain version on the CPU). Packed-sequence ``segment_ids`` belong to
+training and wait for that slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from distkeras_tpu_torch.models.core import Layer, torch_dtype
+from distkeras_tpu_torch.models.layers import get_activation, init_weights
+from distkeras_tpu_torch.ops.attention import apply_rope
+from distkeras_tpu_torch.ops.flash_attention import flash_forward
+
+
+class LayerNorm(Layer):
+    def __init__(self, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = float(epsilon)
+
+    def build(self, input_shape, generator):
+        self.add_param("scale", torch.ones(input_shape[-1]))
+        self.add_param("offset", torch.zeros(input_shape[-1]))
+        return tuple(input_shape)
+
+    def apply(self, p, x):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
+        return (y * p["scale"] + p["offset"]).to(x.dtype)
+
+
+class RMSNorm(Layer):
+    def __init__(self, epsilon: float = 1e-6):
+        super().__init__()
+        self.epsilon = float(epsilon)
+
+    def build(self, input_shape, generator):
+        self.add_param("scale", torch.ones(input_shape[-1]))
+        return tuple(input_shape)
+
+    def apply(self, p, x):
+        xf = x.float()
+        y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True)
+                             + self.epsilon)
+        return (y * p["scale"]).to(x.dtype)
+
+
+class PositionalEmbedding(Layer):
+    """Learned absolute positions added to a ``[B, S, d]`` input."""
+
+    def __init__(self, max_len: int):
+        super().__init__()
+        self.max_len = int(max_len)
+
+    def build(self, input_shape, generator):
+        self.add_param("embeddings", init_weights(
+            "uniform_scaling", generator, (self.max_len, input_shape[-1])))
+        return tuple(input_shape)
+
+    def apply(self, p, x):
+        s = x.shape[1]
+        if s > self.max_len:
+            raise ValueError(f"PositionalEmbedding(max_len={self.max_len}) "
+                             f"is too small for {s} positions")
+        return x + p["embeddings"][:s][None].to(x.dtype)
+
+
+class MultiHeadAttention(Layer):
+    """Multi-head self-attention over ``[B, S, d_model]``;
+    ``num_kv_heads < num_heads`` is grouped-query attention."""
+
+    def __init__(self, num_heads: int, head_dim: Optional[int] = None,
+                 causal: bool = True, use_rope: bool = True,
+                 dtype: str = "float32",
+                 kernel_init: str = "glorot_uniform",
+                 num_kv_heads: Optional[int] = None,
+                 rope_scale: float = 1.0,
+                 attn_window: Optional[int] = None):
+        super().__init__()
+        self.rope_scale = float(rope_scale)
+        self.attn_window = (int(attn_window) if attn_window is not None
+                            else None)
+        if self.attn_window is not None and not causal:
+            raise ValueError("attn_window requires causal=True")
+        self.num_heads = int(num_heads)
+        self.num_kv_heads = (int(num_kv_heads) if num_kv_heads is not None
+                             else None)
+        kv = self.kv_heads
+        if kv < 1 or self.num_heads % kv:
+            raise ValueError(
+                f"num_kv_heads must be a positive divisor of num_heads "
+                f"{self.num_heads}, got {kv}")
+        self.head_dim = head_dim if head_dim is None else int(head_dim)
+        self.causal = bool(causal)
+        self.use_rope = bool(use_rope)
+        self.dtype = dtype
+        self.kernel_init = kernel_init
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    def build(self, input_shape, generator):
+        d_model = input_shape[-1]
+        if self.head_dim is None:
+            self.head_dim = d_model // self.num_heads
+        h, dh, hkv = self.num_heads, self.head_dim, self.kv_heads
+
+        # drawn as the logical 2-D matrices, then reshaped (the fan rule
+        # of a 3-D tensor would shrink the scale)
+        def w2d(m, n):
+            return init_weights(self.kernel_init, generator, (m, n))
+
+        self.add_param("wq", w2d(d_model, h * dh).reshape(d_model, h, dh))
+        self.add_param("wk", w2d(d_model, hkv * dh).reshape(d_model, hkv, dh))
+        self.add_param("wv", w2d(d_model, hkv * dh).reshape(d_model, hkv, dh))
+        self.add_param("wo", w2d(h * dh, d_model).reshape(h, dh, d_model))
+        return tuple(input_shape)
+
+    def apply(self, p, x):
+        dt = torch_dtype(self.dtype)
+        xc = x.to(dt)
+        q = torch.einsum("bsd,dhe->bshe", xc, p["wq"].to(dt))
+        k = torch.einsum("bsd,dhe->bshe", xc, p["wk"].to(dt))
+        v = torch.einsum("bsd,dhe->bshe", xc, p["wv"].to(dt))
+        if self.use_rope:
+            q = apply_rope(q, scale=self.rope_scale)
+            k = apply_rope(k, scale=self.rope_scale)
+        out, _ = flash_forward(q, k, v, scale=q.shape[-1] ** -0.5,
+                               causal=self.causal, window=self.attn_window)
+        y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
+        return y.to(x.dtype)
+
+
+class TransformerMLP(Layer):
+    """Position-wise MLP: ``act(x @ w1 + b1) @ w2 + b2``."""
+
+    def __init__(self, hidden_dim: int, activation: str = "gelu",
+                 dtype: str = "float32",
+                 kernel_init: str = "glorot_uniform"):
+        super().__init__()
+        self.hidden_dim = int(hidden_dim)
+        self.activation = activation
+        self.dtype = dtype
+        self.kernel_init = kernel_init
+
+    def build(self, input_shape, generator):
+        d = input_shape[-1]
+        self.add_param("w1", init_weights(self.kernel_init, generator,
+                                          (d, self.hidden_dim)))
+        self.add_param("b1", torch.zeros(self.hidden_dim))
+        self.add_param("w2", init_weights(self.kernel_init, generator,
+                                          (self.hidden_dim, d)))
+        self.add_param("b2", torch.zeros(d))
+        return tuple(input_shape)
+
+    def apply(self, p, x):
+        dt = torch_dtype(self.dtype)
+        act = get_activation(self.activation)
+        h = act(x.to(dt) @ p["w1"].to(dt) + p["b1"].to(dt))
+        y = h @ p["w2"].to(dt) + p["b2"].to(dt)
+        return y.to(x.dtype)
+
+
+class TransformerBlock(Layer):
+    """Pre-norm residual block: ``x + attn(norm(x))``, then
+    ``x + mlp(norm(x))``."""
+
+    def __init__(self, num_heads: int, mlp_ratio: int = 4,
+                 head_dim: Optional[int] = None, causal: bool = True,
+                 use_rope: bool = True, activation: str = "gelu",
+                 norm: str = "rmsnorm", dtype: str = "float32",
+                 num_kv_heads: Optional[int] = None,
+                 rope_scale: float = 1.0,
+                 attn_window: Optional[int] = None):
+        super().__init__()
+        self.mlp_ratio = int(mlp_ratio)
+        self.activation = activation
+        self.dtype = dtype
+        norm_cls = RMSNorm if norm == "rmsnorm" else LayerNorm
+        self.norm1 = norm_cls()
+        self.attn = MultiHeadAttention(
+            num_heads, head_dim=head_dim, causal=causal, use_rope=use_rope,
+            dtype=dtype, num_kv_heads=num_kv_heads, rope_scale=rope_scale,
+            attn_window=attn_window)
+        self.norm2 = norm_cls()
+        self.mlp = None                   # sized at build from d_model
+
+    def build(self, input_shape, generator):
+        d_model = input_shape[-1]
+        self.mlp = TransformerMLP(self.mlp_ratio * d_model,
+                                  activation=self.activation,
+                                  dtype=self.dtype)
+        for layer in (self.norm1, self.attn, self.norm2, self.mlp):
+            layer.build(tuple(input_shape), generator)
+        return tuple(input_shape)
+
+    def apply(self, p, x):
+        x = x + self.attn.apply(p["attn"], self.norm1.apply(p["norm1"], x))
+        return x + self.mlp.apply(p["mlp"], self.norm2.apply(p["norm2"], x))

@@ -1,0 +1,53 @@
+"""Weight bridge: load the JAX package's ``Model.params`` / ``Model.state``
+trees (as numpy arrays) into the port's modules.
+
+The port keeps the JAX parameter names and layouts, so the bridge is a
+copy: every key of the port's ``param_tree()`` must be present with the
+same shape, and nothing else may be. The LM layers carry no state; a
+state tree with any array in it is refused rather than dropped.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from distkeras_tpu_torch.models.core import Model
+
+
+def _flatten(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _flatten(sub, f"{prefix}/{key}")
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _flatten(sub, f"{prefix}[{i}]")
+    elif tree is not None:
+        yield prefix, tree
+
+
+@torch.no_grad()
+def from_jax_params(model: Model, params, state=None) -> Model:
+    """Copy ``params`` (one dict per layer, numpy leaves) into ``model``;
+    returns the model. Raises on a missing, extra or mis-shaped key."""
+    ours: Dict[str, torch.Tensor] = dict(_flatten(model.params))
+    theirs = {k: np.asarray(v) for k, v in _flatten(params)}
+    missing = sorted(set(ours) - set(theirs))
+    extra = sorted(set(theirs) - set(ours))
+    if missing or extra:
+        raise ValueError(f"parameter trees differ: missing {missing}, "
+                         f"unexpected {extra}")
+    for key, dst in ours.items():
+        src = theirs[key]
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{key}: shape {tuple(src.shape)} does not "
+                             f"match the port's {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(np.array(src, copy=True)).to(dst.dtype))
+    if state is not None:
+        leaves = [k for k, _ in _flatten(state)]
+        if leaves:
+            raise ValueError(f"the port's layers carry no state, got "
+                             f"{leaves}")
+    return model

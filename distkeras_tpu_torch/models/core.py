@@ -1,0 +1,136 @@
+"""Core model substrate of the port: the ``Layer`` base (an
+``nn.Module``), the ``Sequential`` container and the ``Model`` handle.
+
+Mirrors ``distkeras_tpu/models/core.py`` (``Layer`` :83, ``Sequential``
+:124, ``Model`` :196). A layer creates its parameters in
+``build(input_shape, generator)`` once its input width is known, under
+the JAX package's names and layouts, so ``param_tree()`` has the same
+structure as the JAX ``Model.params`` (one dict per layer of a
+``Sequential``) and the weight bridge is a copy. ``apply(p, x)`` is the
+layer's function of an explicit parameter tree, which lets the serving
+path run a pre-cast copy of the weights; ``forward(x)`` applies the
+layer's own parameters. Parameters are inference-only in this slice
+(``requires_grad=False``); training comes with a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from distkeras_tpu_torch.compat import resolve_device
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name) -> torch.dtype:
+    """A compute dtype given by name (the JAX package's spelling) or as a
+    ``torch.dtype``."""
+    if isinstance(name, torch.dtype):
+        return name
+    try:
+        return _DTYPES[str(name)]
+    except KeyError:
+        raise ValueError(f"unknown dtype {name!r}; known: {sorted(_DTYPES)}")
+
+
+class Layer(nn.Module):
+    """Base layer. Subclasses implement ``build`` (create parameters with
+    ``add_param``, return the output shape without the batch axis) and
+    ``apply`` (the layer as a function of a parameter tree)."""
+
+    def build(self, input_shape: Tuple[int, ...],
+              generator: torch.Generator) -> Tuple[int, ...]:
+        return tuple(input_shape)
+
+    def add_param(self, name: str, value: torch.Tensor) -> None:
+        self.register_parameter(name, nn.Parameter(value,
+                                                   requires_grad=False))
+
+    def param_tree(self) -> Dict:
+        """``{name: tensor}`` for this layer's own parameters plus
+        ``{child: child.param_tree()}`` for its sub-layers."""
+        tree = {name: p for name, p in self.named_parameters(recurse=False)}
+        for name, child in self.named_children():
+            if isinstance(child, Layer):
+                sub = child.param_tree()
+                if sub:
+                    tree[name] = sub
+        return tree
+
+    def apply(self, p, x):
+        return x
+
+    def forward(self, x):
+        return self.apply(self.param_tree(), x)
+
+
+class Sequential(Layer):
+    """Ordered stack of layers; its parameter tree is a list with one
+    entry per layer."""
+
+    def __init__(self, layers: Optional[Sequence[Layer]] = None):
+        super().__init__()
+        self.layers = nn.ModuleList(list(layers) if layers else [])
+
+    def build(self, input_shape, generator):
+        shape = tuple(input_shape)
+        for layer in self.layers:
+            shape = layer.build(shape, generator)
+        return shape
+
+    def param_tree(self) -> List[Dict]:
+        return [layer.param_tree() for layer in self.layers]
+
+    def apply(self, p, x):
+        for layer, lp in zip(self.layers, p):
+            x = layer.apply(lp, x)
+        return x
+
+
+class Model:
+    """A built model: the module, its input/output shapes and the device
+    its parameters live on."""
+
+    def __init__(self, module: Layer, input_shape, output_shape,
+                 device: torch.device):
+        self.module = module
+        self.input_shape = tuple(input_shape)
+        self.output_shape = tuple(output_shape)
+        self.device = device
+
+    @classmethod
+    def build(cls, module: Layer, input_shape: Tuple[int, ...], *,
+              seed: int = 0, device=None) -> "Model":
+        """Create the parameters from ``seed`` and place them on
+        ``device`` (default: the CUDA card; raises when there is none
+        unless ``device="cpu"``). Weights are drawn on the CPU from one
+        ``torch.Generator``, so a seed gives the same weights on every
+        device."""
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(int(seed))
+        out_shape = module.build(tuple(input_shape), gen)
+        module.to(dev)
+        module.eval()
+        return cls(module, input_shape, out_shape, dev)
+
+    @property
+    def params(self):
+        return self.module.param_tree()
+
+    @torch.no_grad()
+    def apply(self, x) -> torch.Tensor:
+        """Forward pass over a batch (tokens ``[B, S]`` for an LM)."""
+        return self.module(torch.as_tensor(x).to(self.device))
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.module.parameters())
+
+    def to(self, device) -> "Model":
+        """Move the parameters to another device (in place)."""
+        self.device = resolve_device(device)
+        self.module.to(self.device)
+        return self

@@ -1,0 +1,344 @@
+"""The paged KV pool of the serving engine and its prefix cache.
+
+Mirrors ``distkeras_tpu/serving/kv_pool.py``: ``PagedKVPool`` holds one
+``[num_pages, Hkv, page_len, Dh]`` page tensor per layer (k and v) on
+the device, per-slot page tables ``[S, P]`` on the host (an entry of
+``num_pages`` is the unallocated sentinel), host-side refcounts, the
+staging transfers ``insert_pages`` (:594) and ``load_prefix`` (:606),
+and ``device_tables`` (:395). ``PrefixCache`` hash-conses full prompt
+pages under a chained token key (``match`` :726, ``register`` :794,
+``evict_one`` :860, ``reclaim`` :949), serving a partial page match
+copy-on-write. The host offload tier (``host_pages``) is not ported
+yet (ROADMAP, modules still to port).
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from distkeras_tpu_torch.models.decoding import init_cache
+
+
+class PagedKVPool:
+    """Fixed pool of ``num_pages`` KV pages per layer + per-slot page
+    tables + refcounted allocation. ``cache`` is the per-layer list of
+    ``{"k", "v"}`` page tensors the decode step reads and writes in
+    place; ``tables`` the host ``[S, P]`` int32 array."""
+
+    def __init__(self, module, num_slots: int, max_len: int, *,
+                 page_len: int = 16, num_pages: Optional[int] = None,
+                 dtype=torch.float32, device=None):
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        if max_len < 1:
+            raise ValueError(f"max_len must be >= 1, got {max_len}")
+        if page_len < 1:
+            raise ValueError(f"page_len must be >= 1, got {page_len}")
+        self._module = module
+        self.device = torch.device(device)
+        self.num_slots = int(num_slots)
+        self.max_len = int(max_len)
+        self.page_len = int(page_len)
+        #: logical pages per slot: the page-table width (covers max_len)
+        self.pages_per_slot = -(-self.max_len // self.page_len)
+        if num_pages is None:
+            num_pages = self.num_slots * self.pages_per_slot
+        self.num_pages = int(num_pages)
+        if self.num_pages < 1:
+            raise ValueError(f"num_pages must be >= 1, got {self.num_pages}")
+        self.dtype = dtype
+        # the page axis is init_cache's batch axis; the position table is
+        # validated against max_len
+        self.cache = init_cache(module, self.num_pages, self.page_len,
+                                dtype, self.device, check_len=self.max_len)
+        self.tables = np.full((self.num_slots, self.pages_per_slot),
+                              self.num_pages, np.int32)
+        self.ref = np.zeros(self.num_pages, np.int64)
+        # pop() hands out page 0 first (deterministic placement)
+        self._free = list(range(self.num_pages))[::-1]
+        self._tables_dev = None
+
+    # -- device views -------------------------------------------------------
+
+    def make_request_cache(self):
+        """The batch-1 prefill staging cache: ``pages_per_slot *
+        page_len`` positions, so page loads/inserts reshape exactly."""
+        return init_cache(self._module, 1,
+                          self.pages_per_slot * self.page_len, self.dtype,
+                          self.device, check_len=self.max_len)
+
+    def device_tables(self) -> torch.Tensor:
+        """The ``[S, P]`` int32 page tables on the device (cached; any
+        table mutation invalidates the copy)."""
+        if self._tables_dev is None:
+            self._tables_dev = torch.from_numpy(self.tables.copy()).to(
+                self.device)
+        return self._tables_dev
+
+    def _dirty(self):
+        self._tables_dev = None
+
+    # -- allocation ---------------------------------------------------------
+
+    def pages_for(self, n_positions: int) -> int:
+        return -(-int(n_positions) // self.page_len)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def shared_pages(self) -> int:
+        """Physical pages with more than one holder."""
+        return int((self.ref > 1).sum())
+
+    def alloc_page(self) -> Optional[int]:
+        """One free page with ``ref = 1`` (the caller's), or None."""
+        if not self._free:
+            return None
+        pid = self._free.pop()
+        self.ref[pid] = 1
+        return pid
+
+    def incref(self, pid: int) -> None:
+        self.ref[pid] += 1
+
+    def decref(self, pid: int) -> None:
+        self.ref[pid] -= 1
+        if self.ref[pid] < 0:
+            raise RuntimeError(
+                f"page {pid} refcount went negative (double free)")
+        if self.ref[pid] == 0:
+            self._free.append(pid)
+
+    def assign(self, slot: int, logical: int, pid: int) -> None:
+        """Point ``tables[slot, logical]`` at ``pid`` (the caller has
+        arranged the refcount)."""
+        self.tables[slot, logical] = pid
+        self._dirty()
+
+    def release_slot(self, slot: int) -> int:
+        """Drop the slot's hold on every page it references and reset
+        its row to the sentinel; returns the number of pages released."""
+        row = self.tables[slot]
+        pages = row[row < self.num_pages]
+        if pages.size:
+            self.ref[pages] -= 1              # a row never repeats a page
+            if (self.ref[pages] < 0).any():
+                raise RuntimeError(
+                    f"slot {slot} release drove a page refcount negative")
+            self._free.extend(pages[self.ref[pages] == 0].tolist())
+        self.tables[slot] = self.num_pages
+        self._dirty()
+        return int(pages.size)
+
+    # -- staging transfers --------------------------------------------------
+
+    def _page_view(self, staging_plane):
+        """``[1, H, P*page_len, D]`` staging -> ``[P, H, page_len, D]``."""
+        _, h, length, d = staging_plane.shape
+        return staging_plane[0].reshape(h, length // self.page_len,
+                                        self.page_len, d).transpose(0, 1)
+
+    @torch.no_grad()
+    def insert_pages(self, staging, slot: int, skip_pages: int,
+                     n_pos: int) -> None:
+        """Copy the staging cache's logical pages ``[skip_pages,
+        pages_for(n_pos))`` into the slot's physical pages: only the
+        pages the context fills and that are not already shared."""
+        n_needed = self.pages_for(n_pos)
+        logical = np.arange(skip_pages, n_needed)
+        phys = self.tables[slot, skip_pages:n_needed]
+        keep = phys < self.num_pages
+        if not keep.any():
+            return
+        src = torch.from_numpy(logical[keep]).to(self.device)
+        dst = torch.from_numpy(phys[keep].astype(np.int64)).to(self.device)
+        for pool_kv, st_kv in zip(self.cache, staging):
+            if pool_kv is None:
+                continue
+            for key in ("k", "v"):
+                pool_kv[key][dst] = self._page_view(st_kv[key])[src] \
+                    .to(pool_kv[key].dtype)
+
+    @torch.no_grad()
+    def load_prefix(self, staging, page_ids: List[int], n_tokens: int):
+        """Materialise a shared prefix into the staging cache: pages
+        ``page_ids`` (full shared pages, plus a copy-on-write donor last)
+        become staging positions ``[0, n_tokens)`` (the donor's tail is
+        overwritten by the prefill chunks). Returns the staging cache."""
+        n_load = self.pages_for(n_tokens)
+        if len(page_ids) < n_load:
+            raise ValueError(
+                f"{len(page_ids)} pages cannot cover {n_tokens} shared "
+                f"tokens ({n_load} pages)")
+        src = torch.as_tensor(list(page_ids[:n_load]), dtype=torch.long,
+                              device=self.device)
+        for st_kv, pool_kv in zip(staging, self.cache):
+            if st_kv is None:
+                continue
+            for key in ("k", "v"):
+                self._page_view(st_kv[key])[:n_load] = pool_kv[key][src] \
+                    .to(st_kv[key].dtype)
+        return staging
+
+
+# --- prefix cache -----------------------------------------------------------
+
+
+class _Node:
+    __slots__ = ("nid", "page", "parent", "key", "last_used")
+
+    def __init__(self, nid, page, parent, key, last_used):
+        self.nid = nid
+        self.page = page
+        self.parent = parent
+        self.key = key
+        self.last_used = last_used
+
+
+class PrefixCache:
+    """Hash-consed shared prompt prefixes over a ``PagedKVPool``: a trie
+    keyed by page-sized token runs, node ``(parent, tokens)`` owning the
+    physical page of those positions. ``register()`` installs a
+    request's full (immutable) context pages; ``match()`` walks the
+    longest shared chain plus the best partial match among the last
+    node's children (the copy-on-write donor), capped at ``len - 1`` (the
+    last position is always recomputed: its logits seed the first
+    token). Eviction is LRU over leaves whose page only the cache holds.
+    Sharing is exact up to chunked-prefill reassociation of the softmax
+    sums."""
+
+    def __init__(self, pool: PagedKVPool):
+        self._pool = pool
+        self._nodes: Dict[int, _Node] = {}
+        #: parent nid -> {page-token bytes -> node}; 0 is the root
+        self._children: Dict[int, Dict[bytes, _Node]] = {0: {}}
+        #: parent nid -> {first token -> [nodes]}: partial-match index
+        self._first: Dict[int, Dict[int, List[_Node]]] = {}
+        self._nid = itertools.count(1)
+        self._tick = itertools.count()
+
+    def __len__(self) -> int:
+        return len(self._nodes)
+
+    def match(self, tokens) -> Tuple[List[int], int, Optional[int]]:
+        """``(full_pages, shared_len, donor_page)``: the chained full-page
+        hits, the shared length including the best partial page, and the
+        page to copy-on-write for it (None for a page-aligned match)."""
+        pl = self._pool.page_len
+        toks = np.ascontiguousarray(np.asarray(tokens, np.int32))
+        n = len(toks)
+        tick = next(self._tick)
+        pages: List[int] = []
+        parent = 0
+        pos = 0
+        while pos + pl < n:
+            node = self._children.get(parent, {}).get(
+                toks[pos:pos + pl].tobytes())
+            if node is None:
+                break
+            node.last_used = tick
+            pages.append(node.page)
+            parent = node.nid
+            pos += pl
+        donor = None
+        best = 0
+        limit = min(pl, n - 1 - pos)
+        if limit > 0:
+            for node in self._first.get(parent, {}).get(int(toks[pos]), []):
+                cand = np.frombuffer(node.key, np.int32)[:limit]
+                m = int(np.cumprod(cand == toks[pos:pos + limit]).sum())
+                if m > best:
+                    best, donor = m, node
+        if donor is not None:
+            donor.last_used = tick
+            return pages, pos + best, donor.page
+        return pages, pos, None
+
+    def register(self, tokens, table_row) -> int:
+        """Install every full page of ``tokens`` (physical ids from
+        ``table_row``); pages already registered along the chain stay as
+        they are. Each new node increfs its page. Returns the number of
+        pages newly registered."""
+        pool = self._pool
+        pl = pool.page_len
+        toks = np.ascontiguousarray(np.asarray(tokens, np.int32))
+        tick = next(self._tick)
+        parent = 0
+        added = 0
+        for j in range(len(toks) // pl):
+            key = toks[j * pl:(j + 1) * pl].tobytes()
+            ch = self._children.setdefault(parent, {})
+            node = ch.get(key)
+            if node is None:
+                pid = int(table_row[j])
+                if pid >= pool.num_pages:
+                    break                # unallocated: nothing to share
+                node = _Node(next(self._nid), pid, parent, key, tick)
+                ch[key] = node
+                self._children[node.nid] = {}
+                self._nodes[node.nid] = node
+                self._first.setdefault(parent, {}).setdefault(
+                    int(toks[j * pl]), []).append(node)
+                pool.incref(pid)
+                added += 1
+            node.last_used = tick
+            parent = node.nid
+        return added
+
+    def _drop(self, node: _Node) -> None:
+        del self._children[node.parent][node.key]
+        del self._children[node.nid]
+        del self._nodes[node.nid]
+        tok0 = int(np.frombuffer(node.key, np.int32)[0])
+        bucket = self._first.get(node.parent, {}).get(tok0, [])
+        if node in bucket:
+            bucket.remove(node)
+        self._pool.decref(node.page)
+
+    def evict_one(self) -> bool:
+        """Free ONE device page held only by the cache: the LRU leaf whose
+        page no slot reads. False when there is none."""
+        pool = self._pool
+        drop = None
+        for node in self._nodes.values():
+            if self._children.get(node.nid) or pool.ref[node.page] != 1:
+                continue
+            if drop is None or node.last_used < drop.last_used:
+                drop = node
+        if drop is None:
+            return False
+        self._drop(drop)
+        return True
+
+    def evictable_pages(self) -> int:
+        """Pages the cache could eventually free: nodes whose page only
+        the cache holds and whose whole subtree is the same (dropping is
+        leaf-first)."""
+        memo: Dict[int, bool] = {}
+
+        def ok(nid: int) -> bool:
+            got = memo.get(nid)
+            if got is not None:
+                return got
+            node = self._nodes[nid]
+            memo[nid] = res = (
+                self._pool.ref[node.page] == 1
+                and all(ok(c.nid)
+                        for c in self._children.get(nid, {}).values()))
+            return res
+
+        return sum(1 for node in self._nodes.values() if ok(node.nid))
+
+    def reclaim(self, n_pages: int) -> int:
+        """Evict until ``n_pages`` pages were freed (or nothing more is
+        evictable); returns the number freed."""
+        freed = 0
+        while freed < n_pages and self.evict_one():
+            freed += 1
+        return freed

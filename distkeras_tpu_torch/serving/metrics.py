@@ -1,0 +1,192 @@
+"""Serving metrics of the port: the counters and ``summary()`` fields
+the engine records.
+
+Mirrors the matching part of ``distkeras_tpu/serving/metrics.py``: per
+request TTFT (submit -> first token), TPOT and end-to-end latency; per
+iteration queue depth, slot occupancy and the decode time and tokens;
+prefill chunks, preemptions, prefix-cache lookups and the page-budget
+gauges. Histograms keep a bounded sample of their values (the first
+``reservoir``), so memory stays bounded in a long-lived engine. The
+JAX package's metrics registry and exporters wait for the
+observability slice.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+#: samples a histogram keeps
+DEFAULT_RESERVOIR = 2048
+
+
+class _Histogram:
+    def __init__(self, reservoir: int):
+        self._cap = int(reservoir)
+        self.values: List[float] = []
+        self.count = 0
+        self.total = 0.0
+        self.max = None
+
+    def observe(self, x: float) -> None:
+        x = float(x)
+        self.count += 1
+        self.total += x
+        self.max = x if self.max is None else max(self.max, x)
+        if len(self.values) < self._cap:
+            self.values.append(x)
+
+    def pcts(self) -> Optional[Dict[str, float]]:
+        if not self.values:
+            return None
+        return {"p50": float(np.percentile(self.values, 50)),
+                "p99": float(np.percentile(self.values, 99))}
+
+    def mean_max(self) -> Optional[Dict[str, float]]:
+        if not self.count:
+            return None
+        return {"mean": self.total / self.count, "max": self.max}
+
+
+class ServingMetrics:
+    """Host-side counters (a few list appends and clock reads per
+    iteration). ``clock`` is injectable for deterministic tests."""
+
+    def __init__(self, clock=time.perf_counter,
+                 reservoir: int = DEFAULT_RESERVOIR):
+        self.clock = clock
+        self.submit_ts: Dict[int, float] = {}     # in flight only
+        self.first_ts: Dict[int, float] = {}      # in flight only
+        self._ttft = _Histogram(reservoir)
+        self._tpot = _Histogram(reservoir)
+        self._latency = _Histogram(reservoir)
+        self._qdepth = _Histogram(reservoir)
+        self._occ = _Histogram(reservoir)
+        self.requests_finished = 0
+        self.requests_rejected = 0
+        self.requests_preempted = 0
+        self.tokens_generated = 0
+        self.prefill_chunks = 0
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        self._prefix_lookup_toks = 0
+        self._pages: Optional[Dict] = None
+        #: decoding-slot count -> [tokens, seconds]
+        self._decode_agg: Dict[int, List[float]] = {}
+        self.phase_seconds: Dict[str, float] = {}
+        self._t_first_submit: Optional[float] = None
+        self._t_last_finish: Optional[float] = None
+
+    # --- per request ------------------------------------------------------
+
+    def record_submit(self, rid: int) -> None:
+        now = self.clock()
+        self.submit_ts[rid] = now
+        if self._t_first_submit is None:
+            self._t_first_submit = now
+
+    def record_first_token(self, rid: int) -> None:
+        now = self.clock()
+        t0 = self.submit_ts.get(rid)
+        if t0 is not None:
+            self._ttft.observe(now - t0)
+            self.first_ts[rid] = now
+
+    def record_finish(self, rid: int, n_generated: int) -> None:
+        now = self.clock()
+        t0 = self.submit_ts.pop(rid, None)
+        if t0 is not None:
+            self._latency.observe(now - t0)
+        t_first = self.first_ts.pop(rid, None)
+        if t_first is not None and n_generated > 1:
+            self._tpot.observe((now - t_first) / (n_generated - 1))
+        self.requests_finished += 1
+        self.tokens_generated += int(n_generated)
+        self._t_last_finish = now
+
+    def record_rejected(self) -> None:
+        self.requests_rejected += 1
+
+    def record_preemption(self, rid: int) -> None:
+        """Not terminal: TTFT already fired, latency runs to the finish."""
+        self.requests_preempted += 1
+
+    def record_prefix_lookup(self, hit_tokens: int,
+                             total_tokens: int) -> None:
+        self.prefix_lookups += 1
+        self._prefix_lookup_toks += int(total_tokens)
+        if hit_tokens > 0:
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += int(hit_tokens)
+
+    def record_pages(self, free: int, shared: int,
+                     fragmentation: float) -> None:
+        self._pages = {"free": int(free), "shared": int(shared),
+                       "fragmentation": float(fragmentation)}
+
+    # --- per iteration ----------------------------------------------------
+
+    def record_prefill_chunk(self) -> None:
+        self.prefill_chunks += 1
+
+    def record_iteration(self, queue_depth: int, occupied: int,
+                         num_slots: int) -> None:
+        self._qdepth.observe(int(queue_depth))
+        self._occ.observe(occupied / num_slots)
+
+    def record_decode(self, n_decoding: int, dt: float,
+                      n_tokens: Optional[int] = None) -> None:
+        n = int(n_decoding)
+        agg = self._decode_agg.setdefault(n, [0.0, 0.0])
+        agg[0] += n if n_tokens is None else int(n_tokens)
+        agg[1] += float(dt)
+
+    def record_phase(self, name: str, seconds: float) -> None:
+        self.phase_seconds[name] = self.phase_seconds.get(name, 0.0) \
+            + float(seconds)
+
+    # --- reductions -------------------------------------------------------
+
+    @property
+    def prefix_hit_rate(self) -> Optional[float]:
+        if self._prefix_lookup_toks <= 0:
+            return None
+        return self.prefix_hit_tokens / self._prefix_lookup_toks
+
+    def decode_tokens_per_sec(self,
+                              min_occupancy: int = 0) -> Optional[float]:
+        """Decode throughput over iterations with at least
+        ``min_occupancy`` decoding slots."""
+        toks = sum(a[0] for n, a in self._decode_agg.items()
+                   if n >= min_occupancy)
+        secs = sum(a[1] for n, a in self._decode_agg.items()
+                   if n >= min_occupancy)
+        return toks / secs if secs > 0 else None
+
+    def summary(self) -> Dict:
+        elapsed = (self._t_last_finish - self._t_first_submit
+                   if self._t_first_submit is not None
+                   and self._t_last_finish is not None else 0.0)
+        tokens = self.tokens_generated
+        return {
+            "requests_finished": self.requests_finished,
+            "requests_rejected": self.requests_rejected,
+            "requests_preempted": self.requests_preempted,
+            "pages": self._pages,
+            "prefix_cache": {"lookups": self.prefix_lookups,
+                             "hits": self.prefix_hits,
+                             "hit_rate": self.prefix_hit_rate},
+            "tokens_generated": tokens,
+            "tokens_per_sec": tokens / elapsed if elapsed > 0 else None,
+            "decode_tokens_per_sec": self.decode_tokens_per_sec(),
+            "ttft_s": self._ttft.pcts(),
+            "tpot_s": self._tpot.pcts(),
+            "latency_s": self._latency.pcts(),
+            "queue_depth": self._qdepth.mean_max(),
+            "slot_occupancy": self._occ.mean_max(),
+            "prefill_chunks": self.prefill_chunks,
+            "phases": dict(self.phase_seconds),
+        }

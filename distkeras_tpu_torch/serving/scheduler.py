@@ -1,0 +1,213 @@
+"""Request scheduling for the paged continuous-batching engine:
+admission, the per-request state machine, slot allocation, preemption.
+
+Mirrors ``distkeras_tpu/serving/scheduler.py`` (:55-364) for the paged
+engine's policy: priority classes (lower ``priority`` admits first,
+FCFS within a class, preempted requests at the front of their class),
+admission gated by the engine on the free-page budget, ONE prefill
+stream (the oldest admitted request advances one prompt chunk per
+iteration), and preemption of an admitted request back to the queue
+with its generated tokens kept. Pure host-side bookkeeping.
+"""
+
+from __future__ import annotations
+
+import enum
+import itertools
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+class AdmissionRejected(RuntimeError):
+    """Submit refused: the bounded admission queue is full."""
+
+    def __init__(self, queue_depth: int, max_queue: int):
+        super().__init__(
+            f"admission queue full ({queue_depth}/{max_queue} waiting); "
+            "request shed")
+        self.queue_depth = queue_depth
+        self.max_queue = max_queue
+
+
+class RequestState(enum.Enum):
+    QUEUED = "queued"            # submitted, waiting for a slot
+    PREFILLING = "prefilling"    # slot assigned, prompt chunks running
+    DECODING = "decoding"        # in the slot-batched decode loop
+    FINISHED = "finished"        # stop token or length limit reached
+
+
+@dataclass(eq=False)
+class Request:
+    """One serving request and its progress. Sampling knobs use the
+    engine's per-slot sentinels (``temperature 0`` = greedy, ``top_k 0``
+    = no truncation, ``top_p 1.0`` = no nucleus cut, ``stop_token -1`` =
+    never stop). ``rng`` is the request's own ``torch.Generator``
+    (seeded from ``seed``): it survives preemption, so a sampled stream
+    draws the same tokens whatever the schedule."""
+
+    rid: int
+    prompt: np.ndarray                   # [P] int32
+    max_new_tokens: int
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    stop_token: int = -1
+    seed: int = 0
+    priority: int = 1                    # lower admits first
+    state: RequestState = RequestState.QUEUED
+    slot: Optional[int] = None
+    prefill_pos: int = 0                 # context positions ingested
+    generated: List[int] = field(default_factory=list)
+    rng: object = None
+    submit_t: float = 0.0
+    n_preempted: int = 0
+    # engine bookkeeping of the admission plan: positions served by
+    # shared prefix pages, how many of those pages are whole, the pages
+    # to load into the staging cache and the copy-on-write donor's hold
+    shared_len: int = 0
+    n_shared_full: int = 0
+    load_pages: List[int] = field(default_factory=list)
+    donor_ref: Optional[int] = None
+    #: (rank, arrival) order inside a priority class (scheduler-owned)
+    order: tuple = (1, 0)
+
+    @property
+    def stopped(self) -> bool:
+        return (self.stop_token >= 0 and bool(self.generated)
+                and self.generated[-1] == self.stop_token)
+
+    @property
+    def done(self) -> bool:
+        return self.stopped or len(self.generated) >= self.max_new_tokens
+
+    @property
+    def context_tokens(self) -> np.ndarray:
+        """Every token whose KV must be in cache before this request can
+        (re)join decode: the prompt, plus after a preemption every
+        generated token but the last (the pending decode input)."""
+        if not self.generated:
+            return self.prompt
+        return np.concatenate(
+            [self.prompt,
+             np.asarray(self.generated[:-1], self.prompt.dtype)])
+
+    @property
+    def tokens(self) -> np.ndarray:
+        """Prompt + generated continuation."""
+        return np.concatenate(
+            [self.prompt, np.asarray(self.generated, self.prompt.dtype)])
+
+
+class PriorityScheduler:
+    """Queue + slot allocator + state machine, with priority classes and
+    preemption. ``waiting`` is one deque ordered at ``peek()`` time by
+    ``(priority, order)``."""
+
+    def __init__(self, num_slots: int, max_queue: Optional[int] = None):
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        if max_queue is not None and int(max_queue) < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.num_slots = int(num_slots)
+        self.max_queue = None if max_queue is None else int(max_queue)
+        self.waiting: deque = deque()          # QUEUED
+        self.prefilling: deque = deque()       # PREFILLING, FIFO
+        self.running: Dict[int, Request] = {}  # slot -> DECODING request
+        # pop() hands out slot 0 first: deterministic placement
+        self._free = list(range(self.num_slots))[::-1]
+        self._order = itertools.count()        # arrival order in a class
+        self._front = itertools.count()        # requeue order (preempted)
+
+    # --- queue ------------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        if self.max_queue is not None \
+                and len(self.waiting) >= self.max_queue:
+            raise AdmissionRejected(len(self.waiting), self.max_queue)
+        # fresh arrivals sort after every preempted request of the class
+        req.order = (1, next(self._order))
+        req.state = RequestState.QUEUED
+        self.waiting.append(req)
+
+    def peek(self) -> Optional[Request]:
+        """The request admission would take next, without taking it."""
+        if not self.waiting:
+            return None
+        return min(self.waiting, key=lambda r: (r.priority, r.order))
+
+    def admit_one(self, req: Request) -> None:
+        """Admit one queued request into a free slot (the engine calls
+        this only after funding its pages)."""
+        if not self._free:
+            raise RuntimeError("admit_one with no free slot")
+        self.waiting.remove(req)
+        req.slot = self._free.pop()
+        req.state = RequestState.PREFILLING
+        req.prefill_pos = 0
+        self.prefilling.append(req)
+
+    def next_prefill(self) -> Optional[Request]:
+        """The single request whose chunks advance (the oldest admitted)."""
+        return self.prefilling[0] if self.prefilling else None
+
+    # --- transitions ------------------------------------------------------
+
+    def to_decoding(self, req: Request) -> None:
+        if not self.prefilling or req is not self.prefilling[0]:
+            raise RuntimeError("prefill completes FCFS")
+        self.prefilling.popleft()
+        req.state = RequestState.DECODING
+        self.running[req.slot] = req
+
+    def _evict(self, req: Request) -> None:
+        """Remove an in-flight request from its live structure and free
+        its slot; a request holding no slot raises (a double release
+        would hand one slot to two requests)."""
+        if req.state is RequestState.DECODING:
+            del self.running[req.slot]
+        elif req.state is RequestState.PREFILLING:
+            self.prefilling.remove(req)
+        else:
+            raise RuntimeError(
+                f"cannot release request {req.rid} in state "
+                f"{req.state.value!r}: it holds no slot")
+        self._free.append(req.slot)
+
+    def release(self, req: Request) -> None:
+        """Finish a request and free its slot."""
+        self._evict(req)
+        req.state = RequestState.FINISHED
+
+    def preempt(self, req: Request) -> None:
+        """Evict an admitted request back to the queue: slot freed,
+        generated tokens kept (its re-prefill context), resumed ahead of
+        its class peers."""
+        self._evict(req)
+        req.slot = None
+        req.state = RequestState.QUEUED
+        req.prefill_pos = 0
+        req.n_preempted += 1
+        req.order = (0, next(self._front))
+        self.waiting.append(req)
+
+    # --- introspection ----------------------------------------------------
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.waiting)
+
+    @property
+    def occupied(self) -> int:
+        return self.num_slots - len(self._free)
+
+    @property
+    def pending(self) -> bool:
+        """Any request not yet finished."""
+        return bool(self.waiting or self.prefilling or self.running)
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)

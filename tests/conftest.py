@@ -103,6 +103,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-epoch/multi-process/big-model tests "
         "excluded from the fast default tier (-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the PyTorch port's kernels); "
+        "skips where there is none")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,167 @@
+"""The port's serving decode path against the JAX package's: one-pass
+and chunked prefill (logits and the cache they write), the paged decode
+step on identical pages and tables, and the sampling mask.
+
+The JAX side runs its CPU path (plain XLA attention and the page-gather
+readout); the port runs its plain PyTorch versions. Weights cross with
+``from_jax_params``; every input is made with numpy from a seed."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from distkeras_tpu.models import Model as JaxModel
+from distkeras_tpu.models import decoding as jd
+from distkeras_tpu.models import zoo as jax_zoo
+
+from distkeras_tpu_torch.models import Model, decoding as pd, \
+    from_jax_params, zoo
+from distkeras_tpu_torch.ops.attention import NEG_INF
+
+V = 41
+#: float32 reassociation of attention and matmul sums over <= 40 keys
+TOL = 1e-4
+
+
+def _pair(**cfg):
+    kw = dict(d_model=32, num_heads=4, num_layers=2, mlp_ratio=2)
+    kw.update(cfg)
+    jm = JaxModel.build(jax_zoo.transformer_lm(V, **kw), (8,), seed=3)
+    pm = Model.build(zoo.transformer_lm(V, **kw), (8,), seed=3,
+                     device="cpu")
+    from_jax_params(pm, jm.params, jm.state)
+    jd._resolve_head_dims(jm.module, jm.params)
+    return jm, pm
+
+
+def _caches(jm, pm, length):
+    return (jd.init_cache(jm.module, 1, length, jnp.float32),
+            pd.init_cache(pm.module, 1, length, torch.float32, "cpu"))
+
+
+def _assert_caches(jc, pc, upto):
+    for jkv, pkv in zip(jc, pc):
+        if jkv is None:
+            assert pkv is None
+            continue
+        for key in ("k", "v"):
+            np.testing.assert_allclose(pkv[key][:, :, :upto].numpy(),
+                                       np.asarray(jkv[key])[:, :, :upto],
+                                       atol=TOL)
+
+
+CONFIGS = [{}, {"num_kv_heads": 2}, {"num_kv_heads": 2, "attn_window": 5}]
+IDS = ["mha", "gqa", "gqa-swa"]
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=IDS)
+def test_prefill_matches_jax(cfg):
+    jm, pm = _pair(**cfg)
+    prompt = np.random.RandomState(0).randint(0, V, (1, 19)).astype(np.int32)
+    jc, pc = _caches(jm, pm, 32)
+    jl, jc = jd.prefill(jm.module, jm.params, jm.state, jc,
+                        jnp.asarray(prompt))
+    pl, pc = pd.prefill(pm.module, pm.params, pc, torch.from_numpy(prompt))
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=TOL)
+    _assert_caches(jc, pc, 19)
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=IDS)
+def test_prefill_chunk_step_matches_jax(cfg):
+    """Three chunks (7, 7, 5 positions): the prefix pass (GQA folded
+    into the rows, or the SWA band) and the lse merge on both sides."""
+    jm, pm = _pair(**cfg)
+    prompt = np.random.RandomState(1).randint(0, V, (1, 19)).astype(np.int32)
+    jc, pc = _caches(jm, pm, 32)
+    for t0 in (0, 7, 14):
+        q_len = min(7, 19 - t0)
+        final = t0 + q_len >= 19
+        chunk = prompt[:, t0:t0 + q_len]
+        jl, jc = jd.prefill_chunk_step(jm.module, jm.params, jm.state, jc,
+                                       jnp.asarray(chunk), t0, final=final)
+        pl, pc = pd.prefill_chunk_step(pm.module, pm.params, pc,
+                                       torch.from_numpy(chunk), t0,
+                                       final=final)
+        _assert_caches(jc, pc, t0 + q_len)
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=TOL)
+
+
+#: scrambled physical pages, sentinel (= N) entries; slot 3 is free (its
+#: position is past capacity) and slot 2 writes a page it owns mid-table
+N_PAGES, PAGE_LEN = 14, 4
+TABLE = np.array([[7, 2, 9, 14, 14], [0, 5, 14, 14, 14],
+                  [3, 1, 4, 6, 11], [14, 14, 14, 14, 14]], np.int32)
+T = np.array([10, 6, 17, 20], np.int32)
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=IDS)
+def test_decode_step_slots_paged_matches_jax(cfg):
+    jm, pm = _pair(**cfg)
+    rs = np.random.RandomState(2)
+    jcache, pcache = [], []
+    for layer in pm.module.layers:
+        if not isinstance(layer, zoo.TransformerBlock):
+            jcache.append(None)
+            pcache.append(None)
+            continue
+        shape = (N_PAGES, layer.attn.kv_heads, PAGE_LEN, layer.attn.head_dim)
+        kv = {k: rs.randn(*shape).astype(np.float32) for k in ("k", "v")}
+        jcache.append({k: jnp.asarray(a) for k, a in kv.items()})
+        pcache.append({k: torch.from_numpy(a.copy()) for k, a in kv.items()})
+    tok = rs.randint(0, V, 4).astype(np.int32)
+    jl, jcache = jd.decode_step_slots_paged(
+        jm.module, jm.params, jm.state, jcache, jnp.asarray(tok),
+        jnp.asarray(T), jnp.asarray(TABLE), PAGE_LEN)
+    pl, pcache = pd.decode_step_slots_paged(
+        pm.module, pm.params, pcache, torch.from_numpy(tok),
+        torch.from_numpy(T), torch.from_numpy(TABLE), PAGE_LEN)
+    np.testing.assert_allclose(pl.numpy()[:3], np.asarray(jl)[:3], atol=TOL)
+    for jkv, pkv in zip(jcache, pcache):
+        if jkv is not None:
+            for key in ("k", "v"):
+                np.testing.assert_allclose(pkv[key].numpy(),
+                                           np.asarray(jkv[key]), atol=TOL)
+
+
+def test_masked_logits_candidate_set_matches_jax_with_ties():
+    rs = np.random.RandomState(3)
+    logits = rs.randint(-4, 4, (6, 50)).astype(np.float32)   # many ties
+    temp = np.array([1.0, 0.7, 1.3, 0.0, 1.0, 0.5], np.float32)
+    top_k = np.array([5, 0, 3, 4, 1, 7], np.int32)
+    top_p = np.array([1.0, 0.6, 0.9, 1.0, 0.3, 0.75], np.float32)
+    ref = np.asarray(jd._masked_logits_vec(
+        jnp.asarray(logits), jnp.asarray(temp), jnp.asarray(top_k),
+        jnp.asarray(top_p)))
+    got = pd._masked_logits_vec(
+        torch.from_numpy(logits), torch.from_numpy(temp),
+        torch.from_numpy(top_k), torch.from_numpy(top_p)).numpy()
+    np.testing.assert_array_equal(got > NEG_INF / 2, ref > NEG_INF / 2)
+    keep = ref > NEG_INF / 2
+    np.testing.assert_allclose(got[keep], ref[keep], rtol=1e-6)
+
+
+def test_sample_vec_draws_inside_the_candidate_set():
+    """Draws cannot be byte-identical to JAX's (threefry is not ported);
+    they are held to invariants: a sampled token is a candidate, a
+    greedy row is the argmax, and a seed repeats its stream."""
+    rs = np.random.RandomState(4)
+    logits = torch.from_numpy(rs.randn(3, 64).astype(np.float32))
+    temp = torch.tensor([0.8, 0.0, 1.5])
+    top_k = torch.tensor([5, 0, 0])
+    top_p = torch.tensor([1.0, 1.0, 0.5])
+    cand = pd._masked_logits_vec(logits, temp, top_k, top_p) > NEG_INF / 2
+
+    def draws(seed):
+        gens = [torch.Generator().manual_seed(seed), None,
+                torch.Generator().manual_seed(seed + 1)]
+        return torch.stack([pd._sample_vec(logits, temp, top_k, top_p,
+                                           gens) for _ in range(20)])
+
+    out = draws(9)
+    assert torch.all(out[:, 1] == torch.argmax(logits[1]))
+    for row in (0, 2):
+        assert cand[row, out[:, row]].all()
+    assert len(set(out[:, 0].tolist())) > 1      # it does sample
+    torch.testing.assert_close(out, draws(9))
