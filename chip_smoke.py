@@ -16,7 +16,19 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    512-token template, a 1500-token prompt, a sampled request, greedy
    ones), with both kernels' launch counts read around that run only;
    then one prompt's logits on the card against the plain path on the
-   CPU in float32 at the same weights.
+   CPU in float32 at the same weights;
+6. the flash-attention backward kernels (dq, dk/dv) against their plain
+   version in bf16: the training shape (causal B4 H16 S2048 D64), a
+   256-position window, grouped queries (4 kv heads x 4) and a ragged
+   S=1000, with times;
+7. the training path end to end: the same 218M LM (12 layers, bf16
+   compute over float32 weights, seed 0) trained by ``SingleTrainer``
+   with adam for two epochs of 32 rows x 2048 tokens (16 steps of 4
+   rows), with the three training kernels' launch counts read around
+   that run only; then the steady step's time, tokens/s, peak memory
+   and a ``torch.profiler`` list of its device time;
+8. one gradient on the card (bf16 and float32) against the plain path
+   on the CPU in float32, at the same widths with 2 layers, B1 S512.
 
 The line before the last is one JSON object with every kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -35,15 +47,23 @@ import torch
 import torch.nn.functional as F
 
 from distkeras_tpu_torch import kernels
+from distkeras_tpu_torch.data import Dataset
 from distkeras_tpu_torch.models import Model, zoo
 from distkeras_tpu_torch.models.decoding import (fuse_qkv_params,
                                                  init_cache, prefill,
                                                  serving_params)
-from distkeras_tpu_torch.ops.flash_attention import (flash_forward,
-                                                     flash_forward_reference)
+from distkeras_tpu_torch.ops.flash_attention import (
+    attention_delta, flash_backward_reference, flash_forward,
+    flash_forward_reference, launch_dkv, launch_dq)
+from distkeras_tpu_torch.ops.losses import \
+    sparse_categorical_crossentropy_from_logits
+from distkeras_tpu_torch.ops.optimizers import adam
 from distkeras_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference)
+from distkeras_tpu_torch.parallel import (SingleTrainer, TrainCarry,
+                                          make_train_step, value_and_grad)
 from distkeras_tpu_torch.serving import ServingEngine
+from distkeras_tpu_torch.utils.tree import tree_leaves
 
 #: the LM the JAX package benchmarks (bench.py LM_CFG), at full depth
 LM_CFG = dict(vocab=32768, d_model=1024, num_heads=16, num_layers=12,
@@ -290,6 +310,8 @@ def workload(vocab: int):
     ]
 
 
+SERVING_KERNELS = ("flash_fwd", "paged_decode")
+
 #: pages of the pool: enough to admit the first four requests, too few
 #: for all of them to grow through their 32 new tokens (so at least one
 #: stream is preempted and resumed)
@@ -412,6 +434,255 @@ def logits_vs_cpu(model, prompt):
             (card_f32 - ref).abs().max().item() / scale, scale)
 
 
+# --- phase 6: flash-attention backward ----------------------------------------
+
+#: bf16 gradients against the float32 math of the plain version, relative
+#: to the reference's largest magnitude: bf16 output rounding (2^-8) plus
+#: the bf16-rounded P and dS tiles the kernels multiply
+BWD_BF16_REL_TOL = 2e-2
+
+
+def backward_cases(dev):
+    """The training shape (the 218M LM's attention at B4 S2048, BSHD as
+    the layer calls it) and a window, GQA and ragged case at B1."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
+
+    def case(b, s, h, hkv, window):
+        return dict(q=rnd(b, s, h, 64), k=rnd(b, s, hkv, 64),
+                    v=rnd(b, s, hkv, 64), dout=rnd(b, s, h, 64),
+                    window=window)
+
+    return [("causal B4 H16 S2048", case(4, 2048, 16, 16, None)),
+            ("window=256 B1 H16 S2048", case(1, 2048, 16, 16, 256)),
+            ("GQA Hkv=4 G=4 B1 S2048", case(1, 2048, 16, 4, None)),
+            ("causal ragged B1 H16 S1000", case(1, 1000, 16, 16, None))]
+
+
+def _sdpa_backward_ms(c):
+    """SDPA forward+backward minus SDPA forward: a yardstick only (the
+    port never calls SDPA). GQA repeats K/V first."""
+    g = c["q"].shape[2] // c["k"].shape[2]
+    q, k, v = (x.transpose(1, 2).detach().clone().requires_grad_()
+               for x in (c["q"], c["k"], c["v"]))
+    kx, vx = (t.repeat_interleave(g, 1) if g > 1 else t for t in (k, v))
+    dout = c["dout"].transpose(1, 2)
+    mask = None
+    if c["window"] is not None:
+        i = torch.arange(q.shape[2], device=q.device)
+        mask = (i[None, :] <= i[:, None]) & \
+            (i[None, :] > i[:, None] - c["window"])
+
+    def fwd():
+        return F.scaled_dot_product_attention(
+            q, kx, vx, attn_mask=mask, is_causal=mask is None)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (q, k, v), dout)
+
+    with torch.no_grad():
+        f_ms = time_ms(fwd)
+    return time_ms(fwd_bwd) - f_ms
+
+
+def backward_phase(dev):
+    rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+    for name, c in backward_cases(dev):
+        kw = dict(scale=64 ** -0.5, causal=True, window=c["window"],
+                  layout="bshd")
+        q, k, v, dout = c["q"], c["k"], c["v"], c["dout"]
+        out, lse = flash_forward(q, k, v, **kw)
+        delta = attention_delta(out, dout)
+        args = (q, k, v, lse, dout, delta, kw["scale"], True, c["window"],
+                "bshd")
+        got = launch_dq(*args) + launch_dkv(*args)
+        torch.cuda.synchronize()
+        ref = flash_backward_reference(q, k, v, out, lse, dout, delta, **kw)
+        errs, rel = {}, {}
+        for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+            if not torch.isfinite(a.float()).all():
+                raise AssertionError(f"non-finite {gname} on {name}")
+            errs[gname] = (a.float() - r.float()).abs().max().item()
+            rel[gname] = errs[gname] / r.float().abs().max().item()
+        fwd_ms = time_ms(lambda: flash_forward(q, k, v, **kw))
+        dq_ms = time_ms(lambda: launch_dq(*args), iters=10)
+        dkv_ms = time_ms(lambda: launch_dkv(*args), iters=10)
+        plain_ms = time_ms(lambda: flash_backward_reference(
+            q, k, v, out, lse, dout, delta, **kw), iters=3, warmup=1)
+        lib_ms = _sdpa_backward_ms(c)
+        b, s, h, d = q.shape
+        work = b * h * _admitted_pairs(s, s, True, c["window"]) * d
+        qbytes = 2 * q.numel()                       # one bf16 q-shaped array
+        kvbytes = 2 * k.numel()
+        rowbytes = 4 * lse.numel()                   # one float32 row stat
+        # each input read once, each output written once: q, k, v, dO,
+        # lse, delta in; dq (dq kernel) or dk, dv (dk/dv kernel) out
+        in_bytes = 2 * qbytes + 2 * kvbytes + 2 * rowbytes
+        dq_bound, dq_by = bound_ms(6.0 * work, in_bytes + qbytes,
+                                   PEAK_BF16_FLOPS)
+        dkv_bound, dkv_by = bound_ms(8.0 * work, in_bytes + 2 * kvbytes,
+                                     PEAK_BF16_FLOPS)
+        print(f"flash_bwd {name}: max abs err dq {errs['dq']:.3e} dk "
+              f"{errs['dk']:.3e} dv {errs['dv']:.3e}; relative to the "
+              f"reference's max {rel['dq']:.3e} {rel['dk']:.3e} "
+              f"{rel['dv']:.3e} (tol {BWD_BF16_REL_TOL}); dq kernel {dq_ms:.4f} ms (bound "
+              f"{dq_bound:.4f}, {dq_by}), dk/dv kernel {dkv_ms:.4f} ms "
+              f"(bound {dkv_bound:.4f}, {dkv_by}); plain backward "
+              f"{plain_ms:.4f} ms; sdpa backward {lib_ms:.4f} ms; "
+              f"flash_fwd {fwd_ms:.4f} ms", flush=True)
+        if max(rel.values()) > BWD_BF16_REL_TOL:
+            raise AssertionError(f"flash backward kernels disagree with "
+                                 f"their plain version on {name}")
+        rows["flash_bwd_dq"].append(dict(
+            name=name, err=errs["dq"], ms=dq_ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=dq_bound, bound_by=dq_by))
+        rows["flash_bwd_dkv"].append(dict(
+            name=name, err=max(errs["dk"], errs["dv"]), ms=dkv_ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=dkv_bound,
+            bound_by=dkv_by))
+    return rows
+
+
+# --- phase 7: the training path end to end ----------------------------------
+
+TRAIN_ROWS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_EPOCHS = 32, 2048, 4, 2
+TRAIN_LR = 1e-3
+TRAIN_LOSS = "sparse_categorical_crossentropy_from_logits"
+TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def training_data(vocab: int, rows=TRAIN_ROWS, seq=TRAIN_SEQ):
+    """``rows`` rows of ``seq`` next-token pairs, each row its own random
+    64-token pattern tiled, so the loss can fall within a few steps."""
+    rs = np.random.RandomState(SEED)
+    pats = rs.randint(0, vocab, (rows, 64))
+    toks = np.tile(pats, (1, seq // 64 + 1))[:, :seq + 1]
+    return Dataset.from_arrays(toks[:, :-1], toks[:, 1:])
+
+
+def train(model):
+    """Two epochs through ``SingleTrainer``; returns the trainer and the
+    launch counts of this run."""
+    data = training_data(model.module.layers[0].vocab_size)
+    trainer = SingleTrainer(model, worker_optimizer="adam",
+                            learning_rate=TRAIN_LR, loss=TRAIN_LOSS,
+                            batch_size=TRAIN_BATCH, num_epoch=TRAIN_EPOCHS,
+                            metrics=["accuracy"])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    trainer.train(data)
+    torch.cuda.synchronize()
+    return trainer, kernels.launch_counts()
+
+
+def check_training(trainer, launches, num_layers):
+    hist = trainer.get_history()
+    losses = hist.losses()
+    steps = TRAIN_EPOCHS * TRAIN_ROWS // TRAIN_BATCH
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"expected {steps} finite losses, got {losses}")
+    last_mean = float(np.mean(hist.epochs[-1]["loss"]))
+    if not last_mean < losses[0]:
+        raise AssertionError(f"loss did not fall: first step {losses[0]}, "
+                             f"last epoch mean {last_mean}")
+    for name in TRAINING_KERNELS:
+        if launches[name] != num_layers * steps:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times in {steps} steps "
+                f"of a {num_layers}-layer model; expected "
+                f"{num_layers * steps}")
+    return losses, last_mean
+
+
+def profile_training(model, card):
+    """The steady training step: wall time over a few steps (after one
+    warm step), tokens/s, peak device memory, and ``torch.profiler`` over
+    one step: device time per kernel and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    data = training_data(model.module.layers[0].vocab_size, rows=TRAIN_BATCH)
+    xb, yb = (torch.from_numpy(a).to(model.device) for a in data.arrays())
+    opt = adam(TRAIN_LR)
+    step = make_train_step(model.module,
+                           sparse_categorical_crossentropy_from_logits, opt)
+    carry = TrainCarry(model.params, opt.init(model.params))
+    carry, _ = step(carry, (xb, yb))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        carry, loss = step(carry, (xb, yb))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        carry, loss = step(carry, (xb, yb))
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    tokens = xb.numel()
+    print(f"training on {card}: {step_ms:.1f} ms/step (B{TRAIN_BATCH} "
+          f"S{TRAIN_SEQ}, adam, profiler off), {tokens / step_ms * 1e3:.0f} "
+          f"tokens/s, peak device memory {peak_gb:.2f} GiB; device busy "
+          f"{busy_ms:.1f} ms in the profiled step", flush=True)
+    for e in ops[:12]:
+        print(f"profile-train:   {e.self_device_time_total / 1e3:8.3f} ms  "
+              f"x{e.count:<5d} {e.key[:72]}", flush=True)
+    return step_ms, tokens / step_ms * 1e3, peak_gb, busy_ms
+
+
+# --- phase 8: gradients on the card against the CPU -------------------------
+
+#: worst per-leaf gradient error relative to the leaf's largest CPU
+#: value: float32 on the card differs from the CPU only in summation
+#: order; bf16 carries activations, P and dS rounded to 2^-8 through two
+#: blocks and the 32768-way head (1.3e-2 on the CPU's own bf16 path)
+GRAD_F32_REL_TOL = 1e-3
+GRAD_BF16_REL_TOL = 5e-2
+GRAD_LAYERS, GRAD_SEQ = 2, 512
+
+
+def gradients_vs_cpu(dev):
+    rs = np.random.RandomState(SEED + 4)
+    toks = torch.from_numpy(rs.randint(0, LM_CFG["vocab"],
+                                       (1, GRAD_SEQ + 1)))
+    x, y = toks[:, :-1], toks[:, 1:]
+    loss_fn = sparse_categorical_crossentropy_from_logits
+
+    def grads(device, dtype):
+        m = build_lm(device, num_layers=GRAD_LAYERS, dtype=dtype)
+        loss, g, _ = value_and_grad(m.module, loss_fn, m.params,
+                                    x.to(m.device), y.to(m.device))
+        return float(loss), [t.float().cpu() for t in tree_leaves(g)]
+
+    ref_loss, ref = grads("cpu", "float32")
+    out = {}
+    for dtype, tol in (("bfloat16", GRAD_BF16_REL_TOL),
+                       ("float32", GRAD_F32_REL_TOL)):
+        kernels.reset_launch_counts()
+        loss, got = grads(dev, dtype)
+        if kernels.launch_counts()["flash_bwd_dkv"] != GRAD_LAYERS:
+            raise AssertionError("the card gradient did not run the "
+                                 "backward kernels")
+        worst = max((a - b).abs().max().item() / b.abs().max().item()
+                    for a, b in zip(got, ref))
+        print(f"gradient vs CPU float32 ({GRAD_LAYERS} layers, B1 "
+              f"S{GRAD_SEQ}): card {dtype} loss {loss:.6f} (CPU "
+              f"{ref_loss:.6f}), worst per-leaf rel err {worst:.3e} (tol "
+              f"{tol})", flush=True)
+        if not (worst <= tol and abs(loss - ref_loss) <= tol * ref_loss):
+            raise AssertionError(f"card {dtype} gradients disagree with "
+                                 f"the CPU")
+        out[dtype] = worst
+    return out
+
+
 #: relative (to the largest |logit|) agreement with the CPU in float32:
 #: bf16 weights and activations through 12 blocks; float32 on the card
 #: differs from the CPU only in summation order
@@ -451,8 +722,8 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     s = check_serving(eng, reqs, out, bad)
-    for name, n in launches.items():
-        if n < 1:
+    for name in SERVING_KERNELS:
+        if launches[name] < 1:
             raise AssertionError(f"the serving run never launched {name}")
     print(f"serving: {len(reqs)} requests in {wall:.2f} s; launches "
           f"{launches}; prefix hits {s['prefix_cache']['hits']}; "
@@ -472,10 +743,30 @@ def main() -> int:
     if not (rel_bf16 <= E2E_BF16_REL_TOL and rel_f32 <= E2E_F32_REL_TOL):
         raise AssertionError("card logits disagree with the CPU plain path")
 
-    def entry(name, source, replaces, rows):
+    bwd_rows = backward_phase(dev)
+    num_layers = LM_CFG["num_layers"]
+    trainer, train_launches = train(model)
+    losses, last_mean = check_training(trainer, train_launches, num_layers)
+    print(f"training: {len(losses)} steps, loss {losses[0]:.4f} -> last "
+          f"epoch mean {last_mean:.4f} (per step: "
+          f"{np.array2string(losses, precision=3)}); accuracy last epoch "
+          f"{np.mean(trainer.get_history().epochs[-1]['accuracy']):.4f}; "
+          f"launches {train_launches}; {trainer.get_training_time():.1f} s",
+          flush=True)
+    profile_training(model, card)
+    gradients_vs_cpu(dev)
+
+    by_path = {name: {} for name in kernels.SOURCES}
+    for name in SERVING_KERNELS:
+        by_path[name]["serving"] = launches[name]
+    for name in TRAINING_KERNELS:
+        by_path[name]["training"] = train_launches[name]
+
+    def entry(name, source, replaces, rows, path):
         main_row = rows[0]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces, "launches": by_path[name][path],
+                "launches_by_path": by_path[name],
                 "max_abs_err": max(r["err"] for r in rows),
                 "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                 "bound_ms": main_row["bound_ms"],
@@ -484,9 +775,17 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("flash_fwd", "distkeras_tpu_torch/csrc/flash_fwd.cu",
-              "distkeras_tpu/ops/flash_attention.py:321", flash_rows),
+              "distkeras_tpu/ops/flash_attention.py:321", flash_rows,
+              "serving"),
         entry("paged_decode", "distkeras_tpu_torch/csrc/paged_decode.cu",
-              "distkeras_tpu/ops/paged_attention.py:365", paged_rows),
+              "distkeras_tpu/ops/paged_attention.py:365", paged_rows,
+              "serving"),
+        entry("flash_bwd_dq", "distkeras_tpu_torch/csrc/flash_bwd.cu",
+              "distkeras_tpu/ops/flash_attention.py:585",
+              bwd_rows["flash_bwd_dq"], "training"),
+        entry("flash_bwd_dkv", "distkeras_tpu_torch/csrc/flash_bwd.cu",
+              "distkeras_tpu/ops/flash_attention.py:619",
+              bwd_rows["flash_bwd_dkv"], "training"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

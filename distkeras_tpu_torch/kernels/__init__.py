@@ -1,12 +1,14 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
-of its own with a plain C interface, loaded with ``ctypes``. The first
-call of ``library`` (or an explicit ``build``) compiles every source
-whose library is missing, one ``nvcc`` process per source, all started
-together. A library's file name carries a hash of its source and flags,
-so an edited source rebuilds and an unchanged one is reused. Where the
-libraries go and which ``nvcc`` runs is set in ``compat``.
+of its own with a plain C interface, loaded with ``ctypes``; a source may
+hold several kernels (``flash_bwd.cu`` holds dq and dk/dv), each with
+its own exported launcher. The first call of ``library`` (or an
+explicit ``build``) compiles every source whose library is missing, one
+``nvcc`` process per source, all started together. A library's file
+name carries a hash of its source and flags, so an edited source
+rebuilds and an unchanged one is reused. Where the libraries go and
+which ``nvcc`` runs is set in ``compat``.
 
 Every wrapper adds one to its kernel's launch count where it launches
 the kernel, and nowhere else (``launch_counts`` / ``reset_launch_counts``),
@@ -25,7 +27,8 @@ from typing import Dict, Iterable, Optional
 from distkeras_tpu_torch import compat
 
 #: kernel name -> source file under csrc/
-SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
+           "flash_bwd_dq": "flash_bwd.cu", "flash_bwd_dkv": "flash_bwd.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,83 +40,91 @@ _SIGNATURES = {
                   [_P] * 5 + [_I] * 7 + [_L] * 12 + [_F, _I, _I, _P]),
     "paged_decode": ("dkt_paged_decode",
                      [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
+    "flash_bwd_dq": ("dkt_flash_bwd_dq",
+                     [_P] * 7 + [_I] * 7 + [_L] * 15 + [_F, _I, _I, _P]),
+    "flash_bwd_dkv": ("dkt_flash_bwd_dkv",
+                      [_P] * 8 + [_I] * 7 + [_L] * 18 + [_F, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.CDLL] = {}     # source file -> loaded library
 _launches: Dict[str, int] = {name: 0 for name in SOURCES}
-#: compiler output of the last build, per kernel (ptxas notes with
+#: compiler output of the last build, per source (ptxas notes with
 #: ``DKT_NVCC_FLAGS="-Xptxas -v"``)
 build_log: Dict[str, str] = {}
 
 
-def source_path(name: str) -> str:
-    return os.path.join(compat.PACKAGE_DIR, "csrc", SOURCES[name])
+def _csrc(source: str) -> str:
+    return os.path.join(compat.PACKAGE_DIR, "csrc", source)
 
 
-def _nvcc_command(name: str, out: str):
+def _nvcc_command(source: str, out: str):
     return [compat.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-o", out, source_path(name)] + compat.extra_nvcc_flags()
+            "-o", out, _csrc(source)] + compat.extra_nvcc_flags()
 
 
-def _library_path(name: str) -> str:
+def _library_path(source: str) -> str:
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
+    with open(_csrc(source), "rb") as f:
         h.update(f.read())
     h.update(" ".join(compat.extra_nvcc_flags()).encode())
+    stem = os.path.splitext(source)[0]
     return os.path.join(compat.build_dir(),
-                        f"lib{name}-{h.hexdigest()[:16]}.so")
+                        f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Compile the named kernels (default: all) whose libraries are
-    missing, in parallel; returns ``{name: library path}``. Raises with
-    the compiler's output when a compile fails."""
+    """Compile the sources of the named kernels (default: all) whose
+    libraries are missing, one ``nvcc`` per source, in parallel; returns
+    ``{name: library path}``. Raises with the compiler's output when a
+    compile fails."""
     names = list(SOURCES if names is None else names)
     os.makedirs(compat.build_dir(), exist_ok=True)
-    paths = {name: _library_path(name) for name in names}
+    sources = sorted({SOURCES[name] for name in names})
+    paths = {src: _library_path(src) for src in sources}
     procs = []
-    for name in names:
-        if os.path.exists(paths[name]):
+    for src in sources:
+        if os.path.exists(paths[src]):
             continue
-        tmp = f"{paths[name]}.{os.getpid()}.tmp"
-        procs.append((name, tmp, subprocess.Popen(
-            _nvcc_command(name, tmp), stdout=subprocess.PIPE,
+        tmp = f"{paths[src]}.{os.getpid()}.tmp"
+        procs.append((src, tmp, subprocess.Popen(
+            _nvcc_command(src, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
     failed = []
-    for name, tmp, proc in procs:
+    for src, tmp, proc in procs:
         out, _ = proc.communicate()
-        build_log[name] = out
+        build_log[src] = out
         if proc.returncode != 0:
-            failed.append(f"--- nvcc failed for {name} "
+            failed.append(f"--- nvcc failed for {src} "
                           f"(exit {proc.returncode}) ---\n{out}")
             continue
-        os.replace(tmp, paths[name])
+        os.replace(tmp, paths[src])
     if failed:
         raise RuntimeError("\n".join(failed))
-    return paths
+    return {name: paths[SOURCES[name]] for name in names}
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel (every missing library is built
-    on first use)."""
-    lib = _libs.get(name)
+    """The loaded library holding one kernel (every missing library is
+    built on first use)."""
+    lib = _libs.get(SOURCES[name])
     if lib is not None:
         return lib
     with _lock:
-        if name not in _libs:
-            paths = build([n for n in SOURCES if n not in _libs])
+        if SOURCES[name] not in _libs:
+            paths = build([n for n in SOURCES if SOURCES[n] not in _libs])
             for n, path in paths.items():
-                dll = ctypes.CDLL(path)
+                dll = _libs.get(SOURCES[n])
+                if dll is None:
+                    dll = _libs[SOURCES[n]] = ctypes.CDLL(path)
+                    dll.dkt_error_string.argtypes = [_I]
+                    dll.dkt_error_string.restype = ctypes.c_char_p
                 sym, argtypes = _SIGNATURES[n]
                 fn = getattr(dll, sym)
                 fn.argtypes = argtypes
                 fn.restype = _I
-                dll.dkt_error_string.argtypes = [_I]
-                dll.dkt_error_string.restype = ctypes.c_char_p
-                _libs[n] = dll
-        return _libs[name]
+        return _libs[SOURCES[name]]
 
 
 def check(lib: ctypes.CDLL, err: int, name: str) -> None:

@@ -6,9 +6,9 @@ parameter names and layouts: ``wq [d, H, Dh]``, ``wk``/``wv [d, Hkv,
 Dh]``, ``wo [H, Dh, d]``, MLP ``w1 [d, r*d]``/``w2 [r*d, d]``. Norms
 compute in float32 and cast back to the input dtype; projections run
 in the layer's compute dtype. The full-sequence attention goes through
-``ops.flash_attention.flash_forward`` (the CUDA kernel on the card, its
-plain version on the CPU). Packed-sequence ``segment_ids`` belong to
-training and wait for that slice.
+the differentiable ``ops.flash_attention.flash_attention`` (the CUDA
+forward and backward kernels on the card, their plain versions on the
+CPU). Packed-sequence ``segment_ids`` wait for a later slice.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 from distkeras_tpu_torch.models.core import Layer, torch_dtype
 from distkeras_tpu_torch.models.layers import get_activation, init_weights
 from distkeras_tpu_torch.ops.attention import apply_rope
-from distkeras_tpu_torch.ops.flash_attention import flash_forward
+from distkeras_tpu_torch.ops.flash_attention import flash_attention
 
 
 class LayerNorm(Layer):
@@ -138,8 +138,8 @@ class MultiHeadAttention(Layer):
         if self.use_rope:
             q = apply_rope(q, scale=self.rope_scale)
             k = apply_rope(k, scale=self.rope_scale)
-        out, _ = flash_forward(q, k, v, scale=q.shape[-1] ** -0.5,
-                               causal=self.causal, window=self.attn_window)
+        out = flash_attention(q, k, v, causal=self.causal,
+                              window=self.attn_window)
         y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
         return y.to(x.dtype)
 

@@ -1,5 +1,9 @@
-"""Weight bridge: load the JAX package's ``Model.params`` / ``Model.state``
-trees (as numpy arrays) into the port's modules.
+"""Weight bridge between the JAX package's ``Model.params`` /
+``Model.state`` trees (numpy arrays) and the port's modules, both ways:
+``from_jax_params`` loads a JAX tree into a port model,
+``to_jax_params`` exports a port model's weights in the JAX tree layout
+(so a model trained here can be loaded into the JAX package, and the
+tests compare trained weights leaf by leaf).
 
 The port keeps the JAX parameter names and layouts, so the bridge is a
 copy: every key of the port's ``param_tree()`` must be present with the
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.models.core import Model
+from distkeras_tpu_torch.utils.tree import tree_map
 
 
 def _flatten(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
@@ -51,3 +56,12 @@ def from_jax_params(model: Model, params, state=None) -> Model:
             raise ValueError(f"the port's layers carry no state, got "
                              f"{leaves}")
     return model
+
+
+def to_jax_params(model: Model):
+    """The model's parameters as the JAX package's tree: one dict per
+    layer of the ``Sequential``, float32 numpy leaves under the JAX
+    names and layouts (the inverse of ``from_jax_params``)."""
+    return tree_map(
+        lambda x: x.detach().to("cpu", torch.float32).numpy().copy(),
+        model.params)

@@ -9,14 +9,19 @@ structure as the JAX ``Model.params`` (one dict per layer of a
 ``Sequential``) and the weight bridge is a copy. ``apply(p, x)`` is the
 layer's function of an explicit parameter tree, which lets the serving
 path run a pre-cast copy of the weights; ``forward(x)`` applies the
-layer's own parameters. Parameters are inference-only in this slice
-(``requires_grad=False``); training comes with a later slice.
+layer's own parameters. Parameters are float32 master weights that
+require grad; each layer casts them to its compute dtype inside
+``apply``, so autograd returns float32 gradients on the float32 leaves
+(what JAX's ``value_and_grad`` returns). ``Model.apply`` (inference)
+runs under ``torch.no_grad``; ``Model.fit`` trains in place through
+``parallel.trainers.SingleTrainer``.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -47,8 +52,7 @@ class Layer(nn.Module):
         return tuple(input_shape)
 
     def add_param(self, name: str, value: torch.Tensor) -> None:
-        self.register_parameter(name, nn.Parameter(value,
-                                                   requires_grad=False))
+        self.register_parameter(name, nn.Parameter(value))
 
     def param_tree(self) -> Dict:
         """``{name: tensor}`` for this layer's own parameters plus
@@ -134,3 +138,38 @@ class Model:
         self.device = resolve_device(device)
         self.module.to(self.device)
         return self
+
+    def fit(self, x, y=None, *, optimizer="sgd",
+            loss="mean_squared_error", batch_size: int = 32,
+            epochs: int = 1, metrics=None, validation_data=None,
+            validation_split: float = 0.0, seed: int = 0,
+            **trainer_kwargs):
+        """Keras-style ``model.fit`` (``distkeras_tpu`` ``Model.fit``
+        :260): a thin wrapper over ``SingleTrainer``. ``x`` is a
+        ``data.Dataset`` (default feature/label columns) or a feature
+        array with labels ``y``. Trains IN PLACE on the model's device and
+        returns the ``History``. ``validation_split`` holds out the LAST
+        fraction of the (unshuffled) data, as Keras does."""
+        from distkeras_tpu_torch.data.dataset import Dataset
+        from distkeras_tpu_torch.parallel.trainers import SingleTrainer
+
+        if isinstance(x, Dataset):
+            ds = x
+        else:
+            if y is None:
+                raise ValueError("fit(x, y): y is required for array input")
+            ds = Dataset({"features": np.asarray(x), "label": np.asarray(y)})
+        if validation_split:
+            if validation_data is not None:
+                raise ValueError(
+                    "pass validation_split OR validation_data, not both")
+            if not 0.0 < validation_split < 1.0:
+                raise ValueError(f"validation_split must be in (0, 1), got "
+                                 f"{validation_split}")
+            ds, validation_data = ds.split(1.0 - validation_split)
+        trainer = SingleTrainer(
+            self, worker_optimizer=optimizer, loss=loss,
+            batch_size=batch_size, num_epoch=epochs, metrics=metrics,
+            validation_data=validation_data, seed=seed, **trainer_kwargs)
+        trainer.train(ds)
+        return trainer.get_history()

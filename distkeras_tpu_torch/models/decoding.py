@@ -38,6 +38,7 @@ from distkeras_tpu_torch.models.layers import Dropout
 from distkeras_tpu_torch.ops.attention import NEG_INF, apply_rope
 from distkeras_tpu_torch.ops.flash_attention import flash_forward
 from distkeras_tpu_torch.ops.paged_attention import paged_decode_attention
+from distkeras_tpu_torch.utils.tree import tree_map
 
 
 def _decode_block_of(layer) -> Optional[TransformerBlock]:
@@ -54,20 +55,12 @@ def attn_compute_dtype(module: Sequential) -> Optional[torch.dtype]:
     return None
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 def serving_params(params, dtype: torch.dtype):
     """Pre-cast the matrices (ndim >= 2) to the serving dtype once;
     vectors (biases, norm scales) stay float32. The embedding gather and
     the head then read the cast tree too, exactly as in the JAX
     package."""
-    return _tree_map(
+    return tree_map(
         lambda p: p.detach().to(dtype)
         if p.ndim >= 2 and p.is_floating_point() else p.detach(), params)
 

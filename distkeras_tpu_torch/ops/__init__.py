@@ -1,16 +1,21 @@
-"""Attention operators of the port: plain PyTorch building blocks and
-the wrappers of the hand-written CUDA kernels (``flash_attention``,
-``paged_attention``)."""
+"""Operators of the port: attention building blocks and the wrappers
+of the hand-written CUDA kernels (``flash_attention``,
+``paged_attention``); losses, optimizers, learning-rate schedules and
+metrics for training (``losses``, ``optimizers``, ``schedules``,
+``metrics``)."""
 
 from distkeras_tpu_torch.ops.attention import (NEG_INF, apply_rope,
                                                dot_product_attention,
                                                rope_frequencies)
 from distkeras_tpu_torch.ops.flash_attention import (
-    flash_forward, flash_forward_reference)
+    flash_attention, flash_backward, flash_backward_reference, flash_forward,
+    flash_forward_reference)
 from distkeras_tpu_torch.ops.paged_attention import (
     gather_pages, paged_decode_attention, paged_decode_attention_reference)
 
 __all__ = ["NEG_INF", "apply_rope", "dot_product_attention",
-           "rope_frequencies", "flash_forward", "flash_forward_reference",
+           "rope_frequencies", "flash_attention", "flash_backward",
+           "flash_backward_reference", "flash_forward",
+           "flash_forward_reference",
            "gather_pages", "paged_decode_attention",
            "paged_decode_attention_reference"]

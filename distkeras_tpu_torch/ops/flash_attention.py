@@ -1,25 +1,34 @@
-"""Flash-attention forward: the hand-written CUDA kernel
-(``csrc/flash_fwd.cu``) and its plain PyTorch version.
+"""Flash attention: the hand-written CUDA kernels (forward,
+``csrc/flash_fwd.cu``; backward dq and dk/dv, ``csrc/flash_bwd.cu``),
+their plain PyTorch versions and the differentiable ``flash_attention``.
 
-Replaces ``distkeras_tpu/ops/flash_attention.py`` ``_flash_forward``
+Replaces ``distkeras_tpu/ops/flash_attention.py``: ``_flash_forward``
 (the ``pl.pallas_call`` at :321, body ``_fwd_kernel`` :125) on the
-serving path: the one-pass prompt prefill and both passes of a chunked
-prefill (the causal diagonal and the non-causal pass over the cache
-prefix, which needs the log-sum-exp). Training's backward kernels and
-``segment_ids`` are not part of this slice.
+serving path (the one-pass prompt prefill and both passes of a chunked
+prefill: the causal diagonal and the non-causal pass over the cache
+prefix, which needs the log-sum-exp) and in training; and
+``_flash_backward_pallas`` :515 (dq at :585, body ``_bwd_dq_kernel``
+:349; dk/dv at :619, body ``_bwd_dkv_kernel`` :440) behind the
+``torch.autograd.Function`` that mirrors the JAX ``custom_vjp``
+(``_flash_fwd_rule`` :714, ``_flash_bwd_rule`` :721). ``segment_ids``
+(packed sequences) are not part of this slice.
 
 ``flash_forward`` takes q ``[B, Sq, H, D]`` and k/v ``[B, Sk, Hkv, D]``
 (``layout="bshd"``) or the head-major ``[B, H, S, D]``
 (``layout="bhsd"``); ``H`` must be a multiple of ``Hkv`` (grouped
-queries read their shared K/V head directly, nothing is expanded). It
-returns ``out`` in q's layout and dtype and ``lse`` ``[B, H, Sq]``
-float32. A CPU tensor goes to ``flash_forward_reference``; a CUDA
-tensor goes to the kernel or raises.
+queries read their shared K/V head directly, nothing is expanded; the
+dk/dv kernel sums each group's gradient itself). It returns ``out`` in
+q's layout and dtype and ``lse`` ``[B, H, Sq]`` float32. A CPU tensor
+goes to the plain version; a CUDA tensor goes to the kernel or raises.
 
-Numerics shared by both versions: scores in float32 from the stored
-dtype, the finite ``NEG_INF`` mask (a fully masked row gives a finite
-lse near ``NEG_INF``, never NaN), unnormalised probabilities cast to V's
-dtype before the value product, the row sum kept in float32.
+Numerics shared by the kernels and their plain versions: scores in
+float32 from the stored dtype, the finite ``NEG_INF`` mask (a fully
+masked row gives a finite lse near ``NEG_INF``, never NaN),
+unnormalised probabilities cast to V's dtype before the value product,
+the row sum kept in float32; in the backward, ``delta = rowsum(dO*O)``
+in float32 and the Pallas kernels' rounding points (``dS`` cast to k's
+dtype before ``dS.K`` and to q's before ``dS^T.Q``, ``P`` to dO's before
+``P^T.dO``).
 """
 
 from __future__ import annotations
@@ -143,3 +152,201 @@ def flash_forward_reference(q, k, v, *, scale: float, causal: bool,
     lse = (m + torch.log(l))[..., 0]
     out = o.transpose(1, 2) if layout == "bshd" else o
     return out.to(q.dtype).contiguous(), lse
+
+
+def _check_backward(q, out, lse, dout, delta, layout):
+    qh = _heads_major(q, layout)
+    b, h, sq, _ = qh.shape
+    for name, x in (("out", out), ("dout", dout)):
+        if x.shape != q.shape or x.device != q.device:
+            raise ValueError(f"{name} {tuple(x.shape)} must match q "
+                             f"{tuple(q.shape)} on {q.device}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b, h, sq) or x.dtype != torch.float32 \
+                or x.device != q.device:
+            raise ValueError(f"{name} must be float32 [{b}, {h}, {sq}] on "
+                             f"{q.device}, got {x.dtype} {tuple(x.shape)}")
+
+
+def flash_backward(q, k, v, out, lse, dout, delta, *, scale: float,
+                   causal: bool, window: Optional[int] = None,
+                   layout: str = "bshd"):
+    """Gradients ``(dq, dk, dv)`` of ``flash_forward``'s ``out`` for the
+    cotangent ``dout``, recomputed blockwise from ``lse`` (the forward's)
+    and ``delta = rowsum(dout * out)`` ``[B, H, Sq]`` float32. Each comes
+    back in its input's layout and dtype; grouped K/V heads get the sum
+    over their query heads."""
+    _check(q, k, v, causal, window, layout)
+    _check_backward(q, out, lse, dout, delta, layout)
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, out, lse, dout, delta,
+                                        scale=scale, causal=causal,
+                                        window=window, layout=layout)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_backward runs on cuda or cpu tensors, "
+                         f"got {q.device}")
+    args = (q, k, v, lse.contiguous(), dout, delta.contiguous(),
+            float(scale), bool(causal), window, layout)
+    return launch_dq(*args) + launch_dkv(*args)
+
+
+def _strides(x, layout):
+    """(batch, seq, head) element strides of a tensor in ``layout``."""
+    xh = _heads_major(x, layout)
+    return [xh.stride(0), xh.stride(2), xh.stride(1)]
+
+
+def _backward_args(q, k, v, lse, dout, delta, layout):
+    """Shapes, checks and the shared launcher arguments of the two
+    backward kernels."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the backward kernels take cuda tensors, got "
+                         f"{q.device}")
+    qh, kh = _heads_major(q, layout), _heads_major(k, layout)
+    b, h, sq, d = qh.shape
+    hkv, sk = kh.shape[1], kh.shape[2]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash kernel supports head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    for name, x in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous along head_dim")
+    if not (lse.is_contiguous() and delta.is_contiguous()):
+        raise ValueError("lse and delta must be contiguous")
+    pointers = [x.data_ptr() for x in (q, k, v, dout, lse, delta)]
+    sizes = [_DTYPES[q.dtype], b, h, h // hkv, sq, sk, d]
+    strides = sum((_strides(x, layout) for x in (q, k, v, dout)), [])
+    return pointers, sizes, strides, sq == 0 or sk == 0
+
+
+def launch_dq(q, k, v, lse, dout, delta, scale, causal, window, layout):
+    """The dq kernel (K1dq) on CUDA tensors: returns ``(dq,)``."""
+    pointers, sizes, strides, empty = _backward_args(q, k, v, lse, dout,
+                                                     delta, layout)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if empty:
+        return (dq.zero_(),)
+    lib = kernels.library("flash_bwd_dq")
+    err = lib.dkt_flash_bwd_dq(
+        *pointers, dq.data_ptr(), *sizes, *strides, *_strides(dq, layout),
+        float(scale), int(causal), 0 if window is None else int(window),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(lib, err, "flash_bwd_dq")
+    kernels.count_launch("flash_bwd_dq")
+    return (dq,)
+
+
+def launch_dkv(q, k, v, lse, dout, delta, scale, causal, window, layout):
+    """The dk/dv kernel (K1dkv) on CUDA tensors: returns ``(dk, dv)``,
+    each grouped K/V head summed over its query heads."""
+    pointers, sizes, strides, empty = _backward_args(q, k, v, lse, dout,
+                                                     delta, layout)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if empty:
+        return dk.zero_(), dv.zero_()
+    lib = kernels.library("flash_bwd_dkv")
+    err = lib.dkt_flash_bwd_dkv(
+        *pointers, dk.data_ptr(), dv.data_ptr(), *sizes, *strides,
+        *_strides(dk, layout), *_strides(dv, layout), float(scale),
+        int(causal), 0 if window is None else int(window),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(lib, err, "flash_bwd_dkv")
+    kernels.count_launch("flash_bwd_dkv")
+    return dk, dv
+
+
+def flash_backward_reference(q, k, v, out, lse, dout, delta, *,
+                             scale: float, causal: bool,
+                             window: Optional[int] = None,
+                             layout: str = "bshd"):
+    """The plain PyTorch version of the two backward kernels: the whole
+    recomputed probability matrix at once, with the kernels' masks and
+    rounding points; grouped K/V gradients summed over their group in
+    float32."""
+    _check(q, k, v, causal, window, layout)
+    _check_backward(q, out, lse, dout, delta, layout)
+    qh, kh, vh, gh = (_heads_major(x, layout) for x in (q, k, v, dout))
+    b, h, sq, d = qh.shape
+    hkv, sk = kh.shape[1], kh.shape[2]
+    g = h // hkv
+    kx, vx = kh, vh
+    if g > 1:
+        kx = kh.repeat_interleave(g, dim=1)
+        vx = vh.repeat_interleave(g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kx.float()) * scale
+    if causal:
+        qp = torch.arange(sq, device=q.device)[:, None]
+        kp = torch.arange(sk, device=q.device)[None, :]
+        allowed = kp <= qp
+        if window is not None:
+            allowed = allowed & (kp > qp - int(window))
+        s = s.masked_fill(~allowed, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
+                      gh.float())
+    dp = torch.einsum("bhqd,bhkd->bhqk", gh.float(), vx.float())
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
+                      kx.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
+                      qh.float()) * scale
+    if g > 1:
+        dk = dk.view(b, hkv, g, sk, d).sum(2)
+        dv = dv.view(b, hkv, g, sk, d).sum(2)
+
+    def back(x, like):
+        x = x.transpose(1, 2) if layout == "bshd" else x
+        return x.to(like.dtype).contiguous()
+
+    return back(dq, q), back(dk, k), back(dv, v)
+
+
+def attention_delta(out, dout, layout: str = "bshd") -> torch.Tensor:
+    """``delta = rowsum(dout * out)`` ``[B, H, Sq]`` in float32 (the
+    flash trick: ``sum_j P_ij dP_ij``), as the JAX package computes it
+    outside its kernels (``_flash_backward_pallas`` :537)."""
+    prod = (dout.float() * out.float()).sum(-1)
+    return (prod.transpose(1, 2) if layout == "bshd" else prod).contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the flash forward, saving q, k, v, out and lse (the JAX
+    ``_flash_fwd_rule``). Backward: ``delta`` and the two backward
+    kernels (``_flash_bwd_rule`` with ``bwd="pallas"``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, layout):
+        out, lse = flash_forward(q, k, v, scale=scale, causal=causal,
+                                 window=window, layout=layout)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.config = (scale, causal, window, layout)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, causal, window, layout = ctx.config
+        dout = dout.contiguous()
+        dq, dk, dv = flash_backward(
+            q, k, v, out, lse, dout, attention_delta(out, dout, layout),
+            scale=scale, causal=causal, window=window, layout=layout)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    window: Optional[int] = None, layout: str = "bshd",
+                    scale: Optional[float] = None, segment_ids=None):
+    """Differentiable flash attention (``distkeras_tpu`` ``flash_attention``
+    :746): ``out`` in q's layout and dtype. The forward is
+    ``flash_forward``; the gradient runs the dq and dk/dv kernels on the
+    card and their plain version on the CPU. ``scale`` defaults to
+    ``head_dim ** -0.5``."""
+    if segment_ids is not None:
+        raise NotImplementedError(
+            "segment_ids (packed sequences) are not ported yet: ROADMAP, "
+            "kernel queue item segment_ids in K1f/K1dq/K1dkv")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, float(scale), bool(causal),
+                                 window, layout)

@@ -134,12 +134,14 @@ class ServingEngine:
                     f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self.prefill_chunk = prefill_chunk
         # matrices pre-cast to the compute dtype once (the JAX engine's
-        # "auto" weight policy), q/k/v fused into one projection
+        # "auto" weight policy), q/k/v fused into one projection; built
+        # outside autograd, since the model's parameters require grad
         compute_dt = attn_compute_dtype(module)
         if cache_dtype is None:
             cache_dtype = compute_dt
-        self._params = fuse_qkv_params(
-            module, serving_params(model.params, compute_dt))
+        with torch.no_grad():
+            self._params = fuse_qkv_params(
+                module, serving_params(model.params, compute_dt))
 
         self.pool = PagedKVPool(module, self.num_slots, self.max_len,
                                 page_len=page_len, num_pages=num_pages,
@@ -416,9 +418,12 @@ class ServingEngine:
 
     # --- the scheduler iteration ------------------------------------------
 
+    @torch.inference_mode()
     def step(self) -> List[Request]:
         """One iteration: admit, advance ONE prefill chunk, run one decode
-        step over all slots. Returns the requests that finished."""
+        step over all slots. Returns the requests that finished. Runs
+        under ``torch.inference_mode``: serving records no autograd graph,
+        even for a model whose parameters require grad."""
         finished: List[Request] = []
         self._admit()
         clock = self.metrics.clock
@@ -439,6 +444,7 @@ class ServingEngine:
                                   self._fragmentation())
         return finished
 
+    @torch.inference_mode()
     def run(self, max_steps: Optional[int] = None) -> Dict[int, np.ndarray]:
         """Drive ``step()`` until every request finished; returns
         ``{rid: tokens}`` (prompt + continuation)."""

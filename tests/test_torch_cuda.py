@@ -11,9 +11,12 @@ import pytest
 import torch
 
 from distkeras_tpu_torch import kernels
+from distkeras_tpu_torch.data import Dataset
 from distkeras_tpu_torch.models import Model, zoo
-from distkeras_tpu_torch.ops.flash_attention import (flash_forward,
-                                                     flash_forward_reference)
+from distkeras_tpu_torch.ops.flash_attention import (
+    attention_delta, flash_backward, flash_backward_reference, flash_forward,
+    flash_forward_reference)
+from distkeras_tpu_torch.parallel import SingleTrainer
 from distkeras_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference)
 from distkeras_tpu_torch.serving import ServingEngine
@@ -116,3 +119,68 @@ def test_engine_on_card_goes_through_both_kernels(dev):
     assert all(len(out[r]) == n + 6 for r, n in zip(rids, (70, 9, 40)))
     counts = kernels.launch_counts()
     assert counts["flash_fwd"] > 0 and counts["paged_decode"] > 0
+
+
+#: backward gradients relative to the largest reference magnitude:
+#: float32 differs by summation order over up to 300 keys; bfloat16 by
+#: the output rounding (2^-8) plus the bf16-rounded P and dS tiles
+BWD_F32_REL_TOL = 1e-4
+BWD_BF16_REL_TOL = 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,s,window,hkv,d,layout", [
+    (True, 300, None, 4, 64, "bshd"),       # causal, ragged vs 64
+    (True, 257, 64, 4, 64, "bhsd"),         # sliding window
+    (True, 200, None, 1, 64, "bshd"),       # GQA: 4 query heads per kv
+    (True, 130, 9, 2, 128, "bshd"),         # GQA + window, D=128
+    (False, 70, None, 4, 32, "bhsd"),       # non-causal, D=32
+])
+def test_flash_backward_kernels_match_plain(dev, dtype, causal, s, window,
+                                            hkv, d, layout):
+    rs = np.random.RandomState(3)
+    q, k, v = _qkv(rs, 2, s, s, 4, hkv, d, dtype, dev, layout)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window, layout=layout)
+    out, lse = flash_forward(q, k, v, **kw)
+    dout = torch.from_numpy(rs.randn(*q.shape).astype(np.float32)) \
+        .to(dev, dtype)
+    delta = attention_delta(out, dout, layout)
+    before = kernels.launch_counts()
+    got = flash_backward(q, k, v, out, lse, dout, delta, **kw)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    ref = flash_backward_reference(q, k, v, out, lse, dout, delta, **kw)
+    tol = BWD_F32_REL_TOL if dtype == torch.float32 else BWD_BF16_REL_TOL
+    for name, g, r, like in zip(("dq", "dk", "dv"), got, ref, (q, k, v)):
+        assert g.dtype == dtype and g.shape == like.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        err = (g.float() - r.float()).abs().max().item()
+        scale = r.float().abs().max().item()
+        assert err <= tol * scale, (name, err, scale)
+
+
+def test_single_trainer_on_card_launches_the_training_kernels(dev):
+    """One epoch of a small bf16 LM on the card: every step runs the
+    forward and both backward kernels once per layer, and loss falls."""
+    model = Model.build(zoo.transformer_lm(97, d_model=128, num_heads=4,
+                                           num_layers=2, dtype="bfloat16",
+                                           num_kv_heads=2),
+                        (64,), seed=0, device=dev)
+    rs = np.random.RandomState(4)
+    rows = np.tile(rs.randint(0, 97, 16), (32, 5))[:, :65]
+    data = Dataset.from_arrays(rows[:, :-1], rows[:, 1:])
+    trainer = SingleTrainer(model, worker_optimizer="adam",
+                            learning_rate=3e-3, batch_size=4, num_epoch=1,
+                            loss="sparse_categorical_crossentropy_from_logits")
+    kernels.reset_launch_counts()
+    trainer.train(data)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    steps = 32 // 4
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[name] == 2 * steps, (name, counts)
+    losses = trainer.get_history().losses()
+    assert np.isfinite(losses).all()
+    assert losses[-4:].mean() < losses[0]

@@ -17,13 +17,18 @@ import torch
 
 import jax.numpy as jnp
 
+import jax
+
 from distkeras_tpu.ops.attention import dot_product_attention as jax_dpa
 from distkeras_tpu.ops.flash_attention import _flash_forward
+from distkeras_tpu.ops.flash_attention import \
+    flash_attention as jax_flash_attention
 from distkeras_tpu.ops.paged_attention import \
     paged_decode_attention as jax_paged
 
 from distkeras_tpu_torch.ops.attention import dot_product_attention
-from distkeras_tpu_torch.ops.flash_attention import flash_forward
+from distkeras_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     flash_forward)
 from distkeras_tpu_torch.ops.paged_attention import paged_decode_attention
 
 #: float32 agreement of two summation orders over <= 64 keys of O(1)
@@ -73,6 +78,54 @@ def test_plain_attention_matches_jax(causal, window):
                                 torch.from_numpy(v), causal=causal,
                                 window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal,window,hkv", [
+    (True, None, 3),             # causal MHA
+    (False, None, 3),            # non-causal
+    (True, 9, 3),                # sliding window
+    (True, None, 1),             # GQA: 3 query heads share one kv head
+    (True, 5, 1),                # GQA + window
+])
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_flash_backward_matches_pallas(causal, window, hkv, layout):
+    """dq, dk, dv of the port's differentiable ``flash_attention`` (the
+    plain backward on the CPU) against ``jax.grad`` through the Pallas
+    backward kernels in interpret mode, at S=44 (not a multiple of the
+    16-row blocks). JAX expands grouped K/V with ``jnp.repeat`` before the
+    kernel, so its dk/dv are the group sums the port computes natively.
+    Tolerance: the JAX suite's own 2e-5 (float32 reassociation)."""
+    rs = np.random.RandomState(6)
+    b, s, h, d = 2, 44, 3, 8
+    q, k, v = _qkv(rs, b, s, s, h, d, hkv=hkv)
+    co = rs.randn(b, s, h, d).astype(np.float32)
+    if layout == "bhsd":
+        q, k, v, co = (x.transpose(0, 2, 1, 3).copy() for x in (q, k, v, co))
+    head_axis = 2 if layout == "bshd" else 1
+
+    def loss(a, bb, c):
+        bb = jnp.repeat(bb, h // hkv, axis=head_axis)
+        c = jnp.repeat(c, h // hkv, axis=head_axis)
+        out = jax_flash_attention(a, bb, c, causal=causal, window=window,
+                                  layout=layout, interpret=True,
+                                  bwd="pallas", block_q=16, block_k=16)
+        return jnp.sum(out * co)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=causal, window=window,
+                          layout=layout)
+    (out * torch.from_numpy(co)).sum().backward()
+    for r, t in zip(ref, (tq, tk, tv)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r),
+                                   atol=F32_TOL)
+
+
+def test_flash_attention_refuses_packed_sequences():
+    x = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention(x, x, x, causal=True,
+                        segment_ids=torch.zeros(1, 4, dtype=torch.int32))
 
 
 def test_flash_forward_grouped_kv_equals_expanded():
