@@ -28,7 +28,26 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    that run only; then the steady step's time, tokens/s, peak memory
    and a ``torch.profiler`` list of its device time;
 8. one gradient on the card (bf16 and float32) against the plain path
-   on the CPU in float32, at the same widths with 2 layers, B1 S512.
+   on the CPU in float32, at the same widths with 2 layers, B1 S512;
+9. the slab decode-attention kernel (K2, float and int8 variants)
+   against its plain version: generate's shape (B4 Hkv16 G1 D64,
+   L=1152, t=1151, bf16), GQA 4x4, a 256-position window, a short cache
+   (L=40), an int8 cache and an int4 cache (int8 bytes), with device
+   times from CUDA-graph replays (and the eager call's time), the SDPA
+   yardstick and bounds;
+10. ``generate()`` end to end on the same 218M LM (bf16, seed 0): B4 x
+    1024-token prompts, 128 new greedy tokens, with the bf16 cache and
+    the int8 cache; prefill ms, decode ms per step and tokens/s, the
+    launch counts of each call (12 ``flash_fwd`` per prefill, 12 x 127
+    K2 launches of the cache's variant); then one decode step's logits
+    on the card (bf16 cache, int8 cache, float32) against the plain path
+    on the CPU in float32 at the same weights and cache contents, and a
+    ``torch.profiler`` list of a decode step's device time;
+11. the paged kernel's int8 and int4 variants against their plain
+    version at phase 4's shapes (page_len 16), with times and bounds;
+12. the paged ``ServingEngine`` with ``cache_dtype="int8"`` and
+    ``"int4"`` on phase 5's workload: streams finish, the quantized
+    paged kernel runs and the float one does not.
 
 The line before the last is one JSON object with every kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -49,9 +68,13 @@ import torch.nn.functional as F
 from distkeras_tpu_torch import kernels
 from distkeras_tpu_torch.data import Dataset
 from distkeras_tpu_torch.models import Model, zoo
-from distkeras_tpu_torch.models.decoding import (fuse_qkv_params,
-                                                 init_cache, prefill,
+from distkeras_tpu_torch.models.decoding import (_generate_params,
+                                                 _quantize_kv, decode_step,
+                                                 fuse_qkv_params, init_cache,
+                                                 pack_int4, prefill,
                                                  serving_params)
+from distkeras_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_reference, valid_range)
 from distkeras_tpu_torch.ops.flash_attention import (
     attention_delta, flash_backward_reference, flash_forward,
     flash_forward_reference, launch_dkv, launch_dq)
@@ -71,6 +94,7 @@ LM_CFG = dict(vocab=32768, d_model=1024, num_heads=16, num_layers=12,
 #: published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 #: bf16 attention output against float32 math: output rounding (2^-8
 #: relative) of O(1) values plus the bf16-rounded probabilities
@@ -78,6 +102,9 @@ KERNEL_BF16_TOL = 2e-2
 #: the log-sum-exp is float32 math on both sides; only the order of the
 #: row sums differs
 LSE_TOL = 1e-3
+#: int8/int4 caches: float32 math on both sides (dequantized values up
+#: to ~4), only the summation order differs
+KERNEL_Q_TOL = 2e-4
 
 SEED = 0
 NEW_TOKENS = 32
@@ -102,6 +129,32 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """Device time of ``fn`` per call: ``iters`` calls captured in one
+    CUDA graph and replayed between CUDA events, so the host's per-call
+    cost (which exceeds a small decode kernel's device time) stays out
+    of the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -209,11 +262,12 @@ def flash_phase(dev):
 # --- phase 4: paged decode ----------------------------------------------------
 
 
-def paged_cases(dev):
+def paged_cases(dev, bits=None):
     """Eight slots with contexts up to 2048 (page_len 16, D 64, bf16
-    pages) in a scrambled physical order, sentinel entries past each
-    slot's last page: W=1 and W=4 over 16 kv heads, a GQA case (4 kv
-    heads x 4 queries), and a 256-position sliding window."""
+    pages; with ``bits`` 8 or 4 the same pages quantized, int4 packed)
+    in a scrambled physical order, sentinel entries past each slot's
+    last page: W=1 and W=4 over 16 kv heads, a GQA case (4 kv heads x 4
+    queries), and a 256-position sliding window."""
     rs = np.random.RandomState(SEED)
     page_len, p_max, s = 16, 128, 8
     t = np.array([2040, 1800, 1500, 1024, 777, 512, 300, 64], np.int32)
@@ -231,23 +285,34 @@ def paged_cases(dev):
             table[i, :n] = perm[used:used + n]
             used += n
         kp = torch.from_numpy(rs.randn(n_pages, hkv, page_len, 64)
-                              .astype(np.float32)).to(dev, torch.bfloat16)
+                              .astype(np.float32)).to(dev)
         vp = torch.from_numpy(rs.randn(n_pages, hkv, page_len, 64)
-                              .astype(np.float32)).to(dev, torch.bfloat16)
+                              .astype(np.float32)).to(dev)
         q = torch.from_numpy(rs.randn(s, w, hkv, g, 64)
                              .astype(np.float32)).to(dev)
-        cases.append((name, dict(q=q, k=kp, v=vp,
-                                 t=torch.from_numpy(t).to(dev),
-                                 table=torch.from_numpy(table).to(dev),
-                                 window=window), t, w, page_len))
+        c = dict(q=q, t=torch.from_numpy(t).to(dev),
+                 table=torch.from_numpy(table).to(dev), window=window)
+        if bits is None:
+            c.update(k=kp.to(torch.bfloat16), v=vp.to(torch.bfloat16))
+        else:
+            (kq, ks), (vq, vs) = (_quantize_kv(x, bits) for x in (kp, vp))
+            if bits == 4:
+                kq, vq = pack_int4(kq), pack_int4(vq)
+            c.update(k=kq, v=vq, k_scale=ks, v_scale=vs)
+        cases.append((name, c, t, w, page_len))
     return cases
 
 
-def paged_phase(dev):
+def paged_phase(dev, bits=None):
+    """Phase 4 (float pages) or, with ``bits``, phase 11 (int8 / int4)."""
     rows = []
-    for name, c, t, w, page_len in paged_cases(dev):
+    label = "paged_decode" if bits is None else f"paged_decode_q{bits}"
+    tol = KERNEL_BF16_TOL if bits is None else KERNEL_Q_TOL
+    for name, c, t, w, page_len in paged_cases(dev, bits):
         args = (c["q"], c["k"], c["v"], c["t"], c["table"])
         kw = dict(scale=64 ** -0.5, window=c["window"])
+        if bits is not None:
+            kw.update(k_scale=c["k_scale"], v_scale=c["v_scale"])
         out = paged_decode_attention(*args, **kw)
         torch.cuda.synchronize()
         ref = paged_decode_attention_reference(*args, **kw)
@@ -264,16 +329,19 @@ def paged_phase(dev):
         pairs = int((row_pos - lo + 1).sum())
         pages = int((row_pos.max(1) // page_len - lo.min(1) // page_len
                      + 1).sum())
-        nbytes = 2 * pages * hkv * page_len * d * 2       # k and v, bf16
-        nbytes += 2 * c["q"].numel() * 4                  # q in, out
+        if bits is None:
+            page_bytes = hkv * page_len * d * 2               # bf16
+        else:
+            page_bytes = hkv * page_len * (d * bits // 8 + 4)  # + scale
+        nbytes = 2 * pages * page_bytes                       # k and v
+        nbytes += 2 * c["q"].numel() * 4                      # q in, out
         flops = 4.0 * hkv * g * d * pairs
         bms, by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
-        print(f"paged_decode {name}: max_abs_err {err:.3e} (tol "
-              f"{KERNEL_BF16_TOL}); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-              f"{pages} live pages", flush=True)
-        if not err <= KERNEL_BF16_TOL:
-            raise AssertionError(f"paged_decode disagrees with its plain "
+        print(f"{label} {name}: max_abs_err {err:.3e} (tol {tol}); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+              f"({by}), {pages} live pages", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{label} disagrees with its plain "
                                  f"version on {name}")
         rows.append(dict(name=name, err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=None, bound_ms=bms, bound_by=by))
@@ -318,10 +386,11 @@ SERVING_KERNELS = ("flash_fwd", "paged_decode")
 NUM_PAGES = 160
 
 
-def serve(model, device, *, num_pages=NUM_PAGES):
-    """Run the workload through a paged engine; returns the engine, the
-    request ids with their prompts, and a count of non-finite live
-    logits seen."""
+def serve(model, device, *, num_pages=NUM_PAGES, cache_dtype=None):
+    """Run the workload through a paged engine (``cache_dtype`` None:
+    the model's bf16, or ``"int8"``/``"int4"`` pages); returns the
+    engine, the request ids with their prompts, and a count of
+    non-finite live logits seen."""
     bad = torch.zeros((), dtype=torch.long, device=device)
 
     def check(kind, logits, slots):
@@ -330,7 +399,8 @@ def serve(model, device, *, num_pages=NUM_PAGES):
 
     eng = ServingEngine(model, num_slots=4, max_len=2048, page_len=16,
                         prefill_chunk=256, num_pages=num_pages,
-                        device=device, on_logits=check)
+                        device=device, on_logits=check,
+                        cache_dtype=cache_dtype)
     reqs = []
     for prompt, kw in workload(model.module.layers[0].vocab_size):
         reqs.append((eng.submit(prompt, NEW_TOKENS, **kw), prompt))
@@ -683,6 +753,252 @@ def gradients_vs_cpu(dev):
     return out
 
 
+# --- phase 9: decode attention over the slab cache (K2) ---------------------
+
+
+def decode_cases(dev):
+    """generate()'s shape on the 218M LM (B4 x Hkv16 rows, G1, D64, a
+    1152-position cache written through t=1151), GQA 4x4, a 256-position
+    window, a short cache, and the int8 / int4 caches (int4: one int8
+    byte per entry in [-7, 7])."""
+    rs = np.random.RandomState(SEED + 5)
+
+    def case(b, hkv, g, length, t, window=None, bits=None):
+        q = torch.from_numpy(rs.randn(b * hkv, g, 64).astype(np.float32))
+        k, v = (torch.from_numpy(rs.randn(b, hkv, length, 64)
+                                 .astype(np.float32)).to(dev)
+                for _ in range(2))
+        c = dict(b=b, hkv=hkv, g=g, t=t, window=window, bits=bits)
+        if bits is None:
+            c.update(q=q.to(dev, torch.bfloat16),
+                     k=k.to(torch.bfloat16).reshape(b * hkv, length, 64),
+                     v=v.to(torch.bfloat16).reshape(b * hkv, length, 64))
+        else:
+            (kq, ks), (vq, vs) = (_quantize_kv(x, bits) for x in (k, v))
+            c.update(q=q.to(dev), k=kq.reshape(b * hkv, length, 64),
+                     v=vq.reshape(b * hkv, length, 64),
+                     k_scale=ks.reshape(b * hkv, length),
+                     v_scale=vs.reshape(b * hkv, length))
+        return c
+
+    return [("decode_attention", "B4 Hkv16 G1 L1152 t1151",
+             case(4, 16, 1, 1152, 1151)),
+            ("decode_attention", "GQA Hkv4 G4 L1152",
+             case(4, 4, 4, 1152, 1151)),
+            ("decode_attention", "window=256 L1152",
+             case(4, 16, 1, 1152, 1151, window=256)),
+            ("decode_attention", "short L40 t39", case(4, 16, 1, 40, 39)),
+            ("decode_attention_q8", "int8 B4 Hkv16 G1 L1152",
+             case(4, 16, 1, 1152, 1151, bits=8)),
+            ("decode_attention_q8", "int4-in-int8 B4 Hkv16 G1 L1152",
+             case(4, 16, 1, 1152, 1151, bits=4))]
+
+
+def _sdpa_decode(c):
+    """One SDPA call over the same cache (boolean mask of the valid
+    positions; GQA through ``enable_gqa``): a yardstick only."""
+    b, hkv, g = c["b"], c["hkv"], c["g"]
+    length = c["k"].shape[1]
+    q = c["q"].reshape(b, hkv * g, 1, 64)
+    k = c["k"].reshape(b, hkv, length, 64)
+    v = c["v"].reshape(b, hkv, length, 64)
+    lo, hi = valid_range(c["t"], c["window"])
+    pos = torch.arange(length, device=q.device)
+    mask = ((pos >= lo) & (pos <= hi))[None, :]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          enable_gqa=g > 1)
+
+
+def decode_phase(dev):
+    rows = {"decode_attention": [], "decode_attention_q8": []}
+    for kname, name, c in decode_cases(dev):
+        sc = {} if c["bits"] is None else dict(k_scale=c["k_scale"],
+                                               v_scale=c["v_scale"])
+        kw = dict(scale=64 ** -0.5, window=c["window"], **sc)
+        args = (c["q"], c["k"], c["v"], c["t"])
+        before = kernels.launch_counts()[kname]
+        out = decode_attention(*args, **kw)
+        torch.cuda.synchronize()
+        if kernels.launch_counts()[kname] != before + 1:
+            raise AssertionError(f"{name} did not launch {kname}")
+        ref = decode_attention_reference(*args, **kw)
+        err = (out - ref).abs().max().item()
+        tol = KERNEL_BF16_TOL if c["bits"] is None else KERNEL_Q_TOL
+        # device time per call from graph replays; the eager call's
+        # time is the host's (wrapper and launch), reported beside it
+        ms = graph_ms(lambda: decode_attention(*args, **kw))
+        eager_ms = time_ms(lambda: decode_attention(*args, **kw), iters=50)
+        plain_ms = graph_ms(lambda: decode_attention_reference(*args, **kw),
+                            iters=10)
+        lib_ms = None
+        if c["bits"] is None:
+            lib_ms = graph_ms(lambda: _sdpa_decode(c))
+        # each input read once, each output written once: K and V over
+        # the valid positions (payload, plus the scale planes for int8),
+        # q in, the float32 out
+        lo, hi = valid_range(c["t"], c["window"])
+        n = hi - lo + 1
+        rws, g = c["k"].shape[0], c["g"]
+        esize = c["k"].element_size()
+        nbytes = 2 * rws * n * 64 * esize + rws * g * 64 * (
+            c["q"].element_size() + 4)
+        if c["bits"] is not None:
+            nbytes += 2 * rws * n * 4
+        flops = 4.0 * rws * g * n * 64
+        bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if c["bits"] is None
+                           else PEAK_INT8_OPS)
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"{kname} {name}: max_abs_err {err:.3e} (tol {tol}); kernel "
+              f"{ms:.4f} ms (graph replay; eager call {eager_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, sdpa {lib}, bound {bms:.4f} ms "
+              f"({by})", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{kname} disagrees with its plain version "
+                                 f"on {name}")
+        rows[kname].append(dict(name=name, err=err, ms=ms, plain_ms=plain_ms,
+                                library_ms=lib_ms, bound_ms=bms,
+                                bound_by=by))
+    return rows
+
+
+# --- phase 10: generate() end to end -----------------------------------------
+
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 1024, 128
+GEN_KERNEL = {None: "decode_attention", "int8": "decode_attention_q8"}
+
+
+def _timed_generate(model, prompts, n, cache_dtype):
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.generate(prompts, n, cache_dtype=cache_dtype)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, kernels.launch_counts()
+
+
+def generate_phase(model, card):
+    """Greedy ``generate()`` with the bf16 and the int8 cache: a 1-token
+    call times the prefill, the 128-token call the whole run; the
+    launch counts of each call are checked."""
+    vocab = model.module.layers[0].vocab_size
+    num_layers = LM_CFG["num_layers"]
+    prompts = np.random.RandomState(SEED + 6).randint(
+        0, vocab, (GEN_BATCH, GEN_PROMPT))
+    steps = GEN_NEW - 1
+    out_rows = {}
+    for cache_dtype, kname in GEN_KERNEL.items():
+        other = [k for k in GEN_KERNEL.values() if k != kname][0]
+        model.generate(prompts[:, :64], 4, cache_dtype=cache_dtype)  # warm
+        _, t_prefill, c1 = _timed_generate(model, prompts, 1, cache_dtype)
+        out, t_all, c = _timed_generate(model, prompts, GEN_NEW, cache_dtype)
+        for counts, want in ((c1, 0), (c, num_layers * steps)):
+            if counts["flash_fwd"] != num_layers or counts[kname] != want \
+                    or counts[other] != 0:
+                raise AssertionError(
+                    f"generate(cache_dtype={cache_dtype}) launched "
+                    f"{counts}; expected flash_fwd {num_layers}, {kname} "
+                    f"{want}, {other} 0")
+        if out.shape != (GEN_BATCH, GEN_PROMPT + GEN_NEW) \
+                or not np.array_equal(out[:, :GEN_PROMPT], prompts) \
+                or not ((out >= 0) & (out < vocab)).all():
+            raise AssertionError(f"generate(cache_dtype={cache_dtype}) "
+                                 "returned a malformed token array")
+        decode_s = t_all - t_prefill
+        label = "bf16" if cache_dtype is None else cache_dtype
+        print(f"generate on {card}: cache {label}, B{GEN_BATCH} prompt "
+              f"{GEN_PROMPT} + {GEN_NEW} greedy tokens: prefill (1-token "
+              f"call) {t_prefill * 1e3:.1f} ms; whole call "
+              f"{t_all * 1e3:.1f} ms; decode {decode_s * 1e3 / steps:.2f} "
+              f"ms/step, {GEN_BATCH * steps / decode_s:.1f} tok/s; launches "
+              f"flash_fwd {c['flash_fwd']}, {kname} {c[kname]}", flush=True)
+        out_rows[kname] = c[kname]
+        out_rows.setdefault("flash_fwd", c["flash_fwd"])
+    return out_rows, prompts
+
+
+def profile_generate(model, prompts):
+    """Where the time goes in generate()'s decode step (bf16 cache, B4 at
+    t ~ 1030): the step's wall time without the profiler, then
+    ``torch.profiler`` over a few steps: device time per kernel and the
+    device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    b, p_len = prompts.shape
+    n_plain, n_prof = 16, 8
+    with torch.inference_mode():
+        params = _generate_params(model, "auto", torch.bfloat16)
+        cache = init_cache(model.module, b, p_len + 2 + n_plain + n_prof,
+                           torch.bfloat16, model.device)
+        logits, cache = prefill(model.module, params, cache,
+                                torch.as_tensor(prompts, device=model.device))
+        tok = torch.argmax(logits, dim=-1)
+        t = p_len
+        for _ in range(2):
+            logits, _ = decode_step(model.module, params, cache, tok, t)
+            tok, t = torch.argmax(logits, dim=-1), t + 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_plain):
+            logits, _ = decode_step(model.module, params, cache, tok, t)
+            tok, t = torch.argmax(logits, dim=-1), t + 1
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_plain
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_prof):
+                logits, _ = decode_step(model.module, params, cache, tok, t)
+                tok, t = torch.argmax(logits, dim=-1), t + 1
+            torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3 / n_prof
+    print(f"profile-generate: decode step, B{b}, t ~{p_len}: {step_ms:.2f} "
+          f"ms/step wall (profiler off); device busy {busy_ms:.3f} ms/step "
+          f"= {100 * busy_ms / step_ms:.1f}% of the step", flush=True)
+    for e in ops[:10]:
+        per_step = e.self_device_time_total / 1e3 / n_prof
+        print(f"profile-generate:   {per_step:7.3f} ms/step  "
+              f"x{e.count // n_prof:<4d} {e.key[:72]}", flush=True)
+
+
+def decode_logits_vs_cpu(model, prompt):
+    """One decode step's logits on the card against the port's plain
+    path on the CPU in float32: the card prefills the prompt into its
+    cache, the CPU takes a copy of that cache (float32 of the bf16
+    values; int8 payloads and scales as they are), then both run the
+    same decode step at position len(prompt). Cases: bf16 weights with
+    the bf16 cache and with the int8 cache (as generate() runs them), and
+    float32 throughout."""
+    f32 = build_lm("cpu", dtype="float32")
+    f32.module.load_state_dict(model.module.state_dict())
+    f32_card = copy.deepcopy(f32).to(model.device)
+    p_len = len(prompt)
+    tokens = torch.as_tensor(prompt[None], dtype=torch.long)
+    out = {}
+    for label, m, cache_dtype in (("bf16", model, torch.bfloat16),
+                                  ("int8", model, "int8"),
+                                  ("float32", f32_card, torch.float32)):
+        with torch.inference_mode():
+            params = _generate_params(m, "auto", torch.bfloat16
+                                      if m is model else torch.float32)
+            cache = init_cache(m.module, 1, p_len + 1, cache_dtype, m.device)
+            logits, cache = prefill(m.module, params, cache,
+                                    tokens.to(m.device))
+            tok = torch.argmax(logits, dim=-1)
+            cpu_cache = [None if kv is None else {
+                key: (a.float() if a.is_floating_point() else a).cpu()
+                if torch.is_tensor(a) else a for key, a in kv.items()}
+                for kv in cache]
+            card, _ = decode_step(m.module, params, cache, tok, p_len)
+            ref, _ = decode_step(f32.module, f32.params, cpu_cache,
+                                 tok.cpu(), p_len)
+        card = card.float().cpu()
+        scale = ref.abs().max().item()
+        out[label] = (card - ref).abs().max().item() / scale
+    return out
+
+
 #: relative (to the largest |logit|) agreement with the CPU in float32:
 #: bf16 weights and activations through 12 blocks; float32 on the card
 #: differs from the CPU only in summation order
@@ -755,12 +1071,63 @@ def main() -> int:
           flush=True)
     profile_training(model, card)
     gradients_vs_cpu(dev)
+    del trainer
+
+    decode_rows = decode_phase(dev)
+    # phase 7 trained `model` in place: generate() and the quantized
+    # engine run a fresh copy of the seed-0 random weights
+    gen_model = build_lm(dev)
+    gen_launches, gen_prompts = generate_phase(gen_model, card)
+    profile_generate(gen_model, gen_prompts)
+    rel = decode_logits_vs_cpu(gen_model, gen_prompts[0])
+    print(f"decode-step logits vs CPU float32 (prompt {GEN_PROMPT}, step "
+          f"at t={GEN_PROMPT}): card bf16 cache rel err {rel['bf16']:.3e}, "
+          f"int8 cache {rel['int8']:.3e} (tol {E2E_BF16_REL_TOL}); card "
+          f"float32 {rel['float32']:.3e} (tol {E2E_F32_REL_TOL})",
+          flush=True)
+    if not (rel["bf16"] <= E2E_BF16_REL_TOL
+            and rel["int8"] <= E2E_BF16_REL_TOL
+            and rel["float32"] <= E2E_F32_REL_TOL):
+        raise AssertionError("card decode-step logits disagree with the CPU "
+                             "plain path")
+
+    q_paged_rows = {bits: paged_phase(dev, bits) for bits in (8, 4)}
+    quant_launches = {}
+    for cache_dtype, kname in (("int8", "paged_decode_q8"),
+                               ("int4", "paged_decode_q4")):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng, reqs, out, bad = serve(gen_model, dev, cache_dtype=cache_dtype)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = kernels.launch_counts()
+        s = check_serving(eng, reqs, out, bad)
+        if c[kname] < 1 or c["paged_decode"] != 0 or c["flash_fwd"] < 1:
+            raise AssertionError(f"the {cache_dtype} serving run launched "
+                                 f"{c}: expected {kname} >= 1, paged_decode "
+                                 "0, flash_fwd >= 1")
+        print(f"serving {cache_dtype} pages on {card}: {len(reqs)} requests "
+              f"in {wall:.2f} s; launches flash_fwd {c['flash_fwd']}, "
+              f"{kname} {c[kname]}, paged_decode {c['paged_decode']}; "
+              f"prefix hits {s['prefix_cache']['hits']}; preemptions "
+              f"{s['requests_preempted']}; TTFT p50 "
+              f"{s['ttft_s']['p50'] * 1e3:.1f} ms p99 "
+              f"{s['ttft_s']['p99'] * 1e3:.1f} ms; decode "
+              f"{s['decode_tokens_per_sec']:.1f} tok/s", flush=True)
+        quant_launches[kname] = c[kname]
 
     by_path = {name: {} for name in kernels.SOURCES}
     for name in SERVING_KERNELS:
         by_path[name]["serving"] = launches[name]
     for name in TRAINING_KERNELS:
         by_path[name]["training"] = train_launches[name]
+    for name, n in gen_launches.items():
+        by_path[name]["generate"] = n
+    by_path["paged_decode_q8"]["serving_int8"] = quant_launches[
+        "paged_decode_q8"]
+    by_path["paged_decode_q4"]["serving_int4"] = quant_launches[
+        "paged_decode_q4"]
 
     def entry(name, source, replaces, rows, path):
         main_row = rows[0]
@@ -786,6 +1153,20 @@ def main() -> int:
         entry("flash_bwd_dkv", "distkeras_tpu_torch/csrc/flash_bwd.cu",
               "distkeras_tpu/ops/flash_attention.py:619",
               bwd_rows["flash_bwd_dkv"], "training"),
+        entry("decode_attention",
+              "distkeras_tpu_torch/csrc/decode_attention.cu",
+              "distkeras_tpu/ops/decode_attention.py:233",
+              decode_rows["decode_attention"], "generate"),
+        entry("decode_attention_q8",
+              "distkeras_tpu_torch/csrc/decode_attention.cu",
+              "distkeras_tpu/ops/decode_attention.py:233",
+              decode_rows["decode_attention_q8"], "generate"),
+        entry("paged_decode_q8", "distkeras_tpu_torch/csrc/paged_decode.cu",
+              "distkeras_tpu/ops/paged_attention.py:365", q_paged_rows[8],
+              "serving_int8"),
+        entry("paged_decode_q4", "distkeras_tpu_torch/csrc/paged_decode.cu",
+              "distkeras_tpu/ops/paged_attention.py:365", q_paged_rows[4],
+              "serving_int4"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,22 @@
 // Paged decode attention for Hopper (sm_90a): K/V read through the page
-// table, float32 or bfloat16 pages, float32 queries and output.
+// table; float32 or bfloat16 pages, int8 pages and packed-int4 pages with
+// float32 per-token scale planes; float32 queries and output.
 //
 // Replaces the TPU kernel distkeras_tpu/ops/paged_attention.py
-// `paged_decode_attention` (pl.pallas_call at :365, body `_kernel` :131)
-// for float pages: grouped queries, W >= 1 window-causal rows, a sliding
-// window and sentinel table entries. (int8/int4 pages and the tree
-// ancestor mask are later slices.)
+// `paged_decode_attention` (pl.pallas_call at :365, body `_kernel` :131):
+// grouped queries, W >= 1 window-causal rows, a sliding window, sentinel
+// table entries, and the quantized pages: for int8 and int4 the score is
+// multiplied by k_scale[pos] after the D contraction, l accumulates the
+// unscaled probabilities, which are multiplied by v_scale[pos] before the
+// value sum (the Pallas order, :212-235). An int4 page holds page_len/2
+// byte rows: byte row r carries position r in its low nibble and
+// position r + page_len/2 in its high nibble (`_unpack4` :116). The tree
+// ancestor mask (`anc`) is a later slice.
 //
 // Bound on this card: the bytes of the live K and V pages it must read
-// (plus q and out) at 3.35 TB/s; a decode step does 4*W*G*D operations
-// per cached position, far below the card's operations-per-byte balance.
+// (payload and scale planes, plus q and out) at 3.35 TB/s; a decode step
+// does 4*W*G*D operations per cached position, far below the card's
+// operations-per-byte balance.
 //
 // Design (simple and right first):
 //   * one block of 128 threads per (slot, kv head); a loop inside the
@@ -25,15 +32,23 @@
 //     pos <= t + row/G (and pos > t + row/G - window) using the finite
 //     NEG_INF, folded into a per-row online softmax (m, l, acc in
 //     shared memory); probabilities are rounded to the page dtype before
-//     the P.V sum; the l == 0 guard makes a row with no live key 0.
+//     the P.V sum (float pages) or scaled by v_scale (quantized pages);
+//     the l == 0 guard makes a row with no live key 0;
+//   * quantized pages are staged with 16-byte loads of 16 int8 (int8:
+//     16 dims of one position; int4: 16 dims of one byte row, i.e. of
+//     two positions half a page apart), converted to float32 in shared
+//     memory beside the chunk's scale planes. The quantized variants are
+//     separate instantiations with their own exported launchers.
 // Each thread issues four 16-byte loads of K and four of V before it
 // uses any, but each chunk still waits for its own loads and only one
 // block works on a (slot, head): the kernel is latency bound rather
 // than at the card's memory rate. Splitting a long context over several
-// blocks and prefetching the next chunk are later work.
+// blocks (as csrc/decode_attention.cu does) and prefetching the next
+// chunk are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -52,8 +67,11 @@ template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
   return __bfloat162float(x);
 }
 
-template <typename T> __device__ __forceinline__ float round_to(float x);
-template <> __device__ __forceinline__ float round_to<float>(float x) {
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
+
+template <typename T> __device__ __forceinline__ float round_to(float x) {
   return x;
 }
 template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(
@@ -61,23 +79,34 @@ template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(
   return __bfloat162float(__float2bfloat16(x));
 }
 
-size_t smem_bytes(int R, int CK, int D) {
+// a 4-bit two's-complement nibble as a float
+__device__ __forceinline__ float nibble(int b) {
+  return static_cast<float>(b > 7 ? b - 16 : b);
+}
+
+// page payload kinds: float32/bfloat16 pages (T), int8 pages, packed int4
+enum Quant { kFloat = 0, kInt8 = 8, kInt4 = 4 };
+
+size_t smem_bytes(int R, int CK, int D, bool quant) {
   const size_t floats = (size_t)R * D + (size_t)CK * (D + 1) +
                         (size_t)CK * D + (size_t)R * (CK + 1) +
-                        (size_t)R * D + 3 * (size_t)R;
+                        (size_t)R * D + 3 * (size_t)R +
+                        (quant ? 2 * (size_t)CK : 0);
   return 4 * floats + 4 * (size_t)CK;
 }
 
-template <typename T, int D>
+template <typename T, int D, int QUANT>
 __global__ void __launch_bounds__(NT)
 paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ t,
+                    const T* __restrict__ vp, const float* __restrict__ ksp,
+                    const float* __restrict__ vsp, const int* __restrict__ t,
                     const int* __restrict__ table, float* __restrict__ o,
                     int W, int Hkv, int G, int PL, int P, int N, int NPC,
                     float scale, int window) {
   extern __shared__ float sm[];
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int LOADS_IN_FLIGHT = 4;
+  constexpr bool Q = QUANT != kFloat;
   const int R = W * G;
   const int CK = NPC * PL;
   float* Qs = sm;                     // [R][D]
@@ -88,7 +117,9 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   float* Ms = Acc + R * D;            // [R]
   float* Ls = Ms + R;                 // [R]
   float* As = Ls + R;                 // [R]
-  int* Pid = reinterpret_cast<int*>(As + R);  // [NPC]
+  float* KSc = As + R;                // [CK] (quantized pages only)
+  float* VSc = KSc + (Q ? CK : 0);    // [CK]
+  int* Pid = reinterpret_cast<int*>(VSc + (Q ? CK : 0));  // [NPC]
 
   const int s = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -128,20 +159,24 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     }
     __syncthreads();
     // stage the chunk: 16-byte loads, LOADS_IN_FLIGHT per thread issued
-    // before any is used, so one memory latency covers several
-    for (int base = tid; base < CK * D / VEC; base += NT * LOADS_IN_FLIGHT) {
+    // before any is used, so one memory latency covers several. A load
+    // covers VEC dims of one position, or for int4 16 dims of one byte
+    // row (two positions half a page apart)
+    const int PR = QUANT == kInt4 ? PL / 2 : PL;  // payload rows per page
+    const int NL = NPC * PR * D / VEC;
+    for (int base = tid; base < NL; base += NT * LOADS_IN_FLIGHT) {
       uint4 kr[LOADS_IN_FLIGHT], vr[LOADS_IN_FLIGHT];
 #pragma unroll
       for (int u = 0; u < LOADS_IN_FLIGHT; ++u) {
         kr[u] = make_uint4(0u, 0u, 0u, 0u);
         vr[u] = kr[u];
         const int i = base + u * NT;
-        if (i < CK * D / VEC) {
+        if (i < NL) {
           const int j = i * VEC / D, d = i * VEC % D;
-          const int pid = Pid[j / PL];
+          const int pid = Pid[j / PR];
           if (pid >= 0) {
             const long long off =
-                (((long long)pid * Hkv + h) * PL + (j % PL)) * D + d;
+                (((long long)pid * Hkv + h) * PR + (j % PR)) * D + d;
             kr[u] = *reinterpret_cast<const uint4*>(kp + off);
             vr[u] = *reinterpret_cast<const uint4*>(vp + off);
           }
@@ -150,16 +185,41 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
       for (int u = 0; u < LOADS_IN_FLIGHT; ++u) {
         const int i = base + u * NT;
-        if (i < CK * D / VEC) {
+        if (i < NL) {
           const int j = i * VEC / D, d = i * VEC % D;
           const T* kx = reinterpret_cast<const T*>(&kr[u]);
           const T* vx = reinterpret_cast<const T*>(&vr[u]);
+          if (QUANT == kInt4) {
+            // byte row j % PR of page slot j / PR: low nibble = position
+            // row, high nibble = position row + PL/2
+            const int lo_pos = (j / PR) * PL + (j % PR);
+            const int hi_pos = lo_pos + PR;
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) {
-            Ks[j * (D + 1) + d + e] = to_f<T>(kx[e]);
-            Vs[j * D + d + e] = to_f<T>(vx[e]);
+            for (int e = 0; e < VEC; ++e) {
+              const int kb = static_cast<int>(kx[e]) & 255;
+              const int vb = static_cast<int>(vx[e]) & 255;
+              Ks[lo_pos * (D + 1) + d + e] = nibble(kb & 15);
+              Ks[hi_pos * (D + 1) + d + e] = nibble(kb >> 4);
+              Vs[lo_pos * D + d + e] = nibble(vb & 15);
+              Vs[hi_pos * D + d + e] = nibble(vb >> 4);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              Ks[j * (D + 1) + d + e] = to_f<T>(kx[e]);
+              Vs[j * D + d + e] = to_f<T>(vx[e]);
+            }
           }
         }
+      }
+    }
+    if (Q) {
+      for (int j = tid; j < CK; j += NT) {
+        const int pid = Pid[j / PL];
+        const long long off =
+            ((long long)(pid < 0 ? 0 : pid) * Hkv + h) * PL + (j % PL);
+        KSc[j] = pid >= 0 ? ksp[off] : 0.f;
+        VSc[j] = pid >= 0 ? vsp[off] : 0.f;
       }
     }
     __syncthreads();
@@ -176,7 +236,9 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
         const int jw = r / G;
         bool ok = pos <= ts + jw;
         if (window > 0) ok = ok && pos > ts + jw - window;
-        x = ok ? dot * scale : kNegInf;
+        if (Q) dot = dot * scale * KSc[j];
+        else dot = dot * scale;
+        x = ok ? dot : kNegInf;
       }
       Ss[r * (CK + 1) + j] = x;
     }
@@ -195,7 +257,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
         float p = 0.f;
         if (Pid[j / PL] >= 0) p = expf(Ss[r * (CK + 1) + j] - m_new);
         sum += p;
-        Ss[r * (CK + 1) + j] = round_to<T>(p);
+        Ss[r * (CK + 1) + j] = Q ? p * VSc[j] : round_to<T>(p);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -226,43 +288,48 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int QUANT>
 cudaError_t launch(const float* q, const void* kp, const void* vp,
-                   const int* t, const int* table, float* o, int S, int W,
-                   int Hkv, int G, int PL, int P, int N, float scale,
-                   int window, cudaStream_t stream) {
+                   const float* ksp, const float* vsp, const int* t,
+                   const int* table, float* o, int S, int W, int Hkv, int G,
+                   int PL, int P, int N, float scale, int window,
+                   cudaStream_t stream) {
+  constexpr bool Q = QUANT != kFloat;
+  if (QUANT == kInt4 && PL % 2) return cudaErrorInvalidValue;
   // pages staged per step: as many as fit kChunkPositions positions,
   // halved until the block's shared memory fits kSmemLimit
   int NPC = PL < kChunkPositions ? kChunkPositions / PL : 1;
-  while (NPC > 1 && smem_bytes(W * G, NPC * PL, D) > kSmemLimit) NPC /= 2;
-  const size_t smem = smem_bytes(W * G, NPC * PL, D);
+  while (NPC > 1 && smem_bytes(W * G, NPC * PL, D, Q) > kSmemLimit)
+    NPC /= 2;
+  const size_t smem = smem_bytes(W * G, NPC * PL, D, Q);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  auto kern = paged_decode_kernel<T, D>;
+  auto kern = paged_decode_kernel<T, D, QUANT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(S, Hkv);
   kern<<<grid, NT, smem, stream>>>(
-      q, static_cast<const T*>(kp), static_cast<const T*>(vp), t, table, o,
-      W, Hkv, G, PL, P, N, NPC, scale, window);
+      q, static_cast<const T*>(kp), static_cast<const T*>(vp), ksp, vsp, t,
+      table, o, W, Hkv, G, PL, P, N, NPC, scale, window);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int QUANT>
 cudaError_t dispatch_d(int D, const float* q, const void* kp,
-                       const void* vp, const int* t, const int* table,
-                       float* o, int S, int W, int Hkv, int G, int PL, int P,
-                       int N, float scale, int window, cudaStream_t st) {
+                       const void* vp, const float* ksp, const float* vsp,
+                       const int* t, const int* table, float* o, int S,
+                       int W, int Hkv, int G, int PL, int P, int N,
+                       float scale, int window, cudaStream_t st) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, kp, vp, t, table, o, S, W, Hkv, G, PL, P, N,
-                           scale, window, st);
+      return launch<T, 32, QUANT>(q, kp, vp, ksp, vsp, t, table, o, S, W,
+                                  Hkv, G, PL, P, N, scale, window, st);
     case 64:
-      return launch<T, 64>(q, kp, vp, t, table, o, S, W, Hkv, G, PL, P, N,
-                           scale, window, st);
+      return launch<T, 64, QUANT>(q, kp, vp, ksp, vsp, t, table, o, S, W,
+                                  Hkv, G, PL, P, N, scale, window, st);
     case 128:
-      return launch<T, 128>(q, kp, vp, t, table, o, S, W, Hkv, G, PL, P, N,
-                            scale, window, st);
+      return launch<T, 128, QUANT>(q, kp, vp, ksp, vsp, t, table, o, S, W,
+                                   Hkv, G, PL, P, N, scale, window, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -282,12 +349,45 @@ extern "C" int dkt_paged_decode(const void* q, const void* kp,
   float* of = static_cast<float*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(D, qf, kp, vp, ti, tb, of, S, W, Hkv, G, PL, P,
-                             N, scale, window, st);
+    return dispatch_d<float, kFloat>(D, qf, kp, vp, nullptr, nullptr, ti,
+                                     tb, of, S, W, Hkv, G, PL, P, N, scale,
+                                     window, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, qf, kp, vp, ti, tb, of, S, W, Hkv, G,
-                                     PL, P, N, scale, window, st);
+    return dispatch_d<__nv_bfloat16, kFloat>(D, qf, kp, vp, nullptr, nullptr,
+                                             ti, tb, of, S, W, Hkv, G, PL, P,
+                                             N, scale, window, st);
   return cudaErrorInvalidValue;
+}
+
+// int8 pages [N, Hkv, PL, D] with float32 scale planes [N, Hkv, PL]
+extern "C" int dkt_paged_decode_q8(const void* q, const void* kp,
+                                   const void* vp, const void* ks,
+                                   const void* vs, const void* t,
+                                   const void* table, void* o, int S, int W,
+                                   int Hkv, int G, int D, int PL, int P,
+                                   int N, float scale, int window,
+                                   void* stream) {
+  return dispatch_d<int8_t, kInt8>(
+      D, static_cast<const float*>(q), kp, vp, static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(t),
+      static_cast<const int*>(table), static_cast<float*>(o), S, W, Hkv, G,
+      PL, P, N, scale, window, static_cast<cudaStream_t>(stream));
+}
+
+// packed int4 pages [N, Hkv, PL/2, D] with float32 scale planes
+// [N, Hkv, PL]; PL is the page's position count (even)
+extern "C" int dkt_paged_decode_q4(const void* q, const void* kp,
+                                   const void* vp, const void* ks,
+                                   const void* vs, const void* t,
+                                   const void* table, void* o, int S, int W,
+                                   int Hkv, int G, int D, int PL, int P,
+                                   int N, float scale, int window,
+                                   void* stream) {
+  return dispatch_d<int8_t, kInt4>(
+      D, static_cast<const float*>(q), kp, vp, static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(t),
+      static_cast<const int*>(table), static_cast<float*>(o), S, W, Hkv, G,
+      PL, P, N, scale, window, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* dkt_error_string(int err) {

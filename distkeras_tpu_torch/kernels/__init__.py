@@ -2,9 +2,11 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 of its own with a plain C interface, loaded with ``ctypes``; a source may
-hold several kernels (``flash_bwd.cu`` holds dq and dk/dv), each with
-its own exported launcher. The first call of ``library`` (or an
-explicit ``build``) compiles every source whose library is missing, one
+hold several kernels, each with its own exported launcher and launch
+count (``flash_bwd.cu`` holds dq and dk/dv, ``decode_attention.cu`` the
+float and int8 slab decode, ``paged_decode.cu`` the float, int8 and
+int4 paged decode). The first call of ``library`` (or an explicit
+``build``) compiles every source whose library is missing, one
 ``nvcc`` process per source, all started together. A library's file
 name carries a hash of its source and flags, so an edited source
 rebuilds and an unchanged one is reused. Where the libraries go and
@@ -28,7 +30,11 @@ from distkeras_tpu_torch import compat
 
 #: kernel name -> source file under csrc/
 SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
-           "flash_bwd_dq": "flash_bwd.cu", "flash_bwd_dkv": "flash_bwd.cu"}
+           "flash_bwd_dq": "flash_bwd.cu", "flash_bwd_dkv": "flash_bwd.cu",
+           "decode_attention": "decode_attention.cu",
+           "decode_attention_q8": "decode_attention.cu",
+           "paged_decode_q8": "paged_decode.cu",
+           "paged_decode_q4": "paged_decode.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +50,16 @@ _SIGNATURES = {
                      [_P] * 7 + [_I] * 7 + [_L] * 15 + [_F, _I, _I, _P]),
     "flash_bwd_dkv": ("dkt_flash_bwd_dkv",
                       [_P] * 8 + [_I] * 7 + [_L] * 18 + [_F, _I, _I, _P]),
+    "decode_attention": ("dkt_decode_attention",
+                         [_P] * 6 + [_I] * 4 + [_L] * 2 + [_I] * 4
+                         + [_F, _P]),
+    "decode_attention_q8": ("dkt_decode_attention_q8",
+                            [_P] * 8 + [_I] * 3 + [_L] * 4 + [_I] * 4
+                            + [_F, _P]),
+    "paged_decode_q8": ("dkt_paged_decode_q8",
+                        [_P] * 8 + [_I] * 8 + [_F, _I, _P]),
+    "paged_decode_q4": ("dkt_paged_decode_q4",
+                        [_P] * 8 + [_I] * 8 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -14,7 +14,8 @@ require grad; each layer casts them to its compute dtype inside
 ``apply``, so autograd returns float32 gradients on the float32 leaves
 (what JAX's ``value_and_grad`` returns). ``Model.apply`` (inference)
 runs under ``torch.no_grad``; ``Model.fit`` trains in place through
-``parallel.trainers.SingleTrainer``.
+``parallel.trainers.SingleTrainer``; ``Model.generate`` continues
+prompts through ``models.decoding.generate``.
 """
 
 from __future__ import annotations
@@ -129,6 +130,13 @@ class Model:
     def apply(self, x) -> torch.Tensor:
         """Forward pass over a batch (tokens ``[B, S]`` for an LM)."""
         return self.module(torch.as_tensor(x).to(self.device))
+
+    def generate(self, prompts, max_new_tokens: int, **kwargs):
+        """Keras-style convenience over ``models.decoding.generate``
+        (``distkeras_tpu`` ``Model.generate`` :373): KV-cache
+        autoregressive continuation of ``[B, P]`` prompts."""
+        from distkeras_tpu_torch.models.decoding import generate
+        return generate(self, prompts, max_new_tokens, **kwargs)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.module.parameters())

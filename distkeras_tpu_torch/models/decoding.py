@@ -1,24 +1,35 @@
-"""The serving decode path of the port: prompt prefill (one pass or in
-chunks) into a batch-1 staging cache, and one decode step over all
-slots of a paged KV pool.
+"""The decode path of the port: prompt prefill (one pass or in chunks)
+into a slab cache, the one-token decode step over a slab cache and
+``generate()`` on top of it, and one decode step over all slots of a
+paged KV pool.
 
-Mirrors the serving subset of ``distkeras_tpu/models/decoding.py``:
-``prefill`` :607 / ``_prefill_block`` :344, ``prefill_chunk_step`` :546
-/ ``_prefill_block_chunked`` :465 with ``_merge_attention`` :374
+Mirrors ``distkeras_tpu/models/decoding.py``: ``init_cache`` :69 (float,
+int8 and int4 caches), ``_quantize_kv`` :152, ``_kv_bits`` :168,
+``pack_int4`` :174 / ``unpack_int4`` :187, ``prefill`` :607 /
+``_prefill_block`` :344, ``prefill_chunk_step`` :546 /
+``_prefill_block_chunked`` :465 with ``_merge_attention`` :374
 (``_attn_lse`` :387 is ``ops.flash_attention.flash_forward`` here, which
-returns the lse), ``_cache_write`` :198,
-``_cache_write_pages`` :926, ``_paged_attn_readout`` :1033,
-``decode_step_slots_paged`` :1096, ``_sample_vec`` :1539,
-``_masked_logits_vec`` :1565, ``_fuse_qkv_params`` :1627,
-``_project_qkv`` :1662 and ``_serving_params`` :1694.
+returns the lse), ``_cache_write`` :198, ``_cache_prefix`` :449,
+``_decode_attn`` :275 (``_decode_scores`` :231 and ``_decode_mix`` :250
+are ``ops.decode_attention``'s plain version), ``_decode_block`` :335,
+``decode_step`` :641, ``_cache_write_pages`` :926,
+``_paged_attn_readout`` :1033, ``decode_step_slots_paged`` :1096,
+``_sample`` :1503, ``_sample_vec`` :1539, ``_masked_logits_vec`` :1565,
+``_per_seq_vec`` :1592, ``_is_per_seq`` :1607, ``_fuse_qkv_params``
+:1627, ``_project_qkv`` :1662, ``_serving_params`` :1694 and
+``generate`` :1710.
 
 Functions take the module (for its configuration) and an explicit
 parameter tree (``Sequential.param_tree()``, usually pre-cast by
 ``serving_params``), as the JAX functions do. Caches are lists with one
-``{"k", "v"}`` dict per attention layer (``None`` elsewhere) and are
-written IN PLACE: a staging cache is ``[B, Hkv, L, Dh]``, a page pool
-``[N, Hkv, page_len, Dh]``. Prefill attention runs
-``ops.flash_attention.flash_forward`` and the decode readout
+dict per attention layer (``None`` elsewhere) and are written IN PLACE:
+a slab or staging cache is ``{"k", "v"}`` ``[B, Hkv, L, Dh]``, a page
+pool ``[N, Hkv, page_len, Dh]``. A quantized cache holds int8 payloads
+plus ``"k_scale"``/``"v_scale"`` float32 ``[B, Hkv, L]`` planes; an int4
+cache also carries the ``"q4": True`` marker (its slab payload holds one
+int8 byte per entry; only a page pool packs two per byte). Prefill
+attention runs ``ops.flash_attention.flash_forward``, the slab decode
+readout ``ops.decode_attention.decode_attention`` and the paged one
 ``ops.paged_attention.paged_decode_attention``: the CUDA kernels for
 tensors on the card, their plain versions for tensors on the CPU.
 """
@@ -36,8 +47,12 @@ from distkeras_tpu_torch.models.attention import (MultiHeadAttention,
 from distkeras_tpu_torch.models.core import Sequential, torch_dtype
 from distkeras_tpu_torch.models.layers import Dropout
 from distkeras_tpu_torch.ops.attention import NEG_INF, apply_rope
+from distkeras_tpu_torch.ops.decode_attention import decode_attention
 from distkeras_tpu_torch.ops.flash_attention import flash_forward
-from distkeras_tpu_torch.ops.paged_attention import paged_decode_attention
+# unpack_int4 lives with the paged readout that unpacks pages; it is
+# re-exported here beside pack_int4, where the JAX package keeps both
+from distkeras_tpu_torch.ops.paged_attention import (  # noqa: F401
+    paged_decode_attention, unpack_int4)
 from distkeras_tpu_torch.utils.tree import tree_map
 
 
@@ -98,14 +113,28 @@ def _attn_out(p, out, dt):
     return torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
 
 
+def cache_kind(dtype) -> Optional[str]:
+    """``"int8"`` or ``"int4"`` for a quantized cache dtype (the names,
+    or ``torch.int8``), None for a float dtype."""
+    if isinstance(dtype, str):
+        return dtype if dtype in ("int8", "int4") else None
+    return "int8" if dtype == torch.int8 else None
+
+
 def init_cache(module: Sequential, batch: int, max_len: int, dtype,
                device, check_len: Optional[int] = None) -> List:
     """Per-layer zeroed ``{"k", "v"}`` buffers ``[batch, Hkv, max_len,
     Dh]`` (a page pool passes pages as the batch and ``page_len`` as the
-    length), ``None`` for layers without attention. ``check_len`` is the
-    position count the positional table must cover (default
+    length), ``None`` for layers without attention. ``dtype="int8"`` /
+    ``"int4"`` (or ``torch.int8``) builds a quantized cache: int8
+    payloads plus float32 ``k_scale``/``v_scale`` ``[batch, Hkv,
+    max_len]`` planes, and for int4 the ``"q4"`` marker. ``check_len``
+    is the position count the positional table must cover (default
     ``max_len``)."""
     need = max_len if check_len is None else check_len
+    kind = cache_kind(dtype)
+    if kind is None and isinstance(dtype, str):
+        dtype = torch_dtype(dtype)
     cache = []
     for layer in module.layers:
         if isinstance(layer, PositionalEmbedding) and need > layer.max_len:
@@ -117,17 +146,69 @@ def init_cache(module: Sequential, batch: int, max_len: int, dtype,
             cache.append(None)
             continue
         shape = (batch, block.attn.kv_heads, max_len, block.attn.head_dim)
-        cache.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)})
+        if kind is None:
+            cache.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                          "v": torch.zeros(shape, dtype=dtype,
+                                           device=device)})
+            continue
+        kv = {key: torch.zeros(shape, dtype=torch.int8, device=device)
+              for key in ("k", "v")}
+        for key in ("k_scale", "v_scale"):
+            kv[key] = torch.zeros(shape[:3], dtype=torch.float32,
+                                  device=device)
+        if kind == "int4":
+            kv["q4"] = True
+        cache.append(kv)
     return cache
+
+
+def _quantize_kv(x, bits: int = 8):
+    """``[..., Dh]`` float -> (int8 payload, float32 ``[...]`` per-vector
+    scale): symmetric, ``scale = max|x| / 127`` (``/ 7`` for ``bits=4``,
+    values in [-7, 7], still one int8 byte per entry), rounding half to
+    even as ``jnp.round`` does; a zero vector keeps scale 0."""
+    qmax = 7.0 if bits == 4 else 127.0
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / qmax
+    safe = scale.masked_fill(scale == 0.0, 1.0)
+    q = torch.clamp(torch.round(xf / safe[..., None]), -qmax, qmax) \
+        .to(torch.int8)
+    return q, scale
+
+
+def _kv_bits(kv) -> int:
+    """Quantization bit width of a cache dict: 4 with the ``"q4"`` marker,
+    else 8."""
+    return 4 if "q4" in kv else 8
+
+
+def pack_int4(q):
+    """Pack an int4-valued int8 tensor to nibbles along dim -2 (the
+    position axis of a ``[..., L, D]`` plane): byte row ``r`` holds
+    position ``r`` in the low nibble and position ``r + L/2`` in the high
+    nibble (``L`` even). Nibble math in int32, as in JAX."""
+    n = q.shape[-2]
+    lo = q[..., :n // 2, :].to(torch.int32)
+    hi = q[..., n // 2:, :].to(torch.int32)
+    b = ((hi & 15) << 4) | (lo & 15)
+    return (b - 256 * (b > 127).to(torch.int32)).to(torch.int8)
 
 
 def _cache_write(kv, k, v, t: int):
     """Write a ``[B, S, Hkv, Dh]`` k/v slab (as projected) at positions
-    ``t .. t+S-1`` of a head-major staging cache, in place."""
+    ``t .. t+S-1`` of a head-major cache, in place, quantizing for an
+    int8/int4 cache."""
     s = k.shape[1]
-    kv["k"][:, :, t:t + s] = k.transpose(1, 2).to(kv["k"].dtype)
-    kv["v"][:, :, t:t + s] = v.transpose(1, 2).to(kv["v"].dtype)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    if "k_scale" in kv:
+        bits = _kv_bits(kv)
+        for key, skey, x in (("k", "k_scale", kh), ("v", "v_scale", vh)):
+            q, sc = _quantize_kv(x, bits)
+            kv[key][:, :, t:t + s] = q
+            kv[skey][:, :, t:t + s] = sc
+        return kv
+    kv["k"][:, :, t:t + s] = kh.to(kv["k"].dtype)
+    kv["v"][:, :, t:t + s] = vh.to(kv["v"].dtype)
     return kv
 
 
@@ -180,8 +261,14 @@ def _banded_prefix_attn(q, kp, vp, t0: int, lo: int, window: int,
 
 def _cache_prefix(kv, upto: int, dt, lo: int = 0):
     """Cache positions ``[lo, upto)`` as ``[B, Hkv, upto-lo, D]`` k/v in
-    the compute dtype."""
-    return (kv["k"][:, :, lo:upto].to(dt), kv["v"][:, :, lo:upto].to(dt))
+    the compute dtype; int8/int4 payloads dequantize here (sliced first),
+    so a chunked prefill attends to what later decode steps read."""
+    k = kv["k"][:, :, lo:upto]
+    v = kv["v"][:, :, lo:upto]
+    if "k_scale" in kv:
+        k = (k.float() * kv["k_scale"][:, :, lo:upto, None]).to(dt)
+        v = (v.float() * kv["v_scale"][:, :, lo:upto, None]).to(dt)
+    return k.to(dt), v.to(dt)
 
 
 def _prefill_block_chunked(block: TransformerBlock, p, kv, x, positions,
@@ -296,6 +383,63 @@ def prefill(module: Sequential, params, cache, prompts):
     return x[:, -1], cache
 
 
+# --- slab decode (generate) --------------------------------------------------
+
+
+def _decode_attn(attn: MultiHeadAttention, p, kv, x, t: int):
+    """One-token attention against a slab cache at position ``t``: the
+    projection, RoPE, the (quantizing) cache write, then
+    ``ops.decode_attention`` over the ``[B*Hkv, L, D]`` view of the cache
+    with the G query heads of each kv head as its rows (nothing is
+    expanded or copied). x: ``[B, 1, d]``."""
+    dt = torch_dtype(attn.dtype)
+    q, k, v = _project_qkv(attn, p, x.to(dt))
+    if attn.use_rope:
+        pos = torch.full((1,), t, device=x.device)
+        q = apply_rope(q, pos, scale=attn.rope_scale)
+        k = apply_rope(k, pos, scale=attn.rope_scale)
+    _cache_write(kv, k, v, t)
+    b, _, nh, dh = q.shape
+    rows = b * attn.kv_heads
+    length = kv["k"].shape[2]
+    sc = {}
+    if "k_scale" in kv:
+        sc = {key: kv[key].reshape(rows, length)
+              for key in ("k_scale", "v_scale")}
+    o = decode_attention(q[:, 0].reshape(rows, nh // attn.kv_heads, dh),
+                         kv["k"].reshape(rows, length, dh),
+                         kv["v"].reshape(rows, length, dh), t,
+                         scale=dh ** -0.5, window=attn.attn_window, **sc)
+    y = _attn_out(p, o.reshape(b, 1, nh, dh).to(dt), dt)
+    return y.to(x.dtype)
+
+
+def _decode_block(block: TransformerBlock, p, kv, x, t: int):
+    h = block.norm1.apply(p["norm1"], x)
+    x = x + _decode_attn(block.attn, p["attn"], kv, h, t).to(x.dtype)
+    return _mlp_half(block, p, x)
+
+
+@torch.no_grad()
+def decode_step(module: Sequential, params, cache, tok, t: int):
+    """One token per row through the stack against a slab cache: tok
+    ``[B]``, ``t`` the position it is written at (a Python int); returns
+    ``([B, V] logits, cache)``."""
+    x = tok[:, None]
+    for i, layer in enumerate(module.layers):
+        p = params[i]
+        block = _decode_block_of(layer)
+        if block is not None:
+            x = _decode_block(block, p, cache[i], x, t)
+        elif isinstance(layer, PositionalEmbedding):
+            x = x + p["embeddings"][t][None, None, :].to(x.dtype)
+        elif isinstance(layer, Dropout):
+            pass
+        else:
+            x = layer.apply(p, x)
+    return x[:, 0], cache
+
+
 # --- paged decode ------------------------------------------------------------
 
 
@@ -318,21 +462,48 @@ def page_write_index(t, table, page_len: int, n_pages: int):
 
 def _cache_write_pages(kv, k, v, index):
     """Write the ``[S, 1, Hkv, D]`` decode k/v through the page tables
-    (``index`` from ``page_write_index``), in place."""
+    (``index`` from ``page_write_index``), in place, quantizing for an
+    int8/int4 pool. An int4 page packs positions ``off`` and ``off +-
+    page_len/2`` into one byte row, so the write is a read-modify-write
+    of that row that keeps the other position's nibble; ``index`` holds
+    live rows only, so it never touches a sentinel page."""
     rows, pages, offs = index
-    kv["k"][pages, :, offs] = k[rows, 0].to(kv["k"].dtype)
-    kv["v"][pages, :, offs] = v[rows, 0].to(kv["v"].dtype)
+    kh, vh = k[rows, 0], v[rows, 0]                      # [n, Hkv, D]
+    if "k_scale" not in kv:
+        kv["k"][pages, :, offs] = kh.to(kv["k"].dtype)
+        kv["v"][pages, :, offs] = vh.to(kv["v"].dtype)
+        return kv
+    bits = _kv_bits(kv)
+    for key, skey, x in (("k", "k_scale", kh), ("v", "v_scale", vh)):
+        q, sc = _quantize_kv(x, bits)
+        kv[skey][pages, :, offs] = sc
+        if bits == 8:
+            kv[key][pages, :, offs] = q
+            continue
+        half = kv[skey].shape[2] // 2
+        prow = offs % half
+        high = (offs >= half)[:, None, None]
+        cur = kv[key][pages, :, prow].to(torch.int32) & 255
+        nib = q.to(torch.int32) & 15
+        b = torch.where(high, (cur & 0x0F) | (nib << 4), (cur & 0xF0) | nib)
+        kv[key][pages, :, prow] = (b - 256 * (b > 127).to(torch.int32)) \
+            .to(torch.int8)
     return kv
 
 
 def _paged_attn_readout(attn: MultiHeadAttention, p, q, kv, t, table, dt):
     """The paged readout plus the output projection: queries in float32
-    grouped ``[S, W, Hkv, G, D]``, K/V read through the page table."""
+    grouped ``[S, W, Hkv, G, D]``, K/V read through the page table (with
+    the scale planes of an int8/int4 pool)."""
     b, w_len, nh, dh = q.shape
     hkv = attn.kv_heads
     qg = q.float().reshape(b, w_len, hkv, nh // hkv, dh)
+    sc = {}
+    if "k_scale" in kv:
+        sc = {"k_scale": kv["k_scale"], "v_scale": kv["v_scale"]}
     o = paged_decode_attention(qg, kv["k"], kv["v"], t, table,
-                               scale=dh ** -0.5, window=attn.attn_window)
+                               scale=dh ** -0.5, window=attn.attn_window,
+                               **sc)
     out = o.reshape(b, w_len, nh, dh).to(dt)
     return _attn_out(p, out, dt)
 
@@ -404,6 +575,15 @@ def _masked_logits_vec(logits, temperature, top_k, top_p):
                        torch.full_like(lf, NEG_INF))
 
 
+def _gumbel_argmax(lf, generator):
+    """``argmax(lf + Gumbel noise)`` for one row: the categorical draw the
+    JAX package makes, with noise from ``generator`` (not JAX's
+    threefry)."""
+    tiny = float(np.finfo(np.float32).tiny)
+    u = torch.rand(lf.shape[-1], generator=generator, device=lf.device)
+    return torch.argmax(lf - torch.log(-torch.log(u.clamp_min(tiny))))
+
+
 def _sample_vec(logits, temperature, top_k, top_p, generators):
     """Per-row sampling: every knob is a ``[B]`` tensor (``temperature
     0`` = greedy, ``top_k <= 0`` = no truncation, ``top_p >= 1`` = no
@@ -415,11 +595,233 @@ def _sample_vec(logits, temperature, top_k, top_p, generators):
     greedy = torch.argmax(logits, dim=-1)
     lf = _masked_logits_vec(logits, temperature, top_k, top_p)
     sampled = greedy.clone()
-    tiny = float(np.finfo(np.float32).tiny)
     for row, gen in enumerate(generators):
-        if gen is None:
-            continue
-        u = torch.rand(lf.shape[-1], generator=gen, device=lf.device)
-        gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
-        sampled[row] = torch.argmax(lf[row] + gumbel)
+        if gen is not None:
+            sampled[row] = _gumbel_argmax(lf[row], gen)
     return torch.where(temperature > 0.0, sampled, greedy)
+
+
+# --- generate() ---------------------------------------------------------------
+
+
+def _sample(logits, temperature: float, top_k: Optional[int], generator,
+            top_p: Optional[float] = None):
+    """Scalar-knob sampling (JAX ``_sample``): argmax at temperature 0;
+    otherwise temperature-scaled float32 logits, top-k by INDEX (a
+    stable descending sort, so ties at the k-th logit go to the lowest
+    index as ``lax.top_k`` orders them), then the nucleus cut (a token
+    survives iff the probability mass strictly above it is ``< top_p``),
+    then one Gumbel-argmax draw per row from ``generator``."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    lf = logits.float() / temperature
+    if top_k is not None:
+        idx = torch.argsort(-lf, dim=-1, stable=True)[..., :int(top_k)]
+        keep = torch.zeros_like(lf, dtype=torch.bool).scatter_(-1, idx, True)
+        lf = torch.where(keep, lf, torch.full_like(lf, NEG_INF))
+    if top_p is not None:
+        sorted_logits = torch.flip(torch.sort(lf, dim=-1).values, dims=(-1,))
+        probs = torch.softmax(sorted_logits, dim=-1)
+        exclusive = torch.cumsum(probs, dim=-1) - probs
+        thresh = torch.where(exclusive < top_p, sorted_logits,
+                             torch.full_like(sorted_logits, float("inf"))) \
+            .amin(dim=-1, keepdim=True)
+        lf = torch.where(lf >= thresh, lf, torch.full_like(lf, NEG_INF))
+    return torch.stack([_gumbel_argmax(row, generator) for row in lf])
+
+
+def _per_seq_vec(value, b: int, dtype, none_sentinel, name: str):
+    """A scalar-or-``[B]`` sampling knob as a ``[B]`` numpy vector
+    (``None`` -> the disabled sentinel; scalars broadcast)."""
+    if value is None:
+        value = none_sentinel
+    arr = np.asarray(value, dtype)
+    if arr.ndim == 0:
+        return np.full((b,), arr, dtype)
+    if arr.shape != (b,):
+        raise ValueError(
+            f"per-sequence {name} must have shape ({b},) to match the "
+            f"prompt batch, got {arr.shape}")
+    return arr
+
+
+def _is_per_seq(value) -> bool:
+    """True when a sampling knob was passed as a per-sequence array
+    (list/tuple or an array with a batch dim) rather than a scalar."""
+    if value is None or isinstance(value, (int, float)):
+        return False
+    if isinstance(value, (list, tuple)):
+        return True
+    return getattr(value, "ndim", 0) >= 1
+
+
+def _generate_params(model, weights_dtype, compute_dt):
+    """The parameter tree ``generate()`` runs: the model's own
+    (``weights_dtype=None``), or its matrices cast to a float dtype once
+    with q/k/v fused into ``wqkv``. Cast trees are cached on the model
+    per dtype and rebuilt when any parameter changed (a new tensor, or
+    an in-place update that bumped its version counter)."""
+    if weights_dtype == "auto":
+        weights_dtype = compute_dt if (compute_dt is not None and
+                                       compute_dt != torch.float32) else None
+    if weights_dtype is None:
+        return model.params
+    if isinstance(weights_dtype, str) and weights_dtype in ("int8", "int4") \
+            or weights_dtype in (torch.int8, np.int8):
+        raise NotImplementedError(
+            f"weights_dtype={weights_dtype!r} (weight-only quantized "
+            "serving) is not ported yet: ROADMAP Queue 1 item 5, quantized "
+            "weights with kernel K5")
+    dt = weights_dtype if isinstance(weights_dtype, torch.dtype) else \
+        torch_dtype(weights_dtype if isinstance(weights_dtype, str)
+                    else np.dtype(weights_dtype).name)
+    if not dt.is_floating_point:
+        raise ValueError(
+            f"weights_dtype {dt} unsupported: use a float dtype, 'auto' or "
+            "None ('int8'/'int4' are a later slice)")
+    sig = tuple((id(p), p._version) for p in model.module.parameters())
+    cache_all = getattr(model, "_serving_params_cache", None)
+    if cache_all is None:
+        cache_all = model._serving_params_cache = {}
+    for key in [key for key, (s, _) in cache_all.items() if s != sig]:
+        del cache_all[key]
+    entry = cache_all.get(dt)
+    if entry is None:
+        with torch.no_grad():
+            entry = cache_all[dt] = (sig, fuse_qkv_params(
+                model.module, serving_params(model.params, dt)))
+    return entry[1]
+
+
+@torch.inference_mode()
+def generate(model, prompts, max_new_tokens: int,
+             temperature=0.0, top_k=None, top_p=None, seed: int = 0,
+             cache_dtype=None, stop_token=None, weights_dtype="auto",
+             as_numpy: bool = True, prefill_chunk: Optional[int] = None):
+    """Autoregressive continuation over a slab KV cache (JAX
+    ``generate`` :1710): ``[B, P]`` int prompts -> ``[B, P +
+    max_new_tokens]`` tokens.
+
+    One prefill (``prefill_chunk``: in chunks of that many positions)
+    writes the ``[B, Hkv, P + max_new_tokens, Dh]`` cache, then one
+    ``decode_step`` per new token, a Python loop of eager steps. On the
+    card each step's attention is the K2 decode kernel (the int8 variant
+    for an int8/int4 cache), at every cache length.
+
+    ``temperature=0`` is greedy; otherwise softmax sampling truncated by
+    ``top_k`` (index-exact) and/or ``top_p`` (nucleus). The four knobs
+    ``temperature``/``top_k``/``top_p``/``stop_token`` also take
+    per-sequence ``[B]`` arrays (sentinels: temperature 0 greedy, top_k 0
+    none, top_p 1.0 none, stop_token -1 never). Draws come from a
+    ``torch.Generator`` seeded with ``seed`` (Gumbel-argmax over the same
+    candidate set as JAX; not JAX's threefry bits). Once a row emits
+    ``stop_token`` every later position is that token.
+
+    ``cache_dtype`` None means the attention compute dtype; ``"int8"`` /
+    ``"int4"`` quantize the cache per token and head. ``weights_dtype``
+    ``"auto"`` casts matrices to a non-float32 compute dtype once (cached
+    on the model, q/k/v fused), None runs the model's own weights, a
+    float dtype forces one; ``"int8"``/``"int4"`` are not ported yet.
+    Returns numpy (``as_numpy``) or a tensor on the model's device."""
+    module = model.module
+    if not isinstance(module, Sequential):
+        raise TypeError("generate() expects a Sequential LM "
+                        f"(got {type(module).__name__})")
+    prompts_np = prompts.cpu().numpy() if torch.is_tensor(prompts) \
+        else np.asarray(prompts)
+    if prompts_np.ndim != 2:
+        raise ValueError(f"prompts must be [B, P], got {prompts_np.shape}")
+    max_new_tokens = int(max_new_tokens)
+    if max_new_tokens < 0:
+        raise ValueError(f"max_new_tokens must be >= 0, "
+                         f"got {max_new_tokens}")
+    per_seq = any(_is_per_seq(v)
+                  for v in (temperature, top_k, top_p, stop_token))
+    if not per_seq and top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if prefill_chunk is not None:
+        prefill_chunk = int(prefill_chunk)
+        if prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {prefill_chunk}")
+    dev = model.device
+    if max_new_tokens == 0:
+        return prompts_np if as_numpy else torch.as_tensor(
+            prompts_np, device=dev)
+    b, p_len = prompts_np.shape
+    total = p_len + max_new_tokens
+    samp = None
+    if per_seq:
+        samp = {"temperature": _per_seq_vec(temperature, b, np.float32, 0.0,
+                                            "temperature"),
+                "top_k": _per_seq_vec(top_k, b, np.int64, 0, "top_k"),
+                "top_p": _per_seq_vec(top_p, b, np.float32, 1.0, "top_p"),
+                "stop": _per_seq_vec(stop_token, b, np.int64, -1,
+                                     "stop_token")}
+        if ((samp["top_p"] <= 0.0) | (samp["top_p"] > 1.0)).any():
+            raise ValueError(
+                f"top_p entries must be in (0, 1], got {samp['top_p']}")
+    for layer in module.layers:
+        if isinstance(layer, PositionalEmbedding) and total > layer.max_len:
+            raise ValueError(
+                f"PositionalEmbedding(max_len={layer.max_len}) is too "
+                f"small for prompt {p_len} + {max_new_tokens} new tokens "
+                f"= {total} positions")
+    compute_dt = attn_compute_dtype(module)
+    if cache_dtype is None:
+        cache_dtype = compute_dt if compute_dt is not None else torch.float32
+    params = _generate_params(model, weights_dtype, compute_dt)
+    cache = init_cache(module, b, total, cache_dtype, dev, check_len=total)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+
+    if per_seq:
+        knobs = {key: torch.from_numpy(samp[key]).to(dev)
+                 for key in ("temperature", "top_k", "top_p")}
+        gens = [gen if tmp > 0.0 else None for tmp in samp["temperature"]]
+        stop_v = torch.from_numpy(samp["stop"]).to(dev)
+
+        def sample_next(logits):
+            return _sample_vec(logits, knobs["temperature"], knobs["top_k"],
+                               knobs["top_p"], gens)
+
+        def stopped(nxt):
+            return (nxt == stop_v) & (stop_v >= 0)
+    else:
+        stop_v = None if stop_token is None else torch.full(
+            (b,), int(stop_token), dtype=torch.long, device=dev)
+
+        def sample_next(logits):
+            return _sample(logits, float(temperature), top_k, gen, top_p)
+
+        def stopped(nxt):
+            if stop_v is None:
+                return torch.zeros_like(nxt, dtype=torch.bool)
+            return nxt == stop_v
+
+    tokens = torch.zeros((b, total), dtype=torch.long, device=dev)
+    tokens[:, :p_len] = torch.from_numpy(prompts_np.astype(np.int64)).to(dev)
+    if prefill_chunk is not None and p_len > prefill_chunk:
+        for t0 in range(0, p_len, prefill_chunk):
+            q_len = min(prefill_chunk, p_len - t0)
+            last_logits, cache = prefill_chunk_step(
+                module, params, cache, tokens[:, t0:t0 + q_len], t0,
+                final=t0 + q_len >= p_len)
+    else:
+        last_logits, cache = prefill(module, params, cache,
+                                     tokens[:, :p_len])
+    first = sample_next(last_logits)
+    done = stopped(first)
+    tokens[:, p_len] = first
+    for t in range(p_len, total - 1):
+        logits, cache = decode_step(module, params, cache, tokens[:, t], t)
+        nxt = sample_next(logits)
+        if stop_v is not None:
+            nxt = torch.where(done, stop_v, nxt)
+            done = done | stopped(nxt)
+        tokens[:, t + 1] = nxt
+    if not as_numpy:
+        return tokens
+    out = tokens.cpu().numpy()
+    if np.issubdtype(prompts_np.dtype, np.integer):
+        out = out.astype(prompts_np.dtype)
+    return out

@@ -1,12 +1,14 @@
 """Operators of the port: attention building blocks and the wrappers
 of the hand-written CUDA kernels (``flash_attention``,
-``paged_attention``); losses, optimizers, learning-rate schedules and
-metrics for training (``losses``, ``optimizers``, ``schedules``,
-``metrics``)."""
+``decode_attention``, ``paged_attention``); losses, optimizers,
+learning-rate schedules and metrics for training (``losses``,
+``optimizers``, ``schedules``, ``metrics``)."""
 
 from distkeras_tpu_torch.ops.attention import (NEG_INF, apply_rope,
                                                dot_product_attention,
                                                rope_frequencies)
+from distkeras_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_reference)
 from distkeras_tpu_torch.ops.flash_attention import (
     flash_attention, flash_backward, flash_backward_reference, flash_forward,
     flash_forward_reference)
@@ -14,7 +16,8 @@ from distkeras_tpu_torch.ops.paged_attention import (
     gather_pages, paged_decode_attention, paged_decode_attention_reference)
 
 __all__ = ["NEG_INF", "apply_rope", "dot_product_attention",
-           "rope_frequencies", "flash_attention", "flash_backward",
+           "rope_frequencies", "decode_attention",
+           "decode_attention_reference", "flash_attention", "flash_backward",
            "flash_backward_reference", "flash_forward",
            "flash_forward_reference",
            "gather_pages", "paged_decode_attention",

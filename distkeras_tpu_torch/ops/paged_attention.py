@@ -3,18 +3,27 @@
 
 Replaces ``distkeras_tpu/ops/paged_attention.py``
 ``paged_decode_attention`` (:244, the ``pl.pallas_call`` at :365, body
-``_kernel`` :131) for float pages: K/V are read through the page table
-with no materialised logical view; grouped queries, ``W >= 1``
-window-causal rows, a sliding window and sentinel table entries are
-supported. int8/int4 scale planes and the tree ``anc`` mask come with
-the quantization and speculation slices (ROADMAP, kernel queue).
+``_kernel`` :131): K/V are read through the page table with no
+materialised logical view; grouped queries, ``W >= 1`` window-causal
+rows, a sliding window, sentinel table entries, and quantized pages:
+int8 pages and packed int4 pages with float32 per-token scale planes.
+The tree ``anc`` mask comes with the speculation slice (ROADMAP, kernel
+queue item K3-anc).
 
 Shapes: q ``[S, W, Hkv, G, D]`` float32; k/v pages ``[N, Hkv, page_len,
-D]`` float32 or bfloat16; ``t`` ``[S]`` int32 window start positions;
-``table`` ``[S, P]`` int32 page tables, an entry ``>= N`` is the
-unallocated sentinel. Window row ``j`` of slot ``s`` attends cache
-positions ``<= t[s] + j`` (and ``> t[s] + j - window`` with SWA).
-Returns ``[S, W, Hkv, G, D]`` float32.
+D]`` float32, bfloat16 or int8, or int4 packed two positions per byte as
+``[N, Hkv, page_len/2, D]`` int8 (byte row ``r`` holds position ``r`` in
+its low nibble and ``r + page_len/2`` in its high nibble); ``k_scale`` /
+``v_scale`` ``[N, Hkv, page_len]`` float32 for quantized pages (an int4
+pool is told apart, as in JAX, by a scale plane twice as long as the
+payload's rows); ``t`` ``[S]`` int32 window start positions; ``table``
+``[S, P]`` int32 page tables, an entry ``>= N`` is the unallocated
+sentinel. Window row ``j`` of slot ``s`` attends cache positions ``<=
+t[s] + j`` (and ``> t[s] + j - window`` with SWA). Returns ``[S, W,
+Hkv, G, D]`` float32. Quantized pages follow the Pallas order: the score
+is multiplied by ``k_scale`` after the D contraction, the probabilities
+by ``v_scale`` before the value contraction (the row sum takes them
+unscaled).
 """
 
 from __future__ import annotations
@@ -31,11 +40,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (32, 64, 128)
 
 
+def _quant_mode(k_pages, k_scale) -> Optional[str]:
+    """None (float pages), "int8" or "int4" (packed payload: the scale
+    plane holds twice the payload's rows)."""
+    if k_scale is None:
+        return None
+    rows, page_len = k_pages.shape[2], k_scale.shape[2]
+    if page_len == rows:
+        return "int8"
+    if page_len != 2 * rows:
+        raise ValueError(
+            f"int4 payload rows {rows} do not match scale plane page_len "
+            f"{page_len} (expected page_len // 2)")
+    return "int4"
+
+
 def _check(q, k_pages, v_pages, t, table, k_scale, v_scale, anc):
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized (int8/int4) pages are not ported yet: ROADMAP, "
-            "kernel queue item K3-int8/int4")
     if anc is not None:
         raise NotImplementedError(
             "the tree ancestor mask is not ported yet: ROADMAP, kernel "
@@ -46,9 +66,26 @@ def _check(q, k_pages, v_pages, t, table, k_scale, v_scale, anc):
         raise TypeError(f"q must be float32, got {q.dtype}")
     if k_pages.shape != v_pages.shape or k_pages.ndim != 4:
         raise ValueError("k/v pages must be [N, Hkv, page_len, D] alike")
-    if k_pages.dtype != v_pages.dtype or k_pages.dtype not in _DTYPES:
-        raise TypeError(f"pages must be float32 or bfloat16, "
-                        f"got {k_pages.dtype}/{v_pages.dtype}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if k_scale is None:
+        if k_pages.dtype != v_pages.dtype or k_pages.dtype not in _DTYPES:
+            raise TypeError(f"pages must be float32 or bfloat16, "
+                            f"got {k_pages.dtype}/{v_pages.dtype}")
+    else:
+        if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+            raise TypeError(f"scale planes mark int8/int4 pages, got "
+                            f"{k_pages.dtype}/{v_pages.dtype}")
+        n, hkv_p = k_pages.shape[:2]
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if (sc.ndim != 3 or sc.shape[:2] != (n, hkv_p)
+                    or sc.dtype != torch.float32):
+                raise ValueError(f"{name} must be float32 [N, Hkv, "
+                                 f"page_len], got {sc.dtype} "
+                                 f"{tuple(sc.shape)}")
+        if k_scale.shape != v_scale.shape:
+            raise ValueError("k_scale and v_scale differ in shape")
+        _quant_mode(k_pages, k_scale)
     s, _w, hkv, _g, d = q.shape
     if k_pages.shape[1] != hkv or k_pages.shape[3] != d:
         raise ValueError(f"pages {tuple(k_pages.shape)} do not match q "
@@ -56,7 +93,8 @@ def _check(q, k_pages, v_pages, t, table, k_scale, v_scale, anc):
     if t.shape != (s,) or table.ndim != 2 or table.shape[0] != s:
         raise ValueError(f"t must be [{s}] and table [{s}, P], got "
                          f"{tuple(t.shape)} and {tuple(table.shape)}")
-    devs = {x.device for x in (q, k_pages, v_pages, t, table)}
+    devs = {x.device for x in (q, k_pages, v_pages, t, table) + (
+        () if k_scale is None else (k_scale, v_scale))}
     if len(devs) != 1:
         raise ValueError(f"all operands must be on one device, got {devs}")
 
@@ -71,24 +109,32 @@ def paged_decode_attention(q, k_pages, v_pages, t, table, *,
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
-            q, k_pages, v_pages, t, table, scale=scale, window=window)
+            q, k_pages, v_pages, t, table, scale=scale, window=window,
+            k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda or cpu "
                          f"tensors, got {q.device}")
-    return _launch(q, k_pages, v_pages, t, table, float(scale), window)
+    return _launch(q, k_pages, v_pages, t, table, float(scale), window,
+                   k_scale, v_scale)
 
 
-def _launch(q, k_pages, v_pages, t, table, scale, window):
+def _launch(q, k_pages, v_pages, t, table, scale, window, k_scale,
+            v_scale):
     s, w, hkv, g, d = q.shape
-    n, _, page_len, _ = k_pages.shape
+    n = k_pages.shape[0]
+    mode = _quant_mode(k_pages, k_scale)
+    page_len = k_pages.shape[2] if mode is None else k_scale.shape[2]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"paged kernel supports head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
     if w * g > 64:
         raise ValueError(f"paged kernel takes at most 64 rows per kv head "
                          f"(W*G), got {w * g}")
-    for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("t", t), ("table", table)):
+    operands = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                ("t", t), ("table", table)]
+    if mode is not None:
+        operands += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, x in operands:
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if t.dtype != torch.int32 or table.dtype != torch.int32:
@@ -99,40 +145,76 @@ def _launch(q, k_pages, v_pages, t, table, scale, window):
     out = torch.empty_like(q)
     if s == 0:
         return out
-    lib = kernels.library("paged_decode")
-    err = lib.dkt_paged_decode(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), t.data_ptr(),
-        table.data_ptr(), out.data_ptr(), _DTYPES[k_pages.dtype], s, w,
-        hkv, g, d, page_len, table.shape[1], n, scale,
-        0 if window is None else int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check(lib, err, "paged_decode")
-    kernels.count_launch("paged_decode")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    win = 0 if window is None else int(window)
+    if mode is None:
+        name = "paged_decode"
+        lib = kernels.library(name)
+        err = lib.dkt_paged_decode(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            t.data_ptr(), table.data_ptr(), out.data_ptr(),
+            _DTYPES[k_pages.dtype], s, w, hkv, g, d, page_len,
+            table.shape[1], n, scale, win, stream)
+    else:
+        name = "paged_decode_q8" if mode == "int8" else "paged_decode_q4"
+        lib = kernels.library(name)
+        fn = getattr(lib, "dkt_" + name)
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 k_scale.data_ptr(), v_scale.data_ptr(), t.data_ptr(),
+                 table.data_ptr(), out.data_ptr(), s, w, hkv, g, d,
+                 page_len, table.shape[1], n, scale, win, stream)
+    kernels.check(lib, err, name)
+    kernels.count_launch(name)
     return out
 
 
-def gather_pages(pages, table):
-    """Each slot's pages in logical order as one contiguous
-    ``[S, Hkv, P * page_len, D]`` view; sentinel entries clamp to the
-    last physical page (their positions are masked by the caller)."""
+def unpack_int4(b):
+    """``[..., L/2, D]`` packed bytes -> ``[..., L, D]`` int4-valued int8
+    (positions in order along axis -2): the inverse of
+    ``models.decoding.pack_int4``, nibble math in int32 as in JAX."""
+    b32 = b.to(torch.int32) & 255
+    lo = b32 & 15
+    lo = lo - 16 * (lo > 7).to(torch.int32)
+    hi = (b32 >> 4) & 15
+    hi = hi - 16 * (hi > 7).to(torch.int32)
+    return torch.cat([lo, hi], dim=-2).to(torch.int8)
+
+
+def gather_pages(pages, table, *, packed: bool = False):
+    """Each slot's pages in logical order as one contiguous ``[S, Hkv,
+    P * page_len, D]`` view (a scale plane ``[N, Hkv, page_len]`` gives
+    ``[S, Hkv, P * page_len]``; ``packed`` int4 pages are unpacked
+    first); sentinel entries clamp to the last physical page (their
+    positions are masked by the caller)."""
     n = pages.shape[0]
-    pg = pages[table.long().clamp(0, n - 1)]     # [S, P, Hkv, pl, D]
-    s, p, h, pl, d = pg.shape
-    return pg.permute(0, 2, 1, 3, 4).reshape(s, h, p * pl, d)
+    pg = pages[table.long().clamp(0, n - 1)]     # [S, P, Hkv, pl, ...]
+    if packed:
+        pg = unpack_int4(pg)
+    s, p, h, pl = pg.shape[:4]
+    return pg.transpose(1, 2).reshape((s, h, p * pl) + pg.shape[4:])
 
 
 def paged_decode_attention_reference(q, k_pages, v_pages, t, table, *,
                                      scale: float,
-                                     window: Optional[int] = None):
-    """The plain PyTorch version: ``gather_pages`` plus the masked
-    softmax, with the kernel's masks (positions on sentinel pages are
-    masked like positions past the window row) and rounding points."""
+                                     window: Optional[int] = None,
+                                     k_scale=None, v_scale=None):
+    """The plain PyTorch version: ``gather_pages`` (unpacking int4) plus
+    the masked softmax, with the kernel's masks (positions on sentinel
+    pages are masked like positions past the window row) and rounding
+    points (float pages: probabilities rounded to the page dtype before
+    the value product; quantized pages: scores times ``k_scale`` after
+    the contraction, probabilities times ``v_scale`` before it)."""
     s, w, hkv, g, d = q.shape
-    n, _, page_len, _ = k_pages.shape
-    k = gather_pages(k_pages, table)
-    v = gather_pages(v_pages, table)
+    n = k_pages.shape[0]
+    mode = _quant_mode(k_pages, k_scale)
+    packed = mode == "int4"
+    k = gather_pages(k_pages, table, packed=packed)
+    v = gather_pages(v_pages, table, packed=packed)
     length = k.shape[2]
+    page_len = length // table.shape[1]
     sc = torch.einsum("swhgd,shld->shgwl", q.float(), k.float()) * scale
+    if mode is not None:
+        sc = sc * gather_pages(k_scale, table)[:, :, None, None, :]
     pos = torch.arange(length, device=q.device)
     row_pos = t.long()[:, None] + torch.arange(w, device=q.device)
     valid = pos[None, None, :] <= row_pos[:, :, None]          # [S, W, L]
@@ -145,5 +227,9 @@ def paged_decode_attention_reference(q, k_pages, v_pages, t, table, *,
     m = sc.amax(dim=-1, keepdim=True)
     e = torch.exp(sc - m)
     l = e.sum(dim=-1, keepdim=True)
-    o = torch.einsum("shgwl,shld->swhgd", e.to(v.dtype).float(), v.float())
+    if mode is None:
+        e = e.to(v.dtype).float()
+    else:
+        e = e * gather_pages(v_scale, table)[:, :, None, None, :]
+    o = torch.einsum("shgwl,shld->swhgd", e, v.float())
     return o / l.permute(0, 3, 1, 2, 4)

@@ -21,8 +21,9 @@ token-identically. ``_finish`` :3027 returns a slot's pages.
 
 Greedy outputs are token-identical per request to the JAX package's
 ``generate()`` on the same weights (the CPU tests hold the port to
-it). On the card the prefill attention runs the flash kernel and the
-decode readout the paged kernel.
+it), also with an int8 or int4 KV cache at the same cache dtype. On the
+card the prefill attention runs the flash kernel and the decode readout
+the paged kernel (its int8/int4 variant for a quantized pool).
 
 Only the synchronous loop is ported. Options of the JAX engine that
 belong to later slices raise ``NotImplementedError`` naming the ROADMAP
@@ -73,7 +74,10 @@ class ServingEngine:
     (``len(prompt) + max_new_tokens <= max_len``); ``page_len`` and
     ``num_pages`` size the paged pool (default: worst-case parity with
     one ``max_len`` row per slot); ``cache_dtype`` is the pages' dtype
-    (default: the model's compute dtype); ``prefill_chunk`` bounds the
+    (default: the model's compute dtype; ``"int8"``/``"int4"`` quantize
+    the pages per token and head, int4 packing two positions per byte,
+    and the decode readout takes the kernel's quantized variant);
+    ``prefill_chunk`` bounds the
     prompt positions one iteration ingests; ``prefix_cache`` shares
     identical prompt prefixes between requests, and
     ``prefix_granularity`` rounds a partial-page (copy-on-write) match
@@ -107,12 +111,8 @@ class ServingEngine:
                     f"{item}")
         if kv_layout != "paged":
             raise NotImplementedError(
-                f"kv_layout={kv_layout!r} is not ported yet: ROADMAP, slab "
-                "decode with generate() (kernel queue item K2)")
-        if isinstance(cache_dtype, str) and cache_dtype in ("int8", "int4"):
-            raise NotImplementedError(
-                f"cache_dtype={cache_dtype!r} is not ported yet: ROADMAP, "
-                "kernel queue item K3-int8/int4")
+                f"kv_layout={kv_layout!r} is not ported yet: ROADMAP, "
+                "Queue 1, the slab serving engine (kv_layout='slab')")
         module = model.module
         if not isinstance(module, Sequential) or not any(
                 _decode_block_of(layer) is not None

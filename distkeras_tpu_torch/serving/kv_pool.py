@@ -4,8 +4,13 @@ Mirrors ``distkeras_tpu/serving/kv_pool.py``: ``PagedKVPool`` holds one
 ``[num_pages, Hkv, page_len, Dh]`` page tensor per layer (k and v) on
 the device, per-slot page tables ``[S, P]`` on the host (an entry of
 ``num_pages`` is the unallocated sentinel), host-side refcounts, the
-staging transfers ``insert_pages`` (:594) and ``load_prefix`` (:606),
-and ``device_tables`` (:395). ``PrefixCache`` hash-conses full prompt
+staging transfers ``insert_pages`` (:594, ``_write_pages`` :143) and
+``load_prefix`` (:606, ``_load_pages`` :196), ``page_bytes`` (:361) and
+``device_tables`` (:395). An int8 pool (``dtype="int8"``) adds float32
+``k_scale``/``v_scale`` planes ``[num_pages, Hkv, page_len]``; an int4
+pool packs its payload two positions per byte into ``[num_pages, Hkv,
+page_len/2, Dh]`` (``pack_int4``'s half-split, even ``page_len``) while
+its staging cache stays unpacked. ``PrefixCache`` hash-conses full prompt
 pages under a chained token key (``match`` :726, ``register`` :794,
 ``evict_one`` :860, ``reclaim`` :949), serving a partial page match
 copy-on-write. The host offload tier (``host_pages``) is not ported
@@ -20,13 +25,18 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from distkeras_tpu_torch.models.decoding import init_cache
+from distkeras_tpu_torch.models.decoding import (cache_kind, init_cache,
+                                                 pack_int4, unpack_int4)
+
+#: the tensors of a cache dict, payload first (``"q4"`` is a marker)
+_PLANES = ("k", "v", "k_scale", "v_scale")
 
 
 class PagedKVPool:
     """Fixed pool of ``num_pages`` KV pages per layer + per-slot page
     tables + refcounted allocation. ``cache`` is the per-layer list of
-    ``{"k", "v"}`` page tensors the decode step reads and writes in
+    ``{"k", "v"}`` page tensors (plus the scale planes and the ``"q4"``
+    marker of a quantized pool) the decode step reads and writes in
     place; ``tables`` the host ``[S, P]`` int32 array."""
 
     def __init__(self, module, num_slots: int, max_len: int, *,
@@ -43,6 +53,11 @@ class PagedKVPool:
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
         self.page_len = int(page_len)
+        self._int4 = cache_kind(dtype) == "int4"
+        if self._int4 and self.page_len % 2:
+            raise ValueError(
+                f"int4 pages nibble-pack two positions per byte; "
+                f"page_len must be even, got {page_len}")
         #: logical pages per slot: the page-table width (covers max_len)
         self.pages_per_slot = -(-self.max_len // self.page_len)
         if num_pages is None:
@@ -51,16 +66,46 @@ class PagedKVPool:
         if self.num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got {self.num_pages}")
         self.dtype = dtype
+        #: bytes one physical page takes across every layer's planes:
+        #: payload (int4: packed) and scale planes
+        self.page_bytes = self._page_bytes(module, self.page_len, dtype,
+                                           self.max_len)
         # the page axis is init_cache's batch axis; the position table is
         # validated against max_len
         self.cache = init_cache(module, self.num_pages, self.page_len,
                                 dtype, self.device, check_len=self.max_len)
+        if self._int4:
+            for kv in self.cache:
+                if kv is not None:
+                    for key in ("k", "v"):
+                        n, h, pl, d = kv[key].shape
+                        kv[key] = torch.zeros((n, h, pl // 2, d),
+                                              dtype=torch.int8,
+                                              device=self.device)
         self.tables = np.full((self.num_slots, self.pages_per_slot),
                               self.num_pages, np.int32)
         self.ref = np.zeros(self.num_pages, np.int64)
         # pop() hands out page 0 first (deterministic placement)
         self._free = list(range(self.num_pages))[::-1]
         self._tables_dev = None
+
+    @staticmethod
+    def _page_bytes(module, page_len: int, dtype, max_len: int) -> int:
+        """Per-physical-page bytes across all layers, from a one-page
+        probe on the meta device (nothing allocated): payload planes
+        (int4: halved, two nibbles per byte) plus scale planes."""
+        probe = init_cache(module, 1, page_len, dtype, "meta",
+                           check_len=max_len)
+        int4 = cache_kind(dtype) == "int4"
+        total = 0
+        for kv in probe:
+            if kv is None:
+                continue
+            for key in _PLANES:
+                if key in kv:
+                    n = kv[key].numel() * kv[key].element_size()
+                    total += n // 2 if int4 and key in ("k", "v") else n
+        return total
 
     # -- device views -------------------------------------------------------
 
@@ -139,17 +184,20 @@ class PagedKVPool:
     # -- staging transfers --------------------------------------------------
 
     def _page_view(self, staging_plane):
-        """``[1, H, P*page_len, D]`` staging -> ``[P, H, page_len, D]``."""
-        _, h, length, d = staging_plane.shape
-        return staging_plane[0].reshape(h, length // self.page_len,
-                                        self.page_len, d).transpose(0, 1)
+        """``[1, H, P*page_len, ...]`` staging (a payload or a scale
+        plane) -> ``[P, H, page_len, ...]``."""
+        x = staging_plane[0]
+        h, length = x.shape[:2]
+        return x.reshape((h, length // self.page_len, self.page_len)
+                         + tuple(x.shape[2:])).transpose(0, 1)
 
     @torch.no_grad()
     def insert_pages(self, staging, slot: int, skip_pages: int,
                      n_pos: int) -> None:
         """Copy the staging cache's logical pages ``[skip_pages,
         pages_for(n_pos))`` into the slot's physical pages: only the
-        pages the context fills and that are not already shared."""
+        pages the context fills and that are not already shared (an int4
+        pool packs the payload here)."""
         n_needed = self.pages_for(n_pos)
         logical = np.arange(skip_pages, n_needed)
         phys = self.tables[slot, skip_pages:n_needed]
@@ -161,16 +209,21 @@ class PagedKVPool:
         for pool_kv, st_kv in zip(self.cache, staging):
             if pool_kv is None:
                 continue
-            for key in ("k", "v"):
-                pool_kv[key][dst] = self._page_view(st_kv[key])[src] \
-                    .to(pool_kv[key].dtype)
+            for key in _PLANES:
+                if key not in pool_kv:
+                    continue
+                pages = self._page_view(st_kv[key])[src]
+                if self._int4 and key in ("k", "v"):
+                    pages = pack_int4(pages)
+                pool_kv[key][dst] = pages.to(pool_kv[key].dtype)
 
     @torch.no_grad()
     def load_prefix(self, staging, page_ids: List[int], n_tokens: int):
         """Materialise a shared prefix into the staging cache: pages
         ``page_ids`` (full shared pages, plus a copy-on-write donor last)
         become staging positions ``[0, n_tokens)`` (the donor's tail is
-        overwritten by the prefill chunks). Returns the staging cache."""
+        overwritten by the prefill chunks; an int4 pool's pages unpack
+        here). Returns the staging cache."""
         n_load = self.pages_for(n_tokens)
         if len(page_ids) < n_load:
             raise ValueError(
@@ -181,9 +234,14 @@ class PagedKVPool:
         for st_kv, pool_kv in zip(staging, self.cache):
             if st_kv is None:
                 continue
-            for key in ("k", "v"):
-                self._page_view(st_kv[key])[:n_load] = pool_kv[key][src] \
-                    .to(st_kv[key].dtype)
+            for key in _PLANES:
+                if key not in pool_kv:
+                    continue
+                pages = pool_kv[key][src]
+                if self._int4 and key in ("k", "v"):
+                    pages = unpack_int4(pages)
+                self._page_view(st_kv[key])[:n_load] = pages.to(
+                    st_kv[key].dtype)
         return staging
 
 

@@ -13,6 +13,9 @@ import torch
 from distkeras_tpu_torch import kernels
 from distkeras_tpu_torch.data import Dataset
 from distkeras_tpu_torch.models import Model, zoo
+from distkeras_tpu_torch.models import decoding as pd
+from distkeras_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_reference)
 from distkeras_tpu_torch.ops.flash_attention import (
     attention_delta, flash_backward, flash_backward_reference, flash_forward,
     flash_forward_reference)
@@ -119,6 +122,162 @@ def test_engine_on_card_goes_through_both_kernels(dev):
     assert all(len(out[r]) == n + 6 for r, n in zip(rids, (70, 9, 40)))
     counts = kernels.launch_counts()
     assert counts["flash_fwd"] > 0 and counts["paged_decode"] > 0
+
+
+def _slab(rs, rows, length, d, strided):
+    """A ``[rows, length, d]`` cache view; ``strided`` cuts it out of a
+    longer buffer, so its row stride is not ``length * d``."""
+    x = torch.from_numpy(rs.randn(rows, length + 24 * strided, d)
+                         .astype(np.float32))
+    return x[:, :length] if strided else x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,d,window,length,t,strided", [
+    (1, 64, None, 1152, 1151, False),     # generate's shape (per row)
+    (4, 64, None, 300, 200, True),        # GQA, positions past t unused
+    (4, 128, 37, 500, 499, False),        # window, D=128
+    (1, 32, None, 40, 39, True),          # a short cache, one split
+    (2, 64, 256, 1152, 700, False),       # window 256 mid-cache
+])
+def test_decode_kernel_matches_plain(dev, dtype, g, d, window, length, t,
+                                     strided):
+    rs = np.random.RandomState(5)
+    rows = 6
+    q = torch.from_numpy(rs.randn(rows, g, d).astype(np.float32)).to(dev,
+                                                                     dtype)
+    k, v = (_slab(rs, rows, length, d, strided).to(dev, dtype)
+            for _ in range(2))
+    before = kernels.launch_counts()["decode_attention"]
+    out = decode_attention(q, k, v, t, scale=d ** -0.5, window=window)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention"] == before + 1
+    ref = decode_attention_reference(q, k, v, t, scale=d ** -0.5,
+                                     window=window)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("g,d,window,length,t,strided", [
+    (1, 64, None, 1152, 1151, False),
+    (4, 64, 256, 1152, 900, True),
+    (4, 128, None, 40, 39, False),
+    (2, 32, None, 300, 123, True),
+])
+def test_decode_kernel_q8_matches_plain(dev, bits, g, d, window, length, t,
+                                        strided):
+    """int8 caches and int4 caches (one int8 byte per entry in [-7, 7]):
+    float32 math on both sides, only the summation order differs."""
+    rs = np.random.RandomState(6)
+    rows = 6
+    q = torch.from_numpy(rs.randn(rows, g, d).astype(np.float32)).to(dev)
+    (k, ks), (v, vs) = (pd._quantize_kv(_slab(rs, rows, length, d, strided)
+                                        .to(dev), bits) for _ in range(2))
+    before = kernels.launch_counts()["decode_attention_q8"]
+    out = decode_attention(q, k, v, t, scale=d ** -0.5, window=window,
+                           k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention_q8"] == before + 1
+    ref = decode_attention_reference(q, k, v, t, scale=d ** -0.5,
+                                     window=window, k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(out, ref, atol=F32_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("g,w_len,window,d,page_len", [(1, 1, None, 64, 16),
+                                                       (4, 3, 6, 64, 32),
+                                                       (2, 4, None, 32, 8),
+                                                       (4, 1, None, 128, 64)])
+def test_paged_kernel_quantized_matches_plain(dev, bits, g, w_len, window, d,
+                                              page_len):
+    """int8 pages and packed int4 pages (the positions scale with the
+    page length; slot 3 is free)."""
+    rs = np.random.RandomState(7)
+    pages = []
+    for _ in range(2):
+        x = torch.from_numpy(rs.randn(N_PAGES, 2, page_len, d)
+                             .astype(np.float32)).to(dev)
+        payload, sc = pd._quantize_kv(x, bits)
+        pages.append((pd.pack_int4(payload) if bits == 4 else payload, sc))
+    (kp, ks), (vp, vs) = pages
+    q = torch.from_numpy(rs.randn(4, w_len, 2, g, d).astype(np.float32)) \
+        .to(dev)
+    t = torch.from_numpy(T * page_len // 8).to(dev)
+    table = torch.from_numpy(TABLE).to(dev)
+    name = f"paged_decode_q{bits}"
+    before = kernels.launch_counts()[name]
+    out = paged_decode_attention(q, kp, vp, t, table, scale=0.2,
+                                 window=window, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    ref = paged_decode_attention_reference(q, kp, vp, t, table, scale=0.2,
+                                           window=window, k_scale=ks,
+                                           v_scale=vs)
+    torch.testing.assert_close(out[:3], ref[:3], atol=F32_TOL, rtol=0)
+    assert torch.all(out[3] == 0)
+
+
+def test_generate_on_card_launches_k2_per_layer_step(dev):
+    """12 layers, 6 new tokens: the decode kernel runs once per layer per
+    decode step (12 x 5), in the variant of the cache dtype; a float32
+    decode step on the card agrees with the CPU on the same cache."""
+    model = Model.build(zoo.transformer_lm(97, d_model=128, num_heads=4,
+                                           num_layers=12, dtype="bfloat16",
+                                           num_kv_heads=2),
+                        (16,), seed=0, device=dev)
+    prompts = np.random.RandomState(8).randint(0, 97, (2, 30))
+    for cache_dtype, name, other in ((None, "decode_attention",
+                                      "decode_attention_q8"),
+                                     ("int8", "decode_attention_q8",
+                                      "decode_attention"),
+                                     ("int4", "decode_attention_q8",
+                                      "decode_attention")):
+        kernels.reset_launch_counts()
+        out = model.generate(prompts, 6, cache_dtype=cache_dtype)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts[name] == 12 * 5 and counts[other] == 0, counts
+        assert counts["flash_fwd"] == 12
+        assert out.shape == (2, 36) and np.array_equal(out[:, :30], prompts)
+        assert ((out >= 0) & (out < 97)).all()
+
+    f32 = Model.build(zoo.transformer_lm(97, d_model=128, num_heads=4,
+                                         num_layers=2, num_kv_heads=2),
+                      (16,), seed=0, device=dev)
+    cpu = Model.build(zoo.transformer_lm(97, d_model=128, num_heads=4,
+                                         num_layers=2, num_kv_heads=2),
+                      (16,), seed=0, device="cpu")
+    cache = pd.init_cache(f32.module, 2, 40, torch.float32, dev)
+    toks = torch.from_numpy(prompts).to(dev)
+    with torch.no_grad():
+        pd.prefill(f32.module, f32.params, cache, toks)
+        cpu_cache = [None if kv is None else {k: a.cpu() for k, a in
+                                              kv.items()} for kv in cache]
+        got, _ = pd.decode_step(f32.module, f32.params, cache, toks[:, -1],
+                                30)
+        ref, _ = pd.decode_step(cpu.module, cpu.params, cpu_cache,
+                                toks[:, -1].cpu(), 30)
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("cache_dtype", ["int8", "int4"])
+def test_engine_on_card_runs_the_quantized_paged_kernel(dev, cache_dtype):
+    model = Model.build(zoo.transformer_lm(97, d_model=128, num_heads=4,
+                                           num_layers=2, dtype="bfloat16",
+                                           num_kv_heads=2),
+                        (16,), seed=0, device=dev)
+    eng = ServingEngine(model, num_slots=2, max_len=128, prefill_chunk=32,
+                        cache_dtype=cache_dtype)
+    rs = np.random.RandomState(9)
+    kernels.reset_launch_counts()
+    rids = [eng.submit(rs.randint(0, 97, n), 6) for n in (70, 9, 40)]
+    out = eng.run(max_steps=500)
+    assert sorted(out) == rids
+    counts = kernels.launch_counts()
+    name = "paged_decode_q8" if cache_dtype == "int8" else "paged_decode_q4"
+    assert counts[name] > 0 and counts["paged_decode"] == 0, counts
 
 
 #: backward gradients relative to the largest reference magnitude:

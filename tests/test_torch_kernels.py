@@ -19,17 +19,24 @@ import jax.numpy as jnp
 
 import jax
 
+from distkeras_tpu.models import decoding as jd
 from distkeras_tpu.ops.attention import dot_product_attention as jax_dpa
+from distkeras_tpu.ops.decode_attention import \
+    decode_attention as jax_decode_attention
 from distkeras_tpu.ops.flash_attention import _flash_forward
 from distkeras_tpu.ops.flash_attention import \
     flash_attention as jax_flash_attention
 from distkeras_tpu.ops.paged_attention import \
     paged_decode_attention as jax_paged
 
+from distkeras_tpu_torch.models import Model, decoding as pd, zoo
 from distkeras_tpu_torch.ops.attention import dot_product_attention
+from distkeras_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_reference, split_plan)
 from distkeras_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_forward)
 from distkeras_tpu_torch.ops.paged_attention import paged_decode_attention
+from distkeras_tpu_torch.serving import PagedKVPool
 
 #: float32 agreement of two summation orders over <= 64 keys of O(1)
 #: scores (a few ulps of the row sum, with margin)
@@ -189,13 +196,221 @@ def test_paged_decode_matches_pallas(g, w_len, window):
 
 
 def test_paged_decode_refuses_later_slices():
+    """The tree ancestor mask is a later slice; a packed int4 payload
+    whose scale plane is not twice its rows is a layout error."""
     rs = np.random.RandomState(3)
     kp, vp = (torch.from_numpy(x) for x in _pages(rs, 1, 8, 8))
     q = torch.zeros(4, 1, 1, 1, 8)
     t, table = torch.from_numpy(T), torch.from_numpy(TABLE)
-    with pytest.raises(NotImplementedError, match="K3-int8"):
-        paged_decode_attention(q, kp, vp, t, table, k_scale=kp[..., 0],
-                               v_scale=vp[..., 0])
+    with pytest.raises(ValueError, match="int4 payload rows"):
+        paged_decode_attention(q, kp.to(torch.int8), vp.to(torch.int8), t,
+                               table, k_scale=kp[..., 0].repeat(1, 1, 3),
+                               v_scale=vp[..., 0].repeat(1, 1, 3))
     with pytest.raises(NotImplementedError, match="K3-anc"):
         paged_decode_attention(q, kp, vp, t, table,
                                anc=torch.ones(4, 1, 1, dtype=torch.bool))
+
+
+# --- K2: decode attention over the slab cache --------------------------------
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("t,window", [(0, None), (17, None), (31, None),
+                                      (20, 6)])
+@pytest.mark.parametrize("g", [1, 4])
+def test_decode_attention_matches_pallas(g, t, window, quant):
+    """The plain version (the port's CPU path) against the Pallas kernel
+    in interpret mode, as ``tests/test_decode_kernel.py`` runs it; int8
+    caches carry ``_quantize_kv`` payloads and scale planes. Tolerance:
+    float32 reassociation (the Pallas kernel sums 8-key blocks online);
+    int8 values reach ~3 after dequantization, hence 1e-4."""
+    rs = np.random.RandomState(10)
+    q = rs.randn(3, g, 16).astype(np.float32)
+    k = rs.randn(3, 32, 16).astype(np.float32)
+    v = rs.randn(3, 32, 16).astype(np.float32)
+    scale = 16 ** -0.5
+    sc, tsc = {}, {}
+    if quant:
+        (k, ks), (v, vs) = (tuple(np.array(a) for a in jd._quantize_kv(
+            jnp.asarray(x))) for x in (k, v))
+        sc = {"k_scale": jnp.asarray(ks), "v_scale": jnp.asarray(vs)}
+        tsc = {"k_scale": torch.from_numpy(ks),
+               "v_scale": torch.from_numpy(vs)}
+    ref = jax_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               t, scale=scale, window=window, block_l=8,
+                               interpret=True, **sc)
+    to = torch.from_numpy
+    got = decode_attention(to(q), to(k), to(v), t, scale=scale, window=window,
+                           **tsc)
+    assert got.dtype == torch.float32 and got.shape == (3, g, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               atol=1e-4 if quant else F32_TOL)
+
+
+def test_decode_attention_plain_rounds_like_the_jax_cpu_path():
+    """bfloat16 cache: q * scale is rounded to the cache dtype before the
+    contraction and the normalised probabilities before the value sum,
+    the rounding points of JAX's ``_decode_scores``/``_decode_mix`` off
+    the TPU. (CPU XLA has no bf16 x bf16 -> f32 dot, so the JAX side
+    holds the bf16 values in float32 arrays: the products are exact
+    either way.)"""
+    rs = np.random.RandomState(11)
+    rows, g, d, length, t = 4, 3, 16, 24, 19
+    q = rs.randn(rows, g, d).astype(np.float32)
+    k, v = (jnp.asarray(rs.randn(rows, length, d), jnp.bfloat16)
+            for _ in range(2))
+    scale = d ** -0.5
+
+    def bf16(x):
+        return x.astype(jnp.bfloat16).astype(jnp.float32)
+
+    s = jnp.einsum("bgd,bld->bgl", bf16(jnp.asarray(q) * scale),
+                   k.astype(jnp.float32))
+    s = jnp.where((jnp.arange(length) <= t)[None, None], s,
+                  -0.7 * float(np.finfo(np.float32).max))
+    ref = jnp.einsum("bgl,bld->bgd", bf16(jax.nn.softmax(s, axis=-1)),
+                     v.astype(jnp.float32))
+    tk, tv = (torch.from_numpy(np.array(x.astype(jnp.float32)))
+              .to(torch.bfloat16) for x in (k, v))
+    got = decode_attention(torch.from_numpy(q), tk, tv, t, scale=scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=F32_TOL)
+
+
+def test_decode_attention_split_plan_and_refusals():
+    """The flash-decoding split: whole 64-position tiles, enough blocks
+    to fill the card, never an empty split."""
+    assert split_plan(64, 1152, 132) == (9, 128)
+    assert split_plan(64, 40, 132) == (1, 64)
+    assert split_plan(1, 100000, 132) == (521, 192)
+    for rows, n in ((3, 1), (64, 65), (16, 4097), (1, 63)):
+        splits, chunk = split_plan(rows, n, 132)
+        assert chunk % 64 == 0 and (splits - 1) * chunk < n <= splits * chunk
+    x = torch.zeros(2, 8, 16)
+    with pytest.raises(ValueError, match="outside the cache"):
+        decode_attention(torch.zeros(2, 1, 16), x, x, 8)
+    with pytest.raises(TypeError, match="int8"):
+        decode_attention(torch.zeros(2, 1, 16), x, x, 3,
+                         k_scale=x[..., 0], v_scale=x[..., 0])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        decode_attention(torch.zeros(2, 1, 16).to("meta"), x.to("meta"),
+                         x.to("meta"), 3)
+    assert decode_attention_reference(torch.zeros(2, 1, 16), x, x, 3,
+                                      scale=0.25).shape == (2, 1, 16)
+
+
+# --- K3: int8 and packed int4 pages ------------------------------------------
+
+
+def _quant_pages(rs, bits, hkv, page_len, d):
+    """Random pages quantized as the pool stores them (int4 packed)."""
+    out = []
+    for _ in range(2):
+        x = jnp.asarray(rs.randn(N_PAGES, hkv, page_len, d), jnp.float32)
+        q, sc = jd._quantize_kv(x, bits)
+        out.append((np.array(jd.pack_int4(q) if bits == 4 else q),
+                    np.array(sc)))
+    return out
+
+
+@pytest.mark.parametrize("g,w_len,window", [(1, 1, None), (4, 3, None),
+                                            (2, 2, 40)])
+@pytest.mark.parametrize("bits,page_len", [(8, 32), (4, 64)])
+def test_quantized_paged_decode_matches_pallas(bits, page_len, g, w_len,
+                                               window):
+    """int8 pages (page_len 32) and packed int4 pages (page_len 64)
+    against the Pallas kernel in interpret mode, as
+    ``tests/test_int4_kv.py`` runs it; slot 3 is free."""
+    rs = np.random.RandomState(12)
+    (kp, ks), (vp, vs) = _quant_pages(rs, bits, 2, page_len, 16)
+    q = rs.randn(4, w_len, 2, g, 16).astype(np.float32)
+    t = T * page_len // 8
+    scale = 16 ** -0.5
+    ref = jax_paged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                    jnp.asarray(t), jnp.asarray(TABLE), scale=scale,
+                    window=window, k_scale=jnp.asarray(ks),
+                    v_scale=jnp.asarray(vs), interpret=True)
+    to = torch.from_numpy
+    out = paged_decode_attention(to(q), to(kp), to(vp), to(t), to(TABLE),
+                                 scale=scale, window=window, k_scale=to(ks),
+                                 v_scale=to(vs))
+    np.testing.assert_allclose(out.numpy()[:3], np.asarray(ref)[:3],
+                               atol=1e-4)
+
+
+def test_int4_page_write_matches_jax_and_keeps_the_other_nibble():
+    """One-position writes into packed int4 pages (the read-modify-write
+    of the byte row two positions share) are bitwise JAX's
+    ``_cache_write_pages``, and the other position keeps its exact bits;
+    a past-capacity position writes nothing."""
+    rs = np.random.RandomState(13)
+    (kp, ks), (vp, vs) = _quant_pages(rs, 4, 2, 64, 16)
+    jkv = {"k": jnp.asarray(kp), "v": jnp.asarray(vp),
+           "k_scale": jnp.asarray(ks), "v_scale": jnp.asarray(vs),
+           "q4": jnp.zeros((1, 1, 1, 1), jnp.int8)}
+    pkv = {"k": torch.from_numpy(kp.copy()), "v": torch.from_numpy(vp.copy()),
+           "k_scale": torch.from_numpy(ks.copy()),
+           "v_scale": torch.from_numpy(vs.copy()), "q4": True}
+    table = np.array([[4, 1, 3]], np.int32)
+    for t_pos in (0, 31, 32, 63, 64, 70, 129, 500):
+        kh = rs.randn(1, 1, 2, 16).astype(np.float32)
+        vh = rs.randn(1, 1, 2, 16).astype(np.float32)
+        buddy = t_pos + 32 if (t_pos % 64) < 32 else t_pos - 32
+        before = pd.unpack_int4(pkv["k"][table[0, min(buddy // 64, 2)]])
+        jkv = jd._cache_write_pages(jkv, jnp.asarray(kh), jnp.asarray(vh),
+                                    jnp.asarray([t_pos]), jnp.asarray(table),
+                                    64)
+        index = pd.page_write_index(torch.tensor([t_pos]),
+                                    torch.from_numpy(table), 64, N_PAGES)
+        pd._cache_write_pages(pkv, torch.from_numpy(kh), torch.from_numpy(vh),
+                              index)
+        for key in ("k", "v", "k_scale", "v_scale"):
+            np.testing.assert_array_equal(pkv[key].numpy(),
+                                          np.asarray(jkv[key]))
+        after = pd.unpack_int4(pkv["k"][table[0, min(buddy // 64, 2)]])
+        np.testing.assert_array_equal(after[:, buddy % 64].numpy(),
+                                      before[:, buddy % 64].numpy())
+
+
+def test_int4_pool_insert_then_load_prefix_roundtrip():
+    """Staging (unpacked) -> pool (packed, as JAX's ``pack_int4``) ->
+    staging is bitwise for the payload and the scale planes; the pool
+    counts packed payload plus scale planes per page and refuses an odd
+    page_len."""
+    model = Model.build(zoo.transformer_lm(29, d_model=32, num_heads=4,
+                                           num_layers=2, num_kv_heads=2),
+                        (8,), device="cpu")
+    pool = PagedKVPool(model.module, num_slots=1, max_len=32, page_len=8,
+                       dtype="int4", device="cpu")
+    rs = np.random.RandomState(14)
+    staging = pool.make_request_cache()
+    for kv in staging:
+        if kv is None:
+            continue
+        assert kv["k"].dtype == torch.int8 and kv["k"].shape[2] == 32
+        for key in ("k", "v"):
+            kv[key].copy_(torch.from_numpy(
+                rs.randint(-7, 8, kv[key].shape).astype(np.int8)))
+        for key in ("k_scale", "v_scale"):
+            kv[key].copy_(torch.from_numpy(
+                rs.rand(*kv[key].shape).astype(np.float32)))
+    for lp in range(pool.pages_per_slot):
+        pool.assign(0, lp, pool.alloc_page())
+    pool.insert_pages(staging, 0, 0, 32)
+    loaded = pool.load_prefix(pool.make_request_cache(),
+                              [int(p) for p in pool.tables[0]], 32)
+    for st, ld, pl in zip(staging, loaded, pool.cache):
+        if st is None:
+            continue
+        assert pl["k"].shape == (pool.num_pages, 2, 4, 8) and "q4" in pl
+        pages = st["k"][0].reshape(2, 4, 8, 8).transpose(0, 1)
+        np.testing.assert_array_equal(
+            pl["k"][pool.tables[0]].numpy(),
+            np.asarray(jd.pack_int4(jnp.asarray(pages.numpy()))))
+        for key in ("k", "v", "k_scale", "v_scale"):
+            np.testing.assert_array_equal(ld[key].numpy(), st[key].numpy())
+    # per layer: k and v packed (2 heads x 4 byte rows x 8 dims) plus two
+    # float32 scale planes (2 heads x 8 positions)
+    assert pool.page_bytes == 2 * (2 * 2 * 4 * 8 + 2 * 4 * 2 * 8)
+    with pytest.raises(ValueError, match="even"):
+        PagedKVPool(model.module, num_slots=1, max_len=10, page_len=5,
+                    dtype="int4", device="cpu")

@@ -182,12 +182,39 @@ def test_stop_token_and_validation(lms):
     assert eng.health()["requests"]["rejected"] == 1
 
 
+@pytest.mark.parametrize("cache_dtype", ["int8", "int4"])
+def test_quantized_kv_engine_matches_generate(lms, cache_dtype):
+    """int8 and int4 (nibble-packed) pages: staggered greedy streams with
+    chunked prefill, then a prefix-cache hit that loads (and for int4
+    unpacks) the registered pages, all token-identical to JAX
+    ``generate()`` at the same cache dtype."""
+    jm, pm = lms
+    eng = ServingEngine(pm, num_slots=2, max_len=48, page_len=4,
+                        prefill_chunk=4, cache_dtype=cache_dtype,
+                        device="cpu")
+    kv = next(kv for kv in eng.pool.cache if kv is not None)
+    assert kv["k"].dtype == torch.int8 and "k_scale" in kv
+    assert kv["k"].shape[2] == (2 if cache_dtype == "int4" else 4)
+    a = np.tile(PATTERN, 2)[:12]
+    r0 = eng.submit(a, 6)
+    eng.step()
+    r1 = eng.submit(PATTERN[:5], 9)
+    out = eng.run(max_steps=500)
+    r2 = eng.submit(a, 6)
+    out.update(eng.run(max_steps=500))
+    assert eng.metrics.prefix_hits >= 1
+    for rid, prompt, n in ((r0, a, 6), (r1, PATTERN[:5], 9), (r2, a, 6)):
+        np.testing.assert_array_equal(
+            out[rid], _ref(jm, prompt, n, cache_dtype=cache_dtype,
+                           prefill_chunk=4))
+
+
 @pytest.mark.parametrize("kw", [{"overlap": True}, {"fuse_steps": 4},
                                 {"weight_quant": "int8"},
                                 {"fused_sampling": True},
                                 {"kv_layout": "slab"},
                                 {"host_kv_pages": 8},
-                                {"cache_dtype": "int8"}])
+                                {"ep_mesh": "expert"}])
 def test_later_slices_raise_naming_the_roadmap(lms, kw):
     _, pm = lms
     with pytest.raises(NotImplementedError, match="ROADMAP"):
