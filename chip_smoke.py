@@ -47,10 +47,27 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     version at phase 4's shapes (page_len 16), with times and bounds;
 12. the paged ``ServingEngine`` with ``cache_dtype="int8"`` and
     ``"int4"`` on phase 5's workload: streams finish, the quantized
-    paged kernel runs and the float one does not.
+    paged kernel runs and the float one does not;
+13. the paged kernel's tree ancestor mask (K3-anc) in its bf16, int8
+    and int4 page variants against its plain version at phase 4's
+    shapes with W=9 random trees (16 kv heads, GQA 4x4, a 256-position
+    window), a lower-triangular mask against the window-causal launch
+    (bitwise), device times from CUDA-graph replays and bounds;
+14. speculative serving on the same fresh 218M LM: a self-draft
+    (``DraftModel(model)``) linear (``spec_k=4``) and with trees
+    (``spec_width=2``) on phase 5's workload, an n-gram draft on prompts
+    repeating a 64-token motif, and n-gram trees with int8 and int4
+    pages (two requests each); every stream finishes, each equals the
+    plain engine's stream of the same request in the same run or parts
+    from it only at a near-tie of the CPU float32 scores (within the
+    bf16 logit error phases 5 and 10 measured), the self-draft runs
+    accept more than half their drafts (trees: their path over their
+    depth) in fewer iterations than tokens, and each run's kernel
+    launches are counted around it.
 
 The line before the last is one JSON object with every kernel's
-numbers; the last line is ``{"ok": true, "device": {...}}``.
+numbers (eleven kernels); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -69,6 +86,7 @@ from distkeras_tpu_torch import kernels
 from distkeras_tpu_torch.data import Dataset
 from distkeras_tpu_torch.models import Model, zoo
 from distkeras_tpu_torch.models.decoding import (_generate_params,
+                                                 _masked_logits_vec,
                                                  _quantize_kv, decode_step,
                                                  fuse_qkv_params, init_cache,
                                                  pack_int4, prefill,
@@ -85,7 +103,8 @@ from distkeras_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference)
 from distkeras_tpu_torch.parallel import (SingleTrainer, TrainCarry,
                                           make_train_step, value_and_grad)
-from distkeras_tpu_torch.serving import ServingEngine
+from distkeras_tpu_torch.serving import (DraftModel, NgramDraft,
+                                         ServingEngine, tree_ancestors)
 from distkeras_tpu_torch.utils.tree import tree_leaves
 
 #: the LM the JAX package benchmarks (bench.py LM_CFG), at full depth
@@ -262,21 +281,39 @@ def flash_phase(dev):
 # --- phase 4: paged decode ----------------------------------------------------
 
 
-def paged_cases(dev, bits=None):
+#: phase 4's cases: (name, kv heads, query group, window rows W, SWA)
+PAGED_SPECS = (("W=1 Hkv=16", 16, 1, 1, None), ("W=4 Hkv=16", 16, 1, 4, None),
+               ("GQA Hkv=4 G=4", 4, 4, 1, None),
+               ("window=256", 16, 1, 1, 256))
+#: phase 13's: the tree verify window of spec_k=4, spec_width=2 (W=9)
+ANC_SPECS = (("W=9 tree Hkv=16", 16, 1, 9, None),
+             ("GQA Hkv=4 G=4 W=9 tree", 4, 4, 9, None),
+             ("window=256 W=9 tree", 16, 1, 9, 256))
+
+
+def random_trees(rs, s, w):
+    """``[s, w]`` parent vectors of random trees, each with every node
+    used (the engine's trees number their used nodes first)."""
+    parents = np.full((s, w), -1, np.int64)
+    for i in range(s):
+        for j in range(1, w):
+            parents[i, j] = rs.randint(0, j)
+    return parents
+
+
+def paged_cases(dev, bits=None, specs=PAGED_SPECS, tree=False):
     """Eight slots with contexts up to 2048 (page_len 16, D 64, bf16
     pages; with ``bits`` 8 or 4 the same pages quantized, int4 packed)
     in a scrambled physical order, sentinel entries past each slot's
     last page: W=1 and W=4 over 16 kv heads, a GQA case (4 kv heads x 4
-    queries), and a 256-position sliding window."""
+    queries), and a 256-position sliding window; with ``tree`` the W=9
+    cases of ``ANC_SPECS`` with a random tree (``anc``) per slot."""
     rs = np.random.RandomState(SEED)
     page_len, p_max, s = 16, 128, 8
     t = np.array([2040, 1800, 1500, 1024, 777, 512, 300, 64], np.int32)
     cases = []
-    for name, hkv, g, w, window in (("W=1 Hkv=16", 16, 1, 1, None),
-                                    ("W=4 Hkv=16", 16, 1, 4, None),
-                                    ("GQA Hkv=4 G=4", 4, 4, 1, None),
-                                    ("window=256", 16, 1, 1, 256)):
-        n_live = [-(-(int(ti) + w) // page_len) for ti in t]
+    for name, hkv, g, w, window in specs:
+        n_live = [min(p_max, -(-(int(ti) + w) // page_len)) for ti in t]
         n_pages = sum(n_live) + 16
         perm = rs.permutation(n_pages)
         table = np.full((s, p_max), n_pages, np.int32)
@@ -292,6 +329,9 @@ def paged_cases(dev, bits=None):
                              .astype(np.float32)).to(dev)
         c = dict(q=q, t=torch.from_numpy(t).to(dev),
                  table=torch.from_numpy(table).to(dev), window=window)
+        if tree:
+            c["anc"] = torch.from_numpy(
+                tree_ancestors(random_trees(rs, s, w))[1]).to(dev)
         if bits is None:
             c.update(k=kp.to(torch.bfloat16), v=vp.to(torch.bfloat16))
         else:
@@ -301,6 +341,35 @@ def paged_cases(dev, bits=None):
             c.update(k=kq, v=vq, k_scale=ks, v_scale=vs)
         cases.append((name, c, t, w, page_len))
     return cases
+
+
+def _paged_work(c, t, w, page_len, bits):
+    """What one paged call must do on this run's data: the bytes of the
+    live pages it reads (K and V, scale planes for quantized pages) plus
+    q in and out, and the operations of the (query row, position) pairs
+    its masks admit (a tree row: the prefix inside its window plus its
+    ancestors)."""
+    s, _, hkv, g, d = c["q"].shape
+    row_pos = t[:, None].astype(np.int64) + np.arange(w)[None, :]
+    lo = np.zeros_like(row_pos) if c["window"] is None else \
+        np.maximum(0, row_pos - c["window"] + 1)
+    pages = int((np.minimum(row_pos.max(1), 128 * page_len - 1)
+                 // page_len - lo.min(1) // page_len + 1).sum())
+    if "anc" in c:
+        anc = c["anc"].cpu().numpy()
+        n_anc = anc.sum(axis=2)                               # [S, W]
+        own = t[:, None] + n_anc - 1                          # t + depth
+        lo_t = np.zeros_like(own) if c["window"] is None else \
+            np.maximum(0, own - c["window"] + 1)
+        pairs = int((np.maximum(0, t[:, None] - lo_t) + n_anc).sum())
+    else:
+        pairs = int((row_pos - lo + 1).sum())
+    if bits is None:
+        page_bytes = hkv * page_len * d * 2                   # bf16
+    else:
+        page_bytes = hkv * page_len * (d * bits // 8 + 4)     # + scale
+    nbytes = 2 * pages * page_bytes + 2 * c["q"].numel() * 4  # q in, out
+    return 4.0 * hkv * g * d * pairs, nbytes, pages
 
 
 def paged_phase(dev, bits=None):
@@ -320,22 +389,7 @@ def paged_phase(dev, bits=None):
         ms = time_ms(lambda: paged_decode_attention(*args, **kw))
         plain_ms = time_ms(
             lambda: paged_decode_attention_reference(*args, **kw), iters=5)
-        # what this run's data needs: the live pages the kernel visits
-        # and the (query row, position) pairs the masks admit
-        s, _, hkv, g, d = c["q"].shape
-        row_pos = t[:, None].astype(np.int64) + np.arange(w)[None, :]
-        lo = np.zeros_like(row_pos) if c["window"] is None else \
-            np.maximum(0, row_pos - c["window"] + 1)
-        pairs = int((row_pos - lo + 1).sum())
-        pages = int((row_pos.max(1) // page_len - lo.min(1) // page_len
-                     + 1).sum())
-        if bits is None:
-            page_bytes = hkv * page_len * d * 2               # bf16
-        else:
-            page_bytes = hkv * page_len * (d * bits // 8 + 4)  # + scale
-        nbytes = 2 * pages * page_bytes                       # k and v
-        nbytes += 2 * c["q"].numel() * 4                      # q in, out
-        flops = 4.0 * hkv * g * d * pairs
+        flops, nbytes, pages = _paged_work(c, t, w, page_len, bits)
         bms, by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
         print(f"{label} {name}: max_abs_err {err:.3e} (tol {tol}); kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
@@ -343,6 +397,59 @@ def paged_phase(dev, bits=None):
         if not err <= tol:
             raise AssertionError(f"{label} disagrees with its plain "
                                  f"version on {name}")
+        rows.append(dict(name=name, err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bms, bound_by=by))
+    return rows
+
+
+# --- phase 13: the tree ancestor mask (K3-anc) --------------------------------
+
+ANC_KERNELS = {None: "paged_decode_anc", 8: "paged_decode_q8_anc",
+               4: "paged_decode_q4_anc"}
+
+
+def anc_phase(dev, bits=None):
+    """K3-anc in one page variant (bf16, int8 or int4 pages) at phase 4's
+    shapes with W=9 random trees: against its plain version, a
+    lower-triangular ``anc`` against the window-causal launch (bitwise),
+    device times from CUDA-graph replays, bound."""
+    rows = []
+    label = ANC_KERNELS[bits]
+    tol = KERNEL_BF16_TOL if bits is None else KERNEL_Q_TOL
+    for name, c, t, w, page_len in paged_cases(dev, bits, ANC_SPECS,
+                                               tree=True):
+        args = (c["q"], c["k"], c["v"], c["t"], c["table"])
+        kw = dict(scale=64 ** -0.5, window=c["window"])
+        if bits is not None:
+            kw.update(k_scale=c["k_scale"], v_scale=c["v_scale"])
+        tkw = dict(kw, anc=c["anc"])
+        before = kernels.launch_counts()[label]
+        out = paged_decode_attention(*args, **tkw)
+        torch.cuda.synchronize()
+        if kernels.launch_counts()[label] != before + 1:
+            raise AssertionError(f"{name} did not launch {label}")
+        ref = paged_decode_attention_reference(*args, **tkw)
+        err = (out - ref).abs().max().item()
+        chain = torch.tril(torch.ones(w, w, dtype=torch.bool, device=dev)) \
+            .expand(c["q"].shape[0], w, w).contiguous()
+        same = torch.equal(paged_decode_attention(*args, **kw),
+                           paged_decode_attention(*args, **kw, anc=chain))
+        ms = graph_ms(lambda: paged_decode_attention(*args, **tkw))
+        plain_ms = time_ms(
+            lambda: paged_decode_attention_reference(*args, **tkw), iters=5)
+        flops, nbytes, pages = _paged_work(c, t, w, page_len, bits)
+        bms, by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+        print(f"{label} {name}: max_abs_err {err:.3e} (tol {tol}); "
+              f"lower-triangular anc == window-causal bitwise: {same}; "
+              f"kernel {ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms "
+              f"(eager), "
+              f"bound {bms:.4f} ms ({by}), {pages} live pages", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{label} disagrees with its plain "
+                                 f"version on {name}")
+        if not same:
+            raise AssertionError(f"{label}: a lower-triangular anc differs "
+                                 f"from the window-causal launch on {name}")
         rows.append(dict(name=name, err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=None, bound_ms=bms, bound_by=by))
     return rows
@@ -386,11 +493,14 @@ SERVING_KERNELS = ("flash_fwd", "paged_decode")
 NUM_PAGES = 160
 
 
-def serve(model, device, *, num_pages=NUM_PAGES, cache_dtype=None):
-    """Run the workload through a paged engine (``cache_dtype`` None:
-    the model's bf16, or ``"int8"``/``"int4"`` pages); returns the
-    engine, the request ids with their prompts, and a count of
-    non-finite live logits seen."""
+def serve(model, device, *, num_pages=NUM_PAGES, cache_dtype=None,
+          requests=None, **engine_kw):
+    """Run a workload (default: ``workload``) through a paged engine
+    (``cache_dtype`` None: the model's bf16, or ``"int8"``/``"int4"``
+    pages; ``engine_kw`` e.g. a draft source), draining it through
+    ``step()``; returns the engine, the request ids with their prompts,
+    the outputs, a count of non-finite live logits seen and the number
+    of engine iterations."""
     bad = torch.zeros((), dtype=torch.long, device=device)
 
     def check(kind, logits, slots):
@@ -400,12 +510,20 @@ def serve(model, device, *, num_pages=NUM_PAGES, cache_dtype=None):
     eng = ServingEngine(model, num_slots=4, max_len=2048, page_len=16,
                         prefill_chunk=256, num_pages=num_pages,
                         device=device, on_logits=check,
-                        cache_dtype=cache_dtype)
+                        cache_dtype=cache_dtype, **engine_kw)
+    if requests is None:
+        requests = workload(model.module.layers[0].vocab_size)
     reqs = []
-    for prompt, kw in workload(model.module.layers[0].vocab_size):
+    for prompt, kw in requests:
         reqs.append((eng.submit(prompt, NEW_TOKENS, **kw), prompt))
-    out = eng.run(max_steps=5000)
-    return eng, reqs, out, int(bad.item())
+    out, steps = {}, 0
+    while eng.scheduler.pending:
+        for r in eng.step():
+            out[r.rid] = r.tokens
+        steps += 1
+        if steps > 5000:
+            raise AssertionError("the engine did not drain in 5000 steps")
+    return eng, reqs, out, int(bad.item()), steps
 
 
 def warm_up(model, device):
@@ -461,7 +579,7 @@ def profile_serving(model, device):
               f"ms/step  x{e.count // n_prof:<4d} {e.key[:72]}", flush=True)
 
 
-def check_serving(eng, reqs, out, bad):
+def check_finished(reqs, out, bad):
     for rid, prompt in reqs:
         toks = out.get(rid)
         if toks is None or len(toks) != len(prompt) + NEW_TOKENS:
@@ -469,14 +587,18 @@ def check_serving(eng, reqs, out, bad):
                                  f"{NEW_TOKENS} tokens")
         if not np.array_equal(toks[:len(prompt)], prompt):
             raise AssertionError(f"request {rid} lost its prompt")
+    if bad:
+        raise AssertionError(f"{bad} non-finite logits on live rows")
+
+
+def check_serving(eng, reqs, out, bad):
+    check_finished(reqs, out, bad)
     s = eng.metrics.summary()
     if s["prefix_cache"]["hits"] < 1:
         raise AssertionError("the shared template never hit the prefix "
                              "cache")
     if s["requests_preempted"] < 1:
         raise AssertionError("no stream was preempted")
-    if bad:
-        raise AssertionError(f"{bad} non-finite logits on live rows")
     return s
 
 
@@ -999,6 +1121,236 @@ def decode_logits_vs_cpu(model, prompt):
     return out
 
 
+# --- phase 14: speculative serving end to end --------------------------------
+
+SPEC_K, SPEC_WIDTH = 4, 2
+#: a speculative stream may part from the plain engine's stream only
+#: at a near-tie of the plain path's CPU float32 scores, within the bf16
+#: path's own error. The verify window's GEMMs round otherwise than the
+#: one-token step's, and each bf16 path's logits lie within the error
+#: phases 5 and 10 measure against the CPU float32 path (relative to
+#: max |logit|; 1.2e-2 and 7.9e-3 on the H100, where a bf16 logit near
+#: max |logit| has an ulp of up to 2^-7 of it); two bf16 paths can order
+#: two logits differently only where the float32 gap is within twice
+#: that error, so the tie bound is twice the larger of the two errors
+#: measured in the same run
+TIE_ERR_FACTOR = 2.0
+SPEC_KERNELS = ("paged_decode", "paged_decode_anc", "paged_decode_q8_anc",
+                "paged_decode_q4_anc")
+
+
+def motif_workload(vocab: int, n: int):
+    """``n`` greedy requests whose prompts repeat one random 64-token
+    motif (what the n-gram draft can look up)."""
+    rs = np.random.RandomState(SEED + 7)
+    motif = rs.randint(0, vocab, 64)
+    return [(np.tile(motif, 12)[:n_tok], {})
+            for n_tok in (300, 520, 130, 700)[:n]]
+
+
+def _cpu_choice(f32, context, kw, index, device, favour, eps_rel):
+    """The plain path's choice of the token after ``context`` from the
+    CPU float32 logits, pushed by ``eps_rel`` of max |logit| towards
+    ``favour`` (its logit raised, every other lowered by that much):
+    the argmax for a greedy request; for a sampled one the argmax of
+    the temperature-scaled, top-k / nucleus-masked logits plus the
+    Gumbel noise of its ``index``-th draw (one draw per generated token,
+    from a generator seeded as the engine seeds it). Returns ``(choice,
+    top-2 gap of the unpushed scores relative to max |logit|)``."""
+    with torch.inference_mode():
+        cache = init_cache(f32.module, 1, len(context), torch.float32, "cpu")
+        logits, _ = prefill(f32.module, f32.params, cache,
+                            torch.as_tensor(context[None], dtype=torch.long))
+    logits = logits[0].float()
+    scale = float(logits.abs().max())
+    push = torch.full_like(logits, -eps_rel * scale)
+    push[favour] = eps_rel * scale
+    if not kw.get("temperature"):
+        top2 = torch.topk(logits, 2).values
+        return (int(torch.argmax(logits + push)),
+                float(top2[0] - top2[1]) / scale)
+    gen = torch.Generator(device=device).manual_seed(kw.get("seed", 0))
+    for _ in range(index + 1):
+        u = torch.rand(logits.shape[-1], generator=gen, device=device)
+    tiny = float(np.finfo(np.float32).tiny)
+    noise = -torch.log(-torch.log(u.cpu().clamp_min(tiny)))
+    one = torch.ones(1)
+
+    def scores(lg):
+        lf = _masked_logits_vec(lg[None], one * kw["temperature"],
+                                torch.tensor([kw.get("top_k", 0) or 0]),
+                                one * kw.get("top_p", 1.0))[0]
+        return lf + noise
+
+    top2 = torch.topk(scores(logits), 2).values
+    return (int(torch.argmax(scores(logits + push))),
+            float(top2[0] - top2[1]) / scale)
+
+
+def check_identity(f32, plain, spec, requests, label, device, tie_rel):
+    """Each speculative stream against the plain engine's stream of the
+    same request: equal, or parting at a near-tie of the plain path's
+    CPU float32 scores, compared up to there. A near-tie: logits moved
+    by half the tie bound (each bf16 path's own error) in the
+    speculative token's favour make the float32 path choose it (for a
+    greedy request: a top-2 gap within the bound; for a sampled one
+    this also covers a candidate at the top-k or nucleus edge).
+    Returns the number of streams that parted."""
+    parted = 0
+    for (rid, prompt), (prid, _), (_, kw) in zip(spec[0], plain[0],
+                                                 requests):
+        a, b = plain[1][prid], spec[1][rid]
+        diff = np.flatnonzero(a != b)
+        if not diff.size:
+            continue
+        pos = int(diff[0])
+        choice, gap = _cpu_choice(f32, a[:pos], kw, pos - len(prompt),
+                                  device, int(b[pos]), tie_rel / 2)
+        print(f"speculation {label}: request {rid} parts from the plain "
+              f"stream at generated token {pos - len(prompt)} (plain "
+              f"{a[pos]}, speculative {b[pos]}); CPU float32 top-2 gap "
+              f"{gap:.2e} of max |logit|; pushed by {tie_rel / 2:.2e} "
+              f"towards the speculative token the float32 path picks "
+              f"{choice}", flush=True)
+        if choice != int(b[pos]):
+            raise AssertionError(f"speculation {label}: request {rid} "
+                                 "parts from the plain stream away from a "
+                                 "near-tie")
+        parted += 1
+    return parted
+
+
+def _time_calls(obj, names):
+    """Wrap the named methods of ``obj`` to add up their wall time (the
+    card synchronised around each call) and count the calls; returns
+    the ``[seconds, calls]`` box."""
+    box = [0.0, 0]
+    for name in names:
+        fn = getattr(obj, name)
+
+        def timed(*args, _fn=fn, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            box[0] += time.perf_counter() - t0
+            box[1] += 1
+            return out
+
+        setattr(obj, name, timed)
+    return box
+
+
+def spec_phase(model, card, tie_rel):
+    """Speculative serving on the 218M LM: (a) self-draft linear and (b)
+    self-draft trees on phase 5's workload, (c) n-gram linear on motif
+    prompts, (d) n-gram trees with int8 and int4 pages on two motif
+    prompts; each against the plain engine on the same requests in this
+    run, with launch counts read around each speculative run."""
+    vocab = model.module.layers[0].vocab_size
+    f32 = build_lm("cpu", dtype="float32")
+    f32.module.load_state_dict(model.module.state_dict())
+    runs = [
+        ("self-draft linear", "serving_spec_linear", None, None,
+         dict(draft=DraftModel(model), spec_k=SPEC_K)),
+        ("self-draft tree", "serving_spec_tree", None, None,
+         dict(draft=DraftModel(model), spec_k=SPEC_K, spec_tree=True,
+              spec_width=SPEC_WIDTH)),
+        ("n-gram linear", "serving_spec_ngram", 4, None,
+         dict(draft=NgramDraft(), spec_k=SPEC_K)),
+        ("n-gram tree int8", "serving_spec_tree_int8", 2, "int8",
+         dict(draft=NgramDraft(), spec_k=SPEC_K, spec_tree=True,
+              spec_width=SPEC_WIDTH)),
+        ("n-gram tree int4", "serving_spec_tree_int4", 2, "int4",
+         dict(draft=NgramDraft(), spec_k=SPEC_K, spec_tree=True,
+              spec_width=SPEC_WIDTH)),
+    ]
+    # first calls of the verify shapes, the draft step and the sort of a
+    # tree draft stay out of the measured runs
+    rs = np.random.RandomState(SEED + 8)
+    for _, _, _, cache_dtype, spec in runs:
+        eng = ServingEngine(model, num_slots=2, max_len=2048, page_len=16,
+                            prefill_chunk=256, cache_dtype=cache_dtype,
+                            device=model.device, **spec)
+        eng.submit(rs.randint(0, vocab, 40), 8)
+        eng.run(max_steps=100)
+    plains = {}
+    launches = {}
+    for label, path, n_motif, cache_dtype, spec in runs:
+        requests = workload(vocab) if n_motif is None \
+            else motif_workload(vocab, n_motif)
+        key = (n_motif, cache_dtype)
+        if key not in plains:
+            eng, reqs, out, bad, steps = serve(model, model.device,
+                                               cache_dtype=cache_dtype,
+                                               requests=requests)
+            check_finished(reqs, out, bad)
+            plains[key] = (reqs, out, eng.metrics.summary())
+        # where a speculative iteration's time goes: the draft's
+        # proposals against the rest of the decode phase (verify, walk,
+        # commit, page growth)
+        drafting = _time_calls(spec["draft"], ("propose", "propose_tree"))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng, reqs, out, bad, steps = serve(model, model.device,
+                                           cache_dtype=cache_dtype,
+                                           requests=requests, **spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = kernels.launch_counts()
+        for name in ("propose", "propose_tree"):
+            del spec["draft"].__dict__[name]
+        check_finished(reqs, out, bad)
+        parted = check_identity(f32, plains[key], (reqs, out), requests,
+                                label, model.device, tie_rel)
+        s = eng.metrics.summary()
+        emitted = len(reqs) * NEW_TOKENS
+        # a tree's acceptance counts every node offered (at most depth of
+        # 2 x depth nodes can be accepted at width 2): its self-draft
+        # check reads the longest-chain basis, accepted path / depth
+        acc = s["speculation"]["path_acceptance_rate"] \
+            if spec.get("spec_tree") else s["acceptance_rate"]
+        print(f"speculation {label} on {card}: {len(reqs)} requests in "
+              f"{wall:.2f} s, {steps} iterations for {emitted} tokens "
+              f"({emitted / steps:.2f} tokens/iteration); acceptance "
+              f"{s['acceptance_rate']} (path / depth "
+              f"{s['speculation']['path_acceptance_rate']}; proposed "
+              f"{s['speculation']['proposed']}, accepted "
+              f"{s['speculation']['accepted']}, disabled streams "
+              f"{s['speculation']['disabled_streams']}); decode "
+              f"{s['decode_tokens_per_sec']:.1f} tok/s (plain engine "
+              f"{plains[key][2]['decode_tokens_per_sec']:.1f}); TTFT p50 "
+              f"{s['ttft_s']['p50'] * 1e3:.1f} ms p99 "
+              f"{s['ttft_s']['p99'] * 1e3:.1f} ms; decode phase "
+              f"{s['phases']['decode']:.3f} s (plain engine "
+              f"{plains[key][2]['phases']['decode']:.3f} s), of which "
+              f"drafting {drafting[0]:.3f} s in {drafting[1]} speculative "
+              f"iterations; preemptions "
+              f"{s['requests_preempted']}; streams parted from plain "
+              f"{parted}/{len(reqs)}; launches "
+              f"{ {k: c[k] for k in SPEC_KERNELS + ('flash_fwd',)} }",
+              flush=True)
+        want = {"serving_spec_linear": "paged_decode",
+                "serving_spec_ngram": "paged_decode",
+                "serving_spec_tree": "paged_decode_anc",
+                "serving_spec_tree_int8": "paged_decode_q8_anc",
+                "serving_spec_tree_int4": "paged_decode_q4_anc"}[path]
+        if c[want] < 1:
+            raise AssertionError(f"speculation {label} never launched "
+                                 f"{want}: {c}")
+        if spec.get("spec_tree") is None and any(
+                c[k] for k in SPEC_KERNELS[1:]):
+            raise AssertionError(f"the linear run {label} launched an anc "
+                                 f"kernel: {c}")
+        if isinstance(spec["draft"], DraftModel) and not (
+                acc is not None and acc > 0.5 and steps < emitted):
+            raise AssertionError(f"self-draft {label}: acceptance {acc}, "
+                                 f"{steps} iterations for {emitted} tokens")
+        launches[path] = c
+    return launches
+
+
 #: relative (to the largest |logit|) agreement with the CPU in float32:
 #: bf16 weights and activations through 12 blocks; float32 on the card
 #: differs from the CPU only in summation order
@@ -1033,7 +1385,7 @@ def main() -> int:
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    eng, reqs, out, bad = serve(model, dev)
+    eng, reqs, out, bad, _ = serve(model, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -1098,7 +1450,8 @@ def main() -> int:
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        eng, reqs, out, bad = serve(gen_model, dev, cache_dtype=cache_dtype)
+        eng, reqs, out, bad, _ = serve(gen_model, dev,
+                                       cache_dtype=cache_dtype)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         c = kernels.launch_counts()
@@ -1117,6 +1470,10 @@ def main() -> int:
               f"{s['decode_tokens_per_sec']:.1f} tok/s", flush=True)
         quant_launches[kname] = c[kname]
 
+    anc_rows = {bits: anc_phase(dev, bits) for bits in (None, 8, 4)}
+    tie_rel = TIE_ERR_FACTOR * max(rel_bf16, rel["bf16"])
+    spec_launches = spec_phase(gen_model, card, tie_rel)
+
     by_path = {name: {} for name in kernels.SOURCES}
     for name in SERVING_KERNELS:
         by_path[name]["serving"] = launches[name]
@@ -1128,6 +1485,10 @@ def main() -> int:
         "paged_decode_q8"]
     by_path["paged_decode_q4"]["serving_int4"] = quant_launches[
         "paged_decode_q4"]
+    for path, c in spec_launches.items():
+        for name in SPEC_KERNELS:
+            if c[name]:
+                by_path[name][path] = c[name]
 
     def entry(name, source, replaces, rows, path):
         main_row = rows[0]
@@ -1167,6 +1528,17 @@ def main() -> int:
         entry("paged_decode_q4", "distkeras_tpu_torch/csrc/paged_decode.cu",
               "distkeras_tpu/ops/paged_attention.py:365", q_paged_rows[4],
               "serving_int4"),
+        entry("paged_decode_anc", "distkeras_tpu_torch/csrc/paged_decode.cu",
+              "distkeras_tpu/ops/paged_attention.py:177", anc_rows[None],
+              "serving_spec_tree"),
+        entry("paged_decode_q8_anc",
+              "distkeras_tpu_torch/csrc/paged_decode.cu",
+              "distkeras_tpu/ops/paged_attention.py:177", anc_rows[8],
+              "serving_spec_tree_int8"),
+        entry("paged_decode_q4_anc",
+              "distkeras_tpu_torch/csrc/paged_decode.cu",
+              "distkeras_tpu/ops/paged_attention.py:177", anc_rows[4],
+              "serving_spec_tree_int4"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

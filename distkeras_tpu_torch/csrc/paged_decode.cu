@@ -10,8 +10,19 @@
 // unscaled probabilities, which are multiplied by v_scale[pos] before the
 // value sum (the Pallas order, :212-235). An int4 page holds page_len/2
 // byte rows: byte row r carries position r in its low nibble and
-// position r + page_len/2 in its high nibble (`_unpack4` :116). The tree
-// ancestor mask (`anc`) is a later slice.
+// position r + page_len/2 in its high nibble (`_unpack4` :116).
+//
+// K3-anc, the tree ancestor mask of tree speculation (the Pallas `anc`
+// operand, `_kernel` :177-195), is a template flag on the same kernel,
+// with exported launchers of its own for the three page variants: window
+// row i admits the committed prefix (pos < t) and window column j's
+// position t + j iff anc[s, i, j]; with SWA each row's own position is
+// t + depth, depth = the row's ancestor count - 1. The slot's W x W mask
+// is staged once per block as one 64-bit word per window row (W*G <= 64
+// rows per kv head, so W <= 64). Everything else -- the pages walked
+// ((t - window, t + W - 1]), the arithmetic, the rounding points -- is
+// the window-causal kernel's, so a lower-triangular anc gives bitwise
+// its output.
 //
 // Bound on this card: the bytes of the live K and V pages it must read
 // (payload and scale planes, plus q and out) at 3.35 TB/s; a decode step
@@ -95,15 +106,20 @@ size_t smem_bytes(int R, int CK, int D, bool quant) {
   return 4 * floats + 4 * (size_t)CK;
 }
 
-template <typename T, int D, int QUANT>
+template <typename T, int D, int QUANT, bool ANC>
 __global__ void __launch_bounds__(NT)
 paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const float* __restrict__ ksp,
                     const float* __restrict__ vsp, const int* __restrict__ t,
-                    const int* __restrict__ table, float* __restrict__ o,
+                    const int* __restrict__ table,
+                    const uint8_t* __restrict__ anc, float* __restrict__ o,
                     int W, int Hkv, int G, int PL, int P, int N, int NPC,
                     float scale, int window) {
   extern __shared__ float sm[];
+  // tree mask (ANC): bit j of AncBits[i] = anc[s, i, j]; Depth[i] =
+  // popcount - 1, the row's own position offset
+  __shared__ unsigned long long AncBits[ANC ? 64 : 1];
+  __shared__ int Depth[ANC ? 64 : 1];
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int LOADS_IN_FLIGHT = 4;
   constexpr bool Q = QUANT != kFloat;
@@ -133,6 +149,16 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   for (int r = tid; r < R; r += NT) {
     Ms[r] = kNegInf;
     Ls[r] = 0.f;
+  }
+  if constexpr (ANC) {
+    for (int i = tid; i < W; i += NT) {
+      const uint8_t* row = anc + ((long long)s * W + i) * W;
+      unsigned long long bits = 0ull;
+      for (int j = 0; j < W; ++j)
+        if (row[j]) bits |= 1ull << j;
+      AncBits[i] = bits;
+      Depth[i] = __popcll(bits) - 1;
+    }
   }
 
   // logical pages any window row can reach: positions (t - window, t+W-1]
@@ -234,8 +260,15 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
           dot = fmaf(Qs[r * D + d], Ks[j * (D + 1) + d], dot);
         const int pos = (c0 + pg) * PL + (j % PL);
         const int jw = r / G;
-        bool ok = pos <= ts + jw;
-        if (window > 0) ok = ok && pos > ts + jw - window;
+        bool ok;
+        if constexpr (ANC) {
+          const int rel = pos - ts;
+          ok = rel < 0 || (rel < W && ((AncBits[jw] >> rel) & 1ull));
+          if (window > 0) ok = ok && pos > ts + Depth[jw] - window;
+        } else {
+          ok = pos <= ts + jw;
+          if (window > 0) ok = ok && pos > ts + jw - window;
+        }
         if (Q) dot = dot * scale * KSc[j];
         else dot = dot * scale;
         x = ok ? dot : kNegInf;
@@ -288,14 +321,15 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T, int D, int QUANT>
+template <typename T, int D, int QUANT, bool ANC>
 cudaError_t launch(const float* q, const void* kp, const void* vp,
                    const float* ksp, const float* vsp, const int* t,
-                   const int* table, float* o, int S, int W, int Hkv, int G,
-                   int PL, int P, int N, float scale, int window,
-                   cudaStream_t stream) {
+                   const int* table, const uint8_t* anc, float* o, int S,
+                   int W, int Hkv, int G, int PL, int P, int N, float scale,
+                   int window, cudaStream_t stream) {
   constexpr bool Q = QUANT != kFloat;
   if (QUANT == kInt4 && PL % 2) return cudaErrorInvalidValue;
+  if (W * G > 64 || (ANC && anc == nullptr)) return cudaErrorInvalidValue;
   // pages staged per step: as many as fit kChunkPositions positions,
   // halved until the block's shared memory fits kSmemLimit
   int NPC = PL < kChunkPositions ? kChunkPositions / PL : 1;
@@ -303,36 +337,77 @@ cudaError_t launch(const float* q, const void* kp, const void* vp,
     NPC /= 2;
   const size_t smem = smem_bytes(W * G, NPC * PL, D, Q);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  auto kern = paged_decode_kernel<T, D, QUANT>;
+  auto kern = paged_decode_kernel<T, D, QUANT, ANC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(S, Hkv);
   kern<<<grid, NT, smem, stream>>>(
       q, static_cast<const T*>(kp), static_cast<const T*>(vp), ksp, vsp, t,
-      table, o, W, Hkv, G, PL, P, N, NPC, scale, window);
+      table, anc, o, W, Hkv, G, PL, P, N, NPC, scale, window);
   return cudaGetLastError();
 }
 
-template <typename T, int QUANT>
+template <typename T, int QUANT, bool ANC>
 cudaError_t dispatch_d(int D, const float* q, const void* kp,
                        const void* vp, const float* ksp, const float* vsp,
-                       const int* t, const int* table, float* o, int S,
-                       int W, int Hkv, int G, int PL, int P, int N,
-                       float scale, int window, cudaStream_t st) {
+                       const int* t, const int* table, const uint8_t* anc,
+                       float* o, int S, int W, int Hkv, int G, int PL, int P,
+                       int N, float scale, int window, cudaStream_t st) {
   switch (D) {
     case 32:
-      return launch<T, 32, QUANT>(q, kp, vp, ksp, vsp, t, table, o, S, W,
-                                  Hkv, G, PL, P, N, scale, window, st);
+      return launch<T, 32, QUANT, ANC>(q, kp, vp, ksp, vsp, t, table, anc,
+                                       o, S, W, Hkv, G, PL, P, N, scale,
+                                       window, st);
     case 64:
-      return launch<T, 64, QUANT>(q, kp, vp, ksp, vsp, t, table, o, S, W,
-                                  Hkv, G, PL, P, N, scale, window, st);
+      return launch<T, 64, QUANT, ANC>(q, kp, vp, ksp, vsp, t, table, anc,
+                                       o, S, W, Hkv, G, PL, P, N, scale,
+                                       window, st);
     case 128:
-      return launch<T, 128, QUANT>(q, kp, vp, ksp, vsp, t, table, o, S, W,
-                                   Hkv, G, PL, P, N, scale, window, st);
+      return launch<T, 128, QUANT, ANC>(q, kp, vp, ksp, vsp, t, table, anc,
+                                        o, S, W, Hkv, G, PL, P, N, scale,
+                                        window, st);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// float32 (dtype 0) or bfloat16 (dtype 1) pages
+template <bool ANC>
+int float_pages(const void* q, const void* kp, const void* vp,
+                const void* t, const void* table, const void* anc, void* o,
+                int dtype, int S, int W, int Hkv, int G, int D, int PL,
+                int P, int N, float scale, int window, void* stream) {
+  const float* qf = static_cast<const float*>(q);
+  const int* ti = static_cast<const int*>(t);
+  const int* tb = static_cast<const int*>(table);
+  const uint8_t* an = static_cast<const uint8_t*>(anc);
+  float* of = static_cast<float*>(o);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_d<float, kFloat, ANC>(D, qf, kp, vp, nullptr, nullptr,
+                                          ti, tb, an, of, S, W, Hkv, G, PL,
+                                          P, N, scale, window, st);
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16, kFloat, ANC>(
+        D, qf, kp, vp, nullptr, nullptr, ti, tb, an, of, S, W, Hkv, G, PL,
+        P, N, scale, window, st);
+  return cudaErrorInvalidValue;
+}
+
+// int8 (QUANT kInt8) or packed int4 (kInt4) pages with scale planes
+template <int QUANT, bool ANC>
+int quant_pages(const void* q, const void* kp, const void* vp,
+                const void* ks, const void* vs, const void* t,
+                const void* table, const void* anc, void* o, int S, int W,
+                int Hkv, int G, int D, int PL, int P, int N, float scale,
+                int window, void* stream) {
+  return dispatch_d<int8_t, QUANT, ANC>(
+      D, static_cast<const float*>(q), kp, vp, static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(t),
+      static_cast<const int*>(table), static_cast<const uint8_t*>(anc),
+      static_cast<float*>(o), S, W, Hkv, G, PL, P, N, scale, window,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -343,20 +418,20 @@ extern "C" int dkt_paged_decode(const void* q, const void* kp,
                                 int W, int Hkv, int G, int D, int PL, int P,
                                 int N, float scale, int window,
                                 void* stream) {
-  const float* qf = static_cast<const float*>(q);
-  const int* ti = static_cast<const int*>(t);
-  const int* tb = static_cast<const int*>(table);
-  float* of = static_cast<float*>(o);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float, kFloat>(D, qf, kp, vp, nullptr, nullptr, ti,
-                                     tb, of, S, W, Hkv, G, PL, P, N, scale,
-                                     window, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16, kFloat>(D, qf, kp, vp, nullptr, nullptr,
-                                             ti, tb, of, S, W, Hkv, G, PL, P,
-                                             N, scale, window, st);
-  return cudaErrorInvalidValue;
+  return float_pages<false>(q, kp, vp, t, table, nullptr, o, dtype, S, W,
+                            Hkv, G, D, PL, P, N, scale, window, stream);
+}
+
+// K3-anc, float pages: anc is [S, W, W] bool (one byte per entry)
+extern "C" int dkt_paged_decode_anc(const void* q, const void* kp,
+                                    const void* vp, const void* t,
+                                    const void* table, const void* anc,
+                                    void* o, int dtype, int S, int W,
+                                    int Hkv, int G, int D, int PL, int P,
+                                    int N, float scale, int window,
+                                    void* stream) {
+  return float_pages<true>(q, kp, vp, t, table, anc, o, dtype, S, W, Hkv,
+                           G, D, PL, P, N, scale, window, stream);
 }
 
 // int8 pages [N, Hkv, PL, D] with float32 scale planes [N, Hkv, PL]
@@ -367,11 +442,22 @@ extern "C" int dkt_paged_decode_q8(const void* q, const void* kp,
                                    int Hkv, int G, int D, int PL, int P,
                                    int N, float scale, int window,
                                    void* stream) {
-  return dispatch_d<int8_t, kInt8>(
-      D, static_cast<const float*>(q), kp, vp, static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(t),
-      static_cast<const int*>(table), static_cast<float*>(o), S, W, Hkv, G,
-      PL, P, N, scale, window, static_cast<cudaStream_t>(stream));
+  return quant_pages<kInt8, false>(q, kp, vp, ks, vs, t, table, nullptr, o,
+                                   S, W, Hkv, G, D, PL, P, N, scale, window,
+                                   stream);
+}
+
+extern "C" int dkt_paged_decode_q8_anc(const void* q, const void* kp,
+                                       const void* vp, const void* ks,
+                                       const void* vs, const void* t,
+                                       const void* table, const void* anc,
+                                       void* o, int S, int W, int Hkv, int G,
+                                       int D, int PL, int P, int N,
+                                       float scale, int window,
+                                       void* stream) {
+  return quant_pages<kInt8, true>(q, kp, vp, ks, vs, t, table, anc, o, S,
+                                  W, Hkv, G, D, PL, P, N, scale, window,
+                                  stream);
 }
 
 // packed int4 pages [N, Hkv, PL/2, D] with float32 scale planes
@@ -383,11 +469,22 @@ extern "C" int dkt_paged_decode_q4(const void* q, const void* kp,
                                    int Hkv, int G, int D, int PL, int P,
                                    int N, float scale, int window,
                                    void* stream) {
-  return dispatch_d<int8_t, kInt4>(
-      D, static_cast<const float*>(q), kp, vp, static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(t),
-      static_cast<const int*>(table), static_cast<float*>(o), S, W, Hkv, G,
-      PL, P, N, scale, window, static_cast<cudaStream_t>(stream));
+  return quant_pages<kInt4, false>(q, kp, vp, ks, vs, t, table, nullptr, o,
+                                   S, W, Hkv, G, D, PL, P, N, scale, window,
+                                   stream);
+}
+
+extern "C" int dkt_paged_decode_q4_anc(const void* q, const void* kp,
+                                       const void* vp, const void* ks,
+                                       const void* vs, const void* t,
+                                       const void* table, const void* anc,
+                                       void* o, int S, int W, int Hkv, int G,
+                                       int D, int PL, int P, int N,
+                                       float scale, int window,
+                                       void* stream) {
+  return quant_pages<kInt4, true>(q, kp, vp, ks, vs, t, table, anc, o, S,
+                                  W, Hkv, G, D, PL, P, N, scale, window,
+                                  stream);
 }
 
 extern "C" const char* dkt_error_string(int err) {

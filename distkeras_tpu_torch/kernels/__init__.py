@@ -5,7 +5,7 @@ of its own with a plain C interface, loaded with ``ctypes``; a source may
 hold several kernels, each with its own exported launcher and launch
 count (``flash_bwd.cu`` holds dq and dk/dv, ``decode_attention.cu`` the
 float and int8 slab decode, ``paged_decode.cu`` the float, int8 and
-int4 paged decode). The first call of ``library`` (or an explicit
+int4 paged decode, each with and without the tree ancestor mask). The first call of ``library`` (or an explicit
 ``build``) compiles every source whose library is missing, one
 ``nvcc`` process per source, all started together. A library's file
 name carries a hash of its source and flags, so an edited source
@@ -34,7 +34,10 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
            "decode_attention": "decode_attention.cu",
            "decode_attention_q8": "decode_attention.cu",
            "paged_decode_q8": "paged_decode.cu",
-           "paged_decode_q4": "paged_decode.cu"}
+           "paged_decode_q4": "paged_decode.cu",
+           "paged_decode_anc": "paged_decode.cu",
+           "paged_decode_q8_anc": "paged_decode.cu",
+           "paged_decode_q4_anc": "paged_decode.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,6 +63,12 @@ _SIGNATURES = {
                         [_P] * 8 + [_I] * 8 + [_F, _I, _P]),
     "paged_decode_q4": ("dkt_paged_decode_q4",
                         [_P] * 8 + [_I] * 8 + [_F, _I, _P]),
+    "paged_decode_anc": ("dkt_paged_decode_anc",
+                         [_P] * 7 + [_I] * 9 + [_F, _I, _P]),
+    "paged_decode_q8_anc": ("dkt_paged_decode_q8_anc",
+                            [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
+    "paged_decode_q4_anc": ("dkt_paged_decode_q4_anc",
+                            [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()

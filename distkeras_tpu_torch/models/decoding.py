@@ -1,7 +1,7 @@
 """The decode path of the port: prompt prefill (one pass or in chunks)
 into a slab cache, the one-token decode step over a slab cache and
-``generate()`` on top of it, and one decode step over all slots of a
-paged KV pool.
+``generate()`` on top of it, one decode step over all slots of a paged
+KV pool, and the speculative verify window (linear or tree) over it.
 
 Mirrors ``distkeras_tpu/models/decoding.py``: ``init_cache`` :69 (float,
 int8 and int4 caches), ``_quantize_kv`` :152, ``_kv_bits`` :168,
@@ -13,7 +13,11 @@ returns the lse), ``_cache_write`` :198, ``_cache_prefix`` :449,
 ``_decode_attn`` :275 (``_decode_scores`` :231 and ``_decode_mix`` :250
 are ``ops.decode_attention``'s plain version), ``_decode_block`` :335,
 ``decode_step`` :641, ``_cache_write_pages`` :926,
-``_paged_attn_readout`` :1033, ``decode_step_slots_paged`` :1096,
+``_paged_attn_readout`` :1033, ``decode_step_slots_paged`` :1096, the
+speculative verify window (``_window_positions`` :758,
+``_decode_block_slots_window`` :1152, ``_verify_window`` :1201,
+``verify_step_slots_paged`` :1276) with ``tree_walk`` :1296 and
+``commit_tree_path`` :1366,
 ``_sample`` :1503, ``_sample_vec`` :1539, ``_masked_logits_vec`` :1565,
 ``_per_seq_vec`` :1592, ``_is_per_seq`` :1607, ``_fuse_qkv_params``
 :1627, ``_project_qkv`` :1662, ``_serving_params`` :1694 and
@@ -36,7 +40,7 @@ tensors on the card, their plain versions for tensors on the CPU.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -440,35 +444,82 @@ def decode_step(module: Sequential, params, cache, tok, t: int):
     return x[:, 0], cache
 
 
-# --- paged decode ------------------------------------------------------------
+# --- paged decode and the speculative verify window -------------------------
+#
+# A speculative verify scores an [S, W] window per slot at positions
+# t .. t+W-1 in one pass (W = k+1: the pending input and k drafts), or a
+# token TREE of W nodes: node j is written at window column t + j, roped
+# and position-embedded at its root-path depth t + depth[j], and seen only
+# by its descendants through the [S, W, W] ancestor mask. Positions past
+# the accepted ones hold rejected drafts: masked until the stream's own
+# later writes replace them, as a slab row's stale tail is.
 
 
-def page_write_index(t, table, page_len: int, n_pages: int):
-    """Where each slot's decode write lands: ``(rows, pages, offsets)``
-    for the slots whose position ``t`` maps to an allocated page. A
-    position past the table (the engine's free-slot sentinel) or a
-    sentinel table entry writes nothing: those rows are left out here,
-    because an indexed store would refuse (not drop) an out-of-range
-    index. Computed once per step and shared by every layer."""
+class PageWrite(NamedTuple):
+    """Where a window's writes land: entry ``i`` is slot ``rows[i]``'s
+    window column ``cols[i]``, at offset ``offs[i]`` of physical page
+    ``pages[i]``. ``halves`` (int4 pools with W > 1) splits the entries
+    into those on the low and the high nibble of their byte rows."""
+    rows: torch.Tensor
+    cols: torch.Tensor
+    pages: torch.Tensor
+    offs: torch.Tensor
+    halves: Optional[tuple] = None
+
+
+def page_write_index(pos, table, page_len: int, n_pages: int,
+                     split_halves: bool = False) -> PageWrite:
+    """Where each slot's writes land, for positions ``pos`` ``[S]`` (one
+    per slot) or ``[S, W]`` (a window). A position on an unallocated
+    logical page (a sentinel entry), before 0 or past the table (the
+    engine's free-slot sentinel, the commit's dropped depths) writes
+    nothing: those entries are left out here, because an indexed store
+    would refuse (not drop) an out-of-range index. Computed once per step
+    and shared by every layer. ``split_halves`` adds the int4 split."""
+    if pos.ndim == 1:
+        pos = pos[:, None]
     n_logical = table.shape[1]
-    t = t.long()
-    lp = torch.div(t, page_len, rounding_mode="floor")
-    off = t - lp * page_len
+    pos = pos.long()
+    lp = torch.div(pos, page_len, rounding_mode="floor")
+    off = pos - lp * page_len
     in_range = (lp >= 0) & (lp < n_logical)
-    pp = table.long().gather(1, lp.clamp(0, n_logical - 1)[:, None])[:, 0]
-    rows = torch.nonzero(in_range & (pp < n_pages), as_tuple=True)[0]
-    return rows, pp[rows], off[rows]
+    pp = table.long().gather(1, lp.clamp(0, n_logical - 1))      # [S, W]
+    rows, cols = torch.nonzero(in_range & (pp < n_pages), as_tuple=True)
+    offs = off[rows, cols]
+    halves = None
+    if split_halves and pos.shape[1] > 1:
+        high = offs >= page_len // 2
+        halves = (torch.nonzero(~high, as_tuple=True)[0],
+                  torch.nonzero(high, as_tuple=True)[0])
+    return PageWrite(rows, cols, pp[rows, cols], offs, halves)
 
 
-def _cache_write_pages(kv, k, v, index):
-    """Write the ``[S, 1, Hkv, D]`` decode k/v through the page tables
-    (``index`` from ``page_write_index``), in place, quantizing for an
-    int8/int4 pool. An int4 page packs positions ``off`` and ``off +-
-    page_len/2`` into one byte row, so the write is a read-modify-write
-    of that row that keeps the other position's nibble; ``index`` holds
-    live rows only, so it never touches a sentinel page."""
-    rows, pages, offs = index
-    kh, vh = k[rows, 0], v[rows, 0]                      # [n, Hkv, D]
+def _write_int4(plane, pages, offs, q):
+    """Merge int4 values ``q`` ``[n, Hkv, D]`` into their nibbles of the
+    packed byte rows (positions ``off`` and ``off -+ page_len/2`` share a
+    row), keeping the other nibble: a read-modify-write whose entries
+    must not share a byte row."""
+    half = plane.shape[2]
+    prow = offs % half
+    high = (offs >= half)[:, None, None]
+    cur = plane[pages, :, prow].to(torch.int32) & 255
+    nib = q.to(torch.int32) & 15
+    b = torch.where(high, (cur & 0x0F) | (nib << 4), (cur & 0xF0) | nib)
+    plane[pages, :, prow] = (b - 256 * (b > 127).to(torch.int32)) \
+        .to(torch.int8)
+
+
+def _cache_write_pages(kv, k, v, index: PageWrite):
+    """Write ``[S, W, Hkv, D]`` k/v through the page tables (``index``
+    from ``page_write_index``), in place, quantizing for an int8/int4
+    pool. ``index`` holds live entries only, so a write never touches a
+    sentinel page. An int4 page packs two positions half a page apart
+    into one byte row: two window columns may share it, so the
+    read-modify-write runs once per nibble half (``index.halves``),
+    which is the column-by-column result of JAX's writer."""
+    rows, cols, pages, offs = index.rows, index.cols, index.pages, \
+        index.offs
+    kh, vh = k[rows, cols], v[rows, cols]                # [n, Hkv, D]
     if "k_scale" not in kv:
         kv["k"][pages, :, offs] = kh.to(kv["k"].dtype)
         kv["v"][pages, :, offs] = vh.to(kv["v"].dtype)
@@ -479,22 +530,29 @@ def _cache_write_pages(kv, k, v, index):
         kv[skey][pages, :, offs] = sc
         if bits == 8:
             kv[key][pages, :, offs] = q
-            continue
-        half = kv[skey].shape[2] // 2
-        prow = offs % half
-        high = (offs >= half)[:, None, None]
-        cur = kv[key][pages, :, prow].to(torch.int32) & 255
-        nib = q.to(torch.int32) & 15
-        b = torch.where(high, (cur & 0x0F) | (nib << 4), (cur & 0xF0) | nib)
-        kv[key][pages, :, prow] = (b - 256 * (b > 127).to(torch.int32)) \
-            .to(torch.int8)
+        elif index.halves is None:
+            _write_int4(kv[key], pages, offs, q)
+        else:
+            for sel in index.halves:
+                _write_int4(kv[key], pages[sel], offs[sel], q[sel])
     return kv
 
 
-def _paged_attn_readout(attn: MultiHeadAttention, p, q, kv, t, table, dt):
+def _window_positions(t, w_len: int, tree=None):
+    """Per window query cache positions (JAX :758): ``t + j`` for the
+    causal chain, ``t + depth[j]`` for a token tree (siblings share a
+    position while writing distinct window columns)."""
+    if tree is None:
+        return t.long()[:, None] + torch.arange(w_len, device=t.device)
+    return t.long()[:, None] + tree["depth"].long()
+
+
+def _paged_attn_readout(attn: MultiHeadAttention, p, q, kv, t, table, dt,
+                        anc=None):
     """The paged readout plus the output projection: queries in float32
     grouped ``[S, W, Hkv, G, D]``, K/V read through the page table (with
-    the scale planes of an int8/int4 pool)."""
+    the scale planes of an int8/int4 pool), the tree ancestor mask
+    ``anc`` when given."""
     b, w_len, nh, dh = q.shape
     hkv = attn.kv_heads
     qg = q.float().reshape(b, w_len, hkv, nh // hkv, dh)
@@ -503,23 +561,67 @@ def _paged_attn_readout(attn: MultiHeadAttention, p, q, kv, t, table, dt):
         sc = {"k_scale": kv["k_scale"], "v_scale": kv["v_scale"]}
     o = paged_decode_attention(qg, kv["k"], kv["v"], t, table,
                                scale=dh ** -0.5, window=attn.attn_window,
-                               **sc)
+                               anc=anc, **sc)
     out = o.reshape(b, w_len, nh, dh).to(dt)
     return _attn_out(p, out, dt)
 
 
-def _decode_block_slots_paged(block: TransformerBlock, p, kv, x, t, table,
-                              index):
+def _decode_block_slots_window(block: TransformerBlock, p, kv, x, t, table,
+                               index, tree=None, kv_out=None):
+    """One block over an ``[S, W, d]`` window at per-slot positions
+    (JAX :1152): project, rope at ``_window_positions``, write all W
+    positions through the page tables, then the readout (the tree mask
+    with ``tree``). The roped window k/v go to ``kv_out`` (the caller's
+    list) for ``commit_tree_path``."""
     attn = block.attn
     dt = torch_dtype(attn.dtype)
     xc = block.norm1.apply(p["norm1"], x).to(dt)
     q, k, v = _project_qkv(attn, p["attn"], xc)
     if attn.use_rope:
-        q = apply_rope(q, t[:, None], scale=attn.rope_scale)
-        k = apply_rope(k, t[:, None], scale=attn.rope_scale)
+        pos = _window_positions(t, q.shape[1], tree)
+        q = apply_rope(q, pos, scale=attn.rope_scale)
+        k = apply_rope(k, pos, scale=attn.rope_scale)
+    if kv_out is not None:
+        kv_out.append((k, v))
     _cache_write_pages(kv, k, v, index)
-    y = _paged_attn_readout(attn, p["attn"], q, kv, t, table, dt)
+    y = _paged_attn_readout(attn, p["attn"], q, kv, t, table, dt,
+                            anc=None if tree is None else tree["anc"])
     return _mlp_half(block, p, x + y.to(x.dtype))
+
+
+def _verify_window(module: Sequential, params, cache, toks, t, table,
+                   page_len: int, tree=None):
+    """``[S, W]`` window tokens through the stack against the paged pool
+    at per-slot positions (JAX :1201); returns ``([S, W, V] logits,
+    cache)``, plus with ``tree`` (``{"depth": [S, W], "anc": [S, W,
+    W]}``) the per-layer roped window k/v (None for other layers)."""
+    x = toks
+    w_len = toks.shape[1]
+    kv0 = next(kv for kv in cache if kv is not None)
+    index = page_write_index(
+        t.long()[:, None] + torch.arange(w_len, device=t.device), table,
+        page_len, kv0["k"].shape[0], split_halves="q4" in kv0)
+    kv_win = [] if tree is not None else None
+    for i, layer in enumerate(module.layers):
+        p = params[i]
+        block = _decode_block_of(layer)
+        if block is not None:
+            x = _decode_block_slots_window(block, p, cache[i], x, t, table,
+                                           index, tree, kv_win)
+        elif isinstance(layer, PositionalEmbedding):
+            pos = _window_positions(t, w_len, tree).clamp(
+                0, layer.max_len - 1)
+            x = x + p["embeddings"][pos].to(x.dtype)
+        elif isinstance(layer, Dropout):
+            pass
+        else:
+            x = layer.apply(p, x)
+    if tree is None:
+        return x, cache
+    it = iter(kv_win)
+    kv_win = [next(it) if _decode_block_of(layer) is not None else None
+              for layer in module.layers]
+    return x, cache, kv_win
 
 
 @torch.no_grad()
@@ -529,23 +631,108 @@ def decode_step_slots_paged(module: Sequential, params, cache, tok, t,
     tok ``[S]``, t ``[S]`` int32, table ``[S, P]`` int32; returns
     ``([S, V] logits, cache)``. Slots whose ``t`` is the out-of-range
     sentinel write nothing and give logits the caller discards."""
-    x = tok[:, None]
-    n_pages = next(kv["k"].shape[0] for kv in cache if kv is not None)
-    index = page_write_index(t, table, page_len, n_pages)
-    for i, layer in enumerate(module.layers):
-        p = params[i]
-        block = _decode_block_of(layer)
-        if block is not None:
-            x = _decode_block_slots_paged(block, p, cache[i], x, t, table,
-                                          index)
-        elif isinstance(layer, PositionalEmbedding):
-            pos = t.long().clamp(0, layer.max_len - 1)
-            x = x + p["embeddings"][pos][:, None, :].to(x.dtype)
-        elif isinstance(layer, Dropout):
-            pass
+    logits, cache = _verify_window(module, params, cache, tok[:, None], t,
+                                   table, page_len)
+    return logits[:, 0], cache
+
+
+@torch.no_grad()
+def verify_step_slots_paged(module: Sequential, params, cache, toks, t,
+                            table, page_len: int, *, tree=None):
+    """Batched speculative verify against the paged pool (JAX :1276):
+    toks ``[S, W]`` (column 0 the slot's pending input, then its drafts
+    or tree nodes), t ``[S]`` window starts. ``logits[:, j]`` is the
+    target's next-token distribution after window position j. Writes
+    past allocated pages drop. With ``tree`` the return gains the
+    per-layer window k/v for ``commit_tree_path``; a chain-shaped tree
+    (``depth[j] = j``, lower-triangular ``anc``) reproduces the plain
+    window bit for bit."""
+    return _verify_window(module, params, cache, toks, t, table, page_len,
+                          tree=tree)
+
+
+def tree_walk(logits, toks, parents, *, temperature=None, top_k=None,
+              top_p=None, generators=None):
+    """Acceptance over a verified token tree (JAX :1296): from the root,
+    draw the target's choice ``x`` at the current node (argmax, or one
+    ``_sample_vec`` draw), emit it, descend into the lowest-index child
+    whose token is ``x``, or stop. ``logits`` ``[S, W, V]``; ``toks``,
+    ``parents`` ``[S, W]`` numpy (unused nodes have parent -1).
+
+    Sampled (``temperature``/``top_k``/``top_p`` ``[S]`` tensors,
+    ``generators[s]`` slot s's ``torch.Generator`` or None): each step
+    draws only for the rows still walking, exactly one V-wide draw per
+    emitted token, as plain decode draws, so a sampled speculative
+    stream equals the plain one. The walk runs on the host (one fetch of
+    the candidates per step, or of all argmaxes when greedy).
+
+    Returns numpy ``(emitted [S, W], n_emit [S], path [S, W])``:
+    ``emitted[s, :n_emit[s]]`` the tokens (-1 after), ``path[s, d]`` the
+    accepted node at depth d."""
+    s_n, w_len, _ = logits.shape
+    toks = np.asarray(toks)
+    parents = np.asarray(parents)
+    rows = np.arange(s_n)
+    cur = np.zeros(s_n, np.int64)
+    walking = np.ones(s_n, bool)
+    n_emit = np.zeros(s_n, np.int64)
+    emitted = np.full((s_n, w_len), -1, np.int64)
+    path = np.zeros((s_n, w_len), np.int64)
+    greedy = temperature is None
+    if greedy:
+        cand = torch.argmax(logits, dim=-1).cpu().numpy()       # [S, W]
+    row_idx = torch.arange(s_n, device=logits.device)
+    for step in range(w_len):
+        path[:, step] = cur
+        if not walking.any():
+            continue
+        if greedy:
+            x = cand[rows, cur]
         else:
-            x = layer.apply(p, x)
-    return x[:, 0], cache
+            gens = [g if walking[s] else None
+                    for s, g in enumerate(generators)]
+            lg = logits[row_idx, torch.from_numpy(cur).to(logits.device)]
+            x = _sample_vec(lg, temperature, top_k, top_p, gens) \
+                .cpu().numpy()
+        emitted[walking, step] = x[walking]
+        n_emit += walking
+        is_child = (parents == cur[:, None]) & (toks == x[:, None]) \
+            & walking[:, None]
+        has = is_child.any(axis=1)
+        walking &= has
+        cur = np.where(walking, np.argmax(is_child, axis=1), cur)
+    return emitted, n_emit, path
+
+
+@torch.no_grad()
+def commit_tree_path(cache, kv_win, path, t, n_emit, table, page_len: int):
+    """Write the accepted root path's K/V at its contiguous final
+    positions ``t .. t+n_emit-1`` (JAX :1366): the verify wrote node j at
+    window column ``t + j``; the node accepted at depth d belongs at ``t +
+    d`` and was roped there. Depths at or past ``n_emit`` write nothing.
+    A chain-shaped path rewrites identical bytes."""
+    dev = t.device
+    path = torch.as_tensor(np.asarray(path), device=dev).long()
+    n_emit = torch.as_tensor(np.asarray(n_emit), device=dev).long()
+    w_len = path.shape[1]
+    depth = torch.arange(w_len, device=dev)
+    # a dropped depth goes to position -1: before every page, never
+    # wrapping whatever the integer width
+    pos = torch.where(depth[None, :] < n_emit[:, None],
+                      t.long()[:, None] + depth[None, :],
+                      torch.full_like(path, -1))
+    kv0 = next(kv for kv in cache if kv is not None)
+    index = page_write_index(pos, table, page_len, kv0["k"].shape[0],
+                             split_halves="q4" in kv0)
+    sel = path[:, :, None, None]
+    for kv, kvw in zip(cache, kv_win):
+        if kvw is None:
+            continue
+        k, v = kvw
+        kc = torch.gather(k, 1, sel.expand(-1, -1, *k.shape[2:]))
+        vc = torch.gather(v, 1, sel.expand(-1, -1, *v.shape[2:]))
+        _cache_write_pages(kv, kc, vc, index)
+    return cache
 
 
 # --- per-slot sampling ---------------------------------------------------------

@@ -6,9 +6,10 @@ Replaces ``distkeras_tpu/ops/paged_attention.py``
 ``_kernel`` :131): K/V are read through the page table with no
 materialised logical view; grouped queries, ``W >= 1`` window-causal
 rows, a sliding window, sentinel table entries, and quantized pages:
-int8 pages and packed int4 pages with float32 per-token scale planes.
-The tree ``anc`` mask comes with the speculation slice (ROADMAP, kernel
-queue item K3-anc).
+int8 pages and packed int4 pages with float32 per-token scale planes,
+and the tree ancestor mask of tree speculation (``anc``, the Pallas
+``_kernel`` :177-195; K3-anc), each page variant with a launcher and a
+launch count of its own.
 
 Shapes: q ``[S, W, Hkv, G, D]`` float32; k/v pages ``[N, Hkv, page_len,
 D]`` float32, bfloat16 or int8, or int4 packed two positions per byte as
@@ -19,8 +20,13 @@ pool is told apart, as in JAX, by a scale plane twice as long as the
 payload's rows); ``t`` ``[S]`` int32 window start positions; ``table``
 ``[S, P]`` int32 page tables, an entry ``>= N`` is the unallocated
 sentinel. Window row ``j`` of slot ``s`` attends cache positions ``<=
-t[s] + j`` (and ``> t[s] + j - window`` with SWA). Returns ``[S, W,
-Hkv, G, D]`` float32. Quantized pages follow the Pallas order: the score
+t[s] + j`` (and ``> t[s] + j - window`` with SWA). With ``anc`` (``[S,
+W, W]`` bool) row ``i`` instead attends the committed prefix (``< t[s]``)
+and window column ``j``'s position ``t[s] + j`` iff ``anc[s, i, j]``;
+with SWA its own position is ``t[s] + depth``, ``depth`` its ancestor
+count minus one (a lower-triangular ``anc`` is the window-causal mask).
+The kernel takes at most 64 rows (``W * G``) per kv head. Returns ``[S,
+W, Hkv, G, D]`` float32. Quantized pages follow the Pallas order: the score
 is multiplied by ``k_scale`` after the D contraction, the probabilities
 by ``v_scale`` before the value contraction (the row sum takes them
 unscaled).
@@ -38,6 +44,18 @@ from distkeras_tpu_torch.ops.attention import NEG_INF
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernel is instantiated for
 KERNEL_HEAD_DIMS = (32, 64, 128)
+#: query rows (W * G) one block scores per kv head
+KERNEL_MAX_ROWS = 64
+
+
+def check_rows(w_len: int, g: int) -> None:
+    """Raise unless a ``W``-wide window of ``G`` grouped queries fits the
+    kernel's row budget (``W * G <= 64`` rows per kv head)."""
+    if w_len * g > KERNEL_MAX_ROWS:
+        raise ValueError(
+            f"the paged decode kernel takes at most {KERNEL_MAX_ROWS} rows "
+            f"per kv head (window W * query group G), got W={w_len} x "
+            f"G={g} = {w_len * g}")
 
 
 def _quant_mode(k_pages, k_scale) -> Optional[str]:
@@ -56,10 +74,6 @@ def _quant_mode(k_pages, k_scale) -> Optional[str]:
 
 
 def _check(q, k_pages, v_pages, t, table, k_scale, v_scale, anc):
-    if anc is not None:
-        raise NotImplementedError(
-            "the tree ancestor mask is not ported yet: ROADMAP, kernel "
-            "queue item K3-anc")
     if q.ndim != 5:
         raise ValueError(f"q must be [S, W, Hkv, G, D], got {tuple(q.shape)}")
     if q.dtype != torch.float32:
@@ -93,8 +107,14 @@ def _check(q, k_pages, v_pages, t, table, k_scale, v_scale, anc):
     if t.shape != (s,) or table.ndim != 2 or table.shape[0] != s:
         raise ValueError(f"t must be [{s}] and table [{s}, P], got "
                          f"{tuple(t.shape)} and {tuple(table.shape)}")
+    if anc is not None:
+        w = q.shape[1]
+        if anc.shape != (s, w, w) or anc.dtype != torch.bool:
+            raise ValueError(f"anc must be bool [{s}, {w}, {w}], got "
+                             f"{anc.dtype} {tuple(anc.shape)}")
     devs = {x.device for x in (q, k_pages, v_pages, t, table) + (
-        () if k_scale is None else (k_scale, v_scale))}
+        () if k_scale is None else (k_scale, v_scale)) + (
+        () if anc is None else (anc,))}
     if len(devs) != 1:
         raise ValueError(f"all operands must be on one device, got {devs}")
 
@@ -110,16 +130,16 @@ def paged_decode_attention(q, k_pages, v_pages, t, table, *,
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
             q, k_pages, v_pages, t, table, scale=scale, window=window,
-            k_scale=k_scale, v_scale=v_scale)
+            k_scale=k_scale, v_scale=v_scale, anc=anc)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda or cpu "
                          f"tensors, got {q.device}")
     return _launch(q, k_pages, v_pages, t, table, float(scale), window,
-                   k_scale, v_scale)
+                   k_scale, v_scale, anc)
 
 
 def _launch(q, k_pages, v_pages, t, table, scale, window, k_scale,
-            v_scale):
+            v_scale, anc):
     s, w, hkv, g, d = q.shape
     n = k_pages.shape[0]
     mode = _quant_mode(k_pages, k_scale)
@@ -127,13 +147,13 @@ def _launch(q, k_pages, v_pages, t, table, scale, window, k_scale,
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"paged kernel supports head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
-    if w * g > 64:
-        raise ValueError(f"paged kernel takes at most 64 rows per kv head "
-                         f"(W*G), got {w * g}")
+    check_rows(w, g)
     operands = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                 ("t", t), ("table", table)]
     if mode is not None:
         operands += [("k_scale", k_scale), ("v_scale", v_scale)]
+    if anc is not None:
+        operands.append(("anc", anc))
     for name, x in operands:
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -147,21 +167,21 @@ def _launch(q, k_pages, v_pages, t, table, scale, window, k_scale,
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     win = 0 if window is None else int(window)
+    name = {None: "paged_decode", "int8": "paged_decode_q8",
+            "int4": "paged_decode_q4"}[mode] + ("" if anc is None
+                                                else "_anc")
+    tree = () if anc is None else (anc.data_ptr(),)
+    lib = kernels.library(name)
+    fn = getattr(lib, "dkt_" + name)
     if mode is None:
-        name = "paged_decode"
-        lib = kernels.library(name)
-        err = lib.dkt_paged_decode(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            t.data_ptr(), table.data_ptr(), out.data_ptr(),
-            _DTYPES[k_pages.dtype], s, w, hkv, g, d, page_len,
-            table.shape[1], n, scale, win, stream)
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 t.data_ptr(), table.data_ptr(), *tree, out.data_ptr(),
+                 _DTYPES[k_pages.dtype], s, w, hkv, g, d, page_len,
+                 table.shape[1], n, scale, win, stream)
     else:
-        name = "paged_decode_q8" if mode == "int8" else "paged_decode_q4"
-        lib = kernels.library(name)
-        fn = getattr(lib, "dkt_" + name)
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  k_scale.data_ptr(), v_scale.data_ptr(), t.data_ptr(),
-                 table.data_ptr(), out.data_ptr(), s, w, hkv, g, d,
+                 table.data_ptr(), *tree, out.data_ptr(), s, w, hkv, g, d,
                  page_len, table.shape[1], n, scale, win, stream)
     kernels.check(lib, err, name)
     kernels.count_launch(name)
@@ -194,14 +214,39 @@ def gather_pages(pages, table, *, packed: bool = False):
     return pg.transpose(1, 2).reshape((s, h, p * pl) + pg.shape[4:])
 
 
+def window_valid_mask(t, w_len: int, length: int, window=None,
+                      anc=None):
+    """``[S, W, length]`` validity of cache positions for the window rows
+    (JAX ``_window_valid_mask``, ``models/decoding.py`` :769): ``pos <= t
+    + j`` for the window-causal chain; with ``anc`` the committed prefix
+    plus the ancestor columns, each row's own position ``t + depth``
+    (``depth`` = ancestor count - 1) for the SWA band."""
+    pos = torch.arange(length, device=t.device)
+    t = t.long()
+    if anc is None:
+        row_pos = t[:, None] + torch.arange(w_len, device=t.device)
+        valid = pos[None, None, :] <= row_pos[:, :, None]
+    else:
+        rel = pos[None, :] - t[:, None]                          # [S, L]
+        within = (rel >= 0) & (rel < w_len)
+        cols = rel.clamp(0, w_len - 1)[:, None, :].expand(-1, w_len, -1)
+        anc_g = torch.gather(anc, 2, cols)                       # [S, W, L]
+        valid = (rel < 0)[:, None, :] | (within[:, None, :] & anc_g)
+        row_pos = t[:, None] + anc.sum(dim=2) - 1
+    if window is not None:
+        valid = valid & (pos[None, None, :] > (row_pos - int(window))
+                         [:, :, None])
+    return valid
+
+
 def paged_decode_attention_reference(q, k_pages, v_pages, t, table, *,
                                      scale: float,
                                      window: Optional[int] = None,
-                                     k_scale=None, v_scale=None):
+                                     k_scale=None, v_scale=None, anc=None):
     """The plain PyTorch version: ``gather_pages`` (unpacking int4) plus
-    the masked softmax, with the kernel's masks (positions on sentinel
-    pages are masked like positions past the window row) and rounding
-    points (float pages: probabilities rounded to the page dtype before
+    the masked softmax, with the kernel's masks (``window_valid_mask``;
+    positions on sentinel pages are masked like positions past the
+    window row) and rounding points (float pages: probabilities rounded to the page dtype before
     the value product; quantized pages: scores times ``k_scale`` after
     the contraction, probabilities times ``v_scale`` before it)."""
     s, w, hkv, g, d = q.shape
@@ -215,12 +260,7 @@ def paged_decode_attention_reference(q, k_pages, v_pages, t, table, *,
     sc = torch.einsum("swhgd,shld->shgwl", q.float(), k.float()) * scale
     if mode is not None:
         sc = sc * gather_pages(k_scale, table)[:, :, None, None, :]
-    pos = torch.arange(length, device=q.device)
-    row_pos = t.long()[:, None] + torch.arange(w, device=q.device)
-    valid = pos[None, None, :] <= row_pos[:, :, None]          # [S, W, L]
-    if window is not None:
-        valid = valid & (pos[None, None, :] > (row_pos - int(window))
-                         [:, :, None])
+    valid = window_valid_mask(t, w, length, window, anc)        # [S, W, L]
     live = (table.long() < n).repeat_interleave(page_len, dim=1)  # [S, L]
     valid = valid & live[:, None, :]
     sc = sc.masked_fill(~valid[:, None, None], NEG_INF)

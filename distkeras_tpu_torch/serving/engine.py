@@ -12,12 +12,30 @@ prefills into a batch-1 staging cache one chunk per iteration
 ``_sample_first_fn`` :1806) and the filled pages are inserted into the
 pool; every iteration then runs ONE decode step over all slots
 (``_advance_decode`` :2737, ``_decode_fn`` :1297: an argmax-only
-variant for all-greedy batches, the per-slot sampler otherwise),
+variant for all-greedy batches, the per-slot sampler otherwise), or
+with a draft source one speculative verify over all slots (below),
 growing pages first (``_ensure_decode_pages`` :2107) and preempting the
 youngest lowest-priority stream when the pool runs dry
 (``_preempt_victim`` :1997, ``_preempt`` :2027); a preempted stream
 re-prefills its context on re-admission and continues
 token-identically. ``_finish`` :3027 returns a slot's pages.
+
+Speculative decoding (``draft=NgramDraft()`` or ``DraftModel(model)``):
+a speculating stream's draft proposes ``spec_k`` tokens (``_spec_step``
+:2814) and one verify window of ``spec_k + 1`` positions scores them
+(the paged kernel's window-causal rows); with ``spec_tree=True`` the
+draft proposes a token tree of up to ``1 + spec_k * spec_width`` nodes
+(``_spec_tree_step`` :2914), verified through the kernel's ancestor-mask
+variant, walked (``tree_walk``) and its accepted path committed
+(``commit_tree_path``). Pages are grown first for every position a slot
+may consume (``_ensure_decode_pages(lookahead)`` :2107). A per-request
+acceptance EMA turns speculation off for a stream the draft cannot
+predict (``_observe_acceptance`` :1706, ``spec_disable_below`` after
+``spec_warmup`` verifies), ``spec_reprobe`` lets it back in on a crc32
+coin (``_maybe_reprobe`` :1678), and ``_adapt_tree`` :1741 resizes each
+stream's tree. Greedy speculative streams equal plain decode's; a
+sampled stream draws once per emitted token from its own generator, so
+it equals the plain sampled stream.
 
 Greedy outputs are token-identical per request to the JAX package's
 ``generate()`` on the same weights (the CPU tests hold the port to
@@ -34,6 +52,7 @@ observability slice.
 from __future__ import annotations
 
 import itertools
+import zlib
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -44,22 +63,26 @@ from distkeras_tpu_torch.models.core import Model, Sequential
 from distkeras_tpu_torch.models.decoding import (_decode_block_of,
                                                  _sample_vec,
                                                  attn_compute_dtype,
+                                                 commit_tree_path,
                                                  decode_step_slots_paged,
                                                  fuse_qkv_params, prefill,
                                                  prefill_chunk_step,
-                                                 serving_params)
+                                                 serving_params, tree_walk,
+                                                 verify_step_slots_paged)
+from distkeras_tpu_torch.ops.paged_attention import check_rows
 from distkeras_tpu_torch.serving.kv_pool import PagedKVPool, PrefixCache
 from distkeras_tpu_torch.serving.metrics import ServingMetrics
 from distkeras_tpu_torch.serving.scheduler import (AdmissionRejected,
                                                    PriorityScheduler,
                                                    Request, RequestState)
+from distkeras_tpu_torch.serving.speculation import (DraftSource,
+                                                     tree_ancestors)
 
 #: options of the JAX engine that later slices port: name -> (value that
 #: means "off", ROADMAP item)
 _NOT_PORTED = {
     "overlap": (False, "overlapped dispatch (zero-bubble loop)"),
     "fuse_steps": (0, "fused multi-step decode"),
-    "draft": (None, "speculative decoding"),
     "weight_quant": (None, "quantized weights, kernel queue item K5"),
     "fused_sampling": (False, "fused sampling, kernel queue item K4"),
     "ep_mesh": (None, "expert-parallel MoE serving"),
@@ -84,9 +107,19 @@ class ServingEngine:
     down to a multiple of that many tokens. The engine runs on ``device``
     (default: the CUDA card; raises when there is none unless
     ``device="cpu"``), which must be the model's. ``on_logits(kind,
-    logits, slots)`` (optional) sees every prefill (``kind="prefill"``)
-    and decode (``"decode"``) logits tensor with the slots whose rows
-    are live."""
+    logits, slots)`` (optional) sees every prefill (``kind="prefill"``),
+    decode (``"decode"``) and verify (``"verify"``, ``[S, W, V]``)
+    logits tensor with the slots whose rows are live.
+
+    ``draft`` (a ``DraftSource``: ``NgramDraft()``, ``DraftModel(m)``)
+    turns on speculative decoding: ``spec_k`` drafts per slot and
+    iteration; ``spec_disable_below``/``spec_warmup`` the per-request
+    acceptance-EMA floor and the verifies before it applies;
+    ``spec_reprobe`` (tokens) lets a disabled stream re-probe;
+    ``spec_tree``/``spec_width`` verify token trees of up to ``1 +
+    spec_k * spec_width`` nodes. On the card a window of W positions
+    with G query heads per kv head needs ``W * G <= 64`` (the paged
+    kernel's rows per kv head)."""
 
     def __init__(self, model: Model, *, num_slots: int = 4,
                  max_len: int = 256, prefill_chunk: Optional[int] = None,
@@ -99,9 +132,12 @@ class ServingEngine:
                  overlap: bool = False, fuse_steps: int = 0, draft=None,
                  weight_quant: Optional[str] = None,
                  fused_sampling: bool = False, ep_mesh=None,
-                 host_kv_pages: int = 0):
+                 host_kv_pages: int = 0, spec_k: int = 4,
+                 spec_disable_below: float = 0.1, spec_warmup: int = 8,
+                 spec_reprobe: Optional[int] = None,
+                 spec_tree: bool = False, spec_width: int = 1):
         given = {"overlap": overlap, "fuse_steps": fuse_steps,
-                 "draft": draft, "weight_quant": weight_quant,
+                 "weight_quant": weight_quant,
                  "fused_sampling": fused_sampling, "ep_mesh": ep_mesh,
                  "host_kv_pages": host_kv_pages}
         for name, (off, item) in _NOT_PORTED.items():
@@ -166,6 +202,55 @@ class ServingEngine:
         #: max_len is the free-slot sentinel: the decode write misses
         #: every page and the slot's logits are discarded
         self._t = np.full(s, self.max_len, np.int32)
+        self._init_speculation(draft, spec_k, spec_disable_below,
+                               spec_warmup, spec_reprobe, spec_tree,
+                               spec_width)
+
+    def _init_speculation(self, draft, spec_k, spec_disable_below,
+                          spec_warmup, spec_reprobe, spec_tree,
+                          spec_width) -> None:
+        """The speculation knobs, validated as the JAX engine does
+        (:636-690), plus the paged kernel's row budget on the card."""
+        if draft is not None and not isinstance(draft, DraftSource):
+            raise TypeError(
+                f"draft must be a DraftSource (NgramDraft / DraftModel / "
+                f"custom), got {type(draft).__name__}")
+        self._draft = draft
+        self.spec_k = int(spec_k)
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if not 0.0 <= float(spec_disable_below) <= 1.0:
+            raise ValueError(f"spec_disable_below must be in [0, 1], got "
+                             f"{spec_disable_below}")
+        self.spec_disable_below = float(spec_disable_below)
+        self.spec_warmup = int(spec_warmup)
+        if spec_reprobe is not None:
+            spec_reprobe = int(spec_reprobe)
+            if spec_reprobe < 1:
+                raise ValueError(
+                    f"spec_reprobe must be >= 1, got {spec_reprobe}")
+        self.spec_reprobe = spec_reprobe
+        self.spec_tree = bool(spec_tree)
+        self.spec_width = int(spec_width)
+        if self.spec_width < 1:
+            raise ValueError(f"spec_width must be >= 1, got {spec_width}")
+        if self.spec_width > 1 and not self.spec_tree:
+            raise ValueError("spec_width > 1 needs spec_tree=True (the "
+                             "linear verify window has no branch columns)")
+        if self.spec_tree and draft is None:
+            raise ValueError("spec_tree=True needs a draft source "
+                             "(ServingEngine(draft=...))")
+        #: verify-window width: a tree window holds the full node budget
+        self.spec_window = (1 + self.spec_k * self.spec_width
+                            if self.spec_tree else self.spec_k + 1)
+        if draft is None:
+            return
+        if self.device.type == "cuda":
+            block = next(b for b in map(_decode_block_of, self.module.layers)
+                         if b is not None)
+            check_rows(self.spec_window,
+                       block.attn.num_heads // block.attn.kv_heads)
+        draft.bind(self)
 
     # --- request intake ---------------------------------------------------
 
@@ -173,10 +258,13 @@ class ServingEngine:
                temperature: float = 0.0, top_k: Optional[int] = None,
                top_p: Optional[float] = None,
                stop_token: Optional[int] = None, seed: int = 0,
-               priority: int = 1) -> int:
+               priority: int = 1,
+               speculate: Optional[bool] = None) -> int:
         """Enqueue one request; returns its id. ``temperature=0`` is
         greedy; ``None`` knobs are disabled. ``priority``: lower admits
-        first (0 interactive, 1 standard, 2 batch). Raises
+        first (0 interactive, 1 standard, 2 batch). ``speculate``: join
+        the draft-and-verify iterations (None: whenever the engine has a
+        draft; True on a draftless engine raises). Raises
         ``AdmissionRejected`` when the bounded queue is full."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
@@ -198,13 +286,19 @@ class ServingEngine:
                 f"request needs up to {worst} pages but the pool holds "
                 f"{self.pool.num_pages}; raise num_pages or lower "
                 "max_new_tokens")
+        if speculate and self._draft is None:
+            raise ValueError(
+                "speculate=True needs an engine built with a draft source "
+                "(ServingEngine(draft=NgramDraft()) or DraftModel(...))")
         req = Request(
             rid=next(self._rid), prompt=prompt,
             max_new_tokens=max_new_tokens, temperature=float(temperature),
             top_k=0 if top_k is None else int(top_k),
             top_p=1.0 if top_p is None else float(top_p),
             stop_token=-1 if stop_token is None else int(stop_token),
-            seed=int(seed), priority=int(priority))
+            seed=int(seed), priority=int(priority),
+            speculate=(self._draft is not None if speculate is None
+                       else bool(speculate)))
         if req.temperature > 0.0:
             req.rng = torch.Generator(device=self.device).manual_seed(
                 req.seed)
@@ -355,6 +449,8 @@ class ServingEngine:
         generator, so a sampled stream resumes where it left off."""
         slot = victim.slot
         self.scheduler.preempt(victim)
+        if self._draft is not None:
+            self._draft.end_slot(slot)   # draft KV freed with the slot
         self.pool.release_slot(slot)
         self._t[slot] = self.max_len
         if victim.donor_ref is not None:
@@ -365,43 +461,55 @@ class ServingEngine:
         victim.load_pages = []
         self.metrics.record_preemption(victim.rid)
 
-    def _ensure_decode_pages(self) -> None:
+    def _ensure_decode_pages(self, lookahead=None) -> None:
         """Before a decode step: every running slot whose next write
         crosses into an unallocated page gets one, from the free list,
         then by evicting cache-only prefix pages, then by preempting the
-        youngest lowest-priority stream. Oldest-highest-priority first."""
+        youngest lowest-priority stream. Oldest-highest-priority first.
+        ``lookahead`` (``[S]``, speculative iterations): the verify also
+        writes positions ``t+1 .. t+lookahead[slot]``, so every page under
+        that span is allocated too (an accepted draft's dropped write
+        would corrupt its K/V); the engine passes only what a slot can
+        consume."""
         pool = self.pool
         running = self.scheduler.running
         if not running:
             return
+        cap = pool.pages_per_slot * pool.page_len - 1
         slots = np.fromiter(running.keys(), np.int64, len(running))
-        lp = np.minimum(self._t[slots].astype(np.int64),
-                        pool.pages_per_slot * pool.page_len - 1) \
-            // pool.page_len
-        if not (pool.tables[slots, lp] >= pool.num_pages).any():
+        t = self._t[slots].astype(np.int64)
+        hi = t if lookahead is None else t + lookahead[slots]
+        hi = np.minimum(hi, cap)
+        lp = np.arange(pool.pages_per_slot)
+        span = (lp >= (np.minimum(t, cap) // pool.page_len)[:, None]) \
+            & (lp <= (hi // pool.page_len)[:, None])
+        if not (span & (pool.tables[slots] >= pool.num_pages)).any():
             return
         for req in sorted(running.values(),
                           key=lambda r: (r.priority, r.rid)):
             if req.state is not RequestState.DECODING:
                 continue                      # preempted this pass
             slot = req.slot
-            t = min(int(self._t[slot]),
-                    pool.pages_per_slot * pool.page_len - 1)
-            page = t // pool.page_len
-            while pool.tables[slot, page] >= pool.num_pages:
-                pid = pool.alloc_page()
-                if pid is not None:
-                    pool.assign(slot, page, pid)
-                    break
-                if self.prefix is not None and self.prefix.evict_one():
-                    continue
-                if not self._preempt_victim(beneficiary=req,
-                                            strict_priority=False):
-                    raise RuntimeError(
-                        "page pool exhausted: no free page, nothing "
-                        "evictable, no preemptable stream")
+            t = min(int(self._t[slot]), cap)
+            hi = t if lookahead is None else t + int(lookahead[slot])
+            hi = min(hi, cap)
+            for page in range(t // pool.page_len, hi // pool.page_len + 1):
                 if req.state is not RequestState.DECODING:
                     break                     # it preempted itself
+                while pool.tables[slot, page] >= pool.num_pages:
+                    pid = pool.alloc_page()
+                    if pid is not None:
+                        pool.assign(slot, page, pid)
+                        break
+                    if self.prefix is not None and self.prefix.evict_one():
+                        continue
+                    if not self._preempt_victim(beneficiary=req,
+                                                strict_priority=False):
+                        raise RuntimeError(
+                            "page pool exhausted: no free page, nothing "
+                            "evictable, no preemptable stream")
+                    if req.state is not RequestState.DECODING:
+                        break                 # it preempted itself
 
     def _fragmentation(self) -> float:
         """``1 - used / allocated`` positions over live slots."""
@@ -565,6 +673,7 @@ class ServingEngine:
         if resume:
             self.scheduler.to_decoding(req)
             self._set_slot(req, req.generated[-1], p_len)
+            self._begin_draft(req, toks)
             return
         if self.on_logits is not None:
             self.on_logits("prefill", logits, [0])
@@ -576,13 +685,31 @@ class ServingEngine:
             return
         self.scheduler.to_decoding(req)
         self._set_slot(req, token, p_len)
+        self._begin_draft(req, toks)
 
     def _advance_decode(self, finished: List[Request]):
-        self._ensure_decode_pages()
+        spec = self._draft is not None and bool(self._spec_slots())
+        if spec and self.spec_tree:
+            # the page lookahead depends on the proposed tree, so the
+            # proposal comes before page growth: the whole iteration
+            # lives in _spec_tree_step
+            self._spec_tree_step(finished)
+            return
+        look = None
+        if spec:
+            look = np.zeros(self.num_slots, np.int64)
+            for slot, r in self.scheduler.running.items():
+                if self._spec_eligible(r):
+                    look[slot] = min(self.spec_k, r.max_new_tokens
+                                     - len(r.generated) - 1)
+        self._ensure_decode_pages(look)
         running = self.scheduler.running
         if not running:
             return
         t0 = self.metrics.clock()
+        if spec and self._spec_slots():  # growth may have preempted them
+            self._spec_step(finished, t0)
+            return
         dev = self.device
         logits, _ = decode_step_slots_paged(
             self.module, self._params, self.pool.cache,
@@ -606,9 +733,269 @@ class ServingEngine:
         for req in done:
             self._finish(req, finished)
 
+    # --- speculation --------------------------------------------------------
+
+    #: EMA smoothing of the per-request acceptance rate
+    _SPEC_EMA_ALPHA = 0.25
+    #: re-probe coin odds: one in this many eligible positions fires (a
+    #: crc32 of (seed, rid, position), not an RNG draw)
+    _SPEC_REPROBE_ONE_IN = 8
+    #: adaptive tree controller: an EMA at or above this widens a stream
+    #: toward (spec_k, spec_width), below the demote line it narrows
+    _TREE_PROMOTE_EMA = 0.6
+    _TREE_DEMOTE_EMA = 0.25
+
+    def _spec_eligible(self, req: Request) -> bool:
+        """Could this request speculate (knob on, not disabled)?"""
+        return (self._draft is not None and req.speculate
+                and not req.spec_disabled)
+
+    def _spec_slots(self) -> List[int]:
+        """Decoding slots that speculate this iteration; a disabled
+        stream gets its re-probe chance here."""
+        out = []
+        for slot, r in self.scheduler.running.items():
+            if r.spec_disabled and self.spec_reprobe is not None:
+                self._maybe_reprobe(r)
+            if self._spec_eligible(r):
+                out.append(slot)
+        return out
+
+    def _spec_disable(self, req: Request) -> None:
+        """Kill switch: the stream decodes plainly from here on (sticky
+        unless ``spec_reprobe``)."""
+        req.spec_disabled = True
+        req.spec_disabled_at = len(req.generated)
+        self.metrics.record_spec_disabled()
+        if self._draft is not None and req.slot is not None:
+            self._draft.end_slot(req.slot)
+
+    def _maybe_reprobe(self, req: Request) -> None:
+        """Once a disabled stream has generated ``spec_reprobe`` more
+        tokens, each position flips a deterministic coin; on success it
+        rejoins with a fresh warm-up (the draft must re-adopt the slot,
+        or the stream is disabled again)."""
+        if self._draft is None or not req.speculate or req.slot is None:
+            return
+        since = len(req.generated) - (req.spec_disabled_at or 0)
+        if since < self.spec_reprobe:
+            return
+        coin = zlib.crc32(
+            f"{req.seed}:{req.rid}:{len(req.generated)}".encode())
+        if coin % self._SPEC_REPROBE_ONE_IN:
+            return
+        req.spec_disabled = False
+        req.spec_disabled_at = None
+        req.spec_ema = None
+        req.spec_checks = 0
+        if self._draft.begin_slot(req.slot, req.context_tokens):
+            self.metrics.record_spec_reenabled()
+        else:
+            self._spec_disable(req)
+
+    def _observe_acceptance(self, req: Request, rate: float) -> None:
+        """Update the acceptance EMA; below ``spec_disable_below`` after
+        ``spec_warmup`` verifies the stream goes back to plain decode."""
+        a = self._SPEC_EMA_ALPHA
+        req.spec_ema = (rate if req.spec_ema is None
+                        else (1.0 - a) * req.spec_ema + a * rate)
+        req.spec_checks += 1
+        if req.spec_checks >= self.spec_warmup \
+                and req.spec_ema < self.spec_disable_below:
+            self._spec_disable(req)
+
+    def _tree_shape(self, req: Request):
+        """The stream's (depth, width) for the next tree verify, depth
+        clamped to ``remaining - 1`` (the last emitted token is always the
+        free one); depth < 1 rides the window as a plain decode step."""
+        if req.tree_depth is None:
+            req.tree_depth = self.spec_k
+            req.tree_width = self.spec_width
+        remaining = req.max_new_tokens - len(req.generated)
+        return min(req.tree_depth, remaining - 1), req.tree_width
+
+    def _adapt_tree(self, req: Request) -> None:
+        """Resize a stream's tree from its EMA after the warm-up: hot
+        streams deepen, then widen; cold ones shed width, then depth."""
+        ema = req.spec_ema
+        if ema is None or req.spec_checks < self.spec_warmup:
+            return
+        if ema >= self._TREE_PROMOTE_EMA:
+            if req.tree_depth < self.spec_k:
+                req.tree_depth += 1
+            elif req.tree_width < self.spec_width:
+                req.tree_width += 1
+        elif ema < self._TREE_DEMOTE_EMA:
+            if req.tree_width > 1:
+                req.tree_width -= 1
+            elif req.tree_depth > 1:
+                req.tree_depth -= 1
+
+    def _begin_draft(self, req: Request, context) -> None:
+        """Hand the draft source the request's context as it joins
+        decode; a source that cannot serve the slot disables speculation
+        for this request only."""
+        if not self._spec_eligible(req):
+            return
+        if not self._draft.begin_slot(req.slot, context):
+            self._spec_disable(req)
+
+    def _walk(self, logits, toks, parents):
+        """``tree_walk`` over the verify logits: greedy for an all-greedy
+        batch, else each sampled slot draws from its own generator."""
+        running = self.scheduler.running
+        if all(r.temperature <= 0.0 for r in running.values()):
+            return tree_walk(logits, toks, parents)
+        n = self.num_slots
+        temp = np.zeros(n, np.float32)
+        top_k = np.zeros(n, np.int64)
+        top_p = np.ones(n, np.float32)
+        gens = [None] * n
+        for slot, r in running.items():
+            temp[slot], top_k[slot], top_p[slot] = (r.temperature, r.top_k,
+                                                    r.top_p)
+            gens[slot] = r.rng
+        dev = self.device
+        return tree_walk(logits, toks, parents,
+                         temperature=torch.from_numpy(temp).to(dev),
+                         top_k=torch.from_numpy(top_k).to(dev),
+                         top_p=torch.from_numpy(top_p).to(dev),
+                         generators=gens)
+
+    def _spec_step(self, finished: List[Request], t0: float) -> None:
+        """One linear draft-and-verify iteration over the decode batch:
+        the ``[S, k+1]`` window ``[tok, d_1 .. d_k]`` in one verify pass,
+        accepted as the longest prefix of drafts the target's own choices
+        match (the walk of a chain). Non-speculating slots get no drafts,
+        so for them the verify is a plain decode step."""
+        k = self.spec_k
+        running = self.scheduler.running
+        active = np.zeros(self.num_slots, bool)
+        for slot, r in running.items():
+            active[slot] = self._spec_eligible(r)
+        drafts = np.zeros((self.num_slots, k), np.int32)
+        self._draft.propose(dict(running), self._tok, self._t, drafts,
+                            active)
+        toks = np.concatenate([self._tok[:, None], drafts], axis=1) \
+            .astype(np.int64)
+        parents = np.full((self.num_slots, k + 1), -1, np.int64)
+        parents[active, 1:] = np.arange(k)
+        dev = self.device
+        logits, _ = verify_step_slots_paged(
+            self.module, self._params, self.pool.cache,
+            torch.from_numpy(toks).to(dev), torch.from_numpy(self._t).to(dev),
+            self.pool.device_tables(), self.page_len)
+        if self.on_logits is not None:
+            self.on_logits("verify", logits, list(running.keys()))
+        emitted, n_emit, _ = self._walk(logits, toks, parents)
+
+        def note(slot, req):
+            m = int(n_emit[slot]) - 1
+            self.metrics.record_spec_verify(k, m)
+            self._observe_acceptance(req, m / k)
+
+        self._consume_spec(emitted, n_emit, active, note, finished, t0)
+
+    def _spec_tree_step(self, finished: List[Request]) -> None:
+        """One tree draft-and-verify iteration: (1) each eligible stream's
+        tree from ``propose_tree`` under its adaptive shape and a node
+        budget capped by the slot's capacity; (2) pages for the proposed
+        node span (the verify writes window columns ``t .. t + n_nodes -
+        1``); (3) the tree-masked verify, the walk and the commit of the
+        accepted path; (4) the host consume, the EMA on the longest-chain
+        basis (``path_len / depth``) and ``_adapt_tree``. The decode
+        time recorded covers the proposal too, as the linear step's
+        does."""
+        t0 = self.metrics.clock()
+        w_len = self.spec_window
+        running = self.scheduler.running
+        s_n = self.num_slots
+        toks = np.zeros((s_n, w_len), np.int64)
+        toks[:, 0] = self._tok
+        parents = np.full((s_n, w_len), -1, np.int64)
+        active = np.zeros(s_n, bool)
+        depth_v = np.zeros(s_n, np.int32)
+        width_v = np.ones(s_n, np.int32)
+        budget_v = np.zeros(s_n, np.int32)
+        for slot, r in running.items():
+            if not self._spec_eligible(r):
+                continue
+            d, w = self._tree_shape(r)
+            if d < 1:
+                continue
+            active[slot] = True
+            depth_v[slot] = d
+            width_v[slot] = w
+            budget_v[slot] = min(d * w,
+                                 self.max_len - 1 - int(self._t[slot]))
+        if active.any():
+            self._draft.propose_tree(dict(running), self._tok, self._t,
+                                     toks, parents, active, depth_v,
+                                     width_v, budget_v)
+        depth, anc, n_nodes = tree_ancestors(parents)
+        self._ensure_decode_pages(
+            np.where(active, n_nodes - 1, 0).astype(np.int64))
+        running = self.scheduler.running
+        if not running:
+            return
+        dev = self.device
+        t_dev = torch.from_numpy(self._t).to(dev)
+        tables = self.pool.device_tables()
+        tree = {"depth": torch.from_numpy(depth).to(dev),
+                "anc": torch.from_numpy(anc).to(dev)}
+        logits, _, kv_win = verify_step_slots_paged(
+            self.module, self._params, self.pool.cache,
+            torch.from_numpy(toks).to(dev), t_dev, tables, self.page_len,
+            tree=tree)
+        if self.on_logits is not None:
+            self.on_logits("verify", logits, list(running.keys()))
+        emitted, n_emit, path = self._walk(logits, toks, parents)
+        commit_tree_path(self.pool.cache, kv_win, path, t_dev, n_emit,
+                         tables, self.page_len)
+
+        def note(slot, req):
+            m = int(n_emit[slot]) - 1           # accepted path length
+            self.metrics.record_spec_verify(int(n_nodes[slot]) - 1, m)
+            self.metrics.record_spec_tree(int(width_v[slot]), m,
+                                          int(depth_v[slot]))
+            self._observe_acceptance(req, m / max(1, int(depth_v[slot])))
+            self._adapt_tree(req)
+
+        self._consume_spec(emitted, n_emit, active, note, finished, t0)
+
+    def _consume_spec(self, emitted, n_emit, active, note,
+                      finished: List[Request], t0: float) -> None:
+        """Append ``emitted[slot, :n_emit[slot]]`` to each running request
+        up to its stop token or budget (mid-window), advance the slot
+        mirrors, run ``note(slot, req)`` for each speculating slot, then
+        finish the requests that are done."""
+        running = self.scheduler.running
+        n_emitted = 0
+        done = []
+        for slot, req in list(running.items()):
+            appended = 0
+            for token in emitted[slot, :int(n_emit[slot])]:
+                req.generated.append(int(token))
+                appended += 1
+                if req.done:
+                    break               # stop token / budget mid-window
+            n_emitted += appended
+            self._tok[slot] = req.generated[-1]
+            self._t[slot] += appended
+            if active[slot]:
+                note(slot, req)
+            if req.done:
+                done.append(req)
+        self.metrics.record_decode(len(running), self.metrics.clock() - t0,
+                                   n_emitted)
+        for req in done:
+            self._finish(req, finished)
+
     def _finish(self, req: Request, finished: List[Request]):
         slot = req.slot
         self.scheduler.release(req)
+        if self._draft is not None:
+            self._draft.end_slot(slot)
         self._t[slot] = self.max_len
         # pages return to the budget; registered prefix pages survive
         # under the prefix cache's own reference

@@ -4,8 +4,10 @@ the engine records.
 Mirrors the matching part of ``distkeras_tpu/serving/metrics.py``: per
 request TTFT (submit -> first token), TPOT and end-to-end latency; per
 iteration queue depth, slot occupancy and the decode time and tokens;
-prefill chunks, preemptions, prefix-cache lookups and the page-budget
-gauges. Histograms keep a bounded sample of their values (the first
+prefill chunks, preemptions, prefix-cache lookups, the page-budget
+gauges and the speculation counters (drafts proposed and accepted per
+verify, streams disabled and re-enabled, tree width and accepted path
+length). Histograms keep a bounded sample of their values (the first
 ``reservoir``), so memory stays bounded in a long-lived engine. The
 JAX package's metrics registry and exporters wait for the
 observability slice.
@@ -77,6 +79,16 @@ class ServingMetrics:
         #: decoding-slot count -> [tokens, seconds]
         self._decode_agg: Dict[int, List[float]] = {}
         self.phase_seconds: Dict[str, float] = {}
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_disabled_streams = 0
+        self.spec_reenabled_streams = 0
+        #: tree verifies: accepted path lengths and tree depths offered
+        self.spec_path_accepted = 0
+        self.spec_path_offered = 0
+        self._spec_rate = _Histogram(reservoir)
+        self._spec_tree_width = _Histogram(reservoir)
+        self._spec_path_len = _Histogram(reservoir)
         self._t_first_submit: Optional[float] = None
         self._t_last_finish: Optional[float] = None
 
@@ -144,6 +156,33 @@ class ServingMetrics:
         agg[0] += n if n_tokens is None else int(n_tokens)
         agg[1] += float(dt)
 
+    def record_spec_verify(self, proposed: int, accepted: int) -> None:
+        """One slot's outcome in one verify: ``proposed`` drafts offered,
+        ``accepted`` of them matched the target's own choices."""
+        proposed, accepted = int(proposed), int(accepted)
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        if proposed > 0:
+            self._spec_rate.observe(accepted / proposed)
+
+    def record_spec_disabled(self) -> None:
+        """The acceptance EMA kicked one stream back to plain decode."""
+        self.spec_disabled_streams += 1
+
+    def record_spec_reenabled(self) -> None:
+        """A demoted stream's re-probe won speculation back."""
+        self.spec_reenabled_streams += 1
+
+    def record_spec_tree(self, tree_width: int, accepted_path_len: int,
+                         depth: int = 0) -> None:
+        """One slot's outcome in one tree verify: its branch width, the
+        accepted root-path length (0 = only the bonus token) and the
+        tree's depth (its longest chain)."""
+        self._spec_tree_width.observe(float(tree_width))
+        self._spec_path_len.observe(float(accepted_path_len))
+        self.spec_path_accepted += int(accepted_path_len)
+        self.spec_path_offered += int(depth)
+
     def record_phase(self, name: str, seconds: float) -> None:
         self.phase_seconds[name] = self.phase_seconds.get(name, 0.0) \
             + float(seconds)
@@ -155,6 +194,14 @@ class ServingMetrics:
         if self._prefix_lookup_toks <= 0:
             return None
         return self.prefix_hit_tokens / self._prefix_lookup_toks
+
+    @property
+    def acceptance_rate(self) -> Optional[float]:
+        """Fraction of proposed drafts the target accepted (None before
+        any verify)."""
+        if self.spec_proposed <= 0:
+            return None
+        return self.spec_accepted / self.spec_proposed
 
     def decode_tokens_per_sec(self,
                               min_occupancy: int = 0) -> Optional[float]:
@@ -189,4 +236,19 @@ class ServingMetrics:
             "slot_occupancy": self._occ.mean_max(),
             "prefill_chunks": self.prefill_chunks,
             "phases": dict(self.phase_seconds),
+            "acceptance_rate": self.acceptance_rate,
+            "speculation": {
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "disabled_streams": self.spec_disabled_streams,
+                "reenabled_streams": self.spec_reenabled_streams,
+                "accept_rate": self._spec_rate.pcts(),
+                "tree_width": self._spec_tree_width.pcts(),
+                "accepted_path_len": self._spec_path_len.pcts(),
+                # the longest-chain basis of the acceptance EMA: accepted
+                # path length over tree depth (a tree's acceptance_rate
+                # counts every node offered); None before a tree verify
+                "path_acceptance_rate": (
+                    self.spec_path_accepted / self.spec_path_offered
+                    if self.spec_path_offered else None)},
         }

@@ -1,8 +1,9 @@
 """Request scheduling for the paged continuous-batching engine:
 admission, the per-request state machine, slot allocation, preemption.
 
-Mirrors ``distkeras_tpu/serving/scheduler.py`` (:55-364) for the paged
-engine's policy: priority classes (lower ``priority`` admits first,
+Mirrors ``distkeras_tpu/serving/scheduler.py`` (:55-364, the
+speculation fields of ``Request`` :117-130) for the paged engine's
+policy: priority classes (lower ``priority`` admits first,
 FCFS within a class, preempted requests at the front of their class),
 admission gated by the engine on the free-page budget, ONE prefill
 stream (the oldest admitted request advances one prompt chunk per
@@ -73,6 +74,18 @@ class Request:
     donor_ref: Optional[int] = None
     #: (rank, arrival) order inside a priority class (scheduler-owned)
     order: tuple = (1, 0)
+    # speculative decoding: whether the request joins draft-and-verify
+    # iterations, its acceptance EMA and the kill switch the engine
+    # throws for a stream the draft cannot predict; the adaptive tree
+    # shape (seeded from spec_k/spec_width at first use). All of them
+    # survive preemption.
+    speculate: bool = False
+    spec_disabled: bool = False
+    spec_ema: Optional[float] = None     # EMA of per-verify accept rate
+    spec_checks: int = 0                 # verify steps observed
+    spec_disabled_at: Optional[int] = None  # generated count at demotion
+    tree_depth: Optional[int] = None
+    tree_width: Optional[int] = None
 
     @property
     def stopped(self) -> bool:

@@ -22,7 +22,8 @@ from distkeras_tpu_torch.ops.flash_attention import (
 from distkeras_tpu_torch.parallel import SingleTrainer
 from distkeras_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference)
-from distkeras_tpu_torch.serving import ServingEngine
+from distkeras_tpu_torch.serving import (NgramDraft, ServingEngine,
+                                         tree_ancestors)
 
 pytestmark = pytest.mark.cuda
 
@@ -278,6 +279,112 @@ def test_engine_on_card_runs_the_quantized_paged_kernel(dev, cache_dtype):
     counts = kernels.launch_counts()
     name = "paged_decode_q8" if cache_dtype == "int8" else "paged_decode_q4"
     assert counts[name] > 0 and counts["paged_decode"] == 0, counts
+
+
+def _anc_pages(rs, variant, d, page_len, dev):
+    """K/V pages of one variant: float32 or bf16, or int8 / packed int4
+    with their scale planes (``{}`` for float pages)."""
+    out = []
+    for _ in range(2):
+        x = torch.from_numpy(rs.randn(N_PAGES, 2, page_len, d)
+                             .astype(np.float32)).to(dev)
+        if variant in (torch.float32, torch.bfloat16):
+            out.append((x.to(variant), None))
+            continue
+        payload, sc = pd._quantize_kv(x, variant)
+        out.append((pd.pack_int4(payload) if variant == 4 else payload, sc))
+    (kp, ks), (vp, vs) = out
+    return kp, vp, ({} if ks is None else dict(k_scale=ks, v_scale=vs))
+
+
+ANC_VARIANTS = [torch.float32, torch.bfloat16, 8, 4]
+ANC_NAMES = {torch.float32: "paged_decode_anc",
+             torch.bfloat16: "paged_decode_anc", 8: "paged_decode_q8_anc",
+             4: "paged_decode_q4_anc"}
+
+
+@pytest.mark.parametrize("variant", ANC_VARIANTS,
+                         ids=["f32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("g,w_len,window,d,page_len", [(1, 9, None, 64, 16),
+                                                       (4, 9, 6, 64, 16),
+                                                       (2, 5, None, 32, 8),
+                                                       (1, 16, 40, 128, 32)])
+def test_anc_kernel_matches_plain(dev, variant, g, w_len, window, d,
+                                  page_len):
+    """K3-anc, the tree ancestor mask, in its three page variants against
+    the plain version on random trees (slot 3 is free)."""
+    rs = np.random.RandomState(10)
+    kp, vp, sc = _anc_pages(rs, variant, d, page_len, dev)
+    q = torch.from_numpy(rs.randn(4, w_len, 2, g, d).astype(np.float32)) \
+        .to(dev)
+    parents = np.full((4, w_len), -1, np.int64)
+    for s in range(4):
+        for j in range(1, rs.randint(1, w_len + 1)):
+            parents[s, j] = rs.randint(0, j)
+    anc = torch.from_numpy(tree_ancestors(parents)[1]).to(dev)
+    t = torch.from_numpy(T * page_len // 8).to(dev)
+    table = torch.from_numpy(TABLE).to(dev)
+    name = ANC_NAMES[variant]
+    before = kernels.launch_counts()[name]
+    out = paged_decode_attention(q, kp, vp, t, table, scale=0.2,
+                                 window=window, anc=anc, **sc)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    ref = paged_decode_attention_reference(q, kp, vp, t, table, scale=0.2,
+                                           window=window, anc=anc, **sc)
+    tol = BF16_TOL if variant == torch.bfloat16 else F32_TOL
+    torch.testing.assert_close(out[:3], ref[:3], atol=tol, rtol=0)
+    assert torch.all(out[3] == 0)
+
+
+@pytest.mark.parametrize("variant", ANC_VARIANTS,
+                         ids=["f32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("window", [None, 5])
+def test_chain_anc_kernel_equals_window_causal_bitwise(dev, variant, window):
+    """A lower-triangular ``anc`` through the anc kernel gives the
+    window-causal kernel's output bit for bit."""
+    rs = np.random.RandomState(11)
+    kp, vp, sc = _anc_pages(rs, variant, 64, 16, dev)
+    q = torch.from_numpy(rs.randn(4, 9, 2, 1, 64).astype(np.float32)) \
+        .to(dev)
+    t = torch.from_numpy(T * 2).to(dev)
+    table = torch.from_numpy(TABLE).to(dev)
+    chain = torch.tril(torch.ones(9, 9, dtype=torch.bool, device=dev))
+    a = paged_decode_attention(q, kp, vp, t, table, window=window, **sc)
+    b = paged_decode_attention(q, kp, vp, t, table, window=window,
+                               anc=chain.expand(4, 9, 9).contiguous(), **sc)
+    assert torch.equal(a, b)
+
+
+def test_engine_on_card_tree_speculation_launches_anc(dev):
+    """Two layers, float32, ``spec_tree=True``: the tree verify goes
+    through the anc kernel and the streams equal the plain engine's."""
+    model = Model.build(zoo.transformer_lm(97, d_model=128, num_heads=4,
+                                           num_layers=2, num_kv_heads=2),
+                        (16,), seed=0, device=dev)
+    rs = np.random.RandomState(12)
+    motif = rs.randint(0, 97, 12)
+    prompts = [np.tile(motif, 6)[:n] for n in (50, 23)] + \
+        [rs.randint(0, 97, 30)]
+
+    def run(**kw):
+        eng = ServingEngine(model, num_slots=2, max_len=128,
+                            prefill_chunk=32, **kw)
+        rids = [eng.submit(p, 10) for p in prompts]
+        out = eng.run(max_steps=500)
+        return [out[r] for r in rids], eng
+
+    plain, _ = run()
+    kernels.reset_launch_counts()
+    spec, eng = run(draft=NgramDraft(), spec_k=4, spec_tree=True,
+                    spec_width=2)
+    counts = kernels.launch_counts()
+    assert counts["paged_decode_anc"] > 0, counts
+    for a, b in zip(plain, spec):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="64 rows per kv head"):
+        ServingEngine(model, num_slots=2, max_len=128, draft=NgramDraft(),
+                      spec_k=16, spec_tree=True, spec_width=4)
 
 
 #: backward gradients relative to the largest reference magnitude:

@@ -35,7 +35,8 @@ from distkeras_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference, split_plan)
 from distkeras_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_forward)
-from distkeras_tpu_torch.ops.paged_attention import paged_decode_attention
+from distkeras_tpu_torch.ops.paged_attention import (check_rows,
+                                                     paged_decode_attention)
 from distkeras_tpu_torch.serving import PagedKVPool
 
 #: float32 agreement of two summation orders over <= 64 keys of O(1)
@@ -196,8 +197,10 @@ def test_paged_decode_matches_pallas(g, w_len, window):
 
 
 def test_paged_decode_refuses_later_slices():
-    """The tree ancestor mask is a later slice; a packed int4 payload
-    whose scale plane is not twice its rows is a layout error."""
+    """A packed int4 payload whose scale plane is not twice its rows is a
+    layout error; the tree ancestor mask must be bool ``[S, W, W]``, and
+    a window of W rows of G queries must fit the kernel's 64 rows per kv
+    head."""
     rs = np.random.RandomState(3)
     kp, vp = (torch.from_numpy(x) for x in _pages(rs, 1, 8, 8))
     q = torch.zeros(4, 1, 1, 1, 8)
@@ -206,9 +209,15 @@ def test_paged_decode_refuses_later_slices():
         paged_decode_attention(q, kp.to(torch.int8), vp.to(torch.int8), t,
                                table, k_scale=kp[..., 0].repeat(1, 1, 3),
                                v_scale=vp[..., 0].repeat(1, 1, 3))
-    with pytest.raises(NotImplementedError, match="K3-anc"):
+    with pytest.raises(ValueError, match="anc must be bool"):
         paged_decode_attention(q, kp, vp, t, table,
-                               anc=torch.ones(4, 1, 1, dtype=torch.bool))
+                               anc=torch.ones(4, 2, 2, dtype=torch.bool))
+    with pytest.raises(ValueError, match="anc must be bool"):
+        paged_decode_attention(q, kp, vp, t, table,
+                               anc=torch.ones(4, 1, 1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="64 rows per kv head"):
+        check_rows(9, 8)
+    check_rows(9, 7)
 
 
 # --- K2: decode attention over the slab cache --------------------------------

@@ -125,6 +125,9 @@ def _port_files():
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = list(_port_files())
     assert len(files) > 10 and os.path.exists(files[-1])
+    rel = {os.path.relpath(f, REPO) for f in files}
+    assert os.path.join("distkeras_tpu_torch", "serving",
+                        "speculation.py") in rel
     bad = []
     for path in files:
         for mod in _imports(path):

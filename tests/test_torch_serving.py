@@ -2,7 +2,11 @@
 the oracle contract — greedy streams under continuous batching are
 token-identical per request to a standalone ``generate()`` on the same
 weights — under staggered arrivals, chunked prefill, a prefix-cache hit
-and a pool so tight that streams are preempted and resumed.
+and a pool so tight that streams are preempted and resumed; then the
+same contract under speculative decoding (n-gram and draft-model
+drafts, linear and tree verify, int8/int4 pages, preemption, a stop
+token inside a verify window), the sampled speculative stream against
+the plain one, and the acceptance EMA's kill switch and re-probe.
 
 Uses the session's memorized ``pattern_lm`` (huge argmax margins keep
 token identity robust to float reassociation across batch shapes); its
@@ -15,8 +19,10 @@ import torch
 from distkeras_tpu.models.decoding import generate
 
 from distkeras_tpu_torch.models import Model, from_jax_params, zoo
-from distkeras_tpu_torch.serving import (AdmissionRejected, RequestState,
-                                         ServingEngine)
+from distkeras_tpu_torch.serving import (AdmissionRejected, DraftModel,
+                                         DraftSource, NgramDraft,
+                                         RequestState, ServingEngine,
+                                         ServingMetrics)
 
 V = 29
 PATTERN = np.array([3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8])
@@ -219,3 +225,309 @@ def test_later_slices_raise_naming_the_roadmap(lms, kw):
     _, pm = lms
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(pm, device="cpu", **kw)
+
+
+# --- speculative decoding ------------------------------------------------------
+
+SPEC_PROMPTS = [np.tile(PATTERN, 2)[:10], np.tile(PATTERN, 2)[:14],
+                PATTERN[:6]]
+SPEC_BUDGETS = [12, 9, 14]
+
+
+def _spec_engine(pm, draft, **kw):
+    base = dict(num_slots=3, max_len=48, page_len=4, device="cpu",
+                spec_k=3)
+    base.update(kw)
+    if draft == "ngram":
+        draft = NgramDraft()
+    elif draft == "self":
+        draft = DraftModel(pm, page_len=4)
+    return ServingEngine(pm, draft=draft, **base)
+
+
+def _drain_counting(eng):
+    """Drain through ``step()``; returns ``({rid: tokens}, steps)``."""
+    out, steps = {}, 0
+    while eng.scheduler.pending:
+        for r in eng.step():
+            out[r.rid] = r.tokens
+        steps += 1
+        assert steps < 1000
+    return out, steps
+
+
+@pytest.mark.parametrize("draft,kw", [
+    ("ngram", {}),
+    ("ngram", {"spec_tree": True, "spec_width": 2}),
+    ("self", {}),
+    ("self", {"spec_tree": True, "spec_width": 2}),
+], ids=["ngram-linear", "ngram-tree", "self-draft-linear",
+        "self-draft-tree"])
+def test_speculative_engine_matches_generate(lms, draft, kw):
+    """n-gram drafts (linear and width-2 trees) and the self-draft (the
+    perfect-drafter limit): every greedy stream token-identical to JAX
+    ``generate()``, drafts accepted, fewer iterations than tokens."""
+    jm, pm = lms
+    eng = _spec_engine(pm, draft, **kw)
+    rids = [eng.submit(p, b) for p, b in zip(SPEC_PROMPTS, SPEC_BUDGETS)]
+    out, steps = _drain_counting(eng)
+    for rid, p, b in zip(rids, SPEC_PROMPTS, SPEC_BUDGETS):
+        np.testing.assert_array_equal(out[rid], _ref(jm, p, b))
+    s = eng.metrics.summary()
+    assert s["speculation"]["accepted"] > 0
+    assert steps < sum(SPEC_BUDGETS)
+    if draft == "self":
+        assert s["acceptance_rate"] > (0.4 if kw else 0.9)
+    if kw:
+        assert s["speculation"]["tree_width"]["p50"] >= 1
+        assert s["speculation"]["accepted_path_len"] is not None
+
+
+@pytest.mark.parametrize("cache_dtype", ["int8", "int4"])
+def test_tree_speculation_with_quantized_pages_matches_generate(
+        lms, cache_dtype):
+    """int8 and packed int4 pages under width-2 n-gram trees (verify
+    windows of 7 columns write byte rows two columns share in int4):
+    token-identical to JAX ``generate()`` at the same cache dtype."""
+    jm, pm = lms
+    eng = _spec_engine(pm, "ngram", cache_dtype=cache_dtype, spec_tree=True,
+                       spec_width=2, num_slots=2)
+    rids = [eng.submit(p, b) for p, b in zip(SPEC_PROMPTS[:2],
+                                              SPEC_BUDGETS[:2])]
+    out = eng.run(max_steps=500)
+    for rid, p, b in zip(rids, SPEC_PROMPTS[:2], SPEC_BUDGETS[:2]):
+        np.testing.assert_array_equal(
+            out[rid], _ref(jm, p, b, cache_dtype=cache_dtype))
+    assert eng.metrics.summary()["speculation"]["accepted"] > 0
+
+
+@pytest.mark.parametrize("kw", [{}, {"spec_tree": True, "spec_width": 2}],
+                         ids=["linear", "tree"])
+def test_speculation_in_a_tight_pool_preempts_and_matches(lms, kw):
+    """Two speculating streams outgrow an 8-page pool (the verify window
+    asks for lookahead pages): one is preempted, its draft slot ended,
+    and both stay token-identical to JAX ``generate()``."""
+    jm, pm = lms
+    eng = _spec_engine(pm, "self", num_slots=2, max_len=32, num_pages=8,
+                       prefix_cache=False, **kw)
+    r0 = eng.submit(PATTERN[:5], 16)
+    eng.step()
+    eng.step()
+    r1 = eng.submit(PATTERN[:6], 15)
+    out = eng.run(max_steps=2000)
+    assert eng.metrics.requests_preempted >= 1
+    np.testing.assert_array_equal(out[r0], _ref(jm, PATTERN[:5], 16))
+    np.testing.assert_array_equal(out[r1], _ref(jm, PATTERN[:6], 15))
+    assert eng.pool.free_pages == 8
+    assert not eng._draft._active and eng._draft.pool.free_pages == \
+        eng._draft.pool.num_pages
+
+
+def test_stop_token_mid_window(lms):
+    """A stop token accepted inside a verify window ends the stream
+    there: the tokens after it in the window are dropped."""
+    jm, pm = lms
+    ref = _ref(jm, SPEC_PROMPTS[0], 12)
+    gen = list(ref[10:])
+    # the first generated token (past the prefill's) not seen before it
+    first = next(i for i in range(2, 12) if gen[i] not in gen[:i])
+    stop = int(gen[first])
+    eng = _spec_engine(pm, "self")
+    rid = eng.submit(SPEC_PROMPTS[0], 12, stop_token=stop)
+    out = eng.run(max_steps=200)
+    np.testing.assert_array_equal(out[rid], ref[:10 + first + 1])
+    assert eng.metrics.summary()["speculation"]["accepted"] > 0
+
+
+@pytest.mark.parametrize("kw", [{}, {"spec_tree": True, "spec_width": 2}],
+                         ids=["linear", "tree"])
+def test_sampled_speculative_stream_equals_plain(lms, kw):
+    """A seeded sampled request draws once per emitted token from its own
+    generator: with speculation (linear or tree) its tokens are exactly
+    the plain engine's; a greedy neighbour stays exact."""
+    _, pm = lms
+
+    def run(draft, **extra):
+        eng = ServingEngine(pm, num_slots=2, max_len=48, device="cpu",
+                            draft=draft, **extra)
+        g = eng.submit(np.tile(PATTERN, 2)[:10], 10)
+        s = eng.submit(PATTERN[:5], 12, temperature=0.9, top_p=0.95,
+                       seed=7)
+        out = eng.run(max_steps=800)
+        return out[g], out[s], eng
+
+    g_plain, s_plain, _ = run(None)
+    g_spec, s_spec, eng = run(NgramDraft(), spec_k=3, **kw)
+    np.testing.assert_array_equal(g_plain, g_spec)
+    np.testing.assert_array_equal(s_plain, s_spec)
+    assert eng.metrics.summary()["speculation"]["accepted"] > 0
+
+
+class WrongDraft(DraftSource):
+    """Always proposes token 0, which PATTERN never holds."""
+
+    def propose(self, requests, tok, t, out, active):
+        out[:] = 0
+
+
+class HealingDraft(DraftSource):
+    """Wrong for its first ``bad`` proposals, then an n-gram draft."""
+
+    def __init__(self, bad):
+        self.bad = bad
+        self.calls = 0
+        self.ngram = NgramDraft()
+
+    def propose(self, requests, tok, t, out, active):
+        self.calls += 1
+        if self.calls <= self.bad:
+            out[:] = 0
+        else:
+            self.ngram.propose(requests, tok, t, out, active)
+
+
+def test_adversarial_draft_is_disabled_after_warmup(lms):
+    """A draft that is always wrong: after ``spec_warmup`` verifies the
+    stream's acceptance EMA is under the floor, speculation stops for it
+    and it still decodes exactly."""
+    jm, pm = lms
+    eng = _spec_engine(pm, WrongDraft(), spec_warmup=3)
+    rid = eng.submit(SPEC_PROMPTS[0], 12)
+    eng.step()
+    req = eng[rid]
+    checks = []
+    while not req.spec_disabled:
+        eng.step()
+        checks.append(req.spec_checks)
+    assert req.spec_checks == 3 and req.spec_ema == 0.0
+    proposed = eng.metrics.spec_proposed
+    out = eng.run(max_steps=100)
+    np.testing.assert_array_equal(out[rid], _ref(jm, SPEC_PROMPTS[0], 12))
+    s = eng.metrics.summary()["speculation"]
+    assert s["disabled_streams"] == 1 and s["accepted"] == 0
+    assert eng.metrics.spec_proposed == proposed    # no more proposals
+
+
+def test_spec_reprobe_reenables_a_healed_draft(lms):
+    """With ``spec_reprobe`` a disabled stream re-probes (a crc32 coin
+    per position) and wins speculation back once the draft predicts
+    again; the stream stays token-identical."""
+    jm, pm = lms
+    prompt = np.tile(PATTERN, 2)[:8]
+    eng = _spec_engine(pm, HealingDraft(bad=3), spec_warmup=3,
+                       spec_reprobe=2, max_len=64)
+    rid = eng.submit(prompt, 40)
+    out = eng.run(max_steps=400)
+    np.testing.assert_array_equal(out[rid], _ref(jm, prompt, 40))
+    s = eng.metrics.summary()["speculation"]
+    assert s["disabled_streams"] >= 1 and s["reenabled_streams"] >= 1
+    assert s["accepted"] > 0
+
+
+def test_speculation_knob_validation(lms):
+    _, pm = lms
+    bad = [dict(draft=NgramDraft(), spec_k=0),
+           dict(draft=NgramDraft(), spec_disable_below=1.5),
+           dict(draft=NgramDraft(), spec_reprobe=0),
+           dict(spec_tree=True),
+           dict(draft=NgramDraft(), spec_width=2),
+           dict(draft=NgramDraft(), spec_tree=True, spec_width=0)]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            ServingEngine(pm, device="cpu", **kw)
+    with pytest.raises(TypeError, match="DraftSource"):
+        ServingEngine(pm, device="cpu", draft=object())
+    eng = ServingEngine(pm, device="cpu")
+    with pytest.raises(ValueError, match="speculate=True"):
+        eng.submit(PATTERN[:4], 3, speculate=True)
+    spec = ServingEngine(pm, device="cpu", draft=NgramDraft(), spec_k=3,
+                         spec_tree=True, spec_width=2)
+    assert spec.spec_window == 7
+    rid = spec.submit(PATTERN[:4], 3, speculate=False)
+    assert not spec[rid].speculate
+    assert spec.submit(PATTERN[:4], 3) != rid
+    s = spec.metrics.summary()
+    assert s["acceptance_rate"] is None
+    assert s["speculation"]["proposed"] == 0
+
+
+def test_draft_model_heals_kv_after_side_branch_acceptance(lms):
+    """A tree verify can accept a token the draft's greedy chain did not
+    propose; the draft KV there then holds the wrong token's K/V. The
+    heal pass must rewrite the divergent positions with the committed
+    tokens before the next round: byte-identical to a fresh draft fed
+    those tokens step by step."""
+    _, pm = lms
+
+    class Stub:
+        num_slots, max_len, device = 1, 32, torch.device("cpu")
+
+    class Req:
+        pass
+
+    def begun(ctx):
+        d = DraftModel(pm, page_len=4)
+        d.bind(Stub())
+        assert d.begin_slot(0, ctx)
+        return d
+
+    prompt = PATTERN[:6]
+    f = int(PATTERN[6])
+    draft = begun(prompt)
+    req = Req()
+    req.prompt, req.generated = prompt, [f]
+    toks = np.zeros((1, 7), np.int64)
+    toks[0, 0] = f
+    parents = np.full((1, 7), -1, np.int64)
+    with torch.inference_mode():
+        draft.propose_tree({0: req}, np.array([f]), np.array([6], np.int32),
+                           toks, parents, np.array([True]),
+                           np.array([3], np.int32), np.array([2], np.int32),
+                           np.array([6], np.int32))
+        g1 = draft._written[0][1][1]         # the chain token at position 7
+        a, b = int((g1 + 3) % V), int((g1 + 5) % V)
+        req.generated = [f, a, b, 1]         # committed f, a, b; 1 pends
+        draft.propose({0: req}, np.array([1]), np.array([9], np.int32),
+                      np.zeros((1, 3), np.int32), np.array([True]))
+        oracle = begun(prompt)
+        tables = oracle.pool.device_tables()
+        for pos, tokv in ((6, f), (7, a), (8, b)):
+            oracle._step(torch.tensor([tokv]), torch.tensor([pos],
+                                                            dtype=torch.int32),
+                         tables, 1)
+    for kv_d, kv_o in zip(draft.pool.cache, oracle.pool.cache):
+        if kv_d is None:
+            continue
+        for key in ("k", "v"):
+            # slot 0 holds physical pages 0..7 in order: position 7 is
+            # page 1 row 3, position 8 page 2 row 0
+            assert torch.equal(kv_d[key][1, :, 3], kv_o[key][1, :, 3])
+            assert torch.equal(kv_d[key][2, :, 0], kv_o[key][2, :, 0])
+
+
+@pytest.mark.parametrize("kw", [{}, {"spec_tree": True, "spec_width": 2}],
+                         ids=["linear", "tree"])
+def test_decode_time_covers_the_draft_proposals(lms, kw):
+    """Decode tokens/s prices speculation whole: the decode time a
+    speculative iteration records includes its draft's proposal (a hand
+    clock that the draft advances by one second per proposal)."""
+    _, pm = lms
+    box = [0.0]
+
+    class SlowDraft(NgramDraft):
+        def propose(self, *a):
+            box[0] += 1.0
+            return super().propose(*a)
+
+        def propose_tree(self, *a):
+            box[0] += 1.0
+            return super().propose_tree(*a)
+
+    eng = _spec_engine(pm, SlowDraft(),
+                       metrics=ServingMetrics(clock=lambda: box[0]), **kw)
+    eng.submit(SPEC_PROMPTS[0], 12)
+    eng.run(max_steps=200)
+    proposals = box[0]
+    assert proposals >= 2
+    decode_s = sum(a[1] for a in eng.metrics._decode_agg.values())
+    assert decode_s == proposals
