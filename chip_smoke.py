@@ -65,8 +65,29 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     depth) in fewer iterations than tokens, and each run's kernel
     launches are counted around it.
 
+15. the quantized matmul (K5, int8 and packed int4) against its plain
+    version (``reference_matmul``) at the LM's matrices (wq, wo in its
+    ``[h, e, d]`` layout, w1, w2, the head) and a ragged 1000 x 1000,
+    M in (1, 4, 8, 72), bf16 activations, with graph-replay times,
+    bounds and ``torch.matmul`` against the bf16 weight as yardstick,
+    and a bitwise repeat;
+16. the fused sampling epilogue (K4) against its plain version at S 8
+    and 4, V 32768, mixed rows (greedy, top-k, top-p, both, k >= V,
+    ties at the k-th value): equal tokens, or a counted row at the
+    nucleus boundary;
+17. the engine with quantized weights on phase 5's workload (the same
+    fresh model): int8 with fused sampling, the same unfused (the
+    streams must match), int4 over int4 pages, an n-gram tree with
+    int8; K5 launches per decode step, K4 in the fused run, resident
+    weight bytes against the bf16 engine's, peak memory, TTFT and
+    decode tok/s; then decode-step logits on the card against the CPU
+    float32 path over the same quantized trees;
+18. ``generate(weights_dtype="int8")``: B4 x 1024-token prompts and 32
+    greedy tokens, prefill and decode ms per step, exact K5 and K2
+    launch counts.
+
 The line before the last is one JSON object with every kernel's
-numbers (eleven kernels); the last line is ``{"ok": true, "device":
+numbers (fourteen kernels); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -101,6 +122,15 @@ from distkeras_tpu_torch.ops.losses import \
 from distkeras_tpu_torch.ops.optimizers import adam
 from distkeras_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference)
+from distkeras_tpu_torch.ops.quant_matmul import (quant_matmul,
+                                                  quantize_weight,
+                                                  reference_matmul)
+from distkeras_tpu_torch.ops.sampling import boundary_tol, gumbel_noise
+from distkeras_tpu_torch.ops.sampling import launch_kernel as k4_launch
+from distkeras_tpu_torch.ops.sampling import (nucleus_margin,
+                                              sample_epilogue,
+                                              sample_epilogue_reference)
+from distkeras_tpu_torch.ops.sampling import prepare as k4_prepare
 from distkeras_tpu_torch.parallel import (SingleTrainer, TrainCarry,
                                           make_train_step, value_and_grad)
 from distkeras_tpu_torch.serving import (DraftModel, NgramDraft,
@@ -1351,6 +1381,367 @@ def spec_phase(model, card, tie_rel):
     return launches
 
 
+# --- phase 15: the quantized matmul (K5) ------------------------------------
+
+#: float32 products and sums on both sides (bf16 activations are exact
+#: in float32); only the summation order differs, over up to 4096 terms
+QMM_TOL = 1e-4
+QMM_M = (4, 1, 8, 72)           # the first: the engine's 4 decode slots
+#: the 218M LM's matrices (name, shape, scale reduce axes); the first is
+#: the row the kernels line reports
+QMM_SHAPES = (("w1 1024->4096", (1024, 4096), None),
+              ("wq 1024->16x64", (1024, 16, 64), (0,)),
+              ("wo 16x64->1024", (16, 64, 1024), (0, 1)),
+              ("w2 4096->1024", (4096, 1024), None),
+              ("head 1024->32768", (1024, 32768), None),
+              ("ragged 1000->1000", (1000, 1000), None))
+
+
+def qmm_phase(dev, bits):
+    """K5 (``bits`` 8 or 4) against ``reference_matmul`` at the LM's
+    matrices and a ragged one, M in (1, 4, 8, 72), bf16 activations
+    (what the engine's decode step gives it): device times from
+    CUDA-graph replays; the library yardstick is ``torch.matmul``
+    against the bf16 weight the quantization replaces."""
+    rows = []
+    name = f"quant_matmul_q{bits}"
+    rs = np.random.RandomState(SEED + 9)
+    for label, shape, reduce_axes in QMM_SHAPES:
+        w = torch.from_numpy((rs.randn(*shape) * 0.02).astype(np.float32))
+        wq = {k: v.to(dev) for k, v in
+              quantize_weight(w, bits, reduce_axes).items()}
+        k = int(np.prod(shape[:len(reduce_axes or (0,))]))
+        n = w.numel() // k
+        w_bf16 = w.reshape(k, n).to(dev, torch.bfloat16)
+        for m in QMM_M:
+            x = torch.from_numpy(rs.randn(m, k).astype(np.float32)).to(
+                dev, torch.bfloat16)
+            before = kernels.launch_counts()[name]
+            out = quant_matmul(x, wq)
+            torch.cuda.synchronize()
+            if kernels.launch_counts()[name] != before + 1:
+                raise AssertionError(f"{label} did not launch {name}")
+            ref = reference_matmul(x, wq)
+            err = (out - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            ms = graph_ms(lambda: quant_matmul(x, wq))
+            plain_ms = graph_ms(lambda: reference_matmul(x, wq), iters=10)
+            lib_ms = graph_ms(lambda: torch.matmul(x, w_bf16))
+            wbytes = k * n // (2 if bits == 4 else 1)
+            nbytes = wbytes + 4 * n + 2 * m * k + 4 * m * n
+            bms, by = bound_ms(2.0 * m * k * n, nbytes, PEAK_BF16_FLOPS)
+            case = f"{label} M{m}"
+            print(f"{name} {case}: max_abs_err {err:.3e}, rel {rel:.2e} "
+                  f"(tol {QMM_TOL}); kernel {ms:.4f} ms (graph replay), "
+                  f"plain {plain_ms:.4f} ms, torch.matmul bf16 weight "
+                  f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+            if not rel <= QMM_TOL:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version on {case}")
+            rows.append(dict(name=case, err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bms, bound_by=by))
+    x = torch.from_numpy(rs.randn(72, k).astype(np.float32)).to(dev)
+    if not torch.equal(quant_matmul(x, wq), quant_matmul(x, wq)):
+        raise AssertionError(f"{name} is not bitwise repeatable")
+    return rows
+
+
+# --- phase 16: the fused sampling epilogue (K4) -----------------------------
+
+#: the rows' knobs: greedy, top-k + top-p, top-p only, top-k only, k = 1,
+#: k >= V, both cuts, top-k at a forced tie
+K4_TEMP = (0.0, 0.7, 1.0, 1.3, 0.9, 1.1, 0.8, 1.0)
+K4_TOPK = (0, 40, 0, 3, 1, 1 << 20, 7, 5)
+K4_TOPP = (1.0, 0.9, 0.5, 1.0, 0.8, 1.0, 0.3, 1.0)
+
+
+def k4_inputs(rs, s, v, dev):
+    """``s`` rows of logits with mixed knobs (the last row's top 20
+    logits tie) and their Gumbel field from per-row generators."""
+    logits = torch.from_numpy((rs.randn(s, v) * 3).astype(np.float32))
+    top = logits[s - 1].topk(20).indices
+    logits[s - 1, top] = logits[s - 1].max()
+    idx = list(range(s - 1)) + [len(K4_TEMP) - 1]
+    temp = torch.tensor([K4_TEMP[i] for i in idx])
+    gens = [None if t <= 0 else torch.Generator(device=dev).manual_seed(i)
+            for i, t in enumerate(temp.tolist())]
+    args = [a.to(dev) for a in (
+        logits, temp, torch.tensor([K4_TOPK[i] for i in idx]),
+        torch.tensor([K4_TOPP[i] for i in idx]))]
+    return args + [gumbel_noise(gens, v, dev)]
+
+
+def k4_partings(out, ref, args):
+    """Rows where K4 and its plain version part; each must be a
+    nucleus-boundary row. Returns the margins of the parted rows."""
+    margins = nucleus_margin(*args[:4])
+    tol = boundary_tol(args[0].shape[-1])
+    parted = [margins[r].item()
+              for r in torch.nonzero(out != ref).flatten().tolist()]
+    if any(not mg <= tol for mg in parted):
+        raise AssertionError(f"sample_epilogue parts from its plain version "
+                             f"away from the nucleus boundary: margins "
+                             f"{parted}, boundary {tol:.2e}")
+    return parted
+
+
+def k4_phase(dev):
+    """K4 against its plain version at S in (4, 8), V = 32768, mixed
+    rows, 8 draws each: equal tokens, except rows at the nucleus
+    boundary, which are counted. Kernel time from graph replays (the
+    sort outside it); the plain version and the whole fused sampler
+    (scale, sort, kernel) eager."""
+    rows = []
+    rs = np.random.RandomState(SEED + 10)
+    v = LM_CFG["vocab"]
+    for s in (8, 4):
+        parted, n_rows = [], 0
+        for _ in range(8):
+            args = k4_inputs(rs, s, v, dev)
+            before = kernels.launch_counts()["sample_epilogue"]
+            out = sample_epilogue(*args)
+            torch.cuda.synchronize()
+            if kernels.launch_counts()["sample_epilogue"] != before + 1:
+                raise AssertionError("sample_epilogue did not launch")
+            parted += k4_partings(out, sample_epilogue_reference(*args),
+                                  args)
+            n_rows += s
+        lf, srt = k4_prepare(args[0], args[1])
+        ms = graph_ms(lambda: k4_launch(lf, srt, *args[1:]))
+        fused_ms = time_ms(lambda: sample_epilogue(*args), iters=20)
+        plain_ms = time_ms(lambda: sample_epilogue_reference(*args),
+                           iters=5)
+        bms, by = bound_ms(0.0, 3 * s * v * 4 + s * 16, PEAK_F32_FLOPS)
+        margins = ", ".join(f"{mg:.1e}" for mg in parted) or "none"
+        print(f"sample_epilogue S{s} V{v}: {len(parted)} of {n_rows} rows "
+              f"parted at the nucleus boundary (margins {margins}; "
+              f"boundary {boundary_tol(v):.1e}), all others equal; kernel "
+              f"{ms:.4f} ms (graph replay); fused sampler eager "
+              f"{fused_ms:.4f} ms; plain eager {plain_ms:.4f} ms; bound "
+              f"{bms:.4f} ms ({by})", flush=True)
+        # tokens are compared, not values: 0 off the boundary rows
+        rows.append(dict(name=f"S{s} V{v}", err=0.0, ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                         bound_by=by))
+    return rows
+
+
+# --- phase 17: the quantized engine end to end ------------------------------
+
+WQ_KERNEL = {"int8": "quant_matmul_q8", "int4": "quant_matmul_q4"}
+
+
+class _Calls:
+    """Count the calls of one method of a class while installed."""
+
+    def __init__(self, cls, name):
+        self.cls, self.name, self.n = cls, name, 0
+        self.orig = getattr(cls, name)
+
+    def __enter__(self):
+        orig = self.orig
+
+        def counted(obj, *args, **kw):
+            self.n += 1
+            return orig(obj, *args, **kw)
+
+        setattr(self.cls, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+
+class _K4Watch:
+    """While installed, every fused draw of the engine is also drawn by
+    the plain version on the same inputs: the rows where they part are
+    kept with their nucleus margins (each must be a boundary row)."""
+
+    def __init__(self):
+        self.mod = sys.modules["distkeras_tpu_torch.ops.sampling"]
+        self.orig = self.mod.sample_epilogue
+        self.parted = []
+
+    def __enter__(self):
+        def watched(*args):
+            out = self.orig(*args)
+            self.parted += k4_partings(out, sample_epilogue_reference(*args),
+                                       args)
+            return out
+
+        self.mod.sample_epilogue = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sample_epilogue = self.orig
+
+
+def wq_logits_vs_cpu(model, qtree, prompt):
+    """One decode step's logits on the card (bf16 compute over the
+    engine's quantized tree, K5 in the step) against the plain path on
+    the CPU in float32 over the same quantized bytes and scales, from a
+    copy of the card's cache after the same prefill."""
+    f32 = build_lm("cpu", dtype="float32")
+    cpu_tree = [{k: _to_cpu(v) for k, v in p.items()} for p in qtree]
+    p_len = len(prompt)
+    tokens = torch.as_tensor(prompt[None], dtype=torch.long)
+    with torch.inference_mode():
+        cache = init_cache(model.module, 1, p_len + 1, torch.bfloat16,
+                           model.device)
+        logits, cache = prefill(model.module, qtree, cache,
+                                tokens.to(model.device))
+        tok = torch.argmax(logits, dim=-1)
+        cpu_cache = [None if kv is None else {
+            k: a.float().cpu() for k, a in kv.items()} for kv in cache]
+        card, _ = decode_step(model.module, qtree, cache, tok, p_len)
+        ref, _ = decode_step(f32.module, cpu_tree, cpu_cache, tok.cpu(),
+                             p_len)
+    scale = ref.abs().max().item()
+    return (card.float().cpu() - ref).abs().max().item() / scale
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def wq_phase(model, card, bf16_summary):
+    """The engine with quantized weights on phase 5's workload: int8 with
+    fused sampling (and the same run unfused: the sampled stream must
+    match, or part at a counted nucleus-boundary row), int4 over int4
+    pages, and an n-gram tree run with int8; launch counts per run,
+    resident weight bytes and peak memory, and decode-step logits
+    against the CPU float32 path over the same quantized trees."""
+    vocab = model.module.layers[0].vocab_size
+    per_step = 6 * LM_CFG["num_layers"] + 1      # q, k, v, o, w1, w2; head
+    runs = [("int8 fused sampling", "serving_wq_int8", "int8", None,
+             dict(fused_sampling=True), None),
+            ("int8 unfused", None, "int8", None, {}, None),
+            ("int4 over int4 pages", "serving_wq_int4", "int4", "int4", {},
+             None),
+            ("int8 n-gram tree", "serving_wq_int8_spec_tree", "int8", None,
+             dict(draft=NgramDraft(), spec_k=SPEC_K, spec_tree=True,
+                  spec_width=SPEC_WIDTH), 2)]
+    bf16_bytes = ServingEngine(model, num_slots=1, max_len=64,
+                               device=model.device).param_bytes()
+    launches, streams, trees = {}, {}, {}
+    for label, path, wq, cache_dtype, kw, n_motif in runs:
+        requests = workload(vocab) if n_motif is None \
+            else motif_workload(vocab, n_motif)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        with _Calls(ServingEngine, "_advance_decode") as steps, \
+                _K4Watch() as watch:
+            eng, reqs, out, bad, _ = serve(model, model.device,
+                                           cache_dtype=cache_dtype,
+                                           requests=requests,
+                                           weight_quant=wq, **kw)
+            torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        check_finished(reqs, out, bad)
+        s = eng.metrics.summary()
+        key = WQ_KERNEL[wq]
+        other = WQ_KERNEL["int4" if wq == "int8" else "int8"]
+        if c[key] < per_step * steps.n or c[other] != 0:
+            raise AssertionError(f"serving {label}: {c[key]} {key} launches "
+                                 f"for {steps.n} decode steps, {other} "
+                                 f"{c[other]}")
+        if kw.get("fused_sampling") and c["sample_epilogue"] < 1:
+            raise AssertionError(f"serving {label} never launched "
+                                 "sample_epilogue")
+        if not kw.get("fused_sampling") and c["sample_epilogue"]:
+            raise AssertionError(f"serving {label} launched sample_epilogue")
+        print(f"serving weight_quant {label} on {card}: {len(reqs)} "
+              f"requests, {steps.n} decode steps; launches {key} {c[key]}, "
+              f"sample_epilogue {c['sample_epilogue']}, flash_fwd "
+              f"{c['flash_fwd']}, paged {c['paged_decode']}/"
+              f"{c['paged_decode_q4']}/{c['paged_decode_anc']}; resident "
+              f"weights {eng.param_bytes()} bytes (bf16 engine "
+              f"{bf16_bytes}); peak allocated during the run "
+              f"{peak / 2**30:.3f} GiB above what was allocated before it; "
+              f"TTFT p50 "
+              f"{s['ttft_s']['p50'] * 1e3:.1f} ms p99 "
+              f"{s['ttft_s']['p99'] * 1e3:.1f} ms; decode "
+              f"{s['decode_tokens_per_sec']:.1f} tok/s (phase 5 bf16 "
+              f"engine {bf16_summary['decode_tokens_per_sec']:.1f}); "
+              f"fused draws parted at the nucleus boundary "
+              f"{len(watch.parted)}", flush=True)
+        if path is not None:
+            launches[path] = c
+        if kw.get("fused_sampling"):
+            fused_parted = len(watch.parted)
+        streams[label] = [out[rid] for rid, _ in reqs]
+        trees.setdefault(wq, eng._params)
+        del eng
+    fused, plain = streams["int8 fused sampling"], streams["int8 unfused"]
+    for i, ((a, b), (_, kw)) in enumerate(zip(zip(fused, plain),
+                                              workload(vocab))):
+        if np.array_equal(a, b):
+            continue
+        if not (kw.get("temperature") and fused_parted):
+            raise AssertionError(
+                f"request {i}: the fused and unfused streams part, and no "
+                "fused draw parted at a nucleus-boundary row")
+        print(f"weight_quant int8: sampled request {i} parts from the "
+              f"unfused stream after a counted nucleus-boundary draw",
+              flush=True)
+    prompt = workload(vocab)[0][0][:256]
+    rels = {wq: wq_logits_vs_cpu(model, tree, prompt)
+            for wq, tree in trees.items()}
+    print(f"weight_quant decode-step logits vs CPU float32 over the same "
+          f"quantized trees: int8 rel err {rels['int8']:.3e}, int4 "
+          f"{rels['int4']:.3e} (tol {E2E_BF16_REL_TOL})", flush=True)
+    if not all(r <= E2E_BF16_REL_TOL for r in rels.values()):
+        raise AssertionError("quantized decode-step logits disagree with "
+                             "the CPU plain path")
+    return launches
+
+
+# --- phase 18: generate() with int8 weights ---------------------------------
+
+
+def generate_wq_phase(model, card, prompts):
+    """``generate(weights_dtype="int8")``: B4 x 1024-token prompts and 32
+    greedy tokens; prefill from a 1-token call; exact K5 and K2 launch
+    counts."""
+    steps = NEW_TOKENS - 1
+    layers = LM_CFG["num_layers"]
+    model.generate(prompts[:, :64], 4, weights_dtype="int8")      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.generate(prompts, 1, weights_dtype="int8")
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.generate(prompts, NEW_TOKENS, weights_dtype="int8")
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    c = kernels.launch_counts()
+    want = {"quant_matmul_q8": steps * (6 * layers + 1) + 1,
+            "decode_attention": steps * layers, "flash_fwd": layers}
+    if any(c[k] != n for k, n in want.items()):
+        raise AssertionError(f"generate(weights_dtype='int8') launched {c}; "
+                             f"expected {want}")
+    if out.shape != (GEN_BATCH, GEN_PROMPT + NEW_TOKENS) \
+            or not np.array_equal(out[:, :GEN_PROMPT], prompts) \
+            or not ((out >= 0) & (out < LM_CFG["vocab"])).all():
+        raise AssertionError("generate(weights_dtype='int8') returned a "
+                             "malformed token array")
+    decode_s = t_all - t_prefill
+    print(f"generate int8 weights on {card}: B{GEN_BATCH} prompt "
+          f"{GEN_PROMPT} + {NEW_TOKENS} greedy tokens: prefill (1-token "
+          f"call) {t_prefill * 1e3:.1f} ms; decode "
+          f"{decode_s * 1e3 / steps:.2f} ms/step, "
+          f"{GEN_BATCH * steps / decode_s:.1f} tok/s; launches "
+          f"{ {k: c[k] for k in want} }", flush=True)
+    return c["quant_matmul_q8"]
+
+
 #: relative (to the largest |logit|) agreement with the CPU in float32:
 #: bf16 weights and activations through 12 blocks; float32 on the card
 #: differs from the CPU only in summation order
@@ -1383,12 +1774,15 @@ def main() -> int:
           f"{model.num_params() / 1e6:.1f}M parameters", flush=True)
     warm_up(model, dev)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     eng, reqs, out, bad, _ = serve(model, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
     s = check_serving(eng, reqs, out, bad)
     for name in SERVING_KERNELS:
         if launches[name] < 1:
@@ -1400,7 +1794,11 @@ def main() -> int:
     print(f"serving on {card}: TTFT p50 {s['ttft_s']['p50'] * 1e3:.1f} ms "
           f"p99 {s['ttft_s']['p99'] * 1e3:.1f} ms; decode "
           f"{s['decode_tokens_per_sec']:.1f} tok/s; end to end "
-          f"{s['tokens_per_sec']:.1f} tok/s", flush=True)
+          f"{s['tokens_per_sec']:.1f} tok/s; resident weights "
+          f"{eng.param_bytes()} bytes; peak allocated during the run "
+          f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
+          f"allocated before it", flush=True)
+    serve_summary = s
 
     profile_serving(model, dev)
     rel_bf16, rel_f32, scale = logits_vs_cpu(model, reqs[0][1])
@@ -1474,6 +1872,11 @@ def main() -> int:
     tie_rel = TIE_ERR_FACTOR * max(rel_bf16, rel["bf16"])
     spec_launches = spec_phase(gen_model, card, tie_rel)
 
+    qmm_rows = {bits: qmm_phase(dev, bits) for bits in (8, 4)}
+    k4_rows = k4_phase(dev)
+    wq_launches = wq_phase(gen_model, card, serve_summary)
+    gen_wq_launches = generate_wq_phase(gen_model, card, gen_prompts)
+
     by_path = {name: {} for name in kernels.SOURCES}
     for name in SERVING_KERNELS:
         by_path[name]["serving"] = launches[name]
@@ -1489,6 +1892,12 @@ def main() -> int:
         for name in SPEC_KERNELS:
             if c[name]:
                 by_path[name][path] = c[name]
+    for path, c in wq_launches.items():
+        for name in ("quant_matmul_q8", "quant_matmul_q4",
+                     "sample_epilogue"):
+            if c[name]:
+                by_path[name][path] = c[name]
+    by_path["quant_matmul_q8"]["generate_wq_int8"] = gen_wq_launches
 
     def entry(name, source, replaces, rows, path):
         main_row = rows[0]
@@ -1539,6 +1948,15 @@ def main() -> int:
               "distkeras_tpu_torch/csrc/paged_decode.cu",
               "distkeras_tpu/ops/paged_attention.py:177", anc_rows[4],
               "serving_spec_tree_int4"),
+        entry("quant_matmul_q8", "distkeras_tpu_torch/csrc/quant_matmul.cu",
+              "distkeras_tpu/ops/quant_matmul.py:282", qmm_rows[8],
+              "serving_wq_int8"),
+        entry("quant_matmul_q4", "distkeras_tpu_torch/csrc/quant_matmul.cu",
+              "distkeras_tpu/ops/quant_matmul.py:282", qmm_rows[4],
+              "serving_wq_int4"),
+        entry("sample_epilogue", "distkeras_tpu_torch/csrc/sampling.cu",
+              "distkeras_tpu/ops/sampling.py:180", k4_rows,
+              "serving_wq_int8"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,10 @@ of its own with a plain C interface, loaded with ``ctypes``; a source may
 hold several kernels, each with its own exported launcher and launch
 count (``flash_bwd.cu`` holds dq and dk/dv, ``decode_attention.cu`` the
 float and int8 slab decode, ``paged_decode.cu`` the float, int8 and
-int4 paged decode, each with and without the tree ancestor mask). The first call of ``library`` (or an explicit
+int4 paged decode, each with and without the tree ancestor mask,
+``quant_matmul.cu`` the int8 and packed-int4 quantized matmul,
+``sampling.cu`` the fused sampling epilogue). The first call of
+``library`` (or an explicit
 ``build``) compiles every source whose library is missing, one
 ``nvcc`` process per source, all started together. A library's file
 name carries a hash of its source and flags, so an edited source
@@ -37,7 +40,10 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
            "paged_decode_q4": "paged_decode.cu",
            "paged_decode_anc": "paged_decode.cu",
            "paged_decode_q8_anc": "paged_decode.cu",
-           "paged_decode_q4_anc": "paged_decode.cu"}
+           "paged_decode_q4_anc": "paged_decode.cu",
+           "quant_matmul_q8": "quant_matmul.cu",
+           "quant_matmul_q4": "quant_matmul.cu",
+           "sample_epilogue": "sampling.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,6 +75,11 @@ _SIGNATURES = {
                             [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
     "paged_decode_q4_anc": ("dkt_paged_decode_q4_anc",
                             [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
+    "quant_matmul_q8": ("dkt_quant_matmul_q8",
+                        [_P, _I] + [_P] * 4 + [_I] * 6 + [_P]),
+    "quant_matmul_q4": ("dkt_quant_matmul_q4",
+                        [_P, _I] + [_P] * 4 + [_I] * 6 + [_P]),
+    "sample_epilogue": ("dkt_sample_epilogue", [_P] * 7 + [_I, _I, _P]),
 }
 
 _lock = threading.Lock()

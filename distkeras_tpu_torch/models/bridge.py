@@ -1,6 +1,8 @@
 """Weight bridge between the JAX package's ``Model.params`` /
 ``Model.state`` trees (numpy arrays) and the port's modules, both ways:
 ``from_jax_params`` loads a JAX tree into a port model,
+``qtree_from_jax`` carries a JAX tree with quantized leaves across as
+tensors (int8 ``q``/``q4`` bytes and float32 scales as they are),
 ``to_jax_params`` exports a port model's weights in the JAX tree layout
 (so a model trained here can be loaded into the JAX package, and the
 tests compare trained weights leaf by leaf).
@@ -43,7 +45,8 @@ def from_jax_params(model: Model, params, state=None) -> Model:
     extra = sorted(set(theirs) - set(ours))
     if missing or extra:
         raise ValueError(f"parameter trees differ: missing {missing}, "
-                         f"unexpected {extra}")
+                         f"unexpected {extra} (a quantized tree crosses "
+                         "with qtree_from_jax)")
     for key, dst in ours.items():
         src = theirs[key]
         if tuple(src.shape) != tuple(dst.shape):
@@ -56,6 +59,21 @@ def from_jax_params(model: Model, params, state=None) -> Model:
             raise ValueError(f"the port's layers carry no state, got "
                              f"{leaves}")
     return model
+
+
+def qtree_from_jax(tree, device="cpu"):
+    """A JAX parameter tree that may hold quantized leaves (the
+    ``ops.quant_matmul`` qdicts ``{"q" | "q4", "scale"}``, or float
+    arrays) as the port's tree of tensors on ``device``: the same bytes
+    and scales, so both packages can be fed one quantized tree (a port
+    engine's ``_params``, ``quant_matmul``, a decode step)."""
+    if isinstance(tree, dict):
+        return {k: qtree_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [qtree_from_jax(v, device) for v in tree]
+    if tree is None:
+        return None
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)
 
 
 def to_jax_params(model: Model):

@@ -36,6 +36,17 @@ attention runs ``ops.flash_attention.flash_forward``, the slab decode
 readout ``ops.decode_attention.decode_attention`` and the paged one
 ``ops.paged_attention.paged_decode_attention``: the CUDA kernels for
 tensors on the card, their plain versions for tensors on the CPU.
+
+A parameter tree may hold quantized leaves (``ops.quant_matmul`` qdicts:
+the engine's ``weight_quant`` tree, or ``generate()``'s
+``models.quantize`` tree). Their consumers are ``_project_qkv`` and
+``_attn_out`` (JAX :1662 and :801), the MLP, the head and the two
+embedding tables: the decode and verify steps (and the head, which runs
+on the last position only) call ``ops.quant_matmul.quant_matmul``, the
+K5 kernel on the card, the port's counterpart of XLA fusing ``q *
+scale`` into each consumer; a prefill chunk dequantizes one leaf at a
+time just before its matmul; an embedding gathers byte rows and unpacks
+only their nibble half.
 """
 
 from __future__ import annotations
@@ -49,7 +60,8 @@ from distkeras_tpu_torch.models.attention import (MultiHeadAttention,
                                                   PositionalEmbedding,
                                                   TransformerBlock)
 from distkeras_tpu_torch.models.core import Sequential, torch_dtype
-from distkeras_tpu_torch.models.layers import Dropout
+from distkeras_tpu_torch.models.layers import (Dense, Dropout, Embedding,
+                                               get_activation)
 from distkeras_tpu_torch.ops.attention import NEG_INF, apply_rope
 from distkeras_tpu_torch.ops.decode_attention import decode_attention
 from distkeras_tpu_torch.ops.flash_attention import flash_forward
@@ -57,6 +69,9 @@ from distkeras_tpu_torch.ops.flash_attention import flash_forward
 # re-exported here beside pack_int4, where the JAX package keeps both
 from distkeras_tpu_torch.ops.paged_attention import (  # noqa: F401
     paged_decode_attention, unpack_int4)
+from distkeras_tpu_torch.ops.quant_matmul import (dequant_weight,
+                                                  gather_rows, is_qdict,
+                                                  quant_matmul)
 from distkeras_tpu_torch.utils.tree import tree_map
 
 
@@ -101,8 +116,28 @@ def fuse_qkv_params(module: Sequential, params):
     return fused
 
 
-def _project_qkv(attn: MultiHeadAttention, p, xc):
+def _qmm(x, w, dt, kernel: bool):
+    """``x [..., K] @ w`` in ``dt`` for a quantized leaf ``w`` (its 2-D
+    view, ``ops.quant_matmul``): through the K5 wrapper (``kernel``: the
+    decode and verify steps and the head), or with the leaf dequantized
+    to ``dt`` just before the matmul (prefill chunks: a transient tensor,
+    no float tree stays resident)."""
+    if kernel:
+        return quant_matmul(x, w).to(dt)
+    w2 = dequant_weight(w, dt).reshape(x.shape[-1], -1)
+    return torch.matmul(x.to(dt), w2)
+
+
+def _project_qkv(attn: MultiHeadAttention, p, xc, kernel: bool = False):
     dt = xc.dtype
+    if is_qdict(p.get("wq")):
+        b, s_len, _ = xc.shape
+
+        def proj(w, heads):
+            return _qmm(xc, w, dt, kernel).reshape(b, s_len, heads, -1)
+
+        return (proj(p["wq"], attn.num_heads), proj(p["wk"], attn.kv_heads),
+                proj(p["wv"], attn.kv_heads))
     if "wqkv" in p:
         qkv = torch.einsum("bsd,dhe->bshe", xc, p["wqkv"].to(dt))
         h, hkv = attn.num_heads, attn.kv_heads
@@ -113,8 +148,44 @@ def _project_qkv(attn: MultiHeadAttention, p, xc):
     return q, k, v
 
 
-def _attn_out(p, out, dt):
+def _attn_out(p, out, dt, kernel: bool = False):
+    if is_qdict(p["wo"]):
+        b, s_len = out.shape[:2]
+        return _qmm(out.reshape(b, s_len, -1), p["wo"], dt, kernel)
     return torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
+
+
+def _mlp(mlp, p, x, kernel: bool):
+    """``TransformerMLP.apply`` over a float or a quantized tree."""
+    if not is_qdict(p["w1"]):
+        return mlp.apply(p, x)
+    dt = torch_dtype(mlp.dtype)
+    act = get_activation(mlp.activation)
+    h = act(_qmm(x.to(dt), p["w1"], dt, kernel) + p["b1"].to(dt))
+    y = _qmm(h, p["w2"], dt, kernel) + p["b2"].to(dt)
+    return y.to(x.dtype)
+
+
+def _apply_layer(layer, p, x):
+    """``layer.apply`` for the stack's other layers, with the quantized
+    leaves of a quantized tree: the token embedding gathers byte rows
+    and unpacks only their nibble half (float32 rows), the head runs K5
+    (on the last position's rows only)."""
+    if isinstance(layer, Embedding) and is_qdict(p["embeddings"]):
+        return gather_rows(p["embeddings"], x)
+    if isinstance(layer, Dense) and is_qdict(p["kernel"]):
+        dt = torch_dtype(layer.dtype)
+        y = _qmm(x.to(dt), p["kernel"], dt, kernel=True)
+        if layer.use_bias:
+            y = y + p["bias"].to(dt)
+        return get_activation(layer.activation)(y)
+    return layer.apply(p, x)
+
+
+def _pos_rows(table, idx):
+    """Rows ``idx`` (an index tensor) of a positional table, float or
+    quantized."""
+    return gather_rows(table, idx) if is_qdict(table) else table[idx]
 
 
 def cache_kind(dtype) -> Optional[str]:
@@ -216,9 +287,9 @@ def _cache_write(kv, k, v, t: int):
     return kv
 
 
-def _mlp_half(block: TransformerBlock, p, x):
+def _mlp_half(block: TransformerBlock, p, x, kernel: bool = False):
     h = block.norm2.apply(p["norm2"], x)
-    return x + block.mlp.apply(p["mlp"], h)
+    return x + _mlp(block.mlp, p["mlp"], h, kernel)
 
 
 def _prefill_block(block: TransformerBlock, p, kv, x, positions):
@@ -351,13 +422,13 @@ def prefill_chunk_step(module: Sequential, params, cache, chunk, t0: int,
         if block is not None:
             x = _prefill_block_chunked(block, p, cache[i], x, positions, t0)
         elif isinstance(layer, PositionalEmbedding):
-            x = x + p["embeddings"][t0:t0 + q_len][None].to(x.dtype)
+            x = x + _pos_rows(p["embeddings"], positions)[None].to(x.dtype)
         elif isinstance(layer, Dropout):
             pass
         else:
             if i == last and x.ndim == 3:
                 x = x[:, -1:]            # head on the final position only
-            x = layer.apply(p, x)
+            x = _apply_layer(layer, p, x)
     return (x[:, -1] if final else None), cache
 
 
@@ -377,13 +448,13 @@ def prefill(module: Sequential, params, cache, prompts):
         if block is not None:
             x = _prefill_block(block, p, cache[i], x, positions)
         elif isinstance(layer, PositionalEmbedding):
-            x = x + p["embeddings"][:p_len][None].to(x.dtype)
+            x = x + _pos_rows(p["embeddings"], positions)[None].to(x.dtype)
         elif isinstance(layer, Dropout):
             pass
         else:
             if i == last and x.ndim == 3:
                 x = x[:, -1:]
-            x = layer.apply(p, x)
+            x = _apply_layer(layer, p, x)
     return x[:, -1], cache
 
 
@@ -397,7 +468,7 @@ def _decode_attn(attn: MultiHeadAttention, p, kv, x, t: int):
     with the G query heads of each kv head as its rows (nothing is
     expanded or copied). x: ``[B, 1, d]``."""
     dt = torch_dtype(attn.dtype)
-    q, k, v = _project_qkv(attn, p, x.to(dt))
+    q, k, v = _project_qkv(attn, p, x.to(dt), kernel=True)
     if attn.use_rope:
         pos = torch.full((1,), t, device=x.device)
         q = apply_rope(q, pos, scale=attn.rope_scale)
@@ -414,14 +485,14 @@ def _decode_attn(attn: MultiHeadAttention, p, kv, x, t: int):
                          kv["k"].reshape(rows, length, dh),
                          kv["v"].reshape(rows, length, dh), t,
                          scale=dh ** -0.5, window=attn.attn_window, **sc)
-    y = _attn_out(p, o.reshape(b, 1, nh, dh).to(dt), dt)
+    y = _attn_out(p, o.reshape(b, 1, nh, dh).to(dt), dt, kernel=True)
     return y.to(x.dtype)
 
 
 def _decode_block(block: TransformerBlock, p, kv, x, t: int):
     h = block.norm1.apply(p["norm1"], x)
     x = x + _decode_attn(block.attn, p["attn"], kv, h, t).to(x.dtype)
-    return _mlp_half(block, p, x)
+    return _mlp_half(block, p, x, kernel=True)
 
 
 @torch.no_grad()
@@ -436,11 +507,12 @@ def decode_step(module: Sequential, params, cache, tok, t: int):
         if block is not None:
             x = _decode_block(block, p, cache[i], x, t)
         elif isinstance(layer, PositionalEmbedding):
-            x = x + p["embeddings"][t][None, None, :].to(x.dtype)
+            pos = torch.full((1,), t, device=x.device)
+            x = x + _pos_rows(p["embeddings"], pos)[None].to(x.dtype)
         elif isinstance(layer, Dropout):
             pass
         else:
-            x = layer.apply(p, x)
+            x = _apply_layer(layer, p, x)
     return x[:, 0], cache
 
 
@@ -563,7 +635,7 @@ def _paged_attn_readout(attn: MultiHeadAttention, p, q, kv, t, table, dt,
                                scale=dh ** -0.5, window=attn.attn_window,
                                anc=anc, **sc)
     out = o.reshape(b, w_len, nh, dh).to(dt)
-    return _attn_out(p, out, dt)
+    return _attn_out(p, out, dt, kernel=True)
 
 
 def _decode_block_slots_window(block: TransformerBlock, p, kv, x, t, table,
@@ -576,7 +648,7 @@ def _decode_block_slots_window(block: TransformerBlock, p, kv, x, t, table,
     attn = block.attn
     dt = torch_dtype(attn.dtype)
     xc = block.norm1.apply(p["norm1"], x).to(dt)
-    q, k, v = _project_qkv(attn, p["attn"], xc)
+    q, k, v = _project_qkv(attn, p["attn"], xc, kernel=True)
     if attn.use_rope:
         pos = _window_positions(t, q.shape[1], tree)
         q = apply_rope(q, pos, scale=attn.rope_scale)
@@ -586,7 +658,7 @@ def _decode_block_slots_window(block: TransformerBlock, p, kv, x, t, table,
     _cache_write_pages(kv, k, v, index)
     y = _paged_attn_readout(attn, p["attn"], q, kv, t, table, dt,
                             anc=None if tree is None else tree["anc"])
-    return _mlp_half(block, p, x + y.to(x.dtype))
+    return _mlp_half(block, p, x + y.to(x.dtype), kernel=True)
 
 
 def _verify_window(module: Sequential, params, cache, toks, t, table,
@@ -611,11 +683,11 @@ def _verify_window(module: Sequential, params, cache, toks, t, table,
         elif isinstance(layer, PositionalEmbedding):
             pos = _window_positions(t, w_len, tree).clamp(
                 0, layer.max_len - 1)
-            x = x + p["embeddings"][pos].to(x.dtype)
+            x = x + _pos_rows(p["embeddings"], pos).to(x.dtype)
         elif isinstance(layer, Dropout):
             pass
         else:
-            x = layer.apply(p, x)
+            x = _apply_layer(layer, p, x)
     if tree is None:
         return x, cache
     it = iter(kv_win)
@@ -842,10 +914,43 @@ def _is_per_seq(value) -> bool:
     return getattr(value, "ndim", 0) >= 1
 
 
+def _weight_quant_kind(weights_dtype) -> Optional[str]:
+    """``"int8"``/``"int4"`` for a quantized ``weights_dtype`` (an int8
+    dtype means ``"int8"``, as in JAX), else None."""
+    if isinstance(weights_dtype, str):
+        return weights_dtype if weights_dtype in ("int8", "int4") else None
+    if weights_dtype in (torch.int8, np.int8):
+        return "int8"
+    return None
+
+
+def _quantized_tree(params, bits: int):
+    """The ``models.quantize`` tree (scale over the last axis, one byte
+    per entry even for int4) as qdicts for the serving paths: wq/wk/wv's
+    ``[e]`` scale is broadcast to ``[h, e]`` so it flattens to the
+    ``h*e`` output channels of the projection (the same values)."""
+    from distkeras_tpu_torch.models.quantize import quantize_params
+    qtree, scales = quantize_params(params, bits)
+
+    def join(q, s, name=""):
+        if isinstance(q, dict):
+            return {k: join(q[k], s[k], k) for k in q}
+        if isinstance(q, list):
+            return [join(a, b, name) for a, b in zip(q, s)]
+        if s is None:
+            return q
+        if name in ("wq", "wk", "wv"):
+            s = s.expand(q.shape[1:]).contiguous()
+        return {"q": q, "scale": s}
+
+    return join(qtree, scales)
+
+
 def _generate_params(model, weights_dtype, compute_dt):
     """The parameter tree ``generate()`` runs: the model's own
-    (``weights_dtype=None``), or its matrices cast to a float dtype once
-    with q/k/v fused into ``wqkv``. Cast trees are cached on the model
+    (``weights_dtype=None``), its matrices cast to a float dtype once
+    with q/k/v fused into ``wqkv``, or (``"int8"``/``"int4"``) the
+    ``models.quantize`` tree as qdicts. Trees are cached on the model
     per dtype and rebuilt when any parameter changed (a new tensor, or
     an in-place update that bumped its version counter)."""
     if weights_dtype == "auto":
@@ -853,30 +958,32 @@ def _generate_params(model, weights_dtype, compute_dt):
                                        compute_dt != torch.float32) else None
     if weights_dtype is None:
         return model.params
-    if isinstance(weights_dtype, str) and weights_dtype in ("int8", "int4") \
-            or weights_dtype in (torch.int8, np.int8):
-        raise NotImplementedError(
-            f"weights_dtype={weights_dtype!r} (weight-only quantized "
-            "serving) is not ported yet: ROADMAP Queue 1 item 5, quantized "
-            "weights with kernel K5")
-    dt = weights_dtype if isinstance(weights_dtype, torch.dtype) else \
-        torch_dtype(weights_dtype if isinstance(weights_dtype, str)
-                    else np.dtype(weights_dtype).name)
-    if not dt.is_floating_point:
-        raise ValueError(
-            f"weights_dtype {dt} unsupported: use a float dtype, 'auto' or "
-            "None ('int8'/'int4' are a later slice)")
+    key = _weight_quant_kind(weights_dtype)
+    if key is None:
+        key = weights_dtype if isinstance(weights_dtype, torch.dtype) else \
+            torch_dtype(weights_dtype if isinstance(weights_dtype, str)
+                        else np.dtype(weights_dtype).name)
+        if not key.is_floating_point:
+            raise ValueError(
+                f"weights_dtype {key} unsupported: use a float dtype, "
+                "'int8'/'int4' (weight-only quantized serving), 'auto' or "
+                "None")
     sig = tuple((id(p), p._version) for p in model.module.parameters())
     cache_all = getattr(model, "_serving_params_cache", None)
     if cache_all is None:
         cache_all = model._serving_params_cache = {}
-    for key in [key for key, (s, _) in cache_all.items() if s != sig]:
-        del cache_all[key]
-    entry = cache_all.get(dt)
+    for stale in [k for k, (s, _) in cache_all.items() if s != sig]:
+        del cache_all[stale]
+    entry = cache_all.get(key)
     if entry is None:
         with torch.no_grad():
-            entry = cache_all[dt] = (sig, fuse_qkv_params(
-                model.module, serving_params(model.params, dt)))
+            if isinstance(key, str):
+                tree = _quantized_tree(model.params,
+                                       4 if key == "int4" else 8)
+            else:
+                tree = fuse_qkv_params(model.module,
+                                       serving_params(model.params, key))
+        entry = cache_all[key] = (sig, tree)
     return entry[1]
 
 
@@ -908,7 +1015,10 @@ def generate(model, prompts, max_new_tokens: int,
     ``"int4"`` quantize the cache per token and head. ``weights_dtype``
     ``"auto"`` casts matrices to a non-float32 compute dtype once (cached
     on the model, q/k/v fused), None runs the model's own weights, a
-    float dtype forces one; ``"int8"``/``"int4"`` are not ported yet.
+    float dtype forces one; ``"int8"``/``"int4"`` (or an int8 dtype)
+    quantize the matrices once (``models.quantize``, cached on the
+    model): the decode steps' projections, MLP and head run the K5
+    quantized matmul, the prefill dequantizes one leaf at a time.
     Returns numpy (``as_numpy``) or a tensor on the model's device."""
     module = model.module
     if not isinstance(module, Sequential):

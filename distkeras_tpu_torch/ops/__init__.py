@@ -1,6 +1,7 @@
 """Operators of the port: attention building blocks and the wrappers
 of the hand-written CUDA kernels (``flash_attention``,
-``decode_attention``, ``paged_attention``); losses, optimizers,
+``decode_attention``, ``paged_attention``, ``quant_matmul``,
+``sampling``); losses, optimizers,
 learning-rate schedules and metrics for training (``losses``,
 ``optimizers``, ``schedules``, ``metrics``)."""
 
@@ -14,6 +15,11 @@ from distkeras_tpu_torch.ops.flash_attention import (
     flash_forward_reference)
 from distkeras_tpu_torch.ops.paged_attention import (
     gather_pages, paged_decode_attention, paged_decode_attention_reference)
+from distkeras_tpu_torch.ops.quant_matmul import (quant_matmul,
+                                                  reference_matmul)
+from distkeras_tpu_torch.ops.sampling import (sample_epilogue,
+                                              sample_epilogue_reference,
+                                              sample_tokens)
 
 __all__ = ["NEG_INF", "apply_rope", "dot_product_attention",
            "rope_frequencies", "decode_attention",
@@ -21,4 +27,6 @@ __all__ = ["NEG_INF", "apply_rope", "dot_product_attention",
            "flash_backward_reference", "flash_forward",
            "flash_forward_reference",
            "gather_pages", "paged_decode_attention",
-           "paged_decode_attention_reference"]
+           "paged_decode_attention_reference", "quant_matmul",
+           "reference_matmul", "sample_epilogue",
+           "sample_epilogue_reference", "sample_tokens"]

@@ -39,9 +39,11 @@ it equals the plain sampled stream.
 
 Greedy outputs are token-identical per request to the JAX package's
 ``generate()`` on the same weights (the CPU tests hold the port to
-it), also with an int8 or int4 KV cache at the same cache dtype. On the
-card the prefill attention runs the flash kernel and the decode readout
-the paged kernel (its int8/int4 variant for a quantized pool).
+it), also with an int8 or int4 KV cache at the same cache dtype, and
+with ``weight_quant`` to the JAX engine's. On the card the prefill
+attention runs the flash kernel and the decode readout the paged kernel
+(its int8/int4 variant for a quantized pool); quantized weights run the
+K5 matmul kernel, ``fused_sampling`` the K4 sampling epilogue.
 
 Only the synchronous loop is ported. Options of the JAX engine that
 belong to later slices raise ``NotImplementedError`` naming the ROADMAP
@@ -70,6 +72,9 @@ from distkeras_tpu_torch.models.decoding import (_decode_block_of,
                                                  serving_params, tree_walk,
                                                  verify_step_slots_paged)
 from distkeras_tpu_torch.ops.paged_attention import check_rows
+from distkeras_tpu_torch.ops.quant_matmul import (quantize_params_tree,
+                                                  tree_quant_errors)
+from distkeras_tpu_torch.ops.sampling import sample_tokens
 from distkeras_tpu_torch.serving.kv_pool import PagedKVPool, PrefixCache
 from distkeras_tpu_torch.serving.metrics import ServingMetrics
 from distkeras_tpu_torch.serving.scheduler import (AdmissionRejected,
@@ -77,14 +82,13 @@ from distkeras_tpu_torch.serving.scheduler import (AdmissionRejected,
                                                    Request, RequestState)
 from distkeras_tpu_torch.serving.speculation import (DraftSource,
                                                      tree_ancestors)
+from distkeras_tpu_torch.utils.tree import tree_leaves
 
 #: options of the JAX engine that later slices port: name -> (value that
 #: means "off", ROADMAP item)
 _NOT_PORTED = {
     "overlap": (False, "overlapped dispatch (zero-bubble loop)"),
     "fuse_steps": (0, "fused multi-step decode"),
-    "weight_quant": (None, "quantized weights, kernel queue item K5"),
-    "fused_sampling": (False, "fused sampling, kernel queue item K4"),
     "ep_mesh": (None, "expert-parallel MoE serving"),
     "host_kv_pages": (0, "host KV offload"),
 }
@@ -110,6 +114,15 @@ class ServingEngine:
     logits, slots)`` (optional) sees every prefill (``kind="prefill"``),
     decode (``"decode"``) and verify (``"verify"``, ``[S, W, V]``)
     logits tensor with the slots whose rows are live.
+
+    ``weight_quant`` (``"int8"``/``"int4"``) serves from per-channel
+    quantized weights (int4 nibble-packed), the only weight copy the
+    engine holds: the decode and verify steps' projections, MLP and head
+    run the K5 quantized matmul, a prefill chunk dequantizes one leaf at
+    a time; it composes with quantized pages and with speculation (a
+    ``DraftModel`` keeps its own float weights). ``fused_sampling`` draws
+    the decode steps' sampled tokens through the K4 epilogue, token for
+    token the unfused sampler's.
 
     ``draft`` (a ``DraftSource``: ``NgramDraft()``, ``DraftModel(m)``)
     turns on speculative decoding: ``spec_k`` drafts per slot and
@@ -137,9 +150,7 @@ class ServingEngine:
                  spec_reprobe: Optional[int] = None,
                  spec_tree: bool = False, spec_width: int = 1):
         given = {"overlap": overlap, "fuse_steps": fuse_steps,
-                 "weight_quant": weight_quant,
-                 "fused_sampling": fused_sampling, "ep_mesh": ep_mesh,
-                 "host_kv_pages": host_kv_pages}
+                 "ep_mesh": ep_mesh, "host_kv_pages": host_kv_pages}
         for name, (off, item) in _NOT_PORTED.items():
             if given[name] != off:
                 raise NotImplementedError(
@@ -175,9 +186,11 @@ class ServingEngine:
         compute_dt = attn_compute_dtype(module)
         if cache_dtype is None:
             cache_dtype = compute_dt
-        with torch.no_grad():
-            self._params = fuse_qkv_params(
-                module, serving_params(model.params, compute_dt))
+        self._init_weights(weight_quant, compute_dt)
+        #: decode steps draw through ``ops.sampling.sample_tokens`` (the
+        #: K4 epilogue on the card); the first token and the speculative
+        #: walks keep the unfused sampler, as in the JAX engine
+        self.fused_sampling = bool(fused_sampling)
 
         self.pool = PagedKVPool(module, self.num_slots, self.max_len,
                                 page_len=page_len, num_pages=num_pages,
@@ -205,6 +218,35 @@ class ServingEngine:
         self._init_speculation(draft, spec_k, spec_disable_below,
                                spec_warmup, spec_reprobe, spec_tree,
                                spec_width)
+
+    def _init_weights(self, weight_quant, compute_dt) -> None:
+        """The serving tree: the matrices cast to the compute dtype with
+        q/k/v fused, or with ``weight_quant`` (JAX :372-399) the qdict
+        tree of ``ops.quant_matmul.quantize_params_tree`` (int8, or int4
+        nibble-packed along axis 0), the only weight copy the engine
+        holds, with its per-leaf ``weight_quant_error``."""
+        if weight_quant not in (None, "int8", "int4"):
+            raise ValueError(f"weight_quant must be None, 'int8' or 'int4', "
+                             f"got {weight_quant!r}")
+        self.weight_quant = weight_quant
+        #: path-keyed per-leaf quantization error (max_abs_err, rel_rms)
+        self.weight_quant_error = None
+        with torch.no_grad():
+            if weight_quant is None:
+                self._params = fuse_qkv_params(
+                    self.module, serving_params(self.model.params,
+                                                compute_dt))
+                return
+            self._params = quantize_params_tree(
+                self.model.params, bits=4 if weight_quant == "int4" else 8)
+        self.weight_quant_error = tree_quant_errors(self.model.params,
+                                                    self._params)
+
+    def param_bytes(self) -> int:
+        """Bytes of the parameter tree the engine serves from (the
+        quantized bytes and scales under ``weight_quant``)."""
+        return sum(t.numel() * t.element_size()
+                   for t in tree_leaves(self._params))
 
     def _init_speculation(self, draft, spec_k, spec_disable_below,
                           spec_warmup, spec_reprobe, spec_tree,
@@ -605,10 +647,12 @@ class ServingEngine:
         self._t[req.slot] = t         # where the next decode step writes
 
     @staticmethod
-    def _sample(logits, rows: List[int], reqs: List[Request]):
+    def _sample(logits, rows: List[int], reqs: List[Request],
+                fused: bool = False):
         """Next tokens for logits ``rows`` on the host: argmax for an
         all-greedy batch, else the per-row sampler (each sampled row
-        draws from its request's own generator)."""
+        draws from its request's own generator): ``_sample_vec``, or
+        with ``fused`` the fused epilogue, which gives the same tokens."""
         if all(r.temperature <= 0.0 for r in reqs):
             return torch.argmax(logits, dim=-1).cpu().numpy()
         n = logits.shape[0]
@@ -621,9 +665,10 @@ class ServingEngine:
                                                  r.top_p)
             gens[row] = r.rng
         dev = logits.device
-        nxt = _sample_vec(logits, torch.from_numpy(temp).to(dev),
-                          torch.from_numpy(top_k).to(dev),
-                          torch.from_numpy(top_p).to(dev), gens)
+        sampler = sample_tokens if fused else _sample_vec
+        nxt = sampler(logits, torch.from_numpy(temp).to(dev),
+                      torch.from_numpy(top_k).to(dev),
+                      torch.from_numpy(top_p).to(dev), gens)
         return nxt.cpu().numpy()
 
     def _advance_prefill(self, req: Request, finished: List[Request]):
@@ -720,7 +765,7 @@ class ServingEngine:
         reqs = list(running.values())
         if self.on_logits is not None:
             self.on_logits("decode", logits, slots)
-        nxt = self._sample(logits, slots, reqs)
+        nxt = self._sample(logits, slots, reqs, fused=self.fused_sampling)
         done = []
         for slot, req in zip(slots, reqs):
             token = int(nxt[slot])

@@ -22,6 +22,13 @@ from distkeras_tpu_torch.ops.flash_attention import (
 from distkeras_tpu_torch.parallel import SingleTrainer
 from distkeras_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference)
+from distkeras_tpu_torch.ops.quant_matmul import (quant_matmul,
+                                                  quantize_weight,
+                                                  reference_matmul)
+from distkeras_tpu_torch.ops.sampling import (boundary_tol, gumbel_noise,
+                                              nucleus_margin,
+                                              sample_epilogue,
+                                              sample_epilogue_reference)
 from distkeras_tpu_torch.serving import (NgramDraft, ServingEngine,
                                          tree_ancestors)
 
@@ -450,3 +457,183 @@ def test_single_trainer_on_card_launches_the_training_kernels(dev):
     losses = trainer.get_history().losses()
     assert np.isfinite(losses).all()
     assert losses[-4:].mean() < losses[0]
+
+
+# --- K5: the quantized matmul ------------------------------------------------
+
+#: float32 products and sums on both sides; only the summation order
+#: differs (K <= 4096 terms), relative to the largest |output|
+QMM_TOL = 1e-4
+#: the 218M LM's matrices: (name, weight shape, reduce axes)
+QMM_SHAPES = {
+    "wq": ((1024, 16, 64), (0,)),
+    "wo": ((16, 64, 1024), (0, 1)),
+    "w1": ((1024, 4096), None),
+    "w2": ((4096, 1024), None),
+    "head": ((1024, 32768), None),
+    "ragged": ((1000, 1000), None),
+}
+
+
+def _qmm_case(rs, shape, reduce_axes, bits, m, dtype, dev):
+    w = torch.from_numpy((rs.randn(*shape) * 0.05).astype(np.float32))
+    wq = {k: v.to(dev) for k, v in
+          quantize_weight(w, bits, reduce_axes).items()}
+    k = int(np.prod(shape[:len(reduce_axes or (0,))]))
+    x = torch.from_numpy(rs.randn(m, k).astype(np.float32)).to(dev, dtype)
+    return x, wq
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 72])
+@pytest.mark.parametrize("name", list(QMM_SHAPES))
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_kernel_matches_plain(dev, bits, name, m):
+    shape, reduce_axes = QMM_SHAPES[name]
+    rs = np.random.RandomState(m)
+    dtype = torch.bfloat16 if name in ("wq", "w1") else torch.float32
+    x, wq = _qmm_case(rs, shape, reduce_axes, bits, m, dtype, dev)
+    assert ("q4" in wq) == (bits == 4)
+    key = "quant_matmul_q4" if bits == 4 else "quant_matmul_q8"
+    before = kernels.launch_counts()[key]
+    out = quant_matmul(x, wq)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[key] == before + 1
+    ref = reference_matmul(x, wq)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    err = (out - ref).abs().max().item() / ref.abs().max().item()
+    assert err <= QMM_TOL, err
+
+
+def test_quant_matmul_kernel_is_bitwise_repeatable(dev):
+    rs = np.random.RandomState(3)
+    for shape, reduce_axes in (QMM_SHAPES["wo"], QMM_SHAPES["w2"]):
+        x, wq = _qmm_case(rs, shape, reduce_axes, 4, 72, torch.float32, dev)
+        assert torch.equal(quant_matmul(x, wq), quant_matmul(x, wq))
+
+
+def test_quant_matmul_cpu_plain_cuda_kernel(dev):
+    rs = np.random.RandomState(4)
+    x, wq = _qmm_case(rs, (64, 48), None, 8, 3, torch.float32, "cpu")
+    before = kernels.launch_counts()["quant_matmul_q8"]
+    got = quant_matmul(x, wq)
+    assert kernels.launch_counts()["quant_matmul_q8"] == before
+    torch.testing.assert_close(got, reference_matmul(x, wq), rtol=0, atol=0)
+    on_card = quant_matmul(x.to(dev), {k: v.to(dev) for k, v in wq.items()})
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["quant_matmul_q8"] == before + 1
+    torch.testing.assert_close(on_card.cpu(), got, rtol=1e-5, atol=1e-5)
+
+
+# --- K4: the fused sampling epilogue -----------------------------------------
+
+#: rows: greedy, top-k + top-p, top-p only, top-k only, k = 1, k >= V,
+#: both cuts, a forced tie at the k-th value (top-k only)
+K4_TEMP = [0.0, 0.7, 1.0, 1.3, 0.9, 1.1, 0.8, 1.0]
+K4_TOPK = [0, 40, 0, 3, 1, 1 << 20, 7, 5]
+K4_TOPP = [1.0, 0.9, 0.5, 1.0, 0.8, 1.0, 0.3, 1.0]
+
+
+def k4_case(rs, s, v, dev):
+    """Logits, knobs and a Gumbel field for ``s`` mixed rows; the last
+    row's top 20 logits tie at one value (a tie at the k-th)."""
+    logits = torch.from_numpy((rs.randn(s, v) * 3).astype(np.float32))
+    top = logits[s - 1].topk(min(20, v)).indices
+    logits[s - 1, top] = logits[s - 1].max()
+    idx = np.arange(s) % len(K4_TEMP)
+    idx[-1] = len(K4_TEMP) - 1
+    temp = torch.tensor([K4_TEMP[i] for i in idx])
+    top_k = torch.tensor([K4_TOPK[i] for i in idx], dtype=torch.int64)
+    top_p = torch.tensor([K4_TOPP[i] for i in idx])
+    gens = [None if t <= 0 else torch.Generator(device=dev).manual_seed(i)
+            for i, t in enumerate(temp.tolist())]
+    args = [a.to(dev) for a in (logits, temp, top_k, top_p)]
+    return args + [gumbel_noise(gens, v, dev)]
+
+
+def k4_partings(out, ref, args):
+    """Rows where the kernel and the plain version pick other tokens,
+    each required to be a nucleus-boundary row; returns ``(parted rows,
+    their margins)``."""
+    parted = torch.nonzero(out != ref).flatten().tolist()
+    margins = nucleus_margin(*args[:4])
+    tol = boundary_tol(args[0].shape[-1])
+    for row in parted:
+        assert margins[row].item() <= tol, (row, margins[row].item(), tol)
+    return parted, [margins[r].item() for r in parted]
+
+
+@pytest.mark.parametrize("s,v", [(4, 32768), (8, 32768), (8, 1000),
+                                 (5, 100)])
+def test_sample_epilogue_kernel_matches_plain(dev, s, v):
+    rs = np.random.RandomState(s * 1000 + v)
+    parted_total = 0
+    for _ in range(4):
+        args = k4_case(rs, s, v, dev)
+        before = kernels.launch_counts()["sample_epilogue"]
+        out = sample_epilogue(*args)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["sample_epilogue"] == before + 1
+        ref = sample_epilogue_reference(*args)
+        assert out.dtype == ref.dtype and out.shape == (s,)
+        parted, _ = k4_partings(out, ref, args)
+        parted_total += len(parted)
+    assert parted_total <= s        # boundary rows are rare
+
+
+def test_sample_epilogue_cpu_plain_cuda_kernel(dev):
+    args = k4_case(np.random.RandomState(1), 8, 500, "cpu")
+    before = kernels.launch_counts()["sample_epilogue"]
+    got = sample_epilogue(*args)
+    assert kernels.launch_counts()["sample_epilogue"] == before
+    torch.testing.assert_close(got, sample_epilogue_reference(*args),
+                               rtol=0, atol=0)
+    on_card = sample_epilogue(*[a.to(dev) for a in args])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sample_epilogue"] == before + 1
+    k4_partings(on_card.cpu(), got, args)
+
+
+@pytest.mark.parametrize("wq,cache_dtype", [("int8", None),
+                                            ("int4", "int4")])
+def test_engine_on_card_weight_quant_runs_k5_and_k4(dev, wq, cache_dtype):
+    """A quantized-weight engine on the card: K5 in every decode step
+    (the projections, MLP and head), K4 for the sampled request."""
+    model = Model.build(zoo.transformer_lm(97, d_model=128, num_heads=4,
+                                           num_layers=2, dtype="bfloat16",
+                                           num_kv_heads=2),
+                        (16,), seed=0, device=dev)
+    eng = ServingEngine(model, num_slots=2, max_len=128, prefill_chunk=32,
+                        weight_quant=wq, cache_dtype=cache_dtype,
+                        fused_sampling=True)
+    rs = np.random.RandomState(9)
+    kernels.reset_launch_counts()
+    rids = [eng.submit(rs.randint(0, 97, 70), 6),
+            eng.submit(rs.randint(0, 97, 9), 6, temperature=0.8, top_k=20,
+                       top_p=0.9, seed=2),
+            eng.submit(rs.randint(0, 97, 40), 6)]
+    out = eng.run(max_steps=500)
+    assert sorted(out) == rids
+    counts = kernels.launch_counts()
+    key = "quant_matmul_q4" if wq == "int4" else "quant_matmul_q8"
+    # at least 5 decode steps, each 2 layers x (q, k, v, o, w1, w2) + head
+    assert counts[key] >= 5 * (2 * 6 + 1), counts
+    assert counts["sample_epilogue"] >= 1, counts
+    bf16_bytes = model.num_params() * 2
+    assert eng.param_bytes() < bf16_bytes * (0.55 if wq == "int8" else 0.3)
+
+
+def test_generate_on_card_quantized_weights_launch_k5(dev):
+    model = Model.build(zoo.transformer_lm(97, d_model=128, num_heads=4,
+                                           num_layers=2, dtype="bfloat16"),
+                        (16,), seed=0, device=dev)
+    prompts = np.random.RandomState(3).randint(0, 97, (2, 30))
+    for wd in ("int8", "int4"):
+        kernels.reset_launch_counts()
+        out = model.generate(prompts, 6, weights_dtype=wd)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        # per decode step: 2 layers x (q, k, v, o, w1, w2) + the head;
+        # plus the prefill's head
+        assert counts["quant_matmul_q8"] == 5 * 13 + 1, counts
+        assert counts["decode_attention"] == 2 * 5, counts
+        assert out.shape == (2, 36) and ((out >= 0) & (out < 97)).all()

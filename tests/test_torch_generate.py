@@ -228,10 +228,7 @@ def test_sampled_draw_lies_in_jax_candidate_set(monkeypatch, temperature,
         assert len(set(draws[:, 0].tolist())) > 1       # it does sample
 
 
-@pytest.mark.parametrize("weights_dtype", ["int8", "int4", torch.int8])
-def test_quantized_weights_raise_naming_the_roadmap(weights_dtype):
+def test_non_float_weights_dtype_raises():
     _, pm = _pair("mha")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        pm.generate(_prompts(), 2, weights_dtype=weights_dtype)
     with pytest.raises(ValueError, match="float dtype"):
         pm.generate(_prompts(), 2, weights_dtype=torch.int32)

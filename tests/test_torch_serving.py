@@ -216,8 +216,6 @@ def test_quantized_kv_engine_matches_generate(lms, cache_dtype):
 
 
 @pytest.mark.parametrize("kw", [{"overlap": True}, {"fuse_steps": 4},
-                                {"weight_quant": "int8"},
-                                {"fused_sampling": True},
                                 {"kv_layout": "slab"},
                                 {"host_kv_pages": 8},
                                 {"ep_mesh": "expert"}])
@@ -227,7 +225,122 @@ def test_later_slices_raise_naming_the_roadmap(lms, kw):
         ServingEngine(pm, device="cpu", **kw)
 
 
-# --- speculative decoding ------------------------------------------------------
+# --- quantized weights and the fused sampling epilogue -----------------------
+
+WQ_PROMPTS = [PATTERN[:4], np.tile(PATTERN, 2)[:14], PATTERN[:7]]
+WQ_BUDGETS = [7, 9, 6]
+
+
+def _wq_streams(eng):
+    rids = [eng.submit(p, b) for p, b in zip(WQ_PROMPTS, WQ_BUDGETS)]
+    eng.step()
+    rids.append(eng.submit(PATTERN[:5], 8))      # a later arrival
+    out = eng.run(max_steps=500)
+    return [out[r] for r in rids]
+
+
+@pytest.mark.parametrize("interpret", [False, True],
+                         ids=["jax-reference", "jax-kernel-interpret"])
+@pytest.mark.parametrize("wq", ["int8", "int4"])
+def test_weight_quant_matches_jax_engine_and_float(lms, wq, interpret):
+    """The port's quantized engine against the JAX engine with the same
+    ``weight_quant`` (its in-graph dequant, or under ``force_interpret``
+    the Pallas kernel for the attention projections) and against the
+    port's unquantized engine: token-identical streams."""
+    from distkeras_tpu.ops import quant_matmul as jqm
+    from distkeras_tpu.serving.engine import ServingEngine as JaxEngine
+    jm, pm = lms
+    kw = dict(num_slots=2, max_len=32, page_len=4, prefill_chunk=4)
+    if interpret:
+        with jqm.force_interpret():
+            jeng = JaxEngine(jm, weight_quant=wq, **kw)
+            assert jeng._wq_keep_attn
+            want = _wq_streams(jeng)
+    else:
+        want = _wq_streams(JaxEngine(jm, weight_quant=wq, **kw))
+    eng = ServingEngine(pm, weight_quant=wq, device="cpu", **kw)
+    got = _wq_streams(eng)
+    plain = _wq_streams(ServingEngine(pm, device="cpu", **kw))
+    for a, b, c in zip(got, want, plain):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+
+
+@pytest.mark.parametrize("wq", ["int8", "int4"])
+def test_weight_quant_error_and_bytes(lms, wq):
+    from distkeras_tpu.serving.engine import ServingEngine as JaxEngine
+    jm, pm = lms
+    eng = ServingEngine(pm, num_slots=1, max_len=32, weight_quant=wq,
+                        device="cpu")
+    jerr = JaxEngine(jm, num_slots=1, max_len=32,
+                     weight_quant=wq).weight_quant_error
+    assert eng.weight_quant == wq and set(eng.weight_quant_error) == set(jerr)
+    for key, e in jerr.items():
+        for metric in ("max_abs_err", "rel_rms"):
+            assert abs(eng.weight_quant_error[key][metric]
+                       - e[metric]) <= 1e-6
+    assert all(v["rel_rms"] < (0.25 if wq == "int4" else 0.05)
+               for v in eng.weight_quant_error.values())
+    attn = eng._params[1]["attn"]
+    assert "wqkv" not in attn and attn["wq"][
+        "q4" if wq == "int4" else "q"].dtype == torch.int8
+    float_bytes = ServingEngine(pm, num_slots=1, max_len=32,
+                                device="cpu").param_bytes()
+    assert eng.param_bytes() < float_bytes / (5 if wq == "int4" else 3)
+
+
+@pytest.mark.parametrize("case", ["int4-pages", "ngram-linear",
+                                  "ngram-tree"])
+def test_weight_quant_composes_with_pages_and_drafts(lms, case):
+    """int4 weights over int4 pages, and int8 weights under linear and
+    tree n-gram speculation: greedy streams equal JAX ``generate()``."""
+    jm, pm = lms
+    if case == "int4-pages":
+        eng = ServingEngine(pm, num_slots=2, max_len=48, page_len=4,
+                            weight_quant="int4", cache_dtype="int4",
+                            device="cpu")
+    else:
+        kw = {"spec_tree": True, "spec_width": 2} if case == "ngram-tree" \
+            else {}
+        eng = _spec_engine(pm, "ngram", weight_quant="int8", **kw)
+    rids = [eng.submit(p, b) for p, b in zip(SPEC_PROMPTS, SPEC_BUDGETS)]
+    out = eng.run(max_steps=500)
+    kw = {"cache_dtype": "int4"} if case == "int4-pages" else {}
+    for rid, p, b in zip(rids, SPEC_PROMPTS, SPEC_BUDGETS):
+        np.testing.assert_array_equal(out[rid], _ref(jm, p, b, **kw))
+    if case != "int4-pages":
+        assert eng.metrics.summary()["speculation"]["accepted"] > 0
+
+
+def test_weight_quant_validates(lms):
+    _, pm = lms
+    with pytest.raises(ValueError, match="weight_quant"):
+        ServingEngine(pm, device="cpu", weight_quant="fp8")
+
+
+@pytest.mark.parametrize("weight_quant", [None, "int8"])
+def test_fused_sampling_streams_byte_identical(lms, weight_quant):
+    """``fused_sampling=True`` changes no byte of a sampled request's
+    stream (same seeds and knobs) and leaves greedy streams alone."""
+    _, pm = lms
+    reqs = [(PATTERN[:4], dict(temperature=0.9, top_k=6, top_p=0.9,
+                               seed=7)),
+            (PATTERN[:6], dict(temperature=1.3, seed=3)),
+            (PATTERN[:5], dict(temperature=0.7, top_p=0.5, seed=5)),
+            (PATTERN[:3], {})]
+
+    def streams(fused):
+        eng = ServingEngine(pm, num_slots=3, max_len=32, device="cpu",
+                            fused_sampling=fused, weight_quant=weight_quant)
+        rids = [eng.submit(p, 9, **kw) for p, kw in reqs]
+        out = eng.run(max_steps=300)
+        return [out[r] for r in rids]
+
+    for a, b in zip(streams(True), streams(False)):
+        np.testing.assert_array_equal(a, b)
+
+
+# --- speculative decoding ----------------------------------------------------
 
 SPEC_PROMPTS = [np.tile(PATTERN, 2)[:10], np.tile(PATTERN, 2)[:14],
                 PATTERN[:6]]
