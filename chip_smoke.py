@@ -125,9 +125,9 @@ from distkeras_tpu_torch.ops.paged_attention import (
 from distkeras_tpu_torch.ops.quant_matmul import (quant_matmul,
                                                   quantize_weight,
                                                   reference_matmul)
-from distkeras_tpu_torch.ops.sampling import boundary_tol, gumbel_noise
 from distkeras_tpu_torch.ops.sampling import launch_kernel as k4_launch
-from distkeras_tpu_torch.ops.sampling import (nucleus_margin,
+from distkeras_tpu_torch.ops.sampling import (MAX_BOUNDARY_PARTINGS,
+                                              boundary_partings, gumbel_noise,
                                               sample_epilogue,
                                               sample_epilogue_reference)
 from distkeras_tpu_torch.ops.sampling import prepare as k4_prepare
@@ -1456,12 +1456,13 @@ K4_TOPP = (1.0, 0.9, 0.5, 1.0, 0.8, 1.0, 0.3, 1.0)
 
 
 def k4_inputs(rs, s, v, dev):
-    """``s`` rows of logits with mixed knobs (the last row's top 20
-    logits tie) and their Gumbel field from per-row generators."""
+    """``s`` rows of logits with mixed knobs (the knob rows in turn; the
+    last row is the tie row, its top 20 logits equal) and their Gumbel
+    field from per-row generators."""
     logits = torch.from_numpy((rs.randn(s, v) * 3).astype(np.float32))
-    top = logits[s - 1].topk(20).indices
+    top = logits[s - 1].topk(min(20, v)).indices
     logits[s - 1, top] = logits[s - 1].max()
-    idx = list(range(s - 1)) + [len(K4_TEMP) - 1]
+    idx = [i % len(K4_TEMP) for i in range(s - 1)] + [len(K4_TEMP) - 1]
     temp = torch.tensor([K4_TEMP[i] for i in idx])
     gens = [None if t <= 0 else torch.Generator(device=dev).manual_seed(i)
             for i, t in enumerate(temp.tolist())]
@@ -1471,18 +1472,21 @@ def k4_inputs(rs, s, v, dev):
     return args + [gumbel_noise(gens, v, dev)]
 
 
-def k4_partings(out, ref, args):
-    """Rows where K4 and its plain version part; each must be a
-    nucleus-boundary row. Returns the margins of the parted rows."""
-    margins = nucleus_margin(*args[:4])
-    tol = boundary_tol(args[0].shape[-1])
-    parted = [margins[r].item()
-              for r in torch.nonzero(out != ref).flatten().tolist()]
-    if any(not mg <= tol for mg in parted):
-        raise AssertionError(f"sample_epilogue parts from its plain version "
-                             f"away from the nucleus boundary: margins "
-                             f"{parted}, boundary {tol:.2e}")
-    return parted
+def k4_partings(out, ref, args, parted):
+    """Add to ``parted`` the rows where K4 and its plain version part
+    (``boundary_partings``: each must be a nucleus-boundary row) and
+    fail past ``MAX_BOUNDARY_PARTINGS`` in one run."""
+    parted += boundary_partings(out, ref, *args[:4])
+    if len(parted) > MAX_BOUNDARY_PARTINGS:
+        raise AssertionError(f"sample_epilogue parted from its plain version "
+                             f"at {len(parted)} nucleus-boundary rows in one "
+                             f"run (at most {MAX_BOUNDARY_PARTINGS}): "
+                             f"{parted}")
+
+
+def k4_margins(parted) -> str:
+    return ", ".join(f"{mg:.1e} (tol {tol:.1e})"
+                     for _, mg, tol in parted) or "none"
 
 
 def k4_phase(dev):
@@ -1503,8 +1507,7 @@ def k4_phase(dev):
             torch.cuda.synchronize()
             if kernels.launch_counts()["sample_epilogue"] != before + 1:
                 raise AssertionError("sample_epilogue did not launch")
-            parted += k4_partings(out, sample_epilogue_reference(*args),
-                                  args)
+            k4_partings(out, sample_epilogue_reference(*args), args, parted)
             n_rows += s
         lf, srt = k4_prepare(args[0], args[1])
         ms = graph_ms(lambda: k4_launch(lf, srt, *args[1:]))
@@ -1512,10 +1515,9 @@ def k4_phase(dev):
         plain_ms = time_ms(lambda: sample_epilogue_reference(*args),
                            iters=5)
         bms, by = bound_ms(0.0, 3 * s * v * 4 + s * 16, PEAK_F32_FLOPS)
-        margins = ", ".join(f"{mg:.1e}" for mg in parted) or "none"
         print(f"sample_epilogue S{s} V{v}: {len(parted)} of {n_rows} rows "
-              f"parted at the nucleus boundary (margins {margins}; "
-              f"boundary {boundary_tol(v):.1e}), all others equal; kernel "
+              f"parted at the nucleus boundary (margins "
+              f"{k4_margins(parted)}), all others equal; kernel "
               f"{ms:.4f} ms (graph replay); fused sampler eager "
               f"{fused_ms:.4f} ms; plain eager {plain_ms:.4f} ms; bound "
               f"{bms:.4f} ms ({by})", flush=True)
@@ -1555,7 +1557,8 @@ class _Calls:
 class _K4Watch:
     """While installed, every fused draw of the engine is also drawn by
     the plain version on the same inputs: the rows where they part are
-    kept with their nucleus margins (each must be a boundary row)."""
+    kept with their nucleus margins (each must be a boundary row, at
+    most ``MAX_BOUNDARY_PARTINGS`` while installed)."""
 
     def __init__(self):
         self.mod = sys.modules["distkeras_tpu_torch.ops.sampling"]
@@ -1565,8 +1568,8 @@ class _K4Watch:
     def __enter__(self):
         def watched(*args):
             out = self.orig(*args)
-            self.parted += k4_partings(out, sample_epilogue_reference(*args),
-                                       args)
+            k4_partings(out, sample_epilogue_reference(*args), args,
+                        self.parted)
             return out
 
         self.mod.sample_epilogue = watched
@@ -1669,7 +1672,8 @@ def wq_phase(model, card, bf16_summary):
               f"{s['decode_tokens_per_sec']:.1f} tok/s (phase 5 bf16 "
               f"engine {bf16_summary['decode_tokens_per_sec']:.1f}); "
               f"fused draws parted at the nucleus boundary "
-              f"{len(watch.parted)}", flush=True)
+              f"{len(watch.parted)} (margins {k4_margins(watch.parted)})",
+              flush=True)
         if path is not None:
             launches[path] = c
         if kw.get("fused_sampling"):

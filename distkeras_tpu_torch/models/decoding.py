@@ -924,28 +924,6 @@ def _weight_quant_kind(weights_dtype) -> Optional[str]:
     return None
 
 
-def _quantized_tree(params, bits: int):
-    """The ``models.quantize`` tree (scale over the last axis, one byte
-    per entry even for int4) as qdicts for the serving paths: wq/wk/wv's
-    ``[e]`` scale is broadcast to ``[h, e]`` so it flattens to the
-    ``h*e`` output channels of the projection (the same values)."""
-    from distkeras_tpu_torch.models.quantize import quantize_params
-    qtree, scales = quantize_params(params, bits)
-
-    def join(q, s, name=""):
-        if isinstance(q, dict):
-            return {k: join(q[k], s[k], k) for k in q}
-        if isinstance(q, list):
-            return [join(a, b, name) for a, b in zip(q, s)]
-        if s is None:
-            return q
-        if name in ("wq", "wk", "wv"):
-            s = s.expand(q.shape[1:]).contiguous()
-        return {"q": q, "scale": s}
-
-    return join(qtree, scales)
-
-
 def _generate_params(model, weights_dtype, compute_dt):
     """The parameter tree ``generate()`` runs: the model's own
     (``weights_dtype=None``), its matrices cast to a float dtype once
@@ -978,8 +956,10 @@ def _generate_params(model, weights_dtype, compute_dt):
     if entry is None:
         with torch.no_grad():
             if isinstance(key, str):
-                tree = _quantized_tree(model.params,
-                                       4 if key == "int4" else 8)
+                from distkeras_tpu_torch.models.quantize import \
+                    quantize_params_qdicts
+                tree = quantize_params_qdicts(model.params,
+                                              4 if key == "int4" else 8)
             else:
                 tree = fuse_qkv_params(model.module,
                                        serving_params(model.params, key))

@@ -91,6 +91,28 @@ def dequantize_params(qtree, scales):
                     qtree, scales)
 
 
+def quantize_params_qdicts(params, bits: int = 8):
+    """:func:`quantize_params` as one tree of ``ops.quant_matmul`` qdicts
+    (``{"q", "scale"}``, one byte per entry even for int4), the tree
+    ``generate(weights_dtype="int8"/"int4")`` runs. wq/wk/wv's ``[e]``
+    scale is broadcast to ``[h, e]`` so that it flattens to the ``h*e``
+    output channels of the projection (the same values)."""
+    qtree, scales = quantize_params(params, bits)
+
+    def join(q, s, name=""):
+        if isinstance(q, dict):
+            return {k: join(q[k], s[k], k) for k in q}
+        if isinstance(q, list):
+            return [join(a, b, name) for a, b in zip(q, s)]
+        if s is None:
+            return q
+        if name in ("wq", "wk", "wv"):
+            s = s.expand(q.shape[1:]).contiguous()
+        return {"q": q, "scale": s}
+
+    return join(qtree, scales)
+
+
 class QuantizedModel:
     """Inference handle over int8 weights: ``predict`` runs the forward
     pass on the weights dequantized for that call (the int8 bytes are

@@ -148,13 +148,15 @@ def gather_rows(wq: Dict, idx) -> torch.Tensor:
 
 def quant_error(w, wq) -> Dict[str, float]:
     """Per-leaf reconstruction error of one quantized weight:
-    ``max_abs_err`` and ``rel_rms`` (float64 sums)."""
-    w = torch.as_tensor(w).detach().float()
-    deq = dequant_weight(wq).reshape(w.shape)
-    err = (deq - w).double()
-    denom = float(torch.sqrt(torch.mean(w.double() ** 2))) or 1.0
-    return {"max_abs_err": float(err.abs().max()),
-            "rel_rms": float(torch.sqrt(torch.mean(err ** 2))) / denom}
+    ``max_abs_err`` and ``rel_rms``, in float32 numpy on the host as the
+    JAX package computes them, so a leaf on the card gets no float copy
+    there."""
+    w = torch.as_tensor(w).detach().cpu().float().numpy()
+    deq = dequant_weight({k: v.detach().cpu() for k, v in wq.items()})
+    err = deq.numpy().reshape(w.shape) - w
+    denom = float(np.sqrt(np.mean(w ** 2))) or 1.0
+    return {"max_abs_err": float(np.abs(err).max()),
+            "rel_rms": float(np.sqrt(np.mean(err ** 2)) / denom)}
 
 
 # --- the matmul --------------------------------------------------------------

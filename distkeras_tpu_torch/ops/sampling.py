@@ -26,7 +26,8 @@ Exactness contract:
   threshold, first-index argmaxes). Its softmax sum and cumsum run in
   another order than ``torch.cumsum``, so at a row whose cumulative
   mass lies within float32 rounding of ``top_p`` the nucleus may keep
-  one token more or fewer; the card tests count such rows.
+  one token more or fewer; :func:`boundary_partings` is the check that
+  admits such a row, and only such a row.
 
 The TPU gates (``fused_supported``, vocab % 128, the %8 row pad) are
 not carried over: the kernel takes any vocab.
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch import kernels
+from distkeras_tpu_torch.ops.attention import NEG_INF as _NEG_INF
 
 _TINY = float(np.finfo(np.float32).tiny)
 
@@ -146,27 +148,84 @@ def sample_tokens(logits, temperature, top_k, top_p, generators):
     return sample_epilogue(logits, temperature, top_k, top_p, g)
 
 
-def nucleus_margin(logits, temperature, top_k, top_p):
-    """Per row, how far (float64) the nearest exclusive cumulative mass
-    of the top-k-masked sorted row lies from ``top_p``: the rows where
-    two float32 summation orders may cut the nucleus one token apart
-    (``inf`` for greedy rows and rows without a nucleus cut)."""
-    lf, srt = prepare(logits, temperature)
+#: at most this many rows of one run (a batch of draws, an engine run) may
+#: part from the plain version at the nucleus boundary: a float32 flip
+#: needs ``excl`` within a few ulps of ``top_p``, which random rows
+#: almost never give
+MAX_BOUNDARY_PARTINGS = 2
+
+
+def boundary_partings(out, ref, logits, temperature, top_k, top_p):
+    """The rows where the kernel's tokens ``out`` part from the plain
+    version's ``ref`` on the same inputs, as ``(row, margin, tol)``.
+
+    Each such row must be a nucleus-boundary row, or AssertionError is
+    raised. At the plain version's cut (``n`` sorted entries kept, from
+    its own float32 exclusive cumsum), another summation order may keep
+    one entry more or one fewer, and nothing else:
+
+    * one more: the kernel's token is the first dropped sorted entry
+      ``n`` (by value, so ties count as it), and the float64 ``excl[n]``
+      lies within ``tol`` of ``top_p``;
+    * one fewer: the plain token is the last kept entry ``n - 1`` and
+      the float64 ``excl[n - 1]`` lies within ``tol`` of ``top_p``.
+
+    (The float64 value may lie on either side of ``top_p``: the plain
+    version's own float32 sum may be the one that rounded across.)
+
+    ``tol`` is four times the row's own float32 rounding there: the
+    largest ``|excl32 - excl64|`` over the entries up to the cut plus
+    one float32 ulp of ``top_p``. Greedy rows and rows without a nucleus
+    cut may not part at all."""
+    out, ref = out.cpu(), ref.cpu()
+    parted = torch.nonzero(out != ref).flatten().tolist()
+    if not parted:
+        return []
+    # the plain version's own mask program, on its device
+    rows = torch.tensor(parted, device=logits.device)
+    temp, kk, pp = (a[rows] for a in (temperature, top_k, top_p))
+    lf, _ = prepare(logits[rows], temp)
+    order = torch.argsort(-lf, dim=-1, stable=True)
+    keep = (kk[:, None] <= 0) | (torch.argsort(order, dim=-1, stable=True)
+                                 < kk[:, None])
+    masked = torch.where(keep, lf, torch.full_like(lf, _NEG_INF))
+    srt = torch.sort(masked, dim=-1, descending=True).values
+    p32 = torch.softmax(srt, dim=-1)
+    excl32 = torch.cumsum(p32, dim=-1) - p32
+    p64 = torch.softmax(srt.double(), dim=-1)
+    excl64 = torch.cumsum(p64, dim=-1) - p64
+    lf, srt, excl32, excl64, temp, kk, pp = (
+        a.cpu() for a in (lf, srt, excl32, excl64, temp, kk, pp))
     v = lf.shape[-1]
-    kk = top_k.long()
     kcount = torch.where(kk <= 0, torch.full_like(kk, v), kk.clamp(1, v))
-    iota = torch.arange(v, device=lf.device)
-    neg = torch.full_like(srt, float("-inf"), dtype=torch.float64)
-    srt_m = torch.where(iota[None, :] < kcount[:, None], srt.double(), neg)
-    probs = torch.softmax(srt_m, dim=-1)
-    excl = torch.cumsum(probs, dim=-1) - probs
-    margin = (excl - top_p.double()[:, None]).abs().amin(dim=-1)
-    cut = (temperature > 0.0) & (top_p < 1.0)
-    return torch.where(cut, margin, torch.full_like(margin, float("inf")))
-
-
-def boundary_tol(vocab: int) -> float:
-    """The margin within which a nucleus cut may flip between two
-    summation orders: each of the ``vocab`` float32 additions of
-    probabilities (running sums <= 1) rounds by at most 2^-24."""
-    return vocab * 2.0 ** -24
+    found = []
+    for j, row in enumerate(parted):
+        p = float(pp[j])
+        if not (float(temp[j]) > 0.0 and p < 1.0):
+            raise AssertionError(
+                f"sample_epilogue parts from its plain version at row {row}, "
+                f"which has no nucleus cut (temperature {float(temp[j])}, "
+                f"top_p {p})")
+        kept = excl32[j] < p
+        n = int(kept.int().argmin()) if not bool(kept.all()) else v
+        hi = min(n + 1, v)
+        tol = 4.0 * (float((excl32[j, :hi].double() - excl64[j, :hi])
+                           .abs().max())
+                     + float(np.spacing(np.float32(p))))
+        tok_out = float(lf[j, int(out[row])])
+        tok_ref = float(lf[j, int(ref[row])])
+        sides = []
+        if n < int(kcount[j]) and tok_out == float(srt[j, n]):
+            sides.append(abs(float(excl64[j, n]) - p))
+        if n >= 1 and tok_ref == float(srt[j, n - 1]):
+            sides.append(abs(p - float(excl64[j, n - 1])))
+        margin = min(sides, default=float("inf"))
+        if not margin <= tol:
+            raise AssertionError(
+                f"sample_epilogue parts from its plain version away from "
+                f"the nucleus boundary at row {row}: tokens "
+                f"{int(out[row])} (kernel) and {int(ref[row])} (plain), "
+                f"margin {margin:.3e} at the plain cut of {n} entries, "
+                f"tolerance {tol:.3e}")
+        found.append((row, margin, tol))
+    return found

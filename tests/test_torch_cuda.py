@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from distkeras_tpu_torch import kernels
 from distkeras_tpu_torch.data import Dataset
 from distkeras_tpu_torch.models import Model, zoo
@@ -25,8 +26,8 @@ from distkeras_tpu_torch.ops.paged_attention import (
 from distkeras_tpu_torch.ops.quant_matmul import (quant_matmul,
                                                   quantize_weight,
                                                   reference_matmul)
-from distkeras_tpu_torch.ops.sampling import (boundary_tol, gumbel_noise,
-                                              nucleus_margin,
+from distkeras_tpu_torch.ops.sampling import (MAX_BOUNDARY_PARTINGS,
+                                              boundary_partings,
                                               sample_epilogue,
                                               sample_epilogue_reference)
 from distkeras_tpu_torch.serving import (NgramDraft, ServingEngine,
@@ -461,18 +462,10 @@ def test_single_trainer_on_card_launches_the_training_kernels(dev):
 
 # --- K5: the quantized matmul ------------------------------------------------
 
-#: float32 products and sums on both sides; only the summation order
-#: differs (K <= 4096 terms), relative to the largest |output|
-QMM_TOL = 1e-4
-#: the 218M LM's matrices: (name, weight shape, reduce axes)
-QMM_SHAPES = {
-    "wq": ((1024, 16, 64), (0,)),
-    "wo": ((16, 64, 1024), (0, 1)),
-    "w1": ((1024, 4096), None),
-    "w2": ((4096, 1024), None),
-    "head": ((1024, 32768), None),
-    "ragged": ((1000, 1000), None),
-}
+#: the 218M LM's matrices and a ragged one, by their first word:
+#: (weight shape, reduce axes), as chip_smoke.py's phase 15 runs them
+QMM_SHAPES = {label.split()[0]: (shape, reduce_axes)
+              for label, shape, reduce_axes in chip_smoke.QMM_SHAPES}
 
 
 def _qmm_case(rs, shape, reduce_axes, bits, m, dtype, dev):
@@ -501,7 +494,7 @@ def test_quant_matmul_kernel_matches_plain(dev, bits, name, m):
     ref = reference_matmul(x, wq)
     assert out.dtype == torch.float32 and out.shape == ref.shape
     err = (out - ref).abs().max().item() / ref.abs().max().item()
-    assert err <= QMM_TOL, err
+    assert err <= chip_smoke.QMM_TOL, err
 
 
 def test_quant_matmul_kernel_is_bitwise_repeatable(dev):
@@ -526,40 +519,9 @@ def test_quant_matmul_cpu_plain_cuda_kernel(dev):
 
 # --- K4: the fused sampling epilogue -----------------------------------------
 
-#: rows: greedy, top-k + top-p, top-p only, top-k only, k = 1, k >= V,
-#: both cuts, a forced tie at the k-th value (top-k only)
-K4_TEMP = [0.0, 0.7, 1.0, 1.3, 0.9, 1.1, 0.8, 1.0]
-K4_TOPK = [0, 40, 0, 3, 1, 1 << 20, 7, 5]
-K4_TOPP = [1.0, 0.9, 0.5, 1.0, 0.8, 1.0, 0.3, 1.0]
-
-
-def k4_case(rs, s, v, dev):
-    """Logits, knobs and a Gumbel field for ``s`` mixed rows; the last
-    row's top 20 logits tie at one value (a tie at the k-th)."""
-    logits = torch.from_numpy((rs.randn(s, v) * 3).astype(np.float32))
-    top = logits[s - 1].topk(min(20, v)).indices
-    logits[s - 1, top] = logits[s - 1].max()
-    idx = np.arange(s) % len(K4_TEMP)
-    idx[-1] = len(K4_TEMP) - 1
-    temp = torch.tensor([K4_TEMP[i] for i in idx])
-    top_k = torch.tensor([K4_TOPK[i] for i in idx], dtype=torch.int64)
-    top_p = torch.tensor([K4_TOPP[i] for i in idx])
-    gens = [None if t <= 0 else torch.Generator(device=dev).manual_seed(i)
-            for i, t in enumerate(temp.tolist())]
-    args = [a.to(dev) for a in (logits, temp, top_k, top_p)]
-    return args + [gumbel_noise(gens, v, dev)]
-
-
-def k4_partings(out, ref, args):
-    """Rows where the kernel and the plain version pick other tokens,
-    each required to be a nucleus-boundary row; returns ``(parted rows,
-    their margins)``."""
-    parted = torch.nonzero(out != ref).flatten().tolist()
-    margins = nucleus_margin(*args[:4])
-    tol = boundary_tol(args[0].shape[-1])
-    for row in parted:
-        assert margins[row].item() <= tol, (row, margins[row].item(), tol)
-    return parted, [margins[r].item() for r in parted]
+#: mixed rows (greedy, top-k, top-p, both, k = 1, k >= V, a tie at the
+#: k-th value), as chip_smoke.py's phase 16 draws them
+k4_case = chip_smoke.k4_inputs
 
 
 @pytest.mark.parametrize("s,v", [(4, 32768), (8, 32768), (8, 1000),
@@ -575,9 +537,8 @@ def test_sample_epilogue_kernel_matches_plain(dev, s, v):
         assert kernels.launch_counts()["sample_epilogue"] == before + 1
         ref = sample_epilogue_reference(*args)
         assert out.dtype == ref.dtype and out.shape == (s,)
-        parted, _ = k4_partings(out, ref, args)
-        parted_total += len(parted)
-    assert parted_total <= s        # boundary rows are rare
+        parted_total += len(boundary_partings(out, ref, *args[:4]))
+    assert parted_total <= MAX_BOUNDARY_PARTINGS
 
 
 def test_sample_epilogue_cpu_plain_cuda_kernel(dev):
@@ -590,7 +551,8 @@ def test_sample_epilogue_cpu_plain_cuda_kernel(dev):
     on_card = sample_epilogue(*[a.to(dev) for a in args])
     torch.cuda.synchronize()
     assert kernels.launch_counts()["sample_epilogue"] == before + 1
-    k4_partings(on_card.cpu(), got, args)
+    assert len(boundary_partings(on_card, got, *args[:4])) \
+        <= MAX_BOUNDARY_PARTINGS
 
 
 @pytest.mark.parametrize("wq,cache_dtype", [("int8", None),
