@@ -84,10 +84,37 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     float32 path over the same quantized trees;
 18. ``generate(weights_dtype="int8")``: B4 x 1024-token prompts and 32
     greedy tokens, prefill and decode ms per step, exact K5 and K2
-    launch counts.
+    launch counts;
+19. the MoE expert up-projection with the token gather fused in (K6a)
+    against its plain version (``gather_gemm1_reference``) on real
+    dispatch plans (8 experts, top-2, d 1024, H 2048): a decode step
+    (N 4), an n-gram verify (N 20), an 8-slot tree (N 72), a 256-token
+    prefill chunk (C 80) and a 2048-token prefill (C 640), a routing
+    that leaves experts empty, one that sends every first choice to one
+    expert and a ragged d = H = 1000, in bf16 (2e-2 max abs) and, for
+    four of them, float32 (1e-4 relative); graph-replay times, bounds
+    from the plan, the plain version's time, ``torch.baddbmm`` on a
+    pre-gathered buffer as yardstick, and a bitwise repeat;
+20. MoE serving end to end on the all-MoE LM of ``bench.py``
+    ``bench_moe`` at ``LM_CFG`` widths (12 layers, 8 experts, top-2,
+    expert hidden 2048, bf16, seed 0, dense dispatch; ~520M
+    parameters) with phase 5's workload and pool: ``moe_decode=
+    "dispatched"`` and ``"dense"``, then an n-gram tree on two motif
+    prompts against a dense run of them; K6a launches exactly 12 per
+    decode step and verify in the dispatched runs and never in the
+    dense ones, every stream finishes and equals the dense run's or
+    parts at a near-tie of the CPU float32 scores (with the MoE LM's own
+    prefill-logit error against the CPU in the bound), ``summary()
+    ["moe"]`` is set, with TTFT, decode tok/s, resident weights and peak
+    memory;
+21. the same weights with ``moe_dispatch="fused"``: one 256-token
+    prefill launches K6a 12 times, its logits against the card's plain
+    path; then one decode step's logits on the card (bf16 and float32,
+    fused) against the CPU float32 dense path at 2 layers of the same
+    widths; routing flips counted and printed.
 
 The line before the last is one JSON object with every kernel's
-numbers (fourteen kernels); the last line is ``{"ok": true, "device":
+numbers (fifteen kernels); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -106,6 +133,7 @@ import torch.nn.functional as F
 from distkeras_tpu_torch import kernels
 from distkeras_tpu_torch.data import Dataset
 from distkeras_tpu_torch.models import Model, zoo
+from distkeras_tpu_torch.models.moe import MoE, _dispatch_plan
 from distkeras_tpu_torch.models.decoding import (_generate_params,
                                                  _masked_logits_vec,
                                                  _quantize_kv, decode_step,
@@ -117,6 +145,9 @@ from distkeras_tpu_torch.ops.decode_attention import (
 from distkeras_tpu_torch.ops.flash_attention import (
     attention_delta, flash_backward_reference, flash_forward,
     flash_forward_reference, launch_dkv, launch_dq)
+from distkeras_tpu_torch.ops.moe_kernels import (gather_gemm1,
+                                                 gather_gemm1_reference,
+                                                 src_tokens)
 from distkeras_tpu_torch.ops.losses import \
     sparse_categorical_crossentropy_from_logits
 from distkeras_tpu_torch.ops.optimizers import adam
@@ -1217,7 +1248,8 @@ def _cpu_choice(f32, context, kw, index, device, favour, eps_rel):
             float(top2[0] - top2[1]) / scale)
 
 
-def check_identity(f32, plain, spec, requests, label, device, tie_rel):
+def check_identity(f32, plain, spec, requests, label, device, tie_rel,
+                   explain=None):
     """Each speculative stream against the plain engine's stream of the
     same request: equal, or parting at a near-tie of the plain path's
     CPU float32 scores, compared up to there. A near-tie: logits moved
@@ -1225,7 +1257,11 @@ def check_identity(f32, plain, spec, requests, label, device, tie_rel):
     speculative token's favour make the float32 path choose it (for a
     greedy request: a top-2 gap within the bound; for a sampled one
     this also covers a candidate at the top-k or nucleus edge).
-    Returns the number of streams that parted."""
+    ``explain(rid, plain_rid, pos, prompt_len)`` (MoE runs) counts the
+    routing flips between the two runs over the generated tokens before
+    ``pos``: a parting away from a near-tie is then allowed only after
+    such a flip (one flipped expert moves a logit far more than bf16
+    rounding does). Returns the number of streams that parted."""
     parted = 0
     for (rid, prompt), (prid, _), (_, kw) in zip(spec[0], plain[0],
                                                  requests):
@@ -1243,9 +1279,15 @@ def check_identity(f32, plain, spec, requests, label, device, tie_rel):
               f"towards the speculative token the float32 path picks "
               f"{choice}", flush=True)
         if choice != int(b[pos]):
-            raise AssertionError(f"speculation {label}: request {rid} "
-                                 "parts from the plain stream away from a "
-                                 "near-tie")
+            flips = 0 if explain is None else explain(rid, prid, pos,
+                                                      len(prompt))
+            if not flips:
+                raise AssertionError(f"speculation {label}: request {rid} "
+                                     "parts from the plain stream away from "
+                                     "a near-tie")
+            print(f"speculation {label}: request {rid} parts away from a "
+                  f"near-tie, after {flips} routing flips between the two "
+                  f"runs in the generated tokens before it", flush=True)
         parted += 1
     return parted
 
@@ -1534,24 +1576,24 @@ WQ_KERNEL = {"int8": "quant_matmul_q8", "int4": "quant_matmul_q4"}
 
 
 class _Calls:
-    """Count the calls of one method of a class while installed."""
+    """Count the calls of the named methods of a class, or functions of
+    a module, while installed."""
 
-    def __init__(self, cls, name):
-        self.cls, self.name, self.n = cls, name, 0
-        self.orig = getattr(cls, name)
+    def __init__(self, owner, *names):
+        self.owner, self.n = owner, 0
+        self.orig = {name: getattr(owner, name) for name in names}
 
     def __enter__(self):
-        orig = self.orig
-
-        def counted(obj, *args, **kw):
-            self.n += 1
-            return orig(obj, *args, **kw)
-
-        setattr(self.cls, self.name, counted)
+        for name, fn in self.orig.items():
+            def counted(*args, _fn=fn, **kw):
+                self.n += 1
+                return _fn(*args, **kw)
+            setattr(self.owner, name, counted)
         return self
 
     def __exit__(self, *exc):
-        setattr(self.cls, self.name, self.orig)
+        for name, fn in self.orig.items():
+            setattr(self.owner, name, fn)
 
 
 class _K4Watch:
@@ -1746,6 +1788,490 @@ def generate_wq_phase(model, card, prompts):
     return c["quant_matmul_q8"]
 
 
+# --- phase 19: the MoE expert up-projection with the gather fused (K6a) -----
+
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+#: the MoE LM's expert widths: d_model 1024, expert hidden 2 x 1024
+MOE_D, MOE_H = LM_CFG["d_model"], 2 * LM_CFG["d_model"]
+#: bf16 outputs of O(1): the output's rounding (2^-8 relative) on both
+#: sides, with the d-term sums taken in another order
+K6A_BF16_TOL = 2e-2
+#: float32 on both sides: only the summation order over d = 1024 terms
+K6A_F32_TOL = 1e-4
+#: phase 19's cases: (label, tokens N, capacity C, d, H, routing). The
+#: first five are the slice's shapes: a decode step of 4 slots (C = N,
+#: decode_apply's drop-free capacity), an n-gram verify of 4 slots x 5,
+#: an 8-slot tree of 9 nodes, a 256-token prefill chunk and a 2048-token
+#: prefill (C = the layer's _capacity(N)); then a routing that leaves
+#: six experts empty, one that sends every token's first choice to one
+#: expert, and ragged widths
+K6A_CASES = (("decode N4", 4, 4, MOE_D, MOE_H, "random"),
+             ("verify N20", 20, 20, MOE_D, MOE_H, "random"),
+             ("tree N72", 72, 72, MOE_D, MOE_H, "random"),
+             ("prefill chunk N256", 256, 80, MOE_D, MOE_H, "random"),
+             ("prefill N2048", 2048, 640, MOE_D, MOE_H, "random"),
+             ("empty experts N8", 8, 8, MOE_D, MOE_H, "two-experts"),
+             ("one expert N64", 64, 64, MOE_D, MOE_H, "one-expert"),
+             ("ragged d1000 H1000 N20", 20, 20, 1000, 1000, "random"))
+#: the cases that also run in float32
+K6A_F32_CASES = ("decode N4", "tree N72", "prefill chunk N256",
+                 "ragged d1000 H1000 N20")
+
+
+def k6a_inputs(rs, n, c, d, h, routing, dtype, dev):
+    """K6a's operands for one case: a real dispatch plan (top-2 of ``n``
+    tokens over 8 experts, inverted to ``src_tok``), x ``[n, d]``, w1 and
+    a non-zero b1 in ``dtype`` on ``dev``."""
+    if routing == "random":
+        ex = np.argsort(rs.randn(n, MOE_EXPERTS), axis=1)[:, :MOE_TOP_K]
+    elif routing == "two-experts":
+        ex = np.tile([0, 1], (n, 1))
+    else:                                    # every first choice on 3
+        ex = np.stack([np.full(n, 3), (4 + rs.randint(0, 7, n)) % 8], 1)
+    g = rs.rand(n, MOE_TOP_K).astype(np.float32)
+    dest, _, _, _ = _dispatch_plan(torch.from_numpy(ex), torch.from_numpy(g),
+                                   MOE_EXPERTS, c)
+    src = src_tokens(dest, n, MOE_EXPERTS, c).to(dev)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+
+    return (t(rs.randn(n, d)), src,
+            t(rs.randn(MOE_EXPERTS, d, h) * 0.03),
+            t(rs.randn(MOE_EXPERTS, h) * 0.1))
+
+
+def k6a_phase(dev):
+    """K6a against ``gather_gemm1_reference`` on the same plan at the
+    slice's shapes and three edge cases, bf16 and float32: graph-replay
+    times, the bound from this run's plan (only the experts a token
+    reached stream w1, only filled rows are computed), the plain
+    version's time and, as a yardstick, ``torch.baddbmm`` on a
+    pre-gathered ``[E, C, d]`` buffer (no gather, no activation: no
+    single PyTorch call computes K6a); then a bitwise repeat."""
+    rows = []
+    rs = np.random.RandomState(SEED + 12)
+    for dtype, tol, peak, cases in (
+            (torch.bfloat16, K6A_BF16_TOL, PEAK_BF16_FLOPS, K6A_CASES),
+            (torch.float32, K6A_F32_TOL, PEAK_F32_FLOPS,
+             [c for c in K6A_CASES if c[0] in K6A_F32_CASES])):
+        for label, n, c, d, h, routing in cases:
+            xt, src, w1, b1 = k6a_inputs(rs, n, c, d, h, routing, dtype, dev)
+            before = kernels.launch_counts()["moe_gather_gemm1"]
+            out = gather_gemm1(xt, src, w1, b1, c)
+            torch.cuda.synchronize()
+            if kernels.launch_counts()["moe_gather_gemm1"] != before + 1:
+                raise AssertionError(f"K6a {label} did not launch")
+            ref = gather_gemm1_reference(xt, src, w1, b1, c)
+            err = (out.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            ok = err <= tol if dtype == torch.bfloat16 else rel <= tol
+            if not torch.equal(out, gather_gemm1(xt, src, w1, b1, c)):
+                raise AssertionError(f"K6a {label} is not bitwise "
+                                     "repeatable")
+            heavy = n >= 256
+            ms = graph_ms(lambda: gather_gemm1(xt, src, w1, b1, c),
+                          iters=10 if heavy else 50)
+            plain_ms = graph_ms(
+                lambda: gather_gemm1_reference(xt, src, w1, b1, c), iters=10)
+            tok = src.long().reshape(MOE_EXPERTS, c)
+            xe = torch.where((tok >= 0)[..., None], xt[tok.clamp(min=0)],
+                             torch.zeros((), dtype=dtype, device=dev))
+            b1b = b1[:, None]
+            lib_ms = graph_ms(lambda: torch.baddbmm(b1b, xe, w1),
+                              iters=10 if heavy else 50)
+            src_np = src.cpu().numpy().reshape(MOE_EXPERTS, c)
+            filled = int((src_np >= 0).sum())
+            active = int((src_np >= 0).any(axis=1).sum())
+            es = xt.element_size()
+            nbytes = (n * d + active * d * h + MOE_EXPERTS * h
+                      + MOE_EXPERTS * c * h) * es + MOE_EXPERTS * c * 4
+            bms, by = bound_ms(2.0 * filled * d * h, nbytes, peak)
+            case = f"{label} C{c} {'bf16' if es == 2 else 'f32'}"
+            print(f"moe_gather_gemm1 {case} ({routing} routing, {active} "
+                  f"experts reached, {filled} filled rows): max_abs_err "
+                  f"{err:.3e}, rel {rel:.2e} (tol {tol} "
+                  f"{'max abs' if es == 2 else 'relative'}); kernel "
+                  f"{ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, "
+                  f"baddbmm on a pre-gathered buffer {lib_ms:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by}); bitwise repeat ok", flush=True)
+            if not ok:
+                raise AssertionError(f"K6a disagrees with its plain version "
+                                     f"on {case}")
+            rows.append(dict(name=case, err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bms, bound_by=by))
+    return rows
+
+
+# --- phase 20: MoE serving end to end ----------------------------------------
+
+
+def build_moe_lm(device, *, num_layers=LM_CFG["num_layers"],
+                 dtype="bfloat16", dispatch="dense"):
+    """The all-MoE LM of ``bench.py`` ``bench_moe`` at ``LM_CFG`` widths
+    (8 experts, top-2, expert hidden 2 x d_model; ~520M parameters at 12
+    layers), built as ``_build_moe_serve_model`` builds it: dense
+    dispatch, seed 0."""
+    return Model.build(
+        zoo.transformer_lm(LM_CFG["vocab"], d_model=LM_CFG["d_model"],
+                           num_heads=LM_CFG["num_heads"],
+                           num_layers=num_layers, mlp_ratio=2, dtype=dtype,
+                           moe_every=1, num_experts=MOE_EXPERTS,
+                           moe_dispatch=dispatch),
+        (16,), seed=SEED, device=device)
+
+
+class _RouteLog:
+    """While installed, keep every ``MoE._route`` call's top-k expert
+    ids (on the host) in call order: two runs of the same tokens through
+    the same layers can then be compared expert choice by expert
+    choice."""
+
+    def __init__(self):
+        self.orig = MoE._route
+        self.topi = []
+
+    def __enter__(self):
+        orig = self.orig
+
+        def logged(layer, x, gate):
+            out = orig(layer, x, gate)
+            self.topi.append(out[1].cpu())
+            return out
+
+        MoE._route = logged
+        return self
+
+    def __exit__(self, *exc):
+        MoE._route = self.orig
+
+
+def routing_flips(a, b) -> int:
+    """Token-layer pairs whose top-k expert SETS differ between two
+    ``_RouteLog`` records of the same calls."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a.topi, b.topi))
+
+
+class _StepRoutes:
+    """While installed, record the routing of every stream token that an
+    engine's decode steps feed: for each step (and verify: its column 0,
+    the slot's pending input), which request each slot serves (read
+    from the engine as its decode iteration starts), the position of the
+    input, and its top-k expert set in every MoE layer, keyed by
+    ``(rid, position)``."""
+
+    def __init__(self, eng_mod, max_len):
+        self.eng_mod, self.max_len = eng_mod, max_len
+        self.routes = {}
+        self._running = {}
+        self.names = ("decode_step_slots_paged", "verify_step_slots_paged")
+
+    def __enter__(self):
+        cls = self.eng_mod.ServingEngine
+        self.orig_adv = cls._advance_decode
+        self.orig = {n: getattr(self.eng_mod, n) for n in self.names}
+
+        def adv(eng, *args, **kw):
+            self._running = {slot: r.rid
+                             for slot, r in eng.scheduler.running.items()}
+            return self.orig_adv(eng, *args, **kw)
+
+        def wrap(fn):
+            def step(module, params, cache, toks, t, *args, **kw):
+                with _RouteLog() as log:
+                    out = fn(module, params, cache, toks, t, *args, **kw)
+                pos = t.cpu().numpy()
+                sets = [x.reshape(x.shape[0], -1, x.shape[-1])[:, 0]
+                        .sort(-1).values.numpy() for x in log.topi]
+                for slot, rid in self._running.items():
+                    if pos[slot] < self.max_len:
+                        self.routes[(rid, int(pos[slot]))] = tuple(
+                            tuple(layer[slot]) for layer in sets)
+                return out
+            return step
+
+        cls._advance_decode = adv
+        for name, fn in self.orig.items():
+            setattr(self.eng_mod, name, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        self.eng_mod.ServingEngine._advance_decode = self.orig_adv
+        for name, fn in self.orig.items():
+            setattr(self.eng_mod, name, fn)
+
+
+def moe_logits_vs_cpu(model, f32, prompt):
+    """One prompt's logits at EVERY position through the MoE LM on the
+    card (bf16 serving weights, as the engine runs them) against the
+    plain path on the CPU in float32 at the same weights, with the
+    routing flips between the two. Returns the per-position error
+    relative to that position's max |logit| (a routing flip moves a
+    position's logits far more than bf16 rounding does, so the error
+    has a tail that one position does not show) and the flip count."""
+    tokens = torch.as_tensor(prompt[None], dtype=torch.long)
+
+    def run(m, params, device):
+        with _RouteLog() as log, torch.inference_mode():
+            logits = m.module.apply(params, tokens.to(device))
+        return logits[0].float().cpu(), log
+
+    ref, ref_log = run(f32, f32.params, "cpu")
+    card, card_log = run(model, serving_params(model.params, torch.bfloat16),
+                         model.device)
+    err = (card - ref).abs().amax(-1) / ref.abs().amax(-1)
+    return err.numpy(), routing_flips(card_log, ref_log)
+
+
+MOE_LAYERS = LM_CFG["num_layers"]
+
+
+def moe_serve_phase(model, card, prior_rel):
+    """MoE serving on the full-width all-MoE LM with phase 5's workload
+    and pool: ``moe_decode="dispatched"`` (K6a in every decode step),
+    ``"dense"`` (no K6a), then an n-gram tree run on two motif prompts
+    against a dense run of the same prompts; each run's K6a launches
+    against 12 x its decode steps and verifies, every stream finished
+    and equal to the dense run's of the same request or parted at a
+    near-tie of the CPU float32 scores."""
+    vocab = model.module.layers[0].vocab_size
+    eng_mod = sys.modules["distkeras_tpu_torch.serving.engine"]
+    steps_fns = ("decode_step_slots_paged", "verify_step_slots_paged")
+    tree_kw = dict(draft=NgramDraft(), spec_k=SPEC_K, spec_tree=True,
+                   spec_width=SPEC_WIDTH)
+    runs = [("dispatched", "serving_moe", None, {}),
+            ("dense", None, None, dict(moe_decode="dense")),
+            ("dense motif", None, 2, dict(moe_decode="dense")),
+            ("dispatched n-gram tree", "serving_moe_spec_tree", 2, tree_kw)]
+    rs = np.random.RandomState(SEED + 13)
+    for kw in ({}, dict(moe_decode="dense"), tree_kw):
+        eng = ServingEngine(model, num_slots=2, max_len=2048, page_len=16,
+                            prefill_chunk=256, device=model.device, **kw)
+        eng.submit(rs.randint(0, vocab, 40), 6)
+        eng.run(max_steps=100)
+    results, launches = {}, {}
+    for label, path, n_motif, kw in runs:
+        requests = workload(vocab) if n_motif is None \
+            else motif_workload(vocab, n_motif)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        # the routing record copies each step's positions and expert ids
+        # to the host (a few small copies beside the step's own token
+        # fetch)
+        with _Calls(eng_mod, *steps_fns) as steps, \
+                _StepRoutes(eng_mod, 2048) as rec:
+            t0 = time.perf_counter()
+            eng, reqs, out, bad, iters = serve(model, model.device,
+                                               requests=requests, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        c = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        check_finished(reqs, out, bad)
+        s = eng.metrics.summary()
+        dispatched = kw.get("moe_decode", "dispatched") == "dispatched"
+        want = MOE_LAYERS * steps.n if dispatched else 0
+        if c["moe_gather_gemm1"] != want or (dispatched and want == 0):
+            raise AssertionError(f"MoE serving {label}: {c['moe_gather_gemm1']}"
+                                 f" K6a launches for {steps.n} decode steps "
+                                 f"and verifies, expected {want}")
+        if (s["moe"] is None) == dispatched:
+            raise AssertionError(f"MoE serving {label}: summary()['moe'] is "
+                                 f"{s['moe']}")
+        moe = s["moe"] or {}
+        print(f"MoE serving {label} on {card}: {len(reqs)} requests in "
+              f"{wall:.2f} s, {iters} iterations, {steps.n} decode steps "
+              f"and verifies; launches moe_gather_gemm1 "
+              f"{c['moe_gather_gemm1']}, flash_fwd {c['flash_fwd']}, paged "
+              f"{c['paged_decode']}/{c['paged_decode_anc']}; TTFT p50 "
+              f"{s['ttft_s']['p50'] * 1e3:.1f} ms p99 "
+              f"{s['ttft_s']['p99'] * 1e3:.1f} ms; decode "
+              f"{s['decode_tokens_per_sec']:.1f} tok/s; preemptions "
+              f"{s['requests_preempted']}; resident weights "
+              f"{eng.param_bytes()} bytes; peak allocated during the run "
+              f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
+              f"allocated before it; expert load "
+              f"{moe.get('expert_load')}, router entropy "
+              f"{moe.get('router_entropy')}, concentration "
+              f"{moe.get('concentration')}; acceptance "
+              f"{s['acceptance_rate']}", flush=True)
+        results[label] = (reqs, out, requests, rec.routes)
+        if path is not None:
+            launches[path] = c
+        del eng
+    f32 = build_moe_lm("cpu", dtype="float32")
+    f32.module.load_state_dict(model.module.state_dict())
+    prompt = workload(vocab)[0][0]
+    err, flips = moe_logits_vs_cpu(model, f32, prompt)
+    rel = float(err[-1])
+    print(f"MoE prefill logits vs CPU float32 (prompt {len(prompt)}): card "
+          f"bf16 rel err at the last position {rel:.3e} (tol "
+          f"{E2E_BF16_REL_TOL}); over all {len(err)} positions median "
+          f"{np.median(err):.3e}, p99 {np.percentile(err, 99):.3e}, max "
+          f"{err.max():.3e}, {int((err > E2E_BF16_REL_TOL).sum())} above "
+          f"the tolerance; routing flips {flips} of "
+          f"{MOE_LAYERS * len(prompt)} "
+          f"token-layer choices", flush=True)
+    if not rel <= E2E_BF16_REL_TOL:
+        raise AssertionError("MoE card logits disagree with the CPU plain "
+                             "path")
+    tie_rel = TIE_ERR_FACTOR * max(prior_rel, rel)
+    parted = 0
+    for spec, plain in (("dispatched", "dense"),
+                        ("dispatched n-gram tree", "dense motif")):
+        reqs, out, requests, routes = results[spec]
+        plain_routes = results[plain][3]
+
+        def explain(rid, prid, pos, p_len, routes=routes,
+                    plain_routes=plain_routes):
+            return sum(routes[(rid, q)] != plain_routes[(prid, q)]
+                       for q in range(p_len, pos)
+                       if (rid, q) in routes and (prid, q) in plain_routes)
+
+        parted += check_identity(f32, results[plain][:2], (reqs, out),
+                                 requests, f"MoE {spec}", model.device,
+                                 tie_rel, explain)
+    print(f"MoE serving: streams parted from the dense run {parted} (tie "
+          f"bound {tie_rel:.2e} of max |logit|)", flush=True)
+    return launches
+
+
+# --- phase 21: prefill through K6a, decode-step logits against the CPU ------
+
+
+class _Dispatch:
+    """Set every MoE layer of a module to one dispatch while installed."""
+
+    def __init__(self, module, dispatch):
+        self.layers = [m for m in module.modules() if isinstance(m, MoE)]
+        self.dispatch = dispatch
+
+    def __enter__(self):
+        self.prev = [m.dispatch for m in self.layers]
+        for m in self.layers:
+            m.dispatch = self.dispatch
+        return self
+
+    def __exit__(self, *exc):
+        for m, d in zip(self.layers, self.prev):
+            m.dispatch = d
+
+
+class _PlainK6a:
+    """While installed, the fused MoE block runs K6a's plain version on
+    the card (the comparison's other side)."""
+
+    def __init__(self):
+        self.mod = sys.modules["distkeras_tpu_torch.ops.moe_kernels"]
+        self.orig = self.mod.gather_gemm1
+
+    def __enter__(self):
+        self.mod.gather_gemm1 = self.mod.gather_gemm1_reference
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.gather_gemm1 = self.orig
+
+
+MOE_PREFILL = 256
+MOE_LOGIT_LAYERS = 2
+
+
+def moe_prefill_phase(model, card):
+    """The same weights with ``moe_dispatch="fused"``: one 256-token
+    prefill chunk launches K6a once per layer; its logits against the
+    card's plain path (K6a's plain version in the same block), with the
+    routing flips between the two. Then one decode step's logits on the
+    card (bf16 and float32, fused dispatch: K6a once per layer) against
+    the CPU float32 dense path at 2 layers of the same widths, from a
+    copy of the card's cache."""
+    vocab = model.module.layers[0].vocab_size
+    prompt = np.random.RandomState(SEED + 14).randint(0, vocab, MOE_PREFILL)
+    tokens = torch.as_tensor(prompt[None], dtype=torch.long,
+                             device=model.device)
+    params = fuse_qkv_params(model.module,
+                             serving_params(model.params, torch.bfloat16))
+
+    def run():
+        with _RouteLog() as log, torch.inference_mode():
+            cache = init_cache(model.module, 1, MOE_PREFILL, torch.bfloat16,
+                               model.device)
+            logits, _ = prefill(model.module, params, cache, tokens)
+        return logits.float().cpu(), log
+
+    with _Dispatch(model.module, "fused"):
+        run()                                          # first calls
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, log = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n_k6a = kernels.launch_counts()["moe_gather_gemm1"]
+        with _PlainK6a():
+            kernels.reset_launch_counts()
+            ref, ref_log = run()
+            if kernels.launch_counts()["moe_gather_gemm1"]:
+                raise AssertionError("the plain path launched K6a")
+    rel = (got - ref).abs().max().item() / ref.abs().max().item()
+    flips = routing_flips(log, ref_log)
+    print(f"MoE fused prefill on {card}: {MOE_PREFILL}-token chunk in "
+          f"{ms:.1f} ms, moe_gather_gemm1 launches {n_k6a}; logits vs the "
+          f"card's plain path rel err {rel:.3e} (tol {E2E_BF16_REL_TOL}); "
+          f"routing flips {flips} of {MOE_LAYERS * MOE_PREFILL}",
+          flush=True)
+    if n_k6a != MOE_LAYERS:
+        raise AssertionError(f"the fused prefill launched K6a {n_k6a} times, "
+                             f"expected {MOE_LAYERS}")
+    if not rel <= E2E_BF16_REL_TOL:
+        raise AssertionError("the fused prefill's logits disagree with the "
+                             "card's plain path")
+
+    f32 = build_moe_lm("cpu", num_layers=MOE_LOGIT_LAYERS, dtype="float32")
+    out = {}
+    for label, dtype in (("bf16", "bfloat16"), ("float32", "float32")):
+        m = build_moe_lm(model.device, num_layers=MOE_LOGIT_LAYERS,
+                         dtype=dtype, dispatch="fused")
+        m.module.load_state_dict(f32.module.state_dict())
+        cdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        with torch.inference_mode():
+            p = _generate_params(m, "auto", cdt)
+            cache = init_cache(m.module, 1, MOE_PREFILL + 1, cdt, m.device)
+            logits, cache = prefill(m.module, p, cache, tokens)
+            tok = torch.argmax(logits, dim=-1)
+            cpu_cache = [None if kv is None else {
+                key: a.float().cpu() for key, a in kv.items()}
+                for kv in cache]
+            kernels.reset_launch_counts()
+            with _RouteLog() as log:
+                card_logits, _ = decode_step(m.module, p, cache, tok,
+                                             MOE_PREFILL)
+            n_step = kernels.launch_counts()["moe_gather_gemm1"]
+            with _RouteLog() as ref_log:
+                ref, _ = decode_step(f32.module, f32.params, cpu_cache,
+                                     tok.cpu(), MOE_PREFILL)
+        rel = (card_logits.float().cpu() - ref).abs().max().item() \
+            / ref.abs().max().item()
+        tol = E2E_BF16_REL_TOL if label == "bf16" else E2E_F32_REL_TOL
+        print(f"MoE decode-step logits vs CPU float32 ({MOE_LOGIT_LAYERS} "
+              f"layers, t={MOE_PREFILL}): card {label} rel err {rel:.3e} "
+              f"(tol {tol}); moe_gather_gemm1 launches {n_step}; routing "
+              f"flips {routing_flips(log, ref_log)} of {MOE_LOGIT_LAYERS}",
+              flush=True)
+        if n_step != MOE_LOGIT_LAYERS:
+            raise AssertionError(f"the {label} decode step launched K6a "
+                                 f"{n_step} times")
+        if not rel <= tol:
+            raise AssertionError(f"card {label} MoE decode-step logits "
+                                 "disagree with the CPU plain path")
+        out[label] = rel
+        del m
+    return n_k6a
+
+
 #: relative (to the largest |logit|) agreement with the CPU in float32:
 #: bf16 weights and activations through 12 blocks; float32 on the card
 #: differs from the CPU only in summation order
@@ -1880,6 +2406,16 @@ def main() -> int:
     k4_rows = k4_phase(dev)
     wq_launches = wq_phase(gen_model, card, serve_summary)
     gen_wq_launches = generate_wq_phase(gen_model, card, gen_prompts)
+    del gen_model, model
+
+    k6a_rows = k6a_phase(dev)
+    moe_model = build_moe_lm(dev)
+    print(f"model: all-MoE transformer_lm {dict(LM_CFG, mlp_ratio=2)}, "
+          f"{MOE_EXPERTS} experts top-{MOE_TOP_K}, bf16, "
+          f"{moe_model.num_params() / 1e6:.1f}M parameters", flush=True)
+    moe_launches = moe_serve_phase(moe_model, card,
+                                   max(rel_bf16, rel["bf16"]))
+    moe_prefill_launches = moe_prefill_phase(moe_model, card)
 
     by_path = {name: {} for name in kernels.SOURCES}
     for name in SERVING_KERNELS:
@@ -1902,6 +2438,9 @@ def main() -> int:
             if c[name]:
                 by_path[name][path] = c[name]
     by_path["quant_matmul_q8"]["generate_wq_int8"] = gen_wq_launches
+    for path, c in moe_launches.items():
+        by_path["moe_gather_gemm1"][path] = c["moe_gather_gemm1"]
+    by_path["moe_gather_gemm1"]["moe_prefill_fused"] = moe_prefill_launches
 
     def entry(name, source, replaces, rows, path):
         main_row = rows[0]
@@ -1961,6 +2500,9 @@ def main() -> int:
         entry("sample_epilogue", "distkeras_tpu_torch/csrc/sampling.cu",
               "distkeras_tpu/ops/sampling.py:180", k4_rows,
               "serving_wq_int8"),
+        entry("moe_gather_gemm1", "distkeras_tpu_torch/csrc/moe_gemm.cu",
+              "distkeras_tpu/ops/moe_kernels.py:214", k6a_rows,
+              "serving_moe"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

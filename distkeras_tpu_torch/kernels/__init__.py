@@ -7,7 +7,8 @@ count (``flash_bwd.cu`` holds dq and dk/dv, ``decode_attention.cu`` the
 float and int8 slab decode, ``paged_decode.cu`` the float, int8 and
 int4 paged decode, each with and without the tree ancestor mask,
 ``quant_matmul.cu`` the int8 and packed-int4 quantized matmul,
-``sampling.cu`` the fused sampling epilogue). The first call of
+``sampling.cu`` the fused sampling epilogue, ``moe_gemm.cu`` the MoE
+expert up-projection with the token gather fused in). The first call of
 ``library`` (or an explicit
 ``build``) compiles every source whose library is missing, one
 ``nvcc`` process per source, all started together. A library's file
@@ -43,7 +44,8 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
            "paged_decode_q4_anc": "paged_decode.cu",
            "quant_matmul_q8": "quant_matmul.cu",
            "quant_matmul_q4": "quant_matmul.cu",
-           "sample_epilogue": "sampling.cu"}
+           "sample_epilogue": "sampling.cu",
+           "moe_gather_gemm1": "moe_gemm.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,6 +82,8 @@ _SIGNATURES = {
     "quant_matmul_q4": ("dkt_quant_matmul_q4",
                         [_P, _I] + [_P] * 4 + [_I] * 6 + [_P]),
     "sample_epilogue": ("dkt_sample_epilogue", [_P] * 7 + [_I, _I, _P]),
+    "moe_gather_gemm1": ("dkt_moe_gather_gemm1",
+                         [_P, _I] + [_P] * 5 + [_I] * 9 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -176,7 +176,8 @@ class TransformerMLP(Layer):
 
 class TransformerBlock(Layer):
     """Pre-norm residual block: ``x + attn(norm(x))``, then
-    ``x + mlp(norm(x))``."""
+    ``x + mlp(norm(x))``. ``mlp_layer`` (e.g. a ``models.moe.MoE``)
+    replaces the ``TransformerMLP`` the block would build."""
 
     def __init__(self, num_heads: int, mlp_ratio: int = 4,
                  head_dim: Optional[int] = None, causal: bool = True,
@@ -184,7 +185,8 @@ class TransformerBlock(Layer):
                  norm: str = "rmsnorm", dtype: str = "float32",
                  num_kv_heads: Optional[int] = None,
                  rope_scale: float = 1.0,
-                 attn_window: Optional[int] = None):
+                 attn_window: Optional[int] = None,
+                 mlp_layer: Optional[Layer] = None):
         super().__init__()
         self.mlp_ratio = int(mlp_ratio)
         self.activation = activation
@@ -196,13 +198,16 @@ class TransformerBlock(Layer):
             dtype=dtype, num_kv_heads=num_kv_heads, rope_scale=rope_scale,
             attn_window=attn_window)
         self.norm2 = norm_cls()
-        self.mlp = None                   # sized at build from d_model
+        self._mlp_override = mlp_layer is not None
+        # sized at build from d_model unless given
+        self.mlp = mlp_layer
 
     def build(self, input_shape, generator):
         d_model = input_shape[-1]
-        self.mlp = TransformerMLP(self.mlp_ratio * d_model,
-                                  activation=self.activation,
-                                  dtype=self.dtype)
+        if not self._mlp_override:
+            self.mlp = TransformerMLP(self.mlp_ratio * d_model,
+                                      activation=self.activation,
+                                      dtype=self.dtype)
         for layer in (self.norm1, self.attn, self.norm2, self.mlp):
             layer.build(tuple(input_shape), generator)
         return tuple(input_shape)

@@ -10,7 +10,8 @@ tests compare trained weights leaf by leaf).
 The port keeps the JAX parameter names and layouts, so the bridge is a
 copy: every key of the port's ``param_tree()`` must be present with the
 same shape, and nothing else may be. The LM layers carry no state; a
-state tree with any array in it is refused rather than dropped.
+state tree with any array in it is refused rather than dropped, except
+a JAX MoE layer's training-only balance-loss scalar (``AUX_LOSS_KEY``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,10 @@ import torch
 
 from distkeras_tpu_torch.models.core import Model
 from distkeras_tpu_torch.utils.tree import tree_map
+
+#: the JAX package's state key of the MoE balance loss
+#: (``distkeras_tpu/models/core.py`` ``AUX_LOSS_KEY``)
+AUX_LOSS_KEY = "__aux_loss__"
 
 
 def _flatten(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
@@ -54,7 +59,10 @@ def from_jax_params(model: Model, params, state=None) -> Model:
                              f"match the port's {tuple(dst.shape)}")
         dst.copy_(torch.from_numpy(np.array(src, copy=True)).to(dst.dtype))
     if state is not None:
-        leaves = [k for k, _ in _flatten(state)]
+        # a JAX MoE layer built with a balance-loss weight carries its
+        # training-only aux-loss scalar in the state: nothing to load
+        leaves = [k for k, _ in _flatten(state)
+                  if not k.endswith("/" + AUX_LOSS_KEY)]
         if leaves:
             raise ValueError(f"the port's layers carry no state, got "
                              f"{leaves}")

@@ -18,6 +18,7 @@ speculative verify window (``_window_positions`` :758,
 ``_decode_block_slots_window`` :1152, ``_verify_window`` :1201,
 ``verify_step_slots_paged`` :1276) with ``tree_walk`` :1296 and
 ``commit_tree_path`` :1366,
+``_apply_mlp_decode`` :685 with ``_moe_route_stats`` :704,
 ``_sample`` :1503, ``_sample_vec`` :1539, ``_masked_logits_vec`` :1565,
 ``_per_seq_vec`` :1592, ``_is_per_seq`` :1607, ``_fuse_qkv_params``
 :1627, ``_project_qkv`` :1662, ``_serving_params`` :1694 and
@@ -47,6 +48,15 @@ K5 kernel on the card, the port's counterpart of XLA fusing ``q *
 scale`` into each consumer; a prefill chunk dequantizes one leaf at a
 time just before its matmul; an embedding gathers byte rows and unpacks
 only their nibble half.
+
+MoE blocks (``models.moe.MoE``): ``generate()``, its slab decode steps
+and every prefill run the layer's own ``apply`` (its configured
+dispatch, as JAX does at :340, :370 and :542); the paged slot steps
+(decode and verify, tree verify included) run ``MoE.decode_apply`` (the
+drop-free fused dispatch, K6a on the card) unless ``moe_dispatched`` is
+False, and with ``moe_stats`` also return the step's expert load and
+router entropy over live slots. MoE leaves are not quantized yet: a
+quantized ``weights_dtype`` on an MoE model raises.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from distkeras_tpu_torch.models.attention import (MultiHeadAttention,
 from distkeras_tpu_torch.models.core import Sequential, torch_dtype
 from distkeras_tpu_torch.models.layers import (Dense, Dropout, Embedding,
                                                get_activation)
+from distkeras_tpu_torch.models.moe import MoE
 from distkeras_tpu_torch.ops.attention import NEG_INF, apply_rope
 from distkeras_tpu_torch.ops.decode_attention import decode_attention
 from distkeras_tpu_torch.ops.flash_attention import flash_forward
@@ -155,9 +166,22 @@ def _attn_out(p, out, dt, kernel: bool = False):
     return torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
 
 
+#: the ROADMAP entry quantized MoE leaves wait for
+MOE_QUANT_ITEM = ("ROADMAP, Queue 1 item 12 (MoE leaves under weight "
+                  "quantization)")
+
+
+def has_moe(module: Sequential) -> bool:
+    """Whether any block of the stack has an MoE MLP."""
+    return any(isinstance(b.mlp, MoE) for b in map(_decode_block_of,
+                                                   module.layers)
+               if b is not None)
+
+
 def _mlp(mlp, p, x, kernel: bool):
-    """``TransformerMLP.apply`` over a float or a quantized tree."""
-    if not is_qdict(p["w1"]):
+    """``TransformerMLP.apply`` over a float or a quantized tree; an
+    ``MoE`` runs its own ``apply`` (its configured dispatch)."""
+    if isinstance(mlp, MoE) or not is_qdict(p["w1"]):
         return mlp.apply(p, x)
     dt = torch_dtype(mlp.dtype)
     act = get_activation(mlp.activation)
@@ -290,6 +314,48 @@ def _cache_write(kv, k, v, t: int):
 def _mlp_half(block: TransformerBlock, p, x, kernel: bool = False):
     h = block.norm2.apply(p["norm2"], x)
     return x + _mlp(block.mlp, p["mlp"], h, kernel)
+
+
+def _apply_mlp_decode(mlp, p, x, moe_dispatched: bool, routing):
+    """The MLP of the paged slot steps (JAX :685): an MoE takes the
+    drop-free fused dispatch (``MoE.decode_apply``) unless
+    ``moe_dispatched`` is False (then its own ``apply``, the dense
+    baseline); ``routing`` (a list, or None) collects ``(num_experts,
+    (topi, full))`` per MoE layer for the expert telemetry."""
+    if moe_dispatched and isinstance(mlp, MoE):
+        if routing is None:
+            return mlp.decode_apply(p, x)
+        out, r = mlp.decode_apply(p, x, return_routing=True)
+        routing.append((mlp.num_experts, r))
+        return out
+    return _mlp(mlp, p, x, kernel=True)
+
+
+def _moe_route_stats(routing, t, w_len: int, live_len: int):
+    """The step's expert telemetry (JAX :704): ``expert_load`` [E]
+    (top-k assignments per expert summed over the MoE layers whose
+    expert count is the first one's) and ``router_entropy`` (mean nats
+    of the full router softmax), both over live slots only (``0 <= t <
+    live_len``; the free-slot sentinel routes garbage). Device tensors;
+    None when no MoE layer ran."""
+    if not routing:
+        return None
+    live = ((t >= 0) & (t < live_len)).float()                 # [S]
+    e0 = routing[0][0]
+    load = torch.zeros(e0, device=t.device)
+    ent_sum = torch.zeros((), device=t.device)
+    n_layers = 0
+    for e, (topi, full) in routing:
+        if e != e0:
+            continue
+        oh = torch.nn.functional.one_hot(topi, e0).float().sum(-2)
+        load = load + (oh * live[:, None, None]).sum((0, 1))
+        pf = full.float()
+        ent = -(pf * torch.log(pf + 1e-9)).sum(-1)             # [S, W]
+        ent_sum = ent_sum + (ent * live[:, None]).sum()
+        n_layers += 1
+    n_tok = torch.clamp(live.sum() * w_len * n_layers, min=1.0)
+    return {"expert_load": load, "router_entropy": ent_sum / n_tok}
 
 
 def _prefill_block(block: TransformerBlock, p, kv, x, positions):
@@ -639,12 +705,13 @@ def _paged_attn_readout(attn: MultiHeadAttention, p, q, kv, t, table, dt,
 
 
 def _decode_block_slots_window(block: TransformerBlock, p, kv, x, t, table,
-                               index, tree=None, kv_out=None):
+                               index, tree=None, kv_out=None,
+                               moe_dispatched: bool = True, routing=None):
     """One block over an ``[S, W, d]`` window at per-slot positions
     (JAX :1152): project, rope at ``_window_positions``, write all W
     positions through the page tables, then the readout (the tree mask
-    with ``tree``). The roped window k/v go to ``kv_out`` (the caller's
-    list) for ``commit_tree_path``."""
+    with ``tree``) and ``_apply_mlp_decode``. The roped window k/v go to
+    ``kv_out`` (the caller's list) for ``commit_tree_path``."""
     attn = block.attn
     dt = torch_dtype(attn.dtype)
     xc = block.norm1.apply(p["norm1"], x).to(dt)
@@ -658,15 +725,22 @@ def _decode_block_slots_window(block: TransformerBlock, p, kv, x, t, table,
     _cache_write_pages(kv, k, v, index)
     y = _paged_attn_readout(attn, p["attn"], q, kv, t, table, dt,
                             anc=None if tree is None else tree["anc"])
-    return _mlp_half(block, p, x + y.to(x.dtype), kernel=True)
+    x = x + y.to(x.dtype)
+    h = block.norm2.apply(p["norm2"], x)
+    return x + _apply_mlp_decode(block.mlp, p["mlp"], h, moe_dispatched,
+                                 routing)
 
 
 def _verify_window(module: Sequential, params, cache, toks, t, table,
-                   page_len: int, tree=None):
+                   page_len: int, tree=None, moe_dispatched: bool = True,
+                   moe_stats=None):
     """``[S, W]`` window tokens through the stack against the paged pool
     at per-slot positions (JAX :1201); returns ``([S, W, V] logits,
     cache)``, plus with ``tree`` (``{"depth": [S, W], "anc": [S, W,
-    W]}``) the per-layer roped window k/v (None for other layers)."""
+    W]}``) the per-layer roped window k/v (None for other layers), plus
+    with ``moe_stats`` (the live-position bound) the ``_moe_route_stats``
+    of the step. MoE blocks see the window as ONE slot-token batch
+    (capacity ``S * W``: drop-free)."""
     x = toks
     w_len = toks.shape[1]
     kv0 = next(kv for kv in cache if kv is not None)
@@ -674,12 +748,14 @@ def _verify_window(module: Sequential, params, cache, toks, t, table,
         t.long()[:, None] + torch.arange(w_len, device=t.device), table,
         page_len, kv0["k"].shape[0], split_halves="q4" in kv0)
     kv_win = [] if tree is not None else None
+    routing = [] if moe_stats is not None else None
     for i, layer in enumerate(module.layers):
         p = params[i]
         block = _decode_block_of(layer)
         if block is not None:
             x = _decode_block_slots_window(block, p, cache[i], x, t, table,
-                                           index, tree, kv_win)
+                                           index, tree, kv_win,
+                                           moe_dispatched, routing)
         elif isinstance(layer, PositionalEmbedding):
             pos = _window_positions(t, w_len, tree).clamp(
                 0, layer.max_len - 1)
@@ -688,29 +764,36 @@ def _verify_window(module: Sequential, params, cache, toks, t, table,
             pass
         else:
             x = _apply_layer(layer, p, x)
-    if tree is None:
-        return x, cache
-    it = iter(kv_win)
-    kv_win = [next(it) if _decode_block_of(layer) is not None else None
-              for layer in module.layers]
-    return x, cache, kv_win
+    out = (x, cache)
+    if tree is not None:
+        it = iter(kv_win)
+        out += ([next(it) if _decode_block_of(layer) is not None else None
+                 for layer in module.layers],)
+    if moe_stats is not None:
+        out += (_moe_route_stats(routing, t, w_len, int(moe_stats)),)
+    return out
 
 
 @torch.no_grad()
 def decode_step_slots_paged(module: Sequential, params, cache, tok, t,
-                            table, page_len: int):
+                            table, page_len: int, *,
+                            moe_dispatched: bool = True, moe_stats=None):
     """One token per slot through the stack against the paged pool:
     tok ``[S]``, t ``[S]`` int32, table ``[S, P]`` int32; returns
-    ``([S, V] logits, cache)``. Slots whose ``t`` is the out-of-range
-    sentinel write nothing and give logits the caller discards."""
-    logits, cache = _verify_window(module, params, cache, tok[:, None], t,
-                                   table, page_len)
-    return logits[:, 0], cache
+    ``([S, V] logits, cache)``, plus the step's ``_moe_route_stats``
+    with ``moe_stats``. Slots whose ``t`` is the out-of-range sentinel
+    write nothing and give logits the caller discards. MoE blocks run
+    ``MoE.decode_apply`` (``moe_dispatched``) or their own ``apply``."""
+    out = _verify_window(module, params, cache, tok[:, None], t, table,
+                         page_len, moe_dispatched=moe_dispatched,
+                         moe_stats=moe_stats)
+    return (out[0][:, 0],) + out[1:]
 
 
 @torch.no_grad()
 def verify_step_slots_paged(module: Sequential, params, cache, toks, t,
-                            table, page_len: int, *, tree=None):
+                            table, page_len: int, *, tree=None,
+                            moe_dispatched: bool = True, moe_stats=None):
     """Batched speculative verify against the paged pool (JAX :1276):
     toks ``[S, W]`` (column 0 the slot's pending input, then its drafts
     or tree nodes), t ``[S]`` window starts. ``logits[:, j]`` is the
@@ -718,9 +801,11 @@ def verify_step_slots_paged(module: Sequential, params, cache, toks, t,
     past allocated pages drop. With ``tree`` the return gains the
     per-layer window k/v for ``commit_tree_path``; a chain-shaped tree
     (``depth[j] = j``, lower-triangular ``anc``) reproduces the plain
-    window bit for bit."""
+    window bit for bit. ``moe_dispatched``/``moe_stats`` as in
+    ``decode_step_slots_paged`` (the stats come last)."""
     return _verify_window(module, params, cache, toks, t, table, page_len,
-                          tree=tree)
+                          tree=tree, moe_dispatched=moe_dispatched,
+                          moe_stats=moe_stats)
 
 
 def tree_walk(logits, toks, parents, *, temperature=None, top_k=None,
@@ -937,6 +1022,10 @@ def _generate_params(model, weights_dtype, compute_dt):
     if weights_dtype is None:
         return model.params
     key = _weight_quant_kind(weights_dtype)
+    if key is not None and has_moe(model.module):
+        raise NotImplementedError(
+            f"weights_dtype={weights_dtype!r} on an MoE model is not ported "
+            f"yet: {MOE_QUANT_ITEM}")
     if key is None:
         key = weights_dtype if isinstance(weights_dtype, torch.dtype) else \
             torch_dtype(weights_dtype if isinstance(weights_dtype, str)

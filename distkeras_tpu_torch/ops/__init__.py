@@ -1,7 +1,8 @@
 """Operators of the port: attention building blocks and the wrappers
 of the hand-written CUDA kernels (``flash_attention``,
 ``decode_attention``, ``paged_attention``, ``quant_matmul``,
-``sampling``); losses, optimizers,
+``sampling``; ``moe_kernels``, imported as its module, holds the MoE
+expert up-projection); losses, optimizers,
 learning-rate schedules and metrics for training (``losses``,
 ``optimizers``, ``schedules``, ``metrics``)."""
 

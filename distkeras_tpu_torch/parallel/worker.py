@@ -17,6 +17,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from distkeras_tpu_torch.models.moe import TRAINING_ITEM, MoE
 from distkeras_tpu_torch.ops.optimizers import Optimizer, apply_updates
 from distkeras_tpu_torch.utils.tree import (tree_leaves, tree_map,
                                             tree_unflatten)
@@ -76,6 +77,10 @@ def make_train_step(module, loss_fn: Callable, optimizer: Optimizer,
     if fused_vocab_head:
         raise NotImplementedError(
             f"fused_vocab_head is not ported yet: {LATER}")
+    if any(isinstance(m, MoE) for m in module.modules()):
+        raise NotImplementedError(
+            f"training a model with MoE blocks is not ported yet: "
+            f"{TRAINING_ITEM}")
     accum_steps = int(accum_steps)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")

@@ -45,15 +45,26 @@ attention runs the flash kernel and the decode readout the paged kernel
 (its int8/int4 variant for a quantized pool); quantized weights run the
 K5 matmul kernel, ``fused_sampling`` the K4 sampling epilogue.
 
+An MoE model (``zoo.transformer_lm(moe_every=, num_experts=)``) decodes
+and verifies through ``MoE.decode_apply`` (``moe_decode="dispatched"``,
+the drop-free fused dispatch: the K6a kernel on the card) or through
+each layer's own ``apply`` (``"dense"``, the baseline). A dispatched
+engine also keeps expert telemetry (``_note_moe_route`` :819: per-expert
+load and router entropy read every ``_MOE_STATS_EVERY``-th step, and a
+smoothed routing concentration) and asks for admission headroom under
+concentrated routing (``_moe_admit_extra`` :852).
+
 Only the synchronous loop is ported. Options of the JAX engine that
 belong to later slices raise ``NotImplementedError`` naming the ROADMAP
-item; the tracer, flight recorder, SLOs and time series wait for the
-observability slice.
+item (``_NOT_PORTED``, ``submit(deadline_s=)``, ``run(on_degraded=)``,
+``cancel``); the tracer, flight recorder, SLOs and time series wait for
+the observability slice.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 import zlib
 from typing import Callable, Dict, List, Optional
 
@@ -62,7 +73,8 @@ import torch
 
 from distkeras_tpu_torch.compat import resolve_device
 from distkeras_tpu_torch.models.core import Model, Sequential
-from distkeras_tpu_torch.models.decoding import (_decode_block_of,
+from distkeras_tpu_torch.models.decoding import (MOE_QUANT_ITEM,
+                                                 _decode_block_of,
                                                  _sample_vec,
                                                  attn_compute_dtype,
                                                  commit_tree_path,
@@ -71,6 +83,7 @@ from distkeras_tpu_torch.models.decoding import (_decode_block_of,
                                                  prefill_chunk_step,
                                                  serving_params, tree_walk,
                                                  verify_step_slots_paged)
+from distkeras_tpu_torch.models.moe import MoE
 from distkeras_tpu_torch.ops.paged_attention import check_rows
 from distkeras_tpu_torch.ops.quant_matmul import (quantize_params_tree,
                                                   tree_quant_errors)
@@ -84,6 +97,9 @@ from distkeras_tpu_torch.serving.speculation import (DraftSource,
                                                      tree_ancestors)
 from distkeras_tpu_torch.utils.tree import tree_leaves
 
+_ENGINE_API = "Queue 1 item 4 (the engine's remaining synchronous API)"
+_OBSERVABILITY = "Queue 1 item 11 (host-side systems: obs/)"
+
 #: options of the JAX engine that later slices port: name -> (value that
 #: means "off", ROADMAP item)
 _NOT_PORTED = {
@@ -91,7 +107,19 @@ _NOT_PORTED = {
     "fuse_steps": (0, "fused multi-step decode"),
     "ep_mesh": (None, "expert-parallel MoE serving"),
     "host_kv_pages": (0, "host KV offload"),
+    "hbm_budget": (None, _ENGINE_API),
+    "weights_dtype": ("auto", _ENGINE_API),
+    "decode_kernel": ("auto", _ENGINE_API),
+    "engine_id": (None, _ENGINE_API),
+    "tracer": (None, _OBSERVABILITY),
+    "slo": (None, _OBSERVABILITY),
+    "timeseries": (None, _OBSERVABILITY),
 }
+
+
+def _refuse(name: str, value, item: str):
+    raise NotImplementedError(
+        f"{name}={value!r} is not ported yet: ROADMAP, {item}")
 
 
 class ServingEngine:
@@ -124,6 +152,12 @@ class ServingEngine:
     the decode steps' sampled tokens through the K4 epilogue, token for
     token the unfused sampler's.
 
+    ``moe_decode`` (``"dispatched"``, the default, or ``"dense"``)
+    chooses how an MoE model's decode and verify steps run its MoE
+    blocks: ``MoE.decode_apply`` (the K6a kernel on the card) or each
+    layer's own ``apply``. ``health()["moe"]`` and
+    ``metrics.summary()["moe"]`` report them.
+
     ``draft`` (a ``DraftSource``: ``NgramDraft()``, ``DraftModel(m)``)
     turns on speculative decoding: ``spec_k`` drafts per slot and
     iteration; ``spec_disable_below``/``spec_warmup`` the per-request
@@ -148,14 +182,19 @@ class ServingEngine:
                  host_kv_pages: int = 0, spec_k: int = 4,
                  spec_disable_below: float = 0.1, spec_warmup: int = 8,
                  spec_reprobe: Optional[int] = None,
-                 spec_tree: bool = False, spec_width: int = 1):
+                 spec_tree: bool = False, spec_width: int = 1,
+                 moe_decode: str = "dispatched", hbm_budget=None,
+                 weights_dtype="auto", decode_kernel: str = "auto",
+                 engine_id: Optional[str] = None, tracer=None, slo=None,
+                 timeseries=None):
         given = {"overlap": overlap, "fuse_steps": fuse_steps,
-                 "ep_mesh": ep_mesh, "host_kv_pages": host_kv_pages}
+                 "ep_mesh": ep_mesh, "host_kv_pages": host_kv_pages,
+                 "hbm_budget": hbm_budget, "weights_dtype": weights_dtype,
+                 "decode_kernel": decode_kernel, "engine_id": engine_id,
+                 "tracer": tracer, "slo": slo, "timeseries": timeseries}
         for name, (off, item) in _NOT_PORTED.items():
             if given[name] != off:
-                raise NotImplementedError(
-                    f"{name}={given[name]!r} is not ported yet: ROADMAP, "
-                    f"{item}")
+                _refuse(name, given[name], item)
         if kv_layout != "paged":
             raise NotImplementedError(
                 f"kv_layout={kv_layout!r} is not ported yet: ROADMAP, "
@@ -186,6 +225,7 @@ class ServingEngine:
         compute_dt = attn_compute_dtype(module)
         if cache_dtype is None:
             cache_dtype = compute_dt
+        self._init_moe(moe_decode, weight_quant)
         self._init_weights(weight_quant, compute_dt)
         #: decode steps draw through ``ops.sampling.sample_tokens`` (the
         #: K4 epilogue on the card); the first token and the speculative
@@ -218,6 +258,27 @@ class ServingEngine:
         self._init_speculation(draft, spec_k, spec_disable_below,
                                spec_warmup, spec_reprobe, spec_tree,
                                spec_width)
+
+    def _init_moe(self, moe_decode: str, weight_quant) -> None:
+        """MoE serving (JAX :406-423): the model's MoE MLPs in layer
+        order, the decode dispatch and the telemetry state."""
+        if moe_decode not in ("dispatched", "dense"):
+            raise ValueError(f"moe_decode must be 'dispatched' or 'dense', "
+                             f"got {moe_decode!r}")
+        self.moe_decode = moe_decode
+        #: the model's MoE MLPs (inside TransformerBlocks), in layer order
+        self._moe = [blk.mlp for blk in map(_decode_block_of,
+                                            self.module.layers)
+                     if blk is not None and isinstance(blk.mlp, MoE)]
+        if self._moe and weight_quant is not None:
+            raise NotImplementedError(
+                f"weight_quant={weight_quant!r} on an MoE model is not "
+                f"ported yet: {MOE_QUANT_ITEM}")
+        self._moe_dispatched = bool(self._moe) and moe_decode == "dispatched"
+        # expert telemetry rides only on the dispatched path
+        self._moe_stats_on = self._moe_dispatched
+        self._moe_conc: Optional[float] = None   # routing-concentration EMA
+        self._moe_iter = 0                       # stats-throttle counter
 
     def _init_weights(self, weight_quant, compute_dt) -> None:
         """The serving tree: the matrices cast to the compute dtype with
@@ -300,14 +361,17 @@ class ServingEngine:
                temperature: float = 0.0, top_k: Optional[int] = None,
                top_p: Optional[float] = None,
                stop_token: Optional[int] = None, seed: int = 0,
-               priority: int = 1,
+               deadline_s: Optional[float] = None, priority: int = 1,
                speculate: Optional[bool] = None) -> int:
         """Enqueue one request; returns its id. ``temperature=0`` is
         greedy; ``None`` knobs are disabled. ``priority``: lower admits
         first (0 interactive, 1 standard, 2 batch). ``speculate``: join
         the draft-and-verify iterations (None: whenever the engine has a
         draft; True on a draftless engine raises). Raises
-        ``AdmissionRejected`` when the bounded queue is full."""
+        ``AdmissionRejected`` when the bounded queue is full.
+        ``deadline_s`` raises: deadlines wait for a later slice."""
+        if deadline_s is not None:
+            _refuse("deadline_s", deadline_s, _ENGINE_API)
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must hold at least one token")
@@ -398,7 +462,10 @@ class ServingEngine:
             pool.incref(pid)
         if donor is not None:
             pool.incref(donor)
-        need = n_logical - len(full)
+        n_private = n_logical - len(full)
+        # under concentrated routing the free-page budget must also show
+        # headroom pages (required free, never allocated)
+        need = n_private + self._moe_admit_extra(req, n_logical)
         if pool.free_pages < need and self.prefix is not None:
             deficit = need - pool.free_pages
             if self.prefix.evictable_pages() >= deficit:
@@ -409,7 +476,7 @@ class ServingEngine:
             if donor is not None:
                 pool.decref(donor)
             return None
-        priv = [pool.alloc_page() for _ in range(need)]
+        priv = [pool.alloc_page() for _ in range(n_private)]
         return {"full": full, "priv": priv, "shared_len": shared_len,
                 "donor": donor}
 
@@ -595,9 +662,13 @@ class ServingEngine:
         return finished
 
     @torch.inference_mode()
-    def run(self, max_steps: Optional[int] = None) -> Dict[int, np.ndarray]:
+    def run(self, max_steps: Optional[int] = None,
+            on_degraded: str = "raise") -> Dict[int, np.ndarray]:
         """Drive ``step()`` until every request finished; returns
-        ``{rid: tokens}`` (prompt + continuation)."""
+        ``{rid: tokens}`` (prompt + continuation). ``on_degraded`` other
+        than ``"raise"`` waits for a later slice."""
+        if on_degraded != "raise":
+            _refuse("on_degraded", on_degraded, _ENGINE_API)
         out: Dict[int, np.ndarray] = {}
         steps = 0
         while self.scheduler.pending:
@@ -611,6 +682,11 @@ class ServingEngine:
                     f"(queue={self.scheduler.queue_depth}, "
                     f"occupied={self.scheduler.occupied})")
         return out
+
+    def cancel(self, rid: int):
+        """Cancelling an in-flight request waits for a later slice."""
+        raise NotImplementedError(
+            f"cancel is not ported yet: ROADMAP, {_ENGINE_API}")
 
     def health(self) -> Dict:
         """Readiness snapshot: accepting work, queue depth, slots,
@@ -638,6 +714,11 @@ class ServingEngine:
                       "fragmentation": round(self._fragmentation(), 4)},
             "prefix_cache": (None if self.prefix is None else {
                 "nodes": len(self.prefix), "hit_rate": m.prefix_hit_rate}),
+            "moe": (None if not self._moe else {
+                "decode": self.moe_decode, "layers": len(self._moe),
+                "concentration": (None if self._moe_conc is None
+                                  else round(self._moe_conc, 4)),
+                "expert_parallel": None}),
         }
 
     # --- internals --------------------------------------------------------
@@ -756,11 +837,12 @@ class ServingEngine:
             self._spec_step(finished, t0)
             return
         dev = self.device
-        logits, _ = decode_step_slots_paged(
+        logits, _, *moe = decode_step_slots_paged(
             self.module, self._params, self.pool.cache,
             torch.from_numpy(self._tok).to(dev),
             torch.from_numpy(self._t).to(dev), self.pool.device_tables(),
-            self.page_len)
+            self.page_len, **self._moe_step_kw())
+        self._note_moe_route(moe)
         slots = list(running.keys())
         reqs = list(running.values())
         if self.on_logits is not None:
@@ -777,6 +859,64 @@ class ServingEngine:
         self.metrics.record_decode(len(slots), self.metrics.clock() - t0)
         for req in done:
             self._finish(req, finished)
+
+    # --- MoE routing telemetry / admission cost ----------------------------
+
+    #: EMA smoothing of the routing-concentration estimate
+    _MOE_CONC_ALPHA = 0.25
+    #: decode iterations between MoE routing-stats reads; the first one
+    #: always reads. Only those steps compute the stats and fetch them:
+    #: the engine's decode step is host bound
+    _MOE_STATS_EVERY = 16
+    #: admission headroom per unit concentration (pages, as a fraction
+    #: of the request's context pages)
+    _MOE_ADMIT_ALPHA = 0.5
+
+    def _moe_step_kw(self) -> Dict:
+        """The MoE keywords of one decode or verify step: the dispatch,
+        and ``moe_stats`` (the live-position bound) on the steps whose
+        stats are read, every ``_MOE_STATS_EVERY``-th from the first."""
+        if not self._moe:
+            return {}
+        kw = {"moe_dispatched": self._moe_dispatched}
+        if self._moe_stats_on:
+            n = self._moe_iter
+            self._moe_iter = n + 1
+            if n % self._MOE_STATS_EVERY == 0:
+                kw["moe_stats"] = self.max_len
+        return kw
+
+    def _note_moe_route(self, stats) -> None:
+        """Host sink of one read step's routing stats (JAX :819; ``stats``
+        is the step's trailing output: empty, or ``[None | dict]``):
+        the expert-load and entropy gauges and the concentration EMA the
+        admission reads (0 = balanced routing, 1 = every assignment on
+        one expert)."""
+        if not stats or stats[0] is None:
+            return
+        load = stats[0]["expert_load"].cpu().double().numpy()
+        entropy = float(stats[0]["router_entropy"])
+        total = float(load.sum())
+        e = len(load)
+        share = float(load.max()) / total if total > 0 else 0.0
+        if total > 0 and e > 1:
+            conc = max(0.0, (share - 1.0 / e) / (1.0 - 1.0 / e))
+            a = self._MOE_CONC_ALPHA
+            self._moe_conc = (conc if self._moe_conc is None
+                              else (1.0 - a) * self._moe_conc + a * conc)
+        self.metrics.record_moe_route(load, entropy, self._moe_conc or 0.0)
+
+    def _moe_admit_extra(self, req: Request, n_logical: int) -> int:
+        """Pages of headroom (beyond the request's own) the free-page
+        budget must show before this admission, in proportion to the
+        smoothed routing concentration (JAX :852). Capped so a feasible
+        request always admits into an idle pool."""
+        if not self._moe_stats_on or not self._moe_conc:
+            return 0
+        extra = int(math.ceil(
+            self._MOE_ADMIT_ALPHA * self._moe_conc * n_logical))
+        worst = self.pool.pages_for(len(req.prompt) + req.max_new_tokens)
+        return max(0, min(extra, self.pool.num_pages - worst))
 
     # --- speculation --------------------------------------------------------
 
@@ -926,10 +1066,11 @@ class ServingEngine:
         parents = np.full((self.num_slots, k + 1), -1, np.int64)
         parents[active, 1:] = np.arange(k)
         dev = self.device
-        logits, _ = verify_step_slots_paged(
+        logits, _, *moe = verify_step_slots_paged(
             self.module, self._params, self.pool.cache,
             torch.from_numpy(toks).to(dev), torch.from_numpy(self._t).to(dev),
-            self.pool.device_tables(), self.page_len)
+            self.pool.device_tables(), self.page_len, **self._moe_step_kw())
+        self._note_moe_route(moe)
         if self.on_logits is not None:
             self.on_logits("verify", logits, list(running.keys()))
         emitted, n_emit, _ = self._walk(logits, toks, parents)
@@ -988,10 +1129,11 @@ class ServingEngine:
         tables = self.pool.device_tables()
         tree = {"depth": torch.from_numpy(depth).to(dev),
                 "anc": torch.from_numpy(anc).to(dev)}
-        logits, _, kv_win = verify_step_slots_paged(
+        logits, _, kv_win, *moe = verify_step_slots_paged(
             self.module, self._params, self.pool.cache,
             torch.from_numpy(toks).to(dev), t_dev, tables, self.page_len,
-            tree=tree)
+            tree=tree, **self._moe_step_kw())
+        self._note_moe_route(moe)
         if self.on_logits is not None:
             self.on_logits("verify", logits, list(running.keys()))
         emitted, n_emit, path = self._walk(logits, toks, parents)

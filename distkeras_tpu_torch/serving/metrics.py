@@ -7,7 +7,9 @@ iteration queue depth, slot occupancy and the decode time and tokens;
 prefill chunks, preemptions, prefix-cache lookups, the page-budget
 gauges and the speculation counters (drafts proposed and accepted per
 verify, streams disabled and re-enabled, tree width and accepted path
-length). Histograms keep a bounded sample of their values (the first
+length) and the MoE routing picture (``record_moe_route`` :297,
+``moe_expert_load`` :407, the ``"moe"`` key of ``summary()`` :513, None
+on MoE-free engines). Histograms keep a bounded sample of their values (the first
 ``reservoir``), so memory stays bounded in a long-lived engine. The
 JAX package's metrics registry and exporters wait for the
 observability slice.
@@ -89,6 +91,11 @@ class ServingMetrics:
         self._spec_rate = _Histogram(reservoir)
         self._spec_tree_width = _Histogram(reservoir)
         self._spec_path_len = _Histogram(reservoir)
+        #: the last read MoE step's per-expert load, mean router entropy
+        #: and the engine's concentration estimate (None until one)
+        self._moe_load: Optional[List[float]] = None
+        self.moe_router_entropy: Optional[float] = None
+        self.moe_concentration: Optional[float] = None
         self._t_first_submit: Optional[float] = None
         self._t_last_finish: Optional[float] = None
 
@@ -183,6 +190,17 @@ class ServingMetrics:
         self.spec_path_accepted += int(accepted_path_len)
         self.spec_path_offered += int(depth)
 
+    def record_moe_route(self, expert_load, entropy: float,
+                         concentration: float) -> None:
+        """One read MoE step's routing picture: ``expert_load`` [E] top-k
+        assignments per expert (summed over the model's MoE layers, live
+        slots only), the mean router entropy (nats) and the engine's
+        smoothed concentration (0 = uniform, 1 = one expert)."""
+        self._moe_load = [float(v) for v in np.asarray(expert_load,
+                                                       np.float64)]
+        self.moe_router_entropy = float(entropy)
+        self.moe_concentration = float(concentration)
+
     def record_phase(self, name: str, seconds: float) -> None:
         self.phase_seconds[name] = self.phase_seconds.get(name, 0.0) \
             + float(seconds)
@@ -202,6 +220,12 @@ class ServingMetrics:
         if self.spec_proposed <= 0:
             return None
         return self.spec_accepted / self.spec_proposed
+
+    @property
+    def moe_expert_load(self) -> Optional[List[float]]:
+        """The last read MoE step's per-expert load (None on MoE-free
+        engines and before the first MoE decode step)."""
+        return None if self._moe_load is None else list(self._moe_load)
 
     def decode_tokens_per_sec(self,
                               min_occupancy: int = 0) -> Optional[float]:
@@ -236,6 +260,10 @@ class ServingMetrics:
             "slot_occupancy": self._occ.mean_max(),
             "prefill_chunks": self.prefill_chunks,
             "phases": dict(self.phase_seconds),
+            "moe": (None if self._moe_load is None else {
+                "expert_load": self.moe_expert_load,
+                "router_entropy": self.moe_router_entropy,
+                "concentration": self.moe_concentration}),
             "acceptance_rate": self.acceptance_rate,
             "speculation": {
                 "proposed": self.spec_proposed,

@@ -21,6 +21,8 @@ from distkeras_tpu_torch.ops.flash_attention import (
     attention_delta, flash_backward, flash_backward_reference, flash_forward,
     flash_forward_reference)
 from distkeras_tpu_torch.parallel import SingleTrainer
+from distkeras_tpu_torch.ops.moe_kernels import (gather_gemm1,
+                                                 gather_gemm1_reference)
 from distkeras_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference)
 from distkeras_tpu_torch.ops.quant_matmul import (quant_matmul,
@@ -599,3 +601,113 @@ def test_generate_on_card_quantized_weights_launch_k5(dev):
         assert counts["quant_matmul_q8"] == 5 * 13 + 1, counts
         assert counts["decode_attention"] == 2 * 5, counts
         assert out.shape == (2, 36) and ((out >= 0) & (out < 97)).all()
+
+
+# --- K6a: the MoE expert up-projection with the token gather fused in --------
+
+#: phase 19's cases, by label: (tokens, capacity, d, H, routing)
+K6A_CASES = {label: case for label, *case in chip_smoke.K6A_CASES}
+
+
+def _k6a_check(out, ref, dtype):
+    err = (out.float() - ref.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        assert err <= chip_smoke.K6A_BF16_TOL, err
+    else:
+        assert err / ref.float().abs().max().item() \
+            <= chip_smoke.K6A_F32_TOL, err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("label", list(K6A_CASES))
+def test_moe_gather_gemm1_kernel_matches_plain(dev, label, dtype):
+    """K6a against its plain version on phase 19's plans (bf16 2e-2 max
+    abs, float32 1e-4 relative); rows no slot won equal ``act(b1)``; the
+    same inputs give the same bits."""
+    n, c, d, h, routing = K6A_CASES[label]
+    rs = np.random.RandomState(n + c)
+    xt, src, w1, b1 = chip_smoke.k6a_inputs(rs, n, c, d, h, routing, dtype,
+                                            dev)
+    before = kernels.launch_counts()["moe_gather_gemm1"]
+    out = gather_gemm1(xt, src, w1, b1, c)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["moe_gather_gemm1"] == before + 1
+    assert out.dtype == dtype and out.shape == (8, c, h)
+    ref = gather_gemm1_reference(xt, src, w1, b1, c)
+    _k6a_check(out, ref, dtype)
+    empty = (src < 0).reshape(8, c)
+    if empty.any():
+        act_b1 = torch.nn.functional.gelu(b1.float(), approximate="tanh")
+        _k6a_check(out[empty], act_b1[:, None].expand(8, c, h)[empty]
+                   .to(dtype), dtype)
+    assert torch.equal(out, gather_gemm1(xt, src, w1, b1, c))
+
+
+@pytest.mark.parametrize("activation", ["relu", "silu", "linear"])
+@pytest.mark.parametrize("n,c,d,h", [(5, 3, 40, 99), (300, 90, 70, 136)])
+def test_moe_gather_gemm1_odd_widths_and_activations(dev, n, c, d, h,
+                                                     activation):
+    """Widths off the 16-byte load (H not a multiple of 8), a d split
+    that does not divide d, and the other epilogues."""
+    rs = np.random.RandomState(h)
+    xt, src, w1, b1 = chip_smoke.k6a_inputs(rs, n, c, d, h, "random",
+                                            torch.float32, dev)
+    out = gather_gemm1(xt, src, w1, b1, c, activation)
+    ref = gather_gemm1_reference(xt, src, w1, b1, c, activation)
+    _k6a_check(out, ref, torch.float32)
+
+
+def test_moe_gather_gemm1_cpu_plain_cuda_kernel(dev):
+    xt, src, w1, b1 = chip_smoke.k6a_inputs(np.random.RandomState(2), 12, 5,
+                                            32, 48, "random", torch.float32,
+                                            "cpu")
+    before = kernels.launch_counts()["moe_gather_gemm1"]
+    got = gather_gemm1(xt, src, w1, b1, 5)
+    assert kernels.launch_counts()["moe_gather_gemm1"] == before
+    torch.testing.assert_close(
+        got, gather_gemm1_reference(xt, src, w1, b1, 5), rtol=0, atol=0)
+    on_card = gather_gemm1(*(a.to(dev) for a in (xt, src, w1, b1)), 5)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["moe_gather_gemm1"] == before + 1
+    torch.testing.assert_close(on_card.cpu(), got, rtol=1e-5, atol=1e-5)
+
+
+def test_engine_on_card_moe_runs_k6a_per_layer_step(dev):
+    """An MoE engine on the card: K6a once per MoE layer in every decode
+    step and verify when dispatched, never with ``moe_decode="dense"``;
+    ``generate()`` on fused-dispatch layers launches it once per layer
+    in the prefill and in every decode step."""
+    import sys
+    model = Model.build(zoo.transformer_lm(97, d_model=128, num_heads=4,
+                                           num_layers=2, dtype="bfloat16",
+                                           mlp_ratio=2, moe_every=1,
+                                           num_experts=8),
+                        (16,), seed=0, device=dev)
+    rs = np.random.RandomState(5)
+    prompts = [rs.randint(0, 97, 40), rs.randint(0, 97, 9)]
+    eng_mod = sys.modules["distkeras_tpu_torch.serving.engine"]
+    for mode, draft in (("dispatched", None), ("dense", None),
+                        ("dispatched", NgramDraft())):
+        eng = ServingEngine(model, num_slots=2, max_len=128,
+                            prefill_chunk=32, moe_decode=mode, draft=draft,
+                            spec_k=3)
+        kernels.reset_launch_counts()
+        with chip_smoke._Calls(eng_mod, "decode_step_slots_paged",
+                               "verify_step_slots_paged") as steps:
+            rids = [eng.submit(p, 6) for p in prompts]
+            out = eng.run(max_steps=200)
+        assert sorted(out) == rids
+        n = kernels.launch_counts()["moe_gather_gemm1"]
+        if mode == "dispatched":
+            assert steps.n >= 5 and n == 2 * steps.n, (n, steps.n)
+            assert eng.metrics.summary()["moe"] is not None
+        else:
+            assert n == 0 and eng.metrics.summary()["moe"] is None
+    for blk in model.module.layers[1:3]:
+        blk.mlp.dispatch = "fused"
+    kernels.reset_launch_counts()
+    out = model.generate(np.stack([prompts[0][:9], prompts[1]]), 3)
+    torch.cuda.synchronize()
+    # the prefill and two decode steps, 2 layers each
+    assert kernels.launch_counts()["moe_gather_gemm1"] == 3 * 2
+    assert out.shape == (2, 12)

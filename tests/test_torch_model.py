@@ -83,8 +83,17 @@ def test_bridge_refuses_mismatched_trees():
 
 
 def test_moe_is_not_ported_yet():
+    """MoE blocks build and serve now; expert parallelism and training
+    through them are what is not ported yet."""
+    lm = zoo.transformer_lm(V, d_model=16, num_heads=2, num_layers=1,
+                            moe_every=1, num_experts=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.transformer_lm(V, moe_every=1, num_experts=4)
+        zoo.transformer_lm(V, moe_every=1, num_experts=4,
+                           moe_expert_axis="expert")
+    m = Model.build(lm, (6,), device="cpu")
+    m.module.train()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m.module(torch.zeros(1, 6, dtype=torch.long))
 
 
 def test_entry_points_need_cuda_unless_told_cpu():

@@ -218,11 +218,76 @@ def test_quantized_kv_engine_matches_generate(lms, cache_dtype):
 @pytest.mark.parametrize("kw", [{"overlap": True}, {"fuse_steps": 4},
                                 {"kv_layout": "slab"},
                                 {"host_kv_pages": 8},
-                                {"ep_mesh": "expert"}])
+                                {"ep_mesh": "expert"},
+                                {"hbm_budget": 1 << 30},
+                                {"weights_dtype": "bfloat16"},
+                                {"decode_kernel": "off"},
+                                {"engine_id": "e0"},
+                                {"tracer": object()}, {"slo": object()},
+                                {"timeseries": object()}])
 def test_later_slices_raise_naming_the_roadmap(lms, kw):
     _, pm = lms
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(pm, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("call", ["submit-deadline", "run-on-degraded",
+                                  "cancel"])
+def test_later_slice_calls_raise_naming_the_roadmap(lms, call):
+    """The JAX engine's per-call options of later slices raise naming
+    their ROADMAP item (their "off" values stay accepted)."""
+    _, pm = lms
+    eng = ServingEngine(pm, num_slots=1, max_len=32, device="cpu",
+                        hbm_budget=None, weights_dtype="auto",
+                        decode_kernel="auto", engine_id=None, tracer=None,
+                        slo=None, timeseries=None)
+    rid = eng.submit(PATTERN[:4], 2, deadline_s=None)
+    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 4"):
+        if call == "submit-deadline":
+            eng.submit(PATTERN[:4], 2, deadline_s=1.0)
+        elif call == "run-on-degraded":
+            eng.run(on_degraded="skip")
+        else:
+            eng.cancel(rid)
+    assert eng.run(max_steps=50, on_degraded="raise")[rid].size == 6
+
+
+# --- GQA and sliding-window models through the engine -------------------------
+
+COVERAGE = {"gqa1": {"num_kv_heads": 1}, "gqa2": {"num_kv_heads": 2},
+            "swa5": {"num_kv_heads": 2, "attn_window": 5},
+            "swa8": {"attn_window": 8}}
+
+
+@pytest.mark.parametrize("cache_dtype", [None, "int8"])
+@pytest.mark.parametrize("cfg", sorted(COVERAGE))
+def test_gqa_swa_engine_matches_generate(cfg, cache_dtype):
+    """Random seed-3 float32 models with grouped queries (1 and 2 kv
+    heads) and sliding windows (5 and 8) through the engine under
+    chunked prefill, 4-position pages, float and int8 pages and a
+    prefix-cache hit: every stream token-identical to JAX
+    ``generate()``."""
+    from distkeras_tpu.models import Model as JaxModel
+    from distkeras_tpu.models import zoo as jax_zoo
+    kw = dict(d_model=32, num_heads=4, num_layers=2, mlp_ratio=2)
+    kw.update(COVERAGE[cfg])
+    jm = JaxModel.build(jax_zoo.transformer_lm(V, **kw), (8,), seed=3)
+    pm = Model.build(zoo.transformer_lm(V, **kw), (8,), device="cpu")
+    from_jax_params(pm, jm.params, jm.state)
+    rs = np.random.RandomState(3)
+    shared = rs.randint(0, V, 8)
+    prompts = [np.concatenate([shared, rs.randint(0, V, n)])
+               for n in (5, 3, 7)] + [rs.randint(0, V, 9)]
+    eng = ServingEngine(pm, num_slots=2, max_len=40, page_len=4,
+                        prefill_chunk=4, cache_dtype=cache_dtype,
+                        device="cpu")
+    rids = [eng.submit(p, 10) for p in prompts]
+    out = eng.run(max_steps=500)
+    assert eng.metrics.prefix_hits >= 1
+    for rid, p in zip(rids, prompts):
+        np.testing.assert_array_equal(
+            out[rid], _ref(jm, p, 10, cache_dtype=cache_dtype,
+                           prefill_chunk=4))
 
 
 # --- quantized weights and the fused sampling epilogue -----------------------
