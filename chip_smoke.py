@@ -102,11 +102,15 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     "dispatched"`` and ``"dense"``, then an n-gram tree on two motif
     prompts against a dense run of them; K6a launches exactly 12 per
     decode step and verify in the dispatched runs and never in the
-    dense ones, every stream finishes and equals the dense run's or
-    parts at a near-tie of the CPU float32 scores (with the MoE LM's own
-    prefill-logit error against the CPU in the bound), ``summary()
-    ["moe"]`` is set, with TTFT, decode tok/s, resident weights and peak
-    memory;
+    dense ones, every stream finishes, ``summary()["moe"]`` is set,
+    with TTFT, decode tok/s, resident weights and peak memory from runs
+    that carry no recorder; the MoE LM's prefill logits against the CPU
+    float32 path; then each dispatched run teacher-forced along its
+    dense run's streams: every ``decode_apply`` call against the dense
+    layer on the same input and, wherever the expert sets match in
+    every layer, each generated token's logits against the dense
+    engine's, both at the bf16 tolerance; routing flips counted and
+    printed, as are the free-running streams' partings;
 21. the same weights with ``moe_dispatch="fused"``: one 256-token
     prefill launches K6a 12 times, its logits against the card's plain
     path; then one decode step's logits on the card (bf16 and float32,
@@ -1248,8 +1252,7 @@ def _cpu_choice(f32, context, kw, index, device, favour, eps_rel):
             float(top2[0] - top2[1]) / scale)
 
 
-def check_identity(f32, plain, spec, requests, label, device, tie_rel,
-                   explain=None):
+def check_identity(f32, plain, spec, requests, label, device, tie_rel):
     """Each speculative stream against the plain engine's stream of the
     same request: equal, or parting at a near-tie of the plain path's
     CPU float32 scores, compared up to there. A near-tie: logits moved
@@ -1257,11 +1260,7 @@ def check_identity(f32, plain, spec, requests, label, device, tie_rel,
     speculative token's favour make the float32 path choose it (for a
     greedy request: a top-2 gap within the bound; for a sampled one
     this also covers a candidate at the top-k or nucleus edge).
-    ``explain(rid, plain_rid, pos, prompt_len)`` (MoE runs) counts the
-    routing flips between the two runs over the generated tokens before
-    ``pos``: a parting away from a near-tie is then allowed only after
-    such a flip (one flipped expert moves a logit far more than bf16
-    rounding does). Returns the number of streams that parted."""
+    Returns the number of streams that parted."""
     parted = 0
     for (rid, prompt), (prid, _), (_, kw) in zip(spec[0], plain[0],
                                                  requests):
@@ -1279,15 +1278,9 @@ def check_identity(f32, plain, spec, requests, label, device, tie_rel,
               f"towards the speculative token the float32 path picks "
               f"{choice}", flush=True)
         if choice != int(b[pos]):
-            flips = 0 if explain is None else explain(rid, prid, pos,
-                                                      len(prompt))
-            if not flips:
-                raise AssertionError(f"speculation {label}: request {rid} "
-                                     "parts from the plain stream away from "
-                                     "a near-tie")
-            print(f"speculation {label}: request {rid} parts away from a "
-                  f"near-tie, after {flips} routing flips between the two "
-                  f"runs in the generated tokens before it", flush=True)
+            raise AssertionError(f"speculation {label}: request {rid} "
+                                 "parts from the plain stream away from a "
+                                 "near-tie")
         parted += 1
     return parted
 
@@ -1925,18 +1918,20 @@ class _RouteLog:
     """While installed, keep every ``MoE._route`` call's top-k expert
     ids (on the host) in call order: two runs of the same tokens through
     the same layers can then be compared expert choice by expert
-    choice."""
+    choice. Calls made while ``paused`` are not kept."""
 
     def __init__(self):
         self.orig = MoE._route
         self.topi = []
+        self.paused = False
 
     def __enter__(self):
         orig = self.orig
 
         def logged(layer, x, gate):
             out = orig(layer, x, gate)
-            self.topi.append(out[1].cpu())
+            if not self.paused:
+                self.topi.append(out[1].cpu())
             return out
 
         MoE._route = logged
@@ -1953,53 +1948,137 @@ def routing_flips(a, b) -> int:
                for x, y in zip(a.topi, b.topi))
 
 
-class _StepRoutes:
-    """While installed, record the routing of every stream token that an
-    engine's decode steps feed: for each step (and verify: its column 0,
-    the slot's pending input), which request each slot serves (read
-    from the engine as its decode iteration starts), the position of the
-    input, and its top-k expert set in every MoE layer, keyed by
-    ``(rid, position)``."""
+class _Forced:
+    """A teacher-forced engine run. Installed on an engine whose requests
+    are submitted, it replaces every token the engine chooses (the
+    prefill's first token, each decode step's, each verify walk's) by
+    the next token of ``streams[i]`` (the generated tokens of an earlier
+    run of the ``i``-th request), and keeps, for each generated token
+    that a decode or verify step computed, the step's logits (on the
+    card) and the top-k expert set, in every MoE layer, of the input
+    token that produced them, keyed by ``(i, generated index)``. With
+    ``layer_check`` each ``MoE.decode_apply`` call also runs the layer's
+    dense path on the same input, and the largest difference relative to
+    the dense output's max |value| is kept (the same input routes
+    alike, so no flip can hide a difference there)."""
 
-    def __init__(self, eng_mod, max_len):
-        self.eng_mod, self.max_len = eng_mod, max_len
-        self.routes = {}
-        self._running = {}
-        self.names = ("decode_step_slots_paged", "verify_step_slots_paged")
+    STEPS = ("decode_step_slots_paged", "verify_step_slots_paged")
+
+    def __init__(self, eng_mod, streams, layer_check=False):
+        self.eng_mod, self.streams = eng_mod, streams
+        self.layer_check = layer_check
+        self.logits, self.routes = {}, {}
+        self.layer_err, self.layer_calls = 0.0, 0
+        self.index, self.eng = {}, None
+        self._log = self._topi = None
+
+    def attach(self, eng, rids):
+        self.eng = eng
+        self.index = {rid: i for i, rid in enumerate(rids)}
+        eng._sample = self._sample
+        eng._walk = self._walk
 
     def __enter__(self):
-        cls = self.eng_mod.ServingEngine
-        self.orig_adv = cls._advance_decode
-        self.orig = {n: getattr(self.eng_mod, n) for n in self.names}
-
-        def adv(eng, *args, **kw):
-            self._running = {slot: r.rid
-                             for slot, r in eng.scheduler.running.items()}
-            return self.orig_adv(eng, *args, **kw)
-
-        def wrap(fn):
-            def step(module, params, cache, toks, t, *args, **kw):
-                with _RouteLog() as log:
-                    out = fn(module, params, cache, toks, t, *args, **kw)
-                pos = t.cpu().numpy()
-                sets = [x.reshape(x.shape[0], -1, x.shape[-1])[:, 0]
-                        .sort(-1).values.numpy() for x in log.topi]
-                for slot, rid in self._running.items():
-                    if pos[slot] < self.max_len:
-                        self.routes[(rid, int(pos[slot]))] = tuple(
-                            tuple(layer[slot]) for layer in sets)
-                return out
-            return step
-
-        cls._advance_decode = adv
+        self.orig = {n: getattr(self.eng_mod, n) for n in self.STEPS}
+        self.orig_apply = MoE.decode_apply
         for name, fn in self.orig.items():
-            setattr(self.eng_mod, name, wrap(fn))
+            setattr(self.eng_mod, name, self._wrap(fn))
+        if self.layer_check:
+            MoE.decode_apply = lambda layer, p, x, **kw: self._checked(
+                layer, p, x, **kw)
         return self
 
     def __exit__(self, *exc):
-        self.eng_mod.ServingEngine._advance_decode = self.orig_adv
         for name, fn in self.orig.items():
             setattr(self.eng_mod, name, fn)
+        MoE.decode_apply = self.orig_apply
+
+    def _wrap(self, fn):
+        def step(*args, **kw):
+            with _RouteLog() as log:
+                self._log = log
+                out = fn(*args, **kw)
+            self._log = None
+            # [L, S, W, K], each token's expert set sorted
+            self._topi = torch.stack([
+                x.reshape(x.shape[0], -1, x.shape[-1]) for x in log.topi
+            ]).sort(-1).values.numpy()
+            return out
+        return step
+
+    def _checked(self, layer, p, x, *, return_routing=False):
+        out = self.orig_apply(layer, p, x, return_routing=return_routing)
+        y = out[0] if return_routing else out
+        self._log.paused, prev = True, layer.dispatch
+        layer.dispatch = "dense"
+        try:
+            ref = layer.apply(p, x).float()
+        finally:
+            self._log.paused, layer.dispatch = False, prev
+        err = float((y.float() - ref).abs().max() / ref.abs().max())
+        self.layer_err = max(self.layer_err, err)
+        self.layer_calls += 1
+        return out
+
+    def _keep(self, i, g, logits, sets):
+        self.logits[(i, g)] = logits.float().clone()
+        self.routes[(i, g)] = sets.copy()
+
+    def _next(self, req, g):
+        stream = self.streams[self.index[req.rid]]
+        return (int(stream[g]) if g < len(stream) else 0), g < len(stream)
+
+    def _sample(self, logits, rows, reqs, fused=False):
+        topi, self._topi = self._topi, None     # None: a prefill's draw
+        out = np.zeros(logits.shape[0], np.int64)
+        for row, r in zip(rows, reqs):
+            g = len(r.generated)
+            out[row], known = self._next(r, g)
+            if topi is not None and known:
+                self._keep(self.index[r.rid], g, logits[row],
+                           topi[:, row, 0])
+        return out
+
+    def _walk(self, logits, toks, parents):
+        """The verify walk down the forced stream: at each node emit the
+        stream's next token and descend into the lowest-index child that
+        drafted it, as ``tree_walk`` descends into the target's choice;
+        idle slots emit nothing."""
+        topi, self._topi = self._topi, None
+        s_n, w_len = toks.shape
+        emitted = np.full((s_n, w_len), -1, np.int64)
+        n_emit = np.zeros(s_n, np.int64)
+        path = np.zeros((s_n, w_len), np.int64)
+        for slot, r in self.eng.scheduler.running.items():
+            g0, cur = len(r.generated), 0
+            for step in range(w_len):
+                path[slot, step:] = cur
+                want, known = self._next(r, g0 + step)
+                if known:
+                    self._keep(self.index[r.rid], g0 + step,
+                               logits[slot, cur], topi[:, slot, cur])
+                emitted[slot, step] = want
+                n_emit[slot] += 1
+                child = np.flatnonzero((parents[slot] == cur)
+                                       & (toks[slot] == want))
+                if not known or not child.size:
+                    break
+                cur = int(child[0])
+        return emitted, n_emit, path
+
+
+def forced_run(model, requests, streams, layer_check=False, **engine_kw):
+    """``requests`` through a paged engine as ``serve`` builds it,
+    teacher-forced to ``streams`` (``_Forced``); returns the record."""
+    eng_mod = sys.modules["distkeras_tpu_torch.serving.engine"]
+    eng = ServingEngine(model, num_slots=4, max_len=2048, page_len=16,
+                        prefill_chunk=256, num_pages=NUM_PAGES,
+                        device=model.device, **engine_kw)
+    rids = [eng.submit(prompt, NEW_TOKENS, **kw) for prompt, kw in requests]
+    with _Forced(eng_mod, streams, layer_check) as rec:
+        rec.attach(eng, rids)
+        eng.run(max_steps=5000)
+    return rec
 
 
 def moe_logits_vs_cpu(model, f32, prompt):
@@ -2025,19 +2104,77 @@ def moe_logits_vs_cpu(model, f32, prompt):
 
 
 MOE_LAYERS = LM_CFG["num_layers"]
+def forced_compare(label, plain, spec, greedy):
+    """Two teacher-forced records of the same streams (``_Forced``): the
+    dispatched engine's logits for each generated token against the
+    dense engine's, at the bf16 tolerance, at every token whose input
+    has the same expert set in every MoE layer in both runs; the tokens
+    where a set differs (a routing flip: a bf16 near-tie of the router
+    scores, after which one expert's output replaces another's) are
+    counted and their error printed, not held. Also holds the dispatched
+    record's per-layer check at the same tolerance (the two paths round
+    the hidden rows, the expert outputs and the gate products to bf16
+    at different points, a few bf16 ulps of the largest output; a
+    wrong expert, bias or activation moves it by its own size). Prints
+    how often the plain record's argmax is the forced token at the
+    ``greedy`` requests' positions (the forced plain run recomputes the
+    run that made the streams). Returns ``{request index: generated index
+    of its first flip}``."""
+    if not plain.logits or set(plain.logits) != set(spec.logits):
+        raise AssertionError(f"{label}: the forced runs computed different "
+                             "tokens")
+    groups = {"matched": [], "matched after a flip": [], "flipped": []}
+    flips, first, choices = 0, {}, 0
+    for i, g in sorted(plain.logits):
+        ref = plain.logits[(i, g)]
+        err = float((spec.logits[(i, g)] - ref).abs().max()
+                    / ref.abs().max())
+        n = int((plain.routes[(i, g)] != spec.routes[(i, g)]).any(-1).sum())
+        flips += n
+        choices += len(plain.routes[(i, g)])
+        if n:
+            first.setdefault(i, g)
+            groups["flipped"].append(err)
+        else:
+            groups["matched after a flip" if i in first
+                   else "matched"].append(err)
+    again = [int(torch.argmax(lg)) == int(plain.streams[i][g])
+             for (i, g), lg in plain.logits.items() if i in greedy]
+    stats = "; ".join(
+        f"{name} {len(e)} tokens" + (f", max {max(e):.3e} median "
+                                     f"{np.median(e):.3e}" if e else "")
+        for name, e in groups.items())
+    print(f"MoE {label} teacher-forced on the dense run's streams: logits "
+          f"vs the dense engine's, rel err (tol {E2E_BF16_REL_TOL} where "
+          f"the expert sets match): {stats}; routing flips {flips} of "
+          f"{choices} token-layer choices; the dense record's argmax is "
+          f"the stream's token at {sum(again)} of {len(again)} greedy "
+          f"positions; "
+          f"decode_apply vs the dense layer on the same input over "
+          f"{spec.layer_calls} calls: max rel err {spec.layer_err:.3e} (tol "
+          f"{E2E_BF16_REL_TOL})", flush=True)
+    if not spec.layer_calls or not spec.layer_err <= E2E_BF16_REL_TOL:
+        raise AssertionError(f"MoE {label}: decode_apply disagrees with the "
+                             "dense layer on the same input")
+    matched = groups["matched"] + groups["matched after a flip"]
+    if not matched or not max(matched) <= E2E_BF16_REL_TOL:
+        raise AssertionError(f"MoE {label}: logits disagree with the dense "
+                             "engine's where the expert sets match")
+    return first
 
 
-def moe_serve_phase(model, card, prior_rel):
+def moe_serve_phase(model, card):
     """MoE serving on the full-width all-MoE LM with phase 5's workload
     and pool: ``moe_decode="dispatched"`` (K6a in every decode step),
     ``"dense"`` (no K6a), then an n-gram tree run on two motif prompts
     against a dense run of the same prompts; each run's K6a launches
-    against 12 x its decode steps and verifies, every stream finished
-    and equal to the dense run's of the same request or parted at a
-    near-tie of the CPU float32 scores."""
+    against 12 x its decode steps and verifies, and every stream
+    finished. The timed runs carry no recorder. Then each dispatched run
+    is teacher-forced along its dense run's streams (``forced_compare``);
+    the free-running streams' partings are printed beside the first
+    routing flip the forced runs show for the same request."""
     vocab = model.module.layers[0].vocab_size
     eng_mod = sys.modules["distkeras_tpu_torch.serving.engine"]
-    steps_fns = ("decode_step_slots_paged", "verify_step_slots_paged")
     tree_kw = dict(draft=NgramDraft(), spec_k=SPEC_K, spec_tree=True,
                    spec_width=SPEC_WIDTH)
     runs = [("dispatched", "serving_moe", None, {}),
@@ -2058,11 +2195,7 @@ def moe_serve_phase(model, card, prior_rel):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         kernels.reset_launch_counts()
-        # the routing record copies each step's positions and expert ids
-        # to the host (a few small copies beside the step's own token
-        # fetch)
-        with _Calls(eng_mod, *steps_fns) as steps, \
-                _StepRoutes(eng_mod, 2048) as rec:
+        with _Calls(eng_mod, *_Forced.STEPS) as steps:
             t0 = time.perf_counter()
             eng, reqs, out, bad, iters = serve(model, model.device,
                                                requests=requests, **kw)
@@ -2098,7 +2231,7 @@ def moe_serve_phase(model, card, prior_rel):
               f"{moe.get('router_entropy')}, concentration "
               f"{moe.get('concentration')}; acceptance "
               f"{s['acceptance_rate']}", flush=True)
-        results[label] = (reqs, out, requests, rec.routes)
+        results[label] = (reqs, out, requests, kw)
         if path is not None:
             launches[path] = c
         del eng
@@ -2118,24 +2251,28 @@ def moe_serve_phase(model, card, prior_rel):
     if not rel <= E2E_BF16_REL_TOL:
         raise AssertionError("MoE card logits disagree with the CPU plain "
                              "path")
-    tie_rel = TIE_ERR_FACTOR * max(prior_rel, rel)
     parted = 0
     for spec, plain in (("dispatched", "dense"),
                         ("dispatched n-gram tree", "dense motif")):
-        reqs, out, requests, routes = results[spec]
-        plain_routes = results[plain][3]
-
-        def explain(rid, prid, pos, p_len, routes=routes,
-                    plain_routes=plain_routes):
-            return sum(routes[(rid, q)] != plain_routes[(prid, q)]
-                       for q in range(p_len, pos)
-                       if (rid, q) in routes and (prid, q) in plain_routes)
-
-        parted += check_identity(f32, results[plain][:2], (reqs, out),
-                                 requests, f"MoE {spec}", model.device,
-                                 tie_rel, explain)
-    print(f"MoE serving: streams parted from the dense run {parted} (tie "
-          f"bound {tie_rel:.2e} of max |logit|)", flush=True)
+        reqs, out, requests, spec_kw = results[spec]
+        preqs, pout, _, plain_kw = results[plain]
+        streams = [pout[prid][len(p):] for prid, p in preqs]
+        greedy = {i for i, (_, kw) in enumerate(requests)
+                  if not kw.get("temperature")}
+        first = forced_compare(
+            spec, forced_run(model, requests, streams, **plain_kw),
+            forced_run(model, requests, streams, layer_check=True,
+                       **spec_kw), greedy)
+        for i, ((rid, p), (prid, _)) in enumerate(zip(reqs, preqs)):
+            diff = np.flatnonzero(out[rid] != pout[prid])
+            if diff.size:
+                parted += 1
+                print(f"MoE {spec}: request {i} parts from the dense stream "
+                      f"at generated token {int(diff[0]) - len(p)}; the "
+                      f"forced runs' first routing flip for it is at "
+                      f"generated token {first.get(i)}", flush=True)
+    print(f"MoE serving: streams parted from the dense run {parted}",
+          flush=True)
     return launches
 
 
@@ -2413,8 +2550,7 @@ def main() -> int:
     print(f"model: all-MoE transformer_lm {dict(LM_CFG, mlp_ratio=2)}, "
           f"{MOE_EXPERTS} experts top-{MOE_TOP_K}, bf16, "
           f"{moe_model.num_params() / 1e6:.1f}M parameters", flush=True)
-    moe_launches = moe_serve_phase(moe_model, card,
-                                   max(rel_bf16, rel["bf16"]))
+    moe_launches = moe_serve_phase(moe_model, card)
     moe_prefill_launches = moe_prefill_phase(moe_model, card)
 
     by_path = {name: {} for name in kernels.SOURCES}

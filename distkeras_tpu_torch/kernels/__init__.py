@@ -24,6 +24,7 @@ so a run can show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -173,6 +174,14 @@ def check(lib: ctypes.CDLL, err: int, name: str) -> None:
     if err != 0:
         msg = lib.dkt_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``: what the
+    kernels' split plans size their grids by."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def count_launch(name: str) -> None:

@@ -170,8 +170,9 @@ class MoE(Layer):
         dest, _, sg, keep = _dispatch_plan(topi.reshape(n, k),
                                            gates.reshape(n, k), e, c)
         xt = x.reshape(n, d).to(dt)
+        from distkeras_tpu_torch.ops.moe_kernels import (combine,
+                                                         fused_moe_apply)
         if fused:
-            from distkeras_tpu_torch.ops.moe_kernels import fused_moe_apply
             out = fused_moe_apply(xt, *self._weights(p, dt), sg, dest, keep,
                                   capacity=c, activation=self.activation)
         else:
@@ -181,13 +182,7 @@ class MoE(Layer):
             xe = torch.zeros((e * c + k * n, d), dtype=dt, device=x.device)
             xe.index_copy_(0, dest, src)
             ye = self._expert_mlp(xe[:e * c].reshape(e, c, d), p)
-            ye_flat = ye.reshape(e * c, d)
-            # a dropped slot's sentinel clamps into range and is masked
-            # before the gate multiply (a non-finite row cannot leak)
-            rows = ye_flat[dest.clamp(max=e * c - 1)]
-            safe = torch.where(keep[:, None], rows,
-                               torch.zeros((), dtype=dt, device=x.device))
-            out = (safe * sg[:, None].to(dt)).reshape(k, n, d).sum(dim=0)
+            out = combine(ye.reshape(e * c, d), dest, keep, sg, n)
         out = out.reshape(b, s, d)
         if return_routing:
             return out, (topi, full)

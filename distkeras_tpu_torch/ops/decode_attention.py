@@ -39,7 +39,6 @@ takes any cache length and runs at every length.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
@@ -130,11 +129,6 @@ def split_plan(rows: int, n_valid: int, num_sms: int):
     return cdiv(n_valid, chunk), chunk
 
 
-@functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch(q, k, v, t, scale, window, k_scale, v_scale):
     bh, g, d = q.shape
     if d not in KERNEL_HEAD_DIMS:
@@ -161,7 +155,7 @@ def _launch(q, k, v, t, scale, window, k_scale, v_scale):
     if bh == 0:
         return out
     lo, hi = valid_range(t, window)
-    splits, chunk = split_plan(bh, hi - lo + 1, _num_sms(q.device.index))
+    splits, chunk = split_plan(bh, hi - lo + 1, kernels.num_sms(q.device.index))
     part_acc = torch.empty((splits, bh, g, d), dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty((2, splits, bh, g), dtype=torch.float32,

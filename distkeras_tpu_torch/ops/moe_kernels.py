@@ -36,8 +36,8 @@ from distkeras_tpu_torch.models.layers import get_activation
 BLOCK_N = 256
 #: rows of w1 one block's warps stride over at a time
 ROW_GROUPS = 8
-#: blocks the d split aims for (two per SM on 132 SMs)
-TARGET_BLOCKS = 264
+#: blocks per SM the d split aims for
+BLOCKS_PER_SM = 2
 #: capacity rows one block holds per launch tile
 ROW_TILES = (1, 2, 4, 8)
 #: activation name -> the kernel's epilogue code
@@ -114,15 +114,17 @@ def gather_gemm1(xt, src_tok, w1, b1, capacity: int,
     return _launch(xt, src_tok, w1, b1, int(capacity), activation)
 
 
-def split_plan(capacity: int, d: int, hid: int, num_experts: int):
+def split_plan(capacity: int, d: int, hid: int, num_experts: int,
+               num_sms: int):
     """``(rt, ksplit, kchunk)``: the capacity rows per block tile, and how
     the d rows of ``w1[e]`` are cut across blocks. Enough d splits that
-    the grid fills the card ``TARGET_BLOCKS`` deep, none shorter than 32
-    rows; a chunk is a multiple of ``ROW_GROUPS``. A function of the
-    shapes alone, so the same inputs give the same bits."""
+    the grid fills the card's ``num_sms`` SMs ``BLOCKS_PER_SM`` deep,
+    none shorter than 32 rows; a chunk is a multiple of ``ROW_GROUPS``.
+    A function of the shapes and the card alone, so the same inputs
+    give the same bits."""
     rt = next((t for t in ROW_TILES if t >= capacity), ROW_TILES[-1])
     blocks = -(-hid // BLOCK_N) * -(-capacity // rt) * num_experts
-    ksplit = max(1, min(-(-TARGET_BLOCKS // blocks), d // 32))
+    ksplit = max(1, min(-(-BLOCKS_PER_SM * num_sms // blocks), d // 32))
     kchunk = -(-d // ksplit)
     kchunk = -(-kchunk // ROW_GROUPS) * ROW_GROUPS
     return rt, -(-d // kchunk), kchunk
@@ -154,7 +156,8 @@ def _launch(xt, src_tok, w1, b1, capacity: int, activation):
     out = torch.empty((e, capacity, hid), dtype=xt.dtype, device=xt.device)
     if out.numel() == 0:
         return out
-    rt, ksplit, kchunk = split_plan(capacity, d, hid, e)
+    rt, ksplit, kchunk = split_plan(capacity, d, hid, e,
+                                     kernels.num_sms(xt.device.index))
     part = out if ksplit == 1 else torch.empty(
         (ksplit, e * capacity, hid), dtype=torch.float32, device=xt.device)
     name = "moe_gather_gemm1"
@@ -176,22 +179,27 @@ def _fused_forward(xt, w1, b1, w2, b2, sg, dest, keep, capacity: int,
                    activation):
     e = w1.shape[0]
     n, d = xt.shape
-    dt = xt.dtype
     src_tok = src_tokens(dest, n, e, capacity)
     h = gather_gemm1(xt, src_tok, w1, b1, capacity, activation)
     # the down-projection: the stacked batched product, outside the kernel
     # as in the JAX package
     y = torch.einsum("ech,ehd->ecd", h, w2) + b2[:, None, :]
-    # the structured combine: a gather (dropped slots' sentinels clamped
-    # into range), masked BEFORE the gate multiply so a non-finite row
-    # cannot reach a dropped slot
-    ye_flat = y.reshape(e * capacity, d)
-    rows = ye_flat[dest.long().clamp(max=e * capacity - 1)]
-    safe = torch.where(keep[:, None], rows, torch.zeros((), dtype=dt,
-                                                        device=xt.device))
-    contrib = safe * sg[:, None].to(dt)
-    k = dest.shape[0] // n
-    return contrib.reshape(k, n, d).sum(dim=0)
+    return combine(y.reshape(e * capacity, d), dest, keep, sg, n)
+
+
+def combine(ye_flat, dest, keep, sg, n_tokens: int) -> torch.Tensor:
+    """The structured combine (JAX :415-419) of the ``[E*C, d]`` expert
+    rows into ``[N, d]``, in their dtype: a gather at the plan's
+    ``dest`` (a dropped slot's sentinel clamped into range), masked with
+    ``keep`` BEFORE the gate multiply so a non-finite row cannot reach a
+    dropped slot, then the choice-major reshape-sum."""
+    ec, d = ye_flat.shape
+    rows = ye_flat[dest.long().clamp(max=ec - 1)]
+    safe = torch.where(keep[:, None], rows,
+                       torch.zeros((), dtype=ye_flat.dtype,
+                                   device=ye_flat.device))
+    contrib = safe * sg[:, None].to(ye_flat.dtype)
+    return contrib.reshape(-1, n_tokens, d).sum(dim=0)
 
 
 class _FusedExperts(torch.autograd.Function):

@@ -51,8 +51,8 @@ from distkeras_tpu_torch import kernels
 BLOCK_N = 512
 #: rows of the weight one block's warps stride over at a time
 ROW_GROUPS = 8
-#: blocks the K split aims for (two per SM on 132 SMs)
-TARGET_BLOCKS = 264
+#: blocks per SM the K split aims for
+BLOCKS_PER_SM = 2
 #: activation rows one block holds per launch tile
 M_TILES = (1, 2, 4, 8)
 
@@ -211,15 +211,17 @@ def quant_matmul(x, wq) -> torch.Tensor:
     return _launch(x, wq)
 
 
-def split_plan(m: int, k_rows: int, n: int):
+def split_plan(m: int, k_rows: int, n: int, num_sms: int):
     """``(mt, ksplit, kchunk)``: the activation rows per block tile, and
     how the weight's byte rows are cut across blocks. Enough K splits
-    that the grid fills the card ``TARGET_BLOCKS`` deep, none shorter
-    than 32 rows; a chunk is a multiple of ``ROW_GROUPS``. A function
-    of the shapes alone, so the same inputs give the same bits."""
+    that the grid fills the card's ``num_sms`` SMs ``BLOCKS_PER_SM``
+    deep, none shorter than 32 rows; a chunk is a multiple of
+    ``ROW_GROUPS``. A function of the shapes and the card alone, so the
+    same inputs give the same bits."""
     mt = next((t for t in M_TILES if t >= m), M_TILES[-1])
     blocks = -(-n // BLOCK_N) * -(-m // mt)
-    ksplit = max(1, min(-(-TARGET_BLOCKS // blocks), k_rows // 32))
+    ksplit = max(1, min(-(-BLOCKS_PER_SM * num_sms // blocks),
+                        k_rows // 32))
     kchunk = -(-k_rows // ksplit)
     kchunk = -(-kchunk // ROW_GROUPS) * ROW_GROUPS
     return mt, -(-k_rows // kchunk), kchunk
@@ -246,7 +248,8 @@ def _launch(x, wq):
     if m == 0 or n == 0:
         return out.reshape(lead + (n,))
     k_rows = q2d.shape[0]
-    mt, ksplit, kchunk = split_plan(m, k_rows, n)
+    mt, ksplit, kchunk = split_plan(m, k_rows, n,
+                                    kernels.num_sms(x.device.index))
     part = out if ksplit == 1 else torch.empty(
         (ksplit, m, n), dtype=torch.float32, device=x.device)
     name = "quant_matmul_q4" if int4 else "quant_matmul_q8"

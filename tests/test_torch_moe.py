@@ -172,8 +172,8 @@ def test_gather_gemm1_reference_matches_pallas_kernel(n, capacity, d, hid,
 def test_gather_gemm1_plan_validation():
     with pytest.raises(ValueError, match="activation"):
         mk.fused_moe_apply(*([None] * 8), capacity=2, activation="bogus")
-    assert mk.split_plan(4, 1024, 2048, 8) == (4, 5, 208)
-    assert mk.split_plan(640, 1024, 2048, 8)[1:] == (1, 1024)
+    assert mk.split_plan(4, 1024, 2048, 8, 132) == (4, 5, 208)
+    assert mk.split_plan(640, 1024, 2048, 8, 132)[1:] == (1, 1024)
 
 
 # --- the MoE layer -------------------------------------------------------------
