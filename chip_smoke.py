@@ -115,10 +115,35 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     prefill launches K6a 12 times, its logits against the card's plain
     path; then one decode step's logits on the card (bf16 and float32,
     fused) against the CPU float32 dense path at 2 layers of the same
-    widths; routing flips counted and printed.
+    widths; routing flips counted and printed;
+22. the fused MoE block's backward kernels (K6b ``moe_bwd_dx``, K6c
+    ``moe_bwd_dw1``) against their plain versions on real top-2 plans:
+    the training shape (N 8192, C 2048, d 1024, H 2048), a 256-token
+    batch, a routing that leaves six experts empty, one that sends every
+    first choice to one expert and a ragged d = H = 1000, in bf16
+    (dxr/dz/gy 2e-2, rowdot/dw1 1e-3, relative to the output's largest
+    |value|) and, for three of them, float32 (1e-4); rows no slot won
+    give exact zeros; a bitwise repeat; graph-replay times, plain times,
+    bounds from the plan, ``torch.bmm`` on pre-gathered buffers as
+    yardsticks;
+23. MoE training end to end: ``SingleTrainer`` with adam on the 12-layer
+    all-MoE LM in ``bench_moe``'s training configuration (fused
+    dispatch, capacity factor 1.0, balance-loss weight 0.01, seed 0)
+    over 16 rows of phase 7's data for two epochs (8 steps of 4 x 2048
+    tokens): K6a, K6b, K6c, K1f, K1dq and K1dkv launch exactly 12 times
+    per step, the loss is finite and falls; the balance-loss term; the
+    steady step's time, tokens/s, peak memory and a ``torch.profiler``
+    list; then the same model's step with ``dispatch="tokens"`` (plain
+    autograd and cuBLAS, no K6a/K6b/K6c launch) as a yardstick;
+24. MoE gradients at 2 layers of the same widths (B1 S512, fused): the
+    card's float32 gradients against the CPU float32 plain path (1e-3
+    relative per leaf), the bf16 ones printed with both runs' routing
+    flips; then the first MoE block's real bf16 input with its dispatch
+    plan fixed: the fused block's forward and backward (K6a, K6b, K6c)
+    against the card's plain versions on that plan (2e-2).
 
 The line before the last is one JSON object with every kernel's
-numbers (fifteen kernels); the last line is ``{"ok": true, "device":
+numbers (seventeen kernels); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -136,7 +161,7 @@ import torch.nn.functional as F
 
 from distkeras_tpu_torch import kernels
 from distkeras_tpu_torch.data import Dataset
-from distkeras_tpu_torch.models import Model, zoo
+from distkeras_tpu_torch.models import Model, collect_aux_losses, zoo
 from distkeras_tpu_torch.models.moe import MoE, _dispatch_plan
 from distkeras_tpu_torch.models.decoding import (_generate_params,
                                                  _masked_logits_vec,
@@ -149,9 +174,9 @@ from distkeras_tpu_torch.ops.decode_attention import (
 from distkeras_tpu_torch.ops.flash_attention import (
     attention_delta, flash_backward_reference, flash_forward,
     flash_forward_reference, launch_dkv, launch_dq)
-from distkeras_tpu_torch.ops.moe_kernels import (gather_gemm1,
-                                                 gather_gemm1_reference,
-                                                 src_tokens)
+from distkeras_tpu_torch.ops.moe_kernels import (
+    bwd_dw1, bwd_dw1_reference, bwd_dx, bwd_dx_reference, fused_moe_apply,
+    gather_gemm1, gather_gemm1_reference, row_gates, src_tokens)
 from distkeras_tpu_torch.ops.losses import \
     sparse_categorical_crossentropy_from_logits
 from distkeras_tpu_torch.ops.optimizers import adam
@@ -819,13 +844,15 @@ def training_data(vocab: int, rows=TRAIN_ROWS, seq=TRAIN_SEQ):
     return Dataset.from_arrays(toks[:, :-1], toks[:, 1:])
 
 
-def train(model):
-    """Two epochs through ``SingleTrainer``; returns the trainer and the
-    launch counts of this run."""
-    data = training_data(model.module.layers[0].vocab_size)
+def train(model, data=None, epochs=TRAIN_EPOCHS):
+    """``epochs`` epochs of ``data`` (default: phase 7's) through
+    ``SingleTrainer``; returns the trainer and the launch counts of this
+    run."""
+    if data is None:
+        data = training_data(model.module.layers[0].vocab_size)
     trainer = SingleTrainer(model, worker_optimizer="adam",
                             learning_rate=TRAIN_LR, loss=TRAIN_LOSS,
-                            batch_size=TRAIN_BATCH, num_epoch=TRAIN_EPOCHS,
+                            batch_size=TRAIN_BATCH, num_epoch=epochs,
                             metrics=["accuracy"])
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -834,17 +861,18 @@ def train(model):
     return trainer, kernels.launch_counts()
 
 
-def check_training(trainer, launches, num_layers):
+def check_training(trainer, launches, num_layers,
+                   steps=TRAIN_EPOCHS * TRAIN_ROWS // TRAIN_BATCH,
+                   names=TRAINING_KERNELS):
     hist = trainer.get_history()
     losses = hist.losses()
-    steps = TRAIN_EPOCHS * TRAIN_ROWS // TRAIN_BATCH
     if len(losses) != steps or not np.isfinite(losses).all():
         raise AssertionError(f"expected {steps} finite losses, got {losses}")
     last_mean = float(np.mean(hist.epochs[-1]["loss"]))
     if not last_mean < losses[0]:
         raise AssertionError(f"loss did not fall: first step {losses[0]}, "
                              f"last epoch mean {last_mean}")
-    for name in TRAINING_KERNELS:
+    for name in names:
         if launches[name] != num_layers * steps:
             raise AssertionError(
                 f"{name} launched {launches[name]} times in {steps} steps "
@@ -853,10 +881,12 @@ def check_training(trainer, launches, num_layers):
     return losses, last_mean
 
 
-def profile_training(model, card):
+def profile_training(model, card, label="training",
+                     prefix="profile-train"):
     """The steady training step: wall time over a few steps (after one
-    warm step), tokens/s, peak device memory, and ``torch.profiler`` over
-    one step: device time per kernel and the device's busy share."""
+    warm step), tokens/s, peak device memory, and (unless ``prefix`` is
+    None) ``torch.profiler`` over one step: device time per kernel and
+    the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
     data = training_data(model.module.layers[0].vocab_size, rows=TRAIN_BATCH)
     xb, yb = (torch.from_numpy(a).to(model.device) for a in data.arrays())
@@ -874,22 +904,27 @@ def profile_training(model, card):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / n
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        carry, loss = step(carry, (xb, yb))
-        torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0]
-    ops.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
     tokens = xb.numel()
-    print(f"training on {card}: {step_ms:.1f} ms/step (B{TRAIN_BATCH} "
+    busy = "not profiled"
+    ops, busy_ms = [], None
+    if prefix is not None:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            carry, loss = step(carry, (xb, yb))
+            torch.cuda.synchronize()
+        ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+        ops.sort(key=lambda e: -e.self_device_time_total)
+        busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
+        busy = (f"device busy {busy_ms:.1f} ms in the profiled step "
+                f"({100 * busy_ms / step_ms:.0f}% of a step's wall time)")
+    print(f"{label} on {card}: {step_ms:.1f} ms/step (B{TRAIN_BATCH} "
           f"S{TRAIN_SEQ}, adam, profiler off), {tokens / step_ms * 1e3:.0f} "
-          f"tokens/s, peak device memory {peak_gb:.2f} GiB; device busy "
-          f"{busy_ms:.1f} ms in the profiled step", flush=True)
+          f"tokens/s, peak device memory {peak_gb:.2f} GiB; {busy}",
+          flush=True)
     for e in ops[:12]:
-        print(f"profile-train:   {e.self_device_time_total / 1e3:8.3f} ms  "
+        print(f"{prefix}:   {e.self_device_time_total / 1e3:8.3f} ms  "
               f"x{e.count:<5d} {e.key[:72]}", flush=True)
     return step_ms, tokens / step_ms * 1e3, peak_gb, busy_ms
 
@@ -1811,10 +1846,9 @@ K6A_F32_CASES = ("decode N4", "tree N72", "prefill chunk N256",
                  "ragged d1000 H1000 N20")
 
 
-def k6a_inputs(rs, n, c, d, h, routing, dtype, dev):
-    """K6a's operands for one case: a real dispatch plan (top-2 of ``n``
-    tokens over 8 experts, inverted to ``src_tok``), x ``[n, d]``, w1 and
-    a non-zero b1 in ``dtype`` on ``dev``."""
+def moe_plan(rs, n, c, routing):
+    """A real dispatch plan ``(dest, sg, keep)`` (on the CPU): top-2 of
+    ``n`` tokens over 8 experts at capacity ``c``, by ``routing``."""
     if routing == "random":
         ex = np.argsort(rs.randn(n, MOE_EXPERTS), axis=1)[:, :MOE_TOP_K]
     elif routing == "two-experts":
@@ -1822,16 +1856,25 @@ def k6a_inputs(rs, n, c, d, h, routing, dtype, dev):
     else:                                    # every first choice on 3
         ex = np.stack([np.full(n, 3), (4 + rs.randint(0, 7, n)) % 8], 1)
     g = rs.rand(n, MOE_TOP_K).astype(np.float32)
-    dest, _, _, _ = _dispatch_plan(torch.from_numpy(ex), torch.from_numpy(g),
-                                   MOE_EXPERTS, c)
+    dest, _, sg, keep = _dispatch_plan(torch.from_numpy(ex),
+                                       torch.from_numpy(g), MOE_EXPERTS, c)
+    return dest, sg, keep
+
+
+def _randn(rs, dtype, dev, *shape, scale=1.0):
+    return torch.from_numpy((rs.randn(*shape) * scale).astype(
+        np.float32)).to(dev, dtype)
+
+
+def k6a_inputs(rs, n, c, d, h, routing, dtype, dev):
+    """K6a's operands for one case: a real dispatch plan (top-2 of ``n``
+    tokens over 8 experts, inverted to ``src_tok``), x ``[n, d]``, w1 and
+    a non-zero b1 in ``dtype`` on ``dev``."""
+    dest, _, _ = moe_plan(rs, n, c, routing)
     src = src_tokens(dest, n, MOE_EXPERTS, c).to(dev)
-
-    def t(a):
-        return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
-
-    return (t(rs.randn(n, d)), src,
-            t(rs.randn(MOE_EXPERTS, d, h) * 0.03),
-            t(rs.randn(MOE_EXPERTS, h) * 0.1))
+    return (_randn(rs, dtype, dev, n, d), src,
+            _randn(rs, dtype, dev, MOE_EXPERTS, d, h, scale=0.03),
+            _randn(rs, dtype, dev, MOE_EXPERTS, h, scale=0.1))
 
 
 def k6a_phase(dev):
@@ -1900,17 +1943,21 @@ def k6a_phase(dev):
 
 
 def build_moe_lm(device, *, num_layers=LM_CFG["num_layers"],
-                 dtype="bfloat16", dispatch="dense"):
+                 dtype="bfloat16", dispatch="dense", aux_loss_weight=0.0,
+                 capacity_factor=1.25):
     """The all-MoE LM of ``bench.py`` ``bench_moe`` at ``LM_CFG`` widths
     (8 experts, top-2, expert hidden 2 x d_model; ~520M parameters at 12
     layers), built as ``_build_moe_serve_model`` builds it: dense
-    dispatch, seed 0."""
+    dispatch, seed 0; ``bench_moe``'s training model passes
+    ``MOE_TRAIN_KW``."""
     return Model.build(
         zoo.transformer_lm(LM_CFG["vocab"], d_model=LM_CFG["d_model"],
                            num_heads=LM_CFG["num_heads"],
                            num_layers=num_layers, mlp_ratio=2, dtype=dtype,
                            moe_every=1, num_experts=MOE_EXPERTS,
-                           moe_dispatch=dispatch),
+                           moe_dispatch=dispatch,
+                           moe_aux_loss_weight=aux_loss_weight,
+                           moe_capacity_factor=capacity_factor),
         (16,), seed=SEED, device=device)
 
 
@@ -2297,20 +2344,25 @@ class _Dispatch:
             m.dispatch = d
 
 
-class _PlainK6a:
-    """While installed, the fused MoE block runs K6a's plain version on
-    the card (the comparison's other side)."""
+class _PlainMoE:
+    """While installed, the fused MoE block runs the plain versions of
+    K6a, K6b and K6c on the card (the comparison's other side)."""
+
+    PLAIN = {"gather_gemm1": "gather_gemm1_reference",
+             "bwd_dx": "bwd_dx_reference", "bwd_dw1": "bwd_dw1_reference"}
 
     def __init__(self):
         self.mod = sys.modules["distkeras_tpu_torch.ops.moe_kernels"]
-        self.orig = self.mod.gather_gemm1
+        self.orig = {k: getattr(self.mod, k) for k in self.PLAIN}
 
     def __enter__(self):
-        self.mod.gather_gemm1 = self.mod.gather_gemm1_reference
+        for k, plain in self.PLAIN.items():
+            setattr(self.mod, k, getattr(self.mod, plain))
         return self
 
     def __exit__(self, *exc):
-        self.mod.gather_gemm1 = self.orig
+        for k, fn in self.orig.items():
+            setattr(self.mod, k, fn)
 
 
 MOE_PREFILL = 256
@@ -2348,7 +2400,7 @@ def moe_prefill_phase(model, card):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         n_k6a = kernels.launch_counts()["moe_gather_gemm1"]
-        with _PlainK6a():
+        with _PlainMoE():
             kernels.reset_launch_counts()
             ref, ref_log = run()
             if kernels.launch_counts()["moe_gather_gemm1"]:
@@ -2407,6 +2459,358 @@ def moe_prefill_phase(model, card):
         out[label] = rel
         del m
     return n_k6a
+
+
+# --- phase 22: the fused MoE block's backward kernels (K6b, K6c) ------------
+
+#: bf16 outputs (dxr, dz, gy) against float32 math: the output's rounding
+#: (2^-8 relative) on both sides, with the d- or H-term sums in another
+#: order; every tolerance is relative to the output's largest |value|
+K6BC_BF16_TOL = 2e-2
+#: float32 outputs of a bf16 run (rowdot, dw1): bf16 inputs on both
+#: sides, float32 sums over up to 2048 terms in another order
+K6BC_BF16_F32_OUT_TOL = 1e-3
+#: float32 runs: only the summation order differs
+K6BC_F32_TOL = 1e-4
+#: phase 22's cases: (label, tokens N, capacity C, d, H, routing): the
+#: training shape (phase 23's batch of 4 x 2048 tokens at capacity factor
+#: 1.0), a 256-token batch, a routing that leaves six experts empty (and
+#: drops past capacity on the other two), one that sends every first
+#: choice to one expert (drops at capacity factor 1.0), ragged widths
+K6BC_CASES = (("training N8192", 8192, 2048, MOE_D, MOE_H, "random"),
+              ("N256", 256, 64, MOE_D, MOE_H, "random"),
+              ("empty experts N64", 64, 16, MOE_D, MOE_H, "two-experts"),
+              ("one expert N256", 256, 64, MOE_D, MOE_H, "one-expert"),
+              ("ragged d1000 H1000 N256", 256, 64, 1000, 1000, "random"))
+#: the cases that also run in float32
+K6BC_F32_CASES = ("N256", "empty experts N64", "ragged d1000 H1000 N256")
+K6BC_OUTPUTS = ("dxr", "dz", "gy", "rowdot")
+
+
+def k6bc_inputs(rs, n, c, d, h, routing, dtype, dev):
+    """K6b's operands for one case, in ``bwd_dx``'s order: x and the
+    output cotangent g ``[n, d]``, ``src_tok`` and ``row_gate`` from a
+    real dispatch plan, w1, b1, w2, b2, and the forward's hidden rows
+    ``h`` (K6a's plain version on the same plan)."""
+    dest, sg, keep = moe_plan(rs, n, c, routing)
+    e = MOE_EXPERTS
+    src = src_tokens(dest, n, e, c).to(dev)
+    rg = row_gates(dest, keep, sg, e, c).to(dev)
+    xt, g = _randn(rs, dtype, dev, n, d), _randn(rs, dtype, dev, n, d)
+    w1 = _randn(rs, dtype, dev, e, d, h, scale=0.03)
+    b1 = _randn(rs, dtype, dev, e, h, scale=0.1)
+    w2 = _randn(rs, dtype, dev, e, h, d, scale=0.03)
+    b2 = _randn(rs, dtype, dev, e, d, scale=0.1)
+    hid = gather_gemm1_reference(xt, src, w1, b1, c)
+    return xt, g, src, rg, w1, b1, w2, b2, hid
+
+
+def _rel(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item() / max(
+        b.float().abs().max().item(), 1e-30)
+
+
+def _k6bc_bounds(src, n, c, d, h, es, peak):
+    """The bounds of K6b and K6c from this plan: only filled capacity
+    rows are computed and only the experts a token reached stream their
+    weights; each input read once, each output written once."""
+    src_np = src.cpu().numpy().reshape(MOE_EXPERTS, c)
+    filled = int((src_np >= 0).sum())
+    active = int((src_np >= 0).any(axis=1).sum())
+    e = MOE_EXPERTS
+    rows = e * c
+    dx_bytes = (es * (2 * n * d + 2 * active * d * h + e * (h + d)
+                      + filled * h + rows * (2 * d + h))
+                + rows * 4 * 3)
+    dw1_bytes = es * (n * d + rows * h) + rows * 4 + e * d * h * 4
+    return (bound_ms(8.0 * filled * d * h, dx_bytes, peak),
+            bound_ms(2.0 * filled * d * h, dw1_bytes, peak), filled, active)
+
+
+def k6bc_phase(dev):
+    """K6b against ``bwd_dx_reference`` and K6c against
+    ``bwd_dw1_reference`` on the same plan (K6c on the plain version's
+    dz, so both sides read the same inputs) at the training shape and
+    four edge cases, bf16 and float32: rows no slot won give exact
+    zeros, a bitwise repeat, graph-replay times, the plain versions'
+    times, bounds from the plan and, as yardsticks, ``torch.bmm`` of the
+    four products on pre-gathered ``[E, C, d]`` buffers (K6b) and one
+    ``torch.bmm`` of the gathered x^T and dz (K6c)."""
+    rows = {"moe_bwd_dx": [], "moe_bwd_dw1": []}
+    rs = np.random.RandomState(SEED + 22)
+    for dtype, peak, cases in (
+            (torch.bfloat16, PEAK_BF16_FLOPS, K6BC_CASES),
+            (torch.float32, PEAK_F32_FLOPS,
+             [c for c in K6BC_CASES if c[0] in K6BC_F32_CASES])):
+        for label, n, c, d, h, routing in cases:
+            args = k6bc_inputs(rs, n, c, d, h, routing, dtype, dev)
+            xt, src = args[0], args[2]
+            before = kernels.launch_counts()
+            out = bwd_dx(*args, c)
+            ref = bwd_dx_reference(*args, c)
+            dz_ref = ref[1]
+            dw1 = bwd_dw1(xt, dz_ref, src, c)
+            dw1_ref = bwd_dw1_reference(xt, dz_ref, src, c)
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            for name in ("moe_bwd_dx", "moe_bwd_dw1"):
+                if after[name] != before[name] + 1:
+                    raise AssertionError(f"{name} {label} did not launch")
+            bf16 = dtype == torch.bfloat16
+            tols = dict(zip(K6BC_OUTPUTS + ("dw1",), (
+                (K6BC_BF16_TOL,) * 3 + (K6BC_BF16_F32_OUT_TOL,) * 2
+                if bf16 else (K6BC_F32_TOL,) * 5)))
+            errs = {name: _rel(a, b) for name, a, b in
+                    zip(K6BC_OUTPUTS, out, ref)}
+            errs["dw1"] = _rel(dw1, dw1_ref)
+            abs_dx = max((a.float() - b.float()).abs().max().item()
+                         for a, b in zip(out, ref))
+            abs_dw1 = (dw1 - dw1_ref).abs().max().item()
+            empty = (src < 0).reshape(MOE_EXPERTS, c)
+            zeros = all(bool((t[empty] == 0).all()) for t in out)
+            repeat = all(torch.equal(a, b) for a, b in
+                         zip(out, bwd_dx(*args, c))) and torch.equal(
+                dw1, bwd_dw1(xt, dz_ref, src, c))
+            heavy = n >= 8192
+            ms = graph_ms(lambda: bwd_dx(*args, c), iters=5 if heavy else 20)
+            ms_dw1 = graph_ms(lambda: bwd_dw1(xt, dz_ref, src, c),
+                              iters=5 if heavy else 20)
+            plain_ms = time_ms(lambda: bwd_dx_reference(*args, c),
+                               iters=3, warmup=1)
+            plain_dw1 = time_ms(lambda: bwd_dw1_reference(xt, dz_ref, src,
+                                                          c),
+                                iters=3, warmup=1)
+            tok = src.long().reshape(MOE_EXPERTS, c)
+            zero = torch.zeros((), dtype=dtype, device=dev)
+            xg = torch.where((tok >= 0)[..., None], xt[tok.clamp(min=0)],
+                             zero)
+            _, w1, _, w2, _, hid = args[3:]
+            gyb, dzb = ref[2], ref[1]
+            w1t, w2t = w1.transpose(1, 2), w2.transpose(1, 2)
+
+            def four():
+                torch.bmm(hid, w2)
+                torch.bmm(gyb, w2t)
+                torch.bmm(xg, w1)
+                torch.bmm(dzb, w1t)
+
+            xgt = xg.transpose(1, 2)
+            lib_ms = graph_ms(four, iters=5 if heavy else 20)
+            lib_dw1 = graph_ms(lambda: torch.bmm(xgt, dzb),
+                               iters=5 if heavy else 20)
+            es = xt.element_size()
+            (bdx, bydx), (bdw, bydw), filled, active = _k6bc_bounds(
+                src, n, c, d, h, es, peak)
+            case = f"{label} C{c} {'bf16' if bf16 else 'f32'}"
+            shown = {k: f"{v:.2e}" for k, v in errs.items() if k != "dw1"}
+            print(f"moe_bwd_dx {case} ({routing} routing, {active} experts "
+                  f"reached, {filled} filled rows): rel err {shown} (tol "
+                  f"{tols['dxr']} dxr/dz/gy, {tols['rowdot']} rowdot), "
+                  f"max abs {abs_dx:.3e}; kernel {ms:.4f} ms (graph "
+                  f"replay), plain {plain_ms:.4f} ms, four torch.bmm on "
+                  f"pre-gathered buffers {lib_ms:.4f} ms, bound {bdx:.4f} ms "
+                  f"({bydx}); rows no slot won exact zeros {zeros}, bitwise "
+                  f"repeat {repeat}", flush=True)
+            print(f"moe_bwd_dw1 {case}: rel err {errs['dw1']:.2e} (tol "
+                  f"{tols['dw1']}), max abs {abs_dw1:.3e}; kernel "
+                  f"{ms_dw1:.4f} ms (graph replay), plain {plain_dw1:.4f} "
+                  f"ms, torch.bmm on the gathered x {lib_dw1:.4f} ms, bound "
+                  f"{bdw:.4f} ms ({bydw})", flush=True)
+            bad = [k for k, v in errs.items() if not v <= tols[k]]
+            if bad or not zeros or not repeat:
+                raise AssertionError(
+                    f"K6b/K6c disagree with their plain versions on {case}: "
+                    f"outputs {bad}, exact zeros {zeros}, bitwise repeat "
+                    f"{repeat}")
+            rows["moe_bwd_dx"].append(dict(
+                name=case, err=abs_dx, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bdx, bound_by=bydx))
+            rows["moe_bwd_dw1"].append(dict(
+                name=case, err=abs_dw1, ms=ms_dw1, plain_ms=plain_dw1,
+                library_ms=lib_dw1, bound_ms=bdw, bound_by=bydw))
+            del args, out, ref, dw1, dw1_ref, xg
+    return rows
+
+
+# --- phase 23: MoE training end to end ---------------------------------------
+
+#: ``bench.py`` ``bench_moe``'s training model: fused dispatch, capacity
+#: factor 1.0 (slots past it drop), balance-loss weight 0.01
+MOE_TRAIN_KW = dict(dispatch="fused", aux_loss_weight=0.01,
+                    capacity_factor=1.0)
+#: 16 rows of phase 7's data, two epochs: 8 steps of 4 x 2048 tokens
+MOE_TRAIN_ROWS, MOE_TRAIN_EPOCHS = 16, 2
+MOE_TRAINING_KERNELS = TRAINING_KERNELS + (
+    "moe_gather_gemm1", "moe_bwd_dx", "moe_bwd_dw1")
+
+
+def moe_training_phase(dev, card):
+    """``SingleTrainer`` with adam on the 12-layer all-MoE LM (~520M
+    parameters, ``MOE_TRAIN_KW``) over phase 7's pattern data: 8 steps,
+    with every training kernel's launches read around that run only
+    (12 per step each); the loss is finite and falls; the balance-loss
+    term of one batch; then the steady step (time, tokens/s, peak
+    memory, a ``torch.profiler`` list) and, as a yardstick, the same
+    model's step under ``dispatch="tokens"`` (plain autograd, cuBLAS; no
+    K6a/K6b/K6c launch)."""
+    model = build_moe_lm(dev, **MOE_TRAIN_KW)
+    print(f"model: all-MoE transformer_lm {dict(LM_CFG, mlp_ratio=2)}, "
+          f"{MOE_EXPERTS} experts top-{MOE_TOP_K}, bf16, {MOE_TRAIN_KW}, "
+          f"{model.num_params() / 1e6:.1f}M parameters", flush=True)
+    vocab = model.module.layers[0].vocab_size
+    data = training_data(vocab, rows=MOE_TRAIN_ROWS)
+    trainer, launches = train(model, data, MOE_TRAIN_EPOCHS)
+    steps = MOE_TRAIN_EPOCHS * MOE_TRAIN_ROWS // TRAIN_BATCH
+    losses, last_mean = check_training(trainer, launches, LM_CFG[
+        "num_layers"], steps, MOE_TRAINING_KERNELS)
+    xb = torch.from_numpy(data.arrays()[0][:TRAIN_BATCH]).to(dev)
+    model.module.train()
+    with torch.no_grad():
+        model.module(xb)
+    aux = float(collect_aux_losses(model.module))
+    model.module.eval()
+    print(f"MoE training: {len(losses)} steps, loss {losses[0]:.4f} -> last "
+          f"epoch mean {last_mean:.4f} (per step: "
+          f"{np.array2string(losses, precision=3)}); balance-loss term "
+          f"(weight {MOE_TRAIN_KW['aux_loss_weight']} x "
+          f"{LM_CFG['num_layers']} layers) {aux:.5f} after training; "
+          f"launches { {k: launches[k] for k in MOE_TRAINING_KERNELS} }; "
+          f"{trainer.get_training_time():.1f} s", flush=True)
+    profile_training(model, card, "MoE training (fused)", "profile-moe")
+    with _Dispatch(model.module, "tokens"):
+        kernels.reset_launch_counts()
+        profile_training(model, card, "MoE training (tokens dispatch, "
+                         "yardstick)", None)
+        c = kernels.launch_counts()
+    if c["moe_gather_gemm1"] or c["moe_bwd_dx"] or c["moe_bwd_dw1"]:
+        raise AssertionError(f"the tokens-dispatch yardstick launched the "
+                             f"fused block's kernels: {c}")
+    return launches
+
+
+# --- phase 24: MoE gradients on the card against the CPU -------------------
+
+MOE_GRAD_LAYERS, MOE_GRAD_SEQ = 2, 512
+
+
+class _Input:
+    """While installed, keep the input of one layer's every ``apply``."""
+
+    def __init__(self, layer):
+        self.layer, self.inputs = layer, []
+
+    def __enter__(self):
+        orig = type(self.layer).apply
+
+        def kept(p, x):
+            self.inputs.append(x.detach())
+            return orig(self.layer, p, x)
+
+        self.layer.apply = kept
+        return self
+
+    def __exit__(self, *exc):
+        del self.layer.apply
+
+
+def moe_gradients_vs_cpu(dev):
+    """Whole-model gradients of the 2-layer all-MoE LM (the training
+    configuration, B1 S512) on the card against the CPU float32 plain
+    path: float32 held per leaf at ``GRAD_F32_REL_TOL``; bf16 printed
+    (a bf16 router flips near-tied choices, and a flipped token's
+    gradient belongs to other experts), with the routing flips of both.
+    The bf16 kernels are held at the block: the first MoE block's real
+    input from the bf16 model, its dispatch plan fixed, and the fused
+    block's forward and backward (K6a, K6b, K6c) against the card's
+    plain versions on that plan."""
+    rs = np.random.RandomState(SEED + 24)
+    toks = torch.from_numpy(rs.randint(0, LM_CFG["vocab"],
+                                       (1, MOE_GRAD_SEQ + 1)))
+    x, y = toks[:, :-1], toks[:, 1:]
+    loss_fn = sparse_categorical_crossentropy_from_logits
+    f32 = build_moe_lm("cpu", num_layers=MOE_GRAD_LAYERS, dtype="float32",
+                       **MOE_TRAIN_KW)
+
+    def grads(m):
+        with _RouteLog() as log:
+            loss, g, _ = value_and_grad(m.module, loss_fn, m.params,
+                                        x.to(m.device), y.to(m.device))
+        return float(loss), [t.float().cpu() for t in tree_leaves(g)], log
+
+    ref_loss, ref, ref_log = grads(f32)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        m = build_moe_lm(dev, num_layers=MOE_GRAD_LAYERS, dtype=dtype,
+                         **MOE_TRAIN_KW)
+        m.module.load_state_dict(f32.module.state_dict())
+        kernels.reset_launch_counts()
+        loss, got, log = grads(m)
+        c = kernels.launch_counts()
+        if any(c[k] != MOE_GRAD_LAYERS for k in
+               ("moe_gather_gemm1", "moe_bwd_dx", "moe_bwd_dw1")):
+            raise AssertionError(f"the card {dtype} gradient launched {c}")
+        worst = max(_rel(a, b) for a, b in zip(got, ref))
+        flips = routing_flips(log, ref_log)
+        held = dtype == "float32"
+        print(f"MoE gradient vs CPU float32 ({MOE_GRAD_LAYERS} layers, B1 "
+              f"S{MOE_GRAD_SEQ}, fused, capacity factor 1.0): card {dtype} "
+              f"loss {loss:.6f} (CPU {ref_loss:.6f}), worst per-leaf rel err "
+              f"{worst:.3e} "
+              f"({f'tol {GRAD_F32_REL_TOL}' if held else 'printed, not held'}"
+              f"); routing flips {flips} of "
+              f"{MOE_GRAD_LAYERS * MOE_GRAD_SEQ}", flush=True)
+        if held and not (worst <= GRAD_F32_REL_TOL and abs(
+                loss - ref_loss) <= GRAD_F32_REL_TOL * ref_loss):
+            raise AssertionError("card float32 MoE gradients disagree with "
+                                 "the CPU")
+        out[dtype] = worst
+    # the bf16 block: m is the bf16 model
+    layer = next(mod for mod in m.module.modules() if isinstance(mod, MoE))
+    with _Input(layer) as kept, torch.no_grad():
+        m.module(x.to(dev))
+    xin = kept.inputs[0]
+    p = layer.param_tree()
+    n, d = MOE_GRAD_SEQ, LM_CFG["d_model"]
+    cap = layer._capacity(n)
+    with torch.no_grad():
+        _, topi, gates, _ = layer._route(xin, p["gate"])
+        dest, _, sg, keep = _dispatch_plan(topi.reshape(n, MOE_TOP_K),
+                                           gates.reshape(n, MOE_TOP_K),
+                                           MOE_EXPERTS, cap)
+    primals = [xin.reshape(n, d).to(torch.bfloat16)] + [
+        p[k].detach().to(torch.bfloat16) for k in ("w1", "b1", "w2", "b2")
+    ] + [sg]
+    cot = _randn(rs, torch.bfloat16, dev, n, d)
+
+    def block():
+        leaves = [t.clone().requires_grad_(True) for t in primals]
+        y = fused_moe_apply(*leaves, dest, keep, capacity=cap,
+                            activation=layer.activation)
+        return [y.detach()] + list(torch.autograd.grad(y, leaves, cot))
+
+    kernels.reset_launch_counts()
+    got = block()
+    c = kernels.launch_counts()
+    with _PlainMoE():
+        kernels.reset_launch_counts()
+        want = block()
+        if any(kernels.launch_counts().values()):
+            raise AssertionError("the plain block launched a kernel")
+    if any(c[k] != 1 for k in ("moe_gather_gemm1", "moe_bwd_dx",
+                               "moe_bwd_dw1")):
+        raise AssertionError(f"the bf16 block launched {c}")
+    names = ("out", "dx", "dw1", "db1", "dw2", "db2", "dsg")
+    errs = {k: _rel(a, b) for k, a, b in zip(names, got, want)}
+    print(f"MoE bf16 block (layer 1's input from the bf16 model, N{n} "
+          f"C{cap}, {int(keep.sum())} of {keep.numel()} slots kept): K6a+"
+          f"K6b+K6c vs the card's plain versions, rel err "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (tol "
+          f"{K6BC_BF16_TOL})", flush=True)
+    if not all(v <= K6BC_BF16_TOL for v in errs.values()):
+        raise AssertionError("the bf16 fused block disagrees with its plain "
+                             "versions")
+    out["bf16_block"] = max(errs.values())
+    return out
 
 
 #: relative (to the largest |logit|) agreement with the CPU in float32:
@@ -2552,6 +2956,11 @@ def main() -> int:
           f"{moe_model.num_params() / 1e6:.1f}M parameters", flush=True)
     moe_launches = moe_serve_phase(moe_model, card)
     moe_prefill_launches = moe_prefill_phase(moe_model, card)
+    del moe_model
+
+    k6bc_rows = k6bc_phase(dev)
+    moe_train_launches = moe_training_phase(dev, card)
+    moe_gradients_vs_cpu(dev)
 
     by_path = {name: {} for name in kernels.SOURCES}
     for name in SERVING_KERNELS:
@@ -2577,6 +2986,8 @@ def main() -> int:
     for path, c in moe_launches.items():
         by_path["moe_gather_gemm1"][path] = c["moe_gather_gemm1"]
     by_path["moe_gather_gemm1"]["moe_prefill_fused"] = moe_prefill_launches
+    for name in MOE_TRAINING_KERNELS:
+        by_path[name]["training_moe"] = moe_train_launches[name]
 
     def entry(name, source, replaces, rows, path):
         main_row = rows[0]
@@ -2639,6 +3050,12 @@ def main() -> int:
         entry("moe_gather_gemm1", "distkeras_tpu_torch/csrc/moe_gemm.cu",
               "distkeras_tpu/ops/moe_kernels.py:214", k6a_rows,
               "serving_moe"),
+        entry("moe_bwd_dx", "distkeras_tpu_torch/csrc/moe_bwd.cu",
+              "distkeras_tpu/ops/moe_kernels.py:297",
+              k6bc_rows["moe_bwd_dx"], "training_moe"),
+        entry("moe_bwd_dw1", "distkeras_tpu_torch/csrc/moe_bwd.cu",
+              "distkeras_tpu/ops/moe_kernels.py:353",
+              k6bc_rows["moe_bwd_dw1"], "training_moe"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,10 @@ float and int8 slab decode, ``paged_decode.cu`` the float, int8 and
 int4 paged decode, each with and without the tree ancestor mask,
 ``quant_matmul.cu`` the int8 and packed-int4 quantized matmul,
 ``sampling.cu`` the fused sampling epilogue, ``moe_gemm.cu`` the MoE
-expert up-projection with the token gather fused in). The first call of
-``library`` (or an explicit
-``build``) compiles every source whose library is missing, one
+expert up-projection with the token gather fused in, ``moe_bwd.cu`` the
+fused expert block's backward: dx/dz/gy/row dots and dw1). The first
+call of ``library`` (or an explicit ``build``) compiles every source
+whose library is missing, one
 ``nvcc`` process per source, all started together. A library's file
 name carries a hash of its source and flags, so an edited source
 rebuilds and an unchanged one is reused. Where the libraries go and
@@ -46,7 +47,8 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
            "quant_matmul_q8": "quant_matmul.cu",
            "quant_matmul_q4": "quant_matmul.cu",
            "sample_epilogue": "sampling.cu",
-           "moe_gather_gemm1": "moe_gemm.cu"}
+           "moe_gather_gemm1": "moe_gemm.cu",
+           "moe_bwd_dx": "moe_bwd.cu", "moe_bwd_dw1": "moe_bwd.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,6 +87,8 @@ _SIGNATURES = {
     "sample_epilogue": ("dkt_sample_epilogue", [_P] * 7 + [_I, _I, _P]),
     "moe_gather_gemm1": ("dkt_moe_gather_gemm1",
                          [_P, _I] + [_P] * 5 + [_I] * 9 + [_P]),
+    "moe_bwd_dx": ("dkt_moe_bwd_dx", [_P] * 15 + [_I] * 7 + [_P]),
+    "moe_bwd_dw1": ("dkt_moe_bwd_dw1", [_P] * 4 + [_I] * 6 + [_P]),
 }
 
 _lock = threading.Lock()

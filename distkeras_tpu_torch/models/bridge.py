@@ -21,6 +21,7 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from distkeras_tpu_torch.compat import resolve_device
 from distkeras_tpu_torch.models.core import Model
 from distkeras_tpu_torch.utils.tree import tree_map
 
@@ -69,19 +70,25 @@ def from_jax_params(model: Model, params, state=None) -> Model:
     return model
 
 
-def qtree_from_jax(tree, device="cpu"):
+def qtree_from_jax(tree, device=None):
     """A JAX parameter tree that may hold quantized leaves (the
     ``ops.quant_matmul`` qdicts ``{"q" | "q4", "scale"}``, or float
-    arrays) as the port's tree of tensors on ``device``: the same bytes
-    and scales, so both packages can be fed one quantized tree (a port
-    engine's ``_params``, ``quant_matmul``, a decode step)."""
-    if isinstance(tree, dict):
-        return {k: qtree_from_jax(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [qtree_from_jax(v, device) for v in tree]
-    if tree is None:
-        return None
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    arrays) as the port's tree of tensors on ``device`` (default: the
+    CUDA card, as every entry point; ``device="cpu"`` for the CPU): the
+    same bytes and scales, so both packages can be fed one quantized tree
+    (a port engine's ``_params``, ``quant_matmul``, a decode step)."""
+    dev = resolve_device(device)
+
+    def leaf(tree):
+        if isinstance(tree, dict):
+            return {k: leaf(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [leaf(v) for v in tree]
+        if tree is None:
+            return None
+        return torch.from_numpy(np.array(tree, copy=True)).to(dev)
+
+    return leaf(tree)
 
 
 def to_jax_params(model: Model):

@@ -12,7 +12,12 @@ path run a pre-cast copy of the weights; ``forward(x)`` applies the
 layer's own parameters. Parameters are float32 master weights that
 require grad; each layer casts them to its compute dtype inside
 ``apply``, so autograd returns float32 gradients on the float32 leaves
-(what JAX's ``value_and_grad`` returns). ``Model.apply`` (inference)
+(what JAX's ``value_and_grad`` returns). A layer may publish an
+auxiliary training loss during a training-mode forward
+(``publish_aux_loss``, e.g. the MoE balance loss); ``collect_aux_losses``
+sums and clears them: the counterpart of JAX's ``AUX_LOSS_KEY`` state
+entry and ``collect_aux_losses`` (:33-50), since the port's layers carry
+no state. ``Model.apply`` (inference)
 runs under ``torch.no_grad``; ``Model.fit`` trains in place through
 ``parallel.trainers.SingleTrainer``; ``Model.generate`` continues
 prompts through ``models.decoding.generate``.
@@ -48,6 +53,9 @@ class Layer(nn.Module):
     ``add_param``, return the output shape without the batch axis) and
     ``apply`` (the layer as a function of a parameter tree)."""
 
+    #: the auxiliary loss the last forward published (``publish_aux_loss``)
+    _aux_loss: Optional[torch.Tensor] = None
+
     def build(self, input_shape: Tuple[int, ...],
               generator: torch.Generator) -> Tuple[int, ...]:
         return tuple(input_shape)
@@ -71,6 +79,23 @@ class Layer(nn.Module):
 
     def forward(self, x):
         return self.apply(self.param_tree(), x)
+
+    def publish_aux_loss(self, value: Optional[torch.Tensor]) -> None:
+        """Set (or, with None, clear) this layer's auxiliary loss: what
+        ``collect_aux_losses`` adds to the training objective. Each
+        forward replaces the last one's, so no stale term survives."""
+        self._aux_loss = value
+
+
+def collect_aux_losses(module: nn.Module):
+    """The sum of every auxiliary loss the layers of ``module`` published
+    since the last collection, clearing them (0.0 when none did)."""
+    total = 0.0
+    for m in module.modules():
+        if isinstance(m, Layer) and m._aux_loss is not None:
+            total = total + m._aux_loss
+            m._aux_loss = None
+    return total
 
 
 class Sequential(Layer):

@@ -1,12 +1,13 @@
-"""Mixture-of-experts MLP: the top-k router, the capacity dispatch plan
-and three executions of one routing (serving only; training waits for
-the backward kernels).
+"""Mixture-of-experts MLP: the top-k router, the capacity dispatch plan,
+three executions of one routing and the router's balance loss, for
+serving and for training.
 
 Mirrors ``distkeras_tpu/models/moe.py``: ``_dispatch_plan`` :69,
 ``MoE.__init__`` :108 with ``build`` as the counterpart of ``init`` :154
 (the same leaves and shapes: ``gate [d, E]``, ``w1 [E, d, H]``, ``b1
 [E, H]``, ``w2 [E, H, d]``, ``b2 [E, d]``), ``_route`` :173,
-``_gate_probs`` :196, ``_capacity`` :219, ``_expert_mlp`` :242,
+``_gate_probs`` :196, ``_balance_loss`` :207, ``_capacity`` :219,
+``_expert_mlp`` :242,
 ``_apply_dispatched`` :291, ``decode_apply`` :407, ``apply`` :449 and
 ``get_config`` :500.
 
@@ -17,16 +18,22 @@ Mirrors ``distkeras_tpu/models/moe.py``: ``_dispatch_plan`` :69,
   expert MLP runs on it, a gather and a reshape-sum combine.
 * ``dispatch="fused"``: the same plan with the token gather fused into
   the expert up-projection (``ops.moe_kernels``: the K6a kernel on the
-  card, its plain version on the CPU). Unlike the JAX layer, which falls
-  back to ``tokens`` off the TPU, the port always takes this path.
+  card, its plain version on the CPU; its backward K6b and K6c, or
+  their plain versions). Unlike the JAX layer, which falls back to
+  ``tokens`` off the TPU, the port always takes this path.
 
-``decode_apply`` (the serving engine's decode and verify steps) runs
-the fused path at the drop-free capacity ``C = N``, whatever the
-layer's ``dispatch``. ``expert_unroll=True`` computes through the
-batched path: JAX's unroll regroups the same per-expert products.
-Expert parallelism (``expert_axis_name``, ``moe_all_to_all``) and
-training (``apply`` in training mode, the balance loss) raise
-``NotImplementedError`` naming their ROADMAP item.
+``apply`` trains through all three: in training mode (``module.train()``)
+the dispatched paths use the layer's ``_capacity`` (``capacity_factor``;
+slots past it are dropped), and a layer with ``aux_loss_weight``
+publishes ``aux_loss_weight * _balance_loss`` through ``Layer.
+publish_aux_loss``, which ``parallel.worker`` adds to the loss (JAX's
+``AUX_LOSS_KEY`` state entry). ``decode_apply`` (the serving engine's
+decode and verify steps, inference only) runs the fused path at the
+drop-free capacity ``C = N``, whatever the layer's ``dispatch``.
+``expert_unroll=True`` computes through the batched path: JAX's unroll
+regroups the same per-expert products. Expert parallelism
+(``expert_axis_name``, ``moe_all_to_all``) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,8 +48,6 @@ from distkeras_tpu_torch.models.layers import get_activation, init_weights
 #: ROADMAP items the layer's unported options wait for
 EXPERT_PARALLEL_ITEM = ("ROADMAP, Queue 1 item 10 (expert-parallel MoE: "
                         "expert_axis_name, ep_mesh, moe_all_to_all)")
-TRAINING_ITEM = ("ROADMAP, Queue 1 item 2 (MoE training, with the backward "
-                 "kernels K6b and K6c)")
 
 
 def _dispatch_plan(experts, gates, num_experts: int, capacity: int):
@@ -95,8 +100,8 @@ class MoE(Layer):
         self.dtype = dtype
         self.expert_axis_name = expert_axis_name
         self.kernel_init = kernel_init
-        #: the Switch/GShard balance-loss coefficient; the loss itself is
-        #: a training term and waits for MoE training
+        #: the Switch/GShard balance-loss coefficient: a training-mode
+        #: forward publishes ``aux_loss_weight * _balance_loss``
         self.aux_loss_weight = float(aux_loss_weight)
         self.dispatch = dispatch
         self.capacity_factor = float(capacity_factor)
@@ -120,23 +125,50 @@ class MoE(Layer):
         return tuple(input_shape)
 
     def _route(self, x, gate):
-        """``(full, topi, gates)``: the full router softmax ``[B, S, E]``,
-        the top-k expert ids and their renormalised weights ``[B, S,
-        K]``. The router runs in float32. Top-k comes from a stable
-        descending sort, so tied logits go to the lower expert id, as
-        ``lax.top_k`` orders them."""
+        """``(full, topi, gates, mask)``: the full router softmax ``[B, S,
+        E]``, the top-k expert ids and their renormalised weights ``[B,
+        S, K]``, and the top-k slot mask ``[B, S, E]`` for the balance
+        loss (``None`` at ``top_k == num_experts``). The router runs in
+        float32. Top-k comes from a stable descending sort, so tied
+        logits go to the lower expert id, as ``lax.top_k`` orders
+        them."""
         logits = torch.einsum("bsd,de->bse", x.float(), gate.float())
         full = torch.softmax(logits, dim=-1)
         topv, topi = torch.sort(logits, dim=-1, descending=True, stable=True)
         topv, topi = topv[..., :self.top_k], topi[..., :self.top_k]
-        return full, topi, torch.softmax(topv, dim=-1)
+        mask = None
+        if self.top_k < self.num_experts:
+            mask = torch.nn.functional.one_hot(
+                topi, self.num_experts).amax(dim=-2).bool()
+        return full, topi, torch.softmax(topv, dim=-1), mask
 
     def _gate_probs(self, x, gate):
-        """Routing weights ``[B, S, E]``: the top-k weights at their
-        experts, 0 elsewhere (the dense path's view of ``_route``)."""
-        _, topi, gates = self._route(x, gate)
+        """``(probs, full, mask)``: the routing weights ``[B, S, E]`` (the
+        top-k weights at their experts, 0 elsewhere: the dense path's
+        view of ``_route``) with the full softmax and the slot mask."""
+        full, topi, gates, mask = self._route(x, gate)
         onehot = torch.nn.functional.one_hot(topi, self.num_experts)
-        return torch.einsum("bske,bsk->bse", onehot.to(gates.dtype), gates)
+        probs = torch.einsum("bske,bsk->bse", onehot.to(gates.dtype), gates)
+        return probs, full, mask
+
+    def _balance_loss(self, full, mask):
+        """``E * sum_e f_e * P_e`` (Switch eq. 4, GShard; JAX :207): ``f_e``
+        the fraction of routing slots expert ``e`` won (the mask's mean
+        over tokens over ``top_k``), ``P_e`` its mean router
+        probability. 1 at uniform routing."""
+        e = self.num_experts
+        if mask is None:            # top_k == E: every slot hits every expert
+            frac = torch.full((e,), 1.0 / e, device=full.device)
+        else:
+            frac = mask.float().mean(dim=(0, 1)) / self.top_k
+        return e * torch.sum(frac * full.mean(dim=(0, 1)))
+
+    def _publish_balance_loss(self, full, mask):
+        """Publish the weighted balance loss in training mode; clear the
+        layer's term otherwise, so an eval forward publishes nothing."""
+        self.publish_aux_loss(
+            self.aux_loss_weight * self._balance_loss(full, mask)
+            if self.training and self.aux_loss_weight else None)
 
     def _capacity(self, n_tokens: int) -> int:
         per = -(-self.top_k * n_tokens // self.num_experts)
@@ -160,13 +192,14 @@ class MoE(Layer):
         then the ``tokens`` execution (scatter, stacked MLP, gather
         combine) or, with ``fused``, ``ops.moe_kernels.fused_moe_apply``.
         ``capacity`` overrides ``_capacity`` (the decode path passes the
-        token count); ``return_routing`` appends ``(topi, full)``."""
+        token count). Returns ``(out, full, mask)``; ``return_routing``
+        returns ``(out, (topi, full))``."""
         dt = torch_dtype(self.dtype)
         b, s, d = x.shape
         n = b * s
         e, k = self.num_experts, self.top_k
         c = self._capacity(n) if capacity is None else int(capacity)
-        full, topi, gates = self._route(x, p["gate"])
+        full, topi, gates, mask = self._route(x, p["gate"])
         dest, _, sg, keep = _dispatch_plan(topi.reshape(n, k),
                                            gates.reshape(n, k), e, c)
         xt = x.reshape(n, d).to(dt)
@@ -186,7 +219,7 @@ class MoE(Layer):
         out = out.reshape(b, s, d)
         if return_routing:
             return out, (topi, full)
-        return out
+        return out, full, mask
 
     def decode_apply(self, p, x, *, return_routing=False):
         """The serving engine's decode and verify MoE (JAX :407): ``x``
@@ -205,22 +238,23 @@ class MoE(Layer):
         return (out, routing) if return_routing else out
 
     def apply(self, p, x):
-        if self.training:
-            raise NotImplementedError(
-                f"training through MoE (and its balance loss) is not "
-                f"ported yet: {TRAINING_ITEM}")
+        """The layer in its configured dispatch (JAX :449). In training
+        mode a layer with ``aux_loss_weight`` publishes its weighted
+        balance loss; an eval-mode forward publishes nothing."""
         if self.dispatch != "dense":
-            out = self._apply_dispatched(p, x,
-                                         fused=self.dispatch == "fused")
+            out, full, mask = self._apply_dispatched(
+                p, x, fused=self.dispatch == "fused")
+            self._publish_balance_loss(full, mask)
             return out.to(x.dtype)
         dt = torch_dtype(self.dtype)
-        probs = self._gate_probs(x, p["gate"])
+        probs, full, mask = self._gate_probs(x, p["gate"])
         w1, b1, w2, b2 = self._weights(p, dt)
         act = get_activation(self.activation)
         h = act(torch.einsum("bsd,edf->besf", x.to(dt), w1)
                 + b1[None, :, None, :])
         y = torch.einsum("besf,efd->besd", h, w2) + b2[None, :, None, :]
         out = torch.einsum("bse,besd->bsd", probs.to(dt), y)
+        self._publish_balance_loss(full, mask)
         return out.to(x.dtype)
 
     def get_config(self):

@@ -1,7 +1,8 @@
 """Worker compute: the training step and the epoch loop.
 
 Mirrors ``distkeras_tpu/parallel/worker.py``: ``make_train_step`` (:77)
-builds the per-minibatch step (forward in training mode, loss, backward,
+builds the per-minibatch step (forward in training mode, loss plus the
+auxiliary losses the layers published (an MoE's balance loss), backward,
 an optional global-norm clip inside the optimizer, one optimizer
 update), ``shard_epoch_data``/``stack_batches`` (:232-259) shape an
 epoch into ``[steps, batch, ...]``. Where the JAX package scans the step
@@ -17,7 +18,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from distkeras_tpu_torch.models.moe import TRAINING_ITEM, MoE
+from distkeras_tpu_torch.models.core import collect_aux_losses
 from distkeras_tpu_torch.ops.optimizers import Optimizer, apply_updates
 from distkeras_tpu_torch.utils.tree import (tree_leaves, tree_map,
                                             tree_unflatten)
@@ -36,6 +37,8 @@ class TrainCarry(NamedTuple):
 def value_and_grad(module, loss_fn: Callable, params, xb, yb,
                    metric_fns: Optional[dict] = None):
     """``(loss, grads, {name: metric})`` of ``loss_fn(yb, module(xb))``
+    plus the auxiliary losses the forward's layers published (JAX
+    :145-151: both the differentiated and the reported loss hold them),
     for the parameter tree ``params``: the forward runs in training mode
     (the module's mode is restored after it), metrics on its detached
     output. ``grads`` is a tree shaped like ``params``; a parameter the
@@ -46,7 +49,7 @@ def value_and_grad(module, loss_fn: Callable, params, xb, yb,
     try:
         with torch.enable_grad():
             out = module.apply(params, xb)
-            loss = loss_fn(yb, out)
+            loss = loss_fn(yb, out) + collect_aux_losses(module)
     finally:
         module.train(was_training)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -77,10 +80,6 @@ def make_train_step(module, loss_fn: Callable, optimizer: Optimizer,
     if fused_vocab_head:
         raise NotImplementedError(
             f"fused_vocab_head is not ported yet: {LATER}")
-    if any(isinstance(m, MoE) for m in module.modules()):
-        raise NotImplementedError(
-            f"training a model with MoE blocks is not ported yet: "
-            f"{TRAINING_ITEM}")
     accum_steps = int(accum_steps)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")

@@ -21,8 +21,9 @@ from distkeras_tpu_torch.ops.flash_attention import (
     attention_delta, flash_backward, flash_backward_reference, flash_forward,
     flash_forward_reference)
 from distkeras_tpu_torch.parallel import SingleTrainer
-from distkeras_tpu_torch.ops.moe_kernels import (gather_gemm1,
-                                                 gather_gemm1_reference)
+from distkeras_tpu_torch.ops.moe_kernels import (
+    bwd_dw1, bwd_dw1_reference, bwd_dx, bwd_dx_reference, gather_gemm1,
+    gather_gemm1_reference)
 from distkeras_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference)
 from distkeras_tpu_torch.ops.quant_matmul import (quant_matmul,
@@ -711,3 +712,100 @@ def test_engine_on_card_moe_runs_k6a_per_layer_step(dev):
     # the prefill and two decode steps, 2 layers each
     assert kernels.launch_counts()["moe_gather_gemm1"] == 3 * 2
     assert out.shape == (2, 12)
+
+
+# --- K6b, K6c: the fused MoE block's backward -------------------------------
+
+#: phase 22's cases, by label: (tokens, capacity, d, H, routing)
+K6BC_CASES = {label: case for label, *case in chip_smoke.K6BC_CASES}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("label", list(K6BC_CASES))
+def test_moe_backward_kernels_match_plain(dev, label, dtype):
+    """K6b and K6c against their plain versions on phase 22's plans, at
+    phase 22's tolerances (relative to each output's largest |value|):
+    rows no slot won give exact zeros, the same inputs the same bits."""
+    n, c, d, h, routing = K6BC_CASES[label]
+    args = chip_smoke.k6bc_inputs(np.random.RandomState(n + c), n, c, d, h,
+                                  routing, dtype, dev)
+    xt, src = args[0], args[2]
+    before = kernels.launch_counts()
+    out = bwd_dx(*args, c)
+    ref = bwd_dx_reference(*args, c)
+    dw1 = bwd_dw1(xt, ref[1], src, c)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["moe_bwd_dx"] == before["moe_bwd_dx"] + 1
+    assert after["moe_bwd_dw1"] == before["moe_bwd_dw1"] + 1
+    bf16 = dtype == torch.bfloat16
+    tol = chip_smoke.K6BC_BF16_TOL if bf16 else chip_smoke.K6BC_F32_TOL
+    f32_tol = chip_smoke.K6BC_BF16_F32_OUT_TOL if bf16 else tol
+    empty = (src < 0).reshape(8, c)
+    for name, a, b in zip(chip_smoke.K6BC_OUTPUTS, out, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        limit = f32_tol if name == "rowdot" else tol
+        assert chip_smoke._rel(a, b) <= limit, name
+        assert (a[empty] == 0).all(), name
+    assert chip_smoke._rel(
+        dw1, bwd_dw1_reference(xt, ref[1], src, c)) <= f32_tol
+    again = bwd_dx(*args, c)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert torch.equal(dw1, bwd_dw1(xt, ref[1], src, c))
+
+
+@pytest.mark.parametrize("activation", ["relu", "silu", "linear"])
+def test_moe_backward_kernels_other_activations(dev, activation):
+    n, c, d, h = 300, 90, 70, 136
+    args = chip_smoke.k6bc_inputs(np.random.RandomState(7), n, c, d, h,
+                                  "random", torch.float32, dev)
+    out = bwd_dx(*args, c, activation)
+    ref = bwd_dx_reference(*args, c, activation)
+    for name, a, b in zip(chip_smoke.K6BC_OUTPUTS, out, ref):
+        assert chip_smoke._rel(a, b) <= chip_smoke.K6BC_F32_TOL, name
+
+
+def test_moe_backward_cpu_plain_cuda_kernel(dev):
+    """A CPU tensor takes the plain version (no launch), a CUDA tensor
+    the kernel."""
+    args = chip_smoke.k6bc_inputs(np.random.RandomState(3), 12, 5, 32, 48,
+                                  "random", torch.float32, "cpu")
+    xt, src = args[0], args[2]
+    before = kernels.launch_counts()
+    got = bwd_dx(*args, 5)
+    got_w = bwd_dw1(xt, got[1], src, 5)
+    assert kernels.launch_counts() == before
+    on_card = bwd_dx(*(a.to(dev) for a in args), 5)
+    on_card_w = bwd_dw1(xt.to(dev), got[1].to(dev), src.to(dev), 5)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["moe_bwd_dx"] == before["moe_bwd_dx"] + 1
+    assert after["moe_bwd_dw1"] == before["moe_bwd_dw1"] + 1
+    for a, b in zip(on_card + (on_card_w,), got + (got_w,)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+def test_moe_train_step_on_card_runs_k6abc_per_block(dev):
+    """One training step of an all-MoE LM with the fused dispatch on the
+    card launches K6a, K6b and K6c once per MoE block."""
+    model = Model.build(zoo.transformer_lm(97, d_model=128, num_heads=4,
+                                           num_layers=2, dtype="bfloat16",
+                                           mlp_ratio=2, moe_every=1,
+                                           num_experts=8,
+                                           moe_dispatch="fused",
+                                           moe_aux_loss_weight=0.01,
+                                           moe_capacity_factor=1.0),
+                        (64,), seed=0, device=dev)
+    rs = np.random.RandomState(4)
+    x = rs.randint(0, 97, (32, 64))
+    kernels.reset_launch_counts()
+    trainer = SingleTrainer(model, worker_optimizer="adam",
+                            learning_rate=1e-3, batch_size=32,
+                            loss="sparse_categorical_crossentropy_from_"
+                                 "logits")
+    trainer.train(Dataset.from_arrays(x, np.roll(x, -1, axis=1)))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for name in ("moe_gather_gemm1", "moe_bwd_dx", "moe_bwd_dw1"):
+        assert counts[name] == 2, (name, counts)
+    assert np.isfinite(trainer.get_history().losses()).all()

@@ -83,8 +83,8 @@ def test_bridge_refuses_mismatched_trees():
 
 
 def test_moe_is_not_ported_yet():
-    """MoE blocks build and serve now; expert parallelism and training
-    through them are what is not ported yet."""
+    """MoE blocks build, serve and train now; expert parallelism is what
+    is not ported yet."""
     lm = zoo.transformer_lm(V, d_model=16, num_heads=2, num_layers=1,
                             moe_every=1, num_experts=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -92,8 +92,8 @@ def test_moe_is_not_ported_yet():
                            moe_expert_axis="expert")
     m = Model.build(lm, (6,), device="cpu")
     m.module.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.module(torch.zeros(1, 6, dtype=torch.long))
+    out = m.module(torch.zeros(1, 6, dtype=torch.long))
+    assert out.shape == (1, 6, V) and out.requires_grad
 
 
 def test_entry_points_need_cuda_unless_told_cpu():

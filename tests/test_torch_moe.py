@@ -5,7 +5,8 @@ interpret mode, the ``MoE`` layer's three dispatches and
 weight bridge), ``generate()`` and the paged ``ServingEngine`` on the
 memorized all-MoE LM (token-identical to JAX ``generate()``), the
 expert telemetry and admission headroom, and every refusal of the
-unported MoE options.
+unported MoE options (training through MoE is held in
+``tests/test_torch_moe_training.py``).
 
 JAX's K6a runs as its own tests run it on the CPU: under
 ``moe_kernels.force_interpret()``. Inputs are made with numpy from a
@@ -30,8 +31,8 @@ from distkeras_tpu.models.moe import _dispatch_plan as jax_plan
 from distkeras_tpu.ops import moe_kernels as jmk
 
 from distkeras_tpu_torch import kernels
-from distkeras_tpu_torch.models import (Model, from_jax_params,
-                                        to_jax_params, zoo)
+from distkeras_tpu_torch.models import (Model, collect_aux_losses,
+                                        from_jax_params, to_jax_params, zoo)
 from distkeras_tpu_torch.models import decoding as pd
 from distkeras_tpu_torch.models.moe import MoE, _dispatch_plan, \
     moe_all_to_all
@@ -93,7 +94,7 @@ def test_tied_router_logits_take_the_lower_expert():
     tp["gate"] = _t(gate)
     x = np.random.RandomState(1).randn(2, 6, 16).astype(np.float32)
     _, jtopi, _, _ = jm._route(jnp.asarray(x), params["gate"])
-    _, ptopi, _ = pm._route(_t(x), tp["gate"])
+    _, ptopi, _, _ = pm._route(_t(x), tp["gate"])
     np.testing.assert_array_equal(ptopi.numpy(), np.asarray(jtopi))
     want, _ = jm.apply(params, {}, jnp.asarray(x))
     np.testing.assert_allclose(pm.apply(tp, _t(x)).numpy(),
@@ -286,12 +287,23 @@ def test_moe_route_stats_match_jax():
 
 
 def test_fused_gradient_raises_naming_the_roadmap():
+    """The fused block's gradient, which waited for ROADMAP Queue 1 item
+    2, now flows (the plain versions of K6b and K6c on the CPU, no kernel
+    launch) and equals the ``tokens`` dispatch's on the same plan."""
     jm, params, pm, tp = _layer_pair(top_k=2, dispatch="fused")
-    for p in tp.values():
-        p.requires_grad_(True)
-    out = pm.apply(tp, _t(np.ones((1, 3, 16), np.float32)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        out.sum().backward()
+    tokens = MoE(8, 32, top_k=2, dispatch="tokens")
+    x = _t(np.random.RandomState(4).randn(1, 3, 16).astype(np.float32))
+    grads = []
+    for layer in (pm, tokens):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+        before = kernels.launch_counts()
+        layer.apply(leaves, x).square().sum().backward()
+        assert kernels.launch_counts() == before
+        grads.append({k: v.grad for k, v in leaves.items()})
+    for k in tp:
+        torch.testing.assert_close(grads[0][k], grads[1][k], rtol=TOL,
+                                   atol=TOL)
+    assert grads[0]["w1"].abs().sum() > 0 and grads[0]["gate"].abs().sum() > 0
 
 
 def test_unported_moe_options_raise_naming_the_roadmap():
@@ -303,15 +315,16 @@ def test_unported_moe_options_raise_naming_the_roadmap():
                            moe_expert_axis="expert")
     with pytest.raises(NotImplementedError, match="item 10"):
         moe_all_to_all(MoE(8, 32), {}, None, axis_name="expert")
+    # training through MoE (ROADMAP Queue 1 item 2) is ported: the layer
+    # in training mode publishes its balance loss, an MoE LM gets a step
     pm = MoE(8, 32, aux_loss_weight=0.01)
     pm.build((4, 16), torch.Generator())
     pm.train()
-    with pytest.raises(NotImplementedError, match="item 2"):
-        pm.apply(pm.param_tree(), torch.zeros(1, 2, 16))
+    out = pm.apply(pm.param_tree(), torch.zeros(1, 2, 16))
+    assert out.shape == (1, 2, 16) and collect_aux_losses(pm).item() > 0
     lm = zoo.transformer_lm(V, d_model=16, num_heads=2, num_layers=1,
                             moe_every=1, num_experts=4)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        make_train_step(lm, lambda y, p: p.sum(), None)
+    assert callable(make_train_step(lm, lambda y, p: p.sum(), None))
     with pytest.raises(ValueError, match="dispatch"):
         MoE(8, 32, dispatch="bogus")
 

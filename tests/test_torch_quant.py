@@ -198,10 +198,23 @@ def test_dequant_params_tree_matches_jax(bits):
 def test_qtree_from_jax_carries_bytes():
     jm, _ = _pair("mha")
     theirs = jqm.quantize_params_tree(jm.params, 4)
-    ours = qtree_from_jax(theirs)
+    ours = qtree_from_jax(theirs, device="cpu")
     for path, a, b in _walk_pairs(ours, theirs):
         if is_qdict(b):
             _assert_qdict_equal(a, b, path)
+
+
+def test_qtree_from_jax_defaults_to_the_card():
+    """Like every entry point, ``qtree_from_jax`` puts the tree on the
+    CUDA card unless told ``device="cpu"``, and raises without one."""
+    tree = {"w": {"q": np.ones((2, 3), np.int8),
+                  "scale": np.ones(3, np.float32)}}
+    if torch.cuda.is_available():
+        assert qtree_from_jax(tree)["w"]["q"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            qtree_from_jax(tree)
+    assert qtree_from_jax(tree, device="cpu")["w"]["q"].dtype == torch.int8
 
 
 # --- the matmul --------------------------------------------------------------
@@ -232,7 +245,8 @@ def test_plain_quant_matmul_matches_jax_kernel_interpret(bits, layout):
     with jqm.force_interpret():
         assert jqm.fused_supported(128, 256)
         theirs = np.asarray(jqm.quant_matmul(jax.numpy.asarray(x), wq))
-    ours = quant_matmul(torch.from_numpy(x), qtree_from_jax(wq)).numpy()
+    ours = quant_matmul(torch.from_numpy(x),
+                        qtree_from_jax(wq, device="cpu")).numpy()
     assert ours.dtype == np.float32 and ours.shape == (5, 256)
     assert _rel(ours, theirs) <= MM_TOL
 
@@ -247,11 +261,13 @@ def test_plain_quant_matmul_matches_jax_reference(bits, layout, k, n, m):
     x, wq = _layout_case(rs, layout, bits, k, n, m)
     x3 = x.reshape(1, m, k)
     theirs = np.asarray(jqm.reference_matmul(jax.numpy.asarray(x3), wq))
-    ours = quant_matmul(torch.from_numpy(x3), qtree_from_jax(wq)).numpy()
+    ours = quant_matmul(torch.from_numpy(x3),
+                        qtree_from_jax(wq, device="cpu")).numpy()
     assert ours.shape == (1, m, n)
     assert _rel(ours, theirs) <= MM_TOL
     # and dequant-then-matmul agrees (the scale commutes out of the sum)
-    deq = dequant_weight(qtree_from_jax(wq)).reshape(k, n).numpy()
+    deq = dequant_weight(qtree_from_jax(wq, device="cpu")) \
+        .reshape(k, n).numpy()
     assert _rel(ours.reshape(m, n), x @ deq) <= 1e-4
 
 
