@@ -27,6 +27,29 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    rows), with the three training kernels' launch counts read around
    that run only; then the steady step's time, tokens/s, peak memory
    and a ``torch.profiler`` list of its device time;
+7b. the three flash kernels with packed-sequence segment ids against
+   their plain versions: the training shape (causal B4 H16 S2048 D64
+   bf16) on phase 7c's first batch of packed ids, float32 B1 S512, GQA
+   4x4, a 256-position window over the ids, unsorted interleaved ids
+   with a -1 tail (S1000) and all-equal ids (bitwise equal to no ids);
+   kernel ms with and without ids, bounds from the admitted pairs, the
+   plain versions' ms and ``scaled_dot_product_attention`` with the
+   boolean ``[B, 1, S, S]`` mask (forward, forward+backward) as
+   yardstick;
+7c. packed-sequence training: on a fresh seed-0 218M LM, documents of
+   seeded lengths 64-1536 (each tiles one of 16 seeded 64-token
+   patterns) packed greedily into
+   32 rows of 2048 (pad: token 0, id -1, label -1), one epoch at batch 4
+   (8 steps) of the hand-written step (``module.apply(params, x,
+   segment_ids=)``, the masked loss, adam): finite falling loss,
+   exactly 12 launches of each flash kernel a step; step ms, real
+   tokens/s, pad share, peak memory, the same rows without ids; one step
+   with ``Remat(policy="nothing")`` bitwise equal to the bare one (24
+   ``flash_fwd`` launches); then at 2 layers, B1 S512 (four documents and
+   a pad tail) the card's gradients (bf16, float32) against the CPU
+   float32 plain path and cross-segment isolation in float32 (later
+   logits bitwise unchanged by the earlier segment's tokens, unless the
+   ids are dropped);
 8. one gradient on the card (bf16 and float32) against the plain path
    on the CPU in float32, at the same widths with 2 layers, B1 S512;
 9. the slab decode-attention kernel (K2, float and int8 variants)
@@ -161,7 +184,10 @@ import torch.nn.functional as F
 
 from distkeras_tpu_torch import kernels
 from distkeras_tpu_torch.data import Dataset
-from distkeras_tpu_torch.models import Model, collect_aux_losses, zoo
+from distkeras_tpu_torch.models import (Model, Sequential,
+                                        collect_aux_losses, zoo)
+from distkeras_tpu_torch.models.attention import TransformerBlock
+from distkeras_tpu_torch.models.blocks import Remat
 from distkeras_tpu_torch.models.moe import MoE, _dispatch_plan
 from distkeras_tpu_torch.models.decoding import (_generate_params,
                                                  _masked_logits_vec,
@@ -177,9 +203,10 @@ from distkeras_tpu_torch.ops.flash_attention import (
 from distkeras_tpu_torch.ops.moe_kernels import (
     bwd_dw1, bwd_dw1_reference, bwd_dx, bwd_dx_reference, fused_moe_apply,
     gather_gemm1, gather_gemm1_reference, row_gates, src_tokens)
-from distkeras_tpu_torch.ops.losses import \
-    sparse_categorical_crossentropy_from_logits
-from distkeras_tpu_torch.ops.optimizers import adam
+from distkeras_tpu_torch.ops.losses import (
+    get_loss, sparse_categorical_crossentropy_from_logits)
+from distkeras_tpu_torch.ops.optimizers import (adam, apply_updates,
+                                                get_optimizer)
 from distkeras_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference)
 from distkeras_tpu_torch.ops.quant_matmul import (quant_matmul,
@@ -195,7 +222,7 @@ from distkeras_tpu_torch.parallel import (SingleTrainer, TrainCarry,
                                           make_train_step, value_and_grad)
 from distkeras_tpu_torch.serving import (DraftModel, NgramDraft,
                                          ServingEngine, tree_ancestors)
-from distkeras_tpu_torch.utils.tree import tree_leaves
+from distkeras_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
 #: the LM the JAX package benchmarks (bench.py LM_CFG), at full depth
 LM_CFG = dict(vocab=32768, d_model=1024, num_heads=16, num_layers=12,
@@ -927,6 +954,441 @@ def profile_training(model, card, label="training",
         print(f"{prefix}:   {e.self_device_time_total / 1e3:8.3f} ms  "
               f"x{e.count:<5d} {e.key[:72]}", flush=True)
     return step_ms, tokens / step_ms * 1e3, peak_gb, busy_ms
+
+
+# --- phase 7b: the flash kernels with packed-sequence segment ids ------------
+
+#: phase 7c's packed rows: 32 rows of 2048 tokens, batch 4, one epoch
+PACK_ROWS, PACK_SEQ, PACK_BATCH = 32, 2048, 4
+#: document lengths (tokens), drawn per document from the seed, and the
+#: pool of 64-token patterns the documents tile: each pattern recurs in
+#: later batches, so the loss can fall within one epoch (phase 7's rows
+#: each carry their own pattern and teach nothing to the next batch)
+PACK_DOC_LEN = (64, 1536)
+PACK_PATTERNS = 16
+MASKED_LOSS = "masked_sparse_categorical_crossentropy_from_logits"
+#: phase 7b's unsorted-ids case: its length (ragged against the 64-row
+#: tiles) and its -1 tail
+UNSORTED_LEN, UNSORTED_TAIL = 1000, 100
+#: float32 kernels against their plain versions: the forward's output
+#: (max abs) and the backward's gradients (relative to the reference's
+#: max) differ only by summation order
+KERNEL_F32_TOL = 2e-4
+BWD_F32_REL_TOL = 1e-4
+
+
+def packed_data(vocab: int):
+    """Documents of seeded lengths in ``PACK_DOC_LEN``, each one of
+    ``PACK_PATTERNS`` random 64-token patterns tiled (as
+    ``training_data``), packed greedily into
+    ``PACK_ROWS`` rows of ``PACK_SEQ`` tokens: a document that does not
+    fit starts the next row. Returns tokens, segment ids (the document's index in
+    its row; -1 on the pad tail, whose tokens are 0) and labels (the
+    next token inside the document; -1 on each document's last token and
+    on the pad)."""
+    rs = np.random.RandomState(SEED + 5)
+    rows, seq = PACK_ROWS, PACK_SEQ
+    pats = rs.randint(0, vocab, (PACK_PATTERNS, 64))
+    toks = np.zeros((rows, seq), np.int64)
+    seg = np.full((rows, seq), -1, np.int32)
+    labels = np.full((rows, seq), -1, np.int64)
+    r = col = doc = 0
+    while True:
+        n = rs.randint(PACK_DOC_LEN[0], PACK_DOC_LEN[1] + 1)
+        if col + n > seq:
+            r, col, doc = r + 1, 0, 0
+        if r == rows:
+            break
+        d = np.tile(pats[rs.randint(PACK_PATTERNS)], n // 64 + 1)[:n]
+        toks[r, col:col + n] = d
+        seg[r, col:col + n] = doc
+        labels[r, col:col + n - 1] = d[1:]
+        col, doc = col + n, doc + 1
+    return toks, seg, labels
+
+
+def segment_pairs(seg, window=None) -> int:
+    """The causal (query, key) pairs ``[B, S]`` ids admit: per query, the
+    keys at or before it with its id (within the window): what the
+    kernels' bounds count."""
+    total = 0
+    for row in np.asarray(seg):
+        for sid in np.unique(row):
+            pos = np.flatnonzero(row == sid)
+            lo = 0 if window is None else np.searchsorted(
+                pos, pos - window, side="right")
+            total += int((np.arange(len(pos)) + 1 - lo).sum())
+    return total
+
+
+def segment_cases(dev):
+    """Phase 7b's cases: (name, q/k/v/dout, ids, window, dtype). The
+    training shape on phase 7c's first batch of packed rows, float32,
+    grouped queries, a window over the same ids, unsorted interleaved ids
+    with a -1 tail at a ragged length, and all-equal ids."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    rs = np.random.RandomState(SEED + 6)
+    seg = packed_data(LM_CFG["vocab"])[1]
+    h = LM_CFG["num_heads"]
+    d = LM_CFG["d_model"] // h
+    s, n = PACK_SEQ, UNSORTED_LEN
+
+    def case(b, s, hkv, ids, window=None, dtype=torch.bfloat16):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g).to(dev, dtype)
+        return dict(q=rnd(b, s, h, d), k=rnd(b, s, hkv, d),
+                    v=rnd(b, s, hkv, d), dout=rnd(b, s, h, d),
+                    seg=torch.from_numpy(np.ascontiguousarray(ids)).to(dev),
+                    window=window)
+
+    unsorted = rs.randint(0, 4, (1, n)).astype(np.int32)
+    unsorted[:, n - UNSORTED_TAIL:] = -1
+    return [
+        (f"packed B{PACK_BATCH} H{h} S{s}",
+         case(PACK_BATCH, s, h, seg[:PACK_BATCH])),
+        (f"float32 packed B1 S{GRAD_SEQ}",
+         case(1, GRAD_SEQ, h, seg[:1, :GRAD_SEQ], dtype=torch.float32)),
+        (f"GQA Hkv={h // 4} G=4 packed B1 S{s}",
+         case(1, s, h // 4, seg[:1])),
+        (f"window=256 packed B1 S{s}", case(1, s, h, seg[:1], 256)),
+        (f"unsorted ids, -1 tail, B1 S{n}", case(1, n, h, unsorted)),
+        (f"all-equal ids B1 S{s}",
+         case(1, s, h, np.full((1, s), 3, np.int32))),
+    ]
+
+
+def _sdpa_masked_ms(c):
+    """``scaled_dot_product_attention`` with the boolean ``[B, 1, S, S]``
+    mask (causal, same id, window), forward and forward+backward: a
+    yardstick only (the port never calls it). GQA repeats K/V first."""
+    g = c["q"].shape[2] // c["k"].shape[2]
+    q, k, v = (x.transpose(1, 2).detach().clone().requires_grad_()
+               for x in (c["q"], c["k"], c["v"]))
+    kx, vx = (t.repeat_interleave(g, 1) if g > 1 else t for t in (k, v))
+    dout = c["dout"].transpose(1, 2)
+    i = torch.arange(q.shape[2], device=q.device)
+    mask = (i[None, :] <= i[:, None])
+    if c["window"] is not None:
+        mask = mask & (i[None, :] > i[:, None] - c["window"])
+    seg = c["seg"]
+    mask = (mask[None] & (seg[:, :, None] == seg[:, None, :]))[:, None]
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (q, k, v), dout)
+
+    with torch.no_grad():
+        f_ms = time_ms(fwd)
+    return f_ms, time_ms(fwd_bwd)
+
+
+def segment_phase(dev):
+    """Phase 7b: K1f, K1dq and K1dkv with segment ids against their plain
+    versions, kernel ms with and without ids, bounds from the admitted
+    pairs, the plain versions' ms and the masked-SDPA yardstick."""
+    rows = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
+    for name, c in segment_cases(dev):
+        q, k, v, dout, seg = c["q"], c["k"], c["v"], c["dout"], c["seg"]
+        f32 = q.dtype == torch.float32
+        kw = dict(scale=q.shape[-1] ** -0.5, causal=True,
+                  window=c["window"], layout="bshd")
+        out, lse = flash_forward(q, k, v, segment_ids=seg, **kw)
+        delta = attention_delta(out, dout)
+        args = (q, k, v, lse, dout, delta, kw["scale"], True, c["window"],
+                "bshd")
+        got = launch_dq(*args, segment_ids=seg) + \
+            launch_dkv(*args, segment_ids=seg)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = flash_forward_reference(q, k, v, segment_ids=seg,
+                                                   **kw)
+        ref = flash_backward_reference(q, k, v, out, lse, dout, delta,
+                                       segment_ids=seg, **kw)
+        errs = {"out": (out.float() - ref_out.float()).abs().max().item(),
+                "lse": (lse - ref_lse).abs().max().item()}
+        rel = {}
+        for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+            if not torch.isfinite(a.float()).all():
+                raise AssertionError(f"non-finite {gname} on {name}")
+            errs[gname] = (a.float() - r.float()).abs().max().item()
+            rel[gname] = errs[gname] / r.float().abs().max().item()
+        fwd_tol = KERNEL_F32_TOL if f32 else KERNEL_BF16_TOL
+        bwd_tol = BWD_F32_REL_TOL if f32 else BWD_BF16_REL_TOL
+        ok = (errs["out"] <= fwd_tol and errs["lse"] <= LSE_TOL
+              and max(rel.values()) <= bwd_tol)
+        bitwise = ""
+        if name.startswith("all-equal"):
+            out0, lse0 = flash_forward(q, k, v, **kw)
+            plain = (out0, lse0) + launch_dq(*args) + launch_dkv(*args)
+            same = all(torch.equal(a, b) for a, b in
+                       zip((out, lse) + got, plain))
+            bitwise = f"; bitwise equal to no ids: {same}"
+            ok = ok and same
+        ms = {"fwd": time_ms(lambda: flash_forward(q, k, v, segment_ids=seg,
+                                                   **kw)),
+              "fwd0": time_ms(lambda: flash_forward(q, k, v, **kw)),
+              "dq": time_ms(lambda: launch_dq(*args, segment_ids=seg),
+                            iters=10),
+              "dq0": time_ms(lambda: launch_dq(*args), iters=10),
+              "dkv": time_ms(lambda: launch_dkv(*args, segment_ids=seg),
+                             iters=10),
+              "dkv0": time_ms(lambda: launch_dkv(*args), iters=10)}
+        plain_fwd = time_ms(lambda: flash_forward_reference(
+            q, k, v, segment_ids=seg, **kw), iters=3, warmup=1)
+        plain_bwd = time_ms(lambda: flash_backward_reference(
+            q, k, v, out, lse, dout, delta, segment_ids=seg, **kw),
+            iters=3, warmup=1)
+        sdpa_f, sdpa_fb = _sdpa_masked_ms(c)
+        b, s, h, d = q.shape
+        work = h * segment_pairs(seg.cpu().numpy(), c["window"]) * d
+        esz = q.element_size()
+        qbytes, kvbytes = esz * q.numel(), esz * k.numel()
+        rowbytes, segbytes = 4 * lse.numel(), 4 * seg.numel()
+        peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+        fwd_bound = bound_ms(4.0 * work, 2 * qbytes + 2 * kvbytes + rowbytes
+                             + segbytes, peak)
+        in_bytes = 2 * qbytes + 2 * kvbytes + 2 * rowbytes + segbytes
+        dq_bound = bound_ms(6.0 * work, in_bytes + qbytes, peak)
+        dkv_bound = bound_ms(8.0 * work, in_bytes + 2 * kvbytes, peak)
+        print(f"flash segments {name}: max abs err out {errs['out']:.3e} "
+              f"(tol {fwd_tol}), lse {errs['lse']:.3e} (tol {LSE_TOL}); "
+              f"dq/dk/dv relative {rel['dq']:.3e} {rel['dk']:.3e} "
+              f"{rel['dv']:.3e} (tol {bwd_tol}){bitwise}; kernel ms with "
+              f"ids / without: fwd {ms['fwd']:.4f} / {ms['fwd0']:.4f}, dq "
+              f"{ms['dq']:.4f} / {ms['dq0']:.4f}, dk/dv {ms['dkv']:.4f} / "
+              f"{ms['dkv0']:.4f}; bounds (admitted pairs {work // (h * d)}) "
+              f"fwd {fwd_bound[0]:.4f} ({fwd_bound[1]}), dq "
+              f"{dq_bound[0]:.4f} ({dq_bound[1]}), dk/dv {dkv_bound[0]:.4f} "
+              f"({dkv_bound[1]}); plain fwd {plain_fwd:.4f} ms, plain "
+              f"backward {plain_bwd:.4f} ms; masked sdpa fwd {sdpa_f:.4f} "
+              f"ms, fwd+bwd {sdpa_fb:.4f} ms", flush=True)
+        if not ok:
+            raise AssertionError(f"the flash kernels with segment ids "
+                                 f"disagree with their plain versions on "
+                                 f"{name}")
+        bwd_lib = sdpa_fb - sdpa_f
+        for kname, err, kms, bnd, plain_ms, lib in (
+                ("flash_fwd", errs["out"], ms["fwd"], fwd_bound, plain_fwd,
+                 sdpa_f),
+                ("flash_bwd_dq", errs["dq"], ms["dq"], dq_bound, plain_bwd,
+                 bwd_lib),
+                ("flash_bwd_dkv", max(errs["dk"], errs["dv"]), ms["dkv"],
+                 dkv_bound, plain_bwd, bwd_lib)):
+            rows[kname].append(dict(name=name, err=err, ms=kms,
+                                    plain_ms=plain_ms, library_ms=lib,
+                                    bound_ms=bnd[0], bound_by=bnd[1]))
+    return rows
+
+
+# --- phase 7c: packed-sequence training at full width -----------------------
+
+
+def packed_step(model, opt, opt_state, x, seg, y, update=True):
+    """The hand-written packed step (JAX ``tests/test_packed_sequences.py``
+    :181-189): ``module.apply(params, x, segment_ids=seg)``, the masked
+    loss, its gradients and (``update``) one optimizer update. Returns
+    the optimizer state, the loss and the gradients."""
+    params = model.params
+    model.module.train()
+    out = model.module.apply(params, x, segment_ids=seg)
+    loss = get_loss(MASKED_LOSS)(y, out)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    model.module.eval()
+    if update:
+        with torch.no_grad():
+            upd, opt_state = opt.update(tree_unflatten(params, grads),
+                                        opt_state, params)
+            apply_updates(params, upd)
+    return opt_state, loss.detach(), grads
+
+
+def _remat_view(model):
+    """The same layers and parameters with every block wrapped in
+    ``Remat(policy="nothing")``."""
+    layers = [Remat(layer, policy="nothing")
+              if isinstance(layer, TransformerBlock) else layer
+              for layer in model.module.layers]
+    return Model(Sequential(layers), model.input_shape, model.output_shape,
+                 model.device)
+
+
+def packed_training_phase(dev, card):
+    """Phase 7c: one epoch of packed rows through the hand-written step
+    on a fresh seed-0 218M LM, exactly 12 launches of each flash kernel
+    a step; the step's time, real tokens/s, pad share and peak memory;
+    the same rows without ids (the mask's cost); one step with
+    ``Remat(policy="nothing")`` bitwise equal to the bare step."""
+    model = build_lm(dev)
+    toks, seg, labels = (torch.from_numpy(a).to(dev)
+                         for a in packed_data(LM_CFG["vocab"]))
+    pad_share = float((seg < 0).float().mean())
+    n_docs = int(sum(len(np.unique(r[r >= 0])) for r in seg.cpu().numpy()))
+    opt = get_optimizer("adam", learning_rate=TRAIN_LR)
+    state = opt.init(model.params)
+    steps = PACK_ROWS // PACK_BATCH
+    batches = [tuple(a[i * PACK_BATCH:(i + 1) * PACK_BATCH]
+                     for a in (toks, seg, labels)) for i in range(steps)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses = []
+    for x, sb, y in batches:
+        state, loss, _ = packed_step(model, opt, state, x, sb, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    losses = torch.stack(losses).float().cpu().numpy()
+    print(f"packed training: {steps} steps over {PACK_ROWS} rows x "
+          f"{PACK_SEQ} ({n_docs} documents of {PACK_DOC_LEN[0]}-"
+          f"{PACK_DOC_LEN[1]} tokens, pad share {pad_share:.4f}), loss "
+          f"{np.array2string(losses, precision=3)}; launches "
+          f"{ {n: launches[n] for n in TRAINING_KERNELS} }", flush=True)
+    if not (np.isfinite(losses).all() and losses[-2:].mean() < losses[0]):
+        raise AssertionError(f"packed training: losses {losses} are not "
+                             "finite or did not fall")
+    for name in TRAINING_KERNELS:
+        if launches[name] != LM_CFG["num_layers"] * steps:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times in {steps} packed "
+                f"steps; expected {LM_CFG['num_layers'] * steps}")
+
+    x, sb, y = batches[0]
+    real = int((sb >= 0).sum())
+
+    def timed(ids, n=3):
+        nonlocal state
+        state, _, _ = packed_step(model, opt, state, x, ids, y)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _, _ = packed_step(model, opt, state, x, ids, y)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3 / n,
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    step_ms, peak = timed(sb)
+    nomask_ms, _ = timed(None)
+    print(f"packed training on {card}: {step_ms:.1f} ms/step (B{PACK_BATCH} "
+          f"S{PACK_SEQ}, adam), {real / step_ms * 1e3:.0f} real tokens/s "
+          f"({x.numel() / step_ms * 1e3:.0f} with the pad), peak device "
+          f"memory {peak:.2f} GiB; the same rows without segment_ids "
+          f"{nomask_ms:.1f} ms/step", flush=True)
+
+    remat = _remat_view(model)
+    runs = {}
+    for label, m in (("bare", model), ("remat", remat)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        _, loss, grads = packed_step(m, opt, state, x, sb, y, update=False)
+        torch.cuda.synchronize()
+        runs[label] = (loss, grads, kernels.launch_counts(),
+                       torch.cuda.max_memory_allocated() / 2 ** 30)
+    (l0, g0, c0, p0), (l1, g1, c1, p1) = runs["bare"], runs["remat"]
+    same = torch.equal(l0, l1) and all(torch.equal(a, b)
+                                       for a, b in zip(g0, g1))
+    n = LM_CFG["num_layers"]
+    print(f"packed step with Remat(policy='nothing'): loss and gradients "
+          f"bitwise equal to the bare step: {same}; launches flash_fwd "
+          f"{c1['flash_fwd']} (bare {c0['flash_fwd']}), dq "
+          f"{c1['flash_bwd_dq']}, dk/dv {c1['flash_bwd_dkv']}; peak device "
+          f"memory {p1:.2f} GiB (bare {p0:.2f} GiB)", flush=True)
+    if not same:
+        raise AssertionError("the remat packed step differs from the bare "
+                             "one")
+    if (c1["flash_fwd"], c1["flash_bwd_dq"], c1["flash_bwd_dkv"]) != \
+            (2 * n, n, n):
+        raise AssertionError(f"the remat step launched {c1}")
+    del remat, model, state
+    return launches
+
+
+#: phase 7c's 2-layer copy: B1 S512, four documents and a pad tail
+PACK_GRAD_CUTS = (0, 150, 290, 400, 470)
+
+
+def _grad_rows(rs):
+    toks = torch.from_numpy(rs.randint(0, LM_CFG["vocab"],
+                                       (1, GRAD_SEQ))).long()
+    seg = torch.full((1, GRAD_SEQ), -1, dtype=torch.int32)
+    labels = torch.full((1, GRAD_SEQ), -1, dtype=torch.long)
+    cuts = PACK_GRAD_CUTS
+    for i in range(len(cuts) - 1):
+        seg[:, cuts[i]:cuts[i + 1]] = i
+        labels[:, cuts[i]:cuts[i + 1] - 1] = toks[:, cuts[i] + 1:cuts[i + 1]]
+    return toks, seg, labels
+
+
+def packed_gradients_phase(dev):
+    """Phase 7c at 2 layers, B1 S512: the masked packed loss's gradients
+    on the card (bf16, float32) against the CPU float32 plain path, then
+    cross-segment isolation in float32 on the card (JAX
+    ``tests/test_packed_sequences.py:66-117``)."""
+    toks, seg, labels = _grad_rows(np.random.RandomState(SEED + 7))
+
+    def grads(device, dtype):
+        m = build_lm(device, num_layers=GRAD_LAYERS, dtype=dtype)
+        _, loss, g = packed_step(m, None, None, toks.to(m.device),
+                                 seg.to(m.device), labels.to(m.device),
+                                 update=False)
+        return float(loss), [t.float().cpu() for t in g]
+
+    ref_loss, ref = grads("cpu", "float32")
+    for dtype, tol in (("bfloat16", GRAD_BF16_REL_TOL),
+                       ("float32", GRAD_F32_REL_TOL)):
+        kernels.reset_launch_counts()
+        loss, got = grads(dev, dtype)
+        if kernels.launch_counts()["flash_bwd_dkv"] != GRAD_LAYERS:
+            raise AssertionError("the packed card gradient did not run the "
+                                 "backward kernels")
+        worst = max((a - b).abs().max().item() / b.abs().max().item()
+                    for a, b in zip(got, ref))
+        print(f"packed gradient vs CPU float32 ({GRAD_LAYERS} layers, B1 "
+              f"S{GRAD_SEQ}, {len(PACK_GRAD_CUTS) - 1} documents and a pad "
+              f"tail): card {dtype} loss {loss:.6f} (CPU {ref_loss:.6f}), "
+              f"worst per-leaf rel err {worst:.3e} (tol {tol})", flush=True)
+        if not (worst <= tol and abs(loss - ref_loss) <= tol * ref_loss):
+            raise AssertionError(f"card {dtype} packed gradients disagree "
+                                 "with the CPU")
+
+    m = build_lm(dev, num_layers=GRAD_LAYERS, dtype="float32")
+    cut = PACK_GRAD_CUTS[2]
+    rs = np.random.RandomState(SEED + 8)
+    x1 = toks.to(dev)
+    x2 = x1.clone()
+    x2[:, :cut] = torch.from_numpy(rs.randint(0, LM_CFG["vocab"],
+                                              (1, cut))).to(dev)
+    two = torch.from_numpy((np.arange(GRAD_SEQ) >= cut)
+                           .astype(np.int32))[None].to(dev)
+
+    def logits(x, ids):
+        with torch.no_grad():
+            return m.module.apply(m.params, x, segment_ids=ids)
+
+    l1, l2 = logits(x1, two), logits(x2, two)
+    u1, u2 = logits(x1, None), logits(x2, None)
+    later_equal = torch.equal(l1[:, cut:], l2[:, cut:])
+    moved = (u1[:, cut:] - u2[:, cut:]).abs().max().item()
+
+    def later_grads(x):
+        out = m.module.apply(m.params, x, segment_ids=two)
+        loss = out[:, cut:].float().square().sum()
+        return torch.autograd.grad(loss, tree_leaves(m.params))
+
+    worst = 0.0
+    for a, b in zip(later_grads(x1), later_grads(x2)):
+        if a.shape == (LM_CFG["vocab"], LM_CFG["d_model"]):
+            continue            # the embedding rows of the perturbed tokens
+        worst = max(worst, (a - b).abs().max().item()
+                    / max(b.abs().max().item(), 1e-30))
+    print(f"cross-segment isolation (float32 card, earlier segment "
+          f"perturbed): later-segment logits bitwise equal {later_equal}; "
+          f"later-segment loss gradients rel diff {worst:.3e} (tol 1e-6); "
+          f"without ids the later logits move by {moved:.3e}", flush=True)
+    if not (later_equal and worst <= 1e-6 and moved > 0.0):
+        raise AssertionError("packed sequences leak across segments on the "
+                             "card")
 
 
 # --- phase 8: gradients on the card against the CPU -------------------------
@@ -2891,6 +3353,9 @@ def main() -> int:
           f"launches {train_launches}; {trainer.get_training_time():.1f} s",
           flush=True)
     profile_training(model, card)
+    seg_rows = segment_phase(dev)
+    packed_launches = packed_training_phase(dev, card)
+    packed_gradients_phase(dev)
     gradients_vs_cpu(dev)
     del trainer
 
@@ -2967,6 +3432,7 @@ def main() -> int:
         by_path[name]["serving"] = launches[name]
     for name in TRAINING_KERNELS:
         by_path[name]["training"] = train_launches[name]
+        by_path[name]["training_packed"] = packed_launches[name]
     for name, n in gen_launches.items():
         by_path[name]["generate"] = n
     by_path["paged_decode_q8"]["serving_int8"] = quant_launches[
@@ -3002,17 +3468,19 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("flash_fwd", "distkeras_tpu_torch/csrc/flash_fwd.cu",
-              "distkeras_tpu/ops/flash_attention.py:321", flash_rows,
-              "serving"),
+              "distkeras_tpu/ops/flash_attention.py:321",
+              flash_rows + seg_rows["flash_fwd"], "serving"),
         entry("paged_decode", "distkeras_tpu_torch/csrc/paged_decode.cu",
               "distkeras_tpu/ops/paged_attention.py:365", paged_rows,
               "serving"),
         entry("flash_bwd_dq", "distkeras_tpu_torch/csrc/flash_bwd.cu",
               "distkeras_tpu/ops/flash_attention.py:585",
-              bwd_rows["flash_bwd_dq"], "training"),
+              bwd_rows["flash_bwd_dq"] + seg_rows["flash_bwd_dq"],
+              "training"),
         entry("flash_bwd_dkv", "distkeras_tpu_torch/csrc/flash_bwd.cu",
               "distkeras_tpu/ops/flash_attention.py:619",
-              bwd_rows["flash_bwd_dkv"], "training"),
+              bwd_rows["flash_bwd_dkv"] + seg_rows["flash_bwd_dkv"],
+              "training"),
         entry("decode_attention",
               "distkeras_tpu_torch/csrc/decode_attention.cu",
               "distkeras_tpu/ops/decode_attention.py:233",

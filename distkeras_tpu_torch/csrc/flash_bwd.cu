@@ -35,6 +35,18 @@
 //     window k_pos > q_pos - window, ragged tail k_pos < Sk, with the
 //     finite NEG_INF; query rows past Sq contribute exactly zero (never
 //     exp of garbage), so no NaN can arise from padding.
+//   * packed sequences (`_mask` :386-387 and :480-481): with segment ids
+//     `admitted()` also requires qseg == kseg. The dq kernel loads each
+//     key tile's ids into shared memory beside K; the dk/dv kernel reads
+//     its key's id once and loads the q-side ids of every query block it
+//     visits (they change per query block, not per key block). Each
+//     thread folds its row's 32 comparisons for the tile into one 32-bit
+//     mask before the unrolled loop, so the loop gains one register and
+//     no memory access. A masked pair has P = exp(NEG_INF - lse) = 0
+//     exactly, so a key no query of its segment sees gets exactly zero
+//     gradient. No tile is skipped for its ids. The kernels are
+//     templated on SEG: without ids (SEG = false, null pointers) the
+//     mask folds away and the code is that of the kernels before ids.
 //   * rounding points of the Pallas kernels: dS is rounded to K's dtype
 //     before dS.K and to Q's dtype before dS^T.Q, P to dO's dtype before
 //     P^T.dO; every product accumulates in float32; scale is applied to
@@ -80,8 +92,8 @@ struct Strides {
 };
 
 __device__ __forceinline__ bool admitted(int qp, int kp, int Sk, int causal,
-                                         int window) {
-  bool ok = kp < Sk;
+                                         int window, bool same_segment) {
+  bool ok = kp < Sk && same_segment;
   if (causal) ok = ok && kp <= qp;
   if (window > 0) ok = ok && kp > qp - window;
   return ok;
@@ -101,12 +113,22 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-template <int D>
-constexpr int dq_smem_floats() {
-  return (2 * BM + 2 * BN) * (D + 1) + BM * (BN + 1);
+// bit i: does this thread's row share its id with the tile's row 2i+half
+template <int N>
+__device__ __forceinline__ unsigned same_mask(const int* ids, int id,
+                                              int half) {
+  unsigned m = 0;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) m |= unsigned(ids[2 * i + half] == id) << i;
+  return m;
 }
 
-template <typename T, int D>
+template <int D>
+constexpr int dq_smem_floats() {
+  return (2 * BM + 2 * BN) * (D + 1) + BM * (BN + 1) + BN;
+}
+
+template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -114,7 +136,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int G, int Sq, int Sk, Strides qs, Strides ks,
                     Strides vs, Strides gs, Strides dqs, float scale,
-                    int causal, int window) {
+                    int causal, int window, const int* __restrict__ qseg,
+                    const int* __restrict__ kseg, long long seg_b) {
   extern __shared__ float smem[];
   constexpr int DP = D + 1;
   constexpr int PP = BN + 1;
@@ -123,6 +146,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ks = Gs + BM * DP;    // [BN][DP]
   float* Vs = Ks + BN * DP;    // [BN][DP]
   float* Ss = Vs + BN * DP;    // [BM][PP] dS, rounded to K's dtype
+  int* Kseg = reinterpret_cast<int*>(Ss + BM * PP);  // [BN] key ids
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H, hk = h / G;
@@ -139,6 +163,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long row = (long long)bh * Sq + qpos;
   const float row_lse = qvalid ? lse[row] : 0.f;
   const float row_delta = qvalid ? delta[row] : 0.f;
+  const int rseg = (SEG && qvalid) ? qseg[b * seg_b + qpos] : 0;
 
   float acc[D / 2];
 #pragma unroll
@@ -155,7 +180,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous step's readers of Ks/Vs/Ss are done
     load_tile<T, D>(Ks, kb, ks.s, k0, BN, Sk);
     load_tile<T, D>(Vs, vb, vs.s, k0, BN, Sk);
+    if (SEG) {
+      for (int i = tid; i < BN; i += NT)
+        Kseg[i] = k0 + i < Sk ? kseg[b * seg_b + k0 + i] : 0;
+    }
     __syncthreads();
+    const unsigned same = SEG ? same_mask<BN>(Kseg, rseg, half) : ~0u;
 
     float s[BN / 2], dp[BN / 2];
 #pragma unroll
@@ -176,8 +206,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float ds = 0.f;
       if (qvalid) {
         const float x =
-            admitted(qpos, k0 + j, Sk, causal, window) ? s[i] * scale
-                                                        : kNegInf;
+            admitted(qpos, k0 + j, Sk, causal, window, (same >> i) & 1u)
+                ? s[i] * scale
+                : kNegInf;
         ds = expf(x - row_lse) * (dp[i] - row_delta);
       }
       Ss[r * PP + j] = round_to<T>(ds);
@@ -201,10 +232,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int D>
 constexpr int dkv_smem_floats() {
-  return (2 * BN + 2 * BM) * (D + 1) + 2 * BN * (BM + 1) + 2 * BM;
+  return (2 * BN + 2 * BM) * (D + 1) + 2 * BN * (BM + 1) + 3 * BM;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -213,7 +244,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dv, int H, int G, int Sq, int Sk,
                      Strides qs, Strides ks, Strides vs, Strides gs,
                      Strides dks, Strides dvs, float scale, int causal,
-                     int window) {
+                     int window, const int* __restrict__ qseg,
+                     const int* __restrict__ kseg, long long seg_b) {
   extern __shared__ float smem[];
   constexpr int DP = D + 1;
   constexpr int PP = BM + 1;
@@ -225,6 +257,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ss = Ps + BN * PP;    // [BN][PP] dS^T, rounded to Q's dtype
   float* Ls = Ss + BN * PP;    // [BM] lse
   float* Es = Ls + BM;         // [BM] delta
+  int* Qseg = reinterpret_cast<int*>(Es + BM);  // [BM] query ids
 
   const int Hkv = H / G;
   const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
@@ -232,6 +265,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int r = tid >> 1, half = tid & 1;  // this thread's key row
   const int kpos = k0 + r;
+  const int rseg = (SEG && kpos < Sk) ? kseg[b * seg_b + kpos] : 0;
 
   load_tile<T, D>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, BN, Sk);
   load_tile<T, D>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, BN, Sk);
@@ -261,8 +295,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool in = q0 + i < Sq;
         Ls[i] = in ? lse[bh * Sq + q0 + i] : 0.f;
         Es[i] = in ? delta[bh * Sq + q0 + i] : 0.f;
+        if (SEG) Qseg[i] = in ? qseg[b * seg_b + q0 + i] : 0;
       }
       __syncthreads();
+      const unsigned same = SEG ? same_mask<BM>(Qseg, rseg, half) : ~0u;
 
       float s[BM / 2], dp[BM / 2];
 #pragma unroll
@@ -283,9 +319,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qp = q0 + qi;
         float p = 0.f, ds = 0.f;
         if (qp < Sq) {
-          const float x = admitted(qp, kpos, Sk, causal, window)
-                              ? s[i] * scale
-                              : kNegInf;
+          const float x =
+              admitted(qp, kpos, Sk, causal, window, (same >> i) & 1u)
+                  ? s[i] * scale
+                  : kNegInf;
           p = expf(x - Ls[qi]);
           ds = p * (dp[i] - Es[qi]);
         }
@@ -324,13 +361,15 @@ struct Args {
   Strides qs, ks, vs, gs, dqs, dks, dvs;
   float scale;
   int causal, window;
+  const int *qseg, *kseg;
+  long long seg_b;
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 cudaError_t launch_dq(const Args& a) {
   const size_t smem = sizeof(float) * dq_smem_floats<D>();
-  auto kern = flash_bwd_dq_kernel<T, D>;
+  auto kern = flash_bwd_dq_kernel<T, D, SEG>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -339,14 +378,14 @@ cudaError_t launch_dq(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.dq), a.H, a.G, a.Sq, a.Sk, a.qs, a.ks, a.vs,
-      a.gs, a.dqs, a.scale, a.causal, a.window);
+      a.gs, a.dqs, a.scale, a.causal, a.window, a.qseg, a.kseg, a.seg_b);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 cudaError_t launch_dkv(const Args& a) {
   const size_t smem = sizeof(float) * dkv_smem_floats<D>();
-  auto kern = flash_bwd_dkv_kernel<T, D>;
+  auto kern = flash_bwd_dkv_kernel<T, D, SEG>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -356,29 +395,36 @@ cudaError_t launch_dkv(const Args& a) {
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.G, a.Sq,
       a.Sk, a.qs, a.ks, a.vs, a.gs, a.dks, a.dvs, a.scale, a.causal,
-      a.window);
+      a.window, a.qseg, a.kseg, a.seg_b);
   return cudaGetLastError();
 }
 
-template <bool DQ, typename T>
+template <bool DQ, typename T, bool SEG>
 cudaError_t dispatch_d(int D, const Args& a) {
   switch (D) {
     case 32:
-      return DQ ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
+      return DQ ? launch_dq<T, 32, SEG>(a) : launch_dkv<T, 32, SEG>(a);
     case 64:
-      return DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
+      return DQ ? launch_dq<T, 64, SEG>(a) : launch_dkv<T, 64, SEG>(a);
     case 128:
-      return DQ ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+      return DQ ? launch_dq<T, 128, SEG>(a) : launch_dkv<T, 128, SEG>(a);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <bool DQ, bool SEG>
+cudaError_t dispatch_t(int dtype, int D, const Args& a) {
+  if (dtype == 0) return dispatch_d<DQ, float, SEG>(D, a);
+  if (dtype == 1) return dispatch_d<DQ, __nv_bfloat16, SEG>(D, a);
+  return cudaErrorInvalidValue;
+}
+
 template <bool DQ>
 cudaError_t dispatch(int dtype, int D, const Args& a) {
-  if (dtype == 0) return dispatch_d<DQ, float>(D, a);
-  if (dtype == 1) return dispatch_d<DQ, __nv_bfloat16>(D, a);
-  return cudaErrorInvalidValue;
+  if (a.qseg != nullptr && a.kseg != nullptr)
+    return dispatch_t<DQ, true>(dtype, D, a);
+  return dispatch_t<DQ, false>(dtype, D, a);
 }
 
 }  // namespace
@@ -390,7 +436,8 @@ extern "C" int dkt_flash_bwd_dq(
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long gsb,
     long long gss, long long gsh, long long dqsb, long long dqss,
-    long long dqsh, float scale, int causal, int window, void* stream) {
+    long long dqsh, float scale, int causal, int window, const int* qseg,
+    const int* kseg, long long seg_b, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
   a.dq = dq;
@@ -398,6 +445,7 @@ extern "C" int dkt_flash_bwd_dq(
   a.qs = {qsb, qss, qsh}; a.ks = {ksb, kss, ksh}; a.vs = {vsb, vss, vsh};
   a.gs = {gsb, gss, gsh}; a.dqs = {dqsb, dqss, dqsh};
   a.scale = scale; a.causal = causal; a.window = window;
+  a.qseg = qseg; a.kseg = kseg; a.seg_b = seg_b;
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<true>(dtype, D, a);
 }
@@ -410,7 +458,8 @@ extern "C" int dkt_flash_bwd_dkv(
     long long vsb, long long vss, long long vsh, long long gsb,
     long long gss, long long gsh, long long dksb, long long dkss,
     long long dksh, long long dvsb, long long dvss, long long dvsh,
-    float scale, int causal, int window, void* stream) {
+    float scale, int causal, int window, const int* qseg, const int* kseg,
+    long long seg_b, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
   a.dk = dk; a.dv = dv;
@@ -419,6 +468,7 @@ extern "C" int dkt_flash_bwd_dkv(
   a.gs = {gsb, gss, gsh}; a.dks = {dksb, dkss, dksh};
   a.dvs = {dvsb, dvss, dvsh};
   a.scale = scale; a.causal = causal; a.window = window;
+  a.qseg = qseg; a.kseg = kseg; a.seg_b = seg_b;
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<false>(dtype, D, a);
 }

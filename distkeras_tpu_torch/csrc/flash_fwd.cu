@@ -23,6 +23,16 @@
 //     the window edge (k_pos > q_pos - window) and the ragged key tail
 //     (k_pos < Sk) are masked with the finite NEG_INF, so a fully
 //     masked row gives lse ~ NEG_INF and never NaN;
+//   * packed sequences (`_fwd_kernel` :188-189): with segment ids each
+//     key tile's ids are loaded into shared memory beside K and
+//     `qseg[r] == kseg[j]` is ANDed into the element mask. Segments only
+//     remove pairs, so every tile skip above stays; no tile is skipped
+//     for its ids. A row whose first visited tiles are wholly masked
+//     carries m = NEG_INF with alpha = 1 through them (each masked
+//     element adds exp(0) to l and its V row to acc, all finite); the
+//     first admitted key raises m to a real score and its alpha =
+//     exp(NEG_INF - m) is exactly 0, which clears that residue. With no
+//     ids (null pointers) every id reads 0, so the mask is unchanged;
 //   * scores accumulate in float32 from the stored dtype; probabilities
 //     are rounded to V's dtype before the P.V product (as `_fwd_kernel`
 //     :203-205 does); the l == 0 guard makes an empty row output 0.
@@ -64,7 +74,7 @@ struct Strides {
 
 template <int D>
 constexpr int smem_floats() {
-  return BM * (D + 1) + BN * (D + 1) + BN * D + BM * (BN + 1);
+  return BM * (D + 1) + BN * (D + 1) + BN * D + BM * (BN + 1) + BN;
 }
 
 template <typename T, int D>
@@ -73,7 +83,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int H, int G, int Sq, int Sk,
                  Strides qs, Strides ks, Strides vs, Strides os,
-                 float scale, int causal, int window) {
+                 float scale, int causal, int window,
+                 const int* __restrict__ qseg, const int* __restrict__ kseg,
+                 long long seg_b) {
   extern __shared__ float smem[];
   constexpr int DP = D + 1;
   constexpr int PP = BN + 1;
@@ -81,6 +93,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ks = Qs + BM * DP;    // [BN][DP]
   float* Vs = Ks + BN * DP;    // [BN][D]
   float* Ps = Vs + BN * D;     // [BM][PP]
+  int* Kseg = reinterpret_cast<int*>(Ps + BM * PP);  // [BN] key ids
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H, hk = h / G;
@@ -92,6 +105,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + hk * ks.h;
   const T* vb = v + b * vs.b + hk * vs.h;
+  const int* ksb = kseg ? kseg + b * seg_b : nullptr;
+  const int rseg = (qseg && qpos < Sq) ? qseg[b * seg_b + qpos] : 0;
 
   for (int i = tid; i < BM * D; i += NT) {
     const int rr = i / D, dd = i % D;
@@ -120,6 +135,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       Ks[jj * DP + dd] = in ? to_f<T>(kb[p * ks.s + dd]) : 0.f;
       Vs[jj * D + dd] = in ? to_f<T>(vb[p * vs.s + dd]) : 0.f;
     }
+    for (int i = tid; i < BN; i += NT)
+      Kseg[i] = (ksb && k0 + i < Sk) ? ksb[k0 + i] : 0;
     __syncthreads();
 
     float s[BN / 2];
@@ -138,6 +155,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       bool ok = kp < Sk;
       if (causal) ok = ok && kp <= qpos;
       if (window > 0) ok = ok && kp > qpos - window;
+      ok = ok && Kseg[2 * i + half] == rseg;
       const float x = ok ? s[i] * scale : kNegInf;
       s[i] = x;
       mx = fmaxf(mx, x);
@@ -179,7 +197,8 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int G, int Sq, int Sk,
                    Strides qs, Strides ks, Strides vs, Strides os,
-                   float scale, int causal, int window, cudaStream_t stream) {
+                   float scale, int causal, int window, const int* qseg,
+                   const int* kseg, long long seg_b, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
   auto kern = flash_fwd_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -189,7 +208,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, G, Sq, Sk, qs,
-      ks, vs, os, scale, causal, window);
+      ks, vs, os, scale, causal, window, qseg, kseg, seg_b);
   return cudaGetLastError();
 }
 
@@ -198,17 +217,19 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        void* o, float* lse, int B, int H, int G, int Sq,
                        int Sk, Strides qs, Strides ks, Strides vs,
                        Strides os, float scale, int causal, int window,
+                       const int* qseg, const int* kseg, long long seg_b,
                        cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch<T, 32>(q, k, v, o, lse, B, H, G, Sq, Sk, qs, ks, vs, os,
-                           scale, causal, window, stream);
+                           scale, causal, window, qseg, kseg, seg_b, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, lse, B, H, G, Sq, Sk, qs, ks, vs, os,
-                           scale, causal, window, stream);
+                           scale, causal, window, qseg, kseg, seg_b, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, lse, B, H, G, Sq, Sk, qs, ks, vs,
-                            os, scale, causal, window, stream);
+                            os, scale, causal, window, qseg, kseg, seg_b,
+                            stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -223,16 +244,20 @@ extern "C" int dkt_flash_fwd(const void* q, const void* k, const void* v,
                              long long kss, long long ksh, long long vsb,
                              long long vss, long long vsh, long long osb,
                              long long oss, long long osh, float scale,
-                             int causal, int window, void* stream) {
+                             int causal, int window, const int* qseg,
+                             const int* kseg, long long seg_b,
+                             void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_d<float>(D, q, k, v, o, lse, B, H, G, Sq, Sk, qs, ks, vs,
-                             os, scale, causal, window, st);
+                             os, scale, causal, window, qseg, kseg, seg_b,
+                             st);
   if (dtype == 1)
     return dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, H, G, Sq, Sk, qs,
-                                     ks, vs, os, scale, causal, window, st);
+                                     ks, vs, os, scale, causal, window, qseg,
+                                     kseg, seg_b, st);
   return cudaErrorInvalidValue;
 }
 

@@ -54,16 +54,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+#: the flash kernels' packed-sequence ids: q-side and k-side int32
+#: pointers (null without ids) and their batch stride
+_SEGMENTS = [_P, _P, _L]
 #: C signatures of the exported launchers (all return a cudaError_t)
 _SIGNATURES = {
     "flash_fwd": ("dkt_flash_fwd",
-                  [_P] * 5 + [_I] * 7 + [_L] * 12 + [_F, _I, _I, _P]),
+                  [_P] * 5 + [_I] * 7 + [_L] * 12 + [_F, _I, _I]
+                  + _SEGMENTS + [_P]),
     "paged_decode": ("dkt_paged_decode",
                      [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
     "flash_bwd_dq": ("dkt_flash_bwd_dq",
-                     [_P] * 7 + [_I] * 7 + [_L] * 15 + [_F, _I, _I, _P]),
+                     [_P] * 7 + [_I] * 7 + [_L] * 15 + [_F, _I, _I]
+                     + _SEGMENTS + [_P]),
     "flash_bwd_dkv": ("dkt_flash_bwd_dkv",
-                      [_P] * 8 + [_I] * 7 + [_L] * 18 + [_F, _I, _I, _P]),
+                      [_P] * 8 + [_I] * 7 + [_L] * 18 + [_F, _I, _I]
+                      + _SEGMENTS + [_P]),
     "decode_attention": ("dkt_decode_attention",
                          [_P] * 6 + [_I] * 4 + [_L] * 2 + [_I] * 4
                          + [_F, _P]),

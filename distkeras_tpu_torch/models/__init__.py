@@ -1,6 +1,7 @@
 """Models of the port: the layer substrate, the transformer layers, the
-LM zoo entry, the weight bridge to and from the JAX package, weight-only
-quantization (``quantize``) and the serving decode path (``decoding``)."""
+``Remat`` wrapper (``blocks``), the LM zoo entry, the weight bridge to
+and from the JAX package, weight-only quantization (``quantize``) and
+the serving decode path (``decoding``)."""
 
 from distkeras_tpu_torch.models import zoo
 from distkeras_tpu_torch.models.bridge import (from_jax_params, qtree_from_jax,

@@ -8,7 +8,14 @@ compute in float32 and cast back to the input dtype; projections run
 in the layer's compute dtype. The full-sequence attention goes through
 the differentiable ``ops.flash_attention.flash_attention`` (the CUDA
 forward and backward kernels on the card, their plain versions on the
-CPU). Packed-sequence ``segment_ids`` wait for a later slice.
+CPU) for ``attn_impl`` ``"auto"`` or ``"flash"``, and through the plain
+``ops.attention.dot_product_attention`` for ``"xla"``. Both attention
+layers accept packed-sequence ``segment_ids`` ``[B, S]``
+(``accepts_segment_ids``): attention is restricted to equal ids; RoPE
+positions stay absolute over the packed row, as in JAX :269-275; the
+MLP half ignores the ids. The sequence-parallel implementations
+(``"ring"``, ``"ulysses"``, ``"ulysses_flash"``, ``seq_axis_name``,
+``ring_block_size``) raise naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,8 +26,31 @@ import torch
 
 from distkeras_tpu_torch.models.core import Layer, torch_dtype
 from distkeras_tpu_torch.models.layers import get_activation, init_weights
-from distkeras_tpu_torch.ops.attention import apply_rope
+from distkeras_tpu_torch.ops.attention import (apply_rope,
+                                               dot_product_attention)
 from distkeras_tpu_torch.ops.flash_attention import flash_attention
+
+#: attention implementations the port runs; the sequence-parallel ones
+#: (JAX ``_attention_compute`` :130) need a device mesh
+ATTN_IMPLS = ("auto", "flash", "xla")
+SEQ_PARALLEL_IMPLS = ("ring", "ulysses", "ulysses_flash")
+SEQ_PARALLEL_ITEM = ("ROADMAP, Queue 1 item 10 (multi-device "
+                     "parallelism: ring/Ulysses attention)")
+
+
+def check_attn_impl(attn_impl: str, seq_axis_name, ring_block_size=None):
+    """Refuse what the port cannot run: the sequence-parallel
+    implementations and their options raise ``NotImplementedError``
+    naming their ROADMAP item, an unknown name ``ValueError``."""
+    if attn_impl in SEQ_PARALLEL_IMPLS or seq_axis_name is not None \
+            or ring_block_size is not None:
+        raise NotImplementedError(
+            f"sequence-parallel attention (attn_impl={attn_impl!r}, "
+            f"seq_axis_name={seq_axis_name!r}, ring_block_size="
+            f"{ring_block_size!r}) is not ported yet: {SEQ_PARALLEL_ITEM}")
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}; known: "
+                         f"{ATTN_IMPLS + SEQ_PARALLEL_IMPLS}")
 
 
 class LayerNorm(Layer):
@@ -81,14 +111,20 @@ class MultiHeadAttention(Layer):
     """Multi-head self-attention over ``[B, S, d_model]``;
     ``num_kv_heads < num_heads`` is grouped-query attention."""
 
+    accepts_segment_ids = True
+
     def __init__(self, num_heads: int, head_dim: Optional[int] = None,
                  causal: bool = True, use_rope: bool = True,
-                 dtype: str = "float32",
+                 dtype: str = "float32", attn_impl: str = "auto",
+                 seq_axis_name: Optional[str] = None,
                  kernel_init: str = "glorot_uniform",
+                 ring_block_size: Optional[int] = None,
                  num_kv_heads: Optional[int] = None,
                  rope_scale: float = 1.0,
                  attn_window: Optional[int] = None):
         super().__init__()
+        check_attn_impl(attn_impl, seq_axis_name, ring_block_size)
+        self.attn_impl = attn_impl
         self.rope_scale = float(rope_scale)
         self.attn_window = (int(attn_window) if attn_window is not None
                             else None)
@@ -129,7 +165,7 @@ class MultiHeadAttention(Layer):
         self.add_param("wo", w2d(h * dh, d_model).reshape(h, dh, d_model))
         return tuple(input_shape)
 
-    def apply(self, p, x):
+    def apply(self, p, x, segment_ids=None):
         dt = torch_dtype(self.dtype)
         xc = x.to(dt)
         q = torch.einsum("bsd,dhe->bshe", xc, p["wq"].to(dt))
@@ -138,8 +174,20 @@ class MultiHeadAttention(Layer):
         if self.use_rope:
             q = apply_rope(q, scale=self.rope_scale)
             k = apply_rope(k, scale=self.rope_scale)
-        out = flash_attention(q, k, v, causal=self.causal,
-                              window=self.attn_window)
+        if self.attn_impl == "xla":
+            # the plain path takes one K/V head per query head (JAX
+            # ``_expand_kv``)
+            g = self.num_heads // self.kv_heads
+            if g > 1:
+                k = k.repeat_interleave(g, dim=2)
+                v = v.repeat_interleave(g, dim=2)
+            out = dot_product_attention(q, k, v, causal=self.causal,
+                                        window=self.attn_window,
+                                        segment_ids=segment_ids)
+        else:
+            out = flash_attention(q, k, v, causal=self.causal,
+                                  window=self.attn_window,
+                                  segment_ids=segment_ids)
         y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
         return y.to(x.dtype)
 
@@ -177,17 +225,25 @@ class TransformerMLP(Layer):
 class TransformerBlock(Layer):
     """Pre-norm residual block: ``x + attn(norm(x))``, then
     ``x + mlp(norm(x))``. ``mlp_layer`` (e.g. a ``models.moe.MoE``)
-    replaces the ``TransformerMLP`` the block would build."""
+    replaces the ``TransformerMLP`` the block would build.
+    ``dropout_rate > 0`` cannot train until the PRNG is ported."""
+
+    accepts_segment_ids = True
 
     def __init__(self, num_heads: int, mlp_ratio: int = 4,
                  head_dim: Optional[int] = None, causal: bool = True,
                  use_rope: bool = True, activation: str = "gelu",
                  norm: str = "rmsnorm", dtype: str = "float32",
+                 attn_impl: str = "auto",
+                 seq_axis_name: Optional[str] = None,
+                 mlp_layer: Optional[Layer] = None,
+                 dropout_rate: float = 0.0,
+                 ring_block_size: Optional[int] = None,
                  num_kv_heads: Optional[int] = None,
                  rope_scale: float = 1.0,
-                 attn_window: Optional[int] = None,
-                 mlp_layer: Optional[Layer] = None):
+                 attn_window: Optional[int] = None):
         super().__init__()
+        self.dropout_rate = float(dropout_rate)
         self.mlp_ratio = int(mlp_ratio)
         self.activation = activation
         self.dtype = dtype
@@ -195,8 +251,9 @@ class TransformerBlock(Layer):
         self.norm1 = norm_cls()
         self.attn = MultiHeadAttention(
             num_heads, head_dim=head_dim, causal=causal, use_rope=use_rope,
-            dtype=dtype, num_kv_heads=num_kv_heads, rope_scale=rope_scale,
-            attn_window=attn_window)
+            dtype=dtype, attn_impl=attn_impl, seq_axis_name=seq_axis_name,
+            ring_block_size=ring_block_size, num_kv_heads=num_kv_heads,
+            rope_scale=rope_scale, attn_window=attn_window)
         self.norm2 = norm_cls()
         self._mlp_override = mlp_layer is not None
         # sized at build from d_model unless given
@@ -212,6 +269,11 @@ class TransformerBlock(Layer):
             layer.build(tuple(input_shape), generator)
         return tuple(input_shape)
 
-    def apply(self, p, x):
-        x = x + self.attn.apply(p["attn"], self.norm1.apply(p["norm1"], x))
+    def apply(self, p, x, segment_ids=None):
+        if self.training and self.dropout_rate > 0.0:
+            raise NotImplementedError(
+                "training through TransformerBlock(dropout_rate > 0) is not "
+                "ported yet: ROADMAP, Queue 1 item 'PRNG and sampled paths'")
+        x = x + self.attn.apply(p["attn"], self.norm1.apply(p["norm1"], x),
+                                segment_ids=segment_ids)
         return x + self.mlp.apply(p["mlp"], self.norm2.apply(p["norm2"], x))

@@ -17,7 +17,9 @@ auxiliary training loss during a training-mode forward
 (``publish_aux_loss``, e.g. the MoE balance loss); ``collect_aux_losses``
 sums and clears them: the counterpart of JAX's ``AUX_LOSS_KEY`` state
 entry and ``collect_aux_losses`` (:33-50), since the port's layers carry
-no state. ``Model.apply`` (inference)
+no state. Packed sequences: ``Sequential.apply(p, x, segment_ids=)``
+forwards ``[B, S]`` ids only to the layers that declare
+``accepts_segment_ids`` (JAX :151-186). ``Model.apply`` (inference)
 runs under ``torch.no_grad``; ``Model.fit`` trains in place through
 ``parallel.trainers.SingleTrainer``; ``Model.generate`` continues
 prompts through ``models.decoding.generate``.
@@ -55,6 +57,9 @@ class Layer(nn.Module):
 
     #: the auxiliary loss the last forward published (``publish_aux_loss``)
     _aux_loss: Optional[torch.Tensor] = None
+    #: packed-sequence capability: ``apply`` takes ``segment_ids=`` (the
+    #: attention layers, and containers holding one)
+    accepts_segment_ids = False
 
     def build(self, input_shape: Tuple[int, ...],
               generator: torch.Generator) -> Tuple[int, ...]:
@@ -77,8 +82,13 @@ class Layer(nn.Module):
     def apply(self, p, x):
         return x
 
-    def forward(self, x):
-        return self.apply(self.param_tree(), x)
+    def forward(self, x, segment_ids=None):
+        if segment_ids is None:
+            return self.apply(self.param_tree(), x)
+        if not self.accepts_segment_ids:
+            raise ValueError(f"{type(self).__name__} does not accept "
+                             "segment_ids")
+        return self.apply(self.param_tree(), x, segment_ids=segment_ids)
 
     def publish_aux_loss(self, value: Optional[torch.Tensor]) -> None:
         """Set (or, with None, clear) this layer's auxiliary loss: what
@@ -115,9 +125,25 @@ class Sequential(Layer):
     def param_tree(self) -> List[Dict]:
         return [layer.param_tree() for layer in self.layers]
 
-    def apply(self, p, x):
+    @property
+    def accepts_segment_ids(self) -> bool:
+        return any(layer.accepts_segment_ids for layer in self.layers)
+
+    def apply(self, p, x, segment_ids=None):
+        """``segment_ids`` ``[B, S]`` go to the layers that accept them
+        (attention masking); the others are position-wise, and the loss
+        masks padded positions. Ids passed to a stack where no layer
+        accepts them raise rather than run unmasked."""
+        if segment_ids is not None and not self.accepts_segment_ids:
+            raise ValueError(
+                "segment_ids passed, but no layer in this Sequential "
+                "accepts them (packed-sequence masking needs a "
+                "TransformerBlock-family layer)")
         for layer, lp in zip(self.layers, p):
-            x = layer.apply(lp, x)
+            if segment_ids is not None and layer.accepts_segment_ids:
+                x = layer.apply(lp, x, segment_ids=segment_ids)
+            else:
+                x = layer.apply(lp, x)
         return x
 
 

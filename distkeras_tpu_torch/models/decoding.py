@@ -3,13 +3,15 @@ into a slab cache, the one-token decode step over a slab cache and
 ``generate()`` on top of it, one decode step over all slots of a paged
 KV pool, and the speculative verify window (linear or tree) over it.
 
-Mirrors ``distkeras_tpu/models/decoding.py``: ``init_cache`` :69 (float,
-int8 and int4 caches), ``_quantize_kv`` :152, ``_kv_bits`` :168,
-``pack_int4`` :174 / ``unpack_int4`` :187, ``prefill`` :607 /
-``_prefill_block`` :344, ``prefill_chunk_step`` :546 /
-``_prefill_block_chunked`` :465 with ``_merge_attention`` :374
-(``_attn_lse`` :387 is ``ops.flash_attention.flash_forward`` here, which
-returns the lse), ``_cache_write`` :198, ``_cache_prefix`` :449,
+Mirrors ``distkeras_tpu/models/decoding.py``: ``_decode_block_of`` :53
+(unwraps ``Remat``), ``init_cache`` :69 (float, int8 and int4 caches; a
+layer holding attention that is no block is refused, :139-147),
+``_quantize_kv`` :152, ``_kv_bits`` :168, ``pack_int4`` :174 /
+``unpack_int4`` :187, ``prefill`` :607 / ``_prefill_block`` :344,
+``prefill_chunk_step`` :546 / ``_prefill_block_chunked`` :465 with
+``_merge_attention`` :374 (``_attn_lse`` :387 is
+``ops.flash_attention.flash_forward`` here, which returns the lse),
+``_cache_write`` :198, ``_cache_prefix`` :449,
 ``_decode_attn`` :275 (``_decode_scores`` :231 and ``_decode_mix`` :250
 are ``ops.decode_attention``'s plain version), ``_decode_block`` :335,
 ``decode_step`` :641, ``_cache_write_pages`` :926,
@@ -69,6 +71,7 @@ import torch
 from distkeras_tpu_torch.models.attention import (MultiHeadAttention,
                                                   PositionalEmbedding,
                                                   TransformerBlock)
+from distkeras_tpu_torch.models.blocks import Remat
 from distkeras_tpu_torch.models.core import Sequential, torch_dtype
 from distkeras_tpu_torch.models.layers import (Dense, Dropout, Embedding,
                                                get_activation)
@@ -87,6 +90,11 @@ from distkeras_tpu_torch.utils.tree import tree_map
 
 
 def _decode_block_of(layer) -> Optional[TransformerBlock]:
+    """The ``TransformerBlock`` a decode step runs for ``layer``, or None
+    for a position-wise layer. A ``Remat`` wrapper (a training-time
+    memory policy) is unwrapped, as JAX does (:53-66)."""
+    if isinstance(layer, Remat):
+        layer = layer.inner
     return layer if isinstance(layer, TransformerBlock) else None
 
 
@@ -242,6 +250,13 @@ def init_cache(module: Sequential, batch: int, max_len: int, dtype,
                 f"for a {need}-position decode cache")
         block = _decode_block_of(layer)
         if block is None:
+            if layer.accepts_segment_ids:
+                # attention the decode loop cannot cache: run position-wise,
+                # each token would attend only to itself
+                raise ValueError(
+                    f"decode path does not support layer {layer!r}: it "
+                    "contains attention but is not a TransformerBlock "
+                    "(or Remat-wrapped TransformerBlock)")
             cache.append(None)
             continue
         shape = (batch, block.attn.kv_heads, max_len, block.attn.head_dim)

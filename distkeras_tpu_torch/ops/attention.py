@@ -62,9 +62,16 @@ def apply_rope(x: torch.Tensor, positions=None, base: float = 10000.0,
 
 def dot_product_attention(q, k, v, *, causal: bool = False,
                           scale: Optional[float] = None,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          segment_ids=None) -> torch.Tensor:
     """Plain attention, BSHD in and out: scores in float32, the finite
-    mask, softmax, probabilities cast to V's dtype for the value mix."""
+    mask, softmax, probabilities cast to V's dtype for the value mix.
+
+    ``segment_ids`` ``[B, S]`` (packed sequences, JAX :43-80) restricts
+    attention to positions with EQUAL ids, ANDed with the causal and
+    window masks; give padding its own id (e.g. -1) and mask it in the
+    loss (``losses.masked_sparse_categorical_crossentropy_from_logits``).
+    """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if window is not None and not causal:
@@ -77,6 +84,10 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
         if window is not None:
             allowed = allowed & (kp > qp - window)
         s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
+    if segment_ids is not None:
+        seg = torch.as_tensor(segment_ids, device=q.device)
+        same = seg[:, :, None] == seg[:, None, :]
+        s = torch.where(same[:, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)

@@ -10,8 +10,18 @@ prefix, which needs the log-sum-exp) and in training; and
 ``_flash_backward_pallas`` :515 (dq at :585, body ``_bwd_dq_kernel``
 :349; dk/dv at :619, body ``_bwd_dkv_kernel`` :440) behind the
 ``torch.autograd.Function`` that mirrors the JAX ``custom_vjp``
-(``_flash_fwd_rule`` :714, ``_flash_bwd_rule`` :721). ``segment_ids``
-(packed sequences) are not part of this slice.
+(``_flash_fwd_rule`` :714, ``_flash_bwd_rule`` :721).
+
+``segment_ids`` ``[B, S]`` (packed sequences; any integer dtype, cast
+to int32) restrict attention to pairs with equal ids, ANDed with the
+causal and window masks, in the forward and both backward kernels
+(``_fwd_kernel`` :188-189, ``_bwd_dq_kernel._mask`` :386-387,
+``_bwd_dkv_kernel._mask`` :480-481). Ids compare by equality only: they
+need not be sorted or contiguous, and -1 is an ordinary id (pad tokens
+labelled -1 attend to each other, as in JAX; the loss masks them). With
+ids, Sq must equal Sk (one id per position, as JAX's ``_seg_blocks``
+pads one array to both lengths). All-equal ids give bitwise the result
+of no ids.
 
 ``flash_forward`` takes q ``[B, Sq, H, D]`` and k/v ``[B, Sk, Hkv, D]``
 (``layout="bshd"``) or the head-major ``[B, H, S, D]``
@@ -78,20 +88,69 @@ def _check(q, k, v, causal: bool, window, layout: str):
         raise ValueError("window must be >= 1 and requires causal=True")
 
 
+def _segments(segment_ids, q, k, layout):
+    """The ids as the int32 contiguous ``[B, S]`` tensor the kernels and
+    plain versions read (None stays None)."""
+    if segment_ids is None:
+        return None
+    seg = torch.as_tensor(segment_ids)
+    if seg.dtype.is_floating_point or seg.dtype.is_complex \
+            or seg.dtype == torch.bool:
+        raise TypeError(f"segment_ids must be integers, got {seg.dtype}")
+    qh, kh = _heads_major(q, layout), _heads_major(k, layout)
+    b, sq, sk = qh.shape[0], qh.shape[2], kh.shape[2]
+    if tuple(seg.shape) != (b, sq):
+        raise ValueError(f"segment_ids must be [B, Sq] = [{b}, {sq}], got "
+                         f"{tuple(seg.shape)}")
+    if sq != sk:
+        raise ValueError(f"segment_ids need Sq == Sk (one id per "
+                         f"position), got {sq} and {sk}")
+    if seg.device != q.device:
+        raise ValueError(f"segment_ids on {seg.device}, q on {q.device}")
+    return seg.to(torch.int32).contiguous()
+
+
+def _seg_args(seg):
+    """The kernels' q-side and k-side id pointers (null without ids) and
+    their batch stride: one array serves both sides (Sq == Sk)."""
+    if seg is None:
+        return [None, None, 0]
+    return [seg.data_ptr(), seg.data_ptr(), seg.stride(0)]
+
+
+def _allowed(sq, sk, causal, window, seg, device):
+    """The admitted (query, key) pairs, broadcastable to ``[B, H, Sq,
+    Sk]``, or None when every pair is admitted."""
+    allowed = None
+    if causal:
+        qp = torch.arange(sq, device=device)[:, None]
+        kp = torch.arange(sk, device=device)[None, :]
+        allowed = kp <= qp
+        if window is not None:
+            allowed = allowed & (kp > qp - int(window))
+    if seg is not None:
+        same = (seg[:, :, None] == seg[:, None, :])[:, None]
+        allowed = same if allowed is None else allowed & same
+    return allowed
+
+
 def flash_forward(q, k, v, *, scale: float, causal: bool,
-                  window: Optional[int] = None, layout: str = "bshd"):
+                  window: Optional[int] = None, layout: str = "bshd",
+                  segment_ids=None):
     """Blockwise online-softmax attention; returns ``(out, lse)``."""
     _check(q, k, v, causal, window, layout)
+    seg = _segments(segment_ids, q, k, layout)
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, scale=scale, causal=causal,
-                                       window=window, layout=layout)
+                                       window=window, layout=layout,
+                                       segment_ids=seg)
     if q.device.type != "cuda":
         raise ValueError(f"flash_forward runs on cuda or cpu tensors, "
                          f"got {q.device}")
-    return _launch(q, k, v, float(scale), bool(causal), window, layout)
+    return _launch(q, k, v, float(scale), bool(causal), window, layout, seg)
 
 
-def _launch(q, k, v, scale, causal, window, layout):
+def _launch(q, k, v, scale, causal, window, layout, seg):
     qh, kh, vh = (_heads_major(x, layout) for x in (q, k, v))
     b, h, sq, d = qh.shape
     hkv, sk = kh.shape[1], kh.shape[2]
@@ -114,7 +173,7 @@ def _launch(q, k, v, scale, causal, window, layout):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _DTYPES[q.dtype], b, h, h // hkv, sq, sk, d,
         *strides, scale, int(causal), 0 if window is None else int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *_seg_args(seg), torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(lib, err, "flash_fwd")
     kernels.count_launch("flash_fwd")
     return out, lse
@@ -122,10 +181,11 @@ def _launch(q, k, v, scale, causal, window, layout):
 
 def flash_forward_reference(q, k, v, *, scale: float, causal: bool,
                             window: Optional[int] = None,
-                            layout: str = "bshd"):
+                            layout: str = "bshd", segment_ids=None):
     """The plain PyTorch version of the kernel: the whole masked score
     matrix at once, same masks and rounding points."""
     _check(q, k, v, causal, window, layout)
+    seg = _segments(segment_ids, q, k, layout)
     qh, kh, vh = (_heads_major(x, layout) for x in (q, k, v))
     g = qh.shape[1] // kh.shape[1]
     if g > 1:
@@ -133,12 +193,8 @@ def flash_forward_reference(q, k, v, *, scale: float, causal: bool,
         vh = vh.repeat_interleave(g, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kh.float()) * scale
     sq, sk = s.shape[-2], s.shape[-1]
-    if causal:
-        qp = torch.arange(sq, device=q.device)[:, None]
-        kp = torch.arange(sk, device=q.device)[None, :]
-        allowed = kp <= qp
-        if window is not None:
-            allowed = allowed & (kp > qp - int(window))
+    allowed = _allowed(sq, sk, causal, window, seg, q.device)
+    if allowed is not None:
         s = s.masked_fill(~allowed, NEG_INF)
     if sk == 0:
         m = torch.full(s.shape[:-1] + (1,), NEG_INF, device=q.device)
@@ -170,7 +226,7 @@ def _check_backward(q, out, lse, dout, delta, layout):
 
 def flash_backward(q, k, v, out, lse, dout, delta, *, scale: float,
                    causal: bool, window: Optional[int] = None,
-                   layout: str = "bshd"):
+                   layout: str = "bshd", segment_ids=None):
     """Gradients ``(dq, dk, dv)`` of ``flash_forward``'s ``out`` for the
     cotangent ``dout``, recomputed blockwise from ``lse`` (the forward's)
     and ``delta = rowsum(dout * out)`` ``[B, H, Sq]`` float32. Each comes
@@ -178,15 +234,17 @@ def flash_backward(q, k, v, out, lse, dout, delta, *, scale: float,
     over their query heads."""
     _check(q, k, v, causal, window, layout)
     _check_backward(q, out, lse, dout, delta, layout)
+    seg = _segments(segment_ids, q, k, layout)
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, out, lse, dout, delta,
                                         scale=scale, causal=causal,
-                                        window=window, layout=layout)
+                                        window=window, layout=layout,
+                                        segment_ids=seg)
     if q.device.type != "cuda":
         raise ValueError(f"flash_backward runs on cuda or cpu tensors, "
                          f"got {q.device}")
     args = (q, k, v, lse.contiguous(), dout, delta.contiguous(),
-            float(scale), bool(causal), window, layout)
+            float(scale), bool(causal), window, layout, seg)
     return launch_dq(*args) + launch_dkv(*args)
 
 
@@ -196,7 +254,7 @@ def _strides(x, layout):
     return [xh.stride(0), xh.stride(2), xh.stride(1)]
 
 
-def _backward_args(q, k, v, lse, dout, delta, layout):
+def _backward_args(q, k, v, lse, dout, delta, layout, segment_ids):
     """Shapes, checks and the shared launcher arguments of the two
     backward kernels."""
     if q.device.type != "cuda":
@@ -216,13 +274,15 @@ def _backward_args(q, k, v, lse, dout, delta, layout):
     pointers = [x.data_ptr() for x in (q, k, v, dout, lse, delta)]
     sizes = [_DTYPES[q.dtype], b, h, h // hkv, sq, sk, d]
     strides = sum((_strides(x, layout) for x in (q, k, v, dout)), [])
-    return pointers, sizes, strides, sq == 0 or sk == 0
+    seg = _seg_args(_segments(segment_ids, q, k, layout))
+    return pointers, sizes, strides, seg, sq == 0 or sk == 0
 
 
-def launch_dq(q, k, v, lse, dout, delta, scale, causal, window, layout):
+def launch_dq(q, k, v, lse, dout, delta, scale, causal, window, layout,
+              segment_ids=None):
     """The dq kernel (K1dq) on CUDA tensors: returns ``(dq,)``."""
-    pointers, sizes, strides, empty = _backward_args(q, k, v, lse, dout,
-                                                     delta, layout)
+    pointers, sizes, strides, seg, empty = _backward_args(
+        q, k, v, lse, dout, delta, layout, segment_ids)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     if empty:
         return (dq.zero_(),)
@@ -230,17 +290,18 @@ def launch_dq(q, k, v, lse, dout, delta, scale, causal, window, layout):
     err = lib.dkt_flash_bwd_dq(
         *pointers, dq.data_ptr(), *sizes, *strides, *_strides(dq, layout),
         float(scale), int(causal), 0 if window is None else int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *seg, torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(lib, err, "flash_bwd_dq")
     kernels.count_launch("flash_bwd_dq")
     return (dq,)
 
 
-def launch_dkv(q, k, v, lse, dout, delta, scale, causal, window, layout):
+def launch_dkv(q, k, v, lse, dout, delta, scale, causal, window, layout,
+               segment_ids=None):
     """The dk/dv kernel (K1dkv) on CUDA tensors: returns ``(dk, dv)``,
     each grouped K/V head summed over its query heads."""
-    pointers, sizes, strides, empty = _backward_args(q, k, v, lse, dout,
-                                                     delta, layout)
+    pointers, sizes, strides, seg, empty = _backward_args(
+        q, k, v, lse, dout, delta, layout, segment_ids)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if empty:
@@ -249,7 +310,7 @@ def launch_dkv(q, k, v, lse, dout, delta, scale, causal, window, layout):
     err = lib.dkt_flash_bwd_dkv(
         *pointers, dk.data_ptr(), dv.data_ptr(), *sizes, *strides,
         *_strides(dk, layout), *_strides(dv, layout), float(scale),
-        int(causal), 0 if window is None else int(window),
+        int(causal), 0 if window is None else int(window), *seg,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(lib, err, "flash_bwd_dkv")
     kernels.count_launch("flash_bwd_dkv")
@@ -259,13 +320,14 @@ def launch_dkv(q, k, v, lse, dout, delta, scale, causal, window, layout):
 def flash_backward_reference(q, k, v, out, lse, dout, delta, *,
                              scale: float, causal: bool,
                              window: Optional[int] = None,
-                             layout: str = "bshd"):
+                             layout: str = "bshd", segment_ids=None):
     """The plain PyTorch version of the two backward kernels: the whole
     recomputed probability matrix at once, with the kernels' masks and
     rounding points; grouped K/V gradients summed over their group in
     float32."""
     _check(q, k, v, causal, window, layout)
     _check_backward(q, out, lse, dout, delta, layout)
+    seg = _segments(segment_ids, q, k, layout)
     qh, kh, vh, gh = (_heads_major(x, layout) for x in (q, k, v, dout))
     b, h, sq, d = qh.shape
     hkv, sk = kh.shape[1], kh.shape[2]
@@ -275,12 +337,8 @@ def flash_backward_reference(q, k, v, out, lse, dout, delta, *,
         kx = kh.repeat_interleave(g, dim=1)
         vx = vh.repeat_interleave(g, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kx.float()) * scale
-    if causal:
-        qp = torch.arange(sq, device=q.device)[:, None]
-        kp = torch.arange(sk, device=q.device)[None, :]
-        allowed = kp <= qp
-        if window is not None:
-            allowed = allowed & (kp > qp - int(window))
+    allowed = _allowed(sq, sk, causal, window, seg, q.device)
+    if allowed is not None:
         s = s.masked_fill(~allowed, NEG_INF)
     p = torch.exp(s - lse[..., None])
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
@@ -311,27 +369,30 @@ def attention_delta(out, dout, layout: str = "bshd") -> torch.Tensor:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward: the flash forward, saving q, k, v, out and lse (the JAX
-    ``_flash_fwd_rule``). Backward: ``delta`` and the two backward
-    kernels (``_flash_bwd_rule`` with ``bwd="pallas"``)."""
+    """Forward: the flash forward, saving q, k, v, out, lse and the
+    segment ids (the JAX ``_flash_fwd_rule``). Backward: ``delta`` and
+    the two backward kernels (``_flash_bwd_rule`` with
+    ``bwd="pallas"``); the ids get no gradient (JAX's float0)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, window, layout):
+    def forward(ctx, q, k, v, seg, scale, causal, window, layout):
         out, lse = flash_forward(q, k, v, scale=scale, causal=causal,
-                                 window=window, layout=layout)
-        ctx.save_for_backward(q, k, v, out, lse)
+                                 window=window, layout=layout,
+                                 segment_ids=seg)
+        ctx.save_for_backward(q, k, v, out, lse, seg)
         ctx.config = (scale, causal, window, layout)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, seg = ctx.saved_tensors
         scale, causal, window, layout = ctx.config
         dout = dout.contiguous()
         dq, dk, dv = flash_backward(
             q, k, v, out, lse, dout, attention_delta(out, dout, layout),
-            scale=scale, causal=causal, window=window, layout=layout)
-        return dq, dk, dv, None, None, None, None
+            scale=scale, causal=causal, window=window, layout=layout,
+            segment_ids=seg)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -341,12 +402,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
     :746): ``out`` in q's layout and dtype. The forward is
     ``flash_forward``; the gradient runs the dq and dk/dv kernels on the
     card and their plain version on the CPU. ``scale`` defaults to
-    ``head_dim ** -0.5``."""
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "segment_ids (packed sequences) are not ported yet: ROADMAP, "
-            "kernel queue item segment_ids in K1f/K1dq/K1dkv")
+    ``head_dim ** -0.5``. ``segment_ids`` ``[B, S]``: packed sequences
+    (see the module docstring)."""
+    seg = _segments(segment_ids, q, k, layout)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, float(scale), bool(causal),
+    return _FlashAttention.apply(q, k, v, seg, float(scale), bool(causal),
                                  window, layout)

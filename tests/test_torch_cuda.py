@@ -62,30 +62,55 @@ def _qkv(rs, b, sq, sk, h, hkv, d, dtype, device, layout):
     return make(sq, h), make(sk, hkv), make(sk, hkv)
 
 
+def _segment_ids(rs, kind, b, s, dev):
+    """Packed-sequence ids: ``"contiguous"`` (sorted documents),
+    ``"late"`` (a last document whose queries find their first tiles
+    wholly masked), ``"unsorted"`` (interleaved, with a -1 tail),
+    ``"equal"`` (one id: bitwise the result of no ids), or None."""
+    if kind is None:
+        return None
+    pos = np.arange(s)
+    ids = {"contiguous": lambda: np.sort(rs.randint(0, 4, (b, s)), axis=1),
+           "late": lambda: np.tile(pos >= s - s // 8, (b, 1)),
+           "unsorted": lambda: np.where(pos >= s - s // 5, -1,
+                                        rs.randint(0, 4, (b, s))),
+           "equal": lambda: np.full((b, s), 5)}[kind]()
+    return torch.from_numpy(ids.astype(np.int32)).to(dev)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,sq,sk,window,hkv,d,layout", [
-    (True, 300, 300, None, 4, 64, "bshd"),
-    (True, 257, 257, 64, 2, 64, "bshd"),
-    (False, 96, 1000, None, 4, 64, "bhsd"),
-    (True, 130, 130, None, 4, 128, "bhsd"),
-    (True, 70, 70, 5, 1, 32, "bshd"),
+@pytest.mark.parametrize("causal,sq,sk,window,hkv,d,layout,seg", [
+    (True, 300, 300, None, 4, 64, "bshd", None),
+    (True, 257, 257, 64, 2, 64, "bshd", None),
+    (False, 96, 1000, None, 4, 64, "bhsd", None),
+    (True, 130, 130, None, 4, 128, "bhsd", None),
+    (True, 70, 70, 5, 1, 32, "bshd", None),
+    (True, 300, 300, None, 4, 64, "bshd", "contiguous"),
+    (True, 1000, 1000, None, 4, 64, "bshd", "late"),
+    (False, 200, 200, None, 4, 64, "bhsd", "unsorted"),
+    (True, 257, 257, 64, 2, 64, "bshd", "contiguous"),     # window + GQA
+    (True, 130, 130, None, 1, 128, "bhsd", "unsorted"),    # GQA 4x1
+    (True, 300, 300, 40, 4, 32, "bshd", "equal"),
 ])
 def test_flash_kernel_matches_plain(dev, dtype, causal, sq, sk, window,
-                                    hkv, d, layout):
+                                    hkv, d, layout, seg):
     rs = np.random.RandomState(0)
     q, k, v = _qkv(rs, 2, sq, sk, 4, hkv, d, dtype, dev, layout)
+    ids = _segment_ids(rs, seg, 2, sq, dev)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window, layout=layout)
     before = kernels.launch_counts()["flash_fwd"]
-    o, lse = flash_forward(q, k, v, scale=d ** -0.5, causal=causal,
-                           window=window, layout=layout)
+    o, lse = flash_forward(q, k, v, segment_ids=ids, **kw)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_fwd"] == before + 1
-    ro, rl = flash_forward_reference(q, k, v, scale=d ** -0.5,
-                                     causal=causal, window=window,
-                                     layout=layout)
+    ro, rl = flash_forward_reference(q, k, v, segment_ids=ids, **kw)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     assert o.dtype == dtype and o.shape == q.shape
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
     torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-5)
+    if seg == "equal":
+        o0, lse0 = flash_forward(q, k, v, **kw)
+        assert torch.equal(o, o0) and torch.equal(lse, lse0)
 
 
 N_PAGES = 12
@@ -406,18 +431,26 @@ BWD_BF16_REL_TOL = 2e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,s,window,hkv,d,layout", [
-    (True, 300, None, 4, 64, "bshd"),       # causal, ragged vs 64
-    (True, 257, 64, 4, 64, "bhsd"),         # sliding window
-    (True, 200, None, 1, 64, "bshd"),       # GQA: 4 query heads per kv
-    (True, 130, 9, 2, 128, "bshd"),         # GQA + window, D=128
-    (False, 70, None, 4, 32, "bhsd"),       # non-causal, D=32
+@pytest.mark.parametrize("causal,s,window,hkv,d,layout,seg", [
+    (True, 300, None, 4, 64, "bshd", None),     # causal, ragged vs 64
+    (True, 257, 64, 4, 64, "bhsd", None),       # sliding window
+    (True, 200, None, 1, 64, "bshd", None),     # GQA: 4 query heads per kv
+    (True, 130, 9, 2, 128, "bshd", None),       # GQA + window, D=128
+    (False, 70, None, 4, 32, "bhsd", None),     # non-causal, D=32
+    (True, 300, None, 4, 64, "bshd", "contiguous"),
+    (True, 1000, None, 4, 64, "bhsd", "late"),
+    (False, 200, None, 4, 64, "bshd", "unsorted"),
+    (True, 257, 64, 4, 64, "bshd", "contiguous"),  # window
+    (True, 200, None, 1, 64, "bshd", "unsorted"),  # GQA 4x1
+    (True, 130, 9, 2, 128, "bhsd", "equal"),
 ])
 def test_flash_backward_kernels_match_plain(dev, dtype, causal, s, window,
-                                            hkv, d, layout):
+                                            hkv, d, layout, seg):
     rs = np.random.RandomState(3)
     q, k, v = _qkv(rs, 2, s, s, 4, hkv, d, dtype, dev, layout)
-    kw = dict(scale=d ** -0.5, causal=causal, window=window, layout=layout)
+    ids = _segment_ids(rs, seg, 2, s, dev)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window, layout=layout,
+              segment_ids=ids)
     out, lse = flash_forward(q, k, v, **kw)
     dout = torch.from_numpy(rs.randn(*q.shape).astype(np.float32)) \
         .to(dev, dtype)
@@ -436,6 +469,10 @@ def test_flash_backward_kernels_match_plain(dev, dtype, causal, s, window,
         err = (g.float() - r.float()).abs().max().item()
         scale = r.float().abs().max().item()
         assert err <= tol * scale, (name, err, scale)
+    if seg == "equal":
+        kw["segment_ids"] = None
+        plain = flash_backward(q, k, v, out, lse, dout, delta, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
 
 
 def test_single_trainer_on_card_launches_the_training_kernels(dev):

@@ -129,13 +129,6 @@ def test_flash_backward_matches_pallas(causal, window, hkv, layout):
                                    atol=F32_TOL)
 
 
-def test_flash_attention_refuses_packed_sequences():
-    x = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention(x, x, x, causal=True,
-                        segment_ids=torch.zeros(1, 4, dtype=torch.int32))
-
-
 def test_flash_forward_grouped_kv_equals_expanded():
     """Grouped queries read their shared K/V head: the same result as
     expanding the kv heads first (what the JAX package does)."""
