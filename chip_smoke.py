@@ -143,21 +143,23 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     ``moe_bwd_dw1``) against their plain versions on real top-2 plans:
     the training shape (N 8192, C 2048, d 1024, H 2048), a 256-token
     batch, a routing that leaves six experts empty, one that sends every
-    first choice to one expert and a ragged d = H = 1000, in bf16
+    first choice to one expert, a ragged d = H = 1000 and widths and
+    capacities off the kernels' tiles (``K6BC_CASES``), in bf16
     (dxr/dz/gy 2e-2, rowdot/dw1 1e-3, relative to the output's largest
-    |value|) and, for three of them, float32 (1e-4); rows no slot won
-    give exact zeros; a bitwise repeat; graph-replay times, plain times,
-    bounds from the plan, ``torch.bmm`` on pre-gathered buffers as
-    yardsticks;
+    |value|) and, for five of them, float32 (1e-4); rows no slot won
+    give exact zeros; a bitwise repeat; graph-replay times with the
+    achieved TFLOP/s and the bound's share, plain times, bounds from the
+    plan, ``torch.bmm`` on pre-gathered buffers as yardsticks;
 23. MoE training end to end: ``SingleTrainer`` with adam on the 12-layer
     all-MoE LM in ``bench_moe``'s training configuration (fused
     dispatch, capacity factor 1.0, balance-loss weight 0.01, seed 0)
     over 16 rows of phase 7's data for two epochs (8 steps of 4 x 2048
     tokens): K6a, K6b, K6c, K1f, K1dq and K1dkv launch exactly 12 times
     per step, the loss is finite and falls; the balance-loss term; the
-    steady step's time, tokens/s, peak memory and a ``torch.profiler``
-    list; then the same model's step with ``dispatch="tokens"`` (plain
-    autograd and cuBLAS, no K6a/K6b/K6c launch) as a yardstick;
+    steady step's time, tokens/s, peak memory, a ``torch.profiler`` list
+    and each fused-block kernel's device time; then the same model's
+    step with ``dispatch="tokens"`` (plain autograd and cuBLAS, no
+    K6a/K6b/K6c launch) as a yardstick;
 24. MoE gradients at 2 layers of the same widths (B1 S512, fused): the
     card's float32 gradients against the CPU float32 plain path (1e-3
     relative per leaf), the bf16 ones printed with both runs' routing
@@ -909,11 +911,12 @@ def check_training(trainer, launches, num_layers,
 
 
 def profile_training(model, card, label="training",
-                     prefix="profile-train"):
+                     prefix="profile-train", groups=()):
     """The steady training step: wall time over a few steps (after one
     warm step), tokens/s, peak device memory, and (unless ``prefix`` is
-    None) ``torch.profiler`` over one step: device time per kernel and
-    the device's busy share."""
+    None) ``torch.profiler`` over one step: device time per kernel, the
+    device's busy share and, for each ``(label, key substrings)`` of
+    ``groups``, the summed device time of the kernels it names."""
     from torch.profiler import ProfilerActivity, profile
     data = training_data(model.module.layers[0].vocab_size, rows=TRAIN_BATCH)
     xb, yb = (torch.from_numpy(a).to(model.device) for a in data.arrays())
@@ -953,6 +956,11 @@ def profile_training(model, card, label="training",
     for e in ops[:12]:
         print(f"{prefix}:   {e.self_device_time_total / 1e3:8.3f} ms  "
               f"x{e.count:<5d} {e.key[:72]}", flush=True)
+    for name, keys in groups:
+        hit = [e for e in ops if any(k in e.key for k in keys)]
+        print(f"{prefix}: {name}: "
+              f"{sum(e.self_device_time_total for e in hit) / 1e3:.3f} ms "
+              f"in {sum(e.count for e in hit)} launches", flush=True)
     return step_ms, tokens / step_ms * 1e3, peak_gb, busy_ms
 
 
@@ -2938,14 +2946,23 @@ K6BC_F32_TOL = 1e-4
 #: training shape (phase 23's batch of 4 x 2048 tokens at capacity factor
 #: 1.0), a 256-token batch, a routing that leaves six experts empty (and
 #: drops past capacity on the other two), one that sends every first
-#: choice to one expert (drops at capacity factor 1.0), ragged widths
+#: choice to one expert (drops at capacity factor 1.0), ragged widths;
+#: then widths that are not multiples of 8 (70) or of the bf16 kernels'
+#: 128-wide tiles (136, 1000), and capacities that are not multiples of
+#: their 64-row depth chunks (90, 33)
 K6BC_CASES = (("training N8192", 8192, 2048, MOE_D, MOE_H, "random"),
               ("N256", 256, 64, MOE_D, MOE_H, "random"),
               ("empty experts N64", 64, 16, MOE_D, MOE_H, "two-experts"),
               ("one expert N256", 256, 64, MOE_D, MOE_H, "one-expert"),
-              ("ragged d1000 H1000 N256", 256, 64, 1000, 1000, "random"))
+              ("ragged d1000 H1000 N256", 256, 64, 1000, 1000, "random"),
+              ("odd d70 H136 N300", 300, 90, 70, 136, "random"),
+              ("odd d70 H70 N300", 300, 90, 70, 70, "random"),
+              ("odd d136 H70 N300", 300, 90, 136, 70, "random"),
+              ("odd d1000 H136 N256", 256, 33, 1000, 136, "random"),
+              ("odd d72 H1000 N96", 96, 90, 72, 1000, "random"))
 #: the cases that also run in float32
-K6BC_F32_CASES = ("N256", "empty experts N64", "ragged d1000 H1000 N256")
+K6BC_F32_CASES = ("N256", "empty experts N64", "ragged d1000 H1000 N256",
+                  "odd d70 H136 N300", "odd d70 H70 N300")
 K6BC_OUTPUTS = ("dxr", "dz", "gy", "rowdot")
 
 
@@ -2993,11 +3010,12 @@ def k6bc_phase(dev):
     """K6b against ``bwd_dx_reference`` and K6c against
     ``bwd_dw1_reference`` on the same plan (K6c on the plain version's
     dz, so both sides read the same inputs) at the training shape and
-    four edge cases, bf16 and float32: rows no slot won give exact
-    zeros, a bitwise repeat, graph-replay times, the plain versions'
-    times, bounds from the plan and, as yardsticks, ``torch.bmm`` of the
-    four products on pre-gathered ``[E, C, d]`` buffers (K6b) and one
-    ``torch.bmm`` of the gathered x^T and dz (K6c)."""
+    the edge cases of ``K6BC_CASES``, bf16 and float32: rows no slot won
+    give exact zeros, a bitwise repeat, graph-replay times, the plain
+    versions' times, bounds from the plan and, as yardsticks,
+    ``torch.bmm`` of the four products on pre-gathered ``[E, C, d]``
+    buffers (K6b) and one ``torch.bmm`` of the gathered x^T and dz
+    (K6c)."""
     rows = {"moe_bwd_dx": [], "moe_bwd_dw1": []}
     rs = np.random.RandomState(SEED + 22)
     for dtype, peak, cases in (
@@ -3065,17 +3083,22 @@ def k6bc_phase(dev):
                 src, n, c, d, h, es, peak)
             case = f"{label} C{c} {'bf16' if bf16 else 'f32'}"
             shown = {k: f"{v:.2e}" for k, v in errs.items() if k != "dw1"}
+            # achieved rates on the filled rows' work, and the bound's share
+            tf_dx = 8.0 * filled * d * h / (ms * 1e9)
+            tf_dw1 = 2.0 * filled * d * h / (ms_dw1 * 1e9)
             print(f"moe_bwd_dx {case} ({routing} routing, {active} experts "
                   f"reached, {filled} filled rows): rel err {shown} (tol "
                   f"{tols['dxr']} dxr/dz/gy, {tols['rowdot']} rowdot), "
                   f"max abs {abs_dx:.3e}; kernel {ms:.4f} ms (graph "
-                  f"replay), plain {plain_ms:.4f} ms, four torch.bmm on "
+                  f"replay; {tf_dx:.1f} TFLOP/s, {bdx / ms:.1%} of the "
+                  f"bound), plain {plain_ms:.4f} ms, four torch.bmm on "
                   f"pre-gathered buffers {lib_ms:.4f} ms, bound {bdx:.4f} ms "
                   f"({bydx}); rows no slot won exact zeros {zeros}, bitwise "
                   f"repeat {repeat}", flush=True)
             print(f"moe_bwd_dw1 {case}: rel err {errs['dw1']:.2e} (tol "
                   f"{tols['dw1']}), max abs {abs_dw1:.3e}; kernel "
-                  f"{ms_dw1:.4f} ms (graph replay), plain {plain_dw1:.4f} "
+                  f"{ms_dw1:.4f} ms (graph replay; {tf_dw1:.1f} TFLOP/s, "
+                  f"{bdw / ms_dw1:.1%} of the bound), plain {plain_dw1:.4f} "
                   f"ms, torch.bmm on the gathered x {lib_dw1:.4f} ms, bound "
                   f"{bdw:.4f} ms ({bydw})", flush=True)
             bad = [k for k, v in errs.items() if not v <= tols[k]]
@@ -3104,6 +3127,12 @@ MOE_TRAIN_KW = dict(dispatch="fused", aux_loss_weight=0.01,
 MOE_TRAIN_ROWS, MOE_TRAIN_EPOCHS = 16, 2
 MOE_TRAINING_KERNELS = TRAINING_KERNELS + (
     "moe_gather_gemm1", "moe_bwd_dx", "moe_bwd_dw1")
+#: the fused block's kernels in a profile, by their device functions
+MOE_KERNEL_GROUPS = (
+    ("K6a (moe_gather_gemm1)", ("gg1_kernel", "gg1_combine")),
+    ("K6b (moe_bwd_dx, four passes)",
+     ("rowdot_gy_kernel", "rowdot_sum_kernel", "dz_kernel", "dxr_kernel")),
+    ("K6c (moe_bwd_dw1)", ("dw1_kernel",)))
 
 
 def moe_training_phase(dev, card):
@@ -3138,7 +3167,8 @@ def moe_training_phase(dev, card):
           f"{LM_CFG['num_layers']} layers) {aux:.5f} after training; "
           f"launches { {k: launches[k] for k in MOE_TRAINING_KERNELS} }; "
           f"{trainer.get_training_time():.1f} s", flush=True)
-    profile_training(model, card, "MoE training (fused)", "profile-moe")
+    profile_training(model, card, "MoE training (fused)", "profile-moe",
+                     MOE_KERNEL_GROUPS)
     with _Dispatch(model.module, "tokens"):
         kernels.reset_launch_counts()
         profile_training(model, card, "MoE training (tokens dispatch, "

@@ -2,13 +2,14 @@
 // (`dkt_moe_bwd_dx`) and K6c (`dkt_moe_bwd_dw1`). For each expert e and
 // capacity row r, with tok = src_tok[e*C + r] (-1: no slot won the row,
 // whose gathered rows are zeros):
-//   K6b  gy     = g[tok] * row_gate[e*C + r]                  (float32)
+//   K6b  gy     = g[tok] * row_gate[e*C + r]
 //        rowdot = <h[e, r] @ w2[e] + b2[e], g[tok]>           (float32)
-//        dz     = act'(x[tok] @ w1[e] + b1[e]) * (gy @ w2[e]^T)
-//        dxr    = dz @ w1[e]^T        (from the float32 dz)
+//        dz     = act'(x[tok] @ w1[e] + b1[e]) * dh,
+//                 dh = row_gate[e*C + r] * (g[tok] @ w2[e]^T)
+//        dxr    = dz @ w1[e]^T
 //   K6c  dw1[e] = sum over r of x[tok]^T @ dz[e, r]           (float32)
-// with float32 products and sums; dxr, dz and gy are written in the
-// input dtype (bf16 or float32), rowdot and dw1 in float32.
+// with float32 sums; dxr, dz and gy are written in the input dtype (bf16
+// or float32), rowdot and dw1 in float32.
 //
 // Replaces the TPU kernels distkeras_tpu/ops/moe_kernels.py `_bwd_dx`
 // (pl.pallas_call at :297, body `_bwd_dx_kernel` :225) and `_bwd_dw1`
@@ -18,31 +19,60 @@
 //
 // Bound on this card: at the training shape (C = 2048 rows per expert,
 // d 1024, H 2048) the operations: K6b's four products of 2*C*d*H each
-// per expert, K6c's one, at the bf16 tensor-core peak.
+// per expert, K6c's one, at the bf16 tensor-core peak (989 TFLOP/s).
 //
-// Design (simple and right first; FMAs on CUDA cores, no tensor cores):
-// every product is one tiled loop, `gemm_tile`: a block of 256 threads
-// owns a 64 x 64 output tile, stages 16-deep slices of both operands in
-// shared memory as float32 (the loaders gather token rows by src_tok,
-// scale them by the row gate or read a matrix transposed, so no operand
-// is ever copied into a dispatch buffer or a transpose) and each thread
-// keeps a 4 x 4 float32 accumulator. K6b's outputs need full sums over d
-// (rowdot, dz) and over H (dxr), so it runs as passes over one stream:
-// (1) per (expert, row tile, d tile) the y = h @ w2 + b2 tile, gy, and
-// the tile's partial row dots; (2) the partials added in tile order;
-// (3) per (expert, row tile, H tile) the z and dh tiles from two loops
-// over d, and dz (float32 kept for (4) when the dtype is bf16);
-// (4) per (expert, row tile, d tile) dxr from the float32 dz. K6c is one
-// pass per (expert, d tile, H tile) over all capacity rows. A row tile
-// whose rows are all -1 skips its products and writes exact zeros. No
-// float atomics: the same inputs give the same bits.
+// bf16 inputs (namespace tc): every product is `wgmma` (m64n128k16, or
+// m64n64k16 in pass 3) with bf16 operands from shared memory in the
+// 128-byte swizzle and float32 accumulators in registers. A block of 256
+// threads (two warpgroups, 64 rows each) owns a 128 x 128 output tile
+// (128 x 64 in pass 3, whose two accumulators must fit two blocks an SM)
+// and runs `mainloop`: a ring of 3 (pass 3: 4) stages of 64-deep operand
+// slices, each stage's completion an mbarrier (TMA) plus a
+// `cp.async.wait_group` and one block barrier, the copies two stages
+// ahead of the products. Contiguous operands (w1[e], w2[e], h[e], dz[e])
+// come in by TMA from 3-d tensor maps built on the host (`tma_map`,
+// passed as __grid_constant__ parameters); gathered token rows (x[tok],
+// g[tok]) by 16-byte `cp.async` copies by row index into the same
+// swizzled layout. A -1 row, a row past the end and the ragged tail of a
+// width are zeros (TMA's out-of-bounds fill, cp.async's source size 0);
+// an operand whose rows are not a multiple of 16 bytes comes in by
+// cp.async, or element by element where its width is not a multiple of 8
+// (the TMA choice is compiled in per kernel instantiation). No operand is
+// copied transposed: dh's w2[e], dxr's w1[e] and K6c's gathered x are
+// read through wgmma's transpose bit (MN-major slices). The row gate is
+// applied in pass 3's epilogue, so dh's operand is the bf16 g row itself
+// (the same sum; the plain version multiplies first). dxr is taken from
+// the bf16 dz that pass 3 writes: no float32 dz round trip (the plain
+// version keeps the float32 dz; at the training shape the two dxr are
+// 3.7e-3 apart relative to its largest value). K6b runs as four
+// launches: (1) per (row tile, d tile) y = h @ w2 + b2, gy and the tile's
+// partial row dots (the row's four threads add their columns by shuffles
+// in lane order); (2) the partials added in tile order; (3) per (row
+// tile, 64 H columns) z and dh and dz; (4) dxr. A row tile whose rows
+// are all -1 skips its products and writes exact zeros. K6c is one pass
+// per (expert, d tile, H tile) with its float32 accumulator in
+// registers for the whole K loop: a block first lists the 64-row depth
+// chunks of its expert that hold a filled row and runs the K loop over
+// those only (the plan fills a prefix, so the loop ends at the fill).
+//
+// float32 inputs (namespace simt) keep the CUDA-core FMA passes: 64 x
+// 64 tiles, float32 operands staged in shared memory, a 4 x 4
+// accumulator a thread. TF32 tensor cores would break the float32
+// gradient checks at 1e-4; bf16 is the training dtype.
+//
+// No float atomics: the same inputs give the same bits.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
+
+// --- float32 inputs: FMAs on the CUDA cores -------------------------------
+namespace simt {
 
 constexpr int NT = 256;             // threads per block
 constexpr int BM = 64;              // output tile rows
@@ -55,17 +85,10 @@ constexpr int SP = 68;              // staged row stride, 16-byte aligned
 static_assert((BM / TM) * (BN / TN) == NT, "one thread per 4x4 sub-tile");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // the derivative of the activation: 0 linear, 1 relu, 2 gelu (tanh
@@ -298,16 +321,14 @@ __global__ void rowdot_sum_kernel(const float* __restrict__ part,
 
 // pass 3, grid (ceil(H / BN), ceil(C / BM), E): z = x @ w1[e] + b1[e] and
 // dh = gy @ w2[e]^T (gy in float32, from g and the row gate), dz =
-// act'(z) * dh; dzf (the float32 dz) when the output dtype is not
-// float32
+// act'(z) * dh
 template <typename T>
 __global__ void __launch_bounds__(NT)
     dz_kernel(const T* __restrict__ x, const T* __restrict__ g,
               const int* __restrict__ src_tok,
               const float* __restrict__ row_gate, const T* __restrict__ w1,
               const T* __restrict__ b1, const T* __restrict__ w2,
-              T* __restrict__ dz, float* __restrict__ dzf, int d, int H,
-              int C, int act) {
+              T* __restrict__ dz, int d, int H, int C, int act) {
   __shared__ __align__(16) float as[BK][SP];
   __shared__ __align__(16) float bs[BK][SP];
   __shared__ int toks[BM];
@@ -340,19 +361,16 @@ __global__ void __launch_bounds__(NT)
             any ? act_grad(accz[i][j] + to_f(b1[(size_t)e * H + n]), act) *
                       acch[i][j]
                 : 0.f;
-        const size_t o = ((size_t)e * C + r) * H + n;
-        dz[o] = from_f<T>(v);
-        if (dzf != nullptr) dzf[o] = v;
+        dz[((size_t)e * C + r) * H + n] = from_f<T>(v);
       }
     }
   }
 }
 
-// pass 4, grid (ceil(d / BN), ceil(C / BM), E): dxr = dz @ w1[e]^T from
-// the float32 dz
+// pass 4, grid (ceil(d / BN), ceil(C / BM), E): dxr = dz @ w1[e]^T
 template <typename T>
 __global__ void __launch_bounds__(NT)
-    dxr_kernel(const float* __restrict__ dzf, const int* __restrict__ src_tok,
+    dxr_kernel(const T* __restrict__ dz, const int* __restrict__ src_tok,
                const T* __restrict__ w1, T* __restrict__ dxr, int d, int H,
                int C) {
   __shared__ __align__(16) float as[BK][SP];
@@ -372,7 +390,7 @@ __global__ void __launch_bounds__(NT)
       rows[threadIdx.x] =
           toks[threadIdx.x] >= 0 ? e * C + r0 + threadIdx.x : -1;
     __syncthreads();
-    gemm_tile(acc, RowsA<float>{dzf, rows, nullptr, H, H},
+    gemm_tile(acc, RowsA<T>{dz, rows, nullptr, H, H},
               TransposedB<T>{w1 + (size_t)e * d * H, H, H, d, n0}, H, as,
               bs);
   }
@@ -417,29 +435,762 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+}  // namespace simt
+
+// --- bf16 inputs: wgmma on the tensor cores --------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int NT = 256;                       // two consumer warpgroups
+constexpr int BM = 128;                       // output tile rows
+constexpr int BN = 128;                       // output tile columns
+constexpr int BN3 = 64;                       // pass 3's (two products)
+constexpr int BK = 64;                        // depth of one stage
+constexpr int SLICE = BM * BK * 2;            // A's slice of a stage, bytes
+// a stage: A's slice, then B's [BK x n]
+__host__ __device__ constexpr int stage_bytes(int n) {
+  return SLICE + n * BK * 2;
+}
+// a ring of s stages, with the slack to align it to 1024 bytes
+__host__ __device__ constexpr int smem_bytes(int s, int n) {
+  return s * stage_bytes(n) + 1024;
+}
+
+static_assert(BM == 128 && BK == 64, "the slice layouts");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; bytes < 16 zero-fills the rest (0: all)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint32_t a,
+                                            uint32_t b, uint32_t c,
+                                            uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
+// generic-proxy writes (cp.async, st.shared) before async-proxy reads
+// (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+
+// the thread's arrival, and the bytes the stage's TMA copies will bring
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// one box of a 3-d tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// one operand of a product: a row-major bf16 source whose row r is
+// tok[r] (gathered; -1 reads zeros) or r itself (tok null); rows r >=
+// nrows read zeros, and so do columns >= ld. A contiguous operand with a
+// TMA map (map not null: expert e of a [E, nrows, ld] tensor) comes in
+// by TMA, the rest by cp.async.
+struct Rows {
+  const bf16* src;
+  const int* tok;
+  int ld, nrows;
+  bool vec;  // ld and src 16-byte aligned: 16-byte copies
+  const CUtensorMap* map;
+  int e;
+};
+
+__device__ __forceinline__ Rows rows_of(const bf16* src, const int* tok,
+                                        int ld, int nrows,
+                                        const CUtensorMap* map = nullptr,
+                                        int e = 0) {
+  const bool vec = (ld % 8) == 0 &&
+                   (reinterpret_cast<uintptr_t>(src) % 16) == 0;
+  return Rows{src, tok, ld, nrows, vec, map, e};
+}
+
+// rows [r0, r0 + NR) x columns [c0, c0 + NC) of an operand into NC / 64
+// chunks of [NR][64] at dst, 128-byte rows in the 128-byte swizzle (the
+// 16-byte piece c of row i at ((c ^ (i % 8)) * 16)): the layout wgmma's
+// B128 descriptors read (and TMA's SWIZZLE_128B writes)
+template <int NR, int NC>
+__device__ __forceinline__ void load_slice(uint32_t dst, const Rows& o,
+                                           int r0, int c0) {
+  constexpr int PR = NC / 8;  // 16-byte pieces a row
+  static_assert((NR * PR) % NT == 0, "whole pieces a thread");
+  if (o.vec) {
+#pragma unroll
+    for (int q = 0; q < NR * PR / NT; ++q) {
+      const int p = threadIdx.x + q * NT;
+      const int i = p / PR;
+      const int c = p % PR;
+      const int r = r0 + i;
+      int sr = -1;
+      if (r < o.nrows) sr = o.tok != nullptr ? __ldg(o.tok + r) : r;
+      const int col = c0 + c * 8;
+      const bool in = sr >= 0 && col < o.ld;
+      cp_async16(dst + (c / 8) * (NR * 128) + i * 128 +
+                     (((c % 8) ^ (i % 8)) << 4),
+                 in ? o.src + (size_t)sr * o.ld + col : o.src, in ? 16 : 0);
+    }
+    return;
+  }
+  // a width that is not a multiple of 8: element by element
+#pragma unroll 1
+  for (int q = 0; q < NR * PR / NT; ++q) {
+    const int p = threadIdx.x + q * NT;
+    const int i = p / PR;
+    const int c = p % PR;
+    const int r = r0 + i;
+    int sr = -1;
+    if (r < o.nrows) sr = o.tok != nullptr ? __ldg(o.tok + r) : r;
+    const int col = c0 + c * 8;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (sr >= 0) {
+      const unsigned short* src =
+          reinterpret_cast<const unsigned short*>(o.src) + (size_t)sr * o.ld;
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        if (col + t < o.ld)
+          w[t / 2] |= static_cast<uint32_t>(__ldg(src + col + t))
+                      << (16 * (t % 2));
+    }
+    st_shared16(dst + (c / 8) * (NR * 128) + i * 128 +
+                    (((c % 8) ^ (i % 8)) << 4),
+                w[0], w[1], w[2], w[3]);
+  }
+}
+
+// the wgmma shared-memory descriptor of a 128-byte-swizzled operand
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] += A[64 x 16] @ B[16 x 128], A and B in shared memory; TA /
+// TB: the operand is MN-major (wgmma's transpose bit)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
+                                      uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d[64 x 64] += A[64 x 16] @ B[16 x 64]
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da,
+                                      uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// one operand's slice of a stage, WD wide: K-major [WD rows mn0..][BK
+// k0..], or MN-major [BK rows k0..][WD columns mn0..] as WD / 64 chunks
+// of [BK][64]; by TMA (thread 0 issues, completing on bar; a K-major map's
+// box is [WD][64], an MN-major one's [BK][64]) or by every thread's
+// cp.async
+template <bool MN, int WD>
+__device__ __forceinline__ void load_operand(uint32_t dst, const Rows& o,
+                                             int mn0, int k0, uint32_t bar) {
+  if (o.map != nullptr) {
+    if (threadIdx.x == 0) {
+      if (MN) {
+#pragma unroll
+        for (int j = 0; j < WD / 64; ++j)
+          tma_load(dst + j * (BK * 128), o.map, bar, mn0 + 64 * j, k0, o.e);
+      } else {
+        tma_load(dst, o.map, bar, k0, mn0, o.e);
+      }
+    }
+  } else if (MN) {
+    load_slice<BK, WD>(dst, o, k0, mn0);
+  } else {
+    load_slice<WD, BK>(dst, o, mn0, k0);
+  }
+}
+
+// one stage: A's slice then B's; thread 0 first tells the stage's barrier
+// how many bytes its TMA copies bring
+template <int N, bool AMN, bool BMN>
+__device__ __forceinline__ void load_stage(uint32_t st, uint32_t bar,
+                                           const Rows& a, const Rows& b,
+                                           int m0, int n0, int k0) {
+  const uint32_t bytes = (a.map != nullptr ? SLICE : 0) +
+                         (b.map != nullptr ? N * BK * 2 : 0);
+  if (bytes != 0 && threadIdx.x == 0) bar_expect(bar, bytes);
+  load_operand<AMN, BM>(st, a, m0, k0, bar);
+  load_operand<BMN, N>(st + SLICE, b, n0, k0, bar);
+}
+
+// the warpgroup's 64 rows of the tile: acc += A @ B over one stage
+template <int N, bool AMN, bool BMN>
+__device__ __forceinline__ void mma_stage(float (&acc)[N / 2], uint32_t st,
+                                          int wg) {
+#pragma unroll
+  for (int k = 0; k < BK / 16; ++k) {
+    // MN-major: 16 k rows of 128 bytes further; the warpgroup's 64 m are
+    // chunk wg. K-major: 32 bytes further; its rows start 64 rows down.
+    const uint64_t da =
+        AMN ? desc(st + wg * (BK * 128) + k * 2048, BK * 128, 1024)
+            : desc(st + wg * (64 * 128) + k * 32, 16, 1024);
+    const uint64_t db = BMN ? desc(st + SLICE + k * 2048, BK * 128, 1024)
+                            : desc(st + SLICE + k * 32, 16, 1024);
+    wgmma<AMN ? 1 : 0, BMN ? 1 : 0>(acc, da, db);
+  }
+}
+
+// acc += A[tile rows m0.., k] @ B[k, tile columns n0..] over the depth
+// chunks k_of(0) .. k_of(nk - 1), through a ring of S stages at ring
+// (barriers at bars, their parities in phase): copies run S - 1 - W
+// stages ahead and W groups of products stay in flight while the next
+// stage's copies are issued; each warpgroup multiplies its 64 rows
+template <int S, int W, int N, bool AMN, bool BMN, typename KOf>
+__device__ __forceinline__ void mainloop(float (&acc)[N / 2], uint32_t ring,
+                                         uint32_t bars, uint32_t& phase,
+                                         const Rows& a, const Rows& b,
+                                         int m0, int n0, int nk, KOf k_of) {
+  constexpr int D = S - 1 - W;
+  constexpr int STAGE = stage_bytes(N);
+  static_assert(D >= 1, "a stage to copy into");
+  const int wg = threadIdx.x / 128;
+  const bool tma = a.map != nullptr || b.map != nullptr;
+#pragma unroll
+  for (int s = 0; s < D; ++s) {
+    if (s < nk) load_stage<N, AMN, BMN>(ring + s * STAGE, bars + 8 * s, a,
+                                        b, m0, n0, k_of(s));
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % S;
+    cp_async_wait<D - 1>();
+    fence_proxy_async();
+    if (tma) {
+      bar_wait(bars + 8 * s, (phase >> s) & 1u);
+      phase ^= 1u << s;
+    }
+    // stage kt landed; the stage copied next was read by products that
+    // every warpgroup has waited for
+    __syncthreads();
+    const int nx = kt + D;
+    if (nx < nk) load_stage<N, AMN, BMN>(ring + (nx % S) * STAGE,
+                                         bars + 8 * (nx % S), a, b, m0, n0,
+                                         k_of(nx));
+    cp_async_commit();
+    fence_acc(acc);
+    wgmma_fence();
+    mma_stage<N, AMN, BMN>(acc, ring + s * STAGE, wg);
+    wgmma_commit();
+    wgmma_wait<W>();
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the next product
+}
+
+// the stages' barriers, one arrival (thread 0's) each
+template <int S>
+__device__ __forceinline__ uint32_t init_bars(uint64_t* mem) {
+  const uint32_t bars = smem_u32(mem);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) bar_init(bars + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return bars;
+}
+
+struct Linear {
+  __device__ __forceinline__ int operator()(int kt) const { return kt * BK; }
+};
+
+template <int R>
+__device__ __forceinline__ void zero(float (&acc)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+}
+
+// the ring, 1024-byte aligned (the swizzle's period)
+__device__ __forceinline__ uint32_t ring_base(uint8_t* raw) {
+  return (smem_u32(raw) + 1023u) & ~1023u;
+}
+
+// the accumulator's element i of this thread: tile row and column
+// (wgmma's m64nNk16 f32 fragment, the warpgroup's rows 64 * wg ..)
+__device__ __forceinline__ int acc_row(int i) {
+  const int t = threadIdx.x;
+  return (t / 128) * 64 + ((t % 128) / 32) * 16 + (t % 32) / 4 +
+         ((i % 4) / 2) * 8;
+}
+__device__ __forceinline__ int acc_col(int i) {
+  return (i / 4) * 8 + (threadIdx.x % 4) * 2 + (i % 2);
+}
+
+// true when any of the tile's BM capacity rows won a slot
+__device__ __forceinline__ bool tile_any(const int* tok, int r0, int C) {
+  const int r = r0 + threadIdx.x;
+  const bool mine = threadIdx.x < BM && r < C && tok[r] >= 0;
+  return __syncthreads_or(mine) != 0;
+}
+
+// two neighbouring bf16 inputs (n, n + 1) of one row as float32, zeros
+// past N
+__device__ __forceinline__ float2 load2(const bf16* row, int n, int N) {
+  if (n + 1 < N && (N % 2) == 0)
+    return __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(row + n));
+  return make_float2(n < N ? __bfloat162float(row[n]) : 0.f,
+                     n + 1 < N ? __bfloat162float(row[n + 1]) : 0.f);
+}
+
+// two neighbouring bf16 outputs (n, n + 1) of one row, where they exist
+__device__ __forceinline__ void store2(bf16* row, int n, int N, float a,
+                                       float b) {
+  if (n + 1 < N && (N % 2) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(row + n) = __floats2bfloat162_rn(a, b);
+  } else {
+    if (n < N) row[n] = __float2bfloat16(a);
+    if (n + 1 < N) row[n + 1] = __float2bfloat16(b);
+  }
+}
+
+// the depth chunks a block's list keeps (K6c: those with a filled row)
+struct Listed {
+  const int* chunks;
+  __device__ __forceinline__ int operator()(int kt) const {
+    return chunks[kt] * BK;
+  }
+};
+
+// ring stages of passes 1 and 4 and of K6c (no product group left in
+// flight), and of pass 3 (one group in flight); every kernel runs two
+// blocks an SM
+constexpr int RING2 = 3;
+constexpr int RING3 = 4;
+
+// pass 1, grid (ceil(d / BN), ceil(C / BM), E): y = h[e] @ w2[e] + b2[e],
+// gy = g[tok] * row_gate, and per d tile the partial row dots <y, g[tok]>
+// into part [d tiles, E*C]
+template <bool TMA_H, bool TMA_W2>
+__global__ void __launch_bounds__(NT, 2)
+    rowdot_gy_kernel(const __grid_constant__ CUtensorMap mh,
+                     const __grid_constant__ CUtensorMap mw2,
+                     const bf16* __restrict__ g,
+                     const int* __restrict__ src_tok,
+                     const float* __restrict__ row_gate,
+                     const bf16* __restrict__ w2, const bf16* __restrict__ b2,
+                     const bf16* __restrict__ h, bf16* __restrict__ gy,
+                     float* __restrict__ part, int d, int H, int E, int C) {
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t bar_mem[RING2];
+  const uint32_t ring = ring_base(smem);
+  const uint32_t bars = init_bars<RING2>(bar_mem);
+  uint32_t phase = 0;
+  const int e = blockIdx.z;
+  const int r0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int* tok = src_tok + (size_t)e * C;
+  float acc[64];
+  zero(acc);
+  if (tile_any(tok, r0, C))
+    mainloop<RING2, 0, BN, false, true>(
+        acc, ring, bars, phase,
+        rows_of(h + (size_t)e * C * H, nullptr, H, C, TMA_H ? &mh : nullptr,
+                e),
+        rows_of(w2 + (size_t)e * H * d, nullptr, d, H,
+                TMA_W2 ? &mw2 : nullptr, e),
+        r0, n0, (H + BK - 1) / BK, Linear{});
+  const bf16* bias = b2 + (size_t)e * d;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + acc_row(2 * half);
+    const int t = r < C ? tok[r] : -1;
+    const float gate = r < C ? row_gate[(size_t)e * C + r] : 0.f;
+    float dot = 0.f;
+    if (r < C) {
+#pragma unroll
+      for (int i = 2 * half; i < 64; i += 4) {
+        // columns past d: acc, bias and g are zeros there
+        const int n = n0 + acc_col(i);
+        const float2 gv = t >= 0 ? load2(g + (size_t)t * d, n, d)
+                                 : make_float2(0.f, 0.f);
+        const float2 bv = load2(bias, n, d);
+        dot += (acc[i] + bv.x) * gv.x;
+        dot += (acc[i + 1] + bv.y) * gv.y;
+        store2(gy + ((size_t)e * C + r) * d, n, d, gv.x * gate, gv.y * gate);
+      }
+    }
+    // the row's four threads hold its 128 columns: add them in lane order
+    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+    dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+    if ((threadIdx.x % 4) == 0 && r < C)
+      part[(size_t)blockIdx.x * E * C + (size_t)e * C + r] = dot;
+  }
+}
+
+// pass 3, grid (ceil(H / BN3), ceil(C / BM), E): z = x[tok] @ w1[e] +
+// b1[e], dh = row_gate * (g[tok] @ w2[e]^T), dz = act'(z) * dh; the
+// narrower tile keeps its two accumulators within two blocks an SM
+template <bool TMA_W1, bool TMA_W2>
+__global__ void __launch_bounds__(NT, 2)
+    dz_kernel(const __grid_constant__ CUtensorMap mw1,
+              const __grid_constant__ CUtensorMap mw2,
+              const bf16* __restrict__ x,
+              const bf16* __restrict__ g,
+              const int* __restrict__ src_tok,
+              const float* __restrict__ row_gate,
+              const bf16* __restrict__ w1, const bf16* __restrict__ b1,
+              const bf16* __restrict__ w2, bf16* __restrict__ dz, int d,
+              int H, int C, int act) {
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t bar_mem[RING3];
+  const uint32_t ring = ring_base(smem);
+  const uint32_t bars = init_bars<RING3>(bar_mem);
+  uint32_t phase = 0;
+  const int e = blockIdx.z;
+  const int r0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN3;
+  const int* tok = src_tok + (size_t)e * C;
+  float accz[BN3 / 2], acch[BN3 / 2];
+  zero(accz);
+  zero(acch);
+  const bool any = tile_any(tok, r0, C);
+  if (any) {
+    const int nk = (d + BK - 1) / BK;
+    mainloop<RING3, 1, BN3, false, true>(
+        accz, ring, bars, phase, rows_of(x, tok, d, C),
+        rows_of(w1 + (size_t)e * d * H, nullptr, H, d,
+                TMA_W1 ? &mw1 : nullptr, e),
+        r0, n0, nk, Linear{});
+    // w2[e] read through the transpose: its rows are dh's columns
+    mainloop<RING3, 1, BN3, false, false>(
+        acch, ring, bars, phase, rows_of(g, tok, d, C),
+        rows_of(w2 + (size_t)e * H * d, nullptr, d, H,
+                TMA_W2 ? &mw2 : nullptr, e),
+        r0, n0, nk, Linear{});
+  }
+  const bf16* bias = b1 + (size_t)e * H;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + acc_row(2 * half);
+    if (r >= C) continue;
+    const float gate = row_gate[(size_t)e * C + r];
+    bf16* out = dz + ((size_t)e * C + r) * H;
+#pragma unroll
+    for (int i = 2 * half; i < BN3 / 2; i += 4) {
+      const int n = n0 + acc_col(i);
+      const float2 bv = load2(bias, n, H);
+      const float zb[2] = {accz[i] + bv.x, accz[i + 1] + bv.y};
+      float v[2];
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+        // a row no slot won has dh = 0, so its dz is an exact 0
+        v[b] = any ? simt::act_grad(zb[b], act) * (gate * acch[i + b]) : 0.f;
+      store2(out, n, H, v[0], v[1]);
+    }
+  }
+}
+
+// pass 4, grid (ceil(d / BN), ceil(C / BM), E): dxr = dz @ w1[e]^T from
+// the bf16 dz pass 3 wrote, w1[e] read through the transpose
+template <bool TMA_DZ, bool TMA_W1>
+// with both operands copied by every thread (an H that is not a multiple
+// of 8) the copy state does not fit 128 registers: one block an SM
+__global__ void __launch_bounds__(NT, TMA_DZ || TMA_W1 ? 2 : 1)
+    dxr_kernel(const __grid_constant__ CUtensorMap mdz,
+               const __grid_constant__ CUtensorMap mw1,
+               const bf16* __restrict__ dz,
+               const int* __restrict__ src_tok,
+               const bf16* __restrict__ w1, bf16* __restrict__ dxr, int d,
+               int H, int C) {
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t bar_mem[RING2];
+  const uint32_t ring = ring_base(smem);
+  const uint32_t bars = init_bars<RING2>(bar_mem);
+  uint32_t phase = 0;
+  const int e = blockIdx.z;
+  const int r0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  float acc[64];
+  zero(acc);
+  if (tile_any(src_tok + (size_t)e * C, r0, C))
+    mainloop<RING2, 0, BN, false, false>(
+        acc, ring, bars, phase,
+        rows_of(dz + (size_t)e * C * H, nullptr, H, C,
+                TMA_DZ ? &mdz : nullptr, e),
+        rows_of(w1 + (size_t)e * d * H, nullptr, H, d,
+                TMA_W1 ? &mw1 : nullptr, e),
+        r0, n0, (H + BK - 1) / BK, Linear{});
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + acc_row(2 * half);
+    if (r >= C) continue;
+    bf16* out = dxr + ((size_t)e * C + r) * d;
+#pragma unroll
+    for (int i = 2 * half; i < 64; i += 4)
+      store2(out, n0 + acc_col(i), d, acc[i], acc[i + 1]);
+  }
+}
+
+// K6c, grid (ceil(H / BN), ceil(d / BM), E): dw1[e] tile = x[tok]^T @
+// dz[e] over the expert's depth chunks of BK capacity rows that hold a
+// filled row (a chunk whose rows are all -1 adds nothing and is skipped)
+template <bool TMA_DZ>
+__global__ void __launch_bounds__(NT, 2)
+    dw1_kernel(const __grid_constant__ CUtensorMap mdz,
+               const bf16* __restrict__ x, const bf16* __restrict__ dz,
+               const int* __restrict__ src_tok, float* __restrict__ dw1,
+               int d, int H, int C) {
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t bar_mem[RING2];
+  __shared__ int nk;
+  const uint32_t ring = ring_base(smem);
+  const uint32_t bars = init_bars<RING2>(bar_mem);
+  uint32_t phase = 0;
+  int* chunks = reinterpret_cast<int*>(smem + (ring - smem_u32(smem)) +
+                                       RING2 * stage_bytes(BN));
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int* tok = src_tok + (size_t)e * C;
+  const int nch = (C + BK - 1) / BK;
+  const int lane = threadIdx.x % 32;
+  for (int ch = threadIdx.x / 32; ch < nch; ch += NT / 32) {
+    bool filled = false;
+    for (int r = ch * BK + lane; r < min(C, ch * BK + BK); r += 32)
+      filled |= tok[r] >= 0;
+    filled = __any_sync(0xffffffffu, filled);
+    if (lane == 0) chunks[ch] = filled ? 1 : 0;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int ch = 0; ch < nch; ++ch)
+      if (chunks[ch]) chunks[n++] = ch;
+    nk = n;
+  }
+  __syncthreads();
+  float acc[64];
+  zero(acc);
+  // A = the gathered x rows [BK capacity rows][BM of d], read transposed;
+  // B = dz[e] rows [BK][BN of H]
+  mainloop<RING2, 0, BN, true, true>(
+      acc, ring, bars, phase, rows_of(x, tok, d, C),
+      rows_of(dz + (size_t)e * C * H, nullptr, H, C,
+              TMA_DZ ? &mdz : nullptr, e),
+      m0, n0, nk, Listed{chunks});
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int m = m0 + acc_row(i);
+    const int n = n0 + acc_col(i);
+    if (m >= d) continue;
+    float* out = dw1 + ((size_t)e * d + m) * H;
+    if (n + 1 < H && (H % 2) == 0) {
+      *reinterpret_cast<float2*>(out + n) = make_float2(acc[i], acc[i + 1]);
+    } else {
+      if (n < H) out[n] = acc[i];
+      if (n + 1 < H) out[n + 1] = acc[i + 1];
+    }
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K* kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// the instantiation of a kernel for two TMA flags
+template <typename K>
+K* pick(bool a, bool b, K* tt, K* tf, K* ft, K* ff) {
+  return a ? (b ? tt : tf) : (b ? ft : ff);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a libcuda entry point, fetched through the
+// runtime so that the library need not link libcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a TMA map of a bf16 [E, rows, cols] tensor in [box_rows][64] boxes in
+// the 128-byte swizzle. *use is 0 where TMA cannot take the tensor (rows
+// not a multiple of 16 bytes, or an unaligned base): the kernel then
+// copies it with cp.async.
+cudaError_t tma_map(CUtensorMap* map, int* use, const bf16* base, int E,
+                    int rows, int cols, int box_rows) {
+  memset(map, 0, sizeof(*map));
+  *use = (cols % 8) == 0 && (reinterpret_cast<uintptr_t>(base) % 16) == 0;
+  if (!*use) return cudaSuccess;
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
 bool grid_ok(long long x, long long y, long long z) {
   return x <= 2147483647LL && y <= 65535 && z <= 65535;
 }
 
-template <typename T>
-cudaError_t bwd_dx(const void* x, const void* g, const int* src_tok,
-                   const float* row_gate, const void* w1, const void* b1,
-                   const void* w2, const void* b2, const void* h, void* dxr,
-                   void* dz, void* gy, float* rowdot, float* dzf,
-                   float* part, int d, int H, int E, int C, int act,
-                   cudaStream_t st) {
-  const T* xp = static_cast<const T*>(x);
-  const T* gp = static_cast<const T*>(g);
-  const T* w1p = static_cast<const T*>(w1);
-  const T* w2p = static_cast<const T*>(w2);
+// float32 inputs: the CUDA-core passes
+cudaError_t bwd_dx_f32(const float* x, const float* g, const int* src_tok,
+                       const float* row_gate, const float* w1,
+                       const float* b1, const float* w2, const float* b2,
+                       const float* h, float* dxr, float* dz, float* gy,
+                       float* rowdot, float* part, int d, int H, int E,
+                       int C, int act, cudaStream_t st) {
+  using namespace simt;
   const int rtiles = (C + BM - 1) / BM;
   const int dtiles = (d + BN - 1) / BN;
   const int htiles = (H + BN - 1) / BN;
   if (!grid_ok(dtiles, rtiles, E) || !grid_ok(htiles, rtiles, E))
     return cudaErrorInvalidConfiguration;
-  rowdot_gy_kernel<T><<<dim3(dtiles, rtiles, E), NT, 0, st>>>(
-      gp, src_tok, row_gate, w2p, static_cast<const T*>(b2),
-      static_cast<const T*>(h), static_cast<T*>(gy), part, d, H, E, C);
+  rowdot_gy_kernel<float><<<dim3(dtiles, rtiles, E), NT, 0, st>>>(
+      g, src_tok, row_gate, w2, b2, h, gy, part, d, H, E, C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int rows = E * C;
@@ -447,29 +1198,72 @@ cudaError_t bwd_dx(const void* x, const void* g, const int* src_tok,
                                                         dtiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // a float32 dz is its own float32 copy
-  float* dzf_out = (sizeof(T) == 4) ? nullptr : dzf;
-  dz_kernel<T><<<dim3(htiles, rtiles, E), NT, 0, st>>>(
-      xp, gp, src_tok, row_gate, w1p, static_cast<const T*>(b1), w2p,
-      static_cast<T*>(dz), dzf_out, d, H, C, act);
+  dz_kernel<float><<<dim3(htiles, rtiles, E), NT, 0, st>>>(
+      x, g, src_tok, row_gate, w1, b1, w2, dz, d, H, C, act);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const float* dz32 = (sizeof(T) == 4) ? static_cast<const float*>(dz) : dzf;
-  dxr_kernel<T><<<dim3(dtiles, rtiles, E), NT, 0, st>>>(
-      dz32, src_tok, w1p, static_cast<T*>(dxr), d, H, C);
+  dxr_kernel<float><<<dim3(dtiles, rtiles, E), NT, 0, st>>>(
+      dz, src_tok, w1, dxr, d, H, C);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t bwd_dw1(const void* x, const void* dz, const int* src_tok,
-                    float* dw1, int d, int H, int E, int C,
-                    cudaStream_t st) {
-  const int mtiles = (d + BM - 1) / BM;
-  const int ntiles = (H + BN - 1) / BN;
-  if (!grid_ok(ntiles, mtiles, E)) return cudaErrorInvalidConfiguration;
-  dw1_kernel<T><<<dim3(ntiles, mtiles, E), NT, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dz), src_tok, dw1, d,
-      H, C);
+// bf16 inputs: the tensor-core passes
+cudaError_t bwd_dx_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                        const int* src_tok, const float* row_gate,
+                        const __nv_bfloat16* w1, const __nv_bfloat16* b1,
+                        const __nv_bfloat16* w2, const __nv_bfloat16* b2,
+                        const __nv_bfloat16* h, __nv_bfloat16* dxr,
+                        __nv_bfloat16* dz, __nv_bfloat16* gy, float* rowdot,
+                        float* part, int d, int H, int E, int C, int act,
+                        cudaStream_t st) {
+  using namespace tc;
+  const int rtiles = (C + BM - 1) / BM;
+  const int dtiles = (d + BN - 1) / BN;
+  const int htiles = (H + BN3 - 1) / BN3;
+  if (!grid_ok(dtiles, rtiles, E) || !grid_ok(htiles, rtiles, E))
+    return cudaErrorInvalidConfiguration;
+  // boxes of [rows][64]: 128 rows for the K-major A and pass 4's w1, 64
+  // (BK, or pass 3's 64-wide B) for the rest; w2's one map serves pass
+  // 1 (MN-major) and pass 3 (K-major)
+  CUtensorMap mh, mdz, mw1k, mw1n, mw2;
+  int th, tdz, tw1k, tw1n, tw2;
+  static_assert(BN3 == BK, "w2's one map");
+  cudaError_t err = tma_map(&mh, &th, h, E, C, H, BM);
+  if (err == cudaSuccess) err = tma_map(&mdz, &tdz, dz, E, C, H, BM);
+  if (err == cudaSuccess) err = tma_map(&mw1k, &tw1k, w1, E, d, H, BN);
+  if (err == cudaSuccess) err = tma_map(&mw1n, &tw1n, w1, E, d, H, BK);
+  if (err == cudaSuccess) err = tma_map(&mw2, &tw2, w2, E, H, d, BK);
+  const int smem = smem_bytes(RING2, BN);
+  const int smem3 = smem_bytes(RING3, BN3);
+  // the TMA paths are compiled in or out (a dead copy path costs
+  // registers)
+  auto* k1 = pick(th, tw2, rowdot_gy_kernel<true, true>,
+                  rowdot_gy_kernel<true, false>,
+                  rowdot_gy_kernel<false, true>,
+                  rowdot_gy_kernel<false, false>);
+  auto* k3 = pick(tw1n, tw2, dz_kernel<true, true>, dz_kernel<true, false>,
+                  dz_kernel<false, true>, dz_kernel<false, false>);
+  auto* k4 = pick(tdz, tw1k, dxr_kernel<true, true>, dxr_kernel<true, false>,
+                  dxr_kernel<false, true>, dxr_kernel<false, false>);
+  if (err == cudaSuccess) err = allow_smem(k1, smem);
+  if (err == cudaSuccess) err = allow_smem(k3, smem3);
+  if (err == cudaSuccess) err = allow_smem(k4, smem);
+  if (err != cudaSuccess) return err;
+  k1<<<dim3(dtiles, rtiles, E), NT, smem, st>>>(
+      mh, mw2, g, src_tok, row_gate, w2, b2, h, gy, part, d, H, E, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int rows = E * C;
+  simt::rowdot_sum_kernel<<<(rows + 255) / 256, 256, 0, st>>>(
+      part, rowdot, rows, dtiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k3<<<dim3(htiles, rtiles, E), NT, smem3, st>>>(
+      mw1n, mw2, x, g, src_tok, row_gate, w1, b1, w2, dz, d, H, C, act);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k4<<<dim3(dtiles, rtiles, E), NT, smem, st>>>(mdz, mw1k, dz, src_tok, w1,
+                                                dxr, d, H, C);
   return cudaGetLastError();
 }
 
@@ -477,16 +1271,16 @@ cudaError_t bwd_dw1(const void* x, const void* dz, const int* src_tok,
 
 // x, g [N, d]; src_tok [E*C] int32; row_gate [E*C] float32; w1 [E, d, H];
 // b1 [E, H]; w2 [E, H, d]; b2 [E, d]; h [E, C, H] -> dxr [E, C, d], dz
-// [E, C, H], gy [E, C, d] in x's dtype, rowdot [E*C] float32. Workspaces:
-// dzf, a float32 [E, C, H] (unused for float32 inputs), and part, a
-// float32 [ceil(d / 64), E*C].
+// [E, C, H], gy [E, C, d] in x's dtype, rowdot [E*C] float32. Workspace
+// part: float32 [ceil(d / 64), E*C] or more rows (the bf16 kernels'
+// 128-wide d tiles fill ceil(d / 128) of them).
 extern "C" int dkt_moe_bwd_dx(const void* x, const void* g,
                               const void* src_tok, const void* row_gate,
                               const void* w1, const void* b1, const void* w2,
                               const void* b2, const void* h, void* dxr,
-                              void* dz, void* gy, void* rowdot, void* dzf,
-                              void* part, int x_bf16, int N, int d, int H,
-                              int E, int C, int act, void* stream) {
+                              void* dz, void* gy, void* rowdot, void* part,
+                              int x_bf16, int N, int d, int H, int E, int C,
+                              int act, void* stream) {
   (void)N;
   if (act < 0 || act > 3 || d < 1 || H < 1 || E < 1 || C < 1)
     return cudaErrorInvalidValue;
@@ -494,13 +1288,23 @@ extern "C" int dkt_moe_bwd_dx(const void* x, const void* g,
   const int* tok = static_cast<const int*>(src_tok);
   const float* rg = static_cast<const float*>(row_gate);
   float* rd = static_cast<float*>(rowdot);
-  float* zf = static_cast<float*>(dzf);
   float* pt = static_cast<float*>(part);
-  if (x_bf16)
-    return bwd_dx<__nv_bfloat16>(x, g, tok, rg, w1, b1, w2, b2, h, dxr, dz,
-                                 gy, rd, zf, pt, d, H, E, C, act, st);
-  return bwd_dx<float>(x, g, tok, rg, w1, b1, w2, b2, h, dxr, dz, gy, rd, zf,
-                       pt, d, H, E, C, act, st);
+  if (x_bf16) {
+    using B = __nv_bfloat16;
+    return bwd_dx_bf16(
+        static_cast<const B*>(x), static_cast<const B*>(g), tok, rg,
+        static_cast<const B*>(w1), static_cast<const B*>(b1),
+        static_cast<const B*>(w2), static_cast<const B*>(b2),
+        static_cast<const B*>(h), static_cast<B*>(dxr), static_cast<B*>(dz),
+        static_cast<B*>(gy), rd, pt, d, H, E, C, act, st);
+  }
+  return bwd_dx_f32(
+      static_cast<const float*>(x), static_cast<const float*>(g), tok, rg,
+      static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(w2), static_cast<const float*>(b2),
+      static_cast<const float*>(h), static_cast<float*>(dxr),
+      static_cast<float*>(dz), static_cast<float*>(gy), rd, pt, d, H, E, C,
+      act, st);
 }
 
 // x [N, d]; dz [E, C, H] in x's dtype; src_tok [E*C] int32 -> dw1
@@ -514,9 +1318,33 @@ extern "C" int dkt_moe_bwd_dw1(const void* x, const void* dz,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tok = static_cast<const int*>(src_tok);
   float* out = static_cast<float*>(dw1);
-  if (x_bf16)
-    return bwd_dw1<__nv_bfloat16>(x, dz, tok, out, d, H, E, C, st);
-  return bwd_dw1<float>(x, dz, tok, out, d, H, E, C, st);
+  if (x_bf16) {
+    using namespace tc;
+    const int mtiles = (d + BM - 1) / BM;
+    const int ntiles = (H + BN - 1) / BN;
+    if (!grid_ok(ntiles, mtiles, E)) return cudaErrorInvalidConfiguration;
+    const long long bytes =
+        smem_bytes(RING2, BN) + 4LL * ((C + BK - 1) / BK);
+    if (bytes > 232448) return cudaErrorInvalidValue;
+    const bf16* dzp = static_cast<const bf16*>(dz);
+    CUtensorMap mdz;
+    int tdz;
+    cudaError_t err = tma_map(&mdz, &tdz, dzp, E, C, H, BK);
+    auto* k = tdz ? dw1_kernel<true> : dw1_kernel<false>;
+    if (err == cudaSuccess) err = allow_smem(k, (int)bytes);
+    if (err != cudaSuccess) return err;
+    k<<<dim3(ntiles, mtiles, E), NT, (int)bytes, st>>>(
+        mdz, static_cast<const bf16*>(x), dzp, tok, out, d, H, C);
+    return cudaGetLastError();
+  }
+  using namespace simt;
+  const int mtiles = (d + BM - 1) / BM;
+  const int ntiles = (H + BN - 1) / BN;
+  if (!grid_ok(ntiles, mtiles, E)) return cudaErrorInvalidConfiguration;
+  dw1_kernel<float><<<dim3(ntiles, mtiles, E), NT, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dz), tok, out,
+      d, H, C);
+  return cudaGetLastError();
 }
 
 extern "C" const char* dkt_error_string(int err) {

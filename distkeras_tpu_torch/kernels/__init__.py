@@ -93,7 +93,7 @@ _SIGNATURES = {
     "sample_epilogue": ("dkt_sample_epilogue", [_P] * 7 + [_I, _I, _P]),
     "moe_gather_gemm1": ("dkt_moe_gather_gemm1",
                          [_P, _I] + [_P] * 5 + [_I] * 9 + [_P]),
-    "moe_bwd_dx": ("dkt_moe_bwd_dx", [_P] * 15 + [_I] * 7 + [_P]),
+    "moe_bwd_dx": ("dkt_moe_bwd_dx", [_P] * 14 + [_I] * 7 + [_P]),
     "moe_bwd_dw1": ("dkt_moe_bwd_dw1", [_P] * 4 + [_I] * 6 + [_P]),
 }
 

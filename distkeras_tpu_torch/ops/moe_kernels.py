@@ -51,7 +51,9 @@ BLOCKS_PER_SM = 2
 ROW_TILES = (1, 2, 4, 8)
 #: activation name -> the kernels' epilogue code
 ACTIVATION_CODES = {"linear": 0, None: 0, "relu": 1, "gelu": 2, "silu": 3}
-#: the output tile edge of K6b and K6c (``csrc/moe_bwd.cu`` BM = BN)
+#: d columns per row of K6b's row-dot partials: 64, the narrowest d tile
+#: of ``csrc/moe_bwd.cu`` (the bf16 kernels' 128-wide tiles fill fewer
+#: rows; the launcher counts its own)
 BWD_TILE = 64
 
 
@@ -259,7 +261,11 @@ def bwd_dw1_reference(xt, dz, src_tok, capacity: int) -> torch.Tensor:
 def bwd_dx(xt, g, src_tok, row_gate, w1, b1, w2, b2, h, capacity: int,
            activation="gelu"):
     """``(dxr, dz, gy, rowdot)`` of the fused block's backward: K6b for
-    tensors on the card, the plain version for tensors on the CPU."""
+    tensors on the card, the plain version for tensors on the CPU. In
+    bf16, K6b runs on the tensor cores and takes ``dxr`` from the bf16
+    ``dz`` it writes, and applies the row gate after ``g @ w2[e]^T``;
+    the plain version takes ``dxr`` from the float32 ``dz`` (one bf16
+    rounding of ``dz`` apart, within phase 22's 2e-2)."""
     if xt.device.type == "cpu":
         return bwd_dx_reference(xt, g, src_tok, row_gate, w1, b1, w2, b2,
                                 h, capacity, activation)
@@ -281,10 +287,7 @@ def bwd_dx(xt, g, src_tok, row_gate, w1, b1, w2, b2, h, capacity: int,
     dz = torch.empty((e, c, hid), dtype=dt, device=dev)
     gy = torch.empty((e, c, d), dtype=dt, device=dev)
     rowdot = torch.empty((e, c, 1), dtype=torch.float32, device=dev)
-    # the float32 dz that dxr is taken from (JAX rounds dz only on its
-    # way out), and the per-column-tile partial row dots
-    dzf = dz if dt == torch.float32 else torch.empty(
-        (e, c, hid), dtype=torch.float32, device=dev)
+    # the per-column-tile partial row dots
     part = torch.empty((-(-d // BWD_TILE), e * c), dtype=torch.float32,
                        device=dev)
     name = "moe_bwd_dx"
@@ -293,7 +296,7 @@ def bwd_dx(xt, g, src_tok, row_gate, w1, b1, w2, b2, h, capacity: int,
         xt.data_ptr(), g.data_ptr(), src_tok.data_ptr(), row_gate.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         h.data_ptr(), dxr.data_ptr(), dz.data_ptr(), gy.data_ptr(),
-        rowdot.data_ptr(), dzf.data_ptr(), part.data_ptr(),
+        rowdot.data_ptr(), part.data_ptr(),
         int(dt == torch.bfloat16), xt.shape[0], d, hid, e, c, code,
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(lib, err, name)
