@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the hand-written kernels from ``distkeras_tpu_torch/csrc``;
 3. the flash-attention forward kernel against its plain PyTorch
-   version at the serving path's shapes (bf16), with times;
+   version at the serving path's shapes and the training shape (causal
+   B4 H16 S2048 D64) in bf16, with times and SDPA as yardstick;
 4. the paged decode kernel against its plain version, with times;
 5. the serving path end to end: the 218M transformer LM (d_model 1024,
    16 heads, 12 layers, vocab 32768, bf16, random weights from a seed)
@@ -19,8 +20,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    CPU in float32 at the same weights;
 6. the flash-attention backward kernels (dq, dk/dv) against their plain
    version in bf16: the training shape (causal B4 H16 S2048 D64), a
-   256-position window, grouped queries (4 kv heads x 4) and a ragged
-   S=1000, with times;
+   256-position window, grouped queries (4 kv heads x 4), a ragged
+   S=1000 and the training length at head_dim 128 (causal B2 H8 S2048
+   D128); a bitwise repeat, times, TFLOP/s and the bound's share;
 7. the training path end to end: the same 218M LM (12 layers, bf16
    compute over float32 weights, seed 0) trained by ``SingleTrainer``
    with adam for two epochs of 32 rows x 2048 tokens (16 steps of 4
@@ -319,7 +321,8 @@ def _admitted_pairs(sq: int, sk: int, causal: bool, window) -> int:
 def flash_cases(dev):
     """The serving path's shapes: a 1024-position causal prompt, a ragged one,
     a sliding window, and the chunked-prefill prefix pass (GQA folded
-    into the rows: [B*Hkv, 1, G*256, 64] queries on a 1024-key prefix)."""
+    into the rows: [B*Hkv, 1, G*256, 64] queries on a 1024-key prefix);
+    then the training path's (B4 S2048)."""
     g = torch.Generator(device="cpu").manual_seed(SEED)
 
     def rnd(*shape):
@@ -342,6 +345,10 @@ def flash_cases(dev):
          dict(q=rnd(16, 1, 256, d), k=rnd(16, 1, 1024, d),
               v=rnd(16, 1, 1024, d), causal=False, window=None,
               layout="bhsd")),
+        ("causal B4 S=2048 (training)",
+         dict(q=rnd(4, 2048, h, d), k=rnd(4, 2048, h, d),
+              v=rnd(4, 2048, h, d), causal=True, window=None,
+              layout="bshd")),
     ]
 
 
@@ -755,21 +762,23 @@ BWD_BF16_REL_TOL = 2e-2
 
 def backward_cases(dev):
     """The training shape (the 218M LM's attention at B4 S2048, BSHD as
-    the layer calls it) and a window, GQA and ragged case at B1."""
+    the layer calls it), a window, GQA and ragged case at B1, and the
+    training length at head_dim 128 (B2 H8)."""
     g = torch.Generator(device="cpu").manual_seed(SEED + 3)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
 
-    def case(b, s, h, hkv, window):
-        return dict(q=rnd(b, s, h, 64), k=rnd(b, s, hkv, 64),
-                    v=rnd(b, s, hkv, 64), dout=rnd(b, s, h, 64),
+    def case(b, s, h, hkv, window, d=64):
+        return dict(q=rnd(b, s, h, d), k=rnd(b, s, hkv, d),
+                    v=rnd(b, s, hkv, d), dout=rnd(b, s, h, d),
                     window=window)
 
     return [("causal B4 H16 S2048", case(4, 2048, 16, 16, None)),
             ("window=256 B1 H16 S2048", case(1, 2048, 16, 16, 256)),
             ("GQA Hkv=4 G=4 B1 S2048", case(1, 2048, 16, 4, None)),
-            ("causal ragged B1 H16 S1000", case(1, 1000, 16, 16, None))]
+            ("causal ragged B1 H16 S1000", case(1, 1000, 16, 16, None)),
+            ("causal B2 H8 S2048 D128", case(2, 2048, 8, 8, None, 128))]
 
 
 def _sdpa_backward_ms(c):
@@ -799,17 +808,22 @@ def _sdpa_backward_ms(c):
 
 
 def backward_phase(dev):
+    """Each case of ``backward_cases``: both kernels against the plain
+    version, a bitwise repeat (two launches of each on the same inputs),
+    times, achieved TFLOP/s and the bound's share."""
     rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
     for name, c in backward_cases(dev):
-        kw = dict(scale=64 ** -0.5, causal=True, window=c["window"],
-                  layout="bshd")
         q, k, v, dout = c["q"], c["k"], c["v"], c["dout"]
+        kw = dict(scale=q.shape[-1] ** -0.5, causal=True,
+                  window=c["window"], layout="bshd")
         out, lse = flash_forward(q, k, v, **kw)
         delta = attention_delta(out, dout)
         args = (q, k, v, lse, dout, delta, kw["scale"], True, c["window"],
                 "bshd")
         got = launch_dq(*args) + launch_dkv(*args)
+        again = launch_dq(*args) + launch_dkv(*args)
         torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
         ref = flash_backward_reference(q, k, v, out, lse, dout, delta, **kw)
         errs, rel = {}, {}
         for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
@@ -838,14 +852,19 @@ def backward_phase(dev):
         print(f"flash_bwd {name}: max abs err dq {errs['dq']:.3e} dk "
               f"{errs['dk']:.3e} dv {errs['dv']:.3e}; relative to the "
               f"reference's max {rel['dq']:.3e} {rel['dk']:.3e} "
-              f"{rel['dv']:.3e} (tol {BWD_BF16_REL_TOL}); dq kernel {dq_ms:.4f} ms (bound "
-              f"{dq_bound:.4f}, {dq_by}), dk/dv kernel {dkv_ms:.4f} ms "
-              f"(bound {dkv_bound:.4f}, {dkv_by}); plain backward "
-              f"{plain_ms:.4f} ms; sdpa backward {lib_ms:.4f} ms; "
-              f"flash_fwd {fwd_ms:.4f} ms", flush=True)
-        if max(rel.values()) > BWD_BF16_REL_TOL:
+              f"{rel['dv']:.3e} (tol {BWD_BF16_REL_TOL}); dq kernel "
+              f"{dq_ms:.4f} ms ({6.0 * work / (dq_ms * 1e9):.1f} TFLOP/s, "
+              f"{dq_bound / dq_ms:.1%} of the bound {dq_bound:.4f}, "
+              f"{dq_by}), dk/dv kernel {dkv_ms:.4f} ms "
+              f"({8.0 * work / (dkv_ms * 1e9):.1f} TFLOP/s, "
+              f"{dkv_bound / dkv_ms:.1%} of the bound {dkv_bound:.4f}, "
+              f"{dkv_by}); plain backward {plain_ms:.4f} ms; sdpa backward "
+              f"{lib_ms:.4f} ms; flash_fwd {fwd_ms:.4f} ms; bitwise repeat "
+              f"{repeat}", flush=True)
+        if max(rel.values()) > BWD_BF16_REL_TOL or not repeat:
             raise AssertionError(f"flash backward kernels disagree with "
-                                 f"their plain version on {name}")
+                                 f"their plain version on {name}, or with "
+                                 f"themselves (bitwise repeat {repeat})")
         rows["flash_bwd_dq"].append(dict(
             name=name, err=errs["dq"], ms=dq_ms, plain_ms=plain_ms,
             library_ms=lib_ms, bound_ms=dq_bound, bound_by=dq_by))

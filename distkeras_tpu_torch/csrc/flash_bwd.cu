@@ -15,54 +15,127 @@
 // that when causal), dq does 6P operations (three products) and dk/dv 8P
 // (four products) at 989 TFLOP/s bf16, against the bytes of q, k, v, dO,
 // lse, delta and the outputs at 3.35 TB/s; at the training shape
-// (B4 H16 S2048 D64) the operations bound both.
+// (B4 H16 S2048 D64) the operations bound both. Only the tensor cores
+// come near that rate, and each score needs an exp and a few float32
+// operations beside its products, so the design keeps the products on
+// wgmma and the per-score work in registers.
 //
-// Design (a simple kernel that is right first; wgmma/TMA, and a split
-// over keys for dq, come later):
+// bf16 at D = 64 and 128 (namespace tc):
+//   * dq: one block per (batch*head, 128 query rows): two consumer
+//     warpgroups of 64 rows and one producer warp. The producer brings
+//     the block's Q and dO tiles once, then keeps a ring of 3 stages of
+//     (K, V) 64-key tiles filled, from the window's first key block to
+//     the causal diagonal (an mbarrier per stage that the copies
+//     complete, and one that the consumers' warps release). Per key
+//     tile, each warpgroup issues S = Q.K^T and dP = dO.V^T by wgmma
+//     (both operands K-major, as stored; one commit group each), forms
+//     P = exp(S*scale - lse) in registers while dP is still being
+//     multiplied, then dS = P o (dP - delta), rounds dS to bf16 in
+//     wgmma's A-fragment layout (the m64nNk16 accumulator converts
+//     element for element) and adds dS.K by wgmma with A from registers
+//     and the same K tile read MN-major through the transpose bit. The
+//     float32 dq accumulator stays in registers; the epilogue scales it
+//     once and writes bf16. The longest causal walks are scheduled first.
+//   * dk/dv: one block per (batch*kv head, 128 key rows), the key rows
+//     as wgmma's M. K and V come in once; the ring carries (Q, dO)
+//     64-row tiles with their lse / delta (and ids) rows over the G
+//     query heads of the group and, for each, the query blocks from the
+//     causal diagonal to the window's reach. Per tile S^T = K.Q^T and
+//     dP^T = V.dO^T by wgmma, P^T in registers, dV += P^T.dO issued
+//     while dS^T = P^T o (dP^T - delta) is formed, then dK += dS^T.Q,
+//     both with A from registers and B (dO, Q) read MN-major. The
+//     group's sum stays in the block: no atomics. Nine warps leave 168
+//     registers a thread, which two dk/dv warpgroups fill at D = 64:
+//     at D = 128, with ids and without TMA a block runs one warpgroup
+//     (64 key rows).
+//   * copies: a 4-d TMA map per operand (head_dim, positions, heads,
+//     batch, with the wrapper's strides: both layouts), boxes of [rows]
+//     [64] in the 128-byte swizzle, TMA's zero fill past the end. Where
+//     a base or stride is not a multiple of 16 bytes the producer warp
+//     copies the same layout element by element (compiled per
+//     instantiation: TMA or not).
+//   * the exp is 2^(S * scale*log2(e) - lse*log2(e)): one FFMA and one
+//     ex2.approx a score. The SFU's 16 exps a cycle an SM and the tensor
+//     cores then bound a tile about equally.
+//   * masks cost only where they cut: a tile wholly inside the causal /
+//     window band (no ids, no ragged tail) skips the mask; a warpgroup
+//     skips a tile its rows cannot see at all (its P is exactly 0).
+//   * the same rounding points as the Pallas kernels, which are exactly
+//     wgmma's bf16 operands: S and dP from the bf16 inputs with float32
+//     accumulation, dS rounded to bf16 before dS.K and dS^T.Q, P before
+//     P^T.dO, scale on the float32 accumulator at the end. A masked pair
+//     has P = 2^((NEG_INF - lse)*log2(e)) = 0 exactly, and the masked and
+//     mask-free tiles compute an admitted pair with the same
+//     instructions, so all-equal ids give bitwise the result of no ids.
+//     The products are summed in a fixed order: the same inputs give the
+//     same bits.
+//   * the price of no atomics: dq's kernel recomputes S and dP, so the
+//     pair does seven products where a kernel that adds dq atomically
+//     does five.
+//
+// float32, and bf16 at D = 32 (namespace simt), keep the CUDA-core
+// kernels: TF32 would break the float32 gradient checks at 1e-4.
 //   * dq: one block of 128 threads per (batch*head, 64-row query block);
 //     its Q and dO tiles stay in shared memory while a loop inside the
 //     block walks 64-key blocks. Thread t owns query row t/2 and every
 //     other key column / head-dim column (interleaved, as in
 //     flash_fwd.cu), so S and dP need no cross-thread reduction; the
 //     dS tile goes through shared memory to the dS.K product.
-//   * dk/dv: one block per (batch*kv head, 64-key block); its K and V
-//     tiles stay in shared memory while it walks the G query heads of
-//     its group and, for each, the query blocks from the causal diagonal
-//     to the end (or to the sliding window's reach). Thread t owns key
-//     row t/2. Summing the group inside the block needs no atomics and
-//     equals the gradient of the JAX package's jnp.repeat of K/V.
-//   * masks as `_bwd_dq_kernel._mask` :377-389: causal q_pos >= k_pos,
-//     window k_pos > q_pos - window, ragged tail k_pos < Sk, with the
-//     finite NEG_INF; query rows past Sq contribute exactly zero (never
-//     exp of garbage), so no NaN can arise from padding.
-//   * packed sequences (`_mask` :386-387 and :480-481): with segment ids
-//     `admitted()` also requires qseg == kseg. The dq kernel loads each
-//     key tile's ids into shared memory beside K; the dk/dv kernel reads
-//     its key's id once and loads the q-side ids of every query block it
-//     visits (they change per query block, not per key block). Each
-//     thread folds its row's 32 comparisons for the tile into one 32-bit
-//     mask before the unrolled loop, so the loop gains one register and
-//     no memory access. A masked pair has P = exp(NEG_INF - lse) = 0
-//     exactly, so a key no query of its segment sees gets exactly zero
-//     gradient. No tile is skipped for its ids. The kernels are
-//     templated on SEG: without ids (SEG = false, null pointers) the
-//     mask folds away and the code is that of the kernels before ids.
-//   * rounding points of the Pallas kernels: dS is rounded to K's dtype
-//     before dS.K and to Q's dtype before dS^T.Q, P to dO's dtype before
-//     P^T.dO; every product accumulates in float32; scale is applied to
-//     the float32 accumulator once at the end.
-//   * grouped queries (H = G * Hkv) read their shared K/V head directly.
-// The MMA-free inner loops are shared-memory bound, like flash_fwd.cu.
+//   * dk/dv: one block per (batch*kv head, 64-key block), walking the G
+//     query heads of its group as above; thread t owns key row t/2.
+//   * ids: each thread folds its row's 32 comparisons for the tile into
+//     one 32-bit mask before the unrolled loop.
+//
+// Both: masks as `_bwd_dq_kernel._mask` :377-389 (causal q_pos >= k_pos,
+// window k_pos > q_pos - window, ragged tail k_pos < Sk, with the finite
+// NEG_INF) and, with packed-sequence ids, qseg == kseg (`_mask` :386-387
+// and :480-481); query rows past Sq contribute exactly zero; no tile is
+// skipped for its ids; grouped queries (H = G * Hkv) read their shared
+// K/V head directly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include "sm90.cuh"
 
 namespace {
+
+constexpr float kNegInf = -0.7f * 3.4028234663852886e38f;
+
+struct Strides {
+  long long b, s, h;  // element strides; head_dim is contiguous
+};
+
+__device__ __forceinline__ bool admitted(int qp, int kp, int Sk, int causal,
+                                         int window, bool same_segment) {
+  bool ok = kp < Sk && same_segment;
+  if (causal) ok = ok && kp <= qp;
+  if (window > 0) ok = ok && kp > qp - window;
+  return ok;
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *dq, *dk, *dv;
+  int B, H, G, Sq, Sk;
+  Strides qs, ks, vs, gs, dqs, dks, dvs;
+  float scale;
+  int causal, window;
+  const int *qseg, *kseg;
+  long long seg_b;
+  cudaStream_t stream;
+};
+
+// --- float32, and bf16 at D = 32: FMAs on the CUDA cores -------------------
+namespace simt {
+
 
 constexpr int BM = 64;   // query rows per tile
 constexpr int BN = 64;   // keys per tile
 constexpr int NT = 128;  // threads per block
-constexpr float kNegInf = -0.7f * 3.4028234663852886e38f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) {
@@ -85,18 +158,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 // x rounded to T's precision, kept as a float
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f<T>(from_f<T>(x));
-}
-
-struct Strides {
-  long long b, s, h;  // element strides; head_dim is contiguous
-};
-
-__device__ __forceinline__ bool admitted(int qp, int kp, int Sk, int causal,
-                                         int window, bool same_segment) {
-  bool ok = kp < Sk && same_segment;
-  if (causal) ok = ok && kp <= qp;
-  if (window > 0) ok = ok && kp > qp - window;
-  return ok;
 }
 
 // rows [r0, r0 + n) of a [S, D] slice (row stride `rs`) into a padded
@@ -353,19 +414,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-struct Args {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
-  void *dq, *dk, *dv;
-  int B, H, G, Sq, Sk;
-  Strides qs, ks, vs, gs, dqs, dks, dvs;
-  float scale;
-  int causal, window;
-  const int *qseg, *kseg;
-  long long seg_b;
-  cudaStream_t stream;
-};
-
 template <typename T, int D, bool SEG>
 cudaError_t launch_dq(const Args& a) {
   const size_t smem = sizeof(float) * dq_smem_floats<D>();
@@ -399,24 +447,662 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-template <bool DQ, typename T, bool SEG>
-cudaError_t dispatch_d(int D, const Args& a) {
-  switch (D) {
-    case 32:
-      return DQ ? launch_dq<T, 32, SEG>(a) : launch_dkv<T, 32, SEG>(a);
-    case 64:
-      return DQ ? launch_dq<T, 64, SEG>(a) : launch_dkv<T, 64, SEG>(a);
-    case 128:
-      return DQ ? launch_dq<T, 128, SEG>(a) : launch_dkv<T, 128, SEG>(a);
-    default:
-      return cudaErrorInvalidValue;
+
+}  // namespace simt
+
+// --- bf16 at D = 64 and 128: wgmma on the tensor cores ---------------------
+namespace tc {
+
+using namespace sm90;
+
+constexpr int BN = 64;      // keys a dq stage
+constexpr int BQ = 64;      // query rows a dk/dv stage
+constexpr int STAGES = 3;   // the ring of either kernel
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the SFU: one instruction (2 ulp; a result below 2^-126 flushes
+// to 0, far below P's bf16 rounding)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// consumer warpgroups (64 rows each) of a block. Nine warps leave a
+// thread 168 registers; a dk/dv warpgroup holds two D-wide accumulators
+// beside its two score tiles, so only the plain D = 64 walk fits two
+// warpgroups: at D = 128, with ids (the mask's reads) and without TMA
+// (the copy loop) the second warpgroup would spill, and a block runs one
+// (five warps: 255 registers).
+constexpr int DQ_WGS = 2;
+template <int D, bool TMA, bool SEG>
+__host__ __device__ constexpr int dkv_wgs() {
+  return D == 64 && TMA && !SEG ? 2 : 1;
+}
+// the consumers and one producer warp
+__host__ __device__ constexpr int threads(int wgs) {
+  return 128 * wgs + 32;
+}
+
+struct Params {
+  const bf16 *q, *k, *v, *dout;
+  const float *lse, *delta;
+  bf16 *dq, *dk, *dv;
+  int H, G, Sq, Sk;
+  Strides qs, ks, vs, gs, dqs, dks, dvs;
+  float scale;
+  int causal, window;
+  const int *qseg, *kseg;
+  long long seg_b;
+  int hfirst;  // bit i (0 q, 1 k, 2 v, 3 dout): map i's second dim is heads
+};
+
+// the producer warp: rows [r0, r0 + R) of head h of batch b into D / 64
+// chunks of [R][64] at dst, by TMA (lane 0, completing on bar) or by the
+// warp's own loads
+template <int R, int D, bool TMA>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const CUtensorMap* map,
+                                          bool hfirst, const bf16* base,
+                                          Strides st, int S, int b, int h,
+                                          int r0, uint32_t bar, int lane) {
+  if (TMA) {
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load4(dst + c * (R * 128), map, bar, 64 * c, hfirst ? h : r0,
+                  hfirst ? r0 : h, b);
+    }
+  } else {
+    load_slice<R, D, 32>(dst, strided_rows(base + b * st.b + h * st.h, D,
+                                           st.s, S),
+                         r0, 0, lane);
   }
+}
+
+// the producer warp's stage: what its lanes stored before this is
+// ordered before the arrival; with TMA, lane 0 announces the bytes the
+// copies issued next will complete
+template <bool TMA>
+__device__ __forceinline__ void begin_stage(uint32_t bar, uint32_t bytes,
+                                            int lane) {
+  if (TMA) {
+    __syncwarp();
+    if (lane == 0) bar_expect(bar, bytes);
+  }
+}
+
+// without TMA the warp's stores are made visible to wgmma and announced
+// by lane 0's arrival
+template <bool TMA>
+__device__ __forceinline__ void end_stage(uint32_t bar, int lane) {
+  if (!TMA) {
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) bar_arrive(bar);
+  }
+}
+
+// the block's barriers: full[s] (the producer's copies), empty[s] (one
+// arrival from each consumer warp), once (the tiles loaded once)
+template <int WGS>
+__device__ __forceinline__ uint32_t init_bars(uint64_t* mem) {
+  const uint32_t bars = smem_u32(mem);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(bars + 8 * s, 1);
+      bar_init(bars + 8 * (STAGES + s), 4 * WGS);
+    }
+    bar_init(bars + 16 * STAGES, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+  return bars;
+}
+
+// the consumer warp is done with stage s
+__device__ __forceinline__ void release(uint32_t empty, int lane) {
+  __syncwarp();
+  if (lane == 0) bar_arrive(empty);
+}
+
+// dq: S (in sc) -> P = exp(S * scale - lse) (in sc) for this thread's two
+// query rows (j = 0: the accumulator's row, 1: eight rows down) and the
+// stage's keys k0.., as 2^(S * scale*log2(e) - lse*log2(e)) (nl2 = -lse *
+// log2(e), sl2 = scale * log2(e)): one FFMA and one ex2 a score. A masked
+// pair, and a row past Sq (whose lse reads 0), gets exp(NEG_INF - lse) =
+// 0; a pair the mask admits takes the same two instructions with or
+// without the mask.
+template <bool MASK, bool SEG>
+__device__ __forceinline__ void dq_probs(float (&sc)[BN / 2],
+                                         const int* kseg, int k0,
+                                         const int (&qpos)[2],
+                                         const float (&lse)[2],
+                                         const float (&nl2)[2], float sl2,
+                                         const int (&seg)[2],
+                                         const Params& p) {
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int j = (i % 4) / 2;
+    float x = __fmaf_rn(sc[i], sl2, nl2[j]);
+    if (MASK) {
+      const int col = acc_col(i);
+      if (!(qpos[j] < p.Sq &&
+            admitted(qpos[j], k0 + col, p.Sk, p.causal, p.window,
+                     !SEG || kseg[col] == seg[j])))
+        x = __fmul_rn(__fsub_rn(kNegInf, lse[j]), kLog2e);
+    }
+    sc[i] = ex2(x);
+  }
+}
+
+// dk/dv: S^T (in sc) -> P^T (in sc) for this thread's two key rows and
+// the stage's queries q0.. (their lse and ids in shared memory), as in
+// dq_probs; a query past Sq reads lse 0 and gets P = 0
+template <bool MASK, bool SEG>
+__device__ __forceinline__ void dkv_probs(float (&sc)[BQ / 2],
+                                          const float* ls, const int* qseg,
+                                          int q0, float sl2,
+                                          const int (&kpos)[2],
+                                          const int (&seg)[2],
+                                          const Params& p) {
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) {
+    const int j = (i % 4) / 2;
+    const int col = acc_col(i);
+    float x = __fmaf_rn(sc[i], sl2, __fmul_rn(ls[col], -kLog2e));
+    if (MASK) {
+      const int qp = q0 + col;
+      if (!(qp < p.Sq && admitted(qp, kpos[j], p.Sk, p.causal, p.window,
+                                  !SEG || qseg[col] == seg[j])))
+        x = __fmul_rn(__fsub_rn(kNegInf, ls[col]), kLog2e);
+    }
+    sc[i] = ex2(x);
+  }
+}
+
+// grid (ceil(Sq / 128), B*H)
+template <int D, bool SEG, bool TMA>
+__global__ void __launch_bounds__(threads(DQ_WGS), 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mk,
+                        const __grid_constant__ CUtensorMap mv,
+                        const __grid_constant__ CUtensorMap mg,
+                        const Params p) {
+  constexpr int R = 64 * DQ_WGS;       // query rows of the block
+  constexpr int TQ = R * D * 2;        // bytes of the Q (or dO) tile
+  constexpr int TK = BN * D * 2;       // of a stage's K (or V) tile
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t bar_mem[2 * STAGES + 1];
+  const uint32_t base = ring_base(smem);
+  const uint32_t Qs = base, Gs = base + TQ, ring = base + 2 * TQ;
+  int* kseg_s = reinterpret_cast<int*>(smem + (base - smem_u32(smem)) +
+                                       2 * TQ + STAGES * 2 * TK);
+  const uint32_t full = init_bars<DQ_WGS>(bar_mem);
+  const uint32_t empty = full + 8 * STAGES, once = full + 16 * STAGES;
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H, hk = h / p.G;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;  // longest walks first
+  const int q_last = min(q0 + R, p.Sq) - 1;
+  int kb_end = (p.Sk + BN - 1) / BN;
+  if (p.causal) kb_end = min(kb_end, q_last / BN + 1);
+  const int kb_begin = p.window > 0 ? max(0, q0 - p.window + 1) / BN : 0;
+  const int n = kb_end - kb_begin;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp == 4 * DQ_WGS) {  // the producer
+    begin_stage<TMA>(once, 2 * TQ, lane);
+    load_rows<R, D, TMA>(Qs, &mq, p.hfirst & 1, p.q, p.qs, p.Sq, b, h, q0,
+                         once, lane);
+    load_rows<R, D, TMA>(Gs, &mg, p.hfirst & 8, p.dout, p.gs, p.Sq, b, h,
+                         q0, once, lane);
+    end_stage<TMA>(once, lane);
+    for (int t = 0; t < n; ++t) {
+      const int s = t % STAGES;
+      bar_wait(empty + 8 * s, ((t / STAGES) & 1) ^ 1);
+      const int k0 = (kb_begin + t) * BN;
+      if (SEG) {
+        for (int i = lane; i < BN; i += 32)
+          kseg_s[s * BN + i] =
+              k0 + i < p.Sk ? p.kseg[b * p.seg_b + k0 + i] : 0;
+      }
+      begin_stage<TMA>(full + 8 * s, 2 * TK, lane);
+      const uint32_t st = ring + s * 2 * TK;
+      load_rows<BN, D, TMA>(st, &mk, p.hfirst & 2, p.k, p.ks, p.Sk, b, hk,
+                            k0, full + 8 * s, lane);
+      load_rows<BN, D, TMA>(st + TK, &mv, p.hfirst & 4, p.v, p.vs, p.Sk, b,
+                            hk, k0, full + 8 * s, lane);
+      end_stage<TMA>(full + 8 * s, lane);
+    }
+    return;
+  }
+
+  // a consumer warpgroup: query rows qa .. qa + 63
+  const int wg = warp / 4;
+  const int qa = q0 + 64 * wg;
+  int qpos[2], seg[2];
+  float lse[2], delta[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    qpos[j] = q0 + acc_row(2 * j);
+    const bool in = qpos[j] < p.Sq;
+    const long long row = (long long)bh * p.Sq + qpos[j];
+    lse[j] = in ? p.lse[row] : 0.f;
+    delta[j] = in ? p.delta[row] : 0.f;
+    seg[j] = (SEG && in) ? p.qseg[b * p.seg_b + qpos[j]] : 0;
+  }
+  float acc[D / 2];
+  zero(acc);
+  const float sl2 = __fmul_rn(p.scale, kLog2e);
+  const float nl2[2] = {__fmul_rn(lse[0], -kLog2e),
+                        __fmul_rn(lse[1], -kLog2e)};
+  bar_wait(once, 0);
+  for (int t = 0; t < n; ++t) {
+    const int s = t % STAGES;
+    const int k0 = (kb_begin + t) * BN;
+    const uint32_t Ks = ring + s * 2 * TK, Vs = Ks + TK;
+    bar_wait(full + 8 * s, (t / STAGES) & 1);
+    // no pair of the warpgroup's rows and the tile's keys is admitted
+    const bool skip = qa >= p.Sq || (p.causal && k0 > qa + 63) ||
+                      (p.window > 0 && k0 + BN - 1 <= qa - p.window);
+    if (!skip) {
+      // S = Q.K^T and dP = dO.V^T, one commit group each: P is formed
+      // while dP is still being multiplied
+      float sc[BN / 2], dp[BN / 2];
+      zero(sc);
+      zero(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma<0, 0>(sc, desc(Qs + (kk / 4) * (R * 128) + wg * (64 * 128) +
+                                 (kk % 4) * 32, 16, 1024),
+                    desc(Ks + (kk / 4) * (BN * 128) + (kk % 4) * 32, 16,
+                         1024));
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma<0, 0>(dp, desc(Gs + (kk / 4) * (R * 128) + wg * (64 * 128) +
+                                 (kk % 4) * 32, 16, 1024),
+                    desc(Vs + (kk / 4) * (BN * 128) + (kk % 4) * 32, 16,
+                         1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // S
+      fence_acc(sc);
+      // every pair admitted: the tile lies inside the band, no ids
+      const bool inside = !SEG && qa + 63 < p.Sq && k0 + BN <= p.Sk &&
+                          (!p.causal || k0 + BN - 1 <= qa) &&
+                          (p.window <= 0 || k0 > qa + 63 - p.window);
+      if (inside)
+        dq_probs<false, SEG>(sc, kseg_s + s * BN, k0, qpos, lse, nl2, sl2,
+                             seg, p);
+      else
+        dq_probs<true, SEG>(sc, kseg_s + s * BN, k0, qpos, lse, nl2, sl2,
+                            seg, p);
+      wgmma_wait<0>();  // dP
+      fence_acc(dp);
+      // dS = P o (dP - delta), rounded to bf16 as the A operand of dS.K
+      uint32_t a[BN / 16][4];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i)
+        sc[i] = __fmul_rn(sc[i], __fsub_rn(dp[i], delta[(i % 4) / 2]));
+      acc_to_a<BN>(sc, a);
+      wgmma_fence();
+      // dq += dS.K: K's rows are the depth, read through the transpose
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs<1>(acc, a[kk], desc(Ks + kk * 2048, BN * 128, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      fence_regs(a);
+    }
+    release(empty + 8 * s, lane);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (qpos[j] >= p.Sq) continue;
+    bf16* out = p.dq + b * p.dqs.b + h * p.dqs.h + qpos[j] * p.dqs.s;
+#pragma unroll
+    for (int i = 2 * j; i < D / 2; i += 4)
+      *reinterpret_cast<uint32_t*>(out + acc_col(i)) =
+          pack_bf16(acc[i] * p.scale, acc[i + 1] * p.scale);
+  }
+}
+
+// grid (ceil(Sk / (64 * dkv_wgs)), B*Hkv)
+template <int D, bool SEG, bool TMA>
+__global__ void __launch_bounds__(threads(dkv_wgs<D, TMA, SEG>()), 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const __grid_constant__ CUtensorMap mg,
+                         const Params p) {
+  constexpr int WGS = dkv_wgs<D, TMA, SEG>();
+  constexpr int R = 64 * WGS;          // key rows of the block
+  constexpr int TK = R * D * 2;        // bytes of the K (or V) tile
+  constexpr int TQ = BQ * D * 2;       // of a stage's Q (or dO) tile
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t bar_mem[2 * STAGES + 1];
+  const uint32_t base = ring_base(smem);
+  const uint32_t Ks = base, Vs = base + TK, ring = base + 2 * TK;
+  // per stage: lse [BQ], delta [BQ]; then per stage the query ids [BQ]
+  float* rows = reinterpret_cast<float*>(smem + (base - smem_u32(smem)) +
+                                         2 * TK + STAGES * 2 * TQ);
+  int* qseg_s = reinterpret_cast<int*>(rows + STAGES * 2 * BQ);
+  const uint32_t full = init_bars<WGS>(bar_mem);
+  const uint32_t empty = full + 8 * STAGES, once = full + 16 * STAGES;
+
+  const int Hkv = p.H / p.G;
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const int k0 = blockIdx.x * R;
+  // query blocks that can see a key of this block: from the causal
+  // diagonal on, up to the sliding window's reach
+  const int k_last = min(k0 + R, p.Sk) - 1;
+  const int qb_begin = p.causal ? k0 / BQ : 0;
+  int qb_end = (p.Sq + BQ - 1) / BQ;
+  if (p.window > 0) qb_end = min(qb_end, (k_last + p.window - 1) / BQ + 1);
+  const int nq = max(qb_end - qb_begin, 0);
+  const int n = p.G * nq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp == 4 * WGS) {  // the producer
+    begin_stage<TMA>(once, 2 * TK, lane);
+    load_rows<R, D, TMA>(Ks, &mk, p.hfirst & 2, p.k, p.ks, p.Sk, b, hk, k0,
+                         once, lane);
+    load_rows<R, D, TMA>(Vs, &mv, p.hfirst & 4, p.v, p.vs, p.Sk, b, hk, k0,
+                         once, lane);
+    end_stage<TMA>(once, lane);
+    for (int t = 0; t < n; ++t) {
+      const int s = t % STAGES;
+      bar_wait(empty + 8 * s, ((t / STAGES) & 1) ^ 1);
+      const int h = hk * p.G + t / nq;
+      const int q0 = (qb_begin + t % nq) * BQ;
+      const long long bh = (long long)b * p.H + h;
+      float* ls = rows + s * 2 * BQ;
+      for (int i = lane; i < BQ; i += 32) {
+        const bool in = q0 + i < p.Sq;
+        ls[i] = in ? p.lse[bh * p.Sq + q0 + i] : 0.f;
+        ls[BQ + i] = in ? p.delta[bh * p.Sq + q0 + i] : 0.f;
+        if (SEG) qseg_s[s * BQ + i] = in ? p.qseg[b * p.seg_b + q0 + i] : 0;
+      }
+      begin_stage<TMA>(full + 8 * s, 2 * TQ, lane);
+      const uint32_t st = ring + s * 2 * TQ;
+      load_rows<BQ, D, TMA>(st, &mq, p.hfirst & 1, p.q, p.qs, p.Sq, b, h,
+                            q0, full + 8 * s, lane);
+      load_rows<BQ, D, TMA>(st + TQ, &mg, p.hfirst & 8, p.dout, p.gs, p.Sq,
+                            b, h, q0, full + 8 * s, lane);
+      end_stage<TMA>(full + 8 * s, lane);
+    }
+    return;
+  }
+
+  // a consumer warpgroup: key rows ka .. ka + 63
+  const int wg = warp / 4;
+  const int ka = k0 + 64 * wg;
+  int kpos[2], seg[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    kpos[j] = k0 + acc_row(2 * j);
+    seg[j] = (SEG && kpos[j] < p.Sk) ? p.kseg[b * p.seg_b + kpos[j]] : 0;
+  }
+  float dk[D / 2], dv[D / 2];
+  zero(dk);
+  zero(dv);
+  const float sl2 = __fmul_rn(p.scale, kLog2e);
+  bar_wait(once, 0);
+  for (int t = 0; t < n; ++t) {
+    const int s = t % STAGES;
+    const int q0 = (qb_begin + t % nq) * BQ;
+    const uint32_t Qs = ring + s * 2 * TQ, Gs = Qs + TQ;
+    bar_wait(full + 8 * s, (t / STAGES) & 1);
+    // no pair of the tile's queries and the warpgroup's keys is admitted
+    const bool skip = ka >= p.Sk || (p.causal && q0 + BQ - 1 < ka) ||
+                      (p.window > 0 && ka + 63 <= q0 - p.window);
+    if (!skip) {
+      // S^T = K.Q^T and dP^T = V.dO^T, one commit group each
+      float sc[BQ / 2], dp[BQ / 2];
+      zero(sc);
+      zero(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma<0, 0>(sc, desc(Ks + (kk / 4) * (R * 128) + wg * (64 * 128) +
+                                 (kk % 4) * 32, 16, 1024),
+                    desc(Qs + (kk / 4) * (BQ * 128) + (kk % 4) * 32, 16,
+                         1024));
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma<0, 0>(dp, desc(Vs + (kk / 4) * (R * 128) + wg * (64 * 128) +
+                                 (kk % 4) * 32, 16, 1024),
+                    desc(Gs + (kk / 4) * (BQ * 128) + (kk % 4) * 32, 16,
+                         1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T
+      fence_acc(sc);
+      // every pair admitted: the tile lies inside the band, no ids
+      const bool inside = !SEG && q0 + BQ <= p.Sq && ka + 64 <= p.Sk &&
+                          (!p.causal || q0 >= ka + 63) &&
+                          (p.window <= 0 || ka > q0 + BQ - 1 - p.window);
+      const float* ls = rows + s * 2 * BQ;
+      if (inside)
+        dkv_probs<false, SEG>(sc, ls, qseg_s + s * BQ, q0, sl2, kpos, seg,
+                              p);
+      else
+        dkv_probs<true, SEG>(sc, ls, qseg_s + s * BQ, q0, sl2, kpos, seg,
+                             p);
+      // dv += P^T.dO (P^T rounded to bf16; the query rows are the depth,
+      // read through the transpose) runs while dS^T is formed
+      uint32_t a[BQ / 16][4];
+      acc_to_a<BQ>(sc, a);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<1>(dv, a[kk], desc(Gs + kk * 2048, BQ * 128, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // dP^T
+      fence_acc(dp);
+      // dS^T = P^T o (dP^T - delta)
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i)
+        dp[i] = __fmul_rn(sc[i], __fsub_rn(dp[i], ls[BQ + acc_col(i)]));
+      wgmma_wait<0>();  // dv: its A operand's registers are free
+      fence_acc(dv);
+      fence_regs(a);
+      // dk += dS^T.Q
+      acc_to_a<BQ>(dp, a);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<1>(dk, a[kk], desc(Qs + kk * 2048, BQ * 128, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dk);
+      fence_regs(a);
+    }
+    release(empty + 8 * s, lane);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (kpos[j] >= p.Sk) continue;
+    bf16* kout = p.dk + b * p.dks.b + hk * p.dks.h + kpos[j] * p.dks.s;
+    bf16* vout = p.dv + b * p.dvs.b + hk * p.dvs.h + kpos[j] * p.dvs.s;
+#pragma unroll
+    for (int i = 2 * j; i < D / 2; i += 4) {
+      const int c = acc_col(i);
+      *reinterpret_cast<uint32_t*>(kout + c) =
+          pack_bf16(dk[i] * p.scale, dk[i + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(vout + c) = pack_bf16(dv[i], dv[i + 1]);
+    }
+  }
+}
+
+// TMA takes an operand whose base is 16-byte aligned and whose strides
+// are multiples of 16 bytes (a dim of extent 1 is never stepped)
+bool tma_ok(const void* base, Strides st, int S, int H, int B) {
+  const auto ok = [](long long stride, int n) {
+    return n == 1 || stride % 8 == 0;
+  };
+  return reinterpret_cast<uintptr_t>(base) % 16 == 0 && ok(st.s, S) &&
+         ok(st.h, H) && ok(st.b, B);
+}
+
+// the 4-d map (head_dim, positions, heads, batch) of one bf16 operand in
+// boxes of [rows][64], in the 128-byte swizzle, with positions and heads
+// in the order of their strides (*hfirst: heads first, as in bhsd's
+// [B, H, S, D] read as (D, S, H, B) it is not)
+cudaError_t flash_map(CUtensorMap* map, bool* hfirst, const void* base,
+                      int D, int S, int H, int B, Strides st, int rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const long long ss = S > 1 ? st.s : D, hs = H > 1 ? st.h : D,
+                  bs = B > 1 ? st.b : D;
+  *hfirst = hs < ss;
+  const cuuint64_t dims[4] = {(cuuint64_t)D,
+                              (cuuint64_t)(*hfirst ? H : S),
+                              (cuuint64_t)(*hfirst ? S : H), (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(2 * (*hfirst ? hs : ss)),
+                                 (cuuint64_t)(2 * (*hfirst ? ss : hs)),
+                                 (cuuint64_t)(2 * bs)};
+  const cuuint32_t box[4] = {64, (cuuint32_t)(*hfirst ? 1 : rows),
+                             (cuuint32_t)(*hfirst ? rows : 1), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+Params params(const Args& a) {
+  Params p{};
+  p.q = static_cast<const bf16*>(a.q);
+  p.k = static_cast<const bf16*>(a.k);
+  p.v = static_cast<const bf16*>(a.v);
+  p.dout = static_cast<const bf16*>(a.dout);
+  p.lse = a.lse;
+  p.delta = a.delta;
+  p.dq = static_cast<bf16*>(a.dq);
+  p.dk = static_cast<bf16*>(a.dk);
+  p.dv = static_cast<bf16*>(a.dv);
+  p.H = a.H; p.G = a.G; p.Sq = a.Sq; p.Sk = a.Sk;
+  p.qs = a.qs; p.ks = a.ks; p.vs = a.vs; p.gs = a.gs;
+  p.dqs = a.dqs; p.dks = a.dks; p.dvs = a.dvs;
+  p.scale = a.scale; p.causal = a.causal; p.window = a.window;
+  p.qseg = a.qseg; p.kseg = a.kseg; p.seg_b = a.seg_b;
+  return p;
+}
+
+// the four operands' maps (q and dO in boxes of qrows, k and v of krows)
+// when TMA takes all four; *tma says which
+cudaError_t maps(const Args& a, int D, int qrows, int krows, CUtensorMap* m,
+                 Params* p, bool* tma) {
+  memset(m, 0, 4 * sizeof(CUtensorMap));
+  const int Hkv = a.H / a.G;
+  *tma = tma_ok(a.q, a.qs, a.Sq, a.H, a.B) &&
+         tma_ok(a.k, a.ks, a.Sk, Hkv, a.B) &&
+         tma_ok(a.v, a.vs, a.Sk, Hkv, a.B) &&
+         tma_ok(a.dout, a.gs, a.Sq, a.H, a.B);
+  if (!*tma) return cudaSuccess;
+  const void* base[4] = {a.q, a.k, a.v, a.dout};
+  const Strides st[4] = {a.qs, a.ks, a.vs, a.gs};
+  const int S[4] = {a.Sq, a.Sk, a.Sk, a.Sq};
+  const int H[4] = {a.H, Hkv, Hkv, a.H};
+  const int rows[4] = {qrows, krows, krows, qrows};
+  for (int i = 0; i < 4; ++i) {
+    bool hf = false;
+    const cudaError_t err =
+        flash_map(m + i, &hf, base[i], D, S[i], H[i], a.B, st[i], rows[i]);
+    if (err != cudaSuccess) return err;
+    p->hfirst |= hf ? 1 << i : 0;
+  }
+  return cudaSuccess;
+}
+
+template <typename K>
+cudaError_t run(K* kern, int smem, dim3 grid, int nthreads,
+                const CUtensorMap* m, const Params& p, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, nthreads, smem, st>>>(m[0], m[1], m[2], m[3], p);
+  return cudaGetLastError();
+}
+
+template <int D, bool SEG>
+cudaError_t launch_dq(const Args& a) {
+  constexpr int R = 64 * DQ_WGS;
+  const int smem = 1024 + 2 * R * D * 2 + STAGES * 2 * BN * D * 2 +
+                   STAGES * BN * 4;
+  Params p = params(a);
+  CUtensorMap m[4];
+  bool tma;
+  const cudaError_t err = maps(a, D, R, BN, m, &p, &tma);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Sq + R - 1) / R, a.B * a.H);
+  return tma ? run(flash_bwd_dq_kernel<D, SEG, true>, smem, grid,
+                   threads(DQ_WGS), m, p, a.stream)
+             : run(flash_bwd_dq_kernel<D, SEG, false>, smem, grid,
+                   threads(DQ_WGS), m, p, a.stream);
+}
+
+template <int D, bool SEG, bool TMA>
+cudaError_t launch_dkv_as(const Args& a, const CUtensorMap* m,
+                          const Params& p) {
+  constexpr int R = 64 * dkv_wgs<D, TMA, SEG>();
+  const int smem = 1024 + 2 * R * D * 2 + STAGES * 2 * BQ * D * 2 +
+                   STAGES * 3 * BQ * 4;
+  const dim3 grid((a.Sk + R - 1) / R, a.B * (a.H / a.G));
+  return run(flash_bwd_dkv_kernel<D, SEG, TMA>, smem, grid,
+             threads(dkv_wgs<D, TMA, SEG>()), m, p, a.stream);
+}
+
+template <int D, bool SEG>
+cudaError_t launch_dkv(const Args& a) {
+  Params p = params(a);
+  CUtensorMap m[4];
+  bool tma;
+  const cudaError_t err =
+      maps(a, D, BQ, 64 * dkv_wgs<D, true, SEG>(), m, &p, &tma);
+  if (err != cudaSuccess) return err;
+  return tma ? launch_dkv_as<D, SEG, true>(a, m, p)
+             : launch_dkv_as<D, SEG, false>(a, m, p);
+}
+
+}  // namespace tc
+
+template <bool DQ, typename T, int D, bool SEG>
+cudaError_t launch_simt(const Args& a) {
+  return DQ ? simt::launch_dq<T, D, SEG>(a) : simt::launch_dkv<T, D, SEG>(a);
+}
+
+template <bool DQ, int D, bool SEG>
+cudaError_t launch_tc(const Args& a) {
+  return DQ ? tc::launch_dq<D, SEG>(a) : tc::launch_dkv<D, SEG>(a);
 }
 
 template <bool DQ, bool SEG>
 cudaError_t dispatch_t(int dtype, int D, const Args& a) {
-  if (dtype == 0) return dispatch_d<DQ, float, SEG>(D, a);
-  if (dtype == 1) return dispatch_d<DQ, __nv_bfloat16, SEG>(D, a);
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return launch_simt<DQ, float, 32, SEG>(a);
+      case 64: return launch_simt<DQ, float, 64, SEG>(a);
+      case 128: return launch_simt<DQ, float, 128, SEG>(a);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (dtype == 1) {
+    switch (D) {
+      case 32: return launch_simt<DQ, __nv_bfloat16, 32, SEG>(a);
+      case 64: return launch_tc<DQ, 64, SEG>(a);
+      case 128: return launch_tc<DQ, 128, SEG>(a);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -54,6 +54,9 @@
 // registers for the whole K loop: a block first lists the 64-row depth
 // chunks of its expert that hold a filled row and runs the K loop over
 // those only (the plan fills a prefix, so the loop ends at the fill).
+// The Hopper primitives (mbarriers, TMA, cp.async, the swizzled slice
+// loader, the wgmma wrappers and descriptors) are sm90.cuh's, shared with
+// flash_bwd.cu.
 //
 // float32 inputs (namespace simt) keep the CUDA-core FMA passes: 64 x
 // 64 tiles, float32 operands staged in shared memory, a 4 x 4
@@ -68,6 +71,8 @@
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -440,7 +445,7 @@ __global__ void __launch_bounds__(NT)
 // --- bf16 inputs: wgmma on the tensor cores --------------------------------
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace sm90;
 
 constexpr int NT = 256;                       // two consumer warpgroups
 constexpr int BM = 128;                       // output tile rows
@@ -458,247 +463,6 @@ __host__ __device__ constexpr int smem_bytes(int s, int n) {
 }
 
 static_assert(BM == 128 && BK == 64, "the slice layouts");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; bytes < 16 zero-fills the rest (0: all)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void st_shared16(uint32_t dst, uint32_t a,
-                                            uint32_t b, uint32_t c,
-                                            uint32_t d) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
-               "r"(a), "r"(b), "r"(c), "r"(d)
-               : "memory");
-}
-
-// generic-proxy writes (cp.async, st.shared) before async-proxy reads
-// (wgmma)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-
-// the thread's arrival, and the bytes the stage's TMA copies will bring
-__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-// one box of a 3-d tensor map into shared memory, completing on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// one operand of a product: a row-major bf16 source whose row r is
-// tok[r] (gathered; -1 reads zeros) or r itself (tok null); rows r >=
-// nrows read zeros, and so do columns >= ld. A contiguous operand with a
-// TMA map (map not null: expert e of a [E, nrows, ld] tensor) comes in
-// by TMA, the rest by cp.async.
-struct Rows {
-  const bf16* src;
-  const int* tok;
-  int ld, nrows;
-  bool vec;  // ld and src 16-byte aligned: 16-byte copies
-  const CUtensorMap* map;
-  int e;
-};
-
-__device__ __forceinline__ Rows rows_of(const bf16* src, const int* tok,
-                                        int ld, int nrows,
-                                        const CUtensorMap* map = nullptr,
-                                        int e = 0) {
-  const bool vec = (ld % 8) == 0 &&
-                   (reinterpret_cast<uintptr_t>(src) % 16) == 0;
-  return Rows{src, tok, ld, nrows, vec, map, e};
-}
-
-// rows [r0, r0 + NR) x columns [c0, c0 + NC) of an operand into NC / 64
-// chunks of [NR][64] at dst, 128-byte rows in the 128-byte swizzle (the
-// 16-byte piece c of row i at ((c ^ (i % 8)) * 16)): the layout wgmma's
-// B128 descriptors read (and TMA's SWIZZLE_128B writes)
-template <int NR, int NC>
-__device__ __forceinline__ void load_slice(uint32_t dst, const Rows& o,
-                                           int r0, int c0) {
-  constexpr int PR = NC / 8;  // 16-byte pieces a row
-  static_assert((NR * PR) % NT == 0, "whole pieces a thread");
-  if (o.vec) {
-#pragma unroll
-    for (int q = 0; q < NR * PR / NT; ++q) {
-      const int p = threadIdx.x + q * NT;
-      const int i = p / PR;
-      const int c = p % PR;
-      const int r = r0 + i;
-      int sr = -1;
-      if (r < o.nrows) sr = o.tok != nullptr ? __ldg(o.tok + r) : r;
-      const int col = c0 + c * 8;
-      const bool in = sr >= 0 && col < o.ld;
-      cp_async16(dst + (c / 8) * (NR * 128) + i * 128 +
-                     (((c % 8) ^ (i % 8)) << 4),
-                 in ? o.src + (size_t)sr * o.ld + col : o.src, in ? 16 : 0);
-    }
-    return;
-  }
-  // a width that is not a multiple of 8: element by element
-#pragma unroll 1
-  for (int q = 0; q < NR * PR / NT; ++q) {
-    const int p = threadIdx.x + q * NT;
-    const int i = p / PR;
-    const int c = p % PR;
-    const int r = r0 + i;
-    int sr = -1;
-    if (r < o.nrows) sr = o.tok != nullptr ? __ldg(o.tok + r) : r;
-    const int col = c0 + c * 8;
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
-    if (sr >= 0) {
-      const unsigned short* src =
-          reinterpret_cast<const unsigned short*>(o.src) + (size_t)sr * o.ld;
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-        if (col + t < o.ld)
-          w[t / 2] |= static_cast<uint32_t>(__ldg(src + col + t))
-                      << (16 * (t % 2));
-    }
-    st_shared16(dst + (c / 8) * (NR * 128) + i * 128 +
-                    (((c % 8) ^ (i % 8)) << 4),
-                w[0], w[1], w[2], w[3]);
-  }
-}
-
-// the wgmma shared-memory descriptor of a 128-byte-swizzled operand
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64 x 128] += A[64 x 16] @ B[16 x 128], A and B in shared memory; TA /
-// TB: the operand is MN-major (wgmma's transpose bit)
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
-                                      uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-// d[64 x 64] += A[64 x 16] @ B[16 x 64]
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da,
-                                      uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 
 // one operand's slice of a stage, WD wide: K-major [WD rows mn0..][BK
 // k0..], or MN-major [BK rows k0..][WD columns mn0..] as WD / 64 chunks
@@ -719,9 +483,9 @@ __device__ __forceinline__ void load_operand(uint32_t dst, const Rows& o,
       }
     }
   } else if (MN) {
-    load_slice<BK, WD>(dst, o, k0, mn0);
+    load_slice<BK, WD, NT>(dst, o, k0, mn0);
   } else {
-    load_slice<WD, BK>(dst, o, mn0, k0);
+    load_slice<WD, BK, NT>(dst, o, mn0, k0);
   }
 }
 
@@ -811,7 +575,7 @@ __device__ __forceinline__ uint32_t init_bars(uint64_t* mem) {
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < S; ++s) bar_init(bars + 8 * s);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bar_init_fence();
   }
   __syncthreads();
   return bars;
@@ -820,28 +584,6 @@ __device__ __forceinline__ uint32_t init_bars(uint64_t* mem) {
 struct Linear {
   __device__ __forceinline__ int operator()(int kt) const { return kt * BK; }
 };
-
-template <int R>
-__device__ __forceinline__ void zero(float (&acc)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] = 0.f;
-}
-
-// the ring, 1024-byte aligned (the swizzle's period)
-__device__ __forceinline__ uint32_t ring_base(uint8_t* raw) {
-  return (smem_u32(raw) + 1023u) & ~1023u;
-}
-
-// the accumulator's element i of this thread: tile row and column
-// (wgmma's m64nNk16 f32 fragment, the warpgroup's rows 64 * wg ..)
-__device__ __forceinline__ int acc_row(int i) {
-  const int t = threadIdx.x;
-  return (t / 128) * 64 + ((t % 128) / 32) * 16 + (t % 32) / 4 +
-         ((i % 4) / 2) * 8;
-}
-__device__ __forceinline__ int acc_col(int i) {
-  return (i / 4) * 8 + (threadIdx.x % 4) * 2 + (i % 2);
-}
 
 // true when any of the tile's BM capacity rows won a slot
 __device__ __forceinline__ bool tile_any(const int* tok, int r0, int C) {
@@ -1121,28 +863,6 @@ cudaError_t allow_smem(K* kernel, int bytes) {
 template <typename K>
 K* pick(bool a, bool b, K* tt, K* tf, K* ft, K* ff) {
   return a ? (b ? tt : tf) : (b ? ft : ff);
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a libcuda entry point, fetched through the
-// runtime so that the library need not link libcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // a TMA map of a bf16 [E, rows, cols] tensor in [box_rows][64] boxes in

@@ -13,8 +13,10 @@ fused expert block's backward: dx/dz/gy/row dots and dw1). The first
 call of ``library`` (or an explicit ``build``) compiles every source
 whose library is missing, one
 ``nvcc`` process per source, all started together. A library's file
-name carries a hash of its source and flags, so an edited source
-rebuilds and an unchanged one is reused. Where the libraries go and
+name carries a hash of its source, the ``csrc/`` headers it includes
+(``sm90.cuh``, the Hopper primitives of ``moe_bwd.cu`` and
+``flash_bwd.cu``) and the flags, so an edited source or header rebuilds
+and an unchanged one is reused. Where the libraries go and
 which ``nvcc`` runs is set in ``compat``.
 
 Every wrapper adds one to its kernel's launch count where it launches
@@ -28,6 +30,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from typing import Dict, Iterable, Optional
@@ -115,10 +118,29 @@ def _nvcc_command(source: str, out: str):
             "-o", out, _csrc(source)] + compat.extra_nvcc_flags()
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _inputs(source: str) -> list:
+    """The source and every ``csrc/`` header it includes with quotes,
+    directly or through another header, in the order first met."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        with open(_csrc(name), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return seen
+
+
 def _library_path(source: str) -> str:
     h = hashlib.sha256()
-    with open(_csrc(source), "rb") as f:
-        h.update(f.read())
+    for name in _inputs(source):
+        h.update(name.encode())
+        with open(_csrc(name), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(compat.extra_nvcc_flags()).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(compat.build_dir(),

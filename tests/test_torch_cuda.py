@@ -475,6 +475,75 @@ def test_flash_backward_kernels_match_plain(dev, dtype, causal, s, window,
         assert all(torch.equal(a, b) for a, b in zip(got, plain))
 
 
+def _backward_case(rs, dev, b, s, h, hkv, d, window=None, offset=0):
+    """bf16 q, k, v, dout ``[B, S, H, D]`` (bshd) and the forward's out and
+    lse; with ``offset`` each input is a view that starts that many
+    elements into a larger buffer."""
+    def make(heads):
+        x = torch.from_numpy(rs.randn(b, s, heads, d).astype(np.float32))
+        buf = torch.zeros(x.numel() + offset, dtype=torch.bfloat16,
+                          device=dev)
+        view = buf[offset:].view(b, s, heads, d)
+        view.copy_(x)
+        return view
+    q, k, v, dout = make(h), make(hkv), make(hkv), make(h)
+    kw = dict(scale=d ** -0.5, causal=True, window=window, layout="bshd")
+    out, lse = flash_forward(q, k, v, **kw)
+    return (q, k, v, out, lse, dout, attention_delta(out, dout)), kw
+
+
+def _assert_backward_matches_plain(args, kw, got):
+    ref = flash_backward_reference(*args, **kw)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(g.float()).all(), name
+        err = (g.float() - r.float()).abs().max().item()
+        scale = r.float().abs().max().item()
+        assert err <= BWD_BF16_REL_TOL * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_is_bitwise_repeatable(dev, d):
+    """No atomics: two launches of each backward kernel on the same bf16
+    inputs give the same bits (causal, GQA 2x2, ragged S)."""
+    args, kw = _backward_case(np.random.RandomState(7), dev, 2, 700, 4, 2,
+                              d)
+    first = flash_backward(*args, **kw)
+    second = flash_backward(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _assert_backward_matches_plain(args, kw, first)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_backward_unaligned_views_take_the_copy_path(dev, window):
+    """q, k, v and dout starting one element into their buffers miss
+    TMA's 16-byte alignment: the kernels copy their tiles element by
+    element and agree with the plain version as the TMA path does."""
+    args, kw = _backward_case(np.random.RandomState(8), dev, 2, 300, 4, 2,
+                              64, window=window, offset=1)
+    assert all(x.data_ptr() % 16 != 0 for x in args[:3])
+    before = kernels.launch_counts()
+    got = flash_backward(*args, **kw)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    _assert_backward_matches_plain(args, kw, got)
+    aligned = tuple(x.clone() if i < 3 or i == 5 else x
+                    for i, x in enumerate(args))
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, flash_backward(*aligned, **kw)))
+
+
+def test_flash_backward_small_grid(dev):
+    """B1 H2 S4096: fewer blocks than SMs, and long walks per block."""
+    args, kw = _backward_case(np.random.RandomState(9), dev, 1, 4096, 2, 2,
+                              64)
+    got = flash_backward(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_backward_matches_plain(args, kw, got)
+
+
 def test_single_trainer_on_card_launches_the_training_kernels(dev):
     """One epoch of a small bf16 LM on the card: every step runs the
     forward and both backward kernels once per layer, and loss falls."""

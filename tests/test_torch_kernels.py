@@ -11,6 +11,9 @@ The CUDA kernels are held against their plain versions on the card by
 ``test_torch_cuda.py``.
 """
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +32,7 @@ from distkeras_tpu.ops.flash_attention import \
 from distkeras_tpu.ops.paged_attention import \
     paged_decode_attention as jax_paged
 
+from distkeras_tpu_torch import compat, kernels
 from distkeras_tpu_torch.models import Model, decoding as pd, zoo
 from distkeras_tpu_torch.ops.attention import dot_product_attention
 from distkeras_tpu_torch.ops.decode_attention import (
@@ -416,3 +420,26 @@ def test_int4_pool_insert_then_load_prefix_roundtrip():
     with pytest.raises(ValueError, match="even"):
         PagedKVPool(model.module, num_slots=1, max_len=10, page_len=5,
                     dtype="int4", device="cpu")
+
+
+def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
+    """A kernel library's file name hashes its source and the csrc/
+    headers it includes: editing ``sm90.cuh`` renames the libraries of
+    ``moe_bwd.cu`` and ``flash_bwd.cu`` (a stale build is never reused)
+    and no other; an unchanged tree keeps every name."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(os.path.join(compat.PACKAGE_DIR, "csrc"), csrc)
+    monkeypatch.setattr(compat, "PACKAGE_DIR", str(tmp_path))
+    monkeypatch.setenv("DKT_KERNEL_BUILD_DIR", str(tmp_path / "build"))
+    sources = sorted(set(kernels.SOURCES.values()))
+    for src in ("moe_bwd.cu", "flash_bwd.cu"):
+        assert kernels._inputs(src) == [src, "sm90.cuh"]
+    assert kernels._inputs("flash_fwd.cu") == ["flash_fwd.cu"]
+    before = {src: kernels._library_path(src) for src in sources}
+    assert {src: kernels._library_path(src) for src in sources} == before
+    header = csrc / "sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {src: kernels._library_path(src) for src in sources}
+    assert {src for src in sources if after[src] != before[src]} == {
+        "flash_bwd.cu", "moe_bwd.cu"}
+    assert {src: kernels._library_path(src) for src in sources} == after
