@@ -8,8 +8,10 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the hand-written kernels from ``distkeras_tpu_torch/csrc``;
 3. the flash-attention forward kernel against its plain PyTorch
-   version at the serving path's shapes and the training shape (causal
-   B4 H16 S2048 D64) in bf16, with times and SDPA as yardstick;
+   version at the serving path's shapes and the training shapes (causal
+   B4 H16 S2048 D64; B2 H8 S2048 D128) in bf16: a bitwise repeat, device
+   times (CUDA-graph replays), TFLOP/s and the bound's share, with SDPA
+   as yardstick;
 4. the paged decode kernel against its plain version, with times;
 5. the serving path end to end: the 218M transformer LM (d_model 1024,
    16 heads, 12 layers, vocab 32768, bf16, random weights from a seed)
@@ -177,6 +179,7 @@ numbers (seventeen kernels); the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import subprocess
 import sys
@@ -322,7 +325,8 @@ def flash_cases(dev):
     """The serving path's shapes: a 1024-position causal prompt, a ragged one,
     a sliding window, and the chunked-prefill prefix pass (GQA folded
     into the rows: [B*Hkv, 1, G*256, 64] queries on a 1024-key prefix);
-    then the training path's (B4 S2048)."""
+    then the training path's (B4 S2048), and the training length at
+    head_dim 128 (B2 H8)."""
     g = torch.Generator(device="cpu").manual_seed(SEED)
 
     def rnd(*shape):
@@ -349,6 +353,10 @@ def flash_cases(dev):
          dict(q=rnd(4, 2048, h, d), k=rnd(4, 2048, h, d),
               v=rnd(4, 2048, h, d), causal=True, window=None,
               layout="bshd")),
+        ("causal B2 H8 S=2048 D128 (training)",
+         dict(q=rnd(2, 2048, 8, 128), k=rnd(2, 2048, 8, 128),
+              v=rnd(2, 2048, 8, 128), causal=True, window=None,
+              layout="bshd")),
     ]
 
 
@@ -368,20 +376,26 @@ def _sdpa(c):
 
 
 def flash_phase(dev):
+    """Each case of ``flash_cases``: the kernel against its plain version,
+    a bitwise repeat, kernel and SDPA device times (CUDA-graph replays:
+    the small serving shapes take less device time than a call's host
+    work), achieved TFLOP/s and the bound's share."""
     rows = []
     for name, c in flash_cases(dev):
         kw = dict(scale=c["q"].shape[-1] ** -0.5, causal=c["causal"],
                   window=c["window"], layout=c["layout"])
         qkv = (c["q"], c["k"], c["v"])
         out, lse = flash_forward(*qkv, **kw)
+        again, lse_again = flash_forward(*qkv, **kw)
         torch.cuda.synchronize()
+        repeat = torch.equal(out, again) and torch.equal(lse, lse_again)
         ref, ref_lse = flash_forward_reference(*qkv, **kw)
         err = (out.float() - ref.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
-        ms = time_ms(lambda: flash_forward(*qkv, **kw))
+        ms = graph_ms(lambda: flash_forward(*qkv, **kw))
         plain_ms = time_ms(lambda: flash_forward_reference(*qkv, **kw),
                            iters=5)
-        lib_ms = time_ms(lambda: _sdpa(c))
+        lib_ms = graph_ms(lambda: _sdpa(c))
         heads_major = [x if c["layout"] == "bhsd" else x.transpose(1, 2)
                        for x in qkv]
         b, h, sq, d = heads_major[0].shape
@@ -391,14 +405,17 @@ def flash_phase(dev):
         nbytes = 2 * (2 * c["q"].numel() + c["k"].numel()
                       + c["v"].numel()) + 4 * lse.numel()
         bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
-        ok = err <= KERNEL_BF16_TOL and lse_err <= LSE_TOL
+        ok = err <= KERNEL_BF16_TOL and lse_err <= LSE_TOL and repeat
         print(f"flash_fwd {name}: max_abs_err {err:.3e} (tol "
               f"{KERNEL_BF16_TOL}), lse err {lse_err:.3e} (tol {LSE_TOL}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+              f"kernel {ms:.4f} ms ({flops / (ms * 1e9):.1f} TFLOP/s, "
+              f"{bms / ms:.1%} of the bound {bms:.4f} ms, {by}), plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; bitwise repeat "
+              f"{repeat}", flush=True)
         if not ok:
             raise AssertionError(f"flash_fwd disagrees with its plain "
-                                 f"version on {name}")
+                                 f"version on {name}, or with itself "
+                                 f"(bitwise repeat {repeat})")
         rows.append(dict(name=name, err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bms, bound_by=by))
     return rows
@@ -945,7 +962,12 @@ def profile_training(model, card, label="training",
     carry = TrainCarry(model.params, opt.init(model.params))
     carry, _ = step(carry, (xb, yb))
     torch.cuda.synchronize()
+    # earlier phases' models and engines sit in reference cycles until the
+    # cycle collector runs: without this the base (and the peak) read
+    # 0-4.4 GiB more, by when it last ran
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30
     n = 3
     t0 = time.perf_counter()
     for _ in range(n):
@@ -970,8 +992,8 @@ def profile_training(model, card, label="training",
                 f"({100 * busy_ms / step_ms:.0f}% of a step's wall time)")
     print(f"{label} on {card}: {step_ms:.1f} ms/step (B{TRAIN_BATCH} "
           f"S{TRAIN_SEQ}, adam, profiler off), {tokens / step_ms * 1e3:.0f} "
-          f"tokens/s, peak device memory {peak_gb:.2f} GiB; {busy}",
-          flush=True)
+          f"tokens/s, peak device memory {peak_gb:.2f} GiB ({base_gb:.2f} "
+          f"GiB allocated before the steps); {busy}", flush=True)
     for e in ops[:12]:
         print(f"{prefix}:   {e.self_device_time_total / 1e3:8.3f} ms  "
               f"x{e.count:<5d} {e.key[:72]}", flush=True)
@@ -1152,9 +1174,9 @@ def segment_phase(dev):
                        zip((out, lse) + got, plain))
             bitwise = f"; bitwise equal to no ids: {same}"
             ok = ok and same
-        ms = {"fwd": time_ms(lambda: flash_forward(q, k, v, segment_ids=seg,
-                                                   **kw)),
-              "fwd0": time_ms(lambda: flash_forward(q, k, v, **kw)),
+        ms = {"fwd": graph_ms(lambda: flash_forward(q, k, v,
+                                                    segment_ids=seg, **kw)),
+              "fwd0": graph_ms(lambda: flash_forward(q, k, v, **kw)),
               "dq": time_ms(lambda: launch_dq(*args, segment_ids=seg),
                             iters=10),
               "dq0": time_ms(lambda: launch_dq(*args), iters=10),
@@ -3407,6 +3429,7 @@ def main() -> int:
     packed_gradients_phase(dev)
     gradients_vs_cpu(dev)
     del trainer
+    gc.collect()
 
     decode_rows = decode_phase(dev)
     # phase 7 trained `model` in place: generate() and the quantized
@@ -3462,6 +3485,7 @@ def main() -> int:
     wq_launches = wq_phase(gen_model, card, serve_summary)
     gen_wq_launches = generate_wq_phase(gen_model, card, gen_prompts)
     del gen_model, model
+    gc.collect()
 
     k6a_rows = k6a_phase(dev)
     moe_model = build_moe_lm(dev)
@@ -3471,6 +3495,7 @@ def main() -> int:
     moe_launches = moe_serve_phase(moe_model, card)
     moe_prefill_launches = moe_prefill_phase(moe_model, card)
     del moe_model
+    gc.collect()
 
     k6bc_rows = k6bc_phase(dev)
     moe_train_launches = moe_training_phase(dev, card)

@@ -104,9 +104,7 @@ namespace {
 
 constexpr float kNegInf = -0.7f * 3.4028234663852886e38f;
 
-struct Strides {
-  long long b, s, h;  // element strides; head_dim is contiguous
-};
+using sm90::Strides;
 
 __device__ __forceinline__ bool admitted(int qp, int kp, int Sk, int causal,
                                          int window, bool same_segment) {
@@ -498,76 +496,6 @@ struct Params {
   int hfirst;  // bit i (0 q, 1 k, 2 v, 3 dout): map i's second dim is heads
 };
 
-// the producer warp: rows [r0, r0 + R) of head h of batch b into D / 64
-// chunks of [R][64] at dst, by TMA (lane 0, completing on bar) or by the
-// warp's own loads
-template <int R, int D, bool TMA>
-__device__ __forceinline__ void load_rows(uint32_t dst,
-                                          const CUtensorMap* map,
-                                          bool hfirst, const bf16* base,
-                                          Strides st, int S, int b, int h,
-                                          int r0, uint32_t bar, int lane) {
-  if (TMA) {
-    if (lane == 0) {
-#pragma unroll
-      for (int c = 0; c < D / 64; ++c)
-        tma_load4(dst + c * (R * 128), map, bar, 64 * c, hfirst ? h : r0,
-                  hfirst ? r0 : h, b);
-    }
-  } else {
-    load_slice<R, D, 32>(dst, strided_rows(base + b * st.b + h * st.h, D,
-                                           st.s, S),
-                         r0, 0, lane);
-  }
-}
-
-// the producer warp's stage: what its lanes stored before this is
-// ordered before the arrival; with TMA, lane 0 announces the bytes the
-// copies issued next will complete
-template <bool TMA>
-__device__ __forceinline__ void begin_stage(uint32_t bar, uint32_t bytes,
-                                            int lane) {
-  if (TMA) {
-    __syncwarp();
-    if (lane == 0) bar_expect(bar, bytes);
-  }
-}
-
-// without TMA the warp's stores are made visible to wgmma and announced
-// by lane 0's arrival
-template <bool TMA>
-__device__ __forceinline__ void end_stage(uint32_t bar, int lane) {
-  if (!TMA) {
-    fence_proxy_async();
-    __syncwarp();
-    if (lane == 0) bar_arrive(bar);
-  }
-}
-
-// the block's barriers: full[s] (the producer's copies), empty[s] (one
-// arrival from each consumer warp), once (the tiles loaded once)
-template <int WGS>
-__device__ __forceinline__ uint32_t init_bars(uint64_t* mem) {
-  const uint32_t bars = smem_u32(mem);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
-      bar_init(bars + 8 * s, 1);
-      bar_init(bars + 8 * (STAGES + s), 4 * WGS);
-    }
-    bar_init(bars + 16 * STAGES, 1);
-    bar_init_fence();
-  }
-  __syncthreads();
-  return bars;
-}
-
-// the consumer warp is done with stage s
-__device__ __forceinline__ void release(uint32_t empty, int lane) {
-  __syncwarp();
-  if (lane == 0) bar_arrive(empty);
-}
-
 // dq: S (in sc) -> P = exp(S * scale - lse) (in sc) for this thread's two
 // query rows (j = 0: the accumulator's row, 1: eight rows down) and the
 // stage's keys k0.., as 2^(S * scale*log2(e) - lse*log2(e)) (nl2 = -lse *
@@ -640,7 +568,7 @@ __global__ void __launch_bounds__(threads(DQ_WGS), 1)
   const uint32_t Qs = base, Gs = base + TQ, ring = base + 2 * TQ;
   int* kseg_s = reinterpret_cast<int*>(smem + (base - smem_u32(smem)) +
                                        2 * TQ + STAGES * 2 * TK);
-  const uint32_t full = init_bars<DQ_WGS>(bar_mem);
+  const uint32_t full = init_bars<STAGES, DQ_WGS>(bar_mem);
   const uint32_t empty = full + 8 * STAGES, once = full + 16 * STAGES;
 
   const int bh = blockIdx.y;
@@ -792,7 +720,7 @@ __global__ void __launch_bounds__(threads(dkv_wgs<D, TMA, SEG>()), 1)
   float* rows = reinterpret_cast<float*>(smem + (base - smem_u32(smem)) +
                                          2 * TK + STAGES * 2 * TQ);
   int* qseg_s = reinterpret_cast<int*>(rows + STAGES * 2 * BQ);
-  const uint32_t full = init_bars<WGS>(bar_mem);
+  const uint32_t full = init_bars<STAGES, WGS>(bar_mem);
   const uint32_t empty = full + 8 * STAGES, once = full + 16 * STAGES;
 
   const int Hkv = p.H / p.G;
@@ -938,44 +866,6 @@ __global__ void __launch_bounds__(threads(dkv_wgs<D, TMA, SEG>()), 1)
       *reinterpret_cast<uint32_t*>(vout + c) = pack_bf16(dv[i], dv[i + 1]);
     }
   }
-}
-
-// TMA takes an operand whose base is 16-byte aligned and whose strides
-// are multiples of 16 bytes (a dim of extent 1 is never stepped)
-bool tma_ok(const void* base, Strides st, int S, int H, int B) {
-  const auto ok = [](long long stride, int n) {
-    return n == 1 || stride % 8 == 0;
-  };
-  return reinterpret_cast<uintptr_t>(base) % 16 == 0 && ok(st.s, S) &&
-         ok(st.h, H) && ok(st.b, B);
-}
-
-// the 4-d map (head_dim, positions, heads, batch) of one bf16 operand in
-// boxes of [rows][64], in the 128-byte swizzle, with positions and heads
-// in the order of their strides (*hfirst: heads first, as in bhsd's
-// [B, H, S, D] read as (D, S, H, B) it is not)
-cudaError_t flash_map(CUtensorMap* map, bool* hfirst, const void* base,
-                      int D, int S, int H, int B, Strides st, int rows) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const long long ss = S > 1 ? st.s : D, hs = H > 1 ? st.h : D,
-                  bs = B > 1 ? st.b : D;
-  *hfirst = hs < ss;
-  const cuuint64_t dims[4] = {(cuuint64_t)D,
-                              (cuuint64_t)(*hfirst ? H : S),
-                              (cuuint64_t)(*hfirst ? S : H), (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)(2 * (*hfirst ? hs : ss)),
-                                 (cuuint64_t)(2 * (*hfirst ? ss : hs)),
-                                 (cuuint64_t)(2 * bs)};
-  const cuuint32_t box[4] = {64, (cuuint32_t)(*hfirst ? 1 : rows),
-                             (cuuint32_t)(*hfirst ? rows : 1), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 Params params(const Args& a) {

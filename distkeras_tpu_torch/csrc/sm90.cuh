@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// moe_bwd.cu (K6b, K6c) and flash_bwd.cu (K1dq, K1dkv): mbarriers, TMA
-// loads and the tensor-map encoder, cp.async, the 128-byte-swizzle slice
-// loader, the wgmma wrappers (A from shared memory or from registers)
-// and their descriptors, the fences, and the accumulator fragment's
-// coordinates. Every layout here is the one wgmma's 128-byte-swizzle
-// descriptors read: 64 bf16 columns (128 bytes) a row, the 16-byte piece
-// c of row i at ((c ^ (i % 8)) * 16), tiles 1024-byte aligned.
+// moe_bwd.cu (K6b, K6c), flash_bwd.cu (K1dq, K1dkv) and flash_fwd.cu
+// (K1f): mbarriers, TMA loads and the tensor-map encoder, cp.async, the
+// 128-byte-swizzle slice loader, the wgmma wrappers (A from shared
+// memory or from registers) and their descriptors, the fences, the
+// accumulator fragment's coordinates, and the flash kernels' producer
+// warp and tensor maps. Every layout here is the one wgmma's
+// 128-byte-swizzle descriptors read: 64 bf16 columns (128 bytes) a row,
+// the 16-byte piece c of row i at ((c ^ (i % 8)) * 16), tiles 1024-byte
+// aligned.
 
 #pragma once
 
@@ -439,6 +441,125 @@ inline EncodeTiled encoder() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// --- the flash kernels' producer warp and copies -------------------------
+// (flash_fwd.cu, flash_bwd.cu). A block holds consumer warpgroups and one producer warp; the producer
+// fills a ring of shared-memory stages from [B, S, H, D] or [B, H, S, D]
+// operands, by TMA or, where TMA cannot take an operand, element by element.
+
+struct Strides {
+  long long b, s, h;  // element strides; head_dim is contiguous
+};
+
+// the producer warp: rows [r0, r0 + R) of head h of batch b into D / 64
+// chunks of [R][64] at dst, by TMA (lane 0, completing on bar) or by the
+// warp's own loads
+template <int R, int D, bool TMA>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const CUtensorMap* map,
+                                          bool hfirst, const bf16* base,
+                                          Strides st, int S, int b, int h,
+                                          int r0, uint32_t bar, int lane) {
+  if (TMA) {
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load4(dst + c * (R * 128), map, bar, 64 * c, hfirst ? h : r0,
+                  hfirst ? r0 : h, b);
+    }
+  } else {
+    load_slice<R, D, 32>(dst, strided_rows(base + b * st.b + h * st.h, D,
+                                           st.s, S),
+                         r0, 0, lane);
+  }
+}
+
+// the producer warp's stage: what its lanes stored before this is
+// ordered before the arrival; with TMA, lane 0 announces the bytes the
+// copies issued next will complete
+template <bool TMA>
+__device__ __forceinline__ void begin_stage(uint32_t bar, uint32_t bytes,
+                                            int lane) {
+  if (TMA) {
+    __syncwarp();
+    if (lane == 0) bar_expect(bar, bytes);
+  }
+}
+
+// without TMA the warp's stores are made visible to wgmma and announced
+// by lane 0's arrival
+template <bool TMA>
+__device__ __forceinline__ void end_stage(uint32_t bar, int lane) {
+  if (!TMA) {
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) bar_arrive(bar);
+  }
+}
+
+// the block's barriers: full[s] (the producer's copies), empty[s] (one
+// arrival from each consumer warp of the WGS warpgroups), once (the tiles
+// loaded once)
+template <int STAGES, int WGS>
+__device__ __forceinline__ uint32_t init_bars(uint64_t* mem) {
+  const uint32_t bars = smem_u32(mem);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(bars + 8 * s, 1);
+      bar_init(bars + 8 * (STAGES + s), 4 * WGS);
+    }
+    bar_init(bars + 16 * STAGES, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+  return bars;
+}
+
+// the consumer warp is done with stage s
+__device__ __forceinline__ void release(uint32_t empty, int lane) {
+  __syncwarp();
+  if (lane == 0) bar_arrive(empty);
+}
+
+// TMA takes an operand whose base is 16-byte aligned and whose strides
+// are multiples of 16 bytes (a dim of extent 1 is never stepped)
+inline bool tma_ok(const void* base, Strides st, int S, int H, int B) {
+  const auto ok = [](long long stride, int n) {
+    return n == 1 || stride % 8 == 0;
+  };
+  return reinterpret_cast<uintptr_t>(base) % 16 == 0 && ok(st.s, S) &&
+         ok(st.h, H) && ok(st.b, B);
+}
+
+// the 4-d map (head_dim, positions, heads, batch) of one bf16 operand in
+// boxes of [rows][64], in the 128-byte swizzle, with positions and heads
+// in the order of their strides (*hfirst: heads first, as in bhsd's
+// [B, H, S, D] read as (D, S, H, B) it is not)
+inline cudaError_t flash_map(CUtensorMap* map, bool* hfirst,
+                             const void* base, int D, int S, int H, int B,
+                             Strides st, int rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const long long ss = S > 1 ? st.s : D, hs = H > 1 ? st.h : D,
+                  bs = B > 1 ? st.b : D;
+  *hfirst = hs < ss;
+  const cuuint64_t dims[4] = {(cuuint64_t)D,
+                              (cuuint64_t)(*hfirst ? H : S),
+                              (cuuint64_t)(*hfirst ? S : H), (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(2 * (*hfirst ? hs : ss)),
+                                 (cuuint64_t)(2 * (*hfirst ? ss : hs)),
+                                 (cuuint64_t)(2 * bs)};
+  const cuuint32_t box[4] = {64, (cuuint32_t)(*hfirst ? 1 : rows),
+                             (cuuint32_t)(*hfirst ? rows : 1), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace sm90

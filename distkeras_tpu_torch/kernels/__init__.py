@@ -14,8 +14,8 @@ call of ``library`` (or an explicit ``build``) compiles every source
 whose library is missing, one
 ``nvcc`` process per source, all started together. A library's file
 name carries a hash of its source, the ``csrc/`` headers it includes
-(``sm90.cuh``, the Hopper primitives of ``moe_bwd.cu`` and
-``flash_bwd.cu``) and the flags, so an edited source or header rebuilds
+(``sm90.cuh``, the Hopper primitives of ``moe_bwd.cu``, ``flash_bwd.cu``
+and ``flash_fwd.cu``) and the flags, so an edited source or header rebuilds
 and an unchanged one is reused. Where the libraries go and
 which ``nvcc`` runs is set in ``compat``.
 

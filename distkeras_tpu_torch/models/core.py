@@ -159,13 +159,18 @@ class Model:
         self.device = device
 
     @classmethod
-    def build(cls, module: Layer, input_shape: Tuple[int, ...], *,
-              seed: int = 0, device=None) -> "Model":
+    def build(cls, module: Layer, input_shape: Tuple[int, ...],
+              rng=None, *, seed: int = 0, device=None) -> "Model":
         """Create the parameters from ``seed`` and place them on
         ``device`` (default: the CUDA card; raises when there is none
         unless ``device="cpu"``). Weights are drawn on the CPU from one
         ``torch.Generator``, so a seed gives the same weights on every
-        device."""
+        device. A JAX PRNG key (``rng``) needs the ported threefry:
+        it raises naming its ROADMAP item."""
+        if rng is not None:
+            raise NotImplementedError(
+                "Model.build(rng=) is not ported yet: ROADMAP, Queue 1 "
+                "item 5 (PRNG and sampled paths); pass seed=")
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(int(seed))
         out_shape = module.build(tuple(input_shape), gen)

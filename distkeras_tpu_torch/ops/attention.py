@@ -61,7 +61,7 @@ def apply_rope(x: torch.Tensor, positions=None, base: float = 10000.0,
 
 
 def dot_product_attention(q, k, v, *, causal: bool = False,
-                          scale: Optional[float] = None,
+                          mask=None, scale: Optional[float] = None,
                           window: Optional[int] = None,
                           segment_ids=None) -> torch.Tensor:
     """Plain attention, BSHD in and out: scores in float32, the finite
@@ -71,6 +71,9 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
     attention to positions with EQUAL ids, ANDed with the causal and
     window masks; give padding its own id (e.g. -1) and mask it in the
     loss (``losses.masked_sparse_categorical_crossentropy_from_logits``).
+    ``mask``: a boolean tensor broadcastable to the ``[B, H, Sq, Sk]``
+    scores, True where attention is allowed, ANDed with the others
+    (JAX :79).
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -88,6 +91,9 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
         seg = torch.as_tensor(segment_ids, device=q.device)
         same = seg[:, :, None] == seg[:, None, :]
         s = torch.where(same[:, None], s, torch.full_like(s, NEG_INF))
+    if mask is not None:
+        allowed = torch.as_tensor(mask, device=q.device).to(torch.bool)
+        s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)

@@ -40,13 +40,14 @@ in float32 and the Pallas kernels' rounding points (``dS`` cast to k's
 dtype before ``dS.K`` and to q's before ``dS^T.Q``, ``P`` to dO's before
 ``P^T.dO``).
 
-The backward kernels in bf16 at head_dim 64 and 128 run their products
-on Hopper's tensor cores (``wgmma``, operands brought by TMA into a ring
-of shared-memory stages, the dS and P tiles fed from registers) and
-take the exp as ``exp2`` of a prescaled argument (a few float32 ulps
-from ``torch.exp``, far below the bf16 rounding of P); float32, and bf16
-at head_dim 32, keep CUDA-core kernels. Neither adds atomically: the
-same inputs give the same bits (``csrc/flash_bwd.cu`` has the design).
+The forward and backward kernels in bf16 at head_dim 64 and 128 run
+their products on Hopper's tensor cores (``wgmma``, operands brought by
+TMA into a ring of shared-memory stages, the P and dS tiles fed from
+registers) and take the exp as ``exp2`` of a prescaled argument (a few
+float32 ulps from ``torch.exp``, far below the bf16 rounding of P);
+float32, and bf16 at head_dim 32, keep CUDA-core kernels. None adds
+atomically: the same inputs give the same bits (``csrc/flash_fwd.cu``
+and ``csrc/flash_bwd.cu`` have the designs).
 """
 
 from __future__ import annotations

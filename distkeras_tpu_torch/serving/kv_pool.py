@@ -13,8 +13,9 @@ page_len/2, Dh]`` (``pack_int4``'s half-split, even ``page_len``) while
 its staging cache stays unpacked. ``PrefixCache`` hash-conses full prompt
 pages under a chained token key (``match`` :726, ``register`` :794,
 ``evict_one`` :860, ``reclaim`` :949), serving a partial page match
-copy-on-write. The host offload tier (``host_pages``) is not ported
-yet (ROADMAP, modules still to port).
+copy-on-write. The host offload tier (``host_pages``) and the byte
+budget (``hbm_budget``, ``reserve_bytes``) are not ported yet: they
+raise naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ import torch
 
 from distkeras_tpu_torch.models.decoding import (cache_kind, init_cache,
                                                  pack_int4, unpack_int4)
+
+_ENGINE_API = "Queue 1 item 4 (the engine's remaining synchronous API)"
+_HOST_OFFLOAD = "Queue 1 item 8 (host KV offload)"
 
 #: the tensors of a cache dict, payload first (``"q4"`` is a marker)
 _PLANES = ("k", "v", "k_scale", "v_scale")
@@ -41,7 +45,17 @@ class PagedKVPool:
 
     def __init__(self, module, num_slots: int, max_len: int, *,
                  page_len: int = 16, num_pages: Optional[int] = None,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, host_pages: int = 0,
+                 hbm_budget: Optional[int] = None, reserve_bytes: int = 0):
+        # the JAX pool's options of later slices: their "off" values pass
+        for name, value, off, item in (
+                ("host_pages", host_pages, 0, _HOST_OFFLOAD),
+                ("hbm_budget", hbm_budget, None, _ENGINE_API),
+                ("reserve_bytes", reserve_bytes, 0, _ENGINE_API)):
+            if value != off:
+                raise NotImplementedError(
+                    f"PagedKVPool({name}={value!r}) is not ported yet: "
+                    f"ROADMAP, {item}")
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if max_len < 1:

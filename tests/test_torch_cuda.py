@@ -91,6 +91,12 @@ def _segment_ids(rs, kind, b, s, dev):
     (True, 257, 257, 64, 2, 64, "bshd", "contiguous"),     # window + GQA
     (True, 130, 130, None, 1, 128, "bhsd", "unsorted"),    # GQA 4x1
     (True, 300, 300, 40, 4, 32, "bshd", "equal"),
+    (True, 1000, 1000, 100, 2, 128, "bshd", None),          # window, D128
+    (True, 1000, 1000, None, 4, 128, "bshd", "late"),       # ids, D128
+    (True, 513, 513, 200, 1, 128, "bhsd", "contiguous"),    # window + ids
+    (False, 96, 1000, None, 4, 128, "bshd", None),          # Sq != Sk, D128
+    (True, 300, 300, 40, 4, 64, "bshd", "equal"),
+    (True, 300, 300, None, 2, 128, "bhsd", "equal"),
 ])
 def test_flash_kernel_matches_plain(dev, dtype, causal, sq, sk, window,
                                     hkv, d, layout, seg):
@@ -111,6 +117,70 @@ def test_flash_kernel_matches_plain(dev, dtype, causal, sq, sk, window,
     if seg == "equal":
         o0, lse0 = flash_forward(q, k, v, **kw)
         assert torch.equal(o, o0) and torch.equal(lse, lse0)
+
+
+def _forward_case(rs, b, s, h, hkv, d, offset=0):
+    """bf16 q, k, v ``[B, S, H, D]`` (bshd); with ``offset`` each is a view
+    that starts that many elements into a larger buffer."""
+    def make(heads):
+        x = torch.from_numpy(rs.randn(b, s, heads, d).astype(np.float32))
+        buf = torch.zeros(x.numel() + offset, dtype=torch.bfloat16,
+                          device="cuda")
+        view = buf[offset:].view(b, s, heads, d)
+        view.copy_(x)
+        return view
+    return make(h), make(hkv), make(hkv)
+
+
+def _assert_forward_matches_plain(q, k, v, kw, o, lse):
+    ro, rl = flash_forward_reference(q, k, v, **kw)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(o.float(), ro.float(), atol=BF16_TOL, rtol=0)
+    torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_forward_is_bitwise_repeatable(dev, d):
+    """No atomics: two launches on the same bf16 inputs give the same bits
+    (causal, GQA 4x4, ragged S); the grid's first batch row alone (a grid
+    under the card's SM count: blocks of one warpgroup) gives the bits the
+    whole batch gives (blocks of two)."""
+    q, k, v = _forward_case(np.random.RandomState(13), 4, 700, 16, 4, d)
+    kw = dict(scale=d ** -0.5, causal=True, window=None, layout="bshd")
+    o, lse = flash_forward(q, k, v, **kw)
+    o2, lse2 = flash_forward(q, k, v, **kw)
+    o1, lse1 = flash_forward(q[:1], k[:1], v[:1], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(o[:1], o1) and torch.equal(lse[:1], lse1)
+    _assert_forward_matches_plain(q, k, v, kw, o, lse)
+
+
+@pytest.mark.parametrize("d,window", [(64, None), (64, 100), (128, None)])
+def test_flash_forward_unaligned_views_take_the_copy_path(dev, d, window):
+    """q, k and v starting one element into their buffers miss TMA's
+    16-byte alignment: the producer copies their tiles element by element,
+    with the bits of the TMA path on aligned copies."""
+    q, k, v = _forward_case(np.random.RandomState(14), 4, 300, 16, 4, d,
+                            offset=1)
+    assert all(x.data_ptr() % 16 != 0 for x in (q, k, v))
+    kw = dict(scale=d ** -0.5, causal=True, window=window, layout="bshd")
+    before = kernels.launch_counts()["flash_fwd"]
+    o, lse = flash_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_fwd"] == before + 1
+    _assert_forward_matches_plain(q, k, v, kw, o, lse)
+    ao, alse = flash_forward(q.clone(), k.clone(), v.clone(), **kw)
+    assert torch.equal(o, ao) and torch.equal(lse, alse)
+
+
+def test_flash_forward_small_grid(dev):
+    """B1 H2 S4096: fewer blocks than SMs, and long walks per block."""
+    q, k, v = _forward_case(np.random.RandomState(15), 1, 4096, 2, 2, 64)
+    kw = dict(scale=0.125, causal=True, window=None, layout="bshd")
+    o, lse = flash_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_forward_matches_plain(q, k, v, kw, o, lse)
 
 
 N_PAGES = 12
@@ -443,12 +513,17 @@ BWD_BF16_REL_TOL = 2e-2
     (True, 257, 64, 4, 64, "bshd", "contiguous"),  # window
     (True, 200, None, 1, 64, "bshd", "unsorted"),  # GQA 4x1
     (True, 130, 9, 2, 128, "bhsd", "equal"),
+    (False, (96, 300), None, 4, 64, "bshd", None),   # Sq != Sk
+    (False, (200, 70), None, 1, 64, "bhsd", None),   # Sq > Sk, GQA 4x1
 ])
 def test_flash_backward_kernels_match_plain(dev, dtype, causal, s, window,
                                             hkv, d, layout, seg):
+    """``s``: the length of both sides, or (Sq, Sk) of a non-causal
+    call."""
     rs = np.random.RandomState(3)
-    q, k, v = _qkv(rs, 2, s, s, 4, hkv, d, dtype, dev, layout)
-    ids = _segment_ids(rs, seg, 2, s, dev)
+    sq, sk = s if isinstance(s, tuple) else (s, s)
+    q, k, v = _qkv(rs, 2, sq, sk, 4, hkv, d, dtype, dev, layout)
+    ids = _segment_ids(rs, seg, 2, sq, dev)
     kw = dict(scale=d ** -0.5, causal=causal, window=window, layout=layout,
               segment_ids=ids)
     out, lse = flash_forward(q, k, v, **kw)

@@ -92,25 +92,56 @@ def test_plain_attention_matches_jax(causal, window):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=F32_TOL)
 
 
-@pytest.mark.parametrize("causal,window,hkv", [
-    (True, None, 3),             # causal MHA
-    (False, None, 3),            # non-causal
-    (True, 9, 3),                # sliding window
-    (True, None, 1),             # GQA: 3 query heads share one kv head
-    (True, 5, 1),                # GQA + window
-])
+@pytest.mark.parametrize("causal,window", [(False, None), (True, None),
+                                           (True, 5)])
+@pytest.mark.parametrize("shape", ["qk", "bhqk"])
+def test_plain_attention_mask_matches_jax(causal, window, shape):
+    """A boolean ``mask`` (True: allowed), ANDed with causal/window, as
+    JAX's ``dot_product_attention(mask=)`` does, broadcast from
+    ``[Sq, Sk]`` or given whole as ``[B, H, Sq, Sk]``; rows with every
+    key masked included."""
+    rs = np.random.RandomState(11)
+    q, k, v = _qkv(rs, 2, 17, 17, 3, 8)
+    full = (2, 3, 17, 17) if shape == "bhqk" else (17, 17)
+    mask = rs.rand(*full) < 0.6
+    mask[..., 4, :] = False
+    ref = jax_dpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=causal, window=window, mask=jnp.asarray(mask))
+    got = dot_product_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal=causal,
+                                window=window, mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=F32_TOL)
+
+
+#: (causal, window, kv heads, Sq); the keys are S = 44 long
+BACKWARD_CASES = [
+    (True, None, 3, 44),         # causal MHA
+    (False, None, 3, 44),        # non-causal
+    (True, 9, 3, 44),            # sliding window
+    (True, None, 1, 44),         # GQA: 3 query heads share one kv head
+    (True, 5, 1, 44),            # GQA + window
+    (False, None, 3, 20),        # non-causal, Sq != Sk
+    (False, None, 1, 20),        # non-causal, Sq != Sk, GQA 3x1
+]
+
+
+@pytest.mark.parametrize(
+    "causal,window,hkv,sq", BACKWARD_CASES,
+    ids=[f"{c}-{w}-{h}" + ("" if sq == 44 else f"-sq{sq}")
+         for c, w, h, sq in BACKWARD_CASES])
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
-def test_flash_backward_matches_pallas(causal, window, hkv, layout):
+def test_flash_backward_matches_pallas(causal, window, hkv, sq, layout):
     """dq, dk, dv of the port's differentiable ``flash_attention`` (the
     plain backward on the CPU) against ``jax.grad`` through the Pallas
     backward kernels in interpret mode, at S=44 (not a multiple of the
-    16-row blocks). JAX expands grouped K/V with ``jnp.repeat`` before the
-    kernel, so its dk/dv are the group sums the port computes natively.
-    Tolerance: the JAX suite's own 2e-5 (float32 reassociation)."""
+    16-row blocks), and non-causal with Sq=20 queries. JAX expands grouped
+    K/V with ``jnp.repeat`` before the kernel, so its dk/dv are the group
+    sums the port computes natively. Tolerance: the JAX suite's own 2e-5
+    (float32 reassociation)."""
     rs = np.random.RandomState(6)
     b, s, h, d = 2, 44, 3, 8
-    q, k, v = _qkv(rs, b, s, s, h, d, hkv=hkv)
-    co = rs.randn(b, s, h, d).astype(np.float32)
+    q, k, v = _qkv(rs, b, sq, s, h, d, hkv=hkv)
+    co = rs.randn(b, sq, h, d).astype(np.float32)
     if layout == "bhsd":
         q, k, v, co = (x.transpose(0, 2, 1, 3).copy() for x in (q, k, v, co))
     head_axis = 2 if layout == "bshd" else 1
@@ -425,21 +456,21 @@ def test_int4_pool_insert_then_load_prefix_roundtrip():
 def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
     """A kernel library's file name hashes its source and the csrc/
     headers it includes: editing ``sm90.cuh`` renames the libraries of
-    ``moe_bwd.cu`` and ``flash_bwd.cu`` (a stale build is never reused)
-    and no other; an unchanged tree keeps every name."""
+    ``moe_bwd.cu``, ``flash_bwd.cu`` and ``flash_fwd.cu`` (a stale build is
+    never reused) and no other; an unchanged tree keeps every name."""
     csrc = tmp_path / "csrc"
     shutil.copytree(os.path.join(compat.PACKAGE_DIR, "csrc"), csrc)
     monkeypatch.setattr(compat, "PACKAGE_DIR", str(tmp_path))
     monkeypatch.setenv("DKT_KERNEL_BUILD_DIR", str(tmp_path / "build"))
     sources = sorted(set(kernels.SOURCES.values()))
-    for src in ("moe_bwd.cu", "flash_bwd.cu"):
+    for src in ("moe_bwd.cu", "flash_bwd.cu", "flash_fwd.cu"):
         assert kernels._inputs(src) == [src, "sm90.cuh"]
-    assert kernels._inputs("flash_fwd.cu") == ["flash_fwd.cu"]
+    assert kernels._inputs("paged_decode.cu") == ["paged_decode.cu"]
     before = {src: kernels._library_path(src) for src in sources}
     assert {src: kernels._library_path(src) for src in sources} == before
     header = csrc / "sm90.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {src: kernels._library_path(src) for src in sources}
     assert {src for src in sources if after[src] != before[src]} == {
-        "flash_bwd.cu", "moe_bwd.cu"}
+        "flash_bwd.cu", "flash_fwd.cu", "moe_bwd.cu"}
     assert {src: kernels._library_path(src) for src in sources} == after

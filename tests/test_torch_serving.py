@@ -21,8 +21,8 @@ from distkeras_tpu.models.decoding import generate
 from distkeras_tpu_torch.models import Model, from_jax_params, zoo
 from distkeras_tpu_torch.serving import (AdmissionRejected, DraftModel,
                                          DraftSource, NgramDraft,
-                                         RequestState, ServingEngine,
-                                         ServingMetrics)
+                                         PagedKVPool, RequestState,
+                                         ServingEngine, ServingMetrics)
 
 V = 29
 PATTERN = np.array([3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8])
@@ -229,6 +229,38 @@ def test_later_slices_raise_naming_the_roadmap(lms, kw):
     _, pm = lms
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(pm, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"host_pages": 8}, "ROADMAP, Queue 1 item 8"),
+    ({"hbm_budget": 1 << 30}, "ROADMAP, Queue 1 item 4"),
+    ({"reserve_bytes": 1 << 20}, "ROADMAP, Queue 1 item 4"),
+])
+def test_pool_options_of_later_slices_raise_naming_the_roadmap(lms, kw,
+                                                                item):
+    """The JAX pool's host tier and byte budget raise naming their
+    ROADMAP item; their "off" values stay accepted."""
+    _, pm = lms
+    with pytest.raises(NotImplementedError, match=item):
+        PagedKVPool(pm.module, 2, 32, page_len=4, device="cpu", **kw)
+    pool = PagedKVPool(pm.module, 2, 32, page_len=4, device="cpu",
+                       host_pages=0, hbm_budget=None, reserve_bytes=0)
+    assert pool.num_pages == 2 * 8
+
+
+def test_build_with_a_jax_key_raises_naming_the_roadmap():
+    """``Model.build(rng=)`` waits for the ported threefry (item 5);
+    ``rng=None`` is the seeded build."""
+    spec = zoo.transformer_lm(V, d_model=32, num_heads=4, num_layers=1)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP, Queue 1 item 5"):
+        Model.build(spec, (12,), np.zeros(2, np.uint32), device="cpu")
+    a = Model.build(spec, (12,), None, seed=3, device="cpu")
+    b = Model.build(zoo.transformer_lm(V, d_model=32, num_heads=4,
+                                       num_layers=1), (12,), seed=3,
+                    device="cpu")
+    for x, y in zip(a.module.parameters(), b.module.parameters()):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("call", ["submit-deadline", "run-on-degraded",
