@@ -116,12 +116,16 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     against its plain version (``gather_gemm1_reference``) on real
     dispatch plans (8 experts, top-2, d 1024, H 2048): a decode step
     (N 4), an n-gram verify (N 20), an 8-slot tree (N 72), a 256-token
-    prefill chunk (C 80) and a 2048-token prefill (C 640), a routing
-    that leaves experts empty, one that sends every first choice to one
-    expert and a ragged d = H = 1000, in bf16 (2e-2 max abs) and, for
-    four of them, float32 (1e-4 relative); graph-replay times, bounds
-    from the plan, the plain version's time, ``torch.baddbmm`` on a
-    pre-gathered buffer as yardstick, and a bitwise repeat;
+    prefill chunk (C 80), a 2048-token prefill (C 640) and the training
+    shape (N 8192, C 2048), a routing that leaves experts empty, one
+    that sends every first choice to one expert, a ragged d = H = 1000
+    and widths and capacities off the tensor-core kernel's tiles, in
+    bf16 (2e-2 max abs) and, for five of them, float32 (1e-4 relative);
+    graph-replay times with the achieved TFLOP/s and the bound's share,
+    bounds from the plan, the plain version's time, ``torch.baddbmm`` on
+    a pre-gathered buffer as yardstick, and a bitwise repeat; in bf16
+    also the launches the shapes did not choose (one or two warpgroups a
+    block, the CUDA-core kernel), held and timed alike;
 20. MoE serving end to end on the all-MoE LM of ``bench.py``
     ``bench_moe`` at ``LM_CFG`` widths (12 layers, 8 experts, top-2,
     expert hidden 2048, bf16, seed 0, dense dispatch; ~520M
@@ -160,8 +164,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     over 16 rows of phase 7's data for two epochs (8 steps of 4 x 2048
     tokens): K6a, K6b, K6c, K1f, K1dq and K1dkv launch exactly 12 times
     per step, the loss is finite and falls; the balance-loss term; the
-    steady step's time, tokens/s, peak memory, a ``torch.profiler`` list
-    and each fused-block kernel's device time; then the same model's
+    steady step's time, tokens/s, peak memory, a ``torch.profiler`` list,
+    each fused-block kernel's device time and that of the dispatch
+    plan and of ``dw2`` (profiler ranges); then the same model's
     step with ``dispatch="tokens"`` (plain autograd and cuBLAS, no
     K6a/K6b/K6c launch) as a yardstick;
 24. MoE gradients at 2 layers of the same widths (B1 S512, fused): the
@@ -209,7 +214,8 @@ from distkeras_tpu_torch.ops.flash_attention import (
     flash_forward_reference, launch_dkv, launch_dq)
 from distkeras_tpu_torch.ops.moe_kernels import (
     bwd_dw1, bwd_dw1_reference, bwd_dx, bwd_dx_reference, fused_moe_apply,
-    gather_gemm1, gather_gemm1_reference, row_gates, src_tokens)
+    gather_gemm1, gather_gemm1_reference, gemm1_plan, row_gates,
+    src_tokens)
 from distkeras_tpu_torch.ops.losses import (
     get_loss, sparse_categorical_crossentropy_from_logits)
 from distkeras_tpu_torch.ops.optimizers import (adam, apply_updates,
@@ -947,12 +953,14 @@ def check_training(trainer, launches, num_layers,
 
 
 def profile_training(model, card, label="training",
-                     prefix="profile-train", groups=()):
+                     prefix="profile-train", groups=(), ranges=()):
     """The steady training step: wall time over a few steps (after one
     warm step), tokens/s, peak device memory, and (unless ``prefix`` is
     None) ``torch.profiler`` over one step: device time per kernel, the
-    device's busy share and, for each ``(label, key substrings)`` of
-    ``groups``, the summed device time of the kernels it names."""
+    device's busy share, for each ``(label, key substrings)`` of
+    ``groups`` the summed device time of the kernels it names and, for
+    each function of ``ranges`` (``_Ranges``), the device time of the
+    kernels its calls launched."""
     from torch.profiler import ProfilerActivity, profile
     data = training_data(model.module.layers[0].vocab_size, rows=TRAIN_BATCH)
     xb, yb = (torch.from_numpy(a).to(model.device) for a in data.arrays())
@@ -979,12 +987,15 @@ def profile_training(model, card, label="training",
     busy = "not profiled"
     ops, busy_ms = [], None
     if prefix is not None:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _Ranges(ranges) as ranged, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
             carry, loss = step(carry, (xb, yb))
             torch.cuda.synchronize()
+        # kernels only: a range's device-side span is not a kernel
         ops = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
                and e.self_device_time_total > 0]
         ops.sort(key=lambda e: -e.self_device_time_total)
         busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
@@ -1002,6 +1013,16 @@ def profile_training(model, card, label="training",
         print(f"{prefix}: {name}: "
               f"{sum(e.self_device_time_total for e in hit) / 1e3:.3f} ms "
               f"in {sum(e.count for e in hit)} launches", flush=True)
+    if prefix is not None:
+        found = {lab for lab, _, _ in ranged.found}
+        for name, _, _ in ranges:
+            # the host-side range: its device time sums its ops' kernels
+            hit = [e for e in prof.key_averages() if e.key == name
+                   and e.device_type == torch.autograd.DeviceType.CPU]
+            print(f"{prefix}: {name}: " + (
+                f"{sum(e.device_time_total for e in hit) / 1e3:.3f} ms in "
+                f"{sum(e.count for e in hit)} calls" if name in found
+                else "absent from this package"), flush=True)
     return step_ms, tokens / step_ms * 1e3, peak_gb, busy_ms
 
 
@@ -2332,29 +2353,45 @@ def generate_wq_phase(model, card, prompts):
 MOE_EXPERTS, MOE_TOP_K = 8, 2
 #: the MoE LM's expert widths: d_model 1024, expert hidden 2 x 1024
 MOE_D, MOE_H = LM_CFG["d_model"], 2 * LM_CFG["d_model"]
-#: bf16 outputs of O(1): the output's rounding (2^-8 relative) on both
-#: sides, with the d-term sums taken in another order
+#: bf16 outputs (|h| < 8 at these inputs) against the plain version's
+#: float32 result before its cast (``k6a_reference``): the output's one
+#: rounding (half a bf16 ulp, at most 2^-6 below 8) with the d-term sums
+#: taken in another order. Two independently rounded bf16 values of
+#: magnitude 4-8 can differ by a whole ulp (2^-5 = 0.03125: at the
+#: training shape both the CUDA-core kernel and the tensor-core one do)
 K6A_BF16_TOL = 2e-2
 #: float32 on both sides: only the summation order over d = 1024 terms
 K6A_F32_TOL = 1e-4
 #: phase 19's cases: (label, tokens N, capacity C, d, H, routing). The
-#: first five are the slice's shapes: a decode step of 4 slots (C = N,
+#: first six are the slice's shapes: a decode step of 4 slots (C = N,
 #: decode_apply's drop-free capacity), an n-gram verify of 4 slots x 5,
-#: an 8-slot tree of 9 nodes, a 256-token prefill chunk and a 2048-token
-#: prefill (C = the layer's _capacity(N)); then a routing that leaves
+#: an 8-slot tree of 9 nodes, a 256-token prefill chunk, a 2048-token
+#: prefill (C = the layer's _capacity(N)) and phase 23's training batch
+#: of 4 x 2048 tokens at capacity factor 1.0; then a routing that leaves
 #: six experts empty, one that sends every token's first choice to one
-#: expert, and ragged widths
+#: expert, ragged widths, widths that are not multiples of 8 (70) or of
+#: the tensor-core kernel's 128-wide tiles (136), and capacities that are
+#: not multiples of its 64-row tiles (90, 33)
 K6A_CASES = (("decode N4", 4, 4, MOE_D, MOE_H, "random"),
              ("verify N20", 20, 20, MOE_D, MOE_H, "random"),
              ("tree N72", 72, 72, MOE_D, MOE_H, "random"),
              ("prefill chunk N256", 256, 80, MOE_D, MOE_H, "random"),
              ("prefill N2048", 2048, 640, MOE_D, MOE_H, "random"),
+             ("training N8192", 8192, 2048, MOE_D, MOE_H, "random"),
              ("empty experts N8", 8, 8, MOE_D, MOE_H, "two-experts"),
              ("one expert N64", 64, 64, MOE_D, MOE_H, "one-expert"),
-             ("ragged d1000 H1000 N20", 20, 20, 1000, 1000, "random"))
+             ("ragged d1000 H1000 N20", 20, 20, 1000, 1000, "random"),
+             ("odd d70 H136 N300", 300, 90, 70, 136, "random"),
+             ("odd d136 H70 N300", 300, 90, 136, 70, "random"),
+             ("odd d70 H70 N300", 300, 90, 70, 70, "random"),
+             ("odd d1000 H136 N256", 256, 33, 1000, 136, "random"))
 #: the cases that also run in float32
 K6A_F32_CASES = ("decode N4", "tree N72", "prefill chunk N256",
-                 "ragged d1000 H1000 N20")
+                 "ragged d1000 H1000 N20", "odd d70 H70 N300")
+#: K6a's launches, by ``gemm1_plan``'s first field
+K6A_LAUNCHES = {1: "tensor cores, one warpgroup a block",
+                2: "tensor cores, two warpgroups a block",
+                0: "CUDA cores"}
 
 
 def moe_plan(rs, n, c, routing):
@@ -2377,6 +2414,14 @@ def _randn(rs, dtype, dev, *shape, scale=1.0):
         np.float32)).to(dev, dtype)
 
 
+def k6a_reference(xt, src, w1, b1, c, activation="gelu"):
+    """What K6a is held against: the plain version on the same values in
+    float32, before its cast to the input dtype (for float32 inputs, the
+    plain version itself)."""
+    return gather_gemm1_reference(xt.float(), src, w1.float(), b1.float(),
+                                  c, activation)
+
+
 def k6a_inputs(rs, n, c, d, h, routing, dtype, dev):
     """K6a's operands for one case: a real dispatch plan (top-2 of ``n``
     tokens over 8 experts, inverted to ``src_tok``), x ``[n, d]``, w1 and
@@ -2390,12 +2435,13 @@ def k6a_inputs(rs, n, c, d, h, routing, dtype, dev):
 
 def k6a_phase(dev):
     """K6a against ``gather_gemm1_reference`` on the same plan at the
-    slice's shapes and three edge cases, bf16 and float32: graph-replay
-    times, the bound from this run's plan (only the experts a token
-    reached stream w1, only filled rows are computed), the plain
+    slice's shapes and the edge cases, bf16 and float32: graph-replay
+    times with the achieved TFLOP/s (on the filled rows' work) and the
+    bound's share, the bound from this run's plan (only the experts a
+    token reached stream w1, only filled rows are computed), the plain
     version's time and, as a yardstick, ``torch.baddbmm`` on a
     pre-gathered ``[E, C, d]`` buffer (no gather, no activation: no
-    single PyTorch call computes K6a); then a bitwise repeat."""
+    single PyTorch call computes K6a); a bitwise repeat."""
     rows = []
     rs = np.random.RandomState(SEED + 12)
     for dtype, tol, peak, cases in (
@@ -2409,9 +2455,9 @@ def k6a_phase(dev):
             torch.cuda.synchronize()
             if kernels.launch_counts()["moe_gather_gemm1"] != before + 1:
                 raise AssertionError(f"K6a {label} did not launch")
-            ref = gather_gemm1_reference(xt, src, w1, b1, c)
-            err = (out.float() - ref.float()).abs().max().item()
-            rel = err / ref.float().abs().max().item()
+            ref = k6a_reference(xt, src, w1, b1, c)
+            err = (out.float() - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
             ok = err <= tol if dtype == torch.bfloat16 else rel <= tol
             if not torch.equal(out, gather_gemm1(xt, src, w1, b1, c)):
                 raise AssertionError(f"K6a {label} is not bitwise "
@@ -2433,20 +2479,29 @@ def k6a_phase(dev):
             es = xt.element_size()
             nbytes = (n * d + active * d * h + MOE_EXPERTS * h
                       + MOE_EXPERTS * c * h) * es + MOE_EXPERTS * c * 4
-            bms, by = bound_ms(2.0 * filled * d * h, nbytes, peak)
-            case = f"{label} C{c} {'bf16' if es == 2 else 'f32'}"
+            flops = 2.0 * filled * d * h
+            bms, by = bound_ms(flops, nbytes, peak)
+            bf16 = es == 2
+            case = f"{label} C{c} {'bf16' if bf16 else 'f32'}"
+            plan = gemm1_plan(c, d, h, MOE_EXPERTS,
+                              kernels.num_sms(dev.index), bf16)
             print(f"moe_gather_gemm1 {case} ({routing} routing, {active} "
-                  f"experts reached, {filled} filled rows): max_abs_err "
-                  f"{err:.3e}, rel {rel:.2e} (tol {tol} "
-                  f"{'max abs' if es == 2 else 'relative'}); kernel "
-                  f"{ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, "
-                  f"baddbmm on a pre-gathered buffer {lib_ms:.4f} ms, bound "
-                  f"{bms:.4f} ms ({by}); bitwise repeat ok", flush=True)
+                  f"experts reached, {filled} filled rows, launch "
+                  f"{K6A_LAUNCHES[plan[0]]}): max_abs_err {err:.3e}, rel "
+                  f"{rel:.2e} against the float32 plain result (tol {tol} "
+                  f"{'max abs' if bf16 else 'relative'}"
+                  f"); kernel {ms:.4f} ms (graph replay; "
+                  f"{flops / (ms * 1e9):.1f} TFLOP/s, "
+                  f"{nbytes / (ms * 1e6):.0f} GB/s, {bms / ms:.1%} of the "
+                  f"bound), plain {plain_ms:.4f} ms, baddbmm on a "
+                  f"pre-gathered buffer {lib_ms:.4f} ms, bound {bms:.4f} ms "
+                  f"({by}); bitwise repeat ok", flush=True)
             if not ok:
                 raise AssertionError(f"K6a disagrees with its plain version "
                                      f"on {case}")
             rows.append(dict(name=case, err=err, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bms, bound_by=by))
+            del xt, src, w1, b1, out, ref, xe
     return rows
 
 
@@ -3170,10 +3225,43 @@ MOE_TRAINING_KERNELS = TRAINING_KERNELS + (
     "moe_gather_gemm1", "moe_bwd_dx", "moe_bwd_dw1")
 #: the fused block's kernels in a profile, by their device functions
 MOE_KERNEL_GROUPS = (
-    ("K6a (moe_gather_gemm1)", ("gg1_kernel", "gg1_combine")),
+    ("K6a (moe_gather_gemm1)", ("gemm1_kernel", "gg1_kernel",
+                                "gg1_combine")),
     ("K6b (moe_bwd_dx, four passes)",
      ("rowdot_gy_kernel", "rowdot_sum_kernel", "dz_kernel", "dxr_kernel")),
     ("K6c (moe_bwd_dw1)", ("dw1_kernel",)))
+#: the step's named host functions whose device time phase 23's profile
+#: reads through a profiler range around each call: (label, module,
+#: function); a name the module lacks is reported as absent
+MOE_RANGES = (
+    ("the dispatch plan (models.moe._dispatch_plan)",
+     "distkeras_tpu_torch.models.moe", "_dispatch_plan"),
+    ("dw2 (ops.moe_kernels._dw2)", "distkeras_tpu_torch.ops.moe_kernels",
+     "_dw2"))
+
+
+class _Ranges:
+    """While installed, each function of ``ranges`` (``MOE_RANGES``'s
+    triples) runs inside a ``torch.profiler.record_function`` range of
+    its label, so a trace attributes its kernels' device time."""
+
+    def __init__(self, ranges):
+        self.found = [(label, sys.modules[mod], name)
+                      for label, mod, name in ranges
+                      if hasattr(sys.modules[mod], name)]
+
+    def __enter__(self):
+        self.orig = [getattr(m, name) for _, m, name in self.found]
+        for (label, m, name), fn in zip(self.found, self.orig):
+            def ranged(*a, _fn=fn, _label=label, **kw):
+                with torch.profiler.record_function(_label):
+                    return _fn(*a, **kw)
+            setattr(m, name, ranged)
+        return self
+
+    def __exit__(self, *exc):
+        for (_, m, name), fn in zip(self.found, self.orig):
+            setattr(m, name, fn)
 
 
 def moe_training_phase(dev, card):
@@ -3209,7 +3297,7 @@ def moe_training_phase(dev, card):
           f"launches { {k: launches[k] for k in MOE_TRAINING_KERNELS} }; "
           f"{trainer.get_training_time():.1f} s", flush=True)
     profile_training(model, card, "MoE training (fused)", "profile-moe",
-                     MOE_KERNEL_GROUPS)
+                     MOE_KERNEL_GROUPS, MOE_RANGES)
     with _Dispatch(model.module, "tokens"):
         kernels.reset_launch_counts()
         profile_training(model, card, "MoE training (tokens dispatch, "

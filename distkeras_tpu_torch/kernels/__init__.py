@@ -14,8 +14,9 @@ call of ``library`` (or an explicit ``build``) compiles every source
 whose library is missing, one
 ``nvcc`` process per source, all started together. A library's file
 name carries a hash of its source, the ``csrc/`` headers it includes
-(``sm90.cuh``, the Hopper primitives of ``moe_bwd.cu``, ``flash_bwd.cu``
-and ``flash_fwd.cu``) and the flags, so an edited source or header rebuilds
+(``sm90.cuh``, the Hopper primitives of the tensor-core sources;
+``moe_tc.cuh``, the mainloop ``moe_gemm.cu`` and ``moe_bwd.cu`` share) and
+the flags, so an edited source or header rebuilds
 and an unchanged one is reused. Where the libraries go and
 which ``nvcc`` runs is set in ``compat``.
 
@@ -95,7 +96,7 @@ _SIGNATURES = {
                         [_P, _I] + [_P] * 4 + [_I] * 6 + [_P]),
     "sample_epilogue": ("dkt_sample_epilogue", [_P] * 7 + [_I, _I, _P]),
     "moe_gather_gemm1": ("dkt_moe_gather_gemm1",
-                         [_P, _I] + [_P] * 5 + [_I] * 9 + [_P]),
+                         [_P, _I] + [_P] * 5 + [_I] * 10 + [_P]),
     "moe_bwd_dx": ("dkt_moe_bwd_dx", [_P] * 14 + [_I] * 7 + [_P]),
     "moe_bwd_dw1": ("dkt_moe_bwd_dw1", [_P] * 4 + [_I] * 6 + [_P]),
 }

@@ -56,20 +56,26 @@ def _dispatch_plan(experts, gates, num_experts: int, capacity: int):
     ``(dest, token, weight, keep)`` flat ``[K*N]`` slot arrays in
     choice-major slot order (slot ``s = k*N + n``: every first choice
     outranks every second choice, ties by token order). A slot's
-    position in its expert is an exclusive cumsum over one-hot rows;
-    a dropped slot gets the unique sentinel ``E*C + s``."""
+    position in its expert is the count of earlier slots on that expert:
+    one int32 inclusive scan over the expert-major one-hot ``[E, K*N]``
+    read as one row (contiguous, so the card runs it as one parallel
+    scan), less the slot itself and the slots of lower experts (the scan
+    at the end of the previous expert's row). Integer work, so exact; a
+    dropped slot gets the unique sentinel ``E*C + s``."""
     n, k = experts.shape
+    dev = experts.device
     slot_e = experts.t().reshape(-1).long()
-    slot_t = torch.arange(n, dtype=torch.int32,
-                          device=experts.device).repeat(k)
+    slot_t = torch.arange(n, dtype=torch.int32, device=dev).repeat(k)
     slot_g = gates.t().reshape(-1)
-    onehot = torch.nn.functional.one_hot(slot_e, num_experts)
-    ranks = torch.cumsum(onehot, dim=0) - onehot
-    pos = torch.gather(ranks, 1, slot_e[:, None])[:, 0]
+    onehot = slot_e == torch.arange(num_experts, device=dev)[:, None]
+    scan = torch.cumsum(onehot.reshape(-1), 0, dtype=torch.int32)
+    scan = scan.reshape(num_experts, n * k)
+    lower = torch.cat([scan.new_zeros(1), scan[:-1, -1]])
+    pos = scan.gather(0, slot_e[None])[0] - 1 - lower[slot_e]
     keep = pos < capacity
     dest = torch.where(keep, slot_e * capacity + pos,
                        num_experts * capacity
-                       + torch.arange(n * k, device=experts.device))
+                       + torch.arange(n * k, device=dev))
     return dest, slot_t, slot_g, keep
 
 

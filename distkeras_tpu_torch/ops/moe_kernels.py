@@ -18,12 +18,18 @@ For each expert ``e`` and capacity row ``r`` K6a computes
 accumulator, bias and activation, and writes ``[E, C, H]`` in the input
 dtype; a row no slot won (``src_tok < 0``) gathers zeros, so its value
 is ``act(b1[e])``. The ``[E*C, d]`` dispatch buffer of the ``tokens``
-path never exists. The backward's transposes are gathers too: K6b
-gathers each capacity row's output cotangent ``g`` and token ``x`` by
-the same ``src_tok`` and emits ``dxr = dz @ w1[e]^T``, ``dz = act'(z) *
-(gy @ w2[e]^T)`` (``z`` recomputed), ``gy = g * row_gate`` and the
-router's per-row ``<y, g>``; K6c sums ``x[src_tok]^T @ dz`` over the
-capacity rows into ``dw1`` in float32.
+path never exists. bf16 inputs run on the tensor cores (``wgmma``: the
+gathered rows by ``cp.async``, ``w1[e]`` by TMA, 64 capacity rows a
+warpgroup, one or two warpgroups a block); float32 inputs on the CUDA
+cores (``split_plan``), since TF32 would break the float32 checks.
+``gemm1_plan`` makes the choice from the dtype, the shapes and the SM
+count alone, so the same inputs give the same bits. The backward's
+transposes are gathers too: K6b gathers each capacity row's output
+cotangent ``g`` and token ``x`` by the same ``src_tok`` and emits ``dxr
+= dz @ w1[e]^T``, ``dz = act'(z) * (gy @ w2[e]^T)`` (``z`` recomputed),
+``gy = g * row_gate`` and the router's per-row ``<y, g>``; K6c sums
+``x[src_tok]^T @ dz`` over the capacity rows into ``dw1`` in float32.
+``dw2`` (``_dw2``) is a library product outside any kernel, as in JAX.
 
 Each wrapper launches its kernel for tensors on the card and takes the
 plain version (``gather_gemm1_reference``, ``bwd_dx_reference``,
@@ -41,8 +47,12 @@ from torch.autograd.function import once_differentiable
 from distkeras_tpu_torch import kernels
 from distkeras_tpu_torch.models.layers import get_activation
 
-#: output columns one block owns (32 threads x 8 columns)
+#: output columns one block of the CUDA-core kernel owns (32 threads x 8
+#: columns)
 BLOCK_N = 256
+#: capacity rows one warpgroup of the tensor-core kernel owns: a block
+#: runs one warpgroup at capacities up to this, else two (128-row tiles)
+TC_WG_ROWS = 64
 #: rows of w1 one block's warps stride over at a time
 ROW_GROUPS = 8
 #: blocks per SM the d split aims for
@@ -176,18 +186,32 @@ def gather_gemm1(xt, src_tok, w1, b1, capacity: int,
 
 def split_plan(capacity: int, d: int, hid: int, num_experts: int,
                num_sms: int):
-    """``(rt, ksplit, kchunk)``: the capacity rows per block tile, and how
-    the d rows of ``w1[e]`` are cut across blocks. Enough d splits that
-    the grid fills the card's ``num_sms`` SMs ``BLOCKS_PER_SM`` deep,
-    none shorter than 32 rows; a chunk is a multiple of ``ROW_GROUPS``.
-    A function of the shapes and the card alone, so the same inputs
-    give the same bits."""
+    """``(rt, ksplit, kchunk)`` of the CUDA-core kernel (float32
+    inputs): the capacity rows per block tile, and how the d rows of
+    ``w1[e]`` are cut across blocks. Enough d splits that the grid fills
+    the card's ``num_sms`` SMs ``BLOCKS_PER_SM`` deep, none shorter than
+    32 rows; a chunk is a multiple of ``ROW_GROUPS``. A function of the
+    shapes and the card alone, so the same inputs give the same bits."""
     rt = next((t for t in ROW_TILES if t >= capacity), ROW_TILES[-1])
     blocks = -(-hid // BLOCK_N) * -(-capacity // rt) * num_experts
     ksplit = max(1, min(-(-BLOCKS_PER_SM * num_sms // blocks), d // 32))
     kchunk = -(-d // ksplit)
     kchunk = -(-kchunk // ROW_GROUPS) * ROW_GROUPS
     return rt, -(-d // kchunk), kchunk
+
+
+def gemm1_plan(capacity: int, d: int, hid: int, num_experts: int,
+               num_sms: int, bf16: bool):
+    """``(wg, rt, ksplit, kchunk)``, the launch K6a makes: bf16 inputs
+    take the tensor-core kernel with ``wg`` warpgroups a block (one up
+    to ``TC_WG_ROWS`` capacity rows, where the grid has as many blocks
+    either way and a 128-row tile would multiply twice the zero rows;
+    two above; the last three fields unused), float32 inputs the
+    CUDA-core kernel (``wg`` 0 and ``split_plan``). A function of the
+    shapes and the card alone, so the same inputs give the same bits."""
+    if bf16:
+        return (1 if capacity <= TC_WG_ROWS else 2), 1, 1, d
+    return (0,) + split_plan(capacity, d, hid, num_experts, num_sms)
 
 
 def _launch(xt, src_tok, w1, b1, capacity: int, activation):
@@ -200,16 +224,17 @@ def _launch(xt, src_tok, w1, b1, capacity: int, activation):
     out = torch.empty((e, capacity, hid), dtype=xt.dtype, device=xt.device)
     if out.numel() == 0:
         return out
-    rt, ksplit, kchunk = split_plan(capacity, d, hid, e,
-                                     kernels.num_sms(xt.device.index))
-    part = out if ksplit == 1 else torch.empty(
+    wg, rt, ksplit, kchunk = gemm1_plan(capacity, d, hid, e,
+                                        kernels.num_sms(xt.device.index),
+                                        xt.dtype == torch.bfloat16)
+    part = out if wg or ksplit == 1 else torch.empty(
         (ksplit, e * capacity, hid), dtype=torch.float32, device=xt.device)
     name = "moe_gather_gemm1"
     lib = kernels.library(name)
     err = lib.dkt_moe_gather_gemm1(
         xt.data_ptr(), int(xt.dtype == torch.bfloat16), src_tok.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), out.data_ptr(), part.data_ptr(),
-        xt.shape[0], d, hid, e, capacity, code, rt,
+        xt.shape[0], d, hid, e, capacity, code, wg, rt,
         ksplit, kchunk, torch.cuda.current_stream(xt.device).cuda_stream)
     kernels.check(lib, err, name)
     kernels.count_launch(name)
@@ -362,12 +387,24 @@ def _slot_rows(rows, dest, keep):
                                               device=rows.device))
 
 
+def _dw2(h, gy) -> torch.Tensor:
+    """``dw2 [E, H, d] = h[e]^T @ gy[e]`` in float32, outside any kernel
+    as in JAX (:446-447). bf16 operands on the card multiply on the
+    tensor cores with float32 accumulation (the products of two bf16
+    values are exact in float32, so only the order of the sum differs
+    from the float32 product); anything else is the float32 einsum."""
+    if h.is_cuda and h.dtype == torch.bfloat16:
+        return torch.bmm(h.transpose(1, 2), gy, out_dtype=torch.float32)
+    return torch.einsum("ech,ecd->ehd", h.float(), gy.float())
+
+
 class _FusedExperts(torch.autograd.Function):
     """The fused expert block as one autograd node (JAX's custom VJP):
     the forward saves what JAX's residual tuple holds (:420), the
     backward is ``_fused_bwd`` (:423-452): K6b, the slot cotangents as
-    gathers masked by ``keep``, K6c, and ``dw2``/``db2``/``db1`` as plain
-    stacked float32 contractions outside any kernel."""
+    gathers masked by ``keep``, K6c, and ``dw2`` (``_dw2``), ``db2`` and
+    ``db1`` as stacked contractions outside any kernel, summed in
+    float32."""
 
     @staticmethod
     def forward(ctx, xt, w1, b1, w2, b2, sg, dest, keep, capacity,
@@ -396,7 +433,7 @@ class _FusedExperts(torch.autograd.Function):
         dsg = _slot_rows(rowdot.reshape(-1), dest, keep)
         dw1 = bwd_dw1(xt, dz, src_tok, c)
         db1 = dz.float().sum(dim=1)
-        dw2 = torch.einsum("ech,ecd->ehd", h.float(), gy.float())
+        dw2 = _dw2(h, gy)
         db2 = gy.float().sum(dim=1)
         return (dx.to(xt.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
                 dw2.to(w2.dtype), db2.to(b2.dtype), dsg.to(sg.dtype), None,

@@ -21,6 +21,7 @@ from distkeras_tpu_torch.ops.flash_attention import (
     attention_delta, flash_backward, flash_backward_reference, flash_forward,
     flash_forward_reference)
 from distkeras_tpu_torch.parallel import SingleTrainer
+import distkeras_tpu_torch.ops.moe_kernels as moe_kernels
 from distkeras_tpu_torch.ops.moe_kernels import (
     bwd_dw1, bwd_dw1_reference, bwd_dx, bwd_dx_reference, gather_gemm1,
     gather_gemm1_reference)
@@ -792,12 +793,14 @@ K6A_CASES = {label: case for label, *case in chip_smoke.K6A_CASES}
 
 
 def _k6a_check(out, ref, dtype):
-    err = (out.float() - ref.float()).abs().max().item()
+    """``out`` against ``ref``, the float32 plain result
+    (``chip_smoke.k6a_reference``) at phase 19's tolerances."""
+    assert ref.dtype == torch.float32
+    err = (out.float() - ref).abs().max().item()
     if dtype == torch.bfloat16:
         assert err <= chip_smoke.K6A_BF16_TOL, err
     else:
-        assert err / ref.float().abs().max().item() \
-            <= chip_smoke.K6A_F32_TOL, err
+        assert err / ref.abs().max().item() <= chip_smoke.K6A_F32_TOL, err
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -815,13 +818,13 @@ def test_moe_gather_gemm1_kernel_matches_plain(dev, label, dtype):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["moe_gather_gemm1"] == before + 1
     assert out.dtype == dtype and out.shape == (8, c, h)
-    ref = gather_gemm1_reference(xt, src, w1, b1, c)
+    ref = chip_smoke.k6a_reference(xt, src, w1, b1, c)
     _k6a_check(out, ref, dtype)
     empty = (src < 0).reshape(8, c)
     if empty.any():
         act_b1 = torch.nn.functional.gelu(b1.float(), approximate="tanh")
-        _k6a_check(out[empty], act_b1[:, None].expand(8, c, h)[empty]
-                   .to(dtype), dtype)
+        _k6a_check(out[empty], act_b1[:, None].expand(8, c, h)[empty],
+                   dtype)
     assert torch.equal(out, gather_gemm1(xt, src, w1, b1, c))
 
 
@@ -835,8 +838,105 @@ def test_moe_gather_gemm1_odd_widths_and_activations(dev, n, c, d, h,
     xt, src, w1, b1 = chip_smoke.k6a_inputs(rs, n, c, d, h, "random",
                                             torch.float32, dev)
     out = gather_gemm1(xt, src, w1, b1, c, activation)
-    ref = gather_gemm1_reference(xt, src, w1, b1, c, activation)
+    ref = chip_smoke.k6a_reference(xt, src, w1, b1, c, activation)
     _k6a_check(out, ref, torch.float32)
+
+
+def _k6a_launch(xt, src, w1, b1, c, wg, activation="gelu"):
+    """K6a through its wrapper, once, on a capacity that takes the
+    tensor-core kernel with ``wg`` warpgroups a block."""
+    d, h = w1.shape[1:]
+    assert moe_kernels.gemm1_plan(c, d, h, 8,
+                                  kernels.num_sms(xt.device.index),
+                                  True)[0] == wg
+    before = kernels.launch_counts()["moe_gather_gemm1"]
+    out = gather_gemm1(xt, src, w1, b1, c, activation)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["moe_gather_gemm1"] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("n,c,d,h,wg", [(64, 33, 70, 136, 1),
+                                        (20, 20, 1024, 2048, 1),
+                                        (300, 90, 70, 136, 2),
+                                        (2048, 640, 1024, 2048, 2)])
+def test_moe_gather_gemm1_bf16_is_bitwise_repeatable(dev, n, c, d, h, wg):
+    """No atomics: the tensor-core kernel, with one warpgroup a block (C
+    <= 64) or two (C > 64), gives the same bits twice, and agrees with
+    the plain version."""
+    xt, src, w1, b1 = chip_smoke.k6a_inputs(np.random.RandomState(wg + c),
+                                            n, c, d, h, "random",
+                                            torch.bfloat16, dev)
+    first = _k6a_launch(xt, src, w1, b1, c, wg)
+    assert torch.equal(first, _k6a_launch(xt, src, w1, b1, c, wg))
+    _k6a_check(first, chip_smoke.k6a_reference(xt, src, w1, b1, c),
+               torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,c,wg", [(64, 40, 1), (256, 80, 2)])
+def test_moe_gather_gemm1_unaligned_w1_takes_the_copy_path(dev, n, c, wg):
+    """A w1 view one element into its buffer misses TMA's 16-byte
+    alignment: the kernel copies w1 with cp.async element by element,
+    bitwise equal to the TMA path on an aligned copy of it."""
+    d, h = 1024, 2048
+    xt, src, w1, b1 = chip_smoke.k6a_inputs(np.random.RandomState(11), n, c,
+                                            d, h, "random", torch.bfloat16,
+                                            dev)
+    buf = torch.empty(w1.numel() + 1, dtype=w1.dtype, device=dev)
+    view = buf[1:].view(w1.shape)
+    view.copy_(w1)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    got = _k6a_launch(xt, src, view, b1, c, wg)
+    assert torch.equal(got, _k6a_launch(xt, src, w1, b1, c, wg))
+    _k6a_check(got, chip_smoke.k6a_reference(xt, src, w1, b1, c),
+               torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,c,wg", [(40, 60, 1), (150, 200, 2)])
+@pytest.mark.parametrize("activation", ["linear", "relu", "gelu"])
+def test_moe_gather_gemm1_empty_rows_are_act_b1(dev, n, c, wg, activation):
+    """A row tile no slot reached (its product skipped) and the -1 rows
+    of a filled tile write the same bits, act(b1[e]) from the float32
+    epilogue: exactly b1 and relu(b1) for linear and relu, gelu within
+    the bf16 tolerance of the plain version."""
+    d, h = 136, 200
+    xt, src, w1, b1 = chip_smoke.k6a_inputs(np.random.RandomState(wg), n, c,
+                                            d, h, "two-experts",
+                                            torch.bfloat16, dev)
+    tok = src.reshape(8, c)
+    # experts 2-7 hold no slot, experts 0-1 a filled prefix and -1 rows
+    assert (tok[2:] < 0).all() and (tok[:2] < 0).any() and (
+        tok[:2] >= 0).any()
+    out = _k6a_launch(xt, src, w1, b1, c, wg, activation)
+    empty = tok < 0
+    rows = out[empty]
+    want = gather_gemm1_reference(xt, src, w1, b1, c, activation)[empty]
+    if activation == "gelu":
+        _k6a_check(rows, chip_smoke.k6a_reference(
+            xt, src, w1, b1, c, activation)[empty], torch.bfloat16)
+    else:
+        assert torch.equal(rows, want)
+    per_expert = out.reshape(8, c, h)
+    for e in range(8):
+        e_rows = per_expert[e][empty[e]]
+        assert (e_rows == e_rows[:1]).all(), e
+
+
+def test_moe_gather_gemm1_routes_agree(dev):
+    """The tensor-core kernel with one warpgroup a block (C 64) and with
+    two (C 72), and the CUDA-core kernel on the same values in float32,
+    give the same function: each within the bf16 tolerance of the plain
+    version."""
+    d, h = 1024, 2048
+    for n, c, wg in ((96, 64, 1), (96, 72, 2)):
+        xt, src, w1, b1 = chip_smoke.k6a_inputs(np.random.RandomState(13),
+                                                n, c, d, h, "random",
+                                                torch.bfloat16, dev)
+        ref = chip_smoke.k6a_reference(xt, src, w1, b1, c)
+        _k6a_check(_k6a_launch(xt, src, w1, b1, c, wg), ref,
+                   torch.bfloat16)
+        f32 = gather_gemm1(xt.float(), src, w1.float(), b1.float(), c)
+        _k6a_check(f32, ref, torch.bfloat16)
 
 
 def test_moe_gather_gemm1_cpu_plain_cuda_kernel(dev):
@@ -933,6 +1033,22 @@ def test_moe_backward_kernels_match_plain(dev, label, dtype):
     again = bwd_dx(*args, c)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
     assert torch.equal(dw1, bwd_dw1(xt, ref[1], src, c))
+
+
+@pytest.mark.parametrize("label", ["training N8192", "odd d70 H70 N300"])
+def test_moe_backward_bf16_is_bitwise_repeatable(dev, label):
+    """K6b and K6c, whose mainloop lives in the header they share with
+    K6a, give the same bits twice on the same bf16 inputs."""
+    n, c, d, h, routing = K6BC_CASES[label]
+    args = chip_smoke.k6bc_inputs(np.random.RandomState(c), n, c, d, h,
+                                  routing, torch.bfloat16, dev)
+    xt, src = args[0], args[2]
+    first = bwd_dx(*args, c)
+    dw1 = bwd_dw1(xt, first[1], src, c)
+    again = bwd_dx(*args, c)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert torch.equal(dw1, bwd_dw1(xt, again[1], src, c))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

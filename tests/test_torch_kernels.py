@@ -455,22 +455,32 @@ def test_int4_pool_insert_then_load_prefix_roundtrip():
 
 def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
     """A kernel library's file name hashes its source and the csrc/
-    headers it includes: editing ``sm90.cuh`` renames the libraries of
-    ``moe_bwd.cu``, ``flash_bwd.cu`` and ``flash_fwd.cu`` (a stale build is
-    never reused) and no other; an unchanged tree keeps every name."""
+    headers it includes, directly or through another header: editing
+    ``sm90.cuh`` renames the libraries of ``moe_gemm.cu``, ``moe_bwd.cu``
+    (both through ``moe_tc.cuh``), ``flash_bwd.cu`` and ``flash_fwd.cu``,
+    editing ``moe_tc.cuh`` those of the two MoE sources (a stale build is
+    never reused), and no other; an unchanged tree keeps every name."""
     csrc = tmp_path / "csrc"
     shutil.copytree(os.path.join(compat.PACKAGE_DIR, "csrc"), csrc)
     monkeypatch.setattr(compat, "PACKAGE_DIR", str(tmp_path))
     monkeypatch.setenv("DKT_KERNEL_BUILD_DIR", str(tmp_path / "build"))
     sources = sorted(set(kernels.SOURCES.values()))
-    for src in ("moe_bwd.cu", "flash_bwd.cu", "flash_fwd.cu"):
+    for src in ("flash_bwd.cu", "flash_fwd.cu"):
         assert kernels._inputs(src) == [src, "sm90.cuh"]
+    for src in ("moe_bwd.cu", "moe_gemm.cu"):
+        assert kernels._inputs(src) == [src, "moe_tc.cuh", "sm90.cuh"]
     assert kernels._inputs("paged_decode.cu") == ["paged_decode.cu"]
     before = {src: kernels._library_path(src) for src in sources}
     assert {src: kernels._library_path(src) for src in sources} == before
-    header = csrc / "sm90.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = {src: kernels._library_path(src) for src in sources}
-    assert {src for src in sources if after[src] != before[src]} == {
-        "flash_bwd.cu", "flash_fwd.cu", "moe_bwd.cu"}
-    assert {src: kernels._library_path(src) for src in sources} == after
+    for name, renamed in (
+            ("sm90.cuh", {"flash_bwd.cu", "flash_fwd.cu", "moe_bwd.cu",
+                          "moe_gemm.cu"}),
+            ("moe_tc.cuh", {"moe_bwd.cu", "moe_gemm.cu"})):
+        header = csrc / name
+        header.write_text(header.read_text() + "\n// edited\n")
+        after = {src: kernels._library_path(src) for src in sources}
+        assert {src for src in sources
+                if after[src] != before[src]} == renamed, name
+        assert {src: kernels._library_path(src) for src in sources} == after
+        header.write_text(header.read_text()[:-len("\n// edited\n")])
+        assert {src: kernels._library_path(src) for src in sources} == before

@@ -75,6 +75,41 @@ def test_dispatch_plan_matches_jax(k, capacity):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
+def _plan_case(kind, rs):
+    """``(experts [N, K], gates, capacity)`` of a realistic plan: 4096
+    tokens over 8 experts (the capacity ``MoE._capacity`` gives at the
+    factor) routed by logits whose per-expert offsets make some experts
+    popular, every token's first choice on one expert, or top-4."""
+    n, e = 4096, 8
+    if kind == "one-expert":
+        ex = np.stack([np.full(n, 5), rs.randint(0, 5, n)], 1)
+        k, cf = 2, 1.25
+    else:
+        k, cf = (4, 1.0) if kind == "top4" else (2, float(kind[2:]))
+        logits = rs.randn(n, e) + np.linspace(0.0, 1.0, e)
+        ex = np.argsort(-logits, axis=1)[:, :k]
+    per = -(-k * n // e)
+    return (ex.astype(np.int32), rs.rand(n, k).astype(np.float32),
+            max(1, int(per * cf)))
+
+
+@pytest.mark.parametrize("kind", ["cf1.0", "cf1.25", "one-expert", "top4"])
+def test_dispatch_plan_matches_jax_at_scale(kind):
+    """At a training batch's size (N 4096, K 2 or 4, E 8): the plan's
+    scan gives JAX's dest, token, gate and keep exactly, with slots
+    dropped past capacity (every one past it when all first choices
+    pick one expert)."""
+    ex, g, capacity = _plan_case(kind, np.random.RandomState(len(kind)))
+    want = jax_plan(jnp.asarray(ex), jnp.asarray(g), 8, capacity)
+    got = _dispatch_plan(_t(ex), _t(g), 8, capacity)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    keep = got[3].numpy()
+    assert 0 < keep.sum() < keep.size
+    if kind == "one-expert":
+        assert keep[:4096].sum() == capacity
+
+
 def _layer_pair(e=8, d=16, hid=32, seed=0, **kw):
     jm = JaxMoE(e, hid, **kw)
     params, _, _ = jm.init(jax.random.PRNGKey(seed), (4, d))
@@ -175,6 +210,22 @@ def test_gather_gemm1_plan_validation():
         mk.fused_moe_apply(*([None] * 8), capacity=2, activation="bogus")
     assert mk.split_plan(4, 1024, 2048, 8, 132) == (4, 5, 208)
     assert mk.split_plan(640, 1024, 2048, 8, 132)[1:] == (1, 1024)
+
+
+def test_gather_gemm1_launch_plan():
+    """bf16 takes the tensor-core kernel at every width, one warpgroup
+    a block up to 64 capacity rows (decode, verify), two above (tree,
+    prefill, training); float32 the CUDA-core kernel's split plan. A
+    function of the shapes and the SM count alone."""
+    for c, wg in ((4, 1), (64, 1), (72, 2), (80, 2), (640, 2), (2048, 2)):
+        assert mk.gemm1_plan(c, 1024, 2048, 8, 132, True) == (wg, 1, 1,
+                                                              1024)
+    assert mk.gemm1_plan(33, 1000, 136, 8, 132, True)[0] == 1
+    assert mk.gemm1_plan(90, 70, 136, 8, 132, True) == (2, 1, 1, 70)
+    assert mk.gemm1_plan(3, 40, 99, 8, 132, True) == (1, 1, 1, 40)
+    assert mk.gemm1_plan(4, 1024, 2048, 8, 132, False) == (0, 4, 5, 208)
+    assert mk.gemm1_plan(640, 1024, 2048, 8, 132, False) == (
+        (0,) + mk.split_plan(640, 1024, 2048, 8, 132))
 
 
 # --- the MoE layer -------------------------------------------------------------

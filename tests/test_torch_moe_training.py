@@ -202,6 +202,37 @@ def test_fused_gradients_match_jax_vjp(case, activation):
         assert not np.asarray(keep).all()          # slots really dropped
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_block_dw2_on_the_cpu_is_the_float32_einsum(dtype):
+    """On the CPU the fused block's ``dw2`` is the float32 einsum of the
+    forward's hidden rows and K6b's ``gy`` (plain versions), cast to
+    ``w2``'s dtype, bitwise; the tensor-core product is the card's
+    alone."""
+    n, d, hid, cap, _ = _plan_case("drops")
+    e, k = 4, 2
+    rs = np.random.RandomState(3)
+    topi = np.argsort(rs.randn(n, e), axis=1)[:, :k].astype(np.int32)
+    dest, _, sg, keep = (_t(np.asarray(a)) for a in jax_plan(
+        jnp.asarray(topi), jnp.asarray(rs.rand(n, k).astype(np.float32)),
+        e, cap))
+    f = lambda *s, sc=1.0: _t((rs.randn(*s) * sc).astype(np.float32)).to(
+        dtype)
+    xt, w1, b1, w2, b2 = (f(n, d), f(e, d, hid, sc=0.3), f(e, hid, sc=0.1),
+                          f(e, hid, d, sc=0.3), f(e, d, sc=0.1))
+    cot = f(n, d)
+    leaves = [t.clone().requires_grad_(True) for t in (xt, w1, b1, w2, b2)]
+    out = mk.fused_moe_apply(*leaves, sg, dest, keep, capacity=cap)
+    dw2 = torch.autograd.grad(out, leaves[3], cot)[0]
+    src = mk.src_tokens(dest, n, e, cap)
+    rg = mk.row_gates(dest, keep, sg, e, cap)
+    h = mk.gather_gemm1_reference(xt, src, w1, b1, cap)
+    gy = mk.bwd_dx_reference(xt, cot, src, rg, w1, b1, w2, b2, h, cap)[2]
+    want = torch.einsum("ech,ecd->ehd", h.float(), gy.float()).to(dtype)
+    assert dw2.dtype == dtype and torch.equal(dw2, want)
+    assert torch.equal(mk._dw2(h, gy), torch.einsum("ech,ecd->ehd",
+                                                    h.float(), gy.float()))
+
+
 # --- the MoE layer in training mode -----------------------------------------
 
 
