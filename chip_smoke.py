@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    B4 H16 S2048 D64; B2 H8 S2048 D128) in bf16: a bitwise repeat, device
    times (CUDA-graph replays), TFLOP/s and the bound's share, with SDPA
    as yardstick;
-4. the paged decode kernel against its plain version, with times;
+4. the paged decode kernel against its plain version, with times from
+   CUDA-graph replays, a bitwise repeat and SDPA over pre-gathered K/V
+   (the page gather left out) as yardstick;
 5. the serving path end to end: the 218M transformer LM (d_model 1024,
    16 heads, 12 layers, vocab 32768, bf16, random weights from a seed)
    behind a paged ``ServingEngine`` serving six requests (a shared
@@ -71,7 +73,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     on the CPU in float32 at the same weights and cache contents, and a
     ``torch.profiler`` list of a decode step's device time;
 11. the paged kernel's int8 and int4 variants against their plain
-    version at phase 4's shapes (page_len 16), with times and bounds;
+    version at phase 4's shapes (page_len 16), with graph-replay times,
+    a bitwise repeat and bounds;
 12. the paged ``ServingEngine`` with ``cache_dtype="int8"`` and
     ``"int4"`` on phase 5's workload: streams finish, the quantized
     paged kernel runs and the float one does not;
@@ -79,7 +82,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     and int4 page variants against its plain version at phase 4's
     shapes with W=9 random trees (16 kv heads, GQA 4x4, a 256-position
     window), a lower-triangular mask against the window-causal launch
-    (bitwise), device times from CUDA-graph replays and bounds;
+    (bitwise), a bitwise repeat, device times from CUDA-graph replays,
+    SDPA over pre-gathered K/V with the tree mask (bf16) and bounds;
 14. speculative serving on the same fresh 218M LM: a self-draft
     (``DraftModel(model)``) linear (``spec_k=4``) and with trees
     (``spec_width=2``) on phase 5's workload, an n-gram draft on prompts
@@ -96,8 +100,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     version (``reference_matmul``) at the LM's matrices (wq, wo in its
     ``[h, e, d]`` layout, w1, w2, the head) and a ragged 1000 x 1000,
     M in (1, 4, 8, 72), bf16 activations, with graph-replay times,
-    bounds and ``torch.matmul`` against the bf16 weight as yardstick,
-    and a bitwise repeat;
+    bounds and ``torch.matmul`` against the bf16 weight as yardstick
+    (int8 also ``torch._weight_int8pack_mm`` on the same bytes, where
+    this torch runs it on CUDA), and a bitwise repeat;
 16. the fused sampling epilogue (K4) against its plain version at S 8
     and 4, V 32768, mixed rows (greedy, top-k, top-p, both, k >= V,
     ties at the k-th value): equal tokens, or a counted row at the
@@ -108,7 +113,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     int8; K5 launches per decode step, K4 in the fused run, resident
     weight bytes against the bf16 engine's, peak memory, TTFT and
     decode tok/s; then decode-step logits on the card against the CPU
-    float32 path over the same quantized trees;
+    float32 path over the same quantized trees, and phase 5's profile of
+    an int8-weight decode step (K5's device time, launches a step);
 18. ``generate(weights_dtype="int8")``: B4 x 1024-token prompts and 32
     greedy tokens, prefill and decode ms per step, exact K5 and K2
     launch counts;
@@ -221,7 +227,8 @@ from distkeras_tpu_torch.ops.losses import (
 from distkeras_tpu_torch.ops.optimizers import (adam, apply_updates,
                                                 get_optimizer)
 from distkeras_tpu_torch.ops.paged_attention import (
-    paged_decode_attention, paged_decode_attention_reference)
+    gather_pages, paged_decode_attention, paged_decode_attention_reference,
+    window_valid_mask)
 from distkeras_tpu_torch.ops.quant_matmul import (quant_matmul,
                                                   quantize_weight,
                                                   reference_matmul)
@@ -531,24 +538,59 @@ def paged_phase(dev, bits=None):
         kw = dict(scale=64 ** -0.5, window=c["window"])
         if bits is not None:
             kw.update(k_scale=c["k_scale"], v_scale=c["v_scale"])
+        before = kernels.launch_counts()[label]
         out = paged_decode_attention(*args, **kw)
         torch.cuda.synchronize()
+        if kernels.launch_counts()[label] != before + 1:
+            raise AssertionError(f"{name} did not launch {label}")
         ref = paged_decode_attention_reference(*args, **kw)
         err = (out - ref).abs().max().item()
-        ms = time_ms(lambda: paged_decode_attention(*args, **kw))
+        same = torch.equal(out, paged_decode_attention(*args, **kw))
+        ms = graph_ms(lambda: paged_decode_attention(*args, **kw))
         plain_ms = time_ms(
             lambda: paged_decode_attention_reference(*args, **kw), iters=5)
+        lib_ms = None if bits is not None else _sdpa_paged_ms(c)
         flops, nbytes, pages = _paged_work(c, t, w, page_len, bits)
         bms, by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
-        print(f"{label} {name}: max_abs_err {err:.3e} (tol {tol}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
-              f"({by}), {pages} live pages", flush=True)
+        lib = "" if lib_ms is None else \
+            f", SDPA on pre-gathered K/V {lib_ms:.4f} ms (graph replay)"
+        print(f"{label} {name}: max_abs_err {err:.3e} (tol {tol}); bitwise "
+              f"repeat {same}; kernel {ms:.4f} ms (graph replay), "
+              f"{nbytes / ms / 1e6:.0f} GB/s, {100 * bms / ms:.1f}% of the "
+              f"bound; plain {plain_ms:.4f} ms (eager){lib}; bound "
+              f"{bms:.4f} ms ({by}), {pages} live pages", flush=True)
         if not err <= tol:
             raise AssertionError(f"{label} disagrees with its plain "
                                  f"version on {name}")
+        if not same:
+            raise AssertionError(f"{label} is not bitwise repeatable on "
+                                 f"{name}")
         rows.append(dict(name=name, err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=None, bound_ms=bms, bound_by=by))
+                         library_ms=lib_ms, bound_ms=bms, bound_by=by))
     return rows
+
+
+def _sdpa_paged_ms(c):
+    """The float-page yardstick (never called by the port): SDPA over the
+    slots' K/V gathered into contiguous ``[S, Hkv, P * page_len, D]``
+    outside the timing, the W*G rows of a kv head as its queries, with
+    the kernel's mask (window rows or tree, sliding window, sentinel
+    pages): the paged kernel's function minus the page gather. Graph
+    replay."""
+    q, table = c["q"], c["table"]
+    s, w, hkv, g, d = q.shape
+    k, v = gather_pages(c["k"], table), gather_pages(c["v"], table)
+    length = k.shape[2]
+    page_len = length // table.shape[1]
+    live = (table.long() < c["k"].shape[0]).repeat_interleave(page_len,
+                                                              dim=1)
+    valid = window_valid_mask(c["t"], w, length, c["window"],
+                              c.get("anc")) & live[:, None, :]
+    mask = valid[:, :, None, :].expand(s, w, g, length) \
+        .reshape(s, 1, w * g, length)
+    qq = q.permute(0, 2, 1, 3, 4).reshape(s, hkv, w * g, d).to(k.dtype)
+    return graph_ms(lambda: F.scaled_dot_product_attention(
+        qq, k, v, attn_mask=mask, scale=d ** -0.5))
 
 
 # --- phase 13: the tree ancestor mask (K3-anc) --------------------------------
@@ -583,16 +625,24 @@ def anc_phase(dev, bits=None):
             .expand(c["q"].shape[0], w, w).contiguous()
         same = torch.equal(paged_decode_attention(*args, **kw),
                            paged_decode_attention(*args, **kw, anc=chain))
+        repeat = torch.equal(out, paged_decode_attention(*args, **tkw))
         ms = graph_ms(lambda: paged_decode_attention(*args, **tkw))
         plain_ms = time_ms(
             lambda: paged_decode_attention_reference(*args, **tkw), iters=5)
+        lib_ms = None if bits is not None else _sdpa_paged_ms(c)
         flops, nbytes, pages = _paged_work(c, t, w, page_len, bits)
         bms, by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+        lib = "" if lib_ms is None else \
+            f", SDPA on pre-gathered K/V {lib_ms:.4f} ms (graph replay)"
         print(f"{label} {name}: max_abs_err {err:.3e} (tol {tol}); "
               f"lower-triangular anc == window-causal bitwise: {same}; "
-              f"kernel {ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms "
-              f"(eager), "
+              f"bitwise repeat {repeat}; kernel {ms:.4f} ms (graph replay), "
+              f"{nbytes / ms / 1e6:.0f} GB/s, {100 * bms / ms:.1f}% of the "
+              f"bound; plain {plain_ms:.4f} ms (eager){lib}; "
               f"bound {bms:.4f} ms ({by}), {pages} live pages", flush=True)
+        if not repeat:
+            raise AssertionError(f"{label} is not bitwise repeatable on "
+                                 f"{name}")
         if not err <= tol:
             raise AssertionError(f"{label} disagrees with its plain "
                                  f"version on {name}")
@@ -600,7 +650,7 @@ def anc_phase(dev, bits=None):
             raise AssertionError(f"{label}: a lower-triangular anc differs "
                                  f"from the window-causal launch on {name}")
         rows.append(dict(name=name, err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=None, bound_ms=bms, bound_by=by))
+                         library_ms=lib_ms, bound_ms=bms, bound_by=by))
     return rows
 
 
@@ -688,15 +738,16 @@ def warm_up(model, device):
     eng.run(max_steps=100)
 
 
-def profile_serving(model, device):
+def profile_serving(model, device, label="bf16 weights", **engine_kw):
     """Where the time goes in steady decode: four slots decoding (their
     256-token prompts prefilled first, outside the window), the wall
     time of a decode step without the profiler, then
-    ``torch.profiler`` over a few steps: device time per kernel and the
-    device's busy share of the step."""
+    ``torch.profiler`` over a few steps: device time per kernel, CUDA
+    kernel launches per step and the device's busy share of the step.
+    ``engine_kw`` (e.g. ``weight_quant``) goes to the engine."""
     from torch.profiler import ProfilerActivity, profile
     eng = ServingEngine(model, num_slots=4, max_len=2048, page_len=16,
-                        prefill_chunk=256, device=device)
+                        prefill_chunk=256, device=device, **engine_kw)
     rs = np.random.RandomState(SEED + 2)
     vocab = model.module.layers[0].vocab_size
     for _ in range(4):
@@ -719,10 +770,11 @@ def profile_serving(model, device):
                 and e.self_device_time_total > 0]
     kernels_.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels_) / 1e3 / n_prof
-    print(f"profile: steady decode, 4 slots, contexts ~260-300: "
+    n_kernels = sum(e.count for e in kernels_) / n_prof
+    print(f"profile ({label}): steady decode, 4 slots, contexts ~260-300: "
           f"{step_ms:.2f} ms/step wall (profiler off); device busy "
           f"{busy_ms:.2f} ms/step = {100 * busy_ms / step_ms:.1f}% of the "
-          f"step", flush=True)
+          f"step; {n_kernels:.0f} CUDA kernel launches a step", flush=True)
     for e in kernels_[:10]:
         print(f"profile:   {e.self_device_time_total / 1e3 / n_prof:7.3f} "
               f"ms/step  x{e.count // n_prof:<4d} {e.key[:72]}", flush=True)
@@ -2029,14 +2081,17 @@ def qmm_phase(dev, bits):
             ms = graph_ms(lambda: quant_matmul(x, wq))
             plain_ms = graph_ms(lambda: reference_matmul(x, wq), iters=10)
             lib_ms = graph_ms(lambda: torch.matmul(x, w_bf16))
+            pack = "" if bits == 4 else _int8pack_ms(x, wq, k, n)
             wbytes = k * n // (2 if bits == 4 else 1)
             nbytes = wbytes + 4 * n + 2 * m * k + 4 * m * n
             bms, by = bound_ms(2.0 * m * k * n, nbytes, PEAK_BF16_FLOPS)
             case = f"{label} M{m}"
             print(f"{name} {case}: max_abs_err {err:.3e}, rel {rel:.2e} "
                   f"(tol {QMM_TOL}); kernel {ms:.4f} ms (graph replay), "
-                  f"plain {plain_ms:.4f} ms, torch.matmul bf16 weight "
-                  f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+                  f"{nbytes / ms / 1e6:.0f} GB/s, {100 * bms / ms:.1f}% of "
+                  f"the bound; plain {plain_ms:.4f} ms, torch.matmul bf16 "
+                  f"weight {lib_ms:.4f} ms{pack}, bound {bms:.4f} ms ({by})",
+                  flush=True)
             if not rel <= QMM_TOL:
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version on {case}")
@@ -2046,6 +2101,23 @@ def qmm_phase(dev, bits):
     if not torch.equal(quant_matmul(x, wq), quant_matmul(x, wq)):
         raise AssertionError(f"{name} is not bitwise repeatable")
     return rows
+
+
+def _int8pack_ms(x, wq, k, n) -> str:
+    """The int8 yardstick (never called by the port):
+    ``torch._weight_int8pack_mm`` computes ``(x @ q) * scale`` from the
+    same bytes, transposed to ``[N, K]`` outside the timing, where this
+    card's torch runs it on CUDA; graph replay."""
+    qt = wq["q"].reshape(k, n).t().contiguous()
+    sc = wq["scale"].reshape(n).to(x.dtype)
+    try:
+        torch._weight_int8pack_mm(x, qt, sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        return (f", torch._weight_int8pack_mm does not run on CUDA here "
+                f"({str(exc).splitlines()[0][:60]})")
+    ms = graph_ms(lambda: torch._weight_int8pack_mm(x, qt, sc))
+    return f", torch._weight_int8pack_mm {ms:.4f} ms"
 
 
 # --- phase 16: the fused sampling epilogue (K4) -----------------------------
@@ -3571,6 +3643,7 @@ def main() -> int:
     qmm_rows = {bits: qmm_phase(dev, bits) for bits in (8, 4)}
     k4_rows = k4_phase(dev)
     wq_launches = wq_phase(gen_model, card, serve_summary)
+    profile_serving(gen_model, dev, "int8 weights", weight_quant="int8")
     gen_wq_launches = generate_wq_phase(gen_model, card, gen_prompts)
     del gen_model, model
     gc.collect()

@@ -8,9 +8,10 @@
 // table entries, and the quantized pages: for int8 and int4 the score is
 // multiplied by k_scale[pos] after the D contraction, l accumulates the
 // unscaled probabilities, which are multiplied by v_scale[pos] before the
-// value sum (the Pallas order, :212-235). An int4 page holds page_len/2
-// byte rows: byte row r carries position r in its low nibble and
-// position r + page_len/2 in its high nibble (`_unpack4` :116).
+// value sum (the Pallas order, :212-235); float pages round the
+// probabilities to the page dtype before the value sum. An int4 page
+// holds page_len/2 byte rows: byte row r carries position r in its low
+// nibble and position r + page_len/2 in its high nibble (`_unpack4` :116).
 //
 // K3-anc, the tree ancestor mask of tree speculation (the Pallas `anc`
 // operand, `_kernel` :177-195), is a template flag on the same kernel,
@@ -19,68 +20,80 @@
 // position t + j iff anc[s, i, j]; with SWA each row's own position is
 // t + depth, depth = the row's ancestor count - 1. The slot's W x W mask
 // is staged once per block as one 64-bit word per window row (W*G <= 64
-// rows per kv head, so W <= 64). Everything else -- the pages walked
-// ((t - window, t + W - 1]), the arithmetic, the rounding points -- is
-// the window-causal kernel's, so a lower-triangular anc gives bitwise
-// its output.
+// rows per kv head, so W <= 64). Everything else -- the split plan, the
+// pages walked ((t - window, t + W - 1]), the arithmetic, the merge order
+// -- is the window-causal kernel's, so a lower-triangular anc gives
+// bitwise its output.
 //
 // Bound on this card: the bytes of the live K and V pages it must read
 // (payload and scale planes, plus q and out) at 3.35 TB/s; a decode step
 // does 4*W*G*D operations per cached position, far below the card's
 // operations-per-byte balance.
 //
-// Design (simple and right first):
-//   * one block of 128 threads per (slot, kv head); a loop inside the
-//     block walks the slot's logical pages, a chunk of up to 128
-//     positions (several pages) per step, reading table[s, p] itself;
-//   * a page is skipped BEFORE any address is formed when its entry is
-//     >= N (the unallocated sentinel; free slots carry a position past
-//     capacity), when it starts past t + W - 1, or when it ends at or
-//     before t - window. The TPU kernel clamped the index instead; here
-//     an unclamped index would read out of bounds;
-//   * the W*G query rows that share one kv head are scored together
-//     against the staged chunk (scores in float32), masked with
-//     pos <= t + row/G (and pos > t + row/G - window) using the finite
-//     NEG_INF, folded into a per-row online softmax (m, l, acc in
-//     shared memory); probabilities are rounded to the page dtype before
-//     the P.V sum (float pages) or scaled by v_scale (quantized pages);
-//     the l == 0 guard makes a row with no live key 0;
-//   * quantized pages are staged with 16-byte loads of 16 int8 (int8:
-//     16 dims of one position; int4: 16 dims of one byte row, i.e. of
-//     two positions half a page apart), converted to float32 in shared
-//     memory beside the chunk's scale planes. The quantized variants are
-//     separate instantiations with their own exported launchers.
-// Each thread issues four 16-byte loads of K and four of V before it
-// uses any, but each chunk still waits for its own loads and only one
-// block works on a (slot, head): the kernel is latency bound rather
-// than at the card's memory rate. Splitting a long context over several
-// blocks (as csrc/decode_attention.cu does) and prefetching the next
-// chunk are later work.
+// Design (flash-decoding over logical pages):
+//   * the grid is (slot, kv head, split): split z owns the table's
+//     logical pages [z * pps, (z + 1) * pps). nsplit and pps come from
+//     the shapes and the SM count alone (ops/paged_attention.py
+//     `split_plan`), never from t, so a decode step needs no device-to-host
+//     read and can be captured in a CUDA graph;
+//   * a split clips its pages to the slot's live range first; one that
+//     keeps none exits before it forms a page address (every split knows
+//     from t which splits are live, so nothing waits on it). A page whose
+//     entry is >= N (the unallocated sentinel; free slots carry a
+//     position past capacity) is skipped the same way;
+//   * a split walks its pages in chunks of CK positions. The page ids
+//     come from the table into shared memory once; each chunk's K and V
+//     payload rows (and scale planes) arrive by 16-byte (4-byte) cp.async
+//     into a ring of kStages (2) buffers, the next chunk loading while one
+//     is scored. About 8 KB of K (and of V) a chunk keeps the block small
+//     enough for five or six to share an SM, which hides the latency
+//     better than a deeper ring (4 buffers: 0.0355 against 0.0285 ms at
+//     phase 4's bf16 W1, PERF.md);
+//   * scoring: a thread owns one position of the chunk and every query
+//     row (rows of the W*G that share the kv head), reads its key 8 dims
+//     at a time from the staged bytes (bf16 by a shift, int8 and int4 by
+//     the byte permute of dequant.cuh, no I2F: modelled for every value
+//     in tests/test_torch_conversion.py) and keeps q in shared
+//     memory; the masks use the finite NEG_INF. Each warp reduces its
+//     32 positions' maximum and probability sum by shuffles, so every
+//     thread takes part in the online softmax; the per-row state (m, l)
+//     lives in shared memory and takes a chunk's partial maxima and sums
+//     while the next chunk is scored;
+//   * P.V: a thread owns 8 output dims of one row and a strided subset of
+//     the chunk's positions, its sums kept in registers across chunks
+//     (rescaled by each chunk's alpha) and added in a fixed order at the
+//     end;
+//   * merge: each live split writes its (m, l, acc) for every row; the
+//     last live split of a (slot, head) to arrive (a counter per (slot,
+//     head) in a workspace allocated once per device, reset by that
+//     split) merges them in split order through their log-sum-exps (M =
+//     max m_i over splits with l_i > 0, L = sum l_i e^(m_i - M), acc
+//     likewise) and writes the output; the l == 0 guard makes a row with
+//     no live key 0. One launch per call; a single live split writes the
+//     output itself, the merge of one split bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dequant.cuh"
+#include "sm90.cuh"
+
 namespace {
 
+using sm90::cp_async16;
+using sm90::cp_async_commit;
+using sm90::cp_async_wait;
+using sm90::smem_u32;
+
 constexpr int NT = 128;
-constexpr int NWARP = NT / 32;
-constexpr int kChunkPositions = 128;        // positions staged per step
-constexpr size_t kSmemLimit = 200 * 1024;   // of the 227 KB a block may use
+constexpr int kMaxRows = 64;                // W * G per kv head
+constexpr int kMaxSplitPages = 512;         // pps, the page ids staged
+constexpr int kStages = 2;                  // chunks in the ring
 constexpr float kNegInf = -0.7f * 3.4028234663852886e38f;
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) {
-  return static_cast<float>(x);
-}
+// page payload kinds: float32/bfloat16 pages (T), int8 pages, packed int4
+enum Quant { kFloat = 0, kInt8 = 8, kInt4 = 4 };
 
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return x;
@@ -90,20 +103,79 @@ template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// a 4-bit two's-complement nibble as a float
-__device__ __forceinline__ float nibble(int b) {
-  return static_cast<float>(b > 7 ? b - 16 : b);
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
-// page payload kinds: float32/bfloat16 pages (T), int8 pages, packed int4
-enum Quant { kFloat = 0, kInt8 = 8, kInt4 = 4 };
+// the kernel's geometry for one page type and head dim
+template <typename T, int D, int QUANT>
+struct Geo {
+  static constexpr bool Q = QUANT != kFloat;
+  // bytes of one payload row: a position's D values, or an int4 byte row
+  // (two positions)
+  static constexpr int ROW = QUANT == kInt4 ? D : D * (int)sizeof(T);
+  static constexpr int BPP = QUANT == kInt4 ? D / 2 : ROW;  // per position
+  // about 8 KB of K (and of V) a stage, so more blocks fit an SM; at
+  // least a warp's 32 positions, at most 128
+  static constexpr int CK =
+      8192 / BPP < 32 ? 32 : (8192 / BPP < 128 ? 8192 / BPP : 128);
+  static constexpr int CKR = QUANT == kInt4 ? CK / 2 : CK;  // payload rows
+  static constexpr int ROWB = ROW + 16;                     // staged stride
+  static constexpr int PAY = CKR * ROWB;                    // K (or V) bytes
+  static constexpr int STAGE = 2 * PAY + (Q ? 2 * CK * 4 : 0);
+  static constexpr int P8 = D / 8;                          // 8-dim pieces
+  static constexpr int MAXSL = (kMaxRows * P8 + NT - 1) / NT;
+};
 
-size_t smem_bytes(int R, int CK, int D, bool quant) {
-  const size_t floats = (size_t)R * D + (size_t)CK * (D + 1) +
-                        (size_t)CK * D + (size_t)R * (CK + 1) +
-                        (size_t)R * D + 3 * (size_t)R +
-                        (quant ? 2 * (size_t)CK : 0);
-  return 4 * floats + 4 * (size_t)CK;
+// dims [8p, 8p + 8) of chunk position j from a staged K or V payload
+template <typename T, int D, int QUANT>
+__device__ __forceinline__ void piece8(const uint8_t* pay, int j, int p,
+                                       float (&f)[8]) {
+  using G = Geo<T, D, QUANT>;
+  if constexpr (QUANT == kInt4) {
+    const uint2 w = *reinterpret_cast<const uint2*>(
+        pay + (j % G::CKR) * G::ROWB + 8 * p);
+    const int sh = j >= G::CKR ? 4 : 0;   // high nibble: row + page_len/2
+    const uint32_t a = dq::and_xor(w.x >> sh, dq::kNibble, dq::kSign4);
+    const uint32_t b = dq::and_xor(w.y >> sh, dq::kNibble, dq::kSign4);
+    f[0] = dq::magic<0>(a) - dq::kBias4;
+    f[1] = dq::magic<1>(a) - dq::kBias4;
+    f[2] = dq::magic<2>(a) - dq::kBias4;
+    f[3] = dq::magic<3>(a) - dq::kBias4;
+    f[4] = dq::magic<0>(b) - dq::kBias4;
+    f[5] = dq::magic<1>(b) - dq::kBias4;
+    f[6] = dq::magic<2>(b) - dq::kBias4;
+    f[7] = dq::magic<3>(b) - dq::kBias4;
+  } else if constexpr (QUANT == kInt8) {
+    const uint2 w =
+        *reinterpret_cast<const uint2*>(pay + j * G::ROWB + 8 * p);
+    float a[4], b[4];
+    dq::int8x4(w.x, a);
+    dq::int8x4(w.y, b);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f[e] = a[e];
+      f[4 + e] = b[e];
+    }
+  } else if constexpr (sizeof(T) == 2) {
+    const uint4 w =
+        *reinterpret_cast<const uint4*>(pay + j * G::ROWB + 16 * p);
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f[2 * e] = __uint_as_float(u[e] << 16);
+      f[2 * e + 1] = __uint_as_float(u[e] & 0xffff0000u);
+    }
+  } else {
+    const float4* r =
+        reinterpret_cast<const float4*>(pay + j * G::ROWB + 32 * p);
+    const float4 a = r[0], b = r[1];
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  }
 }
 
 template <typename T, int D, int QUANT, bool ANC>
@@ -113,351 +185,517 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
                     const float* __restrict__ vsp, const int* __restrict__ t,
                     const int* __restrict__ table,
                     const uint8_t* __restrict__ anc, float* __restrict__ o,
-                    int W, int Hkv, int G, int PL, int P, int N, int NPC,
-                    float scale, int window) {
-  extern __shared__ float sm[];
+                    float* __restrict__ part_ml, float* __restrict__ part_acc,
+                    int* __restrict__ counters, int W, int Hkv, int G,
+                    int PL, int P, int N, int pps, float scale, int window) {
+  using Gm = Geo<T, D, QUANT>;
+  constexpr bool Q = Gm::Q;
+  constexpr int CK = Gm::CK, CKR = Gm::CKR, P8 = Gm::P8;
+  constexpr int NPW = CK / 32;           // warps a row's positions span
+  extern __shared__ __align__(16) uint8_t smem[];
   // tree mask (ANC): bit j of AncBits[i] = anc[s, i, j]; Depth[i] =
   // popcount - 1, the row's own position offset
-  __shared__ unsigned long long AncBits[ANC ? 64 : 1];
-  __shared__ int Depth[ANC ? 64 : 1];
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int LOADS_IN_FLIGHT = 4;
-  constexpr bool Q = QUANT != kFloat;
+  __shared__ unsigned long long AncBits[ANC ? kMaxRows : 1];
+  __shared__ int Depth[ANC ? kMaxRows : 1];
+  __shared__ int Pid[kMaxSplitPages];
+  __shared__ int last;
   const int R = W * G;
-  const int CK = NPC * PL;
-  float* Qs = sm;                     // [R][D]
-  float* Ks = Qs + R * D;             // [CK][D+1]
-  float* Vs = Ks + CK * (D + 1);      // [CK][D]
-  float* Ss = Vs + CK * D;            // [R][CK+1]
-  float* Acc = Ss + R * (CK + 1);     // [R][D]
-  float* Ms = Acc + R * D;            // [R]
-  float* Ls = Ms + R;                 // [R]
-  float* As = Ls + R;                 // [R]
-  float* KSc = As + R;                // [CK] (quantized pages only)
-  float* VSc = KSc + (Q ? CK : 0);    // [CK]
-  int* Pid = reinterpret_cast<int*>(VSc + (Q ? CK : 0));  // [NPC]
+  uint8_t* stage0 = smem;                             // kStages x STAGE
+  float* Qs = reinterpret_cast<float*>(smem + kStages * Gm::STAGE);  // [R][D]
+  float* Ss = Qs + R * D;                                   // [R][CK+1]
+  float* Ms = Ss + R * (CK + 1);                            // [R]
+  float* Ls = Ms + R;
+  // each warp's max and sum over its 32 positions of a chunk, by chunk
+  // parity: [2][R][NPW]
+  float* Mp = Ls + R;
+  float* Lp = Mp + 2 * R * NPW;
 
-  const int s = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
+  const int nsplit = gridDim.z;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int ts = t[s];
-
-  for (int i = tid; i < R * D; i += NT) {
-    const int r = i / D, d = i % D, w = r / G, g = r % G;
-    Qs[i] = q[((((long long)s * W + w) * Hkv + h) * G + g) * D + d];
-    Acc[i] = 0.f;
-  }
-  for (int r = tid; r < R; r += NT) {
-    Ms[r] = kNegInf;
-    Ls[r] = 0.f;
-  }
-  if constexpr (ANC) {
-    for (int i = tid; i < W; i += NT) {
-      const uint8_t* row = anc + ((long long)s * W + i) * W;
-      unsigned long long bits = 0ull;
-      for (int j = 0; j < W; ++j)
-        if (row[j]) bits |= 1ull << j;
-      AncBits[i] = bits;
-      Depth[i] = __popcll(bits) - 1;
-    }
-  }
+  const long long sh = (long long)s * Hkv + h;
 
   // logical pages any window row can reach: positions (t - window, t+W-1]
   const long long hi = (long long)ts + W - 1;
-  const long long last = hi / PL + 1;
-  const int p_end = hi < 0 ? 0 : (last < P ? (int)last : P);
+  const long long lastp = hi / PL + 1;
+  const int p_end = hi < 0 ? 0 : (lastp < P ? (int)lastp : P);
   int p_begin = 0;
   if (window > 0) {
     const long long lo = (long long)ts - window + 1;
     const long long first = lo / PL;
     p_begin = lo <= 0 ? 0 : (first < P ? (int)first : P);
   }
+  const int pb = max(p_begin, sp * pps);
+  const int pe = min(p_end, (sp + 1) * pps);
 
-  for (int c0 = p_begin; c0 < p_end; c0 += NPC) {
-    __syncthreads();  // the previous chunk's readers are done
-    if (tid < NPC) {
-      const int lp = c0 + tid;
-      int pid = -1;
-      if (lp < p_end) {
-        const int e = table[(long long)s * P + lp];
-        if (e >= 0 && e < N) pid = e;
+  // the splits that hold live pages: z0 .. z0 + nlive - 1. A split
+  // outside them forms no address and writes nothing; with none at all,
+  // split 0 writes the rows' zeros. One live split writes the output
+  // itself (what the merge of one split would give, bit for bit)
+  const int z0 = p_begin / pps;
+  const int nlive = p_begin < p_end ? (p_end - 1) / pps - z0 + 1 : 0;
+  const bool direct = nlive == 1;
+  float* ml = part_ml + ((sh * nsplit + sp) * R) * 2;
+  if (pb >= pe) {
+    if (nlive == 0 && sp == 0)
+      for (int i = tid; i < R * D; i += NT) {
+        const int r = i / D, d = i % D, w = r / G, g = r % G;
+        o[((((long long)s * W + w) * Hkv + h) * G + g) * D + d] = 0.f;
       }
-      Pid[tid] = pid;
+    return;
+  } else {
+    for (int i = tid; i < pe - pb; i += NT) {
+      const int e = table[(long long)s * P + pb + i];
+      Pid[i] = e >= 0 && e < N ? e : -1;
+    }
+    for (int i = tid; i < R * D; i += NT) {
+      const int r = i / D, d = i % D, w = r / G, g = r % G;
+      Qs[i] = q[((((long long)s * W + w) * Hkv + h) * G + g) * D + d];
+    }
+    for (int r = tid; r < R; r += NT) {
+      Ms[r] = kNegInf;
+      Ls[r] = 0.f;
+    }
+    if constexpr (ANC) {
+      for (int i = tid; i < W; i += NT) {
+        const uint8_t* row = anc + ((long long)s * W + i) * W;
+        unsigned long long bits = 0ull;
+        for (int j = 0; j < W; ++j)
+          if (row[j]) bits |= 1ull << j;
+        AncBits[i] = bits;
+        Depth[i] = __popcll(bits) - 1;
+      }
     }
     __syncthreads();
-    // stage the chunk: 16-byte loads, LOADS_IN_FLIGHT per thread issued
-    // before any is used, so one memory latency covers several. A load
-    // covers VEC dims of one position, or for int4 16 dims of one byte
-    // row (two positions half a page apart)
-    const int PR = QUANT == kInt4 ? PL / 2 : PL;  // payload rows per page
-    const int NL = NPC * PR * D / VEC;
-    for (int base = tid; base < NL; base += NT * LOADS_IN_FLIGHT) {
-      uint4 kr[LOADS_IN_FLIGHT], vr[LOADS_IN_FLIGHT];
-#pragma unroll
-      for (int u = 0; u < LOADS_IN_FLIGHT; ++u) {
-        kr[u] = make_uint4(0u, 0u, 0u, 0u);
-        vr[u] = kr[u];
-        const int i = base + u * NT;
-        if (i < NL) {
-          const int j = i * VEC / D, d = i * VEC % D;
-          const int pid = Pid[j / PR];
-          if (pid >= 0) {
-            const long long off =
-                (((long long)pid * Hkv + h) * PR + (j % PR)) * D + d;
-            kr[u] = *reinterpret_cast<const uint4*>(kp + off);
-            vr[u] = *reinterpret_cast<const uint4*>(vp + off);
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < LOADS_IN_FLIGHT; ++u) {
-        const int i = base + u * NT;
-        if (i < NL) {
-          const int j = i * VEC / D, d = i * VEC % D;
-          const T* kx = reinterpret_cast<const T*>(&kr[u]);
-          const T* vx = reinterpret_cast<const T*>(&vr[u]);
-          if (QUANT == kInt4) {
-            // byte row j % PR of page slot j / PR: low nibble = position
-            // row, high nibble = position row + PL/2
-            const int lo_pos = (j / PR) * PL + (j % PR);
-            const int hi_pos = lo_pos + PR;
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) {
-              const int kb = static_cast<int>(kx[e]) & 255;
-              const int vb = static_cast<int>(vx[e]) & 255;
-              Ks[lo_pos * (D + 1) + d + e] = nibble(kb & 15);
-              Ks[hi_pos * (D + 1) + d + e] = nibble(kb >> 4);
-              Vs[lo_pos * D + d + e] = nibble(vb & 15);
-              Vs[hi_pos * D + d + e] = nibble(vb >> 4);
-            }
-          } else {
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) {
-              Ks[j * (D + 1) + d + e] = to_f<T>(kx[e]);
-              Vs[j * D + d + e] = to_f<T>(vx[e]);
-            }
-          }
-        }
-      }
-    }
-    if (Q) {
-      for (int j = tid; j < CK; j += NT) {
-        const int pid = Pid[j / PL];
+
+    // payload rows of the split: u in [u_begin, u_end), row u of logical
+    // page u / PR at page row u % PR
+    const int PR = QUANT == kInt4 ? PL / 2 : PL;
+    const int u_begin = pb * PR, u_end = pe * PR;
+    const int nchunks = (u_end - u_begin + CKR - 1) / CKR;
+
+    auto issue = [&](int c) {
+      uint8_t* st = stage0 + (c % kStages) * Gm::STAGE;
+      const int u0 = u_begin + c * CKR;
+      constexpr int PIECES = Gm::ROW / 16;
+      for (int i = tid; i < CKR * PIECES; i += NT) {
+        const int rr = i / PIECES, pc = i % PIECES;
+        const int u = u0 + rr;
+        const int pid = u < u_end ? Pid[u / PR - pb] : -1;
         const long long off =
-            ((long long)(pid < 0 ? 0 : pid) * Hkv + h) * PL + (j % PL);
-        KSc[j] = pid >= 0 ? ksp[off] : 0.f;
-        VSc[j] = pid >= 0 ? vsp[off] : 0.f;
+            (((long long)(pid < 0 ? 0 : pid) * Hkv + h) * PR + u % PR) *
+                Gm::ROW + 16 * pc;
+        const int bytes = pid >= 0 ? 16 : 0;
+        const uint8_t* kb = reinterpret_cast<const uint8_t*>(kp);
+        const uint8_t* vb = reinterpret_cast<const uint8_t*>(vp);
+        cp_async16(smem_u32(st + rr * Gm::ROWB + 16 * pc), kb + off, bytes);
+        cp_async16(smem_u32(st + Gm::PAY + rr * Gm::ROWB + 16 * pc),
+                   vb + off, bytes);
       }
-    }
-    __syncthreads();
-    for (int i = tid; i < R * CK; i += NT) {
-      const int r = i / CK, j = i % CK;
-      const int pg = j / PL;
-      float x = kNegInf;
-      if (Pid[pg] >= 0) {
-        float dot = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d)
-          dot = fmaf(Qs[r * D + d], Ks[j * (D + 1) + d], dot);
-        const int pos = (c0 + pg) * PL + (j % PL);
-        const int jw = r / G;
-        bool ok;
-        if constexpr (ANC) {
-          const int rel = pos - ts;
-          ok = rel < 0 || (rel < W && ((AncBits[jw] >> rel) & 1ull));
-          if (window > 0) ok = ok && pos > ts + Depth[jw] - window;
-        } else {
-          ok = pos <= ts + jw;
-          if (window > 0) ok = ok && pos > ts + jw - window;
+      if constexpr (Q) {
+        float* ksc = reinterpret_cast<float*>(st + 2 * Gm::PAY);
+        for (int j = tid; j < CK; j += NT) {
+          const int u = u0 + j % CKR;
+          const int pid = u < u_end ? Pid[u / PR - pb] : -1;
+          const int pip = u % PR + (j >= CKR ? PR : 0);
+          const long long off =
+              ((long long)(pid < 0 ? 0 : pid) * Hkv + h) * PL + pip;
+          const int bytes = pid >= 0 ? 4 : 0;
+          cp_async4(smem_u32(ksc + j), ksp + off, bytes);
+          cp_async4(smem_u32(ksc + CK + j), vsp + off, bytes);
         }
-        if (Q) dot = dot * scale * KSc[j];
-        else dot = dot * scale;
-        x = ok ? dot : kNegInf;
       }
-      Ss[r * (CK + 1) + j] = x;
+    };
+
+    // P.V ownership: slot i = (position group pg, row r, piece); PG
+    // position groups when the rows' pieces leave threads idle
+    const int pairs = R * P8;
+    int PG = 1;
+    while (2 * PG * pairs <= NT && 2 * PG <= CK) PG *= 2;
+    const int slots = pairs * PG;
+    float acc[Gm::MAXSL][8];
+#pragma unroll
+    for (int k = 0; k < Gm::MAXSL; ++k)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[k][e] = 0.f;
+
+    const int nrs = NT / CK;                  // row subsets a position has
+    const int jpos = tid % CK, rsub = tid / CK, wpos = jpos / 32;
+
+    // chunk c's running max of row r, and the factor its sums take
+    auto m_of = [&](int par, int r) {
+      float m = Ms[r];
+#pragma unroll
+      for (int w = 0; w < NPW; ++w) m = fmaxf(m, Mp[(par * R + r) * NPW + w]);
+      return m;
+    };
+    // fold chunk parity `par`'s partial maxima and sums into (Ms, Ls)
+    auto fold = [&](int par) {
+      for (int r = tid; r < R; r += NT) {
+        const float m = m_of(par, r);
+        float l = Ls[r] * __expf(Ms[r] - m);
+#pragma unroll
+        for (int w = 0; w < NPW; ++w) l += Lp[(par * R + r) * NPW + w];
+        Ms[r] = m;
+        Ls[r] = l;
+      }
+    };
+
+    // the ring: chunks issued kStages - 1 ahead of the one being scored
+#pragma unroll
+    for (int c = 0; c < kStages - 1; ++c) {
+      if (c < nchunks) issue(c);
+      cp_async_commit();
+    }
+    for (int c = 0; c < nchunks; ++c) {
+      const int par = c & 1;
+      cp_async_wait<kStages - 2>();
+      __syncthreads();
+      if (c + kStages - 1 < nchunks) issue(c + kStages - 1);
+      cp_async_commit();
+      if (c > 0) fold(par ^ 1);
+      const uint8_t* st = stage0 + (c % kStages) * Gm::STAGE;
+      const float* ksc = reinterpret_cast<const float*>(st + 2 * Gm::PAY);
+
+      // scores of chunk position jpos for the rows of this row subset,
+      // and each warp's maximum of them
+      const int j = jpos;
+      const int u = u_begin + c * CKR + j % CKR;
+      const bool live = u < u_end && Pid[u / PR - pb] >= 0;
+      const int pos = (u / PR) * PL + u % PR + (j >= CKR ? PR : 0);
+      for (int r0 = 4 * rsub; r0 < R; r0 += 4 * nrs) {
+        float dot[4] = {0.f, 0.f, 0.f, 0.f};
+        if (live) {
+#pragma unroll 2
+          for (int p = 0; p < P8; ++p) {
+            float kv[8];
+            piece8<T, D, QUANT>(st, j, p, kv);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (r0 + i < R) {
+                const float4* qr =
+                    reinterpret_cast<const float4*>(Qs + (r0 + i) * D + 8 * p);
+                const float4 a = qr[0], b = qr[1];
+                float x = dot[i];
+                x = fmaf(a.x, kv[0], x);
+                x = fmaf(a.y, kv[1], x);
+                x = fmaf(a.z, kv[2], x);
+                x = fmaf(a.w, kv[3], x);
+                x = fmaf(b.x, kv[4], x);
+                x = fmaf(b.y, kv[5], x);
+                x = fmaf(b.z, kv[6], x);
+                x = fmaf(b.w, kv[7], x);
+                dot[i] = x;
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + i;
+          if (r >= R) break;
+          const int jw = r / G;
+          bool ok;
+          if constexpr (ANC) {
+            const int rel = pos - ts;
+            ok = rel < 0 || (rel < W && ((AncBits[jw] >> rel) & 1ull));
+            if (window > 0) ok = ok && pos > ts + Depth[jw] - window;
+          } else {
+            ok = pos <= ts + jw;
+            if (window > 0) ok = ok && pos > ts + jw - window;
+          }
+          float x = dot[i] * scale;
+          if (Q) x = x * ksc[j];
+          x = live && ok ? x : kNegInf;
+          Ss[r * (CK + 1) + j] = x;
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+          if (lane == 0) Mp[(par * R + r) * NPW + wpos] = x;
+        }
+      }
+      __syncthreads();
+
+      // the probabilities (rounded to the page dtype, or times v_scale)
+      // and each warp's sum of them
+      for (int r0 = 4 * rsub; r0 < R; r0 += 4 * nrs) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + i;
+          if (r >= R) break;
+          float p = live ? __expf(Ss[r * (CK + 1) + j] - m_of(par, r)) : 0.f;
+          Ss[r * (CK + 1) + j] = Q ? p * ksc[CK + j] : round_to<T>(p);
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            p += __shfl_xor_sync(0xffffffffu, p, off);
+          if (lane == 0) Lp[(par * R + r) * NPW + wpos] = p;
+        }
+      }
+      __syncthreads();
+
+      // P.V into the slots' registers
+      const uint8_t* vpay = st + Gm::PAY;
+#pragma unroll
+      for (int k = 0; k < Gm::MAXSL; ++k) {
+        const int i = tid + k * NT;
+        if (i < slots) {
+          const int piece = i % P8, rest = i / P8;
+          const int r = rest % R, pg = rest / R;
+          const float alpha = __expf(Ms[r] - m_of(par, r));
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[k][e] *= alpha;
+          const float* pr = Ss + r * (CK + 1);
+          for (int jj = pg; jj < CK; jj += PG) {
+            const float p = pr[jj];
+            float v[8];
+            piece8<T, D, QUANT>(vpay, jj, piece, v);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[k][e] = fmaf(p, v[e], acc[k][e]);
+          }
+        }
+      }
+    }
+    __syncthreads();            // the last chunk's P.V has read Ms
+    if (nchunks > 0) fold((nchunks - 1) & 1);
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // the position groups' sums, in group order, through the free buffers
+    float* red = reinterpret_cast<float*>(stage0);
+#pragma unroll
+    for (int k = 0; k < Gm::MAXSL; ++k) {
+      const int i = tid + k * NT;
+      if (i < slots)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) red[i * 8 + e] = acc[k][e];
     }
     __syncthreads();
-    for (int r = warp; r < R; r += NWARP) {
-      float mx = kNegInf;
-      for (int j = lane; j < CK; j += 32)
-        if (Pid[j / PL] >= 0) mx = fmaxf(mx, Ss[r * (CK + 1) + j]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = Ms[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < CK; j += 32) {
-        float p = 0.f;
-        if (Pid[j / PL] >= 0) p = expf(Ss[r * (CK + 1) + j] - m_new);
-        sum += p;
-        Ss[r * (CK + 1) + j] = Q ? p * VSc[j] : round_to<T>(p);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        Ls[r] = Ls[r] * alpha + sum;
-        Ms[r] = m_new;
-        As[r] = alpha;
-      }
-    }
-    __syncthreads();
+    float* pacc = part_acc + (sh * nsplit + sp) * R * D;
     for (int i = tid; i < R * D; i += NT) {
       const int r = i / D, d = i % D;
-      float a = Acc[i] * As[r];
-      const float* pr = Ss + r * (CK + 1);
-      for (int j = 0; j < CK; ++j) a = fmaf(pr[j], Vs[j * D + d], a);
-      Acc[i] = a;
+      float a = 0.f;
+      for (int pg = 0; pg < PG; ++pg)
+        a += red[((pg * R + r) * P8 + d / 8) * 8 + d % 8];
+      if (!direct) {
+        pacc[i] = a;
+      } else {
+        const int w = r / G, g = r % G;
+        const float l = Ls[r];
+        o[((((long long)s * W + w) * Hkv + h) * G + g) * D + d] =
+            a / (l == 0.f ? 1.f : l);
+      }
     }
+    if (!direct)
+      for (int r = tid; r < R; r += NT) {
+        ml[2 * r] = Ms[r];
+        ml[2 * r + 1] = Ls[r];
+      }
+  }
+  if (direct) return;
+
+  // the last live split of this (slot, head) to arrive merges them all
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&counters[sh], 1) == nlive - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float* wt = reinterpret_cast<float*>(stage0);     // [nlive][R] weights
+  float* lsum = wt + nlive * R;                     // [R]
+  const float* mlb = part_ml + (sh * nsplit + z0) * R * 2;
+  for (int r = tid; r < R; r += NT) {
+    bool any = false;
+    float M = kNegInf;
+    for (int z = 0; z < nlive; ++z) {
+      const float l = __ldcg(mlb + (z * R + r) * 2 + 1);
+      if (l > 0.f) {
+        const float m = __ldcg(mlb + (z * R + r) * 2);
+        M = any ? fmaxf(M, m) : m;
+        any = true;
+      }
+    }
+    float L = 0.f;
+    for (int z = 0; z < nlive; ++z) {
+      const float l = __ldcg(mlb + (z * R + r) * 2 + 1);
+      float w = 0.f;
+      if (l > 0.f) {
+        w = expf(__ldcg(mlb + (z * R + r) * 2) - M);
+        L += l * w;
+      }
+      wt[z * R + r] = w;
+    }
+    lsum[r] = L;
   }
   __syncthreads();
+  const float* accb = part_acc + (sh * nsplit + z0) * R * D;
   for (int i = tid; i < R * D; i += NT) {
     const int r = i / D, d = i % D, w = r / G, g = r % G;
-    const float l = Ls[r];
+    float a = 0.f;
+    for (int z = 0; z < nlive; ++z) {
+      const float wz = wt[z * R + r];
+      if (wz != 0.f) a += wz * __ldcg(accb + (long long)z * R * D + i);
+    }
+    const float l = lsum[r];
     o[((((long long)s * W + w) * Hkv + h) * G + g) * D + d] =
-        Acc[i] / (l == 0.f ? 1.f : l);
+        a / (l == 0.f ? 1.f : l);
   }
+  if (tid == 0) counters[sh] = 0;
+}
+
+size_t smem_bytes(size_t stage, int R, int D, int CK) {
+  return kStages * stage + 4 * ((size_t)R * D + (size_t)R * (CK + 1) +
+                          2 * (size_t)R + 4 * (size_t)R * (CK / 32));
 }
 
 template <typename T, int D, int QUANT, bool ANC>
 cudaError_t launch(const float* q, const void* kp, const void* vp,
                    const float* ksp, const float* vsp, const int* t,
-                   const int* table, const uint8_t* anc, float* o, int S,
-                   int W, int Hkv, int G, int PL, int P, int N, float scale,
-                   int window, cudaStream_t stream) {
-  constexpr bool Q = QUANT != kFloat;
+                   const int* table, const uint8_t* anc, float* o,
+                   float* ml, float* acc, int* cnt, int S, int W, int Hkv,
+                   int G, int PL, int P, int N, int nsplit, int pps,
+                   float scale, int window, cudaStream_t stream) {
+  using Gm = Geo<T, D, QUANT>;
   if (QUANT == kInt4 && PL % 2) return cudaErrorInvalidValue;
-  if (W * G > 64 || (ANC && anc == nullptr)) return cudaErrorInvalidValue;
-  // pages staged per step: as many as fit kChunkPositions positions,
-  // halved until the block's shared memory fits kSmemLimit
-  int NPC = PL < kChunkPositions ? kChunkPositions / PL : 1;
-  while (NPC > 1 && smem_bytes(W * G, NPC * PL, D, Q) > kSmemLimit)
-    NPC /= 2;
-  const size_t smem = smem_bytes(W * G, NPC * PL, D, Q);
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  if (W * G > kMaxRows || (ANC && anc == nullptr) || pps < 1 ||
+      pps > kMaxSplitPages || nsplit < 1 || (long long)nsplit * pps < P ||
+      (nsplit > 1 && (ml == nullptr || acc == nullptr || cnt == nullptr)))
+    return cudaErrorInvalidValue;
+  // the merge's weights ([nsplit][R] + [R]) reuse the stage buffers
+  if ((size_t)(nsplit + 1) * W * G * 4 > kStages * (size_t)Gm::STAGE)
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(Gm::STAGE, W * G, D, Gm::CK);
   auto kern = paged_decode_kernel<T, D, QUANT, ANC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(S, Hkv);
+  dim3 grid(S, Hkv, nsplit);
   kern<<<grid, NT, smem, stream>>>(
       q, static_cast<const T*>(kp), static_cast<const T*>(vp), ksp, vsp, t,
-      table, anc, o, W, Hkv, G, PL, P, N, NPC, scale, window);
+      table, anc, o, ml, acc, cnt, W, Hkv, G, PL, P, N, pps, scale, window);
   return cudaGetLastError();
 }
 
+struct Args {
+  const float* q;
+  const void* kp;
+  const void* vp;
+  const float* ks;
+  const float* vs;
+  const int* t;
+  const int* table;
+  const uint8_t* anc;
+  float* o;
+  float* ml;
+  float* acc;
+  int* cnt;
+  int S, W, Hkv, G, D, PL, P, N, nsplit, pps;
+  float scale;
+  int window;
+  cudaStream_t st;
+};
+
 template <typename T, int QUANT, bool ANC>
-cudaError_t dispatch_d(int D, const float* q, const void* kp,
-                       const void* vp, const float* ksp, const float* vsp,
-                       const int* t, const int* table, const uint8_t* anc,
-                       float* o, int S, int W, int Hkv, int G, int PL, int P,
-                       int N, float scale, int window, cudaStream_t st) {
-  switch (D) {
-    case 32:
-      return launch<T, 32, QUANT, ANC>(q, kp, vp, ksp, vsp, t, table, anc,
-                                       o, S, W, Hkv, G, PL, P, N, scale,
-                                       window, st);
-    case 64:
-      return launch<T, 64, QUANT, ANC>(q, kp, vp, ksp, vsp, t, table, anc,
-                                       o, S, W, Hkv, G, PL, P, N, scale,
-                                       window, st);
-    case 128:
-      return launch<T, 128, QUANT, ANC>(q, kp, vp, ksp, vsp, t, table, anc,
-                                        o, S, W, Hkv, G, PL, P, N, scale,
-                                        window, st);
+int dispatch_d(const Args& a) {
+#define DKT_LAUNCH(DIM)                                                     \
+  case DIM:                                                                 \
+    return launch<T, DIM, QUANT, ANC>(a.q, a.kp, a.vp, a.ks, a.vs, a.t,     \
+                                      a.table, a.anc, a.o, a.ml, a.acc,     \
+                                      a.cnt, a.S, a.W, a.Hkv, a.G, a.PL,    \
+                                      a.P, a.N, a.nsplit, a.pps, a.scale,   \
+                                      a.window, a.st);
+  switch (a.D) {
+    DKT_LAUNCH(32)
+    DKT_LAUNCH(64)
+    DKT_LAUNCH(128)
     default:
       return cudaErrorInvalidValue;
   }
+#undef DKT_LAUNCH
 }
 
 // float32 (dtype 0) or bfloat16 (dtype 1) pages
 template <bool ANC>
-int float_pages(const void* q, const void* kp, const void* vp,
-                const void* t, const void* table, const void* anc, void* o,
-                int dtype, int S, int W, int Hkv, int G, int D, int PL,
-                int P, int N, float scale, int window, void* stream) {
-  const float* qf = static_cast<const float*>(q);
-  const int* ti = static_cast<const int*>(t);
-  const int* tb = static_cast<const int*>(table);
-  const uint8_t* an = static_cast<const uint8_t*>(anc);
-  float* of = static_cast<float*>(o);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float, kFloat, ANC>(D, qf, kp, vp, nullptr, nullptr,
-                                          ti, tb, an, of, S, W, Hkv, G, PL,
-                                          P, N, scale, window, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16, kFloat, ANC>(
-        D, qf, kp, vp, nullptr, nullptr, ti, tb, an, of, S, W, Hkv, G, PL,
-        P, N, scale, window, st);
+int float_pages(const Args& a, int dtype) {
+  if (dtype == 0) return dispatch_d<float, kFloat, ANC>(a);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16, kFloat, ANC>(a);
   return cudaErrorInvalidValue;
 }
 
-// int8 (QUANT kInt8) or packed int4 (kInt4) pages with scale planes
-template <int QUANT, bool ANC>
-int quant_pages(const void* q, const void* kp, const void* vp,
-                const void* ks, const void* vs, const void* t,
-                const void* table, const void* anc, void* o, int S, int W,
-                int Hkv, int G, int D, int PL, int P, int N, float scale,
-                int window, void* stream) {
-  return dispatch_d<int8_t, QUANT, ANC>(
-      D, static_cast<const float*>(q), kp, vp, static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(t),
-      static_cast<const int*>(table), static_cast<const uint8_t*>(anc),
-      static_cast<float*>(o), S, W, Hkv, G, PL, P, N, scale, window,
-      static_cast<cudaStream_t>(stream));
+Args args(const void* q, const void* kp, const void* vp, const void* ks,
+          const void* vs, const void* t, const void* table, const void* anc,
+          void* o, void* ml, void* acc, void* cnt, int S, int W, int Hkv,
+          int G, int D, int PL, int P, int N, int nsplit, int pps,
+          float scale, int window, void* stream) {
+  return Args{static_cast<const float*>(q), kp, vp,
+              static_cast<const float*>(ks), static_cast<const float*>(vs),
+              static_cast<const int*>(t), static_cast<const int*>(table),
+              static_cast<const uint8_t*>(anc), static_cast<float*>(o),
+              static_cast<float*>(ml), static_cast<float*>(acc),
+              static_cast<int*>(cnt), S, W, Hkv, G, D, PL, P, N, nsplit,
+              pps, scale, window, static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
 
+// Every launcher: `ml` ([S, Hkv, nsplit, W*G, 2] float32), `acc` ([S, Hkv,
+// nsplit, W*G, D] float32) and `cnt` (S*Hkv zeroed ints) are the split
+// workspaces, read only when nsplit > 1; split z covers the table's
+// logical pages [z * pps, (z + 1) * pps).
 extern "C" int dkt_paged_decode(const void* q, const void* kp,
                                 const void* vp, const void* t,
-                                const void* table, void* o, int dtype, int S,
+                                const void* table, void* o, void* ml,
+                                void* acc, void* cnt, int dtype, int S,
                                 int W, int Hkv, int G, int D, int PL, int P,
-                                int N, float scale, int window,
-                                void* stream) {
-  return float_pages<false>(q, kp, vp, t, table, nullptr, o, dtype, S, W,
-                            Hkv, G, D, PL, P, N, scale, window, stream);
+                                int N, int nsplit, int pps, float scale,
+                                int window, void* stream) {
+  return float_pages<false>(
+      args(q, kp, vp, nullptr, nullptr, t, table, nullptr, o, ml, acc, cnt,
+           S, W, Hkv, G, D, PL, P, N, nsplit, pps, scale, window, stream),
+      dtype);
 }
 
 // K3-anc, float pages: anc is [S, W, W] bool (one byte per entry)
 extern "C" int dkt_paged_decode_anc(const void* q, const void* kp,
                                     const void* vp, const void* t,
                                     const void* table, const void* anc,
-                                    void* o, int dtype, int S, int W,
-                                    int Hkv, int G, int D, int PL, int P,
-                                    int N, float scale, int window,
+                                    void* o, void* ml, void* acc, void* cnt,
+                                    int dtype, int S, int W, int Hkv, int G,
+                                    int D, int PL, int P, int N, int nsplit,
+                                    int pps, float scale, int window,
                                     void* stream) {
-  return float_pages<true>(q, kp, vp, t, table, anc, o, dtype, S, W, Hkv,
-                           G, D, PL, P, N, scale, window, stream);
+  return float_pages<true>(
+      args(q, kp, vp, nullptr, nullptr, t, table, anc, o, ml, acc, cnt, S,
+           W, Hkv, G, D, PL, P, N, nsplit, pps, scale, window, stream),
+      dtype);
 }
 
 // int8 pages [N, Hkv, PL, D] with float32 scale planes [N, Hkv, PL]
 extern "C" int dkt_paged_decode_q8(const void* q, const void* kp,
                                    const void* vp, const void* ks,
                                    const void* vs, const void* t,
-                                   const void* table, void* o, int S, int W,
+                                   const void* table, void* o, void* ml,
+                                   void* acc, void* cnt, int S, int W,
                                    int Hkv, int G, int D, int PL, int P,
-                                   int N, float scale, int window,
-                                   void* stream) {
-  return quant_pages<kInt8, false>(q, kp, vp, ks, vs, t, table, nullptr, o,
-                                   S, W, Hkv, G, D, PL, P, N, scale, window,
-                                   stream);
+                                   int N, int nsplit, int pps, float scale,
+                                   int window, void* stream) {
+  return dispatch_d<int8_t, kInt8, false>(
+      args(q, kp, vp, ks, vs, t, table, nullptr, o, ml, acc, cnt, S, W, Hkv,
+           G, D, PL, P, N, nsplit, pps, scale, window, stream));
 }
 
 extern "C" int dkt_paged_decode_q8_anc(const void* q, const void* kp,
                                        const void* vp, const void* ks,
                                        const void* vs, const void* t,
                                        const void* table, const void* anc,
-                                       void* o, int S, int W, int Hkv, int G,
-                                       int D, int PL, int P, int N,
-                                       float scale, int window,
-                                       void* stream) {
-  return quant_pages<kInt8, true>(q, kp, vp, ks, vs, t, table, anc, o, S,
-                                  W, Hkv, G, D, PL, P, N, scale, window,
-                                  stream);
+                                       void* o, void* ml, void* acc,
+                                       void* cnt, int S, int W, int Hkv,
+                                       int G, int D, int PL, int P, int N,
+                                       int nsplit, int pps, float scale,
+                                       int window, void* stream) {
+  return dispatch_d<int8_t, kInt8, true>(
+      args(q, kp, vp, ks, vs, t, table, anc, o, ml, acc, cnt, S, W, Hkv, G,
+           D, PL, P, N, nsplit, pps, scale, window, stream));
 }
 
 // packed int4 pages [N, Hkv, PL/2, D] with float32 scale planes
@@ -465,26 +703,28 @@ extern "C" int dkt_paged_decode_q8_anc(const void* q, const void* kp,
 extern "C" int dkt_paged_decode_q4(const void* q, const void* kp,
                                    const void* vp, const void* ks,
                                    const void* vs, const void* t,
-                                   const void* table, void* o, int S, int W,
+                                   const void* table, void* o, void* ml,
+                                   void* acc, void* cnt, int S, int W,
                                    int Hkv, int G, int D, int PL, int P,
-                                   int N, float scale, int window,
-                                   void* stream) {
-  return quant_pages<kInt4, false>(q, kp, vp, ks, vs, t, table, nullptr, o,
-                                   S, W, Hkv, G, D, PL, P, N, scale, window,
-                                   stream);
+                                   int N, int nsplit, int pps, float scale,
+                                   int window, void* stream) {
+  return dispatch_d<int8_t, kInt4, false>(
+      args(q, kp, vp, ks, vs, t, table, nullptr, o, ml, acc, cnt, S, W, Hkv,
+           G, D, PL, P, N, nsplit, pps, scale, window, stream));
 }
 
 extern "C" int dkt_paged_decode_q4_anc(const void* q, const void* kp,
                                        const void* vp, const void* ks,
                                        const void* vs, const void* t,
                                        const void* table, const void* anc,
-                                       void* o, int S, int W, int Hkv, int G,
-                                       int D, int PL, int P, int N,
-                                       float scale, int window,
-                                       void* stream) {
-  return quant_pages<kInt4, true>(q, kp, vp, ks, vs, t, table, anc, o, S,
-                                  W, Hkv, G, D, PL, P, N, scale, window,
-                                  stream);
+                                       void* o, void* ml, void* acc,
+                                       void* cnt, int S, int W, int Hkv,
+                                       int G, int D, int PL, int P, int N,
+                                       int nsplit, int pps, float scale,
+                                       int window, void* stream) {
+  return dispatch_d<int8_t, kInt4, true>(
+      args(q, kp, vp, ks, vs, t, table, anc, o, ml, acc, cnt, S, W, Hkv, G,
+           D, PL, P, N, nsplit, pps, scale, window, stream));
 }
 
 extern "C" const char* dkt_error_string(int err) {

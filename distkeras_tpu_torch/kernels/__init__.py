@@ -67,7 +67,7 @@ _SIGNATURES = {
                   [_P] * 5 + [_I] * 7 + [_L] * 12 + [_F, _I, _I]
                   + _SEGMENTS + [_P]),
     "paged_decode": ("dkt_paged_decode",
-                     [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
+                     [_P] * 9 + [_I] * 11 + [_F, _I, _P]),
     "flash_bwd_dq": ("dkt_flash_bwd_dq",
                      [_P] * 7 + [_I] * 7 + [_L] * 15 + [_F, _I, _I]
                      + _SEGMENTS + [_P]),
@@ -81,19 +81,19 @@ _SIGNATURES = {
                             [_P] * 8 + [_I] * 3 + [_L] * 4 + [_I] * 4
                             + [_F, _P]),
     "paged_decode_q8": ("dkt_paged_decode_q8",
-                        [_P] * 8 + [_I] * 8 + [_F, _I, _P]),
+                        [_P] * 11 + [_I] * 10 + [_F, _I, _P]),
     "paged_decode_q4": ("dkt_paged_decode_q4",
-                        [_P] * 8 + [_I] * 8 + [_F, _I, _P]),
+                        [_P] * 11 + [_I] * 10 + [_F, _I, _P]),
     "paged_decode_anc": ("dkt_paged_decode_anc",
-                         [_P] * 7 + [_I] * 9 + [_F, _I, _P]),
+                         [_P] * 10 + [_I] * 11 + [_F, _I, _P]),
     "paged_decode_q8_anc": ("dkt_paged_decode_q8_anc",
-                            [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
+                            [_P] * 12 + [_I] * 10 + [_F, _I, _P]),
     "paged_decode_q4_anc": ("dkt_paged_decode_q4_anc",
-                            [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
+                            [_P] * 12 + [_I] * 10 + [_F, _I, _P]),
     "quant_matmul_q8": ("dkt_quant_matmul_q8",
-                        [_P, _I] + [_P] * 4 + [_I] * 6 + [_P]),
+                        [_P, _I] + [_P] * 3 + [_I] * 7 + [_P]),
     "quant_matmul_q4": ("dkt_quant_matmul_q4",
-                        [_P, _I] + [_P] * 4 + [_I] * 6 + [_P]),
+                        [_P, _I] + [_P] * 3 + [_I] * 7 + [_P]),
     "sample_epilogue": ("dkt_sample_epilogue", [_P] * 7 + [_I, _I, _P]),
     "moe_gather_gemm1": ("dkt_moe_gather_gemm1",
                          [_P, _I] + [_P] * 5 + [_I] * 10 + [_P]),

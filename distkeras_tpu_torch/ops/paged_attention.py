@@ -46,6 +46,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (32, 64, 128)
 #: query rows (W * G) one block scores per kv head
 KERNEL_MAX_ROWS = 64
+#: positions a block stages per step (a split is a whole number of them)
+CHUNK_POSITIONS = 128
+#: blocks per SM the split aims for (splits past a short context idle)
+BLOCKS_PER_SM = 8
+#: the most logical pages one split owns (its page ids are staged)
+MAX_SPLIT_PAGES = 512
 
 
 def check_rows(w_len: int, g: int) -> None:
@@ -138,6 +144,47 @@ def paged_decode_attention(q, k_pages, v_pages, t, table, *,
                    k_scale, v_scale, anc)
 
 
+_counters: dict = {}    # device -> the split kernel's arrival counters
+
+
+def _arrival_counters(device, n: int) -> torch.Tensor:
+    """A zeroed int32 workspace of at least ``n`` entries on ``device``:
+    one counter per (slot, kv head), by which the last live split learns
+    that it merges (it sets the counter back to 0). Kept across calls,
+    grown (zeroed) when a launch needs more."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _counters[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                              device=device)
+    return buf
+
+
+def split_plan(rows: int, pages: int, page_len: int, num_sms: int, *,
+               window: Optional[int] = None, w_len: int = 1):
+    """``(nsplit, pps)``: the flash-decoding split of the kernel's grid
+    ``(S, Hkv, nsplit)`` over ``rows`` = S * Hkv (slot, kv head) pairs,
+    split ``z`` owning the table's logical pages ``[z * pps, (z + 1) *
+    pps)``. Enough splits that the grid fills ``num_sms`` SMs
+    ``BLOCKS_PER_SM`` deep over the pages a slot's rows can reach (all
+    of them, or the span of a sliding ``window`` of ``w_len`` rows), each
+    a whole number of ``CHUNK_POSITIONS`` chunks and at most
+    ``MAX_SPLIT_PAGES`` pages. A function of the shapes, the static
+    window and the card alone -- never of the positions ``t`` -- so a
+    decode step reads nothing back from the card."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    pages = max(pages, 1)
+    span = pages if window is None else \
+        min(pages, cdiv(int(window) + w_len - 1, page_len) + 1)
+    cpages = max(1, CHUNK_POSITIONS // page_len)
+    want = cdiv(BLOCKS_PER_SM * num_sms, max(rows, 1))
+    nsplit = max(1, min(want, cdiv(span, cpages)))
+    pps = cdiv(cdiv(span, nsplit), cpages) * cpages
+    pps = min(pps, MAX_SPLIT_PAGES)
+    return cdiv(pages, pps), pps
+
+
 def _launch(q, k_pages, v_pages, t, table, scale, window, k_scale,
             v_scale, anc):
     s, w, hkv, g, d = q.shape
@@ -165,6 +212,18 @@ def _launch(q, k_pages, v_pages, t, table, scale, window, k_scale,
     out = torch.empty_like(q)
     if s == 0:
         return out
+    p = table.shape[1]
+    nsplit, pps = split_plan(s * hkv, p, page_len,
+                             kernels.num_sms(q.device.index),
+                             window=window, w_len=w)
+    ws = [None, None, None]
+    if nsplit > 1:
+        ws = [torch.empty((s, hkv, nsplit, w * g, 2), dtype=torch.float32,
+                          device=q.device),
+              torch.empty((s, hkv, nsplit, w * g, d), dtype=torch.float32,
+                          device=q.device),
+              _arrival_counters(q.device, s * hkv)]
+    ws = [None if x is None else x.data_ptr() for x in ws]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     win = 0 if window is None else int(window)
     name = {None: "paged_decode", "int8": "paged_decode_q8",
@@ -176,13 +235,13 @@ def _launch(q, k_pages, v_pages, t, table, scale, window, k_scale,
     if mode is None:
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  t.data_ptr(), table.data_ptr(), *tree, out.data_ptr(),
-                 _DTYPES[k_pages.dtype], s, w, hkv, g, d, page_len,
-                 table.shape[1], n, scale, win, stream)
+                 *ws, _DTYPES[k_pages.dtype], s, w, hkv, g, d, page_len, p,
+                 n, nsplit, pps, scale, win, stream)
     else:
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  k_scale.data_ptr(), v_scale.data_ptr(), t.data_ptr(),
-                 table.data_ptr(), *tree, out.data_ptr(), s, w, hkv, g, d,
-                 page_len, table.shape[1], n, scale, win, stream)
+                 table.data_ptr(), *tree, out.data_ptr(), *ws, s, w, hkv, g,
+                 d, page_len, p, n, nsplit, pps, scale, win, stream)
     kernels.check(lib, err, name)
     kernels.count_launch(name)
     return out
@@ -273,3 +332,63 @@ def paged_decode_attention_reference(q, k_pages, v_pages, t, table, *,
         e = e * gather_pages(v_scale, table)[:, :, None, None, :]
     o = torch.einsum("shgwl,shld->swhgd", e, v.float())
     return o / l.permute(0, 3, 1, 2, 4)
+
+
+def paged_decode_split_reference(q, k_pages, v_pages, t, table, *,
+                                 scale: float, pps: int,
+                                 window: Optional[int] = None,
+                                 k_scale=None, v_scale=None, anc=None):
+    """The kernel's flash-decoding split in plain PyTorch, float32 (used
+    by the tests): split ``z`` takes the logical pages ``[z * pps, (z +
+    1) * pps)`` that the window rows can reach and whose table entry is
+    not the sentinel, as the Pallas kernel's ``run`` condition picks them
+    (masked positions on those pages enter with ``exp(NEG_INF - m)``);
+    each split's ``(m, l, acc)`` comes from one masked softmax over its
+    positions, and the splits merge in split order through their
+    log-sum-exps over the splits with ``l > 0``; a row no split reaches
+    is 0. Float pages keep their values (no rounding of ``p``)."""
+    s, w, hkv, g, d = q.shape
+    n = k_pages.shape[0]
+    mode = _quant_mode(k_pages, k_scale)
+    packed = mode == "int4"
+    k = gather_pages(k_pages, table, packed=packed).float()
+    v = gather_pages(v_pages, table, packed=packed).float()
+    p = table.shape[1]
+    page_len = k.shape[2] // p
+    sc = torch.einsum("swhgd,shld->shgwl", q.float(), k) * scale
+    if mode is not None:
+        sc = sc * gather_pages(k_scale, table)[:, :, None, None, :]
+        vs = gather_pages(v_scale, table)[:, :, None, None, :]
+    valid = window_valid_mask(t, w, p * page_len, window, anc)  # [S, W, L]
+    sc = sc.masked_fill(~valid[:, None, None], NEG_INF)
+    # the pages any window row reaches: positions (t - window, t + W - 1]
+    start = torch.arange(p, device=q.device) * page_len
+    tl = t.long()[:, None]
+    run = (start[None] <= tl + w - 1) & (table.long() < n)
+    if window is not None:
+        run = run & (start[None] + page_len - 1 > tl - int(window))
+    nsplit = -(-p // pps)
+    ms, ls, accs = [], [], []
+    for z in range(nsplit):
+        sel = torch.zeros(p, dtype=torch.bool, device=q.device)
+        sel[z * pps:(z + 1) * pps] = True
+        pos_on = (run & sel[None]).repeat_interleave(page_len, dim=1)
+        x = sc.masked_fill(~pos_on[:, None, None, None], float("-inf"))
+        m = x.amax(dim=-1, keepdim=True)
+        e = torch.exp(x - m.clamp_min(NEG_INF))
+        e = torch.where(pos_on[:, None, None, None], e, torch.zeros_like(e))
+        ls.append(e.sum(dim=-1, keepdim=True))
+        if mode is not None:
+            e = e * vs
+        accs.append(torch.einsum("shgwl,shld->shgwd", e, v))
+        ms.append(torch.where(ls[-1] > 0, m, torch.full_like(m, NEG_INF)))
+    m_all, l_all = torch.stack(ms), torch.stack(ls)
+    has = l_all > 0
+    big = torch.where(has, m_all, torch.full_like(m_all, float("-inf")))
+    mx = big.amax(dim=0)
+    wts = torch.where(has, torch.exp(m_all - mx.clamp_min(NEG_INF)),
+                      torch.zeros_like(m_all))
+    acc = sum(wts[z] * accs[z] for z in range(nsplit))
+    l_tot = sum(wts[z] * l_all[z] for z in range(nsplit))
+    o = acc / torch.where(l_tot == 0, torch.ones_like(l_tot), l_tot)
+    return o.permute(0, 3, 1, 2, 4)

@@ -47,14 +47,21 @@ import torch
 
 from distkeras_tpu_torch import kernels
 
-#: output columns one block owns (32 threads x 16 columns)
-BLOCK_N = 512
-#: rows of the weight one block's warps stride over at a time
-ROW_GROUPS = 8
-#: blocks per SM the K split aims for
-BLOCKS_PER_SM = 2
-#: activation rows one block holds per launch tile
+#: output columns one block owns
+BLOCK_N = 128
+#: weight byte rows one shared-memory stage holds (a K split is a
+#: multiple of it)
+STAGE_ROWS = 64
+#: K splits of one column tile: one thread-block cluster
+MAX_SPLIT = 8
+#: blocks the plan aims for, per SM (K splits and 16-row tiles)
+BLOCKS_PER_SM = 1.5
+#: activation rows one CUDA-core block holds per launch tile
 M_TILES = (1, 2, 4, 8)
+#: bf16 activations from this many rows on take the tensor cores
+TC_MIN_ROWS = 5
+#: the most 16-row tiles a tensor-core block holds
+TC_MAX_TILES = 5
 
 
 def is_qdict(p) -> bool:
@@ -211,20 +218,61 @@ def quant_matmul(x, wq) -> torch.Tensor:
     return _launch(x, wq)
 
 
-def split_plan(m: int, k_rows: int, n: int, num_sms: int):
-    """``(mt, ksplit, kchunk)``: the activation rows per block tile, and
-    how the weight's byte rows are cut across blocks. Enough K splits
-    that the grid fills the card's ``num_sms`` SMs ``BLOCKS_PER_SM``
-    deep, none shorter than 32 rows; a chunk is a multiple of
-    ``ROW_GROUPS``. A function of the shapes and the card alone, so the
-    same inputs give the same bits."""
-    mt = next((t for t in M_TILES if t >= m), M_TILES[-1])
-    blocks = -(-n // BLOCK_N) * -(-m // mt)
-    ksplit = max(1, min(-(-BLOCKS_PER_SM * num_sms // blocks),
-                        k_rows // 32))
-    kchunk = -(-k_rows // ksplit)
-    kchunk = -(-kchunk // ROW_GROUPS) * ROW_GROUPS
-    return mt, -(-k_rows // kchunk), kchunk
+def split_plan(m: int, k_rows: int, n: int, num_sms: int, *,
+               tensor_cores: bool):
+    """``(route, tile, ksplit, kchunk)`` for ``m`` activation rows
+    against ``k_rows`` weight byte rows (K, or K/2 packed) and ``n``
+    columns on a card of ``num_sms`` SMs. Route 1 (``tensor_cores``: bf16
+    activations of at least ``TC_MIN_ROWS`` rows) holds ``tile`` 16-row
+    tiles a block, as many as keep ``BLOCKS_PER_SM`` blocks an SM (fewer
+    re-reads of the weight); route 0 ``tile`` rows of ``M_TILES``. The
+    weight's byte rows are cut into ``ksplit`` (at most ``MAX_SPLIT``)
+    chunks of ``kchunk`` (a multiple of ``STAGE_ROWS``), enough for
+    ``BLOCKS_PER_SM`` blocks an SM. A function of the shapes and the
+    card alone, so the same inputs give the same bits."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    cols = cdiv(n, BLOCK_N)
+    target = int(np.ceil(BLOCKS_PER_SM * num_sms))
+    if tensor_cores and m >= TC_MIN_ROWS:
+        route = 1
+        tile = next((t for t in range(min(TC_MAX_TILES, cdiv(m, 16)), 0, -1)
+                     if cols * cdiv(m, 16 * t) >= target), 1)
+        rows = 16 * tile
+    else:
+        route = 0
+        tile = next((t for t in M_TILES if t >= m), M_TILES[-1])
+        rows = tile
+    blocks = cols * cdiv(m, rows)
+    ksplit = max(1, min(cdiv(target, blocks), MAX_SPLIT,
+                        cdiv(k_rows, STAGE_ROWS)))
+    kchunk = cdiv(cdiv(k_rows, ksplit), STAGE_ROWS) * STAGE_ROWS
+    return route, tile, cdiv(k_rows, kchunk), kchunk
+
+
+def split_matmul_reference(x, wq, ksplit: int, kchunk: int) -> torch.Tensor:
+    """The K split of K5 in plain PyTorch (what the kernel sums, in the
+    order it sums it; used by the tests): each chunk of ``kchunk`` byte
+    rows (both of a packed byte row's logical rows) contracted in
+    float32, the chunks' partials added in split order, then scaled."""
+    lead, k = tuple(x.shape[:-1]), x.shape[-1]
+    q2d, scale, int4, n = _resolve_2d(k, wq)
+    xf = x.reshape(-1, k).float()
+    half = k // 2
+    total = torch.zeros((xf.shape[0], n), dtype=torch.float32,
+                        device=x.device)
+    for y in range(ksplit):
+        r0, r1 = y * kchunk, min(q2d.shape[0], (y + 1) * kchunk)
+        if int4:
+            qq = unpack_rows(q2d[r0:r1])
+            rows = torch.cat([torch.arange(r0, r1),
+                              torch.arange(r0, r1) + half]).to(x.device)
+        else:
+            qq = q2d[r0:r1]
+            rows = torch.arange(r0, r1, device=x.device)
+        total = total + torch.matmul(xf[:, rows], qq.float())
+    return (total * scale).reshape(lead + (n,))
 
 
 def _launch(x, wq):
@@ -247,17 +295,15 @@ def _launch(x, wq):
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out.reshape(lead + (n,))
-    k_rows = q2d.shape[0]
-    mt, ksplit, kchunk = split_plan(m, k_rows, n,
-                                    kernels.num_sms(x.device.index))
-    part = out if ksplit == 1 else torch.empty(
-        (ksplit, m, n), dtype=torch.float32, device=x.device)
+    bf16 = x2.dtype == torch.bfloat16
+    route, tile, ksplit, kchunk = split_plan(
+        m, q2d.shape[0], n, kernels.num_sms(x.device.index),
+        tensor_cores=bf16)
     name = "quant_matmul_q4" if int4 else "quant_matmul_q8"
     lib = kernels.library(name)
     fn = lib.dkt_quant_matmul_q4 if int4 else lib.dkt_quant_matmul_q8
-    err = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16), q2d.data_ptr(),
-             scale.data_ptr(), out.data_ptr(), part.data_ptr(), m, k, n, mt,
-             ksplit, kchunk,
+    err = fn(x2.data_ptr(), int(bf16), q2d.data_ptr(), scale.data_ptr(),
+             out.data_ptr(), m, k, n, route, tile, ksplit, kchunk,
              torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(lib, err, name)
     kernels.count_launch(name)

@@ -27,6 +27,8 @@ from distkeras_tpu_torch.ops.moe_kernels import (
     gather_gemm1_reference)
 from distkeras_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference)
+from distkeras_tpu_torch.ops.paged_attention import \
+    split_plan as paged_split_plan
 from distkeras_tpu_torch.ops.quant_matmul import (quant_matmul,
                                                   quantize_weight,
                                                   reference_matmul)
@@ -494,6 +496,83 @@ def test_engine_on_card_tree_speculation_launches_anc(dev):
                       spec_k=16, spec_tree=True, spec_width=4)
 
 
+#: the split kernel's edges: (query group, window rows, SWA, tree)
+K3_SPLIT_SPECS = [(1, 1, None, False), (4, 9, None, True),
+                  (2, 3, 100, False)]
+
+
+def _k3_split_case(rs, variant, d, g, w_len, window, tree, dev):
+    """Four slots over 128 logical pages of 16 (one kv head pair): the
+    contexts 1, page_len - 1, exactly the end of the first split (from
+    the card's own plan) and 2047 positions, the pages in a scrambled
+    order with sentinels past each slot's last one."""
+    page_len, p_max, hkv = 16, 128, 2
+    _, pps = paged_split_plan(4 * hkv, p_max, page_len,
+                              kernels.num_sms(torch.cuda.current_device()))
+    ctx = np.array([1, page_len - 1, pps * page_len, 2047])
+    t = (ctx - w_len).clip(0).astype(np.int32)
+    n_live = [-(-(int(ti) + w_len) // page_len) for ti in t]
+    n_pages = sum(n_live) + 3
+    perm = rs.permutation(n_pages)
+    table = np.full((4, p_max), n_pages, np.int32)
+    used = 0
+    for i, n in enumerate(n_live):
+        table[i, :n] = perm[used:used + n]
+        used += n
+    pages = []
+    for _ in range(2):
+        x = torch.from_numpy(rs.randn(n_pages, hkv, page_len, d)
+                             .astype(np.float32)).to(dev)
+        if variant in (torch.float32, torch.bfloat16):
+            pages.append((x.to(variant), None))
+            continue
+        payload, sc = pd._quantize_kv(x, variant)
+        pages.append((pd.pack_int4(payload) if variant == 4 else payload,
+                      sc))
+    (kp, ks), (vp, vs) = pages
+    kw = dict(scale=d ** -0.5, window=window)
+    if ks is not None:
+        kw.update(k_scale=ks, v_scale=vs)
+    if tree:
+        parents = np.full((4, w_len), -1, np.int64)
+        for s in range(4):
+            for j in range(1, w_len):
+                parents[s, j] = rs.randint(0, j)
+        kw["anc"] = torch.from_numpy(tree_ancestors(parents)[1]).to(dev)
+    q = torch.from_numpy(rs.randn(4, w_len, hkv, g, d).astype(np.float32)) \
+        .to(dev)
+    return (q, kp, vp, torch.from_numpy(t).to(dev),
+            torch.from_numpy(table).to(dev)), kw
+
+
+@pytest.mark.parametrize("spec", K3_SPLIT_SPECS,
+                         ids=["decode", "gqa_tree", "verify_swa"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("variant", ANC_VARIANTS,
+                         ids=["f32", "bf16", "int8", "int4"])
+def test_paged_kernel_splits_match_plain(dev, variant, d, spec):
+    """The split kernel at the edges of its plan: a context of one
+    position, of page_len - 1, ending exactly at a split's end and of
+    2047 positions (odd positions in int4 pages), GQA G4 W9 trees and a
+    verify window under SWA that empties the leading splits; D 32, 64
+    and 128; one launch, the plain version's values, bitwise repeats."""
+    g, w_len, window, tree = spec
+    rs = np.random.RandomState(13)
+    args, kw = _k3_split_case(rs, variant, d, g, w_len, window, tree, dev)
+    quant = variant in (8, 4)
+    name = (f"paged_decode_q{variant}" if quant else "paged_decode") + \
+        ("_anc" if tree else "")
+    before = kernels.launch_counts()[name]
+    out = paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    ref = paged_decode_attention_reference(*args, **kw)
+    tol = chip_smoke.KERNEL_BF16_TOL if variant == torch.bfloat16 else \
+        chip_smoke.KERNEL_Q_TOL if quant else F32_TOL
+    torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+    assert torch.equal(out, paged_decode_attention(*args, **kw))
+
+
 #: backward gradients relative to the largest reference magnitude:
 #: float32 differs by summation order over up to 300 keys; bfloat16 by
 #: the output rounding (2^-8) plus the bf16-rounded P and dS tiles
@@ -700,6 +779,41 @@ def test_quant_matmul_cpu_plain_cuda_kernel(dev):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["quant_matmul_q8"] == before + 1
     torch.testing.assert_close(on_card.cpu(), got, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 9, 16, 72, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_kernel_every_tile(dev, bits, dtype, m):
+    """Every activation tile of both routes (CUDA cores at M <= 8 and for
+    float32, tensor cores for bf16 from M9 on, up to 80 rows a block and
+    beyond) at w1's shape, a ragged N, a weight off a 16-byte boundary
+    (the plain-load fill) and a K of one split; one launch, the plain
+    version's values within QMM_TOL, bitwise repeats."""
+    rs = np.random.RandomState(100 + m)
+    key = "quant_matmul_q4" if bits == 4 else "quant_matmul_q8"
+    for k, n, offset in ((1024, 4096, 0), (512, 1000, 0), (256, 96, 1),
+                         (64, 384, 0)):
+        w = torch.from_numpy((rs.randn(k, n) * 0.05).astype(np.float32))
+        wq = {a: b.to(dev) for a, b in quantize_weight(w, bits).items()}
+        if offset:
+            name = "q4" if bits == 4 else "q"
+            buf = torch.zeros(wq[name].numel() + offset, dtype=torch.int8,
+                              device=dev)
+            buf[offset:] = wq[name].reshape(-1)
+            wq[name] = buf[offset:].view(wq[name].shape)
+            assert wq[name].data_ptr() % 16
+        x = torch.from_numpy(rs.randn(m, k).astype(np.float32)).to(dev,
+                                                                   dtype)
+        before = kernels.launch_counts()[key]
+        out = quant_matmul(x, wq)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[key] == before + 1
+        ref = reference_matmul(x, wq)
+        err = (out - ref).abs().max().item() / ref.abs().max().item()
+        assert err <= chip_smoke.QMM_TOL, (k, n, offset, err)
+        assert torch.equal(out, quant_matmul(x, wq))
 
 
 # --- K4: the fused sampling epilogue -----------------------------------------

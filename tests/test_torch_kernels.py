@@ -457,9 +457,11 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
     """A kernel library's file name hashes its source and the csrc/
     headers it includes, directly or through another header: editing
     ``sm90.cuh`` renames the libraries of ``moe_gemm.cu``, ``moe_bwd.cu``
-    (both through ``moe_tc.cuh``), ``flash_bwd.cu`` and ``flash_fwd.cu``,
-    editing ``moe_tc.cuh`` those of the two MoE sources (a stale build is
-    never reused), and no other; an unchanged tree keeps every name."""
+    (both through ``moe_tc.cuh``), ``flash_bwd.cu``, ``flash_fwd.cu``,
+    ``paged_decode.cu`` and ``quant_matmul.cu``, editing ``moe_tc.cuh``
+    those of the two MoE sources, editing ``dequant.cuh`` those of the
+    paged decode and the quantized matmul (a stale build is never
+    reused), and no other; an unchanged tree keeps every name."""
     csrc = tmp_path / "csrc"
     shutil.copytree(os.path.join(compat.PACKAGE_DIR, "csrc"), csrc)
     monkeypatch.setattr(compat, "PACKAGE_DIR", str(tmp_path))
@@ -469,13 +471,17 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
         assert kernels._inputs(src) == [src, "sm90.cuh"]
     for src in ("moe_bwd.cu", "moe_gemm.cu"):
         assert kernels._inputs(src) == [src, "moe_tc.cuh", "sm90.cuh"]
-    assert kernels._inputs("paged_decode.cu") == ["paged_decode.cu"]
+    for src in ("paged_decode.cu", "quant_matmul.cu"):
+        assert kernels._inputs(src) == [src, "dequant.cuh", "sm90.cuh"]
+    assert kernels._inputs("sampling.cu") == ["sampling.cu"]
     before = {src: kernels._library_path(src) for src in sources}
     assert {src: kernels._library_path(src) for src in sources} == before
     for name, renamed in (
             ("sm90.cuh", {"flash_bwd.cu", "flash_fwd.cu", "moe_bwd.cu",
-                          "moe_gemm.cu"}),
-            ("moe_tc.cuh", {"moe_bwd.cu", "moe_gemm.cu"})):
+                          "moe_gemm.cu", "paged_decode.cu",
+                          "quant_matmul.cu"}),
+            ("moe_tc.cuh", {"moe_bwd.cu", "moe_gemm.cu"}),
+            ("dequant.cuh", {"paged_decode.cu", "quant_matmul.cu"})):
         header = csrc / name
         header.write_text(header.read_text() + "\n// edited\n")
         after = {src: kernels._library_path(src) for src in sources}
