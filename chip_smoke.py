@@ -61,17 +61,21 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 9. the slab decode-attention kernel (K2, float and int8 variants)
    against its plain version: generate's shape (B4 Hkv16 G1 D64,
    L=1152, t=1151, bf16), GQA 4x4, a 256-position window, a short cache
-   (L=40), an int8 cache and an int4 cache (int8 bytes), with device
-   times from CUDA-graph replays (and the eager call's time), the SDPA
-   yardstick and bounds;
+   (L=40), an int8 cache and an int4 cache (int8 bytes), with a bitwise
+   repeat, the CUDA kernels one call launches (a captured graph's nodes),
+   device times from CUDA-graph replays warm (one cache, in L2) and cold
+   (replays walking copies of the cache that exceed the 50 MB L2, as
+   generate()'s twelve layers do), GB/s, the bound's share, the eager
+   call's time and the SDPA yardstick timed the same two ways;
 10. ``generate()`` end to end on the same 218M LM (bf16, seed 0): B4 x
     1024-token prompts, 128 new greedy tokens, with the bf16 cache and
     the int8 cache; prefill ms, decode ms per step and tokens/s, the
     launch counts of each call (12 ``flash_fwd`` per prefill, 12 x 127
-    K2 launches of the cache's variant); then one decode step's logits
-    on the card (bf16 cache, int8 cache, float32) against the plain path
-    on the CPU in float32 at the same weights and cache contents, and a
-    ``torch.profiler`` list of a decode step's device time;
+    K2 launches of the cache's variant), the call's peak memory; then
+    one decode step's logits on the card (bf16 cache, int8 cache,
+    float32) against the plain path on the CPU in float32 at the same
+    weights and cache contents, and a ``torch.profiler`` list of a
+    decode step's device time, CUDA kernel launches and K2's share;
 11. the paged kernel's int8 and int4 variants against their plain
     version at phase 4's shapes (page_len 16), with graph-replay times,
     a bitwise repeat and bounds;
@@ -1615,55 +1619,145 @@ def _sdpa_decode(c):
                                           enable_gqa=g > 1)
 
 
+def kernels_per_call(fn, calls: int = 4) -> float:
+    """The CUDA kernels one call of ``fn`` launches: ``calls`` warm calls
+    captured in a CUDA graph, whose kernel nodes the driver counts
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``). Exact, where a
+    profiler session can miss the launches at its start."""
+    import ctypes
+    driver = ctypes.CDLL("libcuda.so.1")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if driver.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if driver.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind = ctypes.c_int(-1)
+    count = 0
+    for node in nodes:
+        if driver.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        count += kind.value == 0             # CU_GRAPH_NODE_TYPE_KERNEL
+    return count / calls
+
+
+#: bytes a cold timing's copies of a cache add up to at least: twice the
+#: H100's 50 MB L2, so a replay walking them finds each copy evicted
+COLD_BYTES = 100e6
+
+
+def _cold_cases(c, cache_bytes):
+    """Copies of a case's cache (K, V and the scale planes) for cold
+    timings: enough to exceed ``COLD_BYTES`` together (4 to 64)."""
+    n = min(64, max(4, -(-int(COLD_BYTES) // max(int(cache_bytes), 1))))
+    keys = [key for key in ("k", "v", "k_scale", "v_scale") if key in c]
+    return [c] + [dict(c, **{key: c[key].clone() for key in keys})
+                  for _ in range(n - 1)]
+
+
+def _walk(copies, call):
+    """A function that calls ``call`` on the next copy each time."""
+    state = {"i": 0}
+
+    def fn():
+        c = copies[state["i"] % len(copies)]
+        state["i"] += 1
+        return call(c)
+    return fn
+
+
 def decode_phase(dev):
     rows = {"decode_attention": [], "decode_attention_q8": []}
     for kname, name, c in decode_cases(dev):
-        sc = {} if c["bits"] is None else dict(k_scale=c["k_scale"],
-                                               v_scale=c["v_scale"])
-        kw = dict(scale=64 ** -0.5, window=c["window"], **sc)
-        args = (c["q"], c["k"], c["v"], c["t"])
+        quant = c["bits"] is not None
+        kw = dict(scale=64 ** -0.5, window=c["window"])
+
+        def call(x):
+            sc = dict(k_scale=x["k_scale"], v_scale=x["v_scale"]) \
+                if quant else {}
+            return decode_attention(x["q"], x["k"], x["v"], x["t"], **kw,
+                                    **sc)
+
+        def plain(x):
+            sc = dict(k_scale=x["k_scale"], v_scale=x["v_scale"]) \
+                if quant else {}
+            return decode_attention_reference(x["q"], x["k"], x["v"],
+                                              x["t"], **kw, **sc)
+
         before = kernels.launch_counts()[kname]
-        out = decode_attention(*args, **kw)
+        out = call(c)
         torch.cuda.synchronize()
         if kernels.launch_counts()[kname] != before + 1:
             raise AssertionError(f"{name} did not launch {kname}")
-        ref = decode_attention_reference(*args, **kw)
+        ref = plain(c)
         err = (out - ref).abs().max().item()
-        tol = KERNEL_BF16_TOL if c["bits"] is None else KERNEL_Q_TOL
-        # device time per call from graph replays; the eager call's
-        # time is the host's (wrapper and launch), reported beside it
-        ms = graph_ms(lambda: decode_attention(*args, **kw))
-        eager_ms = time_ms(lambda: decode_attention(*args, **kw), iters=50)
-        plain_ms = graph_ms(lambda: decode_attention_reference(*args, **kw),
-                            iters=10)
-        lib_ms = None
-        if c["bits"] is None:
-            lib_ms = graph_ms(lambda: _sdpa_decode(c))
+        same = torch.equal(out, call(c))
+        tol = KERNEL_Q_TOL if quant else KERNEL_BF16_TOL
         # each input read once, each output written once: K and V over
         # the valid positions (payload, plus the scale planes for int8),
         # q in, the float32 out
         lo, hi = valid_range(c["t"], c["window"])
         n = hi - lo + 1
         rws, g = c["k"].shape[0], c["g"]
+        length = c["k"].shape[1]
         esize = c["k"].element_size()
         nbytes = 2 * rws * n * 64 * esize + rws * g * 64 * (
             c["q"].element_size() + 4)
-        if c["bits"] is not None:
+        cache_bytes = 2 * rws * length * 64 * esize
+        if quant:
             nbytes += 2 * rws * n * 4
+            cache_bytes += 2 * rws * length * 4
         flops = 4.0 * rws * g * n * 64
-        bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if c["bits"] is None
-                           else PEAK_INT8_OPS)
-        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"{kname} {name}: max_abs_err {err:.3e} (tol {tol}); kernel "
-              f"{ms:.4f} ms (graph replay; eager call {eager_ms:.4f} ms), "
-              f"plain {plain_ms:.4f} ms, sdpa {lib}, bound {bms:.4f} ms "
-              f"({by})", flush=True)
+        bms, by = bound_ms(flops, nbytes, PEAK_INT8_OPS if quant
+                           else PEAK_BF16_FLOPS)
+        per_call = kernels_per_call(lambda: call(c))
+        # device time per call from graph replays: warm (one cache, in
+        # L2 after the first replay) and cold (replays walk copies of
+        # the cache that exceed the L2); the eager call's time is the
+        # host's (wrapper and launch), reported beside them
+        copies = _cold_cases(c, cache_bytes)
+        ms = graph_ms(lambda: call(c))
+        cold_ms = graph_ms(_walk(copies, call))
+        eager_ms = time_ms(lambda: call(c), iters=50)
+        plain_ms = graph_ms(lambda: plain(c), iters=10)
+        lib_ms = lib_cold = None
+        if not quant:
+            lib_ms = graph_ms(lambda: _sdpa_decode(c))
+            lib_cold = graph_ms(_walk(copies, _sdpa_decode))
+        walked = cache_bytes * len(copies)
+        del copies
+        lib = "none" if lib_ms is None else \
+            f"{lib_ms:.4f} ms warm, {lib_cold:.4f} ms cold"
+        print(f"{kname} {name}: max_abs_err {err:.3e} (tol {tol}); bitwise "
+              f"repeat {same}; {per_call:g} CUDA kernels a call; kernel "
+              f"{ms:.4f} ms warm, {nbytes / ms / 1e6:.0f} GB/s, "
+              f"{100 * bms / ms:.1f}% of the bound; {cold_ms:.4f} ms cold "
+              f"({walked / 1e6:.0f} MB walked), {nbytes / cold_ms / 1e6:.0f}"
+              f" GB/s, "
+              f"{100 * bms / cold_ms:.1f}% of the bound (graph replay; "
+              f"eager call {eager_ms:.4f} ms); plain {plain_ms:.4f} ms; "
+              f"sdpa {lib}; bound {bms:.4f} ms ({by})", flush=True)
         if not err <= tol:
             raise AssertionError(f"{kname} disagrees with its plain version "
                                  f"on {name}")
-        rows[kname].append(dict(name=name, err=err, ms=ms, plain_ms=plain_ms,
-                                library_ms=lib_ms, bound_ms=bms,
-                                bound_by=by))
+        if not same:
+            raise AssertionError(f"{kname} is not bitwise repeatable on "
+                                 f"{name}")
+        rows[kname].append(dict(name=name, err=err, ms=ms, cold_ms=cold_ms,
+                                plain_ms=plain_ms, library_ms=lib_ms,
+                                bound_ms=bms, bound_by=by,
+                                kernels_per_call=per_call))
     return rows
 
 
@@ -1696,7 +1790,11 @@ def generate_phase(model, card):
         other = [k for k in GEN_KERNEL.values() if k != kname][0]
         model.generate(prompts[:, :64], 4, cache_dtype=cache_dtype)  # warm
         _, t_prefill, c1 = _timed_generate(model, prompts, 1, cache_dtype)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         out, t_all, c = _timed_generate(model, prompts, GEN_NEW, cache_dtype)
+        peak = torch.cuda.max_memory_allocated() - base
         for counts, want in ((c1, 0), (c, num_layers * steps)):
             if counts["flash_fwd"] != num_layers or counts[kname] != want \
                     or counts[other] != 0:
@@ -1716,10 +1814,27 @@ def generate_phase(model, card):
               f"call) {t_prefill * 1e3:.1f} ms; whole call "
               f"{t_all * 1e3:.1f} ms; decode {decode_s * 1e3 / steps:.2f} "
               f"ms/step, {GEN_BATCH * steps / decode_s:.1f} tok/s; launches "
-              f"flash_fwd {c['flash_fwd']}, {kname} {c[kname]}", flush=True)
+              f"flash_fwd {c['flash_fwd']}, {kname} {c[kname]}; peak "
+              f"allocated {peak} bytes above the {base} allocated before the "
+              f"call; K2 workspace {_k2_workspace_bytes()} bytes",
+              flush=True)
         out_rows[kname] = c[kname]
         out_rows.setdefault("flash_fwd", c["flash_fwd"])
     return out_rows, prompts
+
+
+def _k2_workspace_bytes() -> int:
+    """The bytes of K2's per-device workspace (arrival counters and
+    split partials), 0 where the package keeps none."""
+    mod = sys.modules["distkeras_tpu_torch.ops.decode_attention"]
+    return sum(x.numel() * x.element_size()
+               for pair in getattr(mod, "_workspaces", {}).values()
+               for x in pair)
+
+
+#: what a decode-attention kernel's name holds in a profile (and a paged
+#: one's does not)
+K2_KEY = "decode"
 
 
 def profile_generate(model, prompts):
@@ -1759,9 +1874,15 @@ def profile_generate(model, prompts):
            and e.self_device_time_total > 0]
     ops.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3 / n_prof
+    n_kernels = sum(e.count for e in ops) / n_prof
+    k2 = [e for e in ops if K2_KEY in e.key and "paged" not in e.key]
+    k2_ms = sum(e.self_device_time_total for e in k2) / 1e3 / n_prof
+    k2_n = sum(e.count for e in k2) / n_prof
     print(f"profile-generate: decode step, B{b}, t ~{p_len}: {step_ms:.2f} "
           f"ms/step wall (profiler off); device busy {busy_ms:.3f} ms/step "
-          f"= {100 * busy_ms / step_ms:.1f}% of the step", flush=True)
+          f"= {100 * busy_ms / step_ms:.1f}% of the step; {n_kernels:.0f} "
+          f"CUDA kernel launches a step; decode-attention kernels "
+          f"{k2_ms:.4f} ms/step in {k2_n:g} launches", flush=True)
     for e in ops[:10]:
         per_step = e.self_device_time_total / 1e3 / n_prof
         print(f"profile-generate:   {per_step:7.3f} ms/step  "

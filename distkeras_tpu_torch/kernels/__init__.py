@@ -14,8 +14,10 @@ call of ``library`` (or an explicit ``build``) compiles every source
 whose library is missing, one
 ``nvcc`` process per source, all started together. A library's file
 name carries a hash of its source, the ``csrc/`` headers it includes
-(``sm90.cuh``, the Hopper primitives of the tensor-core sources;
-``moe_tc.cuh``, the mainloop ``moe_gemm.cu`` and ``moe_bwd.cu`` share) and
+(``sm90.cuh``, the Hopper primitives; ``moe_tc.cuh``, the mainloop
+``moe_gemm.cu`` and ``moe_bwd.cu`` share; ``dequant.cuh``, the integer
+conversion of ``quant_matmul.cu``, ``paged_decode.cu`` and
+``decode_attention.cu``) and
 the flags, so an edited source or header rebuilds
 and an unchanged one is reused. Where the libraries go and
 which ``nvcc`` runs is set in ``compat``.
@@ -75,10 +77,10 @@ _SIGNATURES = {
                       [_P] * 8 + [_I] * 7 + [_L] * 18 + [_F, _I, _I]
                       + _SEGMENTS + [_P]),
     "decode_attention": ("dkt_decode_attention",
-                         [_P] * 6 + [_I] * 4 + [_L] * 2 + [_I] * 4
+                         [_P] * 7 + [_I] * 5 + [_L] * 4 + [_I] * 5
                          + [_F, _P]),
     "decode_attention_q8": ("dkt_decode_attention_q8",
-                            [_P] * 8 + [_I] * 3 + [_L] * 4 + [_I] * 4
+                            [_P] * 9 + [_I] * 4 + [_L] * 6 + [_I] * 5
                             + [_F, _P]),
     "paged_decode_q8": ("dkt_paged_decode_q8",
                         [_P] * 11 + [_I] * 10 + [_F, _I, _P]),

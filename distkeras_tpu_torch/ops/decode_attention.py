@@ -6,7 +6,7 @@ Replaces ``distkeras_tpu/ops/decode_attention.py`` ``decode_attention``
 (:157, the ``pl.pallas_call`` at :233, body ``_kernel`` :92): the
 attention of one new query position per (batch row, kv head) against
 that row's head-major cache, GQA native (the ``G`` query heads sharing a
-kv head are the rows of one tile; K/V are never expanded), positions
+kv head share each staged chunk; K/V are never expanded), positions
 ``> t`` masked, an optional sliding ``window``, and int8 caches with
 per-token float32 scale planes (int4 slab caches store one int8 byte per
 entry and take the int8 path).
@@ -32,6 +32,14 @@ dtype, where the plain version rounds the normalised ones; and it sums
 in another order. ``chip_smoke.py`` and ``tests/test_torch_cuda.py``
 hold it to the plain version within a stated tolerance.
 
+On a CUDA tensor a call is one CUDA launch. The kernel reads q in its
+own dtype and strides; ``split_plan`` cuts each row's positions into
+splits from the shapes, the static window and the SM count (never from
+``t``); the last live split of a row to finish merges the splits'
+partials; the arrival counters and the partials live in a workspace
+kept per device (``_workspace``). ``decode_split_reference`` models the
+split and the merge in plain PyTorch for the tests.
+
 The TPU gates (``MIN_KERNEL_LEN``, ``choose_block``, ``block_of``, the
 ``bh_block`` divisor, the %8 row pad) are not carried over: the kernel
 takes any cache length and runs at every length.
@@ -51,10 +59,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (32, 64, 128)
 #: query rows (GQA group size) one block holds
 KERNEL_MAX_GROUP = 64
-#: positions the kernel stages per step; a split covers whole tiles
-TILE = 64
-#: blocks per SM the split aims for (the card keeps several resident)
-BLOCKS_PER_SM = 4
+#: positions a split is a whole number of by default (a multiple of every
+#: dtype's chunk)
+CHUNK_POSITIONS = 128
+#: blocks per SM the split aims for (splits past a short context idle)
+BLOCKS_PER_SM = 8
+#: the most live splits of one row the plan aims for (the last to arrive
+#: merges them all, their (m, l) staged in its shared memory)
+MAX_LIVE_SPLITS = 32
 
 
 def _check(q, k, v, t, k_scale, v_scale):
@@ -115,18 +127,69 @@ def decode_attention(q, k, v, t: int, *, scale: Optional[float] = None,
     return _launch(q, k, v, int(t), float(scale), window, k_scale, v_scale)
 
 
-def split_plan(rows: int, n_valid: int, num_sms: int):
-    """How the valid positions are cut across blocks (flash-decoding):
-    ``(splits, chunk)`` with ``chunk`` a multiple of ``TILE``. Enough
-    splits that ``rows * splits`` fills the card ``BLOCKS_PER_SM`` deep,
-    but none shorter than one tile."""
-    def cdiv(a, b):
-        return -(-a // b)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
-    want = max(1, cdiv(BLOCKS_PER_SM * num_sms, max(rows, 1)))
-    splits = max(1, min(cdiv(n_valid, TILE), want))
-    chunk = cdiv(cdiv(n_valid, splits), TILE) * TILE
-    return cdiv(n_valid, chunk), chunk
+
+def chunk_positions(head_dim: int, itemsize: int) -> int:
+    """The positions the kernel stages at a time for a cache of this head
+    dim and element size: about 8 KB of K, 32 to 128 positions (the
+    kernel's ``Geo::CK``)."""
+    return min(128, max(32, 8192 // (head_dim * itemsize)))
+
+
+def split_plan(rows: int, length: int, num_sms: int, *,
+               window: Optional[int] = None, unit: int = CHUNK_POSITIONS):
+    """``(nsplit, chunk)``: the flash-decoding split of the kernel's grid
+    ``(rows, nsplit)``, split ``z`` owning the cache positions ``[z *
+    chunk, (z + 1) * chunk)``, ``chunk`` a multiple of ``unit`` (the
+    launcher passes its cache's ``chunk_positions``). Enough splits that
+    the live ones fill
+    ``num_sms`` SMs ``BLOCKS_PER_SM`` deep over the positions a row can
+    reach (the whole cache, or a sliding ``window``'s span: ``window``
+    positions in whole chunks plus one chunk for its misalignment), at
+    most ``MAX_LIVE_SPLITS`` of them (one more where a window straddles
+    a chunk boundary). A function of the shapes, the
+    static window and the card alone -- never of the position ``t`` --
+    so the grid stays the same as the context grows; each split clips
+    its range to the live positions on the device."""
+    length = max(int(length), 1)
+    span = length if window is None else min(
+        length, _cdiv(int(window), unit) * unit + unit)
+    units = _cdiv(span, unit)
+    want = min(_cdiv(BLOCKS_PER_SM * num_sms, max(rows, 1)),
+               MAX_LIVE_SPLITS)
+    chunk = _cdiv(units, max(1, min(want, units))) * unit
+    return _cdiv(length, chunk), chunk
+
+
+def live_splits(nsplit: int, chunk: int, window: Optional[int]) -> int:
+    """The most splits of a row that can be live at once: every split,
+    or those a ``window`` of positions can touch (the size of the
+    partials workspace a row needs)."""
+    if window is None:
+        return nsplit
+    return min(nsplit, _cdiv(max(int(window) - 1, 0), chunk) + 1)
+
+
+_workspaces: dict = {}   # device -> (arrival counters, partials)
+
+
+def _workspace(device, rows: int, floats: int):
+    """The kernel's workspaces on ``device``, kept across calls and grown
+    when a launch needs more: a zeroed int32 counter per row, by which
+    the last live split of a row learns that it merges (it sets the
+    counter back to 0), and ``floats`` float32 entries for the splits'
+    partial ``(m, l)`` and ``acc``. Calls on one stream run one after
+    another, so they share both."""
+    cnt, part = _workspaces.get(device, (None, None))
+    if cnt is None or cnt.numel() < rows:
+        cnt = torch.zeros(max(rows, 1024), dtype=torch.int32, device=device)
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1 << 16), dtype=torch.float32,
+                           device=device)
+    _workspaces[device] = (cnt, part)
+    return cnt, part
 
 
 def _launch(q, k, v, t, scale, window, k_scale, v_scale):
@@ -137,6 +200,9 @@ def _launch(q, k, v, t, scale, window, k_scale, v_scale):
     if g > KERNEL_MAX_GROUP:
         raise ValueError(f"decode kernel takes at most {KERNEL_MAX_GROUP} "
                          f"query heads per kv head, got {g}")
+    if window is not None and int(window) < 1:
+        raise ValueError(f"window must be a positive number of positions, "
+                         f"got {window}")
     esize = k.element_size()
     for name, x in (("k", k), ("v", v)):
         if x.stride(2) != 1:
@@ -150,32 +216,35 @@ def _launch(q, k, v, t, scale, window, k_scale, v_scale):
     quant = k_scale is not None
     if quant and k_scale.stride() != v_scale.stride():
         raise ValueError("k_scale and v_scale must share their strides")
-    qf = q.float().contiguous()
+    if q.stride(2) != 1:
+        q = q.contiguous()
     out = torch.empty((bh, g, d), dtype=torch.float32, device=q.device)
     if bh == 0:
         return out
-    lo, hi = valid_range(t, window)
-    splits, chunk = split_plan(bh, hi - lo + 1, kernels.num_sms(q.device.index))
-    part_acc = torch.empty((splits, bh, g, d), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((2, splits, bh, g), dtype=torch.float32,
-                          device=q.device)
+    nsplit, chunk = split_plan(bh, k.shape[1],
+                               kernels.num_sms(q.device.index), window=window,
+                               unit=chunk_positions(d, esize))
+    live = live_splits(nsplit, chunk, window)
+    n_ml = _cdiv(bh * live * g * 2, 4) * 4     # acc on a 16-byte boundary
+    cnt, part = _workspace(q.device, bh,
+                           0 if live == 1 else n_ml + bh * live * g * d)
+    ws = (part.data_ptr(), part.data_ptr() + 4 * n_ml, cnt.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    win = 0 if window is None else int(window)
+    tail = (int(t), win, chunk, nsplit, live, scale, stream)
     name = "decode_attention_q8" if quant else "decode_attention"
     lib = kernels.library(name)
     if quant:
         err = lib.dkt_decode_attention_q8(
-            qf.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), bh, g, d, k.stride(0), k.stride(1),
-            k_scale.stride(0), k_scale.stride(1), lo, hi, chunk, splits,
-            scale, stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), out.data_ptr(), *ws, _DTYPES[q.dtype], bh, g,
+            d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            k_scale.stride(0), k_scale.stride(1), *tail)
     else:
         err = lib.dkt_decode_attention(
-            qf.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), _DTYPES[k.dtype], bh, g,
-            d, k.stride(0), k.stride(1), lo, hi, chunk, splits, scale,
-            stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *ws,
+            _DTYPES[q.dtype], _DTYPES[k.dtype], bh, g, d, q.stride(0),
+            q.stride(1), k.stride(0), k.stride(1), *tail)
     kernels.check(lib, err, name)
     kernels.count_launch(name)
     return out
@@ -201,3 +270,47 @@ def decode_attention_reference(q, k, v, t: int, *, scale: float,
     else:
         w = w.to(v.dtype).float()
     return torch.einsum("bgl,bld->bgd", w, v.float())
+
+
+def decode_split_reference(q, k, v, t: int, *, scale: float, chunk: int,
+                           window: Optional[int] = None, k_scale=None,
+                           v_scale=None):
+    """The kernel's flash-decoding split in plain PyTorch, float32 (used
+    by the tests): split ``z`` takes the cache positions ``[z * chunk,
+    (z + 1) * chunk)`` clipped to ``[lo, t]``, and a split left with
+    none takes no part; each live split's ``(m, l, acc)`` comes from one
+    softmax over its positions (``l`` summing the unscaled
+    probabilities, ``acc`` taking them times ``v_scale`` for an int8
+    cache), and the splits merge in split order through their
+    log-sum-exps over the splits with ``l > 0``. ``q * scale`` is rounded
+    to a float cache's dtype as the kernel rounds it; the probabilities
+    keep their values."""
+    qs = q.float() * scale
+    if k_scale is None:
+        qs = qs.to(k.dtype).float()
+    s = torch.einsum("bgd,bld->bgl", qs, k.float())
+    if k_scale is not None:
+        s = s * k_scale[:, None, :]
+    lo, hi = valid_range(t, window)
+    ms, ls, accs = [], [], []
+    for z in range(_cdiv(k.shape[1], chunk)):
+        a, b = max(lo, z * chunk), min(hi + 1, (z + 1) * chunk)
+        if a >= b:
+            continue
+        x = s[:, :, a:b]
+        m = x.amax(dim=-1, keepdim=True)
+        e = torch.exp(x - m)
+        ls.append(e.sum(dim=-1, keepdim=True))
+        if v_scale is not None:
+            e = e * v_scale[:, None, a:b]
+        accs.append(torch.einsum("bgl,bld->bgd", e, v[:, a:b].float()))
+        ms.append(m)
+    m_all, l_all = torch.stack(ms), torch.stack(ls)
+    has = l_all > 0
+    big = torch.where(has, m_all, torch.full_like(m_all, float("-inf")))
+    mx = big.amax(dim=0)
+    wts = torch.where(has, torch.exp(m_all - mx.clamp_min(NEG_INF)),
+                      torch.zeros_like(m_all))
+    acc = sum(wts[z] * accs[z] for z in range(len(accs)))
+    l_tot = sum(wts[z] * l_all[z] for z in range(len(accs)))
+    return acc / torch.where(l_tot == 0, torch.ones_like(l_tot), l_tot)

@@ -6,6 +6,8 @@ package's test configuration:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -40,6 +42,9 @@ from distkeras_tpu_torch.serving import (NgramDraft, ServingEngine,
                                          tree_ancestors)
 
 pytestmark = pytest.mark.cuda
+
+# the module itself (``ops`` re-exports the function of the same name)
+decode_module = sys.modules["distkeras_tpu_torch.ops.decode_attention"]
 
 #: float32: two summation orders over up to 1000 keys of O(1) scores
 F32_TOL = 2e-4
@@ -249,6 +254,10 @@ def _slab(rs, rows, length, d, strided):
     (4, 128, 37, 500, 499, False),        # window, D=128
     (1, 32, None, 40, 39, True),          # a short cache, one split
     (2, 64, 256, 1152, 700, False),       # window 256 mid-cache
+    (1, 64, None, 4096, 100, False),      # t early: most splits dead
+    (2, 64, 300, 4096, 3000, True),       # leading splits left empty
+    (4, 32, 130, 2048, 2047, False),      # a window over three splits
+    (64, 128, None, 600, 599, False),     # G = 64 at D = 128
 ])
 def test_decode_kernel_matches_plain(dev, dtype, g, d, window, length, t,
                                      strided):
@@ -275,6 +284,8 @@ def test_decode_kernel_matches_plain(dev, dtype, g, d, window, length, t,
     (4, 64, 256, 1152, 900, True),
     (4, 128, None, 40, 39, False),
     (2, 32, None, 300, 123, True),
+    (1, 64, None, 4096, 70, False),       # t early: most splits dead
+    (64, 128, 200, 1000, 900, True),      # G = 64 at D = 128, a window
 ])
 def test_decode_kernel_q8_matches_plain(dev, bits, g, d, window, length, t,
                                         strided):
@@ -293,6 +304,46 @@ def test_decode_kernel_q8_matches_plain(dev, bits, g, d, window, length, t,
     ref = decode_attention_reference(q, k, v, t, scale=d ** -0.5,
                                      window=window, k_scale=ks, v_scale=vs)
     torch.testing.assert_close(out, ref, atol=F32_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("length,t,window", [(1152, 1151, None),
+                                             (1152, 1151, 256),
+                                             (100, 99, None)],
+                         ids=["merge", "window", "one_split"])
+def test_decode_kernel_one_launch_bitwise_counters_zero(dev, cache, length,
+                                                        t, window):
+    """generate()'s rows (B4 x Hkv16, G1, D64): one CUDA kernel a call
+    (the kernel nodes of a captured graph: no cast of q, no second merge
+    kernel) for bfloat16 and float32 queries; a bfloat16 q gives bitwise
+    the output of a float32 q of the same values; a repeat gives the same
+    bits; the arrival counters are all zero after the calls."""
+    rs = np.random.RandomState(9)
+    rows, g, d = 64, 1, 64
+    q32 = torch.from_numpy(rs.randn(rows, g, d).astype(np.float32)).to(
+        dev, torch.bfloat16).float()
+    x = [torch.from_numpy(rs.randn(rows, length, d).astype(np.float32))
+         .to(dev) for _ in range(2)]
+    kw = dict(scale=d ** -0.5, window=window)
+    if cache == "int8":
+        (k, ks), (v, vs) = (pd._quantize_kv(a, 8) for a in x)
+        kw.update(k_scale=ks, v_scale=vs)
+    else:
+        k, v = (a.to(getattr(torch, cache)) for a in x)
+    out = decode_attention(q32, k, v, t, **kw)
+    q16 = q32.to(torch.bfloat16)
+    assert torch.equal(out, decode_attention(q16, k, v, t, **kw))
+    assert torch.equal(out, decode_attention(q32, k, v, t, **kw))
+    for q in (q32, q16):
+        assert chip_smoke.kernels_per_call(
+            lambda: decode_attention(q, k, v, t, **kw)) == 1
+    torch.cuda.synchronize()
+    counters = decode_module._workspaces[q32.device][0]
+    assert int(counters.abs().sum()) == 0
+    ref = decode_attention_reference(q32, k, v, t, **kw)
+    tol = BF16_TOL if cache == "bfloat16" else \
+        chip_smoke.KERNEL_Q_TOL if cache == "int8" else F32_TOL
+    torch.testing.assert_close(out, ref, atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("bits", [8, 4])

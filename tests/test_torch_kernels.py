@@ -314,14 +314,17 @@ def test_decode_attention_plain_rounds_like_the_jax_cpu_path():
 
 
 def test_decode_attention_split_plan_and_refusals():
-    """The flash-decoding split: whole 64-position tiles, enough blocks
-    to fill the card, never an empty split."""
+    """The flash-decoding split: whole 128-position chunks over the cache
+    (or a window's span), enough live splits to fill the card but at most
+    32 a row, never a split past the cache's end."""
     assert split_plan(64, 1152, 132) == (9, 128)
-    assert split_plan(64, 40, 132) == (1, 64)
-    assert split_plan(1, 100000, 132) == (521, 192)
+    assert split_plan(64, 40, 132) == (1, 128)
+    assert split_plan(1, 100000, 132) == (32, 3200)
+    assert split_plan(64, 1152, 132, window=256) == (9, 128)
+    assert split_plan(4, 4096, 132, window=100) == (32, 128)
     for rows, n in ((3, 1), (64, 65), (16, 4097), (1, 63)):
         splits, chunk = split_plan(rows, n, 132)
-        assert chunk % 64 == 0 and (splits - 1) * chunk < n <= splits * chunk
+        assert chunk % 128 == 0 and (splits - 1) * chunk < n <= splits * chunk
     x = torch.zeros(2, 8, 16)
     with pytest.raises(ValueError, match="outside the cache"):
         decode_attention(torch.zeros(2, 1, 16), x, x, 8)
@@ -458,10 +461,11 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
     headers it includes, directly or through another header: editing
     ``sm90.cuh`` renames the libraries of ``moe_gemm.cu``, ``moe_bwd.cu``
     (both through ``moe_tc.cuh``), ``flash_bwd.cu``, ``flash_fwd.cu``,
-    ``paged_decode.cu`` and ``quant_matmul.cu``, editing ``moe_tc.cuh``
-    those of the two MoE sources, editing ``dequant.cuh`` those of the
-    paged decode and the quantized matmul (a stale build is never
-    reused), and no other; an unchanged tree keeps every name."""
+    ``paged_decode.cu``, ``decode_attention.cu`` and ``quant_matmul.cu``,
+    editing ``moe_tc.cuh`` those of the two MoE sources, editing
+    ``dequant.cuh`` those of the paged and the slab decode and the
+    quantized matmul (a stale build is never reused), and no other; an
+    unchanged tree keeps every name."""
     csrc = tmp_path / "csrc"
     shutil.copytree(os.path.join(compat.PACKAGE_DIR, "csrc"), csrc)
     monkeypatch.setattr(compat, "PACKAGE_DIR", str(tmp_path))
@@ -471,7 +475,7 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
         assert kernels._inputs(src) == [src, "sm90.cuh"]
     for src in ("moe_bwd.cu", "moe_gemm.cu"):
         assert kernels._inputs(src) == [src, "moe_tc.cuh", "sm90.cuh"]
-    for src in ("paged_decode.cu", "quant_matmul.cu"):
+    for src in ("paged_decode.cu", "decode_attention.cu", "quant_matmul.cu"):
         assert kernels._inputs(src) == [src, "dequant.cuh", "sm90.cuh"]
     assert kernels._inputs("sampling.cu") == ["sampling.cu"]
     before = {src: kernels._library_path(src) for src in sources}
@@ -479,9 +483,10 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
     for name, renamed in (
             ("sm90.cuh", {"flash_bwd.cu", "flash_fwd.cu", "moe_bwd.cu",
                           "moe_gemm.cu", "paged_decode.cu",
-                          "quant_matmul.cu"}),
+                          "decode_attention.cu", "quant_matmul.cu"}),
             ("moe_tc.cuh", {"moe_bwd.cu", "moe_gemm.cu"}),
-            ("dequant.cuh", {"paged_decode.cu", "quant_matmul.cu"})):
+            ("dequant.cuh", {"paged_decode.cu", "decode_attention.cu",
+                             "quant_matmul.cu"})):
         header = csrc / name
         header.write_text(header.read_text() + "\n// edited\n")
         after = {src: kernels._library_path(src) for src in sources}

@@ -1,10 +1,11 @@
-"""The K splits of the redesigned K5 and K3 on the CPU.
+"""The splits of the redesigned K5, K3 and K2 on the CPU.
 
 ``split_plan`` of each kernel is a function of the shapes and the SM
-count alone (K3's never sees the positions ``t``): every weight byte row
-and every logical page lands in exactly one split, and the grid fills
-the card. The kernels' split-and-merge arithmetic, in plain PyTorch
-(``split_matmul_reference``, ``paged_decode_split_reference``), agrees
+count alone (K3's and K2's never see the position ``t``): every weight
+byte row, every logical page and every cache position lands in exactly
+one split, and the grid fills the card. The kernels' split-and-merge
+arithmetic, in plain PyTorch (``split_matmul_reference``,
+``paged_decode_split_reference``, ``decode_split_reference``), agrees
 with the JAX package's functions as its own tests run them: the Pallas
 kernels in interpret mode (or JAX's reference branch where the Pallas
 gates refuse a shape), inputs made with numpy from a seed.
@@ -22,15 +23,19 @@ import jax.numpy as jnp
 
 from distkeras_tpu.models import decoding as jd
 from distkeras_tpu.ops import quant_matmul as jqm
+from distkeras_tpu.ops.decode_attention import \
+    decode_attention as jax_decode_attention
 from distkeras_tpu.ops.paged_attention import \
     paged_decode_attention as jax_paged
 
+import distkeras_tpu_torch.ops.decode_attention  # noqa: F401
 import distkeras_tpu_torch.ops.paged_attention  # noqa: F401
 import distkeras_tpu_torch.ops.quant_matmul  # noqa: F401
 from distkeras_tpu_torch.models import qtree_from_jax
 from distkeras_tpu_torch.serving import tree_ancestors
 
 # the modules themselves (``ops`` re-exports functions of the same names)
+da = sys.modules["distkeras_tpu_torch.ops.decode_attention"]
 pa = sys.modules["distkeras_tpu_torch.ops.paged_attention"]
 qm = sys.modules["distkeras_tpu_torch.ops.quant_matmul"]
 
@@ -244,3 +249,102 @@ def test_paged_split_merge_matches_pallas(case, pps):
                                           to(TABLE), **pkw).numpy()
     assert np.all(out[3] == 0)
     np.testing.assert_allclose(out, ref, atol=SPLIT_TOL, rtol=0)
+
+
+# --- K2 ----------------------------------------------------------------------
+
+
+def test_decode_split_plan_ignores_t_and_covers_every_position_once():
+    """Split ``z`` owns positions ``[z * chunk, (z + 1) * chunk)``, whole
+    chunks of the kernel's (32, 64 or 128 positions): every position of
+    the cache lies in exactly one split, none lies past the cache's end,
+    and at every ``t`` the live splits (those meeting ``[lo, t]``) fit
+    the partials workspace ``live_splits`` sizes."""
+    assert "t" not in inspect.signature(da.split_plan).parameters
+    assert [da.chunk_positions(d, e) for d, e in (
+        (64, 2), (64, 1), (64, 4), (128, 2), (32, 1), (128, 4))] == [
+        64, 128, 32, 32, 128, 32]
+    for num_sms, unit in itertools.product(SMS, (32, 64, 128)):
+        for rows in (1, 4, 16, 64, 128, 1024):
+            for length, window in itertools.product(
+                    (1, 40, 128, 129, 1152, 4097, 100000),
+                    (None, 1, 100, 256, 5000)):
+                nsplit, chunk = da.split_plan(rows, length, num_sms,
+                                              window=window, unit=unit)
+                assert chunk % unit == 0
+                owner = np.arange(length) // chunk
+                assert owner.max() == nsplit - 1
+                live = da.live_splits(nsplit, chunk, window)
+                for t in {0, 1, length // 3, length - 2, length - 1}:
+                    if not 0 <= t < length:
+                        continue
+                    lo, hi = da.valid_range(t, window)
+                    assert 1 <= hi // chunk - lo // chunk + 1 <= live
+
+
+@pytest.mark.parametrize("unit", [64, 128], ids=["bf16", "int8"])
+@pytest.mark.parametrize("num_sms", SMS)
+def test_decode_split_plan_fills_the_card(num_sms, unit):
+    """generate()'s rows (4 x 4 and 4 x 16 kv heads, 8 x 16) at the end
+    of a 1152-4096 position cache, with and without a 256-position
+    window, in chunks of a bf16 and an int8 cache at D64: the live
+    splits put a block on every SM, or on as many as whole chunks of the
+    attended positions allow."""
+    for rows, length, window in itertools.product(
+            (16, 64, 128), (1152, 2048, 4096), (None, 256)):
+        nsplit, chunk = da.split_plan(rows, length, num_sms, window=window,
+                                      unit=unit)
+        lo, hi = da.valid_range(length - 1, window)
+        n_live = hi // chunk - lo // chunk + 1
+        units = -(-(hi - lo + 1) // unit)
+        assert rows * n_live >= min(num_sms, rows * units), \
+            (rows, length, window)
+    # generate()'s shape: 9 splits of 128 positions on a full card
+    want = (9, 128) if num_sms > 16 else {64: (2, 576), 128: (2, 640)}[unit]
+    assert da.split_plan(64, 1152, num_sms, unit=unit) == want
+
+
+L_SLAB = 48
+DECODE_SPLIT_CASES = {
+    # name: (g, t, window, bits)
+    "float": (1, 40, None, None),
+    "gqa": (4, 37, None, None),
+    # [36, 45]: the window empties the leading splits
+    "window": (2, 45, 10, None),
+    "t0": (1, 0, None, None),
+    # t early in the cache: most splits dead
+    "early": (2, 5, None, None),
+    "int8": (2, 30, None, 8),
+    "int4": (1, 44, 20, 4),
+}
+
+
+@pytest.mark.parametrize("chunk", [48, 24, 16, 6],
+                         ids=["1split", "2splits", "3splits", "8splits"])
+@pytest.mark.parametrize("case", list(DECODE_SPLIT_CASES))
+def test_decode_split_merge_matches_pallas(case, chunk):
+    """K2's split-and-merge at 1, 2, 3 and 8 splits of a 48-position
+    cache against JAX ``decode_attention`` (the Pallas kernel in
+    interpret mode, 8-position blocks): float32, GQA G4, a window that
+    empties the leading splits, ``t`` = 0 and ``t`` early in the cache
+    (most splits dead), int8 and int4-in-int8 caches."""
+    g, t, window, bits = DECODE_SPLIT_CASES[case]
+    rs = np.random.RandomState(41)
+    q = rs.randn(3, g, 16).astype(np.float32)
+    k, v = (rs.randn(3, L_SLAB, 16).astype(np.float32) for _ in range(2))
+    scale = 16 ** -0.5
+    jsc, tsc = {}, {}
+    if bits is not None:
+        (k, ks), (v, vs) = (tuple(np.array(a) for a in jd._quantize_kv(
+            jnp.asarray(x), bits)) for x in (k, v))
+        jsc = {"k_scale": jnp.asarray(ks), "v_scale": jnp.asarray(vs)}
+        tsc = {"k_scale": torch.from_numpy(ks),
+               "v_scale": torch.from_numpy(vs)}
+    ref = np.asarray(jax_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), t, scale=scale,
+        window=window, block_l=8, interpret=True, **jsc))
+    to = torch.from_numpy
+    out = da.decode_split_reference(to(q), to(k), to(v), t, scale=scale,
+                                    chunk=chunk, window=window, **tsc)
+    assert out.dtype == torch.float32 and out.shape == (3, g, 16)
+    np.testing.assert_allclose(out.numpy(), ref, atol=SPLIT_TOL, rtol=0)
