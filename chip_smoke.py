@@ -107,10 +107,14 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     bounds and ``torch.matmul`` against the bf16 weight as yardstick
     (int8 also ``torch._weight_int8pack_mm`` on the same bytes, where
     this torch runs it on CUDA), and a bitwise repeat;
-16. the fused sampling epilogue (K4) against its plain version at S 8
-    and 4, V 32768, mixed rows (greedy, top-k, top-p, both, k >= V,
-    ties at the k-th value): equal tokens, or a counted row at the
-    nucleus boundary;
+16. the fused sampling epilogue (K4, one launch on the raw logits)
+    against its plain version at S 8 and 4, V 32768, float32 and bf16
+    logits, mixed rows (greedy, top-k, top-p, both, k = 1, k >= V,
+    p <= 0, +-0.0 logits at the k-th value, ties at the k-th value):
+    equal tokens, or a counted row at the nucleus boundary; a bitwise
+    repeat, CUDA kernels a call, ``sample_epilogue`` by graph replay
+    warm and cold (the replays walk copies of the logits and the Gumbel
+    field past the L2) and eager, GB/s and the bound's share;
 17. the engine with quantized weights on phase 5's workload (the same
     fresh model): int8 with fused sampling, the same unfused (the
     streams must match), int4 over int4 pages, an n-gram tree with
@@ -236,12 +240,10 @@ from distkeras_tpu_torch.ops.paged_attention import (
 from distkeras_tpu_torch.ops.quant_matmul import (quant_matmul,
                                                   quantize_weight,
                                                   reference_matmul)
-from distkeras_tpu_torch.ops.sampling import launch_kernel as k4_launch
 from distkeras_tpu_torch.ops.sampling import (MAX_BOUNDARY_PARTINGS,
                                               boundary_partings, gumbel_noise,
                                               sample_epilogue,
                                               sample_epilogue_reference)
-from distkeras_tpu_torch.ops.sampling import prepare as k4_prepare
 from distkeras_tpu_torch.parallel import (SingleTrainer, TrainCarry,
                                           make_train_step, value_and_grad)
 from distkeras_tpu_torch.serving import (DraftModel, NgramDraft,
@@ -2244,25 +2246,42 @@ def _int8pack_ms(x, wq, k, n) -> str:
 # --- phase 16: the fused sampling epilogue (K4) -----------------------------
 
 #: the rows' knobs: greedy, top-k + top-p, top-p only, top-k only, k = 1,
-#: k >= V, both cuts, top-k at a forced tie
-K4_TEMP = (0.0, 0.7, 1.0, 1.3, 0.9, 1.1, 0.8, 1.0)
-K4_TOPK = (0, 40, 0, 3, 1, 1 << 20, 7, 5)
-K4_TOPP = (1.0, 0.9, 0.5, 1.0, 0.8, 1.0, 0.3, 1.0)
+#: k >= V, both cuts, p <= 0, +-0.0 logits at the k-th value (K4_ZERO_ROW),
+#: and last the top-k at a forced tie
+K4_TEMP = (0.0, 0.7, 1.0, 1.3, 0.9, 1.1, 0.8, 1.2, 1.0, 1.0)
+K4_TOPK = (0, 40, 0, 3, 1, 1 << 20, 7, 10, 6, 5)
+K4_TOPP = (1.0, 0.9, 0.5, 1.0, 0.8, 1.0, 0.3, 0.0, 0.95, 1.0)
+K4_ZERO_ROW = 8
+#: phase 16's cases: rows, logits dtype (the vocab is the LM's)
+K4_CASES = ((8, torch.float32), (4, torch.float32), (8, torch.bfloat16))
 
 
-def k4_inputs(rs, s, v, dev):
-    """``s`` rows of logits with mixed knobs (the knob rows in turn; the
-    last row is the tie row, its top 20 logits equal) and their Gumbel
-    field from per-row generators."""
+def k4_inputs(rs, s, v, dev, dtype=torch.float32):
+    """``s`` rows of ``dtype`` logits with mixed knobs (the knob rows in
+    turn from a seeded offset; with two rows or more the last is the tie
+    row, its top 20 logits equal) and their Gumbel field from per-row
+    generators. The +-0.0 row is shifted so that its k-th largest value
+    is 0, and its sorted ranks k-3 to k+2 hold +0.0 and -0.0 in turn."""
+    n = len(K4_TEMP)
     logits = torch.from_numpy((rs.randn(s, v) * 3).astype(np.float32))
-    top = logits[s - 1].topk(min(20, v)).indices
-    logits[s - 1, top] = logits[s - 1].max()
-    idx = [i % len(K4_TEMP) for i in range(s - 1)] + [len(K4_TEMP) - 1]
+    off = rs.randint(n - 1)
+    idx = [(off + i) % (n - 1) for i in range(s)]
+    if s > 1:
+        top = logits[s - 1].topk(min(20, v)).indices
+        logits[s - 1, top] = logits[s - 1].max()
+        idx[-1] = n - 1
+    for row, i in enumerate(idx):
+        k = K4_TOPK[i]
+        if i == K4_ZERO_ROW and k + 3 <= v:
+            x = logits[row]
+            x -= x.topk(k).values[-1]
+            ranks = x.topk(k + 3).indices[k - 3:]
+            x[ranks] = torch.tensor([0.0, -0.0] * 3)
     temp = torch.tensor([K4_TEMP[i] for i in idx])
     gens = [None if t <= 0 else torch.Generator(device=dev).manual_seed(i)
             for i, t in enumerate(temp.tolist())]
     args = [a.to(dev) for a in (
-        logits, temp, torch.tensor([K4_TOPK[i] for i in idx]),
+        logits.to(dtype), temp, torch.tensor([K4_TOPK[i] for i in idx]),
         torch.tensor([K4_TOPP[i] for i in idx]))]
     return args + [gumbel_noise(gens, v, dev)]
 
@@ -2284,19 +2303,35 @@ def k4_margins(parted) -> str:
                      for _, mg, tol in parted) or "none"
 
 
+def k4_bound(args):
+    """The least time for one call: the logits in their dtype and the
+    float32 Gumbel rows the draw needs (a greedy row reads none) read
+    once, the knobs read and the int64 tokens written once; a division,
+    an exp, an add and a compare an entry at the float32 peak."""
+    logits, temp = args[0], args[1]
+    s, v = logits.shape
+    sampled = int((temp > 0).sum())
+    nbytes = s * v * logits.element_size() + sampled * v * 4 + s * 24
+    return bound_ms(4.0 * s * v, nbytes, PEAK_F32_FLOPS) + (nbytes,)
+
+
 def k4_phase(dev):
-    """K4 against its plain version at S in (4, 8), V = 32768, mixed
-    rows, 8 draws each: equal tokens, except rows at the nucleus
-    boundary, which are counted. Kernel time from graph replays (the
-    sort outside it); the plain version and the whole fused sampler
-    (scale, sort, kernel) eager."""
+    """K4 against its plain version (``K4_CASES``, V = 32768), 8 draws a
+    case: equal tokens, except rows at the nucleus boundary, which are
+    counted; a bitwise repeat. The public ``sample_epilogue`` (one kernel
+    a call) by graph replay, warm (one set of inputs, in L2) and cold
+    (replays walking copies of the logits and the Gumbel field past the
+    L2), and eager; its CUDA kernels a call (a captured graph's kernel
+    nodes); the plain version eager. Only public calls are timed, so the
+    phase also times an earlier checkout's sampler."""
     rows = []
     rs = np.random.RandomState(SEED + 10)
     v = LM_CFG["vocab"]
-    for s in (8, 4):
+    for s, dtype in K4_CASES:
+        name = f"S{s} V{v} {str(dtype).replace('torch.', '')}"
         parted, n_rows = [], 0
         for _ in range(8):
-            args = k4_inputs(rs, s, v, dev)
+            args = k4_inputs(rs, s, v, dev, dtype)
             before = kernels.launch_counts()["sample_epilogue"]
             out = sample_epilogue(*args)
             torch.cuda.synchronize()
@@ -2304,22 +2339,38 @@ def k4_phase(dev):
                 raise AssertionError("sample_epilogue did not launch")
             k4_partings(out, sample_epilogue_reference(*args), args, parted)
             n_rows += s
-        lf, srt = k4_prepare(args[0], args[1])
-        ms = graph_ms(lambda: k4_launch(lf, srt, *args[1:]))
-        fused_ms = time_ms(lambda: sample_epilogue(*args), iters=20)
+        same = torch.equal(out, sample_epilogue(*args))
+        per_call = kernels_per_call(lambda: sample_epilogue(*args))
+        copies = [args] + [[a.clone() if a.ndim == 2 else a for a in args]
+                           for _ in range(int(COLD_BYTES) // (
+                               args[0].nbytes + args[4].nbytes))]
+
+        def call(a):
+            return sample_epilogue(*a)
+        ms = graph_ms(lambda: call(args))
+        cold_ms = graph_ms(_walk(copies, call))
+        del copies
+        eager_ms = time_ms(lambda: sample_epilogue(*args), iters=20)
         plain_ms = time_ms(lambda: sample_epilogue_reference(*args),
                            iters=5)
-        bms, by = bound_ms(0.0, 3 * s * v * 4 + s * 16, PEAK_F32_FLOPS)
-        print(f"sample_epilogue S{s} V{v}: {len(parted)} of {n_rows} rows "
+        bms, by, nbytes = k4_bound(args)
+        print(f"sample_epilogue {name}: {len(parted)} of {n_rows} rows "
               f"parted at the nucleus boundary (margins "
-              f"{k4_margins(parted)}), all others equal; kernel "
-              f"{ms:.4f} ms (graph replay); fused sampler eager "
-              f"{fused_ms:.4f} ms; plain eager {plain_ms:.4f} ms; bound "
-              f"{bms:.4f} ms ({by})", flush=True)
+              f"{k4_margins(parted)}), all others equal; bitwise repeat "
+              f"{same}; {per_call:g} CUDA kernels a call; sample_epilogue "
+              f"{ms:.4f} ms warm, {nbytes / ms / 1e6:.0f} GB/s, "
+              f"{100 * bms / ms:.1f}% of the bound, {cold_ms:.4f} ms cold, "
+              f"{100 * bms / cold_ms:.1f}% (graph replay), {eager_ms:.4f} "
+              f"ms eager; plain eager {plain_ms:.4f} ms; bound {bms:.4f} ms "
+              f"({by})", flush=True)
+        if not same:
+            raise AssertionError(f"sample_epilogue is not bitwise "
+                                 f"repeatable on {name}")
         # tokens are compared, not values: 0 off the boundary rows
-        rows.append(dict(name=f"S{s} V{v}", err=0.0, ms=ms,
-                         plain_ms=plain_ms, library_ms=None, bound_ms=bms,
-                         bound_by=by))
+        rows.append(dict(name=name, err=0.0, ms=ms, cold_ms=cold_ms,
+                         eager_ms=eager_ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bms, bound_by=by,
+                         kernels_per_call=per_call))
     return rows
 
 

@@ -96,7 +96,8 @@ _SIGNATURES = {
                         [_P, _I] + [_P] * 3 + [_I] * 7 + [_P]),
     "quant_matmul_q4": ("dkt_quant_matmul_q4",
                         [_P, _I] + [_P] * 3 + [_I] * 7 + [_P]),
-    "sample_epilogue": ("dkt_sample_epilogue", [_P] * 7 + [_I, _I, _P]),
+    "sample_epilogue": ("dkt_sample_epilogue",
+                        [_P, _I, _L] + [_P] * 5 + [_I, _I, _P]),
     "moe_gather_gemm1": ("dkt_moe_gather_gemm1",
                          [_P, _I] + [_P] * 5 + [_I] * 10 + [_P]),
     "moe_bwd_dx": ("dkt_moe_bwd_dx", [_P] * 14 + [_I] * 7 + [_P]),

@@ -7,9 +7,12 @@ Replaces ``distkeras_tpu/ops/sampling.py`` ``sample_epilogue`` (:146, the
 ``gumbel_noise`` :89 and ``sample_tokens`` :200. The unfused sampler
 (``models.decoding._sample_vec``) walks the ``[S, V]`` logits several
 times (two rank argsorts, a sort, a softmax and a cumsum); the kernel
-takes the temperature-scaled logits, their descending sort (the one
-``torch.sort``, outside the kernel as XLA's sort was) and a Gumbel
-field, and emits the token ids.
+takes the raw logits (float32, bfloat16 or float16), the knobs and a
+Gumbel field and emits the int64 token ids in one launch: the
+temperature scale is inside it, and the descending sort the TPU kernel
+consumed is replaced by radix descents over the values' bits (the k-th
+value by counts, the nucleus threshold by the mass strictly above a
+value), so no ``torch.sort`` runs on the card.
 
 Exactness contract:
 
@@ -21,13 +24,14 @@ Exactness contract:
   (``decoding._masked_logits_vec``), then ``argmax(lf + g)`` and the
   greedy override, so on the CPU fused and unfused streams are
   byte-identical by construction;
-* the kernel mirrors the masks exactly (rank top-k with lowest-index
-  ties rebuilt from the sorted row, the nucleus cut's exclusive-cumsum
-  threshold, first-index argmaxes). Its softmax sum and cumsum run in
-  another order than ``torch.cumsum``, so at a row whose cumulative
-  mass lies within float32 rounding of ``top_p`` the nucleus may keep
-  one token more or fewer; :func:`boundary_partings` is the check that
-  admits such a row, and only such a row.
+* the kernel mirrors the masks exactly (the same IEEE division, rank
+  top-k with lowest-index ties, the nucleus cut's threshold as the
+  smallest value whose mass above stays under ``top_p`` of the total,
+  first-index argmaxes). Its nucleus mass is an exact fixed-point sum
+  where the plain version takes a float32 ``torch.cumsum``, so at a row
+  whose cumulative mass lies within float32 rounding of ``top_p`` the
+  nucleus may keep one token more or fewer; :func:`boundary_partings`
+  is the check that admits such a row, and only such a row.
 
 The TPU gates (``fused_supported``, vocab % 128, the %8 row pad) are
 not carried over: the kernel takes any vocab.
@@ -91,53 +95,57 @@ def sample_epilogue(logits, temperature, top_k, top_p, gumbel):
     if logits.device.type != "cuda":
         raise ValueError(f"sample_epilogue runs on cuda or cpu tensors, got "
                          f"{logits.device}")
-    return _launch(logits, temperature, top_k, top_p, gumbel)
+    return launch_kernel(logits, temperature, top_k, top_p, gumbel)
 
 
-def prepare(logits, temperature):
-    """The kernel's two row operands: temperature-scaled float32 logits
-    (a greedy row divides by 1) and their descending sort."""
-    lf = logits.float()
+def _scaled(logits, temperature):
+    """Temperature-scaled float32 logits, as the plain version scales
+    them (a greedy row divides by 1)."""
     safe_t = torch.where(temperature > 0.0, temperature,
                          torch.ones_like(temperature))
-    lf = (lf / safe_t[:, None].float()).contiguous()
-    srt = torch.sort(lf, dim=-1, descending=True).values.contiguous()
-    return lf, srt
+    return logits.float() / safe_t[:, None].float()
 
 
-def launch_kernel(lf, srt, temperature, top_k, top_p, gumbel):
-    """One K4 launch over prepared operands (``prepare``); returns
-    ``[S]`` int32 token ids."""
-    s, v = lf.shape
-    if srt.shape != lf.shape or gumbel.shape != lf.shape:
-        raise ValueError(f"lf, srt and gumbel must share one [S, V] shape, "
-                         f"got {tuple(lf.shape)}, {tuple(srt.shape)}, "
+#: the kernel's logits dtypes (its C ABI's codes); another dtype is cast
+#: to float32 first
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def launch_kernel(logits, temperature, top_k, top_p, gumbel):
+    """One K4 launch on the raw ``[S, V]`` logits (rows may be strided);
+    returns ``[S]`` int64 token ids. Knobs already float32 / int64 and a
+    contiguous float32 field are passed as they are, so the call is one
+    CUDA kernel and allocates only its output."""
+    s, v = logits.shape
+    if gumbel.shape != logits.shape:
+        raise ValueError(f"logits and gumbel must share one [S, V] shape, "
+                         f"got {tuple(logits.shape)} and "
                          f"{tuple(gumbel.shape)}")
     if any(tuple(a.shape) != (s,) for a in (temperature, top_k, top_p)):
         raise ValueError(f"temperature, top_k and top_p must be [{s}]")
-    devs = {x.device for x in (lf, srt, temperature, top_k, top_p, gumbel)}
+    devs = {x.device for x in (logits, temperature, top_k, top_p, gumbel)}
     if len(devs) != 1:
         raise ValueError(f"all operands must be on one device, got {devs}")
+    if logits.dtype not in _DTYPES:
+        logits = logits.float()
+    if v > 1 and logits.stride(1) != 1:
+        logits = logits.contiguous()
     temp = temperature.float().contiguous()
-    kk = top_k.to(torch.int32).contiguous()
+    kk = top_k.long().contiguous()
     pp = top_p.float().contiguous()
     g = gumbel.float().contiguous()
-    out = torch.empty(s, dtype=torch.int32, device=lf.device)
+    out = torch.empty(s, dtype=torch.int64, device=logits.device)
     if s == 0:
         return out
     lib = kernels.library("sample_epilogue")
     err = lib.dkt_sample_epilogue(
-        lf.data_ptr(), srt.data_ptr(), g.data_ptr(), temp.data_ptr(),
-        kk.data_ptr(), pp.data_ptr(), out.data_ptr(), s, v,
-        torch.cuda.current_stream(lf.device).cuda_stream)
+        logits.data_ptr(), _DTYPES[logits.dtype], logits.stride(0),
+        g.data_ptr(), temp.data_ptr(), kk.data_ptr(), pp.data_ptr(),
+        out.data_ptr(), s, v,
+        torch.cuda.current_stream(logits.device).cuda_stream)
     kernels.check(lib, err, "sample_epilogue")
     kernels.count_launch("sample_epilogue")
     return out
-
-
-def _launch(logits, temperature, top_k, top_p, gumbel):
-    lf, srt = prepare(logits, temperature)
-    return launch_kernel(lf, srt, temperature, top_k, top_p, gumbel).long()
 
 
 def sample_tokens(logits, temperature, top_k, top_p, generators):
@@ -184,7 +192,7 @@ def boundary_partings(out, ref, logits, temperature, top_k, top_p):
     # the plain version's own mask program, on its device
     rows = torch.tensor(parted, device=logits.device)
     temp, kk, pp = (a[rows] for a in (temperature, top_k, top_p))
-    lf, _ = prepare(logits[rows], temp)
+    lf = _scaled(logits[rows], temp)
     order = torch.argsort(-lf, dim=-1, stable=True)
     keep = (kk[:, None] <= 0) | (torch.argsort(order, dim=-1, stable=True)
                                  < kk[:, None])

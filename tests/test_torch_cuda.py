@@ -869,18 +869,24 @@ def test_quant_matmul_kernel_every_tile(dev, bits, dtype, m):
 
 # --- K4: the fused sampling epilogue -----------------------------------------
 
-#: mixed rows (greedy, top-k, top-p, both, k = 1, k >= V, a tie at the
-#: k-th value), as chip_smoke.py's phase 16 draws them
+#: mixed rows (greedy, top-k, top-p, both, k = 1, k >= V, p <= 0, +-0.0
+#: logits at the k-th value, a tie at the k-th value), as chip_smoke.py's
+#: phase 16 draws them
 k4_case = chip_smoke.k4_inputs
+K4_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
-@pytest.mark.parametrize("s,v", [(4, 32768), (8, 32768), (8, 1000),
-                                 (5, 100)])
-def test_sample_epilogue_kernel_matches_plain(dev, s, v):
+@pytest.mark.parametrize("dtype", K4_DTYPES)
+@pytest.mark.parametrize("v", [100, 1000, 32768, 151936, 256000])
+@pytest.mark.parametrize("s", [1, 4, 5, 8])
+def test_sample_epilogue_kernel_matches_plain(dev, s, v, dtype):
+    """Tokens equal the plain version's but at counted nucleus-boundary
+    rows. V 256000 is too wide for a block's shared memory at 8 blocks a
+    row: the kernel re-reads its slice from L2 on each pass."""
     rs = np.random.RandomState(s * 1000 + v)
     parted_total = 0
     for _ in range(4):
-        args = k4_case(rs, s, v, dev)
+        args = k4_case(rs, s, v, dev, dtype)
         before = kernels.launch_counts()["sample_epilogue"]
         out = sample_epilogue(*args)
         torch.cuda.synchronize()
@@ -889,6 +895,39 @@ def test_sample_epilogue_kernel_matches_plain(dev, s, v):
         assert out.dtype == ref.dtype and out.shape == (s,)
         parted_total += len(boundary_partings(out, ref, *args[:4]))
     assert parted_total <= MAX_BOUNDARY_PARTINGS
+
+
+def test_sample_epilogue_zero_and_empty_nucleus_rows(dev):
+    """The +-0.0 row (ties of +0.0 and -0.0 at the k-th value, kept by
+    index) and the p <= 0 row (nothing kept: index 0) on their own, every
+    knob row once, float32 and bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        rs = np.random.RandomState(7)
+        args = k4_case(rs, len(chip_smoke.K4_TEMP), 2000, dev, dtype)
+        out = sample_epilogue(*args)
+        ref = sample_epilogue_reference(*args)
+        assert len(boundary_partings(out, ref, *args[:4])) \
+            <= MAX_BOUNDARY_PARTINGS
+        temp, top_p = args[1].cpu(), args[3].cpu()
+        empty = torch.nonzero((temp > 0) & (top_p <= 0)).flatten()
+        assert len(empty) == 1 and int(out[empty[0]]) == 0
+
+
+def test_sample_epilogue_is_one_kernel(dev):
+    """One CUDA kernel a call: a captured graph of the call holds one
+    kernel node (no cast, sort or copy around the launch)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args = k4_case(np.random.RandomState(3), 8, 32768, dev, dtype)
+        assert chip_smoke.kernels_per_call(
+            lambda: sample_epilogue(*args)) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sample_epilogue_bitwise_repeat(dev, dtype):
+    rs = np.random.RandomState(5)
+    for v in (1000, 32768, 151936):
+        args = k4_case(rs, 8, v, dev, dtype)
+        assert torch.equal(sample_epilogue(*args), sample_epilogue(*args))
 
 
 def test_sample_epilogue_cpu_plain_cuda_kernel(dev):

@@ -461,8 +461,9 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
     headers it includes, directly or through another header: editing
     ``sm90.cuh`` renames the libraries of ``moe_gemm.cu``, ``moe_bwd.cu``
     (both through ``moe_tc.cuh``), ``flash_bwd.cu``, ``flash_fwd.cu``,
-    ``paged_decode.cu``, ``decode_attention.cu`` and ``quant_matmul.cu``,
-    editing ``moe_tc.cuh`` those of the two MoE sources, editing
+    ``paged_decode.cu``, ``decode_attention.cu``, ``quant_matmul.cu`` and
+    ``sampling.cu``, editing ``moe_tc.cuh`` those of the two MoE sources,
+    editing
     ``dequant.cuh`` those of the paged and the slab decode and the
     quantized matmul (a stale build is never reused), and no other; an
     unchanged tree keeps every name."""
@@ -477,13 +478,14 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
         assert kernels._inputs(src) == [src, "moe_tc.cuh", "sm90.cuh"]
     for src in ("paged_decode.cu", "decode_attention.cu", "quant_matmul.cu"):
         assert kernels._inputs(src) == [src, "dequant.cuh", "sm90.cuh"]
-    assert kernels._inputs("sampling.cu") == ["sampling.cu"]
+    assert kernels._inputs("sampling.cu") == ["sampling.cu", "sm90.cuh"]
     before = {src: kernels._library_path(src) for src in sources}
     assert {src: kernels._library_path(src) for src in sources} == before
     for name, renamed in (
             ("sm90.cuh", {"flash_bwd.cu", "flash_fwd.cu", "moe_bwd.cu",
                           "moe_gemm.cu", "paged_decode.cu",
-                          "decode_attention.cu", "quant_matmul.cu"}),
+                          "decode_attention.cu", "quant_matmul.cu",
+                          "sampling.cu"}),
             ("moe_tc.cuh", {"moe_bwd.cu", "moe_gemm.cu"}),
             ("dequant.cuh", {"paged_decode.cu", "decode_attention.cu",
                              "quant_matmul.cu"})):
