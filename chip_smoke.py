@@ -190,9 +190,30 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     plan fixed: the fused block's forward and backward (K6a, K6b, K6c)
     against the card's plain versions on that plan (2e-2).
 
-The line before the last is one JSON object with every kernel's
-numbers (seventeen kernels); the last line is ``{"ok": true, "device":
-{...}}``.
+25. the zero-bubble loop: phase 5's workload and pool on the fresh
+    218M LM through the synchronous loop (``overlap=False``), the
+    pipelined one (``overlap=True``, the engine's default) and fused
+    windows (``fuse_steps=4``): every stream finishes, a preemption and
+    a prefix hit happen, the paged kernel launches exactly 12 times per
+    decode step the engine launched (a window's steps and the step in
+    flight past a stop included), the greedy streams equal the
+    synchronous loop's or part at a near-tie of the CPU float32 scores
+    (phase 14's rule), the sampled stream is equal; a steady-decode
+    profile of each loop (wall, device busy and CUDA launches a step,
+    ms blocked in the lagged fetch a step, the host's ms to issue a
+    launch); one decode step and a 4-step window captured in a CUDA
+    graph on static buffers, replay against the eager call bitwise in
+    tokens and pages, with replay times; every launch of an engine with
+    greedy and sampled requests over bf16, int8 and int4 pages, int8
+    weights and fused sampling run under ``set_sync_debug_mode("error")``
+    (no host sync); after phase 21 the same on phase 20's dispatched
+    MoE engine (four greedy requests, K6a exactly 12 per decode step
+    launched), and its launches free of host syncs.
+
+Every serving phase runs the engine's default loop, ``overlap=True``;
+phase 20's teacher-forced runs use the synchronous one. The line before
+the last is one JSON object with every kernel's numbers (seventeen
+kernels); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -218,6 +239,8 @@ from distkeras_tpu_torch.models.moe import MoE, _dispatch_plan
 from distkeras_tpu_torch.models.decoding import (_generate_params,
                                                  _masked_logits_vec,
                                                  _quantize_kv, decode_step,
+                                                 decode_fused_slots,
+                                                 decode_step_slots_paged,
                                                  fuse_qkv_params, init_cache,
                                                  pack_int4, prefill,
                                                  serving_params)
@@ -247,7 +270,8 @@ from distkeras_tpu_torch.ops.sampling import (MAX_BOUNDARY_PARTINGS,
 from distkeras_tpu_torch.parallel import (SingleTrainer, TrainCarry,
                                           make_train_step, value_and_grad)
 from distkeras_tpu_torch.serving import (DraftModel, NgramDraft,
-                                         ServingEngine, tree_ancestors)
+                                         PagedKVPool, ServingEngine,
+                                         tree_ancestors)
 from distkeras_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
 #: the LM the JAX package benchmarks (bench.py LM_CFG), at full depth
@@ -699,13 +723,14 @@ NUM_PAGES = 160
 
 
 def serve(model, device, *, num_pages=NUM_PAGES, cache_dtype=None,
-          requests=None, **engine_kw):
+          requests=None, setup=None, **engine_kw):
     """Run a workload (default: ``workload``) through a paged engine
     (``cache_dtype`` None: the model's bf16, or ``"int8"``/``"int4"``
     pages; ``engine_kw`` e.g. a draft source), draining it through
     ``step()``; returns the engine, the request ids with their prompts,
     the outputs, a count of non-finite live logits seen and the number
-    of engine iterations."""
+    of engine iterations. ``setup(engine)``, if given, runs before the
+    first submit."""
     bad = torch.zeros((), dtype=torch.long, device=device)
 
     def check(kind, logits, slots):
@@ -716,6 +741,8 @@ def serve(model, device, *, num_pages=NUM_PAGES, cache_dtype=None,
                         prefill_chunk=256, num_pages=num_pages,
                         device=device, on_logits=check,
                         cache_dtype=cache_dtype, **engine_kw)
+    if setup is not None:
+        setup(eng)
     if requests is None:
         requests = workload(model.module.layers[0].vocab_size)
     reqs = []
@@ -764,7 +791,7 @@ def profile_serving(model, device, label="bf16 weights", **engine_kw):
     n_plain, n_prof = 16, 8
     t0 = time.perf_counter()
     for _ in range(n_plain):
-        eng.step()                # each step ends on the token fetch
+        eng.step()                # each step ends on the lagged fetch
     step_ms = (time.perf_counter() - t0) * 1e3 / n_plain
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1995,11 +2022,12 @@ def _cpu_choice(f32, context, kw, index, device, favour, eps_rel):
 
 
 def check_identity(f32, plain, spec, requests, label, device, tie_rel):
-    """Each speculative stream against the plain engine's stream of the
-    same request: equal, or parting at a near-tie of the plain path's
-    CPU float32 scores, compared up to there. A near-tie: logits moved
-    by half the tie bound (each bf16 path's own error) in the
-    speculative token's favour make the float32 path choose it (for a
+    """Each stream of a run (speculative, or another loop's) against the
+    plain engine's stream of the same request: equal, or parting at a
+    near-tie of the plain path's CPU float32 scores, compared up to
+    there. A near-tie: logits moved by half the tie bound (each bf16
+    path's own error) in the run's token's favour make the float32 path
+    choose it (for a
     greedy request: a top-2 gap within the bound; for a sampled one
     this also covers a candidate at the top-k or nucleus edge).
     Returns the number of streams that parted."""
@@ -2013,14 +2041,14 @@ def check_identity(f32, plain, spec, requests, label, device, tie_rel):
         pos = int(diff[0])
         choice, gap = _cpu_choice(f32, a[:pos], kw, pos - len(prompt),
                                   device, int(b[pos]), tie_rel / 2)
-        print(f"speculation {label}: request {rid} parts from the plain "
+        print(f"{label}: request {rid} parts from the plain "
               f"stream at generated token {pos - len(prompt)} (plain "
-              f"{a[pos]}, speculative {b[pos]}); CPU float32 top-2 gap "
+              f"{a[pos]}, this run {b[pos]}); CPU float32 top-2 gap "
               f"{gap:.2e} of max |logit|; pushed by {tie_rel / 2:.2e} "
-              f"towards the speculative token the float32 path picks "
+              f"towards this run's token the float32 path picks "
               f"{choice}", flush=True)
         if choice != int(b[pos]):
-            raise AssertionError(f"speculation {label}: request {rid} "
+            raise AssertionError(f"{label}: request {rid} "
                                  "parts from the plain stream away from a "
                                  "near-tie")
         parted += 1
@@ -2110,7 +2138,8 @@ def spec_phase(model, card, tie_rel):
             del spec["draft"].__dict__[name]
         check_finished(reqs, out, bad)
         parted = check_identity(f32, plains[key], (reqs, out), requests,
-                                label, model.device, tie_rel)
+                                f"speculation {label}", model.device,
+                                tie_rel)
         s = eng.metrics.summary()
         emitted = len(reqs) * NEW_TOKENS
         # a tree's acceptance counts every node offered (at most depth of
@@ -2894,7 +2923,7 @@ class _Forced:
             if topi is not None and known:
                 self._keep(self.index[r.rid], g, logits[row],
                            topi[:, row, 0])
-        return out
+        return torch.from_numpy(out).to(logits.device)
 
     def _walk(self, logits, toks, parents):
         """The verify walk down the forced stream: at each node emit the
@@ -2926,11 +2955,14 @@ class _Forced:
 
 def forced_run(model, requests, streams, layer_check=False, **engine_kw):
     """``requests`` through a paged engine as ``serve`` builds it,
-    teacher-forced to ``streams`` (``_Forced``); returns the record."""
+    teacher-forced to ``streams`` (``_Forced``); returns the record. The
+    engine runs the synchronous loop: a forced token is the stream's
+    next one after the tokens the host holds, which the pipelined loop
+    reads one step late."""
     eng_mod = sys.modules["distkeras_tpu_torch.serving.engine"]
     eng = ServingEngine(model, num_slots=4, max_len=2048, page_len=16,
                         prefill_chunk=256, num_pages=NUM_PAGES,
-                        device=model.device, **engine_kw)
+                        device=model.device, overlap=False, **engine_kw)
     rids = [eng.submit(prompt, NEW_TOKENS, **kw) for prompt, kw in requests]
     with _Forced(eng_mod, streams, layer_check) as rec:
         rec.attach(eng, rids)
@@ -3678,6 +3710,337 @@ def moe_gradients_vs_cpu(dev):
     return out
 
 
+# --- phase 25: the zero-bubble loop ------------------------------------------
+
+#: the loops phase 25 holds against each other: (label, engine keywords)
+LOOPS = (("sync", dict(overlap=False)),
+         ("overlap", dict(overlap=True)),
+         ("overlap+fuse4", dict(overlap=True, fuse_steps=4)))
+#: decode steps a loop profile times, then profiles (every loop the same)
+LOOP_STEPS, LOOP_PROF_STEPS = 32, 16
+
+
+class _SyncErrors:
+    """While entered, a CUDA host sync raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+
+    def __enter__(self):
+        torch.cuda.set_sync_debug_mode("error")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+
+
+class _LaunchWatch:
+    """Wraps one engine's ``_launch_step``: counts its launches (units),
+    the decode steps they hold (a fused window holds K) and the fused
+    windows, adds up the host's time to issue them (from the call to its
+    return: nothing waits for the card), and with ``strict`` runs each
+    launch under ``_SyncErrors``, so a host sync inside one raises."""
+
+    def __init__(self, eng, strict=False):
+        self.units = self.steps = self.windows = 0
+        self.issue_s = 0.0
+        orig = eng._launch_step
+
+        def launch(greedy_only, fuse, prev, t0):
+            t = time.perf_counter()
+            if strict:
+                with _SyncErrors():
+                    out = orig(greedy_only, fuse, prev, t0)
+            else:
+                out = orig(greedy_only, fuse, prev, t0)
+            self.issue_s += time.perf_counter() - t
+            self.units += 1
+            self.steps += max(fuse, 1)
+            self.windows += bool(fuse)
+            return out
+
+        eng._launch_step = launch
+
+
+def zero_bubble_phase(model, card, tie_rel, moe=False):
+    """Phase 5's workload and pool through the three loops (``LOOPS``):
+    every stream finishes, a preemption and a prefix hit happen, the
+    paged kernel launches exactly once per layer in every decode step
+    the engine launched (a fused window's steps and the step in flight
+    past a stop included) and, with ``moe``, K6a too; the pipelined
+    loops' greedy streams equal the synchronous loop's or part at a
+    near-tie of the CPU float32 scores (``check_identity``), the sampled
+    stream is equal. ``moe``: phase 20's dispatched all-MoE engine on
+    the workload's first four greedy requests (no preemption asked)."""
+    vocab = model.module.layers[0].vocab_size
+    requests = workload(vocab)
+    if moe:
+        requests = [r for r in requests if not r[1]][:4]
+    rs = np.random.RandomState(SEED + 21)
+    for _, kw in LOOPS:               # the first calls of each loop's shapes
+        eng = ServingEngine(model, num_slots=2, max_len=2048, page_len=16,
+                            prefill_chunk=256, device=model.device, **kw)
+        eng.submit(rs.randint(0, vocab, 40), 12)
+        eng.submit(rs.randint(0, vocab, 30), 12, temperature=0.8, top_k=40,
+                   top_p=0.9)
+        eng.run(max_steps=200)
+    tag = "MoE " if moe else ""
+    runs, launches = {}, {}
+    for label, kw in LOOPS:
+        watches = []
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng, reqs, out, bad, iters = serve(
+            model, model.device, requests=requests,
+            setup=lambda e: watches.append(_LaunchWatch(e)), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = kernels.launch_counts()
+        w = watches[0]
+        check_finished(reqs, out, bad)
+        s = eng.metrics.summary()
+        if not moe:
+            check_serving(eng, reqs, out, bad)
+        per_step = {"paged_decode": LM_CFG["num_layers"]}
+        if moe:
+            per_step["moe_gather_gemm1"] = MOE_LAYERS
+        for name, n in per_step.items():
+            if c[name] != n * w.steps:
+                raise AssertionError(
+                    f"zero-bubble {tag}{label}: {c[name]} {name} launches "
+                    f"for {w.steps} decode steps launched, expected "
+                    f"{n * w.steps}")
+        if kw.get("fuse_steps") and not w.windows:
+            raise AssertionError(f"zero-bubble {tag}{label}: no fused "
+                                 "window ran")
+        print(f"zero-bubble {tag}{label} on {card}: {len(reqs)} requests in "
+              f"{wall:.2f} s, {iters} iterations, {w.units} launches "
+              f"holding {w.steps} decode steps ({w.windows} fused windows); "
+              f"launches { {k: c[k] for k in ('flash_fwd', *per_step)} }; "
+              f"preemptions {s['requests_preempted']}; prefix hits "
+              f"{s['prefix_cache']['hits']}; TTFT p50 "
+              f"{s['ttft_s']['p50'] * 1e3:.1f} ms p99 "
+              f"{s['ttft_s']['p99'] * 1e3:.1f} ms; decode "
+              f"{s['decode_tokens_per_sec']:.1f} tok/s; blocked in the "
+              f"fetch {eng.fetch_seconds * 1e3:.1f} ms; issuing launches "
+              f"{w.issue_s * 1e3:.1f} ms", flush=True)
+        runs[label] = (reqs, out)
+        launches[label] = c
+        del eng
+    f32 = None
+    for label, _ in LOOPS[1:]:
+        for (rid, _), (srid, _), (_, kw) in zip(runs[label][0],
+                                                runs["sync"][0], requests):
+            same = np.array_equal(runs[label][1][rid], runs["sync"][1][srid])
+            if kw.get("temperature") and not same:
+                raise AssertionError(f"zero-bubble {tag}{label}: the sampled "
+                                     "stream differs from the sync loop's")
+            if not same and f32 is None:
+                f32 = (build_moe_lm if moe else build_lm)(
+                    "cpu", dtype="float32")
+                f32.module.load_state_dict(model.module.state_dict())
+        parted = 0 if f32 is None else check_identity(
+            f32, runs["sync"], runs[label], requests,
+            f"zero-bubble {tag}{label}", model.device, tie_rel)
+        print(f"zero-bubble {tag}{label}: streams parted from the sync "
+              f"loop's {parted}/{len(requests)} (at near-ties only)",
+              flush=True)
+    return launches
+
+
+def profile_loop(model, device, card, label, **engine_kw):
+    """Steady decode, four slots (256-token prompts, contexts ~260-340)
+    under one loop: ``LOOP_STEPS`` decode steps timed without the
+    profiler, then ``LOOP_PROF_STEPS`` under ``torch.profiler``. Per
+    decode step: wall ms (a fused window counts K), device busy ms, CUDA
+    kernel launches, ms blocked in the lagged fetch; per launch: the
+    host's ms to issue it (no sync inside)."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = ServingEngine(model, num_slots=4, max_len=2048, page_len=16,
+                        prefill_chunk=256, device=device, **engine_kw)
+    watch = _LaunchWatch(eng)
+    rs = np.random.RandomState(SEED + 2)
+    vocab = model.module.layers[0].vocab_size
+    for _ in range(4):
+        eng.submit(rs.randint(0, vocab, 256), 80)
+    while eng.scheduler.prefilling or eng.scheduler.queue_depth \
+            or watch.units < 3:
+        eng.step()
+    torch.cuda.synchronize()
+
+    def run(n_steps):
+        s0, u0, f0, i0 = watch.steps, watch.units, eng.fetch_seconds, \
+            watch.issue_s
+        t0 = time.perf_counter()
+        while watch.steps - s0 < n_steps:
+            eng.step()
+        return (time.perf_counter() - t0, watch.steps - s0,
+                watch.units - u0, eng.fetch_seconds - f0,
+                watch.issue_s - i0)
+
+    wall, steps, units, fetch, issue = run(LOOP_STEPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        psteps = run(LOOP_PROF_STEPS)[1]
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / psteps
+    n_kernels = sum(e.count for e in events) / psteps
+    row = dict(wall_ms=wall * 1e3 / steps, busy_ms=busy,
+               launches=n_kernels, fetch_ms=fetch * 1e3 / steps,
+               issue_ms=issue * 1e3 / units, steps=steps, units=units)
+    print(f"zero-bubble profile {label} on {card}: steady decode, 4 slots, "
+          f"{steps} steps in {units} launches: {row['wall_ms']:.2f} ms a "
+          f"step wall (profiler off); device busy {busy:.2f} ms a step = "
+          f"{100 * busy / row['wall_ms']:.1f}%; {n_kernels:.0f} CUDA kernel "
+          f"launches a step; blocked in the fetch {row['fetch_ms']:.3f} ms "
+          f"a step; {row['issue_ms']:.2f} ms of host time to issue a "
+          f"launch", flush=True)
+    return row
+
+
+#: the positions of the four slots in ``capture_check``
+CAPTURE_CONTEXTS = (260, 275, 290, 300)
+
+
+def capture_check(model, dev, num_steps: int, page_len: int = 16,
+                  contexts=CAPTURE_CONTEXTS):
+    """Capture readiness of the decode launch: one
+    ``decode_step_slots_paged`` (``num_steps`` 1, greedy) or one greedy
+    ``decode_fused_slots`` window of ``num_steps``, on static device
+    buffers over a bf16 page pool (four slots at ``contexts``, random
+    pages), captured in a CUDA graph after a warm call. The graph's
+    replay must equal the eager call bitwise in its tokens and in every
+    visible page. Returns ``(tokens equal, pages equal, replay ms, eager
+    ms)``; nothing on the main path uses a graph."""
+    module = model.module
+    params = fuse_qkv_params(module, serving_params(model.params,
+                                                    torch.bfloat16))
+    s_n = len(contexts)
+    need = [-(-(c + num_steps) // page_len) for c in contexts]
+    pool = PagedKVPool(module, s_n, max(contexts) + num_steps + page_len,
+                       page_len=page_len, num_pages=sum(need),
+                       dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    for kv in pool.cache:
+        if kv is not None:
+            for x in kv["sink"].values():
+                x.copy_(torch.randn(x.shape, generator=gen, device=dev))
+    table = np.full((s_n, pool.pages_per_slot), pool.num_pages, np.int32)
+    base = 0
+    for i, n in enumerate(need):
+        table[i, :n] = np.arange(base, base + n)
+        base += n
+    vocab = module.layers[0].vocab_size
+    rs = np.random.RandomState(SEED + 25)
+    tok = torch.as_tensor(rs.randint(0, vocab, s_n), dtype=torch.long,
+                          device=dev)
+    t = torch.as_tensor(np.asarray(contexts, np.int32), device=dev)
+    tables = torch.as_tensor(table, device=dev)
+    stop = torch.full((s_n,), -1, dtype=torch.long, device=dev)
+    planes = [x for kv in pool.cache if kv is not None
+              for x in kv["sink"].values()]
+    init = [x.clone() for x in planes]
+
+    def reset():
+        for x, x0 in zip(planes, init):
+            x.copy_(x0)
+
+    def step():
+        with torch.inference_mode():
+            if num_steps == 1:
+                logits, _ = decode_step_slots_paged(
+                    module, params, pool.cache, tok, t, tables, page_len)
+                return torch.argmax(logits, dim=-1)[:, None]
+            return decode_fused_slots(module, params, pool.cache, tok, t,
+                                      stop, num_steps, tables, page_len)[0]
+
+    def visible():
+        return [x.clone() for kv in pool.cache if kv is not None
+                for key, x in kv.items() if key in ("k", "v")]
+
+    reset()
+    eager = step().clone()
+    eager_pages = visible()
+    eager_ms = time_ms(step, iters=10, warmup=2)
+    reset()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    reset()
+    with torch.cuda.graph(graph):
+        out = step()
+    reset()
+    graph.replay()
+    torch.cuda.synchronize()
+    same_tokens = torch.equal(out, eager)
+    same_pages = all(torch.equal(a, b)
+                     for a, b in zip(visible(), eager_pages))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reps = 20
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return same_tokens, same_pages, start.elapsed_time(end) / reps, eager_ms
+
+
+#: the engine configurations whose every launch must run free of host
+#: syncs: (label, engine keywords, a sampled request in the batch)
+SYNC_FREE_CASES = (("greedy bf16", {}, False),
+                   ("sampled bf16", {}, True),
+                   ("int8 pages", dict(cache_dtype="int8"), True),
+                   ("int4 pages", dict(cache_dtype="int4"), True),
+                   ("weight_quant int8", dict(weight_quant="int8"), True),
+                   ("fused_sampling", dict(fused_sampling=True), True))
+
+
+def sync_free_run(model, label, engine_kw, sampled, prompts=(64, 120, 200),
+                  new_tokens=16):
+    """One engine (``overlap=True, fuse_steps=4``) whose every
+    ``_launch_step`` runs under ``set_sync_debug_mode("error")``: three
+    requests (one sampled with ``sampled``) admitted at once, so single
+    steps run while prompts prefill and fused windows after. A host sync
+    inside a launch raises; returns the watch (units, steps, windows)."""
+    eng = ServingEngine(model, num_slots=4, max_len=512, page_len=16,
+                        prefill_chunk=256, device=model.device,
+                        overlap=True, fuse_steps=4, **engine_kw)
+    watch = _LaunchWatch(eng, strict=True)
+    rs = np.random.RandomState(SEED + 26)
+    vocab = model.module.layers[0].vocab_size
+    for i, n in enumerate(prompts):
+        kw = dict(temperature=0.8, top_k=40, top_p=0.9, seed=i) \
+            if sampled and i == 1 else {}
+        eng.submit(rs.randint(0, vocab, n), new_tokens, **kw)
+    out = eng.run(max_steps=500)
+    if len(out) != len(prompts) or not watch.windows \
+            or watch.units == watch.windows:
+        raise AssertionError(f"sync-free {label}: {len(out)} requests "
+                             f"finished, {watch.units} launches, "
+                             f"{watch.windows} fused windows")
+    return watch
+
+
+def sync_free_phase(model, card, moe_model=None):
+    """Every ``SYNC_FREE_CASES`` configuration on ``model`` (or, with
+    ``moe_model``, its dispatched MoE engine, greedy and sampled): each
+    launch, single step or fused window, free of host syncs."""
+    cases = SYNC_FREE_CASES if moe_model is None else (
+        ("MoE dispatched greedy", {}, False),
+        ("MoE dispatched sampled", {}, True))
+    for label, kw, sampled in cases:
+        w = sync_free_run(moe_model or model, label, kw, sampled)
+        print(f"sync-free launches {label} on {card}: {w.units} launches "
+              f"({w.windows} fused windows, {w.steps} decode steps) under "
+              f"set_sync_debug_mode('error'): no host sync", flush=True)
+
+
 #: relative (to the largest |logit|) agreement with the CPU in float32:
 #: bf16 weights and activations through 12 blocks; float32 on the card
 #: differs from the CPU only in summation order
@@ -3817,6 +4180,22 @@ def main() -> int:
     wq_launches = wq_phase(gen_model, card, serve_summary)
     profile_serving(gen_model, dev, "int8 weights", weight_quant="int8")
     gen_wq_launches = generate_wq_phase(gen_model, card, gen_prompts)
+    zb_launches = zero_bubble_phase(gen_model, card, tie_rel)
+    for label, kw in LOOPS:
+        profile_loop(gen_model, dev, card, label, **kw)
+    for k in (1, 4):
+        same_tok, same_pages, replay, eager = capture_check(gen_model, dev,
+                                                            k)
+        what = "one decode step" if k == 1 else f"a {k}-step window"
+        print(f"capture readiness, {what} on {card}: the graph's replay "
+              f"equals the eager call bitwise: tokens {same_tok}, pages "
+              f"{same_pages}; replay "
+              f"{replay:.3f} ms ({replay / k:.3f} ms a step), eager "
+              f"{eager:.3f} ms", flush=True)
+        if not (same_tok and same_pages):
+            raise AssertionError("a captured decode launch differs from "
+                                 "the eager one")
+    sync_free_phase(gen_model, card)
     del gen_model, model
     gc.collect()
 
@@ -3827,6 +4206,8 @@ def main() -> int:
           f"{moe_model.num_params() / 1e6:.1f}M parameters", flush=True)
     moe_launches = moe_serve_phase(moe_model, card)
     moe_prefill_launches = moe_prefill_phase(moe_model, card)
+    zb_moe_launches = zero_bubble_phase(moe_model, card, tie_rel, moe=True)
+    sync_free_phase(None, card, moe_model)
     del moe_model
     gc.collect()
 
@@ -3859,6 +4240,11 @@ def main() -> int:
     for path, c in moe_launches.items():
         by_path["moe_gather_gemm1"][path] = c["moe_gather_gemm1"]
     by_path["moe_gather_gemm1"]["moe_prefill_fused"] = moe_prefill_launches
+    for label, path in (("overlap", "serving_overlap"),
+                        ("overlap+fuse4", "serving_fused")):
+        by_path["paged_decode"][path] = zb_launches[label]["paged_decode"]
+        by_path["moe_gather_gemm1"]["moe_" + path] = \
+            zb_moe_launches[label]["moe_gather_gemm1"]
     for name in MOE_TRAINING_KERNELS:
         by_path[name]["training_moe"] = moe_train_launches[name]
 

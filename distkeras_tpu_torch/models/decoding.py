@@ -21,6 +21,7 @@ speculative verify window (``_window_positions`` :758,
 ``verify_step_slots_paged`` :1276) with ``tree_walk`` :1296 and
 ``commit_tree_path`` :1366,
 ``_apply_mlp_decode`` :685 with ``_moe_route_stats`` :704,
+``decode_fused_slots`` :1425 (the scan is a Python loop here),
 ``_sample`` :1503, ``_sample_vec`` :1539, ``_masked_logits_vec`` :1565,
 ``_per_seq_vec`` :1592, ``_is_per_seq`` :1607, ``_fuse_qkv_params``
 :1627, ``_project_qkv`` :1662, ``_serving_params`` :1694 and
@@ -31,7 +32,11 @@ parameter tree (``Sequential.param_tree()``, usually pre-cast by
 ``serving_params``), as the JAX functions do. Caches are lists with one
 dict per attention layer (``None`` elsewhere) and are written IN PLACE:
 a slab or staging cache is ``{"k", "v"}`` ``[B, Hkv, L, Dh]``, a page
-pool ``[N, Hkv, page_len, Dh]``. A quantized cache holds int8 payloads
+pool ``[N, Hkv, page_len, Dh]``: views of the first N pages of planes
+one page longer, whose last page (the sink, index N, beyond every page
+table) takes the paged writes that land nowhere (``with_sink``), so a
+paged write has one shape whatever the tables hold and never reads the
+card back. A quantized cache holds int8 payloads
 plus ``"k_scale"``/``"v_scale"`` float32 ``[B, Hkv, L]`` planes; an int4
 cache also carries the ``"q4": True`` marker (its slab payload holds one
 int8 byte per entry; only a page pool packs two per byte). Prefill
@@ -63,7 +68,7 @@ quantized ``weights_dtype`` on an MoE model raises.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -274,6 +279,40 @@ def init_cache(module: Sequential, batch: int, max_len: int, dtype,
             kv["q4"] = True
         cache.append(kv)
     return cache
+
+
+#: the tensors of a cache dict, payload first (``"q4"`` is a marker and
+#: ``"sink"`` a page pool's full planes)
+CACHE_PLANES = ("k", "v", "k_scale", "v_scale")
+
+
+def sink_views(full, n_pages: int):
+    """A page pool's cache dict over ``full``, planes of ``n_pages + 1``
+    pages: views of each plane's first ``n_pages`` pages (what every
+    reader gets), the ``"q4"`` marker, and under ``"sink"`` the full
+    planes, which only the paged write touches (a dead entry lands on
+    page ``n_pages``, the sink)."""
+    kv = {key: full[key][:n_pages] for key in CACHE_PLANES if key in full}
+    if "q4" in full:
+        kv["q4"] = True
+    kv["sink"] = {key: full[key] for key in CACHE_PLANES if key in full}
+    return kv
+
+
+def with_sink(kv):
+    """The full planes (the visible pages plus the sink page) behind a
+    page-pool cache dict. A dict built without them (by hand, or by
+    ``init_cache``) gets them here, once: its planes are copied into
+    planes one page longer, and its entries become views of their first
+    pages, so the caller's dict keeps its contents and shapes."""
+    full = kv.get("sink")
+    if full is None:
+        full = {key: torch.cat([kv[key], torch.zeros_like(kv[key][:1])])
+                for key in CACHE_PLANES if key in kv}
+        kv.update(sink_views(dict(full, **({"q4": True} if "q4" in kv
+                                             else {})),
+                             kv["k"].shape[0]))
+    return kv["sink"]
 
 
 def _quantize_kv(x, bits: int = 8):
@@ -609,12 +648,12 @@ def decode_step(module: Sequential, params, cache, tok, t: int):
 
 
 class PageWrite(NamedTuple):
-    """Where a window's writes land: entry ``i`` is slot ``rows[i]``'s
-    window column ``cols[i]``, at offset ``offs[i]`` of physical page
-    ``pages[i]``. ``halves`` (int4 pools with W > 1) splits the entries
-    into those on the low and the high nibble of their byte rows."""
-    rows: torch.Tensor
-    cols: torch.Tensor
+    """Where a window's writes land: one entry per (slot, window column),
+    row-major, at offset ``offs[i]`` of physical page ``pages[i]``; a
+    dead entry's page is the sink (``n_pages``, beyond every table) and
+    its offset 0. ``halves`` (int4 pools with W > 1): the page vectors
+    of the low- and the high-nibble pass, each sending the other half's
+    entries to the sink."""
     pages: torch.Tensor
     offs: torch.Tensor
     halves: Optional[tuple] = None
@@ -623,35 +662,36 @@ class PageWrite(NamedTuple):
 def page_write_index(pos, table, page_len: int, n_pages: int,
                      split_halves: bool = False) -> PageWrite:
     """Where each slot's writes land, for positions ``pos`` ``[S]`` (one
-    per slot) or ``[S, W]`` (a window). A position on an unallocated
-    logical page (a sentinel entry), before 0 or past the table (the
-    engine's free-slot sentinel, the commit's dropped depths) writes
-    nothing: those entries are left out here, because an indexed store
-    would refuse (not drop) an out-of-range index. Computed once per step
-    and shared by every layer. ``split_halves`` adds the int4 split."""
+    per slot) or ``[S, W]`` (a window): S * W entries whatever the
+    tables hold (JAX's drop-mode scatter), so the write never asks the
+    card how many there are. A position on an unallocated logical page
+    (a sentinel entry), before 0 or past the table (the engine's
+    free-slot sentinel, the commit's dropped depths) is dead: it writes
+    the sink page, which no reader sees. Computed once per step and
+    shared by every layer. ``split_halves`` adds the int4 split."""
     if pos.ndim == 1:
         pos = pos[:, None]
     n_logical = table.shape[1]
     pos = pos.long()
     lp = torch.div(pos, page_len, rounding_mode="floor")
     off = pos - lp * page_len
-    in_range = (lp >= 0) & (lp < n_logical)
     pp = table.long().gather(1, lp.clamp(0, n_logical - 1))      # [S, W]
-    rows, cols = torch.nonzero(in_range & (pp < n_pages), as_tuple=True)
-    offs = off[rows, cols]
+    live = (lp >= 0) & (lp < n_logical) & (pp < n_pages)
+    pages = torch.where(live, pp, n_pages).reshape(-1)
+    offs = torch.where(live, off, 0).reshape(-1)
     halves = None
     if split_halves and pos.shape[1] > 1:
         high = offs >= page_len // 2
-        halves = (torch.nonzero(~high, as_tuple=True)[0],
-                  torch.nonzero(high, as_tuple=True)[0])
-    return PageWrite(rows, cols, pp[rows, cols], offs, halves)
+        halves = (torch.where(high, n_pages, pages),
+                  torch.where(high, pages, n_pages))
+    return PageWrite(pages, offs, halves)
 
 
 def _write_int4(plane, pages, offs, q):
     """Merge int4 values ``q`` ``[n, Hkv, D]`` into their nibbles of the
     packed byte rows (positions ``off`` and ``off -+ page_len/2`` share a
-    row), keeping the other nibble: a read-modify-write whose entries
-    must not share a byte row."""
+    row), keeping the other nibble: a read-modify-write whose live
+    entries must not share a byte row."""
     half = plane.shape[2]
     prow = offs % half
     high = (offs >= half)[:, None, None]
@@ -665,29 +705,31 @@ def _write_int4(plane, pages, offs, q):
 def _cache_write_pages(kv, k, v, index: PageWrite):
     """Write ``[S, W, Hkv, D]`` k/v through the page tables (``index``
     from ``page_write_index``), in place, quantizing for an int8/int4
-    pool. ``index`` holds live entries only, so a write never touches a
-    sentinel page. An int4 page packs two positions half a page apart
-    into one byte row: two window columns may share it, so the
-    read-modify-write runs once per nibble half (``index.halves``),
-    which is the column-by-column result of JAX's writer."""
-    rows, cols, pages, offs = index.rows, index.cols, index.pages, \
-        index.offs
-    kh, vh = k[rows, cols], v[rows, cols]                # [n, Hkv, D]
+    pool. Every entry is written: a dead one into the sink page of the
+    full planes (``with_sink``), so a live page sees only its live
+    writes. An int4 page packs two positions half a page apart into one
+    byte row: two window columns may share it, so the read-modify-write
+    runs once per nibble half (``index.halves``), which is the
+    column-by-column result of JAX's writer."""
+    full = with_sink(kv)
+    pages, offs = index.pages, index.offs
+    kh = k.reshape((-1,) + tuple(k.shape[2:]))           # [S*W, Hkv, D]
+    vh = v.reshape((-1,) + tuple(v.shape[2:]))
     if "k_scale" not in kv:
-        kv["k"][pages, :, offs] = kh.to(kv["k"].dtype)
-        kv["v"][pages, :, offs] = vh.to(kv["v"].dtype)
+        full["k"][pages, :, offs] = kh.to(full["k"].dtype)
+        full["v"][pages, :, offs] = vh.to(full["v"].dtype)
         return kv
     bits = _kv_bits(kv)
     for key, skey, x in (("k", "k_scale", kh), ("v", "v_scale", vh)):
         q, sc = _quantize_kv(x, bits)
-        kv[skey][pages, :, offs] = sc
+        full[skey][pages, :, offs] = sc
         if bits == 8:
-            kv[key][pages, :, offs] = q
+            full[key][pages, :, offs] = q
         elif index.halves is None:
-            _write_int4(kv[key], pages, offs, q)
+            _write_int4(full[key], pages, offs, q)
         else:
-            for sel in index.halves:
-                _write_int4(kv[key], pages[sel], offs[sel], q[sel])
+            for half_pages in index.halves:
+                _write_int4(full[key], half_pages, offs, q)
     return kv
 
 
@@ -821,6 +863,60 @@ def verify_step_slots_paged(module: Sequential, params, cache, toks, t,
     return _verify_window(module, params, cache, toks, t, table, page_len,
                           tree=tree, moe_dispatched=moe_dispatched,
                           moe_stats=moe_stats)
+
+
+@torch.no_grad()
+def decode_fused_slots(module: Sequential, params, cache, tok, t, stop,
+                       num_steps: int, table, page_len: int, *,
+                       temperature=None, top_k=None, top_p=None,
+                       generators=None, sampler=None,
+                       moe_dispatched: bool = True, moe_stats=None,
+                       on_logits: Optional[Callable] = None):
+    """``num_steps`` consecutive ``decode_step_slots_paged`` steps as one
+    unit (JAX :1425; its ``lax.scan`` is a Python loop here): each
+    step's token feeds the next on the device, the host reads nothing
+    in between. tok ``[S]`` int64, t ``[S]`` int32, ``stop`` ``[S]``
+    int64 per-slot stop tokens (-1: never). Greedy when ``temperature``
+    is None; otherwise ``temperature``/``top_k``/``top_p`` are ``[S]``
+    tensors and ``generators[s]`` slot s's ``torch.Generator`` (None for
+    a greedy row): each step draws once per sampled row, in row order,
+    through ``sampler`` (``_sample_vec`` by default, or
+    ``ops.sampling.sample_tokens``), as the single-step loop does, so a
+    sampled stream is byte-identical to K single steps. ``generate()``'s
+    stop rule per slot: once a row emits its stop token, the rest of its
+    window repeats it. ``on_logits(logits)`` sees each step's ``[S, V]``
+    logits. Returns ``(toks [S, num_steps], cache, stats)``: ``stats``
+    is the LAST step's ``_moe_route_stats`` with ``moe_stats``, else
+    None.
+
+    Step j writes position ``t + j`` of every slot: the caller has
+    allocated every page a slot will consume; a write past them lands
+    in the sink, and a row's writes after its stop are stale tail that
+    no later read admits."""
+    sample = _sample_vec if sampler is None else sampler
+    cur, tcur = tok, t
+    done = torch.zeros(tok.shape, dtype=torch.bool, device=tok.device)
+    cols, stats = [], None
+    for j in range(int(num_steps)):
+        last = j == num_steps - 1
+        out = decode_step_slots_paged(
+            module, params, cache, cur, tcur, table, page_len,
+            moe_dispatched=moe_dispatched,
+            moe_stats=moe_stats if last else None)
+        logits = out[0]
+        if on_logits is not None:
+            on_logits(logits)
+        if temperature is None:
+            nxt = torch.argmax(logits, dim=-1)
+        else:
+            nxt = sample(logits, temperature, top_k, top_p, generators)
+        nxt = torch.where(done, stop, nxt)
+        done = done | ((nxt == stop) & (stop >= 0))
+        cols.append(nxt)
+        cur, tcur = nxt, tcur + 1
+        if last and moe_stats is not None:
+            stats = out[-1]
+    return torch.stack(cols, dim=1), cache, stats
 
 
 def tree_walk(logits, toks, parents, *, temperature=None, top_k=None,

@@ -54,11 +54,30 @@ load and router entropy read every ``_MOE_STATS_EVERY``-th step, and a
 smoothed routing concentration) and asks for admission headroom under
 concentrated routing (``_moe_admit_extra`` :852).
 
-Only the synchronous loop is ported. Options of the JAX engine that
-belong to later slices raise ``NotImplementedError`` naming the ROADMAP
-item (``_NOT_PORTED``, ``submit(deadline_s=)``, ``run(on_degraded=)``,
-``cancel``); the tracer, flight recorder, SLOs and time series wait for
-the observability slice.
+The loop is JAX's zero-bubble loop (docs/serving.md §Zero-bubble
+loop). With ``overlap=True`` (the default) an iteration launches its
+decode unit before it consumes the previous one: the input tokens chain
+from the in-flight unit's output on the device (``_launch_step`` :1096),
+host arrays reach the card as non-blocking copies from pinned memory,
+and the host reads a unit's tokens one iteration late, in ``_fetch``
+:903, the loop's one host sync (``_process_step`` :927: a stream is
+stepped at most once past its stop, and a slot recycled since its
+launch discards its tokens). ``fuse_steps=K`` runs K decode steps as
+one unit when the batch is quiescent (``_fuse_window`` :1069,
+``decode_fused_slots``), with the stop masks on the device. Metrics
+samples are recorded every ``_HOST_WINDOW`` iterations, before every
+terminal and on a metrics swap (``_flush_host_window`` :988), so counts
+stay exact. ``overlap=False`` is the synchronous loop: launch, then
+consume. Greedy streams are token-identical, sampled ones byte-identical
+between the loops: a sampled row draws once per step from its request's
+own generator, in the same order. A speculative iteration drains the
+pipeline first and stays synchronous.
+
+Options of the JAX engine that belong to later slices raise
+``NotImplementedError`` naming the ROADMAP item (``_NOT_PORTED``,
+``submit(deadline_s=)``, ``run(on_degraded=)``, ``cancel``); the
+tracer, flight recorder, SLOs and time series wait for the
+observability slice.
 """
 
 from __future__ import annotations
@@ -78,6 +97,7 @@ from distkeras_tpu_torch.models.decoding import (MOE_QUANT_ITEM,
                                                  _sample_vec,
                                                  attn_compute_dtype,
                                                  commit_tree_path,
+                                                 decode_fused_slots,
                                                  decode_step_slots_paged,
                                                  fuse_qkv_params, prefill,
                                                  prefill_chunk_step,
@@ -88,7 +108,8 @@ from distkeras_tpu_torch.ops.paged_attention import check_rows
 from distkeras_tpu_torch.ops.quant_matmul import (quantize_params_tree,
                                                   tree_quant_errors)
 from distkeras_tpu_torch.ops.sampling import sample_tokens
-from distkeras_tpu_torch.serving.kv_pool import PagedKVPool, PrefixCache
+from distkeras_tpu_torch.serving.kv_pool import (PagedKVPool, PrefixCache,
+                                                 stage)
 from distkeras_tpu_torch.serving.metrics import ServingMetrics
 from distkeras_tpu_torch.serving.scheduler import (AdmissionRejected,
                                                    PriorityScheduler,
@@ -103,8 +124,6 @@ _OBSERVABILITY = "Queue 1 item 11 (host-side systems: obs/)"
 #: options of the JAX engine that later slices port: name -> (value that
 #: means "off", ROADMAP item)
 _NOT_PORTED = {
-    "overlap": (False, "overlapped dispatch (zero-bubble loop)"),
-    "fuse_steps": (0, "fused multi-step decode"),
     "ep_mesh": (None, "expert-parallel MoE serving"),
     "host_kv_pages": (0, "host KV offload"),
     "hbm_budget": (None, _ENGINE_API),
@@ -120,6 +139,36 @@ _NOT_PORTED = {
 def _refuse(name: str, value, item: str):
     raise NotImplementedError(
         f"{name}={value!r} is not ported yet: ROADMAP, {item}")
+
+
+def _host_stats(moe):
+    """A synchronous step's trailing MoE output (empty, or ``[None |
+    dict]``) as host arrays, or None."""
+    if not moe or moe[0] is None:
+        return None
+    return {key: x.cpu().numpy() for key, x in moe[0].items()}
+
+
+class _PendingStep:
+    """One launched, not yet consumed decode unit, a single step or a
+    fused window (JAX :149). ``last`` is the ``[S]`` device feedback the
+    next launch chains from; ``host`` holds the outputs' host copies
+    (the ``[S]`` tokens of a step or the ``[S, K]`` block of a window,
+    then the read step's MoE stats), in flight behind ``event`` on the
+    card (on the CPU the outputs themselves and no event); ``slots``
+    pins the (slot, rid) pairs at launch, so a slot recycled since
+    discards its stale tokens; ``count`` is the tokens a covered slot
+    gets."""
+
+    __slots__ = ("last", "host", "event", "slots", "count", "launch_t")
+
+    def __init__(self, last, host, event, slots, count, launch_t):
+        self.last = last
+        self.host = host
+        self.event = event
+        self.slots = slots                   # tuple of (slot, rid)
+        self.count = count
+        self.launch_t = launch_t
 
 
 class ServingEngine:
@@ -158,6 +207,19 @@ class ServingEngine:
     layer's own ``apply``. ``health()["moe"]`` and
     ``metrics.summary()["moe"]`` report them.
 
+    ``overlap`` (default True) pipelines the decode loop: each unit is
+    launched before the previous one is consumed, its input tokens
+    chained on the device, and the host reads tokens one iteration late
+    (``req.generated`` and the metrics lag by at most one iteration
+    while a stream decodes); ``overlap=False`` is the synchronous loop.
+    ``fuse_steps`` (>= 2 engages) runs that many decode steps as one
+    unit whenever the batch is quiescent: nothing queued or prefilling,
+    no speculating stream, every stream's remaining budget covering the
+    window; the window's pages are grown first, and if that preempts a
+    stream the iteration runs one step instead. Either way the streams
+    are those of the synchronous loop. ``fetch_seconds`` totals the
+    time the host waited for tokens.
+
     ``draft`` (a ``DraftSource``: ``NgramDraft()``, ``DraftModel(m)``)
     turns on speculative decoding: ``spec_k`` drafts per slot and
     iteration; ``spec_disable_below``/``spec_warmup`` the per-request
@@ -176,7 +238,7 @@ class ServingEngine:
                  page_len: int = 16, num_pages: Optional[int] = None,
                  prefix_cache: bool = True, prefix_granularity: int = 1,
                  device=None, on_logits: Optional[Callable] = None,
-                 overlap: bool = False, fuse_steps: int = 0, draft=None,
+                 overlap: bool = True, fuse_steps: int = 0, draft=None,
                  weight_quant: Optional[str] = None,
                  fused_sampling: bool = False, ep_mesh=None,
                  host_kv_pages: int = 0, spec_k: int = 4,
@@ -187,8 +249,7 @@ class ServingEngine:
                  weights_dtype="auto", decode_kernel: str = "auto",
                  engine_id: Optional[str] = None, tracer=None, slo=None,
                  timeseries=None):
-        given = {"overlap": overlap, "fuse_steps": fuse_steps,
-                 "ep_mesh": ep_mesh, "host_kv_pages": host_kv_pages,
+        given = {"ep_mesh": ep_mesh, "host_kv_pages": host_kv_pages,
                  "hbm_budget": hbm_budget, "weights_dtype": weights_dtype,
                  "decode_kernel": decode_kernel, "engine_id": engine_id,
                  "tracer": tracer, "slo": slo, "timeseries": timeseries}
@@ -243,6 +304,7 @@ class ServingEngine:
         self._prefix_granularity = int(prefix_granularity)
         self.scheduler = PriorityScheduler(self.num_slots,
                                            max_queue=max_queue)
+        self._init_pipeline(overlap, fuse_steps)
         # ONE reusable staging cache: stale positions past the current
         # context are never inserted and never read before being written
         self._staging = self.pool.make_request_cache()
@@ -258,6 +320,34 @@ class ServingEngine:
         self._init_speculation(draft, spec_k, spec_disable_below,
                                spec_warmup, spec_reprobe, spec_tree,
                                spec_width)
+
+    def _init_pipeline(self, overlap: bool, fuse_steps: int) -> None:
+        """The zero-bubble loop's state (JAX :503-540)."""
+        self.overlap = bool(overlap)
+        fuse_steps = int(fuse_steps)
+        if fuse_steps < 0:
+            raise ValueError(f"fuse_steps must be >= 0, got {fuse_steps}")
+        #: fused multi-step decode window (engaged when >= 2)
+        self.fuse_steps = fuse_steps
+        #: the launched, not yet consumed decode unit (the lag-1 pipeline)
+        self._pending: Optional[_PendingStep] = None
+        #: slots whose next input token the HOST owns (True), not the
+        #: in-flight unit's device output
+        self._chain_dirty = np.ones(self.num_slots, bool)
+        #: requests finished by a pipeline flush outside the decode phase
+        #: (a preemption, a metrics swap); step() returns them
+        self._finish_buf: List[Request] = []
+        #: seconds the host spent blocked in the lagged fetch
+        self.fetch_seconds = 0.0
+        # deferred metrics samples, recorded every _host_window
+        # iterations and before every terminal: counts stay exact, only
+        # their recording leaves the per-iteration path
+        self._host_window = self._HOST_WINDOW if self.overlap else 1
+        self._iter_buf: List = []        # (queue_depth, occupied)
+        self._decode_buf: List = []      # (n_slots, dt, n_tokens)
+        self._spec_buf: List = []        # (proposed, accepted)
+        self._spec_tree_buf: List = []   # (width, path_len, depth)
+        self._iters = 0
 
     def _init_moe(self, moe_decode: str, weight_quant) -> None:
         """MoE serving (JAX :406-423): the model's MoE MLPs in layer
@@ -555,9 +645,15 @@ class ServingEngine:
     def _preempt(self, victim: Request) -> None:
         """Evict an admitted request's pages back to the queue. Its
         generated tokens stay (the re-prefill context) and so does its
-        generator, so a sampled stream resumes where it left off."""
+        generator, so a sampled stream resumes where it left off. The
+        in-flight unit is consumed first (JAX :2036): the context must
+        hold its tokens, and it may finish the victim instead."""
+        self._flush_pending()
+        if victim.state is RequestState.FINISHED:
+            return
         slot = victim.slot
         self.scheduler.preempt(victim)
+        self._chain_dirty[slot] = True
         if self._draft is not None:
             self._draft.end_slot(slot)   # draft KV freed with the slot
         self.pool.release_slot(slot)
@@ -638,10 +734,16 @@ class ServingEngine:
     @torch.inference_mode()
     def step(self) -> List[Request]:
         """One iteration: admit, advance ONE prefill chunk, run one decode
-        step over all slots. Returns the requests that finished. Runs
+        unit over all slots (under ``overlap``: launch it, then consume
+        the previous one). Returns the requests that finished. Runs
         under ``torch.inference_mode``: serving records no autograd graph,
         even for a model whose parameters require grad."""
         finished: List[Request] = []
+        if self._finish_buf:
+            # finished by a pipeline flush since the last step (a metrics
+            # swap)
+            finished.extend(self._finish_buf)
+            self._finish_buf.clear()
         self._admit()
         clock = self.metrics.clock
         req = self.scheduler.next_prefill()
@@ -653,12 +755,16 @@ class ServingEngine:
             t0 = clock()
             self._advance_decode(finished)
             self.metrics.record_phase("decode", clock() - t0)
-        self.metrics.record_iteration(self.scheduler.queue_depth,
-                                      self.scheduler.occupied,
-                                      self.num_slots)
-        self.metrics.record_pages(self.pool.free_pages,
-                                  self.pool.shared_pages,
-                                  self._fragmentation())
+        self._iter_buf.append((self.scheduler.queue_depth,
+                               self.scheduler.occupied))
+        self._iters += 1
+        if self._iters % self._host_window == 0 \
+                or not self.scheduler.pending:
+            self._flush_host_window()
+        if self._finish_buf:
+            # finished by a flush inside this iteration (a preemption)
+            finished.extend(self._finish_buf)
+            self._finish_buf.clear()
         return finished
 
     @torch.inference_mode()
@@ -690,7 +796,9 @@ class ServingEngine:
 
     def health(self) -> Dict:
         """Readiness snapshot: accepting work, queue depth, slots,
-        request tallies, pages and the prefix cache."""
+        request tallies, pages and the prefix cache. The deferred
+        metrics samples are recorded first."""
+        self._flush_host_window()
         sch = self.scheduler
         accepting = (sch.max_queue is None
                      or sch.queue_depth < sch.max_queue)
@@ -726,17 +834,13 @@ class ServingEngine:
     def _set_slot(self, req: Request, token: int, t: int) -> None:
         self._tok[req.slot] = token
         self._t[req.slot] = t         # where the next decode step writes
+        self._chain_dirty[req.slot] = True   # the host owns the input
 
     @staticmethod
-    def _sample(logits, rows: List[int], reqs: List[Request],
-                fused: bool = False):
-        """Next tokens for logits ``rows`` on the host: argmax for an
-        all-greedy batch, else the per-row sampler (each sampled row
-        draws from its request's own generator): ``_sample_vec``, or
-        with ``fused`` the fused epilogue, which gives the same tokens."""
-        if all(r.temperature <= 0.0 for r in reqs):
-            return torch.argmax(logits, dim=-1).cpu().numpy()
-        n = logits.shape[0]
+    def _knobs(rows, reqs, n: int, device):
+        """The per-row sampling knobs ``(temperature, top_k, top_p)`` of
+        ``n`` rows on ``device`` (staged, so no host sync) and the rows'
+        generators: each request's on its rows, greedy elsewhere."""
         temp = np.zeros(n, np.float32)
         top_k = np.zeros(n, np.int64)
         top_p = np.ones(n, np.float32)
@@ -745,12 +849,22 @@ class ServingEngine:
             temp[row], top_k[row], top_p[row] = (r.temperature, r.top_k,
                                                  r.top_p)
             gens[row] = r.rng
-        dev = logits.device
+        return (*stage([temp, top_k, top_p], device), gens)
+
+    @staticmethod
+    def _sample(logits, rows: List[int], reqs: List[Request],
+                fused: bool = False):
+        """Next tokens ``[n]`` for the logits rows, on their device:
+        argmax for an all-greedy batch, else the per-row sampler (each
+        sampled row draws from its request's own generator):
+        ``_sample_vec``, or with ``fused`` the fused epilogue, which
+        gives the same tokens. Reads nothing back from the card."""
+        if all(r.temperature <= 0.0 for r in reqs):
+            return torch.argmax(logits, dim=-1)
+        *knobs, gens = ServingEngine._knobs(rows, reqs, logits.shape[0],
+                                            logits.device)
         sampler = sample_tokens if fused else _sample_vec
-        nxt = sampler(logits, torch.from_numpy(temp).to(dev),
-                      torch.from_numpy(top_k).to(dev),
-                      torch.from_numpy(top_p).to(dev), gens)
-        return nxt.cpu().numpy()
+        return sampler(logits, *knobs, gens)
 
     def _advance_prefill(self, req: Request, finished: List[Request]):
         toks = req.context_tokens
@@ -803,7 +917,7 @@ class ServingEngine:
             return
         if self.on_logits is not None:
             self.on_logits("prefill", logits, [0])
-        token = int(self._sample(logits, [0], [req])[0])
+        token = int(self._sample(logits, [0], [req])[0])   # prefill's sync
         req.generated.append(token)
         self.metrics.record_first_token(req.rid)
         if req.done:
@@ -814,51 +928,287 @@ class ServingEngine:
         self._begin_draft(req, toks)
 
     def _advance_decode(self, finished: List[Request]):
+        """The decode phase (JAX :2737): grow pages, then a speculative
+        iteration (synchronous, the pipeline drained first) or ONE decode
+        unit, a step or a fused window. Under ``overlap`` the unit is
+        launched before the previous one is consumed; without it the
+        unit is consumed at once."""
         spec = self._draft is not None and bool(self._spec_slots())
+        if spec:
+            # the drafts read the host's tokens: drain the pipeline, then
+            # the verify's own fetch is this iteration's sync
+            self._flush_pending(finished)
+            if not self.scheduler.running:
+                return
+        fuse = 0 if spec else self._fuse_window()
         if spec and self.spec_tree:
             # the page lookahead depends on the proposed tree, so the
             # proposal comes before page growth: the whole iteration
             # lives in _spec_tree_step
             self._spec_tree_step(finished)
             return
+        running = self.scheduler.running
         look = None
         if spec:
             look = np.zeros(self.num_slots, np.int64)
-            for slot, r in self.scheduler.running.items():
+            for slot, r in running.items():
                 if self._spec_eligible(r):
                     look[slot] = min(self.spec_k, r.max_new_tokens
                                      - len(r.generated) - 1)
+        elif fuse:
+            # every position the window writes (the frontier _t already
+            # counts the unit in flight)
+            look = np.zeros(self.num_slots, np.int64)
+            look[list(running)] = fuse - 1
         self._ensure_decode_pages(look)
-        running = self.scheduler.running
         if not running:
             return
         t0 = self.metrics.clock()
         if spec and self._spec_slots():  # growth may have preempted them
             self._spec_step(finished, t0)
             return
-        dev = self.device
-        logits, _, *moe = decode_step_slots_paged(
-            self.module, self._params, self.pool.cache,
-            torch.from_numpy(self._tok).to(dev),
-            torch.from_numpy(self._t).to(dev), self.pool.device_tables(),
-            self.page_len, **self._moe_step_kw())
-        self._note_moe_route(moe)
-        slots = list(running.keys())
-        reqs = list(running.values())
-        if self.on_logits is not None:
-            self.on_logits("decode", logits, slots)
-        nxt = self._sample(logits, slots, reqs, fused=self.fused_sampling)
-        done = []
-        for slot, req in zip(slots, reqs):
-            token = int(nxt[slot])
-            req.generated.append(token)
-            self._tok[slot] = token
-            self._t[slot] += 1
+        if fuse and self.scheduler.queue_depth:
+            # funding the window preempted a stream: quiescence is gone,
+            # one step now, the window rejoins later (the grown pages are
+            # real write positions)
+            fuse = 0
+        greedy_only = all(r.temperature <= 0.0 for r in running.values())
+        prev = self._pending
+        pend = self._launch_step(greedy_only, fuse, prev, t0)
+        if self.overlap:
+            # the new unit runs while the host consumes the previous one
+            self._pending = pend
+            if prev is not None:
+                self._process_step(prev, finished, t0)
+        else:
+            self._process_step(pend, finished, t0)
+
+    # --- the zero-bubble loop: pipelined dispatch, deferred host work ------
+
+    #: iterations between deferred metrics flushes under ``overlap``
+    #: (the synchronous loop flushes every iteration); terminals and
+    #: metrics swaps flush at once, so counts stay exact
+    _HOST_WINDOW = 8
+
+    @property
+    def metrics(self) -> ServingMetrics:
+        return self._metrics
+
+    @metrics.setter
+    def metrics(self, value: ServingMetrics) -> None:
+        """Swapping the metrics window (one per reporting interval) first
+        drains the pipeline and the deferred samples into the OLD window
+        (JAX :888-901), so no sample crosses windows."""
+        if getattr(self, "_metrics", None) is not None:
+            self._flush_pending(self._finish_buf)
+            self._flush_host_window()
+        self._metrics = value
+
+    def _post(self, outputs):
+        """Queue a launched unit's outputs for the host: on the card,
+        non-blocking copies into pinned buffers behind the unit's
+        kernels and an event after them; on the CPU the outputs are
+        already there. Returns ``(host tensors, event or None)``."""
+        if self.device.type != "cuda":
+            return outputs, None
+        host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                for x in outputs]
+        for h, x in zip(host, outputs):
+            h.copy_(x, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _fetch(self, p: _PendingStep):
+        """THE decode loop's host sync (JAX :903): wait for a launched
+        unit's host copies and read them, ``(tokens [S, count], MoE stats
+        or None)``. ``fetch_seconds`` totals the time blocked here."""
+        t0 = self._metrics.clock()
+        if p.event is not None:
+            p.event.synchronize()
+        host = [h.numpy() for h in p.host]
+        self.fetch_seconds += self._metrics.clock() - t0
+        toks = host[0] if host[0].ndim == 2 else host[0][:, None]
+        stats = None if len(host) == 1 else {"expert_load": host[1],
+                                             "router_entropy": host[2]}
+        return toks, stats
+
+    def _flush_pending(self, out: Optional[List[Request]] = None) -> None:
+        """Consume the in-flight unit, if any (JAX :915); the requests it
+        finishes go to ``out`` (default: ``_finish_buf``). After it the
+        host owns every slot's next input token."""
+        p = self._pending
+        if p is None:
+            return
+        self._pending = None
+        self._process_step(p, self._finish_buf if out is None else out)
+        self._chain_dirty[:] = True
+
+    def _process_step(self, p: _PendingStep, finished: List[Request],
+                      t0: Optional[float] = None) -> None:
+        """Consume one launched unit (JAX :927): fetch its tokens, append
+        each covered stream's up to its stop or budget, finish what is
+        done. A slot whose request changed since the launch (finished,
+        preempted, recycled) discards its tokens: at lag 1 a stream is
+        stepped at most once past its stop, and that token and its cache
+        write are never read. ``t0`` is the consuming iteration's decode
+        start (the decode sample spans dispatch, fetch and consume, as
+        the synchronous loop's does); an out-of-band flush records from
+        the launch."""
+        running = self.scheduler.running
+        if not any(running.get(s) is not None and running[s].rid == r
+                   for s, r in p.slots):
+            return            # every covered stream retired: drop it whole
+        toks, stats = self._fetch(p)
+        self._note_moe_route(stats)
+        now = self._metrics.clock()
+        done: List[Request] = []
+        n_emitted = 0
+        for slot, rid in p.slots:
+            req = running.get(slot)
+            if req is None or req.rid != rid:
+                continue                     # recycled slot: discard
+            for j in range(p.count):
+                req.generated.append(int(toks[slot, j]))
+                n_emitted += 1
+                if req.done:
+                    break                    # stop or budget mid-window
+            self._tok[slot] = req.generated[-1]
             if req.done:
                 done.append(req)
-        self.metrics.record_decode(len(slots), self.metrics.clock() - t0)
-        for req in done:
-            self._finish(req, finished)
+        self._decode_buf.append(
+            (len(p.slots), now - (p.launch_t if t0 is None else t0),
+             n_emitted))
+        if done:
+            self._flush_host_window()        # samples precede terminals
+            for req in done:
+                self._finish(req, finished)
+
+    def _flush_host_window(self) -> None:
+        """Record the deferred samples in the live metrics window (JAX
+        :988): iteration samples and the page gauges, decode token and
+        time totals, the speculation counters. Runs every
+        ``_host_window`` iterations, before every terminal, on a metrics
+        swap and when the engine drains."""
+        m = self._metrics
+        if self._iter_buf:
+            for qd, occ in self._iter_buf:
+                m.record_iteration(qd, occ, self.num_slots)
+            self._iter_buf.clear()
+            m.record_pages(self.pool.free_pages, self.pool.shared_pages,
+                           self._fragmentation())
+        for n, dt, n_tok in self._decode_buf:
+            m.record_decode(n, dt, n_tokens=n_tok)
+        self._decode_buf.clear()
+        for proposed, accepted in self._spec_buf:
+            m.record_spec_verify(proposed, accepted)
+        self._spec_buf.clear()
+        for width, path_len, depth in self._spec_tree_buf:
+            m.record_spec_tree(width, path_len, depth)
+        self._spec_tree_buf.clear()
+
+    def _inflight(self) -> Dict[int, int]:
+        """slot -> tokens in flight for the slot's CURRENT request (JAX
+        :1042); a pending unit older than the occupant counts none."""
+        p = self._pending
+        if p is None:
+            return {}
+        running = self.scheduler.running
+        return {slot: p.count for slot, rid in p.slots
+                if running.get(slot) is not None
+                and running[slot].rid == rid}
+
+    def _fuse_window(self) -> int:
+        """This iteration's fused-window size (JAX :1069): ``fuse_steps``
+        when the batch is quiescent, else 0 (one step). Quiescent:
+        nothing queued or prefilling (admission would wait K steps) and
+        every stream's remaining budget, net of its tokens in flight,
+        covering the window (the stop masks run on the device; the budget
+        has none). Deadlines would end quiescence too; they wait for
+        ROADMAP Queue 1 item 4."""
+        k = self.fuse_steps
+        if k < 2:
+            return 0
+        sch = self.scheduler
+        if sch.queue_depth or sch.prefilling or not sch.running:
+            return 0
+        infl = self._inflight()
+        for slot, r in sch.running.items():
+            if r.max_new_tokens - len(r.generated) - infl.get(slot, 0) < k:
+                return 0
+        return k
+
+    def _launch_step(self, greedy_only: bool, fuse: int,
+                     prev: Optional[_PendingStep],
+                     t0: float) -> _PendingStep:
+        """Launch one decode unit, a step or a ``fuse``-wide window,
+        WITHOUT waiting for it (JAX :1096). The input tokens chain on the
+        device from the in-flight unit's feedback (``prev.last``) where
+        the chain is live, and come from the host for slots the host
+        took over since (a new stream, a flush). Host arrays go through
+        ``stage`` (pinned, non-blocking), the outputs' host copies are
+        queued behind the kernels: on the card the launch never waits
+        for it. The host frontier ``_t`` moves past the positions the
+        unit writes, so page growth and the next launch see it."""
+        running = self.scheduler.running
+        dirty = self._chain_dirty
+        slots = tuple((slot, r.rid) for slot, r in running.items())
+        live, reqs = list(running), list(running.values())
+        own = prev is None or dirty.all()    # the host's tokens only
+        mix = not own and dirty.any()        # the host's where dirty
+        host = [self._t] + ([self._tok] if own or mix else []) \
+            + ([dirty] if mix else [])
+        if fuse:
+            stop = np.full(self.num_slots, -1, np.int64)
+            for slot, r in running.items():
+                stop[slot] = r.stop_token
+            host.append(stop)
+        staged = iter(stage(host, self.device))
+        t_dev = next(staged)
+        if own:
+            tok = next(staged)
+        elif mix:
+            tok = next(staged)
+            tok = torch.where(next(staged), tok, prev.last)
+        else:
+            tok = prev.last
+        tables = self.pool.device_tables()
+        kw = self._moe_step_kw()
+        on_logits = None
+        if self.on_logits is not None:
+            def on_logits(logits):
+                self.on_logits("decode", logits, live)
+        if fuse:
+            knobs = {}
+            if not greedy_only:
+                *vecs, gens = self._knobs(live, reqs, self.num_slots,
+                                          self.device)
+                knobs = dict(zip(("temperature", "top_k", "top_p"), vecs),
+                             generators=gens,
+                             sampler=(sample_tokens if self.fused_sampling
+                                      else _sample_vec))
+            nxt, _, stats = decode_fused_slots(
+                self.module, self._params, self.pool.cache, tok, t_dev,
+                next(staged), fuse, tables, self.page_len,
+                on_logits=on_logits, **knobs, **kw)
+            last, count = nxt[:, -1], fuse
+        else:
+            logits, _, *moe = decode_step_slots_paged(
+                self.module, self._params, self.pool.cache, tok, t_dev,
+                tables, self.page_len, **kw)
+            if on_logits is not None:
+                on_logits(logits)
+            nxt = self._sample(logits, live, reqs,
+                               fused=self.fused_sampling)
+            stats = moe[0] if moe else None
+            last, count = nxt, 1
+        outputs = [nxt] if stats is None else [
+            nxt, stats["expert_load"], stats["router_entropy"]]
+        host_out, event = self._post(outputs)
+        for slot, _ in slots:
+            self._t[slot] += count
+            dirty[slot] = False          # the chain is live until overridden
+        return _PendingStep(last, host_out, event, slots, count, t0)
 
     # --- MoE routing telemetry / admission cost ----------------------------
 
@@ -888,14 +1238,14 @@ class ServingEngine:
 
     def _note_moe_route(self, stats) -> None:
         """Host sink of one read step's routing stats (JAX :819; ``stats``
-        is the step's trailing output: empty, or ``[None | dict]``):
+        the host copies ``{"expert_load", "router_entropy"}``, or None):
         the expert-load and entropy gauges and the concentration EMA the
         admission reads (0 = balanced routing, 1 = every assignment on
         one expert)."""
-        if not stats or stats[0] is None:
+        if stats is None:
             return
-        load = stats[0]["expert_load"].cpu().double().numpy()
-        entropy = float(stats[0]["router_entropy"])
+        load = np.asarray(stats["expert_load"], np.float64)
+        entropy = float(stats["router_entropy"])
         total = float(load.sum())
         e = len(load)
         share = float(load.max()) / total if total > 0 else 0.0
@@ -1031,21 +1381,11 @@ class ServingEngine:
         running = self.scheduler.running
         if all(r.temperature <= 0.0 for r in running.values()):
             return tree_walk(logits, toks, parents)
-        n = self.num_slots
-        temp = np.zeros(n, np.float32)
-        top_k = np.zeros(n, np.int64)
-        top_p = np.ones(n, np.float32)
-        gens = [None] * n
-        for slot, r in running.items():
-            temp[slot], top_k[slot], top_p[slot] = (r.temperature, r.top_k,
-                                                    r.top_p)
-            gens[slot] = r.rng
-        dev = self.device
-        return tree_walk(logits, toks, parents,
-                         temperature=torch.from_numpy(temp).to(dev),
-                         top_k=torch.from_numpy(top_k).to(dev),
-                         top_p=torch.from_numpy(top_p).to(dev),
-                         generators=gens)
+        temp, top_k, top_p, gens = self._knobs(
+            list(running), list(running.values()), self.num_slots,
+            self.device)
+        return tree_walk(logits, toks, parents, temperature=temp,
+                         top_k=top_k, top_p=top_p, generators=gens)
 
     def _spec_step(self, finished: List[Request], t0: float) -> None:
         """One linear draft-and-verify iteration over the decode batch:
@@ -1065,19 +1405,18 @@ class ServingEngine:
             .astype(np.int64)
         parents = np.full((self.num_slots, k + 1), -1, np.int64)
         parents[active, 1:] = np.arange(k)
-        dev = self.device
+        toks_d, t_d = stage([toks, self._t], self.device)
         logits, _, *moe = verify_step_slots_paged(
-            self.module, self._params, self.pool.cache,
-            torch.from_numpy(toks).to(dev), torch.from_numpy(self._t).to(dev),
+            self.module, self._params, self.pool.cache, toks_d, t_d,
             self.pool.device_tables(), self.page_len, **self._moe_step_kw())
-        self._note_moe_route(moe)
+        self._note_moe_route(_host_stats(moe))
         if self.on_logits is not None:
             self.on_logits("verify", logits, list(running.keys()))
         emitted, n_emit, _ = self._walk(logits, toks, parents)
 
         def note(slot, req):
             m = int(n_emit[slot]) - 1
-            self.metrics.record_spec_verify(k, m)
+            self._spec_buf.append((k, m))
             self._observe_acceptance(req, m / k)
 
         self._consume_spec(emitted, n_emit, active, note, finished, t0)
@@ -1124,16 +1463,14 @@ class ServingEngine:
         running = self.scheduler.running
         if not running:
             return
-        dev = self.device
-        t_dev = torch.from_numpy(self._t).to(dev)
+        toks_d, t_dev, depth_d, anc_d = stage([toks, self._t, depth, anc],
+                                              self.device)
         tables = self.pool.device_tables()
-        tree = {"depth": torch.from_numpy(depth).to(dev),
-                "anc": torch.from_numpy(anc).to(dev)}
         logits, _, kv_win, *moe = verify_step_slots_paged(
-            self.module, self._params, self.pool.cache,
-            torch.from_numpy(toks).to(dev), t_dev, tables, self.page_len,
-            tree=tree, **self._moe_step_kw())
-        self._note_moe_route(moe)
+            self.module, self._params, self.pool.cache, toks_d, t_dev,
+            tables, self.page_len, tree={"depth": depth_d, "anc": anc_d},
+            **self._moe_step_kw())
+        self._note_moe_route(_host_stats(moe))
         if self.on_logits is not None:
             self.on_logits("verify", logits, list(running.keys()))
         emitted, n_emit, path = self._walk(logits, toks, parents)
@@ -1142,9 +1479,9 @@ class ServingEngine:
 
         def note(slot, req):
             m = int(n_emit[slot]) - 1           # accepted path length
-            self.metrics.record_spec_verify(int(n_nodes[slot]) - 1, m)
-            self.metrics.record_spec_tree(int(width_v[slot]), m,
-                                          int(depth_v[slot]))
+            self._spec_buf.append((int(n_nodes[slot]) - 1, m))
+            self._spec_tree_buf.append((int(width_v[slot]), m,
+                                        int(depth_v[slot])))
             self._observe_acceptance(req, m / max(1, int(depth_v[slot])))
             self._adapt_tree(req)
 
@@ -1173,8 +1510,10 @@ class ServingEngine:
                 note(slot, req)
             if req.done:
                 done.append(req)
-        self.metrics.record_decode(len(running), self.metrics.clock() - t0,
-                                   n_emitted)
+        self._decode_buf.append((len(running), self.metrics.clock() - t0,
+                                 n_emitted))
+        if done:
+            self._flush_host_window()        # samples precede terminals
         for req in done:
             self._finish(req, finished)
 
@@ -1184,6 +1523,7 @@ class ServingEngine:
         if self._draft is not None:
             self._draft.end_slot(slot)
         self._t[slot] = self.max_len
+        self._chain_dirty[slot] = True
         # pages return to the budget; registered prefix pages survive
         # under the prefix cache's own reference
         self.pool.release_slot(slot)

@@ -6,7 +6,12 @@ the device, per-slot page tables ``[S, P]`` on the host (an entry of
 ``num_pages`` is the unallocated sentinel), host-side refcounts, the
 staging transfers ``insert_pages`` (:594, ``_write_pages`` :143) and
 ``load_prefix`` (:606, ``_load_pages`` :196), ``page_bytes`` (:361) and
-``device_tables`` (:395). An int8 pool (``dtype="int8"``) adds float32
+``device_tables`` (:395). Each plane holds one page more than the pool:
+the sink, where the fixed-shape paged write sends its dead entries;
+``cache`` hands out views of the ``num_pages`` pages every reader sees
+(``models.decoding.sink_views``). Host arrays reach the card through
+``stage``: one non-blocking copy from pinned memory, no host sync. An
+int8 pool (``dtype="int8"``) adds float32
 ``k_scale``/``v_scale`` planes ``[num_pages, Hkv, page_len]``; an int4
 pool packs its payload two positions per byte into ``[num_pages, Hkv,
 page_len/2, Dh]`` (``pack_int4``'s half-split, even ``page_len``) while
@@ -26,14 +31,42 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from distkeras_tpu_torch.models.decoding import (cache_kind, init_cache,
-                                                 pack_int4, unpack_int4)
+from distkeras_tpu_torch.models.decoding import (CACHE_PLANES, cache_kind,
+                                                 init_cache, pack_int4,
+                                                 sink_views, unpack_int4)
 
 _ENGINE_API = "Queue 1 item 4 (the engine's remaining synchronous API)"
 _HOST_OFFLOAD = "Queue 1 item 8 (host KV offload)"
 
-#: the tensors of a cache dict, payload first (``"q4"`` is a marker)
-_PLANES = ("k", "v", "k_scale", "v_scale")
+#: numpy -> torch dtypes of the arrays ``stage`` moves
+_TORCH_DTYPES = {np.dtype(np.bool_): torch.bool,
+                 np.dtype(np.int32): torch.int32,
+                 np.dtype(np.int64): torch.int64,
+                 np.dtype(np.float32): torch.float32}
+
+
+def stage(arrays, device) -> List[torch.Tensor]:
+    """Private device copies of host numpy ``arrays``, made without a
+    host sync. On the card: the arrays packed (8-byte aligned) into one
+    fresh pinned buffer and sent by ONE non-blocking copy, then viewed
+    back per array; PyTorch's pinned-memory cache hands that buffer out
+    again only after the copy that reads it has completed, so the caller
+    may change its arrays at once. On the CPU: plain copies."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [torch.from_numpy(np.array(a, copy=True)) for a in arrays]
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offs, n = [], 0
+    for a in arrays:
+        offs.append(n)
+        n += -(-a.nbytes // 8) * 8
+    host = torch.empty(max(n, 8), dtype=torch.uint8, pin_memory=True)
+    buf = host.numpy()
+    for a, o in zip(arrays, offs):
+        buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev = host.to(device, non_blocking=True)
+    return [dev[o:o + a.nbytes].view(_TORCH_DTYPES[a.dtype]).reshape(
+        a.shape) for a, o in zip(arrays, offs)]
 
 
 class PagedKVPool:
@@ -84,18 +117,20 @@ class PagedKVPool:
         #: payload (int4: packed) and scale planes
         self.page_bytes = self._page_bytes(module, self.page_len, dtype,
                                            self.max_len)
-        # the page axis is init_cache's batch axis; the position table is
-        # validated against max_len
-        self.cache = init_cache(module, self.num_pages, self.page_len,
-                                dtype, self.device, check_len=self.max_len)
+        # the page axis is init_cache's batch axis, one page longer for
+        # the sink; the position table is validated against max_len
+        full = init_cache(module, self.num_pages + 1, self.page_len, dtype,
+                          self.device, check_len=self.max_len)
         if self._int4:
-            for kv in self.cache:
+            for kv in full:
                 if kv is not None:
                     for key in ("k", "v"):
                         n, h, pl, d = kv[key].shape
                         kv[key] = torch.zeros((n, h, pl // 2, d),
                                               dtype=torch.int8,
                                               device=self.device)
+        self.cache = [None if kv is None else sink_views(kv, self.num_pages)
+                      for kv in full]
         self.tables = np.full((self.num_slots, self.pages_per_slot),
                               self.num_pages, np.int32)
         self.ref = np.zeros(self.num_pages, np.int64)
@@ -115,7 +150,7 @@ class PagedKVPool:
         for kv in probe:
             if kv is None:
                 continue
-            for key in _PLANES:
+            for key in CACHE_PLANES:
                 if key in kv:
                     n = kv[key].numel() * kv[key].element_size()
                     total += n // 2 if int4 and key in ("k", "v") else n
@@ -132,10 +167,10 @@ class PagedKVPool:
 
     def device_tables(self) -> torch.Tensor:
         """The ``[S, P]`` int32 page tables on the device (cached; any
-        table mutation invalidates the copy)."""
+        table mutation invalidates the copy, and the next call stages a
+        new one)."""
         if self._tables_dev is None:
-            self._tables_dev = torch.from_numpy(self.tables.copy()).to(
-                self.device)
+            self._tables_dev, = stage([self.tables], self.device)
         return self._tables_dev
 
     def _dirty(self):
@@ -218,12 +253,12 @@ class PagedKVPool:
         keep = phys < self.num_pages
         if not keep.any():
             return
-        src = torch.from_numpy(logical[keep]).to(self.device)
-        dst = torch.from_numpy(phys[keep].astype(np.int64)).to(self.device)
+        src, dst = stage([logical[keep].astype(np.int64),
+                          phys[keep].astype(np.int64)], self.device)
         for pool_kv, st_kv in zip(self.cache, staging):
             if pool_kv is None:
                 continue
-            for key in _PLANES:
+            for key in CACHE_PLANES:
                 if key not in pool_kv:
                     continue
                 pages = self._page_view(st_kv[key])[src]
@@ -243,12 +278,12 @@ class PagedKVPool:
             raise ValueError(
                 f"{len(page_ids)} pages cannot cover {n_tokens} shared "
                 f"tokens ({n_load} pages)")
-        src = torch.as_tensor(list(page_ids[:n_load]), dtype=torch.long,
-                              device=self.device)
+        src, = stage([np.asarray(page_ids[:n_load], np.int64)],
+                     self.device)
         for st_kv, pool_kv in zip(staging, self.cache):
             if st_kv is None:
                 continue
-            for key in _PLANES:
+            for key in CACHE_PLANES:
                 if key not in pool_kv:
                     continue
                 pages = pool_kv[key][src]

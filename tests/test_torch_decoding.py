@@ -165,3 +165,155 @@ def test_sample_vec_draws_inside_the_candidate_set():
         assert cand[row, out[:, row]].all()
     assert len(set(out[:, 0].tolist())) > 1      # it does sample
     torch.testing.assert_close(out, draws(9))
+
+
+# --- the fixed-shape paged write ---------------------------------------------
+
+
+def _reference_page_write(kv, k, v, pos, table, page_len, n_pages):
+    """The writer the fixed-shape one replaced, entry by entry in
+    row-major order: only positions on an allocated page are written.
+    Returns the written planes and the live ``(page, offset)`` set."""
+    out = {key: kv[key].clone() for key in pd.CACHE_PLANES if key in kv}
+    q4 = "q4" in kv
+    live = set()
+    for s in range(pos.shape[0]):
+        for w in range(pos.shape[1]):
+            p = int(pos[s, w])
+            lp = p // page_len
+            if p < 0 or lp >= table.shape[1] or table[s, lp] >= n_pages:
+                continue
+            page, off = int(table[s, lp]), p % page_len
+            live.add((page, off))
+            if "k_scale" not in kv:
+                out["k"][page, :, off] = k[s, w].to(out["k"].dtype)
+                out["v"][page, :, off] = v[s, w].to(out["v"].dtype)
+                continue
+            for key, skey, x in (("k", "k_scale", k), ("v", "v_scale", v)):
+                q, sc = pd._quantize_kv(x[s, w], 4 if q4 else 8)
+                out[skey][page, :, off] = sc
+                if not q4:
+                    out[key][page, :, off] = q
+                    continue
+                half = page_len // 2
+                cur = out[key][page, :, off % half].to(torch.int32) & 255
+                nib = q.to(torch.int32) & 15
+                b = ((cur & 0x0F) | (nib << 4) if off >= half
+                     else (cur & 0xF0) | nib)
+                out[key][page, :, off % half] = \
+                    (b - 256 * (b > 127).to(torch.int32)).to(torch.int8)
+    return out, live
+
+
+@pytest.mark.parametrize("w_len", [1, 5])
+@pytest.mark.parametrize("kind", ["bfloat16", "int8", "int4"])
+def test_fixed_shape_page_write_matches_the_live_entry_writer(kind, w_len):
+    """Random tables with sentinel entries, a free slot at the engine's
+    sentinel position, windows crossing pages and reaching unallocated
+    ones: the fixed-shape write (S * W entries, dead ones into the sink)
+    is bitwise the live-entry writer on the live positions, and every
+    other position of pages 0..N-1 keeps its bytes."""
+    rs = np.random.RandomState(31 + w_len)
+    n_pages, page_len, hkv, d, s_n, n_logical = 12, 8, 2, 4, 4, 4
+    max_len = n_logical * page_len
+    shape = (n_pages, hkv, page_len, d)
+    if kind == "bfloat16":
+        kv = {key: torch.from_numpy(rs.randn(*shape).astype(np.float32))
+              .to(torch.bfloat16) for key in ("k", "v")}
+    else:
+        rows = page_len // 2 if kind == "int4" else page_len
+        kv = {key: torch.from_numpy(rs.randint(
+            -128, 128, (n_pages, hkv, rows, d)).astype(np.int8))
+            for key in ("k", "v")}
+        kv.update({key: torch.from_numpy(
+            rs.rand(*shape[:3]).astype(np.float32))
+            for key in ("k_scale", "v_scale")})
+        if kind == "int4":
+            kv["q4"] = True
+    # distinct physical pages, some logical pages unallocated (sentinel)
+    perm = rs.permutation(n_pages)
+    table = np.full((s_n, n_logical), n_pages, np.int32)
+    table[0, :3] = perm[:3]
+    table[1, :2] = perm[3:5]
+    table[2, [0, 2]] = perm[5:7]
+    t = np.array([6, 12, 3, max_len], np.int64)      # slot 3 is free
+    pos = t[:, None] + np.arange(w_len)
+    k = torch.from_numpy(rs.randn(s_n, w_len, hkv, d).astype(np.float32))
+    v = torch.from_numpy(rs.randn(s_n, w_len, hkv, d).astype(np.float32))
+    before = {key: kv[key].clone() for key in pd.CACHE_PLANES if key in kv}
+    ref, live = _reference_page_write(kv, k, v, pos, table, page_len,
+                                      n_pages)
+    assert len(live) >= 2 and len(live) < s_n * w_len
+    index = pd.page_write_index(torch.from_numpy(pos),
+                                torch.from_numpy(table), page_len, n_pages,
+                                split_halves=kind == "int4")
+    assert index.pages.shape == (s_n * w_len,)
+    pd._cache_write_pages(kv, k, v, index)
+    q4 = kind == "int4"
+    for key, want in ref.items():
+        got, old = kv[key], before[key]
+        assert got.shape == old.shape
+        if got.dtype == torch.bfloat16:       # compare the bits
+            got, want, old = (x.view(torch.int16) for x in (got, want, old))
+        assert torch.equal(got, want), key
+        if q4 and key in ("k", "v"):           # per position
+            got, old = pd.unpack_int4(got), pd.unpack_int4(old)
+        keep = torch.ones(got.shape[:3], dtype=torch.bool)
+        for page, off in live:
+            keep[page, :, off] = False
+        assert torch.equal(got[keep], old[keep]), key
+
+
+#: a fused window's tables: every position a live slot writes in 4 steps
+#: lies on an allocated page; slot 3 is free
+FUSE_TABLE = np.array([[7, 2, 9, 12, 14], [0, 5, 13, 14, 14],
+                       [3, 1, 4, 6, 11], [14, 14, 14, 14, 14]], np.int32)
+FUSE_T = np.array([9, 5, 16, 20], np.int32)
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=IDS)
+def test_decode_fused_slots_matches_jax(cfg):
+    """A greedy 4-step window on random pages, with a stop token that
+    fires inside the window for slot 1: the tokens of the live slots
+    equal JAX's ``decode_fused_slots`` (the rest of slot 1's window
+    repeats its stop), and the pages hold the same writes."""
+    jm, pm = _pair(**cfg)
+    rs = np.random.RandomState(5)
+    shapes = {}
+    for i, layer in enumerate(pm.module.layers):
+        if isinstance(layer, zoo.TransformerBlock):
+            shapes[i] = (N_PAGES, layer.attn.kv_heads, PAGE_LEN,
+                         layer.attn.head_dim)
+    planes = {i: {k: rs.randn(*sh).astype(np.float32) for k in ("k", "v")}
+              for i, sh in shapes.items()}
+    tok = rs.randint(0, V, 4).astype(np.int32)
+
+    def run_jax(stop):
+        cache = [None if i not in planes else
+                 {k: jnp.asarray(a) for k, a in planes[i].items()}
+                 for i in range(len(pm.module.layers))]
+        toks, cache, _, _ = jd.decode_fused_slots(
+            jm.module, jm.params, jm.state, cache, jnp.asarray(tok),
+            jnp.asarray(FUSE_T), jnp.asarray(stop), 4,
+            jnp.asarray(FUSE_TABLE), PAGE_LEN)
+        return np.asarray(toks), cache
+
+    free_run, _ = run_jax(np.full(4, -1, np.int32))
+    stop = np.full(4, -1, np.int32)
+    stop[1] = free_run[1, 1]
+    jtoks, jcache = run_jax(stop)
+    assert (jtoks[1, 1:] == stop[1]).all()
+    pcache = [None if i not in planes else
+              {k: torch.from_numpy(a.copy()) for k, a in planes[i].items()}
+              for i in range(len(pm.module.layers))]
+    ptoks, pcache, stats = pd.decode_fused_slots(
+        pm.module, pm.params, pcache, torch.from_numpy(tok).long(),
+        torch.from_numpy(FUSE_T), torch.from_numpy(stop).long(), 4,
+        torch.from_numpy(FUSE_TABLE), PAGE_LEN)
+    assert stats is None and tuple(ptoks.shape) == (4, 4)
+    np.testing.assert_array_equal(ptoks.numpy()[:3], jtoks[:3])
+    for jkv, pkv in zip(jcache, pcache):
+        if jkv is not None:
+            for key in ("k", "v"):
+                np.testing.assert_allclose(pkv[key].numpy(),
+                                           np.asarray(jkv[key]), atol=TOL)

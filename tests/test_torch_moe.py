@@ -574,6 +574,38 @@ def test_engine_chunked_prefill_with_prefix_cache_matches_generate(moe_lms):
                                       _ref(jm, a, n, prefill_chunk=4))
 
 
+@pytest.mark.parametrize("kw", [{"overlap": True},
+                                {"overlap": True, "fuse_steps": 4}],
+                         ids=["overlap", "fused"])
+def test_engine_zero_bubble_loop_matches_generate(moe_lms, monkeypatch, kw):
+    """Dispatched MoE decode under the pipelined loop and under fused
+    windows: staggered greedy streams equal JAX ``generate()``, and the
+    routing stats, read with the unit they belong to, reach the
+    gauges."""
+    import distkeras_tpu_torch.serving.engine as eng_mod
+    jm, pm = moe_lms
+    windows = []
+    orig = eng_mod.decode_fused_slots
+
+    def counted(*args, **fkw):
+        windows.append(fkw.get("moe_stats"))
+        return orig(*args, **fkw)
+
+    monkeypatch.setattr(eng_mod, "decode_fused_slots", counted)
+    eng = _engine(pm, num_slots=2, **kw)
+    prompts = [PATTERN[:5], PATTERN[:4], PATTERN[:6]]
+    budgets = [14, 10, 9]
+    rids = [eng.submit(prompts[0], budgets[0])]
+    eng.step()
+    rids += [eng.submit(p, b) for p, b in zip(prompts[1:], budgets[1:])]
+    out = eng.run(max_steps=500)
+    for rid, p, b in zip(rids, prompts, budgets):
+        np.testing.assert_array_equal(out[rid], _ref(jm, p, b))
+    moe = eng.metrics.summary()["moe"]
+    assert moe is not None and sum(moe["expert_load"]) > 0
+    assert bool(windows) == ("fuse_steps" in kw)
+
+
 # --- telemetry, admission, validation ---------------------------------------
 
 
@@ -595,11 +627,15 @@ def test_moe_metrics_gauges_and_summary(moe_lms):
     assert h["expert_parallel"] is None
 
 
-def test_moe_stats_throttled_and_first_step_reports(moe_lms, monkeypatch):
+@pytest.mark.parametrize("overlap", [False, True])
+def test_moe_stats_throttled_and_first_step_reports(moe_lms, monkeypatch,
+                                                    overlap):
     """The stats are computed and read on every ``_MOE_STATS_EVERY``-th
-    decode step only, the first one included."""
+    launched decode step only, the first one included. The pipelined
+    loop launches one step more per request (the step in flight when
+    its last token is read)."""
     _, pm = moe_lms
-    eng = _engine(pm, num_slots=1)
+    eng = _engine(pm, num_slots=1, overlap=overlap)
     seen = []
     orig = pd._moe_route_stats
 
@@ -613,7 +649,7 @@ def test_moe_stats_throttled_and_first_step_reports(moe_lms, monkeypatch):
     assert eng.metrics.summary()["moe"] is not None and seen == [0]
     eng.submit(PATTERN[:4], 20)            # 19 more decode steps
     eng.run(max_steps=100)
-    assert eng._moe_iter == 20 and seen == [0, 16]
+    assert eng._moe_iter == (22 if overlap else 20) and seen == [0, 16]
 
 
 def test_moe_admit_extra_scales_and_caps(moe_lms):

@@ -215,8 +215,7 @@ def test_quantized_kv_engine_matches_generate(lms, cache_dtype):
                            prefill_chunk=4))
 
 
-@pytest.mark.parametrize("kw", [{"overlap": True}, {"fuse_steps": 4},
-                                {"kv_layout": "slab"},
+@pytest.mark.parametrize("kw", [{"kv_layout": "slab"},
                                 {"host_kv_pages": 8},
                                 {"ep_mesh": "expert"},
                                 {"hbm_budget": 1 << 30},
@@ -610,6 +609,7 @@ def test_adversarial_draft_is_disabled_after_warmup(lms):
         eng.step()
         checks.append(req.spec_checks)
     assert req.spec_checks == 3 and req.spec_ema == 0.0
+    eng.health()                      # the deferred samples land first
     proposed = eng.metrics.spec_proposed
     out = eng.run(max_steps=100)
     np.testing.assert_array_equal(out[rid], _ref(jm, SPEC_PROMPTS[0], 12))
@@ -741,3 +741,278 @@ def test_decode_time_covers_the_draft_proposals(lms, kw):
     assert proposals >= 2
     decode_s = sum(a[1] for a in eng.metrics._decode_agg.values())
     assert decode_s == proposals
+
+
+# --- the zero-bubble loop: overlap=True (the default) and fuse_steps ---------
+#
+# The cases of the JAX package's tests/test_serving_overlap.py on the paged
+# layout: pipelined and fused streams token-identical to generate() (and to
+# the JAX engine with the same knobs), sampled ones byte-identical to the
+# synchronous loop's.
+
+OVERLAP_POOL = dict(page_len=4, num_pages=24, prefix_cache=False)
+
+
+def _drive(eng, subs, stagger=0):
+    """Submit ``subs`` (``submit`` keywords), stepping ``stagger``
+    iterations after each, then drain; returns ``({rid: tokens}, rids)``."""
+    out = {}
+
+    def tick():
+        for r in eng.step():
+            out[r.rid] = np.asarray(r.tokens)
+
+    rids = []
+    for kw in subs:
+        rids.append(eng.submit(**kw))
+        for _ in range(stagger):
+            tick()
+    steps = 0
+    while eng.scheduler.pending:
+        tick()
+        steps += 1
+        assert steps < 5000, "engine failed to drain"
+    return out, rids
+
+
+class _CountFused:
+    """Counts the engine's fused windows while installed."""
+
+    def __init__(self, monkeypatch):
+        import distkeras_tpu_torch.serving.engine as eng_mod
+        self.n = 0
+        orig = eng_mod.decode_fused_slots
+
+        def counted(*args, **kw):
+            self.n += 1
+            return orig(*args, **kw)
+
+        monkeypatch.setattr(eng_mod, "decode_fused_slots", counted)
+
+
+def test_pipelined_staggered_arrivals_match_generate(lms):
+    """Staggered arrivals with mixed prompt lengths and budgets through
+    the default pipelined engine (slots recycle while a step is in
+    flight): every greedy stream equals generate()."""
+    jm, pm = lms
+    eng = ServingEngine(pm, num_slots=3, max_len=32, device="cpu",
+                        **OVERLAP_POOL)
+    assert eng.overlap and eng.fuse_steps == 0
+    prompts = [PATTERN[:4], PATTERN[:6], PATTERN[:3], PATTERN[:5],
+               PATTERN[:7]]
+    budgets = [7, 5, 9, 6, 4]
+    out, rids = _drive(eng, [dict(prompt=p, max_new_tokens=b)
+                             for p, b in zip(prompts, budgets)], stagger=2)
+    for rid, p, b in zip(rids, prompts, budgets):
+        np.testing.assert_array_equal(out[rid], _ref(jm, p, b))
+    assert eng.pool.free_pages == 24
+    assert eng.metrics.summary()["requests_finished"] == 5
+
+
+def test_pipelined_stop_token_mid_stream_matches_generate(lms):
+    """A stop token read while the next step is already in flight: the
+    stream was stepped once past it and that token is never consumed."""
+    jm, pm = lms
+    prompt = PATTERN[:5]
+    ref = _ref(jm, prompt, 16, stop_token=9)
+    assert 9 in ref[len(prompt):]
+    eng = ServingEngine(pm, num_slots=2, max_len=32, device="cpu",
+                        **OVERLAP_POOL)
+    out, rids = _drive(eng, [
+        dict(prompt=prompt, max_new_tokens=16, stop_token=9),
+        dict(prompt=PATTERN[:4], max_new_tokens=8)])
+    got = out[rids[0]]
+    assert got[-1] == 9 and len(got) < len(prompt) + 16
+    np.testing.assert_array_equal(got, ref[:len(got)])
+    assert (ref[len(got):] == 9).all()               # generate()'s pad
+    np.testing.assert_array_equal(out[rids[1]], _ref(jm, PATTERN[:4], 8))
+
+
+SAMPLED_SUBS = [dict(prompt=PATTERN[:5], max_new_tokens=10,
+                     temperature=0.9, top_p=0.95, seed=7),
+                dict(prompt=PATTERN[:4], max_new_tokens=12,
+                     temperature=0.7, top_k=8, seed=11),
+                dict(prompt=PATTERN[:6], max_new_tokens=8)]  # greedy rider
+
+
+@pytest.mark.parametrize("fused_sampling", [False, True])
+def test_pipelined_sampled_streams_byte_identical_to_synchronous(
+        lms, fused_sampling):
+    """Sampled streams: each row draws once a step from its request's
+    generator in the same order, so the pipelined loop's tokens are the
+    synchronous loop's, byte for byte; the greedy rider equals
+    generate()."""
+    jm, pm = lms
+    outs = {}
+    for overlap in (False, True):
+        eng = ServingEngine(pm, num_slots=2, max_len=32, device="cpu",
+                            overlap=overlap, fused_sampling=fused_sampling,
+                            **OVERLAP_POOL)
+        outs[overlap], rids = _drive(eng, SAMPLED_SUBS, stagger=1)
+    for rid in rids:
+        np.testing.assert_array_equal(outs[False][rid], outs[True][rid])
+    np.testing.assert_array_equal(outs[True][rids[2]],
+                                  _ref(jm, PATTERN[:6], 8))
+
+
+@pytest.mark.parametrize("cache_dtype", ["int8", "int4"])
+def test_pipelined_quantized_pages_match_generate(lms, cache_dtype):
+    jm, pm = lms
+    eng = ServingEngine(pm, num_slots=2, max_len=32, cache_dtype=cache_dtype,
+                        device="cpu", **OVERLAP_POOL)
+    out, rids = _drive(eng, [dict(prompt=PATTERN[:6], max_new_tokens=8),
+                             dict(prompt=PATTERN[:4], max_new_tokens=6)])
+    for rid, p, b in zip(rids, (PATTERN[:6], PATTERN[:4]), (8, 6)):
+        np.testing.assert_array_equal(
+            out[rid], _ref(jm, p, b, cache_dtype=cache_dtype))
+
+
+def test_spec_decode_with_pipelined_plain_iterations(lms):
+    """A drafted engine: speculative iterations drain the pipeline and
+    stay synchronous, the plain iterations around them pipeline; both
+    streams equal generate()."""
+    jm, pm = lms
+    eng = ServingEngine(pm, num_slots=2, max_len=48, device="cpu",
+                        draft=NgramDraft(), spec_k=3, page_len=4)
+    prompt = np.tile(PATTERN, 3)[:10]
+    out, rids = _drive(eng, [
+        dict(prompt=prompt, max_new_tokens=16),
+        dict(prompt=PATTERN[:5], max_new_tokens=8, speculate=False)])
+    np.testing.assert_array_equal(out[rids[0]], _ref(jm, prompt, 16))
+    np.testing.assert_array_equal(out[rids[1]], _ref(jm, PATTERN[:5], 8))
+    assert eng.metrics.spec_proposed > 0
+
+
+def test_fused_steady_state_matches_jax_engine_and_generate(lms,
+                                                           monkeypatch):
+    """A quiescent batch on a ``fuse_steps=4`` engine: fused windows
+    engage after the prefill ramp, and each stream equals the JAX
+    engine's with the same knobs and generate()."""
+    from distkeras_tpu.serving import ServingEngine as JaxEngine
+    jm, pm = lms
+    fused = _CountFused(monkeypatch)
+    subs = [dict(prompt=PATTERN[:5], max_new_tokens=14),
+            dict(prompt=PATTERN[:4], max_new_tokens=11)]
+    knobs = dict(num_slots=2, max_len=32, overlap=True, fuse_steps=4,
+                 **OVERLAP_POOL)
+    out, rids = _drive(ServingEngine(pm, device="cpu", **knobs), subs)
+    assert fused.n >= 2, "the fused window never engaged"
+    jout, jrids = _drive(JaxEngine(jm, **knobs), subs)
+    for rid, jrid, kw in zip(rids, jrids, subs):
+        np.testing.assert_array_equal(out[rid], jout[jrid])
+        np.testing.assert_array_equal(
+            out[rid], _ref(jm, kw["prompt"], kw["max_new_tokens"]))
+
+
+def test_fused_stop_token_mid_window(lms, monkeypatch):
+    """A stop token inside a fused window: the device mask pads the rest
+    of the window with it and the host cuts there."""
+    jm, pm = lms
+    fused = _CountFused(monkeypatch)
+    prompt = PATTERN[:5]
+    ref = _ref(jm, prompt, 16, stop_token=9)
+    eng = ServingEngine(pm, num_slots=2, max_len=40, device="cpu",
+                        fuse_steps=4, **OVERLAP_POOL)
+    out, rids = _drive(eng, [
+        dict(prompt=prompt, max_new_tokens=16, stop_token=9),
+        dict(prompt=PATTERN[:4], max_new_tokens=16)])
+    got = out[rids[0]]
+    assert got[-1] == 9 and len(got) < len(prompt) + 16
+    np.testing.assert_array_equal(got, ref[:len(got)])
+    np.testing.assert_array_equal(out[rids[1]], _ref(jm, PATTERN[:4], 16))
+    assert fused.n >= 1
+
+
+@pytest.mark.parametrize("fused_sampling", [False, True])
+def test_fused_sampled_streams_byte_identical_to_synchronous(
+        lms, monkeypatch, fused_sampling):
+    """Sampled fused windows draw once per window step per row, so they
+    replay the synchronous loop's draws exactly."""
+    _, pm = lms
+    fused = _CountFused(monkeypatch)
+    subs = [dict(prompt=PATTERN[:5], max_new_tokens=12, temperature=0.9,
+                 top_p=0.95, seed=7),
+            dict(prompt=PATTERN[:4], max_new_tokens=12, temperature=0.7,
+                 top_k=8, seed=3)]
+    outs = []
+    for kw in (dict(overlap=False), dict(overlap=True, fuse_steps=4)):
+        eng = ServingEngine(pm, num_slots=2, max_len=32, device="cpu",
+                            fused_sampling=fused_sampling, **kw)
+        outs.append(_drive(eng, subs))
+    assert fused.n >= 1
+    (out_s, rids_s), (out_f, rids_f) = outs
+    for a, b in zip(rids_s, rids_f):
+        np.testing.assert_array_equal(out_s[a], out_f[b])
+
+
+def test_arrival_mid_fused_run_breaks_quiescence_and_matches(lms,
+                                                            monkeypatch):
+    """A request arriving while fused windows run: the next iteration
+    sees the queue, runs single steps while it admits, and fuses again
+    later; both streams equal generate()."""
+    jm, pm = lms
+    fused = _CountFused(monkeypatch)
+    eng = ServingEngine(pm, num_slots=2, max_len=40, device="cpu",
+                        fuse_steps=4)
+    r0 = eng.submit(PATTERN[:5], 20)
+    for _ in range(6):                          # into fused steady state
+        eng.step()
+    before = fused.n
+    assert before >= 1
+    r1 = eng.submit(PATTERN[:4], 10)
+    out = eng.run(max_steps=2000)
+    assert fused.n > before
+    np.testing.assert_array_equal(out[r0], _ref(jm, PATTERN[:5], 20))
+    np.testing.assert_array_equal(out[r1], _ref(jm, PATTERN[:4], 10))
+
+
+def test_preemption_during_fused_run_falls_back_and_rejoins(lms,
+                                                           monkeypatch):
+    """Under page pressure funding a window (or an admission) preempts a
+    stream: the iteration runs one step instead, the victim re-prefills,
+    fused windows resume, and both streams equal generate()."""
+    jm, pm = lms
+    fused = _CountFused(monkeypatch)
+    eng = ServingEngine(pm, num_slots=2, max_len=32, page_len=4,
+                        num_pages=8, prefix_cache=False, device="cpu",
+                        fuse_steps=4)
+    r0 = eng.submit(PATTERN[:5], 16)
+    eng.step()
+    eng.step()
+    r1 = eng.submit(PATTERN[:6], 15)
+    out = eng.run(max_steps=2000)
+    assert eng.metrics.requests_preempted >= 1
+    assert fused.n >= 1, "the fused window never engaged"
+    np.testing.assert_array_equal(out[r0], _ref(jm, PATTERN[:5], 16))
+    np.testing.assert_array_equal(out[r1], _ref(jm, PATTERN[:6], 15))
+    assert eng.pool.free_pages == 8
+
+
+def test_fuse_steps_validation(lms):
+    _, pm = lms
+    with pytest.raises(ValueError, match="fuse_steps"):
+        ServingEngine(pm, num_slots=1, max_len=16, device="cpu",
+                      fuse_steps=-1)
+
+
+def test_metrics_window_swap_drains_deferred_host_work(lms):
+    """Swapping the metrics window mid-flight flushes the pipeline and
+    the deferred samples into the OLD window: the decode tokens of the
+    two windows add up to exactly those generated."""
+    _, pm = lms
+    eng = ServingEngine(pm, num_slots=2, max_len=32, device="cpu")
+    r0 = eng.submit(PATTERN[:5], 12)
+    for _ in range(5):
+        eng.step()
+    w0 = eng.metrics
+    eng.metrics = ServingMetrics()
+    out = eng.run(max_steps=2000)
+    w1 = eng.metrics
+
+    def toks(w):
+        return sum(a[0] for a in w._decode_agg.values())
+
+    # 12 budgeted: the prefill's first token, then 11 decoded
+    assert toks(w0) + toks(w1) == 11
+    assert toks(w0) > 0 and toks(w1) > 0
+    assert len(out[r0]) == len(PATTERN[:5]) + 12
