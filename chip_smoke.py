@@ -209,11 +209,30 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     (no host sync); after phase 21 the same on phase 20's dispatched
     MoE engine (four greedy requests, K6a exactly 12 per decode step
     launched), and its launches free of host syncs.
+26. JAX's threefry on the card: K7 (``csrc/prng.cu``) against its plain
+    version at the serving sampler's Gumbel field (S8 V32768, a key a
+    row), a decode step's split of 8 slot keys, a dropout mask (B4 S2048
+    d1024 under one key) and raw bits (splits, bits and uniforms
+    bitwise, the Gumbel field within ``prng.GUMBEL_ULPS``, the small
+    cases against the CPU too), with graph-replay times and the bound;
+    the CUDA kernels a sampled step's sampler launches (the per-row loop
+    the port ran before K7 against the keyed samplers); a sampled
+    workload through the synchronous and the pipelined loop with the
+    unfused and the fused sampler (equal streams per sampler, K7 exactly
+    two launches a sampled decode step and two a sampled first token),
+    both samplers' launches free of host syncs; then the engine's
+    synchronous API under the pipelined loop: a deadline and a
+    ``cancel`` mid-decode, ``run(on_degraded=)`` both ways, an
+    ``hbm_budget`` engine's pages and real bytes against the budget, and
+    ``decode_kernel="off"`` (no paged kernel) against the default (12 a
+    decode step).
 
 Every serving phase runs the engine's default loop, ``overlap=True``;
-phase 20's teacher-forced runs use the synchronous one. The line before
-the last is one JSON object with every kernel's numbers (seventeen
-kernels); the last line is ``{"ok": true, "device": {...}}``.
+phase 20's teacher-forced runs use the synchronous one. Weights are
+JAX's ``Model.build`` draws from ``PRNGKey(0)``, made on the card (K7) and
+moved where a phase needs them on the CPU. The line before the last is
+one JSON object with every kernel's numbers (eighteen kernels); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -238,6 +257,7 @@ from distkeras_tpu_torch.models.blocks import Remat
 from distkeras_tpu_torch.models.moe import MoE, _dispatch_plan
 from distkeras_tpu_torch.models.decoding import (_generate_params,
                                                  _masked_logits_vec,
+                                                 _sample_vec,
                                                  _quantize_kv, decode_step,
                                                  decode_fused_slots,
                                                  decode_step_slots_paged,
@@ -253,6 +273,7 @@ from distkeras_tpu_torch.ops.moe_kernels import (
     bwd_dw1, bwd_dw1_reference, bwd_dx, bwd_dx_reference, fused_moe_apply,
     gather_gemm1, gather_gemm1_reference, gemm1_plan, row_gates,
     src_tokens)
+from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.losses import (
     get_loss, sparse_categorical_crossentropy_from_logits)
 from distkeras_tpu_torch.ops.optimizers import (adam, apply_updates,
@@ -266,7 +287,8 @@ from distkeras_tpu_torch.ops.quant_matmul import (quant_matmul,
 from distkeras_tpu_torch.ops.sampling import (MAX_BOUNDARY_PARTINGS,
                                               boundary_partings, gumbel_noise,
                                               sample_epilogue,
-                                              sample_epilogue_reference)
+                                              sample_epilogue_reference,
+                                              sample_tokens)
 from distkeras_tpu_torch.parallel import (SingleTrainer, TrainCarry,
                                           make_train_step, value_and_grad)
 from distkeras_tpu_torch.serving import (DraftModel, NgramDraft,
@@ -687,14 +709,24 @@ def anc_phase(dev, bits=None):
 # --- phase 5: the serving path end to end ------------------------------------
 
 
+def built_on_card(spec, device) -> Model:
+    """``Model.build(spec, seed=SEED)`` with the weights drawn on the card
+    (K7: one launch a leaf), then moved to ``device``: the uniform draws
+    are bitwise the CPU plain version's, which takes about a minute for
+    the 218M LM."""
+    model = Model.build(spec, (16,), seed=SEED, device="cuda")
+    return model if torch.device(device).type == "cuda" else \
+        model.to(device)
+
+
 def build_lm(device, *, num_layers=LM_CFG["num_layers"],
              d_model=LM_CFG["d_model"], num_heads=LM_CFG["num_heads"],
              vocab=LM_CFG["vocab"], dtype="bfloat16"):
-    return Model.build(
+    return built_on_card(
         zoo.transformer_lm(vocab, d_model=d_model, num_heads=num_heads,
                            num_layers=num_layers,
                            mlp_ratio=LM_CFG["mlp_ratio"], dtype=dtype),
-        (16,), seed=SEED, device=device)
+        device)
 
 
 def workload(vocab: int):
@@ -714,7 +746,9 @@ def workload(vocab: int):
     ]
 
 
-SERVING_KERNELS = ("flash_fwd", "paged_decode")
+#: the kernels phase 5's run must launch (its sampled request's draws
+#: are K7's)
+SERVING_KERNELS = ("flash_fwd", "paged_decode", "prng")
 
 #: pages of the pool: enough to admit the first four requests, too few
 #: for all of them to grow through their 32 new tokens (so at least one
@@ -1982,15 +2016,16 @@ def motif_workload(vocab: int, n: int):
             for n_tok in (300, 520, 130, 700)[:n]]
 
 
-def _cpu_choice(f32, context, kw, index, device, favour, eps_rel):
+def _cpu_choice(f32, context, kw, index, favour, eps_rel):
     """The plain path's choice of the token after ``context`` from the
     CPU float32 logits, pushed by ``eps_rel`` of max |logit| towards
     ``favour`` (its logit raised, every other lowered by that much):
     the argmax for a greedy request; for a sampled one the argmax of
     the temperature-scaled, top-k / nucleus-masked logits plus the
-    Gumbel noise of its ``index``-th draw (one draw per generated token,
-    from a generator seeded as the engine seeds it). Returns ``(choice,
-    top-2 gap of the unpushed scores relative to max |logit|)``."""
+    Gumbel field of its ``index``-th draw (the request's key chain:
+    ``PRNGKey(seed)``, one split per generated token, whatever the
+    schedule). Returns ``(choice, top-2 gap of the unpushed scores
+    relative to max |logit|)``."""
     with torch.inference_mode():
         cache = init_cache(f32.module, 1, len(context), torch.float32, "cpu")
         logits, _ = prefill(f32.module, f32.params, cache,
@@ -2003,11 +2038,10 @@ def _cpu_choice(f32, context, kw, index, device, favour, eps_rel):
         top2 = torch.topk(logits, 2).values
         return (int(torch.argmax(logits + push)),
                 float(top2[0] - top2[1]) / scale)
-    gen = torch.Generator(device=device).manual_seed(kw.get("seed", 0))
+    rng = prng.key(kw.get("seed", 0))
     for _ in range(index + 1):
-        u = torch.rand(logits.shape[-1], generator=gen, device=device)
-    tiny = float(np.finfo(np.float32).tiny)
-    noise = -torch.log(-torch.log(u.cpu().clamp_min(tiny)))
+        rng, sub = prng.split(rng)
+    noise = prng.gumbel(sub, logits.shape)
     one = torch.ones(1)
 
     def scores(lg):
@@ -2021,7 +2055,7 @@ def _cpu_choice(f32, context, kw, index, device, favour, eps_rel):
             float(top2[0] - top2[1]) / scale)
 
 
-def check_identity(f32, plain, spec, requests, label, device, tie_rel):
+def check_identity(f32, plain, spec, requests, label, tie_rel):
     """Each stream of a run (speculative, or another loop's) against the
     plain engine's stream of the same request: equal, or parting at a
     near-tie of the plain path's CPU float32 scores, compared up to
@@ -2040,7 +2074,7 @@ def check_identity(f32, plain, spec, requests, label, device, tie_rel):
             continue
         pos = int(diff[0])
         choice, gap = _cpu_choice(f32, a[:pos], kw, pos - len(prompt),
-                                  device, int(b[pos]), tie_rel / 2)
+                                  int(b[pos]), tie_rel / 2)
         print(f"{label}: request {rid} parts from the plain "
               f"stream at generated token {pos - len(prompt)} (plain "
               f"{a[pos]}, this run {b[pos]}); CPU float32 top-2 gap "
@@ -2138,8 +2172,7 @@ def spec_phase(model, card, tie_rel):
             del spec["draft"].__dict__[name]
         check_finished(reqs, out, bad)
         parted = check_identity(f32, plains[key], (reqs, out), requests,
-                                f"speculation {label}", model.device,
-                                tie_rel)
+                                f"speculation {label}", tie_rel)
         s = eng.metrics.summary()
         emitted = len(reqs) * NEW_TOKENS
         # a tree's acceptance counts every node offered (at most depth of
@@ -2289,7 +2322,7 @@ def k4_inputs(rs, s, v, dev, dtype=torch.float32):
     """``s`` rows of ``dtype`` logits with mixed knobs (the knob rows in
     turn from a seeded offset; with two rows or more the last is the tie
     row, its top 20 logits equal) and their Gumbel field from per-row
-    generators. The +-0.0 row is shifted so that its k-th largest value
+    keys (K7). The +-0.0 row is shifted so that its k-th largest value
     is 0, and its sorted ranks k-3 to k+2 hold +0.0 and -0.0 in turn."""
     n = len(K4_TEMP)
     logits = torch.from_numpy((rs.randn(s, v) * 3).astype(np.float32))
@@ -2307,12 +2340,11 @@ def k4_inputs(rs, s, v, dev, dtype=torch.float32):
             ranks = x.topk(k + 3).indices[k - 3:]
             x[ranks] = torch.tensor([0.0, -0.0] * 3)
     temp = torch.tensor([K4_TEMP[i] for i in idx])
-    gens = [None if t <= 0 else torch.Generator(device=dev).manual_seed(i)
-            for i, t in enumerate(temp.tolist())]
+    keys = prng.split(prng.key(int(rs.randint(1 << 31))), s).to(dev)
     args = [a.to(dev) for a in (
         logits.to(dtype), temp, torch.tensor([K4_TOPK[i] for i in idx]),
         torch.tensor([K4_TOPP[i] for i in idx]))]
-    return args + [gumbel_noise(gens, v, dev)]
+    return args + [gumbel_noise(keys, v)]
 
 
 def k4_partings(out, ref, args, parted):
@@ -2789,7 +2821,7 @@ def build_moe_lm(device, *, num_layers=LM_CFG["num_layers"],
     layers), built as ``_build_moe_serve_model`` builds it: dense
     dispatch, seed 0; ``bench_moe``'s training model passes
     ``MOE_TRAIN_KW``."""
-    return Model.build(
+    return built_on_card(
         zoo.transformer_lm(LM_CFG["vocab"], d_model=LM_CFG["d_model"],
                            num_heads=LM_CFG["num_heads"],
                            num_layers=num_layers, mlp_ratio=2, dtype=dtype,
@@ -2797,7 +2829,7 @@ def build_moe_lm(device, *, num_layers=LM_CFG["num_layers"],
                            moe_dispatch=dispatch,
                            moe_aux_loss_weight=aux_loss_weight,
                            moe_capacity_factor=capacity_factor),
-        (16,), seed=SEED, device=device)
+        device)
 
 
 class _RouteLog:
@@ -2914,7 +2946,7 @@ class _Forced:
         stream = self.streams[self.index[req.rid]]
         return (int(stream[g]) if g < len(stream) else 0), g < len(stream)
 
-    def _sample(self, logits, rows, reqs, fused=False):
+    def _sample(self, logits, rows, reqs, fused=False, keys=None):
         topi, self._topi = self._topi, None     # None: a prefill's draw
         out = np.zeros(logits.shape[0], np.int64)
         for row, r in zip(rows, reqs):
@@ -3741,6 +3773,8 @@ class _LaunchWatch:
 
     def __init__(self, eng, strict=False):
         self.units = self.steps = self.windows = 0
+        #: decode steps launched with a sampled request in the batch
+        self.sampled_steps = 0
         self.issue_s = 0.0
         orig = eng._launch_step
 
@@ -3754,6 +3788,7 @@ class _LaunchWatch:
             self.issue_s += time.perf_counter() - t
             self.units += 1
             self.steps += max(fuse, 1)
+            self.sampled_steps += 0 if greedy_only else max(fuse, 1)
             self.windows += bool(fuse)
             return out
 
@@ -3840,7 +3875,7 @@ def zero_bubble_phase(model, card, tie_rel, moe=False):
                 f32.module.load_state_dict(model.module.state_dict())
         parted = 0 if f32 is None else check_identity(
             f32, runs["sync"], runs[label], requests,
-            f"zero-bubble {tag}{label}", model.device, tie_rel)
+            f"zero-bubble {tag}{label}", tie_rel)
         print(f"zero-bubble {tag}{label}: streams parted from the sync "
               f"loop's {parted}/{len(requests)} (at near-ties only)",
               flush=True)
@@ -4041,6 +4076,332 @@ def sync_free_phase(model, card, moe_model=None):
               f"set_sync_debug_mode('error'): no host sync", flush=True)
 
 
+# --- phase 26: JAX's threefry on the card (K7), sampled serving, the API ---
+
+#: K7's cases: (label, keys R, counters n a key, epilogue): the serving
+#: sampler's Gumbel field (8 slots, V 32768, a key a row), a decode
+#: step's split of 8 slot keys, a dropout mask's uniforms (B4 S2048 d1024
+#: under one key: phase 7's activations), raw bits
+K7_CASES = (("gumbel S8 V32768", 8, LM_CFG["vocab"], prng.GUMBEL),
+            ("split S8", 8, 2, prng.SPLIT),
+            ("dropout mask B4 S2048 d1024", 1,
+             4 * 2048 * LM_CFG["d_model"], prng.UNIFORM),
+            ("bits 1M", 1, 1 << 20, prng.BITS))
+#: 32-bit operations an element: the 20-round hash with its key
+#: injections, then the epilogue (a Gumbel field's two logs counted as
+#: 15 operations each)
+K7_OPS = {prng.SPLIT: 80, prng.BITS: 81, prng.UNIFORM: 86,
+          prng.GUMBEL: 116}
+
+
+def _k7_range(mode):
+    return ((float(np.finfo(np.float32).tiny), 1.0) if mode == prng.GUMBEL
+            else (0.0, 1.0))
+
+
+def k7_phase(dev):
+    """K7 against its plain version on the card (``K7_CASES``): splits,
+    bits and uniforms bitwise, the Gumbel field within
+    ``prng.GUMBEL_ULPS``; the small cases bitwise against the CPU's plain
+    version too (integer work and exactly rounded uniforms on both); a
+    bitwise repeat; graph-replay times against the bound (bytes written,
+    or 32-bit operations at the published non-tensor float32 rate: the
+    table has no integer entry) and the plain version's eager time. No
+    single PyTorch call computes JAX's threefry: no library time."""
+    rows = []
+    for i, (name, r, n, mode) in enumerate(K7_CASES):
+        keys = prng.split(prng.key(SEED + 26 + i), r).to(dev)
+        lo, hi = _k7_range(mode)
+        out = prng._launch(keys, n, mode, lo, hi)
+        ref = prng.draw_reference(keys, n, mode, lo, hi)
+        again = prng._launch(keys, n, mode, lo, hi)
+        torch.cuda.synchronize()
+        same = torch.equal(out, again)
+        if mode == prng.GUMBEL:
+            ulp = float(prng.ulps(out, ref).max())
+            ok = ulp <= prng.GUMBEL_ULPS
+        else:
+            ulp = 0.0
+            ok = torch.equal(out, ref)
+        if n * r <= 1 << 20:
+            cpu = prng.draw_reference(keys.cpu(), n, mode, lo, hi)
+            ok = ok and (torch.equal(out.cpu(), cpu) if mode != prng.GUMBEL
+                         else float(prng.ulps(out.cpu(), cpu).max())
+                         <= prng.GUMBEL_ULPS)
+        err = float((out.double() - ref.double()).abs().max())
+        ms = graph_ms(lambda: prng._launch(keys, n, mode, lo, hi))
+        plain_ms = time_ms(lambda: prng.draw_reference(keys, n, mode, lo,
+                                                       hi), iters=5)
+        nbytes = out.numel() * out.element_size() + keys.numel() * 8
+        bms, by = bound_ms(K7_OPS[mode] * r * n, nbytes, PEAK_F32_FLOPS)
+        per_call = kernels_per_call(lambda: prng._launch(keys, n, mode, lo,
+                                                         hi))
+        print(f"prng (K7) {name}: matches the plain version "
+              f"{'bitwise' if mode != prng.GUMBEL else f'within {ulp:g} ulps'}"
+              f" {ok}; bitwise repeat {same}; max abs err {err:.3e}; "
+              f"{per_call:g} CUDA kernels a call; {ms:.4f} ms (graph "
+              f"replay), {nbytes / ms / 1e6:.0f} GB/s, "
+              f"{100 * bms / ms:.1f}% of the bound {bms:.4f} ms ({by}); "
+              f"plain eager {plain_ms:.4f} ms", flush=True)
+        if not (ok and same):
+            raise AssertionError(f"K7 disagrees with its plain version on "
+                                 f"{name}")
+        rows.append(dict(name=name, err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bms, bound_by=by,
+                         kernels_per_call=per_call))
+    return rows
+
+
+def _row_loop_sampler(logits, temp, top_k, top_p, rows):
+    """The per-row sampler the port ran before K7 (a ``torch.rand`` field
+    a sampled row, ``-log(-log(u))``, an argmax each), as a launch-count
+    yardstick only."""
+    greedy = torch.argmax(logits, dim=-1)
+    lf = _masked_logits_vec(logits, temp, top_k, top_p)
+    sampled = greedy.clone()
+    tiny = float(np.finfo(np.float32).tiny)
+    for row in rows:
+        u = torch.rand(lf.shape[-1], device=lf.device)
+        sampled[row] = torch.argmax(
+            lf[row] - torch.log(-torch.log(u.clamp_min(tiny))))
+    return torch.where(temp > 0.0, sampled, greedy)
+
+
+def sampler_launches(dev, card):
+    """CUDA kernels a sampled decode step's sampler launches (a captured
+    graph's kernel nodes), 8 slots of which 6 sample, V 32768: the
+    per-row loop before K7, the key split plus ``_sample_vec`` (one K7
+    launch for the whole Gumbel field), and the fused sampler (K7 field
+    then K4). Returns the counts."""
+    rs = np.random.RandomState(SEED + 27)
+    s, v = 8, LM_CFG["vocab"]
+    logits = torch.from_numpy((rs.randn(s, v) * 3).astype(np.float32)) \
+        .to(dev)
+    temp = torch.tensor([0.8, 0.0, 1.0, 0.7, 0.0, 1.2, 0.9, 1.1],
+                        device=dev)
+    top_k = torch.tensor([40, 0, 0, 10, 0, 0, 50, 5], device=dev)
+    top_p = torch.tensor([0.9, 1.0, 0.95, 1.0, 1.0, 0.8, 1.0, 1.0],
+                         device=dev)
+    keys = prng.split(prng.key(SEED), s).to(dev)
+    sampled_rows = [i for i in range(s) if float(temp[i]) > 0]
+
+    def keyed(fused):
+        def call():
+            pair = prng.split(keys)
+            sampler = sample_tokens if fused else _sample_vec
+            return sampler(logits, temp, top_k, top_p, pair[:, 1])
+        return call
+
+    counts = {
+        "per-row loop": kernels_per_call(lambda: _row_loop_sampler(
+            logits, temp, top_k, top_p, sampled_rows)),
+        "K7 + _sample_vec": kernels_per_call(keyed(False)),
+        "K7 + K4 (fused)": kernels_per_call(keyed(True))}
+    print(f"sampled decode step's sampler on {card}: CUDA kernels a step, "
+          f"8 slots (6 sampled), V {v}: {counts}", flush=True)
+    if not counts["K7 + _sample_vec"] < counts["per-row loop"]:
+        raise AssertionError("the keyed sampler launches no fewer kernels "
+                             "than the per-row loop")
+    return counts
+
+
+def sampled_workload(vocab: int):
+    """Four requests: three sampled with other knobs and seeds (one
+    seed past 2^32), one greedy."""
+    rs = np.random.RandomState(SEED + 28)
+    return [(rs.randint(0, vocab, 200), dict(temperature=0.8, top_k=40,
+                                             top_p=0.9, seed=3)),
+            (rs.randint(0, vocab, 120), {}),
+            (rs.randint(0, vocab, 300), dict(temperature=1.0, seed=7)),
+            (rs.randint(0, vocab, 64), dict(temperature=0.7, top_p=0.8,
+                                            seed=2 ** 32 + 5))]
+
+
+def sampled_serving_phase(model, card):
+    """The sampled workload through the synchronous and the pipelined
+    loop (``overlap=True``, the default), with the unfused and the fused
+    sampler: each pipelined run's streams equal the synchronous loop's
+    with the same sampler, byte for byte; K7 launches exactly two per
+    sampled decode step launched (the keys' split and the Gumbel field)
+    and two per sampled first token; then both samplers' launches under
+    ``set_sync_debug_mode("error")`` (no host sync). Returns the K7
+    launches of the pipelined unfused run."""
+    requests = sampled_workload(model.module.layers[0].vocab_size)
+    n_sampled = sum(1 for _, kw in requests if kw)
+    runs, launches = {}, {}
+    for fused in (False, True):
+        for label, kw in (("sync", dict(overlap=False)),
+                          ("overlap", dict(overlap=True))):
+            watches = []
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            eng, reqs, out, bad, _ = serve(
+                model, model.device, requests=requests, num_pages=400,
+                fused_sampling=fused,
+                setup=lambda e: watches.append(_LaunchWatch(e)), **kw)
+            torch.cuda.synchronize()
+            c = kernels.launch_counts()
+            check_finished(reqs, out, bad)
+            w = watches[0]
+            want = 2 * w.sampled_steps + 2 * n_sampled
+            tag = f"{label}{' fused sampler' if fused else ''}"
+            if c["prng"] != want:
+                raise AssertionError(f"sampled serving {tag}: {c['prng']} "
+                                     f"K7 launches, expected {want} (2 a "
+                                     f"sampled step for {w.sampled_steps} "
+                                     "steps, 2 a first token)")
+            if fused and c["sample_epilogue"] != w.sampled_steps:
+                raise AssertionError(f"sampled serving {tag}: "
+                                     f"{c['sample_epilogue']} K4 launches "
+                                     f"for {w.sampled_steps} sampled steps")
+            runs[tag] = [out[rid] for rid, _ in reqs]
+            launches[tag] = c
+            tok_s = eng.metrics.summary()["decode_tokens_per_sec"]
+            print(f"sampled serving {tag} on {card}: {len(reqs)} requests, "
+                  f"{w.steps} decode steps ({w.sampled_steps} sampled), "
+                  f"decode {tok_s:.1f} tok/s; K7 "
+                  f"launches {c['prng']}, K4 "
+                  f"{c['sample_epilogue']}, paged_decode "
+                  f"{c['paged_decode']}", flush=True)
+            del eng
+        base = "sync" + (" fused sampler" if fused else "")
+        other = "overlap" + (" fused sampler" if fused else "")
+        for a, b in zip(runs[base], runs[other]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"sampled serving: the {other} "
+                                     "streams differ from the sync loop's")
+        print(f"sampled serving: the {other} streams equal the sync "
+              f"loop's, byte for byte", flush=True)
+    for label, kw in (("sampled bf16 (K7)", {}),
+                      ("fused_sampling (K7 + K4)",
+                       dict(fused_sampling=True))):
+        w = sync_free_run(model, label, kw, True)
+        print(f"sync-free launches {label} on {card}: {w.units} launches "
+              f"({w.windows} fused windows) under set_sync_debug_mode"
+              f"('error'): no host sync", flush=True)
+    return launches["overlap"]["prng"]
+
+
+def engine_api_phase(model, card, tie_rel):
+    """The engine's synchronous API on the card, under the pipelined
+    loop: a deadline and a ``cancel`` landing mid-decode (the partial
+    tokens kept, the slot serving the next request), ``run()`` raising
+    ``DegradedRequest`` or returning the partial tokens, an
+    ``hbm_budget`` engine's pages and real bytes against its budget, and
+    ``decode_kernel``: "off" launches no paged kernel, the default one
+    per layer in every decode step launched, and the two readouts'
+    streams equal or part at a near-tie of the CPU float32 scores
+    (``check_identity``: the random LM's scores are flat)."""
+    from distkeras_tpu_torch.serving import (DegradedRequest, RequestState,
+                                             ServingMetrics)
+    vocab = model.module.layers[0].vocab_size
+    rs = np.random.RandomState(SEED + 29)
+    box = [0.0]
+
+    def engine(**kw):
+        return ServingEngine(model, num_slots=2, max_len=2048, page_len=16,
+                             prefill_chunk=256, device=model.device,
+                             metrics=ServingMetrics(clock=lambda: box[0]),
+                             **kw)
+
+    eng = engine()
+    late = eng.submit(rs.randint(0, vocab, 200), 32, deadline_s=5.0)
+    gone = eng.submit(rs.randint(0, vocab, 150), 32)
+    done = {}
+    for _ in range(12):
+        for r in eng.step():
+            done[r.rid] = r
+    cancelled = eng.cancel(gone)
+    box[0] = 10.0
+    nxt = eng.submit(rs.randint(0, vocab, 100), 32)
+    while eng.scheduler.pending:
+        for r in eng.step():
+            done[r.rid] = r
+    timed = done[late]
+    if not (timed.state is RequestState.TIMED_OUT
+            and 0 < len(timed.generated) < 32
+            and cancelled.state is RequestState.CANCELLED
+            and 0 < len(cancelled.generated) < 32
+            and done[nxt].state is RequestState.FINISHED
+            and len(done[nxt].generated) == 32):
+        raise AssertionError("deadline / cancel under overlap went wrong")
+    print(f"engine API on {card}: deadline mid-decode -> "
+          f"{timed.state.value} with {len(timed.generated)} tokens; cancel "
+          f"mid-decode -> {cancelled.state.value} with "
+          f"{len(cancelled.generated)} tokens; the next request finished "
+          f"its 32", flush=True)
+    for how in ("raise", "return"):
+        box[0] = 0.0
+        eng = engine()
+        rid = eng.submit(rs.randint(0, vocab, 80), 8, deadline_s=1.0)
+        box[0] = 2.0
+        try:
+            out = eng.run(max_steps=50, on_degraded=how)
+        except DegradedRequest as e:
+            if how != "raise":
+                raise
+            print(f"engine API: run(on_degraded='raise') raised "
+                  f"DegradedRequest ({e.request.state.value})", flush=True)
+        else:
+            if how != "return" or rid not in out:
+                raise AssertionError("run(on_degraded=) went wrong")
+            print(f"engine API: run(on_degraded='return') returned "
+                  f"{len(out[rid])} tokens of request {rid}", flush=True)
+    probe = engine()
+    pool_pages = 120
+    budget = probe.param_bytes() + pool_pages * probe.pool.page_bytes \
+        + probe.pool.page_bytes // 2
+    del probe
+    eng = engine(hbm_budget=budget)
+    for _ in range(3):
+        eng.submit(rs.randint(0, vocab, 300), 32)
+    eng.run(max_steps=500)
+    real = eng.pool.allocated_bytes()
+    print(f"hbm_budget engine on {card}: budget {budget} bytes = resident "
+          f"weights {eng.param_bytes()} + {eng.pool.num_pages} pages of "
+          f"{eng.pool.page_bytes} bytes (+ {budget - eng.param_bytes() - eng.pool.num_pages * eng.pool.page_bytes} "
+          f"left over); the pool's planes hold {real} bytes on the card "
+          f"(the pages and the sink page)", flush=True)
+    if eng.pool.num_pages != pool_pages \
+            or real != (pool_pages + 1) * eng.pool.page_bytes:
+        raise AssertionError("hbm_budget sized the pool wrongly")
+    counts = {}
+    for dk in ("auto", "off"):
+        watches = []
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        e, reqs, out, bad, _ = serve(
+            model, model.device, requests=workload(vocab)[:4],
+            num_pages=400, decode_kernel=dk,
+            setup=lambda x: watches.append(_LaunchWatch(x)))
+        torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        check_finished(reqs, out, bad)
+        steps = watches[0].steps
+        want = LM_CFG["num_layers"] * steps if dk == "auto" else 0
+        if c["paged_decode"] != want:
+            raise AssertionError(f"decode_kernel={dk!r}: {c['paged_decode']}"
+                                 f" paged_decode launches for {steps} decode"
+                                 f" steps, expected {want}")
+        counts[dk] = (c["paged_decode"], steps,
+                      [out[rid] for rid, _ in reqs])
+        print(f"decode_kernel={dk!r} on {card}: {c['paged_decode']} "
+              f"paged_decode launches for {steps} decode steps", flush=True)
+    requests = workload(vocab)[:4]
+    f32 = None
+    if any(not np.array_equal(a, b) for a, b in zip(counts["auto"][2],
+                                                    counts["off"][2])):
+        f32 = build_lm("cpu", dtype="float32")
+        f32.module.load_state_dict(model.module.state_dict())
+    runs = {dk: ([(i, p) for i, (p, _) in enumerate(requests)],
+                 dict(enumerate(counts[dk][2]))) for dk in counts}
+    parted = 0 if f32 is None else check_identity(
+        f32, runs["auto"], runs["off"], requests, "decode_kernel 'off'",
+        tie_rel)
+    print(f"decode_kernel 'off' vs 'auto': {parted}/4 streams parted, each "
+          f"at a near-tie of the CPU float32 scores", flush=True)
+
+
 #: relative (to the largest |logit|) agreement with the CPU in float32:
 #: bf16 weights and activations through 12 blocks; float32 on the card
 #: differs from the CPU only in summation order
@@ -4177,6 +4538,7 @@ def main() -> int:
 
     qmm_rows = {bits: qmm_phase(dev, bits) for bits in (8, 4)}
     k4_rows = k4_phase(dev)
+    k7_rows = k7_phase(dev)
     wq_launches = wq_phase(gen_model, card, serve_summary)
     profile_serving(gen_model, dev, "int8 weights", weight_quant="int8")
     gen_wq_launches = generate_wq_phase(gen_model, card, gen_prompts)
@@ -4196,6 +4558,9 @@ def main() -> int:
             raise AssertionError("a captured decode launch differs from "
                                  "the eager one")
     sync_free_phase(gen_model, card)
+    sampler_launches(dev, card)
+    sampled_launches = sampled_serving_phase(gen_model, card)
+    engine_api_phase(gen_model, card, tie_rel)
     del gen_model, model
     gc.collect()
 
@@ -4247,6 +4612,7 @@ def main() -> int:
             zb_moe_launches[label]["moe_gather_gemm1"]
     for name in MOE_TRAINING_KERNELS:
         by_path[name]["training_moe"] = moe_train_launches[name]
+    by_path["prng"]["serving_sampled"] = sampled_launches
 
     def entry(name, source, replaces, rows, path):
         main_row = rows[0]
@@ -4317,6 +4683,9 @@ def main() -> int:
         entry("moe_bwd_dw1", "distkeras_tpu_torch/csrc/moe_bwd.cu",
               "distkeras_tpu/ops/moe_kernels.py:353",
               k6bc_rows["moe_bwd_dw1"], "training_moe"),
+        entry("prng", "distkeras_tpu_torch/csrc/prng.cu",
+              "none: XLA's threefry in JAX (jax.random, fused by XLA)",
+              k7_rows, "serving"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

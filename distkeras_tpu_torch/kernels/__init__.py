@@ -9,7 +9,8 @@ int4 paged decode, each with and without the tree ancestor mask,
 ``quant_matmul.cu`` the int8 and packed-int4 quantized matmul,
 ``sampling.cu`` the fused sampling epilogue, ``moe_gemm.cu`` the MoE
 expert up-projection with the token gather fused in, ``moe_bwd.cu`` the
-fused expert block's backward: dx/dz/gy/row dots and dw1). The first
+fused expert block's backward: dx/dz/gy/row dots and dw1, ``prng.cu``
+the threefry draw of ``ops.prng``). The first
 call of ``library`` (or an explicit ``build``) compiles every source
 whose library is missing, one
 ``nvcc`` process per source, all started together. A library's file
@@ -54,7 +55,8 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
            "quant_matmul_q4": "quant_matmul.cu",
            "sample_epilogue": "sampling.cu",
            "moe_gather_gemm1": "moe_gemm.cu",
-           "moe_bwd_dx": "moe_bwd.cu", "moe_bwd_dw1": "moe_bwd.cu"}
+           "moe_bwd_dx": "moe_bwd.cu", "moe_bwd_dw1": "moe_bwd.cu",
+           "prng": "prng.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -102,6 +104,7 @@ _SIGNATURES = {
                          [_P, _I] + [_P] * 5 + [_I] * 10 + [_P]),
     "moe_bwd_dx": ("dkt_moe_bwd_dx", [_P] * 14 + [_I] * 7 + [_P]),
     "moe_bwd_dw1": ("dkt_moe_bwd_dw1", [_P] * 4 + [_I] * 6 + [_P]),
+    "prng": ("dkt_prng", [_P, _I, _L, _I, _F, _F, _P, _P]),
 }
 
 _lock = threading.Lock()

@@ -25,7 +25,9 @@ from typing import Optional
 import torch
 
 from distkeras_tpu_torch.models.core import Layer, torch_dtype
-from distkeras_tpu_torch.models.layers import get_activation, init_weights
+from distkeras_tpu_torch.models.layers import (dropout, get_activation,
+                                               init_weights)
+from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.attention import (apply_rope,
                                                dot_product_attention)
 from distkeras_tpu_torch.ops.flash_attention import flash_attention
@@ -58,9 +60,11 @@ class LayerNorm(Layer):
         super().__init__()
         self.epsilon = float(epsilon)
 
-    def build(self, input_shape, generator):
-        self.add_param("scale", torch.ones(input_shape[-1]))
-        self.add_param("offset", torch.zeros(input_shape[-1]))
+    def build(self, input_shape, rng):
+        self.add_param("scale", torch.ones(input_shape[-1],
+                                           device=rng.device))
+        self.add_param("offset", torch.zeros(input_shape[-1],
+                                             device=rng.device))
         return tuple(input_shape)
 
     def apply(self, p, x):
@@ -76,8 +80,9 @@ class RMSNorm(Layer):
         super().__init__()
         self.epsilon = float(epsilon)
 
-    def build(self, input_shape, generator):
-        self.add_param("scale", torch.ones(input_shape[-1]))
+    def build(self, input_shape, rng):
+        self.add_param("scale", torch.ones(input_shape[-1],
+                                           device=rng.device))
         return tuple(input_shape)
 
     def apply(self, p, x):
@@ -94,9 +99,9 @@ class PositionalEmbedding(Layer):
         super().__init__()
         self.max_len = int(max_len)
 
-    def build(self, input_shape, generator):
+    def build(self, input_shape, rng):
         self.add_param("embeddings", init_weights(
-            "uniform_scaling", generator, (self.max_len, input_shape[-1])))
+            "uniform_scaling", rng, (self.max_len, input_shape[-1])))
         return tuple(input_shape)
 
     def apply(self, p, x):
@@ -148,21 +153,26 @@ class MultiHeadAttention(Layer):
     def kv_heads(self) -> int:
         return self.num_kv_heads or self.num_heads
 
-    def build(self, input_shape, generator):
+    def build(self, input_shape, rng):
         d_model = input_shape[-1]
         if self.head_dim is None:
             self.head_dim = d_model // self.num_heads
         h, dh, hkv = self.num_heads, self.head_dim, self.kv_heads
+        ks = prng.split(rng, 4)
 
         # drawn as the logical 2-D matrices, then reshaped (the fan rule
         # of a 3-D tensor would shrink the scale)
-        def w2d(m, n):
-            return init_weights(self.kernel_init, generator, (m, n))
+        def w2d(k, m, n):
+            return init_weights(self.kernel_init, k, (m, n))
 
-        self.add_param("wq", w2d(d_model, h * dh).reshape(d_model, h, dh))
-        self.add_param("wk", w2d(d_model, hkv * dh).reshape(d_model, hkv, dh))
-        self.add_param("wv", w2d(d_model, hkv * dh).reshape(d_model, hkv, dh))
-        self.add_param("wo", w2d(h * dh, d_model).reshape(h, dh, d_model))
+        self.add_param("wq", w2d(ks[0], d_model, h * dh)
+                       .reshape(d_model, h, dh))
+        self.add_param("wk", w2d(ks[1], d_model, hkv * dh)
+                       .reshape(d_model, hkv, dh))
+        self.add_param("wv", w2d(ks[2], d_model, hkv * dh)
+                       .reshape(d_model, hkv, dh))
+        self.add_param("wo", w2d(ks[3], h * dh, d_model)
+                       .reshape(h, dh, d_model))
         return tuple(input_shape)
 
     def apply(self, p, x, segment_ids=None):
@@ -204,14 +214,15 @@ class TransformerMLP(Layer):
         self.dtype = dtype
         self.kernel_init = kernel_init
 
-    def build(self, input_shape, generator):
+    def build(self, input_shape, rng):
         d = input_shape[-1]
-        self.add_param("w1", init_weights(self.kernel_init, generator,
+        k1, k2 = prng.split(rng)
+        self.add_param("w1", init_weights(self.kernel_init, k1,
                                           (d, self.hidden_dim)))
-        self.add_param("b1", torch.zeros(self.hidden_dim))
-        self.add_param("w2", init_weights(self.kernel_init, generator,
+        self.add_param("b1", torch.zeros(self.hidden_dim, device=rng.device))
+        self.add_param("w2", init_weights(self.kernel_init, k2,
                                           (self.hidden_dim, d)))
-        self.add_param("b2", torch.zeros(d))
+        self.add_param("b2", torch.zeros(d, device=rng.device))
         return tuple(input_shape)
 
     def apply(self, p, x):
@@ -226,7 +237,8 @@ class TransformerBlock(Layer):
     """Pre-norm residual block: ``x + attn(norm(x))``, then
     ``x + mlp(norm(x))``. ``mlp_layer`` (e.g. a ``models.moe.MoE``)
     replaces the ``TransformerMLP`` the block would build.
-    ``dropout_rate > 0`` cannot train until the PRNG is ported."""
+    ``dropout_rate > 0`` drops out both residual branches in training
+    when ``apply`` gets an ``rng`` (JAX :447-466)."""
 
     accepts_segment_ids = True
 
@@ -259,21 +271,33 @@ class TransformerBlock(Layer):
         # sized at build from d_model unless given
         self.mlp = mlp_layer
 
-    def build(self, input_shape, generator):
+    @property
+    def uses_rng(self) -> bool:
+        return self.dropout_rate > 0.0
+
+    def build(self, input_shape, rng):
         d_model = input_shape[-1]
         if not self._mlp_override:
             self.mlp = TransformerMLP(self.mlp_ratio * d_model,
                                       activation=self.activation,
                                       dtype=self.dtype)
-        for layer in (self.norm1, self.attn, self.norm2, self.mlp):
-            layer.build(tuple(input_shape), generator)
+        ks = prng.split(rng, 4)
+        for layer, k in zip((self.norm1, self.attn, self.norm2, self.mlp),
+                            ks):
+            layer.build(tuple(input_shape), k)
         return tuple(input_shape)
 
-    def apply(self, p, x, segment_ids=None):
-        if self.training and self.dropout_rate > 0.0:
-            raise NotImplementedError(
-                "training through TransformerBlock(dropout_rate > 0) is not "
-                "ported yet: ROADMAP, Queue 1 item 'PRNG and sampled paths'")
-        x = x + self.attn.apply(p["attn"], self.norm1.apply(p["norm1"], x),
-                                segment_ids=segment_ids)
-        return x + self.mlp.apply(p["mlp"], self.norm2.apply(p["norm2"], x))
+    def apply(self, p, x, segment_ids=None, rng=None):
+        # one key per consumer, as JAX splits them (the mlp's is unused)
+        drop = self.training and rng is not None and self.dropout_rate > 0
+        if drop:
+            k_drop1, _, k_drop2 = prng.split(rng, 3)
+        a = self.attn.apply(p["attn"], self.norm1.apply(p["norm1"], x),
+                            segment_ids=segment_ids)
+        if drop:
+            a = dropout(a, self.dropout_rate, k_drop1)
+        x = x + a
+        m = self.mlp.apply(p["mlp"], self.norm2.apply(p["norm2"], x))
+        if drop:
+            m = dropout(m, self.dropout_rate, k_drop2)
+        return x + m

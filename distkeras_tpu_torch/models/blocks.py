@@ -71,8 +71,12 @@ class Remat(Layer):
     def accepts_segment_ids(self) -> bool:
         return self.inner.accepts_segment_ids
 
-    def build(self, input_shape, generator):
-        return self.inner.build(input_shape, generator)
+    @property
+    def uses_rng(self) -> bool:
+        return self.inner.uses_rng
+
+    def build(self, input_shape, rng):
+        return self.inner.build(input_shape, rng)
 
     def param_tree(self):
         return self.inner.param_tree()
@@ -83,10 +87,12 @@ class Remat(Layer):
             return None
         return functools.partial(create_selective_checkpoint_contexts, ops)
 
-    def apply(self, p, x, segment_ids=None):
+    def apply(self, p, x, segment_ids=None, rng=None):
         kw = {}
         if segment_ids is not None and self.accepts_segment_ids:
             kw["segment_ids"] = segment_ids
+        if rng is not None and self.uses_rng:
+            kw["rng"] = rng       # the recompute draws the same masks
         if not torch.is_grad_enabled():      # nothing to save
             return self.inner.apply(p, x, **kw)
         training, calls = self.training, []

@@ -3,8 +3,10 @@
 
 Mirrors ``distkeras_tpu/models/core.py`` (``Layer`` :83, ``Sequential``
 :124, ``Model`` :196). A layer creates its parameters in
-``build(input_shape, generator)`` once its input width is known, under
-the JAX package's names and layouts, so ``param_tree()`` has the same
+``build(input_shape, rng)`` once its input width is known, under the
+JAX package's names and layouts and from its threefry key ``rng``
+(``ops.prng``: a container splits it as JAX's ``init`` does), so the
+same key gives JAX's weights and ``param_tree()`` has the same
 structure as the JAX ``Model.params`` (one dict per layer of a
 ``Sequential``) and the weight bridge is a copy. ``apply(p, x)`` is the
 layer's function of an explicit parameter tree, which lets the serving
@@ -19,7 +21,12 @@ sums and clears them: the counterpart of JAX's ``AUX_LOSS_KEY`` state
 entry and ``collect_aux_losses`` (:33-50), since the port's layers carry
 no state. Packed sequences: ``Sequential.apply(p, x, segment_ids=)``
 forwards ``[B, S]`` ids only to the layers that declare
-``accepts_segment_ids`` (JAX :151-186). ``Model.apply`` (inference)
+``accepts_segment_ids`` (JAX :151-186). Randomness in training:
+``Sequential.apply(p, x, rng=)`` splits ``rng`` once per layer (JAX
+:172-176) and hands each sub-key to the layers that draw (``uses_rng``:
+a ``Dropout`` or ``TransformerBlock`` with a rate, a ``Remat`` or a
+nested stack holding one); a stack none of whose layers draws splits
+nothing, which changes no result. ``Model.apply`` (inference)
 runs under ``torch.no_grad``; ``Model.fit`` trains in place through
 ``parallel.trainers.SingleTrainer``; ``Model.generate`` continues
 prompts through ``models.decoding.generate``.
@@ -34,6 +41,7 @@ import torch
 from torch import nn
 
 from distkeras_tpu_torch.compat import resolve_device
+from distkeras_tpu_torch.ops import prng
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -60,9 +68,12 @@ class Layer(nn.Module):
     #: packed-sequence capability: ``apply`` takes ``segment_ids=`` (the
     #: attention layers, and containers holding one)
     accepts_segment_ids = False
+    #: this layer's ``apply`` takes ``rng=`` (a threefry key) and draws
+    #: from it when training (a dropout rate > 0)
+    uses_rng = False
 
     def build(self, input_shape: Tuple[int, ...],
-              generator: torch.Generator) -> Tuple[int, ...]:
+              rng: torch.Tensor) -> Tuple[int, ...]:
         return tuple(input_shape)
 
     def add_param(self, name: str, value: torch.Tensor) -> None:
@@ -116,10 +127,11 @@ class Sequential(Layer):
         super().__init__()
         self.layers = nn.ModuleList(list(layers) if layers else [])
 
-    def build(self, input_shape, generator):
+    def build(self, input_shape, rng):
         shape = tuple(input_shape)
         for layer in self.layers:
-            shape = layer.build(shape, generator)
+            rng, sub = prng.split(rng)
+            shape = layer.build(shape, sub)
         return shape
 
     def param_tree(self) -> List[Dict]:
@@ -129,21 +141,32 @@ class Sequential(Layer):
     def accepts_segment_ids(self) -> bool:
         return any(layer.accepts_segment_ids for layer in self.layers)
 
-    def apply(self, p, x, segment_ids=None):
+    @property
+    def uses_rng(self) -> bool:
+        return any(layer.uses_rng for layer in self.layers)
+
+    def apply(self, p, x, segment_ids=None, rng=None):
         """``segment_ids`` ``[B, S]`` go to the layers that accept them
         (attention masking); the others are position-wise, and the loss
         masks padded positions. Ids passed to a stack where no layer
-        accepts them raise rather than run unmasked."""
+        accepts them raise rather than run unmasked. ``rng`` (training):
+        one split per layer, the sub-key to the layers that draw."""
         if segment_ids is not None and not self.accepts_segment_ids:
             raise ValueError(
                 "segment_ids passed, but no layer in this Sequential "
                 "accepts them (packed-sequence masking needs a "
                 "TransformerBlock-family layer)")
+        if not self.uses_rng:
+            rng = None
         for layer, lp in zip(self.layers, p):
+            kw = {}
+            if rng is not None:
+                rng, sub = prng.split(rng)
+                if layer.uses_rng:
+                    kw["rng"] = sub
             if segment_ids is not None and layer.accepts_segment_ids:
-                x = layer.apply(lp, x, segment_ids=segment_ids)
-            else:
-                x = layer.apply(lp, x)
+                kw["segment_ids"] = segment_ids
+            x = layer.apply(lp, x, **kw)
         return x
 
 
@@ -161,19 +184,17 @@ class Model:
     @classmethod
     def build(cls, module: Layer, input_shape: Tuple[int, ...],
               rng=None, *, seed: int = 0, device=None) -> "Model":
-        """Create the parameters from ``seed`` and place them on
-        ``device`` (default: the CUDA card; raises when there is none
-        unless ``device="cpu"``). Weights are drawn on the CPU from one
-        ``torch.Generator``, so a seed gives the same weights on every
-        device. A JAX PRNG key (``rng``) needs the ported threefry:
-        it raises naming its ROADMAP item."""
-        if rng is not None:
-            raise NotImplementedError(
-                "Model.build(rng=) is not ported yet: ROADMAP, Queue 1 "
-                "item 5 (PRNG and sampled paths); pass seed=")
+        """Create the parameters on ``device`` (default: the CUDA card;
+        raises when there is none unless ``device="cpu"``) from the
+        threefry key ``rng`` (a JAX key, or two uint32 words) or, by
+        default, ``PRNGKey(seed)``: JAX's ``Model.build`` draws
+        (``ops.prng``; K7 on the card, bitwise its plain version for the
+        uniform families), so a seed gives the same weights on every
+        device."""
         dev = resolve_device(device)
-        gen = torch.Generator().manual_seed(int(seed))
-        out_shape = module.build(tuple(input_shape), gen)
+        key = (prng.key(seed, dev) if rng is None
+               else prng.as_key(rng, dev))
+        out_shape = module.build(tuple(input_shape), key)
         module.to(dev)
         module.eval()
         return cls(module, input_shape, out_shape, dev)

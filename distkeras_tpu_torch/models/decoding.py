@@ -81,13 +81,14 @@ from distkeras_tpu_torch.models.core import Sequential, torch_dtype
 from distkeras_tpu_torch.models.layers import (Dense, Dropout, Embedding,
                                                get_activation)
 from distkeras_tpu_torch.models.moe import MoE
+from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.attention import NEG_INF, apply_rope
 from distkeras_tpu_torch.ops.decode_attention import decode_attention
 from distkeras_tpu_torch.ops.flash_attention import flash_forward
 # unpack_int4 lives with the paged readout that unpacks pages; it is
 # re-exported here beside pack_int4, where the JAX package keeps both
 from distkeras_tpu_torch.ops.paged_attention import (  # noqa: F401
-    paged_decode_attention, unpack_int4)
+    gather_pages, paged_decode_attention, unpack_int4, window_valid_mask)
 from distkeras_tpu_torch.ops.quant_matmul import (dequant_weight,
                                                   gather_rows, is_qdict,
                                                   quant_matmul)
@@ -742,12 +743,61 @@ def _window_positions(t, w_len: int, tree=None):
     return t.long()[:, None] + tree["depth"].long()
 
 
+def _gather_pages(kv, table):
+    """Each slot's pages of a pool cache dict in logical order (JAX
+    :986): ``[S, Hkv, P * page_len, D]`` k/v (int4 pages unpacked) and
+    ``[S, Hkv, P * page_len]`` scale planes. Sentinel entries clamp to the
+    last physical page: garbage the validity mask never admits."""
+    packed = "q4" in kv
+    out = {key: gather_pages(kv[key], table, packed=packed)
+           for key in ("k", "v")}
+    for key in ("k_scale", "v_scale"):
+        if key in kv:
+            out[key] = gather_pages(kv[key], table)
+    return out
+
+
+def _gather_attn_readout(attn: MultiHeadAttention, p, q, kv, t, table, dt,
+                         anc=None):
+    """``decode_kernel="off"``: JAX's gather readout (:1033-1049 with
+    ``_slot_attn_readout`` :815): the slots' pages gathered into a
+    contiguous view, then the masked softmax over it, scores and values
+    in the pages' dtype with float32 sums (an int8/int4 pool's scales
+    applied to the scores and folded into the probabilities), plus the
+    output projection. No paged kernel runs, on any device."""
+    b, w_len, nh, dh = q.shape
+    hkv = attn.kv_heads
+    view = _gather_pages(kv, table)
+    qg = (q.float() * dh ** -0.5).reshape(b, w_len, hkv, nh // hkv, dh)
+    length = view["k"].shape[2]
+    if "k_scale" in view:
+        s = torch.einsum("bqhgd,bhkd->bhgqk", qg, view["k"].float()) \
+            * view["k_scale"][:, :, None, None, :]
+    else:
+        cdt = view["k"].dtype
+        s = torch.einsum("bqhgd,bhkd->bhgqk", qg.to(cdt).float(),
+                         view["k"].float())
+    valid = window_valid_mask(t, w_len, length, attn.attn_window, anc)
+    s = s.masked_fill(~valid[:, None, None], NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    if "v_scale" in view:
+        w = w * view["v_scale"][:, :, None, None, :]
+    else:
+        w = w.to(view["v"].dtype).float()
+    o = torch.einsum("bhgqk,bhkd->bqhgd", w, view["v"].float())
+    out = o.to(dt).reshape(b, w_len, nh, dh)
+    return _attn_out(p, out, dt, kernel=True)
+
+
 def _paged_attn_readout(attn: MultiHeadAttention, p, q, kv, t, table, dt,
-                        anc=None):
+                        anc=None, kernel: bool = True):
     """The paged readout plus the output projection: queries in float32
     grouped ``[S, W, Hkv, G, D]``, K/V read through the page table (with
     the scale planes of an int8/int4 pool), the tree ancestor mask
-    ``anc`` when given."""
+    ``anc`` when given. ``kernel`` False takes ``_gather_attn_readout``
+    (the engine's ``decode_kernel="off"``)."""
+    if not kernel:
+        return _gather_attn_readout(attn, p, q, kv, t, table, dt, anc)
     b, w_len, nh, dh = q.shape
     hkv = attn.kv_heads
     qg = q.float().reshape(b, w_len, hkv, nh // hkv, dh)
@@ -763,7 +813,8 @@ def _paged_attn_readout(attn: MultiHeadAttention, p, q, kv, t, table, dt,
 
 def _decode_block_slots_window(block: TransformerBlock, p, kv, x, t, table,
                                index, tree=None, kv_out=None,
-                               moe_dispatched: bool = True, routing=None):
+                               moe_dispatched: bool = True, routing=None,
+                               paged_kernel: bool = True):
     """One block over an ``[S, W, d]`` window at per-slot positions
     (JAX :1152): project, rope at ``_window_positions``, write all W
     positions through the page tables, then the readout (the tree mask
@@ -781,7 +832,8 @@ def _decode_block_slots_window(block: TransformerBlock, p, kv, x, t, table,
         kv_out.append((k, v))
     _cache_write_pages(kv, k, v, index)
     y = _paged_attn_readout(attn, p["attn"], q, kv, t, table, dt,
-                            anc=None if tree is None else tree["anc"])
+                            anc=None if tree is None else tree["anc"],
+                            kernel=paged_kernel)
     x = x + y.to(x.dtype)
     h = block.norm2.apply(p["norm2"], x)
     return x + _apply_mlp_decode(block.mlp, p["mlp"], h, moe_dispatched,
@@ -790,14 +842,17 @@ def _decode_block_slots_window(block: TransformerBlock, p, kv, x, t, table,
 
 def _verify_window(module: Sequential, params, cache, toks, t, table,
                    page_len: int, tree=None, moe_dispatched: bool = True,
-                   moe_stats=None):
+                   moe_stats=None, paged_kernel: bool = True):
     """``[S, W]`` window tokens through the stack against the paged pool
     at per-slot positions (JAX :1201); returns ``([S, W, V] logits,
     cache)``, plus with ``tree`` (``{"depth": [S, W], "anc": [S, W,
     W]}``) the per-layer roped window k/v (None for other layers), plus
     with ``moe_stats`` (the live-position bound) the ``_moe_route_stats``
     of the step. MoE blocks see the window as ONE slot-token batch
-    (capacity ``S * W``: drop-free)."""
+    (capacity ``S * W``: drop-free). ``paged_kernel`` False reads the
+    pages through ``_gather_attn_readout`` instead of the paged kernel
+    (JAX's ``paged_kernel=False``; the TPU tiling gate is not carried
+    over)."""
     x = toks
     w_len = toks.shape[1]
     kv0 = next(kv for kv in cache if kv is not None)
@@ -812,7 +867,8 @@ def _verify_window(module: Sequential, params, cache, toks, t, table,
         if block is not None:
             x = _decode_block_slots_window(block, p, cache[i], x, t, table,
                                            index, tree, kv_win,
-                                           moe_dispatched, routing)
+                                           moe_dispatched, routing,
+                                           paged_kernel)
         elif isinstance(layer, PositionalEmbedding):
             pos = _window_positions(t, w_len, tree).clamp(
                 0, layer.max_len - 1)
@@ -834,23 +890,26 @@ def _verify_window(module: Sequential, params, cache, toks, t, table,
 @torch.no_grad()
 def decode_step_slots_paged(module: Sequential, params, cache, tok, t,
                             table, page_len: int, *,
-                            moe_dispatched: bool = True, moe_stats=None):
+                            moe_dispatched: bool = True, moe_stats=None,
+                            paged_kernel: bool = True):
     """One token per slot through the stack against the paged pool:
     tok ``[S]``, t ``[S]`` int32, table ``[S, P]`` int32; returns
     ``([S, V] logits, cache)``, plus the step's ``_moe_route_stats``
     with ``moe_stats``. Slots whose ``t`` is the out-of-range sentinel
     write nothing and give logits the caller discards. MoE blocks run
-    ``MoE.decode_apply`` (``moe_dispatched``) or their own ``apply``."""
+    ``MoE.decode_apply`` (``moe_dispatched``) or their own ``apply``;
+    ``paged_kernel`` False is the gather readout."""
     out = _verify_window(module, params, cache, tok[:, None], t, table,
                          page_len, moe_dispatched=moe_dispatched,
-                         moe_stats=moe_stats)
+                         moe_stats=moe_stats, paged_kernel=paged_kernel)
     return (out[0][:, 0],) + out[1:]
 
 
 @torch.no_grad()
 def verify_step_slots_paged(module: Sequential, params, cache, toks, t,
                             table, page_len: int, *, tree=None,
-                            moe_dispatched: bool = True, moe_stats=None):
+                            moe_dispatched: bool = True, moe_stats=None,
+                            paged_kernel: bool = True):
     """Batched speculative verify against the paged pool (JAX :1276):
     toks ``[S, W]`` (column 0 the slot's pending input, then its drafts
     or tree nodes), t ``[S]`` window starts. ``logits[:, j]`` is the
@@ -858,19 +917,20 @@ def verify_step_slots_paged(module: Sequential, params, cache, toks, t,
     past allocated pages drop. With ``tree`` the return gains the
     per-layer window k/v for ``commit_tree_path``; a chain-shaped tree
     (``depth[j] = j``, lower-triangular ``anc``) reproduces the plain
-    window bit for bit. ``moe_dispatched``/``moe_stats`` as in
-    ``decode_step_slots_paged`` (the stats come last)."""
+    window bit for bit. ``moe_dispatched``/``moe_stats``/``paged_kernel``
+    as in ``decode_step_slots_paged`` (the stats come last)."""
     return _verify_window(module, params, cache, toks, t, table, page_len,
                           tree=tree, moe_dispatched=moe_dispatched,
-                          moe_stats=moe_stats)
+                          moe_stats=moe_stats, paged_kernel=paged_kernel)
 
 
 @torch.no_grad()
 def decode_fused_slots(module: Sequential, params, cache, tok, t, stop,
                        num_steps: int, table, page_len: int, *,
                        temperature=None, top_k=None, top_p=None,
-                       generators=None, sampler=None,
+                       keys=None, sampler=None,
                        moe_dispatched: bool = True, moe_stats=None,
+                       paged_kernel: bool = True,
                        on_logits: Optional[Callable] = None):
     """``num_steps`` consecutive ``decode_step_slots_paged`` steps as one
     unit (JAX :1425; its ``lax.scan`` is a Python loop here): each
@@ -878,16 +938,17 @@ def decode_fused_slots(module: Sequential, params, cache, tok, t, stop,
     in between. tok ``[S]`` int64, t ``[S]`` int32, ``stop`` ``[S]``
     int64 per-slot stop tokens (-1: never). Greedy when ``temperature``
     is None; otherwise ``temperature``/``top_k``/``top_p`` are ``[S]``
-    tensors and ``generators[s]`` slot s's ``torch.Generator`` (None for
-    a greedy row): each step draws once per sampled row, in row order,
-    through ``sampler`` (``_sample_vec`` by default, or
+    tensors and ``keys`` the ``[S, 2]`` per-slot PRNG keys, split once
+    per step (the second half draws, the first carries) through
+    ``sampler`` (``_sample_vec`` by default, or
     ``ops.sampling.sample_tokens``), as the single-step loop does, so a
     sampled stream is byte-identical to K single steps. ``generate()``'s
     stop rule per slot: once a row emits its stop token, the rest of its
     window repeats it. ``on_logits(logits)`` sees each step's ``[S, V]``
-    logits. Returns ``(toks [S, num_steps], cache, stats)``: ``stats``
-    is the LAST step's ``_moe_route_stats`` with ``moe_stats``, else
-    None.
+    logits. ``paged_kernel`` as in ``decode_step_slots_paged``. Returns
+    ``(toks [S, num_steps], cache, keys, stats)``: ``keys`` the carried
+    keys (None when greedy), ``stats`` the LAST step's
+    ``_moe_route_stats`` with ``moe_stats``, else None.
 
     Step j writes position ``t + j`` of every slot: the caller has
     allocated every page a slot will consume; a write past them lands
@@ -902,25 +963,28 @@ def decode_fused_slots(module: Sequential, params, cache, tok, t, stop,
         out = decode_step_slots_paged(
             module, params, cache, cur, tcur, table, page_len,
             moe_dispatched=moe_dispatched,
-            moe_stats=moe_stats if last else None)
+            moe_stats=moe_stats if last else None,
+            paged_kernel=paged_kernel)
         logits = out[0]
         if on_logits is not None:
             on_logits(logits)
         if temperature is None:
             nxt = torch.argmax(logits, dim=-1)
         else:
-            nxt = sample(logits, temperature, top_k, top_p, generators)
+            pair = prng.split(keys)                       # [S, 2, 2]
+            keys = pair[:, 0]
+            nxt = sample(logits, temperature, top_k, top_p, pair[:, 1])
         nxt = torch.where(done, stop, nxt)
         done = done | ((nxt == stop) & (stop >= 0))
         cols.append(nxt)
         cur, tcur = nxt, tcur + 1
         if last and moe_stats is not None:
             stats = out[-1]
-    return torch.stack(cols, dim=1), cache, stats
+    return torch.stack(cols, dim=1), cache, keys, stats
 
 
 def tree_walk(logits, toks, parents, *, temperature=None, top_k=None,
-              top_p=None, generators=None):
+              top_p=None, keys=None):
     """Acceptance over a verified token tree (JAX :1296): from the root,
     draw the target's choice ``x`` at the current node (argmax, or one
     ``_sample_vec`` draw), emit it, descend into the lowest-index child
@@ -928,15 +992,17 @@ def tree_walk(logits, toks, parents, *, temperature=None, top_k=None,
     ``parents`` ``[S, W]`` numpy (unused nodes have parent -1).
 
     Sampled (``temperature``/``top_k``/``top_p`` ``[S]`` tensors,
-    ``generators[s]`` slot s's ``torch.Generator`` or None): each step
-    draws only for the rows still walking, exactly one V-wide draw per
-    emitted token, as plain decode draws, so a sampled speculative
-    stream equals the plain one. The walk runs on the host (one fetch of
-    the candidates per step, or of all argmaxes when greedy).
+    ``keys`` the ``[S, 2]`` per-slot PRNG keys): each step splits every
+    slot's key, draws with the second half and carries the first where
+    the row still walks, exactly one split per emitted token, as plain
+    decode splits, so a sampled speculative stream equals the plain one.
+    The walk runs on the host (one fetch of the candidates per step, or
+    of all argmaxes when greedy).
 
-    Returns numpy ``(emitted [S, W], n_emit [S], path [S, W])``:
-    ``emitted[s, :n_emit[s]]`` the tokens (-1 after), ``path[s, d]`` the
-    accepted node at depth d."""
+    Returns ``(emitted [S, W], n_emit [S], path [S, W], new_keys)``:
+    numpy ``emitted[s, :n_emit[s]]`` the tokens (-1 after), ``path[s,
+    d]`` the accepted node at depth d, and the post-walk keys on the
+    keys' device (None when greedy)."""
     s_n, w_len, _ = logits.shape
     toks = np.asarray(toks)
     parents = np.asarray(parents)
@@ -957,11 +1023,13 @@ def tree_walk(logits, toks, parents, *, temperature=None, top_k=None,
         if greedy:
             x = cand[rows, cur]
         else:
-            gens = [g if walking[s] else None
-                    for s, g in enumerate(generators)]
+            pair = prng.split(keys)                       # [S, 2, 2]
             lg = logits[row_idx, torch.from_numpy(cur).to(logits.device)]
-            x = _sample_vec(lg, temperature, top_k, top_p, gens) \
+            x = _sample_vec(lg, temperature, top_k, top_p, pair[:, 1]) \
                 .cpu().numpy()
+            # the key advances only where the row emits
+            keys = torch.where(torch.from_numpy(walking).to(keys.device)
+                               [:, None], pair[:, 0], keys)
         emitted[walking, step] = x[walking]
         n_emit += walking
         is_child = (parents == cur[:, None]) & (toks == x[:, None]) \
@@ -969,7 +1037,7 @@ def tree_walk(logits, toks, parents, *, temperature=None, top_k=None,
         has = is_child.any(axis=1)
         walking &= has
         cur = np.where(walking, np.argmax(is_child, axis=1), cur)
-    return emitted, n_emit, path
+    return emitted, n_emit, path, None if greedy else keys
 
 
 @torch.no_grad()
@@ -1030,43 +1098,34 @@ def _masked_logits_vec(logits, temperature, top_k, top_p):
                        torch.full_like(lf, NEG_INF))
 
 
-def _gumbel_argmax(lf, generator):
-    """``argmax(lf + Gumbel noise)`` for one row: the categorical draw the
-    JAX package makes, with noise from ``generator`` (not JAX's
-    threefry)."""
-    tiny = float(np.finfo(np.float32).tiny)
-    u = torch.rand(lf.shape[-1], generator=generator, device=lf.device)
-    return torch.argmax(lf - torch.log(-torch.log(u.clamp_min(tiny))))
-
-
-def _sample_vec(logits, temperature, top_k, top_p, generators):
-    """Per-row sampling: every knob is a ``[B]`` tensor (``temperature
-    0`` = greedy, ``top_k <= 0`` = no truncation, ``top_p >= 1`` = no
-    nucleus cut) and ``generators[b]`` is row ``b``'s own
-    ``torch.Generator`` (``None`` for a greedy row), so a request's draws
-    depend only on its own seed. A draw is ``argmax(masked logits +
-    Gumbel noise)``, the categorical draw the JAX package makes; the
-    noise comes from torch's generator, not JAX's threefry."""
+def _sample_vec(logits, temperature, top_k, top_p, keys):
+    """Per-row sampling (JAX :1539): every knob is a ``[B]`` tensor
+    (``temperature 0`` = greedy, ``top_k <= 0`` = no truncation, ``top_p
+    >= 1`` = no nucleus cut); ``keys`` is a ``[B, 2]`` batch of per-row
+    keys (the engine: a request's draws depend only on its own key,
+    JAX's ``vmap(categorical)``) or one key (``generate()``: one field
+    over the whole ``[B, V]``). A draw is ``argmax(masked logits +
+    Gumbel field)``, JAX's categorical; the field is one K7 launch on
+    the card."""
     greedy = torch.argmax(logits, dim=-1)
     lf = _masked_logits_vec(logits, temperature, top_k, top_p)
-    sampled = greedy.clone()
-    for row, gen in enumerate(generators):
-        if gen is not None:
-            sampled[row] = _gumbel_argmax(lf[row], gen)
+    field = prng.gumbel(keys, lf.shape if keys.ndim == 1 else lf.shape[1:])
+    sampled = torch.argmax(lf + field, dim=-1)
     return torch.where(temperature > 0.0, sampled, greedy)
 
 
 # --- generate() ---------------------------------------------------------------
 
 
-def _sample(logits, temperature: float, top_k: Optional[int], generator,
+def _sample(logits, temperature: float, top_k: Optional[int], rng,
             top_p: Optional[float] = None):
     """Scalar-knob sampling (JAX ``_sample``): argmax at temperature 0;
     otherwise temperature-scaled float32 logits, top-k by INDEX (a
     stable descending sort, so ties at the k-th logit go to the lowest
     index as ``lax.top_k`` orders them), then the nucleus cut (a token
     survives iff the probability mass strictly above it is ``< top_p``),
-    then one Gumbel-argmax draw per row from ``generator``."""
+    then ``categorical(rng, logits)``: one key's Gumbel field over the
+    whole ``[B, V]``."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     lf = logits.float() / temperature
@@ -1082,7 +1141,7 @@ def _sample(logits, temperature: float, top_k: Optional[int], generator,
                              torch.full_like(sorted_logits, float("inf"))) \
             .amin(dim=-1, keepdim=True)
         lf = torch.where(lf >= thresh, lf, torch.full_like(lf, NEG_INF))
-    return torch.stack([_gumbel_argmax(row, generator) for row in lf])
+    return prng.categorical(rng, lf)
 
 
 def _per_seq_vec(value, b: int, dtype, none_sentinel, name: str):
@@ -1186,10 +1245,12 @@ def generate(model, prompts, max_new_tokens: int,
     ``top_k`` (index-exact) and/or ``top_p`` (nucleus). The four knobs
     ``temperature``/``top_k``/``top_p``/``stop_token`` also take
     per-sequence ``[B]`` arrays (sentinels: temperature 0 greedy, top_k 0
-    none, top_p 1.0 none, stop_token -1 never). Draws come from a
-    ``torch.Generator`` seeded with ``seed`` (Gumbel-argmax over the same
-    candidate set as JAX; not JAX's threefry bits). Once a row emits
-    ``stop_token`` every later position is that token.
+    none, top_p 1.0 none, stop_token -1 never). Draws follow JAX's key
+    chain: ``rng = PRNGKey(seed)``, then before every token ``rng, sub =
+    split(rng)`` and one categorical draw over the whole ``[B, V]`` from
+    ``sub`` (``ops.prng``, K7 on the card), so a seed gives JAX's
+    tokens. Once a row emits ``stop_token`` every later position is that
+    token.
 
     ``cache_dtype`` None means the attention compute dtype; ``"int8"`` /
     ``"int4"`` quantize the cache per token and head. ``weights_dtype``
@@ -1249,31 +1310,42 @@ def generate(model, prompts, max_new_tokens: int,
         cache_dtype = compute_dt if compute_dt is not None else torch.float32
     params = _generate_params(model, weights_dtype, compute_dt)
     cache = init_cache(module, b, total, cache_dtype, dev, check_len=total)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    rng = prng.key(seed, device=dev)
 
     if per_seq:
         knobs = {key: torch.from_numpy(samp[key]).to(dev)
                  for key in ("temperature", "top_k", "top_p")}
-        gens = [gen if tmp > 0.0 else None for tmp in samp["temperature"]]
+        sampled = bool((samp["temperature"] > 0.0).any())
         stop_v = torch.from_numpy(samp["stop"]).to(dev)
 
-        def sample_next(logits):
+        def draw(logits, sub):
             return _sample_vec(logits, knobs["temperature"], knobs["top_k"],
-                               knobs["top_p"], gens)
+                               knobs["top_p"], sub)
 
         def stopped(nxt):
             return (nxt == stop_v) & (stop_v >= 0)
     else:
         stop_v = None if stop_token is None else torch.full(
             (b,), int(stop_token), dtype=torch.long, device=dev)
+        sampled = float(temperature) != 0.0
 
-        def sample_next(logits):
-            return _sample(logits, float(temperature), top_k, gen, top_p)
+        def draw(logits, sub):
+            return _sample(logits, float(temperature), top_k, sub, top_p)
 
         def stopped(nxt):
             if stop_v is None:
                 return torch.zeros_like(nxt, dtype=torch.bool)
             return nxt == stop_v
+
+    def sample_next(logits):
+        """``rng, sub = split(rng)``, then the draw; an all-greedy batch
+        takes the argmax, whose tokens no key changes."""
+        nonlocal rng
+        if not sampled:
+            return torch.argmax(logits, dim=-1)
+        pair = prng.split(rng)
+        rng = pair[0]
+        return draw(logits, pair[1])
 
     tokens = torch.zeros((b, total), dtype=torch.long, device=dev)
     tokens[:, :p_len] = torch.from_numpy(prompts_np.astype(np.int64)).to(dev)

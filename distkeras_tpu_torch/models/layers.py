@@ -5,6 +5,8 @@ Mirrors the parts of ``distkeras_tpu/models/layers.py`` that
 the tanh approximation (:40). Matrices are stored float32 and cast to
 the layer's compute dtype when applied; activations flow in the compute
 dtype (the JAX package's mixed-precision policy).
+Initializers and dropout draw from JAX's threefry keys (``ops.prng``),
+so a key gives the JAX package's weights and masks.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from distkeras_tpu_torch.models.core import Layer, torch_dtype
+from distkeras_tpu_torch.ops import prng
+from distkeras_tpu_torch.ops import prng
 
 ACTIVATIONS = {
     "linear": lambda x: x,
@@ -48,25 +52,47 @@ def _fans(shape):
     return shape[-2] * receptive, shape[-1] * receptive
 
 
-def init_weights(name: str, generator: torch.Generator, shape):
-    """The Keras-named initializers the LM uses, drawn float32 on the CPU
-    from ``generator`` (the JAX package's families and scales; the random
-    streams differ, so tests carry weights across with ``models.bridge``)."""
+def init_weights(name: str, rng: torch.Tensor, shape):
+    """The Keras-named initializers (JAX :74-97), float32 on ``rng``'s
+    device from the threefry key ``rng``: JAX's families, scales and
+    draws (the uniform families bitwise ``jax.random.uniform``'s, the
+    normal ones within the ulps of ``erfinv``)."""
     shape = tuple(int(s) for s in shape)
     fan_in, fan_out = _fans(shape)
 
     def uniform(limit):
-        return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * limit
+        return prng.uniform(rng, shape, torch.float32, -limit, limit)
+
+    def normal(std):
+        return prng.normal(rng, shape) * torch.tensor(
+            std, dtype=torch.float32, device=rng.device)
 
     if name == "zeros":
-        return torch.zeros(shape)
+        return torch.zeros(shape, device=rng.device)
     if name == "ones":
-        return torch.ones(shape)
+        return torch.ones(shape, device=rng.device)
     if name == "glorot_uniform":
         return uniform(math.sqrt(6.0 / (fan_in + fan_out)))
+    if name == "glorot_normal":
+        return normal(math.sqrt(2.0 / (fan_in + fan_out)))
+    if name == "he_normal":
+        return normal(math.sqrt(2.0 / fan_in))
+    if name == "he_uniform":
+        return uniform(math.sqrt(6.0 / fan_in))
+    if name == "lecun_normal":
+        return normal(math.sqrt(1.0 / fan_in))
     if name == "uniform_scaling":
         return uniform(0.05)
     raise ValueError(f"Unknown initializer {name!r}")
+
+
+def dropout(x, rate: float, rng):
+    """Inverted dropout (JAX ``Dropout.apply`` :166-172): keep each entry
+    with probability ``1 - rate`` by ``bernoulli(rng, keep, x.shape)``
+    and scale the kept ones by ``1 / keep``."""
+    keep = 1.0 - rate
+    mask = prng.bernoulli(rng, keep, tuple(x.shape))
+    return torch.where(mask, x / keep, 0.0)
 
 
 class Dense(Layer):
@@ -83,11 +109,12 @@ class Dense(Layer):
         self.kernel_init = kernel_init
         self.dtype = dtype
 
-    def build(self, input_shape, generator):
+    def build(self, input_shape, rng):
         self.add_param("kernel", init_weights(
-            self.kernel_init, generator, (input_shape[-1], self.units)))
+            self.kernel_init, rng, (input_shape[-1], self.units)))
         if self.use_bias:
-            self.add_param("bias", torch.zeros(self.units))
+            self.add_param("bias", torch.zeros(self.units,
+                                               device=rng.device))
         return tuple(input_shape[:-1]) + (self.units,)
 
     def apply(self, p, x):
@@ -99,20 +126,21 @@ class Dense(Layer):
 
 
 class Dropout(Layer):
-    """Inverted dropout: the identity at inference. Training with a
-    non-zero rate needs the JAX package's random bits and waits for the
-    PRNG port."""
+    """Inverted dropout; the identity when not training or ``rng`` is
+    None (JAX :160-175)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
 
-    def apply(self, p, x):
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError(
-                "training through Dropout(rate > 0) is not ported yet: "
-                "ROADMAP, Queue 1 item 'PRNG and sampled paths'")
-        return x
+    @property
+    def uses_rng(self) -> bool:
+        return self.rate > 0.0
+
+    def apply(self, p, x, rng=None):
+        if not self.training or rng is None or self.rate <= 0.0:
+            return x
+        return dropout(x, self.rate, rng)
 
 
 class Embedding(Layer):
@@ -126,9 +154,9 @@ class Embedding(Layer):
         self.dim = int(dim)
         self.embeddings_init = embeddings_init
 
-    def build(self, input_shape, generator):
+    def build(self, input_shape, rng):
         self.add_param("embeddings", init_weights(
-            self.embeddings_init, generator, (self.vocab_size, self.dim)))
+            self.embeddings_init, rng, (self.vocab_size, self.dim)))
         return tuple(input_shape) + (self.dim,)
 
     def apply(self, p, x):

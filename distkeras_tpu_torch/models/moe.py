@@ -44,6 +44,7 @@ import torch
 
 from distkeras_tpu_torch.models.core import Layer, torch_dtype
 from distkeras_tpu_torch.models.layers import get_activation, init_weights
+from distkeras_tpu_torch.ops import prng
 
 #: ROADMAP items the layer's unported options wait for
 EXPERT_PARALLEL_ITEM = ("ROADMAP, Queue 1 item 10 (expert-parallel MoE: "
@@ -113,21 +114,21 @@ class MoE(Layer):
         self.capacity_factor = float(capacity_factor)
         self.expert_unroll = bool(expert_unroll)
 
-    def build(self, input_shape, generator):
+    def build(self, input_shape, rng):
         d = input_shape[-1]
         e, hid = self.num_experts, self.hidden_dim
-        self.add_param("gate", init_weights(self.kernel_init, generator,
-                                            (d, e)))
-        # one draw per expert, so each expert has the fans of a [d, H]
-        # matrix, as in JAX
+        kg, k1, k2 = prng.split(rng, 3)
+        self.add_param("gate", init_weights(self.kernel_init, kg, (d, e)))
+        # one key per expert, so each expert has the fans of a [d, H]
+        # matrix and its own draw, as in JAX (:154-171)
         self.add_param("w1", torch.stack([
-            init_weights(self.kernel_init, generator, (d, hid))
-            for _ in range(e)]))
-        self.add_param("b1", torch.zeros(e, hid))
+            init_weights(self.kernel_init, k, (d, hid))
+            for k in prng.split(k1, e)]))
+        self.add_param("b1", torch.zeros(e, hid, device=rng.device))
         self.add_param("w2", torch.stack([
-            init_weights(self.kernel_init, generator, (hid, d))
-            for _ in range(e)]))
-        self.add_param("b2", torch.zeros(e, d))
+            init_weights(self.kernel_init, k, (hid, d))
+            for k in prng.split(k2, e)]))
+        self.add_param("b2", torch.zeros(e, d, device=rng.device))
         return tuple(input_shape)
 
     def _route(self, x, gate):

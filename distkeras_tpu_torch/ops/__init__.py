@@ -2,7 +2,8 @@
 of the hand-written CUDA kernels (``flash_attention``,
 ``decode_attention``, ``paged_attention``, ``quant_matmul``,
 ``sampling``; ``moe_kernels``, imported as its module, holds the MoE
-expert up-projection); losses, optimizers,
+expert up-projection, and ``prng``, JAX's threefry keys and draws with
+the K7 kernel); losses, optimizers,
 learning-rate schedules and metrics for training (``losses``,
 ``optimizers``, ``schedules``, ``metrics``)."""
 

@@ -17,9 +17,10 @@ value), so no ``torch.sort`` runs on the card.
 Exactness contract:
 
 * a categorical draw is ``argmax(lf + gumbel)``: :func:`gumbel_noise`
-  draws, per row, the same noise from the row's ``torch.Generator`` that
-  ``decoding._gumbel_argmax`` draws (the same ``torch.rand`` call, so the
-  generator ends in the same state), and nothing for a greedy row;
+  is the field ``decoding._sample_vec`` adds, per row the threefry
+  ``gumbel(key, (V,))`` of the row's key (``ops.prng``: one K7 launch
+  over ``[S, V]`` on the card), as JAX's ``gumbel_noise`` (:89) feeds
+  the Pallas epilogue;
 * the plain version is the unfused sampler's own mask program
   (``decoding._masked_logits_vec``), then ``argmax(lf + g)`` and the
   greedy override, so on the CPU fused and unfused streams are
@@ -39,30 +40,19 @@ not carried over: the kernel takes any vocab.
 
 from __future__ import annotations
 
-from typing import List, Optional
-
 import numpy as np
 import torch
 
 from distkeras_tpu_torch import kernels
+from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.attention import NEG_INF as _NEG_INF
 
-_TINY = float(np.finfo(np.float32).tiny)
 
-
-def gumbel_noise(generators: List[Optional[torch.Generator]], vocab: int,
-                 device) -> torch.Tensor:
-    """``[S, vocab]`` float32 Gumbel noise ``-log(-log(u))``: row ``s``
-    from ``generators[s]`` (one ``torch.rand(vocab)`` draw, as
-    ``decoding._gumbel_argmax`` draws it), zeros where the generator is
-    None (a greedy row draws nothing)."""
-    g = torch.zeros((len(generators), vocab), dtype=torch.float32,
-                    device=device)
-    for row, gen in enumerate(generators):
-        if gen is not None:
-            u = torch.rand(vocab, generator=gen, device=device)
-            g[row] = -torch.log(-torch.log(u.clamp_min(_TINY)))
-    return g
+def gumbel_noise(keys: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``[S, vocab]`` float32 Gumbel field of ``[S, 2]`` per-row keys:
+    row ``s`` is ``gumbel(keys[s], (vocab,))``, the noise
+    ``vmap(categorical)`` draws (JAX :89). One K7 launch on the card."""
+    return prng.gumbel(keys, (vocab,))
 
 
 def sample_epilogue_reference(logits, temperature, top_k, top_p, gumbel):
@@ -148,11 +138,11 @@ def launch_kernel(logits, temperature, top_k, top_p, gumbel):
     return out
 
 
-def sample_tokens(logits, temperature, top_k, top_p, generators):
-    """Drop-in for ``decoding._sample_vec`` with per-row generators: the
-    Gumbel field from :func:`gumbel_noise`, then the fused epilogue. The
-    serving engine's ``fused_sampling=True`` sampler."""
-    g = gumbel_noise(generators, logits.shape[-1], logits.device)
+def sample_tokens(logits, temperature, top_k, top_p, keys):
+    """Drop-in for ``decoding._sample_vec`` with per-row keys (JAX :200):
+    the Gumbel field from :func:`gumbel_noise`, then the fused epilogue.
+    The serving engine's ``fused_sampling=True`` sampler."""
+    g = gumbel_noise(keys, logits.shape[-1])
     return sample_epilogue(logits, temperature, top_k, top_p, g)
 
 

@@ -27,6 +27,7 @@ import torch
 
 from distkeras_tpu_torch.compat import resolve_device
 from distkeras_tpu_torch.data.dataset import Dataset, coerce_column
+from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.metrics import get_metric, metric_name
 from distkeras_tpu_torch.ops.optimizers import (Optimizer,
@@ -173,8 +174,10 @@ class SingleTrainer(Trainer):
         step = make_train_step(model.module, self.loss,
                                self.worker_optimizer, self._metric_fns(),
                                self.grad_accum_steps)
+        # the key chain starts from PRNGKey(seed) (JAX :550)
         carry = TrainCarry(model.params,
-                           self.worker_optimizer.init(model.params))
+                           self.worker_optimizer.init(model.params),
+                           prng.key(self.seed, device))
         validate = self._make_validator(model, device)
         self.record_training_start()
         try:

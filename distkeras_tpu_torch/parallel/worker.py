@@ -8,7 +8,9 @@ update), ``shard_epoch_data``/``stack_batches`` (:232-259) shape an
 epoch into ``[steps, batch, ...]``. Where the JAX package scans the step
 inside one jitted program, the port runs a plain Python loop over the
 stacked steps (``run_epoch``); losses and metrics stay on the device
-until the epoch's end.
+until the epoch's end. The carry's threefry key chains as JAX's does:
+``rng, sub = split(rng)`` each step (:165), ``split(sub, accum)`` over
+the microbatches (:184), so a model with dropout draws JAX's masks.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.models.core import collect_aux_losses
+from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.optimizers import Optimizer, apply_updates
 from distkeras_tpu_torch.utils.tree import (tree_leaves, tree_map,
                                             tree_unflatten)
@@ -29,26 +32,30 @@ LATER = "ROADMAP, Queue 1 item 'training: the rest of the Trainer surface'"
 
 class TrainCarry(NamedTuple):
     """What a step carries to the next: the parameter tree (the model's
-    own tensors, updated in place) and the optimizer state."""
+    own tensors, updated in place), the optimizer state and the threefry
+    key (None: the forward draws nothing)."""
     params: object
     opt_state: object
+    rng: object = None
 
 
 def value_and_grad(module, loss_fn: Callable, params, xb, yb,
-                   metric_fns: Optional[dict] = None):
+                   metric_fns: Optional[dict] = None, rng=None):
     """``(loss, grads, {name: metric})`` of ``loss_fn(yb, module(xb))``
     plus the auxiliary losses the forward's layers published (JAX
     :145-151: both the differentiated and the reported loss hold them),
     for the parameter tree ``params``: the forward runs in training mode
-    (the module's mode is restored after it), metrics on its detached
-    output. ``grads`` is a tree shaped like ``params``; a parameter the
-    loss never reached gets zeros, as ``jax.value_and_grad`` gives."""
+    (the module's mode is restored after it) with the key ``rng`` for
+    the layers that draw, metrics on its detached output. ``grads`` is
+    a tree shaped like ``params``; a parameter the loss never reached
+    gets zeros, as ``jax.value_and_grad`` gives."""
     leaves = tree_leaves(params)
     was_training = module.training
     module.train()
+    kw = {"rng": rng} if rng is not None and module.uses_rng else {}
     try:
         with torch.enable_grad():
-            out = module.apply(params, xb)
+            out = module.apply(params, xb, **kw)
             loss = loss_fn(yb, out) + collect_aux_losses(module)
     finally:
         module.train(was_training)
@@ -84,13 +91,17 @@ def make_train_step(module, loss_fn: Callable, optimizer: Optimizer,
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
-    def grad_of(params, xb, yb):
-        return value_and_grad(module, loss_fn, params, xb, yb, metric_fns)
+    def grad_of(params, xb, yb, sub):
+        return value_and_grad(module, loss_fn, params, xb, yb, metric_fns,
+                              sub)
 
     def train_step(carry: TrainCarry, batch):
         xb, yb = batch
+        rng = sub = None
+        if carry.rng is not None:
+            rng, sub = prng.split(carry.rng)
         if accum_steps == 1:
-            loss, grads, mets = grad_of(carry.params, xb, yb)
+            loss, grads, mets = grad_of(carry.params, xb, yb, sub)
         else:
             if xb.shape[0] % accum_steps:
                 raise ValueError(
@@ -102,9 +113,12 @@ def make_train_step(module, loss_fn: Callable, optimizer: Optimizer,
             ys = yb.reshape((micro, accum_steps) + tuple(yb.shape[1:])) \
                 .transpose(0, 1)
             gsum = tree_map(torch.zeros_like, carry.params)
+            subs = [None] * accum_steps if sub is None \
+                else prng.split(sub, accum_steps)
             losses, mets_s = [], []
             for j in range(accum_steps):
-                loss_j, grads_j, mets_j = grad_of(carry.params, xs[j], ys[j])
+                loss_j, grads_j, mets_j = grad_of(carry.params, xs[j], ys[j],
+                                                  subs[j])
                 gsum = tree_map(torch.add, gsum, grads_j)
                 losses.append(loss_j)
                 mets_s.append(mets_j)
@@ -116,7 +130,7 @@ def make_train_step(module, loss_fn: Callable, optimizer: Optimizer,
             updates, opt_state = optimizer.update(grads, carry.opt_state,
                                                   carry.params)
             apply_updates(carry.params, updates)
-        new_carry = TrainCarry(carry.params, opt_state)
+        new_carry = TrainCarry(carry.params, opt_state, rng)
         if metric_fns:
             return new_carry, (loss, mets)
         return new_carry, loss

@@ -34,13 +34,22 @@ predict (``_observe_acceptance`` :1706, ``spec_disable_below`` after
 ``spec_warmup`` verifies), ``spec_reprobe`` lets it back in on a crc32
 coin (``_maybe_reprobe`` :1678), and ``_adapt_tree`` :1741 resizes each
 stream's tree. Greedy speculative streams equal plain decode's; a
-sampled stream draws once per emitted token from its own generator, so
-it equals the plain sampled stream.
+sampled stream splits its key once per emitted token, so it equals the
+plain sampled stream.
 
 Greedy outputs are token-identical per request to the JAX package's
 ``generate()`` on the same weights (the CPU tests hold the port to
 it), also with an int8 or int4 KV cache at the same cache dtype, and
-with ``weight_quant`` to the JAX engine's. On the card the prefill
+with ``weight_quant`` to the JAX engine's. Sampled draws follow JAX's
+key chain (``ops.prng``, the threefry port): ``req.rng = PRNGKey(seed)``
+at submit (:1269), ``rng, sub = split(rng)`` for the first token
+(``_sample_first_fn`` :1806), one ``split`` of every slot's key per
+decode step, drawing with the second half and carrying the first
+(:1358-1361), the same per step of a fused window, one per emitted
+token in a speculative walk; the per-slot keys live on the device and
+chain from the unit in flight as the tokens do (``_merge_keys`` :1056),
+with a host mirror that the lagged fetch updates. So a sampled stream
+is the JAX engine's, byte for byte. On the card the prefill
 attention runs the flash kernel and the decode readout the paged kernel
 (its int8/int4 variant for a quantized pool); quantized weights run the
 K5 matmul kernel, ``fused_sampling`` the K4 sampling epilogue.
@@ -70,20 +79,31 @@ terminal and on a metrics swap (``_flush_host_window`` :988), so counts
 stay exact. ``overlap=False`` is the synchronous loop: launch, then
 consume. Greedy streams are token-identical, sampled ones byte-identical
 between the loops: a sampled row draws once per step from its request's
-own generator, in the same order. A speculative iteration drains the
+own key, in the same order. A speculative iteration drains the
 pipeline first and stays synchronous.
 
-Options of the JAX engine that belong to later slices raise
-``NotImplementedError`` naming the ROADMAP item (``_NOT_PORTED``,
-``submit(deadline_s=)``, ``run(on_degraded=)``, ``cancel``); the
-tracer, flight recorder, SLOs and time series wait for the
-observability slice.
+Degradation (JAX :2309-2355, :2473): ``submit(deadline_s=)`` is a
+submit-to-finish budget on the metrics clock; an expired request ends
+``TIMED_OUT`` at the next ``step()`` (``_expire_deadlines``), and
+``cancel(rid)`` ends one ``CANCELLED``; both land the unit in flight
+first (its tokens stay; a request it finishes stays FINISHED) and
+recycle the slot (``_terminate``). ``run()`` raises ``DegradedRequest``
+for such a request, or with ``on_degraded="return"`` returns its
+partial tokens. ``hbm_budget`` sizes the page pool from a byte budget
+less the resident weights (:457-471), ``weights_dtype`` sets the
+serving tree's dtype (:359-361), ``decode_kernel`` picks the paged
+readout (:434-451: ``"off"`` is the gather path, no paged kernel) and
+``engine_id`` names the engine (:547-569). Options of the JAX engine
+that belong to later slices raise ``NotImplementedError`` naming the
+ROADMAP item (``_NOT_PORTED``); the tracer, flight recorder, SLOs and
+time series wait for the observability slice.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import weakref
 import zlib
 from typing import Callable, Dict, List, Optional
 
@@ -91,7 +111,7 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.compat import resolve_device
-from distkeras_tpu_torch.models.core import Model, Sequential
+from distkeras_tpu_torch.models.core import Model, Sequential, torch_dtype
 from distkeras_tpu_torch.models.decoding import (MOE_QUANT_ITEM,
                                                  _decode_block_of,
                                                  _sample_vec,
@@ -104,6 +124,7 @@ from distkeras_tpu_torch.models.decoding import (MOE_QUANT_ITEM,
                                                  serving_params, tree_walk,
                                                  verify_step_slots_paged)
 from distkeras_tpu_torch.models.moe import MoE
+from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.paged_attention import check_rows
 from distkeras_tpu_torch.ops.quant_matmul import (quantize_params_tree,
                                                   tree_quant_errors)
@@ -113,12 +134,12 @@ from distkeras_tpu_torch.serving.kv_pool import (PagedKVPool, PrefixCache,
 from distkeras_tpu_torch.serving.metrics import ServingMetrics
 from distkeras_tpu_torch.serving.scheduler import (AdmissionRejected,
                                                    PriorityScheduler,
-                                                   Request, RequestState)
+                                                   Request, RequestState,
+                                                   TERMINAL_STATES)
 from distkeras_tpu_torch.serving.speculation import (DraftSource,
                                                      tree_ancestors)
 from distkeras_tpu_torch.utils.tree import tree_leaves
 
-_ENGINE_API = "Queue 1 item 4 (the engine's remaining synchronous API)"
 _OBSERVABILITY = "Queue 1 item 11 (host-side systems: obs/)"
 
 #: options of the JAX engine that later slices port: name -> (value that
@@ -126,19 +147,32 @@ _OBSERVABILITY = "Queue 1 item 11 (host-side systems: obs/)"
 _NOT_PORTED = {
     "ep_mesh": (None, "expert-parallel MoE serving"),
     "host_kv_pages": (0, "host KV offload"),
-    "hbm_budget": (None, _ENGINE_API),
-    "weights_dtype": ("auto", _ENGINE_API),
-    "decode_kernel": ("auto", _ENGINE_API),
-    "engine_id": (None, _ENGINE_API),
     "tracer": (None, _OBSERVABILITY),
     "slo": (None, _OBSERVABILITY),
     "timeseries": (None, _OBSERVABILITY),
 }
 
+#: the names of the live engines (JAX's ``obs.components()`` registry):
+#: the first live engine is plain "serving", a later one or one given an
+#: id owns "serving[<id>]"
+_LIVE_ENGINES = weakref.WeakValueDictionary()
 
-def _refuse(name: str, value, item: str):
-    raise NotImplementedError(
-        f"{name}={value!r} is not ported yet: ROADMAP, {item}")
+
+class DegradedRequest(RuntimeError):
+    """``run()`` drained a request that did NOT finish normally
+    (``TIMED_OUT``, ``CANCELLED``; JAX :120-133). Raised by default so
+    a degraded result never passes for a complete one in ``run()``'s
+    plain ``{rid: tokens}``; the terminal ``Request`` (state, partial
+    tokens, ``error`` cause) rides on ``.request``."""
+
+    def __init__(self, request: Request):
+        cause = (f": {request.error!r}" if request.error is not None
+                 else "")
+        super().__init__(
+            f"request {request.rid} ended {request.state.value}{cause} "
+            "- drive with step() to observe terminal states, or "
+            "run(on_degraded='return') to accept partial tokens")
+        self.request = request
 
 
 def _host_stats(moe):
@@ -155,15 +189,19 @@ class _PendingStep:
     next launch chains from; ``host`` holds the outputs' host copies
     (the ``[S]`` tokens of a step or the ``[S, K]`` block of a window,
     then the read step's MoE stats), in flight behind ``event`` on the
-    card (on the CPU the outputs themselves and no event); ``slots``
-    pins the (slot, rid) pairs at launch, so a slot recycled since
-    discards its stale tokens; ``count`` is the tokens a covered slot
-    gets."""
+    card (on the CPU the outputs themselves and no event); ``keys`` the
+    ``[S, 2]`` post-split per-slot keys on the device that the next
+    launch chains from (None for a greedy unit; their host copy follows
+    the tokens in ``host``); ``slots`` pins the (slot, rid) pairs at
+    launch, so a slot recycled since discards its stale tokens;
+    ``count`` is the tokens a covered slot gets."""
 
-    __slots__ = ("last", "host", "event", "slots", "count", "launch_t")
+    __slots__ = ("last", "keys", "host", "event", "slots", "count",
+                 "launch_t")
 
-    def __init__(self, last, host, event, slots, count, launch_t):
+    def __init__(self, last, keys, host, event, slots, count, launch_t):
         self.last = last
+        self.keys = keys
         self.host = host
         self.event = event
         self.slots = slots                   # tuple of (slot, rid)
@@ -228,7 +266,22 @@ class ServingEngine:
     ``spec_tree``/``spec_width`` verify token trees of up to ``1 +
     spec_k * spec_width`` nodes. On the card a window of W positions
     with G query heads per kv head needs ``W * G <= 64`` (the paged
-    kernel's rows per kv head)."""
+    kernel's rows per kv head).
+
+    ``hbm_budget`` (bytes; instead of ``num_pages``) sizes the pool to
+    whole pages of what the budget leaves after the served weight tree
+    (``param_bytes()``, quantized or not): the same ``num_pages`` as the
+    JAX engine; the sink page adds ``page_bytes`` more
+    (``pool.allocated_bytes()``). ``weights_dtype`` is the serving
+    tree's matrix dtype: ``"auto"`` the compute dtype when it is not
+    float32, None the float32 masters, or a float dtype; ``weight_quant``
+    wins over it. ``decode_kernel``: ``"auto"`` and ``"paged"`` read the
+    pages through the paged kernel (K3 on the card, its plain version on
+    the CPU), ``"off"`` through the gather readout (the A/B baseline: no
+    paged kernel on any device). ``engine_id`` names the engine
+    (``health()["engine_id"]``): None gives ``"serving"`` to the first
+    live engine and ``"serving[<hex>]"`` to later ones; an id a live
+    engine already holds gets a ``"#<hex>"`` suffix."""
 
     def __init__(self, model: Model, *, num_slots: int = 4,
                  max_len: int = 256, prefill_chunk: Optional[int] = None,
@@ -250,16 +303,34 @@ class ServingEngine:
                  engine_id: Optional[str] = None, tracer=None, slo=None,
                  timeseries=None):
         given = {"ep_mesh": ep_mesh, "host_kv_pages": host_kv_pages,
-                 "hbm_budget": hbm_budget, "weights_dtype": weights_dtype,
-                 "decode_kernel": decode_kernel, "engine_id": engine_id,
                  "tracer": tracer, "slo": slo, "timeseries": timeseries}
         for name, (off, item) in _NOT_PORTED.items():
             if given[name] != off:
-                _refuse(name, given[name], item)
-        if kv_layout != "paged":
+                raise NotImplementedError(
+                    f"{name}={given[name]!r} is not ported yet: ROADMAP, "
+                    f"{item}")
+        if kv_layout not in ("paged", "slab"):
+            raise ValueError(
+                f"kv_layout must be 'paged' or 'slab', got {kv_layout!r}")
+        if decode_kernel not in ("auto", "paged", "off"):
+            raise ValueError(f"decode_kernel must be 'auto', 'paged' or "
+                             f"'off', got {decode_kernel!r}")
+        if kv_layout == "slab":
+            # paged-only options must not silently no-op (JAX :444-455)
+            if decode_kernel != "auto":
+                raise ValueError(
+                    "decode_kernel applies to the paged readout only; a "
+                    "slab engine always uses the einsum path")
+            if hbm_budget is not None:
+                raise ValueError("hbm_budget needs kv_layout='paged' (the "
+                                 "slab pool has no page budget to size)")
             raise NotImplementedError(
                 f"kv_layout={kv_layout!r} is not ported yet: ROADMAP, "
                 "Queue 1, the slab serving engine (kv_layout='slab')")
+        #: the paged readout: the kernel's path ("auto", "paged") or the
+        #: gather path ("off")
+        self.decode_kernel = decode_kernel
+        self._paged_kernel = decode_kernel != "off"
         module = model.module
         if not isinstance(module, Sequential) or not any(
                 _decode_block_of(layer) is not None
@@ -287,15 +358,19 @@ class ServingEngine:
         if cache_dtype is None:
             cache_dtype = compute_dt
         self._init_moe(moe_decode, weight_quant)
-        self._init_weights(weight_quant, compute_dt)
+        self._init_weights(weight_quant, weights_dtype, compute_dt)
         #: decode steps draw through ``ops.sampling.sample_tokens`` (the
         #: K4 epilogue on the card); the first token and the speculative
         #: walks keep the unfused sampler, as in the JAX engine
         self.fused_sampling = bool(fused_sampling)
 
-        self.pool = PagedKVPool(module, self.num_slots, self.max_len,
-                                page_len=page_len, num_pages=num_pages,
-                                dtype=cache_dtype, device=self.device)
+        # hbm_budget: the resident weights come off the top, the rest
+        # becomes whole pages
+        self.pool = PagedKVPool(
+            module, self.num_slots, self.max_len, page_len=page_len,
+            num_pages=num_pages, dtype=cache_dtype, device=self.device,
+            hbm_budget=hbm_budget,
+            reserve_bytes=0 if hbm_budget is None else self.param_bytes())
         self.page_len = self.pool.page_len
         self.prefix = PrefixCache(self.pool) if prefix_cache else None
         if prefix_granularity < 1:
@@ -305,6 +380,7 @@ class ServingEngine:
         self.scheduler = PriorityScheduler(self.num_slots,
                                            max_queue=max_queue)
         self._init_pipeline(overlap, fuse_steps)
+        self._init_engine_id(engine_id)
         # ONE reusable staging cache: stale positions past the current
         # context are never inserted and never read before being written
         self._staging = self.pool.make_request_cache()
@@ -317,6 +393,10 @@ class ServingEngine:
         #: max_len is the free-slot sentinel: the decode write misses
         #: every page and the slot's logits are discarded
         self._t = np.full(s, self.max_len, np.int32)
+        #: host mirror of the per-slot PRNG keys (``PRNGKey(0)`` until a
+        #: request takes the slot): the launch reads it where the host
+        #: owns a slot, the lagged fetch writes the chained keys back
+        self._keys = np.zeros((s, 2), np.int64)
         self._init_speculation(draft, spec_k, spec_disable_below,
                                spec_warmup, spec_reprobe, spec_tree,
                                spec_width)
@@ -349,6 +429,25 @@ class ServingEngine:
         self._spec_tree_buf: List = []   # (width, path_len, depth)
         self._iters = 0
 
+    def _init_engine_id(self, engine_id) -> None:
+        """The engine's name (JAX :547-569): None gives "serving" to the
+        first live engine and "serving[<hex>]" to later ones; an explicit
+        id a live engine already holds gets a "#<hex>" suffix, so no two
+        live engines share one. (The tracer and flight-recorder tags that
+        JAX puts on it wait for ROADMAP Queue 1 item 11.)"""
+        if engine_id is None:
+            name = "serving"
+            if name in _LIVE_ENGINES:
+                name = f"serving[{id(self):x}]"
+            self.engine_id = name
+        else:
+            self.engine_id = str(engine_id)
+            name = f"serving[{self.engine_id}]"
+            if name in _LIVE_ENGINES:
+                self.engine_id = f"{self.engine_id}#{id(self):x}"
+                name = f"serving[{self.engine_id}]"
+        _LIVE_ENGINES[name] = self
+
     def _init_moe(self, moe_decode: str, weight_quant) -> None:
         """MoE serving (JAX :406-423): the model's MoE MLPs in layer
         order, the decode dispatch and the telemetry state."""
@@ -370,23 +469,32 @@ class ServingEngine:
         self._moe_conc: Optional[float] = None   # routing-concentration EMA
         self._moe_iter = 0                       # stats-throttle counter
 
-    def _init_weights(self, weight_quant, compute_dt) -> None:
-        """The serving tree: the matrices cast to the compute dtype with
-        q/k/v fused, or with ``weight_quant`` (JAX :372-399) the qdict
-        tree of ``ops.quant_matmul.quantize_params_tree`` (int8, or int4
+    def _init_weights(self, weight_quant, weights_dtype, compute_dt) -> None:
+        """The serving tree: the matrices cast to ``weights_dtype`` (JAX
+        :359-361: ``"auto"`` the compute dtype unless float32, None the
+        float32 masters) with q/k/v fused, or with ``weight_quant`` (JAX
+        :372-399, which wins over ``weights_dtype``) the qdict tree of
+        ``ops.quant_matmul.quantize_params_tree`` (int8, or int4
         nibble-packed along axis 0), the only weight copy the engine
         holds, with its per-leaf ``weight_quant_error``."""
         if weight_quant not in (None, "int8", "int4"):
             raise ValueError(f"weight_quant must be None, 'int8' or 'int4', "
                              f"got {weight_quant!r}")
+        if weights_dtype == "auto":
+            weights_dtype = (compute_dt if compute_dt is not None
+                             and compute_dt != torch.float32 else None)
+        wdt = torch.float32 if weights_dtype is None \
+            else torch_dtype(weights_dtype)
+        if not wdt.is_floating_point:
+            raise ValueError(f"weights_dtype must be 'auto', None or a "
+                             f"float dtype, got {weights_dtype!r}")
         self.weight_quant = weight_quant
         #: path-keyed per-leaf quantization error (max_abs_err, rel_rms)
         self.weight_quant_error = None
         with torch.no_grad():
             if weight_quant is None:
                 self._params = fuse_qkv_params(
-                    self.module, serving_params(self.model.params,
-                                                compute_dt))
+                    self.module, serving_params(self.model.params, wdt))
                 return
             self._params = quantize_params_tree(
                 self.model.params, bits=4 if weight_quant == "int4" else 8)
@@ -459,9 +567,10 @@ class ServingEngine:
         the draft-and-verify iterations (None: whenever the engine has a
         draft; True on a draftless engine raises). Raises
         ``AdmissionRejected`` when the bounded queue is full.
-        ``deadline_s`` raises: deadlines wait for a later slice."""
-        if deadline_s is not None:
-            _refuse("deadline_s", deadline_s, _ENGINE_API)
+        ``deadline_s`` is a submit-to-finish budget on the metrics clock:
+        a request still unfinished when it expires ends ``TIMED_OUT`` at
+        the next ``step()``, keeping its tokens so far. ``seed`` keys
+        the request's draws (``PRNGKey(seed)``, JAX's)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must hold at least one token")
@@ -476,6 +585,8 @@ class ServingEngine:
                 f"max_len={self.max_len}")
         if top_p is not None and not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if deadline_s is not None and float(deadline_s) <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
         worst = self.pool.pages_for(prompt.size + max_new_tokens)
         if worst > self.pool.num_pages:
             raise ValueError(
@@ -493,11 +604,10 @@ class ServingEngine:
             top_p=1.0 if top_p is None else float(top_p),
             stop_token=-1 if stop_token is None else int(stop_token),
             seed=int(seed), priority=int(priority),
+            deadline_s=None if deadline_s is None else float(deadline_s),
             speculate=(self._draft is not None if speculate is None
                        else bool(speculate)))
-        if req.temperature > 0.0:
-            req.rng = torch.Generator(device=self.device).manual_seed(
-                req.seed)
+        req.rng = prng.key(req.seed).numpy()
         req.submit_t = self.metrics.clock()
         try:
             self.scheduler.submit(req)
@@ -644,14 +754,18 @@ class ServingEngine:
 
     def _preempt(self, victim: Request) -> None:
         """Evict an admitted request's pages back to the queue. Its
-        generated tokens stay (the re-prefill context) and so does its
-        generator, so a sampled stream resumes where it left off. The
-        in-flight unit is consumed first (JAX :2036): the context must
-        hold its tokens, and it may finish the victim instead."""
+        generated tokens stay (the re-prefill context); a decoding
+        victim's key is snapshotted from the slot's mirror (JAX :2041),
+        so a sampled stream resumes where it left off (a prefilling one
+        keeps its submit-time key). The in-flight unit is consumed first
+        (JAX :2036): the context and the key must hold its tokens, and it
+        may finish the victim instead."""
         self._flush_pending()
-        if victim.state is RequestState.FINISHED:
+        if victim.state in TERMINAL_STATES:
             return
         slot = victim.slot
+        if victim.state is RequestState.DECODING:
+            victim.rng = self._keys[slot].copy()
         self.scheduler.preempt(victim)
         self._chain_dirty[slot] = True
         if self._draft is not None:
@@ -733,17 +847,20 @@ class ServingEngine:
 
     @torch.inference_mode()
     def step(self) -> List[Request]:
-        """One iteration: admit, advance ONE prefill chunk, run one decode
-        unit over all slots (under ``overlap``: launch it, then consume
-        the previous one). Returns the requests that finished. Runs
-        under ``torch.inference_mode``: serving records no autograd graph,
-        even for a model whose parameters require grad."""
+        """One iteration: expire deadlines, admit, advance ONE prefill
+        chunk, run one decode unit over all slots (under ``overlap``:
+        launch it, then consume the previous one). Returns the requests
+        that reached a terminal state (FINISHED, TIMED_OUT or CANCELLED:
+        check ``req.state``). Runs under ``torch.inference_mode``:
+        serving records no autograd graph, even for a model whose
+        parameters require grad."""
         finished: List[Request] = []
         if self._finish_buf:
-            # finished by a pipeline flush since the last step (a metrics
-            # swap)
+            # ended by a pipeline flush since the last step (a cancel, a
+            # metrics swap)
             finished.extend(self._finish_buf)
             self._finish_buf.clear()
+        self._expire_deadlines(finished)
         self._admit()
         clock = self.metrics.clock
         req = self.scheduler.next_prefill()
@@ -770,15 +887,22 @@ class ServingEngine:
     @torch.inference_mode()
     def run(self, max_steps: Optional[int] = None,
             on_degraded: str = "raise") -> Dict[int, np.ndarray]:
-        """Drive ``step()`` until every request finished; returns
-        ``{rid: tokens}`` (prompt + continuation). ``on_degraded`` other
-        than ``"raise"`` waits for a later slice."""
-        if on_degraded != "raise":
-            _refuse("on_degraded", on_degraded, _ENGINE_API)
+        """Drive ``step()`` until every request reached a terminal state;
+        returns ``{rid: tokens}`` (prompt + continuation) for the requests
+        drained in this call. A request that ends TIMED_OUT or CANCELLED
+        raises ``DegradedRequest`` (``on_degraded="raise"``, the
+        default), or with ``"return"`` its partial tokens are returned
+        (JAX :2270-2300)."""
+        if on_degraded not in ("raise", "return"):
+            raise ValueError(f"on_degraded must be 'raise' or 'return', "
+                             f"got {on_degraded!r}")
         out: Dict[int, np.ndarray] = {}
         steps = 0
         while self.scheduler.pending:
             for r in self.step():
+                if r.state is not RequestState.FINISHED \
+                        and on_degraded == "raise":
+                    raise DegradedRequest(r)
                 out[r.rid] = r.tokens
             steps += 1
             if max_steps is not None and steps >= max_steps \
@@ -789,10 +913,68 @@ class ServingEngine:
                     f"occupied={self.scheduler.occupied})")
         return out
 
-    def cancel(self, rid: int):
-        """Cancelling an in-flight request waits for a later slice."""
-        raise NotImplementedError(
-            f"cancel is not ported yet: ROADMAP, {_ENGINE_API}")
+    # --- degradation paths ------------------------------------------------
+
+    def _expire_deadlines(self, finished: List[Request]) -> None:
+        """End every in-flight request whose ``deadline_s`` has expired
+        on the metrics clock ``TIMED_OUT`` (JAX :2309-2327), freeing its
+        slot. The unit in flight lands first: a timed-out request keeps
+        every token it generated, and one the flush finishes stays
+        FINISHED."""
+        now = self.metrics.clock()
+        expired = [r for r in self._requests.values()
+                   if r.deadline_s is not None
+                   and now - r.submit_t >= r.deadline_s]
+        if not expired:
+            return
+        self._flush_pending(finished)
+        for r in expired:
+            if r.rid not in self._requests:
+                continue                 # finished by the flush
+            self._terminate(r, RequestState.TIMED_OUT, finished)
+            self.metrics.record_timeout(r.rid)
+
+    def cancel(self, rid: int) -> Request:
+        """Cancel an in-flight request by id (JAX :2339-2355); returns
+        the terminal Request, evicted from the engine. The unit in flight
+        lands first (its tokens are part of the result); if it finished
+        the request, the FINISHED record is returned instead."""
+        req = self._requests[rid]
+        self._flush_pending()
+        if rid not in self._requests:
+            for i, r in enumerate(self._finish_buf):
+                if r.rid == rid:
+                    return self._finish_buf.pop(i)
+            raise KeyError(rid)
+        out: List[Request] = []
+        self._terminate(req, RequestState.CANCELLED, out)
+        self.metrics.record_cancelled(rid)
+        return out[0]
+
+    def _terminate(self, req: Request, state: RequestState,
+                   finished: List[Request]) -> None:
+        """The degradation paths' terminal transition (JAX :2473): the
+        request leaves the scheduler (its slot freed, pages returned, the
+        slot's decode position parked on the sentinel so no later unit
+        writes for it) and the engine; the caller owns it from here, as
+        after ``_finish``. A unit launched before holds the slot's old
+        (slot, rid) pair, so its tokens for the slot are discarded."""
+        had_slot = req.state in (RequestState.PREFILLING,
+                                 RequestState.DECODING)
+        self.scheduler.cancel(req, state)
+        if had_slot:
+            self._t[req.slot] = self.max_len
+            self._chain_dirty[req.slot] = True
+            if self._draft is not None:
+                self._draft.end_slot(req.slot)
+            self.pool.release_slot(req.slot)
+        if req.donor_ref is not None:
+            # admitted with a copy-on-write donor hold but ended before
+            # its prefill turn consumed it
+            self.pool.decref(req.donor_ref)
+            req.donor_ref = None
+        del self._requests[req.rid]
+        finished.append(req)
 
     def health(self) -> Dict:
         """Readiness snapshot: accepting work, queue depth, slots,
@@ -807,6 +989,7 @@ class ServingEngine:
         return {
             "status": "ok" if accepting else "saturated",
             "accepting": accepting,
+            "engine_id": self.engine_id,
             "device": str(self.device),
             "queue_depth": sch.queue_depth,
             "max_queue": sch.max_queue,
@@ -815,6 +998,8 @@ class ServingEngine:
             "requests": {"in_flight": len(self._requests),
                          "finished": m.requests_finished,
                          "rejected": m.requests_rejected,
+                         "timed_out": m.requests_timed_out,
+                         "cancelled": m.requests_cancelled,
                          "preempted": m.requests_preempted},
             "pages": {"total": pool.num_pages, "free": pool.free_pages,
                       "shared": pool.shared_pages,
@@ -834,37 +1019,49 @@ class ServingEngine:
     def _set_slot(self, req: Request, token: int, t: int) -> None:
         self._tok[req.slot] = token
         self._t[req.slot] = t         # where the next decode step writes
+        self._keys[req.slot] = req.rng
         self._chain_dirty[req.slot] = True   # the host owns the input
 
     @staticmethod
-    def _knobs(rows, reqs, n: int, device):
+    def _knob_arrays(rows, reqs, n: int):
         """The per-row sampling knobs ``(temperature, top_k, top_p)`` of
-        ``n`` rows on ``device`` (staged, so no host sync) and the rows'
-        generators: each request's on its rows, greedy elsewhere."""
+        ``n`` rows as host arrays: each request's on its rows, greedy
+        elsewhere."""
         temp = np.zeros(n, np.float32)
         top_k = np.zeros(n, np.int64)
         top_p = np.ones(n, np.float32)
-        gens = [None] * n
         for row, r in zip(rows, reqs):
             temp[row], top_k[row], top_p[row] = (r.temperature, r.top_k,
                                                  r.top_p)
-            gens[row] = r.rng
-        return (*stage([temp, top_k, top_p], device), gens)
+        return [temp, top_k, top_p]
 
-    @staticmethod
-    def _sample(logits, rows: List[int], reqs: List[Request],
-                fused: bool = False):
+    def _sample(self, logits, rows: List[int], reqs: List[Request],
+                fused: bool = False, keys=None):
         """Next tokens ``[n]`` for the logits rows, on their device:
-        argmax for an all-greedy batch, else the per-row sampler (each
-        sampled row draws from its request's own generator):
+        argmax for an all-greedy batch, else the per-row sampler with
+        ``keys`` (``[n, 2]`` per-row keys, or one key for one row):
         ``_sample_vec``, or with ``fused`` the fused epilogue, which
         gives the same tokens. Reads nothing back from the card."""
         if all(r.temperature <= 0.0 for r in reqs):
             return torch.argmax(logits, dim=-1)
-        *knobs, gens = ServingEngine._knobs(rows, reqs, logits.shape[0],
-                                            logits.device)
+        knobs = stage(self._knob_arrays(rows, reqs, logits.shape[0]),
+                      logits.device)
         sampler = sample_tokens if fused else _sample_vec
-        return sampler(logits, *knobs, gens)
+        return sampler(logits, *knobs, keys)
+
+    def _sample_first(self, logits, req: Request) -> int:
+        """A request's first token from its prefill logits ``[1, V]``
+        (JAX ``_sample_first_fn`` :1806): ``rng, sub = split(req.rng)``,
+        then the unfused sampler with ``sub``; ``req.rng`` becomes
+        ``rng``. A greedy request's key draws nothing and stays. One read
+        of the card: the token and the new key together."""
+        if req.temperature <= 0.0:
+            return int(self._sample(logits, [0], [req])[0])
+        pair = prng.split(stage([req.rng], self.device)[0])
+        tok = self._sample(logits, [0], [req], keys=pair[1])
+        host = torch.cat([tok.view(1), pair[0]]).cpu().numpy()
+        req.rng = host[1:].copy()
+        return int(host[0])
 
     def _advance_prefill(self, req: Request, finished: List[Request]):
         toks = req.context_tokens
@@ -917,7 +1114,7 @@ class ServingEngine:
             return
         if self.on_logits is not None:
             self.on_logits("prefill", logits, [0])
-        token = int(self._sample(logits, [0], [req])[0])   # prefill's sync
+        token = self._sample_first(logits, req)            # prefill's sync
         req.generated.append(token)
         self.metrics.record_first_token(req.rid)
         if req.done:
@@ -1021,17 +1218,20 @@ class ServingEngine:
 
     def _fetch(self, p: _PendingStep):
         """THE decode loop's host sync (JAX :903): wait for a launched
-        unit's host copies and read them, ``(tokens [S, count], MoE stats
-        or None)``. ``fetch_seconds`` totals the time blocked here."""
+        unit's host copies and read them, ``(tokens [S, count], keys [S,
+        2] or None, MoE stats or None)``. ``fetch_seconds`` totals the
+        time blocked here."""
         t0 = self._metrics.clock()
         if p.event is not None:
             p.event.synchronize()
         host = [h.numpy() for h in p.host]
         self.fetch_seconds += self._metrics.clock() - t0
-        toks = host[0] if host[0].ndim == 2 else host[0][:, None]
-        stats = None if len(host) == 1 else {"expert_load": host[1],
-                                             "router_entropy": host[2]}
-        return toks, stats
+        toks = host.pop(0)
+        toks = toks if toks.ndim == 2 else toks[:, None]
+        keys = None if p.keys is None else host.pop(0)
+        stats = None if not host else {"expert_load": host[0],
+                                       "router_entropy": host[1]}
+        return toks, keys, stats
 
     def _flush_pending(self, out: Optional[List[Request]] = None) -> None:
         """Consume the in-flight unit, if any (JAX :915); the requests it
@@ -1059,7 +1259,12 @@ class ServingEngine:
         if not any(running.get(s) is not None and running[s].rid == r
                    for s, r in p.slots):
             return            # every covered stream retired: drop it whole
-        toks, stats = self._fetch(p)
+        toks, keys, stats = self._fetch(p)
+        if keys is not None:
+            # chain-live slots take the unit's post-split keys; a slot
+            # the host took over since its launch keeps its mirror
+            live = ~self._chain_dirty
+            self._keys[live] = keys[live]
         self._note_moe_route(stats)
         now = self._metrics.clock()
         done: List[Request] = []
@@ -1124,8 +1329,8 @@ class ServingEngine:
         nothing queued or prefilling (admission would wait K steps) and
         every stream's remaining budget, net of its tokens in flight,
         covering the window (the stop masks run on the device; the budget
-        has none). Deadlines would end quiescence too; they wait for
-        ROADMAP Queue 1 item 4."""
+        has none), and no deadline in the batch (expiry is checked once
+        per iteration)."""
         k = self.fuse_steps
         if k < 2:
             return 0
@@ -1134,6 +1339,8 @@ class ServingEngine:
             return 0
         infl = self._inflight()
         for slot, r in sch.running.items():
+            if r.deadline_s is not None:
+                return 0
             if r.max_new_tokens - len(r.generated) - infl.get(slot, 0) < k:
                 return 0
         return k
@@ -1145,7 +1352,9 @@ class ServingEngine:
         WITHOUT waiting for it (JAX :1096). The input tokens chain on the
         device from the in-flight unit's feedback (``prev.last``) where
         the chain is live, and come from the host for slots the host
-        took over since (a new stream, a flush). Host arrays go through
+        took over since (a new stream, a flush); a sampled unit's
+        per-slot keys chain the same way (``prev.keys``, else the host
+        mirror: JAX's ``_merge_keys`` :1056). Host arrays go through
         ``stage`` (pinned, non-blocking), the outputs' host copies are
         queued behind the kernels: on the card the launch never waits
         for it. The host frontier ``_t`` moves past the positions the
@@ -1156,8 +1365,16 @@ class ServingEngine:
         live, reqs = list(running), list(running.values())
         own = prev is None or dirty.all()    # the host's tokens only
         mix = not own and dirty.any()        # the host's where dirty
+        sampled = not greedy_only
+        # the keys chain from the unit in flight only if it carried some
+        own_keys = own or prev.keys is None
         host = [self._t] + ([self._tok] if own or mix else []) \
             + ([dirty] if mix else [])
+        if sampled:
+            if fuse:
+                host += self._knob_arrays(live, reqs, self.num_slots)
+            if own_keys or mix:
+                host.append(self._keys)
         if fuse:
             stop = np.full(self.num_slots, -1, np.int64)
             for slot, r in running.items():
@@ -1169,9 +1386,20 @@ class ServingEngine:
             tok = next(staged)
         elif mix:
             tok = next(staged)
-            tok = torch.where(next(staged), tok, prev.last)
+            dirty_dev = next(staged)
+            tok = torch.where(dirty_dev, tok, prev.last)
         else:
             tok = prev.last
+        keys = None
+        if sampled:
+            knobs = [next(staged) for _ in range(3)] if fuse else None
+            if own_keys:
+                keys = next(staged)
+            elif mix:
+                keys = torch.where(dirty_dev[:, None], next(staged),
+                                   prev.keys)
+            else:
+                keys = prev.keys
         tables = self.pool.device_tables()
         kw = self._moe_step_kw()
         on_logits = None
@@ -1179,36 +1407,42 @@ class ServingEngine:
             def on_logits(logits):
                 self.on_logits("decode", logits, live)
         if fuse:
-            knobs = {}
-            if not greedy_only:
-                *vecs, gens = self._knobs(live, reqs, self.num_slots,
-                                          self.device)
-                knobs = dict(zip(("temperature", "top_k", "top_p"), vecs),
-                             generators=gens,
-                             sampler=(sample_tokens if self.fused_sampling
-                                      else _sample_vec))
-            nxt, _, stats = decode_fused_slots(
+            knob_kw = {}
+            if sampled:
+                knob_kw = dict(zip(("temperature", "top_k", "top_p"), knobs),
+                               keys=keys, sampler=(
+                                   sample_tokens if self.fused_sampling
+                                   else _sample_vec))
+            nxt, _, keys, stats = decode_fused_slots(
                 self.module, self._params, self.pool.cache, tok, t_dev,
                 next(staged), fuse, tables, self.page_len,
-                on_logits=on_logits, **knobs, **kw)
+                on_logits=on_logits, paged_kernel=self._paged_kernel,
+                **knob_kw, **kw)
             last, count = nxt[:, -1], fuse
         else:
             logits, _, *moe = decode_step_slots_paged(
                 self.module, self._params, self.pool.cache, tok, t_dev,
-                tables, self.page_len, **kw)
+                tables, self.page_len, paged_kernel=self._paged_kernel,
+                **kw)
             if on_logits is not None:
                 on_logits(logits)
-            nxt = self._sample(logits, live, reqs,
-                               fused=self.fused_sampling)
+            if sampled:
+                # one split of every slot's key: the second half draws,
+                # the first carries (JAX :1358-1361)
+                pair = prng.split(keys)
+                keys = pair[:, 0]
+            nxt = self._sample(logits, live, reqs, self.fused_sampling,
+                               None if keys is None else pair[:, 1])
             stats = moe[0] if moe else None
             last, count = nxt, 1
-        outputs = [nxt] if stats is None else [
-            nxt, stats["expert_load"], stats["router_entropy"]]
+        outputs = [nxt] + ([keys] if keys is not None else []) \
+            + ([] if stats is None else [stats["expert_load"],
+                                         stats["router_entropy"]])
         host_out, event = self._post(outputs)
         for slot, _ in slots:
             self._t[slot] += count
             dirty[slot] = False          # the chain is live until overridden
-        return _PendingStep(last, host_out, event, slots, count, t0)
+        return _PendingStep(last, keys, host_out, event, slots, count, t0)
 
     # --- MoE routing telemetry / admission cost ----------------------------
 
@@ -1377,15 +1611,20 @@ class ServingEngine:
 
     def _walk(self, logits, toks, parents):
         """``tree_walk`` over the verify logits: greedy for an all-greedy
-        batch, else each sampled slot draws from its own generator."""
+        batch, else from the slots' keys (the host mirror: a speculative
+        iteration runs with the pipeline drained), one split per emitted
+        token; the walked keys become the mirror (JAX :1519-1530)."""
         running = self.scheduler.running
         if all(r.temperature <= 0.0 for r in running.values()):
-            return tree_walk(logits, toks, parents)
-        temp, top_k, top_p, gens = self._knobs(
-            list(running), list(running.values()), self.num_slots,
-            self.device)
-        return tree_walk(logits, toks, parents, temperature=temp,
-                         top_k=top_k, top_p=top_p, generators=gens)
+            return tree_walk(logits, toks, parents)[:3]
+        temp, top_k, top_p, keys = stage(
+            self._knob_arrays(list(running), list(running.values()),
+                              self.num_slots) + [self._keys], self.device)
+        emitted, n_emit, path, keys = tree_walk(
+            logits, toks, parents, temperature=temp, top_k=top_k,
+            top_p=top_p, keys=keys)
+        self._keys = keys.cpu().numpy().copy()
+        return emitted, n_emit, path
 
     def _spec_step(self, finished: List[Request], t0: float) -> None:
         """One linear draft-and-verify iteration over the decode batch:
@@ -1408,7 +1647,8 @@ class ServingEngine:
         toks_d, t_d = stage([toks, self._t], self.device)
         logits, _, *moe = verify_step_slots_paged(
             self.module, self._params, self.pool.cache, toks_d, t_d,
-            self.pool.device_tables(), self.page_len, **self._moe_step_kw())
+            self.pool.device_tables(), self.page_len,
+            paged_kernel=self._paged_kernel, **self._moe_step_kw())
         self._note_moe_route(_host_stats(moe))
         if self.on_logits is not None:
             self.on_logits("verify", logits, list(running.keys()))
@@ -1469,7 +1709,7 @@ class ServingEngine:
         logits, _, kv_win, *moe = verify_step_slots_paged(
             self.module, self._params, self.pool.cache, toks_d, t_dev,
             tables, self.page_len, tree={"depth": depth_d, "anc": anc_d},
-            **self._moe_step_kw())
+            paged_kernel=self._paged_kernel, **self._moe_step_kw())
         self._note_moe_route(_host_stats(moe))
         if self.on_logits is not None:
             self.on_logits("verify", logits, list(running.keys()))

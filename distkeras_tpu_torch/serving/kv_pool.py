@@ -18,9 +18,11 @@ page_len/2, Dh]`` (``pack_int4``'s half-split, even ``page_len``) while
 its staging cache stays unpacked. ``PrefixCache`` hash-conses full prompt
 pages under a chained token key (``match`` :726, ``register`` :794,
 ``evict_one`` :860, ``reclaim`` :949), serving a partial page match
-copy-on-write. The host offload tier (``host_pages``) and the byte
-budget (``hbm_budget``, ``reserve_bytes``) are not ported yet: they
-raise naming their ROADMAP item.
+copy-on-write. ``hbm_budget`` sizes the pool from a byte budget
+(:245-290): whole pages of ``hbm_budget - reserve_bytes``, the same
+``num_pages`` as JAX's for the same budget; the sink page comes on top
+(``sink_bytes``). The host offload tier (``host_pages``) is not ported
+yet: it raises naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ from distkeras_tpu_torch.models.decoding import (CACHE_PLANES, cache_kind,
                                                  init_cache, pack_int4,
                                                  sink_views, unpack_int4)
 
-_ENGINE_API = "Queue 1 item 4 (the engine's remaining synchronous API)"
 _HOST_OFFLOAD = "Queue 1 item 8 (host KV offload)"
 
 #: numpy -> torch dtypes of the arrays ``stage`` moves
@@ -80,15 +81,11 @@ class PagedKVPool:
                  page_len: int = 16, num_pages: Optional[int] = None,
                  dtype=torch.float32, device=None, host_pages: int = 0,
                  hbm_budget: Optional[int] = None, reserve_bytes: int = 0):
-        # the JAX pool's options of later slices: their "off" values pass
-        for name, value, off, item in (
-                ("host_pages", host_pages, 0, _HOST_OFFLOAD),
-                ("hbm_budget", hbm_budget, None, _ENGINE_API),
-                ("reserve_bytes", reserve_bytes, 0, _ENGINE_API)):
-            if value != off:
-                raise NotImplementedError(
-                    f"PagedKVPool({name}={value!r}) is not ported yet: "
-                    f"ROADMAP, {item}")
+        # the JAX pool's host tier is a later slice: its "off" value passes
+        if host_pages != 0:
+            raise NotImplementedError(
+                f"PagedKVPool(host_pages={host_pages!r}) is not ported "
+                f"yet: ROADMAP, {_HOST_OFFLOAD}")
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if max_len < 1:
@@ -107,16 +104,27 @@ class PagedKVPool:
                 f"page_len must be even, got {page_len}")
         #: logical pages per slot: the page-table width (covers max_len)
         self.pages_per_slot = -(-self.max_len // self.page_len)
+        #: bytes one physical page takes across every layer's planes:
+        #: payload (int4: packed) and scale planes
+        self.page_bytes = self._page_bytes(module, self.page_len, dtype,
+                                           self.max_len)
+        if hbm_budget is not None:
+            # whole pages of what the budget leaves after the reserve
+            # (the engine's resident weights)
+            if num_pages is not None:
+                raise ValueError("pass num_pages or hbm_budget, not both")
+            num_pages = (int(hbm_budget) - int(reserve_bytes)) \
+                // self.page_bytes
+            if num_pages < 1:
+                raise ValueError(
+                    f"hbm_budget {hbm_budget} - reserve {reserve_bytes} "
+                    f"does not fit one {self.page_bytes}-byte page")
         if num_pages is None:
             num_pages = self.num_slots * self.pages_per_slot
         self.num_pages = int(num_pages)
         if self.num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got {self.num_pages}")
         self.dtype = dtype
-        #: bytes one physical page takes across every layer's planes:
-        #: payload (int4: packed) and scale planes
-        self.page_bytes = self._page_bytes(module, self.page_len, dtype,
-                                           self.max_len)
         # the page axis is init_cache's batch axis, one page longer for
         # the sink; the position table is validated against max_len
         full = init_cache(module, self.num_pages + 1, self.page_len, dtype,
@@ -137,6 +145,12 @@ class PagedKVPool:
         # pop() hands out page 0 first (deterministic placement)
         self._free = list(range(self.num_pages))[::-1]
         self._tables_dev = None
+
+    def allocated_bytes(self) -> int:
+        """Bytes the pool's page planes hold on the device: ``num_pages``
+        pages and the sink page, ``(num_pages + 1) * page_bytes``."""
+        return sum(x.numel() * x.element_size() for kv in self.cache
+                   if kv is not None for x in kv["sink"].values())
 
     @staticmethod
     def _page_bytes(module, page_len: int, dtype, max_len: int) -> int:

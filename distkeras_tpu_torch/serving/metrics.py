@@ -4,6 +4,7 @@ the engine records.
 Mirrors the matching part of ``distkeras_tpu/serving/metrics.py``: per
 request TTFT (submit -> first token), TPOT and end-to-end latency; per
 iteration queue depth, slot occupancy and the decode time and tokens;
+the degraded ends (timed out, cancelled; :200-209),
 prefill chunks, preemptions, prefix-cache lookups, the page-budget
 gauges and the speculation counters (drafts proposed and accepted per
 verify, streams disabled and re-enabled, tree width and accepted path
@@ -70,6 +71,8 @@ class ServingMetrics:
         self._occ = _Histogram(reservoir)
         self.requests_finished = 0
         self.requests_rejected = 0
+        self.requests_timed_out = 0
+        self.requests_cancelled = 0
         self.requests_preempted = 0
         self.tokens_generated = 0
         self.prefill_chunks = 0
@@ -128,6 +131,18 @@ class ServingMetrics:
 
     def record_rejected(self) -> None:
         self.requests_rejected += 1
+
+    def record_timeout(self, rid: int) -> None:
+        """A request's deadline expired before it finished (JAX :200)."""
+        self.submit_ts.pop(rid, None)
+        self.first_ts.pop(rid, None)
+        self.requests_timed_out += 1
+
+    def record_cancelled(self, rid: int) -> None:
+        """A request cancelled by API (JAX :206)."""
+        self.submit_ts.pop(rid, None)
+        self.first_ts.pop(rid, None)
+        self.requests_cancelled += 1
 
     def record_preemption(self, rid: int) -> None:
         """Not terminal: TTFT already fired, latency runs to the finish."""
@@ -245,6 +260,8 @@ class ServingMetrics:
         return {
             "requests_finished": self.requests_finished,
             "requests_rejected": self.requests_rejected,
+            "requests_timed_out": self.requests_timed_out,
+            "requests_cancelled": self.requests_cancelled,
             "requests_preempted": self.requests_preempted,
             "pages": self._pages,
             "prefix_cache": {"lookups": self.prefix_lookups,

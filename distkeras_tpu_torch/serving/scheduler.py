@@ -7,8 +7,11 @@ policy: priority classes (lower ``priority`` admits first,
 FCFS within a class, preempted requests at the front of their class),
 admission gated by the engine on the free-page budget, ONE prefill
 stream (the oldest admitted request advances one prompt chunk per
-iteration), and preemption of an admitted request back to the queue
-with its generated tokens kept. Pure host-side bookkeeping.
+iteration), preemption of an admitted request back to the queue
+with its generated tokens kept, and the terminal states of the
+degradation paths (``TIMED_OUT`` for an expired ``deadline_s``,
+``CANCELLED`` for ``ServingEngine.cancel``; ``cancel`` :250-265). Pure
+host-side bookkeeping.
 """
 
 from __future__ import annotations
@@ -38,6 +41,14 @@ class RequestState(enum.Enum):
     PREFILLING = "prefilling"    # slot assigned, prompt chunks running
     DECODING = "decoding"        # in the slot-batched decode loop
     FINISHED = "finished"        # stop token or length limit reached
+    TIMED_OUT = "timed_out"      # per-request deadline_s expired
+    CANCELLED = "cancelled"      # cancelled by API
+
+
+#: states a request never leaves
+TERMINAL_STATES = frozenset(
+    {RequestState.FINISHED, RequestState.TIMED_OUT,
+     RequestState.CANCELLED})
 
 
 @dataclass(eq=False)
@@ -45,9 +56,12 @@ class Request:
     """One serving request and its progress. Sampling knobs use the
     engine's per-slot sentinels (``temperature 0`` = greedy, ``top_k 0``
     = no truncation, ``top_p 1.0`` = no nucleus cut, ``stop_token -1`` =
-    never stop). ``rng`` is the request's own ``torch.Generator``
-    (seeded from ``seed``): it survives preemption, so a sampled stream
-    draws the same tokens whatever the schedule."""
+    never stop). ``rng`` is the request's own PRNG key
+    (``ops.prng.key(seed)``, a host ``[2]`` array of uint32 words): a
+    preemption keeps the slot's key there, so a sampled stream draws the
+    same tokens whatever the schedule. ``deadline_s`` is a submit-to-
+    finish budget on the engine's metrics clock; ``error`` the cause of
+    a degraded end (None)."""
 
     rid: int
     prompt: np.ndarray                   # [P] int32
@@ -63,7 +77,9 @@ class Request:
     prefill_pos: int = 0                 # context positions ingested
     generated: List[int] = field(default_factory=list)
     rng: object = None
+    deadline_s: Optional[float] = None
     submit_t: float = 0.0
+    error: Optional[BaseException] = None
     n_preempted: int = 0
     # engine bookkeeping of the admission plan: positions served by
     # shared prefix pages, how many of those pages are whole, the pages
@@ -193,6 +209,23 @@ class PriorityScheduler:
         """Finish a request and free its slot."""
         self._evict(req)
         req.state = RequestState.FINISHED
+
+    def cancel(self, req: Request,
+               state: RequestState = RequestState.CANCELLED) -> None:
+        """Terminate a request from any live state (the degradation
+        paths: ``TIMED_OUT``, ``CANCELLED``): a queued request leaves
+        the queue, an admitted one also frees its slot. Another target
+        state raises ``ValueError``; a terminal request raises (the
+        double-release guard)."""
+        if state not in (RequestState.CANCELLED, RequestState.TIMED_OUT):
+            raise ValueError(
+                f"cancel() target state must be CANCELLED or TIMED_OUT, "
+                f"got {state}")
+        if req.state is RequestState.QUEUED:
+            self.waiting.remove(req)
+        else:
+            self._evict(req)
+        req.state = state
 
     def preempt(self, req: Request) -> None:
         """Evict an admitted request back to the queue: slot freed,

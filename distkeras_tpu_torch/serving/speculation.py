@@ -21,8 +21,8 @@ through one tree-masked window (the ancestor mask of the paged kernel).
 
 Drafts are deterministic (argmax or lookup): sampling from the target
 and accepting while it equals the draft is then exact rejection
-sampling, and a sampled stream stays the plain sampled stream (one draw
-per emitted token from the request's own generator).
+sampling, and a sampled stream stays the plain sampled stream (one split
+of the request's key per emitted token).
 """
 
 from __future__ import annotations

@@ -1356,3 +1356,94 @@ def test_decode_launch_is_capture_ready(dev, num_steps):
         _small_lm(dev, num_kv_heads=2), dev, num_steps)
     assert same_tokens and same_pages
     assert replay_ms > 0
+
+
+# --- K7: JAX's threefry draw (csrc/prng.cu) -----------------------------------
+
+
+@pytest.mark.parametrize("case", chip_smoke.K7_CASES,
+                         ids=[c[0] for c in chip_smoke.K7_CASES])
+def test_k7_matches_plain_version(dev, case):
+    """K7 against its plain version on the card at phase 26's shapes:
+    splits, bits and uniforms bitwise, the Gumbel field within
+    ``prng.GUMBEL_ULPS``; one launch a call, bitwise repeatable."""
+    from distkeras_tpu_torch.ops import prng
+    _, r, n, mode = case
+    keys = prng.split(prng.key(5), r).to(dev)
+    lo, hi = chip_smoke._k7_range(mode)
+    before = kernels.launch_counts()["prng"]
+    out = prng._launch(keys, n, mode, lo, hi)
+    assert kernels.launch_counts()["prng"] == before + 1
+    ref = prng.draw_reference(keys, n, mode, lo, hi)
+    torch.cuda.synchronize()
+    if mode == prng.GUMBEL:
+        assert prng.ulps(out, ref).max() <= prng.GUMBEL_ULPS
+    else:
+        assert torch.equal(out, ref)
+    assert torch.equal(out, prng._launch(keys, n, mode, lo, hi))
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 5), (4, 29), (2, 3, 1000)])
+def test_k7_draws_equal_the_cpu(dev, shape):
+    """The public draws on card keys against the same draws on CPU keys
+    (the plain version there): keys, splits, bits, float32/bf16/fp16
+    uniforms and Bernoulli masks bitwise; Gumbel and normal fields
+    within the stated ulps; batched keys too."""
+    from distkeras_tpu_torch.ops import prng
+    for rng in (prng.key(2 ** 32 + 9), prng.split(prng.key(3), 4)):
+        card = rng.to(dev)
+        assert torch.equal(prng.split(card, 3).cpu(), prng.split(rng, 3))
+        assert torch.equal(prng.random_bits(card, shape).cpu(),
+                           prng.random_bits(rng, shape))
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            assert torch.equal(
+                prng.uniform(card, shape, dt, -0.3, 0.3).cpu(),
+                prng.uniform(rng, shape, dt, -0.3, 0.3))
+        assert torch.equal(prng.bernoulli(card, 0.7, shape).cpu(),
+                           prng.bernoulli(rng, 0.7, shape))
+        assert prng.ulps(prng.gumbel(card, shape).cpu(),
+                         prng.gumbel(rng, shape)).max() <= prng.GUMBEL_ULPS
+        assert prng.ulps(prng.normal(card, shape).cpu(),
+                         prng.normal(rng, shape)).max() <= prng.NORMAL_ULPS
+
+
+def test_model_built_on_the_card_equals_the_cpu_build(dev):
+    """``Model.build(seed=)`` draws on the card (K7) the CPU's weights,
+    bitwise: the LM's initializers are uniform."""
+    kw = dict(d_model=64, num_heads=4, num_layers=2, mlp_ratio=2)
+    card = Model.build(zoo.transformer_lm(97, **kw), (16,), seed=4,
+                       device=dev)
+    cpu = Model.build(zoo.transformer_lm(97, **kw), (16,), seed=4,
+                      device="cpu")
+    for a, b in zip(card.module.parameters(), cpu.module.parameters()):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_sampled_card_engine_equals_cpu_float32_choices(dev):
+    """A float32 model's sampled streams through the card engine (K7 keys
+    and fields, K3 readout) equal the CPU engine's on the same weights,
+    with the unfused and the fused sampler: the keys are bitwise and the
+    Gumbel fields within a few ulps of each other."""
+    cpu = Model.build(zoo.transformer_lm(97, d_model=128, num_heads=4,
+                                         num_layers=2), (16,), seed=1,
+                      device="cpu")
+    card = Model.build(zoo.transformer_lm(97, d_model=128, num_heads=4,
+                                          num_layers=2), (16,), seed=1,
+                       device=dev)
+    rs = np.random.RandomState(0)
+    reqs = [(rs.randint(0, 97, 20), dict(temperature=1.5, seed=3)),
+            (rs.randint(0, 97, 9), dict(temperature=2.0, top_k=10,
+                                        seed=2 ** 32 + 1)),
+            (rs.randint(0, 97, 14), {})]
+
+    def streams(model, device, fused):
+        eng = ServingEngine(model, num_slots=3, max_len=64, page_len=16,
+                            device=device, fused_sampling=fused)
+        rids = [eng.submit(p, 16, **k) for p, k in reqs]
+        out = eng.run(max_steps=300)
+        return [out[r] for r in rids]
+
+    for fused in (False, True):
+        for a, b in zip(streams(card, dev, fused),
+                        streams(cpu, "cpu", fused)):
+            np.testing.assert_array_equal(a, b)

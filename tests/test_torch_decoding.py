@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from distkeras_tpu.models import Model as JaxModel
@@ -18,6 +19,7 @@ from distkeras_tpu.models import zoo as jax_zoo
 
 from distkeras_tpu_torch.models import Model, decoding as pd, \
     from_jax_params, zoo
+from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.attention import NEG_INF
 
 V = 41
@@ -143,28 +145,31 @@ def test_masked_logits_candidate_set_matches_jax_with_ties():
 
 
 def test_sample_vec_draws_inside_the_candidate_set():
-    """Draws cannot be byte-identical to JAX's (threefry is not ported);
-    they are held to invariants: a sampled token is a candidate, a
-    greedy row is the argmax, and a seed repeats its stream."""
+    """Per-row keys (the engine's) and one key (``generate()``'s): every
+    draw equals JAX's ``_sample_vec`` on the same keys, a sampled token
+    is a candidate and a greedy row is the argmax."""
     rs = np.random.RandomState(4)
-    logits = torch.from_numpy(rs.randn(3, 64).astype(np.float32))
+    logits_np = rs.randn(3, 64).astype(np.float32)
+    logits = torch.from_numpy(logits_np)
     temp = torch.tensor([0.8, 0.0, 1.5])
     top_k = torch.tensor([5, 0, 0])
     top_p = torch.tensor([1.0, 1.0, 0.5])
     cand = pd._masked_logits_vec(logits, temp, top_k, top_p) > NEG_INF / 2
+    jknobs = [jnp.asarray(a.numpy()) for a in (temp, top_k, top_p)]
 
-    def draws(seed):
-        gens = [torch.Generator().manual_seed(seed), None,
-                torch.Generator().manual_seed(seed + 1)]
-        return torch.stack([pd._sample_vec(logits, temp, top_k, top_p,
-                                           gens) for _ in range(20)])
-
-    out = draws(9)
+    out = []
+    for i in range(20):
+        for keys in (prng.split(prng.key(9 + i), 3), prng.key(9 + i)):
+            got = pd._sample_vec(logits, temp, top_k, top_p, keys)
+            want = jd._sample_vec(jnp.asarray(logits_np), *jknobs,
+                                  jnp.asarray(keys.numpy(), jnp.uint32))
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            out.append(got)
+    out = torch.stack(out)
     assert torch.all(out[:, 1] == torch.argmax(logits[1]))
     for row in (0, 2):
         assert cand[row, out[:, row]].all()
     assert len(set(out[:, 0].tolist())) > 1      # it does sample
-    torch.testing.assert_close(out, draws(9))
 
 
 # --- the fixed-shape paged write ---------------------------------------------
@@ -306,11 +311,11 @@ def test_decode_fused_slots_matches_jax(cfg):
     pcache = [None if i not in planes else
               {k: torch.from_numpy(a.copy()) for k, a in planes[i].items()}
               for i in range(len(pm.module.layers))]
-    ptoks, pcache, stats = pd.decode_fused_slots(
+    ptoks, pcache, keys, stats = pd.decode_fused_slots(
         pm.module, pm.params, pcache, torch.from_numpy(tok).long(),
         torch.from_numpy(FUSE_T), torch.from_numpy(stop).long(), 4,
         torch.from_numpy(FUSE_TABLE), PAGE_LEN)
-    assert stats is None and tuple(ptoks.shape) == (4, 4)
+    assert keys is None and stats is None and tuple(ptoks.shape) == (4, 4)
     np.testing.assert_array_equal(ptoks.numpy()[:3], jtoks[:3])
     for jkv, pkv in zip(jcache, pcache):
         if jkv is not None:

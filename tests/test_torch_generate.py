@@ -24,6 +24,7 @@ from distkeras_tpu.models import zoo as jax_zoo
 
 from distkeras_tpu_torch.models import Model, decoding as pd, \
     from_jax_params, zoo
+from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.attention import NEG_INF
 
 V = 41
@@ -204,7 +205,8 @@ def test_sampled_draw_lies_in_jax_candidate_set(monkeypatch, temperature,
                                                 top_k, top_p):
     """JAX's ``_sample`` hands its masked logits to
     ``jax.random.categorical``; capturing them gives JAX's exact
-    candidate set, and every port draw must lie in it."""
+    candidate set, and every port draw must lie in it. With the real
+    ``categorical`` back, each draw equals JAX's on the same key."""
     rs = np.random.RandomState(9)
     logits = rs.randint(-4, 4, (3, 50)).astype(np.float32)    # many ties
     seen = {}
@@ -217,9 +219,14 @@ def test_sampled_draw_lies_in_jax_candidate_set(monkeypatch, temperature,
     jd._sample(jnp.asarray(logits), temperature, top_k,
                jax.random.PRNGKey(0), top_p)
     cand = seen["lf"] > NEG_INF / 2
-    gen = torch.Generator().manual_seed(11)
+    monkeypatch.undo()
+    keys = prng.split(prng.key(11), 40)
     draws = torch.stack([pd._sample(torch.from_numpy(logits), temperature,
-                                    top_k, gen, top_p) for _ in range(40)])
+                                    top_k, k, top_p) for k in keys])
+    for k, d in zip(keys, draws):
+        want = jd._sample(jnp.asarray(logits), temperature, top_k,
+                          jnp.asarray(k.numpy(), jnp.uint32), top_p)
+        np.testing.assert_array_equal(d.numpy(), np.asarray(want))
     for row in range(3):
         assert cand[row, draws[:, row].numpy()].all()
     if top_k == 1:

@@ -37,6 +37,7 @@ from distkeras_tpu_torch.models import decoding as pd
 from distkeras_tpu_torch.models.moe import MoE, _dispatch_plan, \
     moe_all_to_all
 from distkeras_tpu_torch.ops import moe_kernels as mk
+from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.parallel import make_train_step
 from distkeras_tpu_torch.serving import NgramDraft, Request, ServingEngine
 
@@ -114,7 +115,7 @@ def _layer_pair(e=8, d=16, hid=32, seed=0, **kw):
     jm = JaxMoE(e, hid, **kw)
     params, _, _ = jm.init(jax.random.PRNGKey(seed), (4, d))
     pm = MoE(e, hid, **kw)
-    pm.build((4, d), torch.Generator())
+    pm.build((4, d), prng.key(seed))
     pm.eval()
     return jm, params, pm, _tree(params)
 
@@ -369,7 +370,7 @@ def test_unported_moe_options_raise_naming_the_roadmap():
     # training through MoE (ROADMAP Queue 1 item 2) is ported: the layer
     # in training mode publishes its balance loss, an MoE LM gets a step
     pm = MoE(8, 32, aux_loss_weight=0.01)
-    pm.build((4, 16), torch.Generator())
+    pm.build((4, 16), prng.key(0))
     pm.train()
     out = pm.apply(pm.param_tree(), torch.zeros(1, 2, 16))
     assert out.shape == (1, 2, 16) and collect_aux_losses(pm).item() > 0
@@ -604,6 +605,30 @@ def test_engine_zero_bubble_loop_matches_generate(moe_lms, monkeypatch, kw):
     moe = eng.metrics.summary()["moe"]
     assert moe is not None and sum(moe["expert_load"]) > 0
     assert bool(windows) == ("fuse_steps" in kw)
+
+
+@pytest.mark.parametrize("kw", [{}, {"fuse_steps": 4}],
+                         ids=["overlap", "fuse4"])
+def test_engine_sampled_dispatched_matches_jax_engine(moe_lms, kw):
+    """Sampled requests through the dispatched MoE decode (and a greedy
+    neighbour): every stream equals the JAX engine's with the same seeds
+    and knobs, byte for byte (JAX's threefry key chain)."""
+    from distkeras_tpu.serving.engine import ServingEngine as JaxEngine
+    jm, pm = moe_lms
+    reqs = [(PATTERN[:4], dict(temperature=1.1, top_k=5, seed=3)),
+            (PATTERN[:5], {}),
+            (PATTERN[:6], dict(temperature=2.5, top_p=0.95, seed=8))]
+
+    def streams(eng):
+        rids = [eng.submit(p, 10, **k) for p, k in reqs]
+        out = eng.run(max_steps=400)
+        return [np.asarray(out[r]) for r in rids]
+
+    got = streams(_engine(pm, num_slots=2, **kw))
+    want = streams(JaxEngine(jm, num_slots=2, max_len=32, **kw))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[1], _ref(jm, PATTERN[:5], 10))
 
 
 # --- telemetry, admission, validation ---------------------------------------

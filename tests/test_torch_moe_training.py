@@ -38,6 +38,7 @@ from distkeras_tpu_torch.models import (Model, collect_aux_losses,
 from distkeras_tpu_torch.models.moe import MoE
 from distkeras_tpu_torch.ops import losses, optimizers
 from distkeras_tpu_torch.ops import moe_kernels as mk
+from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.parallel import (SingleTrainer, TrainCarry,
                                           make_train_step)
 
@@ -242,7 +243,7 @@ def _layer_pair(e, top_k, dispatch, cf, seed=0, d=16, hid=32, **extra):
     jm = JaxMoE(e, hid, **kw)
     params, state, _ = jm.init(jax.random.PRNGKey(seed), (4, d))
     pm = MoE(e, hid, **kw)
-    pm.build((4, d), torch.Generator())
+    pm.build((4, d), prng.key(seed))
     tp = {k: _t(np.asarray(v)).requires_grad_(True)
           for k, v in params.items()}
     return jm, params, state, pm, tp
@@ -341,7 +342,7 @@ def test_aux_losses_publish_in_training_only_and_clear():
     pm.apply(tp, x1)                               # clears the stale term
     assert collect_aux_losses(pm) == 0.0
     quiet = MoE(8, 32, dispatch="tokens")
-    quiet.build((4, 16), torch.Generator())
+    quiet.build((4, 16), prng.key(0))
     quiet.train()
     quiet.apply(quiet.param_tree(), x1)
     assert collect_aux_losses(quiet) == 0.0

@@ -40,6 +40,7 @@ from distkeras_tpu_torch.models.attention import (MultiHeadAttention,
                                                   TransformerBlock)
 from distkeras_tpu_torch.models.blocks import Remat
 from distkeras_tpu_torch.models.layers import Dense, Embedding
+from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.attention import dot_product_attention
 from distkeras_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_backward,
@@ -569,7 +570,29 @@ def test_unknown_attn_impl_and_untrainable_dropout():
         num_heads=2, mlp_ratio=2, dropout_rate=0.1), Dense(V)]), (8,),
         device="cpu")
     x = torch.zeros(1, 8, dtype=torch.long)
-    m.apply(x)                        # inference: dropout is the identity
+    ref = m.apply(x)                  # inference: dropout is the identity
     m.module.train()
-    with pytest.raises(NotImplementedError, match="PRNG"):
-        m.module(x)
+    # training without a key is the identity too (JAX's rule); with one
+    # the block drops out both residual branches, the same mask for the
+    # same key, wrapped in Remat or not
+    with torch.no_grad():
+        torch.testing.assert_close(m.module(x), ref, rtol=0, atol=0)
+        a = m.module.apply(m.params, x, rng=prng.key(3))
+        b = m.module.apply(m.params, x, rng=prng.key(3))
+        c = m.module.apply(m.params, x, rng=prng.key(4))
+    assert torch.equal(a, b) and not torch.equal(a, ref)
+    assert not torch.equal(a, c)
+    remat = Model.build(Sequential([Embedding(V, 16), Remat(TransformerBlock(
+        num_heads=2, mlp_ratio=2, dropout_rate=0.1)), Dense(V)]), (8,),
+        device="cpu")
+    for p, q in zip(tree_leaves(m.params), tree_leaves(remat.params)):
+        assert torch.equal(p, q)        # one seed, one key chain
+    remat.module.train()
+    xr = torch.randint(0, V, (2, 8), generator=torch.Generator()
+                       .manual_seed(0))
+    outs = [mm.module.apply(mm.params, xr, rng=prng.key(5))
+            for mm in (m, remat)]
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+    loss = outs[1].square().mean()
+    grads = torch.autograd.grad(loss, tree_leaves(remat.params))
+    assert all(torch.isfinite(g).all() for g in grads)

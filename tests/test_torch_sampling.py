@@ -3,8 +3,9 @@ plain ``sample_epilogue`` token for token against the Pallas kernel in
 interpret mode (and against the JAX reference branch at a misaligned
 vocab) on the same logits and Gumbel field, exact ties at the k-th
 value included; ``sample_tokens`` byte-identical to the unfused
-``_sample_vec`` with the generators left in the same state; and the
-engine's ``fused_sampling`` streams.
+``_sample_vec`` and to JAX's on the same per-row keys; the Gumbel field
+against JAX's ``gumbel_noise``; and the engine's ``fused_sampling``
+streams.
 
 The K4 kernel itself runs only on the card (``tests/test_torch_cuda.py``);
 its sort-free rule (radix descents over the values' bits: the k-th value
@@ -20,10 +21,12 @@ import torch
 
 import jax.numpy as jnp
 
+from distkeras_tpu.models import decoding as jd
 from distkeras_tpu.ops import sampling as jsp
 
 from distkeras_tpu_torch.models.decoding import (_masked_logits_vec,
                                                  _sample_vec)
+from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.attention import NEG_INF
 from distkeras_tpu_torch.ops.sampling import (boundary_partings,
                                               gumbel_noise, sample_epilogue,
@@ -86,35 +89,46 @@ def test_plain_epilogue_misaligned_vocab_matches_jax_reference(seed):
     np.testing.assert_array_equal(_ours(logits, g), _jax(logits, g))
 
 
-def _gens(seed):
-    return [None if t <= 0 else torch.Generator().manual_seed(seed + i)
-            for i, t in enumerate(TEMP)]
+def _row_keys(seed):
+    """Per-row keys, as the engine holds them: one split of a seed."""
+    return prng.split(prng.key(seed), len(TEMP))
 
 
 @pytest.mark.parametrize("seed", range(4))
 def test_sample_tokens_byte_identical_to_sample_vec(seed):
+    """The fused sampler and the unfused one give the same tokens from
+    the same per-row keys, and both equal JAX's ``_sample_vec``."""
     logits = torch.from_numpy(_inputs(seed + 40, 97)[0])
     knobs = [torch.from_numpy(a) for a in (TEMP, TOPK.astype(np.int64),
                                            TOPP)]
-    ga, gb = _gens(seed), _gens(seed)
-    fused = sample_tokens(logits, *knobs, ga)
-    plain = _sample_vec(logits, *knobs, gb)
+    keys = _row_keys(seed)
+    fused = sample_tokens(logits, *knobs, keys)
+    plain = _sample_vec(logits, *knobs, keys)
     assert fused.dtype == plain.dtype
     torch.testing.assert_close(fused, plain, rtol=0, atol=0)
-    for a, b in zip(ga, gb):
-        if a is not None:
-            assert torch.equal(a.get_state(), b.get_state())
+    want = jd._sample_vec(jnp.asarray(logits.numpy()), jnp.asarray(TEMP),
+                          jnp.asarray(TOPK), jnp.asarray(TOPP),
+                          jnp.asarray(keys.numpy(), jnp.uint32))
+    np.testing.assert_array_equal(plain.numpy(), np.asarray(want))
 
 
 def test_gumbel_noise_draws_nothing_for_greedy_rows():
-    gens = _gens(3)
-    before = [None if g is None else g.get_state() for g in gens]
-    noise = gumbel_noise(gens, 50, "cpu")
+    """Every row gets its key's field, JAX's ``gumbel_noise`` within
+    ``prng.GUMBEL_ULPS`` (greedy rows too, as in JAX); what a greedy row's
+    field draws changes nothing: its token is the argmax whatever the
+    noise."""
+    keys = _row_keys(3)
+    noise = gumbel_noise(keys, 50)
     assert noise.shape == (len(TEMP), 50)
-    assert noise[0].abs().max() == 0.0 and noise[1].abs().max() > 0.0
-    for g, st in zip(gens, before):
-        if g is not None:
-            assert not torch.equal(g.get_state(), st)
+    want = np.asarray(jsp.gumbel_noise(jnp.asarray(keys.numpy(), jnp.uint32),
+                                       50))
+    assert prng.ulps(noise, torch.from_numpy(want)).max() \
+        <= prng.GUMBEL_ULPS
+    logits = torch.from_numpy(_inputs(7, 50)[0])
+    knobs = _knobs()
+    a = sample_epilogue(logits, *knobs, noise)
+    b = sample_epilogue(logits, *knobs, -noise)
+    assert int(a[0]) == int(b[0]) == int(torch.argmax(logits[0]))
 
 
 def test_epilogue_validates_shapes():

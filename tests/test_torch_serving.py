@@ -225,9 +225,28 @@ def test_quantized_kv_engine_matches_generate(lms, cache_dtype):
                                 {"tracer": object()}, {"slo": object()},
                                 {"timeseries": object()}])
 def test_later_slices_raise_naming_the_roadmap(lms, kw):
+    """The options of later slices raise naming their ROADMAP item; the
+    ones ported since (``hbm_budget``, ``weights_dtype``,
+    ``decode_kernel``, ``engine_id``) take effect."""
     _, pm = lms
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(pm, device="cpu", **kw)
+    (name, value), = kw.items()
+    if name not in ("hbm_budget", "weights_dtype", "decode_kernel",
+                    "engine_id"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ServingEngine(pm, device="cpu", **kw)
+        return
+    eng = ServingEngine(pm, device="cpu", page_len=4, **kw)
+    if name == "hbm_budget":
+        assert eng.pool.num_pages == (value - eng.param_bytes()) \
+            // eng.pool.page_bytes
+    elif name == "weights_dtype":
+        assert eng._params[1]["attn"]["wqkv"].dtype == torch.bfloat16
+    elif name == "decode_kernel":
+        assert eng.decode_kernel == "off" and not eng._paged_kernel
+    else:
+        assert eng.engine_id == "e0" and eng.health()["engine_id"] == "e0"
+    rid = eng.submit(PATTERN[:4], 3)
+    assert eng.run(max_steps=50)[rid].size == 7
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -237,50 +256,75 @@ def test_later_slices_raise_naming_the_roadmap(lms, kw):
 ])
 def test_pool_options_of_later_slices_raise_naming_the_roadmap(lms, kw,
                                                                 item):
-    """The JAX pool's host tier and byte budget raise naming their
-    ROADMAP item; their "off" values stay accepted."""
+    """The JAX pool's host tier raises naming its ROADMAP item; the byte
+    budget is ported: whole pages of ``hbm_budget - reserve_bytes``
+    (``reserve_bytes`` alone changes nothing). The "off" values stay
+    accepted."""
     _, pm = lms
-    with pytest.raises(NotImplementedError, match=item):
-        PagedKVPool(pm.module, 2, 32, page_len=4, device="cpu", **kw)
+    (name, value), = kw.items()
+    if name == "host_pages":
+        with pytest.raises(NotImplementedError, match=item):
+            PagedKVPool(pm.module, 2, 32, page_len=4, device="cpu", **kw)
+    else:
+        pool = PagedKVPool(pm.module, 2, 32, page_len=4, device="cpu",
+                           **kw)
+        want = (value // pool.page_bytes if name == "hbm_budget"
+                else 2 * 8)
+        assert pool.num_pages == want
+        assert pool.allocated_bytes() == (want + 1) * pool.page_bytes
     pool = PagedKVPool(pm.module, 2, 32, page_len=4, device="cpu",
                        host_pages=0, hbm_budget=None, reserve_bytes=0)
     assert pool.num_pages == 2 * 8
 
 
 def test_build_with_a_jax_key_raises_naming_the_roadmap():
-    """``Model.build(rng=)`` waits for the ported threefry (item 5);
-    ``rng=None`` is the seeded build."""
+    """``Model.build(rng=)`` takes a JAX key (item 5 is ported): the key
+    ``PRNGKey(3)`` gives the weights of ``seed=3``, and ``rng=None`` is
+    the seeded build."""
     spec = zoo.transformer_lm(V, d_model=32, num_heads=4, num_layers=1)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP, Queue 1 item 5"):
-        Model.build(spec, (12,), np.zeros(2, np.uint32), device="cpu")
-    a = Model.build(spec, (12,), None, seed=3, device="cpu")
+    k = Model.build(spec, (12,), np.array([0, 3], np.uint32), device="cpu")
+    a = Model.build(zoo.transformer_lm(V, d_model=32, num_heads=4,
+                                       num_layers=1), (12,), None, seed=3,
+                    device="cpu")
     b = Model.build(zoo.transformer_lm(V, d_model=32, num_heads=4,
                                        num_layers=1), (12,), seed=3,
                     device="cpu")
-    for x, y in zip(a.module.parameters(), b.module.parameters()):
-        assert torch.equal(x, y)
+    for x, y, z in zip(k.module.parameters(), a.module.parameters(),
+                       b.module.parameters()):
+        assert torch.equal(x, y) and torch.equal(y, z)
 
 
 @pytest.mark.parametrize("call", ["submit-deadline", "run-on-degraded",
                                   "cancel"])
 def test_later_slice_calls_raise_naming_the_roadmap(lms, call):
-    """The JAX engine's per-call options of later slices raise naming
-    their ROADMAP item (their "off" values stay accepted)."""
+    """The JAX engine's per-call options (ROADMAP Queue 1 item 4, now
+    ported): a deadline ends its request TIMED_OUT, an unknown
+    ``on_degraded`` raises ``ValueError``, ``cancel`` ends a request
+    CANCELLED; the "off" values stay accepted."""
     _, pm = lms
+    box = [0.0]
     eng = ServingEngine(pm, num_slots=1, max_len=32, device="cpu",
                         hbm_budget=None, weights_dtype="auto",
                         decode_kernel="auto", engine_id=None, tracer=None,
-                        slo=None, timeseries=None)
+                        slo=None, timeseries=None,
+                        metrics=ServingMetrics(clock=lambda: box[0]))
     rid = eng.submit(PATTERN[:4], 2, deadline_s=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 4"):
-        if call == "submit-deadline":
-            eng.submit(PATTERN[:4], 2, deadline_s=1.0)
-        elif call == "run-on-degraded":
-            eng.run(on_degraded="skip")
+    if call == "submit-deadline":
+        late = eng.submit(PATTERN[:4], 2, deadline_s=1.0)
+        box[0] = 5.0
+        out = eng.run(max_steps=50, on_degraded="return")
+        np.testing.assert_array_equal(out[late], PATTERN[:4])
+        assert eng.metrics.requests_timed_out == 1
+    else:
+        if call == "run-on-degraded":
+            with pytest.raises(ValueError, match="on_degraded"):
+                eng.run(on_degraded="skip")
         else:
-            eng.cancel(rid)
-    assert eng.run(max_steps=50, on_degraded="raise")[rid].size == 6
+            gone = eng.submit(PATTERN[:5], 2)
+            assert eng.cancel(gone).state is RequestState.CANCELLED
+            assert eng.metrics.requests_cancelled == 1
+        out = eng.run(max_steps=50, on_degraded="raise")
+    assert out[rid].size == 6
 
 
 # --- GQA and sliding-window models through the engine -------------------------
@@ -1016,3 +1060,412 @@ def test_metrics_window_swap_drains_deferred_host_work(lms):
     assert toks(w0) + toks(w1) == 11
     assert toks(w0) > 0 and toks(w1) > 0
     assert len(out[r0]) == len(PATTERN[:5]) + 12
+
+
+# --- degradation: deadlines, cancel, run(on_degraded=) ----------------------
+#
+# The JAX package's oracles (tests/test_resilience.py, the serving
+# degradation section) rerun on the port under both loops, each against
+# the JAX engine driven through the same scenario with the same loop.
+
+LOOP_KW = [dict(overlap=True), dict(overlap=False)]
+LOOP_IDS = ["overlap", "sync"]
+
+
+def _jax_engine(jm, **kw):
+    from distkeras_tpu.serving.engine import ServingEngine as JaxEngine
+    return JaxEngine(jm, **kw)
+
+
+def _drain_all(eng, max_steps=400):
+    done = {}
+    for _ in range(max_steps):
+        for r in eng.step():
+            done[r.rid] = r
+        if not eng.scheduler.pending:
+            return done
+    raise AssertionError("engine failed to drain")
+
+
+def _clocked(box):
+    return ServingMetrics(clock=lambda: box[0])
+
+
+def _jax_metrics(box):
+    from distkeras_tpu.serving.metrics import ServingMetrics as JaxMetrics
+    return JaxMetrics(clock=lambda: box[0])
+
+
+@pytest.mark.parametrize("loop", LOOP_KW, ids=LOOP_IDS)
+def test_deadline_expires_queued_request_to_timed_out(lms, loop):
+    jm, pm = lms
+
+    def scenario(eng, box):
+        r1 = eng.submit(PATTERN[:4], 6)                   # no deadline
+        r2 = eng.submit(PATTERN[:4], 6, deadline_s=5.0)   # will starve
+        box[0] = 10.0                                     # r2 expired
+        done = _drain_all(eng)
+        return done[r1], done[r2]
+
+    box = [0.0]
+    eng = ServingEngine(pm, num_slots=1, max_len=32, device="cpu",
+                        metrics=_clocked(box), **loop)
+    r1, r2 = scenario(eng, box)
+    assert r2.state is RequestState.TIMED_OUT
+    assert r2.generated == []                             # never admitted
+    assert r1.state is RequestState.FINISHED
+    assert eng.metrics.requests_timed_out == 1
+    assert eng.metrics.summary()["requests_timed_out"] == 1
+    assert eng.health()["requests"]["timed_out"] == 1
+    jbox = [0.0]
+    j1, j2 = scenario(_jax_engine(jm, num_slots=1, max_len=32,
+                                  metrics=_jax_metrics(jbox), **loop), jbox)
+    np.testing.assert_array_equal(r1.tokens, j1.tokens)
+    assert (r2.state.value, r2.generated) == (j2.state.value, j2.generated)
+    with pytest.raises(ValueError, match="deadline_s"):
+        eng.submit(PATTERN[:3], 2, deadline_s=0.0)
+
+
+@pytest.mark.parametrize("loop", LOOP_KW, ids=LOOP_IDS)
+def test_deadline_mid_decode_keeps_partial_tokens_frees_slot(lms, loop):
+    """Expiry mid-decode lands the unit in flight first (under overlap a
+    launched step holds the slot): the request keeps every token the
+    flush lands, the JAX engine's, and the slot serves the next request
+    exactly."""
+    jm, pm = lms
+
+    def scenario(eng, box):
+        r1 = eng.submit(PATTERN[:4], 20, deadline_s=5.0)
+        done = {}
+        for _ in range(5):                     # prefill + a few decodes
+            for r in eng.step():
+                done[r.rid] = r
+        assert eng[r1].state.value == "decoding"
+        box[0] = 10.0                          # expire mid-decode
+        r2 = eng.submit(PATTERN[:3], 3)        # next occupant
+        done.update(_drain_all(eng))
+        return done[r1], done[r2]
+
+    box = [0.0]
+    p1, p2 = scenario(ServingEngine(pm, num_slots=1, max_len=32,
+                                    device="cpu", metrics=_clocked(box),
+                                    **loop), box)
+    assert p1.state is RequestState.TIMED_OUT
+    assert 0 < len(p1.generated) < 20          # partial output kept
+    assert p2.state is RequestState.FINISHED
+    np.testing.assert_array_equal(p2.tokens, _ref(jm, PATTERN[:3], 3))
+    jbox = [0.0]
+    j1, j2 = scenario(_jax_engine(jm, num_slots=1, max_len=32,
+                                  metrics=_jax_metrics(jbox), **loop), jbox)
+    assert p1.generated == j1.generated
+    np.testing.assert_array_equal(p2.tokens, j2.tokens)
+
+
+@pytest.mark.parametrize("loop", LOOP_KW, ids=LOOP_IDS)
+def test_run_raises_on_degraded_request(lms, loop):
+    """``run()``'s plain ``{rid: tokens}`` never passes a degraded
+    request off as a finished one; ``on_degraded="return"`` accepts the
+    partial tokens."""
+    from distkeras_tpu_torch.serving import DegradedRequest
+    _, pm = lms
+    box = [0.0]
+    eng = ServingEngine(pm, num_slots=1, max_len=32, device="cpu",
+                        metrics=_clocked(box), **loop)
+    eng.submit(PATTERN[:4], 6, deadline_s=2.0)
+    box[0] = 5.0
+    with pytest.raises(DegradedRequest, match="timed_out") as err:
+        eng.run(max_steps=50)
+    assert err.value.request.state is RequestState.TIMED_OUT
+    box2 = [0.0]
+    eng2 = ServingEngine(pm, num_slots=1, max_len=32, device="cpu",
+                         metrics=_clocked(box2), **loop)
+    rid2 = eng2.submit(PATTERN[:4], 6, deadline_s=2.0)
+    box2[0] = 5.0
+    out = eng2.run(max_steps=50, on_degraded="return")
+    np.testing.assert_array_equal(out[rid2], PATTERN[:4])  # prompt only
+    with pytest.raises(ValueError, match="on_degraded"):
+        eng2.run(on_degraded="bogus")
+
+
+@pytest.mark.parametrize("loop", LOOP_KW, ids=LOOP_IDS)
+def test_engine_cancel_api(lms, loop):
+    """``cancel`` ends a decoding request CANCELLED with the tokens the
+    flush lands (the JAX engine's), evicts it, and the survivor and the
+    slot's next occupant stay exact; a request the flush finishes comes
+    back FINISHED."""
+    jm, pm = lms
+
+    def scenario(eng):
+        keep = eng.submit(PATTERN[:4], 5)
+        drop = eng.submit(PATTERN[:5], 9)
+        done = {}
+        for i in range(6):       # both prefilled, `drop` a few steps in
+            for r in eng.step():
+                done[r.rid] = r
+        req = eng.cancel(drop)
+        with pytest.raises(KeyError):
+            eng[drop]                          # evicted from the engine
+        nxt = eng.submit(PATTERN[:6], 4)
+        done.update(_drain_all(eng))
+        return req, done[keep], done[nxt]
+
+    req, keep, nxt = scenario(ServingEngine(pm, num_slots=2, max_len=32,
+                                            device="cpu", **loop))
+    assert req.state is RequestState.CANCELLED and req.generated
+    assert keep.state is RequestState.FINISHED
+    np.testing.assert_array_equal(keep.tokens, _ref(jm, PATTERN[:4], 5))
+    np.testing.assert_array_equal(nxt.tokens, _ref(jm, PATTERN[:6], 4))
+    jreq, _, _ = scenario(_jax_engine(jm, num_slots=2, max_len=32, **loop))
+    assert req.generated == jreq.generated
+    # under overlap, a request whose last token is in flight: the flush
+    # finishes it, and the FINISHED record comes back
+    eng = ServingEngine(pm, num_slots=1, max_len=32, device="cpu", **loop)
+    rid = eng.submit(PATTERN[:4], 3)
+    eng.step()                 # prefill, first token, one decode launched
+    if loop["overlap"]:
+        eng.step()             # the unit in flight holds the last token
+        out = eng.cancel(rid)
+        assert out.state is RequestState.FINISHED
+        assert len(out.generated) == 3
+        assert eng.metrics.requests_cancelled == 0
+    else:
+        out = eng.cancel(rid)
+        assert out.state is RequestState.CANCELLED
+        assert len(out.generated) == 2
+    np.testing.assert_array_equal(
+        out.tokens, _ref(jm, PATTERN[:4], 3)[:4 + len(out.generated)])
+    assert not eng.scheduler.pending and not eng.step()
+
+
+# --- the byte budget (hbm_budget) -------------------------------------------
+#
+# The JAX package's oracles (tests/test_kv_bytes.py): pages from a byte
+# budget, the same count as the JAX pool and engine for the same budget.
+
+
+def test_hbm_budget_sizes_pool(lms):
+    from distkeras_tpu.models.decoding import _resolve_head_dims
+    from distkeras_tpu.serving.kv_pool import PagedKVPool as JaxPool
+    jm, pm = lms
+    _resolve_head_dims(jm.module, jm.params)   # bare-module pool probes
+    pb = PagedKVPool(pm.module, 2, 64, page_len=16, dtype="int4",
+                     device="cpu").page_bytes
+    assert pb == JaxPool(jm.module, 2, 64, page_len=16,
+                         dtype="int4").page_bytes
+    pool = PagedKVPool(pm.module, 2, 64, page_len=16, dtype="int4",
+                       hbm_budget=10 * pb + pb // 2, reserve_bytes=pb,
+                       device="cpu")
+    assert pool.num_pages == 9        # (10.5 - 1) pages round down
+    # the sink page is the one byte the pool holds beyond the budget
+    assert pool.allocated_bytes() == 10 * pb
+    with pytest.raises(ValueError, match="not both"):
+        PagedKVPool(pm.module, 2, 64, page_len=16, num_pages=4,
+                    hbm_budget=1 << 20, device="cpu")
+    with pytest.raises(ValueError, match="does not fit"):
+        PagedKVPool(pm.module, 2, 64, page_len=16, hbm_budget=pb,
+                    reserve_bytes=pb, device="cpu")
+    with pytest.raises(ValueError, match="even"):
+        PagedKVPool(pm.module, 2, 64, page_len=15, dtype="int4",
+                    device="cpu")
+
+
+def test_int4_kv_admits_more_streams_under_same_budget(lms):
+    """Same budget, same weights: the int4-KV engine holds more decoding
+    streams than the bf16 one, with the JAX engine's pages and
+    occupancy."""
+    import jax.numpy as jnp
+    jm, pm = lms
+    weight_bytes = ServingEngine(pm, num_slots=4, max_len=32, page_len=8,
+                                 device="cpu").param_bytes()
+    bf16_pb = PagedKVPool(pm.module, 1, 32, page_len=8,
+                          dtype=torch.bfloat16, device="cpu").page_bytes
+    budget = weight_bytes + 4 * bf16_pb
+
+    def occupied(engine, model, cache_dtype, **kw):
+        eng = engine(model, num_slots=4, max_len=32, page_len=8,
+                     cache_dtype=cache_dtype, hbm_budget=budget, **kw)
+        for _ in range(6):
+            eng.submit(PATTERN[:8], 4)
+        eng.step()
+        return eng.pool.num_pages, eng.scheduler.occupied
+
+    bf16 = occupied(ServingEngine, pm, torch.bfloat16, device="cpu")
+    int4 = occupied(ServingEngine, pm, "int4", device="cpu")
+    assert bf16 == (4, 2)
+    assert int4[0] > bf16[0] and int4[1] > bf16[1]
+    assert bf16 == occupied(_jax_engine, jm, jnp.bfloat16)
+    assert int4 == occupied(_jax_engine, jm, "int4")
+
+
+def test_quantized_weights_free_budget_for_pages(lms):
+    """``weight_quant`` shrinks the reserve side of the same envelope:
+    strictly more pages than float weights, as many as the JAX engine
+    gets."""
+    jm, pm = lms
+    f32_w = sum(p.numel() * p.element_size() for p in pm.module.parameters())
+    budget = f32_w + 6 * PagedKVPool(pm.module, 1, 32, page_len=8,
+                                     dtype="int4",
+                                     device="cpu").page_bytes
+    kw = dict(num_slots=2, max_len=32, page_len=8, cache_dtype="int4",
+              hbm_budget=budget)
+    base = ServingEngine(pm, device="cpu", **kw)
+    quant = ServingEngine(pm, device="cpu", weight_quant="int4", **kw)
+    assert base.pool.num_pages == 6
+    assert quant.pool.num_pages > base.pool.num_pages
+    assert quant.pool.num_pages == _jax_engine(
+        jm, weight_quant="int4", **kw).pool.num_pages
+    rid = quant.submit(PATTERN[:4], 5)
+    np.testing.assert_array_equal(quant.run(max_steps=100)[rid],
+                                  _ref(jm, PATTERN[:4], 5))
+
+
+# --- weights_dtype, decode_kernel, engine_id ---------------------------------
+
+
+def test_weights_dtype_and_validation(lms):
+    """``weights_dtype``: "auto" is the compute dtype (float32 here), a
+    float dtype casts the served matrices, ``weight_quant`` wins;
+    anything else raises, as do a bad ``decode_kernel`` and the paged-only
+    options on a slab engine."""
+    jm, pm = lms
+    assert ServingEngine(pm, device="cpu")._params[1]["attn"][
+        "wqkv"].dtype == torch.float32
+    for wd in (None, torch.float32):
+        eng = ServingEngine(pm, num_slots=1, max_len=32, device="cpu",
+                            weights_dtype=wd)
+        rid = eng.submit(PATTERN[:5], 6)
+        np.testing.assert_array_equal(eng.run(max_steps=50)[rid],
+                                      _ref(jm, PATTERN[:5], 6))
+    q = ServingEngine(pm, device="cpu", weights_dtype="bfloat16",
+                      weight_quant="int8")
+    assert q._params[1]["attn"]["wq"]["q"].dtype == torch.int8
+    with pytest.raises(ValueError, match="weights_dtype"):
+        ServingEngine(pm, device="cpu", weights_dtype=torch.int32)
+    with pytest.raises(ValueError, match="decode_kernel"):
+        ServingEngine(pm, device="cpu", decode_kernel="pallas")
+    with pytest.raises(ValueError, match="decode_kernel"):
+        ServingEngine(pm, device="cpu", kv_layout="slab",
+                      decode_kernel="off")
+    with pytest.raises(ValueError, match="hbm_budget"):
+        ServingEngine(pm, device="cpu", kv_layout="slab", hbm_budget=1 << 30)
+    with pytest.raises(ValueError, match="kv_layout"):
+        ServingEngine(pm, device="cpu", kv_layout="ring")
+
+
+@pytest.mark.parametrize("case", ["plain", "int8", "int4", "tree"])
+def test_decode_kernel_paths_give_equal_streams(lms, case):
+    """``decode_kernel`` "auto", "paged" (the kernel's plain version on
+    the CPU) and "off" (the gather readout) give the same greedy and
+    sampled streams, equal to JAX ``generate()`` where greedy."""
+    jm, pm = lms
+    kw = dict(num_slots=3, max_len=48, page_len=4, device="cpu")
+    if case in ("int8", "int4"):
+        kw["cache_dtype"] = case
+    if case == "tree":
+        kw.update(spec_k=3, spec_tree=True, spec_width=2)
+    reqs = [(np.tile(PATTERN, 2)[:10], 9, {}),
+            (PATTERN[:5], 10, dict(temperature=1.7, top_k=5, seed=3)),
+            (PATTERN[:6], 8, {})]
+    outs = {}
+    for dk in ("auto", "paged", "off"):
+        extra = {"draft": NgramDraft()} if case == "tree" else {}
+        eng = ServingEngine(pm, decode_kernel=dk, **kw, **extra)
+        rids = [eng.submit(p, n, **k) for p, n, k in reqs]
+        out = eng.run(max_steps=500)
+        outs[dk] = [out[r] for r in rids]
+    for dk in ("paged", "off"):
+        for a, b in zip(outs["auto"], outs[dk]):
+            np.testing.assert_array_equal(a, b)
+    cache = kw.get("cache_dtype")
+    for (p, n, k), got in zip(reqs, outs["off"]):
+        if not k:
+            np.testing.assert_array_equal(got, _ref(
+                jm, p, n, **({"cache_dtype": cache, "prefill_chunk": None}
+                             if cache else {})))
+
+
+def test_engine_id_names_and_disambiguates(lms):
+    """The first live engine is "serving", later ones "serving[<hex>]";
+    an id a live engine holds gets a "#<hex>" suffix."""
+    import gc
+    from distkeras_tpu_torch.serving import engine as eng_mod
+    _, pm = lms
+    gc.collect()
+    live = dict(eng_mod._LIVE_ENGINES)
+    a = ServingEngine(pm, num_slots=1, max_len=16, device="cpu",
+                      engine_id="replica-7")
+    b = ServingEngine(pm, num_slots=1, max_len=16, device="cpu",
+                      engine_id="replica-7")
+    assert a.engine_id == "replica-7"
+    assert b.engine_id == f"replica-7#{id(b):x}"
+    assert b.health()["engine_id"] == b.engine_id
+    c = ServingEngine(pm, num_slots=1, max_len=16, device="cpu")
+    assert c.engine_id == ("serving" if "serving" not in live
+                           else f"serving[{id(c):x}]")
+    d = ServingEngine(pm, num_slots=1, max_len=16, device="cpu")
+    assert d.engine_id == f"serving[{id(d):x}]"
+
+
+# --- sampled streams: JAX's threefry key chain --------------------------------
+
+SAMPLED_REQS = [(PATTERN[:4], dict(temperature=0.9, top_k=6, top_p=0.9,
+                                   seed=7)),
+                (PATTERN[:6], dict(temperature=1.3, seed=3)),
+                (PATTERN[:5], dict(temperature=0.7, top_p=0.5, seed=5)),
+                (PATTERN[:3], {}),
+                (PATTERN[:5], dict(temperature=2.5, seed=11)),
+                (PATTERN[:2], dict(temperature=3.0, top_k=4, seed=2 ** 32 + 1))]
+SAMPLED_LOOPS = {
+    "overlap": {}, "sync": dict(overlap=False), "fuse4": dict(fuse_steps=4),
+    "fused-sampler": dict(fused_sampling=True),
+    "fuse4-fused-sampler": dict(fuse_steps=4, fused_sampling=True),
+    "spec-linear": dict(spec_k=3), "spec-tree": dict(spec_k=3,
+                                                      spec_tree=True,
+                                                      spec_width=2)}
+
+
+@pytest.mark.parametrize("loop", sorted(SAMPLED_LOOPS))
+def test_sampled_streams_byte_identical_to_jax_engine(lms, loop):
+    """Seeded sampled requests (per-request knobs, a seed past 2^32) with
+    a greedy neighbour: every stream equals the JAX engine's with the
+    same seeds and knobs, byte for byte, single-step, fused and
+    speculative, with and without the fused sampler."""
+    from distkeras_tpu.serving import NgramDraft as JaxNgramDraft
+    jm, pm = lms
+    kw = dict(SAMPLED_LOOPS[loop])
+
+    def streams(engine, model, draft, **extra):
+        if loop.startswith("spec"):
+            extra["draft"] = draft()
+        eng = engine(model, num_slots=3, max_len=32, **kw, **extra)
+        rids = [eng.submit(p, 12, **k) for p, k in SAMPLED_REQS]
+        out = eng.run(max_steps=400)
+        return [out[r] for r in rids]
+
+    got = streams(ServingEngine, pm, NgramDraft, device="cpu")
+    want = streams(_jax_engine, jm, JaxNgramDraft)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    # the draws matter: a hot request leaves the greedy stream
+    greedy = _ref(jm, PATTERN[:5], 12)
+    assert not np.array_equal(got[4], greedy)
+
+
+@pytest.mark.parametrize("knobs", [dict(temperature=0.9, top_k=6),
+                                   dict(temperature=2.0, top_p=0.9),
+                                   dict(temperature=2.5)],
+                         ids=["topk", "topp", "plain"])
+def test_sampled_engine_stream_equals_generate(lms, knobs):
+    """One request's key chain is ``generate()``'s for a batch of one:
+    ``PRNGKey(seed)``, a split per token. The engine's sampled stream
+    equals JAX ``generate()`` and the port's ``generate()``."""
+    jm, pm = lms
+    eng = ServingEngine(pm, num_slots=2, max_len=32, device="cpu")
+    rid = eng.submit(PATTERN[:5], 14, seed=21, **knobs)
+    eng.submit(PATTERN[:3], 9)                      # a greedy neighbour
+    got = eng.run(max_steps=200)[rid]
+    want = generate(jm, PATTERN[None, :5], max_new_tokens=14, seed=21,
+                    **knobs)[0]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        pm.generate(PATTERN[None, :5], 14, seed=21, **knobs)[0], want)

@@ -359,7 +359,8 @@ def test_tree_walk_and_commit_match_jax(cache_dtype):
     jout, pout = _verify_both(jm, pm, jc, pc, toks, (depth, anc), WALK_T)
     em_j, ne_j, path_j, _ = jd.tree_walk(jout[0], jnp.asarray(toks),
                                          jnp.asarray(parents))
-    em_p, ne_p, path_p = pd.tree_walk(pout[0], toks, parents)
+    em_p, ne_p, path_p, keys_p = pd.tree_walk(pout[0], toks, parents)
+    assert keys_p is None                     # a greedy walk draws nothing
     live = slice(0, 3)
     np.testing.assert_array_equal(ne_p[live], np.asarray(ne_j)[live])
     assert ne_p[1] == 4 and ne_p[0] >= 2

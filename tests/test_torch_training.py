@@ -31,7 +31,8 @@ from distkeras_tpu.parallel.trainers import SingleTrainer as JaxSingleTrainer
 from distkeras_tpu_torch.data import Dataset
 from distkeras_tpu_torch.models import (Model, from_jax_params,
                                         to_jax_params, zoo)
-from distkeras_tpu_torch.ops import losses, metrics, optimizers, schedules
+from distkeras_tpu_torch.ops import (losses, metrics, optimizers, prng,
+                                     schedules)
 from distkeras_tpu_torch.parallel import (SingleTrainer, TrainCarry,
                                           make_train_step)
 from distkeras_tpu_torch.serving import ServingEngine
@@ -257,6 +258,92 @@ def test_train_step_matches_jax(accum):
     assert float(pmets["accuracy"]) == float(jmets["accuracy"])
     assert int(pcarry.opt_state["t"]) == 1
     _tree_close(to_jax_params(pm), jcarry.params, **STEP_WEIGHT_TOL)
+
+
+# --- (c') dropout: JAX's masks through the key chain ----------------------------
+
+
+def _dropout_pair(seed=1):
+    """A stack with a standalone ``Dropout`` and two blocks with
+    ``dropout_rate``, JAX's weights on both sides."""
+    from distkeras_tpu.models import Sequential as JaxSequential
+    from distkeras_tpu.models.attention import \
+        TransformerBlock as JaxBlock
+    from distkeras_tpu.models.layers import Dense as JaxDense
+    from distkeras_tpu.models.layers import Dropout as JaxDropout
+    from distkeras_tpu.models.layers import Embedding as JaxEmbedding
+    from distkeras_tpu_torch.models import Sequential
+    from distkeras_tpu_torch.models.attention import TransformerBlock
+    from distkeras_tpu_torch.models.layers import Dense, Dropout, Embedding
+
+    def spec(seq, emb, block, drop, dense):
+        return seq([emb(V, 16), block(num_heads=2, mlp_ratio=2,
+                                      dropout_rate=0.2),
+                    drop(0.3), block(num_heads=2, mlp_ratio=2,
+                                     dropout_rate=0.1), dense(V)])
+
+    jm = JaxModel.build(spec(JaxSequential, JaxEmbedding, JaxBlock,
+                             JaxDropout, JaxDense), (8,), seed=seed)
+    pm = Model.build(spec(Sequential, Embedding, TransformerBlock, Dropout,
+                          Dense), (8,), seed=seed, device="cpu")
+    return jm, pm
+
+
+#: a dropout step: the masks are bitwise JAX's; the float32 forward and
+#: backward differ in summation order only (as ``STEP_TOL``)
+DROPOUT_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_dropout_train_step_matches_jax(accum):
+    """One SGD step of a model with dropout from the same key: the loss,
+    the updated weights (the gradients times lr) and the carried key
+    equal JAX's; ``build(seed=)`` gave JAX's weights bitwise."""
+    jm, pm = _dropout_pair()
+    for a, b in zip(jax.tree_util.tree_leaves(jm.params),
+                    jax.tree_util.tree_leaves(to_jax_params(pm))):
+        np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+    rs = np.random.RandomState(accum)
+    x = rs.randint(0, V, (4, 8)).astype(np.int32)
+    y = rs.randint(0, V, (4, 8)).astype(np.int32)
+    name = "sparse_categorical_crossentropy_from_logits"
+    jo, po = jax_opt.sgd(0.5), optimizers.sgd(0.5)
+    jstep = jax_worker.make_train_step(jm.module, jax_losses.get_loss(name),
+                                       jo, None, accum)
+    jcarry, jloss = jax.jit(jstep)(
+        jax_worker.TrainCarry(jm.params, jm.state, jo.init(jm.params),
+                              jax.random.PRNGKey(4)), (x, y))
+    pstep = make_train_step(pm.module, losses.get_loss(name), po, None,
+                            accum)
+    pcarry, ploss = pstep(TrainCarry(pm.params, po.init(pm.params),
+                                     prng.key(4)), (_t(x), _t(y)))
+    _close(ploss, jloss, **DROPOUT_TOL)
+    _tree_close(to_jax_params(pm), jcarry.params, **DROPOUT_TOL)
+    np.testing.assert_array_equal(pcarry.rng.numpy(),
+                                  np.asarray(jcarry.rng).astype(np.int64))
+    # the masks matter: without a key the step's loss is another one
+    _, pm2 = _dropout_pair()
+    _, plain = make_train_step(pm2.module, losses.get_loss(name),
+                               optimizers.sgd(0.5), None, accum)(
+        TrainCarry(pm2.params, po.init(pm2.params)), (_t(x), _t(y)))
+    assert abs(float(plain) - float(ploss)) > 1e-3
+
+
+def test_dropout_single_trainer_matches_jax():
+    """``SingleTrainer`` with dropout: the key chain from ``PRNGKey(seed)``
+    gives JAX's per-step losses over two shuffled epochs."""
+    jm, pm = _dropout_pair(seed=3)
+    x, y = _pattern_data(64)
+    x, y = x[:, :8], y[:, :8]
+    kw = dict(worker_optimizer="sgd", learning_rate=0.2, batch_size=16,
+              num_epoch=2, seed=5,
+              loss="sparse_categorical_crossentropy_from_logits")
+    jt = JaxSingleTrainer(jm, **kw)
+    jt.train(JaxDataset.from_arrays(x, y))
+    pt = SingleTrainer(pm, **kw)
+    pt.train(Dataset.from_arrays(x, y))
+    _close(pt.get_history().losses(), jt.get_history().losses(),
+           **FIT_LOSS_TOL)
 
 
 # --- (d) SingleTrainer / Model.fit against JAX's SingleTrainer ---------------
