@@ -226,6 +226,18 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     ``hbm_budget`` engine's pages and real bytes against the budget, and
     ``decode_kernel="off"`` (no paged kernel) against the default (12 a
     decode step).
+27. the distributed-SGD family with its workers stacked on the card
+    (``parallel.engine``): DOWNPOUR on the full 218M LM, 4 workers of
+    batch 2, window 2 amortized, two epochs of phase 7's data (the loss
+    falls, K1f/K1dq/K1dkv exactly 12 launches per worker step, K7 one
+    per worker step plus the workers' key split, exactly ceil(S / K)
+    commits an epoch, a finite center; worker steps/s, peak memory, one
+    commit's device ms by CUDA events); at 2 layers of the same widths
+    AEASGD on the per-step path, ADAG, DynSGD with per-worker windows,
+    AveragingTrainer, a 2-member EnsembleTrainer and a 2-worker
+    HostAsyncTrainer (DOWNPOUR over the in-process server), each with
+    its launch counts and a falling loss; one engine epoch of each
+    algorithm under ``set_sync_debug_mode("error")`` (no host sync).
 
 Every serving phase runs the engine's default loop, ``overlap=True``;
 phase 20's teacher-forced runs use the synchronous one. Weights are
@@ -237,7 +249,9 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 import gc
 import json
 import subprocess
@@ -291,10 +305,14 @@ from distkeras_tpu_torch.ops.sampling import (MAX_BOUNDARY_PARTINGS,
                                               sample_tokens)
 from distkeras_tpu_torch.parallel import (SingleTrainer, TrainCarry,
                                           make_train_step, value_and_grad)
+from distkeras_tpu_torch.parallel.engine import (
+    AdagAlgo, AveragingAlgo, DistributedEngine, DownpourAlgo, DynSGDAlgo,
+    ElasticAlgo, EngineConfig, WorkerStack)
 from distkeras_tpu_torch.serving import (DraftModel, NgramDraft,
                                          PagedKVPool, ServingEngine,
                                          tree_ancestors)
-from distkeras_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+from distkeras_tpu_torch.utils.tree import (tree_leaves, tree_map,
+                                            tree_unflatten)
 
 #: the LM the JAX package benchmarks (bench.py LM_CFG), at full depth
 LM_CFG = dict(vocab=32768, d_model=1024, num_heads=16, num_layers=12,
@@ -1044,11 +1062,16 @@ def train(model, data=None, epochs=TRAIN_EPOCHS):
                             learning_rate=TRAIN_LR, loss=TRAIN_LOSS,
                             batch_size=TRAIN_BATCH, num_epoch=epochs,
                             metrics=["accuracy"])
+    return trainer, counted_train(trainer, data)
+
+
+def counted_train(trainer, data):
+    """``trainer.train(data)`` with the launch counts of this run only."""
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     trainer.train(data)
     torch.cuda.synchronize()
-    return trainer, kernels.launch_counts()
+    return kernels.launch_counts()
 
 
 def check_training(trainer, launches, num_layers,
@@ -4409,6 +4432,297 @@ E2E_BF16_REL_TOL = 5e-2
 E2E_F32_REL_TOL = 1e-3
 
 
+# --- phase 27: the distributed-SGD family, workers stacked on the card -----
+
+#: phase 27: four workers of two rows each over phase 7's 32 rows x 2048,
+#: two epochs (4 global steps an epoch), amortized window 2
+DIST_WORKERS, DIST_BATCH, DIST_WINDOW = 4, 2, 2
+#: the depth of the other trainers' runs (full width)
+DIST_SMALL_LAYERS = 2
+#: DynSGD's per-worker windows
+DIST_DYN_WINDOWS = [1, 2, 2, 4]
+DIST_KERNELS = TRAINING_KERNELS + ("prng",)
+
+
+def _dist_kw(optimizer_lr=True, **kw):
+    out = dict(batch_size=DIST_BATCH, num_epoch=TRAIN_EPOCHS,
+               worker_optimizer="adam", loss=TRAIN_LOSS, **kw)
+    if optimizer_lr:
+        out["learning_rate"] = TRAIN_LR
+    else:  # EASGD's learning_rate is its elastic rate
+        out["optimizer_kwargs"] = {"learning_rate": TRAIN_LR}
+    return out
+
+
+def check_distributed(label, trainer, launches, num_layers, worker_steps,
+                      prng_extra):
+    """Finite per-worker losses of ``worker_steps`` worker steps whose last
+    epoch's mean is under the first step's; each flash kernel launched
+    exactly once per layer in every worker step, K7 once per worker step
+    (the carry's split) plus ``prng_extra`` (the workers' key split, an
+    ensemble's member builds)."""
+    losses = trainer.get_history().losses()
+    if losses.ndim != 2 or losses.size != worker_steps \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: expected {worker_steps} finite "
+                             f"per-worker losses, got {losses}")
+    first = float(losses[0].mean())
+    last = float(np.mean(trainer.history.epochs[-1]["loss"]))
+    if not last < first:
+        raise AssertionError(f"{label}: loss did not fall: first step "
+                             f"{first}, last epoch mean {last}")
+    for name in TRAINING_KERNELS:
+        if launches[name] != num_layers * worker_steps:
+            raise AssertionError(
+                f"{label}: {name} launched {launches[name]} times in "
+                f"{worker_steps} worker steps of a {num_layers}-layer "
+                f"model; expected {num_layers * worker_steps}")
+    if launches["prng"] != worker_steps + prng_extra:
+        raise AssertionError(f"{label}: prng launched {launches['prng']} "
+                             f"times; expected {worker_steps} + "
+                             f"{prng_extra}")
+    return first, last
+
+
+def stacked_costs(model, dev, data, num_workers=DIST_WORKERS, n=8):
+    """On a fresh DOWNPOUR engine state of ``model``: the device ms of one
+    amortized commit of ``num_workers`` stacked workers (their
+    snapshots, the center, the tail carry) by CUDA events, and the wall
+    ms of a warm worker step of the stack against a warm step of the
+    plain trainer's carry on the model's own tensors (host clock to a
+    synchronize, ``n`` steps each, batch ``DIST_BATCH``)."""
+    loss, opt = get_loss(TRAIN_LOSS), get_optimizer("adam",
+                                                    learning_rate=TRAIN_LR)
+    eng = DistributedEngine(model.module, loss, opt, DownpourAlgo(), None,
+                            EngineConfig(num_workers=num_workers,
+                                         window=DIST_WINDOW, amortized=True))
+    state = eng.init_state(model.params, prng.key(SEED, dev))
+    w = state["worker"]
+    snap = tree_map(torch.clone, w["params"])
+    rows = list(range(num_workers))
+    commit = time_ms(lambda: eng._commit(state, rows, snap), iters=5,
+                     warmup=1)
+    X, Y = (torch.from_numpy(a[:DIST_BATCH]).to(dev) for a in data.arrays())
+    stack = WorkerStack(eng.train_step, w["params"], w["opt"], w["rng"])
+    carry = [TrainCarry(model.params, opt.init(model.params),
+                        prng.key(SEED, dev))]
+
+    def plain():
+        carry[0], _ = eng.train_step(carry[0], (X, Y))
+
+    def wall_ms(fn):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    worker = wall_ms(lambda: [stack.step(i, X, Y) for i in rows][-1]) \
+        / num_workers
+    return commit, worker, wall_ms(plain)
+
+
+def engine_sync_free(model, algo, window, amortized, num_workers=4,
+                     steps=4, batch=2, seq=256):
+    """One engine epoch of ``model`` with ``algo``'s commits, its data on
+    the card, under ``set_sync_debug_mode("error")``: a host sync inside
+    the epoch (a step, a commit) raises. Returns the engine."""
+    eng = DistributedEngine(model.module, get_loss(TRAIN_LOSS),
+                            get_optimizer("adam", learning_rate=TRAIN_LR),
+                            algo, None,
+                            EngineConfig(num_workers=num_workers,
+                                         window=window, amortized=amortized))
+    state = eng.init_state(model.params, prng.key(SEED, model.device))
+    vocab = model.module.layers[0].vocab_size
+    rs = np.random.RandomState(SEED + 27)
+    toks = torch.from_numpy(rs.randint(0, vocab, (steps, num_workers, batch,
+                                                  seq + 1))).to(model.device)
+    torch.cuda.synchronize()
+    with _SyncErrors():
+        eng.run_epoch(state, toks[..., :-1], toks[..., 1:])
+    torch.cuda.synchronize()
+    return eng
+
+
+#: the stacked-worker runs phase 27 holds at two layers: (label, trainer,
+#: keywords, amortized); ``amortized`` False pins the engine to the
+#: per-step program (None: the engine's auto rule)
+DIST_SMALL_RUNS = (
+    ("AEASGD per-step", "AEASGD", dict(
+        communication_window=DIST_WINDOW, rho=5.0, learning_rate=0.01),
+     False),
+    # the server's step is adag_lr * delta / sqrt(acc): the first commit
+    # moves every weight by ~adag_lr, so it is set to adam's rate
+    ("ADAG", "ADAG", dict(communication_window=DIST_WINDOW,
+                          adag_learning_rate=TRAIN_LR), None),
+    ("DynSGD per-worker windows", "DynSGD",
+     dict(communication_window=DIST_DYN_WINDOWS), None),
+    ("AveragingTrainer", "AveragingTrainer", {}, None),
+)
+
+
+@contextlib.contextmanager
+def engine_program(amortized):
+    """Within the block, the family's trainers build their engines with
+    ``EngineConfig(amortized=amortized)`` (None: the auto rule). The
+    trainers, as JAX's, leave the epoch program to the engine."""
+    import distkeras_tpu_torch.parallel.distributed as dist
+    saved = dist.EngineConfig
+    if amortized is not None:
+        dist.EngineConfig = functools.partial(saved, amortized=amortized)
+    try:
+        yield
+    finally:
+        dist.EngineConfig = saved
+
+#: sync-free engine epochs: (label, algorithm, window, amortized)
+DIST_SYNC_FREE = (
+    ("DOWNPOUR amortized, staggered", DownpourAlgo(), DIST_WINDOW, True),
+    ("AEASGD per-step", ElasticAlgo(alpha=0.05), DIST_WINDOW, False),
+    ("ADAG", AdagAlgo(), DIST_WINDOW, None),
+    ("DynSGD per-worker windows", DynSGDAlgo(), DIST_DYN_WINDOWS, None),
+    ("AveragingTrainer", AveragingAlgo(), 4, None),
+)
+
+
+def distributed_phase(dev, card):
+    """Phase 27: the distributed-SGD family with its workers stacked on
+    the card. DOWNPOUR on the full 218M LM (4 workers, window 2
+    amortized, two epochs of phase 7's data at batch 2): the loss falls,
+    K1f/K1dq/K1dkv launch exactly 12 times per worker step and K7 once
+    (plus the workers' key split), the commits are exactly ceil(S / K)
+    an epoch, the center is finite; worker steps/s, peak memory and one
+    commit's device ms. Then at two layers of the same widths: AEASGD on
+    the per-step path, ADAG, DynSGD with per-worker windows,
+    AveragingTrainer, a 2-member EnsembleTrainer and a 2-worker
+    HostAsyncTrainer (DOWNPOUR, in-process server), each with its launch
+    counts and a falling loss; and one engine epoch of each algorithm
+    under ``set_sync_debug_mode("error")``. Returns the runs' launch
+    counts by path."""
+    import distkeras_tpu_torch.parallel as par
+    data = training_data(LM_CFG["vocab"])
+    n_layers = LM_CFG["num_layers"]
+    S = TRAIN_ROWS // (DIST_WORKERS * DIST_BATCH)
+    steps = TRAIN_EPOCHS * S * DIST_WORKERS
+    by_path = {}
+
+    model = build_lm(dev)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tr = par.DOWNPOUR(model, num_workers=DIST_WORKERS,
+                      communication_window=DIST_WINDOW, **_dist_kw())
+    c = counted_train(tr, data)
+    peak = torch.cuda.max_memory_allocated()
+    first, last = check_distributed("DOWNPOUR", tr, c, n_layers, steps, 1)
+    commits = TRAIN_EPOCHS * -(-S // DIST_WINDOW)
+    if (tr.engine.server_updates, tr.engine.worker_commits) != \
+            (commits, commits * DIST_WORKERS):
+        raise AssertionError(
+            f"DOWNPOUR: {tr.engine.server_updates} commits of "
+            f"{tr.engine.worker_commits} workers; expected {commits} of "
+            f"{commits * DIST_WORKERS}")
+    if not all(bool(torch.isfinite(p).all()) for p in model.module.parameters()):
+        raise AssertionError("DOWNPOUR: the center is not finite")
+    secs = tr.get_training_time()
+    by_path["distributed_downpour"] = c
+    print(f"distributed DOWNPOUR on {card}: {DIST_WORKERS} stacked workers "
+          f"x B{DIST_BATCH} S{TRAIN_SEQ}, window {DIST_WINDOW} amortized, "
+          f"{steps} worker steps in {secs:.2f} s ({steps / secs:.2f} worker "
+          f"steps/s); loss {first:.4f} -> last epoch mean {last:.4f}; "
+          f"{tr.engine.server_updates} commits; launches "
+          f"{ {k: c[k] for k in DIST_KERNELS} }; peak device memory "
+          f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB allocated "
+          f"before the run)", flush=True)
+    del tr
+    gc.collect()
+    commit, worker, plain = stacked_costs(model, dev, data)
+    print(f"distributed commit on {card}: {commit:.3f} ms device time "
+          f"(CUDA events) for one amortized DOWNPOUR commit of "
+          f"{DIST_WORKERS} workers' snapshots "
+          f"({model.num_params() / 1e6:.1f}M parameters a worker, float32); "
+          f"a warm stacked worker step {worker:.1f} ms wall against "
+          f"{plain:.1f} ms for the plain trainer's step (B{DIST_BATCH} "
+          f"S{TRAIN_SEQ}, adam)", flush=True)
+    del model
+    gc.collect()
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    small = build_lm(dev, num_layers=DIST_SMALL_LAYERS)
+    build_draws = kernels.launch_counts()["prng"]
+    for label, name, kw, amortized in DIST_SMALL_RUNS:
+        model = build_lm(dev, num_layers=DIST_SMALL_LAYERS)
+        tr = getattr(par, name)(
+            model, num_workers=DIST_WORKERS,
+            **_dist_kw(optimizer_lr=not name.endswith("EASGD"), **kw))
+        with engine_program(amortized):
+            c = counted_train(tr, data)
+        if amortized is not None and tr.engine.amortized != amortized:
+            raise AssertionError(f"{label}: the engine ran amortized="
+                                 f"{tr.engine.amortized}")
+        first, last = check_distributed(label, tr, c, DIST_SMALL_LAYERS,
+                                        steps, 1)
+        by_path["distributed_" + name.lower()] = c
+        secs = tr.get_training_time()
+        print(f"distributed {label} ({DIST_SMALL_LAYERS} layers) on {card}: "
+              f"{steps} worker steps in {secs:.2f} s ({steps / secs:.2f} "
+              f"worker steps/s), {tr.engine.server_updates} commits "
+              f"(amortized {tr.engine.amortized}); loss {first:.4f} -> "
+              f"{last:.4f}; launches {dict((k, c[k]) for k in DIST_KERNELS)}",
+              flush=True)
+        del tr, model
+
+    k = 2
+    ens = par.EnsembleTrainer(small, num_models=k, **_dist_kw())
+    c = counted_train(ens, data)
+    ens_steps = TRAIN_EPOCHS * (TRAIN_ROWS // DIST_BATCH) * k
+    first, last = check_distributed("EnsembleTrainer", ens, c,
+                                    DIST_SMALL_LAYERS, ens_steps,
+                                    1 + k * build_draws)
+    by_path["ensemble"] = c
+    secs = ens.get_training_time()
+    print(f"EnsembleTrainer ({k} members, {DIST_SMALL_LAYERS} layers) on "
+          f"{card}: {ens_steps} member steps in {secs:.2f} s "
+          f"({ens_steps / secs:.2f} steps/s); loss {first:.4f} -> "
+          f"{last:.4f}; launches {dict((n, c[n]) for n in DIST_KERNELS)} "
+          f"({build_draws} K7 draws a member build)", flush=True)
+    del ens
+
+    host_workers = 2
+    host = par.HostAsyncTrainer(small, algorithm="downpour",
+                                num_workers=host_workers,
+                                communication_window=DIST_WINDOW,
+                                **_dist_kw())
+    c = counted_train(host, data)
+    host_steps = TRAIN_EPOCHS * TRAIN_ROWS // DIST_BATCH
+    first, last = check_distributed("HostAsyncTrainer", host, c,
+                                    DIST_SMALL_LAYERS, host_steps, 0)
+    by_path["host_async"] = c
+    secs = host.get_training_time()
+    print(f"HostAsyncTrainer (downpour, {host_workers} worker threads, "
+          f"in-process server, {DIST_SMALL_LAYERS} layers) on {card}: "
+          f"{host_steps} worker steps in {secs:.2f} s "
+          f"({host_steps / secs:.2f} worker steps/s), "
+          f"{host.parameter_server.num_updates} server updates; loss "
+          f"{first:.4f} -> {last:.4f}; launches "
+          f"{dict((n, c[n]) for n in DIST_KERNELS)}", flush=True)
+    del host
+
+    for label, algo, window, amortized in DIST_SYNC_FREE:
+        eng = engine_sync_free(small, algo, window, amortized)
+        print(f"sync-free engine epoch {label} on {card}: "
+              f"{eng.server_updates} commits under "
+              f"set_sync_debug_mode('error'): no host sync", flush=True)
+    del small
+    gc.collect()
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -4579,6 +4893,9 @@ def main() -> int:
     k6bc_rows = k6bc_phase(dev)
     moe_train_launches = moe_training_phase(dev, card)
     moe_gradients_vs_cpu(dev)
+    gc.collect()
+
+    dist_launches = distributed_phase(dev, card)
 
     by_path = {name: {} for name in kernels.SOURCES}
     for name in SERVING_KERNELS:
@@ -4613,6 +4930,9 @@ def main() -> int:
     for name in MOE_TRAINING_KERNELS:
         by_path[name]["training_moe"] = moe_train_launches[name]
     by_path["prng"]["serving_sampled"] = sampled_launches
+    for path, c in dist_launches.items():
+        for name in DIST_KERNELS:
+            by_path[name][path] = c[name]
 
     def entry(name, source, replaces, rows, path):
         main_row = rows[0]

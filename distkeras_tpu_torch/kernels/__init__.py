@@ -108,6 +108,7 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}     # source file -> loaded library
 _launches: Dict[str, int] = {name: 0 for name in SOURCES}
 #: compiler output of the last build, per source (ptxas notes with
@@ -224,7 +225,9 @@ def num_sms(index: int) -> int:
 
 
 def count_launch(name: str) -> None:
-    _launches[name] += 1
+    # worker threads (parallel.async_host) launch concurrently
+    with _count_lock:
+        _launches[name] += 1
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1447,3 +1447,116 @@ def test_sampled_card_engine_equals_cpu_float32_choices(dev):
         for a, b in zip(streams(card, dev, fused),
                         streams(cpu, "cpu", fused)):
             np.testing.assert_array_equal(a, b)
+
+
+# --- the distributed-SGD family with its workers stacked on the card --------
+
+def _mlp(device):
+    from distkeras_tpu_torch.models import Sequential
+    from distkeras_tpu_torch.models.layers import Dense
+    return Model.build(Sequential([Dense(64, activation="relu"), Dense(4)]),
+                       (16,), seed=0, device=device)
+
+
+@pytest.mark.parametrize("name", ["DOWNPOUR", "ADAG"])
+def test_engine_center_on_card_matches_cpu(dev, name):
+    """The stacked-worker engine's center after two epochs of 8 workers
+    on the card equals the CPU run of the same MLP (float32, the same
+    seeded weights) within 1e-3 of each leaf's largest |value|."""
+    import distkeras_tpu_torch.parallel as par
+    rs = np.random.RandomState(0)
+    X = rs.randn(1024, 16).astype(np.float32)
+    y = np.argmax(X @ rs.randn(16, 4), axis=1)
+    ds = Dataset({"features": X, "label": y})
+    kw = dict(num_workers=8, batch_size=32, num_epoch=2,
+              communication_window=2, worker_optimizer="sgd",
+              learning_rate=0.05,
+              loss="sparse_categorical_crossentropy_from_logits")
+    card = getattr(par, name)(_mlp(dev), **kw).train(ds)
+    cpu = getattr(par, name)(_mlp("cpu"), **kw).train(ds)
+    for a, b in zip(card.module.parameters(), cpu.module.parameters()):
+        a = a.detach().cpu()
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+def test_lm_downpour_losses_on_card_match_cpu(dev):
+    """DOWNPOUR over a 2-layer LM of the full widths (d_model 1024, 16
+    heads, vocab 32768), 2 workers, bf16 on the card: the per-worker
+    losses agree with the CPU float32 run within 5e-2 relative, and the
+    flash kernels launch once per layer in every worker step."""
+    import distkeras_tpu_torch.parallel as par
+    cfg = dict(d_model=1024, num_heads=16, num_layers=2, mlp_ratio=4)
+    card = Model.build(zoo.transformer_lm(32768, dtype="bfloat16", **cfg),
+                       (16,), seed=0, device=dev)
+    cpu = Model.build(zoo.transformer_lm(32768, **cfg), (16,), seed=0,
+                      device="cpu")
+    rs = np.random.RandomState(0)
+    toks = np.tile(rs.randint(0, 32768, (8, 32)), (1, 5))[:, :129]
+    ds = Dataset.from_arrays(toks[:, :-1], toks[:, 1:])
+    kw = dict(num_workers=2, batch_size=2, num_epoch=2,
+              communication_window=2, worker_optimizer="adam",
+              learning_rate=1e-3,
+              loss="sparse_categorical_crossentropy_from_logits")
+    tr_card = par.DOWNPOUR(card, **kw)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tr_card.train(ds)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    steps = 2 * (8 // (2 * 2)) * 2
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[name] == 2 * steps, (name, counts[name])
+    assert counts["prng"] == steps + 1
+    tr_cpu = par.DOWNPOUR(cpu, **kw)
+    tr_cpu.train(ds)
+    a, b = tr_card.get_history().losses(), tr_cpu.get_history().losses()
+    assert a.shape == b.shape == (steps // 2, 2)
+    np.testing.assert_allclose(a, b, rtol=5e-2)
+
+
+def test_lm_downpour_center_on_card_matches_cpu(dev):
+    """The center a DOWNPOUR run of a 2-layer full-width LM extracts on
+    the card (float32, 2 workers, window 2 amortized with staggered
+    offsets, two epochs: the snapshot rows, the block commits and the
+    tail carry all shape it) equals the CPU run's: each leaf's move from
+    the initial weights agrees within 1e-3 of the CPU move's largest
+    |value|, and the center did move."""
+    import distkeras_tpu_torch.parallel as par
+    cfg = dict(d_model=1024, num_heads=16, num_layers=2, mlp_ratio=4)
+    card = Model.build(zoo.transformer_lm(32768, **cfg), (16,), seed=0,
+                       device=dev)
+    cpu = Model.build(zoo.transformer_lm(32768, **cfg), (16,), seed=0,
+                      device="cpu")
+    init = [t.detach().clone() for t in cpu.module.parameters()]
+    rs = np.random.RandomState(0)
+    toks = np.tile(rs.randint(0, 32768, (8, 32)), (1, 5))[:, :129]
+    ds = Dataset.from_arrays(toks[:, :-1], toks[:, 1:])
+    kw = dict(num_workers=2, batch_size=2, num_epoch=2,
+              communication_window=2, worker_optimizer="sgd",
+              learning_rate=0.5,
+              loss="sparse_categorical_crossentropy_from_logits")
+    tr_card = par.DOWNPOUR(card, **kw)
+    tr_card.train(ds)
+    assert tr_card.engine.amortized
+    assert tr_card.engine.server_updates == 2
+    par.DOWNPOUR(cpu, **kw).train(ds)
+    for a, b, b0 in zip(card.module.parameters(), cpu.module.parameters(),
+                        init):
+        moved = (b.detach() - b0).abs().max()
+        assert float(moved) > 0
+        got = a.detach().cpu() - b0
+        assert float((got - (b.detach() - b0)).abs().max()) \
+            <= 1e-3 * float(moved)
+
+
+@pytest.mark.parametrize("label", [c[0] for c in chip_smoke.DIST_SYNC_FREE])
+def test_engine_epoch_makes_no_host_sync(dev, label):
+    """One engine epoch of each algorithm (its data on the card) runs
+    under ``torch.cuda.set_sync_debug_mode("error")`` without raising:
+    the commit mask is host arithmetic, the commits and steps stay on
+    the card (phase 27's check, on a 2-layer model)."""
+    _, algo, window, amortized = next(c for c in chip_smoke.DIST_SYNC_FREE
+                                      if c[0] == label)
+    eng = chip_smoke.engine_sync_free(_small_lm(dev), algo, window,
+                                      amortized)
+    assert eng.server_updates >= 1
