@@ -238,6 +238,21 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     HostAsyncTrainer (DOWNPOUR over the in-process server), each with
     its launch counts and a falling loss; one engine epoch of each
     algorithm under ``set_sync_debug_mode("error")`` (no host sync).
+28. the BASELINE vision models with BatchNorm state (``vision_phase``):
+    ResNet-50 at full width (224x224x3, 1000 classes, bf16, 25,557,032
+    parameters) built on the card (its K7 draws counted); a B8 forward
+    against the CPU float32 path on the same weights and state (logits
+    within 5e-2); ``ModelPredictor`` over 64 seeded images equal to
+    ``Model.predict``; ``SingleTrainer`` for 8 steps of B32 over 256
+    seeded images (the loss falls, the BN statistics move and stay
+    finite; images/s, a warm step's ms, the device's busy share and where
+    a step's device time goes by profiler, peak memory); AEASGD
+    (BASELINE config 3) over 4 stacked workers of B8 for one epoch (the
+    loss falls, the commit count is exact, the extracted state is the
+    workers' mean); ADAG on LeNet-5 at 32x32x3 over 4 workers (config 2);
+    one engine epoch of ``resnet18_thin`` under
+    ``set_sync_debug_mode("error")`` (the in-place state write makes no
+    host sync).
 
 Every serving phase runs the engine's default loop, ``overlap=True``;
 phase 20's teacher-forced runs use the synchronous one. Weights are
@@ -257,6 +272,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -264,6 +280,7 @@ import torch.nn.functional as F
 
 from distkeras_tpu_torch import kernels
 from distkeras_tpu_torch.data import Dataset
+from distkeras_tpu_torch.inference import ModelPredictor
 from distkeras_tpu_torch.models import (Model, Sequential,
                                         collect_aux_losses, zoo)
 from distkeras_tpu_torch.models.attention import TransformerBlock
@@ -304,7 +321,8 @@ from distkeras_tpu_torch.ops.sampling import (MAX_BOUNDARY_PARTINGS,
                                               sample_epilogue_reference,
                                               sample_tokens)
 from distkeras_tpu_torch.parallel import (SingleTrainer, TrainCarry,
-                                          make_train_step, value_and_grad)
+                                          make_train_step, shard_epoch_data,
+                                          value_and_grad)
 from distkeras_tpu_torch.parallel.engine import (
     AdagAlgo, AveragingAlgo, DistributedEngine, DownpourAlgo, DynSGDAlgo,
     ElasticAlgo, EngineConfig, WorkerStack)
@@ -4723,6 +4741,384 @@ def distributed_phase(dev, card):
     return by_path
 
 
+# --- phase 28: the BASELINE vision models with BatchNorm state -------------
+
+#: ResNet-50 at its published width (BASELINE config 3): ImageNet's
+#: 224x224x3 images and 1000 classes, bf16 compute
+RESNET_SHAPE, RESNET_CLASSES, RESNET_PARAMS = (224, 224, 3), 1000, 25_557_032
+#: seeded images a run trains on (the datasets are not in the repo), the
+#: label classes used (a few of the head's 1000, each with its own image
+#: pattern, so the loss can fall within a few steps), the SingleTrainer
+#: batch and the stacked workers' count and batch
+VISION_IMAGES, VISION_LABELS = 256, 10
+VISION_BATCH = 32
+VISION_WORKERS, VISION_WORKER_BATCH, VISION_WINDOW = 4, 8, 2
+VISION_LR = 1e-3
+#: LeNet-5's CIFAR-10 shape (BASELINE config 2)
+LENET_SHAPE = (32, 32, 3)
+#: the card's bf16 logits against the CPU float32 path, relative to the
+#: largest CPU logit
+VISION_LOGIT_TOL = 5e-2
+#: a ResNet-50 step's device time by the operators that launched it
+#: (``torch.profiler`` CPU ops, self device time): the convolutions
+#: (cuDNN, forward and backward), the head's GEMMs, the max pool; the
+#: adam update is profiled alone, and the rest (BatchNorm's passes, ReLU,
+#: casts, residual adds, the loss) is the remainder
+VISION_OP_GROUPS = (
+    ("convolutions (aten::cudnn_convolution, convolution_backward)",
+     ("aten::cudnn_convolution", "aten::convolution_backward")),
+    ("head GEMMs (aten::mm, aten::addmm)", ("aten::mm", "aten::addmm")),
+    ("max pool", ("aten::max_pool2d_with_indices",
+                  "aten::max_pool2d_with_indices_backward")),
+)
+
+
+def vision_data(n=None, shape=None, seed=SEED):
+    """``n`` seeded images of ``shape`` (default ``VISION_IMAGES`` of
+    ``RESNET_SHAPE``) and their labels: unit noise plus the pattern of
+    the label's class (one of ``VISION_LABELS``)."""
+    n = VISION_IMAGES if n is None else n
+    shape = RESNET_SHAPE if shape is None else shape
+    rs = np.random.RandomState(seed + 28)
+    patterns = rs.randn(VISION_LABELS, *shape).astype(np.float32)
+    y = rs.randint(0, VISION_LABELS, n)
+    X = rs.randn(n, *shape).astype(np.float32) + 0.5 * patterns[y]
+    return Dataset.from_arrays(X, y)
+
+
+def cpu_float32_copy(model, spec):
+    """The model's weights and state in a CPU float32 build of ``spec``
+    (sized on the ``meta`` device, so nothing is drawn twice)."""
+    cpu = Model.build(spec, model.input_shape, device="meta")
+    cpu.module.to_empty(device="cpu")
+    cpu.device = torch.device("cpu")
+    cpu.set_weights(model.get_weights())
+    return cpu
+
+
+def _state_leaves(model):
+    return [t.detach().float().cpu().clone() for t in tree_leaves(model.state)]
+
+
+def check_vision_training(label, losses, before, model, first_steps=1):
+    """Finite losses whose last steps' mean is under the first steps';
+    BN statistics that moved and stay finite. Returns (first, last)."""
+    losses = np.asarray(losses, np.float64).reshape(len(losses), -1)
+    first = float(losses[:first_steps].mean())
+    last = float(losses[-max(first_steps, 3):].mean())
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
+    after = _state_leaves(model)
+    if not all(bool(torch.isfinite(a).all()) for a in after):
+        raise AssertionError(f"{label}: BN statistics not finite")
+    if all(torch.equal(a, b) for a, b in zip(after, before)):
+        raise AssertionError(f"{label}: BN statistics did not move")
+    return first, last
+
+
+def _device_ms(prof, names=None):
+    """Self device ms of the profiled CPU ops named ``names`` (all: None)
+    and their calls."""
+    hit = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and (names is None or e.key in names)]
+    return (sum(e.self_device_time_total for e in hit) / 1e3,
+            sum(e.count for e in hit))
+
+
+def profile_vision_step(model, card, xb, yb):
+    """Warm training steps of ``model`` on ``(xb, yb)`` (adam): ms a step
+    (host clock to a synchronize, profiler off), images/s, peak device
+    memory; ``torch.profiler`` over one step: kernel launches, the
+    device's busy ms and its share of the unprofiled step, the device
+    time by ``VISION_OP_GROUPS``, and the adam update profiled alone.
+    Returns ``(step_ms, busy_share, peak_gb)``."""
+    from torch.profiler import ProfilerActivity, profile
+    opt = adam(VISION_LR)
+    loss_fn = sparse_categorical_crossentropy_from_logits
+    step = make_train_step(model.module, loss_fn, opt)
+    carry = TrainCarry(model.params, opt.init(model.params), None,
+                       model.state)
+    carry, _ = step(carry, (xb, yb))
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        carry, _ = step(carry, (xb, yb))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        carry, _ = step(carry, (xb, yb))
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.self_device_time_total > 0]
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    launches = sum(e.count for e in kern)
+    _, grads, _ = value_and_grad(model.module, loss_fn, carry.params, xb,
+                                 yb, state=carry.state)
+    torch.cuda.synchronize()
+    with profile(activities=activities) as alone:
+        with torch.no_grad():
+            upd, _ = opt.update(grads, carry.opt_state, carry.params)
+            apply_updates(carry.params, upd)
+        torch.cuda.synchronize()
+    adam_ms, adam_calls = _device_ms(alone)
+    images = xb.shape[0]
+    hwc = "x".join(str(d) for d in xb.shape[1:])
+    print(f"ResNet-50 training step on {card}: {step_ms:.1f} ms/step (B"
+          f"{images} {hwc}, bf16, adam, profiler off), "
+          f"{images / step_ms * 1e3:.1f} images/s; peak device memory "
+          f"{peak_gb:.2f} GiB ({base_gb:.2f} GiB allocated before the "
+          f"steps); profiled step: {launches} kernel launches, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / step_ms:.0f}% of the "
+          f"unprofiled step, {prof_ms:.1f} ms wall profiled)", flush=True)
+    grouped = 0.0
+    for label, names in VISION_OP_GROUPS:
+        ms, calls = _device_ms(prof, names)
+        grouped += ms
+        print(f"profile-resnet50: {label}: {ms:.3f} ms in {calls} calls",
+              flush=True)
+    print(f"profile-resnet50: adam update (profiled alone, "
+          f"{len(tree_leaves(carry.params))} leaves): {adam_ms:.3f} ms in "
+          f"{adam_calls} op calls", flush=True)
+    print(f"profile-resnet50: BatchNorm, activations, casts, residual adds "
+          f"and the loss (the remainder): "
+          f"{busy_ms - grouped - adam_ms:.3f} ms", flush=True)
+    for e in kern[:12]:
+        print(f"profile-resnet50:   {e.self_device_time_total / 1e3:8.3f} "
+              f"ms  x{e.count:<5d} {e.key[:100]}", flush=True)
+    return step_ms, busy_ms / step_ms, peak_gb
+
+
+class _StateWatch:
+    """While entered, ``DistributedEngine.extract_model`` keeps the
+    engine state it was given (the workers' ``[W, ...]`` rows)."""
+
+    def __enter__(self):
+        self.saved = DistributedEngine.extract_model
+        watch = self
+
+        def extract(eng, state):
+            watch.rows = tree_map(lambda s: s.detach().clone(),
+                                  state["worker"]["state"])
+            return watch.saved(eng, state)
+
+        DistributedEngine.extract_model = extract
+        return self
+
+    def __exit__(self, *exc):
+        DistributedEngine.extract_model = self.saved
+
+
+def perstep_commits(num_workers, window, steps):
+    """The per-step path's (server updates, worker commits) over
+    ``steps`` micro-steps: worker ``i`` (offset ``i * K // W``) commits
+    where ``(t + 1 + offset_i) % K == 0``."""
+    offsets = [(i * window // num_workers) % window
+               for i in range(num_workers)]
+    rows = [[i for i in range(num_workers)
+             if (t + 1 + offsets[i]) % window == 0] for t in range(steps)]
+    return sum(1 for r in rows if r), sum(len(r) for r in rows)
+
+
+def vision_phase(dev, card):
+    """Phase 28: ResNet-50 (BASELINE config 3) built, served and trained
+    on the card with its BatchNorm state; AEASGD over stacked workers;
+    ADAG on LeNet-5 (config 2); a sync-free engine epoch of
+    ``resnet18_thin``. Returns the K7 launches of its runs by path."""
+    import distkeras_tpu_torch.parallel as par
+    by_path = {}
+    spec = zoo.resnet50(RESNET_CLASSES, dtype="bfloat16")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = Model.build(spec, RESNET_SHAPE, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    c = kernels.launch_counts()
+    by_path["vision_build"] = c
+    if model.num_params() != RESNET_PARAMS or c["prng"] < 1:
+        raise AssertionError(f"ResNet-50: {model.num_params()} parameters, "
+                             f"{c['prng']} K7 launches")
+    print(f"ResNet-50 built on {card} in {build_s:.2f} s: "
+          f"{model.num_params()} parameters, "
+          f"{len(tree_leaves(model.state))} BN state tensors, "
+          f"{c['prng']} K7 launches (draws and key splits)", flush=True)
+
+    data = vision_data()
+    X, y = data.arrays()
+    cpu = cpu_float32_copy(model, zoo.resnet50(RESNET_CLASSES))
+    xb8 = X[:8]
+    card_logits = model.predict(xb8)
+    cpu_logits = cpu.predict(xb8)
+    scale = float(np.abs(cpu_logits).max())
+    rel = float(np.abs(card_logits - cpu_logits).max()) / scale
+    print(f"ResNet-50 B8 eval logits on {card} (bf16) vs the CPU float32 "
+          f"path: rel err {rel:.3e} (tol {VISION_LOGIT_TOL}, max |logit| "
+          f"{scale:.3f})", flush=True)
+    if card_logits.shape != (8, RESNET_CLASSES) or \
+            not np.isfinite(card_logits).all() or rel > VISION_LOGIT_TOL:
+        raise AssertionError("ResNet-50 card logits disagree with the CPU")
+    del cpu
+    gc.collect()
+
+    x64 = X[:64]
+    t0 = time.perf_counter()
+    pred = ModelPredictor(model, batch_size_per_device=16).predict(
+        Dataset({"features": x64}))["prediction"]
+    pred_s = time.perf_counter() - t0
+    ref = model.predict(x64, batch_size=16)
+    if not np.array_equal(pred, ref):
+        raise AssertionError("ModelPredictor differs from Model.predict")
+    print(f"ModelPredictor on {card}: 64 images in {pred_s:.2f} s (B16, "
+          f"the first call included) equal to Model.predict bitwise",
+          flush=True)
+
+    before = _state_leaves(model)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tr = SingleTrainer(model, worker_optimizer="adam",
+                       learning_rate=VISION_LR, loss=TRAIN_LOSS,
+                       batch_size=VISION_BATCH, num_epoch=1)
+    c = counted_train(tr, data)
+    peak = torch.cuda.max_memory_allocated()
+    by_path["vision_training"] = c
+    losses = tr.get_history().losses()
+    steps = VISION_IMAGES // VISION_BATCH
+    if len(losses) != steps or c["prng"] != steps:
+        raise AssertionError(f"SingleTrainer: {len(losses)} steps, "
+                             f"{c['prng']} K7 launches; expected {steps}")
+    first, last = check_vision_training("ResNet-50 SingleTrainer", losses,
+                                        before, model)
+    secs = tr.get_training_time()
+    print(f"ResNet-50 SingleTrainer on {card}: {steps} steps of B"
+          f"{VISION_BATCH} in {secs:.2f} s ({VISION_IMAGES / secs:.1f} "
+          f"images/s, the first step's cuDNN set-up included); loss "
+          f"{first:.4f} -> {last:.4f} (per step "
+          f"{np.array2string(losses, precision=3)}); peak device memory "
+          f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB allocated before "
+          f"the run); K7 launches {c['prng']}", flush=True)
+    xb, yb = (torch.from_numpy(a[:VISION_BATCH]).to(dev) for a in (X, y))
+    profile_vision_step(model, card, xb, yb)
+    del tr, xb, yb
+    gc.collect()
+
+    # AEASGD (BASELINE config 3) over stacked workers, the auto program
+    before = _state_leaves(model)
+    tr = par.AEASGD(model, num_workers=VISION_WORKERS,
+                    batch_size=VISION_WORKER_BATCH, num_epoch=1,
+                    communication_window=VISION_WINDOW, rho=5.0,
+                    learning_rate=0.01, worker_optimizer="adam",
+                    optimizer_kwargs={"learning_rate": VISION_LR},
+                    loss=TRAIN_LOSS)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with _StateWatch() as watch:
+            c = counted_train(tr, data)
+    by_path["vision_aeasgd"] = c
+    S = VISION_IMAGES // (VISION_WORKERS * VISION_WORKER_BATCH)
+    eng = tr.engine
+    expect = ((-(-S // VISION_WINDOW), VISION_WORKERS * -(-S // VISION_WINDOW))
+              if eng.amortized else
+              perstep_commits(VISION_WORKERS, VISION_WINDOW, S))
+    if (eng.server_updates, eng.worker_commits) != expect:
+        raise AssertionError(f"AEASGD: {eng.server_updates} commits of "
+                             f"{eng.worker_commits} workers; expected "
+                             f"{expect}")
+    losses = tr.get_history().losses()
+    first, last = check_vision_training("AEASGD", losses, before, model)
+    mean = [r.float().mean(0).cpu() for r in tree_leaves(watch.rows)]
+    got = _state_leaves(model)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, mean))
+    if err != 0.0:
+        raise AssertionError(f"AEASGD: the extracted state is not the "
+                             f"workers' mean (max diff {err})")
+    secs = tr.get_training_time()
+    print(f"ResNet-50 AEASGD on {card}: {VISION_WORKERS} stacked workers x "
+          f"B{VISION_WORKER_BATCH}, window {VISION_WINDOW} (amortized "
+          f"{eng.amortized}), one epoch: {S * VISION_WORKERS} worker steps "
+          f"in {secs:.2f} s ({VISION_IMAGES / secs:.1f} images/s); loss "
+          f"{first:.4f} -> {last:.4f}; {eng.server_updates} commits of "
+          f"{eng.worker_commits} workers (exact); extracted BN state = the "
+          f"workers' mean over {len(mean)} tensors", flush=True)
+    del tr, model, watch
+    gc.collect()
+
+    # ADAG on LeNet-5 (BASELINE config 2)
+    lenet = Model.build(zoo.lenet5(VISION_LABELS), LENET_SHAPE, seed=SEED,
+                        device=dev)
+    ldata = vision_data(shape=LENET_SHAPE)
+    tr = par.ADAG(lenet, num_workers=VISION_WORKERS,
+                  batch_size=VISION_WORKER_BATCH, num_epoch=2,
+                  communication_window=VISION_WINDOW,
+                  adag_learning_rate=VISION_LR, worker_optimizer="adam",
+                  learning_rate=VISION_LR, loss=TRAIN_LOSS)
+    c = counted_train(tr, ldata)
+    by_path["vision_adag"] = c
+    expect = perstep_commits(VISION_WORKERS, VISION_WINDOW, 2 * S)
+    if (tr.engine.server_updates, tr.engine.worker_commits) != expect:
+        raise AssertionError(f"ADAG: {tr.engine.server_updates} commits of "
+                             f"{tr.engine.worker_commits} workers; "
+                             f"expected {expect}")
+    losses = tr.get_history().losses()
+    lfirst = float(losses[:S].mean())
+    llast = float(losses[-S:].mean())
+    if not (np.isfinite(losses).all() and llast < lfirst):
+        raise AssertionError(f"ADAG: loss did not fall: {losses}")
+    print(f"LeNet-5 ADAG on {card}: {VISION_WORKERS} workers x B"
+          f"{VISION_WORKER_BATCH} over 32x32x3, 2 epochs, window "
+          f"{VISION_WINDOW}: first epoch mean loss {lfirst:.4f} -> last "
+          f"{llast:.4f}; {tr.engine.server_updates} commits of "
+          f"{tr.engine.worker_commits} workers (exact)", flush=True)
+    del tr, lenet
+
+    # the in-place state write of an engine epoch makes no host sync
+    thin = Model.build(zoo.resnet18_thin(VISION_LABELS), (32, 32, 3),
+                       seed=SEED, device=dev)
+    eng = DistributedEngine(thin.module, get_loss(TRAIN_LOSS),
+                            get_optimizer("adam", learning_rate=VISION_LR),
+                            ElasticAlgo(alpha=0.05), None,
+                            EngineConfig(num_workers=VISION_WORKERS,
+                                         window=VISION_WINDOW,
+                                         amortized=False))
+    state = eng.init_state(thin.params, prng.key(SEED, dev), thin.state)
+    tdata = vision_data(n=4 * VISION_WORKERS * VISION_WORKER_BATCH,
+                        shape=(32, 32, 3))
+    Xs, Ys, _ = shard_epoch_data(*tdata.arrays(), VISION_WORKERS,
+                                 VISION_WORKER_BATCH)
+    Xs, Ys = torch.from_numpy(Xs).to(dev), torch.from_numpy(Ys).to(dev)
+    rows0 = [t.clone() for t in tree_leaves(state["worker"]["state"])]
+    torch.cuda.synchronize()
+    with _SyncErrors():
+        eng.run_epoch(state, Xs, Ys)
+    torch.cuda.synchronize()
+    moved = sum(not torch.equal(a, b) for a, b in
+                zip(rows0, tree_leaves(state["worker"]["state"])))
+    if not moved:
+        raise AssertionError("sync-free epoch: the workers' BN state did "
+                             "not move")
+    print(f"sync-free engine epoch of resnet18_thin (AEASGD per-step, "
+          f"{VISION_WORKERS} workers, BN state rows written in place) on "
+          f"{card}: {eng.server_updates} commits under "
+          f"set_sync_debug_mode('error'): no host sync; {moved} state "
+          f"tensors moved", flush=True)
+    del thin, eng, state
+    gc.collect()
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -4896,6 +5292,7 @@ def main() -> int:
     gc.collect()
 
     dist_launches = distributed_phase(dev, card)
+    vision_launches = vision_phase(dev, card)
 
     by_path = {name: {} for name in kernels.SOURCES}
     for name in SERVING_KERNELS:
@@ -4933,6 +5330,8 @@ def main() -> int:
     for path, c in dist_launches.items():
         for name in DIST_KERNELS:
             by_path[name][path] = c[name]
+    for path, c in vision_launches.items():
+        by_path["prng"][path] = c["prng"]
 
     def entry(name, source, replaces, rows, path):
         main_row = rows[0]

@@ -60,6 +60,12 @@ class Dataset:
                          for k, v in self._columns.items())
         return f"Dataset(rows={len(self)}, {spec})"
 
+    def with_column(self, name: str, values: np.ndarray) -> "Dataset":
+        """A dataset with the column ``name`` added (or replaced)."""
+        cols = dict(self._columns)
+        cols[name] = np.asarray(values)
+        return Dataset(cols)
+
     def shuffle(self, seed: int = 0) -> "Dataset":
         """One permutation from ``seed`` applied to every column."""
         perm = np.random.RandomState(seed).permutation(len(self))

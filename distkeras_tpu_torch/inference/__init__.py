@@ -1,0 +1,10 @@
+"""Inference of the port: batched predictors that append a prediction
+column (``predictors``) and offline evaluators over dataset columns
+(``evaluators``)."""
+
+from distkeras_tpu_torch.inference.evaluators import (AccuracyEvaluator,
+                                                      Evaluator)
+from distkeras_tpu_torch.inference.predictors import (ModelPredictor,
+                                                      Predictor)
+
+__all__ = ["AccuracyEvaluator", "Evaluator", "ModelPredictor", "Predictor"]

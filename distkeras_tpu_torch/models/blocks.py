@@ -1,5 +1,12 @@
-"""Container layers of the port: ``Remat``, the rematerialization
-wrapper (mirrors ``distkeras_tpu/models/blocks.py`` ``Remat`` :147-210).
+"""Container layers of the port (mirrors ``distkeras_tpu/models/
+blocks.py``): ``Residual`` (:23), the ResNet block skeleton,
+``WideAndDeep`` (:94), the BASELINE config 4 model as one layer, and
+``Remat`` (:147-210), the rematerialization wrapper.
+
+``Residual`` and ``WideAndDeep`` lay out their parameter and state trees
+as JAX's (``{"main", "shortcut"}``, ``{"wide", "deep"}``; an identity
+shortcut holds ``{}``) and split their key as JAX's ``init`` does, so a
+seed gives JAX's weights.
 
 ``Remat(inner, policy=)`` recomputes ``inner``'s activations during the
 backward pass instead of keeping them, through
@@ -12,7 +19,11 @@ model unchanged. ``segment_ids`` pass through to an inner layer that
 accepts them. The recompute runs in the mode of the original forward
 (the trainer restores eval mode before the backward) and leaves no
 auxiliary loss behind (an MoE's balance term was collected from the
-original forward).
+original forward). A stateful inner layer (BatchNorm) writes its
+running statistics in the original forward only: the recompute gets
+copies of the state tensors, so a ``Remat`` step leaves the state
+bitwise equal to the bare step's (in training mode the forward does not
+read the running statistics, so the copies change no output).
 
 Policies (JAX ``jax.checkpoint_policies``): ``None`` or ``"nothing"``
 saves nothing; ``"dots"`` saves every matmul output (``mm``, ``bmm``,
@@ -35,7 +46,10 @@ import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from distkeras_tpu_torch.models.core import Layer
+from distkeras_tpu_torch.models.core import Layer, Sequential
+from distkeras_tpu_torch.models.layers import Dense, get_activation
+from distkeras_tpu_torch.ops import prng
+from distkeras_tpu_torch.utils.tree import tree_map
 
 _aten = torch.ops.aten
 #: the operations each selective policy saves (JAX ``checkpoint_dots``
@@ -81,18 +95,23 @@ class Remat(Layer):
     def param_tree(self):
         return self.inner.param_tree()
 
+    def state_tree(self):
+        return self.inner.state_tree()
+
     def _context_fn(self):
         ops = _SAVED_OPS.get(self.policy)
         if ops is None:
             return None
         return functools.partial(create_selective_checkpoint_contexts, ops)
 
-    def apply(self, p, x, segment_ids=None, rng=None):
+    def apply(self, p, x, segment_ids=None, rng=None, state=None):
         kw = {}
         if segment_ids is not None and self.accepts_segment_ids:
             kw["segment_ids"] = segment_ids
         if rng is not None and self.uses_rng:
             kw["rng"] = rng       # the recompute draws the same masks
+        if self.has_state:
+            kw["state"] = state
         if not torch.is_grad_enabled():      # nothing to save
             return self.inner.apply(p, x, **kw)
         training, calls = self.training, []
@@ -101,6 +120,11 @@ class Remat(Layer):
             if not calls:                    # the original forward
                 calls.append(True)
                 return self.inner.apply(p, x, **kw)
+            if "state" in kw:                # written once, not twice
+                own = kw["state"]
+                kw = dict(kw, state=tree_map(
+                    torch.clone, self.inner.state_tree() if own is None
+                    else own))
             layers = [m for m in self.inner.modules() if isinstance(m, Layer)]
             aux = [m._aux_loss for m in layers]
             modes = [m.training for m in layers]
@@ -116,3 +140,127 @@ class Remat(Layer):
         if context_fn is not None:
             ckpt_kw["context_fn"] = context_fn
         return checkpoint(f, p, x, kw, use_reentrant=False, **ckpt_kw)
+
+
+class Residual(Layer):
+    """``y = act(main(x) + shortcut(x))``, the ResNet block skeleton
+    (JAX :23). ``shortcut=None`` is the identity (the shapes must
+    match). The key splits in two for ``init`` (main, shortcut) and in
+    three for a training ``apply`` that draws, as JAX's."""
+
+    def __init__(self, main: Layer = None, shortcut: Optional[Layer] = None,
+                 activation: Optional[str] = "relu", main_spec=None,
+                 shortcut_spec=None):
+        super().__init__()
+        if main_spec is not None or shortcut_spec is not None:
+            raise NotImplementedError(
+                "Residual(main_spec=, shortcut_spec=): layer specs (model "
+                "serialization) are not ported yet: ROADMAP, Queue 1 item 9")
+        if main is None:
+            raise ValueError("Residual needs a main branch")
+        get_activation(activation)
+        self.main = main
+        self.shortcut = shortcut
+        self.activation = activation
+
+    def _branches(self):
+        return [l for l in (self.main, self.shortcut) if l is not None]
+
+    @property
+    def accepts_segment_ids(self) -> bool:
+        return any(l.accepts_segment_ids for l in self._branches())
+
+    @property
+    def uses_rng(self) -> bool:
+        return any(l.uses_rng for l in self._branches())
+
+    def build(self, input_shape, rng):
+        k1, k2 = prng.split(rng)
+        out_main = self.main.build(input_shape, k1)
+        out_short = (self.shortcut.build(input_shape, k2)
+                     if self.shortcut is not None else tuple(input_shape))
+        if tuple(out_main) != tuple(out_short):
+            raise ValueError(
+                f"Residual branch shapes differ: main {tuple(out_main)} vs "
+                f"shortcut {tuple(out_short)}")
+        return tuple(out_main)
+
+    def param_tree(self):
+        return {"main": self.main.param_tree(),
+                "shortcut": ({} if self.shortcut is None
+                             else self.shortcut.param_tree())}
+
+    def state_tree(self):
+        return {"main": self.main.state_tree(),
+                "shortcut": ({} if self.shortcut is None
+                             else self.shortcut.state_tree())}
+
+    def apply(self, p, x, segment_ids=None, rng=None, state=None):
+        keys = [None, None]
+        if rng is not None and self.uses_rng:
+            r = prng.split(rng, 3)
+            keys = [r[1], r[2]]
+
+        def branch(layer, name, key):
+            kw = {}
+            if segment_ids is not None and layer.accepts_segment_ids:
+                kw["segment_ids"] = segment_ids
+            if key is not None and layer.uses_rng:
+                kw["rng"] = key
+            if layer.has_state:
+                kw["state"] = None if state is None else state[name]
+            return layer.apply(p[name], x, **kw)
+
+        y = branch(self.main, "main", keys[0])
+        sc = (x if self.shortcut is None
+              else branch(self.shortcut, "shortcut", keys[1]))
+        return get_activation(self.activation)(y + sc)
+
+
+class WideAndDeep(Layer):
+    """Wide & Deep (Cheng et al. 2016) as one layer (JAX :94): the input
+    row is ``[wide (wide_dim) | deep (rest)]`` and the logits are
+    ``Dense(wide) + MLP(deep)``."""
+
+    def __init__(self, wide_dim: int, deep_hidden=(256, 128),
+                 num_classes: int = 2, activation: str = "relu",
+                 dtype: str = "float32"):
+        super().__init__()
+        self.wide_dim = int(wide_dim)
+        self.deep_hidden = tuple(int(h) for h in deep_hidden)
+        self.num_classes = int(num_classes)
+        self.activation = activation
+        self.dtype = dtype
+        self.wide = Dense(self.num_classes, use_bias=True, dtype=dtype)
+        self.deep = Sequential(
+            [Dense(h, activation=activation, dtype=dtype)
+             for h in self.deep_hidden] + [Dense(self.num_classes,
+                                                 dtype=dtype)])
+
+    @property
+    def uses_rng(self) -> bool:
+        return self.deep.uses_rng
+
+    def build(self, input_shape, rng):
+        total = input_shape[-1]
+        if total <= self.wide_dim:
+            raise ValueError(
+                f"input dim {total} must exceed wide_dim {self.wide_dim}")
+        k1, k2 = prng.split(rng)
+        self.wide.build((self.wide_dim,), k1)
+        self.deep.build((total - self.wide_dim,), k2)
+        return (self.num_classes,)
+
+    def param_tree(self):
+        return {"wide": self.wide.param_tree(),
+                "deep": self.deep.param_tree()}
+
+    def state_tree(self):
+        return {"wide": self.wide.state_tree(),
+                "deep": self.deep.state_tree()}
+
+    def apply(self, p, x, rng=None):
+        xw, xd = x[..., :self.wide_dim], x[..., self.wide_dim:]
+        kw = {"rng": rng} if rng is not None and self.uses_rng else {}
+        return (self.wide.apply(p["wide"], xw)
+                + self.deep.apply(p["deep"], xd, **kw))

@@ -5,13 +5,16 @@
 tensors (int8 ``q``/``q4`` bytes and float32 scales as they are),
 ``to_jax_params`` exports a port model's weights in the JAX tree layout
 (so a model trained here can be loaded into the JAX package, and the
-tests compare trained weights leaf by leaf).
+tests compare trained weights leaf by leaf); ``to_jax_state`` does the
+same for the model state.
 
-The port keeps the JAX parameter names and layouts, so the bridge is a
-copy: every key of the port's ``param_tree()`` must be present with the
-same shape, and nothing else may be. The LM layers carry no state; a
-state tree with any array in it is refused rather than dropped, except
-a JAX MoE layer's training-only balance-loss scalar (``AUX_LOSS_KEY``).
+The port keeps the JAX parameter and state names and layouts, so the
+bridge is a copy: every key of the port's ``param_tree()`` (and, when a
+state tree is given, of its ``state_tree()``: BatchNorm's ``mean`` and
+``var``) must be present with the same shape, and nothing else may be.
+A state array that no layer of the port holds is refused rather than
+dropped, except a JAX MoE layer's training-only balance-loss scalar
+(``AUX_LOSS_KEY``).
 """
 
 from __future__ import annotations
@@ -41,32 +44,36 @@ def _flatten(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
         yield prefix, tree
 
 
-@torch.no_grad()
-def from_jax_params(model: Model, params, state=None) -> Model:
-    """Copy ``params`` (one dict per layer, numpy leaves) into ``model``;
-    returns the model. Raises on a missing, extra or mis-shaped key."""
-    ours: Dict[str, torch.Tensor] = dict(_flatten(model.params))
-    theirs = {k: np.asarray(v) for k, v in _flatten(params)}
+def _copy_tree(ours: Dict[str, torch.Tensor], theirs: Dict, what: str,
+               hint: str = "") -> None:
     missing = sorted(set(ours) - set(theirs))
     extra = sorted(set(theirs) - set(ours))
     if missing or extra:
-        raise ValueError(f"parameter trees differ: missing {missing}, "
-                         f"unexpected {extra} (a quantized tree crosses "
-                         "with qtree_from_jax)")
+        raise ValueError(f"{what} trees differ: missing {missing}, "
+                         f"unexpected {extra}{hint}")
     for key, dst in ours.items():
-        src = theirs[key]
+        src = np.asarray(theirs[key])
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{key}: shape {tuple(src.shape)} does not "
                              f"match the port's {tuple(dst.shape)}")
         dst.copy_(torch.from_numpy(np.array(src, copy=True)).to(dst.dtype))
+
+
+@torch.no_grad()
+def from_jax_params(model: Model, params, state=None) -> Model:
+    """Copy ``params`` (one dict per layer, numpy leaves) and, when
+    given, the JAX ``state`` tree into ``model``; returns the model.
+    Raises on a missing, extra or mis-shaped key."""
+    _copy_tree(dict(_flatten(model.params)), dict(_flatten(params)),
+               "parameter", " (a quantized tree crosses with "
+               "qtree_from_jax)")
     if state is not None:
         # a JAX MoE layer built with a balance-loss weight carries its
         # training-only aux-loss scalar in the state: nothing to load
-        leaves = [k for k, _ in _flatten(state)
-                  if not k.endswith("/" + AUX_LOSS_KEY)]
-        if leaves:
-            raise ValueError(f"the port's layers carry no state, got "
-                             f"{leaves}")
+        _copy_tree(dict(_flatten(model.state)),
+                   {k: v for k, v in _flatten(state)
+                    if not k.endswith("/" + AUX_LOSS_KEY)}, "state",
+                   " (the port's model has no state at an unexpected key)")
     return model
 
 
@@ -91,10 +98,19 @@ def qtree_from_jax(tree, device=None):
     return leaf(tree)
 
 
+def _host(tree):
+    return tree_map(
+        lambda x: x.detach().to("cpu", torch.float32).numpy().copy(), tree)
+
+
 def to_jax_params(model: Model):
     """The model's parameters as the JAX package's tree: one dict per
     layer of the ``Sequential``, float32 numpy leaves under the JAX
     names and layouts (the inverse of ``from_jax_params``)."""
-    return tree_map(
-        lambda x: x.detach().to("cpu", torch.float32).numpy().copy(),
-        model.params)
+    return _host(model.params)
+
+
+def to_jax_state(model: Model):
+    """The model's state (BatchNorm's running statistics) as the JAX
+    package's ``Model.state`` tree of float32 numpy leaves."""
+    return _host(model.state)

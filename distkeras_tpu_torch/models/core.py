@@ -18,8 +18,16 @@ require grad; each layer casts them to its compute dtype inside
 auxiliary training loss during a training-mode forward
 (``publish_aux_loss``, e.g. the MoE balance loss); ``collect_aux_losses``
 sums and clears them: the counterpart of JAX's ``AUX_LOSS_KEY`` state
-entry and ``collect_aux_losses`` (:33-50), since the port's layers carry
-no state. Packed sequences: ``Sequential.apply(p, x, segment_ids=)``
+entry and ``collect_aux_losses`` (:33-50). Model state (JAX :83-195,
+BatchNorm's running statistics): a stateful layer registers it as
+float32 buffers under JAX's names (``add_state``); ``state_tree()``
+mirrors ``param_tree()`` with the structure of the JAX ``Model.state``
+(one dict per layer of a ``Sequential``, ``{}`` for a stateless one).
+``apply`` takes the state subtree as ``state=`` (default: the layer's own
+buffers), and a training-mode forward writes the new statistics into the
+tensors it was given, in place, under ``no_grad``: so a trainer's carry,
+or a stacked worker's view of its ``[W, ...]`` rows, advances as JAX's
+returned state does. Packed sequences: ``Sequential.apply(p, x, segment_ids=)``
 forwards ``[B, S]`` ids only to the layers that declare
 ``accepts_segment_ids`` (JAX :151-186). Randomness in training:
 ``Sequential.apply(p, x, rng=)`` splits ``rng`` once per layer (JAX
@@ -27,13 +35,17 @@ forwards ``[B, S]`` ids only to the layers that declare
 a ``Dropout`` or ``TransformerBlock`` with a rate, a ``Remat`` or a
 nested stack holding one); a stack none of whose layers draws splits
 nothing, which changes no result. ``Model.apply`` (inference)
-runs under ``torch.no_grad``; ``Model.fit`` trains in place through
+runs under ``torch.no_grad``; ``Model.predict`` and ``Model.evaluate``
+are JAX's host-side inference (:237-359); ``get_weights``/``set_weights``
+the Keras-style flat list of params, then state, in JAX's leaf order
+(dict keys sorted, :379-405); ``Model.fit`` trains in place through
 ``parallel.trainers.SingleTrainer``; ``Model.generate`` continues
 prompts through ``models.decoding.generate``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,6 +57,37 @@ from distkeras_tpu_torch.ops import prng
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+
+def user_float(y: torch.Tensor) -> torch.Tensor:
+    """JAX's output dtype policy (:53): a bf16/f16 output goes back to the
+    host as float32; other dtypes pass through."""
+    if y.is_floating_point() and y.dtype != torch.float32:
+        return y.float()
+    return y
+
+
+def sorted_leaves(tree) -> List:
+    """The leaves of a tree in ``jax.tree_util.tree_leaves`` order: dict
+    keys sorted, list entries in order."""
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in sorted_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [l for sub in tree for l in sorted_leaves(sub)]
+    return [] if tree is None else [tree]
+
+
+@contextlib.contextmanager
+def eval_mode(module: nn.Module):
+    """Run the block with ``module`` in inference mode (JAX's
+    ``training=False``), restoring every sub-module's mode after it."""
+    modes = [(m, m.training) for m in module.modules()]
+    module.eval()
+    try:
+        yield module
+    finally:
+        for m, t in modes:
+            m.training = t
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -72,12 +115,23 @@ class Layer(nn.Module):
     #: from it when training (a dropout rate > 0)
     uses_rng = False
 
+    @property
+    def has_state(self) -> bool:
+        """This layer keeps model state, or holds a layer that does, and
+        its ``apply`` takes ``state=`` (a stateful layer sets it True)."""
+        return any(isinstance(m, Layer) and m.has_state
+                   for m in self.children())
+
     def build(self, input_shape: Tuple[int, ...],
               rng: torch.Tensor) -> Tuple[int, ...]:
         return tuple(input_shape)
 
     def add_param(self, name: str, value: torch.Tensor) -> None:
         self.register_parameter(name, nn.Parameter(value))
+
+    def add_state(self, name: str, value: torch.Tensor) -> None:
+        """Register model state (a running statistic) as a buffer."""
+        self.register_buffer(name, value)
 
     def param_tree(self) -> Dict:
         """``{name: tensor}`` for this layer's own parameters plus
@@ -86,6 +140,17 @@ class Layer(nn.Module):
         for name, child in self.named_children():
             if isinstance(child, Layer):
                 sub = child.param_tree()
+                if sub:
+                    tree[name] = sub
+        return tree
+
+    def state_tree(self) -> Dict:
+        """``param_tree()``'s counterpart over the state buffers: the
+        layer's part of the JAX ``Model.state``."""
+        tree = {name: b for name, b in self.named_buffers(recurse=False)}
+        for name, child in self.named_children():
+            if isinstance(child, Layer):
+                sub = child.state_tree()
                 if sub:
                     tree[name] = sub
         return tree
@@ -137,6 +202,9 @@ class Sequential(Layer):
     def param_tree(self) -> List[Dict]:
         return [layer.param_tree() for layer in self.layers]
 
+    def state_tree(self) -> List[Dict]:
+        return [layer.state_tree() for layer in self.layers]
+
     @property
     def accepts_segment_ids(self) -> bool:
         return any(layer.accepts_segment_ids for layer in self.layers)
@@ -145,12 +213,18 @@ class Sequential(Layer):
     def uses_rng(self) -> bool:
         return any(layer.uses_rng for layer in self.layers)
 
-    def apply(self, p, x, segment_ids=None, rng=None):
+    @property
+    def has_state(self) -> bool:
+        return any(layer.has_state for layer in self.layers)
+
+    def apply(self, p, x, segment_ids=None, rng=None, state=None):
         """``segment_ids`` ``[B, S]`` go to the layers that accept them
         (attention masking); the others are position-wise, and the loss
         masks padded positions. Ids passed to a stack where no layer
         accepts them raise rather than run unmasked. ``rng`` (training):
-        one split per layer, the sub-key to the layers that draw."""
+        one split per layer, the sub-key to the layers that draw.
+        ``state`` (one entry per layer, or None for the layers' own
+        buffers) goes to the stateful layers."""
         if segment_ids is not None and not self.accepts_segment_ids:
             raise ValueError(
                 "segment_ids passed, but no layer in this Sequential "
@@ -158,7 +232,7 @@ class Sequential(Layer):
                 "TransformerBlock-family layer)")
         if not self.uses_rng:
             rng = None
-        for layer, lp in zip(self.layers, p):
+        for i, (layer, lp) in enumerate(zip(self.layers, p)):
             kw = {}
             if rng is not None:
                 rng, sub = prng.split(rng)
@@ -166,6 +240,8 @@ class Sequential(Layer):
                     kw["rng"] = sub
             if segment_ids is not None and layer.accepts_segment_ids:
                 kw["segment_ids"] = segment_ids
+            if layer.has_state:
+                kw["state"] = None if state is None else state[i]
             x = layer.apply(lp, x, **kw)
         return x
 
@@ -203,10 +279,100 @@ class Model:
     def params(self):
         return self.module.param_tree()
 
+    @property
+    def state(self):
+        """The model state tree (BatchNorm's running statistics): the
+        module's own buffers, shaped as the JAX ``Model.state``."""
+        return self.module.state_tree()
+
     @torch.no_grad()
     def apply(self, x) -> torch.Tensor:
         """Forward pass over a batch (tokens ``[B, S]`` for an LM)."""
         return self.module(torch.as_tensor(x).to(self.device))
+
+    @torch.no_grad()
+    def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:
+        """Host-side inference (JAX :237): the eval-mode forward over
+        ``x`` with the running statistics, as float32 (``user_float``).
+        With ``batch_size`` the rows go in batches of that size and the
+        last one is zero-padded to it, so every call has one shape."""
+        from distkeras_tpu_torch.data.dataset import coerce_column
+        if not torch.is_tensor(x):   # JAX's dtypes: float32 or integers
+            x = torch.from_numpy(coerce_column(x))
+        x = x.to(self.device)
+        params = self.params
+
+        def fwd(b):
+            with eval_mode(self.module):
+                return user_float(self.module.apply(params, b)) \
+                    .cpu().numpy()
+
+        if batch_size is None:
+            return fwd(x)
+        n, outs = x.shape[0], []
+        for i in range(0, n, batch_size):
+            xb = x[i:i + batch_size]
+            pad = batch_size - xb.shape[0]
+            if pad:
+                xb = torch.cat([xb, xb.new_zeros((pad,) + xb.shape[1:])])
+            yb = fwd(xb)
+            outs.append(yb[:batch_size - pad] if pad else yb)
+        return np.concatenate(outs, axis=0)
+
+    def evaluate(self, x, y=None, *, loss="mean_squared_error",
+                 metrics=("accuracy",), batch_size: int = 1024,
+                 features_col: str = "features", label_col: str = "label"):
+        """Keras-style ``model.evaluate`` (JAX :307): ``{"loss": ...,
+        metric: ...}`` over the whole of an in-memory ``Dataset`` or of
+        arrays ``x``, ``y``, from a batched ``predict``."""
+        from distkeras_tpu_torch.data.dataset import Dataset, coerce_column
+        from distkeras_tpu_torch.ops.losses import get_loss
+        from distkeras_tpu_torch.ops.metrics import get_metric, metric_name
+
+        if isinstance(x, Dataset):
+            X, yv = x.arrays(features_col, label_col)
+            if yv is None:
+                raise ValueError(
+                    f"evaluate(dataset): label column {label_col!r} not in "
+                    f"dataset (columns: {x.columns})")
+        elif hasattr(x, "load_shard"):
+            raise NotImplementedError(
+                "evaluate(ShardedDataset) is not ported yet (only an "
+                "in-memory Dataset or arrays): ROADMAP, Queue 1 item 9")
+        else:
+            if y is None:
+                raise ValueError("evaluate(x, y): y is required")
+            X, yv = coerce_column(x), coerce_column(y)
+        preds = torch.from_numpy(self.predict(X, batch_size=batch_size))
+        yt = torch.from_numpy(yv)
+        res = {"loss": float(get_loss(loss)(yt, preds))}
+        for m in (metrics or ()):
+            res[metric_name(m)] = float(get_metric(m)(yt, preds))
+        return res
+
+    def get_weights(self) -> List[np.ndarray]:
+        """Keras-style flat weight list (JAX :379): the params, then the
+        state, as host numpy arrays in ``jax.tree_util.tree_leaves``
+        order, so a JAX model's ``get_weights()`` loads here."""
+        return [w.detach().cpu().numpy().copy()
+                for w in sorted_leaves((self.params, self.state))]
+
+    @torch.no_grad()
+    def set_weights(self, weights: Sequence[np.ndarray]) -> None:
+        """The inverse of :meth:`get_weights`: shapes must match leaf for
+        leaf; the values are copied into the model's tensors."""
+        leaves = sorted_leaves((self.params, self.state))
+        if len(weights) != len(leaves):
+            raise ValueError(
+                f"set_weights got {len(weights)} arrays, model has "
+                f"{len(leaves)} weight tensors (params + state)")
+        for i, (leaf, w) in enumerate(zip(leaves, weights)):
+            w = torch.from_numpy(np.array(w))
+            if tuple(w.shape) != tuple(leaf.shape):
+                raise ValueError(
+                    f"set_weights: tensor {i} has shape {tuple(w.shape)}, "
+                    f"expected {tuple(leaf.shape)}")
+            leaf.copy_(w)
 
     def generate(self, prompts, max_new_tokens: int, **kwargs):
         """Keras-style convenience over ``models.decoding.generate``
@@ -217,6 +383,26 @@ class Model:
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.module.parameters())
+
+    def summary(self) -> str:
+        """Keras-style per-layer table (JAX :411): each layer of a
+        ``Sequential`` with its parameter count, then the total. Printed
+        and returned."""
+        if isinstance(self.module, Sequential):
+            rows = [(type(layer).__name__,
+                     sum(p.numel() for p in layer.parameters()))
+                    for layer in self.module.layers]
+        else:
+            rows = [(type(self.module).__name__, self.num_params())]
+        name_w = min(72, max([len(r[0]) for r in rows] + [10]))
+        lines = [f"Model: in={self.input_shape} out={self.output_shape}",
+                 "-" * (name_w + 14)]
+        lines += [f"{name:<{name_w}}  {n:>12,}" for name, n in rows]
+        lines.append("-" * (name_w + 14))
+        lines.append(f"{'total':<{name_w}}  {self.num_params():>12,}")
+        out = "\n".join(lines)
+        print(out)
+        return out
 
     def to(self, device) -> "Model":
         """Move the parameters to another device (in place)."""

@@ -1,32 +1,55 @@
-"""Dense, embedding and dropout layers, activations and initializers.
+"""Standard layers of the port: dense, embedding, dropout, activation,
+reshaping, convolution, pooling and normalization layers, activations
+and initializers.
 
-Mirrors the parts of ``distkeras_tpu/models/layers.py`` that
-``zoo.transformer_lm`` uses. ``"gelu"`` is ``jax.nn.gelu``'s default,
-the tanh approximation (:40). Matrices are stored float32 and cast to
-the layer's compute dtype when applied; activations flow in the compute
-dtype (the JAX package's mixed-precision policy).
+Mirrors ``distkeras_tpu/models/layers.py``. ``"gelu"`` is
+``jax.nn.gelu``'s default, the tanh approximation (:40). Weights are
+stored float32 and cast to the layer's compute dtype when applied;
+activations flow in the compute dtype (the JAX package's mixed-precision
+policy), and the normalizations compute in float32 and cast back.
 Initializers and dropout draw from JAX's threefry keys (``ops.prng``),
 so a key gives the JAX package's weights and masks.
+
+The image layers keep JAX's layout at their interface: inputs NHWC (NWC
+for ``Conv1D``), kernels HWIO (WIO). A convolution runs on the NCHW view
+``x.permute(0, 3, 1, 2)`` of the NHWC tensor, which is a channels-last
+tensor to PyTorch (no copy), and permutes its output back, so
+``Flatten`` reads H, W, C in JAX's order. The convolutions and pools are
+PyTorch's (cuDNN on the card): JAX computes them with plain XLA
+(``lax.conv_general_dilated``, ``lax.reduce_window``), not with a Pallas
+kernel. ``"SAME"`` padding is XLA's, which is asymmetric where the
+window overhangs by an odd amount (``same_pads``); it is applied with
+``F.pad`` (zeros for a convolution or an average, ``-inf`` for a max).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from distkeras_tpu_torch.models.core import Layer, torch_dtype
 from distkeras_tpu_torch.ops import prng
-from distkeras_tpu_torch.ops import prng
+from distkeras_tpu_torch.ops.normalization import bn_train_apply
+
+#: the data-parallel half of the family's ROADMAP item, named in errors
+SYNC_BN_ITEM = ("ROADMAP, Queue 1 item 10 (cross-replica BatchNorm, "
+                "axis_name=, needs a mesh of cards)")
 
 ACTIVATIONS = {
     "linear": lambda x: x,
     "relu": torch.relu,
+    "relu6": F.relu6,
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
+    "softmax": lambda x: torch.softmax(x, dim=-1),
+    "log_softmax": lambda x: torch.log_softmax(x, dim=-1),
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "silu": F.silu,
+    "elu": F.elu,
+    "leaky_relu": F.leaky_relu,
     "softplus": F.softplus,
 }
 
@@ -161,3 +184,331 @@ class Embedding(Layer):
 
     def apply(self, p, x):
         return F.embedding(x.long(), p["embeddings"])
+
+
+class Activation(Layer):
+    """An activation by name (JAX :148)."""
+
+    def __init__(self, activation: str):
+        super().__init__()
+        get_activation(activation)  # fail at construction
+        self.activation = activation
+
+    def apply(self, p, x):
+        return get_activation(self.activation)(x)
+
+
+class Flatten(Layer):
+    """``[B, ...] -> [B, prod(...)]`` in JAX's (row-major NHWC) order
+    (JAX :179)."""
+
+    def build(self, input_shape, rng):
+        return (math.prod(input_shape),)
+
+    def apply(self, p, x):
+        return x.reshape(x.shape[0], -1)
+
+
+class Reshape(Layer):
+    """``[B, ...] -> [B, *target_shape]`` (JAX :188)."""
+
+    def __init__(self, target_shape: Sequence[int]):
+        super().__init__()
+        self.target_shape = tuple(int(d) for d in target_shape)
+
+    def build(self, input_shape, rng):
+        return self.target_shape
+
+    def apply(self, p, x):
+        return x.reshape((x.shape[0],) + self.target_shape)
+
+
+# ---------------------------------------------------------------------------
+# convolution / pooling (channels last)
+# ---------------------------------------------------------------------------
+
+def _pair(v) -> Tuple[int, int]:
+    return (int(v), int(v)) if isinstance(v, int) else tuple(int(e)
+                                                             for e in v)
+
+
+def same_pads(sizes, window, strides):
+    """XLA's ``"SAME"`` padding, ``(low, high)`` per spatial dimension:
+    ``out = ceil(n / s)``, ``total = max((out - 1) * s + k - n, 0)``,
+    ``low = total // 2`` (the extra element, if any, goes high)."""
+    pads = []
+    for n, k, s in zip(sizes, window, strides):
+        out = -(-int(n) // s)
+        total = max((out - 1) * s + k - int(n), 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _out_sizes(sizes, window, strides, padding: str):
+    """Spatial output sizes of a window op (XLA's rule per padding)."""
+    if padding == "SAME":
+        return tuple(-(-int(n) // s) for n, s in zip(sizes, strides))
+    return tuple((int(n) - k) // s + 1
+                 for n, k, s in zip(sizes, window, strides))
+
+
+def _pad_spatial(x: torch.Tensor, pads, value: float) -> torch.Tensor:
+    """Pad the trailing spatial dimensions of channels-first ``x`` by
+    ``pads`` (``(low, high)`` per dimension, leading first)."""
+    flat = [e for lo_hi in reversed(pads) for e in lo_hi]
+    if not any(flat):
+        return x
+    return F.pad(x, flat, value=value)
+
+
+def _check_padding(padding: str) -> str:
+    padding = padding.upper()
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got "
+                         f"{padding!r}")
+    return padding
+
+
+class _ConvND(Layer):
+    """Shared N-d convolution (JAX :210): channels-last input, kernel
+    ``[*window, in, filters]`` under ``kernel``, optional ``bias``. The
+    input and kernel are cast to the compute dtype, the bias added there
+    after the convolution, then the activation."""
+
+    _rank: int
+
+    def __init__(self, filters: int, kernel_size, strides=1, padding="SAME",
+                 activation=None, use_bias: bool = True,
+                 kernel_init: str = "he_normal", dtype: str = "float32"):
+        super().__init__()
+        get_activation(activation)  # fail at construction
+        self.filters = int(filters)
+        self.kernel_size = self._spatial(kernel_size)
+        self.strides = self._spatial(strides)
+        self.padding = _check_padding(padding)
+        self.activation = activation
+        self.use_bias = bool(use_bias)
+        self.kernel_init = kernel_init
+        self.dtype = dtype
+
+    def _spatial(self, v) -> tuple:
+        """A bare int broadcasts to the layer's spatial rank; a sequence
+        must match it (JAX :237)."""
+        n = self._rank
+        if isinstance(v, (tuple, list)):
+            if len(v) != n:
+                raise ValueError(f"{type(self).__name__} expects {n} "
+                                 f"spatial dim(s), got {v}")
+            return tuple(int(e) for e in v)
+        return (int(v),) * n
+
+    def build(self, input_shape, rng):
+        c = input_shape[-1]
+        self.add_param("kernel", init_weights(
+            self.kernel_init, rng, self.kernel_size + (c, self.filters)))
+        if self.use_bias:
+            self.add_param("bias", torch.zeros(self.filters,
+                                               device=rng.device))
+        return _out_sizes(input_shape[:-1], self.kernel_size, self.strides,
+                          self.padding) + (self.filters,)
+
+    def apply(self, p, x):
+        dt = torch_dtype(self.dtype)
+        r = self._rank
+        xc = x.to(dt).movedim(-1, 1)         # the channels-first view
+        if self.padding == "SAME":
+            xc = _pad_spatial(xc, same_pads(xc.shape[2:], self.kernel_size,
+                                            self.strides), 0.0)
+        # [*window, in, out] -> [out, in, *window]
+        w = p["kernel"].to(dt).permute(r + 1, r, *range(r))
+        y = self._conv(xc, w, stride=self.strides).movedim(1, -1)
+        if self.use_bias:
+            y = y + p["bias"].to(dt)
+        return get_activation(self.activation)(y)
+
+
+class Conv2D(_ConvND):
+    """2-d convolution over ``[B, H, W, C]``, kernel HWIO (JAX :287)."""
+    _rank = 2
+    _conv = staticmethod(F.conv2d)
+
+
+class Conv1D(_ConvND):
+    """1-d convolution over ``[B, W, C]``, kernel WIO (JAX :294)."""
+    _rank = 1
+    _conv = staticmethod(F.conv1d)
+
+
+class _Pool2D(Layer):
+    """Shared 2-d pooling over ``[B, H, W, C]`` (JAX :430)."""
+
+    def __init__(self, pool_size=2, strides=None, padding="VALID"):
+        super().__init__()
+        self.pool_size = _pair(pool_size)
+        self.strides = (_pair(strides) if strides is not None
+                        else self.pool_size)
+        self.padding = _check_padding(padding)
+
+    def _pads(self, xc):
+        if self.padding == "VALID":
+            return [(0, 0), (0, 0)]
+        return same_pads(xc.shape[2:], self.pool_size, self.strides)
+
+    def build(self, input_shape, rng):
+        return _out_sizes(input_shape[:2], self.pool_size, self.strides,
+                          self.padding) + (input_shape[-1],)
+
+    def apply(self, p, x):
+        return self._reduce(x.movedim(-1, 1)).movedim(1, -1)
+
+
+class MaxPooling2D(_Pool2D):
+    """Window maximum; ``"SAME"`` pads with ``-inf`` (JAX :451)."""
+
+    def _reduce(self, xc):
+        xc = _pad_spatial(xc, self._pads(xc), float("-inf"))
+        return F.max_pool2d(xc, self.pool_size, self.strides)
+
+
+class AveragePooling2D(_Pool2D):
+    """Window mean over the REAL elements of each window: the window sum
+    divided by the count of unpadded elements it covers (JAX :459
+    reduces a window of ones)."""
+
+    def _reduce(self, xc):
+        pads = self._pads(xc)
+        summed = F.avg_pool2d(_pad_spatial(xc, pads, 0.0), self.pool_size,
+                              self.strides, divisor_override=1)
+        ones = xc.new_ones((1, 1) + tuple(xc.shape[2:]))
+        count = F.avg_pool2d(_pad_spatial(ones, pads, 0.0), self.pool_size,
+                             self.strides, divisor_override=1)
+        return summed / count
+
+
+class GlobalAveragePooling2D(Layer):
+    """Mean over H and W of ``[B, H, W, C]`` (JAX :471)."""
+
+    def build(self, input_shape, rng):
+        return (input_shape[-1],)
+
+    def apply(self, p, x):
+        return x.mean(dim=(1, 2))
+
+
+class GlobalAveragePooling1D(Layer):
+    """Mean over the sequence axis of ``[B, S, D]`` (JAX :480)."""
+
+    def build(self, input_shape, rng):
+        return (input_shape[-1],)
+
+    def apply(self, p, x):
+        return x.mean(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# normalization
+# ---------------------------------------------------------------------------
+
+class BatchNorm(Layer):
+    """Batch normalization over the last axis (JAX :495): params
+    ``scale``/``offset``, state ``mean``/``var`` (float32 buffers).
+
+    Training (``self.training``): normalize by the batch's float32
+    moments, ``var = E[x^2] - E[x]^2`` (biased), through
+    ``ops.normalization.bn_train_apply`` (JAX's two-reduction backward),
+    and write ``m * running + (1 - m) * batch`` into the state tensors
+    given (in place, no gradient). ``virtual_batch_size`` (ghost BN):
+    each group of that many rows normalizes by its own moments (plain
+    autograd, as JAX's :534-549), and the running statistics move by the
+    groups' mean. Eval: normalize by the running statistics. This is not
+    ``F.batch_norm``: torch's running variance is unbiased and its
+    momentum is ``1 - m``. ``axis_name`` (cross-replica moments) raises.
+    """
+
+    has_state = True
+
+    def __init__(self, momentum: float = 0.99, epsilon: float = 1e-3,
+                 axis_name: Optional[str] = None,
+                 virtual_batch_size: Optional[int] = None):
+        super().__init__()
+        if axis_name is not None:
+            raise NotImplementedError(
+                f"BatchNorm(axis_name=) is not ported yet: {SYNC_BN_ITEM}")
+        self.momentum = float(momentum)
+        self.epsilon = float(epsilon)
+        self.virtual_batch_size = (None if virtual_batch_size is None
+                                   else int(virtual_batch_size))
+
+    def build(self, input_shape, rng):
+        dim, dev = input_shape[-1], rng.device
+        self.add_param("scale", torch.ones(dim, device=dev))
+        self.add_param("offset", torch.zeros(dim, device=dev))
+        self.add_state("mean", torch.zeros(dim, device=dev))
+        self.add_state("var", torch.ones(dim, device=dev))
+        return tuple(input_shape)
+
+    @torch.no_grad()
+    def _update(self, s, mean, var) -> None:
+        m = self.momentum
+        s["mean"].copy_(m * s["mean"] + (1 - m) * mean)
+        s["var"].copy_(m * s["var"] + (1 - m) * var)
+
+    def apply(self, p, x, state=None):
+        s = self.state_tree() if state is None else state
+        xf = x.float()  # the statistics in float32 for bf16 activations
+        eps = self.epsilon
+        if self.training and self.virtual_batch_size is not None:
+            v = self.virtual_batch_size
+            if x.shape[0] % v:
+                raise ValueError(f"batch size {x.shape[0]} not divisible "
+                                 f"by virtual_batch_size {v}")
+            g = x.shape[0] // v
+            xg = xf.reshape((g, v) + tuple(x.shape[1:]))
+            gaxes = tuple(range(1, xg.dim() - 1))
+            mean_g = xg.mean(dim=gaxes)                        # [g, C]
+            var_g = xg.square().mean(dim=gaxes) - mean_g.square()
+            sh = (g,) + (1,) * (xg.dim() - 2) + (-1,)
+            inv = torch.rsqrt(var_g.reshape(sh) + eps) * p["scale"]
+            y = (xg - mean_g.reshape(sh)) * inv + p["offset"]
+            self._update(s, mean_g.detach().mean(0), var_g.detach().mean(0))
+            return y.reshape(x.shape).to(x.dtype)
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            with torch.no_grad():
+                mean = xf.mean(dim=axes)
+                var = xf.square().mean(dim=axes) - mean.square()
+            self._update(s, mean, var)
+            return bn_train_apply(x, p["scale"], p["offset"], mean, var,
+                                  eps, axes)
+        inv = torch.rsqrt(s["var"] + eps) * p["scale"]
+        return ((xf - s["mean"]) * inv + p["offset"]).to(x.dtype)
+
+
+class GroupNorm(Layer):
+    """Group normalization over the channel axis (JAX :584): float32
+    moments per (sample, group) over the spatial positions and the
+    group's channels; no state, the same in training and eval."""
+
+    def __init__(self, groups: int = 32, epsilon: float = 1e-5):
+        super().__init__()
+        self.groups = int(groups)
+        self.epsilon = float(epsilon)
+
+    def build(self, input_shape, rng):
+        dim = input_shape[-1]
+        if dim % self.groups:
+            raise ValueError(
+                f"channels {dim} not divisible by groups {self.groups}")
+        self.add_param("scale", torch.ones(dim, device=rng.device))
+        self.add_param("offset", torch.zeros(dim, device=rng.device))
+        return tuple(input_shape)
+
+    def apply(self, p, x):
+        g = self.groups
+        xf = x.float()
+        xg = xf.reshape(tuple(x.shape[:-1]) + (g, x.shape[-1] // g))
+        axes = tuple(range(1, x.dim() - 1)) + (x.dim(),)
+        mean = xg.mean(dim=axes, keepdim=True)
+        var = (xg - mean).square().mean(dim=axes, keepdim=True)
+        y = ((xg - mean) * torch.rsqrt(var + self.epsilon)).reshape(x.shape)
+        return (y * p["scale"] + p["offset"]).to(x.dtype)

@@ -165,17 +165,21 @@ def draw_reference(keys: torch.Tensor, n: int, mode: int,
     return u if mode == UNIFORM else -torch.log(-torch.log(u))
 
 
+def _empty(r: int, n: int, mode: int, device) -> torch.Tensor:
+    """The uninitialized output of a draw of ``r`` keys over ``n``
+    counters with the epilogue ``mode``."""
+    if mode == SPLIT:
+        return torch.empty((r, n, 2), dtype=torch.int64, device=device)
+    dtype = torch.int64 if mode == BITS else torch.float32
+    return torch.empty((r, n), dtype=dtype, device=device)
+
+
 def _launch(keys: torch.Tensor, n: int, mode: int, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """One K7 launch, ``draw_reference``'s contract on the card."""
     r = keys.shape[0]
     k = keys.to(torch.int64).contiguous()
-    if mode == SPLIT:
-        out = torch.empty((r, n, 2), dtype=torch.int64, device=k.device)
-    elif mode == BITS:
-        out = torch.empty((r, n), dtype=torch.int64, device=k.device)
-    else:
-        out = torch.empty((r, n), dtype=torch.float32, device=k.device)
+    out = _empty(r, n, mode, k.device)
     if r * n == 0:
         return out
     lib = kernels.library("prng")
@@ -192,7 +196,9 @@ def draw(rng: torch.Tensor, shape: Shape, mode: int, minval: float = 0.0,
     """``[*batch, 2]`` keys over the counters of ``shape`` with the
     epilogue ``mode`` (``draw_reference``), shaped ``[*batch, *shape]``
     (``SPLIT``: ``[*batch, *shape, 2]``): one K7 launch for keys on the
-    card, the plain version for keys on the CPU."""
+    card, the plain version for keys on the CPU, and for keys on the
+    ``meta`` device a shape with no values (a build that only sizes a
+    model draws nothing)."""
     shape = _shape(shape)
     batch = rng.shape[:-1]
     keys = rng.reshape(-1, 2)
@@ -202,6 +208,8 @@ def draw(rng: torch.Tensor, shape: Shape, mode: int, minval: float = 0.0,
         out = _launch(keys, n, mode, minval, maxval)
     elif keys.device.type == "cpu":
         out = draw_reference(keys, n, mode, minval, maxval)
+    elif keys.device.type == "meta":
+        out = _empty(keys.shape[0], n, mode, keys.device)
     else:
         raise ValueError(f"keys must be on cuda or cpu, got {keys.device}")
     return out.reshape(*batch, *shape, *out.shape[2:])

@@ -17,6 +17,9 @@ stream, so the workers' kernels serialize on the card; their host work
 (Python, the commits) overlaps. Staleness here comes from wall-clock
 races, not the engine's deterministic staggering.
 
+Model state (BatchNorm's statistics) stays on the workers, as in JAX:
+each worker starts every epoch from the model's state, and the trained
+model (and the validator) takes their mean (``_mean_state``, JAX :172).
 Checkpoint/resume and callbacks raise in the ``Trainer`` constructor
 (ROADMAP Queue 1 item 9).
 """
@@ -33,6 +36,7 @@ import torch
 from distkeras_tpu_torch.compat import resolve_device
 from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.parallel.distributed import default_num_workers
+from distkeras_tpu_torch.parallel.engine import mean_state
 from distkeras_tpu_torch.parallel.parameter_servers import (
     ADAGParameterServer, DeltaParameterServer, DynSGDParameterServer,
     EASGDParameterServer, ParameterServer, PSClient, to_numpy)
@@ -40,7 +44,8 @@ from distkeras_tpu_torch.parallel.trainers import (Trainer, epoch_exit,
                                                    load_params)
 from distkeras_tpu_torch.parallel.worker import (TrainCarry, make_train_step,
                                                  shard_epoch_data)
-from distkeras_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+from distkeras_tpu_torch.utils.tree import (tree_leaves, tree_map,
+                                            tree_unflatten)
 
 _ALGORITHMS = ("downpour", "easgd", "dynsgd", "adag")
 
@@ -102,16 +107,19 @@ class HostAsyncTrainer(Trainer):
 
     # -- the worker thread body ----------------------------------------------
     def _worker_loop(self, widx: int, client: PSClient, step_fn, replica,
-                     Xw, Yw, K: int, out: Dict[int, Any], errors: List):
+                     state0, Xw, Yw, K: int, out: Dict[int, Any],
+                     errors: List):
         try:
             params = replica.param_tree()
             leaves = tree_leaves(params)
             device = leaves[0].device
             leaves0, clock = client.pull()
             load_params(leaves, leaves0)
+            state = replica.state_tree()
+            load_params(state, state0)   # every epoch from the model's
             carry = TrainCarry(params, self.worker_optimizer.init(params),
                                prng.key(self.seed + 7919 * (widx + 1),
-                                        device))
+                                        device), state)
             pull_leaves = leaves0
             step_outs = []
             for s in range(Xw.shape[0]):
@@ -142,6 +150,7 @@ class HostAsyncTrainer(Trainer):
             out[widx] = {
                 "losses": losses,
                 "metrics": metrics,
+                "state": state,
                 # the uncommitted residual, flushed into the center after
                 # the join
                 "params": [to_numpy(l) for l in leaves],
@@ -151,6 +160,13 @@ class HostAsyncTrainer(Trainer):
             errors.append((widx, e))
         finally:
             client.close()
+
+    @staticmethod
+    def _mean_state(out, n):
+        """The workers' model state averaged (float leaves; an integer
+        leaf keeps worker 0's value), as JAX :172."""
+        return mean_state(tree_map(lambda *xs: torch.stack(xs),
+                                   *[out[i]["state"] for i in range(n)]))
 
     def train(self, dataset):
         self._reject_step_options()
@@ -168,6 +184,8 @@ class HostAsyncTrainer(Trainer):
         # one replica (and step) per worker: a thread trains its own
         # module, so no two threads share a module's mode or aux losses
         replicas = [copy.deepcopy(model.module) for _ in range(n)]
+        state0 = tree_map(torch.clone, model.state)
+        out: Dict[int, Any] = {}   # the latest epoch's worker outputs
         steps = [make_train_step(r, self.loss, self.worker_optimizer,
                                  self._metric_fns()) for r in replicas]
         validate = self._make_validator(model, device)
@@ -187,8 +205,8 @@ class HostAsyncTrainer(Trainer):
                               else PSClient(ps=self.parameter_server))
                     t = threading.Thread(
                         target=self._worker_loop,
-                        args=(i, client, steps[i], replicas[i], Xs[:, i],
-                              Ys[:, i], int(Ks[i]), out, errors),
+                        args=(i, client, steps[i], replicas[i], state0,
+                              Xs[:, i], Ys[:, i], int(Ks[i]), out, errors),
                         daemon=True)
                     t.start()
                     threads.append(t)
@@ -219,7 +237,8 @@ class HostAsyncTrainer(Trainer):
                     center = [torch.from_numpy(l).to(device) for l in
                               self.parameter_server.handle_pull()[0]]
                     self.history.epochs[-1].update(validate(
-                        tree_unflatten(model.params, center)))
+                        tree_unflatten(model.params, center),
+                        self._mean_state(out, n)))
                 if epoch_exit(self):
                     break
         finally:
@@ -227,4 +246,6 @@ class HostAsyncTrainer(Trainer):
             self.parameter_server.stop()
 
         load_params(model.params, self.parameter_server.get_model())
+        if out:
+            load_params(model.state, self._mean_state(out, n))
         return model

@@ -18,9 +18,11 @@ instead of spread over a mesh. Differences:
   ``Trainer`` constructor (ROADMAP Queue 1 item 9); the fault points
   of ``resilience/`` (item 11) are not ported.
 
-The center is validated each epoch (the model a user would ship). The
-trained model is the algorithm-flushed center, copied into the model's
-parameters in place.
+The center is validated each epoch (the model a user would ship), with
+the workers' mean model state (BatchNorm's statistics; the center's own
+state never advances, JAX :120-124). The trained model is the
+algorithm-flushed center and that mean state, copied into the model's
+tensors in place.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from distkeras_tpu_torch.compat import resolve_device
 from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.parallel.engine import (
     AdagAlgo, AveragingAlgo, DistAlgorithm, DistributedEngine, DownpourAlgo,
-    DynSGDAlgo, ElasticAlgo, EngineConfig, MESH_ITEM, host_fetch)
+    DynSGDAlgo, ElasticAlgo, EngineConfig, MESH_ITEM, host_fetch, mean_state)
 from distkeras_tpu_torch.parallel.trainers import (Trainer, epoch_exit,
                                                    load_params)
 from distkeras_tpu_torch.parallel.worker import shard_epoch_data
@@ -93,7 +95,8 @@ class DistributedTrainer(Trainer):
             self.allocate_algorithm(), self.mesh,
             EngineConfig(num_workers=n, window=self._window(S)),
             metric_fns=self._metric_fns())
-        state = engine.init_state(model.params, prng.key(self.seed, device))
+        state = engine.init_state(model.params, prng.key(self.seed, device),
+                                  model.state)
         validate = self._make_validator(model, device)
         self.record_training_start()
         try:
@@ -135,7 +138,9 @@ class DistributedTrainer(Trainer):
                 extra = {}
                 if validate is not None:
                     # evaluate the CENTER (the model a user would ship)
-                    extra = validate(state["center"]["params"])
+                    # with the workers' mean state, as extract_model
+                    extra = validate(state["center"]["params"],
+                                     mean_state(state["worker"]["state"]))
                 # the epoch's one device-to-host read
                 losses, mets = host_fetch(losses), host_fetch(mets)
                 self.history.append_epoch(
@@ -146,7 +151,9 @@ class DistributedTrainer(Trainer):
                     break
         finally:
             self.record_training_stop()
-        load_params(model.params, engine.extract_model(state))
+        params, mstate = engine.extract_model(state)
+        load_params(model.params, params)
+        load_params(model.state, mstate)
         return model
 
 

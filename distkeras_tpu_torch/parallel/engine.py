@@ -42,9 +42,13 @@ With nonzero offsets the two give different trajectories, as in JAX.
 ``server_updates`` counts the commits that ran (``ceil(S / K)`` an
 amortized epoch: JAX's count of param-sized all-reduces).
 
-The engine keeps no model state: the port's layers carry none
-(``models.bridge``), so there is nothing for ``extract_model`` to
-average. The JAX engine's span and recompile detector (``obs``) are
+Model state (BatchNorm's running statistics) is a worker leaf too:
+``init_state`` stacks it ``[W, ...]`` (JAX :444-463), each worker's
+training forward writes its own rows in place, the commits never touch
+it (the center's state does not advance, as in JAX), and
+``extract_model`` returns the workers' mean of each float state leaf
+(worker 0's value for an integer one, JAX :718-726) beside the flushed
+center. The JAX engine's span and recompile detector (``obs``) are
 ROADMAP Queue 1 item 11 and not ported. Batching the workers into one
 launch per layer is later work (ROADMAP Queue 2).
 """
@@ -312,20 +316,25 @@ def stacked_opt_init(optimizer: Optimizer, params, out=None):
 
 
 class WorkerStack:
-    """``W`` replicas of one parameter tree, stacked on a leading worker
-    axis on one device, each trained by ``train_step`` on views of its
-    rows: the step's in-place parameter update writes into the stack,
-    and its new optimizer state and key are copied into their rows.
+    """``W`` replicas of one parameter tree (and model state tree),
+    stacked on a leading worker axis on one device, each trained by
+    ``train_step`` on views of its rows: the step's in-place parameter
+    update and its training forward's state write go into the stack, and
+    its new optimizer state and key are copied into their rows.
 
     The views are detached leaves that share the stack's storage, so
     autograd differentiates each worker's own rows and nothing else."""
 
-    def __init__(self, train_step: Callable, params, opt_state, rng=None):
+    def __init__(self, train_step: Callable, params, opt_state, rng=None,
+                 state=None):
         self.train_step = train_step
         self.params, self.opt_state, self.rng = params, opt_state, rng
         self.num_workers = tree_leaves(params)[0].shape[0]
         self.views = [
             tree_map(lambda s: s[i].detach().requires_grad_(True), params)
+            for i in range(self.num_workers)]
+        self.state_views = [
+            None if state is None else tree_map(lambda s: s[i], state)
             for i in range(self.num_workers)]
 
     def step(self, i: int, xb, yb):
@@ -333,7 +342,8 @@ class WorkerStack:
         step's output (the loss, or ``(loss, metrics)``) on the device."""
         carry = TrainCarry(self.views[i],
                            tree_map(lambda s: s[i], self.opt_state),
-                           None if self.rng is None else self.rng[i])
+                           None if self.rng is None else self.rng[i],
+                           self.state_views[i])
         carry, out = self.train_step(carry, (xb, yb))
         with torch.no_grad():
             tree_map(lambda s, v: s[i].copy_(v), self.opt_state,
@@ -431,14 +441,17 @@ class DistributedEngine:
         self.worker_commits = 0
 
     # -- state ------------------------------------------------------------
-    def init_state(self, params, rng) -> Dict:
+    def init_state(self, params, rng, model_state=None) -> Dict:
         """The center + stacked-worker state: ``params`` (a parameter
         tree) copied into the center and into every worker's row, the
-        optimizer's state per row, worker ``i``'s key ``split(rng,
-        W)[i]``."""
+        model state tree (BatchNorm's statistics; None or empty for a
+        stateless model) likewise, the optimizer's state per row, worker
+        ``i``'s key ``split(rng, W)[i]``."""
         n = self.config.num_workers
         with torch.no_grad():
             center = tree_map(lambda x: x.detach().clone(), params)
+            mstate = tree_map(lambda x: x.detach().clone(),
+                              [] if model_state is None else model_state)
             device = tree_leaves(center)[0].device
 
             def stack(tree):
@@ -448,6 +461,7 @@ class DistributedEngine:
             wparams = stack(center)
             worker = {
                 "params": wparams,
+                "state": stack(mstate),
                 "opt": stacked_opt_init(self.optimizer, wparams),
                 "rng": prng.split(prng.as_key(rng, device), n),
                 "pull": stack(center) if self.algo.needs_pull else {},
@@ -455,7 +469,8 @@ class DistributedEngine:
             }
         server = {"aux": self.algo.init_server(center),
                   "t": 0}  # the global micro-step counter (host int)
-        return {"worker": worker, "center": {"params": center},
+        return {"worker": worker,
+                "center": {"params": center, "state": mstate},
                 "server": server}
 
     @torch.no_grad()
@@ -580,7 +595,7 @@ class DistributedEngine:
         Xs, Ys = (torch.from_numpy(np.asarray(a)).to(device)
                   if not torch.is_tensor(a) else a for a in (Xs, Ys))
         stack = WorkerStack(self.train_step, worker["params"],
-                            worker["opt"], worker["rng"])
+                            worker["opt"], worker["rng"], worker["state"])
         outs = (self._epoch_amortized if self.amortized
                 else self._epoch_perstep)(state, stack, Xs, Ys)
         return state, stack_outputs(outs)
@@ -588,9 +603,19 @@ class DistributedEngine:
     # -- final model ------------------------------------------------------
     @torch.no_grad()
     def extract_model(self, state: Dict):
-        """The final parameters: the algorithm-flushed center, on the
-        state's device (JAX :711; the port has no model state)."""
+        """The final ``(params, model_state)`` on the state's device (JAX
+        :711): the algorithm-flushed center and ``mean_state`` of the
+        workers' model state."""
         worker = state["worker"]
-        return self.algo.finalize(state["center"]["params"],
-                                  worker["params"], worker["pull"],
-                                  self.config.num_workers)
+        center = self.algo.finalize(state["center"]["params"],
+                                    worker["params"], worker["pull"],
+                                    self.config.num_workers)
+        return center, mean_state(worker["state"])
+
+
+def mean_state(stacked):
+    """A ``[W, ...]`` model state tree averaged over the workers: the
+    mean of each float leaf, worker 0's value of an integer leaf (a
+    counter; JAX :718-726)."""
+    return tree_map(lambda s: s.mean(0) if s.is_floating_point()
+                    else s[0].clone(), stacked)

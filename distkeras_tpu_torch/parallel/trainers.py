@@ -10,7 +10,9 @@ pieces (``val_logs`` :35, ``epoch_exit`` :68, ``request_preempt`` :214,
 reference's ergonomics (``(model, worker_optimizer, loss, batch_size,
 num_epoch, features_col, label_col, ...)``) and ``train(dataset)``
 returns the model, trained IN PLACE on the model's device (the CUDA
-card, or the CPU for a model built with ``device="cpu"``). The
+card, or the CPU for a model built with ``device="cpu"``): its
+parameters and its model state (BatchNorm's running statistics, which
+the validator's eval forward reads). The
 distributed family (``distributed``) and ``HostAsyncTrainer``
 (``async_host``) share this base.
 
@@ -35,7 +37,7 @@ import torch
 
 from distkeras_tpu_torch.compat import resolve_device
 from distkeras_tpu_torch.data.dataset import Dataset, coerce_column
-from distkeras_tpu_torch.models.core import Model
+from distkeras_tpu_torch.models.core import Model, eval_mode
 from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.metrics import get_metric, metric_name
@@ -72,8 +74,8 @@ def epoch_exit(trainer) -> bool:
 
 
 def load_params(params, values) -> None:
-    """Copy a parameter tree of tensors or numpy arrays into the
-    parameter tensors ``params``, in place."""
+    """Copy a tree of tensors or numpy arrays into the parameter (or
+    state) tensors ``params``, in place."""
     with torch.no_grad():
         tree_map(lambda p, v: p.copy_(
             v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))),
@@ -211,10 +213,12 @@ class Trainer:
         return np.random.RandomState(self.seed + 1000 * epoch).permutation(n)
 
     def _make_validator(self, model, device):
-        """Full-set evaluation of a parameter tree after each epoch:
-        ``validate(params) -> {"val_loss": [x], "val_<metric>": [x]}`` as
-        float arrays, or None without ``validation_data``. The validation
-        set goes to the device once."""
+        """Full-set evaluation after each epoch, in eval mode:
+        ``validate(params, state=None) -> {"val_loss": [x],
+        "val_<metric>": [x]}`` as float arrays (``state`` None: the
+        model's own running statistics), or None without
+        ``validation_data``. The validation set goes to the device
+        once."""
         vd = self.validation_data
         if vd is None:
             return None
@@ -227,8 +231,10 @@ class Trainer:
         metric_fns = self._metric_fns() or {}
 
         @torch.no_grad()
-        def validate(params):
-            out = model.module.apply(params, Xv)
+        def validate(params, state=None):
+            kw = {"state": state} if model.module.has_state else {}
+            with eval_mode(model.module):
+                out = model.module.apply(params, Xv, **kw)
             res = {"val_loss": self.loss(yv, out)}
             for name, fn in metric_fns.items():
                 res[f"val_{name}"] = fn(yv, out)
@@ -254,7 +260,7 @@ class SingleTrainer(Trainer):
         # the key chain starts from PRNGKey(seed) (JAX :550)
         carry = TrainCarry(model.params,
                            self.worker_optimizer.init(model.params),
-                           prng.key(self.seed, device))
+                           prng.key(self.seed, device), model.state)
         validate = self._make_validator(model, device)
         self.record_training_start()
         try:
@@ -308,14 +314,14 @@ class EnsembleTrainer(Trainer):
                                seed=self.seed + i, device=device)
                    for i in range(k)]
         with torch.no_grad():
-            params = tree_map(lambda *xs: torch.stack([x.detach()
-                                                       for x in xs]),
-                              *[m.params for m in members])
+            params, state = (tree_map(lambda *xs: torch.stack(
+                [x.detach() for x in xs]), *trees) for trees in
+                ([m.params for m in members], [m.state for m in members]))
         stack = WorkerStack(
             make_train_step(base.module, self.loss, self.worker_optimizer,
                             self._metric_fns()),
             params, stacked_opt_init(self.worker_optimizer, params),
-            prng.split(prng.key(self.seed, device), k))
+            prng.split(prng.key(self.seed, device), k), state)
         self.record_training_start()
         try:
             for epoch in range(self.num_epoch):
@@ -339,6 +345,7 @@ class EnsembleTrainer(Trainer):
             self.record_training_stop()
         for i, m in enumerate(members):
             load_params(m.params, tree_map(lambda s: s[i], params))
+            load_params(m.state, tree_map(lambda s: s[i], state))
         self.models_ = members
         self.master_model = members[0]
         return members

@@ -11,6 +11,11 @@ stacked steps (``run_epoch``); losses and metrics stay on the device
 until the epoch's end. The carry's threefry key chains as JAX's does:
 ``rng, sub = split(rng)`` each step (:165), ``split(sub, accum)`` over
 the microbatches (:184), so a model with dropout draws JAX's masks.
+Model state (BatchNorm's running statistics) rides in the carry
+(``TrainCarry.state``): the training forward writes the new statistics
+into those tensors in place (JAX :132-161 returns them), and the
+microbatches of an accumulated step write them one after another, as
+JAX's scan threads them (:187-196).
 """
 
 from __future__ import annotations
@@ -32,27 +37,34 @@ LATER = "ROADMAP, Queue 1 item 'training: the rest of the Trainer surface'"
 
 class TrainCarry(NamedTuple):
     """What a step carries to the next: the parameter tree (the model's
-    own tensors, updated in place), the optimizer state and the threefry
-    key (None: the forward draws nothing)."""
+    own tensors, updated in place), the optimizer state, the threefry
+    key (None: the forward draws nothing) and the model state tree
+    (written in place by a training forward; None: each stateful layer's
+    own buffers)."""
     params: object
     opt_state: object
     rng: object = None
+    state: object = None
 
 
 def value_and_grad(module, loss_fn: Callable, params, xb, yb,
-                   metric_fns: Optional[dict] = None, rng=None):
+                   metric_fns: Optional[dict] = None, rng=None, state=None):
     """``(loss, grads, {name: metric})`` of ``loss_fn(yb, module(xb))``
     plus the auxiliary losses the forward's layers published (JAX
     :145-151: both the differentiated and the reported loss hold them),
     for the parameter tree ``params``: the forward runs in training mode
     (the module's mode is restored after it) with the key ``rng`` for
-    the layers that draw, metrics on its detached output. ``grads`` is
-    a tree shaped like ``params``; a parameter the loss never reached
-    gets zeros, as ``jax.value_and_grad`` gives."""
+    the layers that draw and the model state tree ``state`` (None: the
+    layers' own buffers), which it advances in place; metrics on its
+    detached output. ``grads`` is a tree shaped like ``params``; a
+    parameter the loss never reached gets zeros, as
+    ``jax.value_and_grad`` gives."""
     leaves = tree_leaves(params)
     was_training = module.training
     module.train()
     kw = {"rng": rng} if rng is not None and module.uses_rng else {}
+    if state is not None and module.has_state:
+        kw["state"] = state
     try:
         with torch.enable_grad():
             out = module.apply(params, xb, **kw)
@@ -91,9 +103,9 @@ def make_train_step(module, loss_fn: Callable, optimizer: Optimizer,
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
-    def grad_of(params, xb, yb, sub):
+    def grad_of(params, xb, yb, sub, state):
         return value_and_grad(module, loss_fn, params, xb, yb, metric_fns,
-                              sub)
+                              sub, state)
 
     def train_step(carry: TrainCarry, batch):
         xb, yb = batch
@@ -101,7 +113,8 @@ def make_train_step(module, loss_fn: Callable, optimizer: Optimizer,
         if carry.rng is not None:
             rng, sub = prng.split(carry.rng)
         if accum_steps == 1:
-            loss, grads, mets = grad_of(carry.params, xb, yb, sub)
+            loss, grads, mets = grad_of(carry.params, xb, yb, sub,
+                                        carry.state)
         else:
             if xb.shape[0] % accum_steps:
                 raise ValueError(
@@ -118,7 +131,7 @@ def make_train_step(module, loss_fn: Callable, optimizer: Optimizer,
             losses, mets_s = [], []
             for j in range(accum_steps):
                 loss_j, grads_j, mets_j = grad_of(carry.params, xs[j], ys[j],
-                                                  subs[j])
+                                                  subs[j], carry.state)
                 gsum = tree_map(torch.add, gsum, grads_j)
                 losses.append(loss_j)
                 mets_s.append(mets_j)
@@ -130,7 +143,7 @@ def make_train_step(module, loss_fn: Callable, optimizer: Optimizer,
             updates, opt_state = optimizer.update(grads, carry.opt_state,
                                                   carry.params)
             apply_updates(carry.params, updates)
-        new_carry = TrainCarry(carry.params, opt_state, rng)
+        new_carry = TrainCarry(carry.params, opt_state, rng, carry.state)
         if metric_fns:
             return new_carry, (loss, mets)
         return new_carry, loss

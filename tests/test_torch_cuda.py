@@ -1560,3 +1560,92 @@ def test_engine_epoch_makes_no_host_sync(dev, label):
     eng = chip_smoke.engine_sync_free(_small_lm(dev), algo, window,
                                       amortized)
     assert eng.server_updates >= 1
+
+
+# --- the vision layers and a BatchNorm ResNet's training step ----------------
+
+#: the convolution and pool SAME-padding cases (XLA's asymmetric pads) on
+#: the card: (layer, keywords, input shape)
+SAME_CASES = {
+    "conv2d_3x3_s2_even": ("Conv2D", dict(filters=8, kernel_size=3,
+                                          strides=2), (16, 16, 4)),
+    "conv2d_stem_7x7_s2_even": ("Conv2D", dict(
+        filters=16, kernel_size=7, strides=2, use_bias=False), (32, 32, 3)),
+    "conv2d_4x4_s1_odd": ("Conv2D", dict(filters=8, kernel_size=4),
+                          (15, 15, 4)),
+    "conv1d_4_s2_odd": ("Conv1D", dict(filters=8, kernel_size=4, strides=2),
+                        (17, 4)),
+    "maxpool_3x3_s2_even": ("MaxPooling2D", dict(pool_size=3, strides=2,
+                                                 padding="SAME"),
+                            (16, 16, 4)),
+    "maxpool_3x3_s2_odd": ("MaxPooling2D", dict(pool_size=3, strides=2,
+                                                padding="SAME"),
+                           (15, 15, 4)),
+    "avgpool_3x3_s2_even": ("AveragePooling2D", dict(
+        pool_size=3, strides=2, padding="SAME"), (16, 16, 4)),
+}
+#: float32 on the card (TF32 off) against the CPU: summation order
+VISION_F32_TOL = 1e-4
+
+
+def _rel_err(got, ref):
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("case", list(SAME_CASES))
+def test_same_padding_layer_on_card_matches_cpu(dev, case):
+    """Forward and gradients (input and weights) of a SAME-padded
+    convolution or pool on the card against the same layer on the CPU."""
+    import copy
+    from distkeras_tpu_torch.models import layers
+    from distkeras_tpu_torch.ops import prng
+    torch.backends.cudnn.allow_tf32 = False
+    name, kw, shape = SAME_CASES[case]
+    layer = getattr(layers, name)(**kw)
+    out_shape = layer.build(shape, prng.key(0))
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(4, *shape).astype(np.float32))
+    r = torch.from_numpy(rs.randn(4, *out_shape).astype(np.float32))
+    res = []
+    for lay, d in ((layer, "cpu"), (copy.deepcopy(layer).to(dev), dev)):
+        p = lay.param_tree()
+        xd = x.to(d).requires_grad_(True)
+        y = lay.apply(p, xd)
+        grads = torch.autograd.grad((y * r.to(d)).sum(),
+                                    [xd] + list(p.values()))
+        res.append((y, grads))
+    (y0, g0), (y1, g1) = res
+    assert tuple(y1.shape) == (4,) + tuple(out_shape)
+    assert _rel_err(y1, y0) <= VISION_F32_TOL
+    for a, b in zip(g1, g0):
+        assert _rel_err(a, b) <= VISION_F32_TOL
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-3),
+                                       ("bfloat16", 5e-2)])
+def test_resnet_train_step_on_card_matches_cpu(dev, dtype, tol):
+    """A training-mode step of ``resnet18_thin`` (BatchNorm with its
+    state) on the card against the CPU path at the same dtype: the loss,
+    every gradient and the new running statistics."""
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.parallel import value_and_grad
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    torch.backends.cudnn.allow_tf32 = False
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.randn(8, 32, 32, 3).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 10, 8))
+    loss_fn = get_loss("sparse_categorical_crossentropy_from_logits")
+    out = []
+    for d in ("cpu", dev):
+        m = Model.build(zoo.resnet18_thin(10, dtype=dtype), (32, 32, 3),
+                        seed=0, device="cpu").to(d)
+        loss, grads, _ = value_and_grad(m.module, loss_fn, m.params,
+                                        x.to(d), y.to(d), state=m.state)
+        out.append((loss, tree_leaves(grads), tree_leaves(m.state)))
+    (l0, g0, s0), (l1, g1, s1) = out
+    assert abs(float(l1) - float(l0)) <= tol * abs(float(l0))
+    for a, b in zip(g1, g0):
+        assert _rel_err(a, b) <= tol
+    for a, b in zip(s1, s0):
+        assert _rel_err(a, b) <= tol

@@ -119,7 +119,7 @@ def _run_port(pm, pe, S, epochs):
     for _ in range(epochs):
         state, outs = pe.run_epoch(state, X, Y)
         losses.append(outs.numpy())
-    center = pe.extract_model(state)
+    center, _ = pe.extract_model(state)
     return losses, center, state
 
 
