@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 2. build the hand-written kernels from ``distkeras_tpu_torch/csrc``;
 3. the flash-attention forward kernel against its plain PyTorch
    version at the serving path's shapes and the training shapes (causal
-   B4 H16 S2048 D64; B2 H8 S2048 D128) in bf16: a bitwise repeat, device
+   B4 H16 S2048 D64; B2 H8 S2048 D128) and, with no causal mask, ViT-S/16's
+   (B32 H6 S196) and B1 H16 S2048, in bf16: a bitwise repeat, device
    times (CUDA-graph replays), TFLOP/s and the bound's share, with SDPA
    as yardstick;
 4. the paged decode kernel against its plain version, with times from
@@ -26,7 +27,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    version in bf16: the training shape (causal B4 H16 S2048 D64), a
    256-position window, grouped queries (4 kv heads x 4), a ragged
    S=1000 and the training length at head_dim 128 (causal B2 H8 S2048
-   D128); a bitwise repeat, times, TFLOP/s and the bound's share;
+   D128), and with no causal mask ViT-S/16's training shape (B32 H6
+   S196) and B1 H16 S2048 (timed by CUDA-graph replay, SDPA's backward
+   too); a bitwise repeat, times, TFLOP/s and the bound's share;
 7. the training path end to end: the same 218M LM (12 layers, bf16
    compute over float32 weights, seed 0) trained by ``SingleTrainer``
    with adam for two epochs of 32 rows x 2048 tokens (16 steps of 4
@@ -253,6 +256,27 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     one engine epoch of ``resnet18_thin`` under
     ``set_sync_debug_mode("error")`` (the in-place state write makes no
     host sync).
+29. the rest of the zoo (``zoo_phase``): ViT-S/16 at its published
+    width (``zoo.vit()``: 224x224x3, patch 16, d_model 384, 6 heads, 12
+    layers, 1000 classes, bf16) built on the card (K7 launches equal to
+    a meta-device rehearsal's draws), B8 eval logits against the CPU
+    float32 path (5e-2), exactly 12 ``flash_fwd`` an eval forward,
+    ``SingleTrainer`` with adam for 8 steps of B32 over phase 28's images
+    (the loss falls; exactly 12 K1f, 12 K1dq and 12 K1dkv a step, the
+    attention without the causal mask), a profiled warm step (images/s,
+    launches, busy share, each flash kernel's device ms, peak memory);
+    the trained ViT saved and loaded on the card (logits bitwise), saved
+    quantized and loaded as a ``QuantizedModel`` (against the CPU float32
+    path over the same dequantized weights, 5e-2); a 2-layer ViT's card
+    gradients against the CPU's (float32 1e-3, bf16 5e-2); MobileNet-v1
+    1.0 at 224x224x3 (B8 logits against the CPU, 4 ``SingleTrainer``
+    steps of B32 with falling loss and moving BN statistics, a profiled
+    step); BASELINE config 5, ``bilstm_classifier(64, 2)`` float32 over
+    1,000 seeded rows of 200 x 300 through ``ModelPredictor`` at B128
+    (bitwise ``Model.predict``, 1e-4 of the CPU path, rows/s, the CUDA
+    launches of a batch, cuDNN's ``nn.LSTM`` as yardstick); a
+    ``transformer_lm`` file written on the CPU loaded on the card with the
+    writer's greedy tokens.
 
 Every serving phase runs the engine's default loop, ``overlap=True``;
 phase 20's teacher-forced runs use the synchronous one. Weights are
@@ -426,8 +450,10 @@ def flash_cases(dev):
     """The serving path's shapes: a 1024-position causal prompt, a ragged one,
     a sliding window, and the chunked-prefill prefix pass (GQA folded
     into the rows: [B*Hkv, 1, G*256, 64] queries on a 1024-key prefix);
-    then the training path's (B4 S2048), and the training length at
-    head_dim 128 (B2 H8)."""
+    then the training path's (B4 S2048), the training length at
+    head_dim 128 (B2 H8), and square attention with no causal mask:
+    ViT-S/16's (B32 H6 S196, ragged against the 64-row tiles) and a
+    long one (B1 H16 S2048)."""
     g = torch.Generator(device="cpu").manual_seed(SEED)
 
     def rnd(*shape):
@@ -457,6 +483,14 @@ def flash_cases(dev):
         ("causal B2 H8 S=2048 D128 (training)",
          dict(q=rnd(2, 2048, 8, 128), k=rnd(2, 2048, 8, 128),
               v=rnd(2, 2048, 8, 128), causal=True, window=None,
+              layout="bshd")),
+        ("non-causal B32 H6 S=196 (ViT-S/16)",
+         dict(q=rnd(32, 196, 6, d), k=rnd(32, 196, 6, d),
+              v=rnd(32, 196, 6, d), causal=False, window=None,
+              layout="bshd")),
+        ("non-causal B1 H16 S=2048",
+         dict(q=rnd(1, 2048, h, d), k=rnd(1, 2048, h, d),
+              v=rnd(1, 2048, h, d), causal=False, window=None,
               layout="bshd")),
     ]
 
@@ -940,28 +974,36 @@ BWD_BF16_REL_TOL = 2e-2
 
 def backward_cases(dev):
     """The training shape (the 218M LM's attention at B4 S2048, BSHD as
-    the layer calls it), a window, GQA and ragged case at B1, and the
-    training length at head_dim 128 (B2 H8)."""
+    the layer calls it), a window, GQA and ragged case at B1, the
+    training length at head_dim 128 (B2 H8), and square attention with
+    no causal mask: ViT-S/16's training shape (B32 H6 S196) and B1 H16
+    S2048."""
     g = torch.Generator(device="cpu").manual_seed(SEED + 3)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
 
-    def case(b, s, h, hkv, window, d=64):
+    def case(b, s, h, hkv, window, d=64, causal=True):
         return dict(q=rnd(b, s, h, d), k=rnd(b, s, hkv, d),
                     v=rnd(b, s, hkv, d), dout=rnd(b, s, h, d),
-                    window=window)
+                    window=window, causal=causal)
 
     return [("causal B4 H16 S2048", case(4, 2048, 16, 16, None)),
             ("window=256 B1 H16 S2048", case(1, 2048, 16, 16, 256)),
             ("GQA Hkv=4 G=4 B1 S2048", case(1, 2048, 16, 4, None)),
             ("causal ragged B1 H16 S1000", case(1, 1000, 16, 16, None)),
-            ("causal B2 H8 S2048 D128", case(2, 2048, 8, 8, None, 128))]
+            ("causal B2 H8 S2048 D128", case(2, 2048, 8, 8, None, 128)),
+            ("non-causal B32 H6 S196 (ViT-S/16)",
+             case(32, 196, 6, 6, None, causal=False)),
+            ("non-causal B1 H16 S2048",
+             case(1, 2048, 16, 16, None, causal=False))]
 
 
-def _sdpa_backward_ms(c):
+def _sdpa_backward_ms(c, timer=None):
     """SDPA forward+backward minus SDPA forward: a yardstick only (the
-    port never calls SDPA). GQA repeats K/V first."""
+    port never calls SDPA). GQA repeats K/V first. ``timer`` (default
+    ``time_ms``) times each of the two calls."""
+    timer = time_ms if timer is None else timer
     g = c["q"].shape[2] // c["k"].shape[2]
     q, k, v = (x.transpose(1, 2).detach().clone().requires_grad_()
                for x in (c["q"], c["k"], c["v"]))
@@ -975,28 +1017,33 @@ def _sdpa_backward_ms(c):
 
     def fwd():
         return F.scaled_dot_product_attention(
-            q, kx, vx, attn_mask=mask, is_causal=mask is None)
+            q, kx, vx, attn_mask=mask,
+            is_causal=mask is None and c["causal"])
 
     def fwd_bwd():
         torch.autograd.grad(fwd(), (q, k, v), dout)
 
     with torch.no_grad():
-        f_ms = time_ms(fwd)
-    return time_ms(fwd_bwd) - f_ms
+        f_ms = timer(fwd)
+    return timer(fwd_bwd) - f_ms
 
 
 def backward_phase(dev):
     """Each case of ``backward_cases``: both kernels against the plain
     version, a bitwise repeat (two launches of each on the same inputs),
-    times, achieved TFLOP/s and the bound's share."""
+    times, achieved TFLOP/s and the bound's share. The causal cases are
+    timed by CUDA events around back-to-back launches (how their kernel
+    table rows were always timed); the non-causal ones by CUDA-graph
+    replay (``graph_ms``), the SDPA yardstick too."""
     rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
     for name, c in backward_cases(dev):
         q, k, v, dout = c["q"], c["k"], c["v"], c["dout"]
-        kw = dict(scale=q.shape[-1] ** -0.5, causal=True,
+        causal = c["causal"]
+        kw = dict(scale=q.shape[-1] ** -0.5, causal=causal,
                   window=c["window"], layout="bshd")
         out, lse = flash_forward(q, k, v, **kw)
         delta = attention_delta(out, dout)
-        args = (q, k, v, lse, dout, delta, kw["scale"], True, c["window"],
+        args = (q, k, v, lse, dout, delta, kw["scale"], causal, c["window"],
                 "bshd")
         got = launch_dq(*args) + launch_dkv(*args)
         again = launch_dq(*args) + launch_dkv(*args)
@@ -1009,14 +1056,21 @@ def backward_phase(dev):
                 raise AssertionError(f"non-finite {gname} on {name}")
             errs[gname] = (a.float() - r.float()).abs().max().item()
             rel[gname] = errs[gname] / r.float().abs().max().item()
-        fwd_ms = time_ms(lambda: flash_forward(q, k, v, **kw))
-        dq_ms = time_ms(lambda: launch_dq(*args), iters=10)
-        dkv_ms = time_ms(lambda: launch_dkv(*args), iters=10)
+        if causal:
+            fwd_ms = time_ms(lambda: flash_forward(q, k, v, **kw))
+            dq_ms = time_ms(lambda: launch_dq(*args), iters=10)
+            dkv_ms = time_ms(lambda: launch_dkv(*args), iters=10)
+            lib_ms = _sdpa_backward_ms(c)
+        else:
+            fwd_ms = graph_ms(lambda: flash_forward(q, k, v, **kw))
+            dq_ms = graph_ms(lambda: launch_dq(*args), iters=20)
+            dkv_ms = graph_ms(lambda: launch_dkv(*args), iters=20)
+            lib_ms = _sdpa_backward_ms(c, functools.partial(graph_ms,
+                                                            iters=20))
         plain_ms = time_ms(lambda: flash_backward_reference(
             q, k, v, out, lse, dout, delta, **kw), iters=3, warmup=1)
-        lib_ms = _sdpa_backward_ms(c)
         b, s, h, d = q.shape
-        work = b * h * _admitted_pairs(s, s, True, c["window"]) * d
+        work = b * h * _admitted_pairs(s, s, causal, c["window"]) * d
         qbytes = 2 * q.numel()                       # one bf16 q-shaped array
         kvbytes = 2 * k.numel()
         rowbytes = 4 * lse.numel()                   # one float32 row stat
@@ -1037,8 +1091,9 @@ def backward_phase(dev):
               f"({8.0 * work / (dkv_ms * 1e9):.1f} TFLOP/s, "
               f"{dkv_bound / dkv_ms:.1%} of the bound {dkv_bound:.4f}, "
               f"{dkv_by}); plain backward {plain_ms:.4f} ms; sdpa backward "
-              f"{lib_ms:.4f} ms; flash_fwd {fwd_ms:.4f} ms; bitwise repeat "
-              f"{repeat}", flush=True)
+              f"{lib_ms:.4f} ms; flash_fwd {fwd_ms:.4f} ms ("
+              f"{'CUDA events' if causal else 'graph replay'}); bitwise "
+              f"repeat {repeat}", flush=True)
         if max(rel.values()) > BWD_BF16_REL_TOL or not repeat:
             raise AssertionError(f"flash backward kernels disagree with "
                                  f"their plain version on {name}, or with "
@@ -4826,13 +4881,17 @@ def _device_ms(prof, names=None):
             sum(e.count for e in hit))
 
 
-def profile_vision_step(model, card, xb, yb):
+def profile_vision_step(model, card, xb, yb, label="ResNet-50",
+                        groups=VISION_OP_GROUPS, kernel_groups=()):
     """Warm training steps of ``model`` on ``(xb, yb)`` (adam): ms a step
     (host clock to a synchronize, profiler off), images/s, peak device
     memory; ``torch.profiler`` over one step: kernel launches, the
     device's busy ms and its share of the unprofiled step, the device
-    time by ``VISION_OP_GROUPS``, and the adam update profiled alone.
-    Returns ``(step_ms, busy_share, peak_gb)``."""
+    time by ``groups`` (profiled CPU ops) and by ``kernel_groups``
+    (``(label, kernel name substrings)``: the port's own kernels, which
+    no aten op launches), and the adam update profiled alone. Returns
+    ``(step_ms, busy_share, peak_gb)``."""
+    tag = "profile-" + "".join(ch for ch in label.lower() if ch.isalnum())
     from torch.profiler import ProfilerActivity, profile
     opt = adam(VISION_LR)
     loss_fn = sparse_categorical_crossentropy_from_logits
@@ -4875,7 +4934,7 @@ def profile_vision_step(model, card, xb, yb):
     adam_ms, adam_calls = _device_ms(alone)
     images = xb.shape[0]
     hwc = "x".join(str(d) for d in xb.shape[1:])
-    print(f"ResNet-50 training step on {card}: {step_ms:.1f} ms/step (B"
+    print(f"{label} training step on {card}: {step_ms:.1f} ms/step (B"
           f"{images} {hwc}, bf16, adam, profiler off), "
           f"{images / step_ms * 1e3:.1f} images/s; peak device memory "
           f"{peak_gb:.2f} GiB ({base_gb:.2f} GiB allocated before the "
@@ -4883,19 +4942,24 @@ def profile_vision_step(model, card, xb, yb):
           f"{busy_ms:.1f} ms ({100 * busy_ms / step_ms:.0f}% of the "
           f"unprofiled step, {prof_ms:.1f} ms wall profiled)", flush=True)
     grouped = 0.0
-    for label, names in VISION_OP_GROUPS:
+    for name, names in groups:
         ms, calls = _device_ms(prof, names)
         grouped += ms
-        print(f"profile-resnet50: {label}: {ms:.3f} ms in {calls} calls",
-              flush=True)
-    print(f"profile-resnet50: adam update (profiled alone, "
+        print(f"{tag}: {name}: {ms:.3f} ms in {calls} calls", flush=True)
+    for name, keys in kernel_groups:
+        hit = [e for e in kern if any(k in e.key for k in keys)]
+        ms = sum(e.self_device_time_total for e in hit) / 1e3
+        grouped += ms
+        print(f"{tag}: {name}: {ms:.3f} ms in "
+              f"{sum(e.count for e in hit)} launches", flush=True)
+    print(f"{tag}: adam update (profiled alone, "
           f"{len(tree_leaves(carry.params))} leaves): {adam_ms:.3f} ms in "
           f"{adam_calls} op calls", flush=True)
-    print(f"profile-resnet50: BatchNorm, activations, casts, residual adds "
-          f"and the loss (the remainder): "
-          f"{busy_ms - grouped - adam_ms:.3f} ms", flush=True)
+    print(f"{tag}: the rest (normalizations, activations, casts, residual "
+          f"adds, the loss): {busy_ms - grouped - adam_ms:.3f} ms",
+          flush=True)
     for e in kern[:12]:
-        print(f"profile-resnet50:   {e.self_device_time_total / 1e3:8.3f} "
+        print(f"{tag}:   {e.self_device_time_total / 1e3:8.3f} "
               f"ms  x{e.count:<5d} {e.key[:100]}", flush=True)
     return step_ms, busy_ms / step_ms, peak_gb
 
@@ -5119,6 +5183,365 @@ def vision_phase(dev, card):
     return by_path
 
 
+# --- phase 29: the rest of the zoo -------------------------------------------
+
+#: ViT-S/16 (``zoo.vit()`` defaults: 224x224x3, patch 16, d_model 384, 6
+#: heads, 12 layers, MLP x4, 1000 classes) and its training run: 8 steps
+#: of B32 over phase 28's 256 seeded images
+VIT_LAYERS, VIT_BATCH = 12, 32
+#: the gradient check's depth and batch (card float32 / bf16 against the
+#: CPU float32 path)
+VIT_GRAD_LAYERS, VIT_GRAD_BATCH = 2, 4
+VIT_GRAD_F32_TOL, VIT_GRAD_BF16_TOL = 1e-3, 5e-2
+#: ViT's kernels in a step's profile, by their device functions
+VIT_KERNEL_GROUPS = (("K1f (flash_fwd)", ("flash_fwd_kernel",)),
+                     ("K1dq (flash_bwd_dq)", ("flash_bwd_dq_kernel",)),
+                     ("K1dkv (flash_bwd_dkv)", ("flash_bwd_dkv_kernel",)))
+VIT_OP_GROUPS = (("GEMMs (aten::mm, aten::bmm, aten::addmm)",
+                  ("aten::mm", "aten::bmm", "aten::addmm")),
+                 ("patchify convolution (cuDNN)",
+                  ("aten::cudnn_convolution", "aten::convolution_backward")))
+#: MobileNet-v1 1.0 at 224x224x3: 4 SingleTrainer steps of B32
+MOBILENET_STEPS = 4
+#: BASELINE config 5: ``bilstm_classifier(units=64, num_classes=2)``,
+#: float32, over rows of 200 steps of 300 features (the width of the
+#: word vectors the reference's text examples feed; seeded stand-ins:
+#: no corpus is in the repo), 1,000 rows through ``ModelPredictor`` at
+#: 128 a batch (a ragged last batch of 104)
+BILSTM_UNITS, BILSTM_SEQ, BILSTM_FEATURES = 64, 200, 300
+BILSTM_ROWS, BILSTM_BATCH = 1000, 128
+BILSTM_TOL = 1e-4
+#: the LM file written on the CPU: LM_CFG's widths at 2 layers, float32
+ZOO_LM_LAYERS, ZOO_LM_PROMPT, ZOO_LM_NEW = 2, 64, 8
+
+
+def meta_draws(spec, shape) -> int:
+    """The K7 launches a build of ``spec`` makes on the card: the draws
+    of a rehearsal of the same build on the ``meta`` device (the draws
+    follow the control flow, not the device), counted around
+    ``prng.draw``."""
+    real, n = prng.draw, [0]
+
+    def counted(*args, **kw):
+        out = real(*args, **kw)
+        n[0] += out.numel() > 0
+        return out
+
+    prng.draw = counted
+    try:
+        Model.build(spec, shape, device="meta")
+    finally:
+        prng.draw = real
+    return n[0]
+
+
+def counted_build(spec, shape, dev, label, card):
+    """``Model.build(spec)`` on the card, its K7 launches held to the
+    meta rehearsal's count. Returns ``(model, launch counts)``."""
+    expect = meta_draws(copy.deepcopy(spec), shape)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = Model.build(spec, shape, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = kernels.launch_counts()
+    if c["prng"] != expect:
+        raise AssertionError(f"{label}: the build launched K7 {c['prng']} "
+                             f"times; its meta rehearsal draws {expect}")
+    print(f"{label} built on {card} in {secs:.2f} s: "
+          f"{model.num_params()} parameters, {c['prng']} K7 launches (the "
+          f"meta rehearsal's {expect})", flush=True)
+    return model, c
+
+
+def logits_vs_cpu32(model, spec32, x, label, card, tol=VISION_LOGIT_TOL):
+    """The card's eval logits on ``x`` against a CPU float32 build of
+    ``spec32`` with the same weights and state; returns the CPU model."""
+    cpu = cpu_float32_copy(model, spec32)
+    got, ref = model.predict(x), cpu.predict(x)
+    scale = float(np.abs(ref).max())
+    rel = float(np.abs(got - ref).max()) / scale
+    print(f"{label} B{len(x)} eval logits on {card} vs the CPU float32 "
+          f"path: rel err {rel:.3e} (tol {tol}, max |logit| {scale:.3f})",
+          flush=True)
+    if got.shape != ref.shape or not np.isfinite(got).all() or rel > tol:
+        raise AssertionError(f"{label}: card logits disagree with the CPU")
+    return cpu
+
+
+def falling(label, losses, first_steps=1):
+    """Finite losses whose last three steps' mean is under the first
+    steps'. Returns (first, last)."""
+    losses = np.asarray(losses, np.float64).reshape(-1)
+    first = float(losses[:first_steps].mean())
+    last = float(losses[-3:].mean())
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
+    return first, last
+
+
+def vit_gradients_vs_cpu(dev, card):
+    """A ``VIT_GRAD_LAYERS``-layer ViT-S/16 training-mode gradient on the
+    card, float32 and bf16, against the CPU float32 path on the same
+    weights and batch: each leaf within its tolerance of that leaf's
+    largest CPU value."""
+    loss_fn = get_loss(TRAIN_LOSS)
+    X, y = vision_data(n=VIT_GRAD_BATCH).arrays()
+    cpu = Model.build(zoo.vit(num_layers=VIT_GRAD_LAYERS), RESNET_SHAPE,
+                      seed=SEED, device=dev).to("cpu")
+    _, ref, _ = value_and_grad(cpu.module, loss_fn, cpu.params,
+                               torch.from_numpy(X), torch.from_numpy(y))
+    ref = [g.float() for g in tree_leaves(ref)]
+    xb, yb = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    for dtype, tol in (("float32", VIT_GRAD_F32_TOL),
+                       ("bfloat16", VIT_GRAD_BF16_TOL)):
+        m = Model.build(zoo.vit(num_layers=VIT_GRAD_LAYERS, dtype=dtype),
+                        RESNET_SHAPE, device="meta")
+        m.module.to_empty(device=dev)
+        m.device = dev
+        m.set_weights(cpu.get_weights())
+        _, got, _ = value_and_grad(m.module, loss_fn, m.params, xb, yb)
+        errs = [float((g.float().cpu() - r).abs().max()
+                      / r.abs().max().clamp_min(1e-30))
+                for g, r in zip(tree_leaves(got), ref)]
+        print(f"ViT-S/16 at {VIT_GRAD_LAYERS} layers, card {dtype} "
+              f"gradients vs the CPU float32 path on {card}: worst leaf "
+              f"rel err {max(errs):.3e} over {len(errs)} leaves (tol {tol})",
+              flush=True)
+        if max(errs) > tol:
+            raise AssertionError(f"ViT {dtype} card gradients disagree "
+                                 f"with the CPU: {errs}")
+        del m
+    del cpu
+    gc.collect()
+
+
+def vit_files_phase(model, x8, dev, card):
+    """The trained ViT saved and loaded back on the card (eval logits
+    bitwise), saved with ``quantize=True`` and loaded as a
+    ``QuantizedModel`` (logits against the CPU float32 path over the same
+    dequantized weights, at the quantized path's bf16 limit)."""
+    import tempfile
+    from distkeras_tpu_torch.models import load_model
+    ref = model.predict(x8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/vit"
+        t0 = time.perf_counter()
+        model.save(path)
+        loaded = Model.load(path, device=dev)
+        secs = time.perf_counter() - t0
+        same = np.array_equal(loaded.predict(x8), ref)
+        print(f"ViT-S/16 saved and loaded on {card} in {secs:.2f} s: eval "
+              f"logits bitwise equal {same}", flush=True)
+        if not same:
+            raise AssertionError("the reloaded ViT's logits differ")
+        del loaded
+        model.save(path + "_q", quantize=True)
+        q = Model.load(path + "_q", keep_quantized=True, device=dev)
+        got = q.predict(x8)
+        cpu = cpu_float32_copy(load_model(path + "_q", device="cpu"),
+                               zoo.vit())
+        want = cpu.predict(x8)
+        scale = float(np.abs(want).max())
+        rel = float(np.abs(got - want).max()) / scale
+        drift = float(np.abs(got - ref).max()) / float(np.abs(ref).max())
+        print(f"ViT-S/16 int8 file (keep_quantized) on {card}: "
+              f"{q.num_bytes()} weight bytes; logits vs the CPU float32 "
+              f"path over the same dequantized weights rel err {rel:.3e} "
+              f"(tol {E2E_BF16_REL_TOL}); vs the float model "
+              f"{drift:.3e} (quantization)", flush=True)
+        if not np.isfinite(got).all() or rel > E2E_BF16_REL_TOL:
+            raise AssertionError("the quantized ViT disagrees with the CPU")
+        del q, cpu
+
+
+def lm_file_phase(dev, card):
+    """A ``transformer_lm`` file written on the CPU by the port (built on
+    the card, moved to the CPU, saved there), loaded on the card:
+    ``generate()`` gives the writer's greedy tokens."""
+    import tempfile
+    spec = zoo.transformer_lm(LM_CFG["vocab"], d_model=LM_CFG["d_model"],
+                              num_heads=LM_CFG["num_heads"],
+                              num_layers=ZOO_LM_LAYERS,
+                              mlp_ratio=LM_CFG["mlp_ratio"])
+    writer = Model.build(spec, (ZOO_LM_PROMPT,), seed=SEED,
+                         device=dev).to("cpu")
+    prompts = np.random.RandomState(SEED + 29).randint(
+        0, LM_CFG["vocab"], (2, ZOO_LM_PROMPT)).astype(np.int32)
+    want = writer.generate(prompts, ZOO_LM_NEW)
+    with tempfile.TemporaryDirectory() as tmp:
+        writer.save(f"{tmp}/lm")
+        loaded = Model.load(f"{tmp}/lm", device=dev)
+    got = loaded.generate(prompts, ZOO_LM_NEW)
+    print(f"transformer_lm ({ZOO_LM_LAYERS} layers, float32) written on "
+          f"the CPU, loaded on {card}: greedy tokens equal the writer's "
+          f"{np.array_equal(got, want)} ({ZOO_LM_NEW} tokens x 2 rows)",
+          flush=True)
+    if not np.array_equal(got, want):
+        raise AssertionError("the loaded LM's greedy tokens differ")
+    del writer, loaded
+    gc.collect()
+
+
+def bilstm_phase(dev, card):
+    """BASELINE config 5 on the card: the BiLSTM built from the seed,
+    ``ModelPredictor`` over ``BILSTM_ROWS`` seeded rows equal to
+    ``Model.predict`` bitwise and within ``BILSTM_TOL`` of the CPU path;
+    rows/s, the CUDA kernels of one batch, and cuDNN's ``nn.LSTM`` over
+    the same batch as yardstick. Returns the build's launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+    shape = (BILSTM_SEQ, BILSTM_FEATURES)
+    model, c = counted_build(zoo.bilstm_classifier(BILSTM_UNITS, 2), shape,
+                             dev, "BiLSTM (config 5)", card)
+    X = np.random.RandomState(SEED + 5).randn(
+        BILSTM_ROWS, *shape).astype(np.float32)
+    ds = Dataset({"features": X})
+    pred = ModelPredictor(model, batch_size_per_device=BILSTM_BATCH)
+    pred.predict(Dataset({"features": X[:BILSTM_BATCH]}))   # warm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pred.predict(ds)["prediction"]
+    secs = time.perf_counter() - t0
+    if sum(kernels.launch_counts().values()):
+        raise AssertionError("the BiLSTM launched a hand-written kernel")
+    same = np.array_equal(out, model.predict(X, batch_size=BILSTM_BATCH))
+    cpu = cpu_float32_copy(model, zoo.bilstm_classifier(BILSTM_UNITS, 2))
+    ref = cpu.predict(X, batch_size=BILSTM_BATCH)
+    rel = float(np.abs(out - ref).max()) / float(np.abs(ref).max())
+    print(f"BiLSTM ModelPredictor on {card}: {BILSTM_ROWS} rows of "
+          f"{BILSTM_SEQ}x{BILSTM_FEATURES} float32 in {secs:.2f} s "
+          f"({BILSTM_ROWS / secs:.1f} rows/s, B{BILSTM_BATCH}); bitwise "
+          f"Model.predict {same}; vs the CPU float32 path rel err "
+          f"{rel:.3e} (tol {BILSTM_TOL})", flush=True)
+    if out.shape != (BILSTM_ROWS, 2) or not same or rel > BILSTM_TOL:
+        raise AssertionError("config 5 predictions disagree")
+    xb = torch.from_numpy(X[:BILSTM_BATCH]).to(dev)
+    params = model.params
+    with torch.no_grad():
+        port_ms = time_ms(lambda: model.module.apply(params, xb), iters=3,
+                          warmup=1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.module.apply(params, xb)
+            torch.cuda.synchronize()
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0)
+        lstm = torch.nn.LSTM(BILSTM_FEATURES, BILSTM_UNITS, num_layers=2,
+                             bidirectional=True, batch_first=True).to(dev)
+        lib_ms = time_ms(lambda: lstm(xb), iters=10)
+    print(f"BiLSTM batch of {BILSTM_BATCH} on {card}: the port's forward "
+          f"{port_ms:.2f} ms ({launches} CUDA kernel launches); "
+          f"yardstick cuDNN nn.LSTM (2 layers, bidirectional, the same "
+          f"shape, never called by the port) {lib_ms:.3f} ms", flush=True)
+    del model, cpu, lstm
+    gc.collect()
+    return c
+
+
+def zoo_phase(dev, card):
+    """Phase 29: ViT-S/16 trained on the flash kernels without the causal
+    mask, MobileNet-v1, BASELINE config 5 (the BiLSTM through
+    ``ModelPredictor``) and model files on the card. Returns the launch
+    counts of its runs by path."""
+    by_path = {}
+    data = vision_data()
+    X, y = data.arrays()
+    x8 = X[:8]
+
+    model, by_path["zoo_vit_build"] = counted_build(
+        zoo.vit(dtype="bfloat16"), RESNET_SHAPE, dev, "ViT-S/16", card)
+    cpu = logits_vs_cpu32(model, zoo.vit(), x8, "ViT-S/16", card)
+    del cpu
+    gc.collect()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    model.predict(x8)
+    torch.cuda.synchronize()
+    c = kernels.launch_counts()
+    by_path["zoo_vit_eval"] = c
+    if c["flash_fwd"] != VIT_LAYERS or c["flash_bwd_dq"] or \
+            c["flash_bwd_dkv"]:
+        raise AssertionError(f"ViT eval forward launched {c}: expected "
+                             f"{VIT_LAYERS} flash_fwd and no backward")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tr = SingleTrainer(model, worker_optimizer="adam",
+                       learning_rate=VISION_LR, loss=TRAIN_LOSS,
+                       batch_size=VIT_BATCH, num_epoch=1)
+    c = counted_train(tr, data)
+    peak = torch.cuda.max_memory_allocated()
+    by_path["zoo_vit_training"] = c
+    steps = VISION_IMAGES // VIT_BATCH
+    losses = tr.get_history().losses()
+    expect = {name: VIT_LAYERS * steps for name in TRAINING_KERNELS}
+    expect["prng"] = steps
+    if len(losses) != steps or any(c[k] != n for k, n in expect.items()):
+        raise AssertionError(f"ViT SingleTrainer: {len(losses)} steps, "
+                             f"launches {c}; expected {expect}")
+    first, last = falling("ViT-S/16 SingleTrainer", losses)
+    secs = tr.get_training_time()
+    print(f"ViT-S/16 SingleTrainer on {card}: {steps} steps of B"
+          f"{VIT_BATCH} in {secs:.2f} s ({VISION_IMAGES / secs:.1f} "
+          f"images/s, the first step included); loss {first:.4f} -> "
+          f"{last:.4f} (per step {np.array2string(losses, precision=3)}); "
+          f"launches a step: K1f {c['flash_fwd'] // steps}, K1dq "
+          f"{c['flash_bwd_dq'] // steps}, K1dkv {c['flash_bwd_dkv'] // steps}"
+          f", K7 {c['prng'] // steps} (exact); peak device memory "
+          f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB allocated before "
+          f"the run)", flush=True)
+    xb, yb = (torch.from_numpy(a[:VIT_BATCH]).to(dev) for a in (X, y))
+    profile_vision_step(model, card, xb, yb, label="ViT-S/16",
+                        groups=VIT_OP_GROUPS,
+                        kernel_groups=VIT_KERNEL_GROUPS)
+    del tr, xb, yb
+    gc.collect()
+    vit_files_phase(model, x8, dev, card)
+    del model
+    gc.collect()
+    vit_gradients_vs_cpu(dev, card)
+
+    model, by_path["zoo_mobilenet_build"] = counted_build(
+        zoo.mobilenet(dtype="bfloat16"), RESNET_SHAPE, dev,
+        "MobileNet-v1 1.0", card)
+    cpu = logits_vs_cpu32(model, zoo.mobilenet(), x8, "MobileNet-v1 1.0",
+                          card)
+    del cpu
+    gc.collect()
+    before = _state_leaves(model)
+    n = MOBILENET_STEPS * VISION_BATCH
+    tr = SingleTrainer(model, worker_optimizer="adam",
+                       learning_rate=VISION_LR, loss=TRAIN_LOSS,
+                       batch_size=VISION_BATCH, num_epoch=1)
+    c = counted_train(tr, Dataset.from_arrays(X[:n], y[:n]))
+    by_path["zoo_mobilenet_training"] = c
+    losses = tr.get_history().losses()
+    if len(losses) != MOBILENET_STEPS or c["prng"] != MOBILENET_STEPS:
+        raise AssertionError(f"MobileNet SingleTrainer: {len(losses)} "
+                             f"steps, launches {c}")
+    first, last = check_vision_training("MobileNet SingleTrainer", losses,
+                                        before, model)
+    secs = tr.get_training_time()
+    print(f"MobileNet-v1 1.0 SingleTrainer on {card}: {MOBILENET_STEPS} "
+          f"steps of B{VISION_BATCH} in {secs:.2f} s ({n / secs:.1f} "
+          f"images/s, the first step's cuDNN set-up included); loss "
+          f"{first:.4f} -> {last:.4f} (per step "
+          f"{np.array2string(losses, precision=3)}); BN statistics moved",
+          flush=True)
+    xb, yb = (torch.from_numpy(a[:VISION_BATCH]).to(dev) for a in (X, y))
+    profile_vision_step(model, card, xb, yb, label="MobileNet-v1")
+    del tr, xb, yb, model
+    gc.collect()
+
+    by_path["zoo_bilstm_build"] = bilstm_phase(dev, card)
+    lm_file_phase(dev, card)
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -5293,6 +5716,11 @@ def main() -> int:
 
     dist_launches = distributed_phase(dev, card)
     vision_launches = vision_phase(dev, card)
+    gc.collect()
+    t0 = time.perf_counter()
+    zoo_launches = zoo_phase(dev, card)
+    print(f"phase 29 (the rest of the zoo) took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     by_path = {name: {} for name in kernels.SOURCES}
     for name in SERVING_KERNELS:
@@ -5332,6 +5760,10 @@ def main() -> int:
             by_path[name][path] = c[name]
     for path, c in vision_launches.items():
         by_path["prng"][path] = c["prng"]
+    for path, c in zoo_launches.items():
+        for name in ("prng",) + TRAINING_KERNELS:
+            if c[name]:
+                by_path[name][path] = c[name]
 
     def entry(name, source, replaces, rows, path):
         main_row = rows[0]

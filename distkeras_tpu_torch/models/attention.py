@@ -1,8 +1,10 @@
 """Transformer layers: norms, positional embeddings, multi-head attention
 (grouped queries, RoPE, sliding window), the MLP and the pre-norm block.
 
-Mirrors ``distkeras_tpu/models/attention.py`` (:37-476) with the same
-parameter names and layouts: ``wq [d, H, Dh]``, ``wk``/``wv [d, Hkv,
+Mirrors ``distkeras_tpu/models/attention.py`` (:37-486), each layer
+registered under its JAX name with JAX's ``get_config`` (a block's
+``mlp_layer`` travels as a layer spec), with the same parameter names
+and layouts: ``wq [d, H, Dh]``, ``wk``/``wv [d, Hkv,
 Dh]``, ``wo [H, Dh, d]``, MLP ``w1 [d, r*d]``/``w2 [r*d, d]``. Norms
 compute in float32 and cast back to the input dtype; projections run
 in the layer's compute dtype. The full-sequence attention goes through
@@ -24,7 +26,9 @@ from typing import Optional
 
 import torch
 
-from distkeras_tpu_torch.models.core import Layer, torch_dtype
+from distkeras_tpu_torch.models.core import (Layer, layer_from_spec,
+                                             layer_spec, register_layer,
+                                             torch_dtype)
 from distkeras_tpu_torch.models.layers import (dropout, get_activation,
                                                init_weights)
 from distkeras_tpu_torch.ops import prng
@@ -55,6 +59,7 @@ def check_attn_impl(attn_impl: str, seq_axis_name, ring_block_size=None):
                          f"{ATTN_IMPLS + SEQ_PARALLEL_IMPLS}")
 
 
+@register_layer
 class LayerNorm(Layer):
     def __init__(self, epsilon: float = 1e-5):
         super().__init__()
@@ -74,7 +79,11 @@ class LayerNorm(Layer):
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         return (y * p["scale"] + p["offset"]).to(x.dtype)
 
+    def get_config(self):
+        return {"epsilon": self.epsilon}
 
+
+@register_layer
 class RMSNorm(Layer):
     def __init__(self, epsilon: float = 1e-6):
         super().__init__()
@@ -91,12 +100,22 @@ class RMSNorm(Layer):
                              + self.epsilon)
         return (y * p["scale"]).to(x.dtype)
 
+    def get_config(self):
+        return {"epsilon": self.epsilon}
 
+
+@register_layer
 class PositionalEmbedding(Layer):
-    """Learned absolute positions added to a ``[B, S, d]`` input."""
+    """Learned absolute positions added to a ``[B, S, d]`` input.
+    ``seq_axis_name`` (positions of a sequence shard) raises naming its
+    ROADMAP item."""
 
-    def __init__(self, max_len: int):
+    def __init__(self, max_len: int, seq_axis_name: Optional[str] = None):
         super().__init__()
+        if seq_axis_name is not None:
+            raise NotImplementedError(
+                f"PositionalEmbedding(seq_axis_name={seq_axis_name!r}) is "
+                f"not ported yet: {SEQ_PARALLEL_ITEM}")
         self.max_len = int(max_len)
 
     def build(self, input_shape, rng):
@@ -111,7 +130,11 @@ class PositionalEmbedding(Layer):
                              f"is too small for {s} positions")
         return x + p["embeddings"][:s][None].to(x.dtype)
 
+    def get_config(self):
+        return {"max_len": self.max_len, "seq_axis_name": None}
 
+
+@register_layer
 class MultiHeadAttention(Layer):
     """Multi-head self-attention over ``[B, S, d_model]``;
     ``num_kv_heads < num_heads`` is grouped-query attention."""
@@ -144,6 +167,8 @@ class MultiHeadAttention(Layer):
                 f"num_kv_heads must be a positive divisor of num_heads "
                 f"{self.num_heads}, got {kv}")
         self.head_dim = head_dim if head_dim is None else int(head_dim)
+        #: the head_dim argument (``build`` resolves None to d_model / H)
+        self._head_dim_arg = self.head_dim
         self.causal = bool(causal)
         self.use_rope = bool(use_rope)
         self.dtype = dtype
@@ -201,7 +226,17 @@ class MultiHeadAttention(Layer):
         y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
         return y.to(x.dtype)
 
+    def get_config(self):
+        return {"num_heads": self.num_heads, "head_dim": self._head_dim_arg,
+                "causal": self.causal, "use_rope": self.use_rope,
+                "dtype": self.dtype, "attn_impl": self.attn_impl,
+                "seq_axis_name": None, "kernel_init": self.kernel_init,
+                "ring_block_size": None, "num_kv_heads": self.num_kv_heads,
+                "rope_scale": self.rope_scale,
+                "attn_window": self.attn_window}
 
+
+@register_layer
 class TransformerMLP(Layer):
     """Position-wise MLP: ``act(x @ w1 + b1) @ w2 + b2``."""
 
@@ -232,7 +267,12 @@ class TransformerMLP(Layer):
         y = h @ p["w2"].to(dt) + p["b2"].to(dt)
         return y.to(x.dtype)
 
+    def get_config(self):
+        return {"hidden_dim": self.hidden_dim, "activation": self.activation,
+                "dtype": self.dtype, "kernel_init": self.kernel_init}
 
+
+@register_layer
 class TransformerBlock(Layer):
     """Pre-norm residual block: ``x + attn(norm(x))``, then
     ``x + mlp(norm(x))``. ``mlp_layer`` (e.g. a ``models.moe.MoE``)
@@ -259,6 +299,13 @@ class TransformerBlock(Layer):
         self.mlp_ratio = int(mlp_ratio)
         self.activation = activation
         self.dtype = dtype
+        # the arguments as JAX's block keeps them, for ``get_config``
+        self._config = {"num_heads": int(num_heads), "head_dim": head_dim,
+                        "causal": causal, "use_rope": use_rope,
+                        "norm": norm, "attn_impl": attn_impl,
+                        "num_kv_heads": num_kv_heads,
+                        "rope_scale": float(rope_scale),
+                        "attn_window": attn_window}
         norm_cls = RMSNorm if norm == "rmsnorm" else LayerNorm
         self.norm1 = norm_cls()
         self.attn = MultiHeadAttention(
@@ -301,3 +348,26 @@ class TransformerBlock(Layer):
         if drop:
             m = dropout(m, self.dropout_rate, k_drop2)
         return x + m
+
+    def get_config(self):
+        c = self._config
+        cfg = {"num_heads": c["num_heads"], "mlp_ratio": self.mlp_ratio,
+               "head_dim": c["head_dim"], "causal": c["causal"],
+               "use_rope": c["use_rope"], "activation": self.activation,
+               "norm": c["norm"], "dtype": self.dtype,
+               "attn_impl": c["attn_impl"], "seq_axis_name": None,
+               "dropout_rate": self.dropout_rate, "ring_block_size": None,
+               "num_kv_heads": c["num_kv_heads"],
+               "rope_scale": c["rope_scale"],
+               "attn_window": c["attn_window"]}
+        if self._mlp_override:
+            cfg["mlp_layer"] = layer_spec(self.mlp)
+        return cfg
+
+    @classmethod
+    def from_config(cls, config):
+        config = dict(config)
+        spec = config.pop("mlp_layer", None)
+        if spec is not None:
+            config["mlp_layer"] = layer_from_spec(spec)
+        return cls(**config)

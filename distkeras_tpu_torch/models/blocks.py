@@ -3,6 +3,10 @@ blocks.py``): ``Residual`` (:23), the ResNet block skeleton,
 ``WideAndDeep`` (:94), the BASELINE config 4 model as one layer, and
 ``Remat`` (:147-210), the rematerialization wrapper.
 
+Each is registered under its JAX name with JAX's ``get_config``; the
+inner layers travel as layer specs (``Remat(inner_spec=)``,
+``Residual(main_spec=, shortcut_spec=)``) and are rebuilt from them.
+
 ``Residual`` and ``WideAndDeep`` lay out their parameter and state trees
 as JAX's (``{"main", "shortcut"}``, ``{"wide", "deep"}``; an identity
 shortcut holds ``{}``) and split their key as JAX's ``init`` does, so a
@@ -46,7 +50,9 @@ import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from distkeras_tpu_torch.models.core import Layer, Sequential
+from distkeras_tpu_torch.models.core import (Layer, Sequential,
+                                             layer_from_spec, layer_spec,
+                                             register_layer)
 from distkeras_tpu_torch.models.layers import Dense, get_activation
 from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.utils.tree import tree_map
@@ -61,6 +67,7 @@ _SAVED_OPS = {
 }
 
 
+@register_layer
 class Remat(Layer):
     """Recompute ``inner`` in the backward pass (``jax.checkpoint``)."""
 
@@ -69,10 +76,8 @@ class Remat(Layer):
     def __init__(self, inner: Layer = None, inner_spec=None,
                  policy: Optional[str] = None):
         super().__init__()
-        if inner_spec is not None:
-            raise NotImplementedError(
-                "Remat(inner_spec=): layer specs (model serialization) are "
-                "not ported yet: ROADMAP, Queue 1 item 9")
+        if inner is None:
+            inner = layer_from_spec(inner_spec)
         if inner is None:
             raise ValueError("Remat needs an inner layer")
         if policy is not None and policy not in self.POLICIES:
@@ -141,7 +146,11 @@ class Remat(Layer):
             ckpt_kw["context_fn"] = context_fn
         return checkpoint(f, p, x, kw, use_reentrant=False, **ckpt_kw)
 
+    def get_config(self):
+        return {"inner_spec": layer_spec(self.inner), "policy": self.policy}
 
+
+@register_layer
 class Residual(Layer):
     """``y = act(main(x) + shortcut(x))``, the ResNet block skeleton
     (JAX :23). ``shortcut=None`` is the identity (the shapes must
@@ -152,10 +161,9 @@ class Residual(Layer):
                  activation: Optional[str] = "relu", main_spec=None,
                  shortcut_spec=None):
         super().__init__()
-        if main_spec is not None or shortcut_spec is not None:
-            raise NotImplementedError(
-                "Residual(main_spec=, shortcut_spec=): layer specs (model "
-                "serialization) are not ported yet: ROADMAP, Queue 1 item 9")
+        main = main if main is not None else layer_from_spec(main_spec)
+        if shortcut is None:
+            shortcut = layer_from_spec(shortcut_spec)
         if main is None:
             raise ValueError("Residual needs a main branch")
         get_activation(activation)
@@ -216,7 +224,13 @@ class Residual(Layer):
               else branch(self.shortcut, "shortcut", keys[1]))
         return get_activation(self.activation)(y + sc)
 
+    def get_config(self):
+        return {"main_spec": layer_spec(self.main),
+                "shortcut_spec": layer_spec(self.shortcut),
+                "activation": self.activation}
 
+
+@register_layer
 class WideAndDeep(Layer):
     """Wide & Deep (Cheng et al. 2016) as one layer (JAX :94): the input
     row is ``[wide (wide_dim) | deep (rest)]`` and the logits are
@@ -264,3 +278,9 @@ class WideAndDeep(Layer):
         kw = {"rng": rng} if rng is not None and self.uses_rng else {}
         return (self.wide.apply(p["wide"], xw)
                 + self.deep.apply(p["deep"], xd, **kw))
+
+    def get_config(self):
+        return {"wide_dim": self.wide_dim,
+                "deep_hidden": list(self.deep_hidden),
+                "num_classes": self.num_classes,
+                "activation": self.activation, "dtype": self.dtype}

@@ -41,6 +41,15 @@ the Keras-style flat list of params, then state, in JAX's leaf order
 (dict keys sorted, :379-405); ``Model.fit`` trains in place through
 ``parallel.trainers.SingleTrainer``; ``Model.generate`` continues
 prompts through ``models.decoding.generate``.
+
+Layer specs (JAX :28-80, :107-118, :188-194): every layer class is
+registered under its JAX class name (``register_layer``,
+``LAYER_REGISTRY``), ``get_config()`` returns the JAX layer's dict of
+constructor arguments (the same keys and values, so the same JSON),
+``from_config`` rebuilds the layer, and ``layer_spec``/``layer_from_spec``
+are the ``{"class", "config"}`` encoding that containers and
+``models.serialization`` use. ``Model.save``/``Model.load`` write and
+read the JAX package's model files (JAX :361-372).
 """
 
 from __future__ import annotations
@@ -57,6 +66,40 @@ from distkeras_tpu_torch.ops import prng
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+#: layer class name -> class: what ``layer_from_spec`` rebuilds from
+LAYER_REGISTRY: Dict[str, type] = {}
+
+
+def register_layer(cls: type) -> type:
+    """Class decorator adding a layer class to ``LAYER_REGISTRY`` under
+    its (JAX) class name."""
+    LAYER_REGISTRY[cls.__name__] = cls
+    return cls
+
+
+def layer_spec(layer):
+    """Layer -> ``{"class": name, "config": get_config()}`` (None passes
+    through): the encoding every container and model file uses."""
+    if layer is None:
+        return None
+    return {"class": layer.name, "config": layer.get_config()}
+
+
+def layer_from_spec(spec):
+    """``{"class", "config"}`` spec -> a new layer (None passes
+    through)."""
+    if spec is None:
+        return None
+    if not isinstance(spec, dict) or set(spec) != {"class", "config"}:
+        raise ValueError(f"not a layer spec (a dict with exactly the keys "
+                         f"'class' and 'config'): {spec!r}")
+    try:
+        cls = LAYER_REGISTRY[spec["class"]]
+    except KeyError:
+        raise ValueError(f"unknown layer class {spec['class']!r} in a layer "
+                         f"spec; known: {sorted(LAYER_REGISTRY)}") from None
+    return cls.from_config(spec["config"])
 
 
 def user_float(y: torch.Tensor) -> torch.Tensor:
@@ -158,6 +201,19 @@ class Layer(nn.Module):
     def apply(self, p, x):
         return x
 
+    def get_config(self) -> Dict:
+        """The constructor arguments as the JAX layer's ``get_config``
+        returns them (JSON-able)."""
+        return {}
+
+    @classmethod
+    def from_config(cls, config: Dict) -> "Layer":
+        return cls(**config)
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
     def forward(self, x, segment_ids=None):
         if segment_ids is None:
             return self.apply(self.param_tree(), x)
@@ -184,6 +240,7 @@ def collect_aux_losses(module: nn.Module):
     return total
 
 
+@register_layer
 class Sequential(Layer):
     """Ordered stack of layers; its parameter tree is a list with one
     entry per layer."""
@@ -244,6 +301,13 @@ class Sequential(Layer):
                 kw["state"] = None if state is None else state[i]
             x = layer.apply(lp, x, **kw)
         return x
+
+    def get_config(self):
+        return {"layers": [layer_spec(layer) for layer in self.layers]}
+
+    @classmethod
+    def from_config(cls, config):
+        return cls([layer_from_spec(spec) for spec in config["layers"]])
 
 
 class Model:
@@ -373,6 +437,22 @@ class Model:
                     f"set_weights: tensor {i} has shape {tuple(w.shape)}, "
                     f"expected {tuple(leaf.shape)}")
             leaf.copy_(w)
+
+    def save(self, path: str, quantize: bool = False) -> None:
+        """Keras-style ``model.save`` (JAX :361): ``<path>.json`` and
+        ``<path>.npz`` in the JAX package's format
+        (``models.serialization.save_model``)."""
+        from distkeras_tpu_torch.models.serialization import save_model
+        save_model(self, path, quantize=quantize)
+
+    @staticmethod
+    def load(path: str, keep_quantized: bool = False, *, device=None):
+        """Keras-style loader (JAX :367,
+        ``models.serialization.load_model``) onto ``device`` (default:
+        the CUDA card)."""
+        from distkeras_tpu_torch.models.serialization import load_model
+        return load_model(path, keep_quantized=keep_quantized,
+                          device=device)
 
     def generate(self, prompts, max_new_tokens: int, **kwargs):
         """Keras-style convenience over ``models.decoding.generate``

@@ -1,6 +1,8 @@
 """Standard layers of the port: dense, embedding, dropout, activation,
-reshaping, convolution, pooling and normalization layers, activations
-and initializers.
+reshaping, convolution (plain, 1-d, depthwise, separable, transposed),
+upsampling, pooling and normalization layers, activations and
+initializers. Every class is registered under its JAX name and its
+``get_config`` is the JAX layer's (``models.core.layer_spec``).
 
 Mirrors ``distkeras_tpu/models/layers.py``. ``"gelu"`` is
 ``jax.nn.gelu``'s default, the tanh approximation (:40). Weights are
@@ -16,8 +18,8 @@ for ``Conv1D``), kernels HWIO (WIO). A convolution runs on the NCHW view
 tensor to PyTorch (no copy), and permutes its output back, so
 ``Flatten`` reads H, W, C in JAX's order. The convolutions and pools are
 PyTorch's (cuDNN on the card): JAX computes them with plain XLA
-(``lax.conv_general_dilated``, ``lax.reduce_window``), not with a Pallas
-kernel. ``"SAME"`` padding is XLA's, which is asymmetric where the
+(``lax.conv_general_dilated``, ``lax.conv_transpose``,
+``lax.reduce_window``), not with a Pallas kernel. ``"SAME"`` padding is XLA's, which is asymmetric where the
 window overhangs by an odd amount (``same_pads``); it is applied with
 ``F.pad`` (zeros for a convolution or an average, ``-inf`` for a max).
 """
@@ -30,7 +32,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from distkeras_tpu_torch.models.core import Layer, torch_dtype
+from distkeras_tpu_torch.models.core import (Layer, register_layer,
+                                             torch_dtype)
 from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.normalization import bn_train_apply
 
@@ -118,6 +121,7 @@ def dropout(x, rate: float, rng):
     return torch.where(mask, x / keep, 0.0)
 
 
+@register_layer
 class Dense(Layer):
     """Fully connected layer: ``kernel [in, units]`` (+ ``bias``)."""
 
@@ -147,7 +151,13 @@ class Dense(Layer):
             y = y + p["bias"].to(dt)
         return get_activation(self.activation)(y)
 
+    def get_config(self):
+        return {"units": self.units, "activation": self.activation,
+                "use_bias": self.use_bias, "kernel_init": self.kernel_init,
+                "dtype": self.dtype}
 
+
+@register_layer
 class Dropout(Layer):
     """Inverted dropout; the identity when not training or ``rng`` is
     None (JAX :160-175)."""
@@ -165,7 +175,11 @@ class Dropout(Layer):
             return x
         return dropout(x, self.rate, rng)
 
+    def get_config(self):
+        return {"rate": self.rate}
 
+
+@register_layer
 class Embedding(Layer):
     """Token ids ``[B, S]`` -> rows of ``embeddings [vocab, dim]`` (in the
     table's dtype)."""
@@ -185,7 +199,12 @@ class Embedding(Layer):
     def apply(self, p, x):
         return F.embedding(x.long(), p["embeddings"])
 
+    def get_config(self):
+        return {"vocab_size": self.vocab_size, "dim": self.dim,
+                "embeddings_init": self.embeddings_init}
 
+
+@register_layer
 class Activation(Layer):
     """An activation by name (JAX :148)."""
 
@@ -197,7 +216,11 @@ class Activation(Layer):
     def apply(self, p, x):
         return get_activation(self.activation)(x)
 
+    def get_config(self):
+        return {"activation": self.activation}
 
+
+@register_layer
 class Flatten(Layer):
     """``[B, ...] -> [B, prod(...)]`` in JAX's (row-major NHWC) order
     (JAX :179)."""
@@ -209,6 +232,7 @@ class Flatten(Layer):
         return x.reshape(x.shape[0], -1)
 
 
+@register_layer
 class Reshape(Layer):
     """``[B, ...] -> [B, *target_shape]`` (JAX :188)."""
 
@@ -221,6 +245,9 @@ class Reshape(Layer):
 
     def apply(self, p, x):
         return x.reshape((x.shape[0],) + self.target_shape)
+
+    def get_config(self):
+        return {"target_shape": list(self.target_shape)}
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +300,10 @@ class _ConvND(Layer):
     """Shared N-d convolution (JAX :210): channels-last input, kernel
     ``[*window, in, filters]`` under ``kernel``, optional ``bias``. The
     input and kernel are cast to the compute dtype, the bias added there
-    after the convolution, then the activation."""
+    after the convolution, then the activation. Subclasses change the
+    kernel's shape, the output width and the convolution itself
+    (``_kernel_shape``, ``_out_channels``, ``_out_spatial``, ``_conv``),
+    as JAX's hooks do."""
 
     _rank: int
 
@@ -302,41 +332,213 @@ class _ConvND(Layer):
             return tuple(int(e) for e in v)
         return (int(v),) * n
 
+    # -- subclass hooks ------------------------------------------------------
+    def _kernel_shape(self, c: int) -> tuple:
+        return self.kernel_size + (c, self.filters)
+
+    def _out_channels(self, c: int) -> int:
+        return self.filters
+
+    def _out_spatial(self, sizes) -> tuple:
+        return _out_sizes(sizes, self.kernel_size, self.strides,
+                          self.padding)
+
+    def _conv(self, xc, w):
+        """The convolution of the channels-first ``xc`` by ``w`` ``[out,
+        in / groups, *window]`` (XLA's SAME pads first); the groups follow
+        from the kernel's in axis (``feature_group_count``)."""
+        if self.padding == "SAME":
+            xc = _pad_spatial(xc, same_pads(xc.shape[2:], self.kernel_size,
+                                            self.strides), 0.0)
+        conv = F.conv1d if self._rank == 1 else F.conv2d
+        return conv(xc, w, stride=self.strides,
+                    groups=xc.shape[1] // w.shape[1])
+
+    # -- shared body ---------------------------------------------------------
     def build(self, input_shape, rng):
         c = input_shape[-1]
-        self.add_param("kernel", init_weights(
-            self.kernel_init, rng, self.kernel_size + (c, self.filters)))
+        self.add_param("kernel", init_weights(self.kernel_init, rng,
+                                              self._kernel_shape(c)))
         if self.use_bias:
-            self.add_param("bias", torch.zeros(self.filters,
+            self.add_param("bias", torch.zeros(self._out_channels(c),
                                                device=rng.device))
-        return _out_sizes(input_shape[:-1], self.kernel_size, self.strides,
-                          self.padding) + (self.filters,)
+        return self._out_spatial(input_shape[:-1]) + (self._out_channels(c),)
 
     def apply(self, p, x):
         dt = torch_dtype(self.dtype)
         r = self._rank
         xc = x.to(dt).movedim(-1, 1)         # the channels-first view
-        if self.padding == "SAME":
-            xc = _pad_spatial(xc, same_pads(xc.shape[2:], self.kernel_size,
-                                            self.strides), 0.0)
         # [*window, in, out] -> [out, in, *window]
         w = p["kernel"].to(dt).permute(r + 1, r, *range(r))
-        y = self._conv(xc, w, stride=self.strides).movedim(1, -1)
+        y = self._conv(xc, w).movedim(1, -1)
         if self.use_bias:
             y = y + p["bias"].to(dt)
         return get_activation(self.activation)(y)
 
+    def get_config(self):
+        ks, st = self.kernel_size, self.strides
+        return {"filters": self.filters,
+                "kernel_size": list(ks) if len(ks) > 1 else ks[0],
+                "strides": list(st) if len(st) > 1 else st[0],
+                "padding": self.padding,
+                "activation": self.activation, "use_bias": self.use_bias,
+                "kernel_init": self.kernel_init, "dtype": self.dtype}
 
+
+@register_layer
 class Conv2D(_ConvND):
     """2-d convolution over ``[B, H, W, C]``, kernel HWIO (JAX :287)."""
     _rank = 2
-    _conv = staticmethod(F.conv2d)
 
 
+@register_layer
 class Conv1D(_ConvND):
     """1-d convolution over ``[B, W, C]``, kernel WIO (JAX :294)."""
     _rank = 1
-    _conv = staticmethod(F.conv1d)
+
+
+@register_layer
+class DepthwiseConv2D(_ConvND):
+    """Depthwise 2-d convolution (JAX :300): each input channel is
+    convolved with its own ``depth_multiplier`` filters. The HWIO kernel
+    is ``[kh, kw, 1, C * m]`` and runs with ``groups=C`` (JAX's
+    ``feature_group_count``): output channel ``c * m + j`` is the j-th
+    filter of input channel c in both packages."""
+
+    _rank = 2
+
+    def __init__(self, kernel_size, strides=1, padding: str = "SAME",
+                 depth_multiplier: int = 1, activation=None,
+                 use_bias: bool = True, kernel_init: str = "he_normal",
+                 dtype: str = "float32"):
+        super().__init__(filters=0, kernel_size=kernel_size,
+                         strides=strides, padding=padding,
+                         activation=activation, use_bias=use_bias,
+                         kernel_init=kernel_init, dtype=dtype)
+        self.depth_multiplier = int(depth_multiplier)
+
+    def _kernel_shape(self, c):
+        return self.kernel_size + (1, c * self.depth_multiplier)
+
+    def _out_channels(self, c):
+        return c * self.depth_multiplier
+
+    def get_config(self):
+        cfg = super().get_config()
+        cfg.pop("filters")
+        cfg["depth_multiplier"] = self.depth_multiplier
+        return cfg
+
+
+@register_layer
+class SeparableConv2D(Layer):
+    """Depthwise-separable convolution (JAX :341): a ``DepthwiseConv2D``
+    with no bias and no activation, then a 1x1 ``Conv2D`` that carries
+    the activation and the bias. Parameters ``{"depthwise",
+    "pointwise"}``; the key splits in two for them, as JAX's."""
+
+    def __init__(self, filters: int, kernel_size, strides=1,
+                 padding: str = "SAME", depth_multiplier: int = 1,
+                 activation=None, use_bias: bool = True,
+                 kernel_init: str = "he_normal", dtype: str = "float32"):
+        super().__init__()
+        self.filters = int(filters)
+        self.depth_multiplier = int(depth_multiplier)
+        self.activation = activation
+        self.use_bias = bool(use_bias)
+        self.kernel_init = kernel_init
+        self.dtype = dtype
+        self.depthwise = DepthwiseConv2D(
+            kernel_size, strides=strides, padding=padding,
+            depth_multiplier=depth_multiplier, use_bias=False,
+            kernel_init=kernel_init, dtype=dtype)
+        self.pointwise = Conv2D(filters, 1, activation=activation,
+                                use_bias=use_bias, kernel_init=kernel_init,
+                                dtype=dtype)
+
+    def build(self, input_shape, rng):
+        k1, k2 = prng.split(rng)
+        shape = self.depthwise.build(input_shape, k1)
+        return self.pointwise.build(shape, k2)
+
+    def apply(self, p, x):
+        return self.pointwise.apply(p["pointwise"],
+                                    self.depthwise.apply(p["depthwise"], x))
+
+    def get_config(self):
+        cfg = _ConvND.get_config(self.depthwise)
+        cfg.pop("filters")
+        cfg.update(filters=self.filters,
+                   depth_multiplier=self.depth_multiplier,
+                   activation=self.activation, use_bias=self.use_bias)
+        return cfg
+
+
+def conv_transpose_pads(k: int, s: int, padding: str):
+    """``lax.conv_transpose``'s ``(low, high)`` padding of the
+    stride-dilated input for one spatial dimension
+    (``jax._src.lax.convolution._conv_transpose_padding``): SAME gives
+    ``n * s`` outputs, VALID ``n * s + max(k - s, 0)``."""
+    if padding == "SAME":
+        total = k + s - 2
+        low = k - 1 if s > k - 1 else -(-total // 2)
+    else:
+        total = k + s - 2 + max(k - s, 0)
+        low = k - 1
+    return low, total - low
+
+
+@register_layer
+class Conv2DTranspose(_ConvND):
+    """Transposed 2-d convolution (JAX :392), as ``lax.conv_transpose``
+    computes it with its default ``transpose_kernel=False``: the input
+    dilated by the strides (``s - 1`` zeros between neighbours), padded
+    by ``conv_transpose_pads`` and convolved at stride 1 with the HWIO
+    kernel AS GIVEN (``[kh, kw, in, filters]``). This is not
+    ``F.conv_transpose2d``, which is the gradient of a convolution: it
+    flips the kernel spatially and swaps its in and out axes."""
+
+    _rank = 2
+
+    def _out_spatial(self, sizes):
+        return tuple((int(n) - 1) * s + 1 + sum(conv_transpose_pads(
+            k, s, self.padding)) - k + 1
+            for n, k, s in zip(sizes, self.kernel_size, self.strides))
+
+    def _conv(self, xc, w):
+        b, c, h, wd = xc.shape
+        sh, sw = self.strides
+        if (sh, sw) != (1, 1):
+            dil = xc.new_zeros((b, c, (h - 1) * sh + 1, (wd - 1) * sw + 1))
+            dil[:, :, ::sh, ::sw] = xc
+            xc = dil
+        pads = [conv_transpose_pads(k, s, self.padding)
+                for k, s in zip(self.kernel_size, self.strides)]
+        return F.conv2d(_pad_spatial(xc, pads, 0.0), w)
+
+
+@register_layer
+class UpSampling2D(Layer):
+    """Nearest-neighbour upsampling ``[B, H, W, C] -> [B, rH, rW, C]``
+    (JAX :404, ``jnp.repeat`` on each spatial axis); no parameters."""
+
+    def __init__(self, size=2):
+        super().__init__()
+        if isinstance(size, (tuple, list)) and len(size) != 2:
+            raise ValueError(
+                f"UpSampling2D expects 2 spatial factors, got {size}")
+        self.size = _pair(size)
+
+    def build(self, input_shape, rng):
+        h, w, c = input_shape
+        return (h * self.size[0], w * self.size[1], c)
+
+    def apply(self, p, x):
+        return x.repeat_interleave(self.size[0], dim=1) \
+            .repeat_interleave(self.size[1], dim=2)
+
+    def get_config(self):
+        return {"size": list(self.size)}
 
 
 class _Pool2D(Layer):
@@ -361,7 +563,12 @@ class _Pool2D(Layer):
     def apply(self, p, x):
         return self._reduce(x.movedim(-1, 1)).movedim(1, -1)
 
+    def get_config(self):
+        return {"pool_size": list(self.pool_size),
+                "strides": list(self.strides), "padding": self.padding}
 
+
+@register_layer
 class MaxPooling2D(_Pool2D):
     """Window maximum; ``"SAME"`` pads with ``-inf`` (JAX :451)."""
 
@@ -370,6 +577,7 @@ class MaxPooling2D(_Pool2D):
         return F.max_pool2d(xc, self.pool_size, self.strides)
 
 
+@register_layer
 class AveragePooling2D(_Pool2D):
     """Window mean over the REAL elements of each window: the window sum
     divided by the count of unpadded elements it covers (JAX :459
@@ -385,6 +593,7 @@ class AveragePooling2D(_Pool2D):
         return summed / count
 
 
+@register_layer
 class GlobalAveragePooling2D(Layer):
     """Mean over H and W of ``[B, H, W, C]`` (JAX :471)."""
 
@@ -395,6 +604,7 @@ class GlobalAveragePooling2D(Layer):
         return x.mean(dim=(1, 2))
 
 
+@register_layer
 class GlobalAveragePooling1D(Layer):
     """Mean over the sequence axis of ``[B, S, D]`` (JAX :480)."""
 
@@ -409,6 +619,7 @@ class GlobalAveragePooling1D(Layer):
 # normalization
 # ---------------------------------------------------------------------------
 
+@register_layer
 class BatchNorm(Layer):
     """Batch normalization over the last axis (JAX :495): params
     ``scale``/``offset``, state ``mean``/``var`` (float32 buffers).
@@ -483,7 +694,13 @@ class BatchNorm(Layer):
         inv = torch.rsqrt(s["var"] + eps) * p["scale"]
         return ((xf - s["mean"]) * inv + p["offset"]).to(x.dtype)
 
+    def get_config(self):
+        return {"momentum": self.momentum, "epsilon": self.epsilon,
+                "axis_name": None,
+                "virtual_batch_size": self.virtual_batch_size}
 
+
+@register_layer
 class GroupNorm(Layer):
     """Group normalization over the channel axis (JAX :584): float32
     moments per (sample, group) over the spatial positions and the
@@ -512,3 +729,6 @@ class GroupNorm(Layer):
         var = (xg - mean).square().mean(dim=axes, keepdim=True)
         y = ((xg - mean) * torch.rsqrt(var + self.epsilon)).reshape(x.shape)
         return (y * p["scale"] + p["offset"]).to(x.dtype)
+
+    def get_config(self):
+        return {"groups": self.groups, "epsilon": self.epsilon}

@@ -42,7 +42,8 @@ from typing import Optional
 
 import torch
 
-from distkeras_tpu_torch.models.core import Layer, torch_dtype
+from distkeras_tpu_torch.models.core import (Layer, register_layer,
+                                             torch_dtype)
 from distkeras_tpu_torch.models.layers import get_activation, init_weights
 from distkeras_tpu_torch.ops import prng
 
@@ -80,6 +81,7 @@ def _dispatch_plan(experts, gates, num_experts: int, capacity: int):
     return dest, slot_t, slot_g, keep
 
 
+@register_layer
 class MoE(Layer):
     """Top-k gated mixture of expert MLPs over ``[B, S, d_model]``."""
 

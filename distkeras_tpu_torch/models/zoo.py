@@ -7,12 +7,15 @@ BASELINE evaluation models and the decoder-only transformer LM.
                              the north-star model), ``resnet`` the family,
                              ``resnet18_thin`` the few-block test size
   4. ``wide_and_deep`` (:146) Wide & Deep (config 4, DOWNPOUR on Criteo)
+  5. ``bilstm_classifier`` (:135) the BiLSTM classifier (config 5,
+                             batched ``Predictor`` inference)
 
 and ``transformer_lm`` (:153), with dense or mixture-of-experts MLP
-blocks, optionally each wrapped in ``blocks.Remat``. Config 5's
-``bilstm_classifier`` waits for the recurrent layers (ROADMAP Queue 1
-item 9). Build a spec with ``Model.build(spec, input_shape)``; images
-are NHWC.
+blocks, optionally each wrapped in ``blocks.Remat``; ``vit`` (:227), the
+Vision Transformer, whose attention is the flash kernels without the
+causal mask; ``mobilenet`` (:262), MobileNet-v1 over depthwise
+convolutions. Build a spec with ``Model.build(spec, input_shape)``;
+images are NHWC.
 """
 
 from __future__ import annotations
@@ -24,12 +27,12 @@ from distkeras_tpu_torch.models.attention import (LayerNorm,
                                                   RMSNorm, TransformerBlock)
 from distkeras_tpu_torch.models.blocks import Remat, Residual, WideAndDeep
 from distkeras_tpu_torch.models.core import Sequential
-from distkeras_tpu_torch.models.layers import (Activation, BatchNorm, Conv2D,
-                                               Dense, Dropout, Embedding,
-                                               Flatten,
-                                               GlobalAveragePooling2D,
-                                               GroupNorm, MaxPooling2D)
+from distkeras_tpu_torch.models.layers import (
+    Activation, BatchNorm, Conv2D, Dense, DepthwiseConv2D, Dropout, Embedding,
+    Flatten, GlobalAveragePooling1D, GlobalAveragePooling2D, GroupNorm,
+    MaxPooling2D, Reshape)
 from distkeras_tpu_torch.models.moe import MoE
+from distkeras_tpu_torch.models.recurrent import LSTM, Bidirectional
 
 
 def mlp(hidden: Sequence[int] = (512, 256), num_classes: int = 10,
@@ -129,6 +132,18 @@ def resnet18_thin(num_classes: int = 10, width: int = 8,
     return resnet([1, 1], num_classes, width, dtype)
 
 
+def bilstm_classifier(units: int = 64, num_classes: int = 2,
+                      dtype: str = "float32") -> Sequential:
+    """BiLSTM sequence classifier (BASELINE config 5: batched
+    ``Predictor`` inference): two bidirectional LSTMs (the first returns
+    its sequence) and the head."""
+    return Sequential([
+        Bidirectional(LSTM(units, return_sequences=True, dtype=dtype)),
+        Bidirectional(LSTM(units, dtype=dtype)),
+        Dense(num_classes, dtype=dtype),
+    ])
+
+
 def wide_and_deep(wide_dim: int, deep_hidden: Sequence[int] = (256, 128),
                   num_classes: int = 2, dtype: str = "float32") -> Sequential:
     """Wide & Deep for Criteo-style CTR (BASELINE config 4)."""
@@ -188,4 +203,61 @@ def transformer_lm(vocab_size: int, d_model: int = 512, num_heads: int = 8,
         layers.append(block if remat is None else Remat(block, policy=remat))
     layers.append(RMSNorm() if norm == "rmsnorm" else LayerNorm())
     layers.append(Dense(vocab_size, use_bias=False, dtype=dtype))
+    return Sequential(layers)
+
+
+def vit(image_size: int = 224, patch_size: int = 16, d_model: int = 384,
+        num_heads: int = 6, num_layers: int = 12, mlp_ratio: int = 4,
+        num_classes: int = 1000, dtype: str = "float32",
+        dropout_rate: float = 0.0) -> Sequential:
+    """Vision Transformer (the defaults are ViT-S/16): one strided
+    ``Conv2D`` patchify, the patches as a sequence with learned
+    positions, pre-norm LayerNorm blocks with no causal mask and no RoPE
+    (``dropout_rate`` on both residual branches in training), a final
+    LayerNorm, mean pooling over the patches and the head."""
+    if image_size % patch_size:
+        raise ValueError(f"image_size {image_size} not divisible by "
+                         f"patch_size {patch_size}")
+    n_patches = (image_size // patch_size) ** 2
+    layers = [Conv2D(d_model, patch_size, strides=patch_size,
+                     padding="VALID", dtype=dtype),
+              Reshape((n_patches, d_model)),
+              PositionalEmbedding(n_patches)]
+    for _ in range(num_layers):
+        layers.append(TransformerBlock(
+            num_heads, mlp_ratio=mlp_ratio, causal=False, use_rope=False,
+            norm="layernorm", dtype=dtype, dropout_rate=dropout_rate))
+    layers += [LayerNorm(), GlobalAveragePooling1D(),
+               Dense(num_classes, dtype=dtype)]
+    return Sequential(layers)
+
+
+def mobilenet(num_classes: int = 1000, width_mult: float = 1.0,
+              dtype: str = "float32",
+              bn_axis_name: Optional[str] = None) -> Sequential:
+    """MobileNet-v1 (NHWC): a 3x3/2 stem, 13 depthwise-separable blocks
+    (a 3x3 ``DepthwiseConv2D``, BN, relu, a 1x1 ``Conv2D``, BN, relu),
+    global average pooling and the head; ``width_mult`` scales every
+    channel count (at least 8). ``bn_axis_name`` raises naming its
+    ROADMAP item (``layers.SYNC_BN_ITEM``)."""
+    def ch(c):
+        return max(8, int(c * width_mult))
+
+    def bn():
+        return BatchNorm(axis_name=bn_axis_name)
+
+    layers = [Conv2D(ch(32), 3, strides=2, use_bias=False, dtype=dtype),
+              bn(), Activation("relu")]
+    # (pointwise out-channels, stride) per separable block
+    plan = [(64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2),
+            (512, 1), (512, 1), (512, 1), (512, 1), (512, 1), (1024, 2),
+            (1024, 1)]
+    for out_c, stride in plan:
+        layers += [
+            DepthwiseConv2D(3, strides=stride, use_bias=False, dtype=dtype),
+            bn(), Activation("relu"),
+            Conv2D(ch(out_c), 1, use_bias=False, dtype=dtype),
+            bn(), Activation("relu"),
+        ]
+    layers += [GlobalAveragePooling2D(), Dense(num_classes, dtype=dtype)]
     return Sequential(layers)

@@ -1649,3 +1649,145 @@ def test_resnet_train_step_on_card_matches_cpu(dev, dtype, tol):
         assert _rel_err(a, b) <= tol
     for a, b in zip(s1, s0):
         assert _rel_err(a, b) <= tol
+
+
+# --- the rest of the zoo (ViT's attention, the remaining convolutions,
+# --- the recurrent layers) ----------------------------------------------------
+
+#: square attention with no causal mask, as chip_smoke.py's phases 3 and 6
+#: run it: ViT-S/16's shape (S196, ragged against the 64-row tiles) and a
+#: long one; (B, S, H, D)
+NONCAUSAL_CASES = {"vit_s16_b32_s196": (32, 196, 6, 64),
+                   "b1_h16_s2048": (1, 2048, 16, 64),
+                   "vit_b2_s197_d128": (2, 197, 4, 128)}
+
+
+@pytest.mark.parametrize("case", list(NONCAUSAL_CASES))
+def test_flash_non_causal_forward_and_backward_match_plain(dev, case):
+    """K1f, K1dq and K1dkv without the causal mask (bf16): one launch of
+    each, against the plain versions at phase 3's and phase 6's limits."""
+    b, s, h, d = NONCAUSAL_CASES[case]
+    rs = np.random.RandomState(29)
+    q, k, v = _qkv(rs, b, s, s, h, h, d, torch.bfloat16, dev, "bshd")
+    kw = dict(scale=d ** -0.5, causal=False, window=None, layout="bshd")
+    before = kernels.launch_counts()
+    out, lse = flash_forward(q, k, v, **kw)
+    dout = torch.from_numpy(rs.randn(*q.shape).astype(np.float32)) \
+        .to(dev, torch.bfloat16)
+    delta = attention_delta(out, dout)
+    got = flash_backward(q, k, v, out, lse, dout, delta, **kw)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    _assert_forward_matches_plain(q, k, v, kw, out, lse)
+    _assert_backward_matches_plain((q, k, v, out, lse, dout, delta), kw,
+                                   got)
+
+
+#: the remaining convolutions on the card (float32, TF32 off) against the
+#: CPU: (layer, keywords, input shape)
+ZOO_CONV_CASES = {
+    "conv_transpose_same_s2_odd": ("Conv2DTranspose", dict(
+        filters=8, kernel_size=3, strides=2), (15, 15, 4)),
+    "conv_transpose_valid_s2_even": ("Conv2DTranspose", dict(
+        filters=8, kernel_size=4, strides=2, padding="VALID"), (16, 16, 4)),
+    "depthwise_m1_same_s2_even": ("DepthwiseConv2D", dict(
+        kernel_size=3, strides=2, use_bias=False), (16, 16, 8)),
+    "depthwise_m2_same_s1_odd": ("DepthwiseConv2D", dict(
+        kernel_size=3, depth_multiplier=2), (15, 15, 8)),
+    "separable_s2": ("SeparableConv2D", dict(filters=8, kernel_size=3,
+                                             strides=2), (16, 16, 4)),
+}
+
+
+@pytest.mark.parametrize("case", list(ZOO_CONV_CASES))
+def test_zoo_conv_layer_on_card_matches_cpu(dev, case):
+    """Forward and gradients (input and weights) of a transposed,
+    depthwise or separable convolution on the card against the CPU."""
+    import copy
+    from distkeras_tpu_torch.models import layers
+    from distkeras_tpu_torch.ops import prng
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    torch.backends.cudnn.allow_tf32 = False
+    name, kw, shape = ZOO_CONV_CASES[case]
+    layer = getattr(layers, name)(**kw)
+    out_shape = layer.build(shape, prng.key(0))
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(4, *shape).astype(np.float32))
+    r = torch.from_numpy(rs.randn(4, *out_shape).astype(np.float32))
+    res = []
+    for lay, d in ((layer, "cpu"), (copy.deepcopy(layer).to(dev), dev)):
+        p = lay.param_tree()
+        xd = x.to(d).requires_grad_(True)
+        y = lay.apply(p, xd)
+        grads = torch.autograd.grad((y * r.to(d)).sum(),
+                                    [xd] + tree_leaves(p))
+        res.append((y, grads))
+    (y0, g0), (y1, g1) = res
+    assert tuple(y1.shape) == (4,) + tuple(out_shape)
+    assert _rel_err(y1, y0) <= VISION_F32_TOL
+    for a, b in zip(g1, g0):
+        assert _rel_err(a, b) <= VISION_F32_TOL
+
+
+@pytest.mark.parametrize("cls", ["LSTM", "GRU"])
+def test_recurrent_step_on_card_matches_cpu(dev, cls):
+    """A bidirectional recurrent layer's forward and gradients (float32,
+    TF32 off) on the card against the CPU: the time loop of matmuls and
+    gates, no cuDNN RNN."""
+    import copy
+    from distkeras_tpu_torch.models import recurrent
+    from distkeras_tpu_torch.ops import prng
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    layer = recurrent.Bidirectional(getattr(recurrent, cls)(
+        32, return_sequences=True))
+    out_shape = layer.build((20, 24), prng.key(1))
+    rs = np.random.RandomState(2)
+    x = torch.from_numpy(rs.randn(8, 20, 24).astype(np.float32))
+    r = torch.from_numpy(rs.randn(8, *out_shape).astype(np.float32))
+    res = []
+    for lay, d in ((layer, "cpu"), (copy.deepcopy(layer).to(dev), dev)):
+        p = lay.param_tree()
+        xd = x.to(d).requires_grad_(True)
+        y = lay.apply(p, xd)
+        grads = torch.autograd.grad((y * r.to(d)).sum(),
+                                    [xd] + tree_leaves(p))
+        res.append((y, grads))
+    (y0, g0), (y1, g1) = res
+    assert _rel_err(y1, y0) <= VISION_F32_TOL
+    for a, b in zip(g1, g0):
+        assert _rel_err(a, b) <= 1e-3
+
+
+def test_vit_step_on_card_launches_the_flash_kernels(dev):
+    """A 2-layer ViT training step on the card: each flash kernel once
+    per block (no causal mask), gradients within 1e-3 of the CPU's in
+    float32."""
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.parallel import value_and_grad
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    spec = dict(image_size=32, patch_size=8, d_model=64, num_heads=2,
+                num_layers=2, num_classes=10)
+    rs = np.random.RandomState(3)
+    x = torch.from_numpy(rs.randn(4, 32, 32, 3).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 10, 4))
+    loss_fn = get_loss("sparse_categorical_crossentropy_from_logits")
+    out = []
+    for d in ("cpu", dev):
+        m = Model.build(zoo.vit(**spec), (32, 32, 3), seed=0,
+                        device="cpu").to(d)
+        before = kernels.launch_counts()
+        m.module.train()
+        loss, grads, _ = value_and_grad(m.module, loss_fn, m.params,
+                                        x.to(d), y.to(d))
+        if d != "cpu":
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                assert after[name] - before[name] == 2, name
+        out.append((loss, tree_leaves(grads)))
+    (l0, g0), (l1, g1) = out
+    assert abs(float(l1) - float(l0)) <= 1e-3 * abs(float(l0))
+    for a, b in zip(g1, g0):
+        assert _rel_err(a, b) <= 1e-3

@@ -406,7 +406,7 @@ def test_segment_ids_need_an_accepting_layer():
         Remat(Dense(4), policy="everything")
     with pytest.raises(ValueError, match="unknown remat policy"):
         zoo.transformer_lm(V, **LM_KW, remat="everything")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="not a layer spec"):
         Remat(inner_spec={"class_name": "Dense"})
 
 
