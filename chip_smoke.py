@@ -310,11 +310,14 @@ from distkeras_tpu_torch.models import (Model, Sequential,
 from distkeras_tpu_torch.models.attention import TransformerBlock
 from distkeras_tpu_torch.models.blocks import Remat
 from distkeras_tpu_torch.models.moe import MoE, _dispatch_plan
-from distkeras_tpu_torch.models.decoding import (_generate_params,
+from distkeras_tpu_torch.models.decoding import (CACHE_PLANES,
+                                                 _decode_block_of,
+                                                 _generate_params,
                                                  _masked_logits_vec,
-                                                 _sample_vec,
+                                                 _moe_params, _sample_vec,
                                                  _quantize_kv, decode_step,
                                                  decode_fused_slots,
+                                                 decode_step_slots,
                                                  decode_step_slots_paged,
                                                  fuse_qkv_params, init_cache,
                                                  pack_int4, prefill,
@@ -337,6 +340,7 @@ from distkeras_tpu_torch.ops.paged_attention import (
     gather_pages, paged_decode_attention, paged_decode_attention_reference,
     window_valid_mask)
 from distkeras_tpu_torch.ops.quant_matmul import (quant_matmul,
+                                                  quantize_params_tree,
                                                   quantize_weight,
                                                   reference_matmul)
 from distkeras_tpu_torch.ops.sampling import (MAX_BOUNDARY_PARTINGS,
@@ -350,7 +354,7 @@ from distkeras_tpu_torch.parallel import (SingleTrainer, TrainCarry,
 from distkeras_tpu_torch.parallel.engine import (
     AdagAlgo, AveragingAlgo, DistributedEngine, DownpourAlgo, DynSGDAlgo,
     ElasticAlgo, EngineConfig, WorkerStack)
-from distkeras_tpu_torch.serving import (DraftModel, NgramDraft,
+from distkeras_tpu_torch.serving import (DraftModel, KVPool, NgramDraft,
                                          PagedKVPool, ServingEngine,
                                          tree_ancestors)
 from distkeras_tpu_torch.utils.tree import (tree_leaves, tree_map,
@@ -4036,39 +4040,47 @@ CAPTURE_CONTEXTS = (260, 275, 290, 300)
 
 
 def capture_check(model, dev, num_steps: int, page_len: int = 16,
-                  contexts=CAPTURE_CONTEXTS):
+                  contexts=CAPTURE_CONTEXTS, layout: str = "paged"):
     """Capture readiness of the decode launch: one
     ``decode_step_slots_paged`` (``num_steps`` 1, greedy) or one greedy
     ``decode_fused_slots`` window of ``num_steps``, on static device
     buffers over a bf16 page pool (four slots at ``contexts``, random
-    pages), captured in a CUDA graph after a warm call. The graph's
-    replay must equal the eager call bitwise in its tokens and in every
-    visible page. Returns ``(tokens equal, pages equal, replay ms, eager
-    ms)``; nothing on the main path uses a graph."""
+    pages), captured in a CUDA graph after a warm call; with ``layout``
+    ``"slab"`` the same over a slab pool's rows (``decode_step_slots``,
+    the window with no tables). The graph's replay must equal the eager
+    call bitwise in its tokens and in every visible page or row. Returns
+    ``(tokens equal, pages equal, replay ms, eager ms)``; nothing on the
+    main path uses a graph."""
     module = model.module
     params = fuse_qkv_params(module, serving_params(model.params,
                                                     torch.bfloat16))
     s_n = len(contexts)
-    need = [-(-(c + num_steps) // page_len) for c in contexts]
-    pool = PagedKVPool(module, s_n, max(contexts) + num_steps + page_len,
-                       page_len=page_len, num_pages=sum(need),
-                       dtype=torch.bfloat16, device=dev)
+    length = max(contexts) + num_steps + page_len
+    if layout == "slab":
+        pool, tables = KVPool(module, s_n, length, dtype=torch.bfloat16,
+                              device=dev), None
+    else:
+        need = [-(-(c + num_steps) // page_len) for c in contexts]
+        pool = PagedKVPool(module, s_n, length, page_len=page_len,
+                           num_pages=sum(need), dtype=torch.bfloat16,
+                           device=dev)
+        table = np.full((s_n, pool.pages_per_slot), pool.num_pages,
+                        np.int32)
+        base = 0
+        for i, n in enumerate(need):
+            table[i, :n] = np.arange(base, base + n)
+            base += n
+        tables = torch.as_tensor(table, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 25)
     for kv in pool.cache:
         if kv is not None:
             for x in kv["sink"].values():
                 x.copy_(torch.randn(x.shape, generator=gen, device=dev))
-    table = np.full((s_n, pool.pages_per_slot), pool.num_pages, np.int32)
-    base = 0
-    for i, n in enumerate(need):
-        table[i, :n] = np.arange(base, base + n)
-        base += n
     vocab = module.layers[0].vocab_size
     rs = np.random.RandomState(SEED + 25)
     tok = torch.as_tensor(rs.randint(0, vocab, s_n), dtype=torch.long,
                           device=dev)
     t = torch.as_tensor(np.asarray(contexts, np.int32), device=dev)
-    tables = torch.as_tensor(table, device=dev)
     stop = torch.full((s_n,), -1, dtype=torch.long, device=dev)
     planes = [x for kv in pool.cache if kv is not None
               for x in kv["sink"].values()]
@@ -4081,8 +4093,11 @@ def capture_check(model, dev, num_steps: int, page_len: int = 16,
     def step():
         with torch.inference_mode():
             if num_steps == 1:
-                logits, _ = decode_step_slots_paged(
-                    module, params, pool.cache, tok, t, tables, page_len)
+                logits, _ = decode_step_slots(
+                    module, params, pool.cache, tok, t) if tables is None \
+                    else decode_step_slots_paged(
+                        module, params, pool.cache, tok, t, tables,
+                        page_len)
                 return torch.argmax(logits, dim=-1)[:, None]
             return decode_fused_slots(module, params, pool.cache, tok, t,
                                       stop, num_steps, tables, page_len)[0]
@@ -5542,6 +5557,355 @@ def zoo_phase(dev, card):
     return by_path
 
 
+# --- phase 30: the engine's other layouts: the slab pool, host KV offload,
+# --- MoE under int8/int4 weights ------------------------------------------
+
+#: host pages of phase 30's offload run: the 160-page pool's swap-outs
+#: and the prefix cache's spills fit with room
+OFFLOAD_HOST_PAGES = 256
+#: phase 30's unpressured pool: every stream's pages at once
+UNPRESSURED_PAGES = 4 * 2048 // 16
+#: phase 30's quantized MoE requests: B4 prompts of this many tokens
+MOE_WQ_PROMPT = 128
+#: the kernels a slab engine's decode never launches (its readout is
+#: plain PyTorch, as JAX's slab engine keeps its einsum path)
+ATTN_DECODE_KERNELS = ("decode_attention", "decode_attention_q8",
+                       "paged_decode", "paged_decode_q8", "paged_decode_q4",
+                       "paged_decode_anc", "paged_decode_q8_anc",
+                       "paged_decode_q4_anc")
+
+
+def _strict_watch(eng):
+    """``_LaunchWatch(strict=True)`` on an engine built by ``serve``,
+    whose ``on_logits`` hook (the script's own finiteness check, not the
+    engine's) indexes the live rows and so runs with sync checks off."""
+    watch = _LaunchWatch(eng, strict=True)
+    hook = eng.on_logits
+
+    def relaxed(kind, logits, slots):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            hook(kind, logits, slots)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    eng.on_logits = relaxed
+    return watch
+
+
+def slab_flash_launches(prompts, num_layers, chunk=256) -> int:
+    """K1f launches of a slab engine's prefills: per layer, one causal
+    pass a chunk and one prefix pass a chunk past the first."""
+    return num_layers * sum(2 * -(-len(p) // chunk) - 1 for p in prompts)
+
+
+def _parted(model, ref, run, requests, label, tie_rel):
+    """``check_identity`` of ``run`` against ``ref``, building its float32
+    CPU copy of ``model`` only when a stream parts."""
+    if all(np.array_equal(ref[1][a], run[1][b])
+           for (a, _), (b, _) in zip(ref[0], run[0])):
+        return 0
+    f32 = build_lm("cpu", dtype="float32")
+    f32.module.load_state_dict(model.module.state_dict())
+    return check_identity(f32, ref, run, requests, label, tie_rel)
+
+
+def slab_phase(model, card, tie_rel, paged_run):
+    """(a) The slab engine (``kv_layout="slab"``) on phase 5's workload:
+    every stream finishes, no preemption and no pages; K1f launches
+    exactly as the prefill chunks ask, no K2/K3 variant at all (the
+    rows are read by plain PyTorch), K7 for the sampled request; every
+    decode launch runs under ``set_sync_debug_mode("error")``; the
+    streams equal phase 5's paged run (same weights) or part at a
+    near-tie. Then int8 weights on the slab: K5 exactly 73 a decode step
+    launched plus one head a prefill. Last, the slab engine's steady
+    decode profiled. Returns ``{path: launches}``."""
+    vocab = model.module.layers[0].vocab_size
+    layers = LM_CFG["num_layers"]
+    requests = workload(vocab)
+    rs = np.random.RandomState(SEED + 30)
+    for kw in ({}, dict(weight_quant="int8")):   # the slab shapes' first calls
+        eng = ServingEngine(model, num_slots=2, max_len=2048,
+                            prefill_chunk=256, kv_layout="slab",
+                            device=model.device, **kw)
+        eng.submit(rs.randint(0, vocab, 40), 6)
+        eng.submit(rs.randint(0, vocab, 30), 6, temperature=0.8, top_k=40)
+        eng.run(max_steps=100)
+        del eng
+    launches = {}
+    for label, path, kw in (("bf16", "serving_slab", {}),
+                            ("int8 weights", "serving_slab_wq_int8",
+                             dict(weight_quant="int8"))):
+        watches = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng, reqs, out, bad, iters = serve(
+            model, model.device, kv_layout="slab",
+            setup=lambda e: watches.append(_strict_watch(e)), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        w = watches[0]
+        check_finished(reqs, out, bad)
+        s = eng.metrics.summary()
+        cache_bytes = sum(x.numel() * x.element_size()
+                          for kv in eng.pool.cache if kv is not None
+                          for x in kv["sink"].values())
+        want_flash = slab_flash_launches([p for p, _ in requests], layers)
+        wrong = {k: c[k] for k in ATTN_DECODE_KERNELS if c[k]}
+        if c["flash_fwd"] != want_flash or wrong or c["prng"] < 1 \
+                or s["pages"] is not None or s["requests_preempted"] \
+                or "pages" in eng.health():
+            raise AssertionError(
+                f"slab {label}: flash_fwd {c['flash_fwd']} (expected "
+                f"{want_flash}), decode attention kernels {wrong}, prng "
+                f"{c['prng']}, pages {s['pages']}, preemptions "
+                f"{s['requests_preempted']}")
+        k5 = ""
+        if kw:
+            want_k5 = (6 * layers + 1) * w.steps + len(reqs)
+            if c["quant_matmul_q8"] != want_k5:
+                raise AssertionError(
+                    f"slab {label}: {c['quant_matmul_q8']} K5 launches for "
+                    f"{w.steps} decode steps and {len(reqs)} prefill heads, "
+                    f"expected {want_k5}")
+            k5 = f", quant_matmul_q8 {c['quant_matmul_q8']} (exact)"
+        print(f"slab engine {label} on {card}: {len(reqs)} requests in "
+              f"{wall:.2f} s, {iters} iterations, {w.units} decode launches "
+              f"under set_sync_debug_mode('error') (no host sync); launches "
+              f"flash_fwd {c['flash_fwd']} (exact), K2/K3 variants 0, prng "
+              f"{c['prng']}{k5}; rows {cache_bytes / 2**30:.3f} GiB (with the "
+              f"sink row); peak allocated during the run {peak / 2**30:.3f} "
+              f"GiB above what was allocated before it; TTFT p50 "
+              f"{s['ttft_s']['p50'] * 1e3:.1f} ms p99 "
+              f"{s['ttft_s']['p99'] * 1e3:.1f} ms; decode "
+              f"{s['decode_tokens_per_sec']:.1f} tok/s", flush=True)
+        if not kw:
+            parted = _parted(model, paged_run, (reqs, out), requests,
+                             "slab engine", tie_rel)
+            print(f"slab engine: streams parted from phase 5's paged run "
+                  f"{parted}/{len(reqs)} (at near-ties only)", flush=True)
+        launches[path] = c
+        del eng
+    # the paged engine's profile at the same settings is phase 5's
+    profile_serving(model, model.device, "slab bf16", kv_layout="slab")
+    return launches
+
+
+def offload_phase(model, card, tie_rel, reprefill_summary):
+    """(b) Host KV offload on phase 5's workload and pool with
+    ``host_kv_pages``: at least two preemptions swap out, each swap-out
+    (``ServingEngine._swap_out``) runs under
+    ``set_sync_debug_mode("error")``, every restored page equals the
+    device copy taken at its swap-out byte for byte, ``offload_bytes`` is
+    pages x ``page_bytes``, and the streams equal an unpressured run's
+    or part at a near-tie. Prints the swap-in resume p50 beside phase 5's
+    re-prefill resume p50 (the same pool, ``host_kv_pages=0``)."""
+    vocab = model.module.layers[0].vocab_size
+    requests = workload(vocab)
+    eng, reqs, out, bad, _ = serve(model, model.device,
+                                   num_pages=UNPRESSURED_PAGES)
+    check_finished(reqs, out, bad)
+    if eng.metrics.requests_preempted:
+        raise AssertionError("offload: the unpressured run preempted")
+    unpressured = (reqs, out)
+    del eng
+    snaps, box = {}, {"swaps": 0, "checked": 0, "differ": 0}
+
+    def setup(e):
+        pool = e.pool
+        off, rest, swap = pool.offload_pages, pool.restore_pages, e._swap_out
+
+        def offload(page_ids):
+            hids = off(page_ids)
+            for h, pid in zip(hids or (), page_ids):
+                snaps[h] = [None if kv is None else
+                            {k: kv[k][int(pid)].clone() for k in CACHE_PLANES
+                             if k in kv} for kv in pool.cache]
+            return hids
+
+        def restore(host_ids, dev_ids):
+            rest(host_ids, dev_ids)
+            for h, d in zip(host_ids, dev_ids):
+                for kv, want in zip(pool.cache, snaps.pop(int(h))):
+                    if kv is not None:
+                        for k, x in want.items():
+                            box["differ"] += not torch.equal(kv[k][int(d)],
+                                                             x)
+                box["checked"] += 1
+
+        def swap_out(victim):
+            with _SyncErrors():
+                swap(victim)
+            box["swaps"] += victim.swap is not None
+
+        pool.offload_pages, pool.restore_pages = offload, restore
+        e._swap_out = swap_out
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng, reqs, out, bad, iters = serve(model, model.device,
+                                       host_kv_pages=OFFLOAD_HOST_PAGES,
+                                       setup=setup)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_finished(reqs, out, bad)
+    pool, s = eng.pool, eng.metrics.summary()
+    off = s["offload"]
+    if box["swaps"] < 2 or not box["checked"] or box["differ"] \
+            or box["checked"] != pool.pages_restored \
+            or pool.offload_bytes != pool.pages_offloaded * pool.page_bytes:
+        raise AssertionError(
+            f"offload: {box['swaps']} swap-outs, {box['checked']} restored "
+            f"pages checked ({pool.pages_restored} restored), "
+            f"{box['differ']} planes differ, offload_bytes "
+            f"{pool.offload_bytes} for {pool.pages_offloaded} pages of "
+            f"{pool.page_bytes}")
+    swap_p50 = off["resume_swap_s"]["p50"] * 1e3
+    re_p50 = reprefill_summary["offload"]["resume_reprefill_s"]
+    re_p50 = "none" if re_p50 is None else f"{re_p50['p50'] * 1e3:.3f} ms"
+    print(f"host offload on {card}: {len(reqs)} requests in {wall:.2f} s, "
+          f"{iters} iterations; preemptions {s['requests_preempted']}, "
+          f"{box['swaps']} swapped out (each swap-out under "
+          f"set_sync_debug_mode('error'): no host sync); pages offloaded "
+          f"{pool.pages_offloaded} (prefix spills included), restored "
+          f"{pool.pages_restored}, each byte-identical to its swap-out; "
+          f"offload_bytes {pool.offload_bytes} = pages x {pool.page_bytes};"
+          f" fences {pool.host_fences}; reprefill tokens avoided "
+          f"{off['reprefill_tokens_avoided']}; resume p50: swap-in "
+          f"{swap_p50:.3f} ms (host clock: the copy is queued, not waited "
+          f"for), re-prefill {re_p50} (phase 5, host_kv_pages=0); TTFT p50 "
+          f"{s['ttft_s']['p50'] * 1e3:.1f} ms; decode "
+          f"{s['decode_tokens_per_sec']:.1f} tok/s", flush=True)
+    parted = _parted(model, unpressured, (reqs, out), requests,
+                     "host offload", tie_rel)
+    print(f"host offload: streams parted from the unpressured run "
+          f"{parted}/{len(reqs)} (at near-ties only)", flush=True)
+    return kernels.launch_counts()
+
+
+def moe_wq_phase(dev, card):
+    """(c) The 520.5M all-MoE LM under int8 and int4 weights: each
+    ``generate(weights_dtype=)`` on B4 prompts (K5 exactly 49 a decode
+    step, q/k/v/o a layer and the head, plus one prefill head; no K6a:
+    the experts are dequantized for the layer's own dense dispatch), then
+    the dispatched engine (``weight_quant``, K6a) teacher-forced along
+    those streams against a dense engine's forced run of the same
+    streams (``forced_compare``, phase 20's rule); K5 and K6a exact per
+    step. Prints the expert dequantization's transient bytes and device
+    ms a step against its bound, steady decode profiled with int8 and
+    int4 weights, and each forced dispatched run's peak memory against
+    the bf16 engine's on the same streams."""
+    model = build_moe_lm(dev)
+    vocab = model.module.layers[0].vocab_size
+    layers = MOE_LAYERS
+    eng_mod = sys.modules["distkeras_tpu_torch.serving.engine"]
+    rs = np.random.RandomState(SEED + 31)
+    prompts = rs.randint(0, vocab, (4, MOE_WQ_PROMPT))
+    requests = [(p, {}) for p in prompts]
+    per_step = 4 * layers + 1                    # q, k, v, o a layer; head
+
+    def peaked(run):
+        """``run()``'s peak allocation above what was allocated before."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = run()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    float_bytes = ServingEngine(model, num_slots=1, max_len=64,
+                                device=dev).param_bytes()
+    launches, peaks = {}, {}
+    for wq in ("int8", "int4"):
+        # generate()'s tree holds a byte an entry at int4 too: K5-q8
+        gname, kname = WQ_KERNEL["int8"], WQ_KERNEL[wq]
+        model.generate(prompts[:, :32], 2, weights_dtype=wq)    # warm
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        gen = model.generate(prompts, NEW_TOKENS, weights_dtype=wq)
+        torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        want = per_step * (NEW_TOKENS - 1) + 1
+        if c[gname] != want or c["moe_gather_gemm1"]:
+            raise AssertionError(f"MoE generate {wq}: {c[gname]} {gname} "
+                                 f"(expected {want}), K6a "
+                                 f"{c['moe_gather_gemm1']}")
+        print(f"MoE generate(weights_dtype={wq!r}) on {card}: B4 x "
+              f"{MOE_WQ_PROMPT} + {NEW_TOKENS}; launches {gname} "
+              f"{c[gname]} (exact), moe_gather_gemm1 0", flush=True)
+        launches[f"generate_moe_wq_{wq}"] = c
+        streams = [g[MOE_WQ_PROMPT:] for g in gen]
+        recs = {}
+        for decode in ("dense", "dispatched"):
+            kernels.reset_launch_counts()
+            with _Calls(eng_mod, *_Forced.STEPS) as steps:
+                recs[decode], peaks[wq, decode] = peaked(
+                    lambda: forced_run(
+                        model, requests, streams,
+                        layer_check=decode == "dispatched",
+                        weight_quant=wq, moe_decode=decode))
+            c = kernels.launch_counts()
+            want_k5 = per_step * steps.n + len(requests)
+            want_k6a = layers * steps.n if decode == "dispatched" else 0
+            if c[kname] != want_k5 or c["moe_gather_gemm1"] != want_k6a:
+                raise AssertionError(
+                    f"MoE {decode} engine {wq}: {c[kname]} {kname} "
+                    f"(expected {want_k5}), K6a {c['moe_gather_gemm1']} "
+                    f"(expected {want_k6a}) for {steps.n} decode steps")
+            if decode == "dispatched":
+                launches[f"serving_moe_wq_{wq}"] = c
+            print(f"MoE {decode} engine weight_quant {wq} on {card}, "
+                  f"teacher-forced along generate()'s streams: {steps.n} "
+                  f"decode steps; launches {kname} {c[kname]} (exact), "
+                  f"moe_gather_gemm1 {c['moe_gather_gemm1']} (exact)",
+                  flush=True)
+        forced_compare(f"weight_quant {wq}", recs["dense"],
+                       recs["dispatched"], set(range(len(requests))))
+        qtree = quantize_params_tree(model.params,
+                                     bits=4 if wq == "int4" else 8)
+        qbytes = sum(x.numel() * x.element_size()
+                     for x in tree_leaves(qtree))
+        moe = [(blk.mlp, p["mlp"]) for blk, p in zip(
+            map(_decode_block_of, model.module.layers), qtree)
+            if blk is not None]
+        q_bytes = sum(x.numel() * x.element_size() for _, p in moe
+                      for k in ("w1", "w2") for x in p[k].values())
+        out_bytes = sum(2 * _expert_elements(p[k]) for _, p in moe
+                        for k in ("w1", "w2"))
+        ms = time_ms(lambda: [_moe_params(m, p) for m, p in moe], iters=10)
+        bound = (q_bytes + out_bytes) / PEAK_BYTES * 1e3
+        print(f"MoE weight_quant {wq}: the experts' dequantization a decode "
+              f"step ({layers} layers, w1 + w2 to bf16, a transient of "
+              f"{out_bytes / layers / 1e6:.1f} MB a layer): {ms:.3f} ms "
+              f"device time, reading {q_bytes / 1e9:.3f} GB of {wq} and "
+              f"scales and writing {out_bytes / 1e9:.3f} GB, bound "
+              f"{bound:.3f} ms (bytes at 3.35 TB/s): {100 * bound / ms:.0f}% "
+              f"of it; resident weights {qbytes} bytes against the float "
+              f"engine's {float_bytes}", flush=True)
+        profile_serving(model, dev, f"MoE {wq} weights", weight_quant=wq)
+    _, float_peak = peaked(lambda: forced_run(model, requests, streams))
+    print(f"MoE peak allocated during a forced 4-request dispatched run, "
+          f"above what was allocated before it: int8 weights "
+          f"{peaks['int8', 'dispatched'] / 2**30:.3f} GiB, int4 "
+          f"{peaks['int4', 'dispatched'] / 2**30:.3f} GiB, bf16 weights "
+          f"{float_peak / 2**30:.3f} GiB", flush=True)
+    del model
+    gc.collect()
+    return launches
+
+
+def _expert_elements(wq) -> int:
+    """Elements of a quantized stacked expert leaf, unpacked."""
+    return wq["q"].numel() if "q" in wq else 2 * wq["q4"].numel()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -5592,6 +5956,7 @@ def main() -> int:
           f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
           f"allocated before it", flush=True)
     serve_summary = s
+    paged_run = (reqs, out)
 
     profile_serving(model, dev)
     rel_bf16, rel_f32, scale = logits_vs_cpu(model, reqs[0][1])
@@ -5721,8 +6086,28 @@ def main() -> int:
     zoo_launches = zoo_phase(dev, card)
     print(f"phase 29 (the rest of the zoo) took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    t0 = time.perf_counter()
+    lm = build_lm(dev)              # phase 5's weights (seed 0, untrained)
+    slab_launches = slab_phase(lm, card, tie_rel, paged_run)
+    t1 = time.perf_counter()
+    offload_launches = offload_phase(lm, card, tie_rel, serve_summary)
+    t2 = time.perf_counter()
+    del lm
+    gc.collect()
+    moe_wq_launches = moe_wq_phase(dev, card)
+    t3 = time.perf_counter()
+    print(f"phase 30 (the engine's other layouts) took {t3 - t0:.1f} s: "
+          f"slab {t1 - t0:.1f}, offload {t2 - t1:.1f}, quantized MoE "
+          f"{t3 - t2:.1f}", flush=True)
 
     by_path = {name: {} for name in kernels.SOURCES}
+    for path, c in {**slab_launches, **moe_wq_launches,
+                    "serving_offload": offload_launches}.items():
+        for name in ("flash_fwd", "paged_decode", "prng", "quant_matmul_q8",
+                     "quant_matmul_q4", "moe_gather_gemm1"):
+            if c[name]:
+                by_path[name][path] = c[name]
     for name in SERVING_KERNELS:
         by_path[name]["serving"] = launches[name]
     for name in TRAINING_KERNELS:

@@ -1,7 +1,8 @@
 """The decode path of the port: prompt prefill (one pass or in chunks)
 into a slab cache, the one-token decode step over a slab cache and
 ``generate()`` on top of it, one decode step over all slots of a paged
-KV pool, and the speculative verify window (linear or tree) over it.
+KV pool or of a slab pool, and the speculative verify window (linear or
+tree) over either.
 
 Mirrors ``distkeras_tpu/models/decoding.py``: ``_decode_block_of`` :53
 (unwraps ``Remat``), ``init_cache`` :69 (float, int8 and int4 caches; a
@@ -14,12 +15,14 @@ layer holding attention that is no block is refused, :139-147),
 ``_cache_write`` :198, ``_cache_prefix`` :449,
 ``_decode_attn`` :275 (``_decode_scores`` :231 and ``_decode_mix`` :250
 are ``ops.decode_attention``'s plain version), ``_decode_block`` :335,
-``decode_step`` :641, ``_cache_write_pages`` :926,
+``decode_step`` :641, ``_cache_write_pages`` :926 (with
+``slab_write_index`` also the slab pool's ``_cache_write_slots`` :732),
+``_slot_attn_readout`` :815, ``decode_step_slots`` :877,
 ``_paged_attn_readout`` :1033, ``decode_step_slots_paged`` :1096, the
 speculative verify window (``_window_positions`` :758,
 ``_decode_block_slots_window`` :1152, ``_verify_window`` :1201,
-``verify_step_slots_paged`` :1276) with ``tree_walk`` :1296 and
-``commit_tree_path`` :1366,
+``verify_step_slots`` :1249, ``verify_step_slots_paged`` :1276) with
+``tree_walk`` :1296 and ``commit_tree_path`` :1366,
 ``_apply_mlp_decode`` :685 with ``_moe_route_stats`` :704,
 ``decode_fused_slots`` :1425 (the scan is a Python loop here),
 ``_sample`` :1503, ``_sample_vec`` :1539, ``_masked_logits_vec`` :1565,
@@ -36,14 +39,19 @@ pool ``[N, Hkv, page_len, Dh]``: views of the first N pages of planes
 one page longer, whose last page (the sink, index N, beyond every page
 table) takes the paged writes that land nowhere (``with_sink``), so a
 paged write has one shape whatever the tables hold and never reads the
-card back. A quantized cache holds int8 payloads
+card back. A slab pool (the serving engine's ``kv_layout="slab"``) is
+``[S, Hkv, L, Dh]`` rows, views of planes one row longer whose last row
+is its sink in the same way. A quantized cache holds int8 payloads
 plus ``"k_scale"``/``"v_scale"`` float32 ``[B, Hkv, L]`` planes; an int4
 cache also carries the ``"q4": True`` marker (its slab payload holds one
 int8 byte per entry; only a page pool packs two per byte). Prefill
 attention runs ``ops.flash_attention.flash_forward``, the slab decode
-readout ``ops.decode_attention.decode_attention`` and the paged one
-``ops.paged_attention.paged_decode_attention``: the CUDA kernels for
-tensors on the card, their plain versions for tensors on the CPU.
+readout of ``generate()`` ``ops.decode_attention.decode_attention`` and
+the paged one ``ops.paged_attention.paged_decode_attention``: the CUDA
+kernels for tensors on the card, their plain versions for tensors on the
+CPU. The slot steps over a slab pool read it through
+``_slot_attn_readout`` (plain PyTorch on any device, as JAX's slab
+engine keeps its einsum path).
 
 A parameter tree may hold quantized leaves (``ops.quant_matmul`` qdicts:
 the engine's ``weight_quant`` tree, or ``generate()``'s
@@ -62,8 +70,10 @@ dispatch, as JAX does at :340, :370 and :542); the paged slot steps
 (decode and verify, tree verify included) run ``MoE.decode_apply`` (the
 drop-free fused dispatch, K6a on the card) unless ``moe_dispatched`` is
 False, and with ``moe_stats`` also return the step's expert load and
-router entropy over live slots. MoE leaves are not quantized yet: a
-quantized ``weights_dtype`` on an MoE model raises.
+router entropy over live slots. Under a quantized tree an MoE's stacked
+expert leaves (``w1``/``w2``) are dequantized to the layer's compute
+dtype one layer at a time, just before the layer runs (``_moe_params``),
+as JAX dequantizes them in-graph: no K5 runs over experts.
 """
 
 from __future__ import annotations
@@ -180,22 +190,27 @@ def _attn_out(p, out, dt, kernel: bool = False):
     return torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
 
 
-#: the ROADMAP entry quantized MoE leaves wait for
-MOE_QUANT_ITEM = ("ROADMAP, Queue 1 item 12 (MoE leaves under weight "
-                  "quantization)")
-
-
-def has_moe(module: Sequential) -> bool:
-    """Whether any block of the stack has an MoE MLP."""
-    return any(isinstance(b.mlp, MoE) for b in map(_decode_block_of,
-                                                   module.layers)
-               if b is not None)
+def _moe_params(mlp: MoE, p):
+    """An MoE's parameters with quantized stacked expert leaves (``w1``
+    ``[E, d, h]``, ``w2`` ``[E, h, d]`` qdicts) dequantized to the layer's
+    compute dtype, one layer at a time: a transient the caller drops
+    after the layer, so the resident tree stays int8/int4 (JAX
+    dequantizes them in-graph, ``ops/quant_matmul.py`` :334). A float
+    tree passes through."""
+    if not any(is_qdict(v) for v in p.values()):
+        return p
+    dt = torch_dtype(mlp.dtype)
+    return {k: dequant_weight(v, dt) if is_qdict(v) else v
+            for k, v in p.items()}
 
 
 def _mlp(mlp, p, x, kernel: bool):
     """``TransformerMLP.apply`` over a float or a quantized tree; an
-    ``MoE`` runs its own ``apply`` (its configured dispatch)."""
-    if isinstance(mlp, MoE) or not is_qdict(p["w1"]):
+    ``MoE`` runs its own ``apply`` (its configured dispatch) on its
+    dequantized experts."""
+    if isinstance(mlp, MoE):
+        return mlp.apply(_moe_params(mlp, p), x)
+    if not is_qdict(p["w1"]):
         return mlp.apply(p, x)
     dt = torch_dtype(mlp.dtype)
     act = get_activation(mlp.activation)
@@ -372,12 +387,13 @@ def _mlp_half(block: TransformerBlock, p, x, kernel: bool = False):
 
 
 def _apply_mlp_decode(mlp, p, x, moe_dispatched: bool, routing):
-    """The MLP of the paged slot steps (JAX :685): an MoE takes the
+    """The MLP of the slot steps (JAX :685): an MoE takes the
     drop-free fused dispatch (``MoE.decode_apply``) unless
     ``moe_dispatched`` is False (then its own ``apply``, the dense
     baseline); ``routing`` (a list, or None) collects ``(num_experts,
     (topi, full))`` per MoE layer for the expert telemetry."""
     if moe_dispatched and isinstance(mlp, MoE):
+        p = _moe_params(mlp, p)
         if routing is None:
             return mlp.decode_apply(p, x)
         out, r = mlp.decode_apply(p, x, return_routing=True)
@@ -703,10 +719,22 @@ def _write_int4(plane, pages, offs, q):
         .to(torch.int8)
 
 
+def slab_write_index(pos, n_slots: int, length: int) -> PageWrite:
+    """Where each slot's writes land in a slab pool (rows ``[S, Hkv, L,
+    D]`` plus a sink row): ``page_write_index`` with one page of ``L``
+    positions per slot, page ``s`` for slot ``s``. A position outside
+    ``[0, L)`` (the engine's free-slot sentinel ``t >= L``, the commit's
+    dropped depths) writes the sink row ``S``, which no reader sees:
+    JAX's one-hot write (:732) that misses every position."""
+    rows = torch.arange(n_slots, device=pos.device)[:, None]
+    return page_write_index(pos, rows, length, n_slots)
+
+
 def _cache_write_pages(kv, k, v, index: PageWrite):
     """Write ``[S, W, Hkv, D]`` k/v through the page tables (``index``
-    from ``page_write_index``), in place, quantizing for an int8/int4
-    pool. Every entry is written: a dead one into the sink page of the
+    from ``page_write_index``, or ``slab_write_index`` for a slab pool:
+    JAX's ``_cache_write_slots`` :732), in place, quantizing for an
+    int8/int4 pool. Every entry is written: a dead one into the sink page of the
     full planes (``with_sink``), so a live page sees only its live
     writes. An int4 page packs two positions half a page apart into one
     byte row: two window columns may share it, so the read-modify-write
@@ -724,7 +752,9 @@ def _cache_write_pages(kv, k, v, index: PageWrite):
     for key, skey, x in (("k", "k_scale", kh), ("v", "v_scale", vh)):
         q, sc = _quantize_kv(x, bits)
         full[skey][pages, :, offs] = sc
-        if bits == 8:
+        # a slab's int4 plane holds one byte per entry, as its scale plane
+        # holds one scale: only a page pool packs two positions a byte
+        if bits == 8 or full[key].shape[2] == full[skey].shape[2]:
             full[key][pages, :, offs] = q
         elif index.halves is None:
             _write_int4(full[key], pages, offs, q)
@@ -757,17 +787,18 @@ def _gather_pages(kv, table):
     return out
 
 
-def _gather_attn_readout(attn: MultiHeadAttention, p, q, kv, t, table, dt,
-                         anc=None):
-    """``decode_kernel="off"``: JAX's gather readout (:1033-1049 with
-    ``_slot_attn_readout`` :815): the slots' pages gathered into a
-    contiguous view, then the masked softmax over it, scores and values
-    in the pages' dtype with float32 sums (an int8/int4 pool's scales
-    applied to the scores and folded into the probabilities), plus the
-    output projection. No paged kernel runs, on any device."""
+def _slot_attn_readout(attn: MultiHeadAttention, p, q, view, t, dt,
+                       anc=None):
+    """The masked per-slot attention of the window queries ``q`` ``[S, W,
+    H, D]`` against a logically contiguous ``[S, Hkv, L, D]`` view (JAX
+    :815), plus the output projection: a slab pool's rows, or a page
+    gather in logical order (``decode_kernel="off"``), so the two are
+    bitwise equal wherever the views hold equal values. Scores and
+    values in the cache's dtype with float32 sums (an int8/int4 view's
+    scales applied to the scores and folded into the probabilities); no
+    attention kernel runs, on any device."""
     b, w_len, nh, dh = q.shape
     hkv = attn.kv_heads
-    view = _gather_pages(kv, table)
     qg = (q.float() * dh ** -0.5).reshape(b, w_len, hkv, nh // hkv, dh)
     length = view["k"].shape[2]
     if "k_scale" in view:
@@ -794,10 +825,12 @@ def _paged_attn_readout(attn: MultiHeadAttention, p, q, kv, t, table, dt,
     """The paged readout plus the output projection: queries in float32
     grouped ``[S, W, Hkv, G, D]``, K/V read through the page table (with
     the scale planes of an int8/int4 pool), the tree ancestor mask
-    ``anc`` when given. ``kernel`` False takes ``_gather_attn_readout``
-    (the engine's ``decode_kernel="off"``)."""
+    ``anc`` when given. ``kernel`` False reads the pages through the
+    gather readout, ``_slot_attn_readout`` over ``_gather_pages`` (the
+    engine's ``decode_kernel="off"``)."""
     if not kernel:
-        return _gather_attn_readout(attn, p, q, kv, t, table, dt, anc)
+        return _slot_attn_readout(attn, p, q, _gather_pages(kv, table), t,
+                                  dt, anc)
     b, w_len, nh, dh = q.shape
     hkv = attn.kv_heads
     qg = q.float().reshape(b, w_len, hkv, nh // hkv, dh)
@@ -817,9 +850,11 @@ def _decode_block_slots_window(block: TransformerBlock, p, kv, x, t, table,
                                paged_kernel: bool = True):
     """One block over an ``[S, W, d]`` window at per-slot positions
     (JAX :1152): project, rope at ``_window_positions``, write all W
-    positions through the page tables, then the readout (the tree mask
-    with ``tree``) and ``_apply_mlp_decode``. The roped window k/v go to
-    ``kv_out`` (the caller's list) for ``commit_tree_path``."""
+    positions through ``index`` (the page tables, or a slab pool's rows
+    when ``table`` is None), then the readout (the tree mask with
+    ``tree``; a slab's is ``_slot_attn_readout`` over its rows) and
+    ``_apply_mlp_decode``. The roped window k/v go to ``kv_out`` (the
+    caller's list) for ``commit_tree_path``."""
     attn = block.attn
     dt = torch_dtype(attn.dtype)
     xc = block.norm1.apply(p["norm1"], x).to(dt)
@@ -831,9 +866,12 @@ def _decode_block_slots_window(block: TransformerBlock, p, kv, x, t, table,
     if kv_out is not None:
         kv_out.append((k, v))
     _cache_write_pages(kv, k, v, index)
-    y = _paged_attn_readout(attn, p["attn"], q, kv, t, table, dt,
-                            anc=None if tree is None else tree["anc"],
-                            kernel=paged_kernel)
+    anc = None if tree is None else tree["anc"]
+    if table is None:
+        y = _slot_attn_readout(attn, p["attn"], q, kv, t, dt, anc)
+    else:
+        y = _paged_attn_readout(attn, p["attn"], q, kv, t, table, dt,
+                                anc=anc, kernel=paged_kernel)
     x = x + y.to(x.dtype)
     h = block.norm2.apply(p["norm2"], x)
     return x + _apply_mlp_decode(block.mlp, p["mlp"], h, moe_dispatched,
@@ -844,21 +882,25 @@ def _verify_window(module: Sequential, params, cache, toks, t, table,
                    page_len: int, tree=None, moe_dispatched: bool = True,
                    moe_stats=None, paged_kernel: bool = True):
     """``[S, W]`` window tokens through the stack against the paged pool
-    at per-slot positions (JAX :1201); returns ``([S, W, V] logits,
+    (or with ``table`` None a slab pool) at per-slot positions (JAX
+    :1201); returns ``([S, W, V] logits,
     cache)``, plus with ``tree`` (``{"depth": [S, W], "anc": [S, W,
     W]}``) the per-layer roped window k/v (None for other layers), plus
     with ``moe_stats`` (the live-position bound) the ``_moe_route_stats``
     of the step. MoE blocks see the window as ONE slot-token batch
     (capacity ``S * W``: drop-free). ``paged_kernel`` False reads the
-    pages through ``_gather_attn_readout`` instead of the paged kernel
+    pages through the gather readout instead of the paged kernel
     (JAX's ``paged_kernel=False``; the TPU tiling gate is not carried
     over)."""
     x = toks
     w_len = toks.shape[1]
     kv0 = next(kv for kv in cache if kv is not None)
-    index = page_write_index(
-        t.long()[:, None] + torch.arange(w_len, device=t.device), table,
-        page_len, kv0["k"].shape[0], split_halves="q4" in kv0)
+    pos = t.long()[:, None] + torch.arange(w_len, device=t.device)
+    if table is None:
+        index = slab_write_index(pos, *_slab_dims(kv0))
+    else:
+        index = page_write_index(pos, table, page_len, kv0["k"].shape[0],
+                                 split_halves="q4" in kv0)
     kv_win = [] if tree is not None else None
     routing = [] if moe_stats is not None else None
     for i, layer in enumerate(module.layers):
@@ -885,6 +927,41 @@ def _verify_window(module: Sequential, params, cache, toks, t, table,
     if moe_stats is not None:
         out += (_moe_route_stats(routing, t, w_len, int(moe_stats)),)
     return out
+
+
+def _slab_dims(kv):
+    """``(slots, positions)`` of a slab pool's cache dict."""
+    return kv["k"].shape[0], kv["k"].shape[2]
+
+
+@torch.no_grad()
+def decode_step_slots(module: Sequential, params, cache, tok, t, *,
+                      moe_dispatched: bool = True, moe_stats=None):
+    """One token per slot through the stack against a slab pool (JAX
+    :877): tok ``[S]``, t ``[S]`` int32 per-slot positions; returns
+    ``([S, V] logits, cache)``, plus the step's ``_moe_route_stats``
+    with ``moe_stats``. A slot whose ``t`` is out of the rows' range
+    (the engine's free-slot sentinel ``max_len``) writes the sink row
+    and gives logits the caller discards. The readout is
+    ``_slot_attn_readout``: no attention kernel runs, as JAX's slab
+    engine always takes its einsum path."""
+    out = _verify_window(module, params, cache, tok[:, None], t, None, 0,
+                         moe_dispatched=moe_dispatched,
+                         moe_stats=moe_stats)
+    return (out[0][:, 0],) + out[1:]
+
+
+@torch.no_grad()
+def verify_step_slots(module: Sequential, params, cache, toks, t, *,
+                      tree=None, moe_dispatched: bool = True,
+                      moe_stats=None):
+    """Batched speculative verify against a slab pool (JAX :1249): the
+    slab mirror of ``verify_step_slots_paged``, with the same window,
+    tree and MoE contract; every write lands (a window position past
+    the row goes to the sink row)."""
+    return _verify_window(module, params, cache, toks, t, None, 0,
+                          tree=tree, moe_dispatched=moe_dispatched,
+                          moe_stats=moe_stats)
 
 
 @torch.no_grad()
@@ -945,7 +1022,9 @@ def decode_fused_slots(module: Sequential, params, cache, tok, t, stop,
     sampled stream is byte-identical to K single steps. ``generate()``'s
     stop rule per slot: once a row emits its stop token, the rest of its
     window repeats it. ``on_logits(logits)`` sees each step's ``[S, V]``
-    logits. ``paged_kernel`` as in ``decode_step_slots_paged``. Returns
+    logits. ``paged_kernel`` as in ``decode_step_slots_paged``; with
+    ``table`` None the steps are ``decode_step_slots`` over a slab pool
+    (JAX's ``table=None``). Returns
     ``(toks [S, num_steps], cache, keys, stats)``: ``keys`` the carried
     keys (None when greedy), ``stats`` the LAST step's
     ``_moe_route_stats`` with ``moe_stats``, else None.
@@ -960,11 +1039,14 @@ def decode_fused_slots(module: Sequential, params, cache, tok, t, stop,
     cols, stats = [], None
     for j in range(int(num_steps)):
         last = j == num_steps - 1
-        out = decode_step_slots_paged(
-            module, params, cache, cur, tcur, table, page_len,
-            moe_dispatched=moe_dispatched,
-            moe_stats=moe_stats if last else None,
-            paged_kernel=paged_kernel)
+        kw = dict(moe_dispatched=moe_dispatched,
+                  moe_stats=moe_stats if last else None)
+        if table is None:
+            out = decode_step_slots(module, params, cache, cur, tcur, **kw)
+        else:
+            out = decode_step_slots_paged(
+                module, params, cache, cur, tcur, table, page_len,
+                paged_kernel=paged_kernel, **kw)
         logits = out[0]
         if on_logits is not None:
             on_logits(logits)
@@ -1041,12 +1123,14 @@ def tree_walk(logits, toks, parents, *, temperature=None, top_k=None,
 
 
 @torch.no_grad()
-def commit_tree_path(cache, kv_win, path, t, n_emit, table, page_len: int):
+def commit_tree_path(cache, kv_win, path, t, n_emit, table=None,
+                     page_len: int = 0):
     """Write the accepted root path's K/V at its contiguous final
     positions ``t .. t+n_emit-1`` (JAX :1366): the verify wrote node j at
     window column ``t + j``; the node accepted at depth d belongs at ``t +
     d`` and was roped there. Depths at or past ``n_emit`` write nothing.
-    A chain-shaped path rewrites identical bytes."""
+    A chain-shaped path rewrites identical bytes. ``table`` None commits
+    into a slab pool's rows."""
     dev = t.device
     path = torch.as_tensor(np.asarray(path), device=dev).long()
     n_emit = torch.as_tensor(np.asarray(n_emit), device=dev).long()
@@ -1058,8 +1142,11 @@ def commit_tree_path(cache, kv_win, path, t, n_emit, table, page_len: int):
                       t.long()[:, None] + depth[None, :],
                       torch.full_like(path, -1))
     kv0 = next(kv for kv in cache if kv is not None)
-    index = page_write_index(pos, table, page_len, kv0["k"].shape[0],
-                             split_halves="q4" in kv0)
+    if table is None:
+        index = slab_write_index(pos, *_slab_dims(kv0))
+    else:
+        index = page_write_index(pos, table, page_len, kv0["k"].shape[0],
+                                 split_halves="q4" in kv0)
     sel = path[:, :, None, None]
     for kv, kvw in zip(cache, kv_win):
         if kvw is None:
@@ -1192,10 +1279,6 @@ def _generate_params(model, weights_dtype, compute_dt):
     if weights_dtype is None:
         return model.params
     key = _weight_quant_kind(weights_dtype)
-    if key is not None and has_moe(model.module):
-        raise NotImplementedError(
-            f"weights_dtype={weights_dtype!r} on an MoE model is not ported "
-            f"yet: {MOE_QUANT_ITEM}")
     if key is None:
         key = weights_dtype if isinstance(weights_dtype, torch.dtype) else \
             torch_dtype(weights_dtype if isinstance(weights_dtype, str)

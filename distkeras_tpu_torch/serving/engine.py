@@ -1,5 +1,5 @@
-"""Slot-based continuous-batching engine over the port's paged decode
-path.
+"""Slot-based continuous-batching engine over the port's paged (or
+slab) decode path.
 
 Mirrors the synchronous paged loop of
 ``distkeras_tpu/serving/engine.py``: requests queue with a priority
@@ -82,6 +82,28 @@ between the loops: a sampled row draws once per step from its request's
 own key, in the same order. A speculative iteration drains the
 pipeline first and stays synchronous.
 
+The slab layout (``kv_layout="slab"``, JAX :484-489) keeps one
+``max_len`` row per slot (``KVPool``): FCFS admission into free slots
+(``FIFOScheduler``), no page budget, no preemption and no prefix cache;
+a prompt's prefill ``insert``s only the positions it filled (:2675), and
+the decode and verify steps (``decode_step_slots``, ``verify_step_slots``)
+write each slot's row in place, a free slot's write landing in the sink
+row, and read the rows through ``_slot_attn_readout`` (no attention
+kernel, as JAX's slab engine keeps its einsum path). Speculation, fused
+windows, sampled streams, ``weight_quant`` and MoE models run on it as
+on the paged pool.
+
+Host KV offload (``host_kv_pages``, JAX :2042-2105, :1863-1996,
+:2583-2615): a preempted decoding stream's private pages swap out to the
+pool's host tier (a device snapshot whose copy to pinned memory is
+queued, no host sync) and its prefix-resident pages are held instead of
+copied; re-admission funds exactly the swapped pages, and the prefill
+turn copies them back (``_swap_in``, byte for byte) instead of
+re-prefilling. A full host tier falls back to the re-prefill resume.
+``_drop_swap`` releases a snapshot whose request ends first; the prefix
+cache spills its cold pages to the same tier. The metrics count the
+traffic and time the two resume paths apart.
+
 Degradation (JAX :2309-2355, :2473): ``submit(deadline_s=)`` is a
 submit-to-finish budget on the metrics clock; an expired request ends
 ``TIMED_OUT`` at the next ``step()`` (``_expire_deadlines``), and
@@ -112,16 +134,17 @@ import torch
 
 from distkeras_tpu_torch.compat import resolve_device
 from distkeras_tpu_torch.models.core import Model, Sequential, torch_dtype
-from distkeras_tpu_torch.models.decoding import (MOE_QUANT_ITEM,
-                                                 _decode_block_of,
+from distkeras_tpu_torch.models.decoding import (_decode_block_of,
                                                  _sample_vec,
                                                  attn_compute_dtype,
                                                  commit_tree_path,
                                                  decode_fused_slots,
+                                                 decode_step_slots,
                                                  decode_step_slots_paged,
                                                  fuse_qkv_params, prefill,
                                                  prefill_chunk_step,
                                                  serving_params, tree_walk,
+                                                 verify_step_slots,
                                                  verify_step_slots_paged)
 from distkeras_tpu_torch.models.moe import MoE
 from distkeras_tpu_torch.ops import prng
@@ -129,10 +152,11 @@ from distkeras_tpu_torch.ops.paged_attention import check_rows
 from distkeras_tpu_torch.ops.quant_matmul import (quantize_params_tree,
                                                   tree_quant_errors)
 from distkeras_tpu_torch.ops.sampling import sample_tokens
-from distkeras_tpu_torch.serving.kv_pool import (PagedKVPool, PrefixCache,
-                                                 stage)
+from distkeras_tpu_torch.serving.kv_pool import (KVPool, PagedKVPool,
+                                                 PrefixCache, stage)
 from distkeras_tpu_torch.serving.metrics import ServingMetrics
 from distkeras_tpu_torch.serving.scheduler import (AdmissionRejected,
+                                                   FIFOScheduler,
                                                    PriorityScheduler,
                                                    Request, RequestState,
                                                    TERMINAL_STATES)
@@ -146,7 +170,6 @@ _OBSERVABILITY = "Queue 1 item 11 (host-side systems: obs/)"
 #: means "off", ROADMAP item)
 _NOT_PORTED = {
     "ep_mesh": (None, "expert-parallel MoE serving"),
-    "host_kv_pages": (0, "host KV offload"),
     "tracer": (None, _OBSERVABILITY),
     "slo": (None, _OBSERVABILITY),
     "timeseries": (None, _OBSERVABILITY),
@@ -213,9 +236,15 @@ class ServingEngine:
     """Continuous-batching serving of one ``zoo.transformer_lm`` model.
     ``submit()`` enqueues, ``step()`` runs one scheduler iteration,
     ``run()`` drains. ``max_len`` is the per-request capacity
-    (``len(prompt) + max_new_tokens <= max_len``); ``page_len`` and
-    ``num_pages`` size the paged pool (default: worst-case parity with
-    one ``max_len`` row per slot); ``cache_dtype`` is the pages' dtype
+    (``len(prompt) + max_new_tokens <= max_len``); ``kv_layout`` is
+    ``"paged"`` (the default) or ``"slab"`` (one ``max_len`` row per
+    slot, FCFS, no preemption, no prefix cache; ``host_kv_pages``,
+    ``hbm_budget`` and ``decode_kernel`` raise ``ValueError`` there);
+    ``page_len`` and ``num_pages`` size the paged pool (default:
+    worst-case parity with one ``max_len`` row per slot);
+    ``host_kv_pages`` adds that many pages of host memory, where
+    preemption victims swap out and cold prefix pages spill;
+    ``cache_dtype`` is the pages' dtype
     (default: the model's compute dtype; ``"int8"``/``"int4"`` quantize
     the pages per token and head, int4 packing two positions per byte,
     and the decode readout takes the kernel's quantized variant);
@@ -242,7 +271,9 @@ class ServingEngine:
     ``moe_decode`` (``"dispatched"``, the default, or ``"dense"``)
     chooses how an MoE model's decode and verify steps run its MoE
     blocks: ``MoE.decode_apply`` (the K6a kernel on the card) or each
-    layer's own ``apply``. ``health()["moe"]`` and
+    layer's own ``apply``. Under ``weight_quant`` the stacked expert
+    leaves are quantized too and dequantized one layer at a time just
+    before the layer runs. ``health()["moe"]`` and
     ``metrics.summary()["moe"]`` report them.
 
     ``overlap`` (default True) pipelines the decode loop: each unit is
@@ -302,8 +333,8 @@ class ServingEngine:
                  weights_dtype="auto", decode_kernel: str = "auto",
                  engine_id: Optional[str] = None, tracer=None, slo=None,
                  timeseries=None):
-        given = {"ep_mesh": ep_mesh, "host_kv_pages": host_kv_pages,
-                 "tracer": tracer, "slo": slo, "timeseries": timeseries}
+        given = {"ep_mesh": ep_mesh, "tracer": tracer, "slo": slo,
+                 "timeseries": timeseries}
         for name, (off, item) in _NOT_PORTED.items():
             if given[name] != off:
                 raise NotImplementedError(
@@ -317,6 +348,10 @@ class ServingEngine:
                              f"'off', got {decode_kernel!r}")
         if kv_layout == "slab":
             # paged-only options must not silently no-op (JAX :444-455)
+            if host_kv_pages:
+                raise ValueError(
+                    "host_kv_pages needs kv_layout='paged' (the slab pool "
+                    "has no page-granular offload)")
             if decode_kernel != "auto":
                 raise ValueError(
                     "decode_kernel applies to the paged readout only; a "
@@ -324,9 +359,8 @@ class ServingEngine:
             if hbm_budget is not None:
                 raise ValueError("hbm_budget needs kv_layout='paged' (the "
                                  "slab pool has no page budget to size)")
-            raise NotImplementedError(
-                f"kv_layout={kv_layout!r} is not ported yet: ROADMAP, "
-                "Queue 1, the slab serving engine (kv_layout='slab')")
+        self.kv_layout = kv_layout
+        self._paged = kv_layout == "paged"
         #: the paged readout: the kernel's path ("auto", "paged") or the
         #: gather path ("off")
         self.decode_kernel = decode_kernel
@@ -357,28 +391,16 @@ class ServingEngine:
         compute_dt = attn_compute_dtype(module)
         if cache_dtype is None:
             cache_dtype = compute_dt
-        self._init_moe(moe_decode, weight_quant)
+        self._init_moe(moe_decode)
         self._init_weights(weight_quant, weights_dtype, compute_dt)
         #: decode steps draw through ``ops.sampling.sample_tokens`` (the
         #: K4 epilogue on the card); the first token and the speculative
         #: walks keep the unfused sampler, as in the JAX engine
         self.fused_sampling = bool(fused_sampling)
 
-        # hbm_budget: the resident weights come off the top, the rest
-        # becomes whole pages
-        self.pool = PagedKVPool(
-            module, self.num_slots, self.max_len, page_len=page_len,
-            num_pages=num_pages, dtype=cache_dtype, device=self.device,
-            hbm_budget=hbm_budget,
-            reserve_bytes=0 if hbm_budget is None else self.param_bytes())
-        self.page_len = self.pool.page_len
-        self.prefix = PrefixCache(self.pool) if prefix_cache else None
-        if prefix_granularity < 1:
-            raise ValueError(f"prefix_granularity must be >= 1, "
-                             f"got {prefix_granularity}")
-        self._prefix_granularity = int(prefix_granularity)
-        self.scheduler = PriorityScheduler(self.num_slots,
-                                           max_queue=max_queue)
+        self._init_pool(cache_dtype, page_len, num_pages, host_kv_pages,
+                        hbm_budget, prefix_cache, prefix_granularity,
+                        max_queue)
         self._init_pipeline(overlap, fuse_steps)
         self._init_engine_id(engine_id)
         # ONE reusable staging cache: stale positions past the current
@@ -400,6 +422,39 @@ class ServingEngine:
         self._init_speculation(draft, spec_k, spec_disable_below,
                                spec_warmup, spec_reprobe, spec_tree,
                                spec_width)
+
+    def _init_pool(self, cache_dtype, page_len, num_pages, host_kv_pages,
+                   hbm_budget, prefix_cache, prefix_granularity,
+                   max_queue) -> None:
+        """The KV pool and the scheduler of the layout (JAX :456-500):
+        the paged pool (with its host tier, ``host_kv_pages``), the
+        prefix cache and priority admission with preemption; or the slab
+        pool, FCFS admission, no preemption and no prefix cache."""
+        #: the host tier's odometers at the last metrics flush
+        self._off_seen = (0, 0, 0)
+        if not self._paged:
+            self.pool = KVPool(self.module, self.num_slots, self.max_len,
+                               cache_dtype, self.device)
+            self.page_len = None
+            self.prefix = None
+            self.scheduler = FIFOScheduler(self.num_slots,
+                                           max_queue=max_queue)
+            return
+        # hbm_budget: the resident weights come off the top, the rest
+        # becomes whole pages
+        self.pool = PagedKVPool(
+            self.module, self.num_slots, self.max_len, page_len=page_len,
+            num_pages=num_pages, dtype=cache_dtype, device=self.device,
+            host_pages=host_kv_pages, hbm_budget=hbm_budget,
+            reserve_bytes=0 if hbm_budget is None else self.param_bytes())
+        self.page_len = self.pool.page_len
+        self.prefix = PrefixCache(self.pool) if prefix_cache else None
+        if prefix_granularity < 1:
+            raise ValueError(f"prefix_granularity must be >= 1, "
+                             f"got {prefix_granularity}")
+        self._prefix_granularity = int(prefix_granularity)
+        self.scheduler = PriorityScheduler(self.num_slots,
+                                           max_queue=max_queue)
 
     def _init_pipeline(self, overlap: bool, fuse_steps: int) -> None:
         """The zero-bubble loop's state (JAX :503-540)."""
@@ -448,7 +503,7 @@ class ServingEngine:
                 name = f"serving[{self.engine_id}]"
         _LIVE_ENGINES[name] = self
 
-    def _init_moe(self, moe_decode: str, weight_quant) -> None:
+    def _init_moe(self, moe_decode: str) -> None:
         """MoE serving (JAX :406-423): the model's MoE MLPs in layer
         order, the decode dispatch and the telemetry state."""
         if moe_decode not in ("dispatched", "dense"):
@@ -459,10 +514,6 @@ class ServingEngine:
         self._moe = [blk.mlp for blk in map(_decode_block_of,
                                             self.module.layers)
                      if blk is not None and isinstance(blk.mlp, MoE)]
-        if self._moe and weight_quant is not None:
-            raise NotImplementedError(
-                f"weight_quant={weight_quant!r} on an MoE model is not "
-                f"ported yet: {MOE_QUANT_ITEM}")
         self._moe_dispatched = bool(self._moe) and moe_decode == "dispatched"
         # expert telemetry rides only on the dispatched path
         self._moe_stats_on = self._moe_dispatched
@@ -587,12 +638,13 @@ class ServingEngine:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if deadline_s is not None and float(deadline_s) <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
-        worst = self.pool.pages_for(prompt.size + max_new_tokens)
-        if worst > self.pool.num_pages:
-            raise ValueError(
-                f"request needs up to {worst} pages but the pool holds "
-                f"{self.pool.num_pages}; raise num_pages or lower "
-                "max_new_tokens")
+        if self._paged:
+            worst = self.pool.pages_for(prompt.size + max_new_tokens)
+            if worst > self.pool.num_pages:
+                raise ValueError(
+                    f"request needs up to {worst} pages but the pool "
+                    f"holds {self.pool.num_pages}; raise num_pages or "
+                    "lower max_new_tokens")
         if speculate and self._draft is None:
             raise ValueError(
                 "speculate=True needs an engine built with a draft source "
@@ -627,7 +679,10 @@ class ServingEngine:
     def _admit(self) -> List[Request]:
         """Admit the highest-priority queued requests while a slot and
         their context pages are available; a strictly-higher-priority
-        arrival that cannot be funded preempts lower-priority streams."""
+        arrival that cannot be funded preempts lower-priority streams.
+        A slab engine admits FCFS into free slots (JAX :1830)."""
+        if not self._paged:
+            return self.scheduler.admit()
         admitted: List[Request] = []
         sch = self.scheduler
         while sch.free_slots:
@@ -649,8 +704,22 @@ class ServingEngine:
         """Fund ``req``'s (re)admission: prefix-match its context,
         reclaim cache-only pages if the private remainder does not fit,
         allocate. None when it cannot be funded. Matched pages are
-        incref'd before any reclaim, so the sweep cannot eat them."""
+        incref'd before any reclaim, so the sweep cannot eat them. A
+        victim whose pages were swapped out needs exactly its swapped
+        page count back (no prefix match, no growth page: the snapshot
+        covers its next write), and resumes by a copy (JAX :1869)."""
         pool = self.pool
+        if req.swap is not None:
+            n = len(req.swap["host"])
+            need = n + self._moe_admit_extra(req, n)
+            if pool.free_pages < need and self.prefix is not None:
+                deficit = need - pool.free_pages
+                if self.prefix.evictable_pages() >= deficit:
+                    self.prefix.reclaim(deficit)
+            if pool.free_pages < need:
+                return None
+            return {"restore": True,
+                    "priv": [pool.alloc_page() for _ in range(n)]}
         toks = req.context_tokens
         # context + 1: the first decode write must land on a page
         n_logical = pool.pages_for(len(toks) + 1)
@@ -721,6 +790,16 @@ class ServingEngine:
 
     def _apply_page_plan(self, req: Request, plan: Dict) -> None:
         slot = req.slot
+        if plan.get("restore"):
+            # swap resume (JAX :1968): the fresh pages take the logical
+            # pages the snapshot captured, and the prefix-resident pages
+            # come back under the snapshot's hold, now the slot's; the
+            # copy runs at the request's prefill turn
+            for lp, pid in zip(req.swap["logical"], plan["priv"]):
+                self.pool.assign(slot, int(lp), pid)
+            for lp, pid in req.swap["shared"]:
+                self.pool.assign(slot, int(lp), int(pid))
+            return
         for j, pid in enumerate(plan["full"]):
             self.pool.assign(slot, j, pid)
         for i, pid in enumerate(plan["priv"]):
@@ -759,13 +838,22 @@ class ServingEngine:
         so a sampled stream resumes where it left off (a prefilling one
         keeps its submit-time key). The in-flight unit is consumed first
         (JAX :2036): the context and the key must hold its tokens, and it
-        may finish the victim instead."""
+        may finish the victim instead. With a host tier a decoding
+        victim's pages swap out first (``_swap_out``)."""
         self._flush_pending()
         if victim.state in TERMINAL_STATES:
             return
         slot = victim.slot
         if victim.state is RequestState.DECODING:
             victim.rng = self._keys[slot].copy()
+            if self.pool.host_cache is not None:
+                self._swap_out(victim)
+        elif victim.swap is not None:
+            # admitted for a swap-in, preempted before its turn: its host
+            # pages still hold the snapshot, and the slot's holds on the
+            # prefix-resident pages go back to it (JAX drops them here)
+            for _lp, pid in victim.swap["shared"]:
+                self.pool.incref(pid)
         self.scheduler.preempt(victim)
         self._chain_dirty[slot] = True
         if self._draft is not None:
@@ -779,6 +867,40 @@ class ServingEngine:
         victim.n_shared_full = 0
         victim.load_pages = []
         self.metrics.record_preemption(victim.rid)
+
+    def _swap_out(self, victim: Request) -> None:
+        """Queue a decoding victim's pages for the host tier (JAX
+        :2042-2081), so it resumes by a copy instead of a re-prefill.
+        Pages the prefix cache holds are not copied: the snapshot takes a
+        hold on them, which the resume turns into the slot's. When the
+        host tier is full nothing is held and the victim re-prefills."""
+        pool = self.pool
+        row = pool.tables[victim.slot]
+        shared, priv = [], []
+        for lp in np.flatnonzero(row < pool.num_pages).tolist():
+            pid = int(row[lp])
+            if self.prefix is not None and self.prefix.resident(pid):
+                shared.append((lp, pid))
+            else:
+                priv.append(lp)
+        hids = pool.offload_pages(row[priv].tolist()) if priv else []
+        if hids is None:
+            return
+        for _lp, pid in shared:
+            pool.incref(pid)
+        victim.swap = {"host": hids, "logical": priv, "shared": shared,
+                       "t": int(self._t[victim.slot])}
+
+    def _drop_swap(self, req: Request) -> None:
+        """Release a swap snapshot that no resume will read (JAX :3014):
+        its host pages (a queued batch freed whole is never fenced) and
+        the holds on its prefix-resident pages."""
+        if req.swap is None:
+            return
+        self.pool.free_host(req.swap["host"])
+        for _lp, pid in req.swap["shared"]:
+            self.pool.decref(int(pid))
+        req.swap = None
 
     def _ensure_decode_pages(self, lookahead=None) -> None:
         """Before a decode step: every running slot whose next write
@@ -967,26 +1089,29 @@ class ServingEngine:
             self._chain_dirty[req.slot] = True
             if self._draft is not None:
                 self._draft.end_slot(req.slot)
-            self.pool.release_slot(req.slot)
+            if self._paged:
+                self.pool.release_slot(req.slot)
         if req.donor_ref is not None:
             # admitted with a copy-on-write donor hold but ended before
             # its prefill turn consumed it
             self.pool.decref(req.donor_ref)
             req.donor_ref = None
+        # swapped out on a preemption, then ended before its swap-in
+        self._drop_swap(req)
         del self._requests[req.rid]
         finished.append(req)
 
     def health(self) -> Dict:
         """Readiness snapshot: accepting work, queue depth, slots,
-        request tallies, pages and the prefix cache. The deferred
-        metrics samples are recorded first."""
+        request tallies, and on a paged engine the pages (with the host
+        tier's, None when it is off) and the prefix cache (JAX
+        :2556-2571). The deferred metrics samples are recorded first."""
         self._flush_host_window()
         sch = self.scheduler
         accepting = (sch.max_queue is None
                      or sch.queue_depth < sch.max_queue)
         m = self.metrics
-        pool = self.pool
-        return {
+        out = {
             "status": "ok" if accepting else "saturated",
             "accepting": accepting,
             "engine_id": self.engine_id,
@@ -1001,18 +1126,26 @@ class ServingEngine:
                          "timed_out": m.requests_timed_out,
                          "cancelled": m.requests_cancelled,
                          "preempted": m.requests_preempted},
-            "pages": {"total": pool.num_pages, "free": pool.free_pages,
-                      "shared": pool.shared_pages,
-                      "page_len": pool.page_len,
-                      "fragmentation": round(self._fragmentation(), 4)},
-            "prefix_cache": (None if self.prefix is None else {
-                "nodes": len(self.prefix), "hit_rate": m.prefix_hit_rate}),
             "moe": (None if not self._moe else {
                 "decode": self.moe_decode, "layers": len(self._moe),
                 "concentration": (None if self._moe_conc is None
                                   else round(self._moe_conc, 4)),
                 "expert_parallel": None}),
         }
+        if self._paged:
+            pool = self.pool
+            out["pages"] = {
+                "total": pool.num_pages, "free": pool.free_pages,
+                "shared": pool.shared_pages, "page_len": pool.page_len,
+                "fragmentation": round(self._fragmentation(), 4),
+                "host": (None if pool.host_cache is None else {
+                    "total": pool.host_pages,
+                    "free": pool.host_free_pages,
+                    "offloaded": pool.pages_offloaded,
+                    "restored": pool.pages_restored})}
+            out["prefix_cache"] = (None if self.prefix is None else {
+                "nodes": len(self.prefix), "hit_rate": m.prefix_hit_rate})
+        return out
 
     # --- internals --------------------------------------------------------
 
@@ -1063,10 +1196,37 @@ class ServingEngine:
         req.rng = host[1:].copy()
         return int(host[0])
 
+    def _swap_in(self, req: Request) -> None:
+        """The swap-in resume (JAX :2583-2615): the snapshot's host pages
+        are copied into the pages ``_apply_page_plan`` wired into the
+        table, byte for byte, and the stream rejoins decode where it
+        left off. No prefill chunk runs."""
+        t0 = self.metrics.clock()
+        swap = req.swap
+        row = self.pool.tables[req.slot]
+        self.pool.restore_pages(swap["host"],
+                                [int(row[int(lp)]) for lp in swap["logical"]])
+        self.pool.free_host(swap["host"])
+        req.swap = None
+        self.scheduler.to_decoding(req)
+        self._set_slot(req, req.generated[-1], swap["t"])
+        self._begin_draft(req, req.context_tokens)
+        self.metrics.record_swap_resume(self.metrics.clock() - t0,
+                                        len(req.context_tokens))
+
     def _advance_prefill(self, req: Request, finished: List[Request]):
+        if req.swap is not None:
+            self._swap_in(req)
+            return
+        if not self._paged:
+            self._advance_prefill_slab(req, finished)
+            return
         toks = req.context_tokens
         p_len = len(toks)
         resume = bool(req.generated)
+        if resume and req.prefill_pos == 0 and req.resume_t0 is None:
+            # the re-prefill resume's clock: first chunk to rejoining
+            req.resume_t0 = self.metrics.clock()
         if req.prefill_pos == 0:
             if self.prefix is not None:
                 self._rematch_at_prefill(req)
@@ -1081,13 +1241,48 @@ class ServingEngine:
             if req.donor_ref is not None:
                 self.pool.decref(req.donor_ref)
                 req.donor_ref = None
+        logits, final = self._prefill_chunk(req, toks, resume)
+        if not final:
+            return
+        # write ONLY the pages the context fills, minus the shared ones
+        self.pool.insert_pages(self._staging, req.slot, req.n_shared_full,
+                               p_len)
+        if self.prefix is not None:
+            self.prefix.register(toks, self.pool.tables[req.slot])
+        if resume:
+            self.scheduler.to_decoding(req)
+            self._set_slot(req, req.generated[-1], p_len)
+            self._begin_draft(req, toks)
+            if req.resume_t0 is not None:
+                self.metrics.record_reprefill_resume(
+                    self.metrics.clock() - req.resume_t0,
+                    p_len - req.shared_len)
+                req.resume_t0 = None
+            return
+        self._first_token(req, logits, toks, finished)
+
+    def _advance_prefill_slab(self, req: Request, finished: List[Request]):
+        """A slab engine's prefill turn (JAX :2617-2675): the prompt's
+        chunks into the staging cache, then ``insert`` writes only the
+        positions it filled into the slot's row. No prefix cache, no
+        preemption, so no resume."""
+        logits, final = self._prefill_chunk(req, req.prompt, False)
+        if not final:
+            return
+        self.pool.insert(self._staging, req.slot, n_pos=len(req.prompt))
+        self._first_token(req, logits, req.prompt, finished)
+
+    def _prefill_chunk(self, req: Request, toks, resume: bool):
+        """Run the request's next prefill chunk into the staging cache;
+        returns ``(logits, final)``. A resume re-prefill runs head-less:
+        its tokens are decided."""
+        p_len = len(toks)
         t0 = req.prefill_pos
         if self.prefill_chunk is None:
             q_len, final = p_len - t0, True
         else:
             q_len = min(self.prefill_chunk, p_len - t0)
             final = t0 + q_len >= p_len
-        # a resume re-prefill runs head-less: its tokens are decided
         head = final and not resume
         chunk = torch.as_tensor(toks[None, t0:t0 + q_len],
                                 dtype=torch.long, device=self.device)
@@ -1100,18 +1295,13 @@ class ServingEngine:
                 final=head)
         req.prefill_pos = t0 + q_len
         self.metrics.record_prefill_chunk()
-        if not final:
-            return
-        # write ONLY the pages the context fills, minus the shared ones
-        self.pool.insert_pages(self._staging, req.slot, req.n_shared_full,
-                               p_len)
-        if self.prefix is not None:
-            self.prefix.register(toks, self.pool.tables[req.slot])
-        if resume:
-            self.scheduler.to_decoding(req)
-            self._set_slot(req, req.generated[-1], p_len)
-            self._begin_draft(req, toks)
-            return
+        return logits, final
+
+    def _first_token(self, req: Request, logits, toks,
+                     finished: List[Request]) -> None:
+        """Sample a request's first token from its prefill logits and
+        start its decode (or finish it)."""
+        p_len = len(toks)
         if self.on_logits is not None:
             self.on_logits("prefill", logits, [0])
         token = self._sample_first(logits, req)            # prefill's sync
@@ -1157,7 +1347,9 @@ class ServingEngine:
             # counts the unit in flight)
             look = np.zeros(self.num_slots, np.int64)
             look[list(running)] = fuse - 1
-        self._ensure_decode_pages(look)
+        if self._paged:
+            # a slab row holds every position: nothing to grow
+            self._ensure_decode_pages(look)
         if not running:
             return
         t0 = self.metrics.clock()
@@ -1300,8 +1492,18 @@ class ServingEngine:
             for qd, occ in self._iter_buf:
                 m.record_iteration(qd, occ, self.num_slots)
             self._iter_buf.clear()
-            m.record_pages(self.pool.free_pages, self.pool.shared_pages,
-                           self._fragmentation())
+            if self._paged:
+                pool = self.pool
+                m.record_pages(pool.free_pages, pool.shared_pages,
+                               self._fragmentation())
+                # the host tier's odometers are cumulative: the metrics
+                # window gets the deltas since the last flush
+                odo = (pool.pages_offloaded, pool.pages_restored,
+                       pool.offload_bytes)
+                if odo[0] > self._off_seen[0] or odo[1] > self._off_seen[1]:
+                    m.record_offload(*(a - b for a, b in
+                                       zip(odo, self._off_seen)))
+                    self._off_seen = odo
         for n, dt, n_tok in self._decode_buf:
             m.record_decode(n, dt, n_tokens=n_tok)
         self._decode_buf.clear()
@@ -1400,7 +1602,7 @@ class ServingEngine:
                                    prev.keys)
             else:
                 keys = prev.keys
-        tables = self.pool.device_tables()
+        tables = self._tables()
         kw = self._moe_step_kw()
         on_logits = None
         if self.on_logits is not None:
@@ -1420,10 +1622,7 @@ class ServingEngine:
                 **knob_kw, **kw)
             last, count = nxt[:, -1], fuse
         else:
-            logits, _, *moe = decode_step_slots_paged(
-                self.module, self._params, self.pool.cache, tok, t_dev,
-                tables, self.page_len, paged_kernel=self._paged_kernel,
-                **kw)
+            logits, _, *moe = self._decode_step(tok, t_dev, tables, **kw)
             if on_logits is not None:
                 on_logits(logits)
             if sampled:
@@ -1443,6 +1642,30 @@ class ServingEngine:
             self._t[slot] += count
             dirty[slot] = False          # the chain is live until overridden
         return _PendingStep(last, keys, host_out, event, slots, count, t0)
+
+    def _tables(self):
+        """The page tables on the device, or None for a slab engine."""
+        return self.pool.device_tables() if self._paged else None
+
+    def _decode_step(self, tok, t, tables, **kw):
+        """One decode step over every slot: the paged step, or the slab
+        step (JAX :1319-1325)."""
+        if tables is None:
+            return decode_step_slots(self.module, self._params,
+                                     self.pool.cache, tok, t, **kw)
+        return decode_step_slots_paged(
+            self.module, self._params, self.pool.cache, tok, t, tables,
+            self.page_len, paged_kernel=self._paged_kernel, **kw)
+
+    def _verify_step(self, toks, t, tables, **kw):
+        """One verify window over every slot: the paged window, or the
+        slab window (JAX :1480-1487)."""
+        if tables is None:
+            return verify_step_slots(self.module, self._params,
+                                     self.pool.cache, toks, t, **kw)
+        return verify_step_slots_paged(
+            self.module, self._params, self.pool.cache, toks, t, tables,
+            self.page_len, paged_kernel=self._paged_kernel, **kw)
 
     # --- MoE routing telemetry / admission cost ----------------------------
 
@@ -1645,10 +1868,8 @@ class ServingEngine:
         parents = np.full((self.num_slots, k + 1), -1, np.int64)
         parents[active, 1:] = np.arange(k)
         toks_d, t_d = stage([toks, self._t], self.device)
-        logits, _, *moe = verify_step_slots_paged(
-            self.module, self._params, self.pool.cache, toks_d, t_d,
-            self.pool.device_tables(), self.page_len,
-            paged_kernel=self._paged_kernel, **self._moe_step_kw())
+        logits, _, *moe = self._verify_step(toks_d, t_d, self._tables(),
+                                            **self._moe_step_kw())
         self._note_moe_route(_host_stats(moe))
         if self.on_logits is not None:
             self.on_logits("verify", logits, list(running.keys()))
@@ -1698,18 +1919,18 @@ class ServingEngine:
                                      toks, parents, active, depth_v,
                                      width_v, budget_v)
         depth, anc, n_nodes = tree_ancestors(parents)
-        self._ensure_decode_pages(
-            np.where(active, n_nodes - 1, 0).astype(np.int64))
+        if self._paged:
+            self._ensure_decode_pages(
+                np.where(active, n_nodes - 1, 0).astype(np.int64))
         running = self.scheduler.running
         if not running:
             return
         toks_d, t_dev, depth_d, anc_d = stage([toks, self._t, depth, anc],
                                               self.device)
-        tables = self.pool.device_tables()
-        logits, _, kv_win, *moe = verify_step_slots_paged(
-            self.module, self._params, self.pool.cache, toks_d, t_dev,
-            tables, self.page_len, tree={"depth": depth_d, "anc": anc_d},
-            paged_kernel=self._paged_kernel, **self._moe_step_kw())
+        tables = self._tables()
+        logits, _, kv_win, *moe = self._verify_step(
+            toks_d, t_dev, tables, tree={"depth": depth_d, "anc": anc_d},
+            **self._moe_step_kw())
         self._note_moe_route(_host_stats(moe))
         if self.on_logits is not None:
             self.on_logits("verify", logits, list(running.keys()))
@@ -1764,9 +1985,10 @@ class ServingEngine:
             self._draft.end_slot(slot)
         self._t[slot] = self.max_len
         self._chain_dirty[slot] = True
-        # pages return to the budget; registered prefix pages survive
-        # under the prefix cache's own reference
-        self.pool.release_slot(slot)
+        if self._paged:
+            # pages return to the budget; registered prefix pages survive
+            # under the prefix cache's own reference
+            self.pool.release_slot(slot)
         self.metrics.record_finish(req.rid, len(req.generated))
         del self._requests[req.rid]
         finished.append(req)

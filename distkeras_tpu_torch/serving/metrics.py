@@ -6,9 +6,12 @@ request TTFT (submit -> first token), TPOT and end-to-end latency; per
 iteration queue depth, slot occupancy and the decode time and tokens;
 the degraded ends (timed out, cancelled; :200-209),
 prefill chunks, preemptions, prefix-cache lookups, the page-budget
-gauges and the speculation counters (drafts proposed and accepted per
-verify, streams disabled and re-enabled, tree width and accepted path
-length) and the MoE routing picture (``record_moe_route`` :297,
+gauges, the host offload tier's traffic and the resume latencies split
+by path (page swap-in or context re-prefill; :95-113, :244-269, :374-387,
+the ``"offload"`` key of ``summary()`` :493), the speculation counters
+(drafts proposed and accepted per verify, streams disabled and
+re-enabled, tree width and accepted path length) and the MoE routing
+picture (``record_moe_route`` :297,
 ``moe_expert_load`` :407, the ``"moe"`` key of ``summary()`` :513, None
 on MoE-free engines). Histograms keep a bounded sample of their values (the first
 ``reservoir``), so memory stays bounded in a long-lived engine. The
@@ -81,6 +84,16 @@ class ServingMetrics:
         self.prefix_hit_tokens = 0
         self._prefix_lookup_toks = 0
         self._pages: Optional[Dict] = None
+        #: the host offload tier: pages swapped out (preemption, prefix
+        #: spill) and restored, bytes moved out, and the resume latencies
+        #: and context tokens of the two resume paths
+        self.pages_offloaded = 0
+        self.pages_restored = 0
+        self.offload_bytes = 0
+        self.reprefill_tokens = 0
+        self.reprefill_tokens_avoided = 0
+        self._resume_swap = _Histogram(reservoir)
+        self._resume_reprefill = _Histogram(reservoir)
         #: decoding-slot count -> [tokens, seconds]
         self._decode_agg: Dict[int, List[float]] = {}
         self.phase_seconds: Dict[str, float] = {}
@@ -160,6 +173,28 @@ class ServingMetrics:
                      fragmentation: float) -> None:
         self._pages = {"free": int(free), "shared": int(shared),
                        "fragmentation": float(fragmentation)}
+
+    def record_offload(self, offloaded: int, restored: int,
+                       nbytes: int) -> None:
+        """Host-tier traffic since the engine's last flush (deltas of
+        the pool's odometers)."""
+        self.pages_offloaded += int(offloaded)
+        self.pages_restored += int(restored)
+        self.offload_bytes += int(nbytes)
+
+    def record_swap_resume(self, dur_s: float,
+                           tokens_avoided: int) -> None:
+        """A preemption resume served by a host-page swap-in:
+        ``tokens_avoided`` the context tokens a re-prefill would have
+        recomputed."""
+        self._resume_swap.observe(float(dur_s))
+        self.reprefill_tokens_avoided += int(tokens_avoided)
+
+    def record_reprefill_resume(self, dur_s: float, tokens: int) -> None:
+        """A preemption resume served by re-prefilling ``tokens`` context
+        tokens (first chunk to rejoining the batch)."""
+        self._resume_reprefill.observe(float(dur_s))
+        self.reprefill_tokens += int(tokens)
 
     # --- per iteration ----------------------------------------------------
 
@@ -264,6 +299,14 @@ class ServingMetrics:
             "requests_cancelled": self.requests_cancelled,
             "requests_preempted": self.requests_preempted,
             "pages": self._pages,
+            "offload": {
+                "pages_offloaded": self.pages_offloaded,
+                "pages_restored": self.pages_restored,
+                "offload_bytes": self.offload_bytes,
+                "reprefill_tokens": self.reprefill_tokens,
+                "reprefill_tokens_avoided": self.reprefill_tokens_avoided,
+                "resume_swap_s": self._resume_swap.pcts(),
+                "resume_reprefill_s": self._resume_reprefill.pcts()},
             "prefix_cache": {"lookups": self.prefix_lookups,
                              "hits": self.prefix_hits,
                              "hit_rate": self.prefix_hit_rate},

@@ -1,17 +1,18 @@
-"""Request scheduling for the paged continuous-batching engine:
-admission, the per-request state machine, slot allocation, preemption.
+"""Request scheduling for the continuous-batching engine: admission,
+the per-request state machine, slot allocation, preemption.
 
 Mirrors ``distkeras_tpu/serving/scheduler.py`` (:55-364, the
-speculation fields of ``Request`` :117-130) for the paged engine's
-policy: priority classes (lower ``priority`` admits first,
-FCFS within a class, preempted requests at the front of their class),
-admission gated by the engine on the free-page budget, ONE prefill
-stream (the oldest admitted request advances one prompt chunk per
-iteration), preemption of an admitted request back to the queue
-with its generated tokens kept, and the terminal states of the
-degradation paths (``TIMED_OUT`` for an expired ``deadline_s``,
-``CANCELLED`` for ``ServingEngine.cancel``; ``cancel`` :250-265). Pure
-host-side bookkeeping.
+speculation fields of ``Request`` :117-130). ``FIFOScheduler`` (:164) is
+the slab engine's policy: FCFS admission into free slots. Its subclass
+``PriorityScheduler`` (:287) is the paged engine's: priority classes
+(lower ``priority`` admits first, FCFS within a class, preempted
+requests at the front of their class), admission gated by the engine on
+the free-page budget, and preemption of an admitted request back to the
+queue with its generated tokens kept. Both run ONE prefill stream (the
+oldest admitted request advances one prompt chunk per iteration) and
+the terminal states of the degradation paths (``TIMED_OUT`` for an
+expired ``deadline_s``, ``CANCELLED`` for ``ServingEngine.cancel``;
+``cancel`` :250-265). Pure host-side bookkeeping.
 """
 
 from __future__ import annotations
@@ -88,6 +89,13 @@ class Request:
     n_shared_full: int = 0
     load_pages: List[int] = field(default_factory=list)
     donor_ref: Optional[int] = None
+    #: a preemption's swap-out (host KV offload): ``{"host": host page
+    #: ids, "logical": their logical pages, "shared": [(logical, page)]
+    #: prefix-resident pages held instead of copied, "t": the decode
+    #: position}``; None when the resume re-prefills
+    swap: Optional[dict] = None
+    #: the metrics clock at a re-prefill resume's first chunk
+    resume_t0: Optional[float] = None
     #: (rank, arrival) order inside a priority class (scheduler-owned)
     order: tuple = (1, 0)
     # speculative decoding: whether the request joins draft-and-verify
@@ -130,10 +138,9 @@ class Request:
             [self.prompt, np.asarray(self.generated, self.prompt.dtype)])
 
 
-class PriorityScheduler:
-    """Queue + slot allocator + state machine, with priority classes and
-    preemption. ``waiting`` is one deque ordered at ``peek()`` time by
-    ``(priority, order)``."""
+class FIFOScheduler:
+    """Queue + slot allocator + state machine, FCFS (the slab engine's
+    policy)."""
 
     def __init__(self, num_slots: int, max_queue: Optional[int] = None):
         if num_slots < 1:
@@ -147,8 +154,6 @@ class PriorityScheduler:
         self.running: Dict[int, Request] = {}  # slot -> DECODING request
         # pop() hands out slot 0 first: deterministic placement
         self._free = list(range(self.num_slots))[::-1]
-        self._order = itertools.count()        # arrival order in a class
-        self._front = itertools.count()        # requeue order (preempted)
 
     # --- queue ------------------------------------------------------------
 
@@ -156,23 +161,19 @@ class PriorityScheduler:
         if self.max_queue is not None \
                 and len(self.waiting) >= self.max_queue:
             raise AdmissionRejected(len(self.waiting), self.max_queue)
-        # fresh arrivals sort after every preempted request of the class
-        req.order = (1, next(self._order))
         req.state = RequestState.QUEUED
         self.waiting.append(req)
 
-    def peek(self) -> Optional[Request]:
-        """The request admission would take next, without taking it."""
-        if not self.waiting:
-            return None
-        return min(self.waiting, key=lambda r: (r.priority, r.order))
+    def admit(self) -> List[Request]:
+        """Move queued requests into free slots, FCFS; returns them."""
+        admitted = []
+        while self.waiting and self._free:
+            req = self.waiting.popleft()
+            self._take_slot(req)
+            admitted.append(req)
+        return admitted
 
-    def admit_one(self, req: Request) -> None:
-        """Admit one queued request into a free slot (the engine calls
-        this only after funding its pages)."""
-        if not self._free:
-            raise RuntimeError("admit_one with no free slot")
-        self.waiting.remove(req)
+    def _take_slot(self, req: Request) -> None:
         req.slot = self._free.pop()
         req.state = RequestState.PREFILLING
         req.prefill_pos = 0
@@ -227,18 +228,6 @@ class PriorityScheduler:
             self._evict(req)
         req.state = state
 
-    def preempt(self, req: Request) -> None:
-        """Evict an admitted request back to the queue: slot freed,
-        generated tokens kept (its re-prefill context), resumed ahead of
-        its class peers."""
-        self._evict(req)
-        req.slot = None
-        req.state = RequestState.QUEUED
-        req.prefill_pos = 0
-        req.n_preempted += 1
-        req.order = (0, next(self._front))
-        self.waiting.append(req)
-
     # --- introspection ----------------------------------------------------
 
     @property
@@ -257,3 +246,55 @@ class PriorityScheduler:
     @property
     def free_slots(self) -> int:
         return len(self._free)
+
+
+class PriorityScheduler(FIFOScheduler):
+    """The paged engine's policy over the same state machine: priority
+    classes, admission the engine funds first (``admit_one``), and
+    preemption back to the queue. ``waiting`` is the base deque, ordered
+    at ``peek()`` time by ``(priority, order)``."""
+
+    def __init__(self, num_slots: int, max_queue: Optional[int] = None):
+        super().__init__(num_slots, max_queue=max_queue)
+        self._order = itertools.count()        # arrival order in a class
+        self._front = itertools.count()        # requeue order (preempted)
+
+    def submit(self, req: Request) -> None:
+        # fresh arrivals sort after every preempted request of the class
+        req.order = (1, next(self._order))
+        super().submit(req)
+
+    def peek(self) -> Optional[Request]:
+        """The request admission would take next, without taking it."""
+        if not self.waiting:
+            return None
+        return min(self.waiting, key=lambda r: (r.priority, r.order))
+
+    def admit_one(self, req: Request) -> None:
+        """Admit one queued request into a free slot (the engine calls
+        this only after funding its pages)."""
+        if not self._free:
+            raise RuntimeError("admit_one with no free slot")
+        self.waiting.remove(req)
+        self._take_slot(req)
+
+    def admit(self) -> List[Request]:
+        """Unfunded admission: fill free slots in priority order."""
+        admitted = []
+        while self.waiting and self._free:
+            req = self.peek()
+            self.admit_one(req)
+            admitted.append(req)
+        return admitted
+
+    def preempt(self, req: Request) -> None:
+        """Evict an admitted request back to the queue: slot freed,
+        generated tokens kept (its re-prefill context), resumed ahead of
+        its class peers."""
+        self._evict(req)
+        req.slot = None
+        req.state = RequestState.QUEUED
+        req.prefill_pos = 0
+        req.n_preempted += 1
+        req.order = (0, next(self._front))
+        self.waiting.append(req)

@@ -38,8 +38,8 @@ from distkeras_tpu_torch.ops.sampling import (MAX_BOUNDARY_PARTINGS,
                                               boundary_partings,
                                               sample_epilogue,
                                               sample_epilogue_reference)
-from distkeras_tpu_torch.serving import (NgramDraft, ServingEngine,
-                                         tree_ancestors)
+from distkeras_tpu_torch.serving import (NgramDraft, PagedKVPool,
+                                         ServingEngine, tree_ancestors)
 
 pytestmark = pytest.mark.cuda
 
@@ -1356,6 +1356,120 @@ def test_decode_launch_is_capture_ready(dev, num_steps):
         _small_lm(dev, num_kv_heads=2), dev, num_steps)
     assert same_tokens and same_pages
     assert replay_ms > 0
+
+
+# --- the slab engine, host KV offload, quantized MoE experts -------------------
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_slab_decode_launch_makes_no_host_sync(dev, sampled):
+    """Every ``_launch_step`` of a pipelined ``fuse_steps=4`` slab engine,
+    single steps and fused windows, runs under
+    ``set_sync_debug_mode("error")`` (the slab write lands in place,
+    a free slot's in the sink row)."""
+    watch = chip_smoke.sync_free_run(_small_lm(dev, num_kv_heads=2),
+                                     "slab", dict(kv_layout="slab"), sampled)
+    assert watch.windows >= 1 and watch.units > watch.windows
+
+
+@pytest.mark.parametrize("num_steps", [1, 4])
+def test_slab_decode_launch_is_capture_ready(dev, num_steps):
+    """One ``decode_step_slots`` and one slab ``decode_fused_slots`` window
+    of 4 captured in a CUDA graph replay bitwise equal to the eager call,
+    tokens and rows."""
+    same_tokens, same_rows, replay_ms, _ = chip_smoke.capture_check(
+        _small_lm(dev, num_kv_heads=2), dev, num_steps, layout="slab")
+    assert same_tokens and same_rows
+    assert replay_ms > 0
+
+
+def _fill_planes(pool, seed):
+    gen = torch.Generator(device=pool.device).manual_seed(seed)
+    for kv in pool.cache:
+        if kv is None:
+            continue
+        for x in kv["sink"].values():
+            if x.dtype == torch.int8:
+                x.copy_(torch.randint(-128, 128, x.shape, generator=gen,
+                                      device=x.device, dtype=torch.int8))
+            else:
+                x.copy_(torch.randn(x.shape, generator=gen, device=x.device))
+
+
+def _planes(pool, pids):
+    return [{k: kv[k][pids].clone() for k in ("k", "v", "k_scale", "v_scale")
+             if k in kv} for kv in pool.cache if kv is not None]
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8", "int4"])
+def test_offload_restore_round_trip_on_the_card(dev, cache_dtype):
+    """The host tier on the card: a swap-out makes no host sync (a device
+    snapshot, a non-blocking copy into pinned memory, an event), later
+    writes do not reach it, the first restore fences it, and the pages
+    restored onto other ids are byte-identical; a batch freed whole is
+    dropped unfenced; ``offload_bytes`` is pages x ``page_bytes``."""
+    model = _small_lm(dev, num_kv_heads=2)
+    dtype = torch.bfloat16 if cache_dtype == "bfloat16" else cache_dtype
+    pool = PagedKVPool(model.module, 2, 64, page_len=16, host_pages=4,
+                       dtype=dtype, device=dev)
+    assert next(kv for kv in pool.host_cache
+                if kv is not None)["k"].is_pinned()
+    _fill_planes(pool, 3)
+    want = _planes(pool, [0, 2])
+    with chip_smoke._SyncErrors():
+        hids = pool.offload_pages([0, 2])
+    assert pool.host_swap_pending == 2 and pool.host_fences == 0
+    _fill_planes(pool, 4)                       # overwrite the sources
+    pool.restore_pages(hids, [3, 5])
+    assert pool.host_fences == 1 and pool.host_swap_pending == 0
+    for got, ref in zip(_planes(pool, [3, 5]), want):
+        for key in ref:
+            assert torch.equal(got[key], ref[key]), key
+    pool.free_host(hids)
+    dropped = pool.offload_pages([1])
+    pool.free_host(dropped)
+    assert pool.host_fences == 1 and pool.host_free_pages == 4
+    assert pool.offload_bytes == 3 * pool.page_bytes
+    assert pool.pages_offloaded == 3 and pool.pages_restored == 2
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequantized_moe_experts_match_the_cpu(dev, bits):
+    """An MoE layer's int8/int4 stacked expert leaves, quantized on the
+    CPU and moved to the card: ``_moe_params`` dequantizes them there
+    bitwise as on the CPU, and ``decode_apply`` over them (K6a) matches
+    the CPU's plain path on the same input."""
+    from distkeras_tpu_torch.models.decoding import _moe_params
+    from distkeras_tpu_torch.models.moe import MoE
+    from distkeras_tpu_torch.ops.quant_matmul import quantize_params_tree
+    from distkeras_tpu_torch.utils.tree import tree_map
+    kw = dict(mlp_ratio=2, moe_every=1, num_experts=8)
+    cpu = Model.build(zoo.transformer_lm(97, d_model=128, num_heads=4,
+                                         num_layers=2, dtype="bfloat16",
+                                         **kw), (16,), seed=0, device="cpu")
+    card = _small_lm(dev, **kw)
+    q_cpu = quantize_params_tree(cpu.params, bits)
+    q_card = tree_map(lambda x: x.to(dev), q_cpu)
+    x = torch.from_numpy(np.random.RandomState(5).randn(4, 1, 128).astype(
+        np.float32)).to(torch.bfloat16)
+    n = 0
+    for layer_c, layer_g, pc, pg in zip(cpu.module.layers,
+                                        card.module.layers, q_cpu, q_card):
+        mlp_c = getattr(layer_c, "mlp", None)
+        if not isinstance(mlp_c, MoE):
+            continue
+        dc, dg = _moe_params(mlp_c, pc["mlp"]), _moe_params(layer_g.mlp,
+                                                            pg["mlp"])
+        for key in ("w1", "w2"):
+            assert dg[key].dtype == torch.bfloat16
+            assert torch.equal(dg[key].cpu(), dc[key]), key
+        before = kernels.launch_counts()["moe_gather_gemm1"]
+        got = layer_g.mlp.decode_apply(dg, x.to(dev)).float().cpu()
+        assert kernels.launch_counts()["moe_gather_gemm1"] == before + 1
+        ref = mlp_c.decode_apply(dc, x).float()
+        assert (got - ref).abs().max() / ref.abs().max() <= BF16_TOL
+        n += 1
+    assert n == 2
 
 
 # --- K7: JAX's threefry draw (csrc/prng.cu) -----------------------------------

@@ -474,17 +474,100 @@ def test_generate_matches_jax(moe_lms, cache_dtype):
 @pytest.mark.parametrize("weights_dtype", ["int8", "int4"])
 def test_quantized_weights_on_moe_raise_naming_the_roadmap(moe_lms,
                                                            weights_dtype):
-    _, pm = moe_lms
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pm.generate(PATTERN[None, :4], 3, weights_dtype=weights_dtype)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ServingEngine(pm, device="cpu", weight_quant=weights_dtype)
+    """Quantized weights on an MoE model, refused until the stacked
+    expert leaves were ported, now run: ``generate(weights_dtype=)`` is
+    token-identical to JAX's, and ``ServingEngine(weight_quant=)`` keeps
+    int8/int4 expert leaves resident and serves a request."""
+    jm, pm = moe_lms
+    prompts = np.stack([PATTERN[:5], PATTERN[3:8]]).astype(np.int32)
+    want = generate(jm, prompts, 9, temperature=0.0,
+                    weights_dtype=weights_dtype)
+    np.testing.assert_array_equal(
+        pm.generate(prompts, 9, weights_dtype=weights_dtype), want)
+    eng = ServingEngine(pm, device="cpu", weight_quant=weights_dtype,
+                        num_slots=2, max_len=32)
+    w1 = next(p["mlp"]["w1"] for p in eng._params
+              if isinstance(p, dict) and "mlp" in p)
+    assert ("q4" if weights_dtype == "int4" else "q") in w1
+    rid = eng.submit(PATTERN[:4], 6)
+    assert eng.run(max_steps=100)[rid].size == 10
 
 
 def _engine(pm, **kw):
     base = dict(num_slots=3, max_len=32, device="cpu")
     base.update(kw)
     return ServingEngine(pm, **base)
+
+
+def _jax_engine(jm, **kw):
+    from distkeras_tpu.serving.engine import ServingEngine as JaxEngine
+    return JaxEngine(jm, **kw)
+
+
+MOE_WQ_PROMPTS = [PATTERN[:4], np.tile(PATTERN, 2)[:14], PATTERN[:7],
+                  PATTERN[:5]]
+MOE_WQ_BUDGETS = [7, 9, 6, 8]
+
+
+def _moe_streams(eng):
+    rids = [eng.submit(p, b) for p, b in zip(MOE_WQ_PROMPTS[:3],
+                                             MOE_WQ_BUDGETS[:3])]
+    eng.step()
+    rids.append(eng.submit(MOE_WQ_PROMPTS[3], MOE_WQ_BUDGETS[3]))
+    out = eng.run(max_steps=500)
+    return [out[r] for r in rids]
+
+
+@pytest.mark.parametrize("layout", ["paged", "slab"])
+@pytest.mark.parametrize("wq", ["int8", "int4"])
+def test_moe_weight_quant_engine_matches_jax_engine(moe_lms, wq, layout):
+    """The MoE engine under ``weight_quant``, paged and slab: the stacked
+    expert leaves quantized as JAX quantizes them and dequantized per
+    layer, greedy streams token-identical to the JAX engine with the same
+    ``weight_quant``; ``weight_quant_error`` has JAX's path keys (the
+    expert leaves among them) with values within 1e-6; the resident
+    bytes are the quantized tree's."""
+    jm, pm = moe_lms
+    kw = dict(num_slots=3, max_len=32, prefill_chunk=4, weight_quant=wq,
+              **({"kv_layout": "slab"} if layout == "slab"
+                 else {"page_len": 4}))
+    eng = _engine(pm, **kw)
+    jeng = _jax_engine(jm, **kw)
+    for g, w in zip(_moe_streams(eng), _moe_streams(jeng)):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    assert sorted(eng.weight_quant_error) == sorted(jeng.weight_quant_error)
+    assert any(k.endswith("mlp/w1") for k in eng.weight_quant_error)
+    for key, want in jeng.weight_quant_error.items():
+        for name, v in want.items():
+            assert abs(eng.weight_quant_error[key][name] - v) <= 1e-6
+    want_bytes = sum(np.asarray(x).nbytes for x in
+                     jax.tree_util.tree_leaves(jeng._params))
+    assert eng.param_bytes() == want_bytes
+
+
+@pytest.mark.parametrize("moe_decode", ["dispatched", "dense"])
+def test_slab_moe_engine_matches_jax_engine(moe_lms, moe_decode):
+    """The all-MoE LM on the slab engine (JAX
+    ``tests/test_moe_serving.py`` :123): greedy streams token-identical
+    to JAX ``generate()`` and to the JAX slab engine, through the
+    dispatched decode and the dense baseline, with an n-gram verify."""
+    from distkeras_tpu.serving import NgramDraft as JaxNgramDraft
+    jm, pm = moe_lms
+    kw = dict(num_slots=3, max_len=32, kv_layout="slab",
+              moe_decode=moe_decode)
+    got = _moe_streams(_engine(pm, **kw))
+    want = _moe_streams(_jax_engine(jm, **kw))
+    for g, w, p, n in zip(got, want, MOE_WQ_PROMPTS, MOE_WQ_BUDGETS):
+        np.testing.assert_array_equal(g, np.asarray(w))
+        np.testing.assert_array_equal(g, _ref(jm, p, n))
+    eng = _engine(pm, max_len=48, draft=NgramDraft(), spec_k=3, **{
+        k: v for k, v in kw.items() if k != "max_len"})
+    jeng = _jax_engine(jm, max_len=48, draft=JaxNgramDraft(), spec_k=3,
+                       **{k: v for k, v in kw.items() if k != "max_len"})
+    prompt = np.tile(PATTERN, 3)[:14]
+    r, jr = eng.submit(prompt, 12), jeng.submit(prompt, 12)
+    np.testing.assert_array_equal(eng.run(max_steps=300)[r],
+                                  np.asarray(jeng.run(max_steps=300)[jr]))
 
 
 def test_engine_staggered_arrivals_match_generate(moe_lms):

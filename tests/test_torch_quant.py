@@ -42,6 +42,9 @@ def _pair(cfg):
             kw["num_kv_heads"] = 2
         if cfg == "posemb":
             kw.update(use_rope=False, max_len=24)
+        if cfg.startswith("moe"):
+            # stacked expert leaves, an even and an odd expert count
+            kw.update(moe_every=1, num_experts=5 if cfg == "moe-odd" else 4)
         jm = JaxModel.build(jax_zoo.transformer_lm(V, **kw), (8,), seed=5)
         pm = Model.build(zoo.transformer_lm(V, **kw), (8,), seed=5,
                          device="cpu")
@@ -87,6 +90,13 @@ QW_CASES = {
     "wo-int8": ((4, 8, 32), (0, 1), 8),
     "wo-int4": ((4, 8, 32), (0, 1), 4),
     "embed-odd-vocab-int4": ((41, 32), None, 4),
+    # MoE's stacked expert leaves: w1 [E, d, h], w2 [E, h, d], one scale
+    # per output channel shared by every expert; int4 packs along the
+    # expert axis when E is even
+    "experts-w1-int8": ((4, 16, 24), None, 8),
+    "experts-w1-int4-even": ((4, 16, 24), None, 4),
+    "experts-w1-int4-odd": ((5, 16, 24), None, 4),
+    "experts-w2-int8-odd": ((5, 24, 16), None, 8),
 }
 
 
@@ -143,7 +153,7 @@ def _walk_pairs(ours, theirs, path=""):
             yield from _walk_pairs(a, b, f"{path}[{i}]")
 
 
-@pytest.mark.parametrize("cfg", ["mha", "posemb"])
+@pytest.mark.parametrize("cfg", ["mha", "posemb", "moe", "moe-odd"])
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quantize_params_tree_bitwise_jax(cfg, bits):
     jm, pm = _pair(cfg)

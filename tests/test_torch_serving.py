@@ -20,8 +20,9 @@ from distkeras_tpu.models.decoding import generate
 
 from distkeras_tpu_torch.models import Model, from_jax_params, zoo
 from distkeras_tpu_torch.serving import (AdmissionRejected, DraftModel,
-                                         DraftSource, NgramDraft,
-                                         PagedKVPool, RequestState,
+                                         DraftSource, FIFOScheduler,
+                                         KVPool, NgramDraft, PagedKVPool,
+                                         PriorityScheduler, RequestState,
                                          ServingEngine, ServingMetrics)
 
 V = 29
@@ -226,17 +227,25 @@ def test_quantized_kv_engine_matches_generate(lms, cache_dtype):
                                 {"timeseries": object()}])
 def test_later_slices_raise_naming_the_roadmap(lms, kw):
     """The options of later slices raise naming their ROADMAP item; the
-    ones ported since (``hbm_budget``, ``weights_dtype``,
-    ``decode_kernel``, ``engine_id``) take effect."""
+    ones ported since (``kv_layout="slab"``, ``host_kv_pages``,
+    ``hbm_budget``, ``weights_dtype``, ``decode_kernel``, ``engine_id``)
+    take effect and serve a request."""
     _, pm = lms
     (name, value), = kw.items()
-    if name not in ("hbm_budget", "weights_dtype", "decode_kernel",
-                    "engine_id"):
+    if name not in ("kv_layout", "host_kv_pages", "hbm_budget",
+                    "weights_dtype", "decode_kernel", "engine_id"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(pm, device="cpu", **kw)
         return
-    eng = ServingEngine(pm, device="cpu", page_len=4, **kw)
-    if name == "hbm_budget":
+    eng = ServingEngine(pm, device="cpu",
+                        **({} if name == "kv_layout" else {"page_len": 4}),
+                        **kw)
+    if name == "kv_layout":
+        assert isinstance(eng.pool, KVPool) and eng.page_len is None
+    elif name == "host_kv_pages":
+        assert eng.pool.host_pages == value
+        assert eng.health()["pages"]["host"]["free"] == value
+    elif name == "hbm_budget":
         assert eng.pool.num_pages == (value - eng.param_bytes()) \
             // eng.pool.page_bytes
     elif name == "weights_dtype":
@@ -256,15 +265,24 @@ def test_later_slices_raise_naming_the_roadmap(lms, kw):
 ])
 def test_pool_options_of_later_slices_raise_naming_the_roadmap(lms, kw,
                                                                 item):
-    """The JAX pool's host tier raises naming its ROADMAP item; the byte
-    budget is ported: whole pages of ``hbm_budget - reserve_bytes``
+    """The JAX pool's options are all ported: the host tier holds
+    ``host_pages`` pages of every plane in host memory and takes a swap;
+    the byte budget sizes whole pages of ``hbm_budget - reserve_bytes``
     (``reserve_bytes`` alone changes nothing). The "off" values stay
-    accepted."""
+    accepted. (The ids keep the ROADMAP items the options waited for.)"""
     _, pm = lms
     (name, value), = kw.items()
     if name == "host_pages":
-        with pytest.raises(NotImplementedError, match=item):
-            PagedKVPool(pm.module, 2, 32, page_len=4, device="cpu", **kw)
+        pool = PagedKVPool(pm.module, 2, 32, page_len=4, device="cpu", **kw)
+        kv = next(kv for kv in pool.host_cache if kv is not None)
+        assert kv["k"].shape[0] == value and pool.host_free_pages == value
+        pid = pool.alloc_page()
+        hids = pool.offload_pages([pid])
+        assert len(hids) == 1 and pool.host_free_pages == value - 1
+        assert pool.offload_bytes == pool.page_bytes
+        with pytest.raises(ValueError, match="host_pages"):
+            PagedKVPool(pm.module, 2, 32, page_len=4, device="cpu",
+                        host_pages=-1)
     else:
         pool = PagedKVPool(pm.module, 2, 32, page_len=4, device="cpu",
                            **kw)
@@ -1469,3 +1487,615 @@ def test_sampled_engine_stream_equals_generate(lms, knobs):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         pm.generate(PATTERN[None, :5], 14, seed=21, **knobs)[0], want)
+
+
+# --- the slab engine (kv_layout="slab") --------------------------------------
+#
+# The JAX package's slab oracles (tests/test_serving.py :420, :452, :825,
+# :849, tests/test_spec_decode.py :184) rerun on the port, each against
+# the JAX slab engine on the same weights and workload.
+
+SLAB_PROMPTS = [PATTERN[:4], np.tile(PATTERN, 2)[:13], PATTERN[:3],
+                PATTERN[:6]]
+SLAB_BUDGETS = [7, 6, 9, 5]
+
+
+def _slab_streams(eng):
+    """Staggered arrivals through three slots (one waits for a free
+    one): the streams in submit order."""
+    rids = [eng.submit(p, b) for p, b in zip(SLAB_PROMPTS[:2],
+                                             SLAB_BUDGETS[:2])]
+    eng.step()
+    rids += [eng.submit(p, b) for p, b in zip(SLAB_PROMPTS[2:],
+                                              SLAB_BUDGETS[2:])]
+    out = eng.run(max_steps=500)
+    return [out[r] for r in rids]
+
+
+@pytest.mark.parametrize("cache_dtype", [None, "int8", "int4"])
+def test_slab_engine_matches_generate_and_jax_engine(lms, cache_dtype):
+    """Greedy slab streams (FCFS admission, a queued request, chunked
+    prefill) are token-identical to JAX ``generate()`` and to JAX's slab
+    engine at every cache dtype the JAX slab engine takes."""
+    from distkeras_tpu.serving import KVPool as JaxKVPool
+    jm, pm = lms
+    kw = dict(num_slots=3, max_len=32, prefill_chunk=4,
+              kv_layout="slab", cache_dtype=cache_dtype)
+    eng = ServingEngine(pm, device="cpu", **kw)
+    assert isinstance(eng.pool, KVPool) and eng.prefix is None
+    assert isinstance(eng.scheduler, FIFOScheduler)
+    assert not isinstance(eng.scheduler, PriorityScheduler)
+    kv = next(kv for kv in eng.pool.cache if kv is not None)
+    assert kv["k"].shape[:3] == (3, 4, 32)
+    jeng = _jax_engine(jm, **kw)
+    assert isinstance(jeng.pool, JaxKVPool)
+    got, want = _slab_streams(eng), _slab_streams(jeng)
+    for g, w, p, n in zip(got, want, SLAB_PROMPTS, SLAB_BUDGETS):
+        np.testing.assert_array_equal(g, np.asarray(w))
+        np.testing.assert_array_equal(
+            g, _ref(jm, p, n, cache_dtype=cache_dtype, prefill_chunk=4))
+    assert eng.metrics.requests_preempted == 0
+
+
+SLAB_CASES = {
+    "sync": dict(overlap=False),
+    "fuse4": dict(fuse_steps=4),
+    "ngram-linear": dict(spec_k=3),
+    "ngram-tree": dict(spec_k=3, spec_tree=True, spec_width=2),
+    "wq-int8": dict(weight_quant="int8"),
+    "wq-int4": dict(weight_quant="int4"),
+    "wq-int8-int4-pages-ngram": dict(weight_quant="int8",
+                                     cache_dtype="int4", spec_k=3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLAB_CASES))
+def test_slab_engine_options_match_jax_engine(lms, case):
+    """The slab engine's options as in JAX: the synchronous loop, fused
+    windows, chain and tree speculation (token-tiled prompts the n-gram
+    draft predicts) and quantized weights, each token-identical to the
+    JAX slab engine and to ``generate()``."""
+    from distkeras_tpu.serving import NgramDraft as JaxNgramDraft
+    jm, pm = lms
+    kw = dict(num_slots=3, max_len=48, kv_layout="slab", prefill_chunk=4,
+              **SLAB_CASES[case])
+    spec = "spec_k" in kw
+    prompts = [np.tile(PATTERN, 3)[:14], PATTERN[:5], np.tile(PATTERN, 2)[:9]]
+    budgets = [12, 9, 14]
+
+    def streams(eng):
+        rids = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
+        n_steps = 0
+        out = {}
+        while eng.scheduler.pending:
+            for r in eng.step():
+                out[r.rid] = r.tokens
+            n_steps += 1
+        return [out[r] for r in rids], n_steps
+
+    got, steps = streams(ServingEngine(
+        pm, device="cpu", draft=NgramDraft() if spec else None, **kw))
+    want, _ = streams(_jax_engine(
+        jm, draft=JaxNgramDraft() if spec else None, **kw))
+    for g, w, p, n in zip(got, want, prompts, budgets):
+        np.testing.assert_array_equal(g, np.asarray(w))
+        np.testing.assert_array_equal(
+            g, _ref(jm, p, n, cache_dtype=kw.get("cache_dtype"),
+                    prefill_chunk=4))
+    if spec:
+        # the drafts were accepted: fewer iterations than tokens
+        assert steps < sum(budgets)
+
+
+@pytest.mark.parametrize("loop", ["overlap", "fuse4", "spec-tree"])
+def test_slab_sampled_streams_byte_identical_to_jax_engine(lms, loop):
+    """Seeded sampled requests beside a greedy one on the slab engine:
+    every stream equals the JAX slab engine's, byte for byte."""
+    from distkeras_tpu.serving import NgramDraft as JaxNgramDraft
+    jm, pm = lms
+    kw = dict(SAMPLED_LOOPS[loop], kv_layout="slab")
+
+    def streams(engine, model, draft, **extra):
+        if loop.startswith("spec"):
+            extra["draft"] = draft()
+        eng = engine(model, num_slots=3, max_len=32, **kw, **extra)
+        rids = [eng.submit(p, 12, **k) for p, k in SAMPLED_REQS]
+        out = eng.run(max_steps=400)
+        return [out[r] for r in rids]
+
+    got = streams(ServingEngine, pm, NgramDraft, device="cpu")
+    want = streams(_jax_engine, jm, JaxNgramDraft)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    assert not np.array_equal(got[4], _ref(jm, PATTERN[:5], 12))
+
+
+def _slab_contents(module, rs, n_slots, length, dtype=np.float32):
+    """Seeded content of every attention layer's slab rows: ``[{"k",
+    "v"}]`` numpy ``[S, Hkv, L, Dh]`` (None for other layers)."""
+    from distkeras_tpu_torch.models.decoding import init_cache
+    shapes = init_cache(module, n_slots, length, torch.float32, "meta")
+    return [None if kv is None else
+            {key: rs.randn(*kv[key].shape).astype(dtype)
+             for key in ("k", "v")} for kv in shapes]
+
+
+def test_decode_step_slots_matches_jax_and_the_gather_readout(lms):
+    """One slab decode step over seeded rows: logits within 1e-5 of JAX's
+    ``decode_step_slots`` (float32), the rows written at each slot's
+    position as JAX writes them, a free slot (t = L) writing nothing;
+    and the logits bitwise equal to the gather-readout paged step over
+    the same contents scattered across scrambled pages."""
+    import jax.numpy as jnp
+    from distkeras_tpu.models.decoding import (
+        _resolve_head_dims, decode_step_slots as jax_step,
+        init_cache as jax_init)
+    from distkeras_tpu_torch.models import decoding as pd
+    jm, pm = lms
+    _resolve_head_dims(jm.module, jm.params)
+    n_slots, length, page_len = 3, 12, 4
+    rs = np.random.RandomState(5)
+    rows = _slab_contents(pm.module, rs, n_slots, length)
+    tok = np.array([3, 7, 11], np.int64)
+    t = np.array([5, 11, length], np.int32)          # slot 2 is free
+    pool = KVPool(pm.module, n_slots, length, device="cpu")
+    for kv, r in zip(pool.cache, rows):
+        if kv is not None:
+            for key in ("k", "v"):
+                kv[key].copy_(torch.from_numpy(r[key]))
+    jcache = [None if r is None else
+              {key: jnp.asarray(r[key]) for key in ("k", "v")}
+              for r in rows]
+    assert len(jcache) == len(jax_init(jm.module, n_slots, length))
+    want, jnew = jax_step(jm.module, jm.params, jm.state, jcache,
+                          jnp.asarray(tok.astype(np.int32)),
+                          jnp.asarray(t))
+    params = pm.params
+    got, _ = pd.decode_step_slots(pm.module, params, pool.cache,
+                                  torch.from_numpy(tok), torch.from_numpy(t))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    for kv, jkv, r in zip(pool.cache, jnew, rows):
+        if kv is None:
+            continue
+        for key in ("k", "v"):
+            np.testing.assert_allclose(kv[key].numpy(), np.asarray(jkv[key]),
+                                       atol=1e-5, rtol=1e-5)
+            np.testing.assert_array_equal(kv[key][2].numpy(), r[key][2])
+    # the same contents scattered over pages: the gather readout is the
+    # slab readout, bit for bit
+    table = np.array([[5, 2, 0], [1, 4, 3], [8, 7, 6]], np.int32)
+    paged = PagedKVPool(pm.module, n_slots, length, page_len=page_len,
+                        num_pages=9, device="cpu")
+    for kv, r in zip(paged.cache, rows):
+        if kv is None:
+            continue
+        for key in ("k", "v"):
+            pages = torch.from_numpy(r[key]).reshape(
+                n_slots, -1, 3, page_len, r[key].shape[-1]).transpose(1, 2)
+            kv[key][torch.from_numpy(table.astype(np.int64))] = pages
+    got_p, _ = pd.decode_step_slots_paged(
+        pm.module, params, paged.cache, torch.from_numpy(tok),
+        torch.from_numpy(np.minimum(t, length - 1)),
+        torch.from_numpy(table), page_len, paged_kernel=False)
+    live = slice(0, 2)            # the free slot's sentinel differs
+    np.testing.assert_array_equal(got_p[live].numpy(), got[live].numpy())
+
+
+def test_slab_insert_writes_only_prompt_positions(lms):
+    """``KVPool.insert`` writes the prompt's positions of one row and
+    nothing else, as JAX's does (JAX :825)."""
+    import jax
+    import jax.numpy as jnp
+    from distkeras_tpu.models.decoding import _resolve_head_dims
+    from distkeras_tpu.serving import KVPool as JaxKVPool
+    jm, pm = lms
+    _resolve_head_dims(jm.module, jm.params)
+    pool = KVPool(pm.module, num_slots=3, max_len=10, device="cpu")
+    jpool = JaxKVPool(jm.module, num_slots=3, max_len=10)
+    for kv in pool.cache:
+        if kv is not None:
+            for key in ("k", "v"):
+                kv["sink"][key].fill_(9.0)
+    jpool.cache = jax.tree_util.tree_map(lambda x: jnp.full_like(x, 9.0),
+                                         jpool.cache)
+    req = pool.make_request_cache()
+    for kv in req:
+        if kv is not None:
+            for key in ("k", "v"):
+                kv[key].fill_(7.0)
+    jreq = jax.tree_util.tree_map(lambda x: jnp.full_like(x, 7.0),
+                                  jpool.make_request_cache())
+    pool.insert(req, 1, n_pos=3)
+    jpool.insert(jreq, 1, n_pos=3)
+    for kv, jkv in zip(pool.cache, jpool.cache):
+        if kv is None:
+            continue
+        arr = kv["k"].numpy()
+        np.testing.assert_array_equal(arr, np.asarray(jkv["k"]))
+        assert (arr[1][:, :3] == 7.0).all()
+        assert (arr[1][:, 3:] == 9.0).all()
+        assert (arr[0] == 9.0).all() and (arr[2] == 9.0).all()
+        assert (kv["sink"]["k"][3] == 9.0).all()       # the sink row
+    with pytest.raises(ValueError, match="n_pos"):
+        pool.insert(req, 1, n_pos=11)
+    with pytest.raises(ValueError, match="slot"):
+        pool.insert(req, 3, n_pos=2)
+
+
+def test_slab_summary_and_health_match_jax(lms):
+    """A slab engine reports no pages: ``summary()["pages"]`` is None and
+    ``health()`` has no ``"pages"`` or ``"prefix_cache"`` key, as the
+    JAX slab engine's (JAX :849-871); the paged engine's health carries
+    both, with the host tier None when it is off."""
+    jm, pm = lms
+    slab = ServingEngine(pm, num_slots=1, max_len=16, kv_layout="slab",
+                         device="cpu")
+    jslab = _jax_engine(jm, num_slots=1, max_len=16, kv_layout="slab")
+    for eng in (slab, jslab):
+        eng.submit(PATTERN[:4], 3)
+        eng.run(max_steps=200)
+    assert slab.metrics.summary()["pages"] is None
+    assert jslab.metrics.summary()["pages"] is None
+    h = slab.health()
+    assert "pages" not in h and "prefix_cache" not in h
+    assert "pages" not in jslab.health()
+    assert h["slots"] == jslab.health()["slots"]
+    assert h["requests"]["finished"] == 1
+    paged = ServingEngine(pm, num_slots=1, max_len=16, page_len=4,
+                          device="cpu")
+    assert paged.health()["pages"]["host"] is None
+
+
+@pytest.mark.parametrize("kw,msg", [
+    ({"host_kv_pages": 4}, "host_kv_pages"),
+    ({"hbm_budget": 1 << 30}, "hbm_budget"),
+    ({"decode_kernel": "off"}, "decode_kernel")])
+def test_slab_refuses_paged_only_options(lms, kw, msg):
+    """Paged-only options raise ``ValueError`` on a slab engine (JAX
+    :441-455), as the JAX engine's do."""
+    jm, pm = lms
+    with pytest.raises(ValueError, match=msg):
+        ServingEngine(pm, device="cpu", kv_layout="slab", **kw)
+    with pytest.raises(ValueError, match=msg):
+        _jax_engine(jm, kv_layout="slab", **kw)
+
+
+def test_slab_priority_is_fcfs(lms):
+    """The slab engine ignores priority classes: admission is FCFS, as
+    JAX's ``FIFOScheduler``."""
+    jm, pm = lms
+    orders = []
+    for eng in (ServingEngine(pm, num_slots=1, max_len=16,
+                              kv_layout="slab", device="cpu"),
+                _jax_engine(jm, num_slots=1, max_len=16, kv_layout="slab")):
+        rids = [eng.submit(PATTERN[:3], 2, priority=2),
+                eng.submit(PATTERN[:4], 2, priority=0)]
+        order = []
+        while eng.scheduler.pending:
+            order += [r.rid for r in eng.step()]
+        orders.append(order)
+        assert order == rids
+    assert orders[0] == orders[1]
+
+
+# --- host KV offload (host_kv_pages) ------------------------------------------
+#
+# The JAX package's offload oracles (tests/test_serving.py :556, :589,
+# :651, :712 and tests/test_swap_async.py) rerun on the port against the
+# JAX engine or pool on the same workload: the streams, the counters and
+# the laziness of the fence must match.
+
+
+def _host_counters(pool):
+    return (pool.pages_offloaded, pool.pages_restored, pool.offload_bytes,
+            pool.host_fences, pool.host_swap_pending, pool.host_free_pages)
+
+
+def _drain_tracking(eng):
+    """Drain the engine; returns ``({rid: tokens}, max pending swap)``."""
+    out, max_pending = {}, 0
+    while eng.scheduler.pending:
+        for r in eng.step():
+            out[r.rid] = r.tokens
+        max_pending = max(max_pending, eng.pool.host_swap_pending)
+    return out, max_pending
+
+
+@pytest.mark.parametrize("loop", LOOP_KW, ids=LOOP_IDS)
+@pytest.mark.parametrize("host_pages", [0, 16])
+def test_preemption_resume_matches_jax_engine(lms, host_pages, loop):
+    """Two streams outgrow an 8-page pool: the younger is preempted and
+    resumes by re-prefill (``host_kv_pages=0``) or by swapping its pages
+    back (16). Streams equal ``generate()``; the swap traffic, the
+    fences, the pending backlog and the metrics' offload counters equal
+    the JAX engine's (JAX :556, ``tests/test_swap_async.py`` :119)."""
+    jm, pm = lms
+    kw = dict(num_slots=2, max_len=32, page_len=4, num_pages=8,
+              prefix_cache=False, host_kv_pages=host_pages, **loop)
+    runs = []
+    for eng in (ServingEngine(pm, device="cpu", **kw), _jax_engine(jm, **kw)):
+        r0 = eng.submit(PATTERN[:5], 16)
+        eng.step()
+        eng.step()
+        r1 = eng.submit(PATTERN[:6], 15)
+        out, max_pending = _drain_tracking(eng)
+        np.testing.assert_array_equal(out[r0], _ref(jm, PATTERN[:5], 16))
+        np.testing.assert_array_equal(out[r1], _ref(jm, PATTERN[:6], 15))
+        off = eng.metrics.summary()["offload"]
+        runs.append((_host_counters(eng.pool) if host_pages else None,
+                     max_pending, eng.metrics.requests_preempted,
+                     {k: off[k] for k in ("pages_offloaded",
+                                          "pages_restored",
+                                          "offload_bytes",
+                                          "reprefill_tokens",
+                                          "reprefill_tokens_avoided")},
+                     off["resume_swap_s"] is None,
+                     off["resume_reprefill_s"] is None))
+    assert runs[0] == runs[1]
+    assert runs[0][2] >= 1
+    if host_pages:
+        pool = eng.pool
+        assert pool.pages_offloaded >= 1
+        assert pool.pages_restored == pool.pages_offloaded
+        assert runs[0][1] > 0                  # a fence was deferred
+        assert pool.host_fences <= runs[0][2]
+        assert runs[0][3]["reprefill_tokens_avoided"] > 0
+
+
+@pytest.mark.parametrize("host_pages", [0, 16])
+def test_preempted_sampled_request_resumes_key_stream(lms, host_pages):
+    """A sampled request preempted mid-decode draws the tokens of an
+    ample pool's run, by re-prefill or by swap-in, as the JAX engine's
+    does (JAX :589)."""
+    jm, pm = lms
+
+    def run(engine, model, num_pages, host, **extra):
+        eng = engine(model, num_slots=2, max_len=32, page_len=4,
+                     num_pages=num_pages, prefix_cache=False,
+                     host_kv_pages=host, **extra)
+        eng.submit(PATTERN[:5], 16)              # a greedy page hog
+        srid = eng.submit(PATTERN[:4], 14, temperature=0.9, top_p=0.95,
+                          seed=7)
+        out = eng.run(max_steps=3000)
+        return (out[srid], eng.metrics.requests_preempted,
+                eng.pool.pages_offloaded)
+
+    ample, p_ample, _ = run(ServingEngine, pm, 16, 0, device="cpu")
+    tight, p_tight, offloaded = run(ServingEngine, pm, 8, host_pages,
+                                    device="cpu")
+    jtight, jp, joff = run(_jax_engine, jm, 8, host_pages)
+    assert p_ample == 0 and p_tight >= 1
+    assert bool(offloaded) == bool(host_pages)
+    np.testing.assert_array_equal(ample, tight)
+    np.testing.assert_array_equal(tight, np.asarray(jtight))
+    assert (p_tight, offloaded) == (jp, joff)
+
+
+def test_prefix_cache_spills_to_host_and_restores(lms):
+    """A full reclaim spills the cached chain to the host tier (the
+    nodes stay), a same-prompt request restores it page by page and
+    hits, token-identical; the traffic equals the JAX engine's (JAX
+    :651)."""
+    jm, pm = lms
+    prompt = np.tile(PATTERN, 2)[:12]
+    seen = []
+    for eng in (ServingEngine(pm, num_slots=2, max_len=48, page_len=4,
+                              host_kv_pages=32, device="cpu"),
+                _jax_engine(jm, num_slots=2, max_len=48, page_len=4,
+                            host_kv_pages=32)):
+        ra = eng.submit(prompt, 5)
+        np.testing.assert_array_equal(eng.run(max_steps=300)[ra],
+                                      _ref(jm, prompt, 5))
+        n_nodes = len(eng.prefix)
+        assert n_nodes >= 3
+        freed = eng.prefix.reclaim(eng.pool.num_pages)
+        assert freed >= n_nodes and len(eng.prefix) == n_nodes
+        assert eng.pool.pages_offloaded >= n_nodes
+        restored = eng.pool.pages_restored
+        rb = eng.submit(prompt, 5)
+        np.testing.assert_array_equal(eng.run(max_steps=300)[rb],
+                                      _ref(jm, prompt, 5))
+        assert eng.pool.pages_restored > restored
+        assert eng.metrics.summary()["prefix_cache"]["hits"] >= 1
+        seen.append((freed, _host_counters(eng.pool), len(eng.prefix),
+                     eng.prefix.evictable_pages()))
+    assert seen[0] == seen[1]
+
+
+def _fill_pages(pool, pids, seed):
+    """Seeded content in physical pages ``pids`` of a port pool; returns
+    the numpy values written, ``[layer][key] -> [len(pids), ...]``."""
+    rs = np.random.RandomState(seed)
+    vals = []
+    for kv in pool.cache:
+        if kv is None:
+            vals.append(None)
+            continue
+        got = {}
+        for key in ("k", "v"):
+            x = rs.randn(len(pids), *kv[key].shape[1:]).astype(np.float32)
+            kv[key][torch.as_tensor(pids)] = torch.from_numpy(x)
+            got[key] = x
+        vals.append(got)
+    return vals
+
+
+def _page_values(pool, pid):
+    return [None if kv is None else
+            {key: kv[key][pid].numpy().copy() for key in ("k", "v")}
+            for kv in pool.cache]
+
+
+@pytest.mark.parametrize("case", ["roundtrip", "lazy-fence", "unread-drop",
+                                  "partial-free"])
+def test_pool_host_tier_matches_jax(lms, case):
+    """The host tier's contract, the same operations on the port's pool
+    and JAX's: a byte-identical round trip onto other pages, capacity
+    (None when full), a double free raises (JAX :712); the swap-out is
+    lazy (a snapshot: later writes do not reach it) and the first
+    restore fences it; a batch freed whole drops unfenced; a batch freed
+    in part fences its other pages (``tests/test_swap_async.py``). The
+    counters equal JAX's after every case."""
+    import jax.numpy as jnp
+    from distkeras_tpu.models.decoding import _resolve_head_dims
+    from distkeras_tpu.serving import PagedKVPool as JaxPagedKVPool
+    jm, pm = lms
+    _resolve_head_dims(jm.module, jm.params)
+    pool = PagedKVPool(pm.module, 2, 32, page_len=4, host_pages=3,
+                       device="cpu")
+    jpool = JaxPagedKVPool(jm.module, num_slots=2, max_len=32, page_len=4,
+                           host_pages=3)
+
+    def mirror():
+        jpool.cache = [None if kv is None else
+                       {key: jnp.asarray(kv[key].numpy())
+                        for key in ("k", "v")} for kv in pool.cache]
+
+    _fill_pages(pool, [0, 1, 2], 0)
+    mirror()
+    before = [_page_values(pool, p) for p in range(3)]
+    if case in ("roundtrip", "lazy-fence"):
+        ops = [("off", [0, 2])]
+    else:
+        ops = [("off", [0, 1])]
+    hids = pool.offload_pages(ops[0][1])
+    jhids = jpool.offload_pages(ops[0][1])
+    assert hids == jhids and pool.host_free_pages == 1
+    assert _host_counters(pool)[:5] == (2, 0, 2 * pool.page_bytes, 0, 2)
+    if case == "roundtrip":
+        assert pool.offload_pages([0, 1]) is None
+        assert jpool.offload_pages([0, 1]) is None
+    if case in ("roundtrip", "lazy-fence"):
+        # overwrite the source pages: the snapshot keeps the old bytes
+        _fill_pages(pool, [0, 2], 9)
+        mirror()
+        pool.restore_pages(hids, [5, 7])
+        jpool.restore_pages(jhids, [5, 7])
+        for src, dst in ((0, 5), (2, 7)):
+            for got, want, jkv in zip(_page_values(pool, dst), before[src],
+                                      jpool.cache):
+                if got is not None:
+                    for key in ("k", "v"):
+                        np.testing.assert_array_equal(got[key], want[key])
+                        np.testing.assert_array_equal(
+                            np.asarray(jkv[key][dst]), want[key])
+        pool.free_host(hids)
+        jpool.free_host(jhids)
+        with pytest.raises(RuntimeError, match="double-freed"):
+            pool.free_host([hids[0]])
+    elif case == "unread-drop":
+        pool.free_host(hids)
+        jpool.free_host(jhids)
+        with pytest.raises(RuntimeError, match="double-freed"):
+            pool.free_host(hids)
+    else:
+        pool.free_host(hids[:1])
+        jpool.free_host(jhids[:1])
+        pool.restore_pages(hids[1:], [6])
+        jpool.restore_pages(jhids[1:], [6])
+        for got, want in zip(_page_values(pool, 6), before[1]):
+            if got is not None:
+                for key in ("k", "v"):
+                    np.testing.assert_array_equal(got[key], want[key])
+        pool.free_host(hids[1:])
+        jpool.free_host(jhids[1:])
+    assert _host_counters(pool) == _host_counters(jpool)
+    assert pool.host_free_pages == 3
+    with pytest.raises(RuntimeError, match="no host page pool"):
+        PagedKVPool(pm.module, 2, 32, page_len=4,
+                    device="cpu").restore_pages([0], [0])
+
+
+def _prefix_victim(eng, prompt):
+    """Register ``prompt``'s pages, then bring a second request with the
+    same prompt to decode and preempt it (on the port's engine or JAX's);
+    returns ``(first rid, second rid, second request)``."""
+    ra = eng.submit(prompt, 4)
+    eng.run(max_steps=400)
+    rb = eng.submit(prompt, 12)
+    while eng[rb].state.value != "decoding":
+        eng.step()
+    eng.step()
+    req = eng[rb]
+    eng._preempt(req)
+    return ra, rb, req
+
+
+def _swap_of(req):
+    return req.swap if hasattr(req, "swap") else getattr(req, "_swap", None)
+
+
+@pytest.mark.parametrize("case", ["relink", "host-full", "cancel"])
+def test_prefix_aware_swap_matches_jax_engine(lms, case):
+    """The prefix-aware snapshot (``tests/test_swap_async.py`` :158-263),
+    on the port and on the JAX engine: prefix-resident pages are held,
+    not copied, and relinked at resume; with a host tier too small for
+    the private pages the victim re-prefills and no hold leaks; a
+    cancelled swapped victim drops its holds and its host pages
+    unfenced. Streams, refcounts and host counters equal JAX's."""
+    jm, pm = lms
+    prompt = np.tile(PATTERN, 2)[:12]
+    host = 1 if case == "host-full" else 16
+    seen = []
+    for eng in (ServingEngine(pm, num_slots=2, max_len=32, page_len=4,
+                              host_kv_pages=host, device="cpu"),
+                _jax_engine(jm, num_slots=2, max_len=32, page_len=4,
+                            host_kv_pages=host)):
+        _, rb, req = _prefix_victim(eng, prompt)
+        swap = _swap_of(req)
+        if case == "host-full":
+            assert swap is None
+            shared = [int(p) for p in list(eng.prefix._by_page)]
+        else:
+            assert swap is not None and len(swap["shared"]) >= 2
+            shared = [int(pid) for _lp, pid in swap["shared"]]
+            for pid in shared:
+                assert eng.pool.ref[pid] >= 2 and eng.prefix.resident(pid)
+        fences = eng.pool.host_fences
+        if case == "cancel":
+            eng.cancel(rb)
+            assert eng.pool.host_fences == fences     # dropped unfenced
+            out = None
+        else:
+            out = eng.run(max_steps=800)[rb]
+            np.testing.assert_array_equal(out, _ref(jm, prompt, 12))
+        for pid in shared:
+            if eng.prefix.resident(pid):
+                assert eng.pool.ref[pid] == 1         # cache-only again
+        assert eng.pool.host_free_pages == eng.pool.host_pages
+        seen.append((None if swap is None else
+                     (list(swap["host"]), [int(x) for x in swap["logical"]],
+                      [(int(a), int(b)) for a, b in swap["shared"]],
+                      int(swap["t"])),
+                     _host_counters(eng.pool), sorted(shared),
+                     None if out is None else list(out)))
+    assert seen[0] == seen[1]
+
+
+def test_swapped_victim_preempted_before_its_swap_in(lms):
+    """A swapped-out stream re-admitted for its swap-in and preempted
+    again before its prefill turn keeps its snapshot: the slot's holds on
+    the prefix-resident pages go back to the snapshot, the stream still
+    resumes by a copy, token-identical, and every refcount and host page
+    is back to the cache's alone after the drain."""
+    jm, pm = lms
+    prompt = np.tile(PATTERN, 2)[:12]
+    eng = ServingEngine(pm, num_slots=2, max_len=32, page_len=4,
+                        host_kv_pages=16, device="cpu")
+    _, rb, req = _prefix_victim(eng, prompt)
+    shared = [int(pid) for _lp, pid in req.swap["shared"]]
+    holds = [int(eng.pool.ref[pid]) for pid in shared]
+    eng._admit()
+    assert req.state is RequestState.PREFILLING and req.swap is not None
+    eng._preempt(req)
+    assert req.state is RequestState.QUEUED and req.swap is not None
+    assert [int(eng.pool.ref[pid]) for pid in shared] == holds
+    restored = eng.pool.pages_restored
+    out = eng.run(max_steps=800)
+    np.testing.assert_array_equal(out[rb], _ref(jm, prompt, 12))
+    assert eng.pool.pages_restored > restored
+    assert eng.metrics.summary()["offload"]["resume_swap_s"] is not None
+    for pid in shared:
+        assert eng.pool.ref[pid] == 1
+    assert eng.pool.host_free_pages == eng.pool.host_pages

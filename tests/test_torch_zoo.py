@@ -324,6 +324,106 @@ def test_zoo_model_single_trainer_step_matches_jax(case):
     _assert_leaves_close(pm.state, jtrained_state, tol, "state")
 
 
+#: a MobileNet whose last blocks normalise over 5 x 5 pixels of 8 rows
+#: (200 values a channel): JAX's own training-mode spread falls to ~2e-5,
+#: so the port is held to ``MODEL_TOL`` there, not to ``_train_tol``
+MOBILENET_WIDE = (dict(num_classes=5, width_mult=0.125), (160, 160, 3), 8)
+
+
+@pytest.fixture(scope="module")
+def mobilenet_wide():
+    """The JAX MobileNet, the port's loaded with its weights and state,
+    and the input rows of ``MOBILENET_WIDE``."""
+    kw, shape, rows = MOBILENET_WIDE
+    jm, pm = _pair("mobilenet", kw, shape)
+    from_jax_params(pm, jax.device_get(jm.params), jax.device_get(jm.state))
+    x = np.random.RandomState(3).randn(rows, *shape).astype(np.float32)
+    return jm, pm, x
+
+
+def test_mobilenet_normalising_over_many_values_held_to_model_tol(
+        mobilenet_wide):
+    """Beside ``_train_tol``'s case: with 200 values a channel in the
+    last BatchNorms the JAX package's own spread (rows reversed) is under
+    ``MODEL_TOL``, and the port's eval forward, training forward and new
+    BatchNorm state are held to ``MODEL_TOL`` itself."""
+    jm, pm, x = mobilenet_wide
+    fwd = jax.jit(lambda p, s, xx: jm.apply(p, s, xx, training=True))
+
+    def jax_run(xx, reverse):
+        y, new = fwd(jm.params, jm.state, xx[::-1] if reverse else xx)
+        return [np.asarray(y)[::-1] if reverse else y, new]
+
+    jy, jnew = jax_run(x, False)
+    assert _spread([jy, jnew], jax_run(x, True)) < MODEL_TOL
+    assert _rel(pm.predict(x), jm.predict(x)) <= MODEL_TOL
+    state = [{k: v.clone() for k, v in layer.state_tree().items()}
+             if layer.has_state else None for layer in pm.module.layers]
+    pm.module.train()
+    try:
+        with torch.no_grad():
+            py = pm.module.apply(pm.params, torch.from_numpy(x),
+                                 state=state)
+    finally:
+        pm.module.eval()
+    assert _rel(py, jy) <= MODEL_TOL
+    _assert_leaves_close([s for s in state if s is not None],
+                         [s for s in jnew if s], MODEL_TOL, "trained state")
+
+
+def test_mobilenet_blocks_match_jax_forward_and_gradients(mobilenet_wide):
+    """Block by block (the stem, then each depthwise-separable block:
+    DepthwiseConv2D, BatchNorm, ReLU, 1x1 Conv2D, BatchNorm, ReLU), in
+    training mode on the JAX block's own input: the output, and the
+    gradients of a seeded cotangent's dot product with it for the input
+    and every parameter, each within ``LAYER_TOL`` of JAX's."""
+    jm, pm, x = mobilenet_wide
+    jl, pl = jm.module.layers, pm.module.layers
+    bounds = [(0, 3)] + [(3 + 6 * i, 9 + 6 * i) for i in range(13)]
+    assert bounds[-1][1] == len(jl) - 2          # then pooling and the head
+
+    def jax_block(params, xx, lo, hi):
+        for i in range(lo, hi):
+            xx, _ = jl[i].apply(params[i - lo], jm.state[i], xx,
+                                training=True)
+        return xx
+
+    h = jnp.asarray(x)
+    pm.module.train()
+    try:
+        for lo, hi in bounds:
+            jp = jm.params[lo:hi]
+            out = jax_block(jp, h, lo, hi)
+            ct = np.random.RandomState(lo).randn(*out.shape).astype(
+                np.float32)
+            jg = jax.jit(jax.grad(
+                lambda p, xx: jnp.sum(jax_block(p, xx, lo, hi) * ct),
+                argnums=(0, 1)))(jp, h)
+            pp = [{k: torch.tensor(np.asarray(v), requires_grad=True)
+                   for k, v in jm.params[i].items()} for i in range(lo, hi)]
+            px = torch.tensor(np.asarray(h), requires_grad=True)
+            y = px
+            for i in range(lo, hi):
+                kw = {}
+                if pl[i].has_state:
+                    kw["state"] = {k: v.clone() for k, v in
+                                   pl[i].state_tree().items()}
+                y = pl[i].apply(pp[i - lo], y, **kw)
+            leaves = [v for p in pp for v in p.values()]
+            grads = torch.autograd.grad((y * torch.from_numpy(ct)).sum(),
+                                        leaves + [px])
+            where = f"layers {lo}-{hi}"
+            assert _rel(y, out) <= LAYER_TOL, where
+            assert _rel(grads[-1], jg[1]) <= LAYER_TOL, where
+            jleaves = [v for p in jg[0] for v in p.values()]
+            assert len(jleaves) == len(leaves)
+            for g, r in zip(grads[:-1], jleaves):
+                assert _rel(g, r) <= LAYER_TOL, where
+            h = out
+    finally:
+        pm.module.eval()
+
+
 def test_vit_dropout_trains_apart_from_eval():
     """A dropout ViT's training forward draws (its output differs from
     the eval forward's) and a training forward without a key does not."""
