@@ -277,6 +277,27 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     launches of a batch, cuDNN's ``nn.LSTM`` as yardstick); a
     ``transformer_lm`` file written on the CPU loaded on the card with the
     writer's greedy tokens.
+30. the engine's other layouts (``slab_phase``, ``offload_phase``,
+    ``moe_wq_phase``): the slab pool, host KV offload, MoE experts under
+    int8/int4 weights (the all-MoE LM at ``MOE_WQ_LAYERS`` layers).
+31. the rest of the Trainer surface (``trainer_surface_phase``): on
+    phase 28's LeNet-5, ``EarlyStopping(restore_best_weights=True)``,
+    ``ModelCheckpoint`` (the file loads back on the card), ``CSVLogger``,
+    ``TerminateOnNaN`` and ``profile_dir`` in one run, ``EMAWeights``,
+    class weights, label smoothing, precision/recall/f1/auc card against
+    CPU (1e-3), a class-weighted run card against CPU, and
+    ``StreamingPredictor`` against ``ModelPredictor``; then on the 218M LM
+    at ``LM_CFG`` widths with phase 7's data: 8 steps with
+    ``fused_vocab_head=True`` and 8 without (losses and the head's
+    gradient within 5e-2, each head's peak memory and warm step, the
+    loss's device ms); 2 epochs with ``checkpoint_dir`` against the same
+    run preempted after epoch 0 and resumed by a fresh trainer (the final
+    carry bitwise), and with ``checkpoint_async=True`` (save() ms against
+    the writes' seconds, a checkpoint's bytes); the embedding and block 0
+    frozen for 4 steps (bitwise unchanged, the rest moved); 4 npz shards
+    through the prefetcher against the in-memory epoch (losses bitwise).
+    Every LM run launches exactly 12 of each flash kernel and one K7 a
+    step.
 
 Every serving phase runs the engine's default loop, ``overlap=True``;
 phase 20's teacher-forced runs use the synchronous one. Weights are
@@ -293,8 +314,11 @@ import copy
 import functools
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -303,12 +327,13 @@ import torch
 import torch.nn.functional as F
 
 from distkeras_tpu_torch import kernels
-from distkeras_tpu_torch.data import Dataset
-from distkeras_tpu_torch.inference import ModelPredictor
+from distkeras_tpu_torch.data import Dataset, ShardedDataset
+from distkeras_tpu_torch.inference import ModelPredictor, StreamingPredictor
 from distkeras_tpu_torch.models import (Model, Sequential,
                                         collect_aux_losses, zoo)
 from distkeras_tpu_torch.models.attention import TransformerBlock
 from distkeras_tpu_torch.models.blocks import Remat
+from distkeras_tpu_torch.models.core import eval_mode
 from distkeras_tpu_torch.models.moe import MoE, _dispatch_plan
 from distkeras_tpu_torch.models.decoding import (CACHE_PLANES,
                                                  _decode_block_of,
@@ -333,7 +358,10 @@ from distkeras_tpu_torch.ops.moe_kernels import (
     src_tokens)
 from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.losses import (
-    get_loss, sparse_categorical_crossentropy_from_logits)
+    fused_linear_cross_entropy, get_loss,
+    sparse_categorical_crossentropy_from_logits, with_class_weight,
+    with_label_smoothing)
+from distkeras_tpu_torch.ops.metrics import auc, f1, precision, recall
 from distkeras_tpu_torch.ops.optimizers import (adam, apply_updates,
                                                 get_optimizer)
 from distkeras_tpu_torch.ops.paged_attention import (
@@ -354,9 +382,15 @@ from distkeras_tpu_torch.parallel import (SingleTrainer, TrainCarry,
 from distkeras_tpu_torch.parallel.engine import (
     AdagAlgo, AveragingAlgo, DistributedEngine, DownpourAlgo, DynSGDAlgo,
     ElasticAlgo, EngineConfig, WorkerStack)
+from distkeras_tpu_torch.parallel.worker import _fused_head_parts
 from distkeras_tpu_torch.serving import (DraftModel, KVPool, NgramDraft,
                                          PagedKVPool, ServingEngine,
                                          tree_ancestors)
+from distkeras_tpu_torch.utils.callbacks import (CSVLogger, EarlyStopping,
+                                                 EMAWeights, LambdaCallback,
+                                                 ModelCheckpoint,
+                                                 TerminateOnNaN)
+from distkeras_tpu_torch.utils.checkpoint import CheckpointManager
 from distkeras_tpu_torch.utils.tree import (tree_leaves, tree_map,
                                             tree_unflatten)
 
@@ -1172,20 +1206,23 @@ def check_training(trainer, launches, num_layers,
 
 
 def profile_training(model, card, label="training",
-                     prefix="profile-train", groups=(), ranges=()):
+                     prefix="profile-train", groups=(), ranges=(),
+                     fused=False):
     """The steady training step: wall time over a few steps (after one
     warm step), tokens/s, peak device memory, and (unless ``prefix`` is
     None) ``torch.profiler`` over one step: device time per kernel, the
     device's busy share, for each ``(label, key substrings)`` of
     ``groups`` the summed device time of the kernels it names and, for
     each function of ``ranges`` (``_Ranges``), the device time of the
-    kernels its calls launched."""
+    kernels its calls launched. ``fused`` trains through the fused vocab
+    head (``make_train_step(fused_vocab_head=)``)."""
     from torch.profiler import ProfilerActivity, profile
     data = training_data(model.module.layers[0].vocab_size, rows=TRAIN_BATCH)
     xb, yb = (torch.from_numpy(a).to(model.device) for a in data.arrays())
     opt = adam(TRAIN_LR)
     step = make_train_step(model.module,
-                           sparse_categorical_crossentropy_from_logits, opt)
+                           sparse_categorical_crossentropy_from_logits, opt,
+                           fused_vocab_head=fused)
     carry = TrainCarry(model.params, opt.init(model.params))
     carry, _ = step(carry, (xb, yb))
     torch.cuda.synchronize()
@@ -1219,7 +1256,8 @@ def profile_training(model, card, label="training",
         ops.sort(key=lambda e: -e.self_device_time_total)
         busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
         busy = (f"device busy {busy_ms:.1f} ms in the profiled step "
-                f"({100 * busy_ms / step_ms:.0f}% of a step's wall time)")
+                f"({100 * busy_ms / step_ms:.0f}% of a step's wall time), "
+                f"{sum(e.count for e in ops)} CUDA kernels")
     print(f"{label} on {card}: {step_ms:.1f} ms/step (B{TRAIN_BATCH} "
           f"S{TRAIN_SEQ}, adam, profiler off), {tokens / step_ms * 1e3:.0f} "
           f"tokens/s, peak device memory {peak_gb:.2f} GiB ({base_gb:.2f} "
@@ -5567,6 +5605,10 @@ OFFLOAD_HOST_PAGES = 256
 UNPRESSURED_PAGES = 4 * 2048 // 16
 #: phase 30's quantized MoE requests: B4 prompts of this many tokens
 MOE_WQ_PROMPT = 128
+#: the depth of phase 30's quantized MoE LM (``LM_CFG`` widths, 8
+#: experts): 6 of the 12 layers, so the whole script stays near 800 s
+#: (six engines quantize the tree and measure its error on the host)
+MOE_WQ_LAYERS = 6
 #: the kernels a slab engine's decode never launches (its readout is
 #: plain PyTorch, as JAX's slab engine keeps its einsum path)
 ATTN_DECODE_KERNELS = ("decode_attention", "decode_attention_q8",
@@ -5791,7 +5833,8 @@ def offload_phase(model, card, tie_rel, reprefill_summary):
 
 
 def moe_wq_phase(dev, card):
-    """(c) The 520.5M all-MoE LM under int8 and int4 weights: each
+    """(c) The all-MoE LM at ``MOE_WQ_LAYERS`` layers under int8 and int4
+    weights: each
     ``generate(weights_dtype=)`` on B4 prompts (K5 exactly 49 a decode
     step, q/k/v/o a layer and the head, plus one prefill head; no K6a:
     the experts are dequantized for the layer's own dense dispatch), then
@@ -5802,9 +5845,9 @@ def moe_wq_phase(dev, card):
     ms a step against its bound, steady decode profiled with int8 and
     int4 weights, and each forced dispatched run's peak memory against
     the bf16 engine's on the same streams."""
-    model = build_moe_lm(dev)
+    layers = MOE_WQ_LAYERS
+    model = build_moe_lm(dev, num_layers=layers)
     vocab = model.module.layers[0].vocab_size
-    layers = MOE_LAYERS
     eng_mod = sys.modules["distkeras_tpu_torch.serving.engine"]
     rs = np.random.RandomState(SEED + 31)
     prompts = rs.randint(0, vocab, (4, MOE_WQ_PROMPT))
@@ -5899,6 +5942,413 @@ def moe_wq_phase(dev, card):
     del model
     gc.collect()
     return launches
+
+
+# --- phase 31: the rest of the Trainer surface --------------------------------
+
+#: the fused head's per-step losses and head gradient against the unfused
+#: ones: bf16 logits and log-softmax against float32-accumulated chunks
+FUSED_HEAD_TOL = 5e-2
+#: the free disk phase 31's checkpoints need: a 218M carry (float32
+#: weights and two adam moments, ~2.6 GB) kept for the comparison while
+#: another directory writes its step beside the one it replaces
+CKPT_FREE_BYTES = 12 * 2 ** 30
+#: the card against the CPU on the same LeNet-5 logits and weights: class
+#: weights, label smoothing, the macro metrics and auc, a class-weighted
+#: training run (float32 both sides, cuDNN's order of sums)
+SURFACE_TOL = 1e-3
+#: the kernels a 218M training step launches: 12 of each flash kernel
+#: and one key split (K7)
+TRAINER_KERNELS = TRAINING_KERNELS + ("prng",)
+
+
+class _TimedManager(CheckpointManager):
+    """The trainers' manager with ``max_to_keep=1``, timing what
+    ``save()`` holds the loop (the fenced snapshot, and the write unless
+    it is queued) and what each disk write takes."""
+
+    def __init__(self, directory, async_writes=False):
+        super().__init__(directory, max_to_keep=1, async_writes=async_writes)
+        self.save_s, self.write_s, self.nbytes = [], [], 0
+
+    def save(self, step, tree, metadata=None):
+        t0 = time.perf_counter()
+        out = super().save(step, tree, metadata)
+        self.save_s.append(time.perf_counter() - t0)
+        return out
+
+    def _write(self, step, flat, metadata, final):
+        t0 = time.perf_counter()
+        super()._write(step, flat, metadata, final)
+        self.write_s.append(time.perf_counter() - t0)
+        self.nbytes = sum(a.nbytes for a in flat.values())
+
+
+class _TimedTrainer(SingleTrainer):
+    """``SingleTrainer`` over a ``_TimedManager`` (kept on ``manager``)."""
+
+    def _checkpoint_manager(self):
+        self.manager = _TimedManager(self.checkpoint_dir,
+                                     self.checkpoint_async)
+        return self.manager
+
+
+def lm_trainer(model, cls=SingleTrainer, epochs=1, **kw):
+    """Phase 7's trainer (adam, B4, the plain cross-entropy) over
+    ``epochs`` epochs, with ``kw``'s options."""
+    return cls(model, worker_optimizer="adam", learning_rate=TRAIN_LR,
+               loss=TRAIN_LOSS, batch_size=TRAIN_BATCH, num_epoch=epochs,
+               **kw)
+
+
+def check_trainer_launches(label, launches, steps,
+                           num_layers=LM_CFG["num_layers"]):
+    """Exactly 12 launches of each flash kernel and one K7 a step."""
+    want = {name: num_layers * steps for name in TRAINING_KERNELS}
+    want["prng"] = steps
+    got = {name: launches[name] for name in TRAINER_KERNELS}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    return got
+
+
+def _within(got, ref, tol):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)))
+
+
+def head_gradients(model, xb, yb):
+    """The head kernel's gradient on ``(xb, yb)`` through the plain head
+    (bf16 logits, then the cross-entropy) and through the fused one, on
+    the same weights: ``(unfused, fused)`` as float32."""
+    loss_fn = sparse_categorical_crossentropy_from_logits
+    from distkeras_tpu_torch.parallel.worker import _fused_loss
+    fused = _fused_loss(_fused_head_parts(model.module, loss_fn, None), 8)
+    out = []
+    for objective in (None, fused):
+        _, g, _ = value_and_grad(model.module, loss_fn, model.params, xb, yb,
+                                 objective=objective)
+        out.append(g[-1]["kernel"].float())
+        del g
+    return out
+
+
+def fused_loss_ms(model, xb, yb):
+    """Device ms of the head's loss, forward and backward, on the
+    trunk's real hidden state: fused (8 chunks) and the plain head."""
+    loss_fn = sparse_categorical_crossentropy_from_logits
+    trunk, _, cdt = _fused_head_parts(model.module, loss_fn, None)
+    head = model.module.layers[-1]
+    w = model.params[-1]["kernel"]
+    with torch.no_grad():
+        h = trunk.apply(model.params[:-1], xb)
+    h.requires_grad_(True)
+
+    def fused():
+        loss = fused_linear_cross_entropy(h, w, yb, compute_dtype=cdt)
+        torch.autograd.grad(loss, (h, w))
+
+    def plain():
+        loss = loss_fn(yb, head.apply(model.params[-1], h))
+        torch.autograd.grad(loss, (h, w))
+
+    return time_ms(fused, iters=5, warmup=2), time_ms(plain, iters=5,
+                                                      warmup=2)
+
+
+def fused_head_phase(dev, card):
+    """(a) 8 steps with ``fused_vocab_head=True`` and 8 without, each
+    from the seed-0 weights: per-step losses and the head's gradient
+    within ``FUSED_HEAD_TOL``, exact launches, then each head's steady
+    step (ms, peak memory) and the loss's device ms."""
+    data = training_data(LM_CFG["vocab"])
+    steps = TRAIN_ROWS // TRAIN_BATCH
+    runs = {}
+    for fused in (False, True):
+        model = build_lm(dev)
+        if not fused:
+            xb, yb = (torch.from_numpy(a[:TRAIN_BATCH]).to(dev)
+                      for a in data.arrays())
+            gu, gf = head_gradients(model, xb, yb)
+            grad_err = float((gf - gu).abs().max() / gu.abs().max())
+            ms = fused_loss_ms(model, xb, yb)
+            del gu, gf
+        tr = lm_trainer(model, fused_vocab_head=fused)
+        launches = check_trainer_launches(
+            f"the {'fused' if fused else 'unfused'} head", counted_train(
+                tr, data), steps)
+        losses = tr.get_history().losses()
+        name = "fused" if fused else "plain"
+        step_ms, tok_s, peak_gb, _ = profile_training(
+            model, card, label=f"phase 31 {name} vocab head",
+            prefix=f"profile-{name}-head", fused=fused)
+        runs[fused] = (losses, launches, step_ms, peak_gb)
+        del tr, model
+        gc.collect()
+    loss_err = _within(runs[True][0], runs[False][0], FUSED_HEAD_TOL)
+    print(f"phase 31 (a) fused vocab head on {card}: per-step losses "
+          f"{np.array2string(runs[True][0], precision=4)} against "
+          f"{np.array2string(runs[False][0], precision=4)} (max rel "
+          f"{loss_err:.3e}); head gradient rel err {grad_err:.3e} (tol "
+          f"{FUSED_HEAD_TOL}); peak {runs[True][3]:.2f} GiB fused against "
+          f"{runs[False][3]:.2f} GiB plain; warm step {runs[True][2]:.1f} "
+          f"ms fused against {runs[False][2]:.1f} ms; the head's loss "
+          f"forward+backward {ms[0]:.3f} ms fused (8 chunks) against "
+          f"{ms[1]:.3f} ms plain (CUDA events); launches "
+          f"{runs[True][1]}", flush=True)
+    if not (loss_err <= FUSED_HEAD_TOL and grad_err <= FUSED_HEAD_TOL):
+        raise AssertionError("the fused vocab head disagrees with the plain "
+                             "head")
+    return runs[True][1]
+
+
+def _final_carry(manager, step):
+    return manager._read_verified(os.path.join(manager.directory,
+                                               f"step_{step}"))
+
+
+def resume_phase(dev, card, tmp):
+    """(b) 2 epochs uninterrupted with ``checkpoint_dir``; the same run
+    stopped after epoch 0 by ``request_preempt()`` and finished by a
+    fresh trainer with ``resume=True``; once more with
+    ``checkpoint_async=True``: the final carries bitwise equal."""
+    free = shutil.disk_usage(tmp).free
+    if free < CKPT_FREE_BYTES:
+        raise AssertionError(f"phase 31 needs {CKPT_FREE_BYTES} free bytes "
+                             f"under {tmp} for its checkpoints; {free} free")
+    data = training_data(LM_CFG["vocab"])
+    steps = TRAIN_ROWS // TRAIN_BATCH
+    whole = lm_trainer(build_lm(dev), _TimedTrainer, 2,
+                       checkpoint_dir=os.path.join(tmp, "whole"))
+    check_trainer_launches("the uninterrupted run", counted_train(
+        whole, data), 2 * steps)
+    holder = []
+    stop = LambdaCallback(on_epoch_end=lambda e, logs: e == 0
+                          and holder[0].request_preempt())
+    first = lm_trainer(build_lm(dev), _TimedTrainer, 2, callbacks=[stop],
+                       checkpoint_dir=os.path.join(tmp, "stopped"))
+    holder.append(first)
+    counted_train(first, data)
+    if not (first.preempted and len(first.get_history().epochs) == 1):
+        raise AssertionError("request_preempt() did not stop the run "
+                             "after epoch 0")
+    del first
+    gc.collect()
+    resumed = lm_trainer(build_lm(dev), _TimedTrainer, 2, resume=True,
+                         checkpoint_dir=os.path.join(tmp, "stopped"))
+    launches = check_trainer_launches("the resumed run", counted_train(
+        resumed, data), steps)
+    if len(resumed.get_history().epochs) != 1:
+        raise AssertionError("the resumed run did not start at epoch 1")
+    a, b = _final_carry(whole.manager, 1), _final_carry(resumed.manager, 1)
+    parted = [k for k in a if a[k].tobytes() != b[k].tobytes()]
+    live = sum(not torch.equal(x, y) for x, y in zip(
+        tree_leaves(whole.master_model.params),
+        tree_leaves(resumed.master_model.params)))
+    del resumed
+    gc.collect()
+    shutil.rmtree(os.path.join(tmp, "stopped"))
+    queued = lm_trainer(build_lm(dev), _TimedTrainer, 2,
+                        checkpoint_async=True,
+                        checkpoint_dir=os.path.join(tmp, "async"))
+    counted_train(queued, data)
+    queued_live = sum(not torch.equal(x, y) for x, y in zip(
+        tree_leaves(whole.master_model.params),
+        tree_leaves(queued.master_model.params)))
+    ws, qs = whole.manager, queued.manager
+    print(f"phase 31 (b) checkpoint and resume on {card}: a checkpoint "
+          f"holds {ws.nbytes} bytes in {len(a)} leaves (params, adam m and "
+          f"v, the step, the key); resumed after a preemption at epoch 0: "
+          f"{len(a) - len(parted)} of {len(a)} leaves of the final carry "
+          f"bitwise the uninterrupted run's, {live} live parameters "
+          f"differ; synchronous save() holds the loop "
+          f"{np.array2string(np.asarray(ws.save_s) * 1e3, precision=1)} "
+          f"ms (writes {np.array2string(np.asarray(ws.write_s), precision=2)}"
+          f" s); with checkpoint_async save() holds it "
+          f"{np.array2string(np.asarray(qs.save_s) * 1e3, precision=1)} ms "
+          f"while the writes take "
+          f"{np.array2string(np.asarray(qs.write_s), precision=2)} s; the "
+          f"async run's parameters differ in {queued_live} tensors; "
+          f"{free / 2 ** 30:.1f} GiB were free", flush=True)
+    if parted or live or queued_live:
+        raise AssertionError(f"resume is not bitwise: leaves {parted[:5]}, "
+                             f"{live} live tensors, async {queued_live}")
+    del whole, queued
+    gc.collect()
+    return launches
+
+
+def frozen_phase(dev, card):
+    """(c) the token embedding and the first block frozen: after 4 steps
+    their leaves are bitwise unchanged and every other leaf moved."""
+    model = build_lm(dev)
+    for layer in model.module.layers[:2]:
+        layer.trainable = False
+    frozen = [t.detach().clone() for t in tree_leaves(model.params[:2])]
+    rest = [t.detach().clone() for t in tree_leaves(model.params[2:])]
+    steps = 4
+    tr = lm_trainer(model)
+    launches = check_trainer_launches("the frozen run", counted_train(
+        tr, training_data(LM_CFG["vocab"], rows=steps * TRAIN_BATCH)),
+        steps)
+    kept = sum(torch.equal(a, b) for a, b in
+               zip(frozen, tree_leaves(model.params[:2])))
+    moved = sum(not torch.equal(a, b) for a, b in
+                zip(rest, tree_leaves(model.params[2:])))
+    print(f"phase 31 (c) frozen layers on {card}: embedding and block 0 "
+          f"frozen, {steps} steps: {kept} of {len(frozen)} frozen leaves "
+          f"bitwise unchanged, {moved} of {len(rest)} others moved; "
+          f"launches {launches}", flush=True)
+    if kept != len(frozen) or moved != len(rest):
+        raise AssertionError("frozen layers moved, or trained ones did not")
+    del tr, model
+    gc.collect()
+    return launches
+
+
+def sharded_phase(dev, card, tmp):
+    """(d) phase 7's 32 rows as 4 npz shards: an unshuffled sharded epoch
+    (the Prefetcher, pinned staging) gives the in-memory run's losses
+    bitwise."""
+    data = training_data(LM_CFG["vocab"])
+    sds = ShardedDataset.write(data, os.path.join(tmp, "shards"), 4)
+    runs = []
+    for source in (data, sds):
+        tr = lm_trainer(build_lm(dev), shuffle_each_epoch=False)
+        launches = check_trainer_launches("the sharded run", counted_train(
+            tr, source), TRAIN_ROWS // TRAIN_BATCH)
+        runs.append((tr.get_history().losses(), tr.loader.wait_s))
+        del tr
+        gc.collect()
+    print(f"phase 31 (d) ShardedDataset on {card}: 4 npz shards, one "
+          f"unshuffled epoch: losses bitwise the in-memory run's: "
+          f"{np.array_equal(runs[0][0], runs[1][0])}; the loop waited "
+          f"{runs[1][1] * 1e3:.1f} ms for shards ({runs[0][1] * 1e3:.1f} ms "
+          f"for the in-memory epoch); launches {launches}", flush=True)
+    if not np.array_equal(runs[0][0], runs[1][0]):
+        raise AssertionError("the sharded run's losses differ from the "
+                             "in-memory run's")
+    return launches
+
+
+def _card_cpu(label, fn, y, out):
+    """``fn`` on the card's tensors against the same on CPU copies."""
+    card = float(fn(y, out))
+    cpu = float(fn(y.cpu(), out.cpu()))
+    err = abs(card - cpu) / max(abs(cpu), 1.0)
+    if not err <= SURFACE_TOL:
+        raise AssertionError(f"{label}: card {card} against CPU {cpu}")
+    return f"{label} {card:.5f} ({err:.1e})"
+
+
+def lenet_surface_phase(dev, card, tmp):
+    """(e) on phase 28's LeNet-5 and 256 images: early stopping with the
+    best weights restored, model files, the CSV log, NaN termination and
+    a profile in one run; the weight average; class weights, label
+    smoothing and the macro metrics, card against CPU; a class-weighted
+    run on the card against the CPU's; ``StreamingPredictor`` against
+    ``ModelPredictor``."""
+    spec = functools.partial(zoo.lenet5, VISION_LABELS)
+    data = vision_data(shape=LENET_SHAPE)
+    X, y = data.arrays()
+    kw = dict(batch_size=VISION_BATCH, worker_optimizer="adam",
+              learning_rate=VISION_LR, loss=TRAIN_LOSS)
+    es = EarlyStopping(monitor="loss", min_delta=1e9, patience=1,
+                       restore_best_weights=True)
+    best = {}
+    grab = LambdaCallback(on_epoch_end=lambda e, logs: best.setdefault(
+        "w", es.trainer.get_weights()))
+    log = os.path.join(tmp, "log.csv")
+    tr = SingleTrainer(
+        Model.build(spec(), LENET_SHAPE, seed=SEED, device=dev),
+        num_epoch=10, metrics=["accuracy", "f1"],
+        profile_dir=os.path.join(tmp, "prof"),
+        callbacks=[es, grab, CSVLogger(log), TerminateOnNaN(),
+                   ModelCheckpoint(os.path.join(tmp, "m-{epoch}.dkt"))],
+        **kw)
+    m = tr.train(data)
+    restored = all(np.array_equal(a.detach().cpu().numpy(), b) for a, b in
+                   zip(tree_leaves(m.params), tree_leaves(best["w"][0])))
+    with open(log) as f:
+        rows = f.read().splitlines()
+    from distkeras_tpu_torch.models import load_model
+    back = load_model(os.path.join(tmp, "m-0.dkt"), device=dev)
+    file_err = float(np.max(np.abs(back.predict(X[:64]) - m.predict(X[:64]))))
+    traces = os.listdir(os.path.join(tmp, "prof"))
+    if not (len(tr.get_history().epochs) == 2 and restored
+            and len(rows) == 3 and rows[0] == "epoch,accuracy,f1,loss"
+            and file_err <= 1e-5 and traces):
+        raise AssertionError(
+            f"LeNet-5 callbacks: {len(tr.get_history().epochs)} epochs, "
+            f"best weights restored {restored}, csv {rows}, model file "
+            f"err {file_err}, traces {traces}")
+    ema = EMAWeights(decay=0.5)
+    em = SingleTrainer(Model.build(spec(), LENET_SHAPE, seed=SEED,
+                                   device=dev), num_epoch=2,
+                       callbacks=[ema], **kw).train(data)
+    if not all(np.array_equal(a.detach().cpu().numpy(), b) for a, b in
+               zip(tree_leaves(em.params), tree_leaves(ema.ema_weights[0]))):
+        raise AssertionError("EMAWeights did not install the average")
+    xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    with torch.no_grad(), eval_mode(m.module):
+        out = m.module.apply(m.params, xd).float()
+    yb = yd % 2
+    checks = [
+        _card_cpu("class-weighted CE", with_class_weight(
+            TRAIN_LOSS, {0: 2.0, 3: 0.5}), yd, out),
+        _card_cpu("label-smoothed CE", with_label_smoothing(TRAIN_LOSS, 0.1),
+                  yd, out),
+        _card_cpu("precision", precision, yd, out),
+        _card_cpu("recall", recall, yd, out),
+        _card_cpu("f1", f1, yd, out),
+        _card_cpu("auc", auc, yb, out[:, :2])]
+    cw = dict(kw, class_weight={0: 2.0, 3: 0.5}, num_epoch=1)
+    on_card = SingleTrainer(Model.build(spec(), LENET_SHAPE, seed=SEED,
+                                        device=dev), **cw)
+    on_card.train(data)
+    on_cpu = SingleTrainer(Model.build(spec(), LENET_SHAPE, seed=SEED,
+                                       device="cpu"), **cw)
+    on_cpu.train(data)
+    cw_err = _within(on_card.get_history().losses(),
+                     on_cpu.get_history().losses(), SURFACE_TOL)
+    if not cw_err <= SURFACE_TOL:
+        raise AssertionError(f"class-weighted LeNet-5 losses: card against "
+                             f"CPU {cw_err}")
+    ref = ModelPredictor(m, batch_size_per_device=64).predict(
+        data)["prediction"]
+    stream = np.concatenate(list(StreamingPredictor(
+        m, batch_size=64).predict_stream(
+            X[i:i + 50] for i in range(0, len(X), 50))))
+    stream_err = float(np.max(np.abs(stream - ref)))
+    if stream.shape != ref.shape or stream_err > 1e-5:
+        raise AssertionError(f"StreamingPredictor rows differ from "
+                             f"ModelPredictor's by {stream_err}")
+    print(f"phase 31 (e) LeNet-5 on {card}: EarlyStopping stopped after "
+          f"epoch 1 and restored epoch 0's weights bitwise; the CSV log "
+          f"{rows[0]!r} + 2 rows; m-0.dkt loads on the card (max abs "
+          f"{file_err:.1e}); a trace in profile_dir ({traces[0]}); "
+          f"EMAWeights installed its average; card vs CPU: "
+          f"{', '.join(checks)}; class-weighted training losses card vs "
+          f"CPU max rel {cw_err:.1e}; StreamingPredictor over batches of 50 "
+          f"(padded to 64) = ModelPredictor's {len(ref)} rows (max abs "
+          f"{stream_err:.1e})", flush=True)
+
+
+def trainer_surface_phase(dev, card):
+    """Phase 31: the rest of the Trainer surface on the 218M LM at
+    ``LM_CFG`` widths (fused head, checkpoint and resume, frozen layers,
+    ``ShardedDataset``) and on LeNet-5 (callbacks, class weights, label
+    smoothing, metrics, ``profile_dir``, ``StreamingPredictor``). Returns
+    each LM path's launch counts."""
+    tmp = tempfile.mkdtemp(prefix="dkt-phase31-")
+    try:
+        lenet_surface_phase(dev, card, tmp)
+        return {"trainer_fused_head": fused_head_phase(dev, card),
+                "trainer_resume": resume_phase(dev, card, tmp),
+                "trainer_frozen": frozen_phase(dev, card),
+                "trainer_sharded": sharded_phase(dev, card, tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _expert_elements(wq) -> int:
@@ -6100,6 +6550,11 @@ def main() -> int:
     print(f"phase 30 (the engine's other layouts) took {t3 - t0:.1f} s: "
           f"slab {t1 - t0:.1f}, offload {t2 - t1:.1f}, quantized MoE "
           f"{t3 - t2:.1f}", flush=True)
+    gc.collect()
+    t0 = time.perf_counter()
+    surface_launches = trainer_surface_phase(dev, card)
+    print(f"phase 31 (the rest of the Trainer surface) took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     by_path = {name: {} for name in kernels.SOURCES}
     for path, c in {**slab_launches, **moe_wq_launches,
@@ -6149,6 +6604,9 @@ def main() -> int:
         for name in ("prng",) + TRAINING_KERNELS:
             if c[name]:
                 by_path[name][path] = c[name]
+    for path, c in surface_launches.items():
+        for name in TRAINER_KERNELS:
+            by_path[name][path] = c[name]
 
     def entry(name, source, replaces, rows, path):
         main_row = rows[0]

@@ -1,7 +1,7 @@
 """Columnar dataset: named numpy columns of equal length (a copy of the
 in-memory part of ``distkeras_tpu/data/dataset.py``, numpy only).
 Batches are slices of contiguous columns shaped ``[batch, ...]``.
-``ShardedDataset`` (out-of-core shards) waits for a later slice.
+Out-of-core shards of datasets are ``data.sharded.ShardedDataset``.
 """
 
 from __future__ import annotations
@@ -38,6 +38,24 @@ class Dataset:
         if labels is not None:
             cols[label_col] = np.asarray(labels)
         return cls(cols)
+
+    @classmethod
+    def from_csv(cls, path, *, label_col_index: Optional[int] = None,
+                 sep: str = ",", skip_header: bool = False,
+                 features_col: str = "features",
+                 label_col: str = "label") -> "Dataset":
+        """Numeric CSV (JAX :64; parsed with ``numpy.loadtxt`` into
+        float32, where JAX's native parser is ROADMAP Queue 1 item 11).
+        With ``label_col_index`` that column becomes the integer labels
+        and the rest the features matrix."""
+        data = np.loadtxt(path, delimiter=sep, dtype=np.float32,
+                          skiprows=1 if skip_header else 0, ndmin=2)
+        if label_col_index is None:
+            return cls({features_col: data})
+        y = data[:, label_col_index].astype(np.int64)
+        X = np.ascontiguousarray(
+            np.delete(data, label_col_index, axis=1), dtype=np.float32)
+        return cls({features_col: X, label_col: y})
 
     @property
     def columns(self) -> List[str]:
@@ -80,6 +98,12 @@ class Dataset:
     def split(self, fraction: float) -> Tuple["Dataset", "Dataset"]:
         n = int(len(self) * fraction)
         return self.take(n), self.skip(n)
+
+    def concat(self, other: "Dataset") -> "Dataset":
+        if set(self.columns) != set(other.columns):
+            raise ValueError("column sets differ")
+        return Dataset({k: np.concatenate([self[k], other[k]])
+                        for k in self.columns})
 
     def arrays(self, features_col: str = "features",
                label_col: Optional[str] = "label"):

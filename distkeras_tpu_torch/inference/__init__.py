@@ -5,6 +5,8 @@ column (``predictors``) and offline evaluators over dataset columns
 from distkeras_tpu_torch.inference.evaluators import (AccuracyEvaluator,
                                                       Evaluator)
 from distkeras_tpu_torch.inference.predictors import (ModelPredictor,
-                                                      Predictor)
+                                                      Predictor,
+                                                      StreamingPredictor)
 
-__all__ = ["AccuracyEvaluator", "Evaluator", "ModelPredictor", "Predictor"]
+__all__ = ["AccuracyEvaluator", "Evaluator", "ModelPredictor", "Predictor",
+           "StreamingPredictor"]

@@ -9,8 +9,9 @@ model's one device: a batch is ``batch_size_per_device`` rows, the last
 one zero-padded to that size so every forward has one shape. JAX shards
 the batch over a mesh and can shard the weights (``mesh=``,
 ``tp_axis=``, ``ep_axis=``); those raise here (ROADMAP Queue 1 item 10).
-``StreamingPredictor`` needs the prefetcher of ``utils/prefetch`` and
-waits with it (item 11).
+``StreamingPredictor`` (JAX :129) predicts an unbounded stream of
+batches: a ``utils.prefetch.Prefetcher`` pads the next batch and stages
+it on the device (pinned, non-blocking) while the current one computes.
 """
 
 from __future__ import annotations
@@ -87,3 +88,52 @@ class ModelPredictor(Predictor):
                  output_col: str = "prediction", **kwargs):
         super().__init__(keras_model, features_col=features_col,
                          output_col=output_col, **kwargs)
+
+
+class StreamingPredictor(Predictor):
+    """Inference over an unbounded stream of batches (JAX :129; the
+    reference's Kafka streaming example without the transport): each
+    batch is zero-padded to ``batch_size``, so every forward has one
+    shape, and a background thread stages the next batch on the device
+    while the current one computes. ``predict_stream(source)`` yields
+    one output array per input batch, in order."""
+
+    def __init__(self, keras_model: Model, batch_size: int = 256,
+                 mesh=None, **kwargs):
+        super().__init__(keras_model, mesh=mesh,
+                         batch_size_per_device=batch_size, **kwargs)
+        self.batch_size = int(batch_size)
+
+    def predict_stream(self, source):
+        """``source``: a lazy iterable of ``[n_i, ...]`` feature arrays
+        (``n_i <= batch_size``), consumed one batch at a time on the
+        staging thread. Yields ``[n_i, ...]`` float32 predictions in
+        order. A source or size error re-raises here with its own type;
+        closing the generator early ends the staging thread without
+        dropping results already staged."""
+        from distkeras_tpu_torch.utils.prefetch import Prefetcher, to_device
+        model = self.model
+        params = model.params
+
+        def stage(batch):
+            xb = self._coerce(batch)
+            if len(xb) > self.batch_size:
+                raise ValueError(
+                    f"stream batch of {len(xb)} exceeds "
+                    f"batch_size {self.batch_size}")
+            return self._pad_to(xb, self.batch_size)
+
+        def place(item):
+            xb, pad = item
+            return to_device(xb, model.device), pad
+
+        pf = Prefetcher(stage, source, depth=2, name="predict_stream",
+                        place=place)
+        # the staging thread, for callers that check it ended
+        self._stage_thread = pf._thread
+        with pf:
+            for _, (xb, pad) in pf:
+                with torch.no_grad(), eval_mode(model.module):
+                    y = user_float(model.module.apply(params, xb))
+                y = y.cpu().numpy()
+                yield y[:self.batch_size - pad] if pad else y

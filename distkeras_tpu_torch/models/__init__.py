@@ -15,7 +15,7 @@ from distkeras_tpu_torch.models.bridge import (from_jax_params, qtree_from_jax,
 from distkeras_tpu_torch.models.core import (LAYER_REGISTRY, Layer, Model,
                                              Sequential, collect_aux_losses,
                                              layer_from_spec, layer_spec,
-                                             register_layer)
+                                             register_layer, trainable_mask)
 from distkeras_tpu_torch.models.layers import (
     Activation, AveragePooling2D, BatchNorm, Conv1D, Conv2D, Conv2DTranspose,
     Dense, DepthwiseConv2D, Dropout, Embedding, Flatten,
@@ -34,4 +34,4 @@ __all__ = ["Activation", "AveragePooling2D", "BatchNorm", "Bidirectional",
            "UpSampling2D", "WideAndDeep", "collect_aux_losses",
            "from_jax_params", "layer_from_spec", "layer_spec", "load_model",
            "qtree_from_jax", "register_layer", "save_model", "to_jax_params",
-           "to_jax_state", "zoo"]
+           "to_jax_state", "trainable_mask", "zoo"]

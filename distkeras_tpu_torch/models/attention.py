@@ -349,6 +349,12 @@ class TransformerBlock(Layer):
             m = dropout(m, self.dropout_rate, k_drop2)
         return x + m
 
+    def sub_layers(self):
+        """The sub-layers by subtree key (``models.core.trainable_mask``
+        recurses through them, as JAX :460)."""
+        return {"norm1": self.norm1, "attn": self.attn,
+                "norm2": self.norm2, "mlp": self.mlp}
+
     def get_config(self):
         c = self._config
         cfg = {"num_heads": c["num_heads"], "mlp_ratio": self.mlp_ratio,

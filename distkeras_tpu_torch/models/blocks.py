@@ -224,6 +224,13 @@ class Residual(Layer):
               else branch(self.shortcut, "shortcut", keys[1]))
         return get_activation(self.activation)(y + sc)
 
+    def sub_layers(self):
+        """The branches by subtree key (JAX :81)."""
+        subs = {"main": self.main}
+        if self.shortcut is not None:
+            subs["shortcut"] = self.shortcut
+        return subs
+
     def get_config(self):
         return {"main_spec": layer_spec(self.main),
                 "shortcut_spec": layer_spec(self.shortcut),
@@ -278,6 +285,10 @@ class WideAndDeep(Layer):
         kw = {"rng": rng} if rng is not None and self.uses_rng else {}
         return (self.wide.apply(p["wide"], xw)
                 + self.deep.apply(p["deep"], xd, **kw))
+
+    def sub_layers(self):
+        """The two towers by subtree key (JAX :138)."""
+        return {"wide": self.wide, "deep": self.deep}
 
     def get_config(self):
         return {"wide_dim": self.wide_dim,

@@ -157,6 +157,10 @@ class Layer(nn.Module):
     #: this layer's ``apply`` takes ``rng=`` (a threefry key) and draws
     #: from it when training (a dropout rate > 0)
     uses_rng = False
+    #: Keras-style freezing (JAX :98): set False before training and the
+    #: layer's parameters and state (its whole subtree) take no updates;
+    #: a training-time attribute, not part of the config
+    trainable = True
 
     @property
     def has_state(self) -> bool:
@@ -227,6 +231,34 @@ class Layer(nn.Module):
         ``collect_aux_losses`` adds to the training objective. Each
         forward replaces the last one's, so no stale term survives."""
         self._aux_loss = value
+
+
+def trainable_mask(module: Layer, tree):
+    """A tree of Python bools shaped like ``tree`` (the parameter or the
+    state tree of ``module``): True where updates may flow, or None when
+    nothing is frozen (JAX :445). A layer with ``trainable = False``
+    freezes its whole subtree; ``Sequential`` recurses per layer, and a
+    container with ``sub_layers() -> {subtree key: layer}`` recurses
+    through it, so freezing only a block's attention works. Any other
+    layer is atomic: only its own flag counts."""
+    from distkeras_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    def walk(layer, sub, enabled):
+        enabled = enabled and getattr(layer, "trainable", True)
+        if isinstance(layer, Sequential):
+            return [walk(l, p, enabled) for l, p in zip(layer.layers, sub)]
+        subs = getattr(layer, "sub_layers", None)
+        if callable(subs) and isinstance(sub, dict):
+            named = subs()
+            return {key: (walk(named[key], child, enabled) if key in named
+                          else tree_map(lambda _: enabled, child))
+                    for key, child in sub.items()}
+        return tree_map(lambda _: enabled, sub)
+
+    mask = walk(module, tree, True)
+    if all(tree_leaves(mask)):
+        return None
+    return mask
 
 
 def collect_aux_losses(module: nn.Module):
@@ -387,22 +419,46 @@ class Model:
                  metrics=("accuracy",), batch_size: int = 1024,
                  features_col: str = "features", label_col: str = "label"):
         """Keras-style ``model.evaluate`` (JAX :307): ``{"loss": ...,
-        metric: ...}`` over the whole of an in-memory ``Dataset`` or of
-        arrays ``x``, ``y``, from a batched ``predict``."""
+        metric: ...}`` over the whole of a ``Dataset`` or of arrays
+        ``x``, ``y``, from a batched ``predict``; a ``ShardedDataset``
+        one shard at a time."""
         from distkeras_tpu_torch.data.dataset import Dataset, coerce_column
+        from distkeras_tpu_torch.data.sharded import ShardedDataset
         from distkeras_tpu_torch.ops.losses import get_loss
         from distkeras_tpu_torch.ops.metrics import get_metric, metric_name
 
+        if isinstance(x, ShardedDataset):
+            # shard by shard, weighted by shard size: exact only for
+            # row-decomposable metrics, so a pooled one (macro
+            # precision/recall/f1, auc) is refused
+            decomposable = {"accuracy", "top_5_accuracy", "mse"}
+            bad = [metric_name(m) for m in (metrics or ())
+                   if metric_name(m) not in decomposable]
+            if bad:
+                raise ValueError(
+                    f"metrics {bad} are not decomposable across shards "
+                    "(a size-weighted mean of per-shard macro scores is "
+                    "not the pooled score); evaluate them on an in-memory "
+                    "Dataset, or use decomposable metrics "
+                    f"({sorted(decomposable)}) here")
+            totals, n_total = {}, 0
+            for i in range(x.num_shards):
+                shard = x.load_shard(i)
+                res = self.evaluate(shard, loss=loss, metrics=metrics,
+                                    batch_size=batch_size,
+                                    features_col=features_col,
+                                    label_col=label_col)
+                n = len(shard)
+                n_total += n
+                for k, v in res.items():
+                    totals[k] = totals.get(k, 0.0) + n * v
+            return {k: v / n_total for k, v in totals.items()}
         if isinstance(x, Dataset):
             X, yv = x.arrays(features_col, label_col)
             if yv is None:
                 raise ValueError(
                     f"evaluate(dataset): label column {label_col!r} not in "
                     f"dataset (columns: {x.columns})")
-        elif hasattr(x, "load_shard"):
-            raise NotImplementedError(
-                "evaluate(ShardedDataset) is not ported yet (only an "
-                "in-memory Dataset or arrays): ROADMAP, Queue 1 item 9")
         else:
             if y is None:
                 raise ValueError("evaluate(x, y): y is required")
@@ -498,13 +554,17 @@ class Model:
         """Keras-style ``model.fit`` (``distkeras_tpu`` ``Model.fit``
         :260): a thin wrapper over ``SingleTrainer``. ``x`` is a
         ``data.Dataset`` (default feature/label columns) or a feature
-        array with labels ``y``. Trains IN PLACE on the model's device and
-        returns the ``History``. ``validation_split`` holds out the LAST
-        fraction of the (unshuffled) data, as Keras does."""
+        array with labels ``y``, or a ``ShardedDataset``. Trains IN PLACE
+        on the model's device and returns the ``History``.
+        ``validation_split`` holds out the LAST fraction of the
+        (unshuffled) in-memory data, as Keras does. The trainer's other
+        options (``callbacks``, ``class_weight``, checkpoints, ...) pass
+        through ``trainer_kwargs``."""
         from distkeras_tpu_torch.data.dataset import Dataset
+        from distkeras_tpu_torch.data.sharded import ShardedDataset
         from distkeras_tpu_torch.parallel.trainers import SingleTrainer
 
-        if isinstance(x, Dataset):
+        if isinstance(x, (Dataset, ShardedDataset)):
             ds = x
         else:
             if y is None:
@@ -517,6 +577,10 @@ class Model:
             if not 0.0 < validation_split < 1.0:
                 raise ValueError(f"validation_split must be in (0, 1), got "
                                  f"{validation_split}")
+            if isinstance(ds, ShardedDataset):
+                raise ValueError(
+                    "validation_split needs in-memory data; hold out "
+                    "shards yourself for a ShardedDataset")
             ds, validation_data = ds.split(1.0 - validation_split)
         trainer = SingleTrainer(
             self, worker_optimizer=optimizer, loss=loss,

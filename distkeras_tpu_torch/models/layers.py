@@ -465,6 +465,10 @@ class SeparableConv2D(Layer):
         return self.pointwise.apply(p["pointwise"],
                                     self.depthwise.apply(p["depthwise"], x))
 
+    def sub_layers(self):
+        """The two convolutions by subtree key (JAX :371)."""
+        return {"depthwise": self.depthwise, "pointwise": self.pointwise}
+
     def get_config(self):
         cfg = _ConvND.get_config(self.depthwise)
         cfg.pop("filters")

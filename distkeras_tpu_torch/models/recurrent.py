@@ -168,5 +168,9 @@ class Bidirectional(Layer):
         return torch.cat([self.fwd.apply(p["forward"], x),
                           self.bwd.apply(p["backward"], x)], dim=-1)
 
+    def sub_layers(self):
+        """The two copies by subtree key (JAX :172)."""
+        return {"forward": self.fwd, "backward": self.bwd}
+
     def get_config(self):
         return {"layer_spec": layer_spec(self.fwd)}

@@ -75,19 +75,43 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
     return {leaf_key(path): _host(leaf) for path, leaf in _walk(tree)}
 
 
-def _aux_loss_leaves(model: Model) -> Dict[str, np.ndarray]:
-    """The zero ``__aux_loss__`` state leaf the JAX tree holds for each
-    MoE layer with a balance-loss weight, keyed beside that layer's
+def _aux_loss_paths(model: Model):
+    """The path of the ``__aux_loss__`` state leaf the JAX tree holds for
+    each MoE layer with a balance-loss weight, beside that layer's
     parameters (found by the identity of its ``gate``)."""
     from distkeras_tpu_torch.models.moe import MoE
     where = {id(leaf): path for path, leaf in _walk(model.params)}
-    out = {}
-    for m in model.module.modules():
-        if isinstance(m, MoE) and m.aux_loss_weight:
-            prefix = where[id(m.gate)][:-1]
-            out[leaf_key(prefix + (AUX_LOSS_KEY,))] = np.zeros(
-                (), np.float32)
-    return out
+    return [where[id(m.gate)][:-1] + (AUX_LOSS_KEY,)
+            for m in model.module.modules()
+            if isinstance(m, MoE) and m.aux_loss_weight]
+
+
+def _aux_loss_leaves(model: Model) -> Dict[str, np.ndarray]:
+    """``{key: zero}`` of the JAX tree's ``__aux_loss__`` state leaves."""
+    return {leaf_key(path): np.zeros((), np.float32)
+            for path in _aux_loss_paths(model)}
+
+
+def jax_state_tree(model: Model, state=None):
+    """The model state tree (default: the model's own) with the zero
+    ``__aux_loss__`` leaves of JAX's tree added, in copies of its
+    containers: the state a checkpoint stores, so that JAX's template of
+    the same model finds every leaf it expects."""
+    def copy(tree):
+        if isinstance(tree, dict):
+            return {k: copy(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [copy(v) for v in tree]
+        return tree
+
+    tree = copy(model.state if state is None else state)
+    for path in _aux_loss_paths(model):
+        node = tree
+        for k in path[:-1]:
+            node = node[k] if isinstance(node, list) else \
+                node.setdefault(k, {})
+        node[path[-1]] = np.zeros((), np.float32)
+    return tree
 
 
 def serialize_model(model: Model) -> Dict[str, Any]:

@@ -15,6 +15,9 @@ from distkeras_tpu_torch.ops.decode_attention import (
 from distkeras_tpu_torch.ops.flash_attention import (
     flash_attention, flash_backward, flash_backward_reference, flash_forward,
     flash_forward_reference)
+from distkeras_tpu_torch.ops.losses import (fused_linear_cross_entropy,
+                                            with_class_weight,
+                                            with_label_smoothing)
 from distkeras_tpu_torch.ops.paged_attention import (
     gather_pages, paged_decode_attention, paged_decode_attention_reference)
 from distkeras_tpu_torch.ops.quant_matmul import (quant_matmul,
@@ -27,8 +30,9 @@ __all__ = ["NEG_INF", "apply_rope", "dot_product_attention",
            "rope_frequencies", "decode_attention",
            "decode_attention_reference", "flash_attention", "flash_backward",
            "flash_backward_reference", "flash_forward",
-           "flash_forward_reference",
+           "flash_forward_reference", "fused_linear_cross_entropy",
            "gather_pages", "paged_decode_attention",
            "paged_decode_attention_reference", "quant_matmul",
            "reference_matmul", "sample_epilogue",
-           "sample_epilogue_reference", "sample_tokens"]
+           "sample_epilogue_reference", "sample_tokens",
+           "with_class_weight", "with_label_smoothing"]

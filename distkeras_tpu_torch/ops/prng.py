@@ -88,6 +88,12 @@ def as_key(rng, device=None) -> torch.Tensor:
     return (out & MASK).to(device) if device is not None else out & MASK
 
 
+def key_data(rng: torch.Tensor) -> np.ndarray:
+    """The key's two words on the host as uint32: the array
+    ``jax.random.PRNGKey`` holds (how a checkpoint stores a key)."""
+    return rng.detach().cpu().numpy().astype(np.uint32)
+
+
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & MASK
 

@@ -20,8 +20,10 @@ races, not the engine's deterministic staggering.
 Model state (BatchNorm's statistics) stays on the workers, as in JAX:
 each worker starts every epoch from the model's state, and the trained
 model (and the validator) takes their mean (``_mean_state``, JAX :172).
-Checkpoint/resume and callbacks raise in the ``Trainer`` constructor
-(ROADMAP Queue 1 item 9).
+A checkpoint holds the center and that mean state (JAX :190-264), and a
+resume restarts the workers from the center, as the distributed family
+does; callbacks see the same pair, and frozen layers are masked in
+every worker's step.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.compat import resolve_device
+from distkeras_tpu_torch.models.serialization import jax_state_tree
 from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.parallel.distributed import default_num_workers
 from distkeras_tpu_torch.parallel.engine import mean_state
@@ -41,7 +44,7 @@ from distkeras_tpu_torch.parallel.parameter_servers import (
     ADAGParameterServer, DeltaParameterServer, DynSGDParameterServer,
     EASGDParameterServer, ParameterServer, PSClient, to_numpy)
 from distkeras_tpu_torch.parallel.trainers import (Trainer, epoch_exit,
-                                                   load_params)
+                                                   host_tree, load_params)
 from distkeras_tpu_torch.parallel.worker import (TrainCarry, make_train_step,
                                                  shard_epoch_data)
 from distkeras_tpu_torch.utils.tree import (tree_leaves, tree_map,
@@ -176,6 +179,14 @@ class HostAsyncTrainer(Trainer):
         n = self.num_workers
         Ks = self._windows()
 
+        # a resume restores the CENTER; the workers restart from it
+        manager = self._checkpoint_manager()
+        template = {"params": model.params, "state": model.state}
+        tree, start_epoch = self._maybe_resume(manager, template)
+        if tree is not template:
+            load_params(model.params, tree["params"])
+            load_params(model.state, tree["state"])
+
         self.parameter_server = self.allocate_parameter_server(model.params)
         self.parameter_server.initialize()
         port = None
@@ -186,66 +197,97 @@ class HostAsyncTrainer(Trainer):
         replicas = [copy.deepcopy(model.module) for _ in range(n)]
         state0 = tree_map(torch.clone, model.state)
         out: Dict[int, Any] = {}   # the latest epoch's worker outputs
+        param_mask = self._param_mask(model)
+        state_mask = self._state_mask(model)
         steps = [make_train_step(r, self.loss, self.worker_optimizer,
-                                 self._metric_fns()) for r in replicas]
+                                 self._metric_fns(), param_mask=param_mask,
+                                 state_mask=state_mask) for r in replicas]
         validate = self._make_validator(model, device)
+
+        def center():
+            """The center and the workers' mean state, on the device."""
+            params = [torch.from_numpy(l).to(device) for l in
+                      self.parameter_server.handle_pull()[0]]
+            return (tree_unflatten(model.params, params),
+                    self._mean_state(out, n) if out else model.state)
+
+        def save_center(epoch):
+            params, state = center()
+            manager.save(epoch, {"params": params,
+                                 "state": jax_state_tree(model, state)},
+                         metadata={"epoch": epoch})
+
+        cbs = self._cb_list(lambda: host_tree(center()))
         self.record_training_start()
         try:
-            for epoch in range(self.num_epoch):
-                perm = self._epoch_perm(epoch, len(X))
-                Xs, Ys, S = shard_epoch_data(X, y, n, self.batch_size, perm)
-                Xs = torch.from_numpy(Xs).to(device)
-                Ys = torch.from_numpy(Ys).to(device)
-                out: Dict[int, Any] = {}
-                errors: List = []
-                threads = []
-                for i in range(n):
-                    client = (PSClient(host="127.0.0.1", port=port)
-                              if port is not None
-                              else PSClient(ps=self.parameter_server))
-                    t = threading.Thread(
-                        target=self._worker_loop,
-                        args=(i, client, steps[i], replicas[i], state0,
-                              Xs[:, i], Ys[:, i], int(Ks[i]), out, errors),
-                        daemon=True)
-                    t.start()
-                    threads.append(t)
-                for t in threads:
-                    t.join()
-                if errors:
-                    raise errors[0][1]
-                losses = np.stack([out[i]["losses"] for i in range(n)],
-                                  axis=1)
-                self.history.append_epoch(
-                    loss=losses,
-                    **{nm: np.stack([out[i]["metrics"][nm]
-                                     for i in range(n)], axis=1)
-                       for nm in out[0]["metrics"]})
-
-                # flush the uncommitted partial-window residuals every
-                # epoch: workers re-pull the center at the next epoch's
-                # start, which would drop this progress otherwise
-                if self.algorithm != "easgd":
+            with self._profile_ctx():
+                for epoch in range(start_epoch, self.num_epoch):
+                    perm = self._epoch_perm(epoch, len(X))
+                    Xs, Ys, S = shard_epoch_data(X, y, n, self.batch_size,
+                                                 perm)
+                    Xs = torch.from_numpy(Xs).to(device)
+                    Ys = torch.from_numpy(Ys).to(device)
+                    out: Dict[int, Any] = {}
+                    errors: List = []
+                    threads = []
                     for i in range(n):
-                        delta = [w - p for w, p in zip(out[i]["params"],
-                                                       out[i]["pull"])]
-                        if any(np.any(d) for d in delta):
-                            self.parameter_server.handle_commit(
-                                {"delta": delta,
-                                 "clock": self.parameter_server.num_updates})
-                if validate is not None:
-                    center = [torch.from_numpy(l).to(device) for l in
-                              self.parameter_server.handle_pull()[0]]
-                    self.history.epochs[-1].update(validate(
-                        tree_unflatten(model.params, center),
-                        self._mean_state(out, n)))
-                if epoch_exit(self):
-                    break
+                        client = (PSClient(host="127.0.0.1", port=port)
+                                  if port is not None
+                                  else PSClient(ps=self.parameter_server))
+                        t = threading.Thread(
+                            target=self._worker_loop,
+                            args=(i, client, steps[i], replicas[i],
+                                  state0, Xs[:, i], Ys[:, i], int(Ks[i]),
+                                  out, errors),
+                            daemon=True)
+                        t.start()
+                        threads.append(t)
+                    for t in threads:
+                        t.join()
+                    if errors:
+                        raise errors[0][1]
+                    losses = np.stack([out[i]["losses"] for i in range(n)],
+                                      axis=1)
+                    self.history.append_epoch(
+                        loss=losses,
+                        **{nm: np.stack([out[i]["metrics"][nm]
+                                         for i in range(n)], axis=1)
+                           for nm in out[0]["metrics"]})
+
+                    # flush the uncommitted partial-window residuals
+                    # every epoch: workers re-pull the center at the next
+                    # epoch's start, which would drop this progress
+                    ps = self.parameter_server
+                    if self.algorithm != "easgd":
+                        for i in range(n):
+                            delta = [w - p for w, p in
+                                     zip(out[i]["params"], out[i]["pull"])]
+                            if any(np.any(d) for d in delta):
+                                ps.handle_commit({"delta": delta,
+                                                  "clock": ps.num_updates})
+                    if validate is not None:
+                        self.history.epochs[-1].update(validate(*center()))
+                    saved = False
+                    if (manager is not None
+                            and self._should_checkpoint(epoch)):
+                        save_center(epoch)
+                        saved = True
+                    epoch_rec = self.history.epochs[-1]
+                    cbs.epoch_end(epoch, self._epoch_logs(
+                        epoch_rec["loss"],
+                        {k: v for k, v in epoch_rec.items() if k != "loss"},
+                        {}))
+                    if epoch_exit(self, epoch, saved, save_center
+                                  if manager is not None else None):
+                        break
         finally:
             self.record_training_stop()
+            cbs.train_end()  # closes callback resources on exceptions too
             self.parameter_server.stop()
+            if manager is not None:
+                manager.wait()   # queued snapshots durable before return
 
         load_params(model.params, self.parameter_server.get_model())
         if out:
             load_params(model.state, self._mean_state(out, n))
-        return model
+        return self._apply_pending_weights(model)

@@ -14,15 +14,18 @@ instead of spread over a mesh. Differences:
   are stacked on one device;
 * ``mesh=`` raises ``NotImplementedError`` naming the multi-device half
   of ROADMAP Queue 1 item 10;
-* checkpoints, ``resume``, callbacks and ``profile_dir`` raise in the
-  ``Trainer`` constructor (ROADMAP Queue 1 item 9); the fault points
-  of ``resilience/`` (item 11) are not ported.
+* the fault points of ``resilience/`` (item 11) are not ported.
 
 The center is validated each epoch (the model a user would ship), with
 the workers' mean model state (BatchNorm's statistics; the center's own
-state never advances, JAX :120-124). The trained model is the
-algorithm-flushed center and that mean state, copied into the model's
-tensors in place.
+state never advances, JAX :120-124). A checkpoint holds that center and
+mean state only (``{"params", "state"}``, JAX :98): a resume restarts
+every worker from the center, the reference's parameter-server retry,
+so it is not bitwise an uninterrupted run. Callbacks see the same
+center; ``stop_training`` stops every worker. Frozen layers
+(``Layer.trainable``) are masked in every worker's step. The trained
+model is the algorithm-flushed center and that mean state, copied into
+the model's tensors in place.
 """
 
 from __future__ import annotations
@@ -33,12 +36,14 @@ from typing import Optional, Sequence, Union
 import torch
 
 from distkeras_tpu_torch.compat import resolve_device
+from distkeras_tpu_torch.models.serialization import jax_state_tree
 from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.parallel.engine import (
     AdagAlgo, AveragingAlgo, DistAlgorithm, DistributedEngine, DownpourAlgo,
     DynSGDAlgo, ElasticAlgo, EngineConfig, MESH_ITEM, host_fetch, mean_state)
 from distkeras_tpu_torch.parallel.trainers import (Trainer, epoch_exit,
-                                                   load_params)
+                                                   host_tree, load_params)
+from distkeras_tpu_torch.utils.prefetch import Prefetcher
 from distkeras_tpu_torch.parallel.worker import shard_epoch_data
 
 
@@ -94,67 +99,108 @@ class DistributedTrainer(Trainer):
             model.module, self.loss, self.worker_optimizer,
             self.allocate_algorithm(), self.mesh,
             EngineConfig(num_workers=n, window=self._window(S)),
-            metric_fns=self._metric_fns())
+            metric_fns=self._metric_fns(),
+            param_mask=self._param_mask(model),
+            state_mask=self._state_mask(model))
+        # a resume restores the CENTER; the workers restart from it
+        manager = self._checkpoint_manager()
+        template = {"params": model.params, "state": model.state}
+        tree, start_epoch = self._maybe_resume(manager, template)
+        if tree is not template:
+            load_params(model.params, tree["params"])
+            load_params(model.state, tree["state"])
         state = engine.init_state(model.params, prng.key(self.seed, device),
                                   model.state)
         validate = self._make_validator(model, device)
+        # the next epoch's shuffle gather and [S, W, B, ...] stacking run
+        # while the device trains this one
+        loader = Prefetcher(
+            lambda e: shard_epoch_data(X, y, n, self.batch_size,
+                                       self._epoch_perm(e, len(X))),
+            range(start_epoch, self.num_epoch), name="epochs")
+        extracted = None   # the center the last save pulled
+
+        def save_center(epoch):
+            nonlocal extracted
+            extracted = engine.extract_model(state)
+            manager.save(epoch, {"params": extracted[0],
+                                 "state": jax_state_tree(model,
+                                                         extracted[1])},
+                         metadata={"epoch": epoch})
+
+        cbs = self._cb_list(lambda: host_tree(engine.extract_model(state)))
         self.record_training_start()
         try:
-            for epoch in range(self.num_epoch):
-                Xs, Ys, S = shard_epoch_data(X, y, n, self.batch_size,
-                                             self._epoch_perm(epoch, len(X)))
-                Xs = torch.from_numpy(Xs).to(device)
-                Ys = torch.from_numpy(Ys).to(device)
-                pf = self.parallelism_factor
-                if pf > 1:
-                    if S < pf:
-                        raise ValueError(
-                            f"epoch has {S} steps/worker but "
-                            f"parallelism_factor={pf} needs >= {pf}")
-                    # equal-length partitions; the remainder steps are
-                    # dropped, as JAX drops them
-                    chunk = S // pf
-                    if chunk * pf < S:
-                        warnings.warn(
-                            f"parallelism_factor={pf}: epoch has {S} "
-                            f"steps/worker; the trailing {S - chunk * pf} "
-                            "steps are dropped every epoch (equal-length "
-                            "partitions). Size the dataset so steps/worker "
-                            "divides by parallelism_factor to train on all "
-                            "of it.", stacklevel=2)
-                    parts = []
-                    for j in range(pf):
-                        lo, hi = j * chunk, (j + 1) * chunk
-                        state = engine.reset_workers(state)
-                        state, outs_j = engine.run_epoch(state, Xs[lo:hi],
-                                                         Ys[lo:hi])
-                        parts.append(self._split_outs(outs_j))
-                    losses = torch.cat([p[0] for p in parts])
-                    mets = {k: torch.cat([p[1][k] for p in parts])
-                            for k in parts[0][1]}
-                else:
-                    state, outs = engine.run_epoch(state, Xs, Ys)
-                    losses, mets = self._split_outs(outs)
-                extra = {}
-                if validate is not None:
-                    # evaluate the CENTER (the model a user would ship)
-                    # with the workers' mean state, as extract_model
-                    extra = validate(state["center"]["params"],
-                                     mean_state(state["worker"]["state"]))
-                # the epoch's one device-to-host read
-                losses, mets = host_fetch(losses), host_fetch(mets)
-                self.history.append_epoch(
-                    loss=losses.numpy(),
-                    **{k: v.numpy() for k, v in mets.items()}, **extra)
-                # stop_training stops ALL workers: the center is shared
-                if epoch_exit(self):
-                    break
+            with self._profile_ctx():
+                for epoch, (Xs, Ys, S) in loader:
+                    Xs = torch.from_numpy(Xs).to(device)
+                    Ys = torch.from_numpy(Ys).to(device)
+                    pf = self.parallelism_factor
+                    if pf > 1:
+                        if S < pf:
+                            raise ValueError(
+                                f"epoch has {S} steps/worker but "
+                                f"parallelism_factor={pf} needs >= {pf}")
+                        # equal-length partitions; the remainder steps
+                        # are dropped, as JAX drops them
+                        chunk = S // pf
+                        if chunk * pf < S:
+                            warnings.warn(
+                                f"parallelism_factor={pf}: epoch has {S} "
+                                f"steps/worker; the trailing "
+                                f"{S - chunk * pf} steps are dropped every "
+                                "epoch (equal-length partitions). Size the "
+                                "dataset so steps/worker divides by "
+                                "parallelism_factor to train on all of "
+                                "it.", stacklevel=2)
+                        parts = []
+                        for j in range(pf):
+                            lo, hi = j * chunk, (j + 1) * chunk
+                            state = engine.reset_workers(state)
+                            state, outs_j = engine.run_epoch(
+                                state, Xs[lo:hi], Ys[lo:hi])
+                            parts.append(self._split_outs(outs_j))
+                        losses = torch.cat([p[0] for p in parts])
+                        mets = {k: torch.cat([p[1][k] for p in parts])
+                                for k in parts[0][1]}
+                    else:
+                        state, outs = engine.run_epoch(state, Xs, Ys)
+                        losses, mets = self._split_outs(outs)
+                    extra = {}
+                    if validate is not None:
+                        # evaluate the CENTER (the model a user would
+                        # ship) with the workers' mean state
+                        extra = validate(state["center"]["params"],
+                                         mean_state(state["worker"]["state"]))
+                    # the epoch's one device-to-host read
+                    losses, mets = host_fetch(losses), host_fetch(mets)
+                    losses = losses.numpy()
+                    mets = {k: v.numpy() for k, v in mets.items()}
+                    self.history.append_epoch(loss=losses, **mets, **extra)
+                    extracted = None
+                    saved = False
+                    if (manager is not None
+                            and self._should_checkpoint(epoch)):
+                        save_center(epoch)
+                        saved = True
+                    cbs.epoch_end(epoch, self._epoch_logs(losses, mets,
+                                                          extra))
+                    # stop_training stops ALL workers: the center is
+                    # shared; a preemption saves the center first
+                    if epoch_exit(self, epoch, saved, save_center
+                                  if manager is not None else None):
+                        break
         finally:
+            loader.close()
             self.record_training_stop()
-        params, mstate = engine.extract_model(state)
+            cbs.train_end()  # closes callback resources on exceptions too
+        if manager is not None:
+            manager.wait()   # queued snapshots durable before return
+        params, mstate = extracted if extracted is not None \
+            else engine.extract_model(state)
         load_params(model.params, params)
         load_params(model.state, mstate)
-        return model
+        return self._apply_pending_weights(model)
 
 
 class DOWNPOUR(DistributedTrainer):

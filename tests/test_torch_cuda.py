@@ -1905,3 +1905,100 @@ def test_vit_step_on_card_launches_the_flash_kernels(dev):
     assert abs(float(l1) - float(l0)) <= 1e-3 * abs(float(l0))
     for a, b in zip(g1, g0):
         assert _rel_err(a, b) <= 1e-3
+
+
+# --- the Trainer surface: checkpoints, the fused head, staging ---------------
+
+def test_checkpoint_snapshot_is_fenced_before_save_returns(dev, tmp_path):
+    """``save()`` returns only once its pinned copies have landed: the
+    caller's in-place update right after it is not in the checkpoint."""
+    from distkeras_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                      _snapshot_flat)
+    rs = np.random.RandomState(0)
+    w = torch.from_numpy(rs.randn(1024, 1024).astype(np.float32)).to(dev)
+    t = torch.tensor(7, dtype=torch.int32, device=dev)
+    want = w.cpu().numpy().copy()
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(0, {"w": w, "t": t})
+    w.add_(1.0)             # queued behind the copies on the same stream
+    t.add_(1)
+    got = mgr.restore({"w": w, "t": t})
+    assert np.array_equal(got["w"], want) and int(got["t"]) == 7
+    flat = _snapshot_flat({"w": w})
+    w.mul_(0.0)
+    assert np.array_equal(flat["w"], want + 1.0)
+
+
+def test_checkpoint_round_trip_card_and_cpu(dev, tmp_path):
+    """A carry checkpointed on the card resumes on the CPU and back: the
+    restored leaves are the saved bits, placed on the resuming model's
+    device; a card run resumed on the card is bitwise its uninterrupted
+    run."""
+    from distkeras_tpu_torch.models import Sequential
+    from distkeras_tpu_torch.models.layers import Dense
+    from distkeras_tpu_torch.utils.tree import tree_leaves
+    rs = np.random.RandomState(0)
+    X = rs.randn(256, 8).astype(np.float32)
+    ds = Dataset({"features": X, "label": (X.sum(1) > 0).astype(np.int64)})
+    kw = dict(batch_size=32, worker_optimizer="adam", learning_rate=1e-2,
+              loss="sparse_categorical_crossentropy_from_logits")
+
+    def mlp(d):
+        return Model.build(Sequential([Dense(16, activation="relu"),
+                                       Dense(2)]), (8,), seed=0, device=d)
+
+    whole = SingleTrainer(mlp(dev), num_epoch=3, **kw).train(ds)
+    ck = str(tmp_path / "ck")
+    card = SingleTrainer(mlp(dev), num_epoch=2, checkpoint_dir=ck,
+                         **kw).train(ds)
+    saved = [t.detach().cpu().clone() for t in tree_leaves(card.params)]
+    on_cpu = SingleTrainer(mlp("cpu"), num_epoch=2, checkpoint_dir=ck,
+                           resume=True, **kw)
+    cpu_model = on_cpu.train(ds)   # nothing left to train: the restore
+    assert len(on_cpu.get_history().epochs) == 0
+    for a, b in zip(tree_leaves(cpu_model.params), saved):
+        assert a.device.type == "cpu" and torch.equal(a, b)
+    resumed = SingleTrainer(mlp(dev), num_epoch=3, checkpoint_dir=ck,
+                            resume=True, **kw).train(ds)
+    for a, b in zip(tree_leaves(resumed.params), tree_leaves(whole.params)):
+        assert a.device.type == dev.type and torch.equal(a, b)
+
+
+def test_fused_cross_entropy_on_card_matches_cpu(dev):
+    """The fused head in bf16 on the card (tensor-core products, float32
+    accumulation) against the CPU's float32 plain path within 2e-2."""
+    from distkeras_tpu_torch.ops.losses import fused_linear_cross_entropy
+    rs = np.random.RandomState(0)
+    h = torch.from_numpy(rs.randn(2, 300, 256).astype(np.float32))
+    w = torch.from_numpy((rs.randn(256, 1000) * 0.05).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 1000, (2, 300)))
+    y[0, :17] = -1
+    out = []
+    for d, dt in (("cpu", torch.float32), (dev, torch.bfloat16)):
+        hd = h.to(d, dt).requires_grad_(True)
+        wd = w.to(d).requires_grad_(True)
+        loss = fused_linear_cross_entropy(hd, wd, y.to(d), num_chunks=8,
+                                          ignore_index=-1, compute_dtype=dt)
+        gh, gw = torch.autograd.grad(loss, (hd, wd))
+        out.append((float(loss.detach()), gh.float().cpu(), gw.cpu()))
+    (l0, h0, w0), (l1, h1, w1) = out
+    assert abs(l1 - l0) <= BF16_TOL * abs(l0)
+    assert _rel_err(h1, h0) <= BF16_TOL and _rel_err(w1, w0) <= BF16_TOL
+
+
+def test_device_stager_places_chunks_on_the_card(dev):
+    """The trainers' staging: a chunk's arrays arrive on the card with
+    their values and dtypes (pinned, non-blocking copies); on the CPU a
+    chunk passes through."""
+    from distkeras_tpu_torch.utils.prefetch import Prefetcher, device_stager
+    rs = np.random.RandomState(0)
+    chunks = [(rs.randn(4, 2, 8).astype(np.float32),
+               rs.randint(0, 9, (4, 2)), 4) for _ in range(3)]
+    got = list(Prefetcher(lambda c: c, chunks, depth=2,
+                          place=device_stager(dev)))
+    for (_, (Xs, Ys, n)), (X, Y, m) in zip(got, chunks):
+        assert Xs.is_cuda and Ys.is_cuda and n == m
+        assert np.array_equal(Xs.cpu().numpy(), X)
+        assert np.array_equal(Ys.cpu().numpy(), Y)
+    cpu = device_stager("cpu")(chunks[0])
+    assert cpu is chunks[0]

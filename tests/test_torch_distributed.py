@@ -13,6 +13,7 @@ port adds the committing workers in order).
 """
 
 import functools
+import os
 import warnings
 
 import jax
@@ -302,12 +303,47 @@ def test_easgd_alpha_and_stability_warning():
 @pytest.mark.parametrize("option", ["checkpoint_dir", "resume", "callbacks",
                                     "profile_dir"])
 def test_later_options_raise_naming_the_roadmap_item(option, tmp_path):
-    value = {"checkpoint_dir": str(tmp_path), "resume": True,
-             "callbacks": [object()], "profile_dir": str(tmp_path)}[option]
-    for cls in (parallel.DOWNPOUR, parallel.HostAsyncTrainer,
-                parallel.EnsembleTrainer):
-        with pytest.raises(NotImplementedError, match="Trainer surface"):
-            cls(_port_model(), loss=LOSS, **{option: value})
+    """The options of ROADMAP Queue 1 item 9 are ported on the family
+    (the name keeps the cases that raised): the stacked-worker engine and
+    the host-async trainer checkpoint their center, resume from it, call
+    callbacks each epoch and write a profile; ``EnsembleTrainer``
+    refuses callbacks at ``train``, as JAX's does."""
+    from distkeras_tpu_torch.utils import CheckpointManager, LambdaCallback
+    X, y = _data(n=256)
+    ds = Dataset({"features": X, "label": y})
+    runs = ((parallel.DOWNPOUR, dict(num_workers=W)),
+            (parallel.HostAsyncTrainer, dict(num_workers=2)))
+    for cls, kw in runs:
+        kw = dict(kw, batch_size=32, loss=LOSS, learning_rate=0.05,
+                  communication_window=1)
+        d = str(tmp_path / cls.__name__)
+        if option in ("checkpoint_dir", "resume"):
+            tr = cls(_port_model(), num_epoch=1, checkpoint_dir=d, **kw)
+            m = tr.train(ds)
+            mgr = CheckpointManager(d)
+            assert mgr.latest_step() == 0
+            center = mgr.restore({"params": m.params, "state": m.state})
+            for a, b in zip(tree_leaves(center["params"]),
+                            tree_leaves(m.params)):
+                np.testing.assert_array_equal(a, b.detach().numpy())
+            if option == "resume":
+                tr = cls(_port_model(), num_epoch=2, checkpoint_dir=d,
+                         resume=True, **kw)
+                tr.train(ds)
+                assert len(tr.get_history().epochs) == 1
+                assert mgr.latest_step() == 1
+        elif option == "callbacks":
+            seen = []
+            cb = LambdaCallback(on_epoch_end=lambda e, logs: seen.append(e))
+            cls(_port_model(), num_epoch=2, callbacks=[cb], **kw).train(ds)
+            assert seen == [0, 1], cls
+        else:
+            cls(_port_model(), num_epoch=1, profile_dir=d, **kw).train(ds)
+            assert os.listdir(d), cls
+    if option == "callbacks":
+        with pytest.raises(ValueError, match="callbacks"):
+            parallel.EnsembleTrainer(_port_model(), loss=LOSS,
+                                     callbacks=[object()]).train(ds)
 
 
 def test_step_options_are_refused():
@@ -427,6 +463,8 @@ def test_ensemble_refuses_validation_data_and_callbacks():
         parallel.EnsembleTrainer(_port_model(), loss=LOSS,
                                  validation_data=(X, y)).train(
             Dataset({"features": X, "label": y}))
-    with pytest.raises(NotImplementedError, match="callbacks"):
+    from distkeras_tpu_torch.utils import TerminateOnNaN
+    with pytest.raises(ValueError, match="callbacks"):
         parallel.EnsembleTrainer(_port_model(), loss=LOSS,
-                                 callbacks=[object()])
+                                 callbacks=[TerminateOnNaN()]).train(
+            Dataset({"features": X, "label": y}))
