@@ -298,6 +298,25 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     through the prefetcher against the in-memory epoch (losses bitwise).
     Every LM run launches exactly 12 of each flash kernel and one K7 a
     step.
+32. observability and resilience (``obs_phase``): the 218M LM at
+    ``LM_CFG`` behind the default engine with the tracer, the flight
+    recorder, ``[ttft_p99, tpot_p99, availability]`` SLOs and a time
+    series on, 16 requests (8 greedy, 8 sampled with top-k/top-p, fused
+    sampling), against the same workload under ``obs.disable()``,
+    interleaved off/on/on/off: the same K1f, K3, K4 and K7 launches, the
+    same streams, every timeline's phases partitioning its latency, the
+    Chrome trace and the Prometheus text parsing, ``health()`` with its
+    SLO and telemetry keys, and the wall per engine step with obs off and
+    on; every launch and every obs hook of an obs-on engine under
+    ``set_sync_debug_mode("error")``; ``serving.prefill`` armed nth=3:
+    exactly that request ends CANCELLED with an ``InjectedFault``, every
+    other stream equal to the unfaulted run's, the recorder's dump
+    written; then ``SingleTrainer`` at ``LM_CFG`` widths cut to
+    ``OBS_TRAIN_LAYERS`` layers under ``TrainingSupervisor`` with a
+    ``TrainingTape``, ``train.epoch`` armed nth=2: the resumed run's
+    final carry (params, adam state, key) bitwise the unfaulted run's,
+    the restart's cost, and the tape's examples/s, data wait, goodput and
+    MFU against the card's bf16 peak.
 
 Every serving phase runs the engine's default loop, ``overlap=True``;
 phase 20's teacher-forced runs use the synchronous one. Weights are
@@ -315,6 +334,7 @@ import functools
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -326,7 +346,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from distkeras_tpu_torch import kernels
+from distkeras_tpu_torch import kernels, obs
 from distkeras_tpu_torch.data import Dataset, ShardedDataset
 from distkeras_tpu_torch.inference import ModelPredictor, StreamingPredictor
 from distkeras_tpu_torch.models import (Model, Sequential,
@@ -335,6 +355,9 @@ from distkeras_tpu_torch.models.attention import TransformerBlock
 from distkeras_tpu_torch.models.blocks import Remat
 from distkeras_tpu_torch.models.core import eval_mode
 from distkeras_tpu_torch.models.moe import MoE, _dispatch_plan
+from distkeras_tpu_torch.obs import recorder as obs_recorder
+from distkeras_tpu_torch.obs.slo import availability, tpot_p99, ttft_p99
+from distkeras_tpu_torch.obs.tape import BF16_PEAK_FLOPS, TrainingTape
 from distkeras_tpu_torch.models.decoding import (CACHE_PLANES,
                                                  _decode_block_of,
                                                  _generate_params,
@@ -383,9 +406,10 @@ from distkeras_tpu_torch.parallel.engine import (
     AdagAlgo, AveragingAlgo, DistributedEngine, DownpourAlgo, DynSGDAlgo,
     ElasticAlgo, EngineConfig, WorkerStack)
 from distkeras_tpu_torch.parallel.worker import _fused_head_parts
+from distkeras_tpu_torch.resilience import TrainingSupervisor, faults
 from distkeras_tpu_torch.serving import (DraftModel, KVPool, NgramDraft,
-                                         PagedKVPool, ServingEngine,
-                                         tree_ancestors)
+                                         PagedKVPool, RequestState,
+                                         ServingEngine, tree_ancestors)
 from distkeras_tpu_torch.utils.callbacks import (CSVLogger, EarlyStopping,
                                                  EMAWeights, LambdaCallback,
                                                  ModelCheckpoint,
@@ -397,8 +421,9 @@ from distkeras_tpu_torch.utils.tree import (tree_leaves, tree_map,
 #: the LM the JAX package benchmarks (bench.py LM_CFG), at full depth
 LM_CFG = dict(vocab=32768, d_model=1024, num_heads=16, num_layers=12,
               mlp_ratio=4)
-#: published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
-PEAK_BF16_FLOPS = 989e12
+#: published H100 SXM peaks (NVIDIA data sheet, dense, 700 W); the bf16
+#: one is the training tape's (``obs.tape.BF16_PEAK_FLOPS``)
+PEAK_BF16_FLOPS = dict(BF16_PEAK_FLOPS)["h100"]
 PEAK_F32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
@@ -942,6 +967,7 @@ def profile_serving(model, device, label="bf16 weights", **engine_kw):
         torch.cuda.synchronize()
     kernels_ = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
                 and e.self_device_time_total > 0]
     kernels_.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels_) / 1e3 / n_prof
@@ -2072,6 +2098,7 @@ def profile_generate(model, prompts):
             torch.cuda.synchronize()
     ops = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
            and e.self_device_time_total > 0]
     ops.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3 / n_prof
@@ -4057,6 +4084,7 @@ def profile_loop(model, device, card, label, **engine_kw):
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
               and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in events) / 1e3 / psteps
     n_kernels = sum(e.count for e in events) / psteps
@@ -4186,16 +4214,19 @@ SYNC_FREE_CASES = (("greedy bf16", {}, False),
 
 
 def sync_free_run(model, label, engine_kw, sampled, prompts=(64, 120, 200),
-                  new_tokens=16):
+                  new_tokens=16, obs_hooks=False):
     """One engine (``overlap=True, fuse_steps=4``) whose every
     ``_launch_step`` runs under ``set_sync_debug_mode("error")``: three
     requests (one sampled with ``sampled``) admitted at once, so single
-    steps run while prompts prefill and fused windows after. A host sync
-    inside a launch raises; returns the watch (units, steps, windows)."""
+    steps run while prompts prefill and fused windows after. With
+    ``obs_hooks`` the engine's obs hooks (``_ObsSyncWatch``) run so too,
+    and the drained engine's read endpoints once. A host sync inside a
+    launch or a hook raises; returns the watch (units, steps, windows)."""
     eng = ServingEngine(model, num_slots=4, max_len=512, page_len=16,
                         prefill_chunk=256, device=model.device,
                         overlap=True, fuse_steps=4, **engine_kw)
     watch = _LaunchWatch(eng, strict=True)
+    hooks = _ObsSyncWatch(eng) if obs_hooks else None
     rs = np.random.RandomState(SEED + 26)
     vocab = model.module.layers[0].vocab_size
     for i, n in enumerate(prompts):
@@ -4208,6 +4239,14 @@ def sync_free_run(model, label, engine_kw, sampled, prompts=(64, 120, 200),
         raise AssertionError(f"sync-free {label}: {len(out)} requests "
                              f"finished, {watch.units} launches, "
                              f"{watch.windows} fused windows")
+    if hooks is not None:
+        eng.health()
+        eng._telemetry_summary()
+        if eng.slo is not None:
+            eng.slo.evaluate(eng.metrics)
+        if not all(hooks.calls.values()):
+            raise AssertionError(f"sync-free {label}: obs hook calls "
+                                 f"{hooks.calls}")
     return watch
 
 
@@ -5481,6 +5520,7 @@ def bilstm_phase(dev, card):
             torch.cuda.synchronize()
         launches = sum(e.count for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)
                        and e.self_device_time_total > 0)
         lstm = torch.nn.LSTM(BILSTM_FEATURES, BILSTM_UNITS, num_layers=2,
                              bidirectional=True, batch_first=True).to(dev)
@@ -5957,6 +5997,9 @@ CKPT_FREE_BYTES = 12 * 2 ** 30
 #: weights, label smoothing, the macro metrics and auc, a class-weighted
 #: training run (float32 both sides, cuDNN's order of sums)
 SURFACE_TOL = 1e-3
+#: the columns the (auto) telemetry tape adds to every epoch's logs
+TAPE_LOG_KEYS = ("checkpoint_s", "data_wait_s", "device_s",
+                 "examples_per_sec", "goodput", "host_s", "validation_s")
 #: the kernels a 218M training step launches: 12 of each flash kernel
 #: and one key split (K7)
 TRAINER_KERNELS = TRAINING_KERNELS + ("prng",)
@@ -6276,7 +6319,9 @@ def lenet_surface_phase(dev, card, tmp):
     file_err = float(np.max(np.abs(back.predict(X[:64]) - m.predict(X[:64]))))
     traces = os.listdir(os.path.join(tmp, "prof"))
     if not (len(tr.get_history().epochs) == 2 and restored
-            and len(rows) == 3 and rows[0] == "epoch,accuracy,f1,loss"
+            and len(rows) == 3 and rows[0] == ",".join(
+                ["epoch"] + sorted(("accuracy", "f1", "loss")
+                                   + TAPE_LOG_KEYS))
             and file_err <= 1e-5 and traces):
         raise AssertionError(
             f"LeNet-5 callbacks: {len(tr.get_history().epochs)} epochs, "
@@ -6348,6 +6393,377 @@ def trainer_surface_phase(dev, card):
                 "trainer_frozen": frozen_phase(dev, card),
                 "trainer_sharded": sharded_phase(dev, card, tmp)}
     finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --- phase 32: observability and resilience --------------------------------
+
+#: phase 32's serving workload: requests, prompt lengths, new tokens
+OBS_REQUESTS, OBS_NEW_TOKENS = 16, 32
+#: the SLO objectives the obs-on engine evaluates (generous thresholds:
+#: the check is that they are evaluated and reported, not met)
+OBS_SLO_S = dict(ttft=5.0, tpot=0.5, availability=0.9)
+#: phase 32's training depth: ``LM_CFG`` widths over this many blocks,
+#: so the supervised run's checkpoint writes stay short
+OBS_TRAIN_LAYERS = 4
+#: the engine hooks that run the obs layer's host work; the strict check
+#: runs each under ``set_sync_debug_mode("error")``
+OBS_HOOKS = ("_launch_step", "_flush_host_window", "_record_iteration",
+             "_trace_tick", "_telemetry_summary", "health")
+
+
+def obs_workload(vocab: int):
+    """Sixteen requests of 32 to 256 prompt tokens: the even ones greedy,
+    the odd ones sampled with top-k and top-p under their own seeds."""
+    rs = np.random.RandomState(SEED + 32)
+    reqs = []
+    for i in range(OBS_REQUESTS):
+        kw = {} if i % 2 == 0 else dict(temperature=0.8, top_k=40,
+                                        top_p=0.9, seed=100 + i)
+        reqs.append((rs.randint(0, vocab, int(rs.randint(32, 257))), kw))
+    return reqs
+
+
+def obs_engine_kw(on: bool):
+    """The engine's obs options: the SLOs and a time series (the tracer
+    and the flight recorder follow ``obs.enabled()``)."""
+    if not on:
+        return dict(slo=None, timeseries=False)
+    return dict(slo=[ttft_p99(OBS_SLO_S["ttft"]), tpot_p99(OBS_SLO_S["tpot"]),
+                     availability(OBS_SLO_S["availability"])],
+                timeseries=None)
+
+
+def obs_serve(model, on: bool, requests, setup=None):
+    """The workload through the default loop (fused sampling: K4 draws
+    the sampled steps) with obs on or off (``obs.disable()`` for the
+    run). Returns the engine, the terminal requests by rid in submit
+    order, the launch counts, the step count and the run's wall."""
+    was = obs.enabled()
+    (obs.enable if on else obs.disable)()
+    try:
+        eng = ServingEngine(model, num_slots=4, max_len=512, page_len=16,
+                            prefill_chunk=256, num_pages=256,
+                            device=model.device, fused_sampling=True,
+                            **obs_engine_kw(on))
+        if setup is not None:
+            setup(eng)
+        rids = [eng.submit(p, OBS_NEW_TOKENS, **kw) for p, kw in requests]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        done, steps = {}, 0
+        t0 = time.perf_counter()
+        while eng.scheduler.pending:
+            for r in eng.step():
+                done[r.rid] = r
+            steps += 1
+            if steps > 5000:
+                raise AssertionError("phase 32: the engine did not drain")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        (obs.enable if was else obs.disable)()
+    return eng, [done[r] for r in rids], launches, steps, wall
+
+
+_PROM_VALUE = r'"(?:\\.|[^"\\])*"'
+_PROM_LINE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*"
+    r"(?:\{[a-zA-Z_][a-zA-Z0-9_]*=" + _PROM_VALUE
+    + r"(?:,[a-zA-Z_][a-zA-Z0-9_]*=" + _PROM_VALUE + r")*\})?"
+    r" \S+(?: -?\d+)?$")
+
+
+def check_prometheus(text: str, label: str) -> int:
+    """Every line of a Prometheus exposition is a ``# TYPE`` comment or
+    ``name{labels} value [ms]`` with a float value; returns the samples."""
+    n = 0
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            continue
+        if not _PROM_LINE.match(line):
+            raise AssertionError(f"{label}: unparsable Prometheus line "
+                                 f"{line!r}")
+        float(line.split()[1])
+        n += 1
+    return n
+
+
+def check_obs_engine(eng, done, card):
+    """The obs-on engine's records: timelines partition latencies, the
+    Chrome trace and Prometheus text parse, ``health()`` reports SLO and
+    telemetry; returns ``health()``."""
+    sums = eng.tracer.summaries()
+    worst = 0.0
+    for r in done:
+        s = sums[r.rid]
+        d = s["durations"]
+        parts = d["queued_s"] + d["prefill_s"] + d.get("decode_s", 0.0)
+        worst = max(worst, abs(parts - d["total_s"]))
+        if s["state"] != r.state.value or s["n_tokens"] != len(r.generated):
+            raise AssertionError(f"phase 32: timeline of request {r.rid} "
+                                 f"says {s['state']}/{s['n_tokens']}")
+    if worst > 1e-9:
+        raise AssertionError(f"phase 32: a timeline's phases miss its "
+                             f"latency by {worst} s")
+    trace = json.loads(json.dumps(eng.tracer.chrome_trace()))
+    flows = sum(e["ph"] == "s" for e in trace["traceEvents"])
+    if flows != len(done):
+        raise AssertionError(f"phase 32: {flows} flows for {len(done)} "
+                             "requests in the Chrome trace")
+    health = eng.health()
+    if health["slo"] is None or set(health["slo"]) != {
+            "ttft_p99", "tpot_p99", "availability"}:
+        raise AssertionError(f"phase 32: health()['slo'] = {health['slo']}")
+    comp = health["telemetry"]["components"].get(eng._component_name)
+    if comp is None or set(comp["requests"]) != {r.rid for r in done}:
+        raise AssertionError("phase 32: the engine's telemetry component "
+                             "lacks its requests")
+    n_prom = check_prometheus(
+        obs.exporters.prometheus_text(eng.metrics.registry.snapshot()),
+        "registry") + check_prometheus(eng.timeseries.prometheus_text(),
+                                       "time series")
+    ts = eng.timeseries.summary()
+    print(f"phase 32 (a) obs records on {card}: {len(sums)} timelines "
+          f"(phases partition each latency within {worst:.1e} s), "
+          f"{len(trace['traceEvents'])} Chrome-trace events, {n_prom} "
+          f"Prometheus samples parsed, {ts['n_samples']} time-series "
+          f"scrapes, SLO status "
+          + ", ".join(f"{k} good {v['good_fraction']:.3f} burn "
+                      f"{v['burn_rate']:.3f}"
+                      for k, v in health["slo"].items())
+          + f"; health {health['status']}", flush=True)
+    return health
+
+
+class _ObsSyncWatch:
+    """Runs each of ``OBS_HOOKS`` on one engine (and its time series' and
+    SLO engine's entry points) under ``set_sync_debug_mode("error")``, so
+    a host sync inside one raises; counts the calls."""
+
+    def __init__(self, eng):
+        self.calls = {}
+        targets = [(eng, name) for name in OBS_HOOKS]
+        if eng.timeseries is not None:
+            targets.append((eng.timeseries, "maybe_sample"))
+        if eng.slo is not None:
+            targets.append((eng.slo, "evaluate"))
+        for obj, name in targets:
+            self._wrap(obj, name)
+
+    def _wrap(self, obj, name):
+        orig = getattr(obj, name)
+        self.calls[name] = 0
+
+        def strict(*args, **kw):
+            self.calls[name] += 1
+            with _SyncErrors():
+                return orig(*args, **kw)
+
+        setattr(obj, name, strict)
+
+
+#: the obs-on configurations of the strict sync check (phase 32 and the
+#: card tests): the tracer and recorder follow obs, plus SLOs and a series
+OBS_SYNC_FREE_CASES = (("obs greedy", False), ("obs sampled", True))
+
+
+def obs_sync_free(model, card):
+    """Obs-on engines whose launches and obs hooks run under
+    ``set_sync_debug_mode("error")``: a host sync in any raises."""
+    for label, sampled in OBS_SYNC_FREE_CASES:
+        w = sync_free_run(model, label, obs_engine_kw(True), sampled,
+                          obs_hooks=True)
+        print(f"phase 32 (a) sync-free {label} on {card}: {w.units} "
+              f"launches ({w.windows} fused windows), every launch and obs "
+              f"hook ({', '.join(OBS_HOOKS)}, the time series' scrape, the "
+              f"SLO evaluation) under set_sync_debug_mode('error'): no "
+              f"host sync", flush=True)
+
+
+def obs_serving_phase(model, card, tmp):
+    """(a) and (b): the workload with obs off and on, interleaved; the
+    strict sync check; the poisoned prefill. Returns the obs-on run's
+    launch counts."""
+    requests = obs_workload(model.module.layers[0].vocab_size)
+    obs_serve(model, True, requests[:2])           # warm: libraries, caches
+    runs = []
+    for on in (False, True, True, False):
+        gc.collect()
+        runs.append((on,) + obs_serve(model, on, requests))
+    names = ("flash_fwd", "paged_decode", "sample_epilogue", "prng")
+    base = runs[0]
+    for on, eng, done, launches, steps, wall in runs[1:]:
+        got = {n: launches[n] for n in names}
+        want = {n: base[3][n] for n in names}
+        if got != want or steps != base[4]:
+            raise AssertionError(f"phase 32: obs {'on' if on else 'off'} "
+                                 f"launched {got} in {steps} steps; off "
+                                 f"{want} in {base[4]}")
+        for a, b in zip(done, base[2]):
+            if not np.array_equal(a.tokens, b.tokens):
+                raise AssertionError(f"phase 32: request {a.rid}'s stream "
+                                     f"differs with obs "
+                                     f"{'on' if on else 'off'}")
+    if any(base[3][n] < 1 for n in names):
+        raise AssertionError(f"phase 32: a kernel never launched: "
+                             f"{base[3]}")
+    on_runs = [r for r in runs if r[0]]
+    health = check_obs_engine(on_runs[-1][1], on_runs[-1][2], card)
+    for on in (False, True):
+        walls = [r[5] / r[4] * 1e3 for r in runs if r[0] == on]
+        decode = [r[1].metrics.phase_seconds["decode"] / r[4] * 1e3
+                  for r in runs if r[0] == on]
+        print(f"phase 32 (a) serving with obs {'on ' if on else 'off'} on "
+              f"{card}: {OBS_REQUESTS} requests x {OBS_NEW_TOKENS} tokens "
+              f"in {base[4]} steps; wall per step "
+              + " / ".join(f"{w:.3f}" for w in walls) + " ms, its decode "
+              "phase " + " / ".join(f"{w:.3f}" for w in decode)
+              + " ms (runs " + ("2, 3" if on else "1, 4")
+              + " of off/on/on/off)", flush=True)
+    s = on_runs[-1][1].metrics.summary()
+    print(f"phase 32 (a) launches (both): "
+          f"{ {n: base[3][n] for n in names} }; greedy and sampled streams "
+          f"equal with obs on; TTFT p50 {s['ttft_s']['p50'] * 1e3:.1f} ms "
+          f"p99 {s['ttft_s']['p99'] * 1e3:.1f} ms (reservoir of "
+          f"{s['requests_finished']} requests); health keys "
+          f"{sorted(health)}", flush=True)
+    obs_sync_free(model, card)
+    # (b) the poisoned prefill
+    obs_recorder.reset_recorder()
+    rec = obs_recorder.get_recorder()
+    rec.dump_dir = os.path.join(tmp, "flight")
+    rec.min_auto_interval_s = 0.0
+    faults.inject("serving.prefill", nth=3)
+    try:
+        _, done, _, _, _ = obs_serve(model, True, requests)
+    finally:
+        faults.reset()
+    cancelled = [r for r in done if r.state is RequestState.CANCELLED]
+    if len(cancelled) != 1 or not isinstance(cancelled[0].error,
+                                             faults.InjectedFault):
+        raise AssertionError(f"phase 32 (b): ended "
+                             f"{[r.state.value for r in done]}")
+    victim = cancelled[0]
+    parted = [r.rid for r, ref in zip(done, base[2])
+              if r is not victim and not np.array_equal(r.tokens,
+                                                        ref.tokens)]
+    if parted:
+        raise AssertionError(f"phase 32 (b): streams {parted} differ from "
+                             "the unfaulted run's")
+    if len(rec.dumps) != 1:
+        raise AssertionError(f"phase 32 (b): recorder dumps {rec.dumps}")
+    header, records = obs_recorder.read_flight_dump(rec.dumps[0])
+    kinds = sorted({r["kind"] for r in records})
+    print(f"phase 32 (b) poisoned prefill on {card}: request {victim.rid} "
+          f"({'sampled' if victim.temperature > 0 else 'greedy'}) ended "
+          f"{victim.state.value} with {type(victim.error).__name__}; the "
+          f"other {len(done) - 1} streams equal the unfaulted run's; the "
+          f"flight dump ({header['reason']}) holds {len(records)} records "
+          f"of kinds {kinds}", flush=True)
+    obs_recorder.reset_recorder()
+    return on_runs[-1][3]
+
+
+def lm_train_flops(num_layers, seq, d=LM_CFG["d_model"],
+                   vocab=LM_CFG["vocab"], mlp=LM_CFG["mlp_ratio"]):
+    """Training FLOPs of one ``seq``-token row of the LM: 3x the forward
+    (the backward twice it), the forward 2 x tokens x the matrix
+    parameters (q/k/v/o ``4 d^2`` and the MLP ``2 mlp d^2`` a block, the
+    head ``d V``) plus the causal attention's ``2 S^2 d`` a block (QK^T
+    and PV over the lower triangle)."""
+    matrix = num_layers * (4 + 2 * mlp) * d * d + d * vocab
+    return 3.0 * (2.0 * seq * matrix + num_layers * 2.0 * seq * seq * d)
+
+
+def obs_training_phase(dev, card, tmp):
+    """(c): ``SingleTrainer`` at ``LM_CFG`` widths cut to
+    ``OBS_TRAIN_LAYERS`` layers, with ``checkpoint_dir`` and a
+    ``TrainingTape``: an unfaulted supervised run, then the same under
+    ``train.epoch`` armed nth=2 (after epoch 0's checkpoint): the final
+    carries bitwise equal, the restart's cost, the tape's numbers.
+    Returns the unfaulted run's launch counts."""
+    data = training_data(LM_CFG["vocab"])
+    steps = TRAIN_ROWS // TRAIN_BATCH
+    fpe = lm_train_flops(OBS_TRAIN_LAYERS, TRAIN_SEQ)
+    out = {}
+    for label, armed in (("unfaulted", False), ("faulted", True)):
+        gc.collect()
+        tape = TrainingTape(name=f"phase32_{label}", flops_per_example=fpe)
+        tr = lm_trainer(build_lm(dev, num_layers=OBS_TRAIN_LAYERS), epochs=2,
+                        checkpoint_dir=os.path.join(tmp, label),
+                        telemetry=tape)
+        sup = TrainingSupervisor(tr, max_restarts=1, handle_signals=())
+        if armed:
+            faults.inject("train.epoch", nth=2)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            result = sup.run(data)
+        finally:
+            faults.reset()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        if result.restarts != int(armed):
+            raise AssertionError(f"phase 32 (c) {label}: "
+                                 f"{result.restarts} restarts")
+        manager = CheckpointManager(os.path.join(tmp, label))
+        out[label] = (tr, tape, _final_carry(manager, 1), wall, launches)
+    check_trainer_launches("phase 32 (c) the unfaulted run",
+                           out["unfaulted"][4], 2 * steps,
+                           num_layers=OBS_TRAIN_LAYERS)
+    a, b = out["unfaulted"][2], out["faulted"][2]
+    parted = [k for k in a if a[k].tobytes() != b[k].tobytes()]
+    live = sum(not torch.equal(x, y) for x, y in zip(
+        tree_leaves(out["unfaulted"][0].master_model.params),
+        tree_leaves(out["faulted"][0].master_model.params)))
+    if parted or live:
+        raise AssertionError(f"phase 32 (c): the resumed carry parts from "
+                             f"the unfaulted one at {parted[:5]}, {live} "
+                             "live tensors")
+    tape = out["unfaulted"][1]
+    snap = tape.snapshot()
+    logs = tape.registry.gauge(f"{tape.name}.goodput").value()
+    peak = tape.peak_flops
+    print(f"phase 32 (c) supervised training on {card}: LM_CFG widths at "
+          f"{OBS_TRAIN_LAYERS} layers (depth cut from "
+          f"{LM_CFG['num_layers']} to keep the checkpoint writes short), "
+          f"2 epochs of {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ}; "
+          f"train.epoch armed nth=2: 1 restart, the resumed final carry "
+          f"({len(a)} leaves: params, adam state, key) bitwise the "
+          f"unfaulted run's; wall unfaulted {out['unfaulted'][3]:.2f} s, "
+          f"faulted {out['faulted'][3]:.2f} s (restart cost "
+          f"{out['faulted'][3] - out['unfaulted'][3]:.2f} s)", flush=True)
+    print(f"phase 32 (c) tape (unfaulted run) on {card}: "
+          f"{snap['examples'] / snap['wall_s']:.2f} rows/s over "
+          f"{snap['wall_s']:.2f} s, phases "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in
+                      sorted(snap["phases_s"].items()))
+          + f", compile {snap['compile_s']:.3f} s, goodput "
+          f"{snap['goodput']:.3f} (last epoch's gauge {logs:.3f}); MFU "
+          + (f"{snap['mfu']:.4f} against {peak / 1e12:.0f} TFLOP/s bf16 "
+             f"({fpe / TRAIN_SEQ / 1e9:.3f} GFLOP a token)"
+             if "mfu" in snap else "absent (no peak for this card)"),
+          flush=True)
+    return out["unfaulted"][4]
+
+
+def obs_phase(dev, card):
+    """Phase 32: observability and resilience on the card. Returns each
+    path's launch counts."""
+    tmp = tempfile.mkdtemp(prefix="dkt-phase32-")
+    try:
+        model = build_lm(dev)
+        serving = obs_serving_phase(model, card, tmp)
+        del model
+        gc.collect()
+        return {"serving_obs": serving,
+                "training_supervised": obs_training_phase(dev, card, tmp)}
+    finally:
+        faults.reset()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -6555,6 +6971,11 @@ def main() -> int:
     surface_launches = trainer_surface_phase(dev, card)
     print(f"phase 31 (the rest of the Trainer surface) took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    t0 = time.perf_counter()
+    obs_launches = obs_phase(dev, card)
+    print(f"phase 32 (observability and resilience) took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     by_path = {name: {} for name in kernels.SOURCES}
     for path, c in {**slab_launches, **moe_wq_launches,
@@ -6607,6 +7028,11 @@ def main() -> int:
     for path, c in surface_launches.items():
         for name in TRAINER_KERNELS:
             by_path[name][path] = c[name]
+    for name in ("flash_fwd", "paged_decode", "sample_epilogue", "prng"):
+        by_path[name]["serving_obs"] = obs_launches["serving_obs"][name]
+    for name in TRAINER_KERNELS:
+        by_path[name]["training_supervised"] = \
+            obs_launches["training_supervised"][name]
 
     def entry(name, source, replaces, rows, path):
         main_row = rows[0]

@@ -9,6 +9,10 @@ hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built at first use
 into ``_build/`` and bound with ``ctypes`` (``kernels``). Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``, which
 selects each kernel's plain PyTorch version (the CPU tests' path).
+The JAX package's observability (``obs``: metrics registry, spans,
+exporters, the training tape, the engine's request tracer, flight
+recorder, SLOs and time series) and resilience (``resilience``: fault
+points, retry policies, ``TrainingSupervisor``) layers are ported too.
 
 The package imports ``torch`` and ``numpy`` only: nothing of JAX and
 nothing of ``distkeras_tpu``.

@@ -21,7 +21,10 @@ conversion of ``quant_matmul.cu``, ``paged_decode.cu`` and
 ``decode_attention.cu``) and
 the flags, so an edited source or header rebuilds
 and an unchanged one is reused. Where the libraries go and
-which ``nvcc`` runs is set in ``compat``.
+which ``nvcc`` runs is set in ``compat``. The seconds spent building
+and loading libraries are the port's compile time
+(``obs.collectors.note_compile``), which the training tape's goodput
+subtracts as JAX's subtracts XLA compiles.
 
 Every wrapper adds one to its kernel's launch count where it launches
 the kernel, and nowhere else (``launch_counts`` / ``reset_launch_counts``),
@@ -37,6 +40,7 @@ import os
 import re
 import subprocess
 import threading
+import time
 from typing import Dict, Iterable, Optional
 
 from distkeras_tpu_torch import compat
@@ -161,6 +165,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     ``{name: library path}``. Raises with the compiler's output when a
     compile fails."""
     names = list(SOURCES if names is None else names)
+    t0 = time.perf_counter()
     os.makedirs(compat.build_dir(), exist_ok=True)
     sources = sorted({SOURCES[name] for name in names})
     paths = {src: _library_path(src) for src in sources}
@@ -181,6 +186,10 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
                           f"(exit {proc.returncode}) ---\n{out}")
             continue
         os.replace(tmp, paths[src])
+    if procs:
+        # the port's compile time: goodput (obs.tape) subtracts it
+        from distkeras_tpu_torch.obs import collectors
+        collectors.note_compile(time.perf_counter() - t0, len(procs))
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: paths[SOURCES[name]] for name in names}
@@ -195,6 +204,7 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         if SOURCES[name] not in _libs:
             paths = build([n for n in SOURCES if SOURCES[n] not in _libs])
+            t0 = time.perf_counter()
             for n, path in paths.items():
                 dll = _libs.get(SOURCES[n])
                 if dll is None:
@@ -205,6 +215,8 @@ def library(name: str) -> ctypes.CDLL:
                 fn = getattr(dll, sym)
                 fn.argtypes = argtypes
                 fn.restype = _I
+            from distkeras_tpu_torch.obs import collectors
+            collectors.note_compile(time.perf_counter() - t0, 0)
         return _libs[SOURCES[name]]
 
 

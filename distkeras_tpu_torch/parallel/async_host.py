@@ -47,6 +47,7 @@ from distkeras_tpu_torch.parallel.trainers import (Trainer, epoch_exit,
                                                    host_tree, load_params)
 from distkeras_tpu_torch.parallel.worker import (TrainCarry, make_train_step,
                                                  shard_epoch_data)
+from distkeras_tpu_torch.resilience import faults
 from distkeras_tpu_torch.utils.tree import (tree_leaves, tree_map,
                                             tree_unflatten)
 
@@ -222,6 +223,7 @@ class HostAsyncTrainer(Trainer):
         try:
             with self._profile_ctx():
                 for epoch in range(start_epoch, self.num_epoch):
+                    faults.point("train.epoch")    # chaos hook
                     perm = self._epoch_perm(epoch, len(X))
                     Xs, Ys, S = shard_epoch_data(X, y, n, self.batch_size,
                                                  perm)

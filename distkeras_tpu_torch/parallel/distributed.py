@@ -13,8 +13,10 @@ instead of spread over a mesh. Differences:
   an explicit ``num_workers`` has no device limit, since the workers
   are stacked on one device;
 * ``mesh=`` raises ``NotImplementedError`` naming the multi-device half
-  of ROADMAP Queue 1 item 10;
-* the fault points of ``resilience/`` (item 11) are not ported.
+  of ROADMAP Queue 1 item 10.
+
+Each epoch passes the ``train.epoch`` chaos point (JAX :133) and lands
+a flight-recorder entry (``epoch_exit``).
 
 The center is validated each epoch (the model a user would ship), with
 the workers' mean model state (BatchNorm's statistics; the center's own
@@ -43,6 +45,7 @@ from distkeras_tpu_torch.parallel.engine import (
     DynSGDAlgo, ElasticAlgo, EngineConfig, MESH_ITEM, host_fetch, mean_state)
 from distkeras_tpu_torch.parallel.trainers import (Trainer, epoch_exit,
                                                    host_tree, load_params)
+from distkeras_tpu_torch.resilience import faults
 from distkeras_tpu_torch.utils.prefetch import Prefetcher
 from distkeras_tpu_torch.parallel.worker import shard_epoch_data
 
@@ -133,6 +136,9 @@ class DistributedTrainer(Trainer):
         try:
             with self._profile_ctx():
                 for epoch, (Xs, Ys, S) in loader:
+                    # chaos hook: a crash mid-training; the family resumes
+                    # from the center only (the parameter-server retry)
+                    faults.point("train.epoch")
                     Xs = torch.from_numpy(Xs).to(device)
                     Ys = torch.from_numpy(Ys).to(device)
                     pf = self.parallelism_factor

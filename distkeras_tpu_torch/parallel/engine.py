@@ -48,9 +48,11 @@ training forward writes its own rows in place, the commits never touch
 it (the center's state does not advance, as in JAX), and
 ``extract_model`` returns the workers' mean of each float state leaf
 (worker 0's value for an integer one, JAX :718-726) beside the flushed
-center. The JAX engine's span and recompile detector (``obs``) are
-ROADMAP Queue 1 item 11 and not ported. Batching the workers into one
-launch per layer is later work (ROADMAP Queue 2).
+center. Each ``run_epoch`` runs under the ``engine.epoch`` span (JAX
+:698) and polls a ``RecompileDetector`` over the loaded kernel
+libraries (JAX :518): a library loaded after the first epoch warns.
+Batching the workers into one launch per layer is later work (ROADMAP
+Queue 2).
 """
 
 from __future__ import annotations
@@ -401,6 +403,8 @@ class DistributedEngine:
         self.train_step = make_train_step(module, loss_fn, optimizer,
                                           metric_fns, param_mask=param_mask,
                                           state_mask=state_mask)
+        self._recompile = None        # bound by the first run_epoch
+        self._warm_marked = False
 
         n = config.num_workers
         K = config.window
@@ -590,14 +594,27 @@ class DistributedEngine:
         arrays, moved there first). Returns ``(state, outs)``: the state
         updated in place, and the per-step losses ``[S, W]`` (or
         ``(losses, {name: [S, W]})`` with metrics) on the device."""
+        from distkeras_tpu_torch import obs
         worker = state["worker"]
         device = tree_leaves(worker["params"])[0].device
         Xs, Ys = (torch.from_numpy(np.asarray(a)).to(device)
                   if not torch.is_tensor(a) else a for a in (Xs, Ys))
         stack = WorkerStack(self.train_step, worker["params"],
                             worker["opt"], worker["rng"], worker["state"])
-        outs = (self._epoch_amortized if self.amortized
-                else self._epoch_perstep)(state, stack, Xs, Ys)
+        if self._recompile is None:
+            self._recompile = obs.RecompileDetector()
+            self._recompile.watch("engine.kernels",
+                                  obs.collectors.KERNEL_LIBRARIES)
+        with obs.span("engine.epoch"):
+            outs = (self._epoch_amortized if self.amortized
+                    else self._epoch_perstep)(state, stack, Xs, Ys)
+        # every kernel library the epoch needs loads in the first one:
+        # a later load is the port's recompile
+        if self._warm_marked:
+            self._recompile.check()
+        else:
+            self._recompile.mark_warm()
+            self._warm_marked = True
         return state, stack_outputs(outs)
 
     # -- final model ------------------------------------------------------

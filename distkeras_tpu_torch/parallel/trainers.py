@@ -24,8 +24,17 @@ format, so a resumed run is bitwise an uninterrupted one and a
 checkpoint crosses between the packages. Its epochs come from a
 ``utils.prefetch.Prefetcher`` that assembles the next epoch (or shard)
 and stages it on the device while the current one trains.
-``telemetry`` (JAX's ``obs`` training tape) and the flight recorder
-that JAX's ``epoch_exit`` writes to are ROADMAP Queue 1 item 11.
+
+Telemetry and resilience (JAX :76-90, :304-310, :466-476, :537-662):
+``telemetry`` resolves through ``obs.resolve_tape`` (None: an auto tape
+while obs is enabled; False: none; or a configured ``TrainingTape``),
+whose phases (``data_wait``, ``device``, ``validation``,
+``checkpoint``) and rates merge into the callback logs; every epoch
+loop writes a ``train.epoch`` entry to the flight recorder
+(``epoch_exit``); the chaos points ``train.epoch`` and ``data.fetch``
+(under ``io_retry``) and the value hook ``train.loss``
+(``faults.corrupt``) are JAX's, so ``resilience.TrainingSupervisor``
+resumes a crashed run bitwise.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from distkeras_tpu_torch.data.dataset import Dataset, coerce_column
 from distkeras_tpu_torch.data.sharded import ShardedDataset
 from distkeras_tpu_torch.models.core import Model, eval_mode, trainable_mask
 from distkeras_tpu_torch.models.serialization import jax_state_tree
+from distkeras_tpu_torch.obs import collectors, resolve_tape, timed_stream
 from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.losses import get_loss, with_class_weight
 from distkeras_tpu_torch.ops.metrics import get_metric, metric_name
@@ -53,15 +63,11 @@ from distkeras_tpu_torch.parallel.engine import (WorkerStack, stack_outputs,
                                                  stacked_opt_init)
 from distkeras_tpu_torch.parallel.worker import (TrainCarry, make_train_step,
                                                  run_epoch, stack_batches)
+from distkeras_tpu_torch.resilience import faults
 from distkeras_tpu_torch.utils.history import History
 from distkeras_tpu_torch.utils.prefetch import (Prefetcher, device_stager,
                                                 to_device)
 from distkeras_tpu_torch.utils.tree import tree_map
-
-#: the ROADMAP item of the trainers' ``telemetry`` tape, named in errors
-TELEMETRY_ITEM = ("ROADMAP, Queue 1 item 11 (host-side systems: the obs/ "
-                  "layer's training tape)")
-
 
 def val_logs(values) -> dict:
     """Validator outputs -> the ``extra`` logs dict (``{key: [scalar]}``
@@ -74,8 +80,15 @@ def epoch_exit(trainer, epoch: int, saved: bool, save_fn) -> bool:
     """Shared end-of-epoch stop rule (JAX :68): on ``stop_training`` or
     a preemption request, make sure THIS epoch is checkpointed (or a
     resume would lose it) and tell the loop to break. The preemption
-    notice is consumed here, when it is acted on."""
+    notice is consumed here, when it is acted on. Every epoch lands one
+    ``train.epoch`` entry in the flight recorder (JAX :76-90; a no-op
+    while obs is disabled)."""
     trainer.preempted = trainer._preempt.is_set()
+    from distkeras_tpu_torch.obs.recorder import resolve_recorder
+    resolve_recorder().record(
+        "train.epoch", trainer=type(trainer).__name__, epoch=int(epoch),
+        saved=bool(saved), stop=bool(trainer.stop_training),
+        preempted=bool(trainer.preempted))
     if not (trainer.stop_training or trainer.preempted):
         return False
     if trainer.preempted:
@@ -123,11 +136,6 @@ class Trainer:
                  class_weight: Optional[dict] = None,
                  fused_vocab_head: bool = False,
                  telemetry=None):
-        # None / False: no telemetry tape (the port has no obs layer); a
-        # tape object asks for one
-        if telemetry not in (None, False):
-            raise NotImplementedError(
-                f"telemetry is not ported yet: {TELEMETRY_ITEM}")
         self.master_model = keras_model
         opt_kwargs = dict(optimizer_kwargs or {})
         if learning_rate is not None and not isinstance(worker_optimizer,
@@ -168,6 +176,12 @@ class Trainer:
                 "the class-weight wrapper scales. Drop one of the two.")
         # True = the default chunking; an int = the token chunk count
         self.fused_vocab_head = fused_vocab_head
+        # the obs training tape: None = an auto tape while obs is
+        # enabled, False = off for this trainer, or a configured
+        # obs.TrainingTape (with flops_per_example for MFU); the live
+        # tape is ``self.tape`` during and after train()
+        self.telemetry = telemetry
+        self.tape = None
         self.stop_training = False
         self._weights_fn = None       # bound by the trainers in train()
         self._pending_weights = None  # set through set_weights()
@@ -233,6 +247,13 @@ class Trainer:
     def _should_checkpoint(self, epoch: int) -> bool:
         return ((epoch + 1) % self.checkpoint_every == 0
                 or epoch == self.num_epoch - 1)
+
+    def _make_tape(self, unit: str = "examples"):
+        """Bind this run's telemetry tape (``obs.NULL_TAPE`` when off:
+        every hook a no-op, so the epoch loops stay branch-free)."""
+        self.tape = resolve_tape(self.telemetry, type(self).__name__,
+                                 unit)
+        return self.tape
 
     def _profile_ctx(self):
         """A ``torch.profiler`` trace of the run written under
@@ -367,10 +388,20 @@ class Trainer:
         device on the loader thread, two chunks deep (JAX :451)."""
         items = sds.epoch_items(start_epoch, self.num_epoch, self.seed,
                                 self.shuffle_each_epoch)
+        from distkeras_tpu_torch.resilience.retry import io_retry
+        fetch_retry = io_retry()
 
         def assemble(item):
             epoch, si, _ = item
-            Xc, yc = self._training_arrays(sds.load_shard(si))
+
+            def fetch():
+                # chaos hook + transient-IO retry: a flaky shard read
+                # costs a jittered backoff on the loader thread
+                faults.point("data.fetch")
+                return sds.load_shard(si)
+
+            Xc, yc = self._training_arrays(
+                fetch_retry.call(fetch, op="data.fetch"))
             perm = None
             if self.shuffle_each_epoch:
                 perm = np.random.RandomState(
@@ -434,6 +465,10 @@ class SingleTrainer(Trainer):
                                param_mask=self._param_mask(model),
                                state_mask=self._state_mask(model),
                                fused_vocab_head=self.fused_vocab_head)
+        tape = self._make_tape()
+        # a kernel library loaded after the first epoch is a recompile
+        tape.watch("SingleTrainer.kernels",
+                   collectors.KERNEL_LIBRARIES)
         # the whole carry is checkpointed, so a resumed run is bitwise an
         # uninterrupted one; the key chain starts from PRNGKey(seed)
         manager = self._checkpoint_manager()
@@ -465,46 +500,67 @@ class SingleTrainer(Trainer):
             stream = (((e, 0, True), chunk) for e, chunk in self.loader)
 
         def save_now(epoch):
-            manager.save(epoch, {"params": carry.params,
-                                 "state": jax_state_tree(model, carry.state),
-                                 "opt": carry.opt_state,
-                                 "rng": prng.key_data(carry.rng)},
-                         metadata={"epoch": epoch})
+            with tape.phase("checkpoint"):
+                manager.save(epoch, {
+                    "params": carry.params,
+                    "state": jax_state_tree(model, carry.state),
+                    "opt": carry.opt_state, "rng": prng.key_data(carry.rng)},
+                    metadata={"epoch": epoch})
 
         validate = self._make_validator(model, device)
         cbs = self._cb_list(lambda: (host_tree(carry.params),
                                      host_tree(carry.state)))
         self.record_training_start()
+        tape.train_begin()
         try:
             with self._profile_ctx():
                 l_acc, m_acc = [], []
-                for (epoch, _, last), (Xs, Ys, _) in stream:
-                    carry, losses, mets = run_epoch(
-                        step, carry, to_device(Xs, device),
-                        to_device(Ys, device))
+                examples = 0
+                for (epoch, _, last), (Xs, Ys, n_steps) in timed_stream(
+                        stream, tape):
+                    # chaos hook: a crash at an arbitrary loop iteration
+                    faults.point("train.epoch")
+                    with tape.phase("device"):
+                        carry, losses, mets = run_epoch(
+                            step, carry, to_device(Xs, device),
+                            to_device(Ys, device))
                     l_acc.append(losses)
                     m_acc.append(mets)
+                    examples += int(n_steps) * self.batch_size
                     if not last:
                         continue
-                    # the epoch's one device-to-host read
-                    losses = torch.cat(l_acc).cpu().numpy()
-                    mets = {k: torch.cat([m[k] for m in m_acc]).cpu().numpy()
-                            for k in m_acc[0]}
+                    with tape.phase("device"):
+                        # the epoch's one device-to-host read, which also
+                        # bounds the device phase by its last launch
+                        losses = torch.cat(l_acc).cpu().numpy()
+                        mets = {k: torch.cat([m[k] for m in m_acc])
+                                .cpu().numpy() for k in m_acc[0]}
+                    # chaos hook: NaN-poison the losses the anomaly guard
+                    # watches (host values: a disarmed hook reads nothing)
+                    losses = faults.corrupt("train.loss", losses)
                     l_acc, m_acc = [], []
-                    extra = validate(model.params) if validate else {}
+                    extra = {}
+                    if validate:
+                        with tape.phase("validation"):
+                            extra = validate(model.params)
                     self.history.append_epoch(loss=losses, **mets, **extra)
                     saved = False
                     if manager is not None and self._should_checkpoint(epoch):
                         save_now(epoch)
                         saved = True
-                    cbs.epoch_end(epoch, self._epoch_logs(losses, mets,
-                                                          extra))
+                    logs = self._epoch_logs(losses, mets, extra)
+                    logs.update(tape.epoch_end(examples))
+                    examples = 0
+                    if epoch == start_epoch:
+                        tape.mark_warm()  # the first epoch loaded every kernel
+                    cbs.epoch_end(epoch, logs)
                     if epoch_exit(self, epoch, saved,
                                   save_now if manager is not None else None):
                         break
         finally:
             self.loader.close()
             self.record_training_stop()
+            tape.train_end()
             cbs.train_end()  # closes callback resources on exceptions too
         if manager is not None:
             manager.wait()   # queued snapshots durable before return

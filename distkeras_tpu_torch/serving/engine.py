@@ -115,10 +115,25 @@ partial tokens. ``hbm_budget`` sizes the page pool from a byte budget
 less the resident weights (:457-471), ``weights_dtype`` sets the
 serving tree's dtype (:359-361), ``decode_kernel`` picks the paged
 readout (:434-451: ``"off"`` is the gather path, no paged kernel) and
-``engine_id`` names the engine (:547-569). Options of the JAX engine
-that belong to later slices raise ``NotImplementedError`` naming the
-ROADMAP item (``_NOT_PORTED``); the tracer, flight recorder, SLOs and
-time series wait for the observability slice.
+``engine_id`` names the engine (:547-569).
+
+Observability and resilience (JAX :571-611, :693-707): the engine runs
+a request tracer (``obs.tracing``, on the metrics clock, shared with
+the scheduler, which records admissions), the process-global flight
+recorder (an iteration entry before the iteration's work, preemptions,
+sheds), SLO objectives evaluated every ``_SLO_EVAL_EVERY`` iterations
+and a time series of its live metrics registry scraped on the host
+window; ``obs.disable()`` (or ``DKT_TELEMETRY=0``) turns them into
+no-ops. The tracer's ticks and the recorder's steady-state entries ride
+the deferred host window, built from what the host already holds: no
+hook reads a device tensor. A request whose own work fails (its
+prefill; ``faults.point("serving.prefill")``) ends ``CANCELLED`` with
+``error`` set while every other stream goes on untouched (``_poison``,
+JAX :2329); a decode failure is batch-wide and propagates before any
+state of the iteration changes. The engine joins
+``obs.telemetry_snapshot()`` as a component (``obs.attach``). The
+expert-parallel mesh (``ep_mesh``) raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -132,6 +147,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from distkeras_tpu_torch import obs
 from distkeras_tpu_torch.compat import resolve_device
 from distkeras_tpu_torch.models.core import Model, Sequential, torch_dtype
 from distkeras_tpu_torch.models.decoding import (_decode_block_of,
@@ -147,11 +163,16 @@ from distkeras_tpu_torch.models.decoding import (_decode_block_of,
                                                  verify_step_slots,
                                                  verify_step_slots_paged)
 from distkeras_tpu_torch.models.moe import MoE
+from distkeras_tpu_torch.obs.recorder import resolve_recorder
+from distkeras_tpu_torch.obs.slo import SLOEngine
+from distkeras_tpu_torch.obs.timeseries import TimeSeries
+from distkeras_tpu_torch.obs.tracing import resolve_tracer
 from distkeras_tpu_torch.ops import prng
 from distkeras_tpu_torch.ops.paged_attention import check_rows
 from distkeras_tpu_torch.ops.quant_matmul import (quantize_params_tree,
                                                   tree_quant_errors)
 from distkeras_tpu_torch.ops.sampling import sample_tokens
+from distkeras_tpu_torch.resilience import faults
 from distkeras_tpu_torch.serving.kv_pool import (KVPool, PagedKVPool,
                                                  PrefixCache, stage)
 from distkeras_tpu_torch.serving.metrics import ServingMetrics
@@ -164,21 +185,11 @@ from distkeras_tpu_torch.serving.speculation import (DraftSource,
                                                      tree_ancestors)
 from distkeras_tpu_torch.utils.tree import tree_leaves
 
-_OBSERVABILITY = "Queue 1 item 11 (host-side systems: obs/)"
-
 #: options of the JAX engine that later slices port: name -> (value that
 #: means "off", ROADMAP item)
 _NOT_PORTED = {
-    "ep_mesh": (None, "expert-parallel MoE serving"),
-    "tracer": (None, _OBSERVABILITY),
-    "slo": (None, _OBSERVABILITY),
-    "timeseries": (None, _OBSERVABILITY),
+    "ep_mesh": (None, "Queue 1 item 10 (expert-parallel MoE serving)"),
 }
-
-#: the names of the live engines (JAX's ``obs.components()`` registry):
-#: the first live engine is plain "serving", a later one or one given an
-#: id owns "serving[<id>]"
-_LIVE_ENGINES = weakref.WeakValueDictionary()
 
 
 class DegradedRequest(RuntimeError):
@@ -333,8 +344,7 @@ class ServingEngine:
                  weights_dtype="auto", decode_kernel: str = "auto",
                  engine_id: Optional[str] = None, tracer=None, slo=None,
                  timeseries=None):
-        given = {"ep_mesh": ep_mesh, "tracer": tracer, "slo": slo,
-                 "timeseries": timeseries}
+        given = {"ep_mesh": ep_mesh}
         for name, (off, item) in _NOT_PORTED.items():
             if given[name] != off:
                 raise NotImplementedError(
@@ -407,6 +417,7 @@ class ServingEngine:
         # context are never inserted and never read before being written
         self._staging = self.pool.make_request_cache()
         self.metrics = metrics if metrics is not None else ServingMetrics()
+        self._init_obs(tracer, slo, timeseries)
         self.on_logits = on_logits
         self._requests: Dict[int, Request] = {}
         self._rid = itertools.count()
@@ -422,6 +433,11 @@ class ServingEngine:
         self._init_speculation(draft, spec_k, spec_disable_below,
                                spec_warmup, spec_reprobe, spec_tree,
                                spec_width)
+        # the current metrics window joins obs.telemetry_snapshot() under
+        # the engine's name; the bound method is held weakly, so a
+        # dropped engine detaches itself
+        obs.attach(self._component_name, self._telemetry_summary,
+                   owner=self)
 
     def _init_pool(self, cache_dtype, page_len, num_pages, host_kv_pages,
                    hbm_budget, prefix_cache, prefix_granularity,
@@ -482,26 +498,80 @@ class ServingEngine:
         self._decode_buf: List = []      # (n_slots, dt, n_tokens)
         self._spec_buf: List = []        # (proposed, accepted)
         self._spec_tree_buf: List = []   # (width, path_len, depth)
+        #: the tracer's deferred decode ticks (rid -> tokens) since the
+        #: last flush, the window's start, and the speculation outcomes
+        #: (rid -> [proposed, accepted(, width, path_len)])
+        self._trace_decode: Dict[int, int] = {}
+        self._trace_decode_t0: Optional[float] = None
+        self._trace_spec: Dict[int, List[int]] = {}
+        #: batch-composition version: bumped on admit, to-decoding,
+        #: finish, preempt and terminate, so steady-state iterations reuse
+        #: the recorder's rid lists
+        self._comp_ver = 0
+        self._rec_cache = (-1, None)
         self._iters = 0
 
     def _init_engine_id(self, engine_id) -> None:
-        """The engine's name (JAX :547-569): None gives "serving" to the
-        first live engine and "serving[<hex>]" to later ones; an explicit
-        id a live engine already holds gets a "#<hex>" suffix, so no two
-        live engines share one. (The tracer and flight-recorder tags that
-        JAX puts on it wait for ROADMAP Queue 1 item 11.)"""
+        """The engine's name (JAX :547-569), which tags its tracer
+        timelines and flight-recorder entries and names its
+        ``obs.telemetry_snapshot()`` component: None gives "serving" to
+        the first live engine and "serving[<hex>]" to later ones; an
+        explicit id a live engine already holds gets a "#<hex>" suffix,
+        so no two live engines share one."""
         if engine_id is None:
             name = "serving"
-            if name in _LIVE_ENGINES:
+            if name in obs.components():
                 name = f"serving[{id(self):x}]"
             self.engine_id = name
         else:
             self.engine_id = str(engine_id)
             name = f"serving[{self.engine_id}]"
-            if name in _LIVE_ENGINES:
+            if name in obs.components():
                 self.engine_id = f"{self.engine_id}#{id(self):x}"
                 name = f"serving[{self.engine_id}]"
-        _LIVE_ENGINES[name] = self
+        self._component_name = name
+
+    def _init_obs(self, tracer, slo, timeseries) -> None:
+        """Request-level observability (JAX :571-611): the tracer shares
+        the metrics clock (timeline durations and measured latencies
+        compare directly) and the scheduler, which records admissions;
+        the flight recorder is the process-global ring (NULL while obs
+        is disabled); ``slo`` takes an ``SLOEngine`` or a sequence of
+        ``Objective``; ``timeseries`` None builds a scraper that follows
+        the CURRENT metrics window across swaps (through a weak
+        reference: the scraper must not keep the engine alive), False
+        turns it off, a ``TimeSeries`` is used as it is, and a number is
+        the scrape interval in seconds."""
+        self.tracer = resolve_tracer(tracer, clock=self.metrics.clock,
+                                     engine=self.engine_id)
+        self.scheduler.tracer = (self.tracer if self.tracer.enabled
+                                 else None)
+        self.recorder = resolve_recorder()
+        if slo is None or isinstance(slo, SLOEngine):
+            self.slo = slo
+        else:
+            self.slo = SLOEngine(list(slo), clock=self.metrics.clock)
+        if timeseries is False:
+            self.timeseries = None
+        elif isinstance(timeseries, TimeSeries):
+            self.timeseries = timeseries
+        else:
+            ref = weakref.ref(self)
+
+            def live_registry():
+                eng = ref()
+                return None if eng is None else eng._metrics.registry
+
+            self.timeseries = TimeSeries(
+                live_registry, clock=self.metrics.clock,
+                interval_s=0.0 if timeseries is None else float(timeseries),
+                tags={"engine": self.engine_id})
+        #: the kernel libraries loaded after warm-up are the port's
+        #: recompiles (checked every ``_RECOMPILE_CHECK_EVERY`` iterations)
+        self._recompile = obs.RecompileDetector()
+        self._recompile.watch("serving.kernels",
+                              obs.collectors.KERNEL_LIBRARIES)
+        self._warm = False
 
     def _init_moe(self, moe_decode: str) -> None:
         """MoE serving (JAX :406-423): the model's MoE MLPs in layer
@@ -665,9 +735,16 @@ class ServingEngine:
             self.scheduler.submit(req)
         except AdmissionRejected:
             self.metrics.record_rejected()
+            self.tracer.on_reject()
+            # enough sheds since the last dump snapshot the ring
+            self.recorder.note_rejection(
+                rid=req.rid, engine=self.engine_id,
+                queue_depth=self.scheduler.queue_depth,
+                max_queue=self.scheduler.max_queue)
             raise
         self._requests[req.rid] = req
         self.metrics.record_submit(req.rid)
+        self.tracer.on_submit(req.rid, self.scheduler.queue_depth)
         return req.rid
 
     def __getitem__(self, rid: int) -> Request:
@@ -682,7 +759,10 @@ class ServingEngine:
         arrival that cannot be funded preempts lower-priority streams.
         A slab engine admits FCFS into free slots (JAX :1830)."""
         if not self._paged:
-            return self.scheduler.admit()
+            admitted = self.scheduler.admit()
+            if admitted:
+                self._comp_ver += 1
+            return admitted
         admitted: List[Request] = []
         sch = self.scheduler
         while sch.free_slots:
@@ -692,6 +772,7 @@ class ServingEngine:
             plan = self._page_plan(req)
             if plan is not None:
                 sch.admit_one(req)
+                self._comp_ver += 1
                 self._apply_page_plan(req, plan)
                 admitted.append(req)
                 continue
@@ -844,10 +925,11 @@ class ServingEngine:
         if victim.state in TERMINAL_STATES:
             return
         slot = victim.slot
+        swapped = 0
         if victim.state is RequestState.DECODING:
             victim.rng = self._keys[slot].copy()
             if self.pool.host_cache is not None:
-                self._swap_out(victim)
+                swapped = self._swap_out(victim)
         elif victim.swap is not None:
             # admitted for a swap-in, preempted before its turn: its host
             # pages still hold the snapshot, and the slot's holds on the
@@ -855,10 +937,11 @@ class ServingEngine:
             for _lp, pid in victim.swap["shared"]:
                 self.pool.incref(pid)
         self.scheduler.preempt(victim)
+        self._comp_ver += 1
         self._chain_dirty[slot] = True
         if self._draft is not None:
             self._draft.end_slot(slot)   # draft KV freed with the slot
-        self.pool.release_slot(slot)
+        freed = self.pool.release_slot(slot)
         self._t[slot] = self.max_len
         if victim.donor_ref is not None:
             self.pool.decref(victim.donor_ref)
@@ -867,13 +950,21 @@ class ServingEngine:
         victim.n_shared_full = 0
         victim.load_pages = []
         self.metrics.record_preemption(victim.rid)
+        self.tracer.on_preempt(victim.rid, len(victim.generated))
+        if self.recorder.enabled:
+            self.recorder.record(
+                "serving.preempted", engine=self.engine_id,
+                rid=victim.rid, slot=slot,
+                n_generated=len(victim.generated), pages_freed=freed,
+                pages_free=self.pool.free_pages, pages_swapped=swapped)
 
     def _swap_out(self, victim: Request) -> None:
         """Queue a decoding victim's pages for the host tier (JAX
         :2042-2081), so it resumes by a copy instead of a re-prefill.
         Pages the prefix cache holds are not copied: the snapshot takes a
         hold on them, which the resume turns into the slot's. When the
-        host tier is full nothing is held and the victim re-prefills."""
+        host tier is full nothing is held and the victim re-prefills.
+        Returns the pages swapped out."""
         pool = self.pool
         row = pool.tables[victim.slot]
         shared, priv = [], []
@@ -885,11 +976,13 @@ class ServingEngine:
                 priv.append(lp)
         hids = pool.offload_pages(row[priv].tolist()) if priv else []
         if hids is None:
-            return
+            return 0
         for _lp, pid in shared:
             pool.incref(pid)
         victim.swap = {"host": hids, "logical": priv, "shared": shared,
                        "t": int(self._t[victim.slot])}
+        self.tracer.on_swap_out(victim.rid, len(hids))
+        return len(hids)
 
     def _drop_swap(self, req: Request) -> None:
         """Release a swap snapshot that no resume will read (JAX :3014):
@@ -975,7 +1068,13 @@ class ServingEngine:
         that reached a terminal state (FINISHED, TIMED_OUT or CANCELLED:
         check ``req.state``). Runs under ``torch.inference_mode``:
         serving records no autograd graph, even for a model whose
-        parameters require grad."""
+        parameters require grad.
+
+        Error isolation (JAX :2200-2213): an exception while advancing
+        ONE request's prefill cancels that request (``_poison``) and
+        recycles its slot; the decode streams go on token-identically.
+        A decode error is batch-wide and propagates, raised before any
+        state of the iteration changes."""
         finished: List[Request] = []
         if self._finish_buf:
             # ended by a pipeline flush since the last step (a cancel, a
@@ -983,16 +1082,24 @@ class ServingEngine:
             finished.extend(self._finish_buf)
             self._finish_buf.clear()
         self._expire_deadlines(finished)
-        self._admit()
+        admitted = self._admit()
+        # the flight recorder's entry, before the iteration's work: a
+        # fault dump holds the failing iteration itself
+        self._record_iteration(admitted)
         clock = self.metrics.clock
         req = self.scheduler.next_prefill()
         if req is not None:
             t0 = clock()
-            self._advance_prefill(req, finished)
+            with obs.span("serving.prefill"):
+                try:
+                    self._advance_prefill(req, finished)
+                except Exception as e:
+                    self._poison(req, e, finished)
             self.metrics.record_phase("prefill", clock() - t0)
         if self.scheduler.running:
             t0 = clock()
-            self._advance_decode(finished)
+            with obs.span("serving.decode"):
+                self._advance_decode(finished)
             self.metrics.record_phase("decode", clock() - t0)
         self._iter_buf.append((self.scheduler.queue_depth,
                                self.scheduler.occupied))
@@ -1000,6 +1107,18 @@ class ServingEngine:
         if self._iters % self._host_window == 0 \
                 or not self.scheduler.pending:
             self._flush_host_window()
+            if self.timeseries is not None:
+                # on the flush just paid: host reads of the registry only
+                self.timeseries.maybe_sample(iteration=self._iters)
+        if self._iters % self._RECOMPILE_CHECK_EVERY == 0:
+            if not self._warm:
+                self._recompile.mark_warm()
+                self._warm = True
+            self._recompile.check()
+        if self.slo is not None \
+                and self._iters % self._SLO_EVAL_EVERY == 0:
+            self._flush_host_window()
+            self.slo.evaluate(self.metrics)
         if self._finish_buf:
             # finished by a flush inside this iteration (a preemption)
             finished.extend(self._finish_buf)
@@ -1024,6 +1143,9 @@ class ServingEngine:
             for r in self.step():
                 if r.state is not RequestState.FINISHED \
                         and on_degraded == "raise":
+                    # the ring's state before the degraded drain surfaces
+                    self.recorder.auto_dump(
+                        f"degraded_request:{r.state.value}")
                     raise DegradedRequest(r)
                 out[r.rid] = r.tokens
             steps += 1
@@ -1056,6 +1178,17 @@ class ServingEngine:
             self._terminate(r, RequestState.TIMED_OUT, finished)
             self.metrics.record_timeout(r.rid)
 
+    def _poison(self, req: Request, err: Exception,
+                finished: List[Request]) -> None:
+        """Per-request work failed (JAX :2329): THIS request ends
+        CANCELLED with ``req.error`` holding the cause, its slot is
+        recycled, and every other stream goes on untouched. (An injected
+        fault has dumped the flight recorder's ring as it fired.)"""
+        if req.state in TERMINAL_STATES:
+            raise err    # already terminal: nothing to isolate
+        self._terminate(req, RequestState.CANCELLED, finished, error=err)
+        self.metrics.record_cancelled(req.rid)
+
     def cancel(self, rid: int) -> Request:
         """Cancel an in-flight request by id (JAX :2339-2355); returns
         the terminal Request, evicted from the engine. The unit in flight
@@ -1074,7 +1207,8 @@ class ServingEngine:
         return out[0]
 
     def _terminate(self, req: Request, state: RequestState,
-                   finished: List[Request]) -> None:
+                   finished: List[Request],
+                   error: Optional[BaseException] = None) -> None:
         """The degradation paths' terminal transition (JAX :2473): the
         request leaves the scheduler (its slot freed, pages returned, the
         slot's decode position parked on the sentinel so no later unit
@@ -1084,6 +1218,7 @@ class ServingEngine:
         had_slot = req.state in (RequestState.PREFILLING,
                                  RequestState.DECODING)
         self.scheduler.cancel(req, state)
+        self._comp_ver += 1
         if had_slot:
             self._t[req.slot] = self.max_len
             self._chain_dirty[req.slot] = True
@@ -1098,22 +1233,35 @@ class ServingEngine:
             req.donor_ref = None
         # swapped out on a preemption, then ended before its swap-in
         self._drop_swap(req)
+        req.error = error
+        self.tracer.on_terminal(req.rid, state.value, len(req.generated))
         del self._requests[req.rid]
         finished.append(req)
 
     def health(self) -> Dict:
-        """Readiness snapshot: accepting work, queue depth, slots,
-        request tallies, and on a paged engine the pages (with the host
-        tier's, None when it is off) and the prefix cache (JAX
-        :2556-2571). The deferred metrics samples are recorded first."""
+        """Readiness snapshot (JAX :2507-2571): accepting work, queue
+        depth, slots, request tallies, the SLO status and the unified
+        ``obs.telemetry_snapshot()``, and on a paged engine the pages
+        (with the host tier's, None when it is off) and the prefix
+        cache. ``status`` is "ok", "saturated" once the bounded queue is
+        full, or "degraded" while accepting in breach of an SLO. The SLO
+        evaluation here is a read (``record=False``): it appends no
+        history and counts no breach, so polling cannot move the
+        numbers. The deferred metrics samples are recorded first."""
         self._flush_host_window()
         sch = self.scheduler
         accepting = (sch.max_queue is None
                      or sch.queue_depth < sch.max_queue)
         m = self.metrics
+        slo_status = (None if self.slo is None
+                      else self.slo.evaluate(m, record=False))
+        breaching = bool(slo_status) and any(
+            st["breach"] for st in slo_status.values())
         out = {
-            "status": "ok" if accepting else "saturated",
+            "status": ("saturated" if not accepting
+                       else "degraded" if breaching else "ok"),
             "accepting": accepting,
+            "slo": slo_status,
             "engine_id": self.engine_id,
             "device": str(self.device),
             "queue_depth": sch.queue_depth,
@@ -1126,6 +1274,7 @@ class ServingEngine:
                          "timed_out": m.requests_timed_out,
                          "cancelled": m.requests_cancelled,
                          "preempted": m.requests_preempted},
+            "telemetry": obs.telemetry_snapshot(),
             "moe": (None if not self._moe else {
                 "decode": self.moe_decode, "layers": len(self._moe),
                 "concentration": (None if self._moe_conc is None
@@ -1147,6 +1296,47 @@ class ServingEngine:
                 "nodes": len(self.prefix), "hit_rate": m.prefix_hit_rate})
         return out
 
+    def _telemetry_summary(self) -> Dict:
+        """The ``obs.attach`` provider (JAX :872-883): the CURRENT metrics
+        window's summary plus the per-request timelines, the latest SLO
+        status and the time series' descriptor."""
+        self._flush_host_window()    # deferred samples land first
+        snap = self.metrics.summary()
+        if self.tracer.enabled:
+            snap["requests"] = self.tracer.summaries()
+        if self.slo is not None:
+            snap["slo"] = self.slo.status()
+        if self.timeseries is not None:
+            snap["timeseries"] = self.timeseries.summary()
+        return snap
+
+    def _record_iteration(self, admitted: List[Request]) -> None:
+        """The flight recorder's iteration entry (JAX :1164-1195),
+        written before the iteration's prefill and decode run. The rid
+        lists are rebuilt only when the batch composition changed
+        (``_comp_ver``); a steady-state iteration writes an entry only on
+        the host-window cadence. Everything recorded is host state."""
+        if not self.recorder.enabled:
+            return
+        sch = self.scheduler
+        if self._comp_ver != self._rec_cache[0]:
+            self._rec_cache = (self._comp_ver, (
+                [r.rid for r in sch.running.values()],
+                [r.rid for r in sch.prefilling]))
+        elif self._iters % self._host_window:
+            return                      # steady state: window cadence
+        decoding, prefilling = self._rec_cache[1]
+        extra = {}
+        if self._paged:
+            extra["pages_free"] = self.pool.free_pages
+            if self.pool.host_cache is not None:
+                extra["host_pages_free"] = self.pool.host_free_pages
+        self.recorder.record(
+            "serving.iteration", engine=self.engine_id, iter=self._iters,
+            queue_depth=sch.queue_depth, occupied=sch.occupied,
+            decoding=decoding, prefilling=prefilling,
+            admitted=[r.rid for r in admitted], **extra)
+
     # --- internals --------------------------------------------------------
 
     def _set_slot(self, req: Request, token: int, t: int) -> None:
@@ -1154,6 +1344,7 @@ class ServingEngine:
         self._t[req.slot] = t         # where the next decode step writes
         self._keys[req.slot] = req.rng
         self._chain_dirty[req.slot] = True   # the host owns the input
+        self._comp_ver += 1           # called as the request joins decode
 
     @staticmethod
     def _knob_arrays(rows, reqs, n: int):
@@ -1213,8 +1404,13 @@ class ServingEngine:
         self._begin_draft(req, req.context_tokens)
         self.metrics.record_swap_resume(self.metrics.clock() - t0,
                                         len(req.context_tokens))
+        self.tracer.on_swap_in(req.rid, len(swap["host"]))
+        self.tracer.on_resume(req.rid)
 
     def _advance_prefill(self, req: Request, finished: List[Request]):
+        # chaos hook (JAX :2581): a raise here is the poisoned request
+        # step() isolates; a stall is the slow prefill
+        faults.point("serving.prefill")
         if req.swap is not None:
             self._swap_in(req)
             return
@@ -1238,6 +1434,7 @@ class ServingEngine:
                 self._staging = self.pool.load_prefix(
                     self._staging, req.load_pages, req.shared_len)
                 req.prefill_pos = req.shared_len
+                self.tracer.on_prefix_hit(req.rid, req.shared_len)
             if req.donor_ref is not None:
                 self.pool.decref(req.donor_ref)
                 req.donor_ref = None
@@ -1258,6 +1455,7 @@ class ServingEngine:
                     self.metrics.clock() - req.resume_t0,
                     p_len - req.shared_len)
                 req.resume_t0 = None
+            self.tracer.on_resume(req.rid)
             return
         self._first_token(req, logits, toks, finished)
 
@@ -1295,6 +1493,7 @@ class ServingEngine:
                 final=head)
         req.prefill_pos = t0 + q_len
         self.metrics.record_prefill_chunk()
+        self.tracer.on_prefill_chunk(req.rid, t0, q_len)
         return logits, final
 
     def _first_token(self, req: Request, logits, toks,
@@ -1307,6 +1506,7 @@ class ServingEngine:
         token = self._sample_first(logits, req)            # prefill's sync
         req.generated.append(token)
         self.metrics.record_first_token(req.rid)
+        self.tracer.on_first_token(req.rid)
         if req.done:
             self._finish(req, finished)
             return
@@ -1320,6 +1520,9 @@ class ServingEngine:
         unit, a step or a fused window. Under ``overlap`` the unit is
         launched before the previous one is consumed; without it the
         unit is consumed at once."""
+        # chaos hook (JAX :2743), before any state of this iteration
+        # changes: a decode error leaves the iteration retryable whole
+        faults.point("serving.decode")
         spec = self._draft is not None and bool(self._spec_slots())
         if spec:
             # the drafts read the host's tokens: drain the pipeline, then
@@ -1378,6 +1581,10 @@ class ServingEngine:
     #: (the synchronous loop flushes every iteration); terminals and
     #: metrics swaps flush at once, so counts stay exact
     _HOST_WINDOW = 8
+    #: iterations between recompile-detector polls
+    _RECOMPILE_CHECK_EVERY = 64
+    #: iterations between SLO evaluations (when ``slo`` is set)
+    _SLO_EVAL_EVERY = 32
 
     @property
     def metrics(self) -> ServingMetrics:
@@ -1459,18 +1666,23 @@ class ServingEngine:
             self._keys[live] = keys[live]
         self._note_moe_route(stats)
         now = self._metrics.clock()
+        trace_on = self.tracer.enabled
         done: List[Request] = []
         n_emitted = 0
         for slot, rid in p.slots:
             req = running.get(slot)
             if req is None or req.rid != rid:
                 continue                     # recycled slot: discard
+            n_app = 0
             for j in range(p.count):
                 req.generated.append(int(toks[slot, j]))
-                n_emitted += 1
+                n_app += 1
                 if req.done:
                     break                    # stop or budget mid-window
+            n_emitted += n_app
             self._tok[slot] = req.generated[-1]
+            if trace_on and n_app:
+                self._trace_tick(rid, n_app, now)
             if req.done:
                 done.append(req)
         self._decode_buf.append(
@@ -1513,6 +1725,26 @@ class ServingEngine:
         for width, path_len, depth in self._spec_tree_buf:
             m.record_spec_tree(width, path_len, depth)
         self._spec_tree_buf.clear()
+        if self._trace_decode:
+            if self.tracer.enabled:
+                self.tracer.on_decode_batch(self._trace_decode,
+                                            t0=self._trace_decode_t0)
+            self._trace_decode = {}
+            self._trace_decode_t0 = None
+        if self._trace_spec:
+            if self.tracer.enabled:
+                # linear entries [proposed, accepted]; tree entries add
+                # [tree_width, accepted_path_len]
+                self.tracer.on_spec_verify(
+                    [(rid, *pa) for rid, pa in self._trace_spec.items()])
+            self._trace_spec = {}
+
+    def _trace_tick(self, rid: int, n: int, now: float) -> None:
+        """Defer ``n`` decode ticks of ``rid`` to the next host-window
+        flush (the tracer sees one batch a window)."""
+        self._trace_decode[rid] = self._trace_decode.get(rid, 0) + n
+        if self._trace_decode_t0 is None:
+            self._trace_decode_t0 = now
 
     def _inflight(self) -> Dict[int, int]:
         """slot -> tokens in flight for the slot's CURRENT request (JAX
@@ -1712,6 +1944,10 @@ class ServingEngine:
             self._moe_conc = (conc if self._moe_conc is None
                               else (1.0 - a) * self._moe_conc + a * conc)
         self.metrics.record_moe_route(load, entropy, self._moe_conc or 0.0)
+        if self.tracer.enabled:
+            self.tracer.on_moe_route(
+                [r.rid for r in self.scheduler.running.values()],
+                entropy, share)
 
     def _moe_admit_extra(self, req: Request, n_logical: int) -> int:
         """Pages of headroom (beyond the request's own) the free-page
@@ -1875,10 +2111,14 @@ class ServingEngine:
             self.on_logits("verify", logits, list(running.keys()))
         emitted, n_emit, _ = self._walk(logits, toks, parents)
 
-        def note(slot, req):
+        def note(slot, req, trace_on):
             m = int(n_emit[slot]) - 1
             self._spec_buf.append((k, m))
             self._observe_acceptance(req, m / k)
+            if trace_on:
+                pa = self._trace_spec.setdefault(req.rid, [0, 0])
+                pa[0] += k
+                pa[1] += m
 
         self._consume_spec(emitted, n_emit, active, note, finished, t0)
 
@@ -1938,13 +2178,20 @@ class ServingEngine:
         commit_tree_path(self.pool.cache, kv_win, path, t_dev, n_emit,
                          tables, self.page_len)
 
-        def note(slot, req):
+        def note(slot, req, trace_on):
+            nd = int(n_nodes[slot]) - 1         # draft nodes offered
             m = int(n_emit[slot]) - 1           # accepted path length
-            self._spec_buf.append((int(n_nodes[slot]) - 1, m))
+            self._spec_buf.append((nd, m))
             self._spec_tree_buf.append((int(width_v[slot]), m,
                                         int(depth_v[slot])))
             self._observe_acceptance(req, m / max(1, int(depth_v[slot])))
             self._adapt_tree(req)
+            if trace_on:
+                pa = self._trace_spec.setdefault(req.rid, [0, 0, 0, 0])
+                pa[0] += nd
+                pa[1] += m
+                pa[2] = max(pa[2], int(width_v[slot]))
+                pa[3] = max(pa[3], m)
 
         self._consume_spec(emitted, n_emit, active, note, finished, t0)
 
@@ -1952,9 +2199,13 @@ class ServingEngine:
                       finished: List[Request], t0: float) -> None:
         """Append ``emitted[slot, :n_emit[slot]]`` to each running request
         up to its stop token or budget (mid-window), advance the slot
-        mirrors, run ``note(slot, req)`` for each speculating slot, then
-        finish the requests that are done."""
+        mirrors, defer the tracer's ticks, run ``note(slot, req,
+        trace_on)`` for each speculating slot, then finish the requests
+        that are done (the deferred work lands first: the last verify's
+        outcome belongs on the timeline the terminal retires)."""
         running = self.scheduler.running
+        now = self.metrics.clock()
+        trace_on = self.tracer.enabled
         n_emitted = 0
         done = []
         for slot, req in list(running.items()):
@@ -1967,12 +2218,13 @@ class ServingEngine:
             n_emitted += appended
             self._tok[slot] = req.generated[-1]
             self._t[slot] += appended
+            if trace_on:
+                self._trace_tick(req.rid, appended, now)
             if active[slot]:
-                note(slot, req)
+                note(slot, req, trace_on)
             if req.done:
                 done.append(req)
-        self._decode_buf.append((len(running), self.metrics.clock() - t0,
-                                 n_emitted))
+        self._decode_buf.append((len(running), now - t0, n_emitted))
         if done:
             self._flush_host_window()        # samples precede terminals
         for req in done:
@@ -1981,6 +2233,7 @@ class ServingEngine:
     def _finish(self, req: Request, finished: List[Request]):
         slot = req.slot
         self.scheduler.release(req)
+        self._comp_ver += 1
         if self._draft is not None:
             self._draft.end_slot(slot)
         self._t[slot] = self.max_len
@@ -1990,5 +2243,7 @@ class ServingEngine:
             # under the prefix cache's own reference
             self.pool.release_slot(slot)
         self.metrics.record_finish(req.rid, len(req.generated))
+        self.tracer.on_terminal(req.rid, RequestState.FINISHED.value,
+                                len(req.generated))
         del self._requests[req.rid]
         finished.append(req)

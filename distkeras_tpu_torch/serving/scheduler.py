@@ -152,6 +152,9 @@ class FIFOScheduler:
         self.waiting: deque = deque()          # QUEUED
         self.prefilling: deque = deque()       # PREFILLING, FIFO
         self.running: Dict[int, Request] = {}  # slot -> DECODING request
+        #: the engine binds its request tracer here, so admissions are
+        #: recorded where they are made (None: nothing is recorded)
+        self.tracer = None
         # pop() hands out slot 0 first: deterministic placement
         self._free = list(range(self.num_slots))[::-1]
 
@@ -178,6 +181,9 @@ class FIFOScheduler:
         req.state = RequestState.PREFILLING
         req.prefill_pos = 0
         self.prefilling.append(req)
+        if self.tracer is not None:
+            # the queue depth AT admission: requests still waiting
+            self.tracer.on_admit(req.rid, req.slot, len(self.waiting))
 
     def next_prefill(self) -> Optional[Request]:
         """The single request whose chunks advance (the oldest admitted)."""

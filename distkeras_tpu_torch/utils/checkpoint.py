@@ -18,11 +18,13 @@ cloned. With ``async_writes=True`` the disk write runs on one background
 thread, in order, with at most ``max_pending`` snapshots in flight; a
 queued write's error re-raises at the next ``save()`` or ``wait()``.
 ``restore()`` returns host numpy arrays with the stored dtypes: placing
-them is the restoring trainer's business. The JAX manager's chaos points
-(``faults.point("ckpt.*")``) and its transient-IO retry belong to
-``resilience/`` (ROADMAP Queue 1 item 11); ``ShardedCheckpointManager``
-(per-process shards of a sharded model) waits for the multi-device item
-10.
+them is the restoring trainer's business. As in JAX, the writes and
+reads go through a transient-IO retry policy (``retry=``, default
+``resilience.io_retry()``), and the chaos points ``ckpt.d2h`` (copies
+in flight, none fenced), ``ckpt.write``, ``ckpt.rename`` and
+``ckpt.restore`` (``resilience.faults``) sit where JAX's do (:52, :248,
+:258, :306). ``ShardedCheckpointManager`` (per-process shards of a
+sharded model) waits for the multi-device item 10.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.models.serialization import _walk, leaf_key
+from distkeras_tpu_torch.resilience import faults
+from distkeras_tpu_torch.resilience.retry import RetryPolicy, io_retry
 from distkeras_tpu_torch.utils.tree import tree_unflatten
 
 MANIFEST = "manifest.json"
@@ -90,6 +94,8 @@ def _snapshot_flat(tree: Any) -> Dict[str, np.ndarray]:
         else:
             arr = np.asarray(leaf)
             flat[key] = arr if arr.flags["OWNDATA"] else arr.copy()
+    # chaos hook: the crash mid-transfer, copies queued, none fenced
+    faults.point("ckpt.d2h")
     if pending:
         done = torch.cuda.Event()
         done.record()
@@ -125,7 +131,9 @@ class CheckpointManager:
     """Step-indexed atomic checkpoints of trees of tensors and arrays."""
 
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 async_writes: bool = False, max_pending: int = 2):
+                 async_writes: bool = False,
+                 retry: Optional[RetryPolicy] = None,
+                 max_pending: int = 2):
         self.directory = directory
         self.max_to_keep = int(max_to_keep)
         if self.max_to_keep < 1:
@@ -135,6 +143,9 @@ class CheckpointManager:
             raise ValueError(
                 f"max_pending must be >= 1, got {max_pending}")
         os.makedirs(directory, exist_ok=True)
+        # transient-IO retry: a flaky write or read costs a jittered
+        # backoff, not the snapshot; other errors surface raw
+        self.retry = io_retry() if retry is None else retry
         self._sweep_stale_tmp()
         self.async_writes = bool(async_writes)
         self.max_pending = int(max_pending)
@@ -164,7 +175,8 @@ class CheckpointManager:
         flat = _snapshot_flat(tree)
         final = os.path.join(self.directory, f"step_{step}")
         if not self.async_writes:
-            self._write(step, flat, metadata, final)
+            self.retry.call(self._write, step, flat, metadata, final,
+                            op="ckpt.write")
             return final
         # at most max_pending snapshots in flight: a disk slower than the
         # epochs stalls the loop here instead of growing host memory
@@ -201,7 +213,8 @@ class CheckpointManager:
         while True:
             step, flat, metadata, final = self._q.get()
             try:
-                self._write(step, flat, metadata, final)
+                self.retry.call(self._write, step, flat, metadata, final,
+                                op="ckpt.write")
             except BaseException as e:  # surfaced at the next wait()/save()
                 with self._err_lock:
                     self._write_errors.append(e)
@@ -218,12 +231,14 @@ class CheckpointManager:
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
+        faults.point("ckpt.write")
         np.savez(os.path.join(tmp, ARRAYS), **flat)
         with open(os.path.join(tmp, MANIFEST), "w") as f:
             json.dump({"step": int(step),
                        "keys": sorted(flat),
                        "crc32": {k: self._crc(v) for k, v in flat.items()},
                        "metadata": metadata or {}}, f, indent=2)
+        faults.point("ckpt.rename")
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)  # the atomic publish
@@ -262,11 +277,13 @@ class CheckpointManager:
             raise FileNotFoundError(
                 f"no checkpoints in {self.directory!r}")
         path = os.path.join(self.directory, f"step_{step}")
-        return _unflatten_like(template, self._read_verified(path))
+        flat = self.retry.call(self._read_verified, path, op="ckpt.restore")
+        return _unflatten_like(template, flat)
 
     def _read_verified(self, path: str) -> Dict[str, np.ndarray]:
         """``arrays.npz`` checked leaf by leaf (JAX :300): a truncated or
         corrupt snapshot fails with the path and the leaf's name."""
+        faults.point("ckpt.restore")
         with open(os.path.join(path, MANIFEST)) as f:
             manifest = json.load(f)
         crcs = manifest.get("crc32", {})

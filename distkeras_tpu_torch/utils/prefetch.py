@@ -8,9 +8,11 @@ free, so at most ``depth`` queued chunks plus the one the consumer holds
 sit in device memory. ``device_stager(device)`` is that ``place`` for
 the trainers' ``(Xs, Ys, n_steps)`` chunks: pinned, non-blocking copies
 to the card (as ``serving.kv_pool.stage`` sends host arrays), the
-identity on the CPU. The telemetry gauges and the chaos point of JAX's
-producer belong to ``obs/`` and ``resilience/`` (ROADMAP Queue 1 item
-11) and are not ported.
+identity on the CPU. As in JAX (:75-87, :134, :154), the producer
+passes the ``prefetch.produce`` chaos point before each item, and each
+consume records the ``prefetch.queue_depth`` gauge and the
+``prefetch.stall_s`` histogram (labeled by the stream's name) on the
+obs registry while obs is enabled.
 """
 
 from __future__ import annotations
@@ -54,6 +56,11 @@ class Prefetcher:
         self._stopped = threading.Event()
         #: seconds the consumer waited for its items, summed
         self.wait_s = 0.0
+        from distkeras_tpu_torch import obs
+        self._obs = obs
+        reg = obs.get_registry()
+        self._g_depth = reg.gauge("prefetch.queue_depth")
+        self._h_stall = reg.histogram("prefetch.stall_s")
         self._thread = threading.Thread(target=self._produce, daemon=True,
                                         name=name)
         self._thread.start()
@@ -79,6 +86,7 @@ class Prefetcher:
         return False
 
     def _produce(self):
+        from distkeras_tpu_torch.resilience import faults
         it = iter(self._items)
         while True:
             try:
@@ -91,6 +99,9 @@ class Prefetcher:
             if self._stopped.is_set():
                 return
             try:
+                # chaos hook: a raise takes the consumer-side re-raise
+                # path; a stall models a wedged loader
+                faults.point("prefetch.produce")
                 value = self._fn(item)
                 if self._place is not None:
                     # stage only once a slot is free: a producer blocked
@@ -106,6 +117,11 @@ class Prefetcher:
             if not self._put(out):
                 return
         self._put(_SENTINEL)
+
+    def _note_consume(self, waited_s: float) -> None:
+        if self._obs.enabled():
+            self._g_depth.set(self._q.qsize(), stream=self._name)
+            self._h_stall.observe(waited_s, stream=self._name)
 
     def __iter__(self) -> Iterator[Tuple[T, U]]:
         from distkeras_tpu_torch.utils.profiling import now
@@ -130,7 +146,9 @@ class Prefetcher:
                     continue
                 if got is _SENTINEL:
                     return
-                self.wait_s += now() - t_wait
+                waited = now() - t_wait
+                self.wait_s += waited
+                self._note_consume(waited)
                 item, value, err = got
                 if err is not None:
                     raise err

@@ -186,15 +186,18 @@ def test_csv_logger_rows_match_jax(tmp_path):
     trainer(mlp(), [CSVLogger(path)], num_epoch=3,
             metrics=["accuracy"]).train(ds())
     rows = _rows(path)
-    assert rows[0] == ["epoch", "accuracy", "loss"]
     assert [r[0] for r in rows[1:]] == ["0", "1", "2"]
     jpath = str(tmp_path / "jax.csv")
     JaxSingleTrainer(jax_mlp(), callbacks=[JaxCSVLogger(jpath)],
                      metrics=["accuracy"], **kwargs(3)).train(
         JaxDataset(dict(zip(("features", "label"), make_data()))))
     jrows = _rows(jpath)
-    # JAX's rows also carry its telemetry tape's columns (ROADMAP item 11)
-    for key in rows[0][1:]:
+    # both carry their telemetry tapes' columns: the same header
+    assert rows[0] == jrows[0]
+    assert {"accuracy", "loss", "examples_per_sec", "goodput"} \
+        <= set(rows[0])
+    # the tapes' columns are wall times: compare the training values
+    for key in ("accuracy", "loss"):
         got = [float(r[rows[0].index(key)]) for r in rows[1:]]
         ref = [float(r[jrows[0].index(key)]) for r in jrows[1:]]
         np.testing.assert_allclose(got, ref, rtol=TOL, err_msg=key)

@@ -1328,13 +1328,23 @@ def _small_lm(dev, **kw):
 
 
 @pytest.mark.parametrize("label", [c[0] for c in chip_smoke.SYNC_FREE_CASES]
-                         + ["MoE dispatched greedy", "MoE dispatched sampled"])
+                         + ["MoE dispatched greedy", "MoE dispatched sampled"]
+                         + [c[0] for c in chip_smoke.OBS_SYNC_FREE_CASES])
 def test_launch_step_makes_no_host_sync(dev, label):
     """Every ``_launch_step`` of a pipelined ``fuse_steps=4`` engine, a
     single step or a fused window, greedy or sampled, over bf16, int8 or
     int4 pages, int8 weights, fused sampling, and dispatched MoE, runs
     under ``torch.cuda.set_sync_debug_mode("error")`` without raising
-    (phase 25's configurations, on a 2-layer model)."""
+    (phase 25's configurations, on a 2-layer model); with the tracer, the
+    flight recorder, SLOs and a time series on, every obs hook does too
+    (phase 32's configurations)."""
+    if label.startswith("obs"):
+        sampled = dict(chip_smoke.OBS_SYNC_FREE_CASES)[label]
+        watch = chip_smoke.sync_free_run(
+            _small_lm(dev, num_kv_heads=2), label,
+            chip_smoke.obs_engine_kw(True), sampled, obs_hooks=True)
+        assert watch.windows >= 1 and watch.units > watch.windows
+        return
     if label.startswith("MoE"):
         model = _small_lm(dev, mlp_ratio=2, moe_every=1, num_experts=8)
         kw, sampled = {}, label.endswith("sampled")

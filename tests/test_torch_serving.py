@@ -223,17 +223,23 @@ def test_quantized_kv_engine_matches_generate(lms, cache_dtype):
                                 {"weights_dtype": "bfloat16"},
                                 {"decode_kernel": "off"},
                                 {"engine_id": "e0"},
-                                {"tracer": object()}, {"slo": object()},
-                                {"timeseries": object()}])
+                                {"tracer": "tracer"}, {"slo": "slo"},
+                                {"timeseries": 0.0}])
 def test_later_slices_raise_naming_the_roadmap(lms, kw):
-    """The options of later slices raise naming their ROADMAP item; the
-    ones ported since (``kv_layout="slab"``, ``host_kv_pages``,
-    ``hbm_budget``, ``weights_dtype``, ``decode_kernel``, ``engine_id``)
-    take effect and serve a request."""
+    """The options of later slices raise naming their ROADMAP item
+    (``ep_mesh``, item 10); the ones ported since (``kv_layout="slab"``,
+    ``host_kv_pages``, ``hbm_budget``, ``weights_dtype``,
+    ``decode_kernel``, ``engine_id``, and ``tracer``, ``slo`` and
+    ``timeseries`` of the obs layer) take effect and serve a request."""
+    from distkeras_tpu_torch.obs import RequestTracer
+    from distkeras_tpu_torch.obs.slo import availability, ttft_p99
     _, pm = lms
     (name, value), = kw.items()
-    if name not in ("kv_layout", "host_kv_pages", "hbm_budget",
-                    "weights_dtype", "decode_kernel", "engine_id"):
+    if name == "tracer":
+        kw = {"tracer": RequestTracer()}
+    elif name == "slo":
+        kw = {"slo": [ttft_p99(60.0), availability(0.5)]}
+    if name == "ep_mesh":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(pm, device="cpu", **kw)
         return
@@ -252,10 +258,29 @@ def test_later_slices_raise_naming_the_roadmap(lms, kw):
         assert eng._params[1]["attn"]["wqkv"].dtype == torch.bfloat16
     elif name == "decode_kernel":
         assert eng.decode_kernel == "off" and not eng._paged_kernel
-    else:
+    elif name == "engine_id":
         assert eng.engine_id == "e0" and eng.health()["engine_id"] == "e0"
+    elif name == "tracer":
+        assert eng.tracer is kw["tracer"]
+        assert eng.scheduler.tracer is eng.tracer
+    elif name == "slo":
+        assert [o.name for o in eng.slo.objectives] == ["ttft_p99",
+                                                         "availability"]
+    else:
+        assert eng.timeseries.interval_s == value
     rid = eng.submit(PATTERN[:4], 3)
     assert eng.run(max_steps=50)[rid].size == 7
+    if name == "tracer":
+        durs = eng.tracer.summaries()[rid]["durations"]
+        assert durs["queued_s"] + durs["prefill_s"] + durs["decode_s"] \
+            == pytest.approx(durs["total_s"])
+    elif name == "slo":
+        health = eng.health()
+        assert health["status"] == "ok" and not any(
+            st["breach"] for st in health["slo"].values())
+    elif name == "timeseries":
+        assert eng.timeseries.series("serving.requests_finished",
+                                     field="value")[-1][1] == 1.0
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -1406,10 +1431,10 @@ def test_engine_id_names_and_disambiguates(lms):
     """The first live engine is "serving", later ones "serving[<hex>]";
     an id a live engine holds gets a "#<hex>" suffix."""
     import gc
-    from distkeras_tpu_torch.serving import engine as eng_mod
+    from distkeras_tpu_torch import obs
     _, pm = lms
     gc.collect()
-    live = dict(eng_mod._LIVE_ENGINES)
+    live = obs.components()
     a = ServingEngine(pm, num_slots=1, max_len=16, device="cpu",
                       engine_id="replica-7")
     b = ServingEngine(pm, num_slots=1, max_len=16, device="cpu",
@@ -2099,3 +2124,152 @@ def test_swapped_victim_preempted_before_its_swap_in(lms):
     for pid in shared:
         assert eng.pool.ref[pid] == 1
     assert eng.pool.host_free_pages == eng.pool.host_pages
+
+
+# --- observability and per-request isolation, against the JAX engine ----------
+
+OBS_SUBS = [dict(prompt=PATTERN[:6], max_new_tokens=9),
+            dict(prompt=np.tile(PATTERN, 2)[:13], max_new_tokens=5),
+            dict(prompt=PATTERN[:4], max_new_tokens=7),
+            dict(prompt=np.tile(PATTERN, 2)[:13], max_new_tokens=6)]
+OBS_KW = dict(num_slots=2, max_len=40, page_len=4, prefill_chunk=4)
+
+
+def _obs_run(eng, box, subs=OBS_SUBS):
+    """Staggered submits (two steps apart) on a hand-cranked clock, then
+    a drain; returns ``(rids, {rid: terminal Request}, iterations)``."""
+    done, rids, iters = {}, [], 0
+
+    def step():
+        nonlocal iters
+        box[0] += 0.01
+        iters += 1
+        for r in eng.step():
+            done[r.rid] = r
+
+    for kw in subs:
+        rids.append(eng.submit(**kw))
+        step()
+        step()
+    while eng.scheduler.pending:
+        step()
+        assert iters < 400, "engine failed to drain"
+    return rids, done, iters
+
+
+def _timeline_view(eng):
+    return {tl.rid: (tl.state, tl.n_tokens, tl.decode_iters, tl.slot,
+                     [e["name"] for e in tl.events])
+            for tl in eng.tracer.timelines()}
+
+
+@pytest.mark.parametrize("loop", LOOP_KW, ids=LOOP_IDS)
+def test_tracer_timelines_and_scrapes_match_jax_engine(lms, loop):
+    """The same staggered submissions through the JAX and the port
+    engine, tracer and time series on: every request ends in the same
+    state with the same tokens, decode ticks and slot, its timeline has
+    the same sequence of events, the phases partition its latency, and
+    the time series scraped on the same iterations."""
+    jm, pm = lms
+    runs = {}
+    for name, make in (("port", lambda **kw: ServingEngine(
+            pm, device="cpu", **kw)), ("jax", lambda **kw: _jax_engine(
+                jm, **kw))):
+        box = [0.0]
+        clocked = _clocked if name == "port" else _jax_metrics
+        eng = make(metrics=clocked(box), **OBS_KW, **loop)
+        rids, done, _ = _obs_run(eng, box)
+        runs[name] = (eng, rids, done)
+    (pe, prids, pdone), (je, jrids, jdone) = runs["port"], runs["jax"]
+    for pr, jr in zip(prids, jrids):
+        np.testing.assert_array_equal(pdone[pr].tokens, jdone[jr].tokens)
+    assert _timeline_view(pe) == _timeline_view(je)
+    for s in pe.tracer.summaries().values():
+        d = s["durations"]
+        assert d["queued_s"] + d["prefill_s"] + d["decode_s"] == \
+            pytest.approx(d["total_s"])
+        assert s["engine"] == pe.engine_id
+    assert [s.get("iteration") for _, s in pe.timeseries.samples()] == \
+        [s.get("iteration") for _, s in je.timeseries.samples()]
+    assert any(e["name"] == "prefix_hit" for tl in pe.tracer.timelines()
+               for e in tl.events)
+    comp = pe._telemetry_summary()
+    assert set(comp["requests"]) == set(prids)
+    assert comp["timeseries"]["n_samples"] == len(pe.timeseries.samples())
+    trace = pe.tracer.chrome_trace()["traceEvents"]
+    assert sum(e["ph"] == "s" for e in trace) == len(prids)
+
+
+def test_poisoned_prefill_isolated_like_jax_engine(lms, tmp_path):
+    """``serving.prefill`` armed nth=2 in both packages poisons the same
+    request: it ends CANCELLED with the injected fault as its error, and
+    every other stream equals JAX's and an unfaulted run's. The fault
+    dumps the flight recorder's ring, iteration entries included."""
+    from distkeras_tpu.obs import recorder as jrec
+    from distkeras_tpu.resilience import faults as jfaults
+    from distkeras_tpu_torch.obs import recorder as prec
+    from distkeras_tpu_torch.resilience import faults
+    jm, pm = lms
+    box = [0.0]
+    _, clean, _ = _obs_run(ServingEngine(pm, device="cpu",
+                                         metrics=_clocked(box), **OBS_KW),
+                           box)
+    outs = {}
+    for name, mod, rec_mod, make in (
+            ("port", faults, prec,
+             lambda **kw: ServingEngine(pm, device="cpu", **kw)),
+            ("jax", jfaults, jrec, lambda **kw: _jax_engine(jm, **kw))):
+        rec_mod.reset_recorder()
+        rec = rec_mod.get_recorder()
+        rec.dump_dir = str(tmp_path / name)
+        rec.min_auto_interval_s = 0.0
+        mod.inject("serving.prefill", nth=2)
+        try:
+            box = [0.0]
+            clocked = _clocked if name == "port" else _jax_metrics
+            eng = make(metrics=clocked(box), **OBS_KW)
+            rids, done, _ = _obs_run(eng, box)
+        finally:
+            mod.reset()
+        outs[name] = (rids, done, list(rec.dumps))
+        rec_mod.reset_recorder()
+    (prids, pdone, pdumps), (jrids, jdone, _) = outs["port"], outs["jax"]
+    states = [(pdone[r].state.value, jdone[j].state.value)
+              for r, j in zip(prids, jrids)]
+    assert [a for a, _ in states] == [b for _, b in states]
+    assert sum(a == "cancelled" for a, _ in states) == 1
+    for r, j, c in zip(prids, jrids, sorted(clean)):
+        if pdone[r].state is RequestState.CANCELLED:
+            assert isinstance(pdone[r].error, faults.InjectedFault)
+            continue
+        np.testing.assert_array_equal(pdone[r].tokens, jdone[j].tokens)
+        np.testing.assert_array_equal(pdone[r].tokens, clean[c].tokens)
+    (path,) = pdumps
+    header, records = prec.read_flight_dump(path)
+    assert header["reason"] == "fault:serving.prefill"
+    kinds = [r["kind"] for r in records]
+    assert "serving.iteration" in kinds and kinds[-1] == "fault.triggered"
+
+
+def test_slo_breach_degrades_health_like_jax_engine(lms):
+    """An unmeetable TTFT objective: both engines' ``health()`` report
+    "degraded" while accepting, with the objective in breach; an easy
+    one stays "ok"."""
+    from distkeras_tpu.obs.slo import ttft_p99 as jttft
+    from distkeras_tpu_torch.obs.slo import ttft_p99
+    jm, pm = lms
+    for obj, jobj, want in ((ttft_p99(1e-9), jttft(1e-9), "degraded"),
+                            (ttft_p99(60.0), jttft(60.0), "ok")):
+        hs = []
+        for eng, box in ((ServingEngine(pm, device="cpu", slo=[obj],
+                                        metrics=_clocked(b := [0.0]),
+                                        **OBS_KW), b),
+                         (_jax_engine(jm, slo=[jobj],
+                                      metrics=_jax_metrics(c := [0.0]),
+                                      **OBS_KW), c)):
+            _obs_run(eng, box, OBS_SUBS[:2])
+            h = eng.health()
+            hs.append((h["status"], h["slo"]["ttft_p99"]["breach"],
+                       h["slo"]["ttft_p99"]["n"]))
+            assert "telemetry" in h
+        assert hs[0] == hs[1] and hs[0][0] == want

@@ -469,8 +469,26 @@ def test_streaming_predictor_close_midstream_terminates_producer():
 
 
 def test_telemetry_still_raises_naming_item_11():
+    """``telemetry`` is ported (the name keeps the case that raised):
+    None gives an auto tape while obs is enabled, False none, and a
+    configured tape is used as given."""
+    from distkeras_tpu_torch import obs
+    from distkeras_tpu_torch.obs import NULL_TAPE, TrainingTape
     pm = Model.build(Sequential([layers.Dense(2)]), (4,), device="cpu")
-    for tape in (object(), True):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            SingleTrainer(pm, loss=LOSS, telemetry=tape)
-    SingleTrainer(pm, loss=LOSS, telemetry=False)  # off is accepted
+    rs = np.random.RandomState(0)
+    data = Dataset.from_arrays(rs.randn(32, 4).astype(np.float32),
+                               rs.randint(0, 2, 32))
+    tape = TrainingTape(name="surface")
+    for telemetry, want in ((None, TrainingTape), (False, type(NULL_TAPE)),
+                            (tape, TrainingTape)):
+        tr = SingleTrainer(pm, loss=LOSS, batch_size=8, telemetry=telemetry)
+        tr.train(data)
+        assert type(tr.tape) is want
+    assert tr.tape is tape and tape.snapshot()["examples"] == 32
+    obs.disable()
+    try:
+        tr = SingleTrainer(pm, loss=LOSS, batch_size=8)
+        tr.train(data)
+        assert tr.tape is NULL_TAPE
+    finally:
+        obs.enable()

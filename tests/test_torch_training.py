@@ -457,9 +457,9 @@ def test_training_needs_cuda_unless_built_on_cpu():
     {"fused_vocab_head": True}, {"telemetry": object()},
     {"metrics": ["auc"]}])
 def test_later_trainer_options_raise_naming_the_roadmap(kw, tmp_path):
-    """The Trainer options of ROADMAP Queue 1 item 9 are ported (the ids
-    keep the cases of the options that raised): each takes effect on the
-    CPU. ``telemetry`` (JAX's obs tape) still raises, naming item 11."""
+    """The Trainer options of ROADMAP Queue 1 items 9 and 11 are ported
+    (the ids keep the cases of the options that raised): each takes
+    effect on the CPU, ``telemetry`` (a configured obs tape) too."""
     from distkeras_tpu_torch.utils import CheckpointManager, LambdaCallback
     x, y = _pattern_data(8)
     ds = Dataset.from_arrays(x, y)
@@ -467,8 +467,22 @@ def test_later_trainer_options_raise_naming_the_roadmap(kw, tmp_path):
     base = dict(batch_size=4, loss="sparse_categorical_crossentropy_from_"
                 "logits", worker_optimizer="adam", learning_rate=1e-2)
     if name == "telemetry":
-        with pytest.raises(NotImplementedError, match="item 11"):
-            SingleTrainer(_tiny(), **base, **kw)
+        from distkeras_tpu_torch.obs import TrainingTape
+        tape = TrainingTape(name="t", unit="tokens", flops_per_example=1e6,
+                            peak_flops=1e12)
+        seen = []
+        tr = SingleTrainer(_tiny(), num_epoch=2, **base, telemetry=tape,
+                           callbacks=[LambdaCallback(
+                               on_epoch_end=lambda e, logs: seen.append(
+                                   logs))])
+        tr.train(ds)
+        assert tr.tape is tape
+        snap = tape.snapshot()
+        assert snap["epochs"] == 2 and snap["examples"] == 16
+        assert snap["phases_s"]["device"] > 0 and 0 < snap["goodput"] <= 1
+        for logs in seen:
+            assert logs["mfu"] == pytest.approx(
+                logs["tokens_per_sec"] * 1e6 / 1e12)
         return
     if name in ("checkpoint_dir", "resume", "checkpoint_async"):
         ck = str(tmp_path / "ckpt")
@@ -492,7 +506,11 @@ def test_later_trainer_options_raise_naming_the_roadmap(kw, tmp_path):
         SingleTrainer(_tiny(), num_epoch=2, **base, callbacks=[
             LambdaCallback(on_epoch_end=lambda e, logs: seen.append(
                 (e, sorted(logs))))]).train(ds)
-        assert seen == [(0, ["loss"]), (1, ["loss"])]
+        # the loss and the (auto) telemetry tape's columns
+        tape_keys = ["checkpoint_s", "data_wait_s", "device_s",
+                     "examples_per_sec", "goodput", "host_s",
+                     "validation_s"]
+        assert seen == [(e, sorted(["loss"] + tape_keys)) for e in (0, 1)]
         return
     if name == "profile_dir":
         SingleTrainer(_tiny(), profile_dir=str(tmp_path / value),
