@@ -316,7 +316,26 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     ``TrainingTape``, ``train.epoch`` armed nth=2: the resumed run's
     final carry (params, adam state, key) bitwise the unfaulted run's,
     the restart's cost, and the tape's examples/s, data wait, goodput and
-    MFU against the card's bf16 peak.
+    MFU against the card's bf16 peak;
+33. the serving tier (``router_phase``): engines as phase 32's, each
+    with its own pool of ``ROUTER_PAGES`` pages, on the 218M LM. (a)
+    phase 32's 16 requests through one engine and through a ``Router``
+    with one prefill and two decode replicas (``prefix_affinity``):
+    every stream the engine's apart from admitted near-ties, 16
+    handoffs, K1f exactly twice the engine's 192; the handoff's host ms
+    and the fleet step's host ms outside the engines; (b)
+    ``Router.submit``, ``PrefixAffinity.rank``, both controllers'
+    ``tick`` and a key replay under ``set_sync_debug_mode("error")``,
+    and ``transfer_out`` + ``transfer_in`` of a live stream after the
+    pipeline drain; (c) the JAX scenarios' traces at serving lengths
+    (prompt median 128, max 480; output median 32, max 64; 128-token
+    templates): the diurnal trace through a two-replica fleet and
+    through one engine, and the flash-crowd trace with its scripted
+    ``replica.die`` through an autoscaled fleet, twice: identical
+    outcomes and reports, every failed-over sampled stream's replayed
+    key its dead slot's key mirror byte for byte, the dead and the
+    retired engines' memory freed; per-phase wall, steps, tokens/s,
+    sheds and TTFT/TPOT percentiles.
 
 Every serving phase runs the engine's default loop, ``overlap=True``;
 phase 20's teacher-forced runs use the synchronous one. Weights are
@@ -330,6 +349,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import gc
 import json
@@ -341,6 +361,7 @@ import sys
 import tempfile
 import time
 import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -356,6 +377,8 @@ from distkeras_tpu_torch.models.blocks import Remat
 from distkeras_tpu_torch.models.core import eval_mode
 from distkeras_tpu_torch.models.moe import MoE, _dispatch_plan
 from distkeras_tpu_torch.obs import recorder as obs_recorder
+from distkeras_tpu_torch.obs.report import build_report
+from distkeras_tpu_torch.obs.report import to_json as report_to_json
 from distkeras_tpu_torch.obs.slo import availability, tpot_p99, ttft_p99
 from distkeras_tpu_torch.obs.tape import BF16_PEAK_FLOPS, TrainingTape
 from distkeras_tpu_torch.models.decoding import (CACHE_PLANES,
@@ -407,9 +430,14 @@ from distkeras_tpu_torch.parallel.engine import (
     ElasticAlgo, EngineConfig, WorkerStack)
 from distkeras_tpu_torch.parallel.worker import _fused_head_parts
 from distkeras_tpu_torch.resilience import TrainingSupervisor, faults
-from distkeras_tpu_torch.serving import (DraftModel, KVPool, NgramDraft,
-                                         PagedKVPool, RequestState,
-                                         ServingEngine, tree_ancestors)
+from distkeras_tpu_torch.serving import (AutoscaleController, DraftModel,
+                                         EngineReplica, KVPool, NgramDraft,
+                                         PagedKVPool, RequestState, Router,
+                                         ServingEngine, SLOBurnController,
+                                         diurnal_burst_scenario,
+                                         flash_crowd_chaos_scenario, replay,
+                                         synthesize, tree_ancestors)
+from distkeras_tpu_torch.serving.router.router import _replay_key
 from distkeras_tpu_torch.utils.callbacks import (CSVLogger, EarlyStopping,
                                                  EMAWeights, LambdaCallback,
                                                  ModelCheckpoint,
@@ -1004,27 +1032,43 @@ def check_serving(eng, reqs, out, bad):
     return s
 
 
+def _last_logits(m, params, dtype, device, prompt):
+    """One prompt's last-position logits through ``prefill`` on
+    ``device``, as float32 on the CPU."""
+    tokens = torch.as_tensor(prompt[None], dtype=torch.long)
+    cache = init_cache(m.module, 1, len(prompt), dtype, device)
+    logits, _ = prefill(m.module, params, cache, tokens.to(device))
+    return logits.float().cpu()
+
+
+def _bf16_logits(model, prompt):
+    """``_last_logits`` through the engine's bf16 serving weights."""
+    return _last_logits(model, fuse_qkv_params(
+        model.module, serving_params(model.params, torch.bfloat16)),
+        torch.bfloat16, model.device, prompt)
+
+
+def bf16_rel_err(model, f32, prompt) -> float:
+    """One prompt's last-position logits through the engine's bf16
+    serving weights on ``model``'s device against ``f32`` (a float32 CPU
+    copy of its weights) on the CPU, relative to the CPU's max |logit|."""
+    ref = _last_logits(f32, f32.params, torch.float32, "cpu", prompt)
+    return (_bf16_logits(model, prompt) - ref).abs().max().item() / \
+        ref.abs().max().item()
+
+
 def logits_vs_cpu(model, prompt):
     """One prompt's last-position logits on the card (bf16 serving
     weights, as the engine runs them; and float32) against the plain
     path on the CPU in float32 at the same weights."""
     f32 = build_lm("cpu", dtype="float32")
     f32.module.load_state_dict(model.module.state_dict())
-    tokens = torch.as_tensor(prompt[None], dtype=torch.long)
-
-    def run(m, params, dtype, device):
-        cache = init_cache(m.module, 1, len(prompt), dtype, device)
-        logits, _ = prefill(m.module, params, cache, tokens.to(device))
-        return logits.float().cpu()
-
-    ref = run(f32, f32.params, torch.float32, "cpu")
-    card_bf16 = run(model, fuse_qkv_params(
-        model.module, serving_params(model.params, torch.bfloat16)),
-        torch.bfloat16, model.device)
+    ref = _last_logits(f32, f32.params, torch.float32, "cpu", prompt)
     f32_card = copy.deepcopy(f32).to(model.device)
-    card_f32 = run(f32_card, f32_card.params, torch.float32, model.device)
+    card_f32 = _last_logits(f32_card, f32_card.params, torch.float32,
+                            model.device, prompt)
     scale = ref.abs().max().item()
-    return ((card_bf16 - ref).abs().max().item() / scale,
+    return ((_bf16_logits(model, prompt) - ref).abs().max().item() / scale,
             (card_f32 - ref).abs().max().item() / scale, scale)
 
 
@@ -2189,8 +2233,13 @@ def _cpu_choice(f32, context, kw, index, favour, eps_rel):
     the temperature-scaled, top-k / nucleus-masked logits plus the
     Gumbel field of its ``index``-th draw (the request's key chain:
     ``PRNGKey(seed)``, one split per generated token, whatever the
-    schedule). Returns ``(choice, top-2 gap of the unpushed scores
-    relative to max |logit|)``."""
+    schedule). A sampled request also tries the other corner of the
+    same box when the first does not pick ``favour``: the unpushed
+    choice lowered and every other logit raised by that much, which
+    takes a choice sitting at the top-k or nucleus edge out of the
+    candidates (in bf16 neighbouring logits tie there, and one ulp moves
+    a token across the edge). Returns ``(choice, top-2 gap of the
+    unpushed scores relative to max |logit|)``."""
     with torch.inference_mode():
         cache = init_cache(f32.module, 1, len(context), torch.float32, "cpu")
         logits, _ = prefill(f32.module, f32.params, cache,
@@ -2216,8 +2265,12 @@ def _cpu_choice(f32, context, kw, index, favour, eps_rel):
         return lf + noise
 
     top2 = torch.topk(scores(logits), 2).values
-    return (int(torch.argmax(scores(logits + push))),
-            float(top2[0] - top2[1]) / scale)
+    choice = int(torch.argmax(scores(logits + push)))
+    if choice != favour:
+        edge = torch.full_like(logits, eps_rel * scale)
+        edge[int(torch.argmax(scores(logits)))] = -eps_rel * scale
+        choice = int(torch.argmax(scores(logits + edge)))
+    return choice, float(top2[0] - top2[1]) / scale
 
 
 def check_identity(f32, plain, spec, requests, label, tie_rel):
@@ -6767,6 +6820,474 @@ def obs_phase(dev, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --- phase 33: the serving tier ----------------------------------------------
+
+#: phase 33's engines are phase 32's obs-on serving engine, each with its
+#: own pool of this many pages
+ROUTER_PAGES = 128
+#: the bounded queue of (c)'s engines
+ROUTER_QUEUE = 8
+#: (c)'s traces: the JAX scenarios' phases and rates (times ``scale``) at
+#: serving lengths
+ROUTER_SCALE = 1.0
+ROUTER_LENGTHS = dict(prompt_median=128.0, prompt_sigma=0.7,
+                      output_median=32.0, template_len=128)
+ROUTER_SPEC_KW = dict(prompt_max=480, output_max=64, length_quantum=16)
+#: (c)'s engines hold the longest trace request (phase 32's 512 would
+#: refuse a 480-token prompt with 64 new tokens)
+ROUTER_MAX_LEN = ROUTER_SPEC_KW["prompt_max"] + ROUTER_SPEC_KW["output_max"]
+#: virtual seconds per fleet step of the replays' iteration clock
+ROUTER_DT = 1e-3
+#: the kernels phase 33 counts on each of its paths
+ROUTER_KERNELS = ("flash_fwd", "paged_decode", "sample_epilogue", "prng")
+
+
+def router_engine(model, eid, log, **kw):
+    """One of phase 33's engines (phase 32's obs-on engine, its own pool
+    of ``ROUTER_PAGES`` pages); the card's allocated bytes before and
+    after the build are appended to ``log``."""
+    kw.setdefault("num_pages", ROUTER_PAGES)
+    kw.setdefault("max_len", 512)
+    before = torch.cuda.memory_allocated()
+    eng = ServingEngine(model, num_slots=4, page_len=16,
+                        prefill_chunk=256, device=model.device,
+                        fused_sampling=True, engine_id=eid,
+                        **obs_engine_kw(True), **kw)
+    log.append((eid, before, torch.cuda.memory_allocated(),
+                eng.pool.allocated_bytes()))
+    return eng
+
+
+def replay_engine(model, eid, log):
+    """One of (c)'s engines: ``router_engine`` with ``ROUTER_QUEUE`` and
+    room for the longest trace request."""
+    return router_engine(model, eid, log, max_queue=ROUTER_QUEUE,
+                         max_len=ROUTER_MAX_LEN)
+
+
+def _mem_lines(log):
+    return "; ".join(f"{eid} {a / 2**30:.3f} -> {b / 2**30:.3f} GiB "
+                     f"(+{(b - a) / 2**20:.1f} MiB, pool "
+                     f"{pool / 2**20:.1f} MiB)" for eid, a, b, pool in log)
+
+
+class _FleetTimes:
+    """Host wall time of a router's steps, of its replicas' ``step()``
+    inside them and of its migrations (``transfer_out`` + placement +
+    ``transfer_in``), by wrapping the instances' methods; no sync is
+    added."""
+
+    def __init__(self, router):
+        self.step_s, self.engine_s, self.steps = 0.0, 0.0, 0
+        self.moves = []
+        self._wrap(router, "step", "step_s")
+        self._wrap(router, "_migrate", None, moves=True)
+        for rep in router.replicas:
+            self._wrap(rep, "step", "engine_s")
+
+    def _wrap(self, obj, name, field, moves=False):
+        fn = getattr(obj, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            dt = time.perf_counter() - t0
+            if moves:
+                # (host seconds, tokens the stream held when it moved)
+                self.moves.append((dt, len(args[0].req.generated)))
+            else:
+                setattr(self, field, getattr(self, field) + dt)
+                if field == "step_s":
+                    self.steps += 1
+            return out
+
+        setattr(obj, name, timed)
+
+
+def _drain(target, limit=20000):
+    """Step a router or an engine until it is empty; ``{id: Request}``."""
+    done, steps = {}, 0
+    pending = ((lambda: target.pending) if hasattr(target, "replicas")
+               else (lambda: target.scheduler.pending))
+    while pending():
+        out = target.step()
+        for k, r in (out.items() if isinstance(out, dict)
+                     else ((r.rid, r) for r in out)):
+            done[k] = r
+        steps += 1
+        if steps > limit:
+            raise AssertionError("phase 33: the target did not drain")
+    return done, steps
+
+
+def router_disagg(model, card, tie_rel, requests, mem):
+    """(a) The 16-request workload through one engine, then through a
+    prefix-affinity router with one prefill and two decode replicas:
+    every stream the engine's (apart from admitted ties), 16 handoffs,
+    K1f exactly twice the engine's. Returns the fleet and its launch
+    counts."""
+    layers = LM_CFG["num_layers"]
+    eng = router_engine(model, "r33-one", mem)
+    rids = [eng.submit(p, OBS_NEW_TOKENS, **kw) for p, kw in requests]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done, one_steps = _drain(eng)
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    one = kernels.launch_counts()
+    one_sum = eng.metrics.summary()
+    ref = ([(r, p) for r, (p, _) in zip(rids, requests)],
+           {r: done[r].tokens for r in rids})
+    del eng, done
+    gc.collect()
+    reps = [EngineReplica(router_engine(model, "r33-p0", mem),
+                          role="prefill")]
+    reps += [EngineReplica(router_engine(model, f"r33-d{i}", mem),
+                           role="decode") for i in range(2)]
+    router = Router(reps, policy="prefix_affinity")
+    times = _FleetTimes(router)
+    grids = [router.submit(p, OBS_NEW_TOKENS, **kw) for p, kw in requests]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done, steps = _drain(router)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    run = ([(g, p) for g, (p, _) in zip(grids, requests)],
+           {g: done[g].tokens for g in grids})
+    if any(done[g].state is not RequestState.FINISHED for g in grids):
+        raise AssertionError("phase 33 (a): a routed request did not "
+                             "finish")
+    parted = _parted(model, ref, run, requests,
+                     "phase 33 (a) disaggregated router", tie_rel)
+    c = router.counters()
+    pre = router.replica("r33-p0").engine.metrics.summary()
+    if c["handoffs"] != len(requests) or \
+            pre["requests_transferred"] != len(requests):
+        raise AssertionError(f"phase 33 (a): {c['handoffs']} handoffs, "
+                             f"{pre['requests_transferred']} transferred")
+    want = layers * len(requests)
+    if one["flash_fwd"] != want or launches["flash_fwd"] != 2 * want:
+        raise AssertionError(f"phase 33 (a): K1f {launches['flash_fwd']} "
+                             f"against the engine's {one['flash_fwd']}; "
+                             f"expected {2 * want} and {want}")
+    for name in ROUTER_KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"phase 33 (a): {name} never launched")
+    outside = (times.step_s - times.engine_s) / times.steps * 1e3
+    moves = np.array([dt for dt, _ in times.moves]) * 1e3
+    held = sorted({n for _, n in times.moves})
+    print(f"phase 33 (a) disaggregated router on {card}: 16 requests "
+          f"(8 greedy, 8 sampled) through r33-p0 (prefill) and r33-d0/d1 "
+          f"(decode), prefix_affinity: {parted} of 16 streams part from "
+          f"the one engine's, each at an admitted near-tie; handoffs "
+          f"{c['handoffs']}, requests_transferred "
+          f"{pre['requests_transferred']}; launches "
+          f"{ {n: launches[n] for n in ROUTER_KERNELS} } against the one "
+          f"engine's { {n: one[n] for n in ROUTER_KERNELS} }", flush=True)
+    print(f"phase 33 (a) times on {card}: one engine {one_wall:.3f} s in "
+          f"{one_steps} steps, TTFT p50 "
+          f"{one_sum['ttft_s']['p50'] * 1e3:.1f} ms p99 "
+          f"{one_sum['ttft_s']['p99'] * 1e3:.1f} ms; fleet {wall:.3f} s in "
+          f"{steps} fleet steps, TTFT (prefill replica) p50 "
+          f"{pre['ttft_s']['p50'] * 1e3:.1f} ms p99 "
+          f"{pre['ttft_s']['p99'] * 1e3:.1f} ms; handoff host ms "
+          f"(transfer_out + transfer_in, the pipeline drain included) "
+          f"mean {moves.mean():.3f} p50 {np.median(moves):.3f} max "
+          f"{moves.max():.3f} over {len(moves)} (the streams held {held} "
+          f"tokens when they moved); fleet step host ms "
+          f"outside the engines' step() {outside:.3f} (handoffs included), "
+          f"{outside - moves.sum() / times.steps:.3f} without",
+          flush=True)
+    return router, ref, launches
+
+
+def router_sync_free(router, model, card, tie_rel, requests, ref):
+    """(b) Placement reads host state only: on two of (a)'s engines,
+    ``Router.submit``, ``PrefixAffinity.rank``, both controllers'
+    ``tick`` and a failover's key replay run under
+    ``set_sync_debug_mode("error")``; then a live request's
+    ``transfer_out`` + ``transfer_in`` after the pipeline drain."""
+    engines = [router.replica(f"r33-d{i}").engine for i in range(2)]
+    fleet = Router([EngineReplica(e) for e in engines],
+                   policy="prefix_affinity")
+    burn = SLOBurnController(fleet)
+
+    def no_factory():
+        raise AssertionError("phase 33 (b): the autoscaler scaled up")
+
+    auto = AutoscaleController(fleet, no_factory)
+    k7 = kernels.launch_counts()["prng"]
+    picked = requests[:4]
+    with _SyncErrors():
+        ranks = [[r.name for r in fleet.policy.rank(fleet.replicas, p)]
+                 for p, _ in picked]
+        grids = [fleet.submit(p, OBS_NEW_TOKENS, **kw) for p, kw in picked]
+        actions = [burn.tick(), auto.tick()]
+        key = _replay_key(101, 64)
+    if kernels.launch_counts()["prng"] != k7:
+        raise AssertionError("phase 33 (b): the key replay launched K7")
+    done, _ = _drain(fleet)
+    run = ([(g, p) for g, (p, _) in zip(grids, picked)],
+           {g: done[g].tokens for g in grids})
+    sub = (ref[0][:4], ref[1])
+    parted = _parted(model, sub, run, picked, "phase 33 (b) placement",
+                     tie_rel)
+    # a live stream between two engines, after the drain
+    src, dst = engines
+    p, kw = requests[1]
+    rid = src.submit(p, OBS_NEW_TOKENS, **kw)
+    while len(src[rid].generated) < 4:
+        src.step()
+    src._flush_pending()
+    with _SyncErrors():
+        req = src.transfer_out(rid)
+        new = dst.transfer_in(req)
+    done, _ = _drain(dst)
+    moved = ([(new, p)], {new: done[new].tokens})
+    parted += _parted(model, (ref[0][1:2], ref[1]), moved, [requests[1]],
+                      "phase 33 (b) transfer", tie_rel)
+    print(f"phase 33 (b) on {card}: Router.submit of 4 requests, "
+          f"PrefixAffinity.rank ({ranks[0]} first), SLOBurnController "
+          f"and AutoscaleController ticks ({actions}) and a 64-token key "
+          f"replay ({key.tolist()}) under set_sync_debug_mode('error'): "
+          f"no host sync, no K7 launch; transfer_out + transfer_in of a "
+          f"sampled stream at 4 tokens after the pipeline drain: no host "
+          f"sync; {parted} of 5 streams part at admitted near-ties",
+          flush=True)
+
+
+def router_trace(scenario, vocab):
+    """A JAX reference scenario's phases and rates at serving lengths."""
+    spec = scenario(vocab, scale=ROUTER_SCALE, **ROUTER_SPEC_KW)
+    return synthesize(dataclasses.replace(spec, **ROUTER_LENGTHS), seed=SEED)
+
+
+def router_objectives():
+    return [ttft_p99(0.1), tpot_p99(0.01), availability(0.9)]
+
+
+class _StepWalls:
+    """Wall time of each step of a replay's target against the replay's
+    virtual clock (read from an engine's metrics window)."""
+
+    def __init__(self, target, clock_of):
+        self.rows = []
+        fn = target.step
+
+        def timed():
+            t = clock_of()
+            t0 = time.perf_counter()
+            out = fn()
+            self.rows.append((t, time.perf_counter() - t0))
+            return out
+
+        target.step = timed
+
+    def phase(self, ph):
+        walls = [w for t, w in self.rows if ph.t0 <= t < ph.t1 - 1e-12]
+        return sum(walls), len(walls)
+
+
+def _pct(summaries, key, q):
+    vals = [s[key][q] for s in summaries.values() if s[key] is not None]
+    return "-" if not vals else f"{max(vals):.3f}"
+
+
+def print_replay(label, res, walls, card, counters=None):
+    """Per phase: wall s, steps, tokens/s by wall, shed, TTFT/TPOT
+    p50/p99 (iteration-clock s, the worst engine's), prefix hits per
+    engine."""
+    for ph in res.phases:
+        wall, steps = walls.phase(ph)
+        toks = sum(s["tokens_generated"] for s in ph.summaries.values())
+        hits = {e: s["prefix_cache"]["hits"] for e, s in
+                ph.summaries.items()}
+        print(f"phase 33 (c) {label} on {card}, phase {ph.name}: wall "
+              f"{wall:.3f} s, {steps} steps, {toks} tokens "
+              f"({toks / wall if wall else 0.0:.1f} tok/s by wall), "
+              f"submitted {ph.submitted}, shed {ph.shed}; TTFT p50/p99 "
+              f"{_pct(ph.summaries, 'ttft_s', 'p50')}/"
+              f"{_pct(ph.summaries, 'ttft_s', 'p99')} s, TPOT p50/p99 "
+              f"{_pct(ph.summaries, 'tpot_s', 'p50')}/"
+              f"{_pct(ph.summaries, 'tpot_s', 'p99')} s (iteration clock, "
+              f"{ROUTER_DT * 1e3:g} ms a step); prefix hits {hits}",
+              flush=True)
+    print(f"phase 33 (c) {label}: {res.iterations} iterations, totals "
+          f"{res.totals}" + ("" if counters is None
+                             else f", router {counters}"), flush=True)
+
+
+def router_replay(model, card, trace, mem):
+    """(c) trace one through a two-replica prefix-affinity fleet, then
+    through one engine. Returns the fleet replay's launch counts."""
+    fleet = Router([replay_engine(model, f"r33-a{i}", mem) for i in range(2)],
+                   policy="prefix_affinity")
+    walls = _StepWalls(fleet,
+                       lambda: fleet.replicas[0].engine.metrics.clock())
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = replay(trace, fleet, objectives=router_objectives(), dt=ROUTER_DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if launches["flash_fwd"] < 1 or launches["paged_decode"] < 1:
+        raise AssertionError(f"phase 33 (c): the replay launched "
+                             f"{launches}")
+    print(f"phase 33 (c) trace one ({len(trace)} requests, "
+          f"diurnal_burst_scenario phases at scale {ROUTER_SCALE}) "
+          f"through the fleet: {wall:.2f} s; launches "
+          f"{ {n: launches[n] for n in ROUTER_KERNELS} }", flush=True)
+    print_replay("trace one, fleet", res, walls, card, fleet.counters())
+    del fleet, res, walls
+    gc.collect()
+    eng = replay_engine(model, "r33-one1", mem)
+    walls = _StepWalls(eng, lambda: eng.metrics.clock())
+    t0 = time.perf_counter()
+    res = replay(trace, eng, objectives=router_objectives(), dt=ROUTER_DT)
+    torch.cuda.synchronize()
+    print(f"phase 33 (c) trace one through one engine: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print_replay("trace one, one engine", res, walls, card)
+    return launches
+
+
+def router_chaos(model, card, trace, mem, tag):
+    """(c) trace two (its scripted ``replica.die``) through a fleet of two
+    that an ``AutoscaleController`` may grow to three; every failed-over
+    sampled stream's replayed key against its dead slot's key mirror;
+    then idle ticks scale the fleet down and the retired engines' memory
+    goes. Returns the comparables and the launch counts."""
+    minted = []
+
+    def factory():
+        minted.append(f"{tag}-s{len(minted)}")
+        return EngineReplica(replay_engine(model, minted[-1], mem))
+
+    fleet = Router([replay_engine(model, f"{tag}-{i}", mem)
+                    for i in range(2)], policy="prefix_affinity")
+    ctl = AutoscaleController(fleet, factory, min_serving=1, max_replicas=3,
+                              up_sustain=1, idle_sustain=4, cooldown=2)
+    fleet.attach_controller(ctl)
+    seeds = [weakref.ref(r.engine) for r in fleet.replicas]
+    keys = []
+    death = fleet._on_replica_death
+
+    def watched(replica, error):
+        eng = replica.engine
+        mirrors = {tr.grid: (eng._keys[tr.req.slot].copy(),
+                             len(tr.req.generated))
+                   for tr in fleet._requests.values()
+                   if tr.replica is replica and tr.req.temperature > 0
+                   and tr.req.state is RequestState.DECODING}
+        death(replica, error)
+        for grid, (mirror, n) in mirrors.items():
+            got = np.asarray(fleet._requests[grid].req.rng)
+            keys.append((grid, n, mirror.tobytes() == got.tobytes()
+                         and mirror.dtype == got.dtype))
+
+    fleet._on_replica_death = watched
+    walls = _StepWalls(fleet, lambda: next(
+        r.engine.metrics.clock() for r in fleet.replicas))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = replay(trace, fleet, objectives=router_objectives(),
+                     dt=ROUTER_DT)
+    finally:
+        faults.reset()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    out = copy.deepcopy({
+        "outcomes": res.outcomes, "incidents": res.incidents,
+        "fleet_timeline": res.fleet_timeline,
+        "autoscale_events": res.autoscale_events,
+        "report": report_to_json(build_report(res))})
+    print_replay(f"trace two ({tag})", res, walls, card, fleet.counters())
+    print(f"phase 33 (c) trace two ({tag}, {len(trace)} requests, "
+          f"flash_crowd_chaos_scenario phases at scale {ROUTER_SCALE}): "
+          f"{wall:.2f} s; launches "
+          f"{ {n: launches[n] for n in ROUTER_KERNELS} }; incidents "
+          f"{res.incidents}; failovers {fleet.counters()['failovers']}; "
+          f"fleet_timeline {res.fleet_timeline}; autoscale "
+          f"{ctl.counts()}", flush=True)
+    if not keys or not all(ok for _, _, ok in keys):
+        raise AssertionError(f"phase 33 (c): replayed keys against the dead "
+                             f"slots' mirrors: {keys}")
+    del res, walls
+    gc.collect()
+    dead = [ref() is None for ref in seeds]
+    before = torch.cuda.memory_allocated()
+    pools = {r.name: r.engine.pool.allocated_bytes() for r in fleet.replicas}
+    gone = []
+    for _ in range(32):
+        for name, act in ctl.tick().items():
+            if act == "remove":
+                gone.append(name)
+        if sum(r.state.value == "serving" for r in fleet.replicas) <= 1:
+            break
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    freed = sum(pools[n] for n in gone)
+    print(f"phase 33 (c) {tag}: {len(keys)} failed-over sampled streams' "
+          f"replayed keys equal their dead slots' key mirrors byte for "
+          f"byte; the dead seed replica's engine collected: {any(dead)}; "
+          f"scale-down retired {gone}: allocated {before / 2**30:.3f} -> "
+          f"{after / 2**30:.3f} GiB (their pools {freed / 2**20:.1f} MiB)",
+          flush=True)
+    if not any(dead) or not gone or before - after < freed:
+        raise AssertionError(f"phase 33 (c) {tag}: dead engine collected "
+                             f"{dead}, retired {gone}, freed "
+                             f"{before - after} of {freed} bytes")
+    return out, launches
+
+
+def router_phase(dev, card, tie_rel):
+    """Phase 33: the serving tier on the card. Returns each path's launch
+    counts."""
+    model = build_lm(dev)
+    vocab = LM_CFG["vocab"]
+    mem = []
+    t0 = time.perf_counter()
+    requests = obs_workload(vocab)
+    router, ref, disagg = router_disagg(model, card, tie_rel, requests, mem)
+    router_sync_free(router, model, card, tie_rel, requests, ref)
+    del router
+    gc.collect()
+    t1 = time.perf_counter()
+    replay_launches = router_replay(
+        model, card, router_trace(diurnal_burst_scenario, vocab), mem)
+    t2 = time.perf_counter()
+    chaos_trace = router_trace(flash_crowd_chaos_scenario, vocab)
+    first, chaos_launches = router_chaos(model, card, chaos_trace, mem,
+                                         "r33-c")
+    gc.collect()
+    second, _ = router_chaos(model, card, chaos_trace, mem, "r33-c")
+    if first != second:
+        diff = [k for k in first if first[k] != second[k]]
+        raise AssertionError(f"phase 33 (c): the two chaos replays differ "
+                             f"in {diff}")
+    t3 = time.perf_counter()
+    print(f"phase 33 (c) the two chaos replays: identical outcomes "
+          f"({len(first['outcomes'])}), incidents, fleet timelines, "
+          f"autoscale events and build_report JSON "
+          f"({len(first['report'])} bytes)", flush=True)
+    print(f"phase 33 engines built on {card}: " + _mem_lines(mem),
+          flush=True)
+    print(f"phase 33 took {t3 - t0:.1f} s: (a)+(b) {t1 - t0:.1f}, trace one "
+          f"{t2 - t1:.1f}, trace two twice {t3 - t2:.1f}", flush=True)
+    del model
+    gc.collect()
+    return {"serving_router_disagg": disagg,
+            "serving_router_replay": replay_launches,
+            "serving_router_chaos": chaos_launches}
+
+
 def _expert_elements(wq) -> int:
     """Elements of a quantized stacked expert leaf, unpacked."""
     return wq["q"].numel() if "q" in wq else 2 * wq["q4"].numel()
@@ -6976,6 +7497,8 @@ def main() -> int:
     obs_launches = obs_phase(dev, card)
     print(f"phase 32 (observability and resilience) took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    router_launches = router_phase(dev, card, tie_rel)
 
     by_path = {name: {} for name in kernels.SOURCES}
     for path, c in {**slab_launches, **moe_wq_launches,
@@ -7033,6 +7556,10 @@ def main() -> int:
     for name in TRAINER_KERNELS:
         by_path[name]["training_supervised"] = \
             obs_launches["training_supervised"][name]
+    for path, c in router_launches.items():
+        for name in ROUTER_KERNELS:
+            if c[name]:
+                by_path[name][path] = c[name]
 
     def entry(name, source, replaces, rows, path):
         main_row = rows[0]

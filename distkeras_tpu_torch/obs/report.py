@@ -1,7 +1,6 @@
 """Scenario SLO reports: trace phases joined against the time series
-(mirrors ``distkeras_tpu/obs/report.py``; the port has no
-``serving.loadgen`` yet, so ``build_report`` takes any object with the
-attributes of JAX's ``ReplayResult``).
+(mirrors ``distkeras_tpu/obs/report.py``; ``build_report`` takes the
+``ReplayResult`` of ``serving.loadgen.replay``).
 
 ``serving.loadgen.replay`` produces per-phase metrics windows, a
 per-engine :class:`~distkeras_tpu_torch.obs.timeseries.TimeSeries`, and

@@ -117,6 +117,14 @@ serving tree's dtype (:359-361), ``decode_kernel`` picks the paged
 readout (:434-451: ``"off"`` is the gather path, no paged kernel) and
 ``engine_id`` names the engine (:547-569).
 
+Replica handoff (JAX :2359-2471): ``transfer_out(rid)`` detaches a live
+request through the preemption path (the unit in flight lands, pages
+freed, the key taken from the slot's mirror, any swap snapshot dropped)
+and ``transfer_in(req)`` admits it on another paged engine, which
+re-prefills its context head-less and continues its stream: the
+serving router's prefill->decode handoff, rebalance and failover
+(``serving.router``).
+
 Observability and resilience (JAX :571-611, :693-707): the engine runs
 a request tracer (``obs.tracing``, on the metrics clock, shared with
 the scheduler, which records admissions), the process-global flight
@@ -1205,6 +1213,104 @@ class ServingEngine:
         self._terminate(req, RequestState.CANCELLED, out)
         self.metrics.record_cancelled(rid)
         return out[0]
+
+    # --- replica handoff --------------------------------------------------
+
+    def transfer_out(self, rid: int) -> Optional[Request]:
+        """Detach a live request so another engine can ``transfer_in`` it
+        (JAX :2359; the router's prefill->decode handoff and drain
+        rebalance). An admitted request leaves through ``_preempt``: the
+        unit in flight lands, its pages are freed and a decoding stream's
+        key is taken from the slot's host mirror. Then it leaves the
+        queue and the engine. Returns the request (QUEUED, slotless), or
+        None when landing the unit in flight FINISHED it instead (this
+        engine's next ``step()`` returns it)."""
+        req = self._requests[rid]
+        if req.state in (RequestState.PREFILLING, RequestState.DECODING):
+            if not self._paged:
+                raise RuntimeError(
+                    "transfer_out of an admitted request needs the "
+                    "paged engine (the resumable re-prefill path)")
+            self._preempt(req)
+            if req.state in TERMINAL_STATES:
+                return None
+        # a swap snapshot lives in THIS engine's host tier (and holds its
+        # prefix-resident pages): the handoff resumes by re-prefill
+        self._drop_swap(req)
+        if req.state is not RequestState.QUEUED:
+            raise RuntimeError(
+                f"cannot transfer request {rid} in state "
+                f"{req.state.value!r}")
+        self.scheduler.waiting.remove(req)
+        del self._requests[rid]
+        self.metrics.record_transfer(rid)
+        # ticks precede terminals: the deferred window may hold this
+        # request's decode ticks, and on_terminal retires its timeline
+        self._flush_host_window()
+        self.tracer.on_terminal(rid, "transferred", len(req.generated))
+        if self.recorder.enabled:
+            self.recorder.record(
+                "serving.transferred", engine=self.engine_id, rid=rid,
+                n_generated=len(req.generated))
+        return req
+
+    def transfer_in(self, req: Request) -> int:
+        """Admit a request detached from another engine (``transfer_out``)
+        or rebuilt by the router after a replica's death (JAX :2407). It
+        re-enters as a preempted request resumes: ``prompt +
+        generated[:-1]`` re-prefills head-less here and decode continues
+        from ``req.rng``, token for token (byte for byte when sampled)
+        the single engine's stream. Returns a fresh LOCAL rid. A
+        ``deadline_s`` restarts on this engine's clock (the router carries
+        the remaining budget). Raises ``AdmissionRejected`` when the
+        bounded queue is full."""
+        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("request prompt is empty")
+        if prompt.size + req.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({prompt.size}) + max_new_tokens "
+                f"({req.max_new_tokens}) exceeds the slot capacity "
+                f"max_len={self.max_len}")
+        if req.generated and not self._paged:
+            raise ValueError(
+                "transfer_in of a decode-progress request needs the "
+                "paged engine (the resumable re-prefill path)")
+        if self._paged:
+            worst = self.pool.pages_for(prompt.size + req.max_new_tokens)
+            if worst > self.pool.num_pages:
+                raise ValueError(
+                    f"request needs up to {worst} pages but the pool "
+                    f"holds {self.pool.num_pages}")
+        req.prompt = prompt
+        req.rid = next(self._rid)
+        req.slot = None
+        req.prefill_pos = 0
+        req.error = None
+        # the source engine's page ids, shared lengths, donor and swap
+        # snapshot refer to ITS pools: none of them may reach this one
+        req.shared_len = 0
+        req.n_shared_full = 0
+        req.load_pages = []
+        req.donor_ref = None
+        req.swap = None
+        if req.rng is None:
+            req.rng = prng.key(req.seed).numpy()
+        try:
+            self.scheduler.submit(req)
+        except AdmissionRejected:
+            self.metrics.record_rejected()
+            self.tracer.on_reject()
+            self.recorder.note_rejection(
+                rid=req.rid, engine=self.engine_id,
+                queue_depth=self.scheduler.queue_depth,
+                max_queue=self.scheduler.max_queue)
+            raise
+        self._requests[req.rid] = req
+        req.submit_t = self.metrics.clock()
+        self.metrics.record_submit(req.rid)
+        self.tracer.on_submit(req.rid, self.scheduler.queue_depth)
+        return req.rid
 
     def _terminate(self, req: Request, state: RequestState,
                    finished: List[Request],

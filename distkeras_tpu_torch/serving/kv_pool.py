@@ -568,6 +568,10 @@ class PrefixCache:
         #: device page id -> its node: the residency probe the engine's
         #: swap-out reads (a resident page is held, not copied)
         self._by_page: Dict[int, _Node] = {}
+        #: the router's affinity signal (JAX :684-687): root page-token
+        #: bytes -> how many times ``match()`` served a chain rooted there;
+        #: an entry dies with its root node (``_drop``)
+        self._hits: Dict[bytes, int] = {}
         self._nid = itertools.count(1)
         self._tick = itertools.count()
 
@@ -577,6 +581,23 @@ class PrefixCache:
     def resident(self, pid: int) -> bool:
         """Is device page ``pid`` held by a cache node now?"""
         return int(pid) in self._by_page
+
+    def affinity_key(self, tokens) -> bytes:
+        """The prompt's placement key for prefix-affinity routing (JAX
+        :705): the bytes of its first page-sized token run, the trie's
+        root edge. A prompt shorter than a page gets its short run back,
+        which ``probe()`` never finds."""
+        toks = np.ascontiguousarray(np.asarray(tokens, np.int32))
+        return toks[:self._pool.page_len].tobytes()
+
+    def probe(self, key: bytes) -> Optional[int]:
+        """Side-effect-free affinity probe (JAX :715; no LRU touch, no
+        counter bump): None when no registered chain starts with ``key``,
+        else how many times ``match()`` served a chain rooted at it (0:
+        resident, not yet reused)."""
+        if key not in self._children.get(0, {}):
+            return None
+        return self._hits.get(key, 0)
 
     def match(self, tokens) -> Tuple[List[int], int, Optional[int]]:
         """``(full_pages, shared_len, donor_page)``: the chained full-page
@@ -592,13 +613,16 @@ class PrefixCache:
         parent = 0
         pos = 0
         while pos + pl < n:
-            node = self._children.get(parent, {}).get(
-                toks[pos:pos + pl].tobytes())
+            key = toks[pos:pos + pl].tobytes()
+            node = self._children.get(parent, {}).get(key)
             if node is None:
                 break
             if node.page is None and not self._restore_node(node):
                 break                    # spilled, and no device page
             node.last_used = tick
+            if parent == 0:
+                # the chain's root page served a match (JAX :752)
+                self._hits[key] = self._hits.get(key, 0) + 1
             pages.append(node.page)
             parent = node.nid
             pos += pl
@@ -679,6 +703,8 @@ class PrefixCache:
         del self._children[node.parent][node.key]
         del self._children[node.nid]
         del self._nodes[node.nid]
+        if node.parent == 0:
+            self._hits.pop(node.key, None)
         tok0 = int(np.frombuffer(node.key, np.int32)[0])
         bucket = self._first.get(node.parent, {}).get(tok0, [])
         if node in bucket:

@@ -5,7 +5,8 @@ Per request: TTFT (submit -> first token), TPOT (mean seconds per
 generated token after the first, the number the ``tpot_p99`` SLO reads)
 and end-to-end latency. Per engine iteration: queue depth, slot
 occupancy and the decode time and tokens. The degraded ends (timed
-out, cancelled), prefill chunks, preemptions, prefix-cache lookups, the
+out, cancelled), prefill chunks, preemptions, live transfers to another
+replica, prefix-cache lookups, the
 page-budget gauges, the host offload tier's traffic and the resume
 latencies split by path (page swap-in or context re-prefill), the
 speculation counters and the MoE routing picture (None on MoE-free
@@ -203,6 +204,14 @@ class ServingMetrics:
         """Not terminal: TTFT already fired, latency runs to the finish."""
         self._preempted.inc()
 
+    def record_transfer(self, rid: int) -> None:
+        """A request left this engine alive (``transfer_out``: a router
+        handoff or rebalance; JAX :218): its in-flight timestamps go, as
+        it finishes in another engine's window."""
+        self.submit_ts.pop(rid, None)
+        self.first_ts.pop(rid, None)
+        self._transferred.inc()
+
     def record_prefix_lookup(self, hit_tokens: int,
                              total_tokens: int) -> None:
         self._prefix_lookups.inc()
@@ -338,6 +347,10 @@ class ServingMetrics:
         return int(self._preempted.value())
 
     @property
+    def requests_transferred(self) -> int:
+        return int(self._transferred.value())
+
+    @property
     def prefix_lookups(self) -> int:
         return int(self._prefix_lookups.value())
 
@@ -456,6 +469,7 @@ class ServingMetrics:
             "requests_timed_out": self.requests_timed_out,
             "requests_cancelled": self.requests_cancelled,
             "requests_preempted": self.requests_preempted,
+            "requests_transferred": self.requests_transferred,
             "pages": (None if pages_free is None else {
                 "free": int(pages_free),
                 "shared": int(self._pages_shared.value() or 0),

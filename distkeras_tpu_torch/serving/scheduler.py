@@ -82,6 +82,10 @@ class Request:
     submit_t: float = 0.0
     error: Optional[BaseException] = None
     n_preempted: int = 0
+    # the router's count of this stream's moves between replicas, stamped
+    # when it delivers the terminal request (JAX :111-116)
+    n_handoffs: int = 0                  # planned moves (disagg/rebalance)
+    n_failovers: int = 0                 # replica-death re-admissions
     # engine bookkeeping of the admission plan: positions served by
     # shared prefix pages, how many of those pages are whole, the pages
     # to load into the staging cache and the copy-on-write donor's hold

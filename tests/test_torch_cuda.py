@@ -38,8 +38,9 @@ from distkeras_tpu_torch.ops.sampling import (MAX_BOUNDARY_PARTINGS,
                                               boundary_partings,
                                               sample_epilogue,
                                               sample_epilogue_reference)
-from distkeras_tpu_torch.serving import (NgramDraft, PagedKVPool,
-                                         ServingEngine, tree_ancestors)
+from distkeras_tpu_torch.serving import (EngineReplica, NgramDraft,
+                                         PagedKVPool, Router, ServingEngine,
+                                         tree_ancestors)
 
 pytestmark = pytest.mark.cuda
 
@@ -2012,3 +2013,80 @@ def test_device_stager_places_chunks_on_the_card(dev):
         assert np.array_equal(Ys.cpu().numpy(), Y)
     cpu = device_stager("cpu")(chunks[0])
     assert cpu is chunks[0]
+
+
+# --- the serving tier: handoff between engines on the card -------------------
+
+
+def test_disaggregated_handoff_on_card_equals_one_engine(dev):
+    """A prefill replica and a decode replica on the card serve six
+    requests (greedy and sampled, fused sampling, a two-chunk prompt),
+    one handoff each, as one card engine does: every stream equal, or
+    parting at a near-tie of the CPU float32 scores (``chip_smoke``'s
+    rule, with its bound from this model's bf16 logit error)."""
+    model = _small_lm(dev, num_kv_heads=2)
+    f32 = Model.build(zoo.transformer_lm(97, d_model=128, num_heads=4,
+                                         num_layers=2, num_kv_heads=2),
+                      (16,), seed=0, device="cpu")
+    f32.module.load_state_dict(model.module.state_dict())
+    rs = np.random.RandomState(3)
+    reqs = [(rs.randint(0, 97, n),
+             {} if i % 2 == 0 else dict(temperature=0.8, top_k=20,
+                                        top_p=0.9, seed=10 + i))
+            for i, n in enumerate((9, 30, 17, 44, 23, 12))]
+    kw = dict(num_slots=3, max_len=96, page_len=16, prefill_chunk=32,
+              device=dev, fused_sampling=True)
+    eng = ServingEngine(model, engine_id="card-one", **kw)
+    rids = [eng.submit(p, 16, **k) for p, k in reqs]
+    one = eng.run(max_steps=500)
+    router = Router([
+        EngineReplica(ServingEngine(model, engine_id="card-p", **kw),
+                      role="prefill"),
+        EngineReplica(ServingEngine(model, engine_id="card-d", **kw),
+                      role="decode")])
+    grids = [router.submit(p, 16, **k) for p, k in reqs]
+    fleet = router.run(max_steps=1000)
+    assert router.counters()["handoffs"] == len(reqs)
+    assert router.replica("card-p").engine.metrics.requests_transferred \
+        == len(reqs)
+    tie_rel = chip_smoke.TIE_ERR_FACTOR * chip_smoke.bf16_rel_err(
+        model, f32, reqs[3][0])
+    chip_smoke.check_identity(
+        f32, ([(r, p) for r, (p, _) in zip(rids, reqs)], one),
+        ([(g, p) for g, (p, _) in zip(grids, reqs)], fleet), reqs,
+        "card disaggregated handoff", tie_rel)
+
+
+def test_transfer_round_trip_makes_no_host_sync_after_the_drain(dev):
+    """A sampled stream mid-decode leaves one card engine and joins
+    another: after the pipeline drain (``_flush_pending``, the one
+    sync), ``transfer_out`` and ``transfer_in`` run under
+    ``set_sync_debug_mode("error")``; the stream keeps its tokens and its
+    key and runs to its budget on the second engine, and the first
+    engine's other stream finishes there."""
+    model = _small_lm(dev, num_kv_heads=2)
+    kw = dict(num_slots=2, max_len=64, page_len=16, device=dev,
+              fused_sampling=True)
+    src = ServingEngine(model, engine_id="card-src", **kw)
+    dst = ServingEngine(model, engine_id="card-dst", **kw)
+    prompt = (np.arange(20) * 7 + 3) % 97
+    rid = src.submit(prompt, 24, temperature=0.8, seed=7)
+    other = src.submit(prompt[:11], 24)
+    while len(src[rid].generated) < 5:
+        src.step()
+    assert src._pending is not None
+    src._flush_pending()
+    key = src._keys[src[rid].slot].copy()
+    kept = list(src[rid].generated)
+    with chip_smoke._SyncErrors():
+        req = src.transfer_out(rid)
+        new = dst.transfer_in(req)
+    assert req is not None and req.generated == kept
+    np.testing.assert_array_equal(req.rng, key)
+    moved = dst.run(max_steps=300)[new]
+    rest = src.run(max_steps=300)
+    assert len(moved) == len(prompt) + 24
+    np.testing.assert_array_equal(moved[:len(prompt) + len(kept)],
+                                  np.concatenate([prompt, kept]))
+    assert len(rest[other]) == 11 + 24
+    assert src.metrics.requests_transferred == 1

@@ -84,9 +84,9 @@ def test_serving_metrics_percentiles_equal_jax_past_the_reservoir():
     ps, js = pm.summary(), jm.summary()
     got, want, only = _common(ps, js)
     assert got == want
-    # the port's extra key and JAX's router-only counter
-    assert sorted(only) == ["requests_transferred",
-                            "speculation.path_acceptance_rate"]
+    # the port's one extra key (requests_transferred is on both sides)
+    assert sorted(only) == ["speculation.path_acceptance_rate"]
+    assert ps["requests_transferred"] == js["requests_transferred"] == 0
     assert ps["ttft_s"]["p50"] > 0.05          # the second phase shows
     assert ps["ttft_s"]["p99"] > 0.075
     assert pm.registry.snapshot() == jm.registry.snapshot()
@@ -463,10 +463,9 @@ def _replay_result(obs_mod, slo_mod, metrics_cls):
                 sts[eid] = slo.evaluate(m)
             clock.tick(0.01)
         for eid, (m, _, _) in engines.items():
-            # the keys only one package has (the port's path acceptance,
-            # JAX's router transfers) stay out of the comparison
+            # the key only the port has (its path acceptance) stays out
+            # of the comparison
             sums[eid] = m.summary()
-            sums[eid].pop("requests_transferred", None)
             sums[eid]["speculation"].pop("path_acceptance_rate", None)
         phases.append(_Phase(name, pi * 12, pi * 12 + 12, t0, clock(),
                              sts, sums))
