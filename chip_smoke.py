@@ -336,6 +336,24 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     key its dead slot's key mirror byte for byte, the dead and the
     retired engines' memory freed; per-phase wall, steps, tokens/s,
     sheds and TTFT/TPOT percentiles.
+34. the data plane and job deployment (``data_phase``): the host data
+    library built (``native.native_status()``); (a) BASELINE config 4 at
+    the Criteo schema (``CRITEO_ROWS`` seeded rows: the counts a
+    tab-separated file read by ``Dataset.from_csv`` with the default
+    ``sep=","``, 26 categorical columns joined from ``from_iterable``,
+    ``log1p`` + ``MinMaxTransformer``, ``HashingTransformer(4096)``,
+    ``VectorAssemblerTransformer``, the native shuffle), each stage's
+    host seconds, the epoch permutation's GB/s through ``native.gather``
+    against numpy's, DOWNPOUR over 4 stacked workers of
+    ``zoo.wide_and_deep(4096, (256, 128))`` for 2 epochs (worker steps/s,
+    rows/s, a warm stacked step's wall and busy share, peak memory),
+    ``ModelPredictor`` rows/s, accuracy, macro-F1 and AUC; (b) the 218M
+    LM trained by ``SingleTrainer`` on 16 of phase 7's rows taken by
+    ``from_torch`` from a ``DataLoader``, losses bitwise the same rows'
+    through ``Dataset.from_arrays`` (12 launches of each flash kernel
+    and one K7 a step); (c) a ``Punchcard`` job of two processes on
+    gloo, each training on the card (equal digests), a wrong secret
+    refused, a job retried once; (d) the four ported examples.
 
 Every serving phase runs the engine's default loop, ``overlap=True``;
 phase 20's teacher-forced runs use the synchronous one. Weights are
@@ -368,8 +386,14 @@ import torch
 import torch.nn.functional as F
 
 from distkeras_tpu_torch import kernels, obs
-from distkeras_tpu_torch.data import Dataset, ShardedDataset
-from distkeras_tpu_torch.inference import ModelPredictor, StreamingPredictor
+from distkeras_tpu_torch import data as port_data
+from distkeras_tpu_torch.data import (Dataset, LabelIndexTransformer,
+                                      ShardedDataset, native)
+from distkeras_tpu_torch.deploy import (Job, JobSpec, Punchcard,
+                                        PunchcardClient)
+from distkeras_tpu_torch.inference import (AccuracyEvaluator, Evaluator,
+                                           ModelPredictor,
+                                           StreamingPredictor)
 from distkeras_tpu_torch.models import (Model, Sequential,
                                         collect_aux_losses, zoo)
 from distkeras_tpu_torch.models.attention import TransformerBlock
@@ -422,7 +446,8 @@ from distkeras_tpu_torch.ops.sampling import (MAX_BOUNDARY_PARTINGS,
                                               sample_epilogue,
                                               sample_epilogue_reference,
                                               sample_tokens)
-from distkeras_tpu_torch.parallel import (SingleTrainer, TrainCarry,
+from distkeras_tpu_torch.parallel import (DOWNPOUR, SingleTrainer,
+                                          TrainCarry,
                                           make_train_step, shard_epoch_data,
                                           value_and_grad)
 from distkeras_tpu_torch.parallel.engine import (
@@ -7288,6 +7313,540 @@ def router_phase(dev, card, tie_rel):
             "serving_router_chaos": chaos_launches}
 
 
+# --- phase 34: the data plane and job deployment ------------------------------
+
+#: BASELINE config 4's stand-in at the Criteo Display Advertising
+#: Challenge schema (Kaggle 2014, ``train.txt``: a label, 13 integer
+#: counts I1-I13 and 26 categorical columns C1-C26 of 8-hex-digit hashes,
+#: tab separated, ~25.6% positives), cut to this many rows (a day of
+#: Criteo holds ~45M)
+CRITEO_ROWS = 65536
+CRITEO_COUNTS, CRITEO_CATS = 13, 26
+#: the smallest and largest vocabulary of a categorical column, and the
+#: exponent of the Zipf law its values are drawn from
+CRITEO_VOCAB = (4, 100_000)
+CRITEO_ZIPF = 1.1
+CRITEO_POSITIVE = 0.25
+#: the wide half's hash buckets and the deep half's hidden widths
+CRITEO_BUCKETS = 4096
+CRITEO_DEEP = (256, 128)
+CRITEO_WORKERS, CRITEO_BATCH, CRITEO_WINDOW, CRITEO_EPOCHS = 4, 512, 5, 2
+CRITEO_LR = 1e-2
+#: the trained model's AUC on its training rows must clear this (the CPU
+#: rehearsal of the same seed at the full size: see PERF.md)
+CRITEO_AUC_MIN = 0.8
+#: phase 34 (b): the 218M LM through ``from_torch``: rows taken from a
+#: DataLoader of phase 7's rows, and the loader's batch
+FROM_TORCH_ROWS, FROM_TORCH_LOADER_BATCH = 16, 8
+#: the argument lists of the four ported examples, as the JAX package's
+#: tests/test_examples.py runs their JAX counterparts, and what each must
+#: reach: (module, argv, check on (return value, printed text))
+DATA_EXAMPLES = (
+    ("mnist_workflow", ["--trainer", "aeasgd", "--epochs", "2",
+                        "--n", "2048"], lambda acc, out: acc > 0.75),
+    ("criteo_wide_deep", [], lambda acc, out: acc > 0.85),
+    ("higgs_physics", ["--epochs", "4", "--n", "8192"],
+     lambda acc, out: acc > 0.8 and "ROC-AUC" in out),
+    ("streaming_inference", [],
+     lambda acc, out: "streamed 10624 rows" in out),
+)
+#: the script each process of phase 34 (c)'s job runs: argv is the CSV
+#: and the device. It joins the job's gloo group, all-reduces its rank +
+#: 1 on the host, reads the CSV, trains one ``SingleTrainer`` epoch of an
+#: MLP on ``log1p`` of the counts and prints a digest of its predictions
+DEPLOY_SCRIPT = '''
+import time
+t_start = time.time()
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from distkeras_tpu_torch import kernels
+from distkeras_tpu_torch.data import Dataset
+from distkeras_tpu_torch.deploy import initialize_from_env
+from distkeras_tpu_torch.models import Model, zoo
+from distkeras_tpu_torch.parallel import SingleTrainer
+
+info = initialize_from_env()
+rank = info["process_id"]
+print(f"FIRST {rank} {t_start:.6f} {time.time():.6f}", flush=True)
+total = torch.tensor([float(rank + 1)])
+dist.all_reduce(total)
+device = sys.argv[2]
+assert device == "cpu" or torch.cuda.is_available(), "no card"
+ds = Dataset.from_csv(sys.argv[1], label_col_index=0)
+X = np.log1p(ds["features"])
+ds = ds.with_column("features", X)
+model = Model.build(zoo.mlp((64,), num_classes=2), (X.shape[1],), seed=0,
+                    device=device)
+kernels.reset_launch_counts()
+tr = SingleTrainer(model, worker_optimizer="adam", learning_rate=1e-3,
+                   loss="sparse_categorical_crossentropy_from_logits",
+                   batch_size=512, num_epoch=1)
+trained = tr.train(ds)
+prng = kernels.launch_counts()["prng"]
+digest = float(np.asarray(trained.predict(X[:1024]), np.float64).sum())
+print(f"DIGEST {rank} {total.item()} {digest!r} {prng} "
+      f"{info['num_processes']}", flush=True)
+'''
+#: phase 34 (c)'s retry job: both ranks fail on the first attempt (a
+#: marker file tells the attempts apart, read between two barriers)
+RETRY_SCRIPT = '''
+import os, sys
+import torch.distributed as dist
+from distkeras_tpu_torch.deploy import initialize_from_env
+
+info = initialize_from_env()
+dist.barrier()
+first = not os.path.exists(sys.argv[1])
+dist.barrier()
+if first:
+    if info["process_id"] == 0:
+        open(sys.argv[1], "w").close()
+    sys.exit(1)
+print(f"RECOVERED {info['process_id']}", flush=True)
+'''
+
+
+def criteo_standin(path, rows=CRITEO_ROWS, seed=SEED):
+    """Config 4's rows from ``seed``: writes the numeric part (label, then
+    I1-I13 as heavy-tailed log-normal counts, a missing count written as
+    0) to ``path`` tab separated, and returns the categorical part as
+    dict rows ``{"C1": "1f0e3dad", ...}`` (Zipf draws over vocabularies
+    of 4 to 100,000 hashed values a column). The label thresholds a
+    logistic model over both parts at ``CRITEO_POSITIVE`` positives."""
+    rs = np.random.RandomState(seed)
+    mu = rs.uniform(0.0, 3.0, CRITEO_COUNTS)
+    sigma = rs.uniform(0.5, 2.0, CRITEO_COUNTS)
+    counts = np.round(rs.lognormal(mu, sigma, (rows, CRITEO_COUNTS)))
+    missing = rs.rand(rows, CRITEO_COUNTS) < rs.uniform(0.0, 0.5,
+                                                        CRITEO_COUNTS)
+    counts[missing] = 0
+    vocab = np.round(np.geomspace(*CRITEO_VOCAB, CRITEO_CATS)).astype(int)
+    rs.shuffle(vocab)
+    score = np.log1p(counts) @ (0.3 * rs.randn(CRITEO_COUNTS))
+    cats = []
+    for v in vocab:
+        p = np.arange(1, v + 1, dtype=np.float64) ** -CRITEO_ZIPF
+        idx = rs.choice(v, rows, p=p / p.sum())
+        names = np.char.mod("%08x", rs.randint(0, 2 ** 32, v,
+                                               dtype=np.int64))
+        cats.append(names[idx])
+        score += 0.5 * rs.randn(v)[idx]
+    score += rs.logistic(size=rows)
+    label = score > np.quantile(score, 1.0 - CRITEO_POSITIVE)
+    np.savetxt(path, np.column_stack([label, counts]), fmt="%d",
+               delimiter="\t")
+    keys = [f"C{j + 1}" for j in range(CRITEO_CATS)]
+    return [dict(zip(keys, vals)) for vals in zip(*cats)]
+
+
+def criteo_ingest(pkg, path, cat_rows, buckets=CRITEO_BUCKETS, seed=SEED,
+                  times=None):
+    """Config 4's ingest through the data package ``pkg`` (``data`` of
+    the port, or a module with the same names): ``Dataset.from_csv`` of
+    the tab-separated counts with the default ``sep=","``, the
+    categorical columns joined from ``from_iterable``, ``log1p`` and
+    ``MinMaxTransformer`` on the counts (the deep half),
+    ``HashingTransformer`` over C1-C26 (the wide half),
+    ``VectorAssemblerTransformer(["wide", "deep"])`` and the shuffle.
+    Returns ``Dataset({"features": [rows, buckets + 13] float32,
+    "label"})``; ``times`` gets each stage's host seconds."""
+    times = {} if times is None else times
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    ds = stage("parse", lambda: pkg.Dataset.from_csv(path,
+                                                     label_col_index=0))
+
+    def join():
+        cats = pkg.from_iterable(cat_rows)
+        out = ds
+        for col in cats.columns:
+            out = out.with_column(col, cats[col])
+        return out
+
+    ds = stage("join", join)
+    ds = stage("log_minmax", lambda: pkg.MinMaxTransformer(
+        input_col="deep_log", output_col="deep")(
+            ds.map_column("features", np.log1p, "deep_log")))
+    ds = stage("hashing", lambda: pkg.HashingTransformer(
+        buckets, [f"C{j + 1}" for j in range(CRITEO_CATS)],
+        output_col="wide")(ds))
+    ds = stage("assembly", lambda: pkg.VectorAssemblerTransformer(
+        ["wide", "deep"])(ds).select(["features", "label"]))
+    return stage("shuffle", lambda: ds.shuffle(seed))
+
+
+class _NativeGathers:
+    """While entered, counts the host library's gathers (calls of its C
+    ``dkt_gather``) and the ``native.gather`` calls that took numpy's
+    path; ``bytes`` sums the C path's rows."""
+
+    def __enter__(self):
+        lib = native._load()
+        if lib is None:
+            raise AssertionError(f"no host library: "
+                                 f"{native.native_status()}")
+        self.lib, self.c_calls, self.numpy_calls, self.bytes = lib, 0, 0, 0
+        self._c, self._gather = lib.dkt_gather, native.gather
+
+        def c_gather(src, perm, out, n, row_bytes, threads):
+            self.c_calls += 1
+            self.bytes += n * row_bytes
+            return self._c(src, perm, out, n, row_bytes, threads)
+
+        def gather(src, perm, **kw):
+            calls = self.c_calls
+            out = self._gather(src, perm, **kw)
+            self.numpy_calls += self.c_calls == calls
+            return out
+
+        lib.dkt_gather, native.gather = c_gather, gather
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.dkt_gather, native.gather = self._c, self._gather
+
+
+def stacked_step_costs(model, dev, X, Y, loss, opt, workers, n=10):
+    """A warm stacked step (each of ``workers`` stacked workers' train
+    step on ``(X, Y)``) on a fresh engine state of ``model``: its wall
+    ms (host clock to a synchronize, ``n`` steps), and from
+    ``torch.profiler`` over one step the device's busy ms and the CUDA
+    kernels it launched."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = DistributedEngine(model.module, loss, opt, DownpourAlgo(), None,
+                            EngineConfig(num_workers=workers,
+                                         window=CRITEO_WINDOW,
+                                         amortized=True))
+    state = eng.init_state(model.params, prng.key(SEED, dev))
+    w = state["worker"]
+    stack = WorkerStack(eng.train_step, w["params"], w["opt"], w["rng"])
+    X, Y = torch.from_numpy(X).to(dev), torch.from_numpy(Y).to(dev)
+
+    def step():
+        return [stack.step(i, X, Y) for i in range(workers)]
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.self_device_time_total > 0]
+    return (wall, sum(e.self_device_time_total for e in kern) / 1e3,
+            sum(e.count for e in kern))
+
+
+def criteo_phase(dev, card, tmp):
+    """Phase 34 (a): BASELINE config 4 end to end. Returns the DOWNPOUR
+    run's launch counts."""
+    path = os.path.join(tmp, "criteo_standin.tsv")
+    t0 = time.perf_counter()
+    cat_rows = criteo_standin(path)
+    made = time.perf_counter() - t0
+    times = {}
+    with _NativeGathers() as ingest_gathers:
+        ds = criteo_ingest(port_data, path, cat_rows, times=times)
+    del cat_rows
+    gc.collect()
+    X, y = ds["features"], ds["label"]
+    mb = os.path.getsize(path) / 1e6
+    print(f"phase 34 (a) config 4 ingest on the host ({CRITEO_ROWS} rows, "
+          f"{mb:.1f} MB of counts made in {made:.2f} s): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+          + f"; parse {mb / times['parse']:.1f} MB/s; features "
+          f"{list(X.shape)} {X.dtype} ({X.nbytes / 1e9:.2f} GB), "
+          f"{100 * y.mean():.1f}% positives; C gathers in the ingest "
+          f"{ingest_gathers.c_calls} ({ingest_gathers.bytes / 1e9:.2f} GB), "
+          f"numpy's path {ingest_gathers.numpy_calls}", flush=True)
+    if X.shape != (CRITEO_ROWS, CRITEO_BUCKETS + CRITEO_COUNTS) \
+            or ingest_gathers.c_calls < 1 or not np.isfinite(X).all():
+        raise AssertionError("phase 34 (a): the ingest's features or its "
+                             "native shuffle are wrong")
+    perm = np.random.RandomState(SEED + 34).permutation(len(X))
+    rates = {"native": [], "numpy": []}
+    for _ in range(3):
+        for which, fn in (("native", lambda: native.gather(X, perm)),
+                          ("numpy", lambda: X[perm])):
+            t0 = time.perf_counter()
+            out = fn()
+            rates[which].append(2 * X.nbytes / (time.perf_counter() - t0)
+                                / 1e9)
+            del out
+    print(f"phase 34 (a) the epoch permutation of {X.nbytes / 1e9:.2f} GB "
+          f"(read + write), interleaved: native.gather "
+          + " / ".join(f"{r:.2f}" for r in rates["native"])
+          + " GB/s; numpy src[perm] "
+          + " / ".join(f"{r:.2f}" for r in rates["numpy"]) + " GB/s "
+          f"({os.cpu_count()} host cores)", flush=True)
+
+    model = Model.build(zoo.wide_and_deep(CRITEO_BUCKETS, CRITEO_DEEP, 2),
+                        (CRITEO_BUCKETS + CRITEO_COUNTS,), seed=SEED,
+                        device=dev)
+    tr = DOWNPOUR(model, num_workers=CRITEO_WORKERS,
+                  batch_size=CRITEO_BATCH,
+                  communication_window=CRITEO_WINDOW,
+                  commit_scale=1.0 / CRITEO_WORKERS, num_epoch=CRITEO_EPOCHS,
+                  worker_optimizer="adam", learning_rate=CRITEO_LR,
+                  loss=TRAIN_LOSS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _NativeGathers() as epoch_gathers, warnings.catch_warnings():
+        # the engine's auto rule takes the amortized program (staggered
+        # commits batch at block boundaries), as JAX's does
+        warnings.filterwarnings("ignore", "amortized two-level scan")
+        trained = tr.train(ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = tr.get_history().losses()
+    steps = CRITEO_EPOCHS * CRITEO_ROWS // (CRITEO_WORKERS * CRITEO_BATCH)
+    worker_steps = steps * CRITEO_WORKERS
+    if losses.shape != (steps, CRITEO_WORKERS) \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"phase 34 (a): expected {steps} x "
+                             f"{CRITEO_WORKERS} finite losses, got "
+                             f"{losses.shape}")
+    if epoch_gathers.c_calls < CRITEO_EPOCHS:
+        raise AssertionError("phase 34 (a): the epoch shuffle did not run "
+                             "the host library's gather")
+    step_ms, busy_ms, step_kernels = stacked_step_costs(
+        model, dev, X[:CRITEO_BATCH], y[:CRITEO_BATCH], get_loss(TRAIN_LOSS),
+        get_optimizer("adam", learning_rate=CRITEO_LR), CRITEO_WORKERS)
+    print(f"phase 34 (a) DOWNPOUR on {card}: {CRITEO_WORKERS} stacked "
+          f"workers of zoo.wide_and_deep({CRITEO_BUCKETS}, {CRITEO_DEEP}) "
+          f"float32 ({model.num_params():,} parameters), B{CRITEO_BATCH}, "
+          f"window {CRITEO_WINDOW}, {steps} stacked steps "
+          f"({worker_steps} worker steps) in {wall:.2f} s: "
+          f"{worker_steps / wall:.1f} worker steps/s, "
+          f"{worker_steps * CRITEO_BATCH / wall:,.0f} rows/s; loss "
+          f"{losses[0].mean():.4f} -> {losses[-1].mean():.4f}; C gathers "
+          f"{epoch_gathers.c_calls} ({epoch_gathers.bytes / 1e9:.2f} GB); "
+          f"a warm stacked step {step_ms:.2f} ms wall, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / step_ms:.1f}%), "
+          f"{step_kernels} CUDA kernels; K7 {launches['prng']} "
+          f"({launches['prng'] / worker_steps:.3f} a worker step); peak "
+          f"device memory {peak / 2 ** 30:.2f} GiB above "
+          f"{base / 2 ** 30:.2f}", flush=True)
+    del tr
+    gc.collect()
+    t0 = time.perf_counter()
+    scored = ModelPredictor(trained, output_col="prediction",
+                            batch_size_per_device=2048).predict(ds)
+    pred_s = time.perf_counter() - t0
+    scored = LabelIndexTransformer(input_col="prediction",
+                                   output_col="predicted_index")(scored)
+    acc = AccuracyEvaluator(prediction_col="predicted_index").evaluate(
+        scored)
+    f1_ = Evaluator("f1", prediction_col="prediction").evaluate(scored)
+    roc = Evaluator("auc", prediction_col="prediction").evaluate(scored)
+    print(f"phase 34 (a) ModelPredictor: {CRITEO_ROWS} rows in {pred_s:.2f} "
+          f"s ({CRITEO_ROWS / pred_s:,.0f} rows/s); accuracy {acc:.4f} "
+          f"(all-negative {1 - y.mean():.4f}), macro-F1 {f1_:.4f}, AUC "
+          f"{roc:.4f} (min {CRITEO_AUC_MIN})", flush=True)
+    if not roc > CRITEO_AUC_MIN:
+        raise AssertionError(f"phase 34 (a): AUC {roc} <= {CRITEO_AUC_MIN}")
+    del model, trained, ds, scored, X, y
+    gc.collect()
+    return launches, path
+
+
+def lm_from_torch_phase(dev, card):
+    """Phase 34 (b): the 218M LM trained on rows that ``from_torch``
+    took from a ``DataLoader``, against the same rows through
+    ``Dataset.from_arrays``: exactly 12 launches of each flash kernel and
+    one K7 a step, the losses bitwise equal. Returns the launch counts
+    of the ``from_torch`` run."""
+    from torch.utils.data import DataLoader, TensorDataset
+    X, Y = training_data(LM_CFG["vocab"]).arrays()
+    loader = DataLoader(TensorDataset(torch.from_numpy(X),
+                                      torch.from_numpy(Y)),
+                        batch_size=FROM_TORCH_LOADER_BATCH)
+    t0 = time.perf_counter()
+    adapted = port_data.from_torch(loader, limit=FROM_TORCH_ROWS)
+    adapt_s = time.perf_counter() - t0
+    n = FROM_TORCH_ROWS
+    if not (np.array_equal(adapted["features"], X[:n])
+            and np.array_equal(adapted["label"], Y[:n])
+            and adapted["features"].dtype == np.int64):
+        raise AssertionError("phase 34 (b): from_torch changed the rows")
+    steps = n // TRAIN_BATCH
+    runs = []
+    for label, source in (("from_torch", adapted),
+                          ("from_arrays", Dataset.from_arrays(
+                              X[:n].copy(), Y[:n].copy()))):
+        tr = lm_trainer(build_lm(dev))
+        with _NativeGathers() as gathers:
+            launches = check_trainer_launches(
+                f"phase 34 (b) {label}", counted_train(tr, source), steps)
+        runs.append((tr.get_history().losses(), launches,
+                     gathers.numpy_calls, gathers.c_calls))
+        del tr
+        gc.collect()
+    same = np.array_equal(runs[0][0], runs[1][0])
+    print(f"phase 34 (b) the 218M LM on {card} through from_torch "
+          f"(DataLoader batch {FROM_TORCH_LOADER_BATCH}, limit {n}: "
+          f"{adapt_s * 1e3:.1f} ms): {steps} SingleTrainer steps of "
+          f"B{TRAIN_BATCH}, losses {np.array2string(runs[0][0], precision=4)}"
+          f" bitwise the from_arrays run's: {same}; launches "
+          f"{runs[0][1]}; the shuffle's gathers: numpy's path "
+          f"{runs[0][2]}, C {runs[0][3]} (below the 4 MiB threshold)",
+          flush=True)
+    if not same:
+        raise AssertionError("phase 34 (b): the from_torch losses differ "
+                             "from the from_arrays run's")
+    return runs[0][1]
+
+
+def _job_lines(logs, tag):
+    return [line.split() for log in logs for line in log.splitlines()
+            if line.startswith(tag)]
+
+
+def deploy_phase(dev, card, tmp, csv_path):
+    """Phase 34 (c): a ``Punchcard`` runs a job of two processes of
+    ``DEPLOY_SCRIPT`` (gloo all-reduce, the CSV, a ``SingleTrainer`` epoch
+    on ``dev``): equal digests; a wrong secret is refused; a job failing
+    its first attempt succeeds with ``max_retries=1``. Returns the K7
+    launches summed over the two processes."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmp, "deploy_worker.py")
+    with open(script, "w") as f:
+        f.write(DEPLOY_SCRIPT)
+    env = {"PYTHONPATH": repo}
+    daemon = Punchcard(secret="phase34")
+    port = daemon.start()
+    try:
+        client = PunchcardClient("127.0.0.1", port, "phase34")
+        t_submit = time.time()
+        job = client.submit(JobSpec(script=script,
+                                    args=[csv_path, dev.type],
+                                    num_processes=2, env=env, timeout=120,
+                                    name="phase34"))
+        st = client.wait(job, timeout=150, poll=0.05)
+        done = time.time() - t_submit
+        try:
+            PunchcardClient("127.0.0.1", port, "wrong").list_jobs()
+            refused = False
+        except RuntimeError as e:
+            refused = "authentication" in str(e)
+    finally:
+        daemon.stop()
+    logs = (st.get("result") or {}).get("logs", [])
+    if st["state"] != "done":
+        raise AssertionError(f"phase 34 (c): the job ended {st['state']}: "
+                             + "\n".join(logs))
+    first = sorted(_job_lines(logs, "FIRST"))
+    digests = sorted(_job_lines(logs, "DIGEST"))
+    if len(digests) != 2 or digests[0][3] != digests[1][3] \
+            or any(d[2] != "3.0" for d in digests) or not refused:
+        raise AssertionError(f"phase 34 (c): digests {digests}, wrong "
+                             f"secret refused {refused}")
+    marker = os.path.join(tmp, "retry_marker")
+    retry_script = os.path.join(tmp, "retry_worker.py")
+    with open(retry_script, "w") as f:
+        f.write(RETRY_SCRIPT)
+    t0 = time.perf_counter()
+    res = Job(JobSpec(script=retry_script, args=[marker], num_processes=2,
+                      env=env, timeout=60, max_retries=1)).run()
+    retry_total = time.perf_counter() - t0
+    if not (res.ok and res.attempts == 2
+            and len(_job_lines(res.logs, "RECOVERED")) == 2):
+        raise AssertionError(f"phase 34 (c): the retried job: ok {res.ok}, "
+                             f"attempts {res.attempts}: {res.logs}")
+    prng_total = sum(int(d[4]) for d in digests)
+    print(f"phase 34 (c) deploy on {card}: a Punchcard job of 2 processes "
+          f"(gloo, all-reduce {digests[0][2]}), submit to done {done:.2f} "
+          f"s; each process from the submit to its start / to its group "
+          + ", ".join(f"{float(f[2]) - t_submit:.2f} / "
+                      f"{float(f[3]) - t_submit:.2f} s" for f in first)
+          + f"; digests equal ({digests[0][3]}); K7 {prng_total} in both; "
+          f"a wrong secret refused; the retried job ok in 2 attempts, "
+          f"{retry_total:.2f} s ({retry_total - res.wall_seconds:.2f} s "
+          f"for the failed attempt)", flush=True)
+    return {"prng": prng_total}
+
+
+def examples_phase(dev, card):
+    """Phase 34 (d): the four ported examples in this process on ``dev``
+    at ``DATA_EXAMPLES``'s arguments, each above its threshold."""
+    import importlib
+    import io
+    walls = []
+    for name, argv, ok in DATA_EXAMPLES:
+        mod = importlib.import_module(f"distkeras_tpu_torch.examples.{name}")
+        saved = sys.argv
+        sys.argv = [name, *argv, "--device", dev.type]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                result = mod.main()
+        finally:
+            sys.argv = saved
+        walls.append(f"{name} {time.perf_counter() - t0:.1f} s")
+        out = buf.getvalue()
+        last = out.strip().splitlines()[-1]
+        print(f"phase 34 (d) {name}: {last}", flush=True)
+        if not ok(result, out):
+            raise AssertionError(f"phase 34 (d): {name} returned {result}:"
+                                 f"\n{out}")
+        gc.collect()
+    print(f"phase 34 (d) examples on {card}: " + ", ".join(walls),
+          flush=True)
+
+
+def data_phase(dev, card):
+    """Phase 34: the data plane and job deployment on the card. Returns
+    each path's launch counts."""
+    status = native.native_status()
+    print(f"phase 34 host data library: {status}", flush=True)
+    if not status.startswith("native:"):
+        raise AssertionError(f"phase 34: the host library did not build: "
+                             f"{status}")
+    tmp = tempfile.mkdtemp(prefix="dkt-phase34-")
+    try:
+        t = [time.perf_counter()]
+        criteo, csv_path = criteo_phase(dev, card, tmp)
+        gc.collect()
+        t.append(time.perf_counter())
+        lm = lm_from_torch_phase(dev, card)
+        gc.collect()
+        t.append(time.perf_counter())
+        deploy = deploy_phase(dev, card, tmp, csv_path)
+        gc.collect()
+        t.append(time.perf_counter())
+        examples_phase(dev, card)
+        gc.collect()
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    d = np.diff(t)
+    print(f"phase 34 took {t[-1] - t[0]:.1f} s: (a) {d[0]:.1f}, (b) "
+          f"{d[1]:.1f}, (c) {d[2]:.1f}, (d) {d[3]:.1f}", flush=True)
+    return {"data_criteo_downpour": criteo, "data_lm_from_torch": lm,
+            "data_deploy": deploy}
+
+
 def _expert_elements(wq) -> int:
     """Elements of a quantized stacked expert leaf, unpacked."""
     return wq["q"].numel() if "q" in wq else 2 * wq["q4"].numel()
@@ -7499,6 +8058,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     gc.collect()
     router_launches = router_phase(dev, card, tie_rel)
+    gc.collect()
+    data_launches = data_phase(dev, card)
 
     by_path = {name: {} for name in kernels.SOURCES}
     for path, c in {**slab_launches, **moe_wq_launches,
@@ -7559,6 +8120,10 @@ def main() -> int:
     for path, c in router_launches.items():
         for name in ROUTER_KERNELS:
             if c[name]:
+                by_path[name][path] = c[name]
+    for path, c in data_launches.items():
+        for name in TRAINER_KERNELS:
+            if c.get(name):
                 by_path[name][path] = c[name]
 
     def entry(name, source, replaces, rows, path):

@@ -13,7 +13,9 @@ instead of spread over a mesh. Differences:
   an explicit ``num_workers`` has no device limit, since the workers
   are stacked on one device;
 * ``mesh=`` raises ``NotImplementedError`` naming the multi-device half
-  of ROADMAP Queue 1 item 10.
+  of ROADMAP Queue 1 item 10, and so does a trainer built in a process
+  group of more than one process (``deploy.initialize_from_env``): its
+  workers would cross processes.
 
 Each epoch passes the ``train.epoch`` chaos point (JAX :133) and lands
 a flight-recorder entry (``epoch_exit``).
@@ -50,6 +52,15 @@ from distkeras_tpu_torch.utils.prefetch import Prefetcher
 from distkeras_tpu_torch.parallel.worker import shard_epoch_data
 
 
+def process_count() -> int:
+    """The processes of this job's ``torch.distributed`` group (1 when
+    none is up): JAX's ``jax.process_count()``."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
 def default_num_workers(device) -> int:
     """The devices of ``device``'s type: JAX's ``len(jax.devices())``."""
     dev = resolve_device(device)
@@ -78,6 +89,12 @@ class DistributedTrainer(Trainer):
             raise NotImplementedError(
                 f"mesh= is not ported yet (the port stacks the workers on "
                 f"one card): {MESH_ITEM}")
+        procs = process_count()
+        if procs > 1:
+            raise NotImplementedError(
+                f"{type(self).__name__} in a group of {procs} processes "
+                f"(deploy.initialize_from_env): its workers would cross "
+                f"processes, which needs the mesh: {MESH_ITEM}")
         self.mesh = None
         #: the engine of the last ``train`` (its commit counts)
         self.engine: Optional[DistributedEngine] = None

@@ -259,9 +259,11 @@ def run_epoch(train_step: Callable, carry: TrainCarry, Xs, Ys):
 
 def shard_epoch_data(X, Y, num_workers: int, batch_size: int, perm=None):
     """Host side: one epoch as ``[S, num_workers, batch, ...]`` (the
-    remainder is dropped)."""
+    remainder is dropped). The permutation is the host library's
+    multithreaded gather (``data.native.gather``), as in JAX :242."""
     if perm is not None:
-        X, Y = X[perm], Y[perm]
+        from distkeras_tpu_torch.data import native
+        X, Y = native.gather(X, perm), native.gather(Y, perm)
     per_step = num_workers * batch_size
     S = len(X) // per_step
     n = S * per_step

@@ -6,6 +6,7 @@ package's test configuration:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import os
 import sys
 
 import numpy as np
@@ -2090,3 +2091,63 @@ def test_transfer_round_trip_makes_no_host_sync_after_the_drain(dev):
                                   np.concatenate([prompt, kept]))
     assert len(rest[other]) == 11 + 24
     assert src.metrics.requests_transferred == 1
+
+
+# --- the data plane and job deployment (phase 34) ---------------------------
+
+
+def test_host_library_runs_the_shuffle_and_the_epoch_stack(dev,
+                                                           monkeypatch):
+    """The host library builds on the card's machine, and
+    ``Dataset.shuffle`` and ``shard_epoch_data`` run its C gather above
+    the 4 MiB threshold (rows bitwise numpy's)."""
+    from distkeras_tpu_torch.data import native
+    from distkeras_tpu_torch.parallel import shard_epoch_data
+    assert native.native_status().startswith("native:")
+    with chip_smoke._NativeGathers() as gathers:
+        rs = np.random.RandomState(0)
+        X = rs.randn(50_000, 32).astype(np.float32)
+        y = rs.randint(0, 2, 50_000)
+        sh = Dataset({"features": X, "label": y}).shuffle(3)
+        perm = np.random.RandomState(3).permutation(len(X))
+        np.testing.assert_array_equal(sh["features"], X[perm])
+        Xs, _, S = shard_epoch_data(X, y, 4, 64, perm)
+        np.testing.assert_array_equal(Xs.reshape(-1, 32),
+                                      X[perm][:S * 256])
+    assert gathers.c_calls == 2 and gathers.numpy_calls == 2
+
+
+def test_from_torch_lands_card_tensors_on_the_host(dev):
+    from torch.utils.data import DataLoader, TensorDataset
+    from distkeras_tpu_torch.data import from_torch
+    X = torch.arange(96, device=dev, dtype=torch.float32).reshape(32, 3)
+    y = torch.arange(32, device=dev)
+    for source in (TensorDataset(X, y),
+                   DataLoader(TensorDataset(X, y), batch_size=10),
+                   DataLoader(TensorDataset(X, y), batch_size=None)):
+        ds = from_torch(source, limit=20)
+        assert isinstance(ds["features"], np.ndarray)
+        np.testing.assert_array_equal(ds["features"], X[:20].cpu().numpy())
+        np.testing.assert_array_equal(ds["label"], y[:20].cpu().numpy())
+
+
+def test_two_process_job_trains_on_the_card_with_equal_digests(dev,
+                                                              tmp_path):
+    """Phase 34 (c)'s job without the daemon: two gloo ranks, each
+    training ``DEPLOY_SCRIPT``'s MLP on the card, print equal digests."""
+    from distkeras_tpu_torch.deploy import Job, JobSpec
+    cats = chip_smoke.criteo_standin(str(tmp_path / "c.tsv"), rows=4096)
+    assert len(cats) == 4096
+    script = tmp_path / "w.py"
+    script.write_text(chip_smoke.DEPLOY_SCRIPT)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = Job(JobSpec(script=str(script),
+                      args=[str(tmp_path / "c.tsv"), "cuda"],
+                      num_processes=2, env={"PYTHONPATH": repo},
+                      timeout=120)).run()
+    assert res.ok, res.logs
+    digests = sorted(chip_smoke._job_lines(res.logs, "DIGEST"))
+    assert [d[1] for d in digests] == ["0", "1"]
+    assert digests[0][2] == digests[1][2] == "3.0"
+    assert digests[0][3] == digests[1][3]
+    assert int(digests[0][4]) == 8     # K7: one split a step, 8 steps
