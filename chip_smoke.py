@@ -354,6 +354,19 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     and one K7 a step); (c) a ``Punchcard`` job of two processes on
     gloo, each training on the card (equal digests), a wrong secret
     refused, a job retried once; (d) the four ported examples.
+35. the examples' head dims and the ten one-card examples
+    (``examples_and_small_dims_phase``): (a) at head dims 8, 12 and 16,
+    each at the shapes of the example whose model gives it
+    (``SMALL_DIM_SHAPES``), K1f, K1dq and K1dkv (causal, the packed
+    example's window and ids), K2 and K2-q8 over generate()'s cache, K3
+    over float, int8 and int4 pages and K3-anc over a W=4 tree: each
+    against its plain version, a bitwise repeat for the decode kernels,
+    graph-replay times, the bound and SDPA as yardstick; (b) the ten
+    examples (``EXAMPLES``) in this process on the card, each with its
+    JAX test's checks and the launch counts of its run: exact for the
+    backward kernels (two layers a training step) and for K2 (two
+    layers a generated token past the first, each generate() call), at
+    least one for the kernels whose count the schedule decides.
 
 Every serving phase runs the engine's default loop, ``overlap=True``;
 phase 20's teacher-forced runs use the synchronous one. Weights are
@@ -747,7 +760,8 @@ def _paged_work(c, t, w, page_len, bits):
     row_pos = t[:, None].astype(np.int64) + np.arange(w)[None, :]
     lo = np.zeros_like(row_pos) if c["window"] is None else \
         np.maximum(0, row_pos - c["window"] + 1)
-    pages = int((np.minimum(row_pos.max(1), 128 * page_len - 1)
+    p_max = c["table"].shape[1]
+    pages = int((np.minimum(row_pos.max(1), p_max * page_len - 1)
                  // page_len - lo.min(1) // page_len + 1).sum())
     if "anc" in c:
         anc = c["anc"].cpu().numpy()
@@ -759,7 +773,7 @@ def _paged_work(c, t, w, page_len, bits):
     else:
         pairs = int((row_pos - lo + 1).sum())
     if bits is None:
-        page_bytes = hkv * page_len * d * 2                   # bf16
+        page_bytes = hkv * page_len * d * c["k"].element_size()
     else:
         page_bytes = hkv * page_len * (d * bits // 8 + 4)     # + scale
     nbytes = 2 * pages * page_bytes + 2 * c["q"].numel() * 4  # q in, out
@@ -1904,10 +1918,10 @@ def _sdpa_decode(c):
     """One SDPA call over the same cache (boolean mask of the valid
     positions; GQA through ``enable_gqa``): a yardstick only."""
     b, hkv, g = c["b"], c["hkv"], c["g"]
-    length = c["k"].shape[1]
-    q = c["q"].reshape(b, hkv * g, 1, 64)
-    k = c["k"].reshape(b, hkv, length, 64)
-    v = c["v"].reshape(b, hkv, length, 64)
+    length, d = c["k"].shape[1:]
+    q = c["q"].reshape(b, hkv * g, 1, d)
+    k = c["k"].reshape(b, hkv, length, d)
+    v = c["v"].reshape(b, hkv, length, d)
     lo, hi = valid_range(c["t"], c["window"])
     pos = torch.arange(length, device=q.device)
     mask = ((pos >= lo) & (pos <= hi))[None, :]
@@ -5724,9 +5738,10 @@ UNPRESSURED_PAGES = 4 * 2048 // 16
 #: phase 30's quantized MoE requests: B4 prompts of this many tokens
 MOE_WQ_PROMPT = 128
 #: the depth of phase 30's quantized MoE LM (``LM_CFG`` widths, 8
-#: experts): 6 of the 12 layers, so the whole script stays near 800 s
-#: (six engines quantize the tree and measure its error on the host)
-MOE_WQ_LAYERS = 6
+#: experts): 3 of the 12 layers, so the whole script stays well inside
+#: its time limit (six engines quantize the tree and measure its error
+#: on the host)
+MOE_WQ_LAYERS = 3
 #: the kernels a slab engine's decode never launches (its readout is
 #: plain PyTorch, as JAX's slab engine keeps its einsum path)
 ATTN_DECODE_KERNELS = ("decode_attention", "decode_attention_q8",
@@ -5953,8 +5968,8 @@ def offload_phase(model, card, tie_rel, reprefill_summary):
 def moe_wq_phase(dev, card):
     """(c) The all-MoE LM at ``MOE_WQ_LAYERS`` layers under int8 and int4
     weights: each
-    ``generate(weights_dtype=)`` on B4 prompts (K5 exactly 49 a decode
-    step, q/k/v/o a layer and the head, plus one prefill head; no K6a:
+    ``generate(weights_dtype=)`` on B4 prompts (K5 exactly 4 x layers + 1
+    a decode step, q/k/v/o and the head, plus one prefill head; no K6a:
     the experts are dequantized for the layer's own dense dispatch), then
     the dispatched engine (``weight_quant``, K6a) teacher-forced along
     those streams against a dense engine's forced run of the same
@@ -7847,6 +7862,435 @@ def data_phase(dev, card):
             "data_deploy": deploy}
 
 
+# --- phase 35: the ten one-card examples, and the attention kernels at ----
+# --- their head dims (8, 12, 16) ---------------------------------------------
+
+#: the head dims the examples' models give (d_model / heads), each at the
+#: shapes of the example named: dtype; the training attention (B, S, H,
+#: window, packed ids); generate()'s cache (B, L) for K2; the engine's
+#: pool (slots, pages a slot, page_len) for K3, Hkv = H
+SMALL_DIM_SHAPES = {
+    8: ("continuous_batching", torch.float32, (64, 11, 4, None, False),
+        (1, 22), (3, 3, 16)),
+    12: ("packed_moe_serving", torch.bfloat16, (48, 24, 4, 8, True),
+         (2, 12), (3, 3, 16)),
+    16: ("lm_generate", torch.float32, (128, 11, 4, None, False),
+         (64, 12), (2, 3, 16)),
+}
+#: float32 attention against the float32 plain version: two summation
+#: orders over at most a few dozen keys
+KERNEL_F32_SMALL_TOL = 2e-4
+
+
+def _peak(dtype):
+    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+
+
+def _attn_mask(sq, sk, causal, window, ids, dev):
+    """``[B or 1, 1, Sq, Sk]`` bool: the pairs the kernels admit."""
+    i = torch.arange(sq, device=dev)[:, None]
+    j = torch.arange(sk, device=dev)[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        m &= j <= i
+    if window is not None:
+        m &= j > i - window
+    m = m[None, None]
+    if ids is not None:
+        m = m & (ids[:, None, :, None] == ids[:, None, None, :])
+    return m
+
+
+def small_flash_rows(dev, d):
+    """K1f, K1dq and K1dkv at head dim ``d`` on its example's training
+    attention: the plain version's values, device times by graph replay,
+    the bound, and masked SDPA (forward; forward+backward minus forward)
+    as the yardstick."""
+    example, dtype, (b, s, h, window, packed), _, _ = SMALL_DIM_SHAPES[d]
+    g = torch.Generator(device="cpu").manual_seed(SEED + d)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+
+    q, k, v, dout = (rnd(b, s, h, d) for _ in range(4))
+    ids = None
+    if packed:
+        ids = torch.from_numpy(np.sort(np.random.RandomState(SEED + d)
+                                       .randint(0, 3, (b, s)), axis=1)
+                               .astype(np.int32)).to(dev)
+    kw = dict(scale=d ** -0.5, causal=True, window=window, layout="bshd")
+    label = f"D{d} {example} B{b} S{s} H{h} causal" + \
+        ("" if window is None else f" window={window}") + \
+        (" ids" if packed else "") + f" {str(dtype)[6:]}"
+    counts = kernels.launch_counts()
+    out, lse = flash_forward(q, k, v, segment_ids=ids, **kw)
+    delta = attention_delta(out, dout)
+    args = (q, k, v, lse, dout, delta, kw["scale"], True, window, "bshd")
+    got = launch_dq(*args, segment_ids=ids) + \
+        launch_dkv(*args, segment_ids=ids)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for name in TRAINING_KERNELS:
+        if after[name] != counts[name] + 1:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{after[name] - counts[name]} times")
+    ref, ref_lse = flash_forward_reference(q, k, v, segment_ids=ids, **kw)
+    tol = KERNEL_BF16_TOL if dtype == torch.bfloat16 else \
+        KERNEL_F32_SMALL_TOL
+    err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    gref = flash_backward_reference(q, k, v, out, lse, dout, delta,
+                                    segment_ids=ids, **kw)
+    rel = {n: (a.float() - r.float()).abs().max().item()
+           / r.float().abs().max().item()
+           for n, a, r in zip(("dq", "dk", "dv"), got, gref)}
+    gerr = {n: (a.float() - r.float()).abs().max().item()
+            for n, a, r in zip(("dq", "dk", "dv"), got, gref)}
+    bwd_tol = BWD_BF16_REL_TOL if dtype == torch.bfloat16 else 1e-4
+    mask = _attn_mask(s, s, True, window, ids, dev)
+    pairs = int(mask.expand(b, 1, s, s).sum().item())    # per head
+    esize = q.element_size()
+    qb, kvb, rowb = esize * q.numel(), esize * k.numel(), 4 * lse.numel()
+    peak = _peak(dtype)
+    f_bound, f_by = bound_ms(4.0 * h * pairs * d, 2 * qb + 2 * kvb + rowb,
+                             peak)
+    in_bytes = 2 * qb + 2 * kvb + 2 * rowb
+    dq_bound, dq_by = bound_ms(6.0 * h * pairs * d, in_bytes + qb, peak)
+    dkv_bound, dkv_by = bound_ms(8.0 * h * pairs * d, in_bytes + 2 * kvb,
+                                 peak)
+    f_ms = graph_ms(lambda: flash_forward(q, k, v, segment_ids=ids, **kw))
+    dq_ms = graph_ms(lambda: launch_dq(*args, segment_ids=ids))
+    dkv_ms = graph_ms(lambda: launch_dkv(*args, segment_ids=ids))
+    f_plain = time_ms(lambda: flash_forward_reference(
+        q, k, v, segment_ids=ids, **kw), iters=5)
+    b_plain = time_ms(lambda: flash_backward_reference(
+        q, k, v, out, lse, dout, delta, segment_ids=ids, **kw), iters=5)
+    qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_()
+                  for x in (q, k, v))
+    dt = dout.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    with torch.no_grad():
+        lib_f = graph_ms(sdpa)
+    lib_b = graph_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                 dt)) - lib_f
+    ok = err <= tol and lse_err <= LSE_TOL and max(rel.values()) <= bwd_tol
+    print(f"phase 35 {label}: flash_fwd max_abs_err {err:.3e} (tol {tol}),"
+          f" lse {lse_err:.3e}; {f_ms:.4f} ms (bound {f_bound:.2e} ms, "
+          f"{f_by}), plain {f_plain:.4f}, sdpa {lib_f:.4f}; flash_bwd_dq "
+          f"{dq_ms:.4f} ms (bound {dq_bound:.2e}, {dq_by}), flash_bwd_dkv "
+          f"{dkv_ms:.4f} ms (bound {dkv_bound:.2e}, {dkv_by}), plain "
+          f"backward {b_plain:.4f}, sdpa backward {lib_b:.4f}; gradients "
+          f"relative to the reference's max {rel['dq']:.2e} "
+          f"{rel['dk']:.2e} {rel['dv']:.2e} (tol {bwd_tol}); graph replay",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"phase 35: the flash kernels disagree with "
+                             f"their plain versions at {label}")
+
+    def row(e, ms, plain, lib, bms, by):
+        return dict(name=label, err=e, ms=ms, plain_ms=plain, library_ms=lib,
+                    bound_ms=bms, bound_by=by)
+
+    return {"flash_fwd": row(err, f_ms, f_plain, lib_f, f_bound, f_by),
+            "flash_bwd_dq": row(gerr["dq"], dq_ms, b_plain, lib_b, dq_bound,
+                                dq_by),
+            "flash_bwd_dkv": row(max(gerr["dk"], gerr["dv"]), dkv_ms,
+                                 b_plain, lib_b, dkv_bound, dkv_by)}
+
+
+def small_decode_rows(dev, d):
+    """K2 and K2-q8 at head dim ``d`` on its example's generate() cache
+    (Hkv 4, G 1, t the last position)."""
+    example, dtype, (_, _, h, _, _), (b, length), _ = SMALL_DIM_SHAPES[d]
+    rs = np.random.RandomState(SEED + 40 + d)
+    rows = {}
+    for kname, bits in (("decode_attention", None),
+                        ("decode_attention_q8", 8)):
+        q = torch.from_numpy(rs.randn(b * h, 1, d).astype(np.float32))
+        k, v = (torch.from_numpy(rs.randn(b * h, length, d)
+                                 .astype(np.float32)).to(dev)
+                for _ in range(2))
+        c = dict(b=b, hkv=h, g=1, t=length - 1, window=None)
+        if bits is None:
+            c.update(q=q.to(dev, dtype), k=k.to(dtype), v=v.to(dtype))
+        else:
+            (kq, ks), (vq, vs) = (_quantize_kv(x, bits) for x in (k, v))
+            c.update(q=q.to(dev), k=kq, v=vq, k_scale=ks, v_scale=vs)
+        sc = {} if bits is None else dict(k_scale=c["k_scale"],
+                                          v_scale=c["v_scale"])
+
+        def call():
+            return decode_attention(c["q"], c["k"], c["v"], c["t"],
+                                    scale=d ** -0.5, **sc)
+
+        def plain():
+            return decode_attention_reference(c["q"], c["k"], c["v"], c["t"],
+                                              scale=d ** -0.5, **sc)
+
+        before = kernels.launch_counts()[kname]
+        out = call()
+        torch.cuda.synchronize()
+        if kernels.launch_counts()[kname] != before + 1:
+            raise AssertionError(f"phase 35: D{d} did not launch {kname}")
+        err = (out - plain()).abs().max().item()
+        same = torch.equal(out, call())
+        tol = KERNEL_BF16_TOL if dtype == torch.bfloat16 and bits is None \
+            else KERNEL_Q_TOL
+        esize = c["k"].element_size()
+        nbytes = 2 * b * h * length * d * esize + b * h * d * (
+            c["q"].element_size() + 4) + (0 if bits is None
+                                          else 2 * b * h * length * 4)
+        bms, by = bound_ms(4.0 * b * h * length * d, nbytes,
+                           PEAK_INT8_OPS if bits else _peak(dtype))
+        ms = graph_ms(call)
+        plain_ms = graph_ms(plain, iters=10)
+        lib_ms = None if bits else graph_ms(lambda: _sdpa_decode(c))
+        label = (f"D{d} {example} B{b} Hkv{h} G1 L{length} "
+                 f"{'int8' if bits else str(dtype)[6:]} cache")
+        print(f"phase 35 {kname} {label}: max_abs_err {err:.3e} (tol "
+              f"{tol}); bitwise repeat {same}; kernel {ms:.4f} ms (graph "
+              f"replay), bound {bms:.2e} ms ({by}); plain {plain_ms:.4f} "
+              f"ms; sdpa {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}",
+              flush=True)
+        if not (err <= tol and same):
+            raise AssertionError(f"phase 35: {kname} disagrees with its "
+                                 f"plain version at {label}")
+        rows[kname] = dict(name=label, err=err, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    return rows
+
+
+def small_paged_rows(dev, d):
+    """K3 (float, int8, int4 pages) and K3-anc (a random tree over the
+    W=4 verify window of ``spec_k=3``) at head dim ``d`` on its example's
+    page pool: Hkv = the model's heads, G 1, contexts up to the pool's
+    capacity, pages in a scrambled order."""
+    example, dtype, (_, _, hkv, _, _), _, (s, p_max, page_len) = \
+        SMALL_DIM_SHAPES[d]
+    rs = np.random.RandomState(SEED + 80 + d)
+    rows = {}
+    cap = p_max * page_len
+    for bits in (None, 8, 4):
+        for w in (1, 4):
+            t = np.array([cap - w - 3 * i for i in range(s)], np.int32)
+            n_live = [-(-(int(ti) + w) // page_len) for ti in t]
+            n_pages = sum(n_live) + 2
+            perm = rs.permutation(n_pages)
+            table = np.full((s, p_max), n_pages, np.int32)
+            used = 0
+            for i, n in enumerate(n_live):
+                table[i, :n] = perm[used:used + n]
+                used += n
+            kp, vp = (torch.from_numpy(rs.randn(n_pages, hkv, page_len, d)
+                                       .astype(np.float32)).to(dev)
+                      for _ in range(2))
+            c = dict(q=torch.from_numpy(rs.randn(s, w, hkv, 1, d)
+                                        .astype(np.float32)).to(dev),
+                     t=torch.from_numpy(t).to(dev),
+                     table=torch.from_numpy(table).to(dev), window=None)
+            if w > 1:
+                c["anc"] = torch.from_numpy(
+                    tree_ancestors(random_trees(rs, s, w))[1]).to(dev)
+            if bits is None:
+                c.update(k=kp.to(dtype), v=vp.to(dtype))
+            else:
+                (kq, ks), (vq, vs) = (_quantize_kv(x, bits)
+                                      for x in (kp, vp))
+                if bits == 4:
+                    kq, vq = pack_int4(kq), pack_int4(vq)
+                c.update(k=kq, v=vq, k_scale=ks, v_scale=vs)
+            kname = ("paged_decode" if bits is None
+                     else f"paged_decode_q{bits}") + ("_anc" if w > 1
+                                                      else "")
+            args = (c["q"], c["k"], c["v"], c["t"], c["table"])
+            kw = dict(scale=d ** -0.5, window=None, anc=c.get("anc"))
+            if bits is not None:
+                kw.update(k_scale=c["k_scale"], v_scale=c["v_scale"])
+            before = kernels.launch_counts()[kname]
+            out = paged_decode_attention(*args, **kw)
+            torch.cuda.synchronize()
+            if kernels.launch_counts()[kname] != before + 1:
+                raise AssertionError(f"phase 35: D{d} did not launch "
+                                     f"{kname}")
+            err = (out - paged_decode_attention_reference(*args, **kw)) \
+                .abs().max().item()
+            same = torch.equal(out, paged_decode_attention(*args, **kw))
+            tol = KERNEL_BF16_TOL if dtype == torch.bfloat16 and bits is \
+                None else KERNEL_Q_TOL
+            flops, nbytes, pages = _paged_work(c, t, w, page_len, bits)
+            bms, by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+            ms = graph_ms(lambda: paged_decode_attention(*args, **kw))
+            plain_ms = time_ms(lambda: paged_decode_attention_reference(
+                *args, **kw), iters=5)
+            lib_ms = None if bits is not None else _sdpa_paged_ms(c)
+            label = (f"D{d} {example} S{s} Hkv{hkv} W{w}"
+                     f"{' tree' if w > 1 else ''} page_len {page_len} "
+                     f"{str(dtype)[6:] if bits is None else f'int{bits}'} "
+                     "pages")
+            print(f"phase 35 {kname} {label}: max_abs_err {err:.3e} (tol "
+                  f"{tol}); bitwise repeat {same}; kernel {ms:.4f} ms "
+                  f"(graph replay), bound {bms:.2e} ms ({by}), {pages} live "
+                  f"pages; plain {plain_ms:.4f} ms; sdpa "
+                  f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}",
+                  flush=True)
+            if not (err <= tol and same):
+                raise AssertionError(f"phase 35: {kname} disagrees with its "
+                                     f"plain version at {label}")
+            rows[kname] = dict(name=label, err=err, ms=ms,
+                               plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bms, bound_by=by)
+    return rows
+
+
+def small_dims_phase(dev):
+    """Phase 35 (a): every attention kernel at the examples' head dims,
+    against its plain version. Returns ``{kernel: [row, ...]}``."""
+    rows = {}
+    for d in SMALL_DIM_SHAPES:
+        for part in (small_flash_rows(dev, d), small_decode_rows(dev, d),
+                     small_paged_rows(dev, d)):
+            for name, r in part.items():
+                rows.setdefault(name, []).append(r)
+    return rows
+
+
+def _fit_steps(rows, batch, epochs):
+    return epochs * -(-rows // batch)
+
+
+#: phase 35 (b)'s examples, at the arguments ``tests/test_examples.py``
+#: gives the JAX ones: (module, argv, check on (return value, printed text), the
+#: kernels the path must launch: ``{name: exact count}``, a count of None
+#: where the schedule decides it, then at least one). Exact counts: two
+#: layers a training step of each backward kernel, and two layers a
+#: generated token past the first of K2 in each generate() call
+EXAMPLES = (
+    ("continuous_batching", [],
+     lambda r, out: r >= 3 and "token-identical to generate()" in out,
+     {"flash_fwd": None, "paged_decode": None, "prng": None,
+      "flash_bwd_dq": 2 * _fit_steps(256, 64, 30),
+      "flash_bwd_dkv": 2 * _fit_steps(256, 64, 30),
+      "decode_attention": 2 * (7 + 4 + 6)}),
+    ("lm_generate", [],
+     lambda r, out: r > 0.9 and "int8 vs f32" in out,
+     {"flash_fwd": None, "flash_bwd_dq": 2 * _fit_steps(4096, 128, 15),
+      "flash_bwd_dkv": 2 * _fit_steps(4096, 128, 15),
+      "decode_attention": 2 * 2 * 7, "quant_matmul_q8": None}),
+    ("speculative_serving", [],
+     lambda r, out: r == 5 and "kicked back to plain decode" in out,
+     {"flash_fwd": None, "paged_decode": None,
+      "flash_bwd_dq": 2 * _fit_steps(256, 64, 30),
+      "flash_bwd_dkv": 2 * _fit_steps(256, 64, 30),
+      "decode_attention": 2 * (11 + 8 + 13 + 9 + 10 + 19)}),
+    ("router_serving", [],
+     lambda r, out: r == 11 and "OK" in out
+     and "'slow': 'drain'" in out and "'slow': 'resume'" in out,
+     {"flash_fwd": None, "paged_decode": None, "prng": None,
+      "flash_bwd_dq": 2 * _fit_steps(256, 64, 30),
+      "flash_bwd_dkv": 2 * _fit_steps(256, 64, 30),
+      "decode_attention": 2 * (6 * 4 + 6 + 4 + 3 * 7)}),
+    ("loadgen_scenario", [],
+     lambda r, out: r["headline"]["min_attainment"] < 1.0
+     and "trace JSONL round-trip OK" in out,
+     {"flash_fwd": None, "paged_decode": None, "flash_bwd_dq": 0}),
+    ("request_tracing", [],
+     lambda r, out: r >= 5 and "flight recorder ring" in out,
+     {"flash_fwd": None, "paged_decode": None, "flash_bwd_dq": 0}),
+    ("moe_serving", [],
+     lambda r, out: r == 4 and "OK" in out
+     and "expert-parallel decode skipped (single-device backend)" in out,
+     {"flash_fwd": None, "paged_decode": None, "moe_gather_gemm1": None,
+      "flash_bwd_dq": 2 * _fit_steps(256, 64, 20),
+      "flash_bwd_dkv": 2 * _fit_steps(256, 64, 20),
+      "decode_attention": 2 * (7 + 5 + 8 + 6)}),
+    ("packed_moe_serving", [],
+     lambda r, out: "logit leak after perturbing doc A: 0.0" in out
+     and "OK" in out,
+     {"flash_fwd": None, "flash_bwd_dq": 2 * 150, "flash_bwd_dkv": 2 * 150,
+      "decode_attention": 2 * 2 * 7, "quant_matmul_q8": None}),
+    ("telemetry_tour", [],
+     lambda r, out: r > 0.7 and "JSONL round-trip OK" in out,
+     {"flash_fwd": None, "paged_decode": None,
+      "flash_bwd_dq": 2 * _fit_steps(128, 64, 3),
+      "flash_bwd_dkv": 2 * _fit_steps(128, 64, 3)}),
+    ("vit_finetune_callbacks", [],
+     lambda r, out: r > 0.85 and "epochs logged" in out,
+     {"flash_fwd": None, "flash_bwd_dq": None, "flash_bwd_dkv": None}),
+)
+#: ViT trains 64 steps an epoch (4096 images, batch 64) until early
+#: stopping: its backward counts are two layers times a multiple of that
+VIT_EPOCH_STEPS = 64
+
+
+def ported_examples_phase(dev, card):
+    """Phase 35 (b): the ten examples in this process on ``dev``, each at
+    its JAX test's arguments and above its threshold, with the launch
+    counts of each run. Returns ``{"example_<name>": counts}``."""
+    import importlib
+    import io
+    launches, walls = {}, []
+    for name, argv, ok, want in EXAMPLES:
+        mod = importlib.import_module(f"distkeras_tpu_torch.examples.{name}")
+        saved = sys.argv
+        sys.argv = [name, *argv, "--device", dev.type]
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                result = mod.main()
+            torch.cuda.synchronize()
+        finally:
+            sys.argv = saved
+        wall = time.perf_counter() - t0
+        c = {k: n for k, n in kernels.launch_counts().items() if n}
+        out = buf.getvalue()
+        last = out.strip().splitlines()[-1]
+        walls.append(f"{name} {wall:.1f} s")
+        print(f"phase 35 (b) {name} on {card}: {wall:.1f} s; {last}; "
+              f"launches {c}", flush=True)
+        if not ok(result, out):
+            raise AssertionError(f"phase 35 (b): {name} returned {result}:"
+                                 f"\n{out}")
+        for kname, n in want.items():
+            got = c.get(kname, 0)
+            if (n is None and got < 1) or (n is not None and got != n):
+                raise AssertionError(
+                    f"phase 35 (b): {name} launched {kname} {got} times; "
+                    f"expected {'at least 1' if n is None else n}")
+        if name == "vit_finetune_callbacks":
+            steps = c["flash_bwd_dq"] // 2
+            if c["flash_bwd_dq"] != c["flash_bwd_dkv"] or \
+                    steps % VIT_EPOCH_STEPS or \
+                    not 1 <= steps // VIT_EPOCH_STEPS <= 12:
+                raise AssertionError(f"phase 35 (b): the ViT's backward "
+                                     f"launches {c} are no whole number "
+                                     f"of 2-layer epochs")
+        launches["example_" + name] = c
+        gc.collect()
+    print(f"phase 35 (b) examples on {card}: " + ", ".join(walls),
+          flush=True)
+    return launches
+
+
+def examples_and_small_dims_phase(dev, card):
+    """Phase 35: (a) the attention kernels at head dims 8, 12 and 16,
+    (b) the ten one-card examples."""
+    t0 = time.perf_counter()
+    rows = small_dims_phase(dev)
+    gc.collect()
+    t1 = time.perf_counter()
+    launches = ported_examples_phase(dev, card)
+    t2 = time.perf_counter()
+    print(f"phase 35 took {t2 - t0:.1f} s: (a) {t1 - t0:.1f}, (b) "
+          f"{t2 - t1:.1f}", flush=True)
+    return rows, launches
+
+
 def _expert_elements(wq) -> int:
     """Elements of a quantized stacked expert leaf, unpacked."""
     return wq["q"].numel() if "q" in wq else 2 * wq["q4"].numel()
@@ -8060,6 +8504,8 @@ def main() -> int:
     router_launches = router_phase(dev, card, tie_rel)
     gc.collect()
     data_launches = data_phase(dev, card)
+    gc.collect()
+    small_rows, example_launches = examples_and_small_dims_phase(dev, card)
 
     by_path = {name: {} for name in kernels.SOURCES}
     for path, c in {**slab_launches, **moe_wq_launches,
@@ -8125,9 +8571,13 @@ def main() -> int:
         for name in TRAINER_KERNELS:
             if c.get(name):
                 by_path[name][path] = c[name]
+    for path, c in example_launches.items():
+        for name, n in c.items():
+            by_path[name][path] = n
 
     def entry(name, source, replaces, rows, path):
         main_row = rows[0]
+        rows = rows + small_rows.get(name, [])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": by_path[name][path],
                 "launches_by_path": by_path[name],
@@ -8141,7 +8591,7 @@ def main() -> int:
         entry("flash_fwd", "distkeras_tpu_torch/csrc/flash_fwd.cu",
               "distkeras_tpu/ops/flash_attention.py:321",
               flash_rows + seg_rows["flash_fwd"], "serving"),
-        entry("paged_decode", "distkeras_tpu_torch/csrc/paged_decode.cu",
+        entry("paged_decode", "distkeras_tpu_torch/csrc/paged_decode.cuh",
               "distkeras_tpu/ops/paged_attention.py:365", paged_rows,
               "serving"),
         entry("flash_bwd_dq", "distkeras_tpu_torch/csrc/flash_bwd.cu",
@@ -8153,28 +8603,28 @@ def main() -> int:
               bwd_rows["flash_bwd_dkv"] + seg_rows["flash_bwd_dkv"],
               "training"),
         entry("decode_attention",
-              "distkeras_tpu_torch/csrc/decode_attention.cu",
+              "distkeras_tpu_torch/csrc/decode_attention.cuh",
               "distkeras_tpu/ops/decode_attention.py:233",
               decode_rows["decode_attention"], "generate"),
         entry("decode_attention_q8",
-              "distkeras_tpu_torch/csrc/decode_attention.cu",
+              "distkeras_tpu_torch/csrc/decode_attention.cuh",
               "distkeras_tpu/ops/decode_attention.py:233",
               decode_rows["decode_attention_q8"], "generate"),
-        entry("paged_decode_q8", "distkeras_tpu_torch/csrc/paged_decode.cu",
+        entry("paged_decode_q8", "distkeras_tpu_torch/csrc/paged_decode.cuh",
               "distkeras_tpu/ops/paged_attention.py:365", q_paged_rows[8],
               "serving_int8"),
-        entry("paged_decode_q4", "distkeras_tpu_torch/csrc/paged_decode.cu",
+        entry("paged_decode_q4", "distkeras_tpu_torch/csrc/paged_decode.cuh",
               "distkeras_tpu/ops/paged_attention.py:365", q_paged_rows[4],
               "serving_int4"),
-        entry("paged_decode_anc", "distkeras_tpu_torch/csrc/paged_decode.cu",
+        entry("paged_decode_anc", "distkeras_tpu_torch/csrc/paged_decode.cuh",
               "distkeras_tpu/ops/paged_attention.py:177", anc_rows[None],
               "serving_spec_tree"),
         entry("paged_decode_q8_anc",
-              "distkeras_tpu_torch/csrc/paged_decode.cu",
+              "distkeras_tpu_torch/csrc/paged_decode.cuh",
               "distkeras_tpu/ops/paged_attention.py:177", anc_rows[8],
               "serving_spec_tree_int8"),
         entry("paged_decode_q4_anc",
-              "distkeras_tpu_torch/csrc/paged_decode.cu",
+              "distkeras_tpu_torch/csrc/paged_decode.cuh",
               "distkeras_tpu/ops/paged_attention.py:177", anc_rows[4],
               "serving_spec_tree_int4"),
         entry("quant_matmul_q8", "distkeras_tpu_torch/csrc/quant_matmul.cu",

@@ -73,8 +73,8 @@
 //     pair does seven products where a kernel that adds dq atomically
 //     does five.
 //
-// float32, and bf16 at D = 32 (namespace simt), keep the CUDA-core
-// kernels: TF32 would break the float32 gradient checks at 1e-4.
+// float32, and bf16 at D = 8, 12, 16 and 32 (namespace simt), keep the
+// CUDA-core kernels: TF32 would break the float32 gradient checks at 1e-4.
 //   * dq: one block of 128 threads per (batch*head, 64-row query block);
 //     its Q and dO tiles stay in shared memory while a loop inside the
 //     block walks 64-key blocks. Thread t owns query row t/2 and every
@@ -127,7 +127,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-// --- float32, and bf16 at D = 32: FMAs on the CUDA cores -------------------
+// --- float32, and bf16 at D <= 32: FMAs on the CUDA cores ------------------
 namespace simt {
 
 
@@ -979,6 +979,9 @@ template <bool DQ, bool SEG>
 cudaError_t dispatch_t(int dtype, int D, const Args& a) {
   if (dtype == 0) {
     switch (D) {
+      case 8: return launch_simt<DQ, float, 8, SEG>(a);
+      case 12: return launch_simt<DQ, float, 12, SEG>(a);
+      case 16: return launch_simt<DQ, float, 16, SEG>(a);
       case 32: return launch_simt<DQ, float, 32, SEG>(a);
       case 64: return launch_simt<DQ, float, 64, SEG>(a);
       case 128: return launch_simt<DQ, float, 128, SEG>(a);
@@ -987,6 +990,9 @@ cudaError_t dispatch_t(int dtype, int D, const Args& a) {
   }
   if (dtype == 1) {
     switch (D) {
+      case 8: return launch_simt<DQ, __nv_bfloat16, 8, SEG>(a);
+      case 12: return launch_simt<DQ, __nv_bfloat16, 12, SEG>(a);
+      case 16: return launch_simt<DQ, __nv_bfloat16, 16, SEG>(a);
       case 32: return launch_simt<DQ, __nv_bfloat16, 32, SEG>(a);
       case 64: return launch_tc<DQ, 64, SEG>(a);
       case 128: return launch_tc<DQ, 128, SEG>(a);

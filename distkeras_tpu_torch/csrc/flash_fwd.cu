@@ -63,8 +63,9 @@
 //     stride is not a multiple of 16 bytes the producer warp copies the
 //     same layout element by element (compiled per instantiation).
 //
-// float32, and bf16 at D = 32 (namespace simt), keep the CUDA-core
-// kernel: TF32 would break the float32 limits.
+// float32, and bf16 at D = 8, 12, 16 and 32 (namespace simt), keep the
+// CUDA-core kernel: TF32 would break the float32 limits, and a head dim
+// under 64 leaves wgmma's 16-deep steps with little to do.
 //   * one block of 128 threads per (batch*head, 64-row query block); a
 //     loop inside the block walks 64-key blocks, the online-softmax state
 //     (m, l, acc) stays in registers the whole sweep;
@@ -114,7 +115,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-// --- float32, and bf16 at D = 32: FMAs on the CUDA cores -------------------
+// --- float32, and bf16 at D <= 32: FMAs on the CUDA cores ------------------
 namespace simt {
 
 constexpr int BM = 64;   // query rows per block
@@ -587,6 +588,9 @@ template <bool SEG>
 cudaError_t dispatch_t(int dtype, int D, const Args& a) {
   if (dtype == 0) {
     switch (D) {
+      case 8: return simt::launch<float, 8>(a);
+      case 12: return simt::launch<float, 12>(a);
+      case 16: return simt::launch<float, 16>(a);
       case 32: return simt::launch<float, 32>(a);
       case 64: return simt::launch<float, 64>(a);
       case 128: return simt::launch<float, 128>(a);
@@ -595,6 +599,9 @@ cudaError_t dispatch_t(int dtype, int D, const Args& a) {
   }
   if (dtype == 1) {
     switch (D) {
+      case 8: return simt::launch<__nv_bfloat16, 8>(a);
+      case 12: return simt::launch<__nv_bfloat16, 12>(a);
+      case 16: return simt::launch<__nv_bfloat16, 16>(a);
       case 32: return simt::launch<__nv_bfloat16, 32>(a);
       case 64: return tc::launch<64, SEG>(a);
       case 128: return tc::launch<128, SEG>(a);

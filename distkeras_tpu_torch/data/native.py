@@ -30,7 +30,6 @@ import hashlib
 import os
 import subprocess
 import threading
-import time
 from typing import Optional
 
 import numpy as np
@@ -61,7 +60,8 @@ def library_path() -> str:
 
 def _build(path: str) -> Optional[str]:
     """Compile the shared library to ``path``; an error string or None."""
-    t0 = time.perf_counter()
+    from distkeras_tpu_torch.utils.profiling import now
+    t0 = now()
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     cmd = ["g++", *_FLAGS, "-o", tmp, _SRC]
@@ -82,7 +82,7 @@ def _build(path: str) -> Optional[str]:
         os.unlink(tmp)
         return f"rename failed: {e}"
     from distkeras_tpu_torch.obs import collectors
-    collectors.note_compile(time.perf_counter() - t0, 1)
+    collectors.note_compile(now() - t0, 1)
     return None
 
 

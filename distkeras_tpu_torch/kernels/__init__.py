@@ -3,9 +3,12 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 of its own with a plain C interface, loaded with ``ctypes``; a source may
 hold several kernels, each with its own exported launcher and launch
-count (``flash_bwd.cu`` holds dq and dk/dv, ``decode_attention.cu`` the
-float and int8 slab decode, ``paged_decode.cu`` the float, int8 and
-int4 paged decode, each with and without the tree ancestor mask,
+count (``flash_bwd.cu`` holds dq and dk/dv, ``paged_decode.cu`` the
+float paged decode with and without the tree ancestor mask,
+``paged_decode_q.cu`` the int8 and int4 ones, both launching the kernel
+of ``paged_decode.cuh``; ``decode_attention.cu`` and
+``decode_attention_q8.cu`` the float and int8 slab decode of
+``decode_attention.cuh``,
 ``quant_matmul.cu`` the int8 and packed-int4 quantized matmul,
 ``sampling.cu`` the fused sampling epilogue, ``moe_gemm.cu`` the MoE
 expert up-projection with the token gather fused in, ``moe_bwd.cu`` the
@@ -17,8 +20,8 @@ whose library is missing, one
 name carries a hash of its source, the ``csrc/`` headers it includes
 (``sm90.cuh``, the Hopper primitives; ``moe_tc.cuh``, the mainloop
 ``moe_gemm.cu`` and ``moe_bwd.cu`` share; ``dequant.cuh``, the integer
-conversion of ``quant_matmul.cu``, ``paged_decode.cu`` and
-``decode_attention.cu``) and
+conversion of ``quant_matmul.cu`` and the two decode headers; the
+decode headers themselves) and
 the flags, so an edited source or header rebuilds
 and an unchanged one is reused. Where the libraries go and
 which ``nvcc`` runs is set in ``compat``. The seconds spent building
@@ -40,7 +43,6 @@ import os
 import re
 import subprocess
 import threading
-import time
 from typing import Dict, Iterable, Optional
 
 from distkeras_tpu_torch import compat
@@ -49,12 +51,12 @@ from distkeras_tpu_torch import compat
 SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
            "flash_bwd_dq": "flash_bwd.cu", "flash_bwd_dkv": "flash_bwd.cu",
            "decode_attention": "decode_attention.cu",
-           "decode_attention_q8": "decode_attention.cu",
-           "paged_decode_q8": "paged_decode.cu",
-           "paged_decode_q4": "paged_decode.cu",
+           "decode_attention_q8": "decode_attention_q8.cu",
+           "paged_decode_q8": "paged_decode_q.cu",
+           "paged_decode_q4": "paged_decode_q.cu",
            "paged_decode_anc": "paged_decode.cu",
-           "paged_decode_q8_anc": "paged_decode.cu",
-           "paged_decode_q4_anc": "paged_decode.cu",
+           "paged_decode_q8_anc": "paged_decode_q.cu",
+           "paged_decode_q4_anc": "paged_decode_q.cu",
            "quant_matmul_q8": "quant_matmul.cu",
            "quant_matmul_q4": "quant_matmul.cu",
            "sample_epilogue": "sampling.cu",
@@ -164,8 +166,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     libraries are missing, one ``nvcc`` per source, in parallel; returns
     ``{name: library path}``. Raises with the compiler's output when a
     compile fails."""
+    from distkeras_tpu_torch.utils.profiling import now
     names = list(SOURCES if names is None else names)
-    t0 = time.perf_counter()
+    t0 = now()
     os.makedirs(compat.build_dir(), exist_ok=True)
     sources = sorted({SOURCES[name] for name in names})
     paths = {src: _library_path(src) for src in sources}
@@ -189,7 +192,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     if procs:
         # the port's compile time: goodput (obs.tape) subtracts it
         from distkeras_tpu_torch.obs import collectors
-        collectors.note_compile(time.perf_counter() - t0, len(procs))
+        collectors.note_compile(now() - t0, len(procs))
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: paths[SOURCES[name]] for name in names}
@@ -203,8 +206,9 @@ def library(name: str) -> ctypes.CDLL:
         return lib
     with _lock:
         if SOURCES[name] not in _libs:
+            from distkeras_tpu_torch.utils.profiling import now
             paths = build([n for n in SOURCES if SOURCES[n] not in _libs])
-            t0 = time.perf_counter()
+            t0 = now()
             for n, path in paths.items():
                 dll = _libs.get(SOURCES[n])
                 if dll is None:
@@ -216,7 +220,7 @@ def library(name: str) -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = _I
             from distkeras_tpu_torch.obs import collectors
-            collectors.note_compile(time.perf_counter() - t0, 0)
+            collectors.note_compile(now() - t0, 0)
         return _libs[SOURCES[name]]
 
 

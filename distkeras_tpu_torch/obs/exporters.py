@@ -4,7 +4,9 @@ Three formats, deliberately boring:
 
 * **JSONL event log** — one self-describing line per series
   (``{"type": "counter"|"gauge"|"histogram"|"span", ...}``) plus a
-  ``meta`` header carrying ``schema_version``. Append-oriented (a
+  ``meta`` header carrying ``schema_version``, and one ``empty`` line
+  per metric registered with no series yet (the JAX package's log drops
+  those, so its round trip misses them). Append-oriented (a
   long-running job re-exports snapshots under increasing ``seq``), and
   lossless for the snapshot shape: ``read_jsonl(path)`` reconstructs
   exactly what ``registry.snapshot()`` produced (the round-trip test).
@@ -64,6 +66,11 @@ def snapshot_lines(snapshot: Dict, spans: Optional[List] = None,
             lines.append(json.dumps(
                 {"type": "histogram", "seq": seq, "name": name,
                  "labels": labels, **stats}))
+    for kind in ("counters", "gauges", "histograms"):
+        for name, series in snapshot.get(kind, {}).items():
+            if not series:
+                lines.append(json.dumps({"type": "empty", "seq": seq,
+                                         "kind": kind, "name": name}))
     for path, total_s, count in (spans or []):
         lines.append(json.dumps(
             {"type": "span", "seq": seq, "path": list(path),
@@ -104,6 +111,8 @@ def read_jsonl(path: str, seq: Optional[int] = None
                      if k not in ("type", "seq", "name", "labels")}
             snapshot["histograms"].setdefault(r["name"], {})[
                 r["labels"]] = stats
+        elif t == "empty" and r.get("kind") in snapshot:
+            snapshot[r["kind"]].setdefault(r["name"], {})
         elif t == "span":
             span_records.append((tuple(r["path"]), r["total_s"],
                                  r["count"]))

@@ -1,5 +1,5 @@
 """One-step decode attention over the slab KV cache: the hand-written
-CUDA kernel (``csrc/decode_attention.cu``) and its plain PyTorch
+CUDA kernel (``csrc/decode_attention.cuh``) and its plain PyTorch
 version.
 
 Replaces ``distkeras_tpu/ops/decode_attention.py`` ``decode_attention``
@@ -56,7 +56,7 @@ from distkeras_tpu_torch.ops.attention import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernel is instantiated for
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (8, 12, 16, 32, 64, 128)
 #: query rows (GQA group size) one block holds
 KERNEL_MAX_GROUP = 64
 #: positions a split is a whole number of by default (a multiple of every
@@ -133,9 +133,16 @@ def _cdiv(a: int, b: int) -> int:
 
 def chunk_positions(head_dim: int, itemsize: int) -> int:
     """The positions the kernel stages at a time for a cache of this head
-    dim and element size: about 8 KB of K, 32 to 128 positions (the
-    kernel's ``Geo::CK``)."""
-    return min(128, max(32, 8192 // (head_dim * itemsize)))
+    dim and element size: about 8 KB of K (rows padded to whole 8-dim
+    pieces), 32 to 128 positions (the kernel's ``Geo::CK``)."""
+    return min(128, max(32, 8192 // (_cdiv(head_dim, 8) * 8 * itemsize)))
+
+
+def copy_bytes(row_bytes: int) -> int:
+    """The bytes of one ``cp.async`` the kernel stages a cache row with
+    (its ``Geo::CB``): 16 where the row is whole 16-byte pieces, else 8 or
+    4 (bf16 at head dim 12, int8 at 8 and 12)."""
+    return 16 if row_bytes % 16 == 0 else 8 if row_bytes % 8 == 0 else 4
 
 
 def split_plan(rows: int, length: int, num_sms: int, *,
@@ -204,13 +211,15 @@ def _launch(q, k, v, t, scale, window, k_scale, v_scale):
         raise ValueError(f"window must be a positive number of positions, "
                          f"got {window}")
     esize = k.element_size()
+    cb = copy_bytes(d * esize)
     for name, x in (("k", k), ("v", v)):
         if x.stride(2) != 1:
             raise ValueError(f"{name} must be contiguous along head_dim")
-        if (x.data_ptr() % 16 or (x.stride(0) * esize) % 16
-                or (x.stride(1) * esize) % 16):
-            raise ValueError(f"{name} rows must start on 16-byte boundaries "
-                             "(the kernel reads them 16 bytes at a time)")
+        if (x.data_ptr() % cb or (x.stride(0) * esize) % cb
+                or (x.stride(1) * esize) % cb):
+            raise ValueError(f"{name} rows must start on {cb}-byte "
+                             f"boundaries (the kernel reads them {cb} bytes "
+                             "at a time)")
     if k.stride() != v.stride():
         raise ValueError("k and v must share their strides")
     quant = k_scale is not None

@@ -61,7 +61,7 @@ from distkeras_tpu_torch.ops.attention import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernel is instantiated for
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (8, 12, 16, 32, 64, 128)
 
 
 def _heads_major(x: torch.Tensor, layout: str) -> torch.Tensor:

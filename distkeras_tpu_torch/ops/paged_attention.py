@@ -1,5 +1,5 @@
 """Paged decode attention: the hand-written CUDA kernel
-(``csrc/paged_decode.cu``) and its plain PyTorch version.
+(``csrc/paged_decode.cuh``) and its plain PyTorch version.
 
 Replaces ``distkeras_tpu/ops/paged_attention.py``
 ``paged_decode_attention`` (:244, the ``pl.pallas_call`` at :365, body
@@ -43,7 +43,7 @@ from distkeras_tpu_torch.ops.attention import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernel is instantiated for
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (8, 12, 16, 32, 64, 128)
 #: query rows (W * G) one block scores per kv head
 KERNEL_MAX_ROWS = 64
 #: positions a block stages per step (a split is a whole number of them)

@@ -64,7 +64,8 @@ def process_count() -> int:
 def default_num_workers(device) -> int:
     """The devices of ``device``'s type: JAX's ``len(jax.devices())``."""
     dev = resolve_device(device)
-    return torch.cuda.device_count() if dev.type == "cuda" else 1
+    on_card = dev.type == "cuda"  # lint: allow-device-fork (a count)
+    return torch.cuda.device_count() if on_card else 1
 
 
 class DistributedTrainer(Trainer):
@@ -197,8 +198,9 @@ class DistributedTrainer(Trainer):
                                          mean_state(state["worker"]["state"]))
                     # the epoch's one device-to-host read
                     losses, mets = host_fetch(losses), host_fetch(mets)
-                    losses = losses.numpy()
-                    mets = {k: v.numpy() for k, v in mets.items()}
+                    losses = losses.numpy()  # lint: allow-host-sync
+                    mets = {k: v.numpy()  # lint: allow-host-sync
+                            for k, v in mets.items()}
                     self.history.append_epoch(loss=losses, **mets, **extra)
                     extracted = None
                     saved = False

@@ -78,7 +78,8 @@ def host_fetch(tree):
     """The tree with every tensor copied to the host (``.cpu()``): the
     epoch loops' one device-to-host read, at the epoch's end."""
     return tree_map(
-        lambda x: x.detach().cpu() if torch.is_tensor(x) else x, tree)
+        lambda x: x.detach().cpu()  # lint: allow-host-sync
+        if torch.is_tensor(x) else x, tree)
 
 
 def _take(x: torch.Tensor, rows: Sequence[int]) -> torch.Tensor:

@@ -40,7 +40,10 @@ counter (labeled by point) on the obs registry, so chaos runs are
 visible in ``telemetry_snapshot()`` — and notifies any registered
 ``add_trigger_listener`` callbacks (the flight recorder
 ``obs.recorder`` uses this to snapshot its ring at the moment of
-failure). ``docs/resilience.md`` carries the injection-point catalog.
+failure). ``CATALOG`` is the port's injection-point catalog, the names
+chaos schedules bind to (the JAX package keeps its own in
+``docs/resilience.md``); ``tools/lint_torch_fault_points.py`` holds it
+equal to the sites in the code.
 """
 
 from __future__ import annotations
@@ -52,10 +55,38 @@ import time
 from typing import Dict, List, Optional
 
 __all__ = [
-    "InjectedFault", "active", "add_trigger_listener", "clear",
+    "CATALOG", "InjectedFault", "active", "add_trigger_listener", "clear",
     "corrupt", "fired", "inject", "load_env", "point", "points",
     "remove_trigger_listener", "reset",
 ]
+
+#: every injection point of the port: name -> the site and what it
+#: simulates
+CATALOG = {
+    "ckpt.d2h": "utils/checkpoint.py, the snapshot's device-to-host "
+                "fence: a crash mid-transfer during a save",
+    "ckpt.write": "CheckpointManager._write, before the npz write (on "
+                  "the writer thread when async): a failed write",
+    "ckpt.rename": "before the atomic publish rename: a crash between "
+                   "write and publish",
+    "ckpt.restore": "CheckpointManager.restore, before the load: a "
+                    "flaky read at resume",
+    "data.fetch": "the trainers' shard load: a flaky filesystem",
+    "prefetch.produce": "the Prefetcher producer, per item: a loader "
+                        "that raises, stalls or dies",
+    "train.epoch": "the epoch-loop top of every trainer: a crash at an "
+                   "arbitrary epoch",
+    "train.loss": "the epoch-loss assembly (a corrupt() site): NaN "
+                  "poisoning the logged loss",
+    "serving.prefill": "ServingEngine._advance_prefill: a poisoned "
+                       "request or a slow prefill",
+    "serving.decode": "ServingEngine._advance_decode: a batch-wide "
+                      "decode-step error before any mutation",
+    "router.dispatch": "Router.submit: a dispatch failure before any "
+                       "placement state moves",
+    "replica.die": "EngineReplica.step: a replica's death, its streams "
+                   "failed over to the fleet",
+}
 
 
 class InjectedFault(RuntimeError):

@@ -70,7 +70,7 @@ def stage(arrays, device) -> List[torch.Tensor]:
     again only after the copy that reads it has completed, so the caller
     may change its arrays at once. On the CPU: plain copies."""
     device = torch.device(device)
-    if device.type != "cuda":
+    if device.type != "cuda":  # lint: allow-device-fork (pinned staging)
         return [torch.from_numpy(np.array(a, copy=True)) for a in arrays]
     arrays = [np.ascontiguousarray(a) for a in arrays]
     offs, n = [], 0
@@ -223,7 +223,7 @@ class PagedKVPool:
         self.host_pages = int(host_pages)
         if self.host_pages < 0:
             raise ValueError(f"host_pages must be >= 0, got {host_pages}")
-        self._pinned = self.device.type == "cuda"
+        self._pinned = self.device.type == "cuda"  # lint: allow-device-fork
         self.host_cache = None
         self._host_free: List[int] = []
         if self.host_pages:

@@ -26,6 +26,7 @@ attaches the current window to ``obs.telemetry_snapshot()``.
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -145,6 +146,8 @@ class ServingMetrics:
         #: authoritative for ``decode_tokens_per_sec`` (the labeled
         #: counters mirror it for exporters)
         self._decode_agg: Dict[int, List[float]] = {}
+        #: recent (n_decoding, dt) samples, a bounded window
+        self._decode_recent = deque(maxlen=reservoir)
         #: wall seconds per engine phase ("prefill", "decode")
         self.phase_seconds: Dict[str, float] = {}
         #: tree verifies: accepted path lengths and tree depths offered
@@ -315,8 +318,14 @@ class ServingMetrics:
         agg[1] += dt
         self._decode_toks.inc(toks, slots=n)
         self._decode_secs.inc(dt, slots=n)
+        self._decode_recent.append((n, dt))
 
     # --- counters as attributes -------------------------------------------
+
+    @property
+    def decode_samples(self) -> List:
+        """Recent ``(n_decoding, dt)`` pairs (bounded window)."""
+        return list(self._decode_recent)
 
     @property
     def requests_finished(self) -> int:

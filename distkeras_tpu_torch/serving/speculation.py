@@ -420,7 +420,9 @@ class DraftModel(DraftSource):
             tops.append(ids)
             cur = ids[:, 0]
             tt = tt + 1
-        tops = list(torch.stack(tops).cpu().numpy().astype(np.int32))
+        # the draft model's per-step read: drafting is host-driven
+        tops = list(torch.stack(tops).cpu().numpy()  # lint: allow-host-sync
+                    .astype(np.int32))
         for slot in self._active:
             self._written[slot] = (
                 int(t[slot]),

@@ -81,7 +81,7 @@ class CallbackList:
         for cb in self.callbacks:   # one failing hook must not leak the rest
             try:
                 cb.on_train_end(dict(logs or {}))
-            except BaseException as e:  # re-raised below
+            except BaseException as e:  # lint: allow-swallow — re-raised
                 if first_err is None:
                     first_err = e
         self.trainer._weights_fn = None

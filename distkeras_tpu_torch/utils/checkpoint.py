@@ -83,7 +83,7 @@ def _snapshot_flat(tree: Any) -> Dict[str, np.ndarray]:
         key = leaf_key(path)
         if torch.is_tensor(leaf):
             leaf = leaf.detach()
-            if leaf.is_cuda:
+            if leaf.is_cuda:  # lint: allow-device-fork (pinned snapshot)
                 host = torch.empty(leaf.shape, dtype=leaf.dtype,
                                    pin_memory=True)
                 host.copy_(leaf, non_blocking=True)
@@ -215,8 +215,8 @@ class CheckpointManager:
             try:
                 self.retry.call(self._write, step, flat, metadata, final,
                                 op="ckpt.write")
-            except BaseException as e:  # surfaced at the next wait()/save()
-                with self._err_lock:
+            except BaseException as e:  # lint: allow-swallow — surfaced
+                with self._err_lock:    # at the next wait()/save()
                     self._write_errors.append(e)
             finally:
                 self._slots.release()

@@ -5,10 +5,11 @@ numpy arrays per epoch, filled from one device-to-host read per epoch.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from distkeras_tpu_torch.utils.profiling import wall
 
 
 class History:
@@ -22,15 +23,15 @@ class History:
 
     # -- wall clock -------------------------------------------------------
     def record_training_start(self) -> None:
-        self._start = time.time()
+        self._start = wall()
 
     def record_training_stop(self) -> None:
-        self._stop = time.time()
+        self._stop = wall()
 
     def get_training_time(self) -> float:
         if self._start is None:
             return 0.0
-        end = self._stop if self._stop is not None else time.time()
+        end = self._stop if self._stop is not None else wall()
         return end - self._start
 
     # -- metrics ----------------------------------------------------------

@@ -177,7 +177,7 @@ def to_device(a, device) -> torch.Tensor:
     the array's own memory, without a copy."""
     t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
     device = torch.device(device)
-    if device.type != "cuda" or t.is_cuda:
+    if device.type != "cuda" or t.is_cuda:  # lint: allow-device-fork
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
 
@@ -191,7 +191,7 @@ def device_stager(device=None) -> Callable:
     device = resolve_device(device)
 
     def place(chunk):
-        if device.type != "cuda":
+        if device.type != "cuda":  # lint: allow-device-fork (staging)
             return chunk
         Xs, Ys, n_steps = chunk
         return to_device(Xs, device), to_device(Ys, device), n_steps

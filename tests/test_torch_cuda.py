@@ -2151,3 +2151,248 @@ def test_two_process_job_trains_on_the_card_with_equal_digests(dev,
     assert digests[0][2] == digests[1][2] == "3.0"
     assert digests[0][3] == digests[1][3]
     assert int(digests[0][4]) == 8     # K7: one split a step, 8 steps
+
+
+# --- the attention kernels at the examples' head dims (8, 12, 16) ----------
+
+#: the head dims the one-card examples' models give (d_model / heads)
+SMALL_HEAD_DIMS = (8, 12, 16)
+
+
+@pytest.mark.parametrize("d", SMALL_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,s,window,hkv,seg", [
+    (True, 300, None, 4, None),             # causal (the LMs' prefill)
+    (True, 257, 8, 2, "contiguous"),        # window 8 + ids + GQA (packed)
+    (False, (64, 200), None, 4, None),      # non-causal, Sq != Sk (ViT)
+    (True, 130, None, 1, "unsorted"),       # GQA 4x1, ids with a -1 tail
+])
+def test_flash_kernels_at_small_head_dims_match_plain(dev, d, dtype, causal,
+                                                      s, window, hkv, seg):
+    """K1f, K1dq and K1dkv at head dims 8, 12 and 16: one launch each,
+    the plain versions' values at the tolerances of D 32-128."""
+    rs = np.random.RandomState(17)
+    sq, sk = s if isinstance(s, tuple) else (s, s)
+    q, k, v = _qkv(rs, 2, sq, sk, 4, hkv, d, dtype, dev, "bshd")
+    ids = _segment_ids(rs, seg, 2, sq, dev)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window, layout="bshd",
+              segment_ids=ids)
+    before = kernels.launch_counts()
+    out, lse = flash_forward(q, k, v, **kw)
+    dout = torch.from_numpy(rs.randn(*q.shape).astype(np.float32)) \
+        .to(dev, dtype)
+    delta = attention_delta(out, dout, "bshd")
+    got = flash_backward(q, k, v, out, lse, dout, delta, **kw)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    ro, rl = flash_forward_reference(q, k, v, **kw)
+    f32 = dtype == torch.float32
+    torch.testing.assert_close(out.float(), ro.float(), rtol=0,
+                               atol=F32_TOL if f32 else BF16_TOL)
+    torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-5)
+    ref = flash_backward_reference(q, k, v, out, lse, dout, delta, **kw)
+    tol = BWD_F32_REL_TOL if f32 else BWD_BF16_REL_TOL
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(g.float()).all(), name
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= tol * r.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("d", SMALL_HEAD_DIMS)
+@pytest.mark.parametrize("cache", ["float32", "bfloat16", 8, 4])
+@pytest.mark.parametrize("g,window,length,t,strided", [
+    (1, None, 96, 95, False),         # generate()'s shape (prompt + new)
+    (4, 8, 300, 200, True),           # GQA, a window, a strided view
+    (2, None, 4096, 3000, False),     # many splits, the merge
+])
+def test_decode_kernel_at_small_head_dims_matches_plain(dev, d, cache, g,
+                                                        window, length, t,
+                                                        strided):
+    """K2 and K2-q8 at head dims 8, 12 and 16 (rows of 8, 12, 16, 24 or
+    32 bytes: 4-, 8- and 16-byte copies)."""
+    rs = np.random.RandomState(18)
+    rows = 6
+    quant = cache in (8, 4)
+    qdt = torch.float32 if quant else getattr(torch, cache)
+    q = torch.from_numpy(rs.randn(rows, g, d).astype(np.float32)).to(dev,
+                                                                     qdt)
+    kw = dict(scale=d ** -0.5, window=window)
+    if quant:
+        (k, ks), (v, vs) = (pd._quantize_kv(_slab(rs, rows, length, d,
+                                                  strided).to(dev), cache)
+                            for _ in range(2))
+        kw.update(k_scale=ks, v_scale=vs)
+    else:
+        k, v = (_slab(rs, rows, length, d, strided).to(dev, qdt)
+                for _ in range(2))
+    name = "decode_attention_q8" if quant else "decode_attention"
+    before = kernels.launch_counts()[name]
+    out = decode_attention(q, k, v, t, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    ref = decode_attention_reference(q, k, v, t, **kw)
+    tol = BF16_TOL if cache == "bfloat16" else F32_TOL
+    torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+    assert torch.equal(out, decode_attention(q, k, v, t, **kw))
+
+
+@pytest.mark.parametrize("d", SMALL_HEAD_DIMS)
+@pytest.mark.parametrize("variant", ANC_VARIANTS,
+                         ids=["f32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("spec", K3_SPLIT_SPECS,
+                         ids=["decode", "gqa_tree", "verify_swa"])
+def test_paged_kernel_at_small_head_dims_matches_plain(dev, d, variant,
+                                                       spec):
+    """K3 (float, int8, int4) and K3-anc at head dims 8, 12 and 16, at
+    the split plan's edges; plus the examples' page of 4 positions."""
+    g, w_len, window, tree = spec
+    rs = np.random.RandomState(19)
+    args, kw = _k3_split_case(rs, variant, d, g, w_len, window, tree, dev)
+    quant = variant in (8, 4)
+    name = (f"paged_decode_q{variant}" if quant else "paged_decode") + \
+        ("_anc" if tree else "")
+    before = kernels.launch_counts()[name]
+    out = paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    ref = paged_decode_attention_reference(*args, **kw)
+    tol = chip_smoke.KERNEL_BF16_TOL if variant == torch.bfloat16 else \
+        chip_smoke.KERNEL_Q_TOL if quant else F32_TOL
+    torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+    assert torch.equal(out, paged_decode_attention(*args, **kw))
+    # pages of 4 positions, as the examples' engines take
+    kp, vp, sc = _anc_pages(rs, variant, d, 4, dev)
+    q = torch.from_numpy(rs.randn(4, 1, 2, g, d).astype(np.float32)).to(dev)
+    targs = (torch.from_numpy(T // 2).to(dev),
+             torch.from_numpy(TABLE).to(dev))
+    out = paged_decode_attention(q, kp, vp, *targs, scale=0.3, **sc)
+    ref = paged_decode_attention_reference(q, kp, vp, *targs, scale=0.3,
+                                           **sc)
+    torch.testing.assert_close(out[:3], ref[:3], atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("d", [4, 24, 48, 256])
+def test_attention_kernels_refuse_other_head_dims_naming_the_set(dev, d):
+    """A head dim outside the kernels' set raises and names the set; it
+    never falls back to the plain version."""
+    rs = np.random.RandomState(20)
+    q, k, v = _qkv(rs, 1, 16, 16, 2, 2, d, torch.bfloat16, dev, "bshd")
+    want = r"\(8, 12, 16, 32, 64, 128\)"
+    with pytest.raises(ValueError, match=want):
+        flash_forward(q, k, v, scale=0.3, causal=True)
+    with pytest.raises(ValueError, match=want):
+        decode_attention(q[0], k[0], v[0], 1)
+    kp = torch.zeros((N_PAGES, 2, 8, d), device=dev)
+    with pytest.raises(ValueError, match=want):
+        paged_decode_attention(
+            torch.zeros((4, 1, 2, 1, d), device=dev), kp, kp,
+            torch.from_numpy(T).to(dev), torch.from_numpy(TABLE).to(dev))
+
+
+# --- kernel entry points the oracle lint holds (tools/lint_torch_kernel_
+# --- oracles.py): each named by a card case against its plain version ---
+
+
+@pytest.mark.parametrize("d", [8, 64])
+def test_launch_dq_and_dkv_match_the_plain_backward(dev, d):
+    """``launch_dq`` and ``launch_dkv`` (one kernel each, as chip_smoke
+    times them) against ``flash_backward_reference``."""
+    from distkeras_tpu_torch.ops.flash_attention import launch_dkv, launch_dq
+    args, kw = _backward_case(np.random.RandomState(21), dev, 2, 200, 4, 2,
+                              d)
+    q, k, v, out, lse, dout, delta = args
+    before = kernels.launch_counts()
+    got = launch_dq(q, k, v, lse, dout, delta, kw["scale"], True, None,
+                    "bshd") + \
+        launch_dkv(q, k, v, lse, dout, delta, kw["scale"], True, None,
+                   "bshd")
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    _assert_backward_matches_plain(args, kw, got)
+
+
+def test_prng_categorical_equals_the_plain_gumbel_argmax(dev):
+    """``prng.categorical`` on a card key: one K7 Gumbel field over the
+    logits' whole shape (``draw_reference``'s counters), then the argmax:
+    the same tokens as the plain field's argmax (logits spread far beyond
+    the field's ulps)."""
+    from distkeras_tpu_torch.ops import prng
+    key = prng.key(11)
+    logits = torch.from_numpy(np.random.RandomState(22).randn(6, 500)
+                              .astype(np.float32) * 4).to(dev)
+    before = kernels.launch_counts()["prng"]
+    got = prng.categorical(key.to(dev), logits)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["prng"] == before + 1
+    tiny = float(torch.finfo(torch.float32).tiny)
+    field = prng.draw_reference(key[None].to(dev), logits.numel(),
+                                prng.GUMBEL, tiny, 1.0).reshape(6, 500)
+    assert torch.equal(got, torch.argmax(field + logits, dim=-1))
+
+
+def test_sample_tokens_and_launch_kernel_match_the_plain_sampler(dev):
+    """The fused sampler's pieces: ``launch_kernel`` (one K4 launch) and
+    ``sample_tokens`` (K7's Gumbel field, then K4) against
+    ``sample_epilogue_reference`` on the same field; greedy, top-k and
+    temperature rows with no nucleus cut, so no boundary parting."""
+    from distkeras_tpu_torch.ops import prng
+    from distkeras_tpu_torch.ops.sampling import (gumbel_noise,
+                                                  launch_kernel,
+                                                  sample_tokens)
+    rs = np.random.RandomState(23)
+    logits = torch.from_numpy(rs.randn(4, 1000).astype(np.float32)
+                              * 3).to(dev)
+    temp = torch.tensor([0.0, 0.7, 1.0, 1.3], device=dev)
+    top_k = torch.tensor([0, 5, 0, 40], device=dev)
+    top_p = torch.ones(4, device=dev)
+    keys = prng.split(prng.key(7), 4).to(dev)
+    field = gumbel_noise(keys, 1000)
+    ref = sample_epilogue_reference(logits, temp, top_k, top_p, field)
+    before = kernels.launch_counts()
+    got = launch_kernel(logits, temp, top_k, top_p, field)
+    fused = sample_tokens(logits, temp, top_k, top_p, keys)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["sample_epilogue"] == before["sample_epilogue"] + 2
+    assert after["prng"] == before["prng"] + 1
+    assert torch.equal(got, ref) and torch.equal(fused, ref)
+
+
+def test_fused_moe_apply_on_card_equals_its_plain_path(dev):
+    """``fused_moe_apply`` (K6a forward; K6b and K6c in its backward) on
+    the card against the same call on CPU tensors, which takes
+    ``gather_gemm1_reference`` and the plain backward versions: float32,
+    one top-2 plan of 4 experts with dropped slots."""
+    from distkeras_tpu_torch.models.moe import _dispatch_plan
+    n, d, hid, e, k, cap = 40, 24, 48, 4, 2, 12
+    rs = np.random.RandomState(24)
+    topi = torch.from_numpy(np.argsort(rs.randn(n, e), axis=1)[:, :k]
+                            .astype(np.int64))
+    gates = torch.from_numpy(rs.rand(n, k).astype(np.float32))
+    dest, _, sg, keep = _dispatch_plan(topi, gates, e, cap)
+    f = lambda *s, sc=1.0: torch.from_numpy(       # noqa: E731
+        (rs.randn(*s) * sc).astype(np.float32))
+    leaves = (f(n, d), f(e, d, hid, sc=0.3), f(e, hid, sc=0.1),
+              f(e, hid, d, sc=0.3), f(e, d, sc=0.1))
+    cot = f(n, d)
+
+    def run(device):
+        ls = [t.to(device).requires_grad_(True) for t in leaves]
+        out = moe_kernels.fused_moe_apply(
+            *ls, sg.to(device), dest.to(device), keep.to(device),
+            capacity=cap)
+        return [out] + list(torch.autograd.grad(out, ls, cot.to(device)))
+
+    before = kernels.launch_counts()
+    card = run(dev)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for name in ("moe_gather_gemm1", "moe_bwd_dx", "moe_bwd_dw1"):
+        assert after[name] > before[name], name
+    for a, b in zip(card, run("cpu")):
+        scale = max(1.0, b.abs().max().item())
+        assert (a.cpu() - b).abs().max().item() <= 1e-4 * scale

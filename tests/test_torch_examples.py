@@ -59,13 +59,21 @@ def test_port_streaming_inference(capsys):
     assert "streamed 10624 rows" in capsys.readouterr().out
 
 
-def test_examples_default_to_the_card(monkeypatch):
+#: every example of the port
+EXAMPLES = ["streaming_inference", "mnist_workflow", "criteo_wide_deep",
+            "higgs_physics", "continuous_batching", "lm_generate",
+            "speculative_serving", "router_serving", "loadgen_scenario",
+            "request_tracing", "moe_serving", "packed_moe_serving",
+            "telemetry_tour", "vit_finetune_callbacks"]
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_default_to_the_card(monkeypatch, name):
     """Without ``--device`` an example runs on CUDA, and without a card
     that raises instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
-    monkeypatch.setattr(sys, "argv", ["streaming_inference"])
-    mod = importlib.import_module(
-        "distkeras_tpu_torch.examples.streaming_inference")
+    monkeypatch.setattr(sys, "argv", [name])
+    mod = importlib.import_module(f"distkeras_tpu_torch.examples.{name}")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main()

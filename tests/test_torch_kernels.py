@@ -461,34 +461,41 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
     headers it includes, directly or through another header: editing
     ``sm90.cuh`` renames the libraries of ``moe_gemm.cu``, ``moe_bwd.cu``
     (both through ``moe_tc.cuh``), ``flash_bwd.cu``, ``flash_fwd.cu``,
-    ``paged_decode.cu``, ``decode_attention.cu``, ``quant_matmul.cu`` and
-    ``sampling.cu``, editing ``moe_tc.cuh`` those of the two MoE sources,
-    editing
-    ``dequant.cuh`` those of the paged and the slab decode and the
-    quantized matmul (a stale build is never reused), and no other; an
-    unchanged tree keeps every name."""
+    the two paged and the two slab decode units (through their headers),
+    ``quant_matmul.cu`` and ``sampling.cu``, editing ``moe_tc.cuh`` those
+    of the two MoE sources, editing ``dequant.cuh`` those of the paged
+    and the slab decode and the quantized matmul, editing a decode header
+    those of its two units (a stale build is never reused), and no
+    other; an unchanged tree keeps every name."""
     csrc = tmp_path / "csrc"
     shutil.copytree(os.path.join(compat.PACKAGE_DIR, "csrc"), csrc)
     monkeypatch.setattr(compat, "PACKAGE_DIR", str(tmp_path))
     monkeypatch.setenv("DKT_KERNEL_BUILD_DIR", str(tmp_path / "build"))
     sources = sorted(set(kernels.SOURCES.values()))
+    paged = {"paged_decode.cu", "paged_decode_q.cu"}
+    slab = {"decode_attention.cu", "decode_attention_q8.cu"}
     for src in ("flash_bwd.cu", "flash_fwd.cu"):
         assert kernels._inputs(src) == [src, "sm90.cuh"]
     for src in ("moe_bwd.cu", "moe_gemm.cu"):
         assert kernels._inputs(src) == [src, "moe_tc.cuh", "sm90.cuh"]
-    for src in ("paged_decode.cu", "decode_attention.cu", "quant_matmul.cu"):
-        assert kernels._inputs(src) == [src, "dequant.cuh", "sm90.cuh"]
+    for srcs, head in ((paged, "paged_decode.cuh"),
+                       (slab, "decode_attention.cuh")):
+        for src in srcs:
+            assert kernels._inputs(src) == [src, head, "dequant.cuh",
+                                            "sm90.cuh"]
+    assert kernels._inputs("quant_matmul.cu") == [
+        "quant_matmul.cu", "dequant.cuh", "sm90.cuh"]
     assert kernels._inputs("sampling.cu") == ["sampling.cu", "sm90.cuh"]
     before = {src: kernels._library_path(src) for src in sources}
     assert {src: kernels._library_path(src) for src in sources} == before
     for name, renamed in (
             ("sm90.cuh", {"flash_bwd.cu", "flash_fwd.cu", "moe_bwd.cu",
-                          "moe_gemm.cu", "paged_decode.cu",
-                          "decode_attention.cu", "quant_matmul.cu",
-                          "sampling.cu"}),
+                          "moe_gemm.cu", "quant_matmul.cu",
+                          "sampling.cu"} | paged | slab),
             ("moe_tc.cuh", {"moe_bwd.cu", "moe_gemm.cu"}),
-            ("dequant.cuh", {"paged_decode.cu", "decode_attention.cu",
-                             "quant_matmul.cu"})):
+            ("dequant.cuh", {"quant_matmul.cu"} | paged | slab),
+            ("paged_decode.cuh", paged),
+            ("decode_attention.cuh", slab)):
         header = csrc / name
         header.write_text(header.read_text() + "\n// edited\n")
         after = {src: kernels._library_path(src) for src in sources}

@@ -539,3 +539,23 @@ def test_tape_peak_table_and_cpu_mfu():
     logs = t.epoch_end(64)
     assert "mfu" not in logs and logs["examples_per_sec"] > 0
     assert "mfu" not in t.snapshot()
+
+
+def test_jsonl_round_trip_keeps_metrics_with_no_series(tmp_path):
+    """A metric registered and never set (an SLO engine's ``slo.breach``
+    before any breach) comes back from the port's JSONL log as an empty
+    series; JAX's reader skips the record it does not know."""
+    p = pobs.MetricsRegistry()
+    p.counter("slo.breach")
+    p.gauge("slo.burn_rate")
+    p.histogram("app.latency_s")
+    p.counter("app.requests").inc(2, route="a")
+    path = str(tmp_path / "p.jsonl")
+    pexp.JsonlExporter(path).export(p.snapshot(), [])
+    snap, _ = pexp.read_jsonl(path)
+    assert snap == json.loads(json.dumps(p.snapshot()))
+    assert snap["counters"]["slo.breach"] == {}
+    jsnap, _ = jexp.read_jsonl(path)
+    assert "slo.breach" not in jsnap["counters"]
+    assert jsnap["counters"]["app.requests"] == \
+        snap["counters"]["app.requests"]
