@@ -290,14 +290,15 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     at ``LM_CFG`` widths with phase 7's data: 8 steps with
     ``fused_vocab_head=True`` and 8 without (losses and the head's
     gradient within 5e-2, each head's peak memory and warm step, the
-    loss's device ms); 2 epochs with ``checkpoint_dir`` against the same
+    loss's device ms); at ``RESUME_LAYERS`` blocks, 2 epochs with
+    ``checkpoint_dir`` against the same
     run preempted after epoch 0 and resumed by a fresh trainer (the final
     carry bitwise), and with ``checkpoint_async=True`` (save() ms against
     the writes' seconds, a checkpoint's bytes); the embedding and block 0
     frozen for 4 steps (bitwise unchanged, the rest moved); 4 npz shards
     through the prefetcher against the in-memory epoch (losses bitwise).
-    Every LM run launches exactly 12 of each flash kernel and one K7 a
-    step.
+    Every LM run launches exactly one of each flash kernel a block and
+    one K7 a step.
 32. observability and resilience (``obs_phase``): the 218M LM at
     ``LM_CFG`` behind the default engine with the tracer, the flight
     recorder, ``[ttft_p99, tpot_p99, availability]`` SLOs and a time
@@ -327,7 +328,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     ``Router.submit``, ``PrefixAffinity.rank``, both controllers'
     ``tick`` and a key replay under ``set_sync_debug_mode("error")``,
     and ``transfer_out`` + ``transfer_in`` of a live stream after the
-    pipeline drain; (c) the JAX scenarios' traces at serving lengths
+    pipeline drain; (c) on the LM at ``ROUTER_REPLAY_LAYERS`` blocks,
+    the JAX scenarios' traces at serving lengths
     (prompt median 128, max 480; output median 32, max 64; 128-token
     templates): the diurnal trace through a two-replica fleet and
     through one engine, and the flash-crowd trace with its scripted
@@ -433,13 +435,14 @@ from distkeras_tpu_torch.models.decoding import (CACHE_PLANES,
 from distkeras_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference, valid_range)
 from distkeras_tpu_torch.ops.flash_attention import (
-    attention_delta, flash_backward_reference, flash_forward,
-    flash_forward_reference, launch_dkv, launch_dq)
+    attention_delta, flash_attention, flash_backward_reference,
+    flash_forward, flash_forward_reference, launch_dkv, launch_dq)
 from distkeras_tpu_torch.ops.moe_kernels import (
     bwd_dw1, bwd_dw1_reference, bwd_dx, bwd_dx_reference, fused_moe_apply,
     gather_gemm1, gather_gemm1_reference, gemm1_plan, row_gates,
     src_tokens)
 from distkeras_tpu_torch.ops import prng
+from distkeras_tpu_torch.ops import ring_attention as ring_module
 from distkeras_tpu_torch.ops.losses import (
     fused_linear_cross_entropy, get_loss,
     sparse_categorical_crossentropy_from_logits, with_class_weight,
@@ -466,7 +469,13 @@ from distkeras_tpu_torch.parallel import (DOWNPOUR, SingleTrainer,
 from distkeras_tpu_torch.parallel.engine import (
     AdagAlgo, AveragingAlgo, DistributedEngine, DownpourAlgo, DynSGDAlgo,
     ElasticAlgo, EngineConfig, WorkerStack)
+from distkeras_tpu_torch.parallel import collectives
+from distkeras_tpu_torch.parallel.launch import World
+from distkeras_tpu_torch.parallel.mesh import make_mesh
 from distkeras_tpu_torch.parallel.worker import _fused_head_parts
+from distkeras_tpu_torch.ops.ring_attention import EMPTY_LSE, ring_attention
+from distkeras_tpu_torch.ops.ring_attention import merge as ring_merge
+from distkeras_tpu_torch.ops.ulysses import ulysses_attention
 from distkeras_tpu_torch.resilience import TrainingSupervisor, faults
 from distkeras_tpu_torch.serving import (AutoscaleController, DraftModel,
                                          EngineReplica, KVPool, NgramDraft,
@@ -921,11 +930,12 @@ def built_on_card(spec, device) -> Model:
 
 def build_lm(device, *, num_layers=LM_CFG["num_layers"],
              d_model=LM_CFG["d_model"], num_heads=LM_CFG["num_heads"],
-             vocab=LM_CFG["vocab"], dtype="bfloat16"):
+             vocab=LM_CFG["vocab"], dtype="bfloat16", **lm_kw):
     return built_on_card(
         zoo.transformer_lm(vocab, d_model=d_model, num_heads=num_heads,
                            num_layers=num_layers,
-                           mlp_ratio=LM_CFG["mlp_ratio"], dtype=dtype),
+                           mlp_ratio=LM_CFG["mlp_ratio"], dtype=dtype,
+                           **lm_kw),
         device)
 
 
@@ -6243,25 +6253,34 @@ def _final_carry(manager, step):
                                                f"step_{step}"))
 
 
+#: phase 31 (b)'s LM depth (``LM_CFG`` widths): four blocks (checkpoints
+#: of ~1.4 GB against 2.62 GB at twelve), which keeps the script inside
+#: its time limit on a slow host
+RESUME_LAYERS = 4
+
+
 def resume_phase(dev, card, tmp):
     """(b) 2 epochs uninterrupted with ``checkpoint_dir``; the same run
     stopped after epoch 0 by ``request_preempt()`` and finished by a
     fresh trainer with ``resume=True``; once more with
-    ``checkpoint_async=True``: the final carries bitwise equal."""
+    ``checkpoint_async=True``: the final carries bitwise equal. The LM
+    keeps ``LM_CFG`` widths at ``RESUME_LAYERS`` blocks: the checkpoint
+    writes, not the depth, are what this checks."""
     free = shutil.disk_usage(tmp).free
     if free < CKPT_FREE_BYTES:
         raise AssertionError(f"phase 31 needs {CKPT_FREE_BYTES} free bytes "
                              f"under {tmp} for its checkpoints; {free} free")
     data = training_data(LM_CFG["vocab"])
     steps = TRAIN_ROWS // TRAIN_BATCH
-    whole = lm_trainer(build_lm(dev), _TimedTrainer, 2,
+    shallow = functools.partial(build_lm, dev, num_layers=RESUME_LAYERS)
+    whole = lm_trainer(shallow(), _TimedTrainer, 2,
                        checkpoint_dir=os.path.join(tmp, "whole"))
     check_trainer_launches("the uninterrupted run", counted_train(
-        whole, data), 2 * steps)
+        whole, data), 2 * steps, num_layers=RESUME_LAYERS)
     holder = []
     stop = LambdaCallback(on_epoch_end=lambda e, logs: e == 0
                           and holder[0].request_preempt())
-    first = lm_trainer(build_lm(dev), _TimedTrainer, 2, callbacks=[stop],
+    first = lm_trainer(shallow(), _TimedTrainer, 2, callbacks=[stop],
                        checkpoint_dir=os.path.join(tmp, "stopped"))
     holder.append(first)
     counted_train(first, data)
@@ -6270,10 +6289,10 @@ def resume_phase(dev, card, tmp):
                              "after epoch 0")
     del first
     gc.collect()
-    resumed = lm_trainer(build_lm(dev), _TimedTrainer, 2, resume=True,
+    resumed = lm_trainer(shallow(), _TimedTrainer, 2, resume=True,
                          checkpoint_dir=os.path.join(tmp, "stopped"))
     launches = check_trainer_launches("the resumed run", counted_train(
-        resumed, data), steps)
+        resumed, data), steps, num_layers=RESUME_LAYERS)
     if len(resumed.get_history().epochs) != 1:
         raise AssertionError("the resumed run did not start at epoch 1")
     a, b = _final_carry(whole.manager, 1), _final_carry(resumed.manager, 1)
@@ -6284,7 +6303,7 @@ def resume_phase(dev, card, tmp):
     del resumed
     gc.collect()
     shutil.rmtree(os.path.join(tmp, "stopped"))
-    queued = lm_trainer(build_lm(dev), _TimedTrainer, 2,
+    queued = lm_trainer(shallow(), _TimedTrainer, 2,
                         checkpoint_async=True,
                         checkpoint_dir=os.path.join(tmp, "async"))
     counted_train(queued, data)
@@ -6878,6 +6897,11 @@ ROUTER_SPEC_KW = dict(prompt_max=480, output_max=64, length_quantum=16)
 ROUTER_MAX_LEN = ROUTER_SPEC_KW["prompt_max"] + ROUTER_SPEC_KW["output_max"]
 #: virtual seconds per fleet step of the replays' iteration clock
 ROUTER_DT = 1e-3
+#: (c)'s replays build the LM at this depth (``LM_CFG`` widths): the
+#: fleet's schedule (sheds, failovers, autoscaling) follows the traces'
+#: lengths and the page counts, not the depth, and a host-bound decode
+#: step issues its launches layer by layer
+ROUTER_REPLAY_LAYERS = 4
 #: the kernels phase 33 counts on each of its paths
 ROUTER_KERNELS = ("flash_fwd", "paged_decode", "sample_epilogue", "prng")
 
@@ -7178,6 +7202,7 @@ def router_replay(model, card, trace, mem):
         raise AssertionError(f"phase 33 (c): the replay launched "
                              f"{launches}")
     print(f"phase 33 (c) trace one ({len(trace)} requests, "
+          f"{ROUTER_REPLAY_LAYERS}-layer LM, "
           f"diurnal_burst_scenario phases at scale {ROUTER_SCALE}) "
           f"through the fleet: {wall:.2f} s; launches "
           f"{ {n: launches[n] for n in ROUTER_KERNELS} }", flush=True)
@@ -7250,6 +7275,7 @@ def router_chaos(model, card, trace, mem, tag):
         "report": report_to_json(build_report(res))})
     print_replay(f"trace two ({tag})", res, walls, card, fleet.counters())
     print(f"phase 33 (c) trace two ({tag}, {len(trace)} requests, "
+          f"{ROUTER_REPLAY_LAYERS}-layer LM, "
           f"flash_crowd_chaos_scenario phases at scale {ROUTER_SCALE}): "
           f"{wall:.2f} s; launches "
           f"{ {n: launches[n] for n in ROUTER_KERNELS} }; incidents "
@@ -7288,7 +7314,8 @@ def router_chaos(model, card, trace, mem, tag):
 
 
 def router_phase(dev, card, tie_rel):
-    """Phase 33: the serving tier on the card. Returns each path's launch
+    """Phase 33: the serving tier on the card, (c)'s replays on the LM
+    at ``ROUTER_REPLAY_LAYERS`` blocks. Returns each path's launch
     counts."""
     model = build_lm(dev)
     vocab = LM_CFG["vocab"]
@@ -7297,8 +7324,9 @@ def router_phase(dev, card, tie_rel):
     requests = obs_workload(vocab)
     router, ref, disagg = router_disagg(model, card, tie_rel, requests, mem)
     router_sync_free(router, model, card, tie_rel, requests, ref)
-    del router
+    del router, model
     gc.collect()
+    model = build_lm(dev, num_layers=ROUTER_REPLAY_LAYERS)
     t1 = time.perf_counter()
     replay_launches = router_replay(
         model, card, router_trace(diurnal_burst_scenario, vocab), mem)
@@ -8291,6 +8319,523 @@ def examples_and_small_dims_phase(dev, card):
     return rows, launches
 
 
+# --- phase 36: sequence parallelism over a world of processes --------------
+
+#: phase 36's world: four processes share the card (gloo, staged through
+#: pinned host memory); the LM's widths at a global sequence of 8192
+SP_RANKS = 4
+SP_SEQ = 8192
+#: lengths of the packed row's documents: they straddle the shard edges
+SP_DOC_LEN = (300, 3000)
+#: (c): adam steps a sequence-parallel LM takes, and its learning rate
+SP_LM_STEPS = 3
+SP_LM_LR = 1e-3
+#: ring/Ulysses outputs and gradients against single-process flash
+#: attention on the whole sequence, relative to each output's max: bf16
+#: roundings of each hop's output and gradients before the float32 sums
+SP_REL_TOL = 2e-2
+#: (c): the first step's loss and each gradient leaf (norm-relative)
+#: against a single-process run of the same weights
+SP_LM_REL_TOL = 5e-2
+#: (b)'s cases: (path, kind, causal, packed ids)
+SP_CASES = (("ring_causal", "ring", True, False),
+            ("ring_full", "ring", False, False),
+            ("ring_causal_packed", "ring", True, True),
+            ("ring_full_packed", "ring", False, True),
+            ("ulysses_flash", "flash", True, True),
+            ("ulysses_xla", "xla", True, True))
+
+
+def sp_ids(total=None, seed=SEED + 36):
+    """One packed row ``[1, total]`` (default ``SP_SEQ``) of sorted
+    document ids."""
+    total = SP_SEQ if total is None else total
+    rs = np.random.RandomState(seed)
+    lens = []
+    while sum(lens) < total:
+        lens.append(rs.randint(*SP_DOC_LEN))
+    return np.repeat(np.arange(len(lens)), lens)[None, :total] \
+        .astype(np.int32)
+
+
+def _pairs(qseg, kseg, causal) -> int:
+    """Admitted (query, key) pairs of one hop."""
+    qs, ks = qseg[0], kseg[0]
+    same = qs[:, None] == ks[None, :]
+    if causal:
+        same &= np.tri(len(qs), len(ks), dtype=bool)
+    return int(same.sum())
+
+
+def _rel(a, r) -> float:
+    return float((a.detach().float() - r.detach().float()).abs().max()
+                 / r.detach().float().abs().max())
+
+
+def ring_hop_phase(dev):
+    """Phase 36 (a): K1f, K1dq and K1dkv at a ring hop's shape (B1 H16
+    S2048 D64 bf16) with q-side ids of shard 1 and the k-side ids of the
+    shard the hop holds: shard 0 (full) and shard 1 again through its
+    own pointer (causal). The two hops merge as the ring merges them and
+    the backward takes the merged lse, as the ring's does. Against the
+    plain versions: out on the rows the hop admits a key for (an empty
+    row's lse at NEG_INF on both), lse, and dq/dk/dv relative."""
+    h = LM_CFG["num_heads"]
+    d = LM_CFG["d_model"] // h
+    sl = SP_SEQ // SP_RANKS
+    g = torch.Generator(device="cpu").manual_seed(SEED + 36)
+
+    def rnd():
+        return torch.randn(1, sl, h, d, generator=g).to(dev, torch.bfloat16)
+
+    q, dout = rnd(), rnd()
+    k, v = {0: rnd(), 1: rnd()}, {0: rnd(), 1: rnd()}
+    ids = sp_ids()
+    qseg = torch.from_numpy(ids[:, sl:2 * sl].copy()).to(dev)
+    kseg = {0: torch.from_numpy(ids[:, :sl].copy()).to(dev),
+            1: qseg.clone()}
+    scale = d ** -0.5
+    hops = (("causal", 1, True), ("full", 0, False))
+    fwd, acc, lse = {}, None, None
+    for name, j, causal in hops:
+        kw = dict(scale=scale, causal=causal, segment_ids=qseg,
+                  kv_segment_ids=kseg[j])
+        o, l = flash_forward(q, k[j], v[j], **kw)
+        fwd[name] = (o, l) + flash_forward_reference(q, k[j], v[j], **kw)
+        acc, lse = ring_merge(acc, lse, o, l)
+    out = acc.to(torch.bfloat16)
+    delta = attention_delta(out, dout)
+    rows = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
+    for name, j, causal in hops:
+        o, l, ro, rl = fwd[name]
+        kw = dict(scale=scale, causal=causal, segment_ids=qseg,
+                  kv_segment_ids=kseg[j])
+        live = rl > EMPTY_LSE
+        if not torch.equal(live, l > EMPTY_LSE):
+            raise AssertionError(f"phase 36 (a) {name}: the kernel's empty "
+                                 "rows differ from the plain version's")
+        mask = live.transpose(1, 2)[..., None]
+        err_out = float(((o.float() - ro.float()).abs() * mask).max())
+        err_lse = float((l - rl)[live].abs().max())
+        args = (q, k[j], v[j], lse, dout, delta, scale, causal, None,
+                "bshd")
+        ids_kw = dict(segment_ids=qseg, kv_segment_ids=kseg[j])
+        got = launch_dq(*args, **ids_kw) + launch_dkv(*args, **ids_kw)
+        ref = flash_backward_reference(q, k[j], v[j], out, lse, dout, delta,
+                                       **kw)
+        rel = {gname: _rel(a, r) for gname, a, r in
+               zip(("dq", "dk", "dv"), got, ref)}
+        errs = {gname: float((a.float() - r.float()).abs().max())
+                for gname, a, r in zip(("dq", "dk", "dv"), got, ref)}
+        ok = (err_out <= KERNEL_BF16_TOL and err_lse <= LSE_TOL
+              and max(rel.values()) <= BWD_BF16_REL_TOL)
+        ms = {"fwd": graph_ms(lambda: flash_forward(q, k[j], v[j], **kw)),
+              "dq": time_ms(lambda: launch_dq(*args, **ids_kw), iters=10),
+              "dkv": time_ms(lambda: launch_dkv(*args, **ids_kw),
+                             iters=10)}
+        plain_fwd = time_ms(lambda: flash_forward_reference(
+            q, k[j], v[j], **kw), iters=3, warmup=1)
+        plain_bwd = time_ms(lambda: flash_backward_reference(
+            q, k[j], v[j], out, lse, dout, delta, **kw), iters=3, warmup=1)
+        sdpa_f, sdpa_fb = _sdpa_hop_ms(q, k[j], v[j], dout, qseg, kseg[j],
+                                       causal)
+        pairs = _pairs(qseg.cpu().numpy(), kseg[j].cpu().numpy(), causal)
+        work = h * pairs * d
+        esz = q.element_size()
+        qbytes = esz * q.numel()
+        rowbytes, segbytes = 4 * l.numel(), 4 * (qseg.numel() + sl)
+        fwd_bound = bound_ms(4.0 * work, 4 * qbytes + rowbytes + segbytes,
+                             PEAK_BF16_FLOPS)
+        in_bytes = 4 * qbytes + 2 * rowbytes + segbytes
+        dq_bound = bound_ms(6.0 * work, in_bytes + qbytes, PEAK_BF16_FLOPS)
+        dkv_bound = bound_ms(8.0 * work, in_bytes + 2 * qbytes,
+                             PEAK_BF16_FLOPS)
+        print(f"phase 36 (a) ring hop {name} B1 H{h} S{sl} D{d} bf16, "
+              f"q-side ids of shard 1, k-side of shard {j} (rows with no "
+              f"key here: {int((~live).sum())} of {live.numel()}): max abs "
+              f"err out {err_out:.3e} (tol {KERNEL_BF16_TOL}), lse "
+              f"{err_lse:.3e} (tol {LSE_TOL}); dq/dk/dv relative "
+              f"{rel['dq']:.3e} {rel['dk']:.3e} {rel['dv']:.3e} (tol "
+              f"{BWD_BF16_REL_TOL}); kernel ms fwd {ms['fwd']:.4f}, dq "
+              f"{ms['dq']:.4f}, dk/dv {ms['dkv']:.4f}; bounds (admitted "
+              f"pairs {pairs}) fwd {fwd_bound[0]:.4f} ({fwd_bound[1]}), dq "
+              f"{dq_bound[0]:.4f}, dk/dv {dkv_bound[0]:.4f}; plain fwd "
+              f"{plain_fwd:.4f} ms, backward {plain_bwd:.4f} ms; masked sdpa "
+              f"fwd {sdpa_f:.4f} ms, fwd+bwd {sdpa_fb:.4f} ms", flush=True)
+        if not ok:
+            raise AssertionError(f"phase 36 (a): the flash kernels disagree "
+                                 f"with their plain versions on the {name} "
+                                 "ring hop")
+        for kname, err, kms, bnd, plain_ms, lib in (
+                ("flash_fwd", err_out, ms["fwd"], fwd_bound, plain_fwd,
+                 sdpa_f),
+                ("flash_bwd_dq", errs["dq"], ms["dq"], dq_bound, plain_bwd,
+                 sdpa_fb - sdpa_f),
+                ("flash_bwd_dkv", max(errs["dk"], errs["dv"]), ms["dkv"],
+                 dkv_bound, plain_bwd, sdpa_fb - sdpa_f)):
+            rows[kname].append(dict(name=f"ring hop {name}", err=err,
+                                    ms=kms, plain_ms=plain_ms,
+                                    library_ms=lib, bound_ms=bnd[0],
+                                    bound_by=bnd[1]))
+    return rows
+
+
+def _sdpa_hop_ms(q, k, v, dout, qseg, kseg, causal):
+    """``scaled_dot_product_attention`` with the hop's boolean mask,
+    forward and forward+backward: a yardstick only."""
+    qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_()
+                  for x in (q, k, v))
+    mask = (qseg[:, :, None] == kseg[:, None, :])[:, None]
+    if causal:
+        i = torch.arange(q.shape[1], device=q.device)
+        mask = mask & (i[None, :] <= i[:, None])
+    dt = dout.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dt)
+
+    with torch.no_grad():
+        f_ms = time_ms(fwd)
+    return f_ms, time_ms(fwd_bwd)
+
+
+_SP_MESH = {}
+
+
+def _sp_mesh(device):
+    """This rank's ``sp`` mesh (made once a process: its groups are made
+    collectively)."""
+    if device not in _SP_MESH:
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _SP_MESH[device] = make_mesh(SP_RANKS, "sp", device=device)
+    return _SP_MESH[device]
+
+
+def _sp_attention(kind, q, k, v, seg, causal):
+    if kind == "ring":
+        return ring_attention(q, k, v, axis_name="sp", causal=causal,
+                              segment_ids=seg)
+    return ulysses_attention(q, k, v, axis_name="sp", causal=causal,
+                             impl=kind, segment_ids=seg)
+
+
+def _wall_ms(fn, n=2) -> float:
+    """Mean wall ms of ``fn`` between card syncs (the other ranks run at
+    the same time on the same card)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _ring_hop_ms(fn, n=2) -> list:
+    """Wall ms of each hop of the ring forward ``fn()``, mean of ``n``
+    calls: a card sync and a clock reading where ``ops.ring_attention``
+    posts each hop's shift (``_shift``, called once a hop) and after the
+    call, so hop ``t`` spans its shift's posting, its ``flash_forward``
+    if it launches one, its merge and the wait for the next shard. The
+    staged shift syncs the card there anyway."""
+    marks, orig = [], ring_module._shift
+
+    def marked(*args):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return orig(*args)
+
+    per = []
+    ring_module._shift = marked
+    try:
+        for _ in range(n):
+            marks.clear()
+            fn()
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            per.append(np.diff(marks) * 1e3)
+    finally:
+        ring_module._shift = orig
+    return np.mean(per, axis=0).tolist()
+
+
+def sp_attention_rank(ids_np, device):
+    """Phase 36 (b), one rank: each ``SP_CASES`` case forward and
+    backward over this rank's shard of the whole-sequence q/k/v (drawn
+    from one seed on every rank), the launch counts of the call, the
+    gathered output and gradients, then the forward's call ms and, for
+    the ring, each hop's ms, K1f ms at the hop's shape and a staged
+    shift's ms. Rank 0 holds every case
+    against single-process ``flash_attention`` on the whole sequence."""
+    dev = torch.device(device)
+    mesh = _sp_mesh(device)
+    i, n = mesh.axis_index("sp"), SP_RANKS
+    h = LM_CFG["num_heads"]
+    d = LM_CFG["d_model"] // h
+    sl = SP_SEQ // n
+    g = torch.Generator(device=dev).manual_seed(SEED + 360)
+    q, k, v, dout = (torch.randn(1, SP_SEQ, h, d, generator=g, device=dev)
+                     .to(torch.bfloat16) for _ in range(4))
+    ids = torch.from_numpy(ids_np).to(dev)
+    blk = slice(i * sl, (i + 1) * sl)
+    out = {"rank": i, "launches": {}, "ms": {}, "rel": {}}
+    with mesh:
+        for path, kind, causal, packed in SP_CASES:
+            seg = ids[:, blk].contiguous() if packed else None
+            ql, kl, vl = (x[:, blk].clone().requires_grad_()
+                          for x in (q, k, v))
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            y = _sp_attention(kind, ql, kl, vl, seg, causal)
+            y.backward(dout[:, blk])
+            torch.cuda.synchronize()
+            c = kernels.launch_counts()
+            out["launches"][path] = {name: c[name]
+                                     for name in TRAINING_KERNELS}
+            got = [collectives.all_gather(t.detach(), "sp", axis=1,
+                                          tiled=True)
+                   for t in (y, ql.grad, kl.grad, vl.grad)]
+            fwd = functools.partial(_sp_attention, kind, ql, kl, vl, seg,
+                                    causal)
+            with torch.no_grad():
+                ms = {"call": _wall_ms(fwd)}
+                if kind == "ring":
+                    ms["hops"] = _ring_hop_ms(fwd)
+                    ms["k1f"] = time_ms(lambda: flash_forward(
+                        ql, kl, vl, scale=d ** -0.5, causal=False,
+                        segment_ids=seg, kv_segment_ids=seg), iters=10)
+                    parts = [kl.detach(), vl.detach()] + \
+                        ([] if seg is None else [seg])
+                    ms["staging"] = _wall_ms(
+                        lambda: collectives.shift_start(parts, "sp").wait(),
+                        n=3)
+            out["ms"][path] = ms
+            if i == 0:
+                qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+                ref = flash_attention(qr, kr, vr, causal=causal,
+                                      segment_ids=ids if packed else None)
+                ref.backward(dout)
+                out["rel"][path] = [_rel(a, r) for a, r in
+                                    zip(got, (ref, qr.grad, kr.grad,
+                                              vr.grad))]
+                del qr, kr, vr, ref
+            del got, y, ql, kl, vl
+    return out
+
+
+def _sp_loss_step(model, x, y, scale):
+    """This rank's share of the global mean loss and its gradients,
+    summed over ``sp`` (the global loss's gradients on every rank)."""
+    params = model.params
+    model.module.train()
+    logits = model.module.apply(params, x)
+    loss = get_loss(TRAIN_LOSS)(y, logits) * scale
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    model.module.eval()
+    return (collectives.psum(loss.detach(), "sp"),
+            collectives.psum(list(grads), "sp"))
+
+
+def sp_lm_rank(impl, toks_np, device, steps=None):
+    """Phase 36 (c), one rank: the full-width LM with ``attn_impl=impl``
+    over ``sp``, B1 over the ``SP_SEQ`` tokens (this rank's block),
+    ``steps`` adam steps on the global mean loss with gradients summed
+    over ``sp``; launch counts, losses and step ms. Rank 0 first runs
+    the dense twin (the same seed's weights, bitwise) on the whole
+    sequence and holds the first step's loss and gradients to it."""
+    dev = torch.device(device)
+    steps = SP_LM_STEPS if steps is None else steps
+    mesh = _sp_mesh(device)
+    i, n = mesh.axis_index("sp"), SP_RANKS
+    sl = SP_SEQ // n
+    toks = torch.from_numpy(toks_np).to(dev)
+    x, y = toks[:, :-1], toks[:, 1:]
+    model = build_lm(dev, attn_impl=impl, seq_axis_name="sp")
+    res = {"rank": i}
+    twin = None
+    if i == 0:
+        dense = build_lm(dev)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(dense.params), tree_leaves(model.params)))
+        dense.module.train()
+        logits = dense.module.apply(dense.params, x)
+        loss = get_loss(TRAIN_LOSS)(y, logits)
+        grads = torch.autograd.grad(loss, tree_leaves(dense.params))
+        twin = (float(loss), grads, same)
+        del dense, logits, loss
+        gc.collect()
+    opt = get_optimizer("adam", learning_rate=SP_LM_LR)
+    state = opt.init(model.params)
+    xl, yl = x[:, i * sl:(i + 1) * sl], y[:, i * sl:(i + 1) * sl]
+    with mesh:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        losses, first, walls = [], None, []
+        for step in range(steps):
+            t0 = time.perf_counter()
+            loss, grads = _sp_loss_step(model, xl, yl, sl / SP_SEQ)
+            with torch.no_grad():
+                upd, state = opt.update(tree_unflatten(model.params, grads),
+                                        state, model.params)
+                apply_updates(model.params, upd)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            if step == 0:
+                first = grads
+        c = kernels.launch_counts()
+    res["launches"] = {name: c[name] for name in TRAINING_KERNELS}
+    res["losses"], res["step_ms"] = losses, walls
+    if twin is not None:
+        ref_loss, ref_grads, same = twin
+        res["same_weights"] = same
+        res["loss_rel"] = abs(losses[0] - ref_loss) / abs(ref_loss)
+        res["grad_rel"] = max(
+            float((a.float() - r.float()).norm() / r.float().norm())
+            for a, r in zip(first, ref_grads))
+    return res
+
+
+def _check_sp_counts(path, counts, per_rank):
+    """Each rank's exact launches of the three flash kernels."""
+    for r, c in enumerate(counts):
+        want = per_rank(r)
+        if c != {name: want for name in TRAINING_KERNELS}:
+            raise AssertionError(f"phase 36 {path}: rank {r} launched {c}; "
+                                 f"expected {want} of each flash kernel")
+
+
+def seq_parallel_phase(dev, card):
+    """Phase 36: (a) the ring hop's kernels in this process; (b) ring
+    and Ulysses attention in a world of four processes on the card
+    against single-process flash attention; (c) the full-width LM with
+    ring and with Ulysses-flash attention in the same world against a
+    single-process run; then the ``long_context_serving`` example.
+    Returns the (a) rows and ``{path: summed launches}``."""
+    t0 = time.perf_counter()
+    rows = ring_hop_phase(dev)
+    gc.collect()
+    t1 = time.perf_counter()
+    launches = {}
+    n, layers = SP_RANKS, LM_CFG["num_layers"]
+    with World(SP_RANKS, threads=2, timeout=600) as world:
+        t2 = time.perf_counter()
+        results = world.run(sp_attention_rank, sp_ids(), dev.type)
+        t3 = time.perf_counter()
+        for path, kind, causal, packed in SP_CASES:
+            counts = [r["launches"][path] for r in results]
+            if kind == "ring":
+                _check_sp_counts(path, counts,
+                                 (lambda r: r + 1) if causal
+                                 else (lambda r: n))
+            else:
+                _check_sp_counts(path, counts,
+                                 lambda r: 1 if kind == "flash" else 0)
+            rel = results[0]["rel"][path]
+            ms = "; ".join(
+                f"rank {r['rank']} call {r['ms'][path]['call']:.2f}"
+                + (" hops "
+                   + "/".join(f"{x:.2f}" for x in r["ms"][path]["hops"])
+                   + f" K1f "
+                   f"{r['ms'][path]['k1f']:.4f} staging "
+                   f"{r['ms'][path]['staging']:.2f}"
+                   if kind == "ring" else "") for r in results)
+            print(f"phase 36 (b) {path} on {card}: B1 H{LM_CFG['num_heads']}"
+                  f" S{SP_SEQ} D{LM_CFG['d_model'] // LM_CFG['num_heads']} "
+                  f"bf16 over {n} ranks; launches by rank "
+                  f"{[c['flash_fwd'] for c in counts]} (each flash kernel); "
+                  f"out/dq/dk/dv relative to single-process flash "
+                  f"{', '.join(f'{e:.3e}' for e in rel)} (tol "
+                  f"{SP_REL_TOL}); ms: {ms}", flush=True)
+            if max(rel) > SP_REL_TOL:
+                raise AssertionError(f"phase 36 (b) {path}: the gathered "
+                                     "output or gradients disagree with "
+                                     "single-process flash attention")
+            summed = {name: sum(c[name] for c in counts)
+                      for name in TRAINING_KERNELS}
+            if any(summed.values()):
+                launches[path] = summed
+        gc.collect()
+        t4 = time.perf_counter()
+        rs = np.random.RandomState(SEED + 37)
+        pats = rs.randint(0, LM_CFG["vocab"], (1, 64))
+        toks = np.tile(pats, (1, SP_SEQ // 64 + 1))[:, :SP_SEQ + 1]
+        for impl, path in (("ring", "lm_ring"),
+                           ("ulysses_flash", "lm_ulysses_flash")):
+            t5 = time.perf_counter()
+            res = world.run(sp_lm_rank, impl, toks, dev.type)
+            counts = [r["launches"] for r in res]
+            per = (lambda r: layers * (r + 1) * SP_LM_STEPS) \
+                if impl == "ring" else (lambda r: layers * SP_LM_STEPS)
+            _check_sp_counts(path, counts, per)
+            head = res[0]
+            losses = head["losses"]
+            print(f"phase 36 (c) {path} on {card}: transformer_lm "
+                  f"{LM_CFG} bf16 attn_impl={impl!r} over {n} ranks, B1 x "
+                  f"{SP_SEQ} tokens; losses {np.round(losses, 4).tolist()}; "
+                  f"first step vs single process: loss rel "
+                  f"{head['loss_rel']:.3e}, gradient leaves norm-relative "
+                  f"max {head['grad_rel']:.3e} (tol {SP_LM_REL_TOL}; weights "
+                  f"bitwise the dense twin's: {head['same_weights']}); step "
+                  f"ms by rank "
+                  f"{[np.round(r['step_ms'], 1).tolist() for r in res]}; "
+                  f"launches by rank {[c['flash_fwd'] for c in counts]} "
+                  f"(each flash kernel); {time.perf_counter() - t5:.1f} s",
+                  flush=True)
+            if not (head["same_weights"] and np.isfinite(losses).all()
+                    and head["loss_rel"] <= SP_LM_REL_TOL
+                    and head["grad_rel"] <= SP_LM_REL_TOL
+                    and losses[-1] < losses[0]):
+                raise AssertionError(f"phase 36 (c) {path}: the first step "
+                                     "disagrees with the single-process run "
+                                     "or the loss did not fall")
+            launches[path] = {name: sum(c[name] for c in counts)
+                              for name in TRAINING_KERNELS}
+    t6 = time.perf_counter()
+    example = sp_example_phase(dev, card)
+    launches["example_long_context_serving"] = example
+    t7 = time.perf_counter()
+    print(f"phase 36 took {t7 - t0:.1f} s: (a) {t1 - t0:.1f}, world start "
+          f"{t2 - t1:.1f}, (b) {t3 - t2:.1f}, (c) {t6 - t4:.1f}, example "
+          f"{t7 - t6:.1f}", flush=True)
+    return rows, launches
+
+
+def sp_example_phase(dev, card):
+    """The ``long_context_serving`` example on ``dev``: its own checks,
+    the launches of its one-process parts (the ring part runs in its own
+    world)."""
+    import io
+    from distkeras_tpu_torch.examples import long_context_serving
+    saved = sys.argv
+    sys.argv = ["long_context_serving", "--device", dev.type]
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            err = long_context_serving.main()
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = saved
+    c = {k: n for k, n in kernels.launch_counts().items() if n}
+    out = buf.getvalue()
+    print(f"phase 36 long_context_serving on {card}: "
+          f"{time.perf_counter() - t0:.1f} s; "
+          + "; ".join(out.strip().splitlines()) + f"; launches {c}",
+          flush=True)
+    if not ("OK" in out and err < 1e-4 and c.get("flash_fwd", 0) >= 1
+            and c.get("decode_attention", 0) >= 1):
+        raise AssertionError(f"phase 36: long_context_serving: {out}")
+    return c
+
+
 def _expert_elements(wq) -> int:
     """Elements of a quantized stacked expert leaf, unpacked."""
     return wq["q"].numel() if "q" in wq else 2 * wq["q4"].numel()
@@ -8506,6 +9051,8 @@ def main() -> int:
     data_launches = data_phase(dev, card)
     gc.collect()
     small_rows, example_launches = examples_and_small_dims_phase(dev, card)
+    gc.collect()
+    sp_rows, sp_launches = seq_parallel_phase(dev, card)
 
     by_path = {name: {} for name in kernels.SOURCES}
     for path, c in {**slab_launches, **moe_wq_launches,
@@ -8574,6 +9121,10 @@ def main() -> int:
     for path, c in example_launches.items():
         for name, n in c.items():
             by_path[name][path] = n
+    for path, c in sp_launches.items():
+        for name, n in c.items():
+            if n:
+                by_path[name][path] = n
 
     def entry(name, source, replaces, rows, path):
         main_row = rows[0]
@@ -8590,18 +9141,19 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("flash_fwd", "distkeras_tpu_torch/csrc/flash_fwd.cu",
               "distkeras_tpu/ops/flash_attention.py:321",
-              flash_rows + seg_rows["flash_fwd"], "serving"),
+              flash_rows + seg_rows["flash_fwd"] + sp_rows["flash_fwd"],
+              "serving"),
         entry("paged_decode", "distkeras_tpu_torch/csrc/paged_decode.cuh",
               "distkeras_tpu/ops/paged_attention.py:365", paged_rows,
               "serving"),
         entry("flash_bwd_dq", "distkeras_tpu_torch/csrc/flash_bwd.cu",
               "distkeras_tpu/ops/flash_attention.py:585",
-              bwd_rows["flash_bwd_dq"] + seg_rows["flash_bwd_dq"],
-              "training"),
+              bwd_rows["flash_bwd_dq"] + seg_rows["flash_bwd_dq"]
+              + sp_rows["flash_bwd_dq"], "training"),
         entry("flash_bwd_dkv", "distkeras_tpu_torch/csrc/flash_bwd.cu",
               "distkeras_tpu/ops/flash_attention.py:619",
-              bwd_rows["flash_bwd_dkv"] + seg_rows["flash_bwd_dkv"],
-              "training"),
+              bwd_rows["flash_bwd_dkv"] + seg_rows["flash_bwd_dkv"]
+              + sp_rows["flash_bwd_dkv"], "training"),
         entry("decode_attention",
               "distkeras_tpu_torch/csrc/decode_attention.cuh",
               "distkeras_tpu/ops/decode_attention.py:233",

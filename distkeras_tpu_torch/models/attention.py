@@ -15,9 +15,21 @@ CPU) for ``attn_impl`` ``"auto"`` or ``"flash"``, and through the plain
 layers accept packed-sequence ``segment_ids`` ``[B, S]``
 (``accepts_segment_ids``): attention is restricted to equal ids; RoPE
 positions stay absolute over the packed row, as in JAX :269-275; the
-MLP half ignores the ids. The sequence-parallel implementations
-(``"ring"``, ``"ulysses"``, ``"ulysses_flash"``, ``seq_axis_name``,
-``ring_block_size``) raise naming their ROADMAP item.
+MLP half ignores the ids.
+
+Sequence parallelism (JAX ``_attention_compute`` :130-177): with
+``attn_impl="ring"`` (``ops.ring_attention``, ``ring_block_size`` its
+``block_size``), ``"ulysses"`` or ``"ulysses_flash"``
+(``ops.ulysses``, plain or flash inner attention) and
+``seq_axis_name``, a layer called inside ``shard_map`` over a mesh
+whose ``seq_axis_name`` axis shards the sequence holds one shard ``[B,
+S_l, d]``: RoPE and ``PositionalEmbedding`` use GLOBAL positions,
+``axis_index * S_l`` onwards (JAX :274, :78-108), grouped K/V heads are
+repeated to the query heads for Ulysses (JAX ``_expand_kv``; the ring
+shifts the ``Hkv``-head shards), and the ids are the local shard. A
+bad combination raises what JAX raises: a window with a
+sequence-parallel implementation, or one without ``seq_axis_name``, at
+the call.
 """
 
 from __future__ import annotations
@@ -36,27 +48,66 @@ from distkeras_tpu_torch.ops.attention import (apply_rope,
                                                dot_product_attention)
 from distkeras_tpu_torch.ops.flash_attention import flash_attention
 
-#: attention implementations the port runs; the sequence-parallel ones
-#: (JAX ``_attention_compute`` :130) need a device mesh
+#: attention implementations of one device, and the sequence-parallel
+#: ones (JAX ``_attention_compute`` :130), which run over a mesh axis
 ATTN_IMPLS = ("auto", "flash", "xla")
 SEQ_PARALLEL_IMPLS = ("ring", "ulysses", "ulysses_flash")
-SEQ_PARALLEL_ITEM = ("ROADMAP, Queue 1 item 10 (multi-device "
-                     "parallelism: ring/Ulysses attention)")
 
 
-def check_attn_impl(attn_impl: str, seq_axis_name, ring_block_size=None):
-    """Refuse what the port cannot run: the sequence-parallel
-    implementations and their options raise ``NotImplementedError``
-    naming their ROADMAP item, an unknown name ``ValueError``."""
-    if attn_impl in SEQ_PARALLEL_IMPLS or seq_axis_name is not None \
-            or ring_block_size is not None:
-        raise NotImplementedError(
-            f"sequence-parallel attention (attn_impl={attn_impl!r}, "
-            f"seq_axis_name={seq_axis_name!r}, ring_block_size="
-            f"{ring_block_size!r}) is not ported yet: {SEQ_PARALLEL_ITEM}")
-    if attn_impl not in ATTN_IMPLS:
+def check_attn_impl(attn_impl: str):
+    """An unknown implementation name raises ``ValueError``."""
+    if attn_impl not in ATTN_IMPLS + SEQ_PARALLEL_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; known: "
                          f"{ATTN_IMPLS + SEQ_PARALLEL_IMPLS}")
+
+
+def _axis_bound(axis_name) -> bool:
+    """True inside ``shard_map``/``with mesh:`` over a mesh with the axis;
+    outside, the input holds the FULL sequence (JAX :98-106)."""
+    from distkeras_tpu_torch.parallel.mesh import current_mesh
+    mesh = current_mesh()
+    return mesh is not None and axis_name in mesh.shape
+
+
+def _attention_compute(q, k, v, *, causal, impl, axis_name=None,
+                       ring_block_size=None, window=None,
+                       segment_ids=None):
+    """Dispatch on the implementation (JAX :130-177); q/k/v are BSHD,
+    k/v with the query heads for ``"xla"`` and Ulysses, grouped for the
+    flash and ring implementations. ``segment_ids`` flow to every
+    implementation (the local shard for the sequence-parallel ones)."""
+    if impl in ("auto", "flash"):
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               segment_ids=segment_ids)
+    if window is not None and impl in SEQ_PARALLEL_IMPLS:
+        raise ValueError(
+            f"attn_window is not supported with attn_impl={impl!r} "
+            "(sequence-parallel paths have no windowed variant yet)")
+    if impl == "ring":
+        if not axis_name:
+            raise ValueError(
+                "attn_impl='ring' requires seq_axis_name (the mesh axis the "
+                "sequence is sharded over, e.g. 'sp' from parallel.mesh); "
+                "without it RoPE positions and causal masks would silently "
+                "use shard-local coordinates")
+        from distkeras_tpu_torch.ops.ring_attention import ring_attention
+        return ring_attention(q, k, v, axis_name=axis_name, causal=causal,
+                              block_size=ring_block_size,
+                              segment_ids=segment_ids)
+    if impl in ("ulysses", "ulysses_flash"):
+        if not axis_name:
+            raise ValueError(
+                "attn_impl='ulysses' requires seq_axis_name (the mesh axis "
+                "the sequence is sharded over); without it RoPE positions "
+                "and causal masks would silently use shard-local "
+                "coordinates")
+        from distkeras_tpu_torch.ops.ulysses import ulysses_attention
+        return ulysses_attention(
+            q, k, v, axis_name=axis_name, causal=causal,
+            impl="flash" if impl == "ulysses_flash" else "xla",
+            segment_ids=segment_ids)
+    return dot_product_attention(q, k, v, causal=causal, window=window,
+                                 segment_ids=segment_ids)
 
 
 @register_layer
@@ -106,17 +157,16 @@ class RMSNorm(Layer):
 
 @register_layer
 class PositionalEmbedding(Layer):
-    """Learned absolute positions added to a ``[B, S, d]`` input.
-    ``seq_axis_name`` (positions of a sequence shard) raises naming its
-    ROADMAP item."""
+    """Learned absolute positions added to a ``[B, S, d]`` input. With
+    ``seq_axis_name``, inside a mesh that binds that axis the input is
+    one sequence shard, and the layer takes the GLOBAL positions ``idx *
+    S`` onwards (JAX :78-108); outside one it holds the whole
+    sequence."""
 
     def __init__(self, max_len: int, seq_axis_name: Optional[str] = None):
         super().__init__()
-        if seq_axis_name is not None:
-            raise NotImplementedError(
-                f"PositionalEmbedding(seq_axis_name={seq_axis_name!r}) is "
-                f"not ported yet: {SEQ_PARALLEL_ITEM}")
         self.max_len = int(max_len)
+        self.seq_axis_name = seq_axis_name
 
     def build(self, input_shape, rng):
         self.add_param("embeddings", init_weights(
@@ -125,13 +175,25 @@ class PositionalEmbedding(Layer):
 
     def apply(self, p, x):
         s = x.shape[1]
-        if s > self.max_len:
+        start = 0
+        if self.seq_axis_name and _axis_bound(self.seq_axis_name):
+            from distkeras_tpu_torch.parallel import collectives
+            global_len = s * collectives.axis_size(self.seq_axis_name)
+            if global_len > self.max_len:
+                raise ValueError(
+                    f"PositionalEmbedding(max_len={self.max_len}) is too "
+                    f"small for global sequence length {global_len} "
+                    f"({s} per shard over axis '{self.seq_axis_name}')")
+            start = collectives.axis_index(self.seq_axis_name) * s
+        elif s > self.max_len:
             raise ValueError(f"PositionalEmbedding(max_len={self.max_len}) "
                              f"is too small for {s} positions")
-        return x + p["embeddings"][:s][None].to(x.dtype)
+        emb = p["embeddings"][start:start + s]
+        return x + emb[None].to(x.dtype)
 
     def get_config(self):
-        return {"max_len": self.max_len, "seq_axis_name": None}
+        return {"max_len": self.max_len,
+                "seq_axis_name": self.seq_axis_name}
 
 
 @register_layer
@@ -151,8 +213,11 @@ class MultiHeadAttention(Layer):
                  rope_scale: float = 1.0,
                  attn_window: Optional[int] = None):
         super().__init__()
-        check_attn_impl(attn_impl, seq_axis_name, ring_block_size)
+        check_attn_impl(attn_impl)
         self.attn_impl = attn_impl
+        self.seq_axis_name = seq_axis_name
+        #: the ring's ``block_size`` (validated there; changes no result)
+        self.ring_block_size = ring_block_size
         self.rope_scale = float(rope_scale)
         self.attn_window = (int(attn_window) if attn_window is not None
                             else None)
@@ -203,26 +268,33 @@ class MultiHeadAttention(Layer):
     def apply(self, p, x, segment_ids=None):
         dt = torch_dtype(self.dtype)
         xc = x.to(dt)
+        impl = self.attn_impl
+        positions = None
+        if self.use_rope and impl in SEQ_PARALLEL_IMPLS \
+                and self.seq_axis_name:
+            # global positions of this sequence shard (JAX :274)
+            from distkeras_tpu_torch.parallel import collectives
+            s = x.shape[1]
+            positions = collectives.axis_index(self.seq_axis_name) * s \
+                + torch.arange(s, device=x.device)
         q = torch.einsum("bsd,dhe->bshe", xc, p["wq"].to(dt))
         k = torch.einsum("bsd,dhe->bshe", xc, p["wk"].to(dt))
         v = torch.einsum("bsd,dhe->bshe", xc, p["wv"].to(dt))
         if self.use_rope:
-            q = apply_rope(q, scale=self.rope_scale)
-            k = apply_rope(k, scale=self.rope_scale)
-        if self.attn_impl == "xla":
-            # the plain path takes one K/V head per query head (JAX
-            # ``_expand_kv``)
-            g = self.num_heads // self.kv_heads
-            if g > 1:
-                k = k.repeat_interleave(g, dim=2)
-                v = v.repeat_interleave(g, dim=2)
-            out = dot_product_attention(q, k, v, causal=self.causal,
-                                        window=self.attn_window,
-                                        segment_ids=segment_ids)
-        else:
-            out = flash_attention(q, k, v, causal=self.causal,
-                                  window=self.attn_window,
-                                  segment_ids=segment_ids)
+            q = apply_rope(q, positions, scale=self.rope_scale)
+            k = apply_rope(k, positions, scale=self.rope_scale)
+        g = self.num_heads // self.kv_heads
+        if g > 1 and impl in ("xla", "ulysses", "ulysses_flash"):
+            # one K/V head per query head (JAX ``_expand_kv``): Ulysses'
+            # all-to-all splits heads; the flash kernels, and the ring's
+            # hops over them, read a group's shared head directly
+            k = k.repeat_interleave(g, dim=2)
+            v = v.repeat_interleave(g, dim=2)
+        out = _attention_compute(q, k, v, causal=self.causal, impl=impl,
+                                 axis_name=self.seq_axis_name,
+                                 ring_block_size=self.ring_block_size,
+                                 window=self.attn_window,
+                                 segment_ids=segment_ids)
         y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
         return y.to(x.dtype)
 
@@ -230,8 +302,10 @@ class MultiHeadAttention(Layer):
         return {"num_heads": self.num_heads, "head_dim": self._head_dim_arg,
                 "causal": self.causal, "use_rope": self.use_rope,
                 "dtype": self.dtype, "attn_impl": self.attn_impl,
-                "seq_axis_name": None, "kernel_init": self.kernel_init,
-                "ring_block_size": None, "num_kv_heads": self.num_kv_heads,
+                "seq_axis_name": self.seq_axis_name,
+                "kernel_init": self.kernel_init,
+                "ring_block_size": self.ring_block_size,
+                "num_kv_heads": self.num_kv_heads,
                 "rope_scale": self.rope_scale,
                 "attn_window": self.attn_window}
 
@@ -303,6 +377,8 @@ class TransformerBlock(Layer):
         self._config = {"num_heads": int(num_heads), "head_dim": head_dim,
                         "causal": causal, "use_rope": use_rope,
                         "norm": norm, "attn_impl": attn_impl,
+                        "seq_axis_name": seq_axis_name,
+                        "ring_block_size": ring_block_size,
                         "num_kv_heads": num_kv_heads,
                         "rope_scale": float(rope_scale),
                         "attn_window": attn_window}
@@ -361,8 +437,10 @@ class TransformerBlock(Layer):
                "head_dim": c["head_dim"], "causal": c["causal"],
                "use_rope": c["use_rope"], "activation": self.activation,
                "norm": c["norm"], "dtype": self.dtype,
-               "attn_impl": c["attn_impl"], "seq_axis_name": None,
-               "dropout_rate": self.dropout_rate, "ring_block_size": None,
+               "attn_impl": c["attn_impl"],
+               "seq_axis_name": c["seq_axis_name"],
+               "dropout_rate": self.dropout_rate,
+               "ring_block_size": c["ring_block_size"],
                "num_kv_heads": c["num_kv_heads"],
                "rope_scale": c["rope_scale"],
                "attn_window": c["attn_window"]}

@@ -176,15 +176,18 @@ def transformer_lm(vocab_size: int, d_model: int = 512, num_heads: int = 8,
     and ``moe_expert_unroll`` configure it, as in JAX
     ``zoo.py:204-211``); ``moe_expert_axis`` (expert parallelism) raises
     naming its ROADMAP item. ``attn_impl`` is ``"auto"``/``"flash"``
-    (the flash kernels) or ``"xla"`` (plain attention); the
-    sequence-parallel ones and ``seq_axis_name`` raise naming their
-    ROADMAP item. ``remat`` wraps every block in ``blocks.Remat`` with
-    that policy (``"nothing"``, ``"dots"``, ``"dots_no_batch"``)."""
+    (the flash kernels), ``"xla"`` (plain attention) or a
+    sequence-parallel one (``"ring"``, ``"ulysses"``,
+    ``"ulysses_flash"``) over the mesh axis ``seq_axis_name``, which the
+    positional embedding also takes (JAX :200-201). ``remat`` wraps
+    every block in ``blocks.Remat`` with that policy (``"nothing"``,
+    ``"dots"``, ``"dots_no_batch"``)."""
     layers = [Embedding(vocab_size, d_model)]
     if not use_rope:
         if max_len is None:
             raise ValueError("max_len required when use_rope=False")
-        layers.append(PositionalEmbedding(max_len))
+        layers.append(PositionalEmbedding(max_len,
+                                          seq_axis_name=seq_axis_name))
     for i in range(num_layers):
         mlp_layer = None
         if moe_every and num_experts and (i + 1) % moe_every == 0:

@@ -21,7 +21,12 @@ need not be sorted or contiguous, and -1 is an ordinary id (pad tokens
 labelled -1 attend to each other, as in JAX; the loss masks them). With
 ids, Sq must equal Sk (one id per position, as JAX's ``_seg_blocks``
 pads one array to both lengths). All-equal ids give bitwise the result
-of no ids.
+of no ids. ``kv_segment_ids`` ``[B, Sk]`` are the KEY side's ids when
+they differ from the queries' (a ring-attention hop attends a shard's
+queries to another shard's keys, whose ids travel with them): pairs
+are admitted where ``segment_ids[b, q] == kv_segment_ids[b, k]``. They
+default to ``segment_ids``, so every call without them is unchanged
+bitwise; the kernels read the two through separate pointers.
 
 ``flash_forward`` takes q ``[B, Sq, H, D]`` and k/v ``[B, Sk, Hkv, D]``
 (``layout="bshd"``) or the head-major ``[B, H, S, D]``
@@ -97,9 +102,20 @@ def _check(q, k, v, causal: bool, window, layout: str):
         raise ValueError("window must be >= 1 and requires causal=True")
 
 
-def _segments(segment_ids, q, k, layout):
-    """The ids as the int32 contiguous ``[B, S]`` tensor the kernels and
-    plain versions read (None stays None)."""
+def _segments(segment_ids, q, k, layout, kv_segment_ids=None):
+    """The ids as the int32 contiguous ``[B, S]`` tensors the kernels and
+    plain versions read: ``(q-side, k-side)``, the k side None when it
+    is the q side (None stays None)."""
+    seg = _segment_side(segment_ids, q, k, layout)
+    if kv_segment_ids is None:
+        return seg, None
+    if seg is None:
+        raise ValueError("kv_segment_ids need segment_ids (the query "
+                         "side's ids)")
+    return seg, _segment_side(kv_segment_ids, q, k, layout)
+
+
+def _segment_side(segment_ids, q, k, layout):
     if segment_ids is None:
         return None
     seg = torch.as_tensor(segment_ids)
@@ -119,15 +135,17 @@ def _segments(segment_ids, q, k, layout):
     return seg.to(torch.int32).contiguous()
 
 
-def _seg_args(seg):
+def _seg_args(seg, kv_seg=None):
     """The kernels' q-side and k-side id pointers (null without ids) and
-    their batch stride: one array serves both sides (Sq == Sk)."""
+    their batch stride (both ``[B, S]`` contiguous, Sq == Sk): one array
+    serves both sides unless the k side has its own."""
     if seg is None:
         return [None, None, 0]
-    return [seg.data_ptr(), seg.data_ptr(), seg.stride(0)]
+    kv = seg if kv_seg is None else kv_seg
+    return [seg.data_ptr(), kv.data_ptr(), seg.stride(0)]
 
 
-def _allowed(sq, sk, causal, window, seg, device):
+def _allowed(sq, sk, causal, window, seg, device, kv_seg=None):
     """The admitted (query, key) pairs, broadcastable to ``[B, H, Sq,
     Sk]``, or None when every pair is admitted."""
     allowed = None
@@ -138,28 +156,31 @@ def _allowed(sq, sk, causal, window, seg, device):
         if window is not None:
             allowed = allowed & (kp > qp - int(window))
     if seg is not None:
-        same = (seg[:, :, None] == seg[:, None, :])[:, None]
+        kv = seg if kv_seg is None else kv_seg
+        same = (seg[:, :, None] == kv[:, None, :])[:, None]
         allowed = same if allowed is None else allowed & same
     return allowed
 
 
 def flash_forward(q, k, v, *, scale: float, causal: bool,
                   window: Optional[int] = None, layout: str = "bshd",
-                  segment_ids=None):
+                  segment_ids=None, kv_segment_ids=None):
     """Blockwise online-softmax attention; returns ``(out, lse)``."""
     _check(q, k, v, causal, window, layout)
-    seg = _segments(segment_ids, q, k, layout)
+    seg, kv_seg = _segments(segment_ids, q, k, layout, kv_segment_ids)
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, scale=scale, causal=causal,
                                        window=window, layout=layout,
-                                       segment_ids=seg)
+                                       segment_ids=seg,
+                                       kv_segment_ids=kv_seg)
     if q.device.type != "cuda":
         raise ValueError(f"flash_forward runs on cuda or cpu tensors, "
                          f"got {q.device}")
-    return _launch(q, k, v, float(scale), bool(causal), window, layout, seg)
+    return _launch(q, k, v, float(scale), bool(causal), window, layout, seg,
+                   kv_seg)
 
 
-def _launch(q, k, v, scale, causal, window, layout, seg):
+def _launch(q, k, v, scale, causal, window, layout, seg, kv_seg=None):
     qh, kh, vh = (_heads_major(x, layout) for x in (q, k, v))
     b, h, sq, d = qh.shape
     hkv, sk = kh.shape[1], kh.shape[2]
@@ -182,7 +203,8 @@ def _launch(q, k, v, scale, causal, window, layout, seg):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _DTYPES[q.dtype], b, h, h // hkv, sq, sk, d,
         *strides, scale, int(causal), 0 if window is None else int(window),
-        *_seg_args(seg), torch.cuda.current_stream(q.device).cuda_stream)
+        *_seg_args(seg, kv_seg),
+        torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(lib, err, "flash_fwd")
     kernels.count_launch("flash_fwd")
     return out, lse
@@ -190,11 +212,12 @@ def _launch(q, k, v, scale, causal, window, layout, seg):
 
 def flash_forward_reference(q, k, v, *, scale: float, causal: bool,
                             window: Optional[int] = None,
-                            layout: str = "bshd", segment_ids=None):
+                            layout: str = "bshd", segment_ids=None,
+                            kv_segment_ids=None):
     """The plain PyTorch version of the kernel: the whole masked score
     matrix at once, same masks and rounding points."""
     _check(q, k, v, causal, window, layout)
-    seg = _segments(segment_ids, q, k, layout)
+    seg, kv_seg = _segments(segment_ids, q, k, layout, kv_segment_ids)
     qh, kh, vh = (_heads_major(x, layout) for x in (q, k, v))
     g = qh.shape[1] // kh.shape[1]
     if g > 1:
@@ -202,7 +225,7 @@ def flash_forward_reference(q, k, v, *, scale: float, causal: bool,
         vh = vh.repeat_interleave(g, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kh.float()) * scale
     sq, sk = s.shape[-2], s.shape[-1]
-    allowed = _allowed(sq, sk, causal, window, seg, q.device)
+    allowed = _allowed(sq, sk, causal, window, seg, q.device, kv_seg)
     if allowed is not None:
         s = s.masked_fill(~allowed, NEG_INF)
     if sk == 0:
@@ -235,7 +258,8 @@ def _check_backward(q, out, lse, dout, delta, layout):
 
 def flash_backward(q, k, v, out, lse, dout, delta, *, scale: float,
                    causal: bool, window: Optional[int] = None,
-                   layout: str = "bshd", segment_ids=None):
+                   layout: str = "bshd", segment_ids=None,
+                   kv_segment_ids=None):
     """Gradients ``(dq, dk, dv)`` of ``flash_forward``'s ``out`` for the
     cotangent ``dout``, recomputed blockwise from ``lse`` (the forward's)
     and ``delta = rowsum(dout * out)`` ``[B, H, Sq]`` float32. Each comes
@@ -243,17 +267,18 @@ def flash_backward(q, k, v, out, lse, dout, delta, *, scale: float,
     over their query heads."""
     _check(q, k, v, causal, window, layout)
     _check_backward(q, out, lse, dout, delta, layout)
-    seg = _segments(segment_ids, q, k, layout)
+    seg, kv_seg = _segments(segment_ids, q, k, layout, kv_segment_ids)
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, out, lse, dout, delta,
                                         scale=scale, causal=causal,
                                         window=window, layout=layout,
-                                        segment_ids=seg)
+                                        segment_ids=seg,
+                                        kv_segment_ids=kv_seg)
     if q.device.type != "cuda":
         raise ValueError(f"flash_backward runs on cuda or cpu tensors, "
                          f"got {q.device}")
     args = (q, k, v, lse.contiguous(), dout, delta.contiguous(),
-            float(scale), bool(causal), window, layout, seg)
+            float(scale), bool(causal), window, layout, seg, kv_seg)
     return launch_dq(*args) + launch_dkv(*args)
 
 
@@ -263,7 +288,8 @@ def _strides(x, layout):
     return [xh.stride(0), xh.stride(2), xh.stride(1)]
 
 
-def _backward_args(q, k, v, lse, dout, delta, layout, segment_ids):
+def _backward_args(q, k, v, lse, dout, delta, layout, segment_ids,
+                   kv_segment_ids):
     """Shapes, checks and the shared launcher arguments of the two
     backward kernels."""
     if q.device.type != "cuda":
@@ -283,15 +309,15 @@ def _backward_args(q, k, v, lse, dout, delta, layout, segment_ids):
     pointers = [x.data_ptr() for x in (q, k, v, dout, lse, delta)]
     sizes = [_DTYPES[q.dtype], b, h, h // hkv, sq, sk, d]
     strides = sum((_strides(x, layout) for x in (q, k, v, dout)), [])
-    seg = _seg_args(_segments(segment_ids, q, k, layout))
+    seg = _seg_args(*_segments(segment_ids, q, k, layout, kv_segment_ids))
     return pointers, sizes, strides, seg, sq == 0 or sk == 0
 
 
 def launch_dq(q, k, v, lse, dout, delta, scale, causal, window, layout,
-              segment_ids=None):
+              segment_ids=None, kv_segment_ids=None):
     """The dq kernel (K1dq) on CUDA tensors: returns ``(dq,)``."""
     pointers, sizes, strides, seg, empty = _backward_args(
-        q, k, v, lse, dout, delta, layout, segment_ids)
+        q, k, v, lse, dout, delta, layout, segment_ids, kv_segment_ids)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     if empty:
         return (dq.zero_(),)
@@ -306,11 +332,11 @@ def launch_dq(q, k, v, lse, dout, delta, scale, causal, window, layout,
 
 
 def launch_dkv(q, k, v, lse, dout, delta, scale, causal, window, layout,
-               segment_ids=None):
+               segment_ids=None, kv_segment_ids=None):
     """The dk/dv kernel (K1dkv) on CUDA tensors: returns ``(dk, dv)``,
     each grouped K/V head summed over its query heads."""
     pointers, sizes, strides, seg, empty = _backward_args(
-        q, k, v, lse, dout, delta, layout, segment_ids)
+        q, k, v, lse, dout, delta, layout, segment_ids, kv_segment_ids)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if empty:
@@ -329,14 +355,15 @@ def launch_dkv(q, k, v, lse, dout, delta, scale, causal, window, layout,
 def flash_backward_reference(q, k, v, out, lse, dout, delta, *,
                              scale: float, causal: bool,
                              window: Optional[int] = None,
-                             layout: str = "bshd", segment_ids=None):
+                             layout: str = "bshd", segment_ids=None,
+                             kv_segment_ids=None):
     """The plain PyTorch version of the two backward kernels: the whole
     recomputed probability matrix at once, with the kernels' masks and
     rounding points; grouped K/V gradients summed over their group in
     float32."""
     _check(q, k, v, causal, window, layout)
     _check_backward(q, out, lse, dout, delta, layout)
-    seg = _segments(segment_ids, q, k, layout)
+    seg, kv_seg = _segments(segment_ids, q, k, layout, kv_segment_ids)
     qh, kh, vh, gh = (_heads_major(x, layout) for x in (q, k, v, dout))
     b, h, sq, d = qh.shape
     hkv, sk = kh.shape[1], kh.shape[2]
@@ -346,7 +373,7 @@ def flash_backward_reference(q, k, v, out, lse, dout, delta, *,
         kx = kh.repeat_interleave(g, dim=1)
         vx = vh.repeat_interleave(g, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kx.float()) * scale
-    allowed = _allowed(sq, sk, causal, window, seg, q.device)
+    allowed = _allowed(sq, sk, causal, window, seg, q.device, kv_seg)
     if allowed is not None:
         s = s.masked_fill(~allowed, NEG_INF)
     p = torch.exp(s - lse[..., None])
@@ -384,37 +411,38 @@ class _FlashAttention(torch.autograd.Function):
     ``bwd="pallas"``); the ids get no gradient (JAX's float0)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seg, scale, causal, window, layout):
+    def forward(ctx, q, k, v, seg, kv_seg, scale, causal, window, layout):
         out, lse = flash_forward(q, k, v, scale=scale, causal=causal,
                                  window=window, layout=layout,
-                                 segment_ids=seg)
-        ctx.save_for_backward(q, k, v, out, lse, seg)
+                                 segment_ids=seg, kv_segment_ids=kv_seg)
+        ctx.save_for_backward(q, k, v, out, lse, seg, kv_seg)
         ctx.config = (scale, causal, window, layout)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse, seg = ctx.saved_tensors
+        q, k, v, out, lse, seg, kv_seg = ctx.saved_tensors
         scale, causal, window, layout = ctx.config
         dout = dout.contiguous()
         dq, dk, dv = flash_backward(
             q, k, v, out, lse, dout, attention_delta(out, dout, layout),
             scale=scale, causal=causal, window=window, layout=layout,
-            segment_ids=seg)
-        return dq, dk, dv, None, None, None, None, None
+            segment_ids=seg, kv_segment_ids=kv_seg)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     window: Optional[int] = None, layout: str = "bshd",
-                    scale: Optional[float] = None, segment_ids=None):
+                    scale: Optional[float] = None, segment_ids=None,
+                    kv_segment_ids=None):
     """Differentiable flash attention (``distkeras_tpu`` ``flash_attention``
     :746): ``out`` in q's layout and dtype. The forward is
     ``flash_forward``; the gradient runs the dq and dk/dv kernels on the
     card and their plain version on the CPU. ``scale`` defaults to
-    ``head_dim ** -0.5``. ``segment_ids`` ``[B, S]``: packed sequences
-    (see the module docstring)."""
-    seg = _segments(segment_ids, q, k, layout)
+    ``head_dim ** -0.5``. ``segment_ids`` ``[B, S]``: packed sequences;
+    ``kv_segment_ids`` the keys' own ids (see the module docstring)."""
+    seg, kv_seg = _segments(segment_ids, q, k, layout, kv_segment_ids)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, seg, float(scale), bool(causal),
-                                 window, layout)
+    return _FlashAttention.apply(q, k, v, seg, kv_seg, float(scale),
+                                 bool(causal), window, layout)

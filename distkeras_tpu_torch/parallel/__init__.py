@@ -1,16 +1,25 @@
 """Training orchestration of the port: the train step and epoch loop
 (``worker``), the trainers (``trainers``: ``SingleTrainer``,
 ``EnsembleTrainer``), the stacked-worker engine of the distributed-SGD
-family (``engine``, ``distributed``), and the host parameter-server
-path (``parameter_servers``, ``networking``, ``async_host``)."""
+family (``engine``, ``distributed``), the host parameter-server
+path (``parameter_servers``, ``networking``, ``async_host``), and the
+mesh of processes: ``mesh`` (named axes over a ``torch.distributed``
+world), ``collectives`` (the named-axis collectives and ``shard_map``)
+and ``launch`` (``World``: a world of processes on this machine)."""
 
 from distkeras_tpu_torch.parallel.async_host import HostAsyncTrainer
+from distkeras_tpu_torch.parallel.collectives import shard_map
 from distkeras_tpu_torch.parallel.distributed import (ADAG, AEASGD, DOWNPOUR,
                                                       AveragingTrainer,
                                                       DistributedTrainer,
                                                       DynSGD, EASGD)
 from distkeras_tpu_torch.parallel.engine import (DistributedEngine,
                                                  EngineConfig, host_fetch)
+from distkeras_tpu_torch.parallel.launch import World
+from distkeras_tpu_torch.parallel.mesh import (Mesh, NamedSharding,
+                                               PartitionSpec, make_mesh,
+                                               make_mesh_2d, replicated,
+                                               worker_sharded)
 from distkeras_tpu_torch.parallel.parameter_servers import (
     ADAGParameterServer, DeltaParameterServer, DynSGDParameterServer,
     EASGDParameterServer, ParameterServer, PSClient)
@@ -25,7 +34,9 @@ __all__ = ["ADAG", "ADAGParameterServer", "AEASGD", "AveragingTrainer",
            "DOWNPOUR", "DeltaParameterServer", "DistributedEngine",
            "DistributedTrainer", "DynSGD", "DynSGDParameterServer", "EASGD",
            "EASGDParameterServer", "EngineConfig", "EnsembleTrainer",
-           "HostAsyncTrainer", "PSClient", "ParameterServer",
-           "SingleTrainer", "Trainer", "TrainCarry", "host_fetch",
-           "make_train_step", "run_epoch", "shard_epoch_data",
-           "stack_batches", "value_and_grad"]
+           "HostAsyncTrainer", "Mesh", "NamedSharding", "PSClient",
+           "ParameterServer", "PartitionSpec", "SingleTrainer", "Trainer",
+           "TrainCarry", "World", "host_fetch", "make_mesh", "make_mesh_2d",
+           "make_train_step", "replicated", "run_epoch", "shard_epoch_data",
+           "shard_map", "stack_batches", "value_and_grad",
+           "worker_sharded"]

@@ -129,6 +129,43 @@ def test_flash_kernel_matches_plain(dev, dtype, causal, sq, sk, window,
         assert torch.equal(o, o0) and torch.equal(lse, lse0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_kv_segment_ids_match_plain(dev, dtype, causal, d):
+    """K1f, K1dq and K1dkv with k-side ids that differ from the q side
+    (a ring hop's): every row admits a key (ids 0-2 at keys 0-2), so the
+    backward's lse is finite, as the ring's merged one is; a row whose
+    id no key carries gets an lse under ``NEG_INF / 2``."""
+    rs = np.random.RandomState(27)
+    b, s, h = 2, 300, 4
+    q, k, v = _qkv(rs, b, s, s, h, h, d, dtype, dev, "bshd")
+    dout = torch.from_numpy(rs.randn(b, s, h, d).astype(np.float32)).to(
+        dev, dtype)
+    qs = rs.randint(0, 3, (b, s)).astype(np.int32)
+    ks = rs.randint(0, 3, (b, s)).astype(np.int32)
+    ks[:, :3] = [0, 1, 2]
+    qs[:, :2] = [0, 1]
+    qseg, kseg = (torch.from_numpy(x).to(dev) for x in (qs, ks))
+    kw = dict(scale=d ** -0.5, causal=causal, segment_ids=qseg,
+              kv_segment_ids=kseg)
+    o, lse = flash_forward(q, k, v, **kw)
+    ro, rl = flash_forward_reference(q, k, v, **kw)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-5)
+    delta = attention_delta(o, dout)
+    got = flash_backward(q, k, v, o, lse, dout, delta, **kw)
+    ref = flash_backward_reference(q, k, v, o, lse, dout, delta, **kw)
+    for a, r in zip(got, ref):
+        err = (a.float() - r.float()).abs().max() / r.float().abs().max()
+        assert err <= (1e-4 if dtype == torch.float32 else 2e-2), err
+    dead = qseg.clone()
+    dead[0, 5] = 7
+    _, dl = flash_forward(q, k, v, **dict(kw, segment_ids=dead))
+    assert (dl[0, :, 5] < -1e37).all() and (dl[1] > -1e3).all()
+
+
 def _forward_case(rs, b, s, h, hkv, d, offset=0):
     """bf16 q, k, v ``[B, S, H, D]`` (bshd); with ``offset`` each is a view
     that starts that many elements into a larger buffer."""

@@ -64,7 +64,8 @@ EXAMPLES = ["streaming_inference", "mnist_workflow", "criteo_wide_deep",
             "higgs_physics", "continuous_batching", "lm_generate",
             "speculative_serving", "router_serving", "loadgen_scenario",
             "request_tracing", "moe_serving", "packed_moe_serving",
-            "telemetry_tour", "vit_finetune_callbacks"]
+            "telemetry_tour", "vit_finetune_callbacks",
+            "long_context_serving"]
 
 
 @pytest.mark.parametrize("name", EXAMPLES)

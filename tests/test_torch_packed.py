@@ -555,17 +555,38 @@ def test_xla_attention_equals_flash_on_the_cpu():
                          ids=["ring", "ulysses", "ulysses_flash",
                               "seq_axis_name"])
 def test_sequence_parallel_attention_raises_naming_the_roadmap(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        zoo.transformer_lm(V, **LM_KW, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        MultiHeadAttention(num_heads=2, **kw)
+    """Sequence parallelism is ported (the name is kept from when these
+    options raised naming ROADMAP Queue 1 item 10): the options build
+    and travel in the configs as JAX's do. Outside a mesh, a
+    sequence-parallel implementation without ``seq_axis_name`` raises
+    JAX's ``ValueError`` at the call, and ``seq_axis_name`` alone leaves
+    the one-device path bitwise as it was
+    (``tests/test_torch_seq_parallel.py`` holds the mesh runs)."""
+    m = Model.build(zoo.transformer_lm(V, **LM_KW, **kw), (S,), seed=0,
+                    device="cpu")
+    block = m.module.layers[1].get_config()
+    mha = MultiHeadAttention(num_heads=2, **kw).get_config()
+    for key, val in kw.items():
+        assert block[key] == val and mha[key] == val
+    x = torch.from_numpy(np.random.RandomState(0).randint(0, V, (1, S)))
+    if "attn_impl" in kw:
+        with pytest.raises(ValueError, match="requires seq_axis_name"):
+            m.apply(x)
+    else:
+        base = Model.build(zoo.transformer_lm(V, **LM_KW), (S,), seed=0,
+                           device="cpu")
+        assert torch.equal(m.apply(x), base.apply(x))
 
 
 def test_unknown_attn_impl_and_untrainable_dropout():
     with pytest.raises(ValueError, match="unknown attn_impl"):
         zoo.transformer_lm(V, **LM_KW, attn_impl="cudnn")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        TransformerBlock(num_heads=2, ring_block_size=8)
+    # ported: the ring's block size travels in the block's config
+    from distkeras_tpu.models.attention import \
+        TransformerBlock as JaxTransformerBlock
+    blk = TransformerBlock(num_heads=2, ring_block_size=8)
+    assert blk.get_config() == JaxTransformerBlock(
+        num_heads=2, ring_block_size=8).get_config()
     m = Model.build(Sequential([Embedding(V, 16), TransformerBlock(
         num_heads=2, mlp_ratio=2, dropout_rate=0.1), Dense(V)]), (8,),
         device="cpu")

@@ -257,8 +257,10 @@ def test_remat_and_residual_rebuild_from_specs(tmp_path):
                 jm.predict(x)) <= TOL
 
 
-#: JAX configs asking for what the port lacks: each raises
-#: NotImplementedError naming ROADMAP Queue 1 item 10, never TypeError
+#: JAX configs that once asked for what the port lacked: the expert and
+#: BatchNorm axes still raise NotImplementedError naming ROADMAP Queue 1
+#: item 10, never TypeError; the sequence-parallel ones are ported and
+#: load with JAX's spec (``PORTED_SPECS``)
 UNPORTED_SPECS = {
     "moe_expert_axis": ("MoE", dict(num_experts=4, hidden_dim=8,
                                     expert_axis_name="expert")),
@@ -272,12 +274,18 @@ UNPORTED_SPECS = {
 }
 
 
+PORTED_SPECS = ("block_seq_axis", "positions_seq_axis", "attention_ring")
+
+
 @pytest.mark.parametrize("case", list(UNPORTED_SPECS))
 def test_unported_config_values_raise_naming_their_item(case):
     import distkeras_tpu.models as jax_models
     cls, kw = UNPORTED_SPECS[case]
     spec = jax_layer_spec(getattr(jax_models, cls)(**kw)) \
         if hasattr(jax_models, cls) else {"class": cls, "config": kw}
+    if case in PORTED_SPECS:
+        assert layer_spec(layer_from_spec(spec)) == spec
+        return
     with pytest.raises(NotImplementedError, match="item 10"):
         layer_from_spec(spec)
 
