@@ -369,6 +369,21 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     backward kernels (two layers a training step) and for K2 (two
     layers a generated token past the first, each generate() call), at
     least one for the kernels whose count the schedule decides.
+36. sequence parallelism over a world of four processes on the card
+    (``seq_parallel_phase``): a ring hop's kernels, ring and Ulysses
+    attention against single-process flash attention, the 218M LM over
+    ``sp``, and ``long_context_serving``.
+37. SPMD training over a world of four processes on the card
+    (``spmd_phase``): (a) the 218M LM under ``SPMDTrainer`` over
+    ``{"workers": 2, "tp": 2}`` (Megatron heads and hidden units over
+    ``tp``), B8 x 512, 4 adam steps, against one process at
+    ``SPMD_REL_TOL``, exactly 12 launches of each flash kernel a step on
+    every rank, each rank's step ms and its staged gradient sum's ms; a
+    sharded save after epoch 0 and a resume bitwise the uninterrupted
+    run; (b) the same with FSDP over ``{"workers": 4}``; (c)
+    ``large_model_spmd`` (8 processes) and ``imagenet_resnet_spmd`` (4)
+    with their JAX tests' checks. Phase 25's loop profiles are halved
+    (``LOOP_STEPS``) to keep the script inside its time limit.
 
 Every serving phase runs the engine's default loop, ``overlap=True``;
 phase 20's teacher-forced runs use the synchronous one. Weights are
@@ -471,7 +486,7 @@ from distkeras_tpu_torch.parallel.engine import (
     ElasticAlgo, EngineConfig, WorkerStack)
 from distkeras_tpu_torch.parallel import collectives
 from distkeras_tpu_torch.parallel.launch import World
-from distkeras_tpu_torch.parallel.mesh import make_mesh
+from distkeras_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 from distkeras_tpu_torch.parallel.worker import _fused_head_parts
 from distkeras_tpu_torch.ops.ring_attention import EMPTY_LSE, ring_attention
 from distkeras_tpu_torch.ops.ring_attention import merge as ring_merge
@@ -4015,8 +4030,9 @@ def moe_gradients_vs_cpu(dev):
 LOOPS = (("sync", dict(overlap=False)),
          ("overlap", dict(overlap=True)),
          ("overlap+fuse4", dict(overlap=True, fuse_steps=4)))
-#: decode steps a loop profile times, then profiles (every loop the same)
-LOOP_STEPS, LOOP_PROF_STEPS = 32, 16
+#: decode steps a loop profile times, then profiles (every loop the same;
+#: short, to keep the whole script inside its time limit)
+LOOP_STEPS, LOOP_PROF_STEPS = 16, 8
 
 
 class _SyncErrors:
@@ -8836,6 +8852,291 @@ def sp_example_phase(dev, card):
     return c
 
 
+# --- phase 37: SPMD training over a world of processes ---------------------
+
+#: phase 37's world: four processes share the card (gloo, staged through
+#: pinned host memory)
+SPMD_RANKS = 4
+#: (a)'s mesh: two data ranks, each with two tensor-parallel ranks (8 of
+#: the LM's 16 heads, 2048 of its 4096 hidden units a rank); (b)'s: four
+#: data ranks with every large leaf split over them (FSDP)
+SPMD_MESH = {"workers": 2, "tp": 2}
+SPMD_FSDP_MESH = {"workers": 4}
+#: the LM's data: rows of phase 7's patterns at this length, the global
+#: batch, and the epochs of (a): 2 steps an epoch, no shuffling
+SPMD_ROWS, SPMD_SEQ, SPMD_BATCH, SPMD_EPOCHS = 16, 512, 8, 2
+SPMD_LR = 1e-3
+#: the SPMD runs' per-step losses and final parameters (each leaf
+#: norm-relative) against a one-process SingleTrainer run of the same
+#: weights and data order: bf16 activations, the tensor-parallel partial
+#: sums added in float32 against one bf16 matmul, adam's steps over them
+SPMD_REL_TOL = 5e-2
+
+
+def _spmd_data():
+    return training_data(LM_CFG["vocab"], rows=SPMD_ROWS, seq=SPMD_SEQ)
+
+
+def _spmd_trainer(model, mesh, epochs, **kw):
+    from distkeras_tpu_torch.parallel import SPMDTrainer
+    return SPMDTrainer(model, mesh=mesh, worker_optimizer="adam",
+                       learning_rate=SPMD_LR, loss=TRAIN_LOSS,
+                       batch_size=SPMD_BATCH, num_epoch=epochs,
+                       shuffle_each_epoch=False, **kw)
+
+
+def _timed_run_epoch(step_ms):
+    """``parallel.worker.run_epoch`` with a card sync and a clock reading
+    around each step (the step's wall ms into ``step_ms``)."""
+    from distkeras_tpu_torch.parallel.worker import run_epoch
+
+    def timed(train_step, carry, Xs, Ys):
+        def step(c, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = train_step(c, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run_epoch(step, carry, Xs, Ys)
+
+    return timed
+
+
+_SPMD_MESH = {}
+#: rank 0's one-process run of the same weights and data (made once)
+_SPMD_SINGLE = {}
+
+
+def _spmd_mesh(shape):
+    key = tuple(shape.items())
+    if key not in _SPMD_MESH:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _SPMD_MESH[key] = make_mesh_2d(dict(shape), device="cuda")
+    return _SPMD_MESH[key]
+
+
+def _norm_rel(a, r) -> float:
+    a, r = a.detach().float(), r.detach().float()
+    return float((a - r).norm() / r.norm().clamp_min(1e-30))
+
+
+def spmd_lm_rank(tmp, shape, kw, runs):
+    """Phase 37 (a)/(b), one rank: the full-width LM under
+    ``SPMDTrainer`` over ``shape``: ``runs`` holds "whole" (``SPMD_EPOCHS``
+    epochs, the launch counts and each step's ms), and for (a) "resume"
+    (one epoch with a sharded save, then a fresh trainer resuming to
+    ``SPMD_EPOCHS``: the final weights against the whole run's bitwise).
+    Rank 0 then trains the same weights on the same order in one process
+    (``SingleTrainer``) and holds the losses and weights to it. Also the
+    staged all-reduce of this rank's gradient blocks over the data axis
+    (the bytes each step moves there)."""
+    import distkeras_tpu_torch.parallel.spmd as spmd_module
+    mesh = _spmd_mesh(shape)
+    rank = torch.distributed.get_rank()
+    data = _spmd_data()
+    out = {"rank": rank}
+    step_ms = []
+    orig = spmd_module.run_epoch
+    spmd_module.run_epoch = _timed_run_epoch(step_ms)
+    try:
+        model = build_lm("cuda")
+        init = [t.detach().clone() for t in tree_leaves(model.params)]
+        trainer = _spmd_trainer(model, mesh, SPMD_EPOCHS, **kw)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        trainer.train(data)
+        torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        out["launches"] = {k: n for k, n in c.items() if n}
+        out["losses"] = trainer.get_history().losses().tolist()
+        out["step_ms"] = list(step_ms)
+        local = [t.detach() for t in tree_leaves(trainer.carry.params)]
+        with mesh:
+            out["staging_ms"] = _wall_ms(
+                lambda: collectives.psum(local, "workers"), n=2)
+        out["local_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in local)
+        whole = [t.detach().clone() for t in tree_leaves(model.params)]
+        del trainer, local
+        gc.collect()
+        if "resume" in runs:
+            cdir = os.path.join(tmp, "spmd")
+            part = _spmd_trainer(build_lm("cuda"), mesh, 1,
+                                 checkpoint_dir=cdir, **kw)
+            part.train(data)
+            del part
+            gc.collect()
+            resumed = _spmd_trainer(build_lm("cuda"), mesh, SPMD_EPOCHS,
+                                    checkpoint_dir=cdir, resume=True, **kw)
+            resumed.train(data)
+            out["resume_epochs"] = len(resumed.get_history().epochs)
+            out["resume_parted"] = sum(
+                not torch.equal(a, b) for a, b in
+                zip(whole, tree_leaves(resumed.master_model.params)))
+            out["files"] = sorted(os.listdir(os.path.join(cdir, "step_0")))
+            del resumed
+            gc.collect()
+    finally:
+        spmd_module.run_epoch = orig
+    if rank == 0:
+        if not _SPMD_SINGLE:
+            single = SingleTrainer(build_lm("cuda"), worker_optimizer="adam",
+                                   learning_rate=SPMD_LR, loss=TRAIN_LOSS,
+                                   batch_size=SPMD_BATCH,
+                                   num_epoch=SPMD_EPOCHS,
+                                   shuffle_each_epoch=False)
+            single.train(data)
+            _SPMD_SINGLE.update(
+                losses=single.get_history().losses(),
+                params=[t.detach().clone() for t in
+                        tree_leaves(single.master_model.params)])
+            del single
+        ref, final = _SPMD_SINGLE["losses"], _SPMD_SINGLE["params"]
+        out["loss_rel"] = float(np.max(np.abs(
+            np.asarray(out["losses"]) - ref) / np.abs(ref)))
+        out["param_rel"] = max(_norm_rel(a, r) for a, r in zip(whole, final))
+        out["update_rel"] = max(_norm_rel(a - i, r - i)
+                                for a, r, i in zip(whole, final, init))
+    del model, whole, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_spmd_counts(path, counts, per_rank):
+    for r, c in enumerate(counts):
+        got = {name: c.get(name, 0) for name in TRAINING_KERNELS}
+        if got != {name: per_rank for name in TRAINING_KERNELS}:
+            raise AssertionError(f"phase 37 {path}: rank {r} launched {got};"
+                                 f" expected {per_rank} of each flash "
+                                 "kernel")
+        if c.get("prng", 0) < 1:
+            raise AssertionError(f"phase 37 {path}: rank {r} never launched"
+                                 " K7 for the carry's split")
+
+
+def _spmd_print(path, card, res, steps):
+    head = res[0]
+    ms = "; ".join(
+        f"rank {r['rank']} steps {np.round(r['step_ms'], 1).tolist()} ms, "
+        f"gradient all-reduce staged {r['staging_ms']:.1f} ms for "
+        f"{r['local_bytes'] / 2 ** 20:.0f} MiB" for r in res)
+    print(f"phase 37 {path} on {card}: transformer_lm {LM_CFG} bf16 adam "
+          f"under SPMDTrainer over {SPMD_RANKS} ranks, B{SPMD_BATCH} x "
+          f"{SPMD_SEQ} tokens, {steps} steps; losses "
+          f"{np.round(head['losses'], 4).tolist()}; against one process: "
+          f"losses rel max {head['loss_rel']:.3e}, final weights "
+          f"norm-relative max {head['param_rel']:.3e} (their change from "
+          f"the start: {head['update_rel']:.3e}) (tol {SPMD_REL_TOL}); "
+          f"launches by rank "
+          f"{[r['launches'] for r in res]}; {ms}", flush=True)
+
+
+def spmd_phase(dev, card):
+    """Phase 37: (a) the full-width LM under ``SPMDTrainer`` in a world
+    of four processes on the card over ``SPMD_MESH`` (Megatron tensor
+    parallelism inside each pair, data parallelism across the pairs),
+    against one process, with a sharded save after epoch 0 and a resume
+    bitwise the uninterrupted run; (b) the same LM over
+    ``SPMD_FSDP_MESH`` with FSDP; (c) the two SPMD examples. Returns
+    ``{path: summed launches}``."""
+    t0 = time.perf_counter()
+    launches = {}
+    layers = LM_CFG["num_layers"]
+    steps = SPMD_EPOCHS * SPMD_ROWS // SPMD_BATCH
+    tmp = tempfile.mkdtemp(prefix="dkt-phase37-")
+    try:
+        with World(SPMD_RANKS, threads=2, timeout=600) as world:
+            t1 = time.perf_counter()
+            res = world.run(spmd_lm_rank, tmp, SPMD_MESH,
+                            dict(tp_axis="tp"), ("whole", "resume"))
+            _check_spmd_counts("(a)", [r["launches"] for r in res],
+                               layers * steps)
+            _spmd_print("(a) dp x tp", card, res, steps)
+            head = res[0]
+            print(f"phase 37 (a) resume on {card}: a sharded save after "
+                  f"epoch 0 ({head['files']}), a fresh trainer resumed "
+                  f"for {head['resume_epochs']} epoch(s): "
+                  f"{[r['resume_parted'] for r in res]} weight tensors "
+                  "differ from the uninterrupted run's by rank", flush=True)
+            if not (head["loss_rel"] <= SPMD_REL_TOL
+                    and head["param_rel"] <= SPMD_REL_TOL
+                    and np.isfinite(head["losses"]).all()
+                    and all(r["resume_parted"] == 0 for r in res)
+                    and head["resume_epochs"] == 1
+                    and all(r["losses"] == head["losses"] for r in res)):
+                raise AssertionError("phase 37 (a): the SPMD run disagrees "
+                                     "with one process, or the resume is "
+                                     "not bitwise")
+            launches["spmd_dp_tp"] = {
+                k: sum(r["launches"].get(k, 0) for r in res)
+                for k in TRAINING_KERNELS + ("prng",)}
+            t2 = time.perf_counter()
+            res = world.run(spmd_lm_rank, tmp, SPMD_FSDP_MESH,
+                            dict(tp_axis=None, fsdp_axis="workers"),
+                            ("whole",))
+            _check_spmd_counts("(b)", [r["launches"] for r in res],
+                               layers * steps)
+            _spmd_print("(b) FSDP", card, res, steps)
+            head = res[0]
+            if not (head["loss_rel"] <= SPMD_REL_TOL
+                    and head["param_rel"] <= SPMD_REL_TOL):
+                raise AssertionError("phase 37 (b): the FSDP run disagrees "
+                                     "with one process")
+            launches["spmd_fsdp"] = {
+                k: sum(r["launches"].get(k, 0) for r in res)
+                for k in TRAINING_KERNELS + ("prng",)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t3 = time.perf_counter()
+    launches.update(spmd_examples_phase(card))
+    t4 = time.perf_counter()
+    print(f"phase 37 took {t4 - t0:.1f} s: world start {t1 - t0:.1f}, (a) "
+          f"{t2 - t1:.1f}, (b) {t3 - t2:.1f}, (c) {t4 - t3:.1f}", flush=True)
+    return launches
+
+
+def spmd_examples_phase(card):
+    """Phase 37 (c): ``large_model_spmd`` (8 processes over JAX's mesh)
+    and ``imagenet_resnet_spmd`` (4 processes, JAX's test arguments) on
+    the card, with their JAX tests' checks and their ranks' launches."""
+    import io
+    from distkeras_tpu_torch.examples import (imagenet_resnet_spmd,
+                                              large_model_spmd)
+    out = {}
+    for name, mod, argv, check in (
+            ("large_model_spmd", large_model_spmd, [],
+             lambda acc, txt: "next-token accuracy: 1.000" in txt),
+            ("imagenet_resnet_spmd", imagenet_resnet_spmd,
+             ["--n", "2048", "--epochs", "4", "--batch", "32", "--fsdp"],
+             lambda acc, txt: acc > 0.9)):
+        saved = sys.argv
+        sys.argv = [name, *argv]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                acc = mod.main()
+        finally:
+            sys.argv = saved
+        txt = buf.getvalue()
+        c = {}
+        for r in mod.RESULTS:
+            for k, n in r["launches"].items():
+                c[k] = c.get(k, 0) + n
+        print(f"phase 37 (c) {name} on {card}: "
+              f"{time.perf_counter() - t0:.1f} s; "
+              + "; ".join(txt.strip().splitlines())
+              + f"; launches summed over its ranks {c}", flush=True)
+        if not check(acc, txt) or c.get("flash_fwd", 0) < 1 \
+                and name == "large_model_spmd":
+            raise AssertionError(f"phase 37 (c): {name}: {txt}")
+        out["example_" + name] = c
+    return out
+
+
 def _expert_elements(wq) -> int:
     """Elements of a quantized stacked expert leaf, unpacked."""
     return wq["q"].numel() if "q" in wq else 2 * wq["q4"].numel()
@@ -9053,6 +9354,8 @@ def main() -> int:
     small_rows, example_launches = examples_and_small_dims_phase(dev, card)
     gc.collect()
     sp_rows, sp_launches = seq_parallel_phase(dev, card)
+    gc.collect()
+    spmd_launches = spmd_phase(dev, card)
 
     by_path = {name: {} for name in kernels.SOURCES}
     for path, c in {**slab_launches, **moe_wq_launches,
@@ -9121,7 +9424,7 @@ def main() -> int:
     for path, c in example_launches.items():
         for name, n in c.items():
             by_path[name][path] = n
-    for path, c in sp_launches.items():
+    for path, c in {**sp_launches, **spmd_launches}.items():
         for name, n in c.items():
             if n:
                 by_path[name][path] = n

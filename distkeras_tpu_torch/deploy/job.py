@@ -15,7 +15,9 @@
 Workers start with ``initialize_from_env()``, which reads the ``DKT_*``
 variables this module sets and brings up a ``gloo`` process group at
 ``tcp://$DKT_COORDINATOR`` (rank ``DKT_PROCESS_ID`` of
-``DKT_NUM_PROCESSES``). Gloo, not NCCL: on a one-card machine every rank
+``DKT_NUM_PROCESSES``; a local ``Job`` hosts the rendezvous store itself
+on a port the system gives it, ``DKT_STORE_HOSTED``, so no other process
+can take the port first), and leaves the group when the process exits. Gloo, not NCCL: on a one-card machine every rank
 shares the card, which NCCL refuses, and gloo all-reduces host tensors.
 ``devices_per_process`` is kept in the spec and the environment, as
 JAX's is, but selects nothing: the port has no virtual devices. The
@@ -26,6 +28,7 @@ item 10); ``SingleTrainer`` trains each process's own model.
 
 from __future__ import annotations
 
+import atexit
 import os
 import subprocess
 import sys
@@ -38,6 +41,9 @@ ENV_COORD = "DKT_COORDINATOR"
 ENV_NUM_PROCS = "DKT_NUM_PROCESSES"
 ENV_PROC_ID = "DKT_PROCESS_ID"
 ENV_DEVICES_PER_PROC = "DKT_DEVICES_PER_PROCESS"
+#: set by a local ``Job``: the coordinator's store is hosted by the
+#: launching process, and every rank (rank 0 too) connects to it
+ENV_STORE_HOSTED = "DKT_STORE_HOSTED"
 
 
 def initialize_from_env() -> Dict[str, int]:
@@ -55,9 +61,24 @@ def initialize_from_env() -> Dict[str, int]:
     pid = int(os.environ[ENV_PROC_ID])
     import torch.distributed as dist
     if not dist.is_initialized():
-        dist.init_process_group("gloo", init_method=f"tcp://{coord}",
-                                rank=pid, world_size=n)
+        # leave the group before the interpreter exits: a gloo group torn
+        # down by exit alone can abort the process ("terminate called
+        # without an active exception") after its work is done
+        atexit.register(_leave_group)
+        if os.environ.get(ENV_STORE_HOSTED) == "1":
+            from distkeras_tpu_torch.parallel.launch import join_store
+            host, _, port = coord.rpartition(":")
+            join_store(host, int(port), pid, n, timeout=1800.0)
+        else:
+            dist.init_process_group("gloo", init_method=f"tcp://{coord}",
+                                    rank=pid, world_size=n)
     return {"process_id": pid, "num_processes": n}
+
+
+def _leave_group() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 @dataclass
@@ -105,17 +126,13 @@ class JobResult:
         return all(rc == 0 for rc in self.returncodes)
 
 
-def _free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _worker_env(spec: JobSpec, coord: str, pid: int) -> Dict[str, str]:
+def _worker_env(spec: JobSpec, coord: str, pid: int,
+                hosted: bool = False) -> Dict[str, str]:
     env = dict(os.environ)
     env.update(spec.env)
     env[ENV_COORD] = coord
+    if hosted:
+        env[ENV_STORE_HOSTED] = "1"
     env[ENV_NUM_PROCS] = str(spec.num_processes)
     env[ENV_PROC_ID] = str(pid)
     if spec.devices_per_process:
@@ -155,6 +172,8 @@ class Job:
         self.coordinator_host = coordinator_host
         self.python = python
         self.transport = list(transport)
+        #: the rendezvous store a local attempt hosts while it runs
+        self._store = None
 
     def run(self) -> JobResult:
         """Launch; on failure relaunch up to ``max_retries`` times (each
@@ -171,15 +190,19 @@ class Job:
     def _spawn(self, attempt: int) -> List[subprocess.Popen]:
         spec = self.spec
         if self.hosts is None:
-            # retries always re-pick: a pinned port can still be held by a
-            # not-yet-reaped child of the failed attempt
-            port = (spec.coordinator_port
-                    if spec.coordinator_port and attempt == 0
-                    else _free_port())
-            coord = f"127.0.0.1:{port}"
+            if spec.coordinator_port and attempt == 0:
+                coord, hosted = f"127.0.0.1:{spec.coordinator_port}", False
+            else:
+                # this process hosts the store on a port the system gives
+                # it and keeps it for the attempt, so no other process can
+                # take the port first (and a retry never inherits a port
+                # a not-yet-reaped child of the failed attempt holds)
+                from distkeras_tpu_torch.parallel.launch import hosted_store
+                self._store = hosted_store(spec.timeout or 1800.0)
+                coord, hosted = f"127.0.0.1:{self._store.port}", True
             return [subprocess.Popen(
                 [sys.executable, spec.script, *spec.args],
-                env=_worker_env(spec, coord, pid),
+                env=_worker_env(spec, coord, pid, hosted),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True) for pid in range(spec.num_processes)]
         # remote: the coordinator port lives on a remote host, so a local
@@ -240,6 +263,7 @@ class Job:
         logs = [log + "\n[killed: job timeout]" if k else log
                 for log, k in zip(logs, killed)]
         rcs = [p.returncode for p in procs]
+        self._store = None
         return JobResult(spec.name, rcs, logs,
                          now() - t0)
 

@@ -4,14 +4,21 @@
 
 ``Predictor.predict(dataset)`` returns the dataset with the model's
 eval-mode output (with the running statistics) appended as
-``output_col``, float32 (JAX's ``user_float``). The port runs on the
-model's one device: a batch is ``batch_size_per_device`` rows, the last
-one zero-padded to that size so every forward has one shape. JAX shards
-the batch over a mesh and can shard the weights (``mesh=``,
-``tp_axis=``, ``ep_axis=``); those raise here (ROADMAP Queue 1 item 10).
+``output_col``, float32 (JAX's ``user_float``). Without a mesh the port
+runs on the model's one device: a batch is ``batch_size_per_device``
+rows, the last one zero-padded to that size so every forward has one
+shape. With ``mesh=`` (a ``parallel.mesh.Mesh`` over the ranks of a
+world; every rank calls ``predict`` with the same dataset) the batch of
+``batch_size_per_device`` rows per index of the mesh's FIRST axis is
+sharded over that axis, each rank predicts its rows, and the rows are
+gathered, so every rank returns the whole column; ``tp_axis``/
+``ep_axis`` shard the weights by the SPMD trainer's rules
+(``parallel.sharding``) instead of replicating them.
 ``StreamingPredictor`` (JAX :129) predicts an unbounded stream of
 batches: a ``utils.prefetch.Prefetcher`` pads the next batch and stages
-it on the device (pinned, non-blocking) while the current one computes.
+it on the device (pinned, non-blocking) while the current one computes;
+with ``mesh=`` the batch size must divide over the first axis (JAX
+:146-157).
 """
 
 from __future__ import annotations
@@ -24,30 +31,28 @@ import torch
 from distkeras_tpu_torch.data.dataset import Dataset, coerce_column
 from distkeras_tpu_torch.models.core import Model, eval_mode, user_float
 
-#: the multi-device ROADMAP item, named in errors
-MESH_ITEM = ("ROADMAP, Queue 1 item 10 (a mesh of cards: batch and "
-             "weight sharding)")
-
 
 class Predictor:
-    """Batched inference on the model's device (JAX :29): ``predict(
-    dataset)`` returns the dataset with ``output_col`` appended."""
+    """Batched inference (JAX :29): ``predict(dataset)`` returns the
+    dataset with ``output_col`` appended. ``tp_axis``/``ep_axis`` shard
+    the model's params over those axes of ``mesh`` (the SPMD trainer's
+    rules) instead of replicating them (without a mesh there is nothing
+    to shard over); the batch is sharded over the mesh's FIRST axis
+    either way."""
 
     def __init__(self, keras_model: Model, features_col: str = "features",
                  output_col: str = "prediction",
                  batch_size_per_device: int = 128, mesh=None,
                  tp_axis: Optional[str] = None,
                  ep_axis: Optional[str] = None):
-        for name, given in (("mesh", mesh), ("tp_axis", tp_axis),
-                            ("ep_axis", ep_axis)):
-            if given is not None:
-                raise NotImplementedError(
-                    f"Predictor({name}=) is not ported yet (the port "
-                    f"predicts on one card): {MESH_ITEM}")
         self.model = keras_model
         self.features_col = features_col
         self.output_col = output_col
         self.batch_size_per_device = int(batch_size_per_device)
+        self.mesh = mesh
+        self.tp_axis = tp_axis
+        self.ep_axis = ep_axis
+        self._sharded = None
 
     # the one shared dtype policy (training and inference agree)
     _coerce = staticmethod(coerce_column)
@@ -62,20 +67,65 @@ class Predictor:
                 [xb, np.zeros((pad,) + xb.shape[1:], xb.dtype)])
         return xb, pad
 
+    def _global_batch(self) -> int:
+        if self.mesh is None:
+            return self.batch_size_per_device
+        return self.batch_size_per_device \
+            * self.mesh.shape[self.mesh.axis_names[0]]
+
+    def _forward_fn(self):
+        """``fwd(xb [global batch, ...] on the device) -> output``: the
+        model's eval forward, on this rank's rows under a mesh."""
+        model = self.model
+        if self.mesh is None:
+            params = model.params
+
+            def fwd(xb):
+                with eval_mode(model.module):
+                    return model.module.apply(params, xb)
+            return fwd
+        if self._sharded is None:
+            from distkeras_tpu_torch.parallel.sharding import (
+                Placement, param_specs, shard_params, use_plan)
+            from distkeras_tpu_torch.utils.tree import tree_leaves
+            mesh = self.mesh
+            specs = param_specs(model.module, model.params, mesh,
+                                tp_axis=self.tp_axis, ep_axis=self.ep_axis)
+            local = shard_params(model.params, specs, mesh)
+            placement = Placement(mesh, self.tp_axis,
+                                  (mesh.axis_names[0],))
+            plan = use_plan(model.module, specs, tree_leaves(local),
+                            placement)
+            self._sharded = (local, placement, plan)
+        local, placement, plan = self._sharded
+
+        def fwd(xb):
+            from distkeras_tpu_torch.parallel.sharding import (gather_rows,
+                                                               placed,
+                                                               use_params)
+            from distkeras_tpu_torch.utils.tree import (tree_leaves,
+                                                        tree_unflatten)
+            row, rows = placement.data_block()
+            n = xb.shape[0] // rows
+            with placed(placement), eval_mode(model.module):
+                use = tree_unflatten(local, use_params(plan,
+                                                       tree_leaves(local)))
+                y = model.module.apply(use, xb[row * n:(row + 1) * n])
+                return gather_rows(y)
+        return fwd
+
     @torch.no_grad()
     def predict(self, dataset: Dataset) -> Dataset:
         model = self.model
         X = self._coerce(dataset[self.features_col])
-        b = self.batch_size_per_device
-        params = model.params
+        b = self._global_batch()
+        fwd = self._forward_fn()
         outs = []
-        with eval_mode(model.module):
-            for i in range(0, len(X), b):
-                xb, pad = self._pad_to(X[i:i + b], b)
-                y = model.module.apply(
-                    params, torch.from_numpy(xb).to(model.device))
-                y = user_float(y).cpu().numpy()
-                outs.append(y[:b - pad] if pad else y)
+        for i in range(0, len(X), b):
+            xb, pad = self._pad_to(X[i:i + b], b)
+            y = fwd(torch.from_numpy(xb).to(model.device))
+            y = user_float(y).cpu().numpy()
+            outs.append(y[:b - pad] if pad else y)
         return dataset.with_column(self.output_col,
                                    np.concatenate(outs, axis=0))
 
@@ -96,12 +146,23 @@ class StreamingPredictor(Predictor):
     batch is zero-padded to ``batch_size``, so every forward has one
     shape, and a background thread stages the next batch on the device
     while the current one computes. ``predict_stream(source)`` yields
-    one output array per input batch, in order."""
+    one output array per input batch, in order. With ``mesh=`` the
+    batch shards over the mesh's first axis, which must divide it."""
 
     def __init__(self, keras_model: Model, batch_size: int = 256,
                  mesh=None, **kwargs):
+        n_batch = 1
+        if mesh is not None:
+            # batch shards over the FIRST mesh axis only (same semantics
+            # as Predictor.predict); other axes hold tp/ep shards
+            n_batch = mesh.shape[mesh.axis_names[0]]
+            if batch_size % n_batch:
+                raise ValueError(
+                    f"batch_size {batch_size} must divide over the "
+                    f"{mesh.axis_names[0]!r} axis ({n_batch})")
         super().__init__(keras_model, mesh=mesh,
-                         batch_size_per_device=batch_size, **kwargs)
+                         batch_size_per_device=batch_size // n_batch,
+                         **kwargs)
         self.batch_size = int(batch_size)
 
     def predict_stream(self, source):
@@ -113,7 +174,7 @@ class StreamingPredictor(Predictor):
         dropping results already staged."""
         from distkeras_tpu_torch.utils.prefetch import Prefetcher, to_device
         model = self.model
-        params = model.params
+        fwd = self._forward_fn()
 
         def stage(batch):
             xb = self._coerce(batch)
@@ -133,7 +194,7 @@ class StreamingPredictor(Predictor):
         self._stage_thread = pf._thread
         with pf:
             for _, (xb, pad) in pf:
-                with torch.no_grad(), eval_mode(model.module):
-                    y = user_float(model.module.apply(params, xb))
+                with torch.no_grad():
+                    y = user_float(fwd(xb))
                 y = y.cpu().numpy()
                 yield y[:self.batch_size - pad] if pad else y

@@ -30,6 +30,14 @@ shifts the ``Hkv``-head shards), and the ids are the local shard. A
 bad combination raises what JAX raises: a window with a
 sequence-parallel implementation, or one without ``seq_axis_name``, at
 the call.
+
+Tensor parallelism (the SPMD trainer, ``parallel.sharding``): given the
+rank's block of its heads (``wq``/``wo`` split over the placement's
+tensor-parallel axis) or of its hidden units (``w1``/``b1``/``w2``), the
+attention and the MLP compute those between Megatron's
+``replicate_in`` at the input and one ``reduce_out`` after ``wo`` or
+``w2`` (``b2`` is added after the sum); grouped K/V heads the axis does
+not divide stay whole and each rank takes its query heads' groups.
 """
 
 from __future__ import annotations
@@ -267,8 +275,28 @@ class MultiHeadAttention(Layer):
 
     def apply(self, p, x, segment_ids=None):
         dt = torch_dtype(self.dtype)
-        xc = x.to(dt)
         impl = self.attn_impl
+        from distkeras_tpu_torch.parallel.sharding import \
+            tensor_parallel_axis
+        tp = tensor_parallel_axis(p["wq"].shape[1], self.num_heads, "heads")
+        wk, wv = p["wk"], p["wv"]
+        if tp is not None:
+            # Megatron's column->row split: this rank's heads of q/k/v and
+            # of wo's input; the branch input's gradient sums the ranks'
+            from distkeras_tpu_torch.parallel.collectives import (
+                axis_index, replicate_in)
+            x = replicate_in(x, tp)
+            if wk.shape[1] == self.kv_heads:
+                # grouped K/V heads the axis does not divide stay whole:
+                # each rank expands them to its own query heads
+                hl = p["wq"].shape[1]
+                g = self.num_heads // self.kv_heads
+                heads = torch.arange(axis_index(tp) * hl,
+                                     (axis_index(tp) + 1) * hl,
+                                     device=wk.device) // g
+                wk = replicate_in(wk, tp).index_select(1, heads)
+                wv = replicate_in(wv, tp).index_select(1, heads)
+        xc = x.to(dt)
         positions = None
         if self.use_rope and impl in SEQ_PARALLEL_IMPLS \
                 and self.seq_axis_name:
@@ -278,12 +306,12 @@ class MultiHeadAttention(Layer):
             positions = collectives.axis_index(self.seq_axis_name) * s \
                 + torch.arange(s, device=x.device)
         q = torch.einsum("bsd,dhe->bshe", xc, p["wq"].to(dt))
-        k = torch.einsum("bsd,dhe->bshe", xc, p["wk"].to(dt))
-        v = torch.einsum("bsd,dhe->bshe", xc, p["wv"].to(dt))
+        k = torch.einsum("bsd,dhe->bshe", xc, wk.to(dt))
+        v = torch.einsum("bsd,dhe->bshe", xc, wv.to(dt))
         if self.use_rope:
             q = apply_rope(q, positions, scale=self.rope_scale)
             k = apply_rope(k, positions, scale=self.rope_scale)
-        g = self.num_heads // self.kv_heads
+        g = q.shape[2] // k.shape[2]
         if g > 1 and impl in ("xla", "ulysses", "ulysses_flash"):
             # one K/V head per query head (JAX ``_expand_kv``): Ulysses'
             # all-to-all splits heads; the flash kernels, and the ring's
@@ -296,6 +324,9 @@ class MultiHeadAttention(Layer):
                                  window=self.attn_window,
                                  segment_ids=segment_ids)
         y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(dt))
+        if tp is not None:
+            from distkeras_tpu_torch.parallel.collectives import reduce_out
+            y = reduce_out(y, tp)
         return y.to(x.dtype)
 
     def get_config(self):
@@ -337,8 +368,21 @@ class TransformerMLP(Layer):
     def apply(self, p, x):
         dt = torch_dtype(self.dtype)
         act = get_activation(self.activation)
-        h = act(x.to(dt) @ p["w1"].to(dt) + p["b1"].to(dt))
-        y = h @ p["w2"].to(dt) + p["b2"].to(dt)
+        from distkeras_tpu_torch.parallel.sharding import \
+            tensor_parallel_axis
+        tp = tensor_parallel_axis(p["w1"].shape[-1], self.hidden_dim,
+                                  "hidden units")
+        xin = x
+        if tp is not None:
+            from distkeras_tpu_torch.parallel.collectives import replicate_in
+            xin = replicate_in(x, tp)
+        h = act(xin.to(dt) @ p["w1"].to(dt) + p["b1"].to(dt))
+        y = h @ p["w2"].to(dt)
+        if tp is not None:
+            # the row split: each rank's hidden units' part of the sum
+            from distkeras_tpu_torch.parallel.collectives import reduce_out
+            y = reduce_out(y, tp)
+        y = y + p["b2"].to(dt)
         return y.to(x.dtype)
 
     def get_config(self):

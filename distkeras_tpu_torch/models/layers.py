@@ -115,9 +115,21 @@ def init_weights(name: str, rng: torch.Tensor, shape):
 def dropout(x, rate: float, rng):
     """Inverted dropout (JAX ``Dropout.apply`` :166-172): keep each entry
     with probability ``1 - rate`` by ``bernoulli(rng, keep, x.shape)``
-    and scale the kept ones by ``1 / keep``."""
+    and scale the kept ones by ``1 / keep``. Under a placement that
+    shards the batch (``parallel.sharding``) the mask is this rank's rows
+    of the global batch's."""
     keep = 1.0 - rate
-    mask = prng.bernoulli(rng, keep, tuple(x.shape))
+    from distkeras_tpu_torch.parallel.sharding import data_rows
+    rows = data_rows()
+    if rows is None:
+        mask = prng.bernoulli(rng, keep, tuple(x.shape))
+    else:
+        # under a sharded batch: this rank's rows of the global batch's
+        # mask (the counters run over the global shape)
+        index, count = rows
+        n = x.shape[0]
+        mask = prng.bernoulli(rng, keep, (n * count,) + tuple(x.shape[1:]))
+        mask = mask[index * n:(index + 1) * n]
     return torch.where(mask, x / keep, 0.0)
 
 
@@ -638,6 +650,9 @@ class BatchNorm(Layer):
     groups' mean. Eval: normalize by the running statistics. This is not
     ``F.batch_norm``: torch's running variance is unbiased and its
     momentum is ``1 - m``. ``axis_name`` (cross-replica moments) raises.
+    Under a placement that shards the batch over data axes
+    (``parallel.sharding``, the SPMD trainer) the moments, the backward's
+    two sums and the ghost groups' statistics are the global batch's.
     """
 
     has_state = True
@@ -685,10 +700,35 @@ class BatchNorm(Layer):
             sh = (g,) + (1,) * (xg.dim() - 2) + (-1,)
             inv = torch.rsqrt(var_g.reshape(sh) + eps) * p["scale"]
             y = (xg - mean_g.reshape(sh)) * inv + p["offset"]
-            self._update(s, mean_g.detach().mean(0), var_g.detach().mean(0))
+            from distkeras_tpu_torch.parallel.sharding import data_summer
+            total = data_summer()
+            if total is None:
+                self._update(s, mean_g.detach().mean(0),
+                             var_g.detach().mean(0))
+            else:
+                with torch.no_grad():
+                    # the groups of every rank of a sharded batch
+                    n = total(torch.tensor(float(g), device=x.device))
+                    self._update(s, total(mean_g.detach().sum(0)) / n,
+                                 total(var_g.detach().sum(0)) / n)
             return y.reshape(x.shape).to(x.dtype)
         if self.training:
             axes = tuple(range(x.dim() - 1))
+            from distkeras_tpu_torch.parallel.sharding import (data_rows,
+                                                               data_summer)
+            total = data_summer()
+            if total is not None:
+                # a sharded batch: the moments of the global batch, and
+                # the backward's two sums over it
+                n = data_rows()[1] * (xf.numel() // xf.shape[-1])
+                with torch.no_grad():
+                    sums = total(torch.stack(
+                        [xf.sum(dim=axes), xf.square().sum(dim=axes)]))
+                    mean = sums[0] / n
+                    var = sums[1] / n - mean.square()
+                self._update(s, mean, var)
+                return bn_train_apply(x, p["scale"], p["offset"], mean, var,
+                                      eps, axes, n, total)
             with torch.no_grad():
                 mean = xf.mean(dim=axes)
                 var = xf.square().mean(dim=axes) - mean.square()

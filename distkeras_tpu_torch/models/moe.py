@@ -164,13 +164,15 @@ class MoE(Layer):
         """``E * sum_e f_e * P_e`` (Switch eq. 4, GShard; JAX :207): ``f_e``
         the fraction of routing slots expert ``e`` won (the mask's mean
         over tokens over ``top_k``), ``P_e`` its mean router
-        probability. 1 at uniform routing."""
+        probability. 1 at uniform routing. Under a placement that shards
+        the batch (``parallel.sharding``) both are the global batch's."""
+        from distkeras_tpu_torch.parallel.sharding import data_mean
         e = self.num_experts
         if mask is None:            # top_k == E: every slot hits every expert
             frac = torch.full((e,), 1.0 / e, device=full.device)
         else:
-            frac = mask.float().mean(dim=(0, 1)) / self.top_k
-        return e * torch.sum(frac * full.mean(dim=(0, 1)))
+            frac = data_mean(mask.float().mean(dim=(0, 1))) / self.top_k
+        return e * torch.sum(frac * data_mean(full.mean(dim=(0, 1))))
 
     def _publish_balance_loss(self, full, mask):
         """Publish the weighted balance loss in training mode; clear the

@@ -3,15 +3,21 @@
 The port's counterpart of the ``jax.lax`` collectives that the
 sequence-parallel modules call inside a ``shard_map``:
 ``axis_index``/``axis_size`` (``lax.axis_index``, ``lax.psum(1, ..)``),
-``ppermute``, ``all_to_all``, ``psum`` and ``all_gather``, each along a
-named axis of the current mesh (``parallel.mesh``: made current by
+``ppermute``, ``all_to_all``, ``psum``, ``all_gather`` and
+``reduce_scatter`` (``lax.psum_scatter``), each along a named axis of
+the current mesh (``parallel.mesh``: made current by
 ``with mesh:`` or by ``shard_map``). An axis that no current mesh binds
 raises ``NameError``, as JAX's unbound axis names do.
 
-``ppermute``, ``all_to_all``, ``psum`` and ``all_gather`` are
-differentiable: the gradient of a shift is the inverse shift, of an
-all-to-all the all-to-all back, of a sum over the axis the sum of the
-cotangents, of a gather each rank's slice of the summed cotangent.
+``ppermute``, ``all_to_all``, ``psum``, ``all_gather`` and
+``reduce_scatter`` are differentiable: the gradient of a shift is the
+inverse shift, of an all-to-all the all-to-all back, of a sum over the
+axis the sum of the cotangents, of a gather each rank's slice of the
+summed cotangent, of a reduce-scatter the gather of the cotangents.
+``replicate_in`` and ``reduce_out`` are Megatron's pair for tensor
+parallelism (the SPMD trainer's column and row splits): the identity
+forward with a summed backward, and the sum forward with the identity
+backward.
 
 Transport follows the axis group's backend. NCCL moves device tensors.
 Gloo moves host memory only (no CUDA send/recv or all-to-all), and a
@@ -346,6 +352,77 @@ def all_gather(x: torch.Tensor, axis_name: str, axis: int = 0,
     """``lax.all_gather``: every index's ``x`` in index order, stacked
     along a new ``axis`` (``tiled=True``: concatenated along ``axis``)."""
     return _AllGather.apply(x, axis_name, axis, tiled)
+
+
+def _scatter(x, axis_name, dim):
+    """This index's block of ``dim`` of the sum over the axis."""
+    mesh = _mesh_for(axis_name)
+    n = mesh.axis_size(axis_name)
+    dim %= x.ndim
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter over {n} ranks cannot split axis "
+                         f"{dim} of {tuple(x.shape)}")
+    step = x.shape[dim] // n
+    total = _psum(x, axis_name)
+    return total.narrow(dim, mesh.axis_index(axis_name) * step,
+                        step).contiguous()
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, dim):
+        ctx.args = (axis_name, dim % x.ndim)
+        return _scatter(x, axis_name, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, dim = ctx.args
+        return _gather(g.contiguous(), axis_name, dim, True), None, None
+
+
+def reduce_scatter(x: torch.Tensor, axis_name: str,
+                   scatter_dimension: int = 0) -> torch.Tensor:
+    """``lax.psum_scatter(..., tiled=True)``: the sum over the axis, of
+    which index ``i`` keeps block ``i`` of ``scatter_dimension``. Its
+    gradient is the tiled all-gather of the cotangents."""
+    return _ReduceScatter.apply(x, axis_name, scatter_dimension)
+
+
+class _ReplicateIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name):
+        ctx.axis_name = axis_name
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g.contiguous(), ctx.axis_name), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name):
+        return _psum(x.contiguous(), axis_name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def replicate_in(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Megatron's ``f``: the identity forward, and the sum over the axis
+    of the cotangents backward. It enters a region where each index of
+    the axis computes its own part (its heads, its hidden units) from
+    the same replicated ``x``: ``x``'s gradient is the sum of the
+    parts'."""
+    return _ReplicateIn.apply(x, axis_name)
+
+
+def reduce_out(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Megatron's ``g``: the sum over the axis forward, and the identity
+    backward. It leaves such a region: every index holds the same sum,
+    whose cotangent each index already holds whole."""
+    return _ReduceOut.apply(x, axis_name)
 
 
 # --- shard_map ---------------------------------------------------------------

@@ -1,8 +1,7 @@
 """A world of processes on this machine, kept up across calls.
 
 ``World(n)`` starts ``n`` processes (``spawn``), each a rank of one gloo
-``torch.distributed`` world at ``tcp://localhost:<free port>``, and
-keeps them waiting for work: ``world.run(fn, *args)`` calls
+``torch.distributed`` world, and keeps them waiting for work: ``world.run(fn, *args)`` calls
 ``fn(*args)`` on every rank at once and returns the ranks' results in
 rank order. The mesh of ``parallel.mesh`` is then made over those ranks
 inside ``fn``. Ranks on one machine share its card (the collectives
@@ -19,6 +18,11 @@ traceback; the other ranks, which may then wait in a collective, fail
 on the group's timeout, and the world shuts down (``broken``).
 ``deploy.Job`` is the launcher for scripts and for machines of a
 cluster.
+
+The world's rendezvous store is a ``TCPStore`` that the parent holds
+for the world's life: it listens on a port the system gives it (port
+0), and the ranks connect to that port, so no other process can take
+the port between its choice and its use.
 """
 
 from __future__ import annotations
@@ -26,7 +30,6 @@ from __future__ import annotations
 import multiprocessing as mp
 import os
 import queue
-import socket
 import traceback
 from datetime import timedelta
 from typing import Any, List
@@ -34,10 +37,28 @@ from typing import Any, List
 from distkeras_tpu_torch.utils.profiling import now
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+HOST = "127.0.0.1"
+
+
+def hosted_store(timeout: float):
+    """A rendezvous ``TCPStore`` listening on a free port of this machine
+    (``.port``), held by the caller while its ranks use it."""
+    import torch.distributed as dist
+    return dist.TCPStore(HOST, 0, None, True,
+                         timeout=timedelta(seconds=timeout),
+                         wait_for_workers=False)
+
+
+def join_store(host: str, port: int, rank: int, size: int,
+               timeout: float) -> None:
+    """Bring this process into a gloo world as ``rank`` of ``size``
+    through the store another process hosts at ``host:port``."""
+    import torch.distributed as dist
+    store = dist.TCPStore(host, int(port), size, False,
+                          timeout=timedelta(seconds=timeout))
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=size,
+                            timeout=timedelta(seconds=timeout))
 
 
 def _rank_main(rank, size, port, threads, timeout, tasks, results):
@@ -45,9 +66,7 @@ def _rank_main(rank, size, port, threads, timeout, tasks, results):
     import torch.distributed as dist
     torch.set_num_threads(threads)
     try:
-        dist.init_process_group(
-            "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-            world_size=size, timeout=timedelta(seconds=timeout))
+        join_store(HOST, port, rank, size, timeout)
         results.put((rank, True, "ready"))
     except Exception:  # reported to the parent
         results.put((rank, False, traceback.format_exc()))
@@ -78,7 +97,8 @@ class World:
         ctx = mp.get_context("spawn")
         self._tasks = [ctx.Queue() for _ in range(self.size)]
         self._results = ctx.Queue()
-        port = free_port()
+        self._store = hosted_store(self.timeout)
+        port = self._store.port
         saved = dict(os.environ)
         os.environ["OMP_NUM_THREADS"] = str(threads)
         try:
@@ -150,6 +170,7 @@ class World:
         for q in self._tasks + [self._results]:
             q.close()
             q.cancel_join_thread()
+        self._store = None
 
     def __enter__(self):
         return self

@@ -21,7 +21,8 @@ axis group, which is ascending global rank.
 
 A mesh is made current by ``with mesh:`` or by ``shard_map``
 (``parallel.collectives``); the named collectives and the layers'
-``seq_axis_name`` read the current one. ``replicated`` and
+``seq_axis_name`` read the current one. ``AbstractMesh`` is axis
+sizes alone (no ranks), which the sharding rules read. ``replicated`` and
 ``worker_sharded`` return placement specs (``NamedSharding`` over a
 ``PartitionSpec``, kept here) that ``shard_map`` reads.
 
@@ -147,6 +148,25 @@ class Mesh:
 
     def __repr__(self):
         return f"Mesh({self.shape}, device={str(self.device)!r})"
+
+
+class AbstractMesh:
+    """Named axis sizes with no ranks behind them (JAX's
+    ``AbstractMesh``): what ``parallel.sharding``'s rules read
+    (``shape``, ``axis_names``), so that a spec tree can be worked out
+    in any one process for a mesh of any size."""
+
+    def __init__(self, shape: Dict[str, int]):
+        self.shape: Dict[str, int] = {str(k): int(v)
+                                      for k, v in dict(shape).items()}
+        self.axis_names = tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(list(self.shape.values()), dtype=np.int64))
+
+    def __repr__(self):
+        return f"AbstractMesh({self.shape})"
 
 
 def make_mesh(num_workers: Optional[int] = None,

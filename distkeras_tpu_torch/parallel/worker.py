@@ -118,7 +118,9 @@ def value_and_grad(module, loss_fn: Callable, params, xb, yb,
     parameter the loss never reached gets zeros, as
     ``jax.value_and_grad`` gives. ``objective(params, xb, yb, kw) ->
     (loss, out)`` replaces the forward and the loss (the fused vocab
-    head; its ``out`` is None)."""
+    head; its ``out`` is None); ``(loss, out, labels)`` also names the
+    labels the metrics take with ``out`` (the SPMD step's global
+    batch)."""
     leaves = tree_leaves(params)
     was_training = module.training
     module.train()
@@ -131,7 +133,10 @@ def value_and_grad(module, loss_fn: Callable, params, xb, yb,
                 out = module.apply(params, xb, **kw)
                 loss = loss_fn(yb, out)
             else:
-                loss, out = objective(params, xb, yb, kw)
+                res = objective(params, xb, yb, kw)
+                loss, out = res[0], res[1]
+                if len(res) > 2:
+                    yb = res[2]
             loss = loss + collect_aux_losses(module)
     finally:
         module.train(was_training)
@@ -146,7 +151,7 @@ def value_and_grad(module, loss_fn: Callable, params, xb, yb,
 def make_train_step(module, loss_fn: Callable, optimizer: Optimizer,
                     metric_fns: Optional[dict] = None,
                     accum_steps: int = 1, param_mask=None, state_mask=None,
-                    fused_vocab_head=False) -> Callable:
+                    fused_vocab_head=False, objective=None) -> Callable:
     """The per-minibatch step ``(carry, (xb, yb)) -> (carry, loss)``, or
     ``(carry, (loss, {name: metric}))`` with ``metric_fns``.
 
@@ -166,12 +171,13 @@ def make_train_step(module, loss_fn: Callable, optimizer: Optimizer,
     chunked cross-entropy (``ops.losses.fused_linear_cross_entropy``);
     it needs a ``Sequential`` ending in ``Dense(use_bias=False,
     activation=None)``, a sparse-from-logits loss (plain or masked) and
-    no ``metric_fns``."""
+    no ``metric_fns``. ``objective`` (``value_and_grad``'s) replaces the
+    forward and the loss: the SPMD trainer's sharded step, which handles
+    ``fused_vocab_head`` itself."""
     accum_steps = int(accum_steps)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    objective = None
-    if fused_vocab_head:
+    if fused_vocab_head and objective is None:
         objective = _fused_loss(
             _fused_head_parts(module, loss_fn, metric_fns),
             8 if fused_vocab_head is True else int(fused_vocab_head))

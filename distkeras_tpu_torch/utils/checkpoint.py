@@ -23,8 +23,21 @@ reads go through a transient-IO retry policy (``retry=``, default
 ``resilience.io_retry()``), and the chaos points ``ckpt.d2h`` (copies
 in flight, none fenced), ``ckpt.write``, ``ckpt.rename`` and
 ``ckpt.restore`` (``resilience.faults``) sit where JAX's do (:52, :248,
-:258, :306). ``ShardedCheckpointManager`` (per-process shards of a
-sharded model) waits for the multi-device item 10.
+:258, :306).
+
+``ShardedCheckpointManager`` (JAX :393) keeps a sharded model's
+checkpoint without gathering it: in JAX's layout, every rank of the
+world writes its blocks to ``step_<N>/arrays_p<rank>.npz`` under keys
+``<leaf-path>|<lo:hi,...>`` (a block that several ranks hold is written
+by the first of them only), and rank 0 writes ``manifest.json`` with
+every leaf's global shape and dtype. ``save(step, tree, metadata,
+shardings=)`` takes the rank's blocks and a tree of ``NamedSharding``
+(None: every leaf whole on every rank); ``restore_sharded(shardings)``
+returns this rank's block of every leaf as host arrays, cut from stored
+pieces that match, from a whole stored leaf, or stitched from the
+pieces a mesh of another shape wrote; ``restore(template)`` stitches
+whole leaves. Steps of either package's manager restore in the
+other's, and dense steps (``arrays.npz``) restore through both.
 """
 
 from __future__ import annotations
@@ -341,3 +354,280 @@ class CheckpointManager:
         path = os.path.join(self.directory, f"step_{step}", MANIFEST)
         with open(path) as f:
             return json.load(f)["metadata"]
+
+
+# --- sharded checkpoints ------------------------------------------------------
+
+
+def _encode_index(ranges) -> str:
+    """``((lo, hi), ...)`` -> ``'lo:hi,...'`` (JAX :370)."""
+    return ",".join(f"{lo}:{hi}" for lo, hi in ranges)
+
+
+def _decode_index(s: str) -> tuple:
+    """``'0:4,8:16'`` -> ``((0, 4), (8, 16))``."""
+    if not s:
+        return ()
+    return tuple((int(a), int(b))
+                 for a, b in (part.split(":") for part in s.split(",")))
+
+
+def _as_slices(idx) -> tuple:
+    return tuple(slice(lo, hi) for lo, hi in idx)
+
+
+def _host_array(leaf) -> np.ndarray:
+    if torch.is_tensor(leaf):
+        return leaf.detach().cpu().numpy()  # lint: allow-host-sync (the rank's block goes to disk)
+    return np.asarray(leaf)
+
+
+def _world():
+    """``(rank, size, barrier)`` of the current ``torch.distributed``
+    world (a lone process when none is up)."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return 0, 1, lambda: None
+    return dist.get_rank(), dist.get_world_size(), dist.barrier
+
+
+class ShardedCheckpointManager(CheckpointManager):
+    """Checkpoints of sharded (TP/FSDP/EP) models in JAX's per-process
+    layout (see the module docstring): each rank writes only its blocks,
+    and restores only its blocks. Every rank of the world calls ``save``
+    (it runs barriers); the directory is shared by the ranks."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 async_writes: bool = False):
+        if async_writes:
+            raise ValueError(
+                "async_writes is not supported for sharded checkpoints: "
+                "the save path runs multi-process barriers that must stay "
+                "on the training thread")
+        super().__init__(directory, max_to_keep=max_to_keep)
+
+    def _sweep_stale_tmp(self) -> None:
+        """Rank 0 alone removes a crashed write's ``step_*.tmp``: another
+        rank's manager may be made while rank 0 writes one."""
+        if _world()[0] == 0:
+            super()._sweep_stale_tmp()
+
+    def save(self, step: int, tree: Any, metadata: Optional[Dict] = None,
+             shardings: Any = None) -> str:
+        """Write this rank's blocks of ``tree`` at ``step``. ``shardings``
+        mirrors ``tree`` with a ``NamedSharding`` per leaf (its spec over
+        its mesh says which block the leaf is); None: whole leaves, which
+        rank 0 writes."""
+        from distkeras_tpu_torch.parallel.sharding import (block_counts,
+                                                           block_ranges,
+                                                           is_replica_zero)
+        self.wait()
+        rank, _, _ = _world()
+        flat, leaves = {}, {}
+        if shardings is None:
+            pairs = [(path, leaf, None) for path, leaf in _jax_order(tree)]
+        else:
+            pairs = list(_with_shardings(tree, shardings))
+        for path, leaf, sharding in pairs:
+            key = leaf_key(path)
+            arr = _host_array(leaf)
+            if sharding is None:
+                shape = tuple(arr.shape)
+                ranges = tuple((0, d) for d in shape)
+                mine = rank == 0
+            else:
+                counts = block_counts(sharding, sharding.mesh, arr.ndim)
+                shape = tuple(d * n for d, n in zip(arr.shape, counts))
+                ranges = block_ranges(sharding, sharding.mesh, shape)
+                mine = is_replica_zero(sharding, sharding.mesh)
+            leaves[key] = {"shape": list(shape), "dtype": str(arr.dtype)}
+            if mine:
+                flat[f"{key}|{_encode_index(ranges)}"] = np.array(arr)
+        final = os.path.join(self.directory, f"step_{step}")
+        self._write_sharded(step, flat, leaves, metadata, final)
+        return final
+
+    def _write_sharded(self, step, flat, leaves, metadata, final):
+        rank, size, barrier = _world()
+        tmp = final + ".tmp"
+        if rank == 0:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        barrier()
+        # no retry here: one rank retrying would desynchronize the
+        # barriers (why async_writes is refused too)
+        faults.point("ckpt.write")
+        np.savez(os.path.join(tmp, f"arrays_p{rank}.npz"), **flat)
+        barrier()
+        if rank == 0:
+            with open(os.path.join(tmp, MANIFEST), "w") as f:
+                json.dump({"step": int(step), "format": "sharded",
+                           "keys": sorted(leaves), "leaves": leaves,
+                           "num_processes": size,
+                           "metadata": metadata or {}}, f, indent=2)
+            faults.point("ckpt.rename")
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)  # the atomic publish
+            self._gc()
+        barrier()
+
+    # -- read ---------------------------------------------------------------
+    def _load_shards(self, step):
+        """``{leaf key: {index: lazy loader}}`` and the leaves' specs
+        (JAX :496): only an index of the npz members is built; a dense
+        step's ``arrays.npz`` reads as whole-leaf pieces."""
+        path = os.path.join(self.directory, f"step_{step}")
+        with open(os.path.join(path, MANIFEST)) as f:
+            manifest = json.load(f)
+        if "leaves" in manifest:
+            specs = dict(manifest["leaves"])
+            files = [n for n in sorted(os.listdir(path))
+                     if n.startswith("arrays_p") and n.endswith(".npz")]
+        else:
+            specs, files = {}, [ARRAYS]
+        pieces: Dict[str, Dict] = {}
+        for name in files:
+            arrays = np.load(os.path.join(path, name))  # lazy NpzFile
+            for k in arrays.files:
+                if "|" in k:
+                    key, _, idxstr = k.rpartition("|")
+                    idx = _decode_index(idxstr)
+                else:
+                    key = k
+                    if key not in specs:
+                        with arrays.zip.open(k + ".npy") as f:
+                            np.lib.format.read_magic(f)
+                            shp, _, dt = \
+                                np.lib.format.read_array_header_1_0(f)
+                        specs[key] = {"shape": list(shp), "dtype": str(dt)}
+                    idx = tuple((0, d) for d in specs[key]["shape"])
+                pieces.setdefault(key, {})[idx] = \
+                    (lambda a=arrays, member=k: a[member])
+        return pieces, specs
+
+    @staticmethod
+    def _stitch(norm, stored, dtype, key):
+        """The range ``norm`` from overlapping stored pieces (JAX :544):
+        one piece loaded at a time; a gap is an error, not zeros."""
+        out = np.empty(tuple(hi - lo for lo, hi in norm), dtype)
+        got = 0
+        for sidx, loader in stored.items():
+            inter = []
+            for a, b in zip(sidx, norm):
+                lo, hi = max(a[0], b[0]), min(a[1], b[1])
+                if lo >= hi:
+                    inter = None
+                    break
+                inter.append((lo, hi))
+            if inter is None:
+                continue
+            piece = loader()
+            src = piece[tuple(slice(lo - a[0], hi - a[0])
+                              for (lo, hi), a in zip(inter, sidx))]
+            out[tuple(slice(lo - b[0], hi - b[0])
+                      for (lo, hi), b in zip(inter, norm))] = src
+            got += src.size
+            del piece
+        if got != out.size:
+            raise ValueError(
+                f"checkpoint shard mismatch for {key!r}: stored pieces "
+                f"cover only {got}/{out.size} elements of requested "
+                f"index {norm} (stored indices: {list(stored)})")
+        return out
+
+    def _steps_pieces(self, step):
+        self.wait()
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory!r}")
+        faults.point("ckpt.restore")
+        return self._load_shards(step)
+
+    def restore_sharded(self, shardings: Any,
+                        step: Optional[int] = None) -> Any:
+        """This rank's block of every leaf, as host arrays in the
+        structure of ``shardings`` (a tree of ``NamedSharding``, the
+        saved tree's structure): a stored piece that matches, a slice of
+        a whole stored leaf, or a block stitched from the pieces another
+        mesh wrote. The whole leaf is never assembled."""
+        from distkeras_tpu_torch.parallel.sharding import block_ranges
+        pieces, leaves = self._steps_pieces(step)
+
+        def load(path, sharding):
+            key = leaf_key(path)
+            if key not in leaves:
+                raise KeyError(f"leaf {key!r} not in checkpoint")
+            shape = tuple(leaves[key]["shape"])
+            dtype = np.dtype(leaves[key]["dtype"])
+            stored = pieces[key]
+            norm = block_ranges(sharding, sharding.mesh, shape)
+            full = tuple((0, d) for d in shape)
+            if norm in stored:
+                piece = stored[norm]()
+            elif full in stored:
+                piece = stored[full]()[_as_slices(norm)]
+            else:
+                piece = self._stitch(norm, stored, dtype, key)
+            return np.array(piece, dtype=dtype, copy=True)
+
+        return _map_shardings(load, shardings)
+
+    def restore(self, template: Any, step: Optional[int] = None) -> Any:
+        """Whole host arrays stitched from the stored pieces, in the
+        structure of ``template`` (the compatibility path: it assembles
+        every leaf)."""
+        pieces, leaves = self._steps_pieces(step)
+        flat = {}
+        for key, stored in pieces.items():
+            shape = tuple(leaves[key]["shape"])
+            full = np.empty(shape, np.dtype(leaves[key]["dtype"]))
+            for idx, piece in stored.items():
+                full[_as_slices(idx)] = piece()
+            flat[key] = full
+        return _unflatten_like(template, flat)
+
+    def keys(self, step: Optional[int] = None) -> Optional[List[str]]:
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            return None
+        path = os.path.join(self.directory, f"step_{step}", MANIFEST)
+        with open(path) as f:
+            manifest = json.load(f)
+        if "keys" in manifest:
+            return list(manifest["keys"])
+        return super().keys(step)
+
+
+def _with_shardings(tree, shardings, path=()):
+    """``(path, leaf, sharding)`` in ``jax.tree_util`` order over a tree
+    and its mirror of ``NamedSharding`` leaves."""
+    from distkeras_tpu_torch.parallel.mesh import NamedSharding
+    if isinstance(shardings, NamedSharding):
+        yield path, tree, shardings
+    elif isinstance(shardings, dict):
+        for k in sorted(shardings):
+            yield from _with_shardings(tree[k], shardings[k], path + (k,))
+    elif isinstance(shardings, (list, tuple)):
+        for i, sub in enumerate(shardings):
+            yield from _with_shardings(tree[i], sub, path + (i,))
+    else:
+        raise TypeError(f"not a tree of NamedSharding: {shardings!r}")
+
+
+def _map_shardings(fn, shardings, path=()):
+    """``fn(path, sharding)`` over a tree of ``NamedSharding`` leaves,
+    returned in the tree's structure."""
+    from distkeras_tpu_torch.parallel.mesh import NamedSharding
+    if isinstance(shardings, NamedSharding):
+        return fn(path, shardings)
+    if isinstance(shardings, dict):
+        return {k: _map_shardings(fn, v, path + (k,))
+                for k, v in shardings.items()}
+    if isinstance(shardings, (list, tuple)):
+        return [_map_shardings(fn, v, path + (i,))
+                for i, v in enumerate(shardings)]
+    raise TypeError(f"not a tree of NamedSharding: {shardings!r}")

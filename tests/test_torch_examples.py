@@ -65,7 +65,8 @@ EXAMPLES = ["streaming_inference", "mnist_workflow", "criteo_wide_deep",
             "speculative_serving", "router_serving", "loadgen_scenario",
             "request_tracing", "moe_serving", "packed_moe_serving",
             "telemetry_tour", "vit_finetune_callbacks",
-            "long_context_serving"]
+            "long_context_serving", "large_model_spmd",
+            "imagenet_resnet_spmd"]
 
 
 @pytest.mark.parametrize("name", EXAMPLES)

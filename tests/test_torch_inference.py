@@ -235,8 +235,23 @@ def test_evaluator_with_custom_metric():
 
 
 def test_predictor_mesh_options_raise_naming_the_roadmap():
+    """The mesh options are ported (JAX :29-157; the sharded predictions
+    themselves are held to JAX's in ``tests/test_torch_spmd.py``): with
+    no mesh there is nothing to shard over and ``tp_axis``/``ep_axis``
+    leave the predictions as they are; a stream batch must divide over
+    the mesh's first axis, as JAX raises."""
+    from distkeras_tpu_torch.inference import StreamingPredictor
+    from distkeras_tpu_torch.parallel.mesh import AbstractMesh
     m = Model.build(zoo.mlp((4,), num_classes=2), (3,), device="cpu")
-    for kw in (dict(mesh=object()), dict(tp_axis="model"),
-               dict(ep_axis="expert")):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            Predictor(m, **kw)
+    X = np.random.RandomState(0).randn(10, 3).astype(np.float32)
+    ds = Dataset({"features": X})
+    ref = Predictor(m, batch_size_per_device=4).predict(ds)["prediction"]
+    for kw in (dict(tp_axis="model"), dict(ep_axis="expert")):
+        got = Predictor(m, batch_size_per_device=4, **kw).predict(ds)
+        np.testing.assert_array_equal(got["prediction"], ref)
+    with pytest.raises(ValueError, match="must divide"):
+        StreamingPredictor(m, batch_size=6,
+                           mesh=AbstractMesh({"workers": 4, "tp": 2}))
+    sp = StreamingPredictor(m, batch_size=8,
+                            mesh=AbstractMesh({"workers": 4, "tp": 2}))
+    assert sp.batch_size_per_device == 2

@@ -76,6 +76,55 @@ def test_threefry2x32_known_answer():
                                   want.astype(np.int64))
 
 
+def _float16_candidates(k, shape, lo, hi):
+    """The two float16 uniforms XLA may compute from the same 16-bit
+    words: ``floats * (hi - lo) + lo`` with one rounding (the fused
+    multiply-add), or with the product and the sum each rounded to
+    float16; each floored at ``lo``."""
+    bits = prng.random_bits(k, shape, 16).numpy().astype(np.uint16)
+    floats = ((bits >> 6) | np.uint16(0x3C00)).view(np.float16) \
+        - np.float16(1.0)
+    lo16, hi16 = np.float16(lo), np.float16(hi)
+    span = hi16 - lo16
+    fused = (floats.astype(np.float64) * np.float64(span)
+             + np.float64(lo16)).astype(np.float16)
+    product = (floats * span).astype(np.float16)
+    stepwise = product + lo16
+    return (np.maximum(lo16, fused), np.maximum(lo16, stepwise),
+            np.abs(product))
+
+
+def _check_float16_uniform(k, shape, lo, hi, got, want):
+    """The port computes float16 uniforms with one rounding (the fused
+    multiply-add) on every device. XLA's float16 lowering differs from
+    host to host: JAX's output must equal one of the two candidates
+    bitwise, the port the fused one; where the host took the stepwise
+    lowering, the port lies within one float16 ulp of JAX, the ulp of
+    the larger of the rounded product and the result (the stepwise
+    result carries half an ulp of each rounding)."""
+    fused, stepwise, product = _float16_candidates(k, shape, lo, hi)
+    want = np.asarray(want).astype(np.float16)
+    got = got.numpy()
+    if np.array_equal(want, fused):
+        lowering = "fused"
+    elif np.array_equal(want, stepwise):
+        lowering = "stepwise"
+    else:
+        raise AssertionError(
+            f"JAX's float16 uniform on [{lo}, {hi}) is neither the fused "
+            "nor the stepwise candidate computed from the same bits")
+    np.testing.assert_array_equal(got, fused)
+    if lowering == "stepwise":
+        ulp = np.spacing(np.maximum(product, np.maximum(np.abs(want),
+                                                        np.abs(got))))
+        far = np.abs(got.astype(np.float32) - want.astype(np.float32)) \
+            > ulp.astype(np.float32)
+        assert not far.any(), (
+            "XLA on this host rounds the float16 multiply and add one at "
+            f"a time (stepwise lowering): {int(far.sum())} element(s) lie "
+            "more than one float16 ulp from the port's fused result")
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("seed", SEEDS[:5])
 def test_bits_uniform_bernoulli_bitwise(seed, shape):
@@ -94,6 +143,9 @@ def test_bits_uniform_bernoulli_bitwise(seed, shape):
             got = prng.uniform(k, shape, dt, lo, hi)
             want = jax.random.uniform(jk, shape, jdt, lo, hi)
             assert got.dtype == dt
+            if dt == torch.float16:
+                _check_float16_uniform(k, shape, lo, hi, got, want)
+                continue
             np.testing.assert_array_equal(
                 got.float().numpy(), np.asarray(want).astype(np.float32))
     for p in (0.1, 0.5, 0.9):

@@ -391,13 +391,52 @@ def _pair(fn, kw, shape, seed=0):
                                jax.device_get(jm.state))
 
 
-def _assert_runs_close(jt, pt, jtrained, pm):
+def _assert_runs_close(jt, pt, jtrained, pm, tol=MODEL_TOL):
     for je, pe in zip(jt.history.epochs, pt.history.epochs, strict=True):
         assert set(je) == set(pe)
         for key in je:
-            assert _rel(pe[key], np.asarray(je[key])) <= MODEL_TOL, key
-    _assert_trees_close(pm.params, jtrained.params, MODEL_TOL, "params")
-    _assert_trees_close(pm.state, jtrained.state, MODEL_TOL, "state")
+            assert _rel(pe[key], np.asarray(je[key])) <= tol, key
+    _assert_trees_close(pm.params, jtrained.params, tol, "params")
+    _assert_trees_close(pm.state, jtrained.state, tol, "state")
+
+
+def _run_spread(jt, jtrained, rerun) -> float:
+    """The largest relative difference between two JAX runs: the per-epoch
+    histories, the trained parameters and the state."""
+    jt2, jtrained2 = rerun()
+    spread = 0.0
+    for a, b in zip(jt.history.epochs, jt2.history.epochs, strict=True):
+        spread = max([spread] + [_rel(b[k], np.asarray(a[k])) for k in a])
+    for a, b in ((jtrained.params, jtrained2.params),
+                 (jtrained.state, jtrained2.state)):
+        spread = max([spread] + [
+            _rel(y, x) for x, y in zip(jax.tree_util.tree_leaves(a),
+                                       jax.tree_util.tree_leaves(b))])
+    return spread
+
+
+#: the row orders of the spread runs: reversed, then three seeded shuffles
+ROW_ORDERS = ("reversed", 0, 1, 2)
+
+
+def _rows_permuted_in_each_step(monkeypatch, order, accum):
+    """Make the JAX trainer's steps see their rows in another order
+    (``ROW_ORDERS``) within each of the ``accum`` strided microbatches
+    (row ``j + accum * k`` stays in microbatch ``j``): the same
+    microbatches, only the order of every batch reduction changes."""
+    import distkeras_tpu.parallel.trainers as jax_trainers
+    stack = jax_trainers.stack_batches
+
+    def permuted(*args, **kwargs):
+        Xs, Ys, S = stack(*args, **kwargs)
+        m = Xs.shape[1] // accum
+        ks = np.arange(m)[::-1] if order == "reversed" \
+            else np.random.RandomState(order).permutation(m)
+        perm = (np.arange(accum)[None, :] + accum * ks[:, None]).ravel()
+        return (np.ascontiguousarray(Xs[:, perm]),
+                np.ascontiguousarray(Ys[:, perm]), S)
+
+    monkeypatch.setattr(jax_trainers, "stack_batches", permuted)
 
 
 #: (zoo function, keywords, input shape, gradient accumulation, validation);
@@ -413,9 +452,18 @@ SINGLE_CASES = {
 
 
 @pytest.mark.parametrize("case", list(SINGLE_CASES))
-def test_single_trainer_bn_state_matches_jax(case):
+def test_single_trainer_bn_state_matches_jax(case, monkeypatch):
     """Per-step losses and accuracies, the validator's scores (eval mode
-    on the running statistics), the final parameters and the BN state."""
+    on the running statistics), the final parameters and the BN state,
+    within ``MODEL_TOL``, or within twice the JAX package's own spread
+    where that is larger: JAX's run against itself with the rows of
+    every step in another order (``ROW_ORDERS``; the same mathematics,
+    another order of each batch sum; the yardstick of
+    ``tests/test_torch_zoo.py``'s ``_train_tol``). ``resnet18_thin_validation`` needs it: its sixth
+    step's gradient is sensitive to the row order (BatchNorm's backward
+    is a small residual of large terms; no ReLU input changes sign), and
+    under two of the four orders JAX's runs part from there on (the
+    test prints the spread and the limit)."""
     fn, kw, shape, accum, validation = SINGLE_CASES[case]
     X, y = _image_data(64, shape, kw["num_classes"])
     tkw = dict(worker_optimizer="sgd", learning_rate=0.05, loss=LOSS,
@@ -424,12 +472,26 @@ def test_single_trainer_bn_state_matches_jax(case):
     if validation:
         tkw["validation_data"] = _image_data(32, shape, kw["num_classes"],
                                              seed=1)
+
+    def jax_run():
+        jm = JaxModel.build(getattr(jax_zoo, fn)(**kw), shape, seed=0)
+        jt = jax_parallel.SingleTrainer(jm, **tkw)
+        return jt, jt.train(JaxDataset({"features": X, "label": y}))
+
     jm, pm = _pair(fn, kw, shape)
     jt = jax_parallel.SingleTrainer(jm, **tkw)
     jtrained = jt.train(JaxDataset({"features": X, "label": y}))
     pt = parallel.SingleTrainer(pm, **tkw)
     assert pt.train(Dataset({"features": X, "label": y})) is pm
-    _assert_runs_close(jt, pt, jtrained, pm)
+    spread = 0.0
+    for order in ROW_ORDERS:
+        with monkeypatch.context() as m:
+            _rows_permuted_in_each_step(m, order, accum)
+            spread = max(spread, _run_spread(jt, jtrained, jax_run))
+    tol = max(MODEL_TOL, 2.0 * spread)
+    print(f"{case}: JAX's own spread over the row orders {spread:.3e}, "
+          f"limit {tol:.3e}")
+    _assert_runs_close(jt, pt, jtrained, pm, tol)
     if validation:
         assert "val_loss" in pt.history.epochs[-1]
 

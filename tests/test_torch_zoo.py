@@ -374,54 +374,110 @@ def test_mobilenet_normalising_over_many_values_held_to_model_tol(
 def test_mobilenet_blocks_match_jax_forward_and_gradients(mobilenet_wide):
     """Block by block (the stem, then each depthwise-separable block:
     DepthwiseConv2D, BatchNorm, ReLU, 1x1 Conv2D, BatchNorm, ReLU), in
-    training mode on the JAX block's own input: the output, and the
-    gradients of a seeded cotangent's dot product with it for the input
-    and every parameter, each within ``LAYER_TOL`` of JAX's."""
+    training mode on the JAX block's own input, with a seeded cotangent
+    at the block's output:
+
+    * the forward chain's output within ``LAYER_TOL`` of JAX's;
+    * each layer on JAX's own input to that layer, with JAX's own
+      cotangent at its output (both from one ``jax.vjp`` of the block):
+      its input gradient and parameter gradients within ``LAYER_TOL``;
+    * the whole block's input and parameter gradients within
+      ``LAYER_TOL``, for every block whose ReLUs see inputs of the same
+      sign on both sides. An element within rounding of zero may take
+      the other branch of the kink, which no tolerance bounds; the test
+      names the blocks it leaves to the per-layer check."""
     jm, pm, x = mobilenet_wide
     jl, pl = jm.module.layers, pm.module.layers
     bounds = [(0, 3)] + [(3 + 6 * i, 9 + 6 * i) for i in range(13)]
     assert bounds[-1][1] == len(jl) - 2          # then pooling and the head
 
-    def jax_block(params, xx, lo, hi):
+    def jax_block(params, xx, eps, lo, hi):
+        """The block with ``eps[j]`` added to layer ``lo + j``'s output
+        (zeros: the gradient for ``eps[j]`` is the cotangent there);
+        returns the output and every layer's input."""
+        ins = []
         for i in range(lo, hi):
+            ins.append(xx)
             xx, _ = jl[i].apply(params[i - lo], jm.state[i], xx,
                                 training=True)
-        return xx
+            xx = xx + eps[i - lo]
+        return xx, ins
 
+    def port_layer(i, params, xx):
+        kw = {}
+        if pl[i].has_state:
+            kw["state"] = {k: v.clone() for k, v in
+                           pl[i].state_tree().items()}
+        return pl[i].apply(params, xx, **kw)
+
+    def torch_params(i):
+        return {k: torch.tensor(np.asarray(v), requires_grad=True)
+                for k, v in jm.params[i].items()}
+
+    relu = {i for i, layer in enumerate(jl)
+            if type(layer).__name__ == "Activation"}
+    left = []
     h = jnp.asarray(x)
     pm.module.train()
     try:
         for lo, hi in bounds:
+            where = f"layers {lo}-{hi}"
             jp = jm.params[lo:hi]
-            out = jax_block(jp, h, lo, hi)
+            shapes = []
+            xx = h
+            for i in range(lo, hi):
+                xx, _ = jl[i].apply(jp[i - lo], jm.state[i], xx,
+                                    training=True)
+                shapes.append(xx.shape)
+            eps = [jnp.zeros(sh, jnp.float32) for sh in shapes]
+            out, vjp, ins = jax.vjp(
+                lambda p, xx, e: jax_block(p, xx, e, lo, hi), jp, h, eps,
+                has_aux=True)
             ct = np.random.RandomState(lo).randn(*out.shape).astype(
                 np.float32)
-            jg = jax.jit(jax.grad(
-                lambda p, xx: jnp.sum(jax_block(p, xx, lo, hi) * ct),
-                argnums=(0, 1)))(jp, h)
-            pp = [{k: torch.tensor(np.asarray(v), requires_grad=True)
-                   for k, v in jm.params[i].items()} for i in range(lo, hi)]
+            jgp, jgx, jge = vjp(jnp.asarray(ct))
+            # the chain's forward on the port's own activations
+            pp = [torch_params(i) for i in range(lo, hi)]
             px = torch.tensor(np.asarray(h), requires_grad=True)
-            y = px
+            y, branch_same = px, True
             for i in range(lo, hi):
-                kw = {}
-                if pl[i].has_state:
-                    kw["state"] = {k: v.clone() for k, v in
-                                   pl[i].state_tree().items()}
-                y = pl[i].apply(pp[i - lo], y, **kw)
-            leaves = [v for p in pp for v in p.values()]
-            grads = torch.autograd.grad((y * torch.from_numpy(ct)).sum(),
-                                        leaves + [px])
-            where = f"layers {lo}-{hi}"
+                if i in relu:
+                    branch_same &= bool(np.array_equal(
+                        y.detach().numpy() > 0, np.asarray(ins[i - lo]) > 0))
+                y = port_layer(i, pp[i - lo], y)
             assert _rel(y, out) <= LAYER_TOL, where
-            assert _rel(grads[-1], jg[1]) <= LAYER_TOL, where
-            jleaves = [v for p in jg[0] for v in p.values()]
-            assert len(jleaves) == len(leaves)
-            for g, r in zip(grads[:-1], jleaves):
-                assert _rel(g, r) <= LAYER_TOL, where
+            # each layer on JAX's input to it, with JAX's cotangent there
+            for i in range(lo, hi):
+                j = i - lo
+                lp = torch_params(i)
+                lx = torch.tensor(np.asarray(ins[j]), requires_grad=True)
+                ly = port_layer(i, lp, lx)
+                lct = torch.from_numpy(np.asarray(jge[j]))
+                leaves = list(lp.values())
+                grads = torch.autograd.grad((ly * lct).sum(), leaves + [lx])
+                jdx = jgx if j == 0 else jge[j - 1]
+                at = f"{where}, layer {i} ({type(pl[i]).__name__})"
+                assert _rel(grads[-1], jdx) <= LAYER_TOL, at
+                for g, r in zip(grads[:-1], jgp[j].values()):
+                    assert _rel(g, r) <= LAYER_TOL, at
+            if branch_same:
+                leaves = [v for p in pp for v in p.values()]
+                grads = torch.autograd.grad(
+                    (y * torch.from_numpy(ct)).sum(), leaves + [px])
+                assert _rel(grads[-1], jgx) <= LAYER_TOL, where
+                jleaves = [v for p in jgp for v in p.values()]
+                assert len(jleaves) == len(leaves)
+                for g, r in zip(grads[:-1], jleaves):
+                    assert _rel(g, r) <= LAYER_TOL, where
+            else:
+                left.append(where)
             h = out
     finally:
         pm.module.eval()
+    if left:
+        print("ReLU inputs of differing sign; whole-block gradients left "
+              f"to the per-layer check: {', '.join(left)}")
+    assert len(left) < len(bounds), "no block was checked whole"
 
 
 def test_vit_dropout_trains_apart_from_eval():
